@@ -1,0 +1,34 @@
+"""Device memory the 128×128 tile layout needs for the launcher's graph.
+
+    PYTHONPATH=src python scripts/torch_tile_memory.py [n ...]
+
+For each n (default 16,384 … 131,072) builds ``powerlaw_cluster(n, 6.0,
+prob=0.25, seed=7)`` on the CPU, dedupes and reverses it as the serving
+launcher does, and prints the edge count, the number of non-empty tiles
+(`core.tiles.edge_slot_map`, host code only — no stacks are allocated),
+the bytes of the prob (f32) + edge id (i32) stacks a GPU would hold, and
+the share of tile slots that hold an edge.
+"""
+from __future__ import annotations
+
+import sys
+
+from repro_torch.core import tiles
+from repro_torch.graph import csr, generators
+
+
+def main(sizes) -> None:
+    t = tiles.TILE
+    print("n, edges, tiles, GiB, edges per tile, slot occupancy")
+    for n in sizes:
+        g_rev = csr.transpose(csr.dedupe(generators.powerlaw_cluster(
+            n, 6.0, prob=0.25, seed=7, device="cpu")))
+        _, nt = tiles.edge_slot_map(g_rev, t)
+        gib = nt * t * t * 8 / 2 ** 30
+        print(f"{n}, {g_rev.num_edges}, {nt}, {gib:.1f}, "
+              f"{g_rev.num_edges / nt:.2f}, "
+              f"{g_rev.num_edges / (nt * t * t):.6f}")
+
+
+if __name__ == "__main__":
+    main([int(a) for a in sys.argv[1:]] or [16384, 32768, 65536, 131072])

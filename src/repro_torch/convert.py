@@ -1,0 +1,56 @@
+"""Carry state across from the reference package (``repro``) as numpy.
+
+The reference keeps packed colour masks as uint32; the port keeps the same
+bit patterns in ``torch.int32`` tensors.  These helpers do the view at the
+boundary, so a graph or a sketch pool built by one package can be handed to
+the other and compared bit for bit.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.core import rrr
+from repro_torch.graph import csr
+
+
+def graph_from_numpy(indptr, src, dst, prob, num_vertices: int,
+                     num_edges: int, device="cuda") -> csr.Graph:
+    """A `csr.Graph` holding exactly the given CSR arrays (no re-sort: the
+    edge order, hence every RNG counter, is kept)."""
+    dev = device_lib.resolve(device)
+
+    def put(a, dtype):
+        return torch.from_numpy(np.array(a, dtype)).to(dev)
+
+    return csr.Graph(indptr=put(indptr, np.int32), src=put(src, np.int32),
+                     dst=put(dst, np.int32), prob=put(prob, np.float32),
+                     num_vertices=int(num_vertices), num_edges=int(num_edges))
+
+
+def masks_from_numpy(words: np.ndarray, device="cuda") -> torch.Tensor:
+    """uint32 mask array → int32 bit-pattern tensor on ``device``."""
+    arr = np.ascontiguousarray(words, np.uint32).view(np.int32)
+    return torch.from_numpy(arr.copy()).to(device_lib.resolve(device))
+
+
+def masks_to_numpy(words: torch.Tensor) -> np.ndarray:
+    """int32 bit-pattern tensor → uint32 numpy array (a host copy)."""
+    return words.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def batches_from_numpy(visited: np.ndarray, roots: np.ndarray,
+                       batch_indices, edge_visits=None,
+                       device="cuda") -> list[rrr.RRRBatch]:
+    """`rrr.RRRBatch` list from a reference pool's arrays: ``visited``
+    (B, V, W) uint32, ``roots`` (B, C), ``batch_indices`` (B,) and
+    optionally ``edge_visits`` (B, 2) (fused, unfused; -1 where not
+    instrumented).  Assign the list to ``SketchStore.batches`` to serve the
+    reference's pool."""
+    masks = masks_from_numpy(visited, device)
+    visits = (np.full((masks.shape[0], 2), -1, np.int64)
+              if edge_visits is None else np.asarray(edge_visits))
+    return [rrr.RRRBatch(masks[i], np.asarray(roots[i], np.int32), int(b),
+                         int(visits[i, 0]), int(visits[i, 1]))
+            for i, b in enumerate(batch_indices)]

@@ -1,0 +1,163 @@
+"""Block-sparse adjacency tiles (PyTorch port of ``repro.core.tiles``).
+
+The adjacency ``A[src, dst]`` of the (reversed) graph is a list of
+non-empty ``T×T`` tiles sorted by destination block, each carrying
+
+  * ``prob``    (T, T) float32 — IC activation probability (0 ⇒ no edge),
+  * ``edge_id`` (T, T) int32   — the edge's CSR index, the RNG counter that
+    makes the tile path draw the CSR path's exact Bernoulli realization.
+
+The layout is the reference's, array for array (``from_graph`` mirrors its
+sort/unique), except that the reference's ``first_of_dst`` run-start flags
+give way to ``dst_run_ptr``, the ``(n_blocks + 1,)`` offsets of each
+destination block's tile run: one CTA per destination block of the CUDA
+kernel finds its tiles there without a search or a cross-tile
+accumulation.
+
+The stacks are not built in host memory: at 65,536 vertices they take
+24 GiB.  The host computes each edge's flat slot (``edge_slot_map``);
+zeros are allocated on the device and ``prob``/``edge_id`` scattered there.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.graph.csr import Graph
+
+TILE = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledGraph:
+    """Block-sparse adjacency (see module docstring)."""
+    prob: torch.Tensor          # (nt, T, T) float32
+    edge_id: torch.Tensor       # (nt, T, T) int32  (0 ok: prob gates validity)
+    tile_src: torch.Tensor      # (nt,) int32  source block index
+    tile_dst: torch.Tensor      # (nt,) int32  destination block (sorted)
+    dst_run_ptr: torch.Tensor   # (n_blocks + 1,) int32  tile run offsets
+    num_vertices: int
+    num_edges: int
+    tile_size: int
+
+    @property
+    def num_tiles(self) -> int:
+        return int(self.prob.shape[0])
+
+    @property
+    def padded_vertices(self) -> int:
+        return -(-self.num_vertices // self.tile_size) * self.tile_size
+
+    @property
+    def num_blocks(self) -> int:
+        return self.padded_vertices // self.tile_size
+
+
+def dedupe_edges(src: np.ndarray, dst: np.ndarray, prob: np.ndarray):
+    """Combine parallel (src, dst) duplicates: p = 1 - Π(1 - p_i) (float64
+    log-space accumulation, as the reference)."""
+    key = src.astype(np.int64) * (dst.max() + 1 if len(dst) else 1) + dst
+    order = np.argsort(key, kind="stable")
+    key, src, dst, prob = key[order], src[order], dst[order], prob[order]
+    uniq, first, inv = np.unique(key, return_index=True, return_inverse=True)
+    log_keep = np.log1p(-np.clip(prob, 0.0, 1.0 - 1e-7))
+    acc = np.zeros(len(uniq))
+    np.add.at(acc, inv, log_keep)
+    return src[first], dst[first], (1.0 - np.exp(acc)).astype(np.float32)
+
+
+def _tile_keys(src: np.ndarray, dst: np.ndarray, tile_size: int):
+    """(order, unique tile keys, flat slot per sorted edge, key base) — the
+    sort/unique that fixes the tile layout: dst-block major, src minor."""
+    ts, td = src // tile_size, dst // tile_size
+    base = int(ts.max()) + 1
+    tile_key = td.astype(np.int64) * base + ts
+    order = np.argsort(tile_key, kind="stable")
+    uniq, inv = np.unique(tile_key[order], return_inverse=True)
+    li, lj = src[order] % tile_size, dst[order] % tile_size
+    flat = (inv.astype(np.int64) * tile_size * tile_size
+            + li.astype(np.int64) * tile_size + lj)
+    return order, uniq, flat, base
+
+
+def edge_slot_map(g: Graph, tile_size: int = TILE):
+    """``(slot (E,) int64, num_tiles)``: CSR edge id → flat index into the
+    ``(nt·T·T,)`` raveled tile stacks of ``from_graph(g, tile_size)``."""
+    e = g.num_edges
+    if e == 0:
+        return np.zeros(0, np.int64), 0
+    src, dst, _ = g.edges_numpy()
+    order, uniq, flat, _ = _tile_keys(src, dst, tile_size)
+    slot = np.empty(e, np.int64)
+    slot[order] = flat                 # flat[j] is the slot of edge order[j]
+    return slot, len(uniq)
+
+
+def run_pointers(tile_dst: np.ndarray, n_blocks: int) -> np.ndarray:
+    """(n_blocks + 1,) int32: tiles of destination block ``b`` are
+    ``[ptr[b], ptr[b+1])`` of the dst-sorted list (empty for blocks no
+    tile reaches)."""
+    return np.searchsorted(tile_dst, np.arange(n_blocks + 1),
+                           side="left").astype(np.int32)
+
+
+def from_graph(g: Graph, tile_size: int = TILE,
+               pad_tiles_to: int | None = None) -> TiledGraph:
+    """Extract the non-empty tile list of ``g`` onto ``g``'s device."""
+    e = g.num_edges
+    dev = g.device
+    src, dst, prob = g.edges_numpy()
+    order, uniq, flat, base = _tile_keys(src, dst, tile_size)
+    # Duplicate (src, dst) pairs must have been merged (dedupe_edges) — check.
+    if len(np.unique(flat)) != len(flat):
+        raise ValueError("parallel edges present — run tiles.dedupe_edges / "
+                         "csr.from_edges(..., dedupe=True) first")
+    nt = len(uniq)
+    t_src = (uniq % base).astype(np.int32)
+    t_dst = (uniq // base).astype(np.int32)
+
+    total = nt
+    if pad_tiles_to is not None:
+        if pad_tiles_to < nt:
+            raise ValueError(f"pad_tiles_to={pad_tiles_to} < num_tiles={nt}")
+        pad = pad_tiles_to - nt
+        if pad:
+            # Padding tiles join the last dst block's run with prob 0 —
+            # pure no-ops that keep shapes static.
+            t_src = np.concatenate([t_src, np.full(pad, t_src[-1], np.int32)])
+            t_dst = np.concatenate([t_dst, np.full(pad, t_dst[-1], np.int32)])
+        total = pad_tiles_to
+
+    slots = torch.from_numpy(flat).to(dev)
+    P = torch.zeros(total * tile_size * tile_size, dtype=torch.float32,
+                    device=dev)
+    P[slots] = torch.from_numpy(prob[order]).to(dev)
+    E = torch.zeros_like(P, dtype=torch.int32)
+    E[slots] = torch.from_numpy(order.astype(np.int32)).to(dev)
+    n_blocks = -(-g.num_vertices // tile_size)
+    return TiledGraph(
+        prob=P.view(total, tile_size, tile_size),
+        edge_id=E.view(total, tile_size, tile_size),
+        tile_src=torch.from_numpy(t_src).to(dev),
+        tile_dst=torch.from_numpy(t_dst).to(dev),
+        dst_run_ptr=torch.from_numpy(run_pointers(t_dst, n_blocks)).to(dev),
+        num_vertices=g.num_vertices, num_edges=e, tile_size=tile_size)
+
+
+def cached(g: Graph, tile_size: int = TILE) -> TiledGraph:
+    """``from_graph(g, tile_size)`` built once per graph object — samplers
+    over one graph share the device stacks instead of each holding a
+    copy."""
+    key = ("tiles", tile_size)
+    tg = g.cache.get(key)
+    if tg is None:
+        tg = g.cache[key] = from_graph(g, tile_size)
+    return tg
+
+
+def pad_mask_rows(mask: torch.Tensor, padded_vertices: int) -> torch.Tensor:
+    pad = padded_vertices - mask.shape[0]
+    return F.pad(mask, (0, 0, 0, pad)) if pad else mask

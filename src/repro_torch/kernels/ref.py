@@ -1,0 +1,83 @@
+"""Plain PyTorch versions of the port's CUDA kernels.
+
+Each function defines its kernel's result.  The wrappers in `kernels.ops`
+run these on CPU tensors; the tests hold them against the reference's
+Pallas kernels, and ``chip_smoke.py`` holds the CUDA kernels against them
+on the card.  They repeat the kernels' arithmetic and are no yardstick of
+speed.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import bitmask, rng
+
+
+def fused_expand_ref(prob, edge_id, tile_src, tile_dst, frontier, visited,
+                     seed, level, *, chunk_tiles: int = 1024):
+    """One level of tile-based IC expansion (replaces the reference's
+    ``kernels/ref.py::fused_expand_ref``):
+
+        out[dst] = OR over tiles( OR_i frontier[src_i] & Bernoulli_word(edge)
+                   ) & ~visited[dst]
+
+    Args:
+      prob:     (nt, T, T) f32 tile activation probabilities (0 ⇒ no edge).
+      edge_id:  (nt, T, T) int32 CSR edge ids (RNG counters).
+      tile_src: (nt,) int32 source block per tile (indexes ``frontier``).
+      tile_dst: (nt,) int32 destination block per tile (indexes ``visited``).
+      frontier: (Vf, W) int32 packed colour mask (padded rows).
+      visited:  (Vo, W) int32 — ALREADY folded with the current frontier.
+      seed, level: RNG counters.
+
+    Only slots that can contribute are hashed: a slot with ``prob ≤ 0``
+    never draws (a uniform in [0, 1) is never below it) and a source row
+    with an empty frontier word contributes 0.  Tiles go in chunks of
+    ``chunk_tiles`` to bound the transient ``(slots, W, 32)`` hash tensor.
+    """
+    nt, T, _ = prob.shape
+    w = frontier.shape[1]
+    dev = frontier.device
+    h_level = rng.level_prefix(seed, level)
+    lanes = (torch.arange(w, device=dev)[:, None] * 32
+             + torch.arange(32, device=dev)[None, :])        # (W, 32)
+    fr_live = (frontier != 0).any(1)
+    rows_in_block = torch.arange(T, device=dev)
+    out_lanes = torch.zeros(visited.shape[0] * w, 32, dtype=torch.uint8,
+                            device=dev)
+    for c0 in range(0, nt, chunk_tiles):
+        p = prob[c0:c0 + chunk_tiles]
+        src_blk = tile_src[c0:c0 + chunk_tiles].to(torch.int64)
+        live = fr_live[src_blk[:, None] * T + rows_in_block[None, :]]
+        t, i, j = torch.nonzero((p > 0) & live[:, :, None], as_tuple=True)
+        if t.numel() == 0:
+            continue
+        src_row = src_blk[t] * T + i
+        dst_row = tile_dst[c0:c0 + chunk_tiles].to(torch.int64)[t] * T + j
+        h_edge = rng._fold(h_level, bitmask.u32(edge_id[c0 + t, i, j]))
+        bits = rng._fold(h_edge[:, None, None], lanes[None])
+        draws = rng.uniform_from_u32(bits) < p[t, i, j][:, None, None]
+        contrib = frontier[src_row] & bitmask.pack_bits(draws)   # (M, W)
+        flat = (dst_row[:, None] * w + torch.arange(w, device=dev)[None, :])
+        out_lanes.scatter_reduce_(
+            0, flat.reshape(-1, 1).expand(-1, 32),
+            bitmask.unpack_bits(contrib).to(torch.uint8).reshape(-1, 32),
+            "amax")
+    out = bitmask.pack_bits(out_lanes.view(visited.shape[0], w, 32).bool())
+    return out & ~visited
+
+
+def cover_counts_ref(visited, active):
+    """Marginal-gain counts for max-k-cover, summed over the pool's batches
+    (replaces ``kernels/ref.py::cover_counts_ref`` composed with the batch
+    sum at ``imm.py:217`` / ``engine.py:112``):
+
+        counts[v] = Σ_b Σ_w popcount(visited[b, v, w] & active[b, w])
+
+    visited (B, V, W) int32 × active (B, W) → (V,) int32; a single batch
+    may be passed as (V, W) × (W,).
+    """
+    if visited.dim() == 2:
+        visited, active = visited[None], active[None]
+    return bitmask.popcount(visited & active[:, None, :]).sum(
+        (0, 2), dtype=torch.int32)

@@ -1,0 +1,93 @@
+"""CUDA kernels of the port ≡ their plain PyTorch versions, on the GPU.
+
+Every test here needs an NVIDIA GPU and ``nvcc`` (the kernels build from
+``src/repro_torch/csrc`` at first use) and skips elsewhere.  Run them on a
+GPU machine with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.core import rrr, tiled_traversal, tiles
+from repro_torch.graph import csr, generators
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+def _tiled(n, e, *, seed, tile_size, dst_limit=None, pad=0):
+    rs = np.random.default_rng(seed)
+    src = rs.integers(0, n, e)
+    dst = rs.integers(0, dst_limit or n, e)
+    keep = src != dst
+    g = csr.from_edges(src[keep], dst[keep],
+                       rs.uniform(0, 1, keep.sum()).astype(np.float32), n,
+                       dedupe=True, device="cuda")
+    nt = tiles.from_graph(g, tile_size).num_tiles
+    return tiles.from_graph(g, tile_size, pad_tiles_to=nt + pad)
+
+
+def _masks(vp, colors, seed, density, device):
+    rs = np.random.default_rng(seed)
+    w = -(-colors // 32)
+    lanes = rs.random((2, vp, w, 32)) < [[[[density]]], [[[0.2]]]]
+    words = np.packbits(lanes, axis=-1, bitorder="little") \
+        .view(np.uint32)[..., 0]
+    if colors % 32:
+        words[..., -1] &= (1 << (colors % 32)) - 1
+    fr = convert.masks_from_numpy(words[0], device)
+    return fr, fr | convert.masks_from_numpy(words[1], device)
+
+
+@pytest.mark.parametrize("tile_size", [32, 64, 128])
+@pytest.mark.parametrize("colors", [32, 64, 96])
+def test_fused_expand_kernel_equals_plain(cuda, tile_size, colors):
+    tg = _tiled(3000, 20000, seed=colors, tile_size=tile_size,
+                dst_limit=2200, pad=3)
+    for density in (0.0, 0.05, 0.5):
+        fr, vis = _masks(tg.padded_vertices, colors, colors, density, cuda)
+        before = ops.LAUNCHES["fused_expand"]
+        got = ops.fused_expand(tg, fr, vis, 0xC0FFEE, 7)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["fused_expand"] == before + 1
+        want = ref.fused_expand_ref(tg.prob, tg.edge_id, tg.tile_src,
+                                    tg.tile_dst, fr, vis, 0xC0FFEE, 7)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,v,w", [(1, 300, 2), (64, 4096, 2), (5, 1000, 3)])
+def test_cover_counts_kernel_equals_plain(cuda, b, v, w):
+    g = torch.Generator(device="cuda").manual_seed(b)
+    vis = torch.randint(-2 ** 31, 2 ** 31, (b, v, w), dtype=torch.int32,
+                        device=cuda, generator=g)
+    act = torch.randint(-2 ** 31, 2 ** 31, (b, w), dtype=torch.int32,
+                        device=cuda, generator=g)
+    before = ops.LAUNCHES["cover_counts"]
+    got = ops.cover_counts(vis, act)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cover_counts"] == before + 1
+    assert torch.equal(got, ref.cover_counts_ref(vis, act))
+
+
+def test_kernel_traversal_equals_csr_sweep(cuda):
+    g = csr.dedupe(generators.powerlaw_cluster(5000, 6.0, prob=0.25, seed=7,
+                                               device="cuda"))
+    g_rev = csr.transpose(g)
+    tg = tiles.from_graph(g_rev)
+    for b in range(2):
+        starts = rrr.batch_starts(5000, 64, 0, b)
+        vis, levels, _ = tiled_traversal.run_fused_tiled(
+            tg, starts, 64, rrr.batch_seed(0, b))
+        dense = rrr.sample_batch(g_rev, 64, 0, b)
+        assert levels > 0 and torch.equal(vis, dense.visited)
