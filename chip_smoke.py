@@ -7,31 +7,48 @@ CUDA toolkit's ``nvcc``; it exits non-zero, printing no result, anywhere
 else.  Phases, each of which raises on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: both kernels from ``src/repro_torch/csrc``, compiled in parallel;
+2. build: the three kernels of ``src/repro_torch/csrc``, compiled in
+   parallel;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   exact equality — ``fused_expand`` on a reduced graph (empty frontier,
-   destination blocks no tile reaches, ``pad_tiles_to`` padding tiles, 32/64/
-   96 colours), ``cover_counts`` at the full pool shape;
-4. main path at full size: the serving launcher's ``run_single`` on the
+   exact equality — ``fused_expand`` and ``lt_select_expand`` on a reduced
+   graph (empty frontier, destination blocks no tile reaches,
+   ``pad_tiles_to`` padding tiles, 32/64/96 colours) over every tile and
+   over compacted tile lists (empty, one source block, full),
+   ``cover_counts`` at the full pool shape;
+4. IC main path at full size: the serving launcher's ``run_single`` on the
    kernel backend — powerlaw_cluster(65,536, 6.0, p=0.25, seed 7), 64
    colours, a 64-batch pool (4,096 RRR sets), one mixed micro-batched flush
    (top-16, 6 σ, 6 marginal), the same flush as 100% cache hits, a 25%
    refresh, and offline ``run_imm`` (ε 0.5, θ ≤ 4,096) through a fresh pool
    and without one, both equal to the host-loop greedy.  The launch counters
-   are zeroed just before and read just after; both kernels must have run;
-5. golden: batches 0-3 on the kernel backend, and 0-1 on the dense CSR
-   backend, bit for bit against ``tests/data/torch_port_golden.json`` (made
-   by ``scripts/make_torch_golden.py`` from the JAX reference), plus the
+   are zeroed just before and read just after; ``fused_expand`` and
+   ``cover_counts`` must have run;
+5. IC golden: batches 0-3 on the kernel backend (dense grid and compacted
+   grid), 0-1 on the dense CSR backend, bit for bit against
+   ``tests/data/torch_port_golden.json`` (made by
+   ``scripts/make_torch_golden.py`` from the JAX reference), plus the
    top-16 seeds over that 4-batch pool;
-6. timing (CUDA events): every level of batch 0 through the kernel and
-   through the plain version (equal at every level), and ``cover_counts``
-   at the pool's shape, each beside its bound on this card.
+6. IC timing: every level of batch 0 through the kernel's CUDA wrapper on
+   the dense grid and on the compacted grid (device time per launch,
+   launches replayed from a CUDA graph), the compaction, and the plain
+   version (equal at every level); ``cover_counts`` at the pool's shape
+   (CUDA events); each beside its bound on this card;
+7. LT main path at full size, after the IC tile stacks are released: the
+   same launcher run with ``--diffusion lt --frontier sparse`` (the
+   ``lt_select_expand`` kernel on the compacted tile list); counters as in
+   4, ``lt_select_expand`` and ``cover_counts`` must have run;
+8. LT golden: batches 0-3 on the kernel backend, dense and compacted grid,
+   0-1 on the dense CSR backend, and the top-16 seeds, against the file;
+9. LT timing: as 6, with the plain version on the compacted list.
 
-The line before the last is the card's name and power limit as
-``nvidia-smi`` reports them; the last line is the result object.
+Each phase prints its peak device memory.  The line before the last is the
+card's name and power limit as ``nvidia-smi`` reports them; the last line
+is the result object.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import hashlib
 import json
 import os
@@ -113,46 +130,91 @@ def _random_masks(vp, colors, density, gen, dev):
 
 
 # ------------------------------------------------------------------ phases
-def check_kernels(dev) -> dict:
-    """Each kernel against its plain version on the card; returns the
-    largest word difference seen per kernel (0 = bit-identical)."""
+def _reduced_graph(dev, lt: bool):
+    """The reduced check graph: 4,096 vertices, destinations below 3,000 so
+    blocks 24..31 receive no tile, 5 ``pad_tiles_to`` padding tiles; LT
+    adds the normalised weights and the cb stack."""
+    from repro_torch.core import lt as lt_lib
     from repro_torch.core import tiles
     from repro_torch.graph import csr
-    from repro_torch.kernels import ops, ref
 
-    err = {"fused_expand": 0, "cover_counts": 0}
     rs = np.random.default_rng(11)
     n, e = 4096, 40_000
     src = rs.integers(0, n, e)
-    dst = rs.integers(0, 3000, e)        # blocks 24..31 receive no tile
+    dst = rs.integers(0, 3000, e)
     keep = src != dst
     g = csr.from_edges(src[keep], dst[keep],
                        rs.uniform(0, 1, keep.sum()).astype(np.float32), n,
                        dedupe=True, device=dev)
-    nt = tiles.from_graph(g).num_tiles
-    tg = tiles.from_graph(g, pad_tiles_to=nt + 5)
+    if lt:
+        g = lt_lib.normalize_lt_weights(g)
+    nt = tiles.from_graph(g, edge_ids=not lt).num_tiles
+    tg = tiles.from_graph(g, pad_tiles_to=nt + 5, edge_ids=not lt)
     ptr = tg.dst_run_ptr
     _check(bool((ptr[1:] == ptr[:-1]).any()), "reduced graph lacks empty "
            "destination blocks")
+    cb = (tiles.edge_values_to_tiles(tg, g, lt_lib.selection_cum_before(g))
+          if lt else None)
+    return tg, cb
+
+
+def _tile_lists(tg, fr):
+    """(name, tile_ids, frontier) cases of the compacted-list checks: every
+    tile (None), the empty list, one source block, the full list."""
+    from repro_torch.core import tiles
+
+    act = torch.zeros(tg.num_blocks, dtype=torch.bool, device=fr.device)
+    cases = [("dense grid", None, fr),
+             ("empty list", tiles.active_tile_ids(tg.tile_src, act), fr)]
+    act[int(tg.tile_src[0])] = True
+    one = fr * act.repeat_interleave(tg.tile_size)[:, None]
+    cases.append(("one source block", tiles.active_tile_ids(tg.tile_src, act),
+                  one))
+    act[:] = True
+    cases.append(("full list", tiles.active_tile_ids(tg.tile_src, act), fr))
+    return cases
+
+
+def check_kernels(dev) -> dict:
+    """Each kernel against its plain version on the card; returns the
+    largest word difference seen per kernel (0 = bit-identical)."""
+    from repro_torch.kernels import ops, ref
+
+    err = {"fused_expand": 0, "cover_counts": 0, "lt_select_expand": 0}
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = 0
-    for colors in (32, 64, 96):
-        for density in (0.0, 0.02, 0.3):
-            fr, vis = _random_masks(tg.padded_vertices, colors, density, gen,
-                                    dev)
-            for seed, level in ((1, 0), (0xDEADBEEF, 17)):
-                got = ops.fused_expand(tg, fr, vis, seed, level)
-                want = ref.fused_expand_ref(tg.prob, tg.edge_id, tg.tile_src,
-                                            tg.tile_dst, fr, vis, seed, level)
-                torch.cuda.synchronize()
-                err["fused_expand"] = max(err["fused_expand"],
-                                          _max_abs_err(got, want))
-                _check(density > 0 or not bool(got.any()),
-                       "empty frontier expanded")
-                cases += 1
-    print(f"[kernels] fused_expand: {cases} cases on a {n}-vertex graph "
-          f"({tg.num_tiles} tiles, 5 padding), max word diff "
-          f"{err['fused_expand']}")
+    for lt in (False, True):
+        name = "lt_select_expand" if lt else "fused_expand"
+        tg, cb = _reduced_graph(dev, lt)
+        cases = 0
+        for colors in (32, 64, 96):
+            u = ref.lt_selection_uniforms(0xDEADBEEF, tg.padded_vertices,
+                                          colors, device=dev)
+            for density in (0.0, 0.02, 0.3):
+                fr0, vis = _random_masks(tg.padded_vertices, colors, density,
+                                         gen, dev)
+                for _, ids, fr in _tile_lists(tg, fr0):
+                    sel = slice(None) if ids is None else ids.long()
+                    stacks = (tg.prob[sel], cb[sel] if lt else
+                              tg.edge_id[sel], tg.tile_src[sel],
+                              tg.tile_dst[sel])
+                    if lt:
+                        got = ops.lt_select_expand(tg, cb, fr, vis, u,
+                                                   tile_ids=ids)
+                        want = ref.lt_select_expand_ref(*stacks, fr, vis, u)
+                    else:
+                        got = ops.fused_expand(tg, fr, vis, 0xDEADBEEF, 17,
+                                               tile_ids=ids)
+                        want = ref.fused_expand_ref(*stacks, fr, vis,
+                                                    0xDEADBEEF, 17)
+                    torch.cuda.synchronize()
+                    err[name] = max(err[name], _max_abs_err(got, want))
+                    _check(bool(fr.any()) or not bool(got.any()),
+                           f"{name}: an empty frontier expanded")
+                    cases += 1
+        print(f"[kernels] {name}: {cases} cases on a 4096-vertex graph "
+              f"({tg.num_tiles} tiles, 5 padding; every tile and compacted "
+              f"lists: empty, one source block, full), max word diff "
+              f"{err[name]}")
     for b, v, w in ((64, 65536, 2), (16, 65536, 3), (1, 300, 1)):
         vis = torch.randint(-2 ** 31, 2 ** 31, (b, v, w), dtype=torch.int32,
                             device=dev, generator=gen)
@@ -164,30 +226,39 @@ def check_kernels(dev) -> dict:
                                   _max_abs_err(got, want))
     print(f"[kernels] cover_counts: (B, V, W) up to (64, 65536, 2), max diff "
           f"{err['cover_counts']}")
-    _check(err == {"fused_expand": 0, "cover_counts": 0},
+    _check(not any(err.values()),
            f"kernel disagrees with its plain version: {err}")
     return err
 
 
-def run_main_path(golden: dict) -> tuple[dict, dict]:
-    """The serving launcher at full size on the kernel backend; returns its
-    summary and the launch counts of exactly this run."""
+def _peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def run_main_path(golden: dict, diffusion: str) -> tuple[dict, dict]:
+    """The serving launcher at full size on the kernel backend (IC on the
+    dense grid, LT on the compacted grid); returns its summary and the
+    launch counts of exactly this run."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve_influence
 
+    extra = ["--diffusion", "lt", "--frontier", "sparse"] \
+        if diffusion == "lt" else []
     args = serve_influence.parse_args([
         "--device", "cuda", "--smoke", "--sampler-backend", "kernel",
         "--n", str(golden["graph"]["n"]), "--colors", "64",
         "--batches", "64", "--max-batches", "64", "--k", "16",
-        "--queries", "6", "--theta-cap", "4096"])
+        "--queries", "6", "--theta-cap", "4096", *extra])
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     out = serve_influence.run_single(args)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    print(f"[main] launches on the main path: {launches}")
-    _check(all(launches[k] > 0 for k in ("fused_expand", "cover_counts")),
-           f"a kernel of the path never launched: {launches}")
+    print(f"[main {diffusion}] launches on the main path: {launches}; peak "
+          f"device memory {_peak_gib():.2f} GiB")
+    kernel = "lt_select_expand" if diffusion == "lt" else "fused_expand"
+    _check(launches[kernel] > 0 and launches["cover_counts"] > 0,
+           f"a kernel of the {diffusion} path never launched: {launches}")
     return out, launches
 
 
@@ -200,8 +271,7 @@ def check_outputs(out: dict, golden: dict) -> None:
     tg = store.sampler.tg_rev
     n = store.graph.num_vertices
     print(f"[main] graph: {n} vertices, {store.graph.num_edges} edges, "
-          f"{tg.num_tiles} tiles; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+          f"{tg.num_tiles} tiles")
     _check(tg.num_tiles == golden["graph"]["num_tiles"]
            and store.graph.num_edges == golden["graph"]["num_edges"],
            "graph or tile layout differs from the reference")
@@ -222,6 +292,7 @@ def check_outputs(out: dict, golden: dict) -> None:
     print(f"[main] run_imm: θ={res.theta}, coverage {res.coverage:.6f}, "
           f"σ̂={res.sigma_estimate:.1f}, seeds {res.seeds.tolist()}")
 
+    torch.cuda.reset_peak_memory_stats()
     kern = store.sampler.sample_many(range(4))
     for b, gb in zip(kern, golden["batches"]):
         _check(_sha(b.visited) == gb["visited_sha256"],
@@ -239,79 +310,245 @@ def check_outputs(out: dict, golden: dict) -> None:
                and d.fused_edge_visits == gb["fused_edge_visits"]
                and d.unfused_edge_visits == gb["unfused_edge_visits"],
                f"dense batch {d.batch_index} differs from kernel/reference")
-    print("[golden] kernel batches 0-3, dense batches 0-1 and the top-16 "
-          "seeds equal the reference bit for bit "
-          f"(fused edge visits {[d.fused_edge_visits for d in dense]})")
+    compact = make_sampler(store.graph, SamplerSpec(
+        backend="kernel", frontier="sparse"), g_rev=store.g_rev)
+    steps = []
+    for b, gb in zip(range(4), golden["batches"]):
+        _check(_sha(compact.sample(b).visited) == gb["visited_sha256"],
+               f"compacted-grid kernel batch {b} differs from the reference")
+        steps.append((compact.last_active_tiles, compact.last_grid_steps,
+                      compact.last_levels * tg.num_tiles))
+    print("[golden] kernel batches 0-3 (dense grid and compacted grid), dense "
+          "batches 0-1 and the top-16 seeds equal the reference bit for bit "
+          f"(fused edge visits {[d.fused_edge_visits for d in dense]}); "
+          f"compacted grid (tiles walked, grid_steps, dense-grid steps) per "
+          f"batch {steps}; peak device memory {_peak_gib():.2f} GiB")
 
 
-def time_fused_expand(store) -> dict:
-    """Every level of batch 0 through the kernel and the plain version."""
-    from repro_torch.core import bitmask, tiles, traversal
-    from repro_torch.kernels import ops, ref
+def _kernel_ms(fn, launches: int = 10) -> float:
+    """Device time of one launch of ``fn``: ``launches`` launches captured
+    in one CUDA graph and replayed between two events, so no host dispatch
+    lies between them (L2 warm after the first)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
 
-    tg, g_rev = store.sampler.tg_rev, store.g_rev
+
+def time_tile_kernel(store, diffusion: str) -> dict:
+    """Every level of batch 0 through the tile kernel's CUDA wrapper on the
+    dense grid and on the level's compacted tile list (its run pointers
+    built outside the timed window; `_kernel_ms`), the compaction itself
+    (tile list and run pointers, CUDA events), and the plain version (IC:
+    the whole stacks, as the dense grid; LT: the gathered list, as the
+    compacted grid its main path runs); all equal at every level.  The
+    eager timings run in a first pass over the levels, the CUDA graphs in a
+    second, so graph memory does not disturb the allocator under them.
+    Each level's bound counts what its data needs: prob and edge id (IC)
+    or prob and cb (LT) of every edge whose source row is live, the uniform
+    of every tested (edge, colour) pair (LT), the output mask, the run
+    pointers, and on the dense grid the whole frontier and visited masks
+    and every tile's source block; on the compacted list only the frontier
+    rows of the listed tiles' source blocks, the visited rows of the
+    destination blocks they reach, and each entry's id and source block;
+    one edge fold and one draw per tested pair (IC), one add and two
+    compares (LT)."""
+    from repro_torch.core import bitmask, sparse, tiles, traversal
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_expand import fused_expand_cuda
+    from repro_torch.kernels.lt_select_expand import lt_select_expand_cuda
+    from repro_torch.sampling import make_sampler
+
+    lt = diffusion == "lt"
+    name = "lt_select_expand" if lt else "fused_expand"
+    sampler, g_rev = store.sampler, store.g_rev
+    tg = sampler.tg_rev
     dev = tg.prob.device
-    seed = store.sampler.batch_seed(0)
+    seed = sampler.batch_seed(0)
     fr = tiles.pad_mask_rows(traversal.init_frontier(
-        tg.num_vertices, 64, store.sampler.batch_starts(0), dev),
+        tg.num_vertices, 64, sampler.batch_starts(0), dev),
         tg.padded_vertices)
     vis = torch.zeros_like(fr)
+    cb = u = None
+    if lt:
+        cb = sampler._cb_tiles
+        u = ref.lt_selection_uniforms(seed, tg.padded_vertices, 64,
+                                      device=dev)
+
+    def kernel(level, fr, vis, ids, ptr):
+        if lt:
+            return lt_select_expand_cuda(tg.prob, cb, tg.tile_src, ptr, fr,
+                                         vis, u, tile_ids=ids)
+        return fused_expand_cuda(tg.prob, tg.edge_id, tg.tile_src, ptr, fr,
+                                 vis, seed, level, tile_ids=ids)
+
+    def plain(level, fr, vis, ids):
+        if lt:
+            sel = ids.long()
+            return ref.lt_select_expand_ref(tg.prob[sel], cb[sel],
+                                            tg.tile_src[sel],
+                                            tg.tile_dst[sel], fr, vis, u)
+        return ref.fused_expand_ref(tg.prob, tg.edge_id, tg.tile_src,
+                                    tg.tile_dst, fr, vis, seed, level)
+
+    def compact(fr):
+        ids = tiles.active_tile_ids(
+            tg.tile_src, sparse.row_block_activity(fr, tg.tile_size))
+        return ids, tiles.run_pointers(tg.tile_dst[ids.long()],
+                                       tg.num_blocks)
+
     src = g_rev.src[:g_rev.num_edges].long()
     dst = g_rev.dst[:g_rev.num_edges].long()
-    kernel_ms, plain_ms, bytes_ms, ops_ms, err = [], [], [], [], 0
-    level = 0
-    while level < 64 and bitmask.any_set(fr):
+    row_bytes = tg.tile_size * fr.shape[1] * 4
+    ptr_bytes = (tg.num_blocks + 1) * 4
+    t = {k: [] for k in ("dense", "compact", "compaction", "plain",
+                         "bytes_dense", "bytes_compact", "ops", "tiles")}
+    # Pass 1, eager: the levels' masks and lists, the checks, the bounds,
+    # and the compaction and plain-version times (CUDA events).
+    levels, err = [], 0
+    while len(levels) < 64 and bitmask.any_set(fr):
+        level = len(levels)
         vis = vis | fr
-        nf = ops.fused_expand(tg, fr, vis, seed, level)          # warm
-        kernel_ms.append(_time_ms(
-            lambda: ops.fused_expand(tg, fr, vis, seed, level), 2))
+        ids, ptr = compact(fr)
+        t["compaction"].append(_time_ms(lambda: compact(fr), 3))
+        nf = kernel(level, fr, vis, None, tg.dst_run_ptr)
+        nf_c = kernel(level, fr, vis, ids, ptr)
         want = [None]
 
-        def plain():
-            want[0] = ref.fused_expand_ref(tg.prob, tg.edge_id, tg.tile_src,
-                                           tg.tile_dst, fr, vis, seed, level)
-        plain_ms.append(_time_ms(plain, 1))
-        err = max(err, _max_abs_err(nf, want[0]))
-        # What this level's data needs: the prob and edge id of each edge
-        # whose source row is live, the three masks, the tile indices; one
-        # edge fold per live edge and one draw per colour that can cross it.
+        def run_plain():
+            want[0] = plain(level, fr, vis, ids)
+        t["plain"].append(_time_ms(run_plain, 1))
+        err = max(err, _max_abs_err(nf, want[0]), _max_abs_err(nf_c, nf))
         fr_src = fr[src]
         live = (fr_src != 0).any(1)
-        draws = int(bitmask.popcount(fr_src[live] & ~vis[dst[live]]).sum())
+        pairs = int(bitmask.popcount(fr_src[live] & ~vis[dst[live]]).sum())
         n_live = int(live.sum())
-        nbytes = (n_live * 8 + 3 * fr.numel() * 4 + tg.num_tiles * 4
-                  + tg.dst_run_ptr.numel() * 4)
-        bytes_ms.append(1e3 * nbytes / HBM_BYTES_PER_S)
-        ops_ms.append(1e3 * (n_live * OPS_PER_EDGE_FOLD + draws * OPS_PER_DRAW)
-                      / SCALAR_OPS_PER_S)
+        edge_bytes = n_live * 8 + (pairs * 4 if lt else 0)
+        out_bytes = fr.numel() * 4
+        listed = ids.long()
+        n_src = int(torch.unique(tg.tile_src[listed]).numel())
+        n_dst = int(torch.unique(tg.tile_dst[listed]).numel())
+        t["bytes_dense"].append(edge_bytes + 3 * out_bytes
+                                + tg.num_tiles * 4 + ptr_bytes)
+        t["bytes_compact"].append(edge_bytes + out_bytes
+                                  + (n_src + n_dst) * row_bytes
+                                  + ids.numel() * 8 + ptr_bytes)
+        t["ops"].append(n_live + 3 * pairs if lt else
+                        n_live * OPS_PER_EDGE_FOLD + pairs * OPS_PER_DRAW)
+        t["tiles"].append(int(ids.numel()))
+        levels.append((fr, vis, ids, ptr))
         fr = nf
-        level += 1
-    _check(err == 0, f"fused_expand differs from its plain version at full "
-           f"size: max word diff {err}")
-    bound = np.maximum(bytes_ms, ops_ms)
-    per = dict(levels=level, ms=float(np.mean(kernel_ms)),
-               plain_ms=float(np.mean(plain_ms)),
-               bound_ms=float(np.mean(bound)), max_abs_err=err,
-               bound_by=("bytes" if np.sum(bytes_ms) >= np.sum(ops_ms)
-                         else "operations"),
-               ms_max=float(np.max(kernel_ms)))
-    print(f"[timing] fused_expand over the {level} levels of batch 0: kernel "
-          f"mean {per['ms']:.4f} ms (max {per['ms_max']:.4f}), plain "
-          f"{per['plain_ms']:.4f} ms, bound {per['bound_ms']:.6f} ms "
-          f"({per['bound_by']}; bytes {np.mean(bytes_ms):.6f}, operations "
-          f"{np.mean(ops_ms):.6f})")
-    print(f"[timing] fused_expand ms per level: "
-          f"{[round(t, 3) for t in kernel_ms]}")
-    # Host clock around the whole batch: the kernel's share of it is how
-    # busy the per-level loop keeps the card.
-    t0 = time.perf_counter()
-    store.sampler.sample(0)
-    torch.cuda.synchronize()
-    batch_ms = 1e3 * (time.perf_counter() - t0)
-    print(f"[timing] batch 0 end to end {batch_ms:.2f} ms; its levels' kernel "
-          f"times sum to {np.sum(kernel_ms):.2f} ms "
-          f"({np.sum(kernel_ms) / batch_ms:.1%})")
+    # Pass 2: each level's kernel on both grids, device time per launch.
+    for level, (fr, vis, ids, ptr) in enumerate(levels):
+        t["dense"].append(_kernel_ms(
+            lambda: kernel(level, fr, vis, None, tg.dst_run_ptr)))
+        t["compact"].append(_kernel_ms(
+            lambda: kernel(level, fr, vis, ids, ptr)))
+    level = len(levels)
+    del levels
+    _check(err == 0, f"{name} differs from its plain version or between its "
+           f"grids at full size: max word diff {err}")
+    ops_s = np.asarray(t["ops"]) / SCALAR_OPS_PER_S
+    per = dict(levels=level, compaction_ms=float(np.mean(t["compaction"])),
+               plain_ms=float(np.mean(t["plain"])), max_abs_err=err,
+               tiles=float(np.mean(t["tiles"])))
+    for grid in ("dense", "compact"):
+        bytes_s = np.asarray(t[f"bytes_{grid}"]) / HBM_BYTES_PER_S
+        per[f"{grid}_ms"] = float(np.mean(t[grid]))
+        per[f"{grid}_bound_ms"] = float(np.mean(1e3 * np.maximum(bytes_s,
+                                                                 ops_s)))
+        per[f"{grid}_bound_by"] = ("bytes" if bytes_s.sum() >= ops_s.sum()
+                                   else "operations")
+    print(f"[timing] {name} over the {level} levels of batch 0, device time "
+          f"per launch (CUDA graph of 10): dense grid mean "
+          f"{per['dense_ms']:.4f} ms (max {np.max(t['dense']):.4f}, bound "
+          f"{per['dense_bound_ms']:.6f} by {per['dense_bound_by']}); "
+          f"compacted list mean {per['compact_ms']:.4f} ms (max "
+          f"{np.max(t['compact']):.4f}, bound {per['compact_bound_ms']:.6f} "
+          f"by {per['compact_bound_by']}; {per['tiles']:.0f} of "
+          f"{tg.num_tiles} tiles on average); compaction (tile list + run "
+          f"pointers) {per['compaction_ms']:.4f} ms; plain "
+          f"{per['plain_ms']:.4f} ms")
+    for k in ("dense", "compact", "compaction", "tiles"):
+        print(f"[timing] {name} {k} per level: "
+              f"{[round(x, 4) for x in t[k]]}")
+    # Host clock around whole batches on both grids, in turns: the kernel's
+    # share of a batch is how busy the per-level loop keeps the card.
+    other = make_sampler(store.graph, dataclasses.replace(
+        store.spec, frontier="dense" if store.spec.frontier == "sparse"
+        else "sparse"))
+    samplers = {store.spec.frontier: sampler, other.spec.frontier: other}
+    batch_ms = {"dense": [], "sparse": []}
+    for frontier in ("dense", "sparse", "sparse", "dense"):
+        t0 = time.perf_counter()
+        samplers[frontier].sample(0)
+        torch.cuda.synchronize()
+        batch_ms[frontier].append(1e3 * (time.perf_counter() - t0))
+    for frontier, grid in (("dense", "dense"), ("sparse", "compact")):
+        ms = float(np.mean(batch_ms[frontier]))
+        per[f"batch_{grid}_ms"] = ms
+        print(f"[timing] {diffusion} batch 0 end to end, {grid} grid: "
+              f"{ms:.2f} ms (runs {[round(x, 2) for x in batch_ms[frontier]]})"
+              f"; its levels' kernel times sum to {np.sum(t[grid]):.2f} ms "
+              f"({np.sum(t[grid]) / ms:.1%})")
     return per
+
+
+def check_outputs_lt(out: dict, golden: dict) -> None:
+    """LT: the pool's answers, its tile stacks, and the golden batches on
+    both grids and on the dense CSR backend."""
+    from repro_torch.core import imm
+    from repro_torch.sampling import SamplerSpec, make_sampler
+
+    store = out["store"]
+    tg = store.sampler.tg_rev
+    stack_gib = 2 * tg.num_tiles * tg.tile_size ** 2 * 4 / 2 ** 30
+    print(f"[main lt] {tg.num_tiles} tiles; prob + cb stacks "
+          f"{stack_gib:.1f} GiB by reckoning (no edge-id stack)")
+    _check(tg.num_tiles == golden["graph"]["num_tiles"]
+           and tg.edge_id is None,
+           "LT tile layout differs from the reference or carries edge ids")
+    tickets, results = out["tickets"], out["results"]
+    seeds, sigma = results[tickets["top_k"][0]]
+    _check(seeds.shape == (16,) and np.isfinite(sigma) and sigma > 0,
+           "LT top-k answer malformed")
+    res = out["imm"]
+    _check(res.theta <= 4096 and 0 < res.coverage <= 1
+           and res.seeds.shape == (16,), "LT run_imm result malformed")
+    print(f"[main lt] run_imm: θ={res.theta}, coverage {res.coverage:.6f}, "
+          f"σ̂={res.sigma_estimate:.1f}, seeds {res.seeds.tolist()}")
+
+    torch.cuda.reset_peak_memory_stats()
+    gold = golden["lt"]
+    compact = [store.sampler.sample(b) for b in range(4)]
+    dense_grid = make_sampler(store.graph, SamplerSpec(
+        diffusion="lt", backend="kernel")).sample_many(range(4))
+    csr_lt = make_sampler(store.graph, SamplerSpec(
+        diffusion="lt")).sample_many(range(2))
+    for grid, batches in (("compacted", compact), ("dense", dense_grid),
+                          ("CSR", csr_lt)):
+        for b, gb in zip(batches, gold["batches"]):
+            _check(_sha(b.visited) == gb["visited_sha256"],
+                   f"LT {grid} batch {b.batch_index} differs from the "
+                   "reference")
+    top, cov = imm.greedy_max_cover(torch.stack([b.visited for b in compact]),
+                                    16, 64)
+    _check(top.tolist() == gold["top_k"]["seeds"]
+           and cov == gold["top_k"]["coverage"],
+           f"LT top-16 over batches 0-3 {top.tolist()} != reference")
+    print("[golden] LT kernel batches 0-3 (compacted grid and dense grid), "
+          "dense CSR batches 0-1 and the top-16 seeds equal the reference "
+          f"bit for bit; peak device memory {_peak_gib():.2f} GiB")
 
 
 def time_cover_counts(store) -> dict:
@@ -371,28 +608,55 @@ def main() -> int:
                 if "registers" in ln]
         print(f"[build] {name}: {regs[-1] if regs else 'no ptxas report'}")
 
+    torch.cuda.reset_peak_memory_stats()
     err = check_kernels(dev)
-    out, launches = run_main_path(golden)
-    check_outputs(out, golden)
-    fe = time_fused_expand(out["store"])
-    cc = time_cover_counts(out["store"])
+    print(f"[kernels] peak device memory {_peak_gib():.2f} GiB")
 
-    build_pool_s = out["build_s"]
-    print(f"[result] build {build_s:.2f}s; pool build {build_pool_s:.3f}s "
-          f"for 64 batches ({64 / build_pool_s:.2f} batches/s); mixed flush "
-          f"{out['flush_s'] * 1e3:.2f} ms (first in the process), "
-          f"{out['reflush_s'] * 1e3:.2f} ms (after the refresh); "
-          f"fused_expand mean per level "
-          f"{fe['ms']:.4f} ms; cover_counts {cc['ms']:.4f} ms; total "
-          f"{time.time() - t_all:.1f}s")
+    out, launches = run_main_path(golden, "ic")
+    check_outputs(out, golden)
+    torch.cuda.reset_peak_memory_stats()
+    fe = time_tile_kernel(out["store"], "ic")
+    cc = time_cover_counts(out["store"])
+    print(f"[timing ic] peak device memory {_peak_gib():.2f} GiB")
+    ic = dict(build_s=out["build_s"], flush_s=out["flush_s"],
+              reflush_s=out["reflush_s"])
+    # The LT stacks (prob, cb) take another 24.2 GiB at this size: release
+    # the IC graph, its 24.2 GiB of tiles and the pools first, so that each
+    # phase's peak device memory is its own.
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"[release] IC phase freed: {held:.2f} GiB still allocated")
+
+    out_lt, launches_lt = run_main_path(golden, "lt")
+    check_outputs_lt(out_lt, golden)
+    torch.cuda.reset_peak_memory_stats()
+    lse = time_tile_kernel(out_lt["store"], "lt")
+    print(f"[timing lt] peak device memory {_peak_gib():.2f} GiB")
+
+    print(f"[result] build {build_s:.2f}s; IC pool build {ic['build_s']:.3f}s "
+          f"for 64 batches ({64 / ic['build_s']:.2f} batches/s), mixed flush "
+          f"{ic['flush_s'] * 1e3:.2f} ms (first in the process), "
+          f"{ic['reflush_s'] * 1e3:.2f} ms (after the refresh); LT pool build "
+          f"{out_lt['build_s']:.3f}s ({64 / out_lt['build_s']:.2f} "
+          f"batches/s), mixed flush {out_lt['reflush_s'] * 1e3:.2f} ms after "
+          f"the refresh; fused_expand mean per level {fe['dense_ms']:.4f} ms "
+          f"(compacted {fe['compact_ms']:.4f}); lt_select_expand "
+          f"{lse['compact_ms']:.4f} ms compacted ({lse['dense_ms']:.4f} "
+          f"dense grid); batch 0 end to end IC {fe['batch_dense_ms']:.2f} / "
+          f"{fe['batch_compact_ms']:.2f} ms, LT {lse['batch_dense_ms']:.2f} / "
+          f"{lse['batch_compact_ms']:.2f} ms (dense / compacted grid); "
+          f"cover_counts {cc['ms']:.4f} ms; total {time.time() - t_all:.1f}s")
     kernels = [
         dict(name="fused_expand", route="cuda",
              source="src/repro_torch/csrc/fused_expand.cu",
              replaces="src/repro/kernels/fused_expand.py:99",
              launches=launches["fused_expand"],
              max_abs_err=max(err["fused_expand"], fe["max_abs_err"]),
-             ms=fe["ms"], plain_ms=fe["plain_ms"], bound_ms=fe["bound_ms"],
-             bound_by=fe["bound_by"], library_ms=None),
+             ms=fe["dense_ms"], plain_ms=fe["plain_ms"],
+             bound_ms=fe["dense_bound_ms"], bound_by=fe["dense_bound_by"],
+             library_ms=None),
         dict(name="cover_counts", route="cuda",
              source="src/repro_torch/csrc/coverage.cu",
              replaces="src/repro/kernels/coverage.py:41",
@@ -400,6 +664,15 @@ def main() -> int:
              max_abs_err=max(err["cover_counts"], cc["max_abs_err"]),
              ms=cc["ms"], plain_ms=cc["plain_ms"], bound_ms=cc["bound_ms"],
              bound_by=cc["bound_by"], library_ms=None),
+        dict(name="lt_select_expand", route="cuda",
+             source="src/repro_torch/csrc/lt_select_expand.cu",
+             replaces="src/repro/kernels/lt_select_expand.py:101",
+             launches=launches_lt["lt_select_expand"],
+             max_abs_err=max(err["lt_select_expand"], lse["max_abs_err"]),
+             ms=lse["compact_ms"], plain_ms=lse["plain_ms"],
+             bound_ms=lse["compact_bound_ms"],
+             bound_by=lse["compact_bound_by"],
+             library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())

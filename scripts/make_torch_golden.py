@@ -8,7 +8,9 @@ samples batches 0-3 (master_seed 0, 64 colours) with the reference's dense
 CSR backend, and records for each batch the sha256 of its visited mask as
 little-endian uint32 plus its edge-visit counters, and the top-16 greedy
 seeds over the 4-batch pool (``use_kernel=False``: the same function as the
-Pallas coverage kernel, without interpret mode at 65,536 rows).  Output:
+Pallas coverage kernel, without interpret mode at 65,536 rows).  The same
+under the LT diffusion (``SamplerSpec(diffusion="lt")``, which normalises
+the reversed graph's in-weights) goes under ``"lt"``.  Output:
 ``tests/data/torch_port_golden.json``, which ``chip_smoke.py`` reads — the
 one full-size check of the port on the GPU against the reference.
 """
@@ -42,12 +44,17 @@ def main() -> None:
                                                seed=GRAPH_SEED))
     g_rev = csr.transpose(g)
     _, num_tiles = tiles.edge_slot_map(g_rev)
-    sampler = make_sampler(g, SamplerSpec(backend="dense", num_colors=COLORS,
-                                          master_seed=MASTER_SEED),
-                           g_rev=g_rev)
-    batches = sampler.sample_many(range(BATCHES))
-    stack = np.stack([np.asarray(b.visited) for b in batches])
-    seeds, cov = imm.greedy_max_cover(stack, K, COLORS, use_kernel=False)
+    pools = {}
+    for diffusion in ("ic", "lt"):
+        sampler = make_sampler(g, SamplerSpec(
+            diffusion=diffusion, backend="dense", num_colors=COLORS,
+            master_seed=MASTER_SEED), g_rev=g_rev)
+        batches = sampler.sample_many(range(BATCHES))
+        stack = np.stack([np.asarray(b.visited) for b in batches])
+        pools[diffusion] = (batches, *imm.greedy_max_cover(
+            stack, K, COLORS, use_kernel=False))
+    batches, seeds, cov = pools["ic"]
+    lt_batches, lt_seeds, lt_cov = pools["lt"]
     golden = {
         "graph": {"generator": "powerlaw_cluster", "n": N, "avg_deg": DEGREE,
                   "prob": PROB, "seed": GRAPH_SEED, "dedupe": True,
@@ -67,6 +74,16 @@ def main() -> None:
             for b in batches],
         "top_k": {"k": K, "batches": BATCHES, "seeds": seeds.tolist(),
                   "coverage": cov},
+        "lt": {
+            "batches": [
+                {"batch_index": b.batch_index,
+                 "visited_sha256": mask_sha256(b.visited),
+                 "visited_bits": int(np.unpackbits(
+                     np.asarray(b.visited).view(np.uint8)).sum())}
+                for b in lt_batches],
+            "top_k": {"k": K, "batches": BATCHES,
+                      "seeds": lt_seeds.tolist(), "coverage": lt_cov},
+        },
     }
     with open(OUT, "w") as f:
         json.dump(golden, f, indent=1)

@@ -22,7 +22,7 @@ class RRRBatch:
     """One fused batch of ``num_colors`` RRR sets.
 
     ``*_edge_visits`` are -1 on paths that do not instrument them (tiled,
-    kernel); only the dense IC sweep tracks stats."""
+    kernel, LT); only the dense IC sweeps (CSR and sparse) track stats."""
     visited: torch.Tensor       # (V, W) int32 bit patterns; column c = set c
     roots: np.ndarray           # (num_colors,) int32 root vertex per colour
     batch_index: int
@@ -53,12 +53,20 @@ def batch_starts(num_vertices: int, num_colors: int, master_seed: int,
 
 def sample_batch(g_rev: csr.Graph, num_colors: int, master_seed: int,
                  batch_index: int, *, sort_starts: bool = False,
-                 max_levels: int = 64) -> RRRBatch:
-    """One fused IC batch on the REVERSED graph by the CSR sweep — the
-    primitive under `repro_torch.sampling`'s dense backend."""
+                 max_levels: int = 64, model: str = "ic") -> RRRBatch:
+    """One fused batch on the REVERSED graph by the CSR sweep — the
+    primitive under `repro_torch.sampling`'s dense backend.  ``model="lt"``
+    runs the LT live-edge traversal (``g_rev`` must carry LT-normalised
+    in-weights, `core.lt.normalize_lt_weights`); LT batches carry the -1
+    "not instrumented" edge-visit sentinel."""
     seed = batch_seed(master_seed, batch_index)
     roots = batch_starts(g_rev.num_vertices, num_colors, master_seed,
                          batch_index, sort=sort_starts)
+    if model == "lt":
+        from repro_torch.core import lt
+        visited = lt.run_fused_lt(g_rev, roots, num_colors, seed,
+                                  max_levels=max_levels)
+        return RRRBatch(visited, roots, batch_index, -1, -1)
     res = traversal.run_fused(g_rev, roots, num_colors, seed,
                               max_levels=max_levels)
     return RRRBatch(res.visited, roots, batch_index,

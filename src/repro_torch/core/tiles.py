@@ -5,7 +5,8 @@ non-empty ``T×T`` tiles sorted by destination block, each carrying
 
   * ``prob``    (T, T) float32 — IC activation probability (0 ⇒ no edge),
   * ``edge_id`` (T, T) int32   — the edge's CSR index, the RNG counter that
-    makes the tile path draw the CSR path's exact Bernoulli realization.
+    makes the tile path draw the CSR path's exact Bernoulli realization
+    (IC only: an LT layout, built with ``edge_ids=False``, has none).
 
 The layout is the reference's, array for array (``from_graph`` mirrors its
 sort/unique), except that the reference's ``first_of_dst`` run-start flags
@@ -35,7 +36,8 @@ TILE = 128
 class TiledGraph:
     """Block-sparse adjacency (see module docstring)."""
     prob: torch.Tensor          # (nt, T, T) float32
-    edge_id: torch.Tensor       # (nt, T, T) int32  (0 ok: prob gates validity)
+    edge_id: torch.Tensor | None  # (nt, T, T) int32 (0 ok: prob gates
+    #                               validity); None without IC draws
     tile_src: torch.Tensor      # (nt,) int32  source block index
     tile_dst: torch.Tensor      # (nt,) int32  destination block (sorted)
     dst_run_ptr: torch.Tensor   # (n_blocks + 1,) int32  tile run offsets
@@ -96,17 +98,24 @@ def edge_slot_map(g: Graph, tile_size: int = TILE):
     return slot, len(uniq)
 
 
-def run_pointers(tile_dst: np.ndarray, n_blocks: int) -> np.ndarray:
-    """(n_blocks + 1,) int32: tiles of destination block ``b`` are
-    ``[ptr[b], ptr[b+1])`` of the dst-sorted list (empty for blocks no
-    tile reaches)."""
-    return np.searchsorted(tile_dst, np.arange(n_blocks + 1),
-                           side="left").astype(np.int32)
+def run_pointers(tile_dst: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """(n_blocks + 1,) int32 on ``tile_dst``'s device: entries
+    ``[ptr[b], ptr[b+1])`` of the dst-sorted list ``tile_dst`` belong to
+    destination block ``b`` (an empty run for blocks no tile reaches).
+    ``tile_dst`` may be the whole layout's or a compacted list's
+    (``tile_dst[ids]`` of ascending ids is still sorted)."""
+    blocks = torch.arange(n_blocks + 1, dtype=tile_dst.dtype,
+                          device=tile_dst.device)
+    return torch.searchsorted(tile_dst, blocks, out_int32=True)
 
 
 def from_graph(g: Graph, tile_size: int = TILE,
-               pad_tiles_to: int | None = None) -> TiledGraph:
-    """Extract the non-empty tile list of ``g`` onto ``g``'s device."""
+               pad_tiles_to: int | None = None,
+               edge_ids: bool = True) -> TiledGraph:
+    """Extract the non-empty tile list of ``g`` onto ``g``'s device.
+    ``edge_ids=False`` leaves out the ``edge_id`` stack, which only the IC
+    draw reads (an LT layout would carry 12.1 GiB of it unread at
+    n = 65,536)."""
     e = g.num_edges
     dev = g.device
     src, dst, prob = g.edges_numpy()
@@ -135,27 +144,59 @@ def from_graph(g: Graph, tile_size: int = TILE,
     P = torch.zeros(total * tile_size * tile_size, dtype=torch.float32,
                     device=dev)
     P[slots] = torch.from_numpy(prob[order]).to(dev)
-    E = torch.zeros_like(P, dtype=torch.int32)
-    E[slots] = torch.from_numpy(order.astype(np.int32)).to(dev)
+    E = None
+    if edge_ids:
+        E = torch.zeros_like(P, dtype=torch.int32)
+        E[slots] = torch.from_numpy(order.astype(np.int32)).to(dev)
+        E = E.view(total, tile_size, tile_size)
     n_blocks = -(-g.num_vertices // tile_size)
     return TiledGraph(
         prob=P.view(total, tile_size, tile_size),
-        edge_id=E.view(total, tile_size, tile_size),
+        edge_id=E,
         tile_src=torch.from_numpy(t_src).to(dev),
         tile_dst=torch.from_numpy(t_dst).to(dev),
-        dst_run_ptr=torch.from_numpy(run_pointers(t_dst, n_blocks)).to(dev),
+        dst_run_ptr=run_pointers(torch.from_numpy(t_dst).to(dev), n_blocks),
         num_vertices=g.num_vertices, num_edges=e, tile_size=tile_size)
 
 
-def cached(g: Graph, tile_size: int = TILE) -> TiledGraph:
-    """``from_graph(g, tile_size)`` built once per graph object — samplers
-    over one graph share the device stacks instead of each holding a
-    copy."""
-    key = ("tiles", tile_size)
+def cached(g: Graph, tile_size: int = TILE,
+           edge_ids: bool = True) -> TiledGraph:
+    """``from_graph(g, tile_size, edge_ids=edge_ids)`` built once per graph
+    object — samplers over one graph share the device stacks instead of
+    each holding a copy."""
+    key = ("tiles", tile_size, edge_ids)
     tg = g.cache.get(key)
     if tg is None:
-        tg = g.cache[key] = from_graph(g, tile_size)
+        tg = g.cache[key] = from_graph(g, tile_size, edge_ids=edge_ids)
     return tg
+
+
+def edge_values_to_tiles(tg: TiledGraph, g: Graph, values) -> torch.Tensor:
+    """Per-CSR-edge float32 ``values`` of ``g`` in the ``(nt, T, T)`` layout
+    ``tg = from_graph(g, ...)``, on ``tg``'s device (the LT selection-CDF
+    prefixes ride beside the tile stacks this way).  Scattered through
+    `edge_slot_map`, as ``from_graph`` scatters ``prob``; slots whose
+    ``prob`` is not > 0 hold 0, as in the reference (its default ``fill``),
+    which gathers by ``edge_id`` and masks on ``prob``."""
+    dev = tg.prob.device
+    out = torch.zeros(tg.num_tiles * tg.tile_size ** 2, dtype=torch.float32,
+                      device=dev)
+    if g.num_edges:
+        slot = torch.from_numpy(edge_slot_map(g, tg.tile_size)[0]).to(dev)
+        vals = torch.as_tensor(np.asarray(values, np.float32)[:g.num_edges],
+                               device=dev)
+        out[slot] = torch.where(tg.prob.view(-1)[slot] > 0, vals, 0.0)
+    return out.view(tg.prob.shape)
+
+
+def active_tile_ids(tile_src: torch.Tensor,
+                    active_blocks: torch.Tensor) -> torch.Tensor:
+    """(count,) int32 ascending ids of the tiles whose SOURCE block is
+    active — the reference's compaction without its null-tile padding (the
+    port's kernels walk an exact-length list, so nothing needs a fill
+    target).  A dst-sorted layout stays dst-sorted along the list."""
+    return torch.nonzero(active_blocks[tile_src.to(torch.int64)]) \
+        .squeeze(1).to(torch.int32)
 
 
 def pad_mask_rows(mask: torch.Tensor, padded_vertices: int) -> torch.Tensor:

@@ -135,22 +135,31 @@ def run_fused(g: Graph, starts, num_colors: int, seed: int,
                                  info["frontier_colors"], act_tiles]))
         level += 1
     # Vertices still on the frontier at the level cap count as visited.
-    visited = visited | frontier
+    stats = level_stats(rows, level, max_levels, g.num_vertices, num_colors)
+    return TraversalResult(visited=visited | frontier, stats=stats)
+
+
+def level_stats(rows, levels: int, max_levels: int, num_vertices: int,
+                num_colors: int, grid_steps=None) -> TraversalStats:
+    """`TraversalStats` from the per-level device rows ``(fused, unfused,
+    frontier vertices, frontier colours, active 128-row tiles)`` (one host
+    copy) and, for gridded paths, the per-level ``grid_steps`` ints."""
     per_level = np.zeros((max_levels, 5), np.int32)
     if rows:
-        per_level[:level] = torch.stack(rows).cpu().numpy()
+        per_level[:levels] = torch.stack(rows).cpu().numpy()
     fused, unfused, fv, fc, act = per_level.T
     f32 = np.float32
     # XLA compiles the reference's division by the constant num_colors as a
     # product with its float32 reciprocal; doing the same keeps every bit.
     occ = np.where(fv > 0, fc.astype(f32) / np.maximum(fv, 1).astype(f32)
                    * (f32(1) / f32(num_colors)), f32(0)).astype(f32)
-    n_tiles = -(-g.num_vertices // _TILE_ROWS)
+    n_tiles = -(-num_vertices // _TILE_ROWS)
     frac = np.zeros(max_levels, f32)     # jnp.mean: sum times 1/count
-    frac[:level] = act[:level].astype(f32) * (f32(1) / f32(n_tiles))
-    stats = TraversalStats(level, fused, unfused, fv, fc, occ, frac,
-                           np.zeros(max_levels, np.int32))
-    return TraversalResult(visited=visited, stats=stats)
+    frac[:levels] = act[:levels].astype(f32) * (f32(1) / f32(n_tiles))
+    steps = np.zeros(max_levels, np.int32)
+    if grid_steps is not None:
+        steps[:levels] = grid_steps
+    return TraversalStats(levels, fused, unfused, fv, fc, occ, frac, steps)
 
 
 def run_fused_block(g: Graph, starts: np.ndarray, seeds: np.ndarray,

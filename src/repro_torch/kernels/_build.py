@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface; it compiles with ``nvcc``
 for Hopper (``sm_90a``) into ``build/torch_kernels/lib<name>-<hash>.so`` at
-the repository root, named by the source's content hash so an edited
-source never loads a stale library, and is loaded with ``ctypes``.  Nothing
+the repository root, named by the content hash of the source and the
+shared headers (``csrc/*.cuh``) so an edited source never loads a stale
+library, and is loaded with ``ctypes``.  Nothing
 is built or loaded at import: the first launch builds, and
 ``build_all()`` builds every source in parallel (one ``nvcc`` each, all
 started together).  A failed build raises with the compiler's output.
@@ -20,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("fused_expand", "coverage")
+SOURCES = ("fused_expand", "coverage", "lt_select_expand")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -37,8 +38,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of ``<name>.cu``, named by the hash of the source and of
+    every shared header in ``csrc`` it may include."""
+    digest = hashlib.sha256()
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _tmp(lib: Path) -> Path:
@@ -81,6 +86,22 @@ def build_log(name: str) -> str:
     """nvcc's output (``-Xptxas=-v``: registers, shared memory, spills)."""
     path = library_path(name).with_suffix(".log")
     return path.read_text() if path.exists() else ""
+
+
+def check_arg(kernel: str, name: str, t, dtype, dim: int, dev) -> None:
+    """Raise unless ``t`` is a contiguous ``dim``-D ``dtype`` tensor on
+    ``dev`` — what a wrapper checks before it hands a pointer to C."""
+    if t.device != dev or t.dtype != dtype or t.dim() != dim \
+            or not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be a contiguous "
+                         f"{dim}-D {dtype} tensor on {dev}, got "
+                         f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def data_ptr(t):
+    """``t``'s device address for a ``c_void_p`` argument; None (a null
+    pointer) for an absent optional tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def load(name: str) -> ctypes.CDLL:

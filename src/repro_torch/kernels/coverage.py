@@ -25,12 +25,8 @@ def cover_counts_cuda(visited: torch.Tensor,
     """visited (B, V, W) int32 × active (B, W) int32 → (V,) int32 counts,
     launched on ``visited``'s stream."""
     dev = visited.device
-    for name, t, dim in (("visited", visited, 3), ("active", active, 2)):
-        if t.device != dev or t.dtype != torch.int32 or t.dim() != dim \
-                or not t.is_contiguous():
-            raise ValueError(f"cover_counts: {name} must be a contiguous "
-                             f"{dim}-D int32 tensor on {dev}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    _build.check_arg("cover_counts", "visited", visited, torch.int32, 3, dev)
+    _build.check_arg("cover_counts", "active", active, torch.int32, 2, dev)
     b, v, w = visited.shape
     if active.shape != (b, w):
         raise ValueError(f"cover_counts: active {tuple(active.shape)} != "

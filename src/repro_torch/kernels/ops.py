@@ -5,15 +5,21 @@ tensor goes to the kernel's plain PyTorch version in `kernels.ref`.  There
 is no fallback from one to the other.  ``LAUNCHES`` counts kernel launches
 — incremented where a kernel is launched and nowhere else — so a run can
 show that its path went through the kernels.
+
+The tile kernels take an optional ``tile_ids``: ascending int32 ids of the
+tiles to walk (the sparse frontier's compacted list).  The CUDA kernels
+read those tiles where they lie, through run pointers built here on the
+device; the plain versions gather the listed tiles (CPU tensors only).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import tiles
 from repro_torch.core.tiles import TiledGraph
 from repro_torch.kernels import ref
 
-LAUNCHES = {"fused_expand": 0, "cover_counts": 0}
+LAUNCHES = {"fused_expand": 0, "cover_counts": 0, "lt_select_expand": 0}
 
 
 def reset_launches() -> None:
@@ -30,18 +36,60 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
 
 
+def _run_ptr(tg: TiledGraph, tile_ids):
+    """Run pointers of the walked list: the layout's own, or those of the
+    compacted list (``tile_dst[ids]`` stays sorted)."""
+    if tile_ids is None:
+        return tg.dst_run_ptr
+    return tiles.run_pointers(tg.tile_dst[tile_ids.to(torch.int64)],
+                              tg.num_blocks)
+
+
+def _listed(tile_ids, *stacks):
+    """The plain versions' inputs: the stacks themselves, or the listed
+    tiles gathered (CPU only)."""
+    if tile_ids is None:
+        return stacks
+    ids = tile_ids.to(torch.int64)
+    return tuple(s[ids] for s in stacks)
+
+
 def fused_expand(tg: TiledGraph, frontier: torch.Tensor,
-                 visited: torch.Tensor, seed: int, level: int) -> torch.Tensor:
-    """One fused-BPT expansion level on a TiledGraph (rows padded to T)."""
+                 visited: torch.Tensor, seed: int, level: int,
+                 tile_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """One fused-BPT IC expansion level on a TiledGraph (rows padded to T),
+    over every tile or the listed ones."""
+    if tg.edge_id is None:
+        raise ValueError("fused_expand draws by edge id: build the layout "
+                         "with tiles.from_graph(..., edge_ids=True)")
     if _on_cuda(tg.prob, frontier, visited):
         from repro_torch.kernels.fused_expand import fused_expand_cuda
         out = fused_expand_cuda(tg.prob, tg.edge_id, tg.tile_src,
-                                tg.dst_run_ptr, frontier, visited, seed,
-                                level)
+                                _run_ptr(tg, tile_ids), frontier, visited,
+                                seed, level, tile_ids=tile_ids)
         LAUNCHES["fused_expand"] += 1
         return out
-    return ref.fused_expand_ref(tg.prob, tg.edge_id, tg.tile_src,
-                                tg.tile_dst, frontier, visited, seed, level)
+    return ref.fused_expand_ref(
+        *_listed(tile_ids, tg.prob, tg.edge_id, tg.tile_src, tg.tile_dst),
+        frontier, visited, seed, level)
+
+
+def lt_select_expand(tg: TiledGraph, cb: torch.Tensor, frontier: torch.Tensor,
+                     visited: torch.Tensor, u: torch.Tensor,
+                     tile_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """One fused-BPT LT expansion level: ``cb`` the selection-CDF prefixes
+    in ``tg``'s layout, ``u`` the traversal's uniform table."""
+    if _on_cuda(tg.prob, cb, frontier, visited, u):
+        from repro_torch.kernels.lt_select_expand import \
+            lt_select_expand_cuda
+        out = lt_select_expand_cuda(tg.prob, cb, tg.tile_src,
+                                    _run_ptr(tg, tile_ids), frontier,
+                                    visited, u, tile_ids=tile_ids)
+        LAUNCHES["lt_select_expand"] += 1
+        return out
+    return ref.lt_select_expand_ref(
+        *_listed(tile_ids, tg.prob, cb, tg.tile_src, tg.tile_dst),
+        frontier, visited, u)
 
 
 def cover_counts(visited: torch.Tensor, active: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,46 @@ import torch
 from repro_torch.core import bitmask, rng
 
 
+def _tile_expand(gate, prob, tile_src, tile_dst, frontier, visited,
+                 chunk_tiles: int):
+    """Shared scaffolding of the tile-expansion plain versions (the
+    reference's ``kernels/ref.py::_tile_expand``):
+
+        out[dst] = OR over tiles( OR_i frontier[src_i] & gate ) & ~visited[dst]
+
+    Only (tile, row i, lane j) slots that can contribute are evaluated:
+    ``prob > 0`` (both gates are false on a prob-0 slot) and a source row
+    with a live frontier word.  ``gate(t, i, j, p, dst_row)`` returns the
+    ``(M, W, 32)`` bool lanes of those ``M`` slots (``t`` are tile ids into
+    ``prob``).  Tiles go in chunks of ``chunk_tiles`` to bound the
+    ``(M, W, 32)`` transients."""
+    nt, T, _ = prob.shape
+    w = frontier.shape[1]
+    dev = frontier.device
+    fr_live = (frontier != 0).any(1)
+    rows_in_block = torch.arange(T, device=dev)
+    out_lanes = torch.zeros(visited.shape[0] * w, 32, dtype=torch.uint8,
+                            device=dev)
+    for c0 in range(0, nt, chunk_tiles):
+        p = prob[c0:c0 + chunk_tiles]
+        src_blk = tile_src[c0:c0 + chunk_tiles].to(torch.int64)
+        live = fr_live[src_blk[:, None] * T + rows_in_block[None, :]]
+        t, i, j = torch.nonzero((p > 0) & live[:, :, None], as_tuple=True)
+        if t.numel() == 0:
+            continue
+        src_row = src_blk[t] * T + i
+        dst_row = tile_dst[c0:c0 + chunk_tiles].to(torch.int64)[t] * T + j
+        lanes = gate(c0 + t, i, j, p[t, i, j], dst_row)
+        contrib = frontier[src_row] & bitmask.pack_bits(lanes)   # (M, W)
+        flat = (dst_row[:, None] * w + torch.arange(w, device=dev)[None, :])
+        out_lanes.scatter_reduce_(
+            0, flat.reshape(-1, 1).expand(-1, 32),
+            bitmask.unpack_bits(contrib).to(torch.uint8).reshape(-1, 32),
+            "amax")
+    out = bitmask.pack_bits(out_lanes.view(visited.shape[0], w, 32).bool())
+    return out & ~visited
+
+
 def fused_expand_ref(prob, edge_id, tile_src, tile_dst, frontier, visited,
                      seed, level, *, chunk_tiles: int = 1024):
     """One level of tile-based IC expansion (replaces the reference's
@@ -30,41 +70,66 @@ def fused_expand_ref(prob, edge_id, tile_src, tile_dst, frontier, visited,
       visited:  (Vo, W) int32 — ALREADY folded with the current frontier.
       seed, level: RNG counters.
 
-    Only slots that can contribute are hashed: a slot with ``prob ≤ 0``
-    never draws (a uniform in [0, 1) is never below it) and a source row
-    with an empty frontier word contributes 0.  Tiles go in chunks of
-    ``chunk_tiles`` to bound the transient ``(slots, W, 32)`` hash tensor.
+    Colours of a source row with an empty frontier word, and slots with
+    ``prob ≤ 0`` (a uniform in [0, 1) is never below it), are never hashed.
     """
-    nt, T, _ = prob.shape
     w = frontier.shape[1]
     dev = frontier.device
     h_level = rng.level_prefix(seed, level)
     lanes = (torch.arange(w, device=dev)[:, None] * 32
              + torch.arange(32, device=dev)[None, :])        # (W, 32)
-    fr_live = (frontier != 0).any(1)
-    rows_in_block = torch.arange(T, device=dev)
-    out_lanes = torch.zeros(visited.shape[0] * w, 32, dtype=torch.uint8,
-                            device=dev)
-    for c0 in range(0, nt, chunk_tiles):
-        p = prob[c0:c0 + chunk_tiles]
-        src_blk = tile_src[c0:c0 + chunk_tiles].to(torch.int64)
-        live = fr_live[src_blk[:, None] * T + rows_in_block[None, :]]
-        t, i, j = torch.nonzero((p > 0) & live[:, :, None], as_tuple=True)
-        if t.numel() == 0:
-            continue
-        src_row = src_blk[t] * T + i
-        dst_row = tile_dst[c0:c0 + chunk_tiles].to(torch.int64)[t] * T + j
-        h_edge = rng._fold(h_level, bitmask.u32(edge_id[c0 + t, i, j]))
+
+    def gate(t, i, j, p, dst_row):
+        h_edge = rng._fold(h_level, bitmask.u32(edge_id[t, i, j]))
         bits = rng._fold(h_edge[:, None, None], lanes[None])
-        draws = rng.uniform_from_u32(bits) < p[t, i, j][:, None, None]
-        contrib = frontier[src_row] & bitmask.pack_bits(draws)   # (M, W)
-        flat = (dst_row[:, None] * w + torch.arange(w, device=dev)[None, :])
-        out_lanes.scatter_reduce_(
-            0, flat.reshape(-1, 1).expand(-1, 32),
-            bitmask.unpack_bits(contrib).to(torch.uint8).reshape(-1, 32),
-            "amax")
-    out = bitmask.pack_bits(out_lanes.view(visited.shape[0], w, 32).bool())
-    return out & ~visited
+        return rng.uniform_from_u32(bits) < p[:, None, None]
+
+    return _tile_expand(gate, prob, tile_src, tile_dst, frontier, visited,
+                        chunk_tiles)
+
+
+def lt_selection_uniforms(seed, num_rows: int, num_colors: int,
+                          row_base: int = 0, device="cpu") -> torch.Tensor:
+    """(num_rows, W·32) f32 LT selection uniforms ``u(dst, colour)``
+    (replaces the reference's ``kernels/ref.py::lt_selection_uniforms``):
+    the (seed, 0x17, dst, colour) counters of
+    `core.lt.selection_mask_from_cb`, one per destination row and colour
+    lane, computed once per traversal.  ``row_base`` is the global vertex
+    id of row 0 (0 on one device; a row shard's offset under a graph
+    partition — the hash takes global ids).  Lanes pad to whole words;
+    padded lanes never meet a live frontier bit."""
+    from repro_torch.core import lt
+    rows = row_base + torch.arange(num_rows, device=device)
+    lanes = torch.arange(bitmask.num_words(num_colors) * 32, device=device)
+    return lt.selection_uniforms(seed, rows[:, None], lanes[None, :])
+
+
+def lt_select_expand_ref(prob, cb, tile_src, tile_dst, frontier, visited, u,
+                         *, chunk_tiles: int = 1024):
+    """One level of tile-based expansion under the LT live-edge selection
+    (replaces the reference's ``kernels/ref.py::lt_select_expand_ref``):
+    edge ``(src, dst)`` carries colour ``c`` iff
+    ``cb ≤ u[dst, c] < cb + prob`` (one float32 add, two float32 compares).
+
+    Args:
+      prob:     (nt, T, T) f32 LT-normalised in-weights (0 ⇒ no edge).
+      cb:       (nt, T, T) f32 selection-CDF prefix per slot
+                (`core.tiles.edge_values_to_tiles` of
+                `core.lt.selection_cum_before`).
+      tile_src, tile_dst, frontier, visited: as `fused_expand_ref`.
+      u:        (Vo, W·32) f32 from `lt_selection_uniforms`, rows aligned
+                with ``visited``.
+    """
+    w = frontier.shape[1]
+
+    def gate(t, i, j, p, dst_row):
+        lo = cb[t, i, j]
+        hi = lo + p
+        U = u[dst_row].view(-1, w, 32)
+        return (U >= lo[:, None, None]) & (U < hi[:, None, None])
+
+    return _tile_expand(gate, prob, tile_src, tile_dst, frontier, visited,
+                        chunk_tiles)
 
 
 def cover_counts_ref(visited, active):

@@ -4,23 +4,32 @@
     python -m repro_torch.launch.serve_influence --smoke
     python -m repro_torch.launch.serve_influence --smoke --sampler-backend kernel
     python -m repro_torch.launch.serve_influence --device cpu --smoke
+    python -m repro_torch.launch.serve_influence --smoke --diffusion lt \
+        --frontier sparse --sampler-backend kernel
 
 Samples a sketch pool on a synthetic graph, serves one micro-batched mix of
 top-k, σ(S) and marginal-gain queries, and with ``--smoke`` also checks the
-pool lifecycle: the identical mix re-served as 100% cache hits, an epoch
-refresh that invalidates the cache, and offline ``run_imm`` through a fresh
-pool equal to the pool-less run and to the host-loop greedy reference.
-``--device`` defaults to ``cuda``; ``--sampler-backend kernel`` runs every
-traversal level through the hand-written CUDA ``fused_expand`` kernel.
+pool lifecycle: the pool's first batches equal a reference pool built on
+the dense CSR backend with the dense frontier (`dense_variant`, so with
+``--frontier sparse`` it is also a sparse ≡ dense check), the identical mix
+re-served as 100% cache hits, an epoch refresh that invalidates the cache,
+and offline ``run_imm`` through a fresh pool equal to the pool-less run
+and to the host-loop greedy reference.  ``--device`` defaults to ``cuda``;
+``--sampler-backend kernel`` runs every traversal level through the
+hand-written CUDA kernels (``fused_expand`` for ``--diffusion ic``,
+``lt_select_expand`` for ``lt``), over every tile or, with ``--frontier
+sparse``, the level's compacted tile list.
 Pool persistence, the async front end and the mesh paths of the reference
 launcher come with later slices of the port.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
+import torch
 
 from repro_torch import device as device_lib
 from repro_torch.core import imm
@@ -28,6 +37,10 @@ from repro_torch.graph import csr, generators
 from repro_torch.sampling import SamplerSpec
 from repro_torch.serve.influence import (MicroBatcher, PoolConfig, QueryEngine,
                                          ResultCache, SketchStore)
+
+
+# Pool batches the smoke holds against the dense-CSR, dense-frontier pool.
+REFERENCE_BATCHES = 2
 
 
 def build_graph(args):
@@ -39,10 +52,20 @@ def build_graph(args):
 
 
 def build_config(args) -> PoolConfig:
-    spec = SamplerSpec(backend=args.sampler_backend, num_colors=args.colors,
-                       master_seed=args.master_seed)
+    """The CLI knobs as a `PoolConfig` with its `SamplerSpec`."""
+    spec = SamplerSpec(diffusion=args.diffusion,
+                       backend=args.sampler_backend, num_colors=args.colors,
+                       master_seed=args.master_seed, frontier=args.frontier,
+                       frontier_capacity=args.frontier_capacity)
     return PoolConfig(max_batches=args.max_batches,
                       memory_budget_mb=args.memory_budget_mb, spec=spec)
+
+
+def dense_variant(cfg: PoolConfig) -> PoolConfig:
+    """The same pool on the dense CSR backend AND the dense frontier — the
+    smoke's reference path."""
+    return dataclasses.replace(cfg, spec=dataclasses.replace(
+        cfg.spec, backend="dense", frontier="dense"))
 
 
 def serve_mixed_batch(store, engine, batcher, k: int, num_queries: int):
@@ -90,8 +113,10 @@ def run_single(args) -> dict:
     print(f"[serve_influence] pool: {len(store.batches)} batches × "
           f"{store.num_colors} colors = {store.num_samples} RRR sets "
           f"({store.bytes_per_batch * len(store.batches) / 2**20:.2f} MiB, "
-          f"capacity {store.capacity} batches; backend "
-          f"{store.spec.backend!r} on {dev}) built in {build_s:.3f}s")
+          f"capacity {store.capacity} batches; diffusion "
+          f"{store.spec.diffusion!r}, backend {store.spec.backend!r}, "
+          f"frontier {store.spec.frontier!r} on {dev}) built in "
+          f"{build_s:.3f}s")
 
     engine = QueryEngine(store)
     batcher = MicroBatcher(engine, cache=ResultCache())
@@ -103,6 +128,18 @@ def run_single(args) -> dict:
                results=results, build_s=build_s, flush_s=flush_s)
     if not args.smoke:
         return out
+
+    # ---- the pool's first batches ≡ the dense-CSR, dense-frontier pool
+    reference = SketchStore(g, dense_variant(store.config))
+    reference.ensure(min(len(store.batches), REFERENCE_BATCHES))
+    n_ref = len(reference.batches)
+    if not torch.equal(store.visited_stack()[:n_ref],
+                       reference.visited_stack()):
+        raise AssertionError("pool differs from the dense-CSR, "
+                             "dense-frontier reference pool")
+    print(f"[smoke] batches 0-{n_ref - 1} equal the dense-CSR, "
+          f"dense-frontier reference pool bit for bit")
+    del reference
 
     # ---- cached re-serve + epoch refresh invalidation
     before = batcher.dispatches
@@ -163,11 +200,21 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs every "
                          "kernel's plain PyTorch version)")
+    ap.add_argument("--diffusion", choices=("ic", "lt"), default="ic",
+                    help="diffusion model the pool samples under")
     ap.add_argument("--sampler-backend", default="dense",
                     choices=("dense", "tiled", "kernel"),
                     help="traversal backend: CSR sweep, or the tile "
-                         "expansion through the CUDA fused_expand kernel "
+                         "expansion through the CUDA tile kernels "
                          "(tiled and kernel are the same backend)")
+    ap.add_argument("--frontier", choices=("dense", "sparse"),
+                    default="dense",
+                    help="sparse: compact each level to the active part of "
+                         "the graph (edge blocks on the dense backend, the "
+                         "tile list on tiled/kernel); bit-identical to "
+                         "dense")
+    ap.add_argument("--frontier-capacity", type=int, default=0,
+                    help="sparse-frontier ladder capacity (0 = auto)")
     ap.add_argument("--n", type=int, default=300)
     ap.add_argument("--degree", type=float, default=6.0)
     ap.add_argument("--prob", type=float, default=0.25)

@@ -1,35 +1,42 @@
-"""The `Sampler` facade (PyTorch port of ``repro.sampling.sampler``, IC with
-the dense frontier).
+"""The `Sampler` facade (PyTorch port of ``repro.sampling.sampler``,
+single-device backends).
 
 Batch ``b`` under ``master_seed`` draws its roots from
 ``rrr.batch_starts`` and its counter seed from ``rrr.batch_seed`` on every
 backend, so a given ``(master_seed, batch_index)`` gives the same
-``(V, W)`` visited mask here as in the reference:
+``(V, W)`` visited mask here as in the reference, for both diffusions and
+both frontier modes:
 
-* ``dense``  — CSR edge-centric sweep (`core.traversal.run_fused`);
-* ``tiled``, ``kernel`` — block-sparse tiles through
-               `kernels.ops.fused_expand`: the hand-written CUDA kernel on a
-               GPU, its plain PyTorch version on CPU tensors.  The reference
-               keeps a pure-array ``tiled`` path beside its Pallas kernel;
-               the port has one tile expansion, so the two names are the
-               same backend.
+* ``dense``  — CSR edge-centric sweep (`core.traversal.run_fused`,
+               `core.lt.run_fused_lt`), or with ``frontier="sparse"`` the
+               edge-block compaction engine (`core.sparse`);
+* ``tiled``, ``kernel`` — block-sparse tiles through the tile kernels
+               (`kernels.ops.fused_expand` for IC, ``lt_select_expand`` for
+               LT): the hand-written CUDA kernels on a GPU, their plain
+               PyTorch versions on CPU tensors, over every tile or, with
+               ``frontier="sparse"``, the compacted tile list.  The
+               reference keeps a pure-array ``tiled`` path beside its
+               Pallas kernels; the port has one tile expansion, so the two
+               names are the same backend.
 
-Samplers run on their graph's device.  LT, the sparse frontier and the
-mesh backends come with later slices of the port.
+LT: the facade normalises the live-edge weights of the reversed graph
+(`lt.normalize_lt_weights`, idempotent), once per graph object.  Samplers
+run on their graph's device.  The mesh backends come with the multi-GPU
+slice of the port.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from repro_torch.core import rrr, tiled_traversal, tiles, traversal
+from repro_torch.core import lt, rrr, sparse, tiled_traversal, tiles, \
+    traversal
 from repro_torch.graph import csr
 from repro_torch.sampling.spec import SamplerSpec
 
 __all__ = ["Sampler", "make_sampler"]
 
 _LATER = {
-    "lt": "the LT slice (core/lt.py and the lt_select_expand kernel)",
-    "sparse": "the sparse-frontier slice (core/sparse.py)",
     "data_parallel": "the multi-GPU slice (torch.distributed samplers)",
     "graph_parallel": "the multi-GPU slice (torch.distributed samplers)",
 }
@@ -48,7 +55,10 @@ class Sampler:
             raise ValueError("need g or g_rev")
         self.graph = g
         self.spec = spec
-        self.g_rev = g_rev if g_rev is not None else csr.transpose(g)
+        g_rev = g_rev if g_rev is not None else csr.transpose(g)
+        # Idempotent: an already-normalised graph passes through.
+        self.g_rev = lt.normalized(g_rev) if spec.diffusion == "lt" \
+            else g_rev
 
     def batch_starts(self, batch_index: int) -> np.ndarray:
         """(num_colors,) roots — the shared cross-backend derivation."""
@@ -67,49 +77,122 @@ class Sampler:
 
 
 class DenseSampler(Sampler):
-    """CSR edge-centric path; batches carry real edge-visit totals."""
+    """CSR edge-centric path, IC and LT.  ``spec.frontier == "sparse"``
+    swaps the per-level edge sweep for the `core.sparse` edge-block
+    compaction (bit-identical masks and work counters).  IC batches carry
+    real edge-visit totals; LT carries the -1 sentinel."""
+
+    def __init__(self, g, spec, *, g_rev=None):
+        super().__init__(g, spec, g_rev=g_rev)
+        self._cb = None
+        self._fidx = None
+        self._ladder = None
+
+    def _lt_cb(self) -> torch.Tensor:
+        if self._cb is None:
+            self._cb = torch.from_numpy(
+                lt.selection_cum_before(self.g_rev)).to(self.g_rev.device)
+        return self._cb
+
+    def _frontier_index(self) -> sparse.FrontierIndex:
+        """The edge-block index (tile_rows follows ``spec.tile_size``, the
+        ladder ``spec.frontier_capacity``), built on first use."""
+        if self._fidx is None:
+            cb = (self._lt_cb().cpu().numpy()
+                  if self.spec.diffusion == "lt" else None)
+            self._fidx = sparse.build_frontier_index(
+                self.g_rev, tile_rows=self.spec.tile_size, cb=cb)
+            self._ladder = sparse.bucket_ladder(self._fidx.num_blocks,
+                                                self.spec.frontier_capacity)
+        return self._fidx
 
     def sample(self, batch_index: int) -> rrr.RRRBatch:
+        if self.spec.frontier == "sparse":
+            return self.sample_many([batch_index])[0]
         return rrr.sample_batch(
             self.g_rev, self.spec.num_colors, self.spec.master_seed,
             int(batch_index), sort_starts=self.spec.sort_starts,
-            max_levels=self.spec.max_iters)
+            max_levels=self.spec.max_iters, model=self.spec.diffusion)
 
     def sample_many(self, batch_indices) -> list[rrr.RRRBatch]:
         idx = [int(b) for b in batch_indices]
         if not idx:
             return []
+        spec = self.spec
         starts = np.stack([self.batch_starts(b) for b in idx])
-        seeds = rrr.batch_seeds(self.spec.master_seed, idx)
-        vis, fused, unfused = traversal.run_fused_block(
-            self.g_rev, starts, seeds, self.spec.num_colors,
-            max_levels=self.spec.max_iters)
+        seeds = rrr.batch_seeds(spec.master_seed, idx)
+        if spec.frontier == "sparse":
+            vis, fused, unfused = sparse.sparse_block(
+                self._frontier_index(), starts, seeds, spec.num_colors,
+                spec.max_iters, self._ladder, diffusion=spec.diffusion)
+        elif spec.diffusion == "lt":
+            vis = lt.run_fused_lt_block(self.g_rev, self._lt_cb(), starts,
+                                        seeds, spec.num_colors,
+                                        max_levels=spec.max_iters)
+            fused = unfused = np.full(len(idx), -1)
+        else:
+            vis, fused, unfused = traversal.run_fused_block(
+                self.g_rev, starts, seeds, spec.num_colors,
+                max_levels=spec.max_iters)
         return [rrr.RRRBatch(vis[i], starts[i], b, int(fused[i]),
                              int(unfused[i]))
                 for i, b in enumerate(idx)]
 
 
 class TiledSampler(Sampler):
-    """Block-sparse tile path (``tiled`` and ``kernel`` alike, through
-    `kernels.ops.fused_expand`).  The tile layout of the reversed graph is built
-    once per graph object (`tiles.cached`) and shared by every sampler over
-    it.  Requires a parallel-edge-free graph (``csr.dedupe``)."""
+    """Block-sparse tile path (``tiled`` and ``kernel`` alike, through the
+    tile kernels).  The tile layout of the reversed graph — for LT, of the
+    LT-normalised one, whose ``prob`` differs, with the selection-CDF
+    prefixes beside it — is built once per graph object and shared by
+    every sampler over it.  Requires a parallel-edge-free graph
+    (``csr.dedupe``).  ``last_levels``, ``last_grid_steps`` (ladder rungs
+    summed, the reference's counter) and ``last_active_tiles`` (the tiles
+    the kernels walked) describe the last `sample` call."""
 
     def __init__(self, g, spec, *, g_rev=None):
         super().__init__(g, spec, g_rev=g_rev)
         try:
-            self.tg_rev = tiles.cached(self.g_rev, spec.tile_size)
+            # LT draws no per-edge hash: its layout skips the edge-id stack.
+            self.tg_rev = tiles.cached(self.g_rev, spec.tile_size,
+                                       edge_ids=spec.diffusion == "ic")
         except ValueError as e:
             raise ValueError(
                 f"the {spec.backend!r} backend needs a dedupe-clean graph "
                 "(build it with csr.dedupe or from_edges(..., dedupe=True)); "
                 f"tiling failed with: {e}") from e
+        self._cb_tiles = None
+        if spec.diffusion == "lt":
+            key = ("lt_cb_tiles", spec.tile_size)
+            self._cb_tiles = self.g_rev.cache.get(key)
+            if self._cb_tiles is None:
+                self._cb_tiles = self.g_rev.cache[key] = \
+                    tiles.edge_values_to_tiles(
+                        self.tg_rev, self.g_rev,
+                        lt.selection_cum_before(self.g_rev))
+        self._ladder = (sparse.bucket_ladder(self.tg_rev.num_tiles,
+                                             spec.frontier_capacity)
+                        if spec.frontier == "sparse" else None)
+        self.last_levels = 0
+        self.last_grid_steps = 0
+        self.last_active_tiles = 0
 
     def sample(self, batch_index: int) -> rrr.RRRBatch:
+        spec = self.spec
         starts = self.batch_starts(batch_index)
-        visited, _, _ = tiled_traversal.run_fused_tiled(
-            self.tg_rev, starts, self.spec.num_colors,
-            self.batch_seed(batch_index), max_levels=self.spec.max_iters)
+        seed = self.batch_seed(batch_index)
+        work: dict = {}
+        kw = dict(max_levels=spec.max_iters, frontier=spec.frontier,
+                  ladder=self._ladder, work=work)
+        if spec.diffusion == "lt":
+            visited, levels, gs = tiled_traversal.run_fused_lt_tiled(
+                self.tg_rev, self._cb_tiles, starts, spec.num_colors, seed,
+                **kw)
+        else:
+            visited, levels, gs = tiled_traversal.run_fused_tiled(
+                self.tg_rev, starts, spec.num_colors, seed, **kw)
+        self.last_levels = levels
+        self.last_grid_steps = gs
+        self.last_active_tiles = sum(work["active_tiles"])
         return rrr.RRRBatch(visited, starts, int(batch_index), -1, -1)
 
 
@@ -121,10 +204,9 @@ def make_sampler(g: csr.Graph | None, spec: SamplerSpec, *,
     reference's matrix that the port has not reached yet raise
     ``NotImplementedError`` naming their slice.
     """
-    for knob in (spec.diffusion, spec.frontier, spec.backend):
-        if knob in _LATER:
-            raise NotImplementedError(
-                f"{knob!r} is not ported yet: it comes with {_LATER[knob]}")
+    if spec.backend in _LATER:
+        raise NotImplementedError(f"{spec.backend!r} is not ported yet: it "
+                                  f"comes with {_LATER[spec.backend]}")
     if spec.backend in ("tiled", "kernel"):
         return TiledSampler(g, spec, g_rev=g_rev)
     return DenseSampler(g, spec, g_rev=g_rev)

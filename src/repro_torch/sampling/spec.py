@@ -1,10 +1,10 @@
 """Typed sampler specification (PyTorch port of ``repro.sampling.spec``).
 
 ``SamplerSpec`` keeps the reference's fields and validation, so a spec
-round-trips between the two packages unchanged.  The port implements the
-IC diffusion on the ``dense``, ``tiled`` and ``kernel`` backends with the
-dense frontier; `sampling.sampler.make_sampler` raises
-``NotImplementedError`` for the other cells, naming the slice that brings
+round-trips between the two packages unchanged.  The port implements both
+diffusions and both frontier modes on the ``dense``, ``tiled`` and
+``kernel`` backends; `sampling.sampler.make_sampler` raises
+``NotImplementedError`` for the mesh backends, naming the slice that brings
 them.
 
 The RNG contract every backend honors: batch ``b`` under ``master_seed`` is
@@ -25,10 +25,12 @@ class SamplerSpec:
     """Complete description of one traversal-sampling configuration.
 
     ``max_iters`` is the level cap of the level-synchronous traversal;
-    ``tile_size`` matters to the tile-layout backends (tiled/kernel).
-    ``mesh_axis``, ``model_axis``, ``frontier`` and ``frontier_capacity``
-    are the reference's multi-device and sparse-frontier knobs, kept so a
-    spec means the same in both packages.
+    ``tile_size`` matters to the tile-layout backends (tiled/kernel) and
+    sets the sparse frontier's row-block height.  ``frontier="sparse"``
+    compacts each level to the active part of the graph;
+    ``frontier_capacity`` shapes its ladder (0 = auto).  ``mesh_axis`` and
+    ``model_axis`` are the reference's multi-device knobs, kept so a spec
+    means the same in both packages.
     """
     diffusion: str = "ic"
     backend: str = "dense"

@@ -11,10 +11,11 @@ import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.core import rrr, tiled_traversal, tiles
+from repro_torch.core import lt, rrr, tiled_traversal, tiles
 from repro_torch.graph import csr, generators
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.sampling import SamplerSpec, make_sampler
 
 pytestmark = pytest.mark.cuda
 
@@ -91,3 +92,85 @@ def test_kernel_traversal_equals_csr_sweep(cuda):
             tg, starts, 64, rrr.batch_seed(0, b))
         dense = rrr.sample_batch(g_rev, 64, 0, b)
         assert levels > 0 and torch.equal(vis, dense.visited)
+
+
+def _lt_tiled(n, e, *, seed, tile_size, dst_limit=None, pad=0):
+    """(tiles, cb tiles) of an LT-normalised random graph on the GPU."""
+    rs = np.random.default_rng(seed)
+    src = rs.integers(0, n, e)
+    dst = rs.integers(0, dst_limit or n, e)
+    keep = src != dst
+    g = lt.normalize_lt_weights(csr.from_edges(
+        src[keep], dst[keep], rs.uniform(0, 1, keep.sum()).astype(np.float32),
+        n, dedupe=True, device="cuda"))
+    nt = tiles.from_graph(g, tile_size).num_tiles
+    tg = tiles.from_graph(g, tile_size, pad_tiles_to=nt + pad)
+    return tg, tiles.edge_values_to_tiles(tg, g, lt.selection_cum_before(g))
+
+
+@pytest.mark.parametrize("tile_size", [32, 64, 128])
+@pytest.mark.parametrize("colors", [32, 64, 96])
+def test_lt_select_expand_kernel_equals_plain(cuda, tile_size, colors):
+    """Empty, sparse and dense frontiers; destination blocks no tile
+    reaches; padding tiles."""
+    tg, cb = _lt_tiled(3000, 20000, seed=colors, tile_size=tile_size,
+                       dst_limit=2200, pad=3)
+    u = ref.lt_selection_uniforms(0xC0FFEE, tg.padded_vertices, colors,
+                                  device=cuda)
+    for density in (0.0, 0.05, 0.5):
+        fr, vis = _masks(tg.padded_vertices, colors, colors, density, cuda)
+        before = ops.LAUNCHES["lt_select_expand"]
+        got = ops.lt_select_expand(tg, cb, fr, vis, u)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["lt_select_expand"] == before + 1
+        want = ref.lt_select_expand_ref(tg.prob, cb, tg.tile_src,
+                                        tg.tile_dst, fr, vis, u)
+        assert torch.equal(got, want)
+        assert bool(got.any()) == (density > 0)
+
+
+@pytest.mark.parametrize("tile_size", [32, 128])
+@pytest.mark.parametrize("active", ["none", "one", "all"])
+def test_tile_kernels_on_compacted_lists_equal_plain(cuda, tile_size,
+                                                     active):
+    """Both tile kernels walking a compacted tile list ≡ their plain
+    versions on the gathered tiles: an empty list, one source block, the
+    full list."""
+    tg, cb = _lt_tiled(3000, 20000, seed=tile_size, tile_size=tile_size,
+                       dst_limit=2200, pad=2)
+    fr, vis = _masks(tg.padded_vertices, 64, 1, 0.3, cuda)
+    act = torch.zeros(tg.num_blocks, dtype=torch.bool, device=cuda)
+    if active == "one":
+        act[3] = True
+    elif active == "all":
+        act[:] = True
+    fr = fr * act.repeat_interleave(tile_size)[:, None]
+    ids = tiles.active_tile_ids(tg.tile_src, act)
+    assert (ids.numel() == 0) == (active == "none")
+    u = ref.lt_selection_uniforms(7, tg.padded_vertices, 64, device=cuda)
+    sel = ids.long()
+    got = ops.fused_expand(tg, fr, vis, 11, 3, tile_ids=ids)
+    want = ref.fused_expand_ref(tg.prob[sel], tg.edge_id[sel],
+                                tg.tile_src[sel], tg.tile_dst[sel], fr, vis,
+                                11, 3)
+    assert torch.equal(got, want)
+    got = ops.lt_select_expand(tg, cb, fr, vis, u, tile_ids=ids)
+    want = ref.lt_select_expand_ref(tg.prob[sel], cb[sel], tg.tile_src[sel],
+                                    tg.tile_dst[sel], fr, vis, u)
+    assert torch.equal(got, want)
+    if active == "all":       # the full list ≡ the dense grid
+        assert torch.equal(got, ops.lt_select_expand(tg, cb, fr, vis, u))
+
+
+@pytest.mark.parametrize("diffusion", ["ic", "lt"])
+def test_sparse_kernel_sampler_equals_dense_csr(cuda, diffusion):
+    g = csr.dedupe(generators.powerlaw_cluster(5000, 6.0, prob=0.25, seed=7,
+                                               device="cuda"))
+    spec = SamplerSpec(diffusion=diffusion, backend="kernel",
+                       frontier="sparse")
+    kern = make_sampler(g, spec)
+    dense = make_sampler(g, SamplerSpec(diffusion=diffusion))
+    for b in range(2):
+        got = kern.sample(b)
+        assert kern.last_active_tiles <= kern.last_grid_steps
+        assert torch.equal(got.visited, dense.sample(b).visited)

@@ -163,12 +163,16 @@ def test_port_launcher_smoke_on_cpu(backend, capsys):
     assert "[smoke] PASS" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("knob", [dict(diffusion="lt"),
-                                  dict(frontier="sparse"),
+@pytest.mark.parametrize("knob", [dict(backend="data_parallel",
+                                       diffusion="lt"),
+                                  dict(backend="graph_parallel",
+                                       frontier="sparse"),
                                   dict(backend="data_parallel"),
                                   dict(backend="graph_parallel",
                                        model_axis="model")])
 def test_unported_cells_name_their_slice(knob):
+    """The mesh backends raise naming their slice, whatever the diffusion
+    and frontier (LT and the sparse frontier are ported)."""
     _, _, st = _stores("dense", batches=1)
     with pytest.raises(NotImplementedError, match="slice"):
         tsampling.make_sampler(st.graph, tsampling.SamplerSpec(**knob))
