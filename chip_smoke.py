@@ -7,7 +7,7 @@ CUDA toolkit's ``nvcc``; it exits non-zero, printing no result, anywhere
 else.  Phases, each of which raises on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: the three kernels of ``src/repro_torch/csrc``, compiled in
+2. build: the four kernels of ``src/repro_torch/csrc``, compiled in
    parallel;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    exact equality — ``fused_expand`` and ``lt_select_expand`` on a reduced
@@ -39,7 +39,29 @@ else.  Phases, each of which raises on failure:
    4, ``lt_select_expand`` and ``cover_counts`` must have run;
 8. LT golden: batches 0-3 on the kernel backend, dense and compacted grid,
    0-1 on the dense CSR backend, and the top-16 seeds, against the file;
-9. LT timing: as 6, with the plain version on the compacted list.
+9. LT timing: as 6, with the plain version on the compacted list;
+10. flash attention, after the LT tile stacks are released: the
+    ``flash_attention`` kernel against its plain version on the card —
+    float32 and bfloat16, causal and not, ``kv_offset`` 0 and > 0 with one
+    query, H/KVH 1, 3 and 8, head dims 16, 64, 96, 128 and 192, ragged Lq
+    and Lk, and the LM main path's prefill and decode shapes; float32
+    within 2e-5 max abs, bfloat16 within atol = rtol = 2e-2 (the
+    reference's kernel test), compared in float32;
+11. LM golden: llama3.2-3b at full width and vocabulary, depth cut to 2
+    layers, float32 (TF32 off), weights from
+    ``models/init.py::numpy_params(cfg, seed=0)``: prefill of 2 × 64
+    tokens and 8 teacher-forced decode steps against the file's ``"lm"``
+    entry — logits at 32 vocabulary ids, max logit and log-sum-exp within
+    1e-3, greedy argmax equal wherever the golden top-2 gap exceeds 1e-3;
+12. LM main path at full width: llama3.2-3b, 28 layers, bf16, the port's
+    seeded init, through ``launch.serve``'s ``run``: (a) the launcher's own
+    mix, batch 4, prompt 32, 32 new tokens at temperature 0.7; (b) batch
+    4, prompt 2,048, 32 new tokens, greedy.  Counters as in 4; each
+    request batch must launch ``flash_attention`` 28 × (1 + 32) times;
+13. flash timing at (b)'s prefill and decode shapes: the kernel (CUDA
+    graph of 10 launches), its plain version and, as the library's time,
+    ``scaled_dot_product_attention(..., enable_gqa=True)`` (timed only;
+    the port never calls it), each beside the kernel's bound.
 
 Each phase prints its peak device memory.  The line before the last is the
 card's name and power limit as ``nvidia-smi`` reports them; the last line
@@ -67,6 +89,11 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden.json")
 # float32 figure; the kernels' integer operations issue no faster).
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12     # dense tensor-core peak (bf16 inputs)
+F32_TOL, BF16_TOL, LM_TOL = 2e-5, 2e-2, 1e-3
+# The LM main path: llama3.2-3b, request mixes (a) and (b) (module docstring).
+LM_ARCH, LM_BATCH, LM_NEW = "llama3.2-3b", 4, 32
+LM_MIXES = {"a": (32, 0.7), "b": (2048, 0.0)}
 # Integer operations of the counter hash (core/rng.py): one fold is
 # 2 shifts + 3 adds + 1 xor, then mix32 is 3 shift-xor pairs + 2 multiplies;
 # a colour draw adds shift, convert, scale and compare.
@@ -583,6 +610,251 @@ def time_cover_counts(store) -> dict:
     return per
 
 
+# --------------------------------------------------------------- LM phases
+def _flash_cases():
+    """(name, B, Lq, Lk, H, KVH, D, causal, kv_offset) of the kernel
+    checks: the main path's two shapes first."""
+    cases = [("main prefill", 4, 2048, 2048, 24, 8, 128, True, 0),
+             ("main decode", 4, 1, 2080, 24, 8, 128, True, 2079)]
+    for causal in (True, False):
+        cases += [
+            ("H/KVH 1, D 64", 2, 128, 128, 4, 4, 64, causal, 0),
+            ("H/KVH 3, D 96, ragged", 2, 100, 100, 6, 2, 96, causal, 0),
+            ("H/KVH 8, D 128, ragged Lk", 1, 130, 190, 8, 1, 128, causal, 60),
+            ("H/KVH 3, D 192", 1, 65, 129, 6, 2, 192, causal, 64),
+            ("H/KVH 1, D 16", 3, 33, 33, 4, 4, 16, causal, 0),
+            ("decode, H/KVH 8, D 64", 2, 1, 77, 8, 1, 64, causal, 40),
+            ("decode, H/KVH 3, D 128", 2, 1, 2080, 24, 8, 128, causal, 1500),
+        ]
+    return cases
+
+
+def check_flash(dev) -> dict:
+    """flash_attention against its plain version on the card; returns the
+    largest absolute difference per dtype (compared in float32)."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for name, b, lq, lk, h, kvh, d, causal, off in _flash_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, lq, h, d), generator=gen, device=dev)
+            k = torch.randn((b, lk, kvh, d), generator=gen, device=dev)
+            v = torch.randn((b, lk, kvh, d), generator=gen, device=dev)
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            got = ops.flash_attention(q, k, v, causal=causal, kv_offset=off)
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           kv_offset=off)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err[dtype] = max(err[dtype], float(diff.max()))
+            if dtype == torch.float32:
+                _check(float(diff.max()) <= F32_TOL,
+                       f"flash_attention f32 {name}: max abs err "
+                       f"{float(diff.max())} > {F32_TOL}")
+            else:
+                bad = diff > BF16_TOL + BF16_TOL * want.float().abs()
+                _check(not bool(bad.any()),
+                       f"flash_attention bf16 {name}: {int(bad.sum())} "
+                       f"elements outside atol = rtol = {BF16_TOL}")
+            n += 1
+    print(f"[flash] {n} cases (f32 and bf16, causal and not, kv_offset 0 "
+          f"and > 0, H/KVH 1/3/8, D 16-192, ragged Lq and Lk, the main "
+          f"path's prefill and decode shapes): max abs err f32 "
+          f"{err[torch.float32]:.3e} (limit {F32_TOL}), bf16 "
+          f"{err[torch.bfloat16]:.3e} (atol = rtol = {BF16_TOL})")
+    return {"f32": err[torch.float32], "bf16": err[torch.bfloat16]}
+
+
+def _logit_errors(logits: torch.Tensor, gold: dict) -> tuple[float, int]:
+    """Largest difference from the golden summary of (B, V) float32
+    logits, and the number of rows whose greedy token was checked."""
+    lg = logits.double()
+    ids = torch.as_tensor(gold["ids"], device=lg.device)
+    got = {"logits_at_ids": lg[:, ids], "max": lg.max(-1).values,
+           "lse": torch.logsumexp(lg, -1)}
+    worst = 0.0
+    for key, val in got.items():
+        want = torch.as_tensor(gold[key], dtype=torch.float64,
+                               device=lg.device)
+        worst = max(worst, float((val - want).abs().max()))
+    checked = 0
+    argmax = lg.argmax(-1).tolist()
+    for row, (a, want, gap) in enumerate(zip(argmax, gold["argmax"],
+                                             gold["top2_gap"])):
+        if gap > LM_TOL:
+            _check(a == want, f"LM golden: greedy token {a} != {want} in row "
+                   f"{row} (top-2 gap {gap})")
+            checked += 1
+    return worst, checked
+
+
+def check_lm_golden(golden: dict, dev) -> dict:
+    """llama3.2-3b at full width, 2 layers, float32, on the golden file's
+    weights (`numpy_params`), prompt and teacher-forced tokens."""
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode, init
+    from repro_torch.serve import engine
+
+    gold = golden["lm"]
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 matmuls in full
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(registry.get(gold["arch"]),
+                              num_layers=gold["num_layers"],
+                              dtype=gold["dtype"])
+    t0 = time.perf_counter()
+    tree = init.numpy_params(cfg, gold["param_seed"])
+    params = convert.lm_params_from_jax(tree, cfg, dev)
+    del tree
+    load_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    prompt = torch.as_tensor(gold["prompt"], device=dev)
+    steps = len(gold["decode"])
+    with torch.inference_mode():
+        last, caches, plen = engine.prefill(params, cfg, {"tokens": prompt},
+                                            prompt.shape[1] + steps)
+        worst, checked = _logit_errors(last[:, -1].float(),
+                                       {"ids": gold["vocab_ids"],
+                                        **gold["prefill"]})
+        for st in gold["decode"]:
+            tok = torch.as_tensor(st["tokens"], device=dev)[:, None]
+            lg, caches = decode.decode_step(params, cfg, caches, tok,
+                                            st["cur_len"])
+            w, c = _logit_errors(lg[:, -1].float(),
+                                 {"ids": gold["vocab_ids"], **st})
+            worst, checked = max(worst, w), checked + c
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["flash_attention"]
+    _check(worst <= LM_TOL, f"LM golden: largest difference {worst} > "
+           f"{LM_TOL}")
+    _check(launches == cfg.num_layers * (1 + steps),
+           f"LM golden: flash_attention launched {launches} times, not "
+           f"{cfg.num_layers * (1 + steps)}")
+    print(f"[lm golden] {cfg.name}, {cfg.num_layers} layers at full width "
+          f"(d {cfg.d_model}, vocab {cfg.vocab_size}), float32, weights "
+          f"{cfg.param_count() * 4 / 2 ** 30:.2f} GiB made and loaded in "
+          f"{load_s:.1f}s: prefill {tuple(prompt.shape)} and {steps} "
+          f"teacher-forced steps within {worst:.3e} of the reference (limit "
+          f"{LM_TOL}); {checked} greedy tokens equal; flash launches "
+          f"{launches}; peak device memory {_peak_gib():.2f} GiB")
+    return {"max_abs_err": worst, "launches": launches}
+
+
+def run_lm_main_path() -> dict:
+    """llama3.2-3b at full width through the launcher, request mixes (a)
+    and (b); returns each run's numbers and the flash launches of both."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    out = {}
+    ops.reset_launches()
+    for mix, (prompt_len, temp) in LM_MIXES.items():
+        before = ops.LAUNCHES["flash_attention"]
+        torch.cuda.reset_peak_memory_stats()
+        r = serve.run(serve.parse_args([
+            "--arch", LM_ARCH, "--device", "cuda", "--batch", str(LM_BATCH),
+            "--prompt-len", str(prompt_len), "--new-tokens", str(LM_NEW),
+            "--temperature", str(temp)]))
+        torch.cuda.synchronize()
+        cfg, tokens = r["cfg"], r["tokens"]
+        launches = ops.LAUNCHES["flash_attention"] - before
+        want = cfg.num_layers * (1 + LM_NEW)
+        _check(r["finite"], f"LM ({mix}): non-finite logits")
+        _check(tokens.shape == (LM_BATCH, LM_NEW)
+               and int(tokens.min()) >= 0
+               and int(tokens.max()) < cfg.vocab_size,
+               f"LM ({mix}): tokens malformed")
+        _check(launches == want, f"LM ({mix}): flash_attention launched "
+               f"{launches} times, not {want}")
+        out[mix] = dict(prompt_len=prompt_len, temperature=temp,
+                        prefill_s=r["prefill_s"], decode_s=r["decode_s"],
+                        decode_ms=r["decode_ms_per_step"],
+                        prefill_tok_s=LM_BATCH * prompt_len / r["prefill_s"],
+                        decode_tok_s=LM_BATCH * LM_NEW / r["decode_s"],
+                        launches=launches, peak_gib=_peak_gib())
+        m = out[mix]
+        print(f"[lm main {mix}] {cfg.name} ({cfg.num_layers} layers, "
+              f"{cfg.dtype}, {cfg.param_count() / 1e9:.3f} B parameters): "
+              f"batch {LM_BATCH}, prompt {prompt_len}, {LM_NEW} new tokens "
+              f"at temperature {temp}: prefill {m['prefill_s']:.4f}s "
+              f"({m['prefill_tok_s']:.0f} tokens/s), decode "
+              f"{m['decode_ms']:.3f} ms/step ({m['decode_tok_s']:.1f} "
+              f"tokens/s); flash launches {launches}; peak device memory "
+              f"{m['peak_gib']:.2f} GiB; tokens[0][:8] "
+              f"{tokens[0, :8].tolist()}")
+    out["launches"] = dict(ops.LAUNCHES)
+    print(f"[lm main] launches over (a) and (b): {out['launches']}")
+    return out
+
+
+def time_flash(dev) -> dict:
+    """The kernel, its plain version and SDPA at (b)'s prefill and decode
+    shapes (bf16), each with its bound on this card."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, h, kvh, d = LM_BATCH, 24, 8, 128
+    lp = LM_MIXES["b"][0]
+    per = {}
+    for shape, lq, lk, off, causal in (
+            ("prefill", lp, lp, 0, True),
+            ("decode", 1, lp + LM_NEW, lp + LM_NEW - 1, True)):
+        q = torch.randn((b, lq, h, d), generator=gen, device=dev).bfloat16()
+        k = torch.randn((b, lk, kvh, d), generator=gen, device=dev).bfloat16()
+        v = torch.randn((b, lk, kvh, d), generator=gen, device=dev).bfloat16()
+        scale = d ** -0.5
+
+        def kernel():
+            return flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                        kv_offset=off)
+
+        def plain():
+            return ref.flash_attention_ref(q, k, v, causal=causal,
+                                           kv_offset=off)
+
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        # Every key is visible at decode (kv_offset = Lk - 1): no mask.
+        sdpa_causal = causal and lq == lk
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=sdpa_causal, enable_gqa=True)
+
+        err = float((kernel().float() - plain().float()).abs().max())
+        lib_err = float((library().transpose(1, 2).float()
+                         - plain().float()).abs().max())
+        ms = _kernel_ms(kernel)
+        plain_ms = _time_ms(plain, 3)
+        library()
+        lib_ms = _time_ms(library, 20)
+        # Visible (query, key) pairs; 4·D operations each (two products).
+        pairs = sum(min(lk, i + off + 1) for i in range(lq)) if causal \
+            else lq * lk
+        ops_ms = 1e3 * 4 * b * h * pairs * d / BF16_FLOPS_PER_S
+        bytes_ms = 1e3 * 2 * (2 * b * lq * h * d + 2 * b * lk * kvh * d) \
+            / HBM_BYTES_PER_S
+        per[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=max(ops_ms, bytes_ms),
+                          bound_by="operations" if ops_ms >= bytes_ms
+                          else "bytes", max_abs_err=err)
+        print(f"[timing flash] {shape} (B {b}, Lq {lq}, Lk {lk}, H {h}, KVH "
+              f"{kvh}, D {d}, bf16, kv_offset {off}): kernel {ms:.4f} ms "
+              f"(CUDA graph of 10), plain {plain_ms:.4f} ms, SDPA "
+              f"{lib_ms:.4f} ms (its max abs diff from plain {lib_err:.3e}), "
+              f"bound {per[shape]['bound_ms']:.6f} ms by "
+              f"{per[shape]['bound_by']} ({ops_ms:.6f} operations, "
+              f"{bytes_ms:.6f} bytes); kernel vs plain max abs err "
+              f"{err:.3e}")
+    return per
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -634,14 +906,39 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     lse = time_tile_kernel(out_lt["store"], "lt")
     print(f"[timing lt] peak device memory {_peak_gib():.2f} GiB")
+    lt = dict(build_s=out_lt["build_s"], reflush_s=out_lt["reflush_s"])
+    # The LM phases hold up to ~10 GiB: release the LT graph, its 24.2 GiB
+    # of tiles and the pools first, as the IC phase's are above.
+    del out_lt
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"[release] LT phase freed: {held:.2f} GiB still allocated")
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_err = check_flash(dev)
+    print(f"[flash] peak device memory {_peak_gib():.2f} GiB")
+    lm_gold = check_lm_golden(golden, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = run_lm_main_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fl = time_flash(dev)
+    print(f"[timing flash] peak device memory {_peak_gib():.2f} GiB")
 
     print(f"[result] build {build_s:.2f}s; IC pool build {ic['build_s']:.3f}s "
           f"for 64 batches ({64 / ic['build_s']:.2f} batches/s), mixed flush "
           f"{ic['flush_s'] * 1e3:.2f} ms (first in the process), "
           f"{ic['reflush_s'] * 1e3:.2f} ms (after the refresh); LT pool build "
-          f"{out_lt['build_s']:.3f}s ({64 / out_lt['build_s']:.2f} "
-          f"batches/s), mixed flush {out_lt['reflush_s'] * 1e3:.2f} ms after "
-          f"the refresh; fused_expand mean per level {fe['dense_ms']:.4f} ms "
+          f"{lt['build_s']:.3f}s ({64 / lt['build_s']:.2f} "
+          f"batches/s), mixed flush {lt['reflush_s'] * 1e3:.2f} ms after "
+          f"the refresh; LM llama3.2-3b (b) prefill "
+          f"{lm['b']['prefill_tok_s']:.0f} tokens/s, decode "
+          f"{lm['b']['decode_ms']:.3f} ms/step; flash_attention prefill "
+          f"{fl['prefill']['ms']:.4f} ms, decode {fl['decode']['ms']:.4f} "
+          f"ms; fused_expand mean per level {fe['dense_ms']:.4f} ms "
           f"(compacted {fe['compact_ms']:.4f}); lt_select_expand "
           f"{lse['compact_ms']:.4f} ms compacted ({lse['dense_ms']:.4f} "
           f"dense grid); batch 0 end to end IC {fe['batch_dense_ms']:.2f} / "
@@ -673,6 +970,22 @@ def main() -> int:
              bound_ms=lse["compact_bound_ms"],
              bound_by=lse["compact_bound_by"],
              library_ms=None),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:83",
+             launches=lm["launches"]["flash_attention"],
+             max_abs_err=max(flash_err["f32"], flash_err["bf16"],
+                             fl["prefill"]["max_abs_err"],
+                             fl["decode"]["max_abs_err"]),
+             max_abs_err_f32=flash_err["f32"],
+             max_abs_err_bf16=flash_err["bf16"],
+             lm_golden_max_abs_err=lm_gold["max_abs_err"],
+             ms=fl["prefill"]["ms"], plain_ms=fl["prefill"]["plain_ms"],
+             bound_ms=fl["prefill"]["bound_ms"],
+             bound_by=fl["prefill"]["bound_by"],
+             library_ms=fl["prefill"]["library_ms"],
+             decode={k: fl["decode"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())

@@ -1,6 +1,7 @@
 """Write the full-size golden values of the reference package for the port.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --lm-only
 
 Builds the launcher's graph at the size the port's chip smoke serves
 (``powerlaw_cluster(65536, 6.0, prob=0.25, seed=7)``, deduped, reversed),
@@ -13,22 +14,43 @@ under the LT diffusion (``SamplerSpec(diffusion="lt")``, which normalises
 the reversed graph's in-weights) goes under ``"lt"``.  Output:
 ``tests/data/torch_port_golden.json``, which ``chip_smoke.py`` reads — the
 one full-size check of the port on the GPU against the reference.
+
+The ``"lm"`` entry is llama3.2-3b at full width and vocabulary with its
+depth cut to 2 layers, in float32, on the weights of the port's
+``models/init.py::numpy_params(cfg, seed=0)`` (numpy, no JAX) handed to the
+reference in its own tree layout: a prefill of 2 prompts of 64 tokens, then
+8 decode steps, each fed the reference's greedy token of the step before.
+For the last prefill position and each step it records the logits at 32
+seeded vocabulary ids, the max logit, the log-sum-exp, the argmax and the
+top-2 gap.  ``--lm-only`` recomputes that entry alone and keeps every other
+entry of the file as it is.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import hashlib
 import json
 import os
 import time
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
+from repro.configs import registry
 from repro.core import imm, tiles
 from repro.graph import csr, generators
+from repro.models import decode
 from repro.sampling import SamplerSpec, make_sampler
+from repro.serve import engine
+from repro_torch.configs import registry as port_registry
+from repro_torch.models import init as port_init
 
 N, DEGREE, PROB, GRAPH_SEED = 65536, 6.0, 0.25, 7
 COLORS, MASTER_SEED, BATCHES, K = 64, 0, 4, 16
+LM_ARCH, LM_LAYERS, LM_PARAM_SEED, LM_PROMPT_SEED = "llama3.2-3b", 2, 0, 1
+LM_BATCH, LM_PROMPT_LEN, LM_STEPS, LM_IDS = 2, 64, 8, 32
 OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests", "data",
                    "torch_port_golden.json")
 
@@ -38,8 +60,63 @@ def mask_sha256(visited) -> str:
         np.ascontiguousarray(np.asarray(visited), "<u4").tobytes()).hexdigest()
 
 
+def _logit_summary(logits: np.ndarray, ids: np.ndarray) -> dict:
+    """(B, V) float32 logits → the values the port is checked against."""
+    lg = logits.astype(np.float64)
+    top2 = np.sort(lg, axis=-1)[:, -2:]
+    mx = lg.max(-1)
+    lse = mx + np.log(np.exp(lg - mx[:, None]).sum(-1))
+    return {"logits_at_ids": lg[:, ids].tolist(), "max": mx.tolist(),
+            "lse": lse.tolist(), "argmax": lg.argmax(-1).tolist(),
+            "top2_gap": (top2[:, 1] - top2[:, 0]).tolist()}
+
+
+def lm_golden() -> dict:
+    """The ``"lm"`` entry (module docstring)."""
+    cfg = dataclasses.replace(registry.get(LM_ARCH), num_layers=LM_LAYERS,
+                              dtype="float32")
+    port_cfg = dataclasses.replace(port_registry.get(LM_ARCH),
+                                   num_layers=LM_LAYERS, dtype="float32")
+    tree = port_init.numpy_params(port_cfg, LM_PARAM_SEED)
+    params = jax.tree.map(jnp.asarray, tree)
+    del tree
+    rng = np.random.default_rng(LM_PROMPT_SEED)
+    prompt = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT_LEN))
+    ids = np.sort(rng.choice(cfg.vocab_size, LM_IDS, replace=False))
+    last, caches, _ = engine.prefill(params, cfg,
+                                     {"tokens": jnp.asarray(prompt)},
+                                     LM_PROMPT_LEN + LM_STEPS)
+    logits = np.asarray(last[:, -1], np.float32)
+    out = {"arch": LM_ARCH, "num_layers": LM_LAYERS, "dtype": "float32",
+           "param_seed": LM_PARAM_SEED, "prompt_seed": LM_PROMPT_SEED,
+           "prompt": prompt.tolist(), "vocab_ids": ids.tolist(),
+           "prefill": _logit_summary(logits, ids), "decode": []}
+    step = jax.jit(lambda p, c, t, n: decode.decode_step(p, cfg, c, t, n))
+    for i in range(LM_STEPS):
+        tok = logits.argmax(-1)[:, None]
+        lg, caches = step(params, caches, jnp.asarray(tok),
+                          jnp.int32(LM_PROMPT_LEN + i))
+        logits = np.asarray(lg[:, -1], np.float32)
+        out["decode"].append({"cur_len": LM_PROMPT_LEN + i,
+                              "tokens": tok[:, 0].tolist(),
+                              **_logit_summary(logits, ids)})
+    return out
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--lm-only", action="store_true",
+                    help="recompute the \"lm\" entry alone")
+    args = ap.parse_args()
     t0 = time.time()
+    if args.lm_only:
+        with open(OUT) as f:
+            golden = json.load(f)
+        golden["lm"] = lm_golden()
+        _write(golden)
+        print(f"wrote the lm entry of {os.path.normpath(OUT)} in "
+              f"{time.time() - t0:.1f}s")
+        return
     g = csr.dedupe(generators.powerlaw_cluster(N, DEGREE, prob=PROB,
                                                seed=GRAPH_SEED))
     g_rev = csr.transpose(g)
@@ -85,10 +162,15 @@ def main() -> None:
                       "seeds": lt_seeds.tolist(), "coverage": lt_cov},
         },
     }
+    golden["lm"] = lm_golden()
+    _write(golden)
+    print(f"wrote {os.path.normpath(OUT)} in {time.time() - t0:.1f}s")
+
+
+def _write(golden: dict) -> None:
     with open(OUT, "w") as f:
         json.dump(golden, f, indent=1)
         f.write("\n")
-    print(f"wrote {os.path.normpath(OUT)} in {time.time() - t0:.1f}s")
 
 
 if __name__ == "__main__":

@@ -3,8 +3,10 @@
 The package mirrors ``repro``'s module paths (``repro/core/rrr.py`` is
 ``repro_torch/core/rrr.py``) and keeps its results bit-identical: batch
 ``b`` of a sketch pool is a pure function of ``(graph, master_seed, b)`` in
-both packages.  It imports ``torch`` and ``numpy`` only, never ``jax`` or
-``repro``.
+both packages.  The LM substrate's serving path (``models/``,
+``serve/engine.py``, ``launch/serve.py``) matches the reference's logits
+within float32 rounding.  It imports ``torch`` and ``numpy`` only, never
+``jax`` or ``repro``.
 
 Tensors carry an explicit device.  Entry points that create tensors take
 ``device=`` and default to ``"cuda"``; without a GPU they raise unless the

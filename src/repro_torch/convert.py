@@ -3,7 +3,8 @@
 The reference keeps packed colour masks as uint32; the port keeps the same
 bit patterns in ``torch.int32`` tensors.  These helpers do the view at the
 boundary, so a graph or a sketch pool built by one package can be handed to
-the other and compared bit for bit.
+the other and compared bit for bit.  `lm_params_from_jax` loads an LM
+parameter tree in the reference's layout into the port's modules.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core import rrr
 from repro_torch.graph import csr
+from repro_torch.models import common, model
+from repro_torch.models.config import ModelConfig
 
 
 def graph_from_numpy(indptr, src, dst, prob, num_vertices: int,
@@ -54,3 +57,33 @@ def batches_from_numpy(visited: np.ndarray, roots: np.ndarray,
     return [rrr.RRRBatch(masks[i], np.asarray(roots[i], np.int32), int(b),
                          int(visits[i, 0]), int(visits[i, 1]))
             for i, b in enumerate(batch_indices)]
+
+
+def lm_params_from_jax(tree: dict, cfg: ModelConfig,
+                       device="cuda") -> model.LM:
+    """The port's `model.LM` holding the weights of a reference parameter
+    tree (``repro.models.model.init_params``'s layout, leaves as numpy
+    arrays or anything ``np.asarray`` takes): ``embedding``, ``unembed``,
+    ``final_norm`` and one stack of ``block0`` leaves leading with the
+    layer axis (``wq (G, d, h, hd)``, ``wo (G, h, hd, d)``, …), layer
+    ``i`` going to ``layers[i]``.  Leaves are cast to the config's dtype
+    on ``device`` one at a time."""
+    model.check_supported(cfg)
+    dev = device_lib.resolve(device)
+    dt = common.dtype_of(cfg.dtype)
+
+    def put(a):                    # a host copy of our own, then the device
+        return torch.from_numpy(np.array(a, np.float32)).to(dev, dt)
+
+    (stack,) = tree["stacks"]
+    block = stack["block0"]
+    layers = []
+    for i in range(cfg.num_layers):
+        attn = common.param_dict({k: put(a[i])
+                                  for k, a in block["attn"].items()})
+        mlp = common.param_dict({k: put(a[i])
+                                 for k, a in block["mlp"].items()})
+        layers.append(model.Block(put(block["norm1"][i]), attn,
+                                  put(block["norm2"][i]), mlp))
+    return model.LM(put(tree["embedding"]), put(tree["unembed"]),
+                    put(tree["final_norm"]), layers)

@@ -10,6 +10,7 @@ The tile kernels take an optional ``tile_ids``: ascending int32 ids of the
 tiles to walk (the sparse frontier's compacted list).  The CUDA kernels
 read those tiles where they lie, through run pointers built here on the
 device; the plain versions gather the listed tiles (CPU tensors only).
+``flash_attention`` serves the LM substrate's prefill and decode.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from repro_torch.core import tiles
 from repro_torch.core.tiles import TiledGraph
 from repro_torch.kernels import ref
 
-LAUNCHES = {"fused_expand": 0, "cover_counts": 0, "lt_select_expand": 0}
+LAUNCHES = {"fused_expand": 0, "cover_counts": 0, "lt_select_expand": 0,
+            "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -100,3 +102,30 @@ def cover_counts(visited: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
         LAUNCHES["cover_counts"] += 1
         return out
     return ref.cover_counts_ref(visited, active)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    kv_offset: int = 0) -> torch.Tensor:
+    """Blocked online-softmax attention (the LM substrate's prefill and
+    decode): q (B, Lq, H, D), k and v (B, Lk, KVH, D), query head ``h``
+    reading KV head ``h // (H // KVH)``; the reference's unbatched
+    (Lq, H, D) layout is taken too.  Query ``i`` attends keys up to
+    ``i + kv_offset`` under ``causal``."""
+    unbatched = q.dim() == 3
+    if unbatched:
+        q, k, v = q[None], k[None], v[None]
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k and v must all be "
+                         "(Lq|Lk, H, D) or all (B, Lq|Lk, H, D)")
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    if _on_cuda(q, k, v):
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
+        out = flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   scale=scale, kv_offset=kv_offset)
+        LAUNCHES["flash_attention"] += 1
+    else:
+        out = ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                      kv_offset=kv_offset)
+    return out[0] if unbatched else out

@@ -146,3 +146,31 @@ def cover_counts_ref(visited, active):
         visited, active = visited[None], active[None]
     return bitmask.popcount(visited & active[:, None, :]).sum(
         (0, 2), dtype=torch.int32)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, scale=None, kv_offset=0):
+    """Attention with the function of the reference's Pallas kernel
+    (``kernels/flash_attention.py::_flash_kernel``), as one plain softmax:
+
+        s = (q·scale)·kᵀ in float32;  under ``causal`` a key at position
+        ``kp > qp + kv_offset`` gets -1e30;  out = softmax(s)·v, cast to
+        q's dtype.
+
+    q (B, Lq, H, D); k, v (B, Lk, KVH, D), ``H`` a multiple of ``KVH``:
+    query head ``h`` reads KV head ``h // (H // KVH)`` (grouped-query
+    attention in place, the head order of ``q.reshape(b, L, kvh, g, hd)``).
+    Rows attend every key up to ``qp + kv_offset`` (decode: one query at
+    ``kv_offset = cur_len`` over a padded cache)."""
+    b, lq, h, d = q.shape
+    kvh = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(h // kvh, dim=2)
+    vf = v.float().repeat_interleave(h // kvh, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    if causal:
+        qp = torch.arange(lq, device=q.device)[:, None] + kv_offset
+        kp = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = s.masked_fill(kp > qp, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)

@@ -1,1 +1,2 @@
-"""Serving subsystems of the port (`serve.influence`)."""
+"""Serving subsystems of the port: `serve.influence` (sketch-pool
+influence queries) and `serve.engine` (LM prefill and decode)."""

@@ -174,3 +174,34 @@ def test_sparse_kernel_sampler_equals_dense_csr(cuda, diffusion):
         got = kern.sample(b)
         assert kern.last_active_tiles <= kern.last_grid_steps
         assert torch.equal(got.visited, dense.sample(b).visited)
+
+
+def _qkv(b, lq, lk, h, kvh, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn((b, lq, h, d), generator=g, device="cuda").to(dtype),
+            torch.randn((b, lk, kvh, d), generator=g, device="cuda").to(dtype),
+            torch.randn((b, lk, kvh, d), generator=g, device="cuda").to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,lq,lk,h,kvh,d,kv_offset", [
+    (1, 128, 128, 2, 2, 64, 0), (2, 100, 100, 6, 2, 96, 0),
+    (2, 1, 77, 8, 1, 128, 40), (3, 1, 2080, 24, 8, 128, 2079),
+    (1, 65, 130, 3, 3, 192, 65), (1, 33, 33, 4, 4, 16, 0),
+    (1, 64, 64, 2, 1, 256, 0)])
+def test_flash_attention_kernel_equals_plain(cuda, dtype, causal, b, lq, lk,
+                                             h, kvh, d, kv_offset):
+    """Ragged lengths, grouped heads (H/KVH 1, 3, 8), head dims 16-256,
+    decode (Lq 1 at kv_offset) and not; f32 within 2e-5, bf16 within the
+    reference's 2e-2 (compared in float32)."""
+    q, k, v = _qkv(b, lq, lk, h, kvh, d, dtype, lq * 7 + d)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, kv_offset=kv_offset)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                   kv_offset=kv_offset)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
