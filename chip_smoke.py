@@ -7,14 +7,15 @@ CUDA toolkit's ``nvcc``; it exits non-zero, printing no result, anywhere
 else.  Phases, each of which raises on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: the four kernels of ``src/repro_torch/csrc``, compiled in
+2. build: the five kernels of ``src/repro_torch/csrc``, compiled in
    parallel;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    exact equality — ``fused_expand`` and ``lt_select_expand`` on a reduced
    graph (empty frontier, destination blocks no tile reaches,
    ``pad_tiles_to`` padding tiles, 32/64/96 colours) over every tile and
    over compacted tile lists (empty, one source block, full),
-   ``cover_counts`` at the full pool shape;
+   ``fused_expand_q`` on the same graph's quantised stack (32/64/128
+   colours, the same lists), ``cover_counts`` at the full pool shape;
 4. IC main path at full size: the serving launcher's ``run_single`` on the
    kernel backend — powerlaw_cluster(65,536, 6.0, p=0.25, seed 7), 64
    colours, a 64-batch pool (4,096 RRR sets), one mixed micro-batched flush
@@ -40,25 +41,46 @@ else.  Phases, each of which raises on failure:
 8. LT golden: batches 0-3 on the kernel backend, dense and compacted grid,
    0-1 on the dense CSR backend, and the top-16 seeds, against the file;
 9. LT timing: as 6, with the plain version on the compacted list;
-10. flash attention, after the LT tile stacks are released: the
+10. quantised golden, after the LT tile stacks are released: the port's
+    whole quantised path at the golden file's ``"q"`` size (4,096
+    vertices: generator, ``cluster`` reordering, q8 layout,
+    ``run_fused_q_tiled`` on the dense grid and the compacted list),
+    levels, popcount and sha256 of batches 0-1 against the reference's
+    ``graph_q`` loop;
+11. quantised main path at full size: powerlaw_cluster(262,144, 6.0,
+    p=0.25, seed 7), deduped, ``reorder.apply(g, "cluster")``, reversed,
+    128×128 tiles with the uint8 stack only (~600k tiles, ~9 GiB, tile ids
+    past 2¹⁸ where the cell counter wraps): ``fused_expand_q`` against its
+    plain version on 4,096 tile ids spread over the id range; then 8
+    batches of 64 colours through ``run_fused_q_tiled`` on the dense grid
+    and on the compacted list, in turns, with identical words; counters as
+    in 4, ``fused_expand_q`` launched once per level of each;
+12. quantised timing: every level of batch 0 on both grids (CUDA graph of
+    10 launches), the compaction, each beside its bound on this card;
+13. quantised exactness without the reference: (b) the mean RRR set size
+    of the 512 quantised traversals against 512 exact CSR IC traversals
+    (p = 0.25 quantises exactly), within 4 standard errors of the
+    difference; (a) with every edge at p = 1 the quantised traversal
+    equals the CSR sweep's BFS word for word (batches 0 and 1);
+14. flash attention, after the quantised stacks are released: the
     ``flash_attention`` kernel against its plain version on the card —
     float32 and bfloat16, causal and not, ``kv_offset`` 0 and > 0 with one
     query, H/KVH 1, 3 and 8, head dims 16, 64, 96, 128 and 192, ragged Lq
     and Lk, and the LM main path's prefill and decode shapes; float32
     within 2e-5 max abs, bfloat16 within atol = rtol = 2e-2 (the
     reference's kernel test), compared in float32;
-11. LM golden: llama3.2-3b at full width and vocabulary, depth cut to 2
+15. LM golden: llama3.2-3b at full width and vocabulary, depth cut to 2
     layers, float32 (TF32 off), weights from
     ``models/init.py::numpy_params(cfg, seed=0)``: prefill of 2 × 64
     tokens and 8 teacher-forced decode steps against the file's ``"lm"``
     entry — logits at 32 vocabulary ids, max logit and log-sum-exp within
     1e-3, greedy argmax equal wherever the golden top-2 gap exceeds 1e-3;
-12. LM main path at full width: llama3.2-3b, 28 layers, bf16, the port's
+16. LM main path at full width: llama3.2-3b, 28 layers, bf16, the port's
     seeded init, through ``launch.serve``'s ``run``: (a) the launcher's own
     mix, batch 4, prompt 32, 32 new tokens at temperature 0.7; (b) batch
     4, prompt 2,048, 32 new tokens, greedy.  Counters as in 4; each
     request batch must launch ``flash_attention`` 28 × (1 + 32) times;
-13. flash timing at (b)'s prefill and decode shapes: the kernel (CUDA
+17. flash timing at (b)'s prefill and decode shapes: the kernel (CUDA
     graph of 10 launches), its plain version and, as the library's time,
     ``scaled_dot_product_attention(..., enable_gqa=True)`` (timed only;
     the port never calls it), each beside the kernel's bound.
@@ -99,6 +121,13 @@ LM_MIXES = {"a": (32, 0.7), "b": (2048, 0.0)}
 # a colour draw adds shift, convert, scale and compare.
 OPS_PER_EDGE_FOLD = 14
 OPS_PER_DRAW = 18
+# A quantised draw: one fold (14) serves four colours, each of which adds a
+# shift, a mask and a compare; counted as 20 per hash.
+OPS_PER_Q_HASH = 20
+# The quantised path (phases 10-13): its graph, batches, check list and the
+# statistics limit in standard errors of the difference of two means.
+Q_N, Q_DEGREE, Q_PROB, Q_GRAPH_SEED = 262_144, 6.0, 0.25, 7
+Q_BATCHES, Q_CHECK_TILES, Q_STAT_SE = 8, 4096, 4.0
 
 
 def _gpu_line() -> str:
@@ -207,7 +236,10 @@ def check_kernels(dev) -> dict:
     largest word difference seen per kernel (0 = bit-identical)."""
     from repro_torch.kernels import ops, ref
 
-    err = {"fused_expand": 0, "cover_counts": 0, "lt_select_expand": 0}
+    from repro_torch.kernels.fused_expand_q import quantize_probs
+
+    err = {"fused_expand": 0, "cover_counts": 0, "lt_select_expand": 0,
+           "fused_expand_q": 0}
     gen = torch.Generator(device=dev).manual_seed(0)
     for lt in (False, True):
         name = "lt_select_expand" if lt else "fused_expand"
@@ -242,6 +274,30 @@ def check_kernels(dev) -> dict:
               f"({tg.num_tiles} tiles, 5 padding; every tile and compacted "
               f"lists: empty, one source block, full), max word diff "
               f"{err[name]}")
+        if lt:
+            continue
+        # The quantised kernel on the same tiles: q8 is the reference's
+        # quantize_probs of the float32 stack; W = 1, 2 and 4.
+        q8, cases = quantize_probs(tg.prob), 0
+        for colors in (32, 64, 128):
+            for density in (0.0, 0.02, 0.3):
+                fr0, vis = _random_masks(tg.padded_vertices, colors, density,
+                                         gen, dev)
+                for _, ids, fr in _tile_lists(tg, fr0):
+                    got = ops.fused_expand_q(tg, q8, fr, vis, 0xDEADBEEF, 17,
+                                             tile_ids=ids)
+                    want = ref.fused_expand_q_ref(
+                        q8, tg.tile_src, tg.tile_dst, fr, vis, 0xDEADBEEF, 17,
+                        tile_ids=ids)
+                    torch.cuda.synchronize()
+                    err["fused_expand_q"] = max(err["fused_expand_q"],
+                                                _max_abs_err(got, want))
+                    _check(bool(fr.any()) or not bool(got.any()),
+                           "fused_expand_q: an empty frontier expanded")
+                    cases += 1
+        print(f"[kernels] fused_expand_q: {cases} cases on the same graph "
+              f"(W 1, 2, 4; every tile and the three compacted lists), max "
+              f"word diff {err['fused_expand_q']}")
     for b, v, w in ((64, 65536, 2), (16, 65536, 3), (1, 300, 1)):
         vis = torch.randint(-2 ** 31, 2 ** 31, (b, v, w), dtype=torch.int32,
                             device=dev, generator=gen)
@@ -610,6 +666,368 @@ def time_cover_counts(store) -> dict:
     return per
 
 
+# ----------------------------------------------------------- quantised phases
+def _q_graph(n: int, dev):
+    """The quantised path's graph: powerlaw_cluster(n, 6.0, p = 0.25, seed
+    7), deduped, ``cluster`` order, reversed; its quantised layout.  Returns
+    (reversed graph, tg, q8, host seconds of the reordering)."""
+    from repro_torch.core import tiles
+    from repro_torch.graph import csr, generators, reorder
+
+    g = csr.dedupe(generators.powerlaw_cluster(n, Q_DEGREE, prob=Q_PROB,
+                                               seed=Q_GRAPH_SEED, device=dev))
+    t0 = time.perf_counter()
+    g_ord, _ = reorder.apply(g, "cluster")
+    reorder_s = time.perf_counter() - t0
+    g_rev = csr.transpose(g_ord)
+    tg, q8 = tiles.quantized(g_rev)
+    return g_rev, tg, q8, reorder_s
+
+
+def _colour_sizes(visited: torch.Tensor, colors: int) -> torch.Tensor:
+    """(colors,) float64 RRR set sizes: the vertices carrying each colour."""
+    from repro_torch.core import bitmask
+    return bitmask.unpack_bits(visited).sum(0).reshape(-1)[:colors].double()
+
+
+def check_q_golden(golden: dict, dev) -> None:
+    """The port's whole quantised path at the golden file's ``"q"`` size
+    (generator, ``cluster``, q8 layout, ``run_fused_q_tiled`` on the dense
+    grid and the compacted list) against the reference's ``graph_q`` loop,
+    bit for bit."""
+    from repro_torch.core import rrr, tiled_traversal
+
+    gold = golden["q"]
+    spec = gold["graph"]
+    g_rev, tg, q8, _ = _q_graph(spec["n"], dev)
+    _check((g_rev.num_edges, tg.num_tiles) == (spec["num_edges"],
+                                               spec["num_tiles"]),
+           "q golden: graph or tile layout differs from the reference")
+    for frontier in ("dense", "sparse"):
+        for gb in gold["batches"]:
+            b = gb["batch_index"]
+            vis, levels, _ = tiled_traversal.run_fused_q_tiled(
+                tg, q8, rrr.batch_starts(spec["n"], gold["num_colors"],
+                                         gold["master_seed"], b),
+                gold["num_colors"], rrr.batch_seed(gold["master_seed"], b),
+                frontier=frontier)
+            bits = int(_colour_sizes(vis, gold["num_colors"]).sum())
+            _check(levels == gb["levels"] and bits == gb["visited_bits"]
+                   and _sha(vis) == gb["visited_sha256"],
+                   f"q golden: {frontier} batch {b} differs from the "
+                   f"reference ({levels} levels, {bits} bits)")
+    print(f"[q golden] n {spec['n']}, cluster order, {tg.num_tiles} tiles: "
+          f"batches {[gb['batch_index'] for gb in gold['batches']]} on the "
+          "dense grid and the compacted list equal the reference's graph_q "
+          "loop bit for bit (levels "
+          f"{[gb['levels'] for gb in gold['batches']]})")
+
+
+def check_q_kernel_full(tg, q8, dev) -> dict:
+    """The kernel against its plain version on the main graph: a list of
+    Q_CHECK_TILES tile ids spread evenly over the id range (a quarter or
+    more past 2¹⁸, where the cell id wraps), two frontier densities; the
+    plain version's time on that list."""
+    from repro_torch.kernels import ops, ref
+
+    nt = tg.num_tiles
+    ids = torch.unique(torch.linspace(0, nt - 1, Q_CHECK_TILES, device=dev)
+                       .round().long()).int()
+    wrap = int((ids >= 2 ** 32 // tg.tile_size ** 2).sum())
+    _check(ids.numel() == Q_CHECK_TILES and 4 * wrap >= ids.numel(),
+           f"q check list: {ids.numel()} ids, {wrap} past the wrap")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    err, plain_ms = 0, []
+    for density, level in ((0.02, 3), (0.3, 40)):
+        fr, vis = _random_masks(tg.padded_vertices, 64, density, gen, dev)
+        got = ops.fused_expand_q(tg, q8, fr, vis, 0xDEADBEEF, level,
+                                 tile_ids=ids)
+        want = [None]
+
+        def plain():
+            want[0] = ref.fused_expand_q_ref(q8, tg.tile_src, tg.tile_dst,
+                                             fr, vis, 0xDEADBEEF, level,
+                                             tile_ids=ids)
+        plain_ms.append(_time_ms(plain, 3))
+        _check(bool(want[0].any()), "q check list reached nothing")
+        err = max(err, _max_abs_err(got, want[0]))
+    _check(err == 0, f"fused_expand_q differs from its plain version on the "
+           f"main graph's list: max word diff {err}")
+    print(f"[q kernels] fused_expand_q on {ids.numel()} tile ids spread over "
+          f"0..{nt - 1} ({wrap} of them ≥ {2 ** 32 // tg.tile_size ** 2}, "
+          f"where the cell id wraps), frontier densities 0.02 and 0.3: max "
+          f"word diff {err}; plain version {plain_ms[0]:.4f} / "
+          f"{plain_ms[1]:.4f} ms")
+    return dict(max_abs_err=err, plain_ms=float(np.mean(plain_ms)))
+
+
+def run_q_main_path(tg, q8, g_rev) -> dict:
+    """The main path: Q_BATCHES batches of 64 colours through
+    ``run_fused_q_tiled`` on the dense grid and on the compacted list (in
+    turns), launch counters zeroed just before and read just after; the
+    two grids must give identical words."""
+    from repro_torch.core import rrr, tiled_traversal
+    from repro_torch.kernels import ops
+
+    n = g_rev.num_vertices
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = {"dense": [], "sparse": []}
+    for b in range(Q_BATCHES):
+        starts, seed = rrr.batch_starts(n, 64, 0, b), rrr.batch_seed(0, b)
+        for frontier in (("dense", "sparse") if b % 2 == 0
+                         else ("sparse", "dense")):
+            work = {}
+            t0 = time.perf_counter()
+            vis, levels, _ = tiled_traversal.run_fused_q_tiled(
+                tg, q8, starts, 64, seed, frontier=frontier, work=work)
+            torch.cuda.synchronize()
+            out[frontier].append(dict(vis=vis, levels=levels,
+                                      ms=1e3 * (time.perf_counter() - t0),
+                                      tiles=work["active_tiles"]))
+    launches = dict(ops.LAUNCHES)
+    levels = [r["levels"] for r in out["dense"]]
+    for d, c in zip(out["dense"], out["sparse"]):
+        _check(d["levels"] == c["levels"] and torch.equal(d["vis"], c["vis"]),
+               "q main path: the compacted list differs from the dense grid")
+    _check(launches["fused_expand_q"] == 2 * sum(levels),
+           f"q main path: fused_expand_q launched "
+           f"{launches['fused_expand_q']} times, not {2 * sum(levels)}")
+    sizes = torch.cat([_colour_sizes(r["vis"], 64) for r in out["dense"]])
+    per = dict(launches=launches, levels=levels, sizes=sizes,
+               batch_dense_ms=float(np.mean([r["ms"] for r in out["dense"]])),
+               batch_compact_ms=float(np.mean([r["ms"]
+                                               for r in out["sparse"]])),
+               batch0_ms={f: out[f][0]["ms"] for f in out},
+               peak_gib=_peak_gib())
+    print(f"[q main] {Q_BATCHES} batches × 64 colours on the dense grid and "
+          f"the compacted list: identical words; levels per batch {levels}; "
+          f"launches {launches}; end to end per batch: dense grid "
+          f"{per['batch_dense_ms']:.2f} ms "
+          f"{[round(r['ms'], 2) for r in out['dense']]}, compacted list "
+          f"{per['batch_compact_ms']:.2f} ms "
+          f"{[round(r['ms'], 2) for r in out['sparse']]}; mean RRR set "
+          f"{float(sizes.mean()):.1f} vertices; peak device memory "
+          f"{per['peak_gib']:.2f} GiB")
+    print(f"[q main] batch 0, tiles walked per level on the compacted list: "
+          f"{out['sparse'][0]['tiles']}")
+    return per
+
+
+def time_q_kernel(tg, q8, g_rev) -> dict:
+    """Every level of batch 0 through ``fused_expand_q_cuda`` on the dense
+    grid and on the level's compacted list (device time per launch,
+    `_kernel_ms`), and the compaction (CUDA events), as `time_tile_kernel`
+    does.  Each level's bound counts what its data needs: the q byte of
+    every edge whose source row is live; the output mask; the run pointers;
+    on the dense grid the whole frontier and visited masks and every tile's
+    source block, on the list the frontier rows of the listed tiles' source
+    blocks, the visited rows of their destination blocks and each entry's
+    id and source block.  Operations: one cell fold per live edge
+    (OPS_PER_EDGE_FOLD) and one hash and byte compare per live nibble
+    (OPS_PER_Q_HASH): four colours of the source row not all visited at
+    the destination."""
+    from repro_torch.core import bitmask, rrr, sparse, tiles, traversal
+    from repro_torch.kernels.fused_expand_q import fused_expand_q_cuda
+
+    n, dev = g_rev.num_vertices, tg.device
+    seed = rrr.batch_seed(0, 0)
+    fr = tiles.pad_mask_rows(traversal.init_frontier(
+        n, 64, rrr.batch_starts(n, 64, 0, 0), dev), tg.padded_vertices)
+    vis = torch.zeros_like(fr)
+
+    def kernel(level, fr, vis, ids, ptr):
+        return fused_expand_q_cuda(q8, tg.tile_src, ptr, fr, vis, seed, level,
+                                   tile_ids=ids)
+
+    def compact(fr):
+        ids = tiles.active_tile_ids(
+            tg.tile_src, sparse.row_block_activity(fr, tg.tile_size))
+        return ids, tiles.run_pointers(tg.tile_dst[ids.long()],
+                                       tg.num_blocks)
+
+    src = g_rev.src[:g_rev.num_edges].long()
+    dst = g_rev.dst[:g_rev.num_edges].long()
+    row_bytes = tg.tile_size * fr.shape[1] * 4
+    ptr_bytes = (tg.num_blocks + 1) * 4
+    nibble = torch.arange(8, device=dev) * 4
+    t = {k: [] for k in ("dense", "compact", "compaction", "bytes_dense",
+                         "bytes_compact", "ops", "tiles", "bytes_rows")}
+    levels, err = [], 0
+    while len(levels) < 64 and bitmask.any_set(fr):
+        level = len(levels)
+        vis = vis | fr
+        ids, ptr = compact(fr)
+        t["compaction"].append(_time_ms(lambda: compact(fr), 3))
+        nf = kernel(level, fr, vis, None, tg.dst_run_ptr)
+        err = max(err, _max_abs_err(kernel(level, fr, vis, ids, ptr), nf))
+        fr_src = fr[src]
+        live = (fr_src != 0).any(1)
+        pend = bitmask.u32(fr_src[live] & ~vis[dst[live]])
+        nibbles = int(((pend[..., None] >> nibble) & 0xF).ne(0).sum())
+        n_live = int(live.sum())
+        out_bytes = fr.numel() * 4
+        listed = ids.long()
+        n_src = int(torch.unique(tg.tile_src[listed]).numel())
+        n_dst = int(torch.unique(tg.tile_dst[listed]).numel())
+        t["bytes_dense"].append(n_live + 3 * out_bytes + tg.num_tiles * 4
+                                + ptr_bytes)
+        t["bytes_compact"].append(n_live + out_bytes
+                                  + (n_src + n_dst) * row_bytes
+                                  + ids.numel() * 8 + ptr_bytes)
+        t["ops"].append(n_live * OPS_PER_EDGE_FOLD + nibbles * OPS_PER_Q_HASH)
+        t["tiles"].append(int(ids.numel()))
+        # Not the bound: the q rows the walk reads, T bytes per live source
+        # row of every walked tile (the layout has no index of its edges).
+        rows = (fr != 0).any(1).view(-1, tg.tile_size).sum(1)
+        t["bytes_rows"].append(int(rows[tg.tile_src.long()].sum())
+                               * tg.tile_size)
+        levels.append((fr, vis, ids, ptr))
+        fr = nf
+    for level, (fr, vis, ids, ptr) in enumerate(levels):
+        t["dense"].append(_kernel_ms(
+            lambda: kernel(level, fr, vis, None, tg.dst_run_ptr)))
+        t["compact"].append(_kernel_ms(
+            lambda: kernel(level, fr, vis, ids, ptr)))
+    n_levels = len(levels)
+    del levels
+    _check(err == 0, f"fused_expand_q: compacted list differs from the dense "
+           f"grid at full size: max word diff {err}")
+    ops_s = np.asarray(t["ops"]) / SCALAR_OPS_PER_S
+    per = dict(levels=n_levels, max_abs_err=err,
+               compaction_ms=float(np.mean(t["compaction"])),
+               tiles=float(np.mean(t["tiles"])))
+    for grid in ("dense", "compact"):
+        bytes_s = np.asarray(t[f"bytes_{grid}"]) / HBM_BYTES_PER_S
+        per[f"{grid}_ms"] = float(np.mean(t[grid]))
+        per[f"{grid}_bytes_ms"] = float(1e3 * np.mean(bytes_s))
+        per[f"{grid}_ops_ms"] = float(1e3 * np.mean(ops_s))
+        per[f"{grid}_bound_ms"] = float(np.mean(1e3 * np.maximum(bytes_s,
+                                                                 ops_s)))
+        per[f"{grid}_bound_by"] = ("bytes" if bytes_s.sum() >= ops_s.sum()
+                                   else "operations")
+    print(f"[q timing] fused_expand_q over the {n_levels} levels of batch 0, "
+          f"device time per launch (CUDA graph of 10): dense grid mean "
+          f"{per['dense_ms']:.4f} ms (max {np.max(t['dense']):.4f}; bound "
+          f"{per['dense_bound_ms']:.6f} by {per['dense_bound_by']}: bytes "
+          f"{per['dense_bytes_ms']:.6f}, operations {per['dense_ops_ms']:.6f})"
+          f"; compacted list mean {per['compact_ms']:.4f} ms (max "
+          f"{np.max(t['compact']):.4f}; bound {per['compact_bound_ms']:.6f} by "
+          f"{per['compact_bound_by']}: bytes {per['compact_bytes_ms']:.6f}; "
+          f"{per['tiles']:.0f} of {tg.num_tiles} tiles on average); "
+          f"compaction {per['compaction_ms']:.4f} ms; not bounds: the q "
+          f"rows of live source rows would take "
+          f"{1e3 * np.mean(t['bytes_rows']) / HBM_BYTES_PER_S:.4f} ms on "
+          f"average (max {1e3 * np.max(t['bytes_rows']) / HBM_BYTES_PER_S:.4f})"
+          f", the whole q8 stack {1e3 * q8.numel() / HBM_BYTES_PER_S:.4f} ms")
+    per["level_ms"] = {"dense": t["dense"], "compact": t["compact"]}
+    for k in ("dense", "compact", "compaction", "tiles"):
+        print(f"[q timing] {k} per level: {[round(x, 4) for x in t[k]]}")
+    return per
+
+
+def check_q_statistics(g_rev, sizes_q: torch.Tensor) -> dict:
+    """(b) The mean RRR set size of the main path's traversals against as
+    many exact CSR IC traversals (batches Q_BATCHES.., other roots and
+    seeds): within Q_STAT_SE standard errors of the difference, from the
+    observed spread.  At p = 0.25, q = 63 and p̂ = 64/256 exactly."""
+    from repro_torch.core import rrr, traversal
+
+    n = g_rev.num_vertices
+    sizes_e = torch.cat([_colour_sizes(traversal.run_fused(
+        g_rev, rrr.batch_starts(n, 64, 0, b), 64,
+        rrr.batch_seed(0, b)).visited, 64)
+        for b in range(Q_BATCHES, 2 * Q_BATCHES)])
+    mq, me = float(sizes_q.mean()), float(sizes_e.mean())
+    se = float(np.sqrt(float(sizes_q.var()) / sizes_q.numel()
+                       + float(sizes_e.var()) / sizes_e.numel()))
+    _check(abs(mq - me) <= Q_STAT_SE * se,
+           f"q statistics: mean RRR set {mq:.2f} (quantised) vs {me:.2f} "
+           f"(exact CSR) differ by more than {Q_STAT_SE} × {se:.2f}")
+    print(f"[q exact b] p = 0.25 quantises to q = 63, p̂ = 64/256 exactly: "
+          f"mean RRR set size {mq:.3f} over {sizes_q.numel()} quantised "
+          f"traversals, {me:.3f} over {sizes_e.numel()} exact CSR ones; "
+          f"|difference| {abs(mq - me):.3f} ≤ {Q_STAT_SE} × standard error "
+          f"{se:.3f} = {Q_STAT_SE * se:.3f}")
+    return dict(mean_q=mq, mean_exact=me, se=se)
+
+
+def check_q_p1(tg, g_rev) -> None:
+    """(a) Every edge at p = 1 (q = 255) in the main graph's layout: the
+    quantised traversal must be the CSR sweep's BFS word for word."""
+    from repro_torch.core import rrr, tiled_traversal, tiles, traversal
+    from repro_torch.graph import csr
+
+    n = g_rev.num_vertices
+    src, dst, _ = g_rev.edges_numpy()
+    g1 = csr.from_edges(src, dst, np.ones(len(src), np.float32), n,
+                        device=g_rev.device)
+    tg1, q1 = tiles.quantized(g1)
+    _check(torch.equal(tg1.tile_src, tg.tile_src)
+           and torch.equal(tg1.dst_run_ptr, tg.dst_run_ptr),
+           "the p = 1 layout differs from the main one")
+    levels = []
+    for b, frontier in ((0, "dense"), (1, "sparse")):
+        starts, seed = rrr.batch_starts(n, 64, 0, b), rrr.batch_seed(0, b)
+        vis, lv, _ = tiled_traversal.run_fused_q_tiled(
+            tg1, q1, starts, 64, seed, frontier=frontier)
+        want = traversal.run_fused(g1, starts, 64, seed)
+        _check(lv == want.stats.levels_run and torch.equal(vis, want.visited),
+               f"q at p = 1 ({frontier}, batch {b}) differs from the CSR BFS")
+        levels.append(lv)
+    print(f"[q exact a] every edge at p = 1 (q = 255): batches 0 (dense grid) "
+          f"and 1 (compacted list) equal the CSR sweep's BFS word for word "
+          f"({levels} levels, mean RRR set "
+          f"{float(_colour_sizes(vis, 64).mean()):.1f} vertices)")
+
+
+def run_q_phases(golden: dict, dev) -> dict:
+    """Phases 10-13 (module docstring); returns the kernel's numbers."""
+    check_q_golden(golden, dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g_rev, tg, q8, reorder_s = _q_graph(Q_N, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    T2 = tg.tile_size ** 2
+    q8_gib = q8.numel() / 2 ** 30
+    print(f"[q graph] powerlaw_cluster({Q_N}, {Q_DEGREE}, p={Q_PROB}, seed "
+          f"{Q_GRAPH_SEED}), deduped, cluster order ({reorder_s:.2f}s of host "
+          f"time), reversed: {g_rev.num_edges} edges, {tg.num_tiles} tiles "
+          f"({g_rev.num_edges / tg.num_tiles:.2f} edges per tile; ids up to "
+          f"{tg.num_tiles - 1}, past the wrap at {2 ** 32 // T2}); q8 stack "
+          f"{q8_gib:.2f} GiB; the float32 prob and int32 edge-id stacks "
+          f"would take {tg.num_tiles * T2 * 8 / 2 ** 30:.2f} GiB (by "
+          f"reckoning, not allocated); graph and layout built in "
+          f"{build_s:.2f}s; peak device memory {_peak_gib():.2f} GiB")
+    chk = check_q_kernel_full(tg, q8, dev)
+    main = run_q_main_path(tg, q8, g_rev)
+    torch.cuda.reset_peak_memory_stats()
+    tim = time_q_kernel(tg, q8, g_rev)
+    for grid, frontier, name in (("dense", "dense", "dense grid"),
+                                 ("compact", "sparse", "compacted list")):
+        ms, kern = main["batch0_ms"][frontier], float(np.sum(
+            tim["level_ms"][grid]))
+        print(f"[q timing] batch 0 end to end on the {name} {ms:.2f} ms "
+              f"(main path); its levels' kernel times sum to {kern:.2f} ms "
+              f"({kern / ms:.1%})")
+    print(f"[q timing] peak device memory {_peak_gib():.2f} GiB")
+    stats = check_q_statistics(g_rev, main["sizes"])
+    # The p = 1 stack takes another 9 GiB: release the p = 0.25 one first.
+    del q8
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_q_p1(tg, g_rev)
+    del tim["level_ms"]
+    return dict(tim, launches=main["launches"]["fused_expand_q"],
+                levels=main["levels"], batch_dense_ms=main["batch_dense_ms"],
+                batch_compact_ms=main["batch_compact_ms"],
+                plain_ms=chk["plain_ms"],
+                max_abs_err=max(chk["max_abs_err"], tim["max_abs_err"]),
+                reorder_s=reorder_s, num_tiles=tg.num_tiles, q8_gib=q8_gib,
+                **stats)
+
+
 # --------------------------------------------------------------- LM phases
 def _flash_cases():
     """(name, B, Lq, Lk, H, KVH, D, causal, kv_offset) of the kernel
@@ -867,7 +1285,9 @@ def main() -> int:
     gpu = _gpu_line()
     dev = torch.device("cuda")
     print(f"[env] {gpu}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+          f"{torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.2f} "
+          f"GiB of device memory")
     with open(GOLDEN) as f:
         golden = json.load(f)
 
@@ -915,6 +1335,12 @@ def main() -> int:
     held = torch.cuda.memory_allocated() / 2 ** 30
     print(f"[release] LT phase freed: {held:.2f} GiB still allocated")
 
+    q = run_q_phases(golden, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"[release] quantised phases freed: {held:.2f} GiB still allocated")
+
     torch.cuda.reset_peak_memory_stats()
     flash_err = check_flash(dev)
     print(f"[flash] peak device memory {_peak_gib():.2f} GiB")
@@ -944,7 +1370,11 @@ def main() -> int:
           f"dense grid); batch 0 end to end IC {fe['batch_dense_ms']:.2f} / "
           f"{fe['batch_compact_ms']:.2f} ms, LT {lse['batch_dense_ms']:.2f} / "
           f"{lse['batch_compact_ms']:.2f} ms (dense / compacted grid); "
-          f"cover_counts {cc['ms']:.4f} ms; total {time.time() - t_all:.1f}s")
+          f"cover_counts {cc['ms']:.4f} ms; fused_expand_q at n {Q_N} "
+          f"({q['num_tiles']} tiles, {q['q8_gib']:.2f} GiB) {q['dense_ms']:.4f} "
+          f"ms dense / {q['compact_ms']:.4f} ms compacted per level, batch "
+          f"{q['batch_dense_ms']:.2f} / {q['batch_compact_ms']:.2f} ms end to "
+          f"end; total {time.time() - t_all:.1f}s")
     kernels = [
         dict(name="fused_expand", route="cuda",
              source="src/repro_torch/csrc/fused_expand.cu",
@@ -986,6 +1416,19 @@ def main() -> int:
              library_ms=fl["prefill"]["library_ms"],
              decode={k: fl["decode"][k] for k in (
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+        dict(name="fused_expand_q", route="cuda",
+             source="src/repro_torch/csrc/fused_expand_q.cu",
+             replaces="src/repro/kernels/fused_expand_q.py:110",
+             also_replaces="src/repro/kernels/fused_expand_q.py:179",
+             launches=q["launches"],
+             max_abs_err=max(err["fused_expand_q"], q["max_abs_err"]),
+             ms=q["dense_ms"], plain_ms=q["plain_ms"],
+             bound_ms=q["dense_bound_ms"], bound_by=q["dense_bound_by"],
+             library_ms=None,
+             compacted={"ms": q["compact_ms"],
+                        "bound_ms": q["compact_bound_ms"],
+                        "bound_by": q["compact_bound_by"],
+                        "compaction_ms": q["compaction_ms"]}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())

@@ -2,6 +2,7 @@
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --lm-only
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --q-only
 
 Builds the launcher's graph at the size the port's chip smoke serves
 (``powerlaw_cluster(65536, 6.0, prob=0.25, seed=7)``, deduped, reversed),
@@ -24,6 +25,16 @@ For the last prefill position and each step it records the logits at 32
 seeded vocabulary ids, the max logit, the log-sum-exp, the argmax and the
 top-2 gap.  ``--lm-only`` recomputes that entry alone and keeps every other
 entry of the file as it is.
+
+The ``"q"`` entry is the quantised-tile traversal at a small size:
+``powerlaw_cluster(4096, 6.0, prob=0.25, seed=7)``, deduped, reordered with
+``reorder.apply(g, "cluster")``, reversed, its 128×128 tiles quantised
+(``fused_expand_q.quantize_probs``), and for batches 0-1 (64 colours,
+roots ``rrr.batch_starts``, seeds ``rrr.batch_seeds``, master_seed 0) the
+level loop of ``launch/dryrun.py``'s ``graph_q`` cell at one shard,
+composed from ``fused_expand_q_ref`` as that cell composes it.  Per batch
+it records the level count, the visited popcount and the sha256 of the
+visited words.  ``--q-only`` recomputes that entry alone.
 """
 from __future__ import annotations
 
@@ -39,8 +50,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from repro.configs import registry
-from repro.core import imm, tiles
-from repro.graph import csr, generators
+from repro.core import bitmask, imm, rrr, tiles, traversal
+from repro.graph import csr, generators, reorder
+from repro.kernels import fused_expand_q as feq
 from repro.models import decode
 from repro.sampling import SamplerSpec, make_sampler
 from repro.serve import engine
@@ -51,6 +63,7 @@ N, DEGREE, PROB, GRAPH_SEED = 65536, 6.0, 0.25, 7
 COLORS, MASTER_SEED, BATCHES, K = 64, 0, 4, 16
 LM_ARCH, LM_LAYERS, LM_PARAM_SEED, LM_PROMPT_SEED = "llama3.2-3b", 2, 0, 1
 LM_BATCH, LM_PROMPT_LEN, LM_STEPS, LM_IDS = 2, 64, 8, 32
+Q_N, Q_ORDER, Q_BATCHES, Q_MAX_LEVELS = 4096, "cluster", 2, 64
 OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests", "data",
                    "torch_port_golden.json")
 
@@ -103,18 +116,70 @@ def lm_golden() -> dict:
     return out
 
 
+def q_golden() -> dict:
+    """The ``"q"`` entry (module docstring)."""
+    g = csr.dedupe(generators.powerlaw_cluster(Q_N, DEGREE, prob=PROB,
+                                               seed=GRAPH_SEED))
+    g_rev = csr.transpose(reorder.apply(g, Q_ORDER)[0])
+    tg = tiles.from_graph(g_rev)
+    q8 = feq.quantize_probs(tg.prob)
+
+    @jax.jit
+    def graph_q(starts, seed):
+        # launch/dryrun.py:260-281 at one shard (all_gather is the identity)
+        fr0 = tiles.pad_mask_rows(
+            traversal.init_frontier(Q_N, COLORS, starts), tg.padded_vertices)
+
+        def cond(c):
+            fr, _, lvl = c
+            return jnp.logical_and(bitmask.any_set(fr), lvl < Q_MAX_LEVELS)
+
+        def step(c):
+            fr, vis, lvl = c
+            vis = vis | fr
+            nf = feq.fused_expand_q_ref(q8, tg.tile_src, tg.tile_dst, fr, vis,
+                                        seed, lvl.astype(jnp.uint32))
+            return nf, vis, lvl + 1
+
+        fr, vis, lvl = jax.lax.while_loop(
+            cond, step, (fr0, jnp.zeros_like(fr0), jnp.int32(0)))
+        return vis | fr, lvl
+
+    batches = []
+    for b in range(Q_BATCHES):
+        starts = rrr.batch_starts(Q_N, COLORS, MASTER_SEED, b)
+        seed = jnp.uint32(rrr.batch_seeds(MASTER_SEED, [b])[0])
+        vis, levels = graph_q(jnp.asarray(starts), seed)
+        words = np.asarray(vis)[:Q_N]
+        batches.append({"batch_index": b, "levels": int(levels),
+                        "visited_bits": int(np.unpackbits(
+                            words.view(np.uint8)).sum()),
+                        "visited_sha256": mask_sha256(words)})
+    return {"graph": {"generator": "powerlaw_cluster", "n": Q_N,
+                      "avg_deg": DEGREE, "prob": PROB, "seed": GRAPH_SEED,
+                      "dedupe": True, "order": Q_ORDER,
+                      "num_edges": g_rev.num_edges, "tile_size": tiles.TILE,
+                      "num_tiles": tg.num_tiles},
+            "num_colors": COLORS, "master_seed": MASTER_SEED,
+            "max_levels": Q_MAX_LEVELS, "batches": batches}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--lm-only", action="store_true",
-                    help="recompute the \"lm\" entry alone")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--lm-only", action="store_true",
+                      help="recompute the \"lm\" entry alone")
+    only.add_argument("--q-only", action="store_true",
+                      help="recompute the \"q\" entry alone")
     args = ap.parse_args()
     t0 = time.time()
-    if args.lm_only:
+    if args.lm_only or args.q_only:
         with open(OUT) as f:
             golden = json.load(f)
-        golden["lm"] = lm_golden()
+        key = "lm" if args.lm_only else "q"
+        golden[key] = lm_golden() if args.lm_only else q_golden()
         _write(golden)
-        print(f"wrote the lm entry of {os.path.normpath(OUT)} in "
+        print(f"wrote the {key} entry of {os.path.normpath(OUT)} in "
               f"{time.time() - t0:.1f}s")
         return
     g = csr.dedupe(generators.powerlaw_cluster(N, DEGREE, prob=PROB,
@@ -163,6 +228,7 @@ def main() -> None:
         },
     }
     golden["lm"] = lm_golden()
+    golden["q"] = q_golden()
     _write(golden)
     print(f"wrote {os.path.normpath(OUT)} in {time.time() - t0:.1f}s")
 

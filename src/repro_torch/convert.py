@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.core import rrr
+from repro_torch.core import rrr, tiles
 from repro_torch.graph import csr
 from repro_torch.models import common, model
 from repro_torch.models.config import ModelConfig
@@ -57,6 +57,28 @@ def batches_from_numpy(visited: np.ndarray, roots: np.ndarray,
     return [rrr.RRRBatch(masks[i], np.asarray(roots[i], np.int32), int(b),
                          int(visits[i, 0]), int(visits[i, 1]))
             for i, b in enumerate(batch_indices)]
+
+
+def quantized_tiles_from_numpy(tile_src, tile_dst, q8, num_vertices: int,
+                               num_edges: int, device="cuda"
+                               ) -> tuple[tiles.TiledGraph, torch.Tensor]:
+    """The port's quantised layout ``(tg, q8)`` (`tiles.quantized`) holding
+    a reference layout's arrays as they are: ``tile_src``/``tile_dst`` of
+    ``repro.core.tiles.from_graph`` (padding tiles kept) and its
+    ``quantize_probs(prob)`` stack.  The reference's ``first_of_dst``
+    flags become the port's run pointers."""
+    dev = device_lib.resolve(device)
+    q = torch.from_numpy(np.array(q8, np.uint8)).to(dev)
+    t_dst = torch.from_numpy(np.array(tile_dst, np.int32)).to(dev)
+    T = int(q.shape[1])
+    n_blocks = -(-int(num_vertices) // T)
+    tg = tiles.TiledGraph(
+        prob=None, edge_id=None,
+        tile_src=torch.from_numpy(np.array(tile_src, np.int32)).to(dev),
+        tile_dst=t_dst, dst_run_ptr=tiles.run_pointers(t_dst, n_blocks),
+        num_vertices=int(num_vertices), num_edges=int(num_edges),
+        tile_size=T)
+    return tg, q
 
 
 def lm_params_from_jax(tree: dict, cfg: ModelConfig,

@@ -6,7 +6,8 @@ Same level-synchronous semantics as `core.traversal.run_fused` (IC) and
 tile kernels — `kernels.ops.fused_expand` and `kernels.ops.lt_select_expand`:
 the CUDA kernels on a GPU, their plain versions on CPU tensors.  IC draws
 by CSR edge id and LT by destination vertex, so the visited masks equal the
-CSR sweeps' bit for bit.
+CSR sweeps' bit for bit.  `run_fused_q_tiled` runs IC on the quantised
+layout (`kernels.ops.fused_expand_q`), whose draws are its own.
 
 ``frontier="sparse"`` compacts each level to the tiles whose source block
 holds an active vertex: their ascending ids form the level's tile list
@@ -42,7 +43,7 @@ def _run_levels(tg: tiles.TiledGraph, starts, num_colors: int,
     if frontier == "sparse" and ladder is None:
         ladder = sparse.bucket_ladder(tg.num_tiles)
     fr = tiles.pad_mask_rows(
-        init_frontier(tg.num_vertices, num_colors, starts, tg.prob.device),
+        init_frontier(tg.num_vertices, num_colors, starts, tg.device),
         tg.padded_vertices)
     visited = torch.zeros_like(fr)
     steps, active = [], []
@@ -90,11 +91,37 @@ def run_fused_lt_tiled(tg: tiles.TiledGraph, cb_tiles: torch.Tensor, starts,
     The uniform table is computed once per traversal.  Returns as
     `run_fused_tiled`."""
     u = kref.lt_selection_uniforms(seed, tg.padded_vertices, num_colors,
-                                   device=tg.prob.device)
+                                   device=tg.device)
 
     def expand(fr, vis, level, tile_ids):
         return ops.lt_select_expand(tg, cb_tiles, fr, vis, u,
                                     tile_ids=tile_ids)
+
+    return _run_levels(tg, starts, num_colors, max_levels, frontier, ladder,
+                       expand, work)
+
+
+def run_fused_q_tiled(tg: tiles.TiledGraph, q8: torch.Tensor, starts,
+                      num_colors: int, seed: int, max_levels: int = 64,
+                      frontier: str = "dense",
+                      ladder: tuple[int, ...] | None = None,
+                      work: dict | None = None):
+    """IC on the quantised tile layout (``tg, q8 = tiles.quantized(g)``),
+    each level through `kernels.ops.fused_expand_q`.  Returns as
+    `run_fused_tiled`.
+
+    This is the level loop of the reference's ``graph_q`` dryrun cell
+    (``repro/launch/dryrun.py:260-281``, ``body``) at one shard, where its
+    ``all_gather`` over the ``"model"`` axis is the identity: levels run
+    until the frontier empties or ``max_levels`` have run, each one
+    ``fused_expand_q_ref`` of the frontier against ``visited | frontier``
+    at the level's index.  The JAX package has this loop only inside that
+    cell; no sampler or launcher option selects it in either package.
+    The quantised draws are not the CSR path's: they agree with it exactly
+    at p = 0 and p = 1, and in distribution otherwise (p̂ = (q + 1)/256)."""
+    def expand(fr, vis, level, tile_ids):
+        return ops.fused_expand_q(tg, q8, fr, vis, seed, level,
+                                  tile_ids=tile_ids)
 
     return _run_levels(tg, starts, num_colors, max_levels, frontier, ladder,
                        expand, work)

@@ -18,6 +18,11 @@ accumulation.
 The stacks are not built in host memory: at 65,536 vertices they take
 24 GiB.  The host computes each edge's flat slot (``edge_slot_map``);
 zeros are allocated on the device and ``prob``/``edge_id`` scattered there.
+
+The quantised layout (`quantized`) keeps the same tile list with one
+uint8 threshold per slot beside it (1 B where ``prob`` and ``edge_id``
+take 8) and no other stack: the kernel that reads it
+(`kernels.ops.fused_expand_q`) draws by slot position, not edge id.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ TILE = 128
 @dataclasses.dataclass(frozen=True)
 class TiledGraph:
     """Block-sparse adjacency (see module docstring)."""
-    prob: torch.Tensor          # (nt, T, T) float32
+    prob: torch.Tensor | None   # (nt, T, T) float32; None on the
+    #                             quantised layout (`quantized`)
     edge_id: torch.Tensor | None  # (nt, T, T) int32 (0 ok: prob gates
     #                               validity); None without IC draws
     tile_src: torch.Tensor      # (nt,) int32  source block index
@@ -47,7 +53,11 @@ class TiledGraph:
 
     @property
     def num_tiles(self) -> int:
-        return int(self.prob.shape[0])
+        return int(self.tile_src.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.tile_src.device
 
     @property
     def padded_vertices(self) -> int:
@@ -109,15 +119,11 @@ def run_pointers(tile_dst: torch.Tensor, n_blocks: int) -> torch.Tensor:
     return torch.searchsorted(tile_dst, blocks, out_int32=True)
 
 
-def from_graph(g: Graph, tile_size: int = TILE,
-               pad_tiles_to: int | None = None,
-               edge_ids: bool = True) -> TiledGraph:
-    """Extract the non-empty tile list of ``g`` onto ``g``'s device.
-    ``edge_ids=False`` leaves out the ``edge_id`` stack, which only the IC
-    draw reads (an LT layout would carry 12.1 GiB of it unread at
-    n = 65,536)."""
-    e = g.num_edges
-    dev = g.device
+def _layout(g: Graph, tile_size: int, pad_tiles_to: int | None):
+    """The host part of a tile layout: ``(order, slots, prob, tile_src,
+    tile_dst, total)`` — each sorted edge's CSR id (``order``) and flat
+    slot on ``g``'s device, the host copy of ``g.prob``, the tile list as
+    numpy, and the tile count with ``pad_tiles_to`` padding tiles."""
     src, dst, prob = g.edges_numpy()
     order, uniq, flat, base = _tile_keys(src, dst, tile_size)
     # Duplicate (src, dst) pairs must have been merged (dedupe_edges) — check.
@@ -139,8 +145,32 @@ def from_graph(g: Graph, tile_size: int = TILE,
             t_src = np.concatenate([t_src, np.full(pad, t_src[-1], np.int32)])
             t_dst = np.concatenate([t_dst, np.full(pad, t_dst[-1], np.int32)])
         total = pad_tiles_to
+    return (order, torch.from_numpy(flat).to(g.device), prob, t_src, t_dst,
+            total)
 
-    slots = torch.from_numpy(flat).to(dev)
+
+def _tiled(g: Graph, tile_size: int, t_src, t_dst, prob, edge_id):
+    dev = g.device
+    n_blocks = -(-g.num_vertices // tile_size)
+    return TiledGraph(
+        prob=prob, edge_id=edge_id,
+        tile_src=torch.from_numpy(t_src).to(dev),
+        tile_dst=torch.from_numpy(t_dst).to(dev),
+        dst_run_ptr=run_pointers(torch.from_numpy(t_dst).to(dev), n_blocks),
+        num_vertices=g.num_vertices, num_edges=g.num_edges,
+        tile_size=tile_size)
+
+
+def from_graph(g: Graph, tile_size: int = TILE,
+               pad_tiles_to: int | None = None,
+               edge_ids: bool = True) -> TiledGraph:
+    """Extract the non-empty tile list of ``g`` onto ``g``'s device.
+    ``edge_ids=False`` leaves out the ``edge_id`` stack, which only the IC
+    draw reads (an LT layout would carry 12.1 GiB of it unread at
+    n = 65,536)."""
+    dev = g.device
+    order, slots, prob, t_src, t_dst, total = _layout(g, tile_size,
+                                                      pad_tiles_to)
     P = torch.zeros(total * tile_size * tile_size, dtype=torch.float32,
                     device=dev)
     P[slots] = torch.from_numpy(prob[order]).to(dev)
@@ -149,14 +179,28 @@ def from_graph(g: Graph, tile_size: int = TILE,
         E = torch.zeros_like(P, dtype=torch.int32)
         E[slots] = torch.from_numpy(order.astype(np.int32)).to(dev)
         E = E.view(total, tile_size, tile_size)
-    n_blocks = -(-g.num_vertices // tile_size)
-    return TiledGraph(
-        prob=P.view(total, tile_size, tile_size),
-        edge_id=E,
-        tile_src=torch.from_numpy(t_src).to(dev),
-        tile_dst=torch.from_numpy(t_dst).to(dev),
-        dst_run_ptr=run_pointers(torch.from_numpy(t_dst).to(dev), n_blocks),
-        num_vertices=g.num_vertices, num_edges=e, tile_size=tile_size)
+    return _tiled(g, tile_size, t_src, t_dst,
+                  P.view(total, tile_size, tile_size), E)
+
+
+def quantized(g: Graph,
+              tile_size: int = TILE) -> tuple[TiledGraph, torch.Tensor]:
+    """The quantised layout of ``g`` on its device: ``(tg, q8)``.  ``tg``
+    is ``from_graph``'s tile list without stacks (``prob`` and ``edge_id``
+    None); ``q8`` is the ``(nt, T, T)`` uint8 threshold stack that rides
+    beside it, `kernels.fused_expand_q.quantize_probs` of each edge's
+    probability scattered into its slot, 0 where no edge lies.  It equals
+    the reference's ``quantize_probs(from_graph(g).prob)`` without building
+    the float32 stack (36 GiB at 262,144 vertices, where ``q8`` takes 9)."""
+    from repro_torch.kernels.fused_expand_q import quantize_probs
+
+    dev = g.device
+    order, slots, prob, t_src, t_dst, total = _layout(g, tile_size, None)
+    q8 = torch.zeros(total * tile_size * tile_size, dtype=torch.uint8,
+                     device=dev)
+    q8[slots] = quantize_probs(torch.from_numpy(prob[order]).to(dev))
+    return (_tiled(g, tile_size, t_src, t_dst, None, None),
+            q8.view(total, tile_size, tile_size))
 
 
 def cached(g: Graph, tile_size: int = TILE,
@@ -178,7 +222,7 @@ def edge_values_to_tiles(tg: TiledGraph, g: Graph, values) -> torch.Tensor:
     `edge_slot_map`, as ``from_graph`` scatters ``prob``; slots whose
     ``prob`` is not > 0 hold 0, as in the reference (its default ``fill``),
     which gathers by ``edge_id`` and masks on ``prob``."""
-    dev = tg.prob.device
+    dev = tg.device
     out = torch.zeros(tg.num_tiles * tg.tile_size ** 2, dtype=torch.float32,
                       device=dev)
     if g.num_edges:

@@ -28,26 +28,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "counter_hash.cuh"
 #include "tile_expand.cuh"
 
 namespace {
 
-constexpr uint32_t kM1 = 0x85EBCA6Bu;
-constexpr uint32_t kM2 = 0xC2B2AE35u;
-constexpr uint32_t kGolden = 0x9E3779B9u;
-
-__host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= kM1;
-  x ^= x >> 13;
-  x *= kM2;
-  x ^= x >> 16;
-  return x;
-}
-
-__host__ __device__ __forceinline__ uint32_t fold(uint32_t h, uint32_t v) {
-  return mix32(h ^ (v + kGolden + (h << 6) + (h >> 2)));
-}
+using counter_hash::fold;
 
 // The IC edge test: colour c crosses the edge in slot s when the counter
 // hash of (seed, level, edge_id[s], c) gives a uniform below prob[s].
@@ -59,7 +45,8 @@ struct IcGate {
   const int32_t* edge_id;
   uint32_t h_level;
 
-  __device__ __forceinline__ Edge edge(size_t slot, float p) const {
+  __device__ __forceinline__ Edge edge(size_t slot, uint32_t /*cell*/,
+                                       float p) const {
     return {fold(h_level, (uint32_t)edge_id[slot]), p};
   }
   __device__ __forceinline__ bool pass(const Edge& e, int colour) const {
@@ -98,7 +85,7 @@ extern "C" int fused_expand_launch(const void* prob, const void* edge_id,
                                    void* stream) {
   if (!tile_expand::valid_shape(T, W)) return (int)cudaErrorInvalidValue;
   if (n_blocks == 0) return 0;
-  const uint32_t h_level = fold(seed * kGolden, level);
+  const uint32_t h_level = counter_hash::level_prefix(seed, level);
   return (int)tile_expand::dispatch_words(W, [&](auto words) {
     constexpr int kW = decltype(words)::value;
     fused_expand_kernel<kW><<<n_blocks, T, tile_expand::smem_bytes(T, kW),

@@ -43,7 +43,8 @@ struct LtGate {
   const float* cb;
   const float* u_row;  // u[j, 0:W*32]
 
-  __device__ __forceinline__ Edge edge(size_t slot, float p) const {
+  __device__ __forceinline__ Edge edge(size_t slot, uint32_t /*cell*/,
+                                       float p) const {
     const float lo = cb[slot];
     return {lo, __fadd_rn(lo, p)};
   }

@@ -1,5 +1,6 @@
-// The tile walk both tile kernels share (csrc/fused_expand.cu, IC, and
-// csrc/lt_select_expand.cu, LT); each supplies only its edge gate.
+// The tile walk the tile kernels share (csrc/fused_expand.cu, IC;
+// csrc/lt_select_expand.cu, LT; csrc/fused_expand_q.cu, quantised IC); each
+// supplies only its stack's element type and its edge gate.
 //
 // One CTA owns one destination block: entries [run_ptr[b], run_ptr[b+1]) of
 // the tile list. Thread j owns destination lane j and keeps its W visited
@@ -19,8 +20,12 @@
 // (repro/core/tiled_traversal.py:57-75, repro/core/tiles.py:173-198), which
 // would copy whole 12 GiB stacks at n = 65,536.
 //
-// A Gate holds one thread's view of the diffusion's edge test:
-//   Gate::Edge edge(size_t slot, float p) const  — per live slot, once;
+// The stack is float32 probabilities (0: no edge) or uint8 thresholds (0:
+// no edge, or never crosses). A Gate holds one thread's view of the
+// diffusion's edge test:
+//   Gate::Edge edge(size_t slot, uint32_t cell, Stack p) const
+//     — per live slot, once; cell = (tile * T*T + i*T + j) mod 2^32, the
+//       slot's position counter in uint32 arithmetic;
 //   bool pass(const Gate::Edge&, int colour) const — per pending colour.
 #pragma once
 
@@ -42,9 +47,9 @@ inline size_t smem_bytes(int T, int W) {
   return (size_t)(T * W + T / 32) * sizeof(uint32_t);
 }
 
-template <int W, class Gate>
+template <int W, class Stack, class Gate>
 __device__ __forceinline__ void expand_block(
-    const float* __restrict__ prob, const int32_t* __restrict__ tile_ids,
+    const Stack* __restrict__ prob, const int32_t* __restrict__ tile_ids,
     const int32_t* __restrict__ tile_src, const int32_t* __restrict__ run_ptr,
     const uint32_t* __restrict__ frontier,
     const uint32_t* __restrict__ visited, uint32_t* __restrict__ out, int T,
@@ -77,14 +82,15 @@ __device__ __forceinline__ void expand_block(
     __syncthreads();
 
     const size_t tile_base = (size_t)tile * T * T;
+    const uint32_t cell_base = (uint32_t)tile * (uint32_t)(T * T);  // wraps
     for (int g = 0; g < T / 32; ++g) {
       uint32_t rows = live_rows[g];
       while (rows) {                      // uniform across the CTA
         const int i = g * 32 + __ffs(rows) - 1;
         rows &= rows - 1;
         const size_t slot = tile_base + (size_t)i * T + j;
-        const float p = prob[slot];
-        if (!(p > 0.0f)) continue;
+        const Stack p = prob[slot];
+        if (!(p > Stack(0))) continue;
         uint32_t lanes[W];
         uint32_t pending = 0u;
 #pragma unroll
@@ -93,7 +99,8 @@ __device__ __forceinline__ void expand_block(
           pending |= lanes[w];
         }
         if (!pending) continue;
-        const auto edge = gate.edge(slot, p);
+        const auto edge =
+            gate.edge(slot, cell_base + (uint32_t)(i * T + j), p);
 #pragma unroll
         for (int w = 0; w < W; ++w) {
           uint32_t l = lanes[w];

@@ -114,3 +114,12 @@ def transpose(g: Graph) -> Graph:
                          pad_to=g.padded_edges, device=g.device)
         g.cache["transpose"] = rev
     return rev
+
+
+def relabel(g: Graph, perm: np.ndarray) -> Graph:
+    """Apply a vertex permutation: new_id = perm[old_id] (reordering §5).
+    The padded length is kept, as in the reference."""
+    perm = np.asarray(perm, np.int32)
+    src, dst, prob = g.edges_numpy()
+    return from_edges(perm[src], perm[dst], prob, g.num_vertices,
+                      pad_to=g.padded_edges, device=g.device)

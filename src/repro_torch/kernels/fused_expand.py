@@ -26,10 +26,11 @@ _ARGTYPES = ([ctypes.c_void_p] * 8
 
 
 def check_tile_list(kernel: str, prob, tile_src, run_ptr, frontier, visited,
-                    tile_ids, dev) -> tuple[int, int, int]:
-    """The checks both tile kernels' wrappers share; returns
-    ``(n_blocks, T, W)``."""
-    _build.check_arg(kernel, "prob", prob, torch.float32, 3, dev)
+                    tile_ids, dev, stack_dtype=torch.float32
+                    ) -> tuple[int, int, int]:
+    """The checks the tile kernels' wrappers share (``prob`` is the stack
+    the walk reads, of ``stack_dtype``); returns ``(n_blocks, T, W)``."""
+    _build.check_arg(kernel, "tile stack", prob, stack_dtype, 3, dev)
     _build.check_arg(kernel, "tile_src", tile_src, torch.int32, 1, dev)
     _build.check_arg(kernel, "run_ptr", run_ptr, torch.int32, 1, dev)
     _build.check_arg(kernel, "frontier", frontier, torch.int32, 2, dev)

@@ -9,8 +9,10 @@ show that its path went through the kernels.
 The tile kernels take an optional ``tile_ids``: ascending int32 ids of the
 tiles to walk (the sparse frontier's compacted list).  The CUDA kernels
 read those tiles where they lie, through run pointers built here on the
-device; the plain versions gather the listed tiles (CPU tensors only).
-``flash_attention`` serves the LM substrate's prefill and decode.
+device; the plain versions take the same list.
+``fused_expand_q`` reads the quantised layout's uint8 stack
+(`core.tiles.quantized`).  ``flash_attention`` serves the LM substrate's
+prefill and decode.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.core.tiles import TiledGraph
 from repro_torch.kernels import ref
 
 LAUNCHES = {"fused_expand": 0, "cover_counts": 0, "lt_select_expand": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "fused_expand_q": 0}
 
 
 def reset_launches() -> None:
@@ -47,15 +49,6 @@ def _run_ptr(tg: TiledGraph, tile_ids):
                               tg.num_blocks)
 
 
-def _listed(tile_ids, *stacks):
-    """The plain versions' inputs: the stacks themselves, or the listed
-    tiles gathered (CPU only)."""
-    if tile_ids is None:
-        return stacks
-    ids = tile_ids.to(torch.int64)
-    return tuple(s[ids] for s in stacks)
-
-
 def fused_expand(tg: TiledGraph, frontier: torch.Tensor,
                  visited: torch.Tensor, seed: int, level: int,
                  tile_ids: torch.Tensor | None = None) -> torch.Tensor:
@@ -71,9 +64,9 @@ def fused_expand(tg: TiledGraph, frontier: torch.Tensor,
                                 seed, level, tile_ids=tile_ids)
         LAUNCHES["fused_expand"] += 1
         return out
-    return ref.fused_expand_ref(
-        *_listed(tile_ids, tg.prob, tg.edge_id, tg.tile_src, tg.tile_dst),
-        frontier, visited, seed, level)
+    return ref.fused_expand_ref(tg.prob, tg.edge_id, tg.tile_src,
+                                tg.tile_dst, frontier, visited, seed, level,
+                                tile_ids=tile_ids)
 
 
 def lt_select_expand(tg: TiledGraph, cb: torch.Tensor, frontier: torch.Tensor,
@@ -81,6 +74,9 @@ def lt_select_expand(tg: TiledGraph, cb: torch.Tensor, frontier: torch.Tensor,
                      tile_ids: torch.Tensor | None = None) -> torch.Tensor:
     """One fused-BPT LT expansion level: ``cb`` the selection-CDF prefixes
     in ``tg``'s layout, ``u`` the traversal's uniform table."""
+    if tg.prob is None:
+        raise ValueError("lt_select_expand reads the float32 prob stack, "
+                         "which a quantised layout (tiles.quantized) lacks")
     if _on_cuda(tg.prob, cb, frontier, visited, u):
         from repro_torch.kernels.lt_select_expand import \
             lt_select_expand_cuda
@@ -89,9 +85,26 @@ def lt_select_expand(tg: TiledGraph, cb: torch.Tensor, frontier: torch.Tensor,
                                     visited, u, tile_ids=tile_ids)
         LAUNCHES["lt_select_expand"] += 1
         return out
-    return ref.lt_select_expand_ref(
-        *_listed(tile_ids, tg.prob, cb, tg.tile_src, tg.tile_dst),
-        frontier, visited, u)
+    return ref.lt_select_expand_ref(tg.prob, cb, tg.tile_src, tg.tile_dst,
+                                    frontier, visited, u, tile_ids=tile_ids)
+
+
+def fused_expand_q(tg: TiledGraph, q8: torch.Tensor, frontier: torch.Tensor,
+                   visited: torch.Tensor, seed: int, level: int,
+                   tile_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """One quantised IC expansion level: ``q8`` the (nt, T, T) uint8
+    thresholds in ``tg``'s layout (`core.tiles.quantized`), over every
+    tile or the listed ones (the counterpart of the reference's
+    ``fused_expand_q_gathered``: each listed tile draws with its own id)."""
+    if _on_cuda(q8, tg.tile_src, frontier, visited):
+        from repro_torch.kernels.fused_expand_q import fused_expand_q_cuda
+        out = fused_expand_q_cuda(q8, tg.tile_src, _run_ptr(tg, tile_ids),
+                                  frontier, visited, seed, level,
+                                  tile_ids=tile_ids)
+        LAUNCHES["fused_expand_q"] += 1
+        return out
+    return ref.fused_expand_q_ref(q8, tg.tile_src, tg.tile_dst, frontier,
+                                  visited, seed, level, tile_ids=tile_ids)
 
 
 def cover_counts(visited: torch.Tensor, active: torch.Tensor) -> torch.Tensor:

@@ -11,38 +11,46 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import bitmask, rng
+from repro_torch.core.bitmask import MASK32
 
 
 def _tile_expand(gate, prob, tile_src, tile_dst, frontier, visited,
-                 chunk_tiles: int):
+                 chunk_tiles: int, tile_ids=None):
     """Shared scaffolding of the tile-expansion plain versions (the
     reference's ``kernels/ref.py::_tile_expand``):
 
         out[dst] = OR over tiles( OR_i frontier[src_i] & gate ) & ~visited[dst]
 
     Only (tile, row i, lane j) slots that can contribute are evaluated:
-    ``prob > 0`` (both gates are false on a prob-0 slot) and a source row
+    ``prob > 0`` (every gate is false on a zero slot) and a source row
     with a live frontier word.  ``gate(t, i, j, p, dst_row)`` returns the
     ``(M, W, 32)`` bool lanes of those ``M`` slots (``t`` are tile ids into
-    ``prob``).  Tiles go in chunks of ``chunk_tiles`` to bound the
+    ``prob``).  The tiles are every tile of the stacks, or the ids listed
+    in ``tile_ids``; they go in chunks of ``chunk_tiles`` to bound the
     ``(M, W, 32)`` transients."""
-    nt, T, _ = prob.shape
+    T = prob.shape[1]
+    n = prob.shape[0] if tile_ids is None else tile_ids.shape[0]
     w = frontier.shape[1]
     dev = frontier.device
     fr_live = (frontier != 0).any(1)
     rows_in_block = torch.arange(T, device=dev)
     out_lanes = torch.zeros(visited.shape[0] * w, 32, dtype=torch.uint8,
                             device=dev)
-    for c0 in range(0, nt, chunk_tiles):
-        p = prob[c0:c0 + chunk_tiles]
-        src_blk = tile_src[c0:c0 + chunk_tiles].to(torch.int64)
+    for c0 in range(0, n, chunk_tiles):
+        if tile_ids is None:
+            tid = torch.arange(c0, min(c0 + chunk_tiles, n), device=dev)
+            p = prob[c0:c0 + chunk_tiles]
+        else:
+            tid = tile_ids[c0:c0 + chunk_tiles].to(torch.int64)
+            p = prob[tid]
+        src_blk = tile_src[tid].to(torch.int64)
         live = fr_live[src_blk[:, None] * T + rows_in_block[None, :]]
         t, i, j = torch.nonzero((p > 0) & live[:, :, None], as_tuple=True)
         if t.numel() == 0:
             continue
         src_row = src_blk[t] * T + i
-        dst_row = tile_dst[c0:c0 + chunk_tiles].to(torch.int64)[t] * T + j
-        lanes = gate(c0 + t, i, j, p[t, i, j], dst_row)
+        dst_row = tile_dst[tid[t]].to(torch.int64) * T + j
+        lanes = gate(tid[t], i, j, p[t, i, j], dst_row)
         contrib = frontier[src_row] & bitmask.pack_bits(lanes)   # (M, W)
         flat = (dst_row[:, None] * w + torch.arange(w, device=dev)[None, :])
         out_lanes.scatter_reduce_(
@@ -54,7 +62,7 @@ def _tile_expand(gate, prob, tile_src, tile_dst, frontier, visited,
 
 
 def fused_expand_ref(prob, edge_id, tile_src, tile_dst, frontier, visited,
-                     seed, level, *, chunk_tiles: int = 1024):
+                     seed, level, *, tile_ids=None, chunk_tiles: int = 1024):
     """One level of tile-based IC expansion (replaces the reference's
     ``kernels/ref.py::fused_expand_ref``):
 
@@ -69,6 +77,8 @@ def fused_expand_ref(prob, edge_id, tile_src, tile_dst, frontier, visited,
       frontier: (Vf, W) int32 packed colour mask (padded rows).
       visited:  (Vo, W) int32 — ALREADY folded with the current frontier.
       seed, level: RNG counters.
+      tile_ids: optional ascending int32 ids of the tiles to walk (the
+                sparse frontier's list); None walks every tile.
 
     Colours of a source row with an empty frontier word, and slots with
     ``prob ≤ 0`` (a uniform in [0, 1) is never below it), are never hashed.
@@ -88,6 +98,71 @@ def fused_expand_ref(prob, edge_id, tile_src, tile_dst, frontier, visited,
                         chunk_tiles)
 
 
+def q_cell_ids(tile, i, j, tile_size: int):
+    """The quantised kernel's RNG counter of slot ``(i, j)`` (source row,
+    destination lane) of tile ``tile``: ``(tile·T² + i·T + j) mod 2³²``,
+    int64 holding the uint32 value the reference computes in wrapping
+    uint32 arithmetic (``fused_expand_q.py:78-79``).  Tile ids from
+    2¹⁸ = 262,144 on wrap at T = 128."""
+    return (tile * (tile_size * tile_size) + i * tile_size + j) & MASK32
+
+
+def _q_draws(h_cell, hash_index, byte, q):
+    """Accept lanes of the quantised draw: byte ``byte`` of
+    ``fold(h_cell, hash_index)`` is at most ``q`` (uint8 compare)."""
+    bits = rng._fold(h_cell, hash_index)
+    return ((bits >> (8 * byte)) & 0xFF) <= q
+
+
+def _bern_word_q(seed, level, cell_id, word, q8):
+    """Packed 32-lane Bernoulli word from 8 hashes, 4 u8 lanes each (the
+    reference's ``fused_expand_q.py::_bern_word_q``): lane ``c`` draws byte
+    ``c % 4`` of ``hash_u32(seed, level, cell_id, word·8 + c // 4)`` and
+    accepts when ``u8 ≤ q8 ∧ q8 > 0``.  Returns int32 bit patterns of
+    ``q8``'s shape."""
+    lane = torch.arange(32, device=q8.device)
+    h_cell = rng._fold(rng.level_prefix(seed, level),
+                       rng._as_u32(cell_id))[..., None]
+    index = (rng._as_u32(word) * 8 + lane // 4) & MASK32
+    q = q8.to(torch.int64)[..., None]
+    return rng.pack_bool_word(_q_draws(h_cell, index, lane % 4, q) & (q > 0))
+
+
+def fused_expand_q_ref(q8, tile_src, tile_dst, frontier, visited, seed,
+                       level, *, tile_ids=None, chunk_tiles: int = 1024):
+    """One quantised IC level over the tile layout (replaces the
+    reference's ``fused_expand_q.py::fused_expand_q_ref``, and
+    ``fused_expand_q_gathered`` with ``tile_ids``):
+
+        out[dst] = OR over tiles( OR_i frontier[src_i]
+                   & _bern_word_q(seed, level, cell(tile, i, j), w, q) )
+                   & ~visited[dst]
+
+    Args:
+      q8:       (nt, T, T) uint8 thresholds (`core.tiles.quantized`).
+      tile_src, tile_dst, frontier, visited, tile_ids: as
+                `fused_expand_ref`; a listed tile draws with its own id
+                (`q_cell_ids`), so a list gives the dense grid's bits on
+                its tiles.
+
+    Colour ``c`` of a slot is hash ``c // 4``, byte ``c % 4``.  Only slots
+    with ``q > 0`` and a live source row are hashed."""
+    w = frontier.shape[1]
+    T = q8.shape[1]
+    dev = frontier.device
+    h_level = rng.level_prefix(seed, level)
+    colour = (torch.arange(w, device=dev)[:, None] * 32
+              + torch.arange(32, device=dev)[None, :])       # (W, 32)
+
+    def gate(t, i, j, q, dst_row):
+        h_cell = rng._fold(h_level, q_cell_ids(t, i, j, T))
+        return _q_draws(h_cell[:, None, None], colour[None] >> 2,
+                        colour[None] & 3, q.to(torch.int64)[:, None, None])
+
+    return _tile_expand(gate, q8, tile_src, tile_dst, frontier, visited,
+                        chunk_tiles, tile_ids)
+
+
 def lt_selection_uniforms(seed, num_rows: int, num_colors: int,
                           row_base: int = 0, device="cpu") -> torch.Tensor:
     """(num_rows, W·32) f32 LT selection uniforms ``u(dst, colour)``
@@ -105,7 +180,7 @@ def lt_selection_uniforms(seed, num_rows: int, num_colors: int,
 
 
 def lt_select_expand_ref(prob, cb, tile_src, tile_dst, frontier, visited, u,
-                         *, chunk_tiles: int = 1024):
+                         *, tile_ids=None, chunk_tiles: int = 1024):
     """One level of tile-based expansion under the LT live-edge selection
     (replaces the reference's ``kernels/ref.py::lt_select_expand_ref``):
     edge ``(src, dst)`` carries colour ``c`` iff
@@ -119,6 +194,7 @@ def lt_select_expand_ref(prob, cb, tile_src, tile_dst, frontier, visited, u,
       tile_src, tile_dst, frontier, visited: as `fused_expand_ref`.
       u:        (Vo, W·32) f32 from `lt_selection_uniforms`, rows aligned
                 with ``visited``.
+      tile_ids: as `fused_expand_ref`.
     """
     w = frontier.shape[1]
 
@@ -129,7 +205,7 @@ def lt_select_expand_ref(prob, cb, tile_src, tile_dst, frontier, visited, u,
         return (U >= lo[:, None, None]) & (U < hi[:, None, None])
 
     return _tile_expand(gate, prob, tile_src, tile_dst, frontier, visited,
-                        chunk_tiles)
+                        chunk_tiles, tile_ids)
 
 
 def cover_counts_ref(visited, active):

@@ -15,6 +15,7 @@ from repro_torch.core import lt, rrr, tiled_traversal, tiles
 from repro_torch.graph import csr, generators
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels.fused_expand_q import quantize_probs
 from repro_torch.sampling import SamplerSpec, make_sampler
 
 pytestmark = pytest.mark.cuda
@@ -205,3 +206,103 @@ def test_flash_attention_kernel_equals_plain(cuda, dtype, causal, b, lq, lk,
                                    kv_offset=kv_offset)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _q_tiled(n, e, *, seed, tile_size, dst_limit=None, pad=0):
+    """``(tg, q8)`` of a random graph on the GPU, ``pad`` padding tiles
+    included: the float32 layout and the reference's ``quantize_probs`` of
+    its stack (a third of the edges at p = 1, q = 255)."""
+    rs = np.random.default_rng(seed)
+    src = rs.integers(0, n, e)
+    dst = rs.integers(0, dst_limit or n, e)
+    keep = src != dst
+    prob = rs.uniform(0, 1, keep.sum()).astype(np.float32)
+    prob[::3] = 1.0
+    g = csr.from_edges(src[keep], dst[keep], prob, n, dedupe=True,
+                       device="cuda")
+    nt = tiles.from_graph(g, tile_size).num_tiles
+    tg = tiles.from_graph(g, tile_size, pad_tiles_to=nt + pad)
+    return tg, quantize_probs(tg.prob)
+
+
+@pytest.mark.parametrize("tile_size", [32, 128])
+@pytest.mark.parametrize("colors", [32, 64, 128])
+def test_fused_expand_q_kernel_equals_plain(cuda, tile_size, colors):
+    """Dense grid and compacted lists (empty, one source block, full);
+    empty, sparse and dense frontiers; destination blocks no tile
+    reaches; padding tiles."""
+    tg, q8 = _q_tiled(3000, 20000, seed=colors, tile_size=tile_size,
+                      dst_limit=2200, pad=3)
+    for density in (0.0, 0.05, 0.5):
+        fr, vis = _masks(tg.padded_vertices, colors, colors, density, cuda)
+        act = torch.zeros(tg.num_blocks, dtype=torch.bool, device=cuda)
+        lists = [None, tiles.active_tile_ids(tg.tile_src, act)]
+        act[int(tg.tile_src[0])] = True
+        lists.append(tiles.active_tile_ids(tg.tile_src, act))
+        act[:] = True
+        lists.append(tiles.active_tile_ids(tg.tile_src, act))
+        for ids in lists:
+            before = ops.LAUNCHES["fused_expand_q"]
+            got = ops.fused_expand_q(tg, q8, fr, vis, 0xC0FFEE, 7,
+                                     tile_ids=ids)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["fused_expand_q"] == before + 1
+            want = ref.fused_expand_q_ref(q8, tg.tile_src, tg.tile_dst, fr,
+                                          vis, 0xC0FFEE, 7, tile_ids=ids)
+            assert torch.equal(got, want)
+            if ids is not None and ids.numel() == 0:
+                assert not bool(got.any())
+
+
+def test_fused_expand_q_kernel_wraps_the_cell_id(cuda):
+    """Tile ids past 2¹⁸ at T = 128: the position counter wraps in uint32
+    in the kernel as in the plain version (a 4.2 GB stack, mostly zero)."""
+    T, nt, live = 128, 262_144 + 2_048, 4_096
+    rs = np.random.default_rng(3)
+    q8 = torch.zeros((nt, T, T), dtype=torch.uint8, device=cuda)
+    first = nt - live
+    q8[first:] = torch.from_numpy(
+        rs.integers(0, 256, (live, T, T), dtype=np.uint8)).to(cuda) \
+        * torch.from_numpy(rs.random((live, T, T)) < 0.02).to(cuda)
+    n_blocks = 64
+    t_src = rs.integers(0, n_blocks, nt).astype(np.int32)
+    t_dst = np.sort(rs.integers(0, n_blocks, nt)).astype(np.int32)
+    tg = tiles.TiledGraph(
+        prob=None, edge_id=None, tile_src=torch.from_numpy(t_src).to(cuda),
+        tile_dst=torch.from_numpy(t_dst).to(cuda),
+        dst_run_ptr=tiles.run_pointers(torch.from_numpy(t_dst).to(cuda),
+                                       n_blocks),
+        num_vertices=n_blocks * T, num_edges=0, tile_size=T)
+    fr, vis = _masks(n_blocks * T, 64, 5, 0.3, cuda)
+    ids = torch.arange(first, nt, 2, dtype=torch.int32, device=cuda)
+    got = ops.fused_expand_q(tg, q8, fr, vis, 9, 2, tile_ids=ids)
+    want = ref.fused_expand_q_ref(q8, tg.tile_src, tg.tile_dst, fr, vis, 9,
+                                  2, tile_ids=ids)
+    assert bool(want.any()) and torch.equal(got, want)
+    assert torch.equal(ops.fused_expand_q(tg, q8, fr, vis, 9, 2),
+                       ref.fused_expand_q_ref(q8, tg.tile_src, tg.tile_dst,
+                                              fr, vis, 9, 2))
+
+
+def test_quantized_layout_equals_quantised_float32_stack(cuda):
+    g = csr.dedupe(generators.powerlaw_cluster(5000, 6.0, prob=(0.0, 1.0),
+                                               seed=3, device="cuda"))
+    tg, q8 = tiles.quantized(g)
+    tf = tiles.from_graph(g, edge_ids=False)
+    assert torch.equal(q8, quantize_probs(tf.prob))
+    assert torch.equal(tg.dst_run_ptr, tf.dst_run_ptr)
+
+
+def test_q_traversal_at_p1_equals_csr_sweep(cuda):
+    g = csr.dedupe(generators.powerlaw_cluster(5000, 6.0, prob=1.0, seed=7,
+                                               device="cuda"))
+    src, dst, _ = g.edges_numpy()      # dedupe leaves single edges at 1 - 1e-7
+    g_rev = csr.transpose(csr.from_edges(src, dst, np.ones(len(src)), 5000,
+                                         device="cuda"))
+    tg, q8 = tiles.quantized(g_rev)
+    for frontier in ("dense", "sparse"):
+        starts = rrr.batch_starts(5000, 64, 0, 0)
+        vis, levels, _ = tiled_traversal.run_fused_q_tiled(
+            tg, q8, starts, 64, rrr.batch_seed(0, 0), frontier=frontier)
+        dense = rrr.sample_batch(g_rev, 64, 0, 0)
+        assert levels > 0 and torch.equal(vis, dense.visited)
