@@ -7,8 +7,8 @@ CUDA toolkit's ``nvcc``; it exits non-zero, printing no result, anywhere
 else.  Phases, each of which raises on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: the five kernels of ``src/repro_torch/csrc``, compiled in
-   parallel;
+2. build: the seven kernel sources of ``src/repro_torch/csrc``, compiled
+   in parallel, with each source's registers and spills from ``ptxas``;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    exact equality — ``fused_expand`` and ``lt_select_expand`` on a reduced
    graph (empty frontier, destination blocks no tile reaches,
@@ -63,27 +63,40 @@ else.  Phases, each of which raises on failure:
     difference; (a) with every edge at p = 1 the quantised traversal
     equals the CSR sweep's BFS word for word (batches 0 and 1);
 14. flash attention, after the quantised stacks are released: the
-    ``flash_attention`` kernel against its plain version on the card —
-    float32 and bfloat16, causal and not, ``kv_offset`` 0 and > 0 with one
-    query, H/KVH 1, 3 and 8, head dims 16, 64, 96, 128 and 192, ragged Lq
-    and Lk, and the LM main path's prefill and decode shapes; float32
-    within 2e-5 max abs, bfloat16 within atol = rtol = 2e-2 (the
-    reference's kernel test), compared in float32;
-15. LM golden: llama3.2-3b at full width and vocabulary, depth cut to 2
-    layers, float32 (TF32 off), weights from
+    kernels against their plain version on the card through
+    ``ops.flash_attention``, which picks one of three routes by shape
+    (``wgmma``: bf16 prefill at D 64/128; ``decode``: one query row;
+    ``simt``: the rest) — float32 and bfloat16, causal and not,
+    ``kv_offset`` 0 and > 0, H/KVH 1, 3, 8 and 12, head dims 16, 64, 96,
+    128 and 192, ragged Lq and Lk, and the LM main path's prefill and
+    decode shapes; each decode case also against the split-K plain
+    version cut at the kernel's own split; float32 within 2e-5 max abs,
+    bfloat16 within atol = rtol = 2e-2 (the reference's kernel test) and
+    a relative RMS difference of 6e-3 (``BF16_RMS_TOL``), compared in
+    float32.  It prints the cases per route and fails unless each route
+    ran one;
+15. LM checks: (golden) llama3.2-3b at full width and vocabulary, depth
+    cut to 2 layers, float32 (TF32 off), weights from
     ``models/init.py::numpy_params(cfg, seed=0)``: prefill of 2 × 64
-    tokens and 8 teacher-forced decode steps against the file's ``"lm"``
-    entry — logits at 32 vocabulary ids, max logit and log-sum-exp within
-    1e-3, greedy argmax equal wherever the golden top-2 gap exceeds 1e-3;
+    tokens (simt route) and 8 teacher-forced decode steps (decode route)
+    against the file's ``"lm"`` entry — logits at 32 vocabulary ids, max
+    logit and log-sum-exp within 1e-3, greedy argmax equal wherever the
+    golden top-2 gap exceeds 1e-3; (bf16) the same model in bf16 with the
+    port's seeded init, 2 × 2,048 tokens: prefill logits through the
+    wgmma route against the same forward with attention through the plain
+    version, within the limits stated at ``LM_BF16_MAX_TOL``;
 16. LM main path at full width: llama3.2-3b, 28 layers, bf16, the port's
     seeded init, through ``launch.serve``'s ``run``: (a) the launcher's own
     mix, batch 4, prompt 32, 32 new tokens at temperature 0.7; (b) batch
     4, prompt 2,048, 32 new tokens, greedy.  Counters as in 4; each
-    request batch must launch ``flash_attention`` 28 × (1 + 32) times;
-17. flash timing at (b)'s prefill and decode shapes: the kernel (CUDA
-    graph of 10 launches), its plain version and, as the library's time,
+    request batch must launch ``flash_attention`` 28 × (1 + 32) times: 28
+    on the wgmma route and 28 × 32 on the decode route;
+17. flash timing at (b)'s prefill and decode shapes: the route the main
+    path takes and the simt route (the CUDA-core kernel) from CUDA graphs of
+    10 launches, the plain version and, as the library's time,
     ``scaled_dot_product_attention(..., enable_gqa=True)`` (timed only;
-    the port never calls it), each beside the kernel's bound.
+    the port never calls it) from a CUDA graph of 10 launches and with
+    events around one eager call, each beside the function's bound.
 
 Each phase prints its peak device memory.  The line before the last is the
 card's name and power limit as ``nvidia-smi`` reports them; the last line
@@ -96,6 +109,7 @@ import gc
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -113,6 +127,25 @@ HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12     # dense tensor-core peak (bf16 inputs)
 F32_TOL, BF16_TOL, LM_TOL = 2e-5, 2e-2, 1e-3
+# bf16 kernel checks also bound the relative RMS difference, rms(got -
+# want) / rms(want): atol = rtol = 2e-2 alone is a third of a typical
+# output at the main prefill shape (~0.07).  Both sides are rounded to
+# bf16 (half a step is 2^-9..2^-8 relative), and the wgmma route rounds P
+# to bf16 for P.V: a plain float32 emulation of that gives about 2e-3 at
+# the flash cases' shapes, so 6e-3 passes a sound kernel and fails one
+# that is off by ~1% of its output.
+BF16_RMS_TOL = 6e-3
+# The bf16 whole-model check (phase 15): llama3.2-3b at full width, 2
+# layers, bf16, batch 2 x prompt 2,048, prefill logits through the kernels
+# against the same model with attention through the plain version.  The
+# two differ only in the attention output's rounding (the kernel rounds P
+# to bf16 for P.V; both round the output to bf16), which the two bf16
+# layers carry on to the bf16 logits.  Those have a spread of ~1 and reach
+# |6|, where one bf16 step is 0.031: the max limit is about three such
+# steps, the mean limit about one step at |logit| ~ 2.  Greedy tokens must
+# agree wherever the plain run's top-2 gap exceeds twice the max limit.
+LM_BF16_LAYERS, LM_BF16_BATCH, LM_BF16_PROMPT = 2, 2, 2048
+LM_BF16_MAX_TOL, LM_BF16_MEAN_TOL = 0.1, 0.01
 # The LM main path: llama3.2-3b, request mixes (a) and (b) (module docstring).
 LM_ARCH, LM_BATCH, LM_NEW = "llama3.2-3b", 4, 32
 LM_MIXES = {"a": (32, 0.7), "b": (2048, 0.0)}
@@ -1043,17 +1076,49 @@ def _flash_cases():
             ("H/KVH 1, D 16", 3, 33, 33, 4, 4, 16, causal, 0),
             ("decode, H/KVH 8, D 64", 2, 1, 77, 8, 1, 64, causal, 40),
             ("decode, H/KVH 3, D 128", 2, 1, 2080, 24, 8, 128, causal, 1500),
+            ("H/KVH 3, D 64, ragged, 4 key blocks", 2, 200, 457, 6, 2, 64,
+             causal, 257),
+            ("decode, H/KVH 12, D 96", 1, 1, 300, 12, 1, 96, causal, 150),
         ]
     return cases
 
 
+def _flash_close(got, want, dtype, what: str) -> tuple[float, float]:
+    """Hold a kernel's output against its plain version (in float32):
+    float32 within F32_TOL max abs, bf16 within atol = rtol = BF16_TOL and
+    a relative RMS difference within BF16_RMS_TOL; returns the largest
+    absolute difference and the relative RMS difference."""
+    diff = got.float() - want.float()
+    worst = float(diff.abs().max())
+    rrms = float(diff.square().mean().sqrt()
+                 / want.float().square().mean().sqrt().clamp_min(1e-30))
+    if dtype == torch.float32:
+        _check(worst <= F32_TOL, f"{what}: max abs err {worst} > {F32_TOL}")
+    else:
+        bad = diff.abs() > BF16_TOL + BF16_TOL * want.float().abs()
+        _check(not bool(bad.any()), f"{what}: {int(bad.sum())} elements "
+               f"outside atol = rtol = {BF16_TOL}")
+        _check(rrms <= BF16_RMS_TOL, f"{what}: relative RMS difference "
+               f"{rrms} > {BF16_RMS_TOL}")
+    return worst, rrms
+
+
 def check_flash(dev) -> dict:
-    """flash_attention against its plain version on the card; returns the
-    largest absolute difference per dtype (compared in float32)."""
+    """flash_attention against its plain version on the card, through
+    ``ops.flash_attention`` (which picks the route by shape); each decode
+    case also against the split-K plain version cut at the kernel's own
+    split.  Fails unless every route ran at least one case; returns the
+    largest absolute difference per dtype (compared in float32), the
+    largest bf16 relative RMS difference per route and the cases per
+    route."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    per_route = dict.fromkeys(fa.ROUTES, 0)
+    rms = dict.fromkeys(fa.ROUTES, 0.0)
     n = 0
     for name, b, lq, lk, h, kvh, d, causal, off in _flash_cases():
         for dtype in (torch.float32, torch.bfloat16):
@@ -1061,28 +1126,43 @@ def check_flash(dev) -> dict:
             k = torch.randn((b, lk, kvh, d), generator=gen, device=dev)
             v = torch.randn((b, lk, kvh, d), generator=gen, device=dev)
             q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+            r = fa.route(dtype, b, lq, lk, h, kvh, d, causal)
+            before = ops.LAUNCHES[f"flash_{r}"]
             got = ops.flash_attention(q, k, v, causal=causal, kv_offset=off)
             want = ref.flash_attention_ref(q, k, v, causal=causal,
                                            kv_offset=off)
             torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            err[dtype] = max(err[dtype], float(diff.max()))
-            if dtype == torch.float32:
-                _check(float(diff.max()) <= F32_TOL,
-                       f"flash_attention f32 {name}: max abs err "
-                       f"{float(diff.max())} > {F32_TOL}")
-            else:
-                bad = diff > BF16_TOL + BF16_TOL * want.float().abs()
-                _check(not bool(bad.any()),
-                       f"flash_attention bf16 {name}: {int(bad.sum())} "
-                       f"elements outside atol = rtol = {BF16_TOL}")
+            _check(ops.LAUNCHES[f"flash_{r}"] == before + 1,
+                   f"flash_attention {name}: route {r} not launched")
+            worst, rrms = _flash_close(got, want, dtype,
+                                       f"flash_attention {r} {dtype} {name}")
+            if r == "decode":
+                chunk, _ = fa.decode_split(
+                    b, kvh, h, fa.visible_keys(lk, causal, off), sms)
+                split = ref.flash_decode_splitk_ref(
+                    q, k, v, chunk=chunk, causal=causal, kv_offset=off)
+                w2, r2 = _flash_close(got, split, dtype, f"flash_attention "
+                                      f"decode {dtype} {name} against the "
+                                      f"split-K plain version")
+                worst, rrms = max(worst, w2), max(rrms, r2)
+            err[dtype] = max(err[dtype], worst)
+            if dtype == torch.bfloat16:
+                rms[r] = max(rms[r], rrms)
+            per_route[r] += 1
             n += 1
+    missing = [r for r, c in per_route.items() if c == 0]
+    _check(not missing, f"flash_attention: no case ran route(s) {missing}")
     print(f"[flash] {n} cases (f32 and bf16, causal and not, kv_offset 0 "
-          f"and > 0, H/KVH 1/3/8, D 16-192, ragged Lq and Lk, the main "
-          f"path's prefill and decode shapes): max abs err f32 "
-          f"{err[torch.float32]:.3e} (limit {F32_TOL}), bf16 "
-          f"{err[torch.bfloat16]:.3e} (atol = rtol = {BF16_TOL})")
-    return {"f32": err[torch.float32], "bf16": err[torch.bfloat16]}
+          f"and > 0, H/KVH 1/3/8/12, D 16-192, ragged Lq and Lk, the main "
+          f"path's prefill and decode shapes; decode also against the "
+          f"split-K plain version at its split) per route {per_route}: max "
+          f"abs err f32 {err[torch.float32]:.3e} (limit {F32_TOL}), bf16 "
+          f"{err[torch.bfloat16]:.3e} (atol = rtol = {BF16_TOL}); bf16 "
+          f"relative RMS diff per route "
+          + ", ".join(f"{r} {x:.3e}" for r, x in rms.items())
+          + f" (limit {BF16_RMS_TOL})")
+    return {"f32": err[torch.float32], "bf16": err[torch.bfloat16],
+            "bf16_rrms": rms, "cases": per_route}
 
 
 def _logit_errors(logits: torch.Tensor, gold: dict) -> tuple[float, int]:
@@ -1147,19 +1227,88 @@ def check_lm_golden(golden: dict, dev) -> dict:
             worst, checked = max(worst, w), checked + c
     torch.cuda.synchronize()
     launches = ops.LAUNCHES["flash_attention"]
+    routes = {r: ops.LAUNCHES[f"flash_{r}"] for r in ("simt", "decode")}
     _check(worst <= LM_TOL, f"LM golden: largest difference {worst} > "
            f"{LM_TOL}")
     _check(launches == cfg.num_layers * (1 + steps),
            f"LM golden: flash_attention launched {launches} times, not "
            f"{cfg.num_layers * (1 + steps)}")
+    # float32: the prefill on the simt route, every decode step on the
+    # decode route.
+    _check(routes == {"simt": cfg.num_layers,
+                      "decode": cfg.num_layers * steps},
+           f"LM golden: routes launched {routes}, not simt "
+           f"{cfg.num_layers} and decode {cfg.num_layers * steps}")
     print(f"[lm golden] {cfg.name}, {cfg.num_layers} layers at full width "
           f"(d {cfg.d_model}, vocab {cfg.vocab_size}), float32, weights "
           f"{cfg.param_count() * 4 / 2 ** 30:.2f} GiB made and loaded in "
           f"{load_s:.1f}s: prefill {tuple(prompt.shape)} and {steps} "
           f"teacher-forced steps within {worst:.3e} of the reference (limit "
           f"{LM_TOL}); {checked} greedy tokens equal; flash launches "
-          f"{launches}; peak device memory {_peak_gib():.2f} GiB")
+          f"{launches} ({routes}); peak device memory {_peak_gib():.2f} "
+          f"GiB")
     return {"max_abs_err": worst, "launches": launches}
+
+
+def check_lm_bf16(dev) -> dict:
+    """llama3.2-3b at full width, LM_BF16_LAYERS layers, bf16, the port's
+    seeded init: the prefill logits of LM_BF16_BATCH prompts of
+    LM_BF16_PROMPT tokens through the kernels (the wgmma route) against
+    the same forward with ``ops.flash_attention`` patched, for that one
+    forward, to the plain version; limits LM_BF16_MAX_TOL (max abs) and
+    LM_BF16_MEAN_TOL (mean abs), greedy tokens equal where the plain run's
+    top-2 gap exceeds 2 x LM_BF16_MAX_TOL."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model
+
+    cfg = dataclasses.replace(registry.get(LM_ARCH),
+                              num_layers=LM_BF16_LAYERS, dtype="bfloat16",
+                              num_patches=0)
+    params = model.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BF16_BATCH, LM_BF16_PROMPT))).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = model.forward(params, cfg, {"tokens": prompt})[0]
+        torch.cuda.synchronize()
+        wgmma = ops.LAUNCHES["flash_wgmma"]
+        kernel = ops.flash_attention
+        ops.flash_attention = ref.flash_attention_ref
+        try:
+            want = model.forward(params, cfg, {"tokens": prompt})[0]
+        finally:
+            ops.flash_attention = kernel
+        worst, total, checked = 0.0, 0.0, 0
+        for row in range(LM_BF16_BATCH):
+            g, w = got[row].float(), want[row].float()
+            diff = (g - w).abs()
+            worst = max(worst, float(diff.max()))
+            total += float(diff.sum())
+            top2 = w.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * LM_BF16_MAX_TOL
+            _check(bool((g.argmax(-1) == w.argmax(-1))[sure].all()),
+                   f"LM bf16: a greedy token differs in row {row} where "
+                   f"the top-2 gap exceeds {2 * LM_BF16_MAX_TOL}")
+            checked += int(sure.sum())
+        mean = total / got.numel()
+        spread = float(want.float().std())
+    torch.cuda.synchronize()
+    _check(wgmma == cfg.num_layers, f"LM bf16: wgmma route launched "
+           f"{wgmma} times, not {cfg.num_layers}")
+    _check(worst <= LM_BF16_MAX_TOL and mean <= LM_BF16_MEAN_TOL,
+           f"LM bf16: logits differ by max {worst}, mean {mean} (limits "
+           f"{LM_BF16_MAX_TOL}, {LM_BF16_MEAN_TOL})")
+    print(f"[lm bf16] {cfg.name}, {cfg.num_layers} layers at full width, "
+          f"bf16, batch {LM_BF16_BATCH} x prompt {LM_BF16_PROMPT}: prefill "
+          f"logits through the wgmma route ({wgmma} launches) against "
+          f"plain attention: max abs diff {worst:.4e} (limit "
+          f"{LM_BF16_MAX_TOL}), mean {mean:.4e} (limit {LM_BF16_MEAN_TOL}),"
+          f" logit spread {spread:.3f}; {checked} greedy tokens checked "
+          f"equal; peak device memory {_peak_gib():.2f} GiB")
+    return {"max_abs_err": worst, "mean_abs_err": mean}
 
 
 def run_lm_main_path() -> dict:
@@ -1171,7 +1320,7 @@ def run_lm_main_path() -> dict:
     out = {}
     ops.reset_launches()
     for mix, (prompt_len, temp) in LM_MIXES.items():
-        before = ops.LAUNCHES["flash_attention"]
+        before = dict(ops.LAUNCHES)
         torch.cuda.reset_peak_memory_stats()
         r = serve.run(serve.parse_args([
             "--arch", LM_ARCH, "--device", "cuda", "--batch", str(LM_BATCH),
@@ -1179,8 +1328,15 @@ def run_lm_main_path() -> dict:
             "--temperature", str(temp)]))
         torch.cuda.synchronize()
         cfg, tokens = r["cfg"], r["tokens"]
-        launches = ops.LAUNCHES["flash_attention"] - before
+        launches = ops.LAUNCHES["flash_attention"] \
+            - before["flash_attention"]
+        routes = {r: ops.LAUNCHES[f"flash_{r}"] - before[f"flash_{r}"]
+                  for r in ("wgmma", "decode", "simt")}
         want = cfg.num_layers * (1 + LM_NEW)
+        # bf16: each layer's prefill on the wgmma route, each decode step
+        # on the decode route.
+        want_routes = {"wgmma": cfg.num_layers,
+                       "decode": cfg.num_layers * LM_NEW, "simt": 0}
         _check(r["finite"], f"LM ({mix}): non-finite logits")
         _check(tokens.shape == (LM_BATCH, LM_NEW)
                and int(tokens.min()) >= 0
@@ -1188,12 +1344,15 @@ def run_lm_main_path() -> dict:
                f"LM ({mix}): tokens malformed")
         _check(launches == want, f"LM ({mix}): flash_attention launched "
                f"{launches} times, not {want}")
+        _check(routes == want_routes, f"LM ({mix}): routes launched "
+               f"{routes}, not {want_routes}")
         out[mix] = dict(prompt_len=prompt_len, temperature=temp,
                         prefill_s=r["prefill_s"], decode_s=r["decode_s"],
                         decode_ms=r["decode_ms_per_step"],
                         prefill_tok_s=LM_BATCH * prompt_len / r["prefill_s"],
                         decode_tok_s=LM_BATCH * LM_NEW / r["decode_s"],
-                        launches=launches, peak_gib=_peak_gib())
+                        launches=launches, routes=routes,
+                        peak_gib=_peak_gib())
         m = out[mix]
         print(f"[lm main {mix}] {cfg.name} ({cfg.num_layers} layers, "
               f"{cfg.dtype}, {cfg.param_count() / 1e9:.3f} B parameters): "
@@ -1201,8 +1360,8 @@ def run_lm_main_path() -> dict:
               f"at temperature {temp}: prefill {m['prefill_s']:.4f}s "
               f"({m['prefill_tok_s']:.0f} tokens/s), decode "
               f"{m['decode_ms']:.3f} ms/step ({m['decode_tok_s']:.1f} "
-              f"tokens/s); flash launches {launches}; peak device memory "
-              f"{m['peak_gib']:.2f} GiB; tokens[0][:8] "
+              f"tokens/s); flash launches {launches} {routes}; peak "
+              f"device memory {m['peak_gib']:.2f} GiB; tokens[0][:8] "
               f"{tokens[0, :8].tolist()}")
     out["launches"] = dict(ops.LAUNCHES)
     print(f"[lm main] launches over (a) and (b): {out['launches']}")
@@ -1210,12 +1369,15 @@ def run_lm_main_path() -> dict:
 
 
 def time_flash(dev) -> dict:
-    """The kernel, its plain version and SDPA at (b)'s prefill and decode
-    shapes (bf16), each with its bound on this card."""
+    """At (b)'s prefill and decode shapes (bf16): the route the main path
+    takes there and the simt route (the CUDA-core design) from CUDA graphs
+    of 10 launches, the plain version (CUDA events), and SDPA both from a
+    CUDA graph of 10 launches like the kernels and with events around one
+    eager call; each beside the function's bound on this card."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     gen = torch.Generator(device=dev).manual_seed(1)
     b, h, kvh, d = LM_BATCH, 24, 8, 128
@@ -1228,10 +1390,11 @@ def time_flash(dev) -> dict:
         k = torch.randn((b, lk, kvh, d), generator=gen, device=dev).bfloat16()
         v = torch.randn((b, lk, kvh, d), generator=gen, device=dev).bfloat16()
         scale = d ** -0.5
+        main_route = fa.route(torch.bfloat16, b, lq, lk, h, kvh, d, causal)
 
-        def kernel():
-            return flash_attention_cuda(q, k, v, causal=causal, scale=scale,
-                                        kv_offset=off)
+        def kernel(r):
+            return lambda: fa.CUDA_ROUTES[r](q, k, v, causal=causal,
+                                             scale=scale, kv_offset=off)
 
         def plain():
             return ref.flash_attention_ref(q, k, v, causal=causal,
@@ -1245,31 +1408,41 @@ def time_flash(dev) -> dict:
             return F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=sdpa_causal, enable_gqa=True)
 
-        err = float((kernel().float() - plain().float()).abs().max())
+        want = plain()
+        errs = {r: float((kernel(r)().float() - want.float()).abs().max())
+                for r in (main_route, "simt")}
         lib_err = float((library().transpose(1, 2).float()
-                         - plain().float()).abs().max())
-        ms = _kernel_ms(kernel)
+                         - want.float()).abs().max())
+        del want
+        ms = {main_route: _kernel_ms(kernel(main_route)),
+              "simt": _kernel_ms(kernel("simt"))}
         plain_ms = _time_ms(plain, 3)
-        library()
-        lib_ms = _time_ms(library, 20)
+        lib_graph_ms = _kernel_ms(library)
+        lib_eager_ms = _time_ms(library, 20)
         # Visible (query, key) pairs; 4·D operations each (two products).
         pairs = sum(min(lk, i + off + 1) for i in range(lq)) if causal \
             else lq * lk
         ops_ms = 1e3 * 4 * b * h * pairs * d / BF16_FLOPS_PER_S
         bytes_ms = 1e3 * 2 * (2 * b * lq * h * d + 2 * b * lk * kvh * d) \
             / HBM_BYTES_PER_S
-        per[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=max(ops_ms, bytes_ms),
-                          bound_by="operations" if ops_ms >= bytes_ms
-                          else "bytes", max_abs_err=err)
+        per[shape] = dict(
+            route=main_route, ms=ms[main_route], simt_ms=ms["simt"],
+            plain_ms=plain_ms, library_ms=lib_graph_ms,
+            library_eager_ms=lib_eager_ms, bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            max_abs_err=errs[main_route], simt_max_abs_err=errs["simt"])
+        t = per[shape]
         print(f"[timing flash] {shape} (B {b}, Lq {lq}, Lk {lk}, H {h}, KVH "
-              f"{kvh}, D {d}, bf16, kv_offset {off}): kernel {ms:.4f} ms "
-              f"(CUDA graph of 10), plain {plain_ms:.4f} ms, SDPA "
-              f"{lib_ms:.4f} ms (its max abs diff from plain {lib_err:.3e}), "
-              f"bound {per[shape]['bound_ms']:.6f} ms by "
-              f"{per[shape]['bound_by']} ({ops_ms:.6f} operations, "
-              f"{bytes_ms:.6f} bytes); kernel vs plain max abs err "
-              f"{err:.3e}")
+              f"{kvh}, D {d}, bf16, kv_offset {off}): {main_route} route "
+              f"{t['ms']:.4f} ms, simt route {t['simt_ms']:.4f} ms "
+              f"(CUDA graphs of 10), plain {plain_ms:.4f} ms, SDPA "
+              f"{lib_graph_ms:.4f} ms from a CUDA graph of 10 and "
+              f"{lib_eager_ms:.4f} ms with events around one eager call "
+              f"(its max abs diff from plain {lib_err:.3e}); bound "
+              f"{t['bound_ms']:.6f} ms by {t['bound_by']} ({ops_ms:.6f} "
+              f"operations, {bytes_ms:.6f} bytes); max abs err from plain "
+              f"{main_route} {errs[main_route]:.3e}, simt "
+              f"{errs['simt']:.3e}")
     return per
 
 
@@ -1296,9 +1469,14 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"[build] {', '.join(_build.SOURCES)} in {build_s:.2f}s")
     for name in _build.SOURCES:
-        regs = [ln.strip() for ln in _build.build_log(name).splitlines()
-                if "registers" in ln]
-        print(f"[build] {name}: {regs[-1] if regs else 'no ptxas report'}")
+        log = _build.build_log(name)
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+        print(f"[build] {name}: {len(regs)} kernel(s), registers "
+              f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
+              f"(stores + loads) {sum(spills)}" if regs
+              else f"[build] {name}: no ptxas report")
 
     torch.cuda.reset_peak_memory_stats()
     err = check_kernels(dev)
@@ -1347,6 +1525,9 @@ def main() -> int:
     lm_gold = check_lm_golden(golden, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    lm_bf16 = check_lm_bf16(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     lm = run_lm_main_path()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1363,8 +1544,11 @@ def main() -> int:
           f"the refresh; LM llama3.2-3b (b) prefill "
           f"{lm['b']['prefill_tok_s']:.0f} tokens/s, decode "
           f"{lm['b']['decode_ms']:.3f} ms/step; flash_attention prefill "
-          f"{fl['prefill']['ms']:.4f} ms, decode {fl['decode']['ms']:.4f} "
-          f"ms; fused_expand mean per level {fe['dense_ms']:.4f} ms "
+          f"{fl['prefill']['ms']:.4f} ms (wgmma; simt "
+          f"{fl['prefill']['simt_ms']:.4f}), decode "
+          f"{fl['decode']['ms']:.4f} ms (split-K; simt "
+          f"{fl['decode']['simt_ms']:.4f}); fused_expand mean per level "
+          f"{fe['dense_ms']:.4f} ms "
           f"(compacted {fe['compact_ms']:.4f}); lt_select_expand "
           f"{lse['compact_ms']:.4f} ms compacted ({lse['dense_ms']:.4f} "
           f"dense grid); batch 0 end to end IC {fe['batch_dense_ms']:.2f} / "
@@ -1401,7 +1585,7 @@ def main() -> int:
              bound_by=lse["compact_bound_by"],
              library_ms=None),
         dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/csrc/flash_attention.cu",
+             source="src/repro_torch/csrc/flash_prefill_wgmma.cu",
              replaces="src/repro/kernels/flash_attention.py:83",
              launches=lm["launches"]["flash_attention"],
              max_abs_err=max(flash_err["f32"], flash_err["bf16"],
@@ -1410,12 +1594,39 @@ def main() -> int:
              max_abs_err_f32=flash_err["f32"],
              max_abs_err_bf16=flash_err["bf16"],
              lm_golden_max_abs_err=lm_gold["max_abs_err"],
+             lm_bf16_max_abs_err=lm_bf16["max_abs_err"],
              ms=fl["prefill"]["ms"], plain_ms=fl["prefill"]["plain_ms"],
              bound_ms=fl["prefill"]["bound_ms"],
              bound_by=fl["prefill"]["bound_by"],
              library_ms=fl["prefill"]["library_ms"],
-             decode={k: fl["decode"][k] for k in (
-                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+             routes={
+                 "wgmma": dict(
+                     source="src/repro_torch/csrc/flash_prefill_wgmma.cu",
+                     shape="prefill",
+                     launches=lm["launches"]["flash_wgmma"],
+                     cases=flash_err["cases"]["wgmma"],
+                     bf16_rrms=flash_err["bf16_rrms"]["wgmma"],
+                     **{k: fl["prefill"][k] for k in (
+                         "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "library_eager_ms")}),
+                 "decode": dict(
+                     source="src/repro_torch/csrc/flash_decode.cu",
+                     shape="decode",
+                     launches=lm["launches"]["flash_decode"],
+                     cases=flash_err["cases"]["decode"],
+                     bf16_rrms=flash_err["bf16_rrms"]["decode"],
+                     **{k: fl["decode"][k] for k in (
+                         "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "library_eager_ms")}),
+                 "simt": dict(
+                     source="src/repro_torch/csrc/flash_attention.cu",
+                     launches=lm["launches"]["flash_simt"],
+                     cases=flash_err["cases"]["simt"],
+                     bf16_rrms=flash_err["bf16_rrms"]["simt"],
+                     ms={"prefill": fl["prefill"]["simt_ms"],
+                         "decode": fl["decode"]["simt_ms"]},
+                     bound_ms={"prefill": fl["prefill"]["bound_ms"],
+                               "decode": fl["decode"]["bound_ms"]})}),
         dict(name="fused_expand_q", route="cuda",
              source="src/repro_torch/csrc/fused_expand_q.cu",
              replaces="src/repro/kernels/fused_expand_q.py:110",

@@ -1,0 +1,568 @@
+// Flash attention prefill for Hopper: bf16 q, k, v with head dim 64 or 128,
+// tensor-core products (wgmma) on tiles that TMA copies into shared memory.
+//
+// Replaces the Pallas kernel repro/kernels/flash_attention.py::
+// flash_attention (body _flash_kernel, pallas_call at :83) for the prefill
+// shapes of the LM path; `kernels/flash_attention.py::route` sends bf16
+// calls with Lq > 1 and D in {64, 128} here. The function is the
+// reference's, per head:
+//
+//   s   = (q . k^T) * scale              in float32 (the scale on s, in
+//                                        float32: q is never rescaled)
+//   s   = masked where k_pos > q_pos + kv_offset       (under `causal`)
+//   online softmax over key blocks, out = acc / max(l, 1e-30) in bf16
+//
+// with a batch axis (q (B, Lq, H, D), k/v (B, Lk, KVH, D)) and grouped-query
+// heads read in place (query head h reads KV head h / (H / KVH)).
+//
+// Bound on this card. At the LM main path's prefill (B 4, L 2048, H 24,
+// KVH 8, D 128, causal) the work is 4*B*H*(L(L+1)/2)*D = 103 GFLOP, 0.104
+// ms at the 989 TFLOP/s bf16 tensor-core peak, against 134 MB of q, k, v
+// and out (0.040 ms at 3.35 TB/s): operations bound it, and only wgmma
+// reaches that rate.
+//
+// Design. A CTA owns 128 query rows of one (head, batch): two consumer
+// warpgroups of 64 rows each and one producer warp (288 threads).
+// - Copies. One producer thread issues TMA loads (cp.async.bulk.tensor,
+//   4-D maps over (D, heads, L, B), completion counted in bytes on an
+//   mbarrier): the query tile once, then K and V blocks of 128 keys into a
+//   ring of two stages, each stage with its own K-full, V-full and free
+//   barrier; so the next block's copies run while this one's products do.
+//   A row of D = 128 is two 64-column boxes (128 bytes each, the widest
+//   the 128-byte swizzle takes); each box lands as rows of 128 bytes,
+//   swizzled, at the 1024-byte alignment wgmma's swizzle atom needs. TMA
+//   fills reads past L (or past the batch) with zeros.
+// - S = Q . K^T: wgmma m64n128k16 per 16 columns of D, both operands
+//   K-major in shared memory (descriptor start advanced 32 bytes per k
+//   step inside a swizzled row, one box per 64 columns); the 64 x 128
+//   float32 tile stays in registers.
+// - Softmax on those registers: s * (scale * log2 e), the mask (only on a
+//   block that holds a key past Lk or past the causal limit of the
+//   warpgroup's first row: the diagonal block), row max over the four
+//   lanes that hold a row (shuffles), exp2 of s - m, running max and
+//   sum per row (the sum's lane shares added once at the end), acc
+//   rescaled in registers.
+// - O += P . V: P goes to bf16 in registers, and its accumulator layout is
+//   wgmma's register-A layout for k16 slices, so no shuffle; V is read in
+//   place as an MN-major B operand (the transpose bit that 16-bit types
+//   allow), no transposing copy.
+// - Causal: a CTA loads only the blocks up to its last row's limit, and the
+//   grid is ordered heaviest query block first, so the short blocks of
+//   the causal triangle fill the last wave. Rows at or past Lq are not
+//   stored; keys at or past Lk are masked (TMA gave them zeros).
+// - Arithmetic: products in float32 on the tensor cores from bf16 inputs
+//   (P rounded to bf16 as the A operand), softmax in float32 with the
+//   special-function unit's ex2.approx in place of exp2f (both well
+//   inside bf16's rounding).
+// Left for later: overlap of one block's softmax with the next block's
+// wgmma inside a warpgroup (it needs a second S and P in registers, past
+// the 168 that ptxas gives this kernel), a persistent grid, fp8.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 128;               // query rows per CTA
+constexpr int BK = 128;               // keys per block
+constexpr int STAGES = 2;             // K/V ring depth
+constexpr int CONSUMERS = 256;        // two warpgroups
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int ROW = 128;              // bytes of one swizzled box row
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map, coordinates innermost first, into shared
+// memory; its bytes complete on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across the fence or the wait.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Shared-memory matrix descriptor of wgmma, 128-byte swizzle: start
+// address, leading and stride byte offsets (all in 16-byte units).
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+}
+
+// 2^x on the special-function unit (ex2.approx: about 2 ulp, flushes
+// denormals; 2^-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (64 x 128, float32) = a (64 x 16) . b (16 x 128), from shared memory,
+// K-major; d is overwritten when `accumulate` is 0, added to otherwise.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, float32) += a (64 x 16, bf16 pairs in registers) . b
+// (16 x 128, shared memory, MN-major: read through the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, float32) += a (64 x 16, bf16 pairs in registers) . b
+// (16 x 64, shared memory, MN-major: read through the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// D: the head dim, 64 or 128 (one or two 64-column boxes per row).
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         __nv_bfloat16* __restrict__ out, int Lq, int Lk,
+                         int H, int KVH, int B, float scale, int causal,
+                         int kv_offset) {
+  constexpr int BOXES = D / 64;
+  constexpr int Q_BYTES = BQ * D * 2;
+  constexpr int KV_BYTES = BK * D * 2;
+  constexpr int NS = BK / 2;   // S registers per thread (64 x BK tile)
+  constexpr int NO = D / 2;    // O registers per thread (64 x D tile)
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sk = sq + Q_BYTES;
+  uint8_t* sv = sk + STAGES * KV_BYTES;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sv + STAGES * KV_BYTES);
+  uint64_t* bar_k = bar_q + 1;
+  uint64_t* bar_v = bar_k + STAGES;
+  uint64_t* bar_free = bar_v + STAGES;
+
+  // Heaviest query block first: the grid's first H*B CTAs take the last
+  // block of every (head, batch).
+  const int nq = (Lq + BQ - 1) / BQ;
+  const int hb = H * B;
+  const int qblk = nq - 1 - (int)(blockIdx.x / hb);
+  const int h = (int)(blockIdx.x % hb) % H;
+  const int b = (int)(blockIdx.x % hb) / H;
+  const int kvh = h / (H / KVH);
+  const int q0 = qblk * BQ;
+  long long n_keys = Lk;
+  if (causal)
+    n_keys = min(n_keys, (long long)min(q0 + BQ, Lq) + kv_offset);
+  const int n_blocks = (int)((n_keys + BK - 1) / BK);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&bar_k[s], 1);
+      mbar_init(&bar_v[s], 1);
+      mbar_init(&bar_free[s], CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // Producer: one thread keeps the ring full.
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(bar_q, Q_BYTES);
+      for (int x = 0; x < BOXES; ++x)
+        tma_load(sq + x * BQ * ROW, &tm_q, bar_q, 64 * x, h, q0, b);
+      for (int j = 0; j < n_blocks; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(&bar_free[s], ((j / STAGES) - 1) & 1);
+        mbar_expect_tx(&bar_k[s], KV_BYTES);
+        for (int x = 0; x < BOXES; ++x)
+          tma_load(sk + s * KV_BYTES + x * BK * ROW, &tm_k, &bar_k[s],
+                   64 * x, kvh, j * BK, b);
+        mbar_expect_tx(&bar_v[s], KV_BYTES);
+        for (int x = 0; x < BOXES; ++x)
+          tma_load(sv + s * KV_BYTES + x * BK * ROW, &tm_v, &bar_v[s],
+                   64 * x, kvh, j * BK, b);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns rows q0 + 64 wg .. + 63. In wgmma's
+  // accumulator layout thread (warp w, lane) holds rows 16 w + lane / 4
+  // and that + 8, columns 8 j + 2 (lane % 4) + {0, 1} for every j:
+  // register 4 j + 2 i + c is (row + 8 i, column 8 j + 2 (lane % 4) + c).
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int wg_row0 = q0 + 64 * wg;
+  const int row0 = wg_row0 + 16 * warp + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const float c2 = scale * kLog2e;
+
+  float o[NO];
+#pragma unroll
+  for (int x = 0; x < NO; ++x) o[x] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  uint32_t pa[BK / 16][4];
+
+  const uint32_t q_addr = smem_u32(sq) + wg * 64 * ROW;
+  mbar_wait(bar_q, 0);
+
+  for (int j = 0; j < n_blocks; ++j) {
+    const int s = j % STAGES;
+    const uint32_t parity = (j / STAGES) & 1;
+    const uint32_t k_addr = smem_u32(sk + s * KV_BYTES);
+    const uint32_t v_addr = smem_u32(sv + s * KV_BYTES);
+    const int k0 = j * BK;
+
+    // S = Q . K^T, 64 x 128, float32 in registers.
+    float sc[NS];
+    mbar_wait(&bar_k[s], parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // inside the swizzled row
+      wgmma_ss_n128(sc,
+                    sdesc(q_addr + (kk / 4) * BQ * ROW + off, 16, 1024),
+                    sdesc(k_addr + (kk / 4) * BK * ROW + off, 16, 1024),
+                    kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(sc);
+
+#pragma unroll
+    for (int x = 0; x < NS; ++x) sc[x] *= c2;
+    if (k0 + BK > Lk || (causal && k0 + BK - 1 > wg_row0 + kv_offset)) {
+#pragma unroll
+      for (int x = 0; x < NS; ++x) {
+        const int key = k0 + 8 * (x / 4) + col0 + (x % 2);
+        const int row = row0 + 8 * ((x / 2) % 2);
+        if (key >= Lk || (causal && key > row + kv_offset))
+          sc[x] = -INFINITY;
+      }
+    }
+
+    // Online softmax per row (in log2 units: sc holds s * scale * log2 e).
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int jj = 0; jj < NS / 4; ++jj)
+        mx = fmaxf(mx, fmaxf(sc[4 * jj + 2 * i], sc[4 * jj + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // A row with no visible key yet keeps m = -inf: p = 0, alpha = 1.
+      const float base = mx == -INFINITY ? 0.f : mx;
+      alpha[i] = exp2_approx(m[i] - base);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < NS / 4; ++jj) {
+        const float p0 = exp2_approx(sc[4 * jj + 2 * i] - base);
+        const float p1 = exp2_approx(sc[4 * jj + 2 * i + 1] - base);
+        sc[4 * jj + 2 * i] = p0;
+        sc[4 * jj + 2 * i + 1] = p1;
+        sum += p0 + p1;
+      }
+      l[i] = l[i] * alpha[i] + sum;   // this thread's share of the row
+    }
+#pragma unroll
+    for (int x = 0; x < NO; ++x) o[x] *= alpha[(x / 2) % 2];
+    // P to bf16: the accumulator's columns 16 kk .. 16 kk + 15 are
+    // registers 8 kk .. 8 kk + 7, in the order of wgmma's A fragment.
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+    // O += P . V, V (keys x D) read as an MN-major B: 16 keys per step
+    // (two 8-row groups, 1024 bytes apart), one 64-column box per 128-byte
+    // swizzle atom along D (boxes BK * 128 bytes apart).
+    mbar_wait(&bar_v[s], parity);
+    hold(o);
+    hold(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t dv = sdesc(v_addr + kk * 16 * ROW, BK * ROW, 1024);
+      if constexpr (D == 128)
+        wgmma_rs_n128(o, pa[kk], dv);
+      else
+        wgmma_rs_n64(o, pa[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(o);
+    hold(pa);
+    mbar_arrive(&bar_free[s]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float sum = l[i];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float denom = fmaxf(sum, 1e-30f);
+    const int row = row0 + 8 * i;
+    if (row >= Lq) continue;
+    __nv_bfloat16* orow = out + (((long long)b * Lq + row) * H + h) * D;
+#pragma unroll
+    for (int jj = 0; jj < NO / 4; ++jj)
+      *reinterpret_cast<uint32_t*>(orow + 8 * jj + col0) =
+          pack_bf16(o[4 * jj + 2 * i] / denom, o[4 * jj + 2 * i + 1] / denom);
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The map of a (B, L, heads, D) bf16 tensor as 4-D (D, heads, L, B), boxes
+// of 64 columns x `rows` rows of one head, 128-byte swizzle, zero fill.
+int encode(CUtensorMap* map, const void* ptr, int B, int L, int heads,
+           int D, int rows) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)L * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  // A driver error is reported past the runtime's codes, as 10000 + code.
+  return res == CUDA_SUCCESS ? 0 : 10000 + (int)res;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Lq, int Lk, int H, int KVH, float scale, int causal,
+           int kv_offset, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, q, B, Lq, H, D, BQ);
+  if (!err) err = encode(&tk, k, B, Lk, KVH, D, BK);
+  if (!err) err = encode(&tv, v, B, Lk, KVH, D, BK);
+  if (err) return err;
+  auto kernel = flash_prefill_kernel<D>;
+  const size_t smem = 1024 + (size_t)BQ * D * 2 +
+                      2 * STAGES * (size_t)BK * D * 2 +
+                      (1 + 3 * STAGES) * sizeof(uint64_t);
+  // The opt-in above 48 KB is made once per device (so that a launch
+  // captured into a CUDA graph makes no such call).
+  static bool allowed[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!allowed[dev]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    allowed[dev] = true;
+  }
+  const long long ctas = (long long)((Lq + BQ - 1) / BQ) * H * B;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)ctas, THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Lq, Lk, H, KVH, B,
+      scale, causal, kv_offset);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C interface (bound with ctypes): bf16 q (B, Lq, H, D), k and v (B, Lk,
+// KVH, D), out like q, contiguous and 16-byte aligned, D 64 or 128. Returns
+// a cudaError_t (0 is success), or 10000 + a CUresult of the tensor-map
+// encoding.
+extern "C" int flash_prefill_wgmma_launch(const void* q, const void* k,
+                                          const void* v, void* out, int B,
+                                          int Lq, int Lk, int H, int KVH,
+                                          int D, float scale, int causal,
+                                          int kv_offset, void* stream) {
+  if (B < 1 || Lq < 1 || Lk < 1 || KVH < 1 || H < 1 || H % KVH ||
+      kv_offset < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch<64>(q, k, v, out, B, Lq, Lk, H, KVH, scale, causal,
+                      kv_offset, s);
+  if (D == 128)
+    return launch<128>(q, k, v, out, B, Lq, Lk, H, KVH, scale, causal,
+                       kv_offset, s);
+  return (int)cudaErrorInvalidValue;
+}

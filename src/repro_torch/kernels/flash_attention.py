@@ -1,64 +1,199 @@
-"""CUDA wrapper of ``csrc/flash_attention.cu`` — blocked online-softmax
+"""CUDA wrappers of the flash-attention kernels — blocked online-softmax
 attention for the LM substrate's prefill and decode.
 
-Replaces the Pallas kernel ``repro/kernels/flash_attention.py::
-flash_attention``.  One CTA per (64-row query block, head, batch) loops
-over 64-key blocks of K and V in shared memory with the online-softmax
-recurrence in float32; grouped-query heads are read in place (query head
-``h`` reads KV head ``h // (H // KVH)``), and under ``causal`` the loop
-stops at the last block a row of the CTA can see.  Tile sizes belong to
-the kernel: the reference's ``block_q``/``block_k`` tiling knobs have no
-counterpart.  Operations bound it at the prefill shape and bytes at the
-decode shape (see the source's header).  Its plain version is
-`kernels.ref.flash_attention_ref`; `kernels.ops.flash_attention` picks
-between the two by device.
+Replace the Pallas kernel ``repro/kernels/flash_attention.py::
+flash_attention``.  Three routes compute the reference's function, and
+`route` picks one from the call's shapes alone (no flag or environment
+variable):
+
+- ``wgmma`` (``csrc/flash_prefill_wgmma.cu``): bf16, ``Lq > 1``, head dim
+  64 or 128 — the prefill of the dense family.  A CTA of two consumer
+  warpgroups and a producer warp; TMA copies K/V blocks into a two-stage
+  ring, ``wgmma`` computes both products on the tensor cores.
+- ``decode`` (``csrc/flash_decode.cu``): ``Lq == 1``, float32 or bf16 —
+  every decode step.  A split-K grid over (key split, KV head, batch),
+  one CTA per split for all query heads of a KV group, streaming its keys
+  through a ``cp.async`` ring in shared memory; the partials are merged
+  in the same launch by the last CTA of each group.
+- ``simt`` (``csrc/flash_attention.cu``): everything else (float32 with
+  ``Lq > 1``, bf16 at another head dim).  One CTA per (64-row query
+  block, head, batch), float32 FMA on the CUDA cores.
+
+Tile sizes belong to the kernels: the reference's ``block_q``/``block_k``
+tiling knobs have no counterpart.  The plain version is
+`kernels.ref.flash_attention_ref` (and `ref.flash_decode_splitk_ref`,
+the decode route's split and merge); `kernels.ops.flash_attention` picks
+between plain and kernel by device and counts each route's launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 
+ROUTES = ("wgmma", "decode", "simt")
+WGMMA_HEAD_DIMS = (64, 128)
+# The decode route's split: rows per sub-block (a split's length is a
+# multiple), query heads per CTA, the most splits one group merges
+# (csrc/flash_decode.cu's MAX_CHUNKS), and CTAs per SM the grid aims at.
+SUB_BLOCK, HEADS_PER_CTA, MAX_CHUNKS, CTAS_PER_SM = 32, 4, 2048, 4
+
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+_DECODE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                    + [ctypes.c_float] + [ctypes.c_int] * 3
+                    + [ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def route(dtype: torch.dtype, b: int, lq: int, lk: int, h: int, kvh: int,
+          d: int, causal: bool) -> str:
+    """The kernel that serves a call of these shapes: ``"decode"`` for one
+    query row, ``"wgmma"`` for a bf16 prefill at head dim 64 or 128,
+    ``"simt"`` otherwise."""
+    if lq == 1:
+        return "decode"
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+def visible_keys(lk: int, causal: bool, kv_offset: int) -> int:
+    """Keys the single query row of a decode step attends: ``0 ..
+    kv_offset`` under ``causal``, all ``lk`` otherwise."""
+    return min(lk, kv_offset + 1) if causal else lk
+
+
+def decode_split(b: int, kvh: int, h: int, n_vis: int,
+                 sms: int) -> tuple[int, int]:
+    """(split length, split count) of the decode route's grid over the
+    ``n_vis`` visible keys: as many splits per (batch, KV head, head
+    group) as make the grid about CTAS_PER_SM CTAs per SM, each a
+    multiple of SUB_BLOCK keys; keys past the visible ones are not
+    launched."""
+    groups = b * kvh * -(-(h // kvh) // HEADS_PER_CTA)
+    splits = min(MAX_CHUNKS, -(-CTAS_PER_SM * sms // groups))
+    chunk = SUB_BLOCK * -(-(-(-n_vis // SUB_BLOCK)) // splits)
+    return chunk, -(-n_vis // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check(q, k, v, kernel: str, dtypes) -> tuple[int, int, int, int, int,
+                                                   int]:
+    """Raise unless q (B, Lq, H, D), k and v (B, Lk, KVH, D) are what the
+    kernels take; returns (B, Lq, Lk, H, KVH, D)."""
+    dev = q.device
+    if q.dtype not in dtypes:
+        raise ValueError(f"{kernel}: dtype {q.dtype} is not one of "
+                         f"{', '.join(map(str, dtypes))}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check_arg(kernel, name, t, q.dtype, 4, dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} is not 16-byte aligned")
+    b, lq, h, d = q.shape
+    lk, kvh = k.shape[1], k.shape[2]
+    if k.shape != (b, lk, kvh, d) or v.shape != k.shape:
+        raise ValueError(f"{kernel}: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must be (B, Lk, KVH, D) with q's "
+                         f"B and D, q {tuple(q.shape)}")
+    if d % 16 or not 16 <= d <= 256 or kvh < 1 or h % kvh \
+            or min(b, lq, lk) < 1 or b > 65535 or h > 65535:
+        raise ValueError(f"{kernel}: needs D a multiple of 16 in [16, 256] "
+                         f"(got {d}), H a multiple of KVH (got {h}, {kvh}) "
+                         f"and B, Lq, Lk >= 1 (got {b}, {lq}, {lk})")
+    return b, lq, lk, h, kvh, d
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err:
+        raise RuntimeError(f"{kernel} launch failed: "
+                           + (f"CUresult {err - 10000} (tensor map)"
+                              if err >= 10000 else f"cudaError {err}"))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, scale: float,
                          kv_offset: int) -> torch.Tensor:
-    """Launch the kernel on ``q``'s stream: q (B, Lq, H, D), k and v
+    """The ``simt`` route on ``q``'s stream: q (B, Lq, H, D), k and v
     (B, Lk, KVH, D), one dtype (float32 or bfloat16), contiguous; returns
     the (B, Lq, H, D) output in q's dtype."""
-    dev = q.device
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash_attention: dtype {q.dtype} is neither "
-                         "float32 nor bfloat16")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.check_arg("flash_attention", name, t, q.dtype, 4, dev)
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} is not 16-byte "
-                             "aligned")
-    b, lq, h, d = q.shape
-    lk, kvh = k.shape[1], k.shape[2]
-    if k.shape != (b, lk, kvh, d) or v.shape != k.shape:
-        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} must be (B, Lk, KVH, D) with q's "
-                         f"B and D, q {tuple(q.shape)}")
-    if d % 16 or not 16 <= d <= 256 or h % kvh or min(b, lq, lk) < 1 \
-            or kv_offset < 0 or b > 65535 or h > 65535:
-        raise ValueError(f"flash_attention: needs D a multiple of 16 in "
-                         f"[16, 256] (got {d}), H a multiple of KVH (got "
-                         f"{h}, {kvh}), B, Lq, Lk >= 1 (got {b}, {lq}, "
-                         f"{lk}) and kv_offset >= 0 (got {kv_offset})")
+    b, lq, lk, h, kvh, d = _check(q, k, v, "flash_attention", _DTYPES)
+    if kv_offset < 0:
+        raise ValueError(f"flash_attention: kv_offset {kv_offset} < 0")
     out = torch.empty_like(q)
     fn = _build.load("flash_attention").flash_attention_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             _DTYPES[q.dtype], b, lq, lk, h, kvh, d, scale, int(causal),
-             kv_offset, torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 _DTYPES[q.dtype], b, lq, lk, h, kvh, d, scale, int(causal),
+                 kv_offset, torch.cuda.current_stream(q.device).cuda_stream),
+              "flash_attention")
     return out
+
+
+def flash_prefill_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool, scale: float,
+                             kv_offset: int) -> torch.Tensor:
+    """The ``wgmma`` route on ``q``'s stream: bf16 q (B, Lq, H, D), k and v
+    (B, Lk, KVH, D), D 64 or 128, contiguous; returns the output in bf16."""
+    b, lq, lk, h, kvh, d = _check(q, k, v, "flash_prefill_wgmma",
+                                  (torch.bfloat16,))
+    if d not in WGMMA_HEAD_DIMS or kv_offset < 0:
+        raise ValueError(f"flash_prefill_wgmma: needs D in "
+                         f"{WGMMA_HEAD_DIMS} (got {d}) and kv_offset >= 0 "
+                         f"(got {kv_offset})")
+    out = torch.empty_like(q)
+    fn = _build.load("flash_prefill_wgmma").flash_prefill_wgmma_launch
+    fn.argtypes, fn.restype = _WGMMA_ARGTYPES, ctypes.c_int
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, lq, lk, h, kvh, d, scale, int(causal), kv_offset,
+                 torch.cuda.current_stream(q.device).cuda_stream),
+              "flash_prefill_wgmma")
+    return out
+
+
+def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, scale: float,
+                      kv_offset: int) -> torch.Tensor:
+    """The ``decode`` route on ``q``'s stream: q (B, 1, H, D), k and v
+    (B, Lk, KVH, D), float32 or bfloat16, contiguous.  The visible keys
+    are split as `decode_split` picks; the partials and the arrival
+    counters live in scratch of this call's own."""
+    b, lq, lk, h, kvh, d = _check(q, k, v, "flash_decode", _DTYPES)
+    if lq != 1 or kv_offset < 0:
+        raise ValueError(f"flash_decode: needs Lq 1 (got {lq}) and "
+                         f"kv_offset >= 0 (got {kv_offset})")
+    n_vis = visible_keys(lk, causal, kv_offset)
+    index = q.device.index if q.device.index is not None \
+        else torch.cuda.current_device()
+    chunk, n_chunks = decode_split(b, kvh, h, n_vis, _sm_count(index))
+    heads = -(-(h // kvh) // HEADS_PER_CTA)
+    groups = b * kvh * heads
+    if kvh * heads > 65535:
+        raise ValueError(f"flash_decode: {kvh * heads} KV head groups (at "
+                         f"most 65535)")
+    out = torch.empty_like(q)
+    # The partials (m, l, acc) of every split, then one counter per group.
+    part = torch.empty(groups * (n_chunks * HEADS_PER_CTA * (d + 2) + 1),
+                       dtype=torch.float32, device=q.device)
+    fn = _build.load("flash_decode").flash_decode_launch
+    fn.argtypes, fn.restype = _DECODE_ARGTYPES, ctypes.c_int
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 part.data_ptr(), _DTYPES[q.dtype], b, lk, h, kvh, d, scale,
+                 n_vis, chunk, n_chunks,
+                 torch.cuda.current_stream(q.device).cuda_stream),
+              "flash_decode")
+    return out
+
+
+CUDA_ROUTES = {"wgmma": flash_prefill_wgmma_cuda,
+               "decode": flash_decode_cuda, "simt": flash_attention_cuda}

@@ -12,7 +12,9 @@ read those tiles where they lie, through run pointers built here on the
 device; the plain versions take the same list.
 ``fused_expand_q`` reads the quantised layout's uint8 stack
 (`core.tiles.quantized`).  ``flash_attention`` serves the LM substrate's
-prefill and decode.
+prefill and decode through three kernels chosen by shape
+(`kernels.flash_attention.route`); ``LAUNCHES["flash_attention"]`` counts
+them all, ``flash_wgmma``, ``flash_decode`` and ``flash_simt`` each route.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from repro_torch.core.tiles import TiledGraph
 from repro_torch.kernels import ref
 
 LAUNCHES = {"fused_expand": 0, "cover_counts": 0, "lt_select_expand": 0,
-            "flash_attention": 0, "fused_expand_q": 0}
+            "flash_attention": 0, "fused_expand_q": 0,
+            "flash_wgmma": 0, "flash_decode": 0, "flash_simt": 0}
 
 
 def reset_launches() -> None:
@@ -133,10 +136,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "(Lq|Lk, H, D) or all (B, Lq|Lk, H, D)")
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     if _on_cuda(q, k, v):
-        from repro_torch.kernels.flash_attention import flash_attention_cuda
-        out = flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=causal,
-                                   scale=scale, kv_offset=kv_offset)
+        from repro_torch.kernels import flash_attention as fa
+        b, lq, h, d = q.shape
+        r = fa.route(q.dtype, b, lq, k.shape[1], h, k.shape[2], d, causal)
+        out = fa.CUDA_ROUTES[r](q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=causal, scale=scale,
+                                kv_offset=kv_offset)
+        LAUNCHES[f"flash_{r}"] += 1
         LAUNCHES["flash_attention"] += 1
     else:
         out = ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,

@@ -250,3 +250,47 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None, kv_offset=0):
         s = s.masked_fill(kp > qp, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def flash_decode_splitk_ref(q, k, v, *, chunk, causal=True, scale=None,
+                            kv_offset=0):
+    """`flash_attention_ref`'s function computed as the decode kernel
+    splits it (``csrc/flash_decode.cu``): the ``Lk`` keys cut into chunks
+    of ``chunk`` keys from key 0 (the last one short), a float32 partial
+    per chunk — its max ``m`` over the visible keys, ``l = Σ exp(s - m)``
+    and ``acc = Σ exp(s - m)·v`` — then merged with weights ``exp(m_c -
+    max_c m_c)``: ``out = Σ w·acc / max(Σ w·l, 1e-30)``.  Keys past ``qp +
+    kv_offset`` under ``causal`` take no part: a chunk without a visible
+    key gives ``m = -inf, l = 0`` (masking its scores to -1e30 instead
+    would give ``l`` = its length).  With ``chunk`` from
+    `flash_attention.decode_split` this is the kernel's own split (which
+    launches no chunk past the visible keys: those contribute nothing
+    here).  Same layouts as `flash_attention_ref`; any ``Lq``."""
+    b, lq, h, d = q.shape
+    lk, kvh = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(h // kvh, dim=2)
+    vf = v.float().repeat_interleave(h // kvh, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    kp = torch.arange(lk, device=q.device)[None, :]
+    visible = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    if causal:
+        visible = kp <= torch.arange(lq, device=q.device)[:, None] \
+            + kv_offset
+    ms, ls, accs = [], [], []
+    for lo in range(0, lk, chunk):
+        hi = min(lo + chunk, lk)
+        sc = s[..., lo:hi].masked_fill(~visible[:, lo:hi], float("-inf"))
+        m = sc.amax(-1)
+        live = torch.isfinite(m)[..., None]
+        p = torch.where(live, torch.exp(sc - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhqk,bkhd->bhqd", p, vf[:, lo:hi]))
+    m_all = torch.stack(ms)
+    top = m_all.amax(0)
+    w = torch.where(torch.isfinite(m_all), torch.exp(m_all - top), 0.0)
+    num = (w[..., None] * torch.stack(accs)).sum(0)
+    den = (w * torch.stack(ls)).sum(0).clamp_min(1e-30)
+    return (num / den[..., None]).permute(0, 2, 1, 3).to(q.dtype)

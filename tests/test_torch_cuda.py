@@ -208,6 +208,114 @@ def test_flash_attention_kernel_equals_plain(cuda, dtype, causal, b, lq, lk,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("route,dtype,b,lq,lk,h,kvh,d,causal,kv_offset", [
+    ("wgmma", torch.bfloat16, 1, 512, 512, 24, 8, 128, True, 0),
+    ("wgmma", torch.bfloat16, 2, 32, 32, 8, 8, 128, True, 0),
+    ("wgmma", torch.bfloat16, 2, 257, 300, 6, 2, 64, True, 17),
+    ("wgmma", torch.bfloat16, 2, 257, 300, 6, 2, 64, False, 0),
+    ("decode", torch.float32, 3, 1, 2080, 24, 8, 128, True, 2079),
+    ("decode", torch.bfloat16, 3, 1, 2080, 24, 8, 128, True, 1000),
+    ("decode", torch.float32, 2, 1, 300, 12, 1, 96, True, 150),
+    ("decode", torch.bfloat16, 1, 1, 77, 8, 8, 16, True, 0),
+    ("decode", torch.float32, 1, 1, 64, 4, 2, 256, False, 0),
+    ("simt", torch.float32, 1, 130, 190, 8, 1, 128, True, 60),
+    ("simt", torch.bfloat16, 2, 100, 100, 6, 2, 96, True, 0)])
+def test_flash_route_kernel_equals_plain(cuda, route, dtype, b, lq, lk, h,
+                                         kvh, d, causal, kv_offset):
+    """Each route on shapes it takes (ragged Lq and Lk, Lq below one query
+    block, GQA groups 1 to 12, kv_offset 0 to Lk - 1): the route's own
+    counter moves by one and the output is the plain version's, f32
+    within 2e-5, bf16 within 2e-2."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.route(dtype, b, lq, lk, h, kvh, d, causal) == route
+    q, k, v = _qkv(b, lq, lk, h, kvh, d, dtype, lk * 3 + d)
+    before = ops.LAUNCHES[f"flash_{route}"]
+    got = ops.flash_attention(q, k, v, causal=causal, kv_offset=kv_offset)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[f"flash_{route}"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                   kv_offset=kv_offset)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lk,kv_offset", [
+    (2, 77, 30), (2, 77, 0), (4, 2080, 2079), (1, 300, 299)])
+def test_decode_route_equals_splitk_plain_at_its_split(cuda, dtype, b, lk,
+                                                       kv_offset):
+    """The decode kernel against the split-K plain version cut at the
+    kernel's own split (`decode_split` over the visible keys)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(b, 1, lk, 24, 8, 128, dtype, lk + kv_offset)
+    got = fa.flash_decode_cuda(q, k, v, causal=True, scale=128 ** -0.5,
+                               kv_offset=kv_offset)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_vis = fa.visible_keys(lk, True, kv_offset)
+    chunk, _ = fa.decode_split(b, 8, 24, n_vis, sms)
+    want = ref.flash_decode_splitk_ref(q, k, v, chunk=chunk, causal=True,
+                                       kv_offset=kv_offset)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_decode_route_on_two_streams_at_once(cuda):
+    """Decode launches queued on two streams at once, each stream on
+    inputs of its own, all give the plain version: every launch merges
+    through arrival counters of its own."""
+    from repro_torch.kernels import flash_attention as fa
+    ins = [_qkv(4, 1, 2080, 24, 8, 128, torch.bfloat16, seed)
+           for seed in (11, 12)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for (q, k, v), stream, got in zip(ins, streams, outs):
+            with torch.cuda.stream(stream):
+                got.append(fa.flash_decode_cuda(
+                    q, k, v, causal=True, scale=128 ** -0.5,
+                    kv_offset=2079))
+    torch.cuda.synchronize()
+    for (q, k, v), got in zip(ins, outs):
+        want = ref.flash_attention_ref(q, k, v, causal=True, kv_offset=2079)
+        for o in got:
+            torch.testing.assert_close(o.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "decode"])
+def test_flash_routes_replay_from_a_cuda_graph(cuda, route):
+    """A graph of three launches replayed twice gives the plain version
+    each time: the wgmma route's tensor maps travel by value in the
+    launch, and the decode route zeroes its arrival counters in each."""
+    from repro_torch.kernels import flash_attention as fa
+    lq, off = (300, 0) if route == "wgmma" else (1, 500)
+    q, k, v = _qkv(2, lq, 600, 12, 4, 128, torch.bfloat16, 7)
+    fn = fa.CUDA_ROUTES[route]
+    outs = []
+
+    def step():
+        outs.append(fn(q, k, v, causal=True, scale=128 ** -0.5,
+                       kv_offset=off))
+
+    step()
+    torch.cuda.synchronize()
+    outs.clear()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(3):
+            step()
+    want = ref.flash_attention_ref(q, k, v, causal=True, kv_offset=off)
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o in outs:
+            torch.testing.assert_close(o.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2)
+
+
 def _q_tiled(n, e, *, seed, tile_size, dst_limit=None, pad=0):
     """``(tg, q8)`` of a random graph on the GPU, ``pad`` padding tiles
     included: the float32 layout and the reference's ``quantize_probs`` of
