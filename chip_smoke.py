@@ -14,8 +14,12 @@ else.  Phases, each of which raises on failure:
    graph (empty frontier, destination blocks no tile reaches,
    ``pad_tiles_to`` padding tiles, 32/64/96 colours) over every tile and
    over compacted tile lists (empty, one source block, full),
-   ``fused_expand_q`` on the same graph's quantised stack (32/64/128
-   colours, the same lists), ``cover_counts`` at the full pool shape;
+   ``fused_expand_q`` on the same graph's quantised stack (32/64/128/256
+   colours, the same lists); the two slot-list kernels also at 256 colours
+   and on a graph whose hub rows take 300 in-edges each, against their
+   tile-form plain versions; each slot list holding exactly the slots that
+   pass its value test and equal to the list read back from its stack;
+   ``cover_counts`` at the full pool shape;
 4. IC main path at full size: the serving launcher's ``run_single`` on the
    kernel backend — powerlaw_cluster(65,536, 6.0, p=0.25, seed 7), 64
    colours, a 64-batch pool (4,096 RRR sets), one mixed micro-batched flush
@@ -29,11 +33,13 @@ else.  Phases, each of which raises on failure:
    ``tests/data/torch_port_golden.json`` (made by
    ``scripts/make_torch_golden.py`` from the JAX reference), plus the
    top-16 seeds over that 4-batch pool;
-6. IC timing: every level of batch 0 through the kernel's CUDA wrapper on
-   the dense grid and on the compacted grid (device time per launch,
-   launches replayed from a CUDA graph), the compaction, and the plain
-   version (equal at every level); ``cover_counts`` at the pool's shape
-   (CUDA events); each beside its bound on this card;
+6. IC timing: the slot list's entries and bytes, and the time to read it
+   back from the stacks (equal to the layout's); every level of batch 0
+   through the kernel's CUDA wrapper on the dense grid and on the
+   compacted grid (device time per launch, launches replayed from a CUDA
+   graph), the compaction, and the plain version (equal at every level);
+   ``cover_counts`` at the pool's shape (CUDA events); each beside its
+   bound on this card;
 7. LT main path at full size, after the IC tile stacks are released: the
    same launcher run with ``--diffusion lt --frontier sparse`` (the
    ``lt_select_expand`` kernel on the compacted tile list); counters as in
@@ -50,13 +56,15 @@ else.  Phases, each of which raises on failure:
 11. quantised main path at full size: powerlaw_cluster(262,144, 6.0,
     p=0.25, seed 7), deduped, ``reorder.apply(g, "cluster")``, reversed,
     128×128 tiles with the uint8 stack only (~600k tiles, ~9 GiB, tile ids
-    past 2¹⁸ where the cell counter wraps): ``fused_expand_q`` against its
+    past 2¹⁸ where the cell counter wraps), its slot count and how many
+    pairs of slots share a cell; ``fused_expand_q`` against its
     plain version on 4,096 tile ids spread over the id range; then 8
     batches of 64 colours through ``run_fused_q_tiled`` on the dense grid
     and on the compacted list, in turns, with identical words; counters as
     in 4, ``fused_expand_q`` launched once per level of each;
-12. quantised timing: every level of batch 0 on both grids (CUDA graph of
-    10 launches), the compaction, each beside its bound on this card;
+12. quantised timing: the slot list as in 6; every level of batch 0 on
+    both grids (CUDA graph of 10 launches), the compaction, each beside its
+    bound on this card;
 13. quantised exactness without the reference: (b) the mean RRR set size
     of the 512 quantised traversals against 512 exact CSR IC traversals
     (p = 0.25 quantises exactly), within 4 standard errors of the
@@ -222,7 +230,8 @@ def _random_masks(vp, colors, density, gen, dev):
 def _reduced_graph(dev, lt: bool):
     """The reduced check graph: 4,096 vertices, destinations below 3,000 so
     blocks 24..31 receive no tile, 5 ``pad_tiles_to`` padding tiles; LT
-    adds the normalised weights and the cb stack."""
+    adds the normalised weights and the cb stack.  Returns (graph, tiles,
+    cb or None)."""
     from repro_torch.core import lt as lt_lib
     from repro_torch.core import tiles
     from repro_torch.graph import csr
@@ -244,7 +253,93 @@ def _reduced_graph(dev, lt: bool):
            "destination blocks")
     cb = (tiles.edge_values_to_tiles(tg, g, lt_lib.selection_cum_before(g))
           if lt else None)
-    return tg, cb
+    return g, tg, cb
+
+
+def _hub_graph(dev):
+    """4,096 vertices whose rows 5, 700 and 4,095 take 300 in-edges each
+    (row 5's from three source blocks, the others' from anywhere), plus
+    5,000 random edges: a warp's 32 entries often share a destination row,
+    and one row's entries spread over many tiles."""
+    from repro_torch.core import tiles
+    from repro_torch.graph import csr
+
+    n = 4096
+    rs = np.random.default_rng(1)
+    src = np.concatenate([np.arange(1000, 1300), rs.integers(0, n, 600),
+                          rs.integers(0, n, 5000)])
+    dst = np.concatenate([np.repeat([5, 700, 4095], 300),
+                          rs.integers(0, n, 5000)])
+    keep = src != dst
+    g = csr.from_edges(src[keep], dst[keep],
+                       rs.uniform(0.05, 0.5, keep.sum()).astype(np.float32),
+                       n, dedupe=True, device=dev)
+    return tiles.from_graph(g)
+
+
+def _same_lists(a, b) -> bool:
+    """Two slot lists equal field for field."""
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
+        "slot_ptr", "src_row", "dst_row", "value", "key")) \
+        and a.value.dtype == b.value.dtype and a.num_rows == b.num_rows
+
+
+def check_slot_lists(dev, gen, err: dict) -> None:
+    """The slot lists and the two kernels that walk them, beyond the tile
+    cases of `check_kernels`: each list holds exactly the slots that pass
+    its value test and equals the list read back from the stack; a hub
+    destination (300 in-edges a row) and W = 8 on both kernels, against
+    the tile-form plain versions, on the dense grid and the full list."""
+    from repro_torch.core import tiles
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.fused_expand_q import quantize_probs
+
+    g, tg, _ = _reduced_graph(dev, False)
+    tq, q8 = tiles.quantized(g)
+    ic, q = tiles.ic_slot_list(tg), tiles.q_slot_list(tq, q8)
+    _check(ic.num_entries == int((tg.prob > 0).sum())
+           and q.num_entries == int((q8 > 0).sum()),
+           "a slot list does not hold exactly the slots that pass its test")
+    _check(_same_lists(ic, tiles.ic_slot_list_from_stack(tg))
+           and _same_lists(q, tiles.q_slot_list_from_stack(tq, q8)),
+           "the list built from the host arrays differs from the one read "
+           "from the stack")
+    print(f"[kernels] slot lists of the reduced graph: IC {ic.num_entries} "
+          f"entries (= slots with prob > 0), quantised {q.num_entries} (= "
+          f"slots with q > 0, of {int((tg.prob > 0).sum())} with prob > 0); "
+          "each equals the list read back from its stack")
+    cases = 0
+    for name, tg in (("reduced", tg), ("hub", _hub_graph(dev))):
+        q8 = quantize_probs(tg.prob)
+        full = tiles.active_tile_ids(
+            tg.tile_src, torch.ones(tg.num_blocks, dtype=torch.bool,
+                                    device=dev))
+        for colors, density in ((256, 0.05), (256, 0.5), (32, 0.5)):
+            fr, vis = _random_masks(tg.padded_vertices, colors, density, gen,
+                                    dev)
+            for ids in (None, full):
+                got = ops.fused_expand(tg, fr, vis, 0xDEADBEEF, 17,
+                                       tile_ids=ids)
+                want = ref.fused_expand_ref(tg.prob, tg.edge_id, tg.tile_src,
+                                            tg.tile_dst, fr, vis, 0xDEADBEEF,
+                                            17)
+                err["fused_expand"] = max(err["fused_expand"],
+                                          _max_abs_err(got, want))
+                got = ops.fused_expand_q(tg, q8, fr, vis, 0xDEADBEEF, 17,
+                                         tile_ids=ids)
+                want = ref.fused_expand_q_ref(q8, tg.tile_src, tg.tile_dst,
+                                              fr, vis, 0xDEADBEEF, 17)
+                torch.cuda.synchronize()
+                err["fused_expand_q"] = max(err["fused_expand_q"],
+                                            _max_abs_err(got, want))
+                cases += 1
+        if name == "hub":
+            hub = int((tiles.ic_slot_list(tg).dst_row == 700).sum())
+            _check(hub >= 250, f"hub row 700 has {hub} entries")
+    print(f"[kernels] fused_expand and fused_expand_q: {cases} cases each "
+          f"at W 8 and 1 (dense grid and full list) on the reduced graph and "
+          f"on a hub graph (row 700: {hub} entries); max word diff "
+          f"{err['fused_expand']} / {err['fused_expand_q']}")
 
 
 def _tile_lists(tg, fr):
@@ -276,7 +371,7 @@ def check_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     for lt in (False, True):
         name = "lt_select_expand" if lt else "fused_expand"
-        tg, cb = _reduced_graph(dev, lt)
+        _, tg, cb = _reduced_graph(dev, lt)
         cases = 0
         for colors in (32, 64, 96):
             u = ref.lt_selection_uniforms(0xDEADBEEF, tg.padded_vertices,
@@ -310,9 +405,10 @@ def check_kernels(dev) -> dict:
         if lt:
             continue
         # The quantised kernel on the same tiles: q8 is the reference's
-        # quantize_probs of the float32 stack; W = 1, 2 and 4.
+        # quantize_probs of the float32 stack (its slot list read from the
+        # stack); W = 1, 2, 4 and 8.
         q8, cases = quantize_probs(tg.prob), 0
-        for colors in (32, 64, 128):
+        for colors in (32, 64, 128, 256):
             for density in (0.0, 0.02, 0.3):
                 fr0, vis = _random_masks(tg.padded_vertices, colors, density,
                                          gen, dev)
@@ -329,8 +425,9 @@ def check_kernels(dev) -> dict:
                            "fused_expand_q: an empty frontier expanded")
                     cases += 1
         print(f"[kernels] fused_expand_q: {cases} cases on the same graph "
-              f"(W 1, 2, 4; every tile and the three compacted lists), max "
-              f"word diff {err['fused_expand_q']}")
+              f"(W 1, 2, 4, 8; every tile and the three compacted lists), "
+              f"max word diff {err['fused_expand_q']}")
+    check_slot_lists(dev, gen, err)
     for b, v, w in ((64, 65536, 2), (16, 65536, 3), (1, 300, 1)):
         vis = torch.randint(-2 ** 31, 2 ** 31, (b, v, w), dtype=torch.int32,
                             device=dev, generator=gen)
@@ -463,11 +560,13 @@ def _kernel_ms(fn, launches: int = 10) -> float:
 
 def time_tile_kernel(store, diffusion: str) -> dict:
     """Every level of batch 0 through the tile kernel's CUDA wrapper on the
-    dense grid and on the level's compacted tile list (its run pointers
-    built outside the timed window; `_kernel_ms`), the compaction itself
-    (tile list and run pointers, CUDA events), and the plain version (IC:
-    the whole stacks, as the dense grid; LT: the gathered list, as the
-    compacted grid its main path runs); all equal at every level.  The
+    dense grid and on the level's compacted tile list (built outside the
+    timed window; `_kernel_ms`), the compaction itself (the tile list, and
+    for LT its run pointers; CUDA events), and the plain version (IC: the
+    tile form over the whole stacks, as the dense grid; LT: the gathered
+    list, as the compacted grid its main path runs); all equal at every
+    level.  IC also reads its slot list back from the stacks (timed) and
+    holds it equal to the one the layout built.  The
     eager timings run in a first pass over the levels, the CUDA graphs in a
     second, so graph memory does not disturb the allocator under them.
     Each level's bound counts what its data needs: prob and edge id (IC)
@@ -501,12 +600,13 @@ def time_tile_kernel(store, diffusion: str) -> dict:
         u = ref.lt_selection_uniforms(seed, tg.padded_vertices, 64,
                                       device=dev)
 
+    slots = None if lt else tiles.ic_slot_list(tg)
+
     def kernel(level, fr, vis, ids, ptr):
         if lt:
             return lt_select_expand_cuda(tg.prob, cb, tg.tile_src, ptr, fr,
                                          vis, u, tile_ids=ids)
-        return fused_expand_cuda(tg.prob, tg.edge_id, tg.tile_src, ptr, fr,
-                                 vis, seed, level, tile_ids=ids)
+        return fused_expand_cuda(slots, fr, vis, seed, level, tile_ids=ids)
 
     def plain(level, fr, vis, ids):
         if lt:
@@ -520,8 +620,23 @@ def time_tile_kernel(store, diffusion: str) -> dict:
     def compact(fr):
         ids = tiles.active_tile_ids(
             tg.tile_src, sparse.row_block_activity(fr, tg.tile_size))
-        return ids, tiles.run_pointers(tg.tile_dst[ids.long()],
-                                       tg.num_blocks)
+        return ids, (tiles.run_pointers(tg.tile_dst[ids.long()],
+                                        tg.num_blocks) if lt else None)
+
+    per = {}
+    if not lt:
+        t0 = time.perf_counter()
+        again = tiles.ic_slot_list_from_stack(tg)
+        torch.cuda.synchronize()
+        per.update(slot_entries=slots.num_entries, slot_bytes=slots.nbytes,
+                   slot_build_ms=1e3 * (time.perf_counter() - t0))
+        _check(_same_lists(again, slots), "fused_expand: the slot list read "
+               "from the stacks differs from the layout's")
+        del again
+        print(f"[timing] fused_expand slot list: {slots.num_entries} entries "
+              f"({slots.nbytes / 2 ** 20:.2f} MiB) built with the layout "
+              f"from its host arrays; read back from the stacks in "
+              f"{per['slot_build_ms']:.1f} ms, equal")
 
     src = g_rev.src[:g_rev.num_edges].long()
     dst = g_rev.dst[:g_rev.num_edges].long()
@@ -575,7 +690,7 @@ def time_tile_kernel(store, diffusion: str) -> dict:
     _check(err == 0, f"{name} differs from its plain version or between its "
            f"grids at full size: max word diff {err}")
     ops_s = np.asarray(t["ops"]) / SCALAR_OPS_PER_S
-    per = dict(levels=level, compaction_ms=float(np.mean(t["compaction"])),
+    per.update(levels=level, compaction_ms=float(np.mean(t["compaction"])),
                plain_ms=float(np.mean(t["plain"])), max_abs_err=err,
                tiles=float(np.mean(t["tiles"])))
     for grid in ("dense", "compact"):
@@ -592,9 +707,9 @@ def time_tile_kernel(store, diffusion: str) -> dict:
           f"compacted list mean {per['compact_ms']:.4f} ms (max "
           f"{np.max(t['compact']):.4f}, bound {per['compact_bound_ms']:.6f} "
           f"by {per['compact_bound_by']}; {per['tiles']:.0f} of "
-          f"{tg.num_tiles} tiles on average); compaction (tile list + run "
-          f"pointers) {per['compaction_ms']:.4f} ms; plain "
-          f"{per['plain_ms']:.4f} ms")
+          f"{tg.num_tiles} tiles on average); compaction (tile list"
+          f"{' + run pointers' if lt else ''}) {per['compaction_ms']:.4f} ms;"
+          f" plain {per['plain_ms']:.4f} ms")
     for k in ("dense", "compact", "compaction", "tiles"):
         print(f"[timing] {name} {k} per level: "
               f"{[round(x, 4) for x in t[k]]}")
@@ -851,9 +966,11 @@ def time_q_kernel(tg, q8, g_rev) -> dict:
     """Every level of batch 0 through ``fused_expand_q_cuda`` on the dense
     grid and on the level's compacted list (device time per launch,
     `_kernel_ms`), and the compaction (CUDA events), as `time_tile_kernel`
-    does.  Each level's bound counts what its data needs: the q byte of
-    every edge whose source row is live; the output mask; the run pointers;
-    on the dense grid the whole frontier and visited masks and every tile's
+    does; the slot list read back from the stack (timed), equal to the one
+    `tiles.quantized` built.  Each level's bound counts what its data
+    needs: the q byte of every edge whose source row is live; the output
+    mask; the run pointers; on the dense grid the whole frontier and
+    visited masks and every tile's
     source block, on the list the frontier rows of the listed tiles' source
     blocks, the visited rows of their destination blocks and each entry's
     id and source block.  Operations: one cell fold per live edge
@@ -869,15 +986,25 @@ def time_q_kernel(tg, q8, g_rev) -> dict:
         n, 64, rrr.batch_starts(n, 64, 0, 0), dev), tg.padded_vertices)
     vis = torch.zeros_like(fr)
 
+    slots = tiles.q_slot_list(tg, q8)
+    t0 = time.perf_counter()
+    again = tiles.q_slot_list_from_stack(tg, q8)
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    _check(_same_lists(again, slots), "fused_expand_q: the slot list read "
+           "from the stack differs from the layout's")
+    del again
+    print(f"[q timing] slot list: {slots.num_entries} entries "
+          f"({slots.nbytes / 2 ** 20:.2f} MiB) built with the layout from "
+          f"its host arrays; read back from the {q8.numel() / 2 ** 30:.2f} "
+          f"GiB stack in {build_ms:.1f} ms, equal")
+
     def kernel(level, fr, vis, ids, ptr):
-        return fused_expand_q_cuda(q8, tg.tile_src, ptr, fr, vis, seed, level,
-                                   tile_ids=ids)
+        return fused_expand_q_cuda(slots, fr, vis, seed, level, tile_ids=ids)
 
     def compact(fr):
-        ids = tiles.active_tile_ids(
-            tg.tile_src, sparse.row_block_activity(fr, tg.tile_size))
-        return ids, tiles.run_pointers(tg.tile_dst[ids.long()],
-                                       tg.num_blocks)
+        return tiles.active_tile_ids(
+            tg.tile_src, sparse.row_block_activity(fr, tg.tile_size)), None
 
     src = g_rev.src[:g_rev.num_edges].long()
     dst = g_rev.dst[:g_rev.num_edges].long()
@@ -929,7 +1056,9 @@ def time_q_kernel(tg, q8, g_rev) -> dict:
     ops_s = np.asarray(t["ops"]) / SCALAR_OPS_PER_S
     per = dict(levels=n_levels, max_abs_err=err,
                compaction_ms=float(np.mean(t["compaction"])),
-               tiles=float(np.mean(t["tiles"])))
+               tiles=float(np.mean(t["tiles"])),
+               slot_entries=slots.num_entries, slot_bytes=slots.nbytes,
+               slot_build_ms=build_ms)
     for grid in ("dense", "compact"):
         bytes_s = np.asarray(t[f"bytes_{grid}"]) / HBM_BYTES_PER_S
         per[f"{grid}_ms"] = float(np.mean(t[grid]))
@@ -1016,6 +1145,8 @@ def check_q_p1(tg, g_rev) -> None:
 
 def run_q_phases(golden: dict, dev) -> dict:
     """Phases 10-13 (module docstring); returns the kernel's numbers."""
+    from repro_torch.core import tiles
+
     check_q_golden(golden, dev)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1033,6 +1164,17 @@ def run_q_phases(golden: dict, dev) -> dict:
           f"would take {tg.num_tiles * T2 * 8 / 2 ** 30:.2f} GiB (by "
           f"reckoning, not allocated); graph and layout built in "
           f"{build_s:.2f}s; peak device memory {_peak_gib():.2f} GiB")
+    slots = tiles.q_slot_list(tg, q8)
+    _, counts = torch.unique(slots.key, return_counts=True)
+    shared = counts[counts > 1].long()
+    collide = dict(slots_sharing=int(shared.sum()),
+                   pairs=int((shared * (shared - 1) // 2).sum()))
+    print(f"[q graph] slot list: {slots.num_entries} slots with q > 0 "
+          f"({slots.num_entries / tg.num_tiles:.2f} per tile, "
+          f"{slots.nbytes / 2 ** 20:.2f} MiB); the uint32 cell counter gives "
+          f"{counts.numel()} distinct cells: {collide['slots_sharing']} "
+          f"slots share their cell with another, {collide['pairs']} pairs")
+    del slots, counts, shared
     chk = check_q_kernel_full(tg, q8, dev)
     main = run_q_main_path(tg, q8, g_rev)
     torch.cuda.reset_peak_memory_stats()
@@ -1058,7 +1200,7 @@ def run_q_phases(golden: dict, dev) -> dict:
                 plain_ms=chk["plain_ms"],
                 max_abs_err=max(chk["max_abs_err"], tim["max_abs_err"]),
                 reorder_s=reorder_s, num_tiles=tg.num_tiles, q8_gib=q8_gib,
-                **stats)
+                cell_collisions=collide, **stats)
 
 
 # --------------------------------------------------------------- LM phases
@@ -1567,7 +1709,13 @@ def main() -> int:
              max_abs_err=max(err["fused_expand"], fe["max_abs_err"]),
              ms=fe["dense_ms"], plain_ms=fe["plain_ms"],
              bound_ms=fe["dense_bound_ms"], bound_by=fe["dense_bound_by"],
-             library_ms=None),
+             library_ms=None,
+             compacted={"ms": fe["compact_ms"],
+                        "bound_ms": fe["compact_bound_ms"],
+                        "bound_by": fe["compact_bound_by"],
+                        "compaction_ms": fe["compaction_ms"]},
+             slot_list={k: fe[f"slot_{k}"] for k in (
+                 "entries", "bytes", "build_ms")}),
         dict(name="cover_counts", route="cuda",
              source="src/repro_torch/csrc/coverage.cu",
              replaces="src/repro/kernels/coverage.py:41",
@@ -1639,7 +1787,10 @@ def main() -> int:
              compacted={"ms": q["compact_ms"],
                         "bound_ms": q["compact_bound_ms"],
                         "bound_by": q["compact_bound_by"],
-                        "compaction_ms": q["compaction_ms"]}),
+                        "compaction_ms": q["compaction_ms"]},
+             slot_list=dict({k: q[f"slot_{k}"] for k in (
+                 "entries", "bytes", "build_ms")},
+                 cell_collisions=q["cell_collisions"])),
     ]
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())

@@ -23,18 +23,32 @@ The quantised layout (`quantized`) keeps the same tile list with one
 uint8 threshold per slot beside it (1 B where ``prob`` and ``edge_id``
 take 8) and no other stack: the kernel that reads it
 (`kernels.ops.fused_expand_q`) draws by slot position, not edge id.
+
+The two IC kernels walk a `SlotList` instead of the stacks: per tile, the
+slots whose value passes the kernel's own test (``prob > 0``, ``q > 0``),
+each with its source and destination rows and what its draw needs.  At
+65,536 vertices it is 382,080 entries (6 MB) beside 24 GiB of stacks.
+`ic_slot_list` and `q_slot_list` build it once per stack and memoise it
+(`from_graph` and `quantized` build it from their host arrays; any other
+stack is read in chunks of tiles).
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.bitmask import MASK32, i32
 from repro_torch.graph.csr import Graph
 
 TILE = 128
+# Slots per chunk of a slot-list build from a stack: bounds the transient
+# mask and keeps every ``nonzero`` far below 2**31 elements (the q8 stack
+# at 262,144 vertices holds ~9.7e9 slots).
+SLOT_CHUNK = 2 ** 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +80,44 @@ class TiledGraph:
     @property
     def num_blocks(self) -> int:
         return self.padded_vertices // self.tile_size
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotList:
+    """The nonzero slots of one tile stack, grouped by tile in tile order
+    and, within a tile, sorted by destination lane ``j`` then source row
+    ``i`` (neighbouring entries share destination rows).  Entry ``e`` of
+    tile ``t`` (``slot_ptr[t] <= e < slot_ptr[t + 1]``) is slot ``(i, j)``:
+
+      * ``src_row[e] = tile_src[t]·T + i``, ``dst_row[e] = tile_dst[t]·T + j``
+        (int32 rows of the frontier and visited masks);
+      * ``value[e]``: the float32 probability (IC) or the uint8 threshold
+        ``q`` (quantised) — only slots with ``value > 0`` are listed, the
+        kernels' own test (``q = 0`` for ``0 < p < 1.5/256`` never crosses);
+      * ``key[e]``: the RNG counter as int32 bits — the CSR edge id (IC) or
+        the cell ``(t·T² + i·T + j) mod 2³²`` of the original tile id
+        (quantised).
+
+    ``num_rows`` is the number of mask rows the entries may index."""
+    slot_ptr: torch.Tensor      # (nt + 1,) int32
+    src_row: torch.Tensor       # (n,) int32
+    dst_row: torch.Tensor       # (n,) int32
+    value: torch.Tensor         # (n,) float32 prob or uint8 q
+    key: torch.Tensor           # (n,) int32 edge id or cell
+    num_rows: int
+
+    @property
+    def num_entries(self) -> int:
+        return int(self.src_row.shape[0])
+
+    @property
+    def num_tiles(self) -> int:
+        return int(self.slot_ptr.shape[0]) - 1
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (
+            self.slot_ptr, self.src_row, self.dst_row, self.value, self.key))
 
 
 def dedupe_edges(src: np.ndarray, dst: np.ndarray, prob: np.ndarray):
@@ -167,20 +219,28 @@ def from_graph(g: Graph, tile_size: int = TILE,
     """Extract the non-empty tile list of ``g`` onto ``g``'s device.
     ``edge_ids=False`` leaves out the ``edge_id`` stack, which only the IC
     draw reads (an LT layout would carry 12.1 GiB of it unread at
-    n = 65,536)."""
+    n = 65,536); only an IC layout gets a slot list (`ic_slot_list`)."""
     dev = g.device
     order, slots, prob, t_src, t_dst, total = _layout(g, tile_size,
                                                       pad_tiles_to)
     P = torch.zeros(total * tile_size * tile_size, dtype=torch.float32,
                     device=dev)
-    P[slots] = torch.from_numpy(prob[order]).to(dev)
+    pv = torch.from_numpy(prob[order]).to(dev)
+    P[slots] = pv
     E = None
     if edge_ids:
         E = torch.zeros_like(P, dtype=torch.int32)
-        E[slots] = torch.from_numpy(order.astype(np.int32)).to(dev)
+        ev = torch.from_numpy(order.astype(np.int32)).to(dev)
+        E[slots] = ev
         E = E.view(total, tile_size, tile_size)
-    return _tiled(g, tile_size, t_src, t_dst,
-                  P.view(total, tile_size, tile_size), E)
+    tg = _tiled(g, tile_size, t_src, t_dst,
+                P.view(total, tile_size, tile_size), E)
+    if edge_ids:
+        keep = pv > 0
+        _remember((tg.prob, tg.edge_id, tg.tile_src, tg.tile_dst),
+                  _slots_from_flat(slots[keep], pv[keep], ev[keep], tg,
+                                   total))
+    return tg
 
 
 def quantized(g: Graph,
@@ -191,16 +251,132 @@ def quantized(g: Graph,
     beside it, `kernels.fused_expand_q.quantize_probs` of each edge's
     probability scattered into its slot, 0 where no edge lies.  It equals
     the reference's ``quantize_probs(from_graph(g).prob)`` without building
-    the float32 stack (36 GiB at 262,144 vertices, where ``q8`` takes 9)."""
+    the float32 stack (36 GiB at 262,144 vertices, where ``q8`` takes 9).
+    Its slot list (`q_slot_list`) is built here from the same arrays."""
     from repro_torch.kernels.fused_expand_q import quantize_probs
 
     dev = g.device
     order, slots, prob, t_src, t_dst, total = _layout(g, tile_size, None)
     q8 = torch.zeros(total * tile_size * tile_size, dtype=torch.uint8,
                      device=dev)
-    q8[slots] = quantize_probs(torch.from_numpy(prob[order]).to(dev))
-    return (_tiled(g, tile_size, t_src, t_dst, None, None),
-            q8.view(total, tile_size, tile_size))
+    qv = quantize_probs(torch.from_numpy(prob[order]).to(dev))
+    q8[slots] = qv
+    tg = _tiled(g, tile_size, t_src, t_dst, None, None)
+    q8 = q8.view(total, tile_size, tile_size)
+    keep = qv > 0
+    flat = slots[keep]
+    _remember((q8, tg.tile_src, tg.tile_dst),
+              _slots_from_flat(flat, qv[keep], i32(flat & MASK32), tg,
+                               total))
+    return tg, q8
+
+
+# ------------------------------------------------------------- slot lists
+# Memo of the slot lists by the identity of the tensors they were built
+# from (torch tensors compare elementwise, so never by ==): key the ids,
+# value (weak references to check them, the list).  An entry goes when its
+# stack is collected.  A stack edited in place after its list was built is
+# not supported: the list would keep the old slots.
+_SLOT_LISTS: dict[tuple[int, ...], tuple[tuple, SlotList]] = {}
+
+
+def _remember(tensors: tuple, slots: SlotList) -> SlotList:
+    key = tuple(id(t) for t in tensors)
+    _SLOT_LISTS[key] = (tuple(weakref.ref(t) for t in tensors), slots)
+    weakref.finalize(tensors[0], _SLOT_LISTS.pop, key, None)
+    return slots
+
+
+def _recall(tensors: tuple) -> SlotList | None:
+    hit = _SLOT_LISTS.get(tuple(id(t) for t in tensors))
+    if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)):
+        return hit[1]
+    return None
+
+
+def _slots_from_flat(flat: torch.Tensor, value: torch.Tensor,
+                     key: torch.Tensor, tg: TiledGraph,
+                     total: int) -> SlotList:
+    """The slot list of the listed slots ``flat`` (int64 indices into the
+    raveled ``(total, T, T)`` stack, any order) with their values and int32
+    keys, over ``tg``'s tile list."""
+    T = tg.tile_size
+    T2 = T * T
+    tile = flat // T2
+    i = flat % T2 // T
+    j = flat % T
+    order = torch.argsort(tile * T2 + j * T + i)
+    tile, i, j = tile[order], i[order], j[order]
+    ptr = torch.zeros(total + 1, dtype=torch.int64, device=flat.device)
+    ptr[1:] = torch.cumsum(torch.bincount(tile, minlength=total), 0)
+    blocks = max(int(tg.tile_src.max()), int(tg.tile_dst.max())) + 1 \
+        if total else 0
+    return SlotList(
+        slot_ptr=ptr.to(torch.int32),
+        src_row=(tg.tile_src[tile].to(torch.int64) * T + i).to(torch.int32),
+        dst_row=(tg.tile_dst[tile].to(torch.int64) * T + j).to(torch.int32),
+        value=value[order], key=key[order],
+        num_rows=blocks * T)
+
+
+def _slots_from_stack(stack: torch.Tensor, tg: TiledGraph,
+                      key_of) -> SlotList:
+    """The slot list of a contiguous stack read in chunks of tiles of at
+    most SLOT_CHUNK slots (no copy of the stack, no ``nonzero`` over more);
+    ``key_of(flat)`` gives the int32 keys of the listed flat slots."""
+    nt, T, _ = stack.shape
+    chunk = max(1, SLOT_CHUNK // (T * T)) * T * T
+    flat_stack = stack.view(-1)
+    flats = [torch.nonzero(flat_stack[c0:c0 + chunk] > 0).squeeze(1) + c0
+             for c0 in range(0, flat_stack.numel(), chunk)]
+    flat = torch.cat(flats) if flats else torch.zeros(
+        0, dtype=torch.int64, device=stack.device)
+    return _slots_from_flat(flat, flat_stack[flat], key_of(flat), tg, nt)
+
+
+def ic_slot_list_from_stack(tg: TiledGraph) -> SlotList:
+    """The slot list of an IC layout read from its stacks (``prob > 0``;
+    keys the edge ids), not memoised: `ic_slot_list` is the memo."""
+    if tg.prob is None or tg.edge_id is None:
+        raise ValueError("fused_expand draws by edge id: build the layout "
+                         "with tiles.from_graph(..., edge_ids=True)")
+    if tg.prob.shape[0] != tg.num_tiles or tg.edge_id.shape != tg.prob.shape:
+        raise ValueError("the prob and edge_id stacks and the tile list "
+                         "disagree")
+    return _slots_from_stack(tg.prob, tg,
+                             lambda flat: tg.edge_id.view(-1)[flat])
+
+
+def q_slot_list_from_stack(tg: TiledGraph, q8: torch.Tensor) -> SlotList:
+    """The slot list of a quantised stack ``q8`` over ``tg``'s tile list
+    (``q > 0``; keys the cells), not memoised: `q_slot_list` is the
+    memo."""
+    if q8.dtype != torch.uint8 or q8.dim() != 3 \
+            or q8.shape[0] != tg.num_tiles:
+        raise ValueError(f"fused_expand_q reads a (num_tiles, T, T) uint8 "
+                         f"stack, got {tuple(q8.shape)} {q8.dtype} for "
+                         f"{tg.num_tiles} tiles")
+    return _slots_from_stack(q8, tg, lambda flat: i32(flat & MASK32))
+
+
+def ic_slot_list(tg: TiledGraph) -> SlotList:
+    """The slot list of an IC layout, built once per ``(prob, edge_id,
+    tile_src, tile_dst)`` tensors (by `from_graph`, or here from the
+    stacks)."""
+    tensors = (tg.prob, tg.edge_id, tg.tile_src, tg.tile_dst)
+    slots = _recall(tensors)
+    return slots if slots is not None else _remember(
+        tensors, ic_slot_list_from_stack(tg))
+
+
+def q_slot_list(tg: TiledGraph, q8: torch.Tensor) -> SlotList:
+    """The slot list of a quantised stack over ``tg``'s tile list, built
+    once per ``(q8, tile_src, tile_dst)`` tensors (by `quantized`, or here
+    from the stack)."""
+    tensors = (q8, tg.tile_src, tg.tile_dst)
+    slots = _recall(tensors)
+    return slots if slots is not None else _remember(
+        tensors, q_slot_list_from_stack(tg, q8))
 
 
 def cached(g: Graph, tile_size: int = TILE,

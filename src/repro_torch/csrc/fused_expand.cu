@@ -1,4 +1,5 @@
-// One fused-BPT IC level over the dst-sorted 128x128 adjacency tiles.
+// One fused-BPT IC level over the slot list of the dst-sorted 128x128
+// adjacency tiles.
 //
 // Replaces the Pallas kernel repro/kernels/fused_expand.py::fused_expand
 // (body _expand_kernel). It computes
@@ -11,92 +12,92 @@
 // result equals the CSR sweep and the reference package.
 //
 // Design. The Pallas grid runs in order because consecutive tiles of one
-// destination block accumulate into one output block. Here one CTA owns one
-// destination block and walks its run of the tile list (every tile, or a
-// compacted list read in place): the walk is csrc/tile_expand.cuh, shared
-// with the LT kernel. This file supplies the IC gate: per live slot one
-// fold of the edge id, per pending colour one hash and one compare. A
-// thread hashes only (slot, colour) pairs that can change its result (prob
-// > 0, since a uniform in [0,1) is never below 0), so the work is
-// proportional to the live (row, slot, colour) triples, not to 32*W hashes
-// per stored slot.
+// destination block accumulate into one output block. Here the work is the
+// layout's slot list (core/tiles.py, ic_slot_list: per tile, the slots with
+// prob > 0, each with its source and destination rows, probability and edge
+// id), one thread per entry over many CTAs, merged into out with a warp
+// reduction and atomicOr: the walk is csrc/slot_expand.cuh, shared with the
+// quantised kernel. This file supplies the IC gate: per entry one fold of
+// the edge id, per pending colour one hash and one compare (a uniform in
+// [0,1) is never below 0, so slots with prob <= 0 are not listed). The list
+// is every entry (the dense grid) or the entries of the listed tiles (the
+// sparse frontier's compacted list, read in place).
 //
-// Bound. A level reads each live source row's probabilities (T floats per
-// tile row), the edge ids of live slots, the frontier and visited masks,
-// and writes the output mask: bytes-bound unless the live triples are many
-// (about 20 integer operations per hashed colour).
+// Bound. A level reads the probability and edge id of every edge whose
+// source row is live, the frontier and visited masks, and writes the output
+// mask: bytes-bound unless the live (edge, colour) pairs are many (about
+// 20 integer operations per hashed colour). The tile walk this replaces
+// (one CTA per destination block walking ~387 tiles in turn, one dependent
+// load per live source row for ~2 edges per 16,384-slot tile) was
+// latency-bound at ~4,100x that bound; the list's work follows the edges.
+//
+// Exactness: the compare is the exact __uint2float_rn(h >> 8) * 2^-24 < p,
+// built without --use_fast_math.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "counter_hash.cuh"
-#include "tile_expand.cuh"
+#include "slot_expand.cuh"
 
 namespace {
 
 using counter_hash::fold;
 
-// The IC edge test: colour c crosses the edge in slot s when the counter
-// hash of (seed, level, edge_id[s], c) gives a uniform below prob[s].
+// The IC edge test: colour c crosses the edge of entry e when the counter
+// hash of (seed, level, edge_id[e], c) gives a uniform below prob[e].
 struct IcGate {
   struct Edge {
     uint32_t h;
     float p;
   };
+  const float* prob;
   const int32_t* edge_id;
   uint32_t h_level;
 
-  __device__ __forceinline__ Edge edge(size_t slot, uint32_t /*cell*/,
-                                       float p) const {
-    return {fold(h_level, (uint32_t)edge_id[slot]), p};
+  __device__ __forceinline__ Edge edge(int e) const {
+    return {fold(h_level, (uint32_t)edge_id[e]), prob[e]};
   }
-  __device__ __forceinline__ bool pass(const Edge& e, int colour) const {
-    const uint32_t h = fold(e.h, (uint32_t)colour);
-    // uniform_from_u32: a 24-bit integer times 2^-24, both exact.
-    return __uint2float_rn(h >> 8) * (1.0f / 16777216.0f) < e.p;
+  __device__ __forceinline__ uint32_t draw(const Edge& x, int w,
+                                           uint32_t pending) const {
+    uint32_t bits = 0u;
+    while (pending) {
+      const int c = __ffs(pending) - 1;
+      pending &= pending - 1;
+      const uint32_t h = fold(x.h, (uint32_t)(w * 32 + c));
+      // uniform_from_u32: a 24-bit integer times 2^-24, both exact.
+      if (__uint2float_rn(h >> 8) * (1.0f / 16777216.0f) < x.p)
+        bits |= 1u << c;
+    }
+    return bits;
   }
 };
-
-template <int W>
-__global__ void __launch_bounds__(1024)
-fused_expand_kernel(const float* __restrict__ prob,
-                    const int32_t* __restrict__ edge_id,
-                    const int32_t* __restrict__ tile_ids,
-                    const int32_t* __restrict__ tile_src,
-                    const int32_t* __restrict__ run_ptr,
-                    const uint32_t* __restrict__ frontier,
-                    const uint32_t* __restrict__ visited,
-                    uint32_t* __restrict__ out, int T, uint32_t h_level) {
-  tile_expand::expand_block<W>(prob, tile_ids, tile_src, run_ptr, frontier,
-                               visited, out, T, IcGate{edge_id, h_level});
-}
 
 }  // namespace
 
 // C interface (bound with ctypes). Returns a cudaError_t; 0 is success.
-// n_blocks = rows of out / T; T a multiple of 32 in [32, 1024]; 1 <= W <= 8.
-// tile_ids may be null (every tile); run_ptr has n_blocks + 1 entries.
-extern "C" int fused_expand_launch(const void* prob, const void* edge_id,
-                                   const void* tile_ids,
-                                   const void* tile_src,
-                                   const void* run_ptr,
+// The list: slot_ptr (n_tiles + 1), src_row, dst_row, prob, edge_id
+// (n_entries each). tile_ids: n_listed ascending tile ids, or n_listed < 0
+// for every entry. frontier, visited and out are (n_rows, W), 1 <= W <= 8.
+extern "C" int fused_expand_launch(const void* slot_ptr, const void* src_row,
+                                   const void* dst_row, const void* prob,
+                                   const void* edge_id, int n_entries,
+                                   const void* tile_ids, int n_listed,
                                    const void* frontier, const void* visited,
-                                   void* out, int n_blocks, int T, int W,
+                                   void* out, int n_rows, int W,
                                    unsigned int seed, unsigned int level,
                                    void* stream) {
-  if (!tile_expand::valid_shape(T, W)) return (int)cudaErrorInvalidValue;
-  if (n_blocks == 0) return 0;
-  const uint32_t h_level = counter_hash::level_prefix(seed, level);
-  return (int)tile_expand::dispatch_words(W, [&](auto words) {
-    constexpr int kW = decltype(words)::value;
-    fused_expand_kernel<kW><<<n_blocks, T, tile_expand::smem_bytes(T, kW),
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(prob), static_cast<const int32_t*>(edge_id),
-        static_cast<const int32_t*>(tile_ids),
-        static_cast<const int32_t*>(tile_src),
-        static_cast<const int32_t*>(run_ptr),
+  if (!words::valid(W)) return (int)cudaErrorInvalidValue;
+  const IcGate gate{static_cast<const float*>(prob),
+                    static_cast<const int32_t*>(edge_id),
+                    counter_hash::level_prefix(seed, level)};
+  return (int)words::dispatch(W, [&](auto w) {
+    return slot_expand::launch<decltype(w)::value>(
+        static_cast<const int32_t*>(slot_ptr),
+        static_cast<const int32_t*>(src_row),
+        static_cast<const int32_t*>(dst_row), n_entries,
+        static_cast<const int32_t*>(tile_ids), n_listed,
         static_cast<const uint32_t*>(frontier),
-        static_cast<const uint32_t*>(visited), static_cast<uint32_t*>(out), T,
-        h_level);
-    return cudaGetLastError();
+        static_cast<const uint32_t*>(visited), static_cast<uint32_t*>(out),
+        n_rows, gate, static_cast<cudaStream_t>(stream));
   });
 }

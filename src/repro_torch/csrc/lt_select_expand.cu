@@ -14,9 +14,9 @@
 // built without --use_fast_math and without flush-to-zero, so the result
 // equals the reference's bit for bit.
 //
-// Design, as csrc/fused_expand.cu: one CTA per destination block walks the
-// block's run of the tile list (every tile, or a compacted list read in
-// place), only live source rows, through the walk of csrc/tile_expand.cuh.
+// Design: one CTA per destination block walks the block's run of the tile
+// list (every tile, or a compacted list read in place), only live source
+// rows, through the walk of csrc/tile_expand.cuh.
 // This file supplies the LT gate. A thread tests only (slot, colour) pairs
 // that can change its result: prob > 0, colour in the source row, not
 // visited and not reached yet. It reads u[j,c] from device memory for those
@@ -43,8 +43,7 @@ struct LtGate {
   const float* cb;
   const float* u_row;  // u[j, 0:W*32]
 
-  __device__ __forceinline__ Edge edge(size_t slot, uint32_t /*cell*/,
-                                       float p) const {
+  __device__ __forceinline__ Edge edge(size_t slot, float p) const {
     const float lo = cb[slot];
     return {lo, __fadd_rn(lo, p)};
   }
@@ -87,8 +86,8 @@ extern "C" int lt_select_expand_launch(const void* prob, const void* cb,
                                        void* stream) {
   if (!tile_expand::valid_shape(T, W)) return (int)cudaErrorInvalidValue;
   if (n_blocks == 0) return 0;
-  return (int)tile_expand::dispatch_words(W, [&](auto words) {
-    constexpr int kW = decltype(words)::value;
+  return (int)words::dispatch(W, [&](auto w) {
+    constexpr int kW = decltype(w)::value;
     lt_select_expand_kernel<kW><<<n_blocks, T,
                                   tile_expand::smem_bytes(T, kW),
                                   static_cast<cudaStream_t>(stream)>>>(

@@ -1,6 +1,6 @@
-// The tile walk the tile kernels share (csrc/fused_expand.cu, IC;
-// csrc/lt_select_expand.cu, LT; csrc/fused_expand_q.cu, quantised IC); each
-// supplies only its stack's element type and its edge gate.
+// The tile walk of the LT kernel (csrc/lt_select_expand.cu), which supplies
+// its edge gate. (The two IC kernels walk per-tile lists of nonzero slots
+// instead: csrc/slot_expand.cuh.)
 //
 // One CTA owns one destination block: entries [run_ptr[b], run_ptr[b+1]) of
 // the tile list. Thread j owns destination lane j and keeps its W visited
@@ -20,26 +20,21 @@
 // (repro/core/tiled_traversal.py:57-75, repro/core/tiles.py:173-198), which
 // would copy whole 12 GiB stacks at n = 65,536.
 //
-// The stack is float32 probabilities (0: no edge) or uint8 thresholds (0:
-// no edge, or never crosses). A Gate holds one thread's view of the
-// diffusion's edge test:
-//   Gate::Edge edge(size_t slot, uint32_t cell, Stack p) const
-//     — per live slot, once; cell = (tile * T*T + i*T + j) mod 2^32, the
-//       slot's position counter in uint32 arithmetic;
+// The stack is float32 probabilities (0: no edge). A Gate holds one
+// thread's view of the diffusion's edge test:
+//   Gate::Edge edge(size_t slot, float p) const — per live slot, once;
 //   bool pass(const Gate::Edge&, int colour) const — per pending colour.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "words.cuh"
 
 namespace tile_expand {
 
-constexpr int kMaxWords = 8;  // up to 256 colours
-
 inline bool valid_shape(int T, int W) {
-  return T >= 32 && T <= 1024 && T % 32 == 0 && W >= 1 && W <= kMaxWords;
+  return T >= 32 && T <= 1024 && T % 32 == 0 && words::valid(W);
 }
 
 // Dynamic shared memory of one CTA: T frontier rows of W words, T/32 ballots.
@@ -47,9 +42,9 @@ inline size_t smem_bytes(int T, int W) {
   return (size_t)(T * W + T / 32) * sizeof(uint32_t);
 }
 
-template <int W, class Stack, class Gate>
+template <int W, class Gate>
 __device__ __forceinline__ void expand_block(
-    const Stack* __restrict__ prob, const int32_t* __restrict__ tile_ids,
+    const float* __restrict__ prob, const int32_t* __restrict__ tile_ids,
     const int32_t* __restrict__ tile_src, const int32_t* __restrict__ run_ptr,
     const uint32_t* __restrict__ frontier,
     const uint32_t* __restrict__ visited, uint32_t* __restrict__ out, int T,
@@ -82,15 +77,14 @@ __device__ __forceinline__ void expand_block(
     __syncthreads();
 
     const size_t tile_base = (size_t)tile * T * T;
-    const uint32_t cell_base = (uint32_t)tile * (uint32_t)(T * T);  // wraps
     for (int g = 0; g < T / 32; ++g) {
       uint32_t rows = live_rows[g];
       while (rows) {                      // uniform across the CTA
         const int i = g * 32 + __ffs(rows) - 1;
         rows &= rows - 1;
         const size_t slot = tile_base + (size_t)i * T + j;
-        const Stack p = prob[slot];
-        if (!(p > Stack(0))) continue;
+        const float p = prob[slot];
+        if (!(p > 0.0f)) continue;
         uint32_t lanes[W];
         uint32_t pending = 0u;
 #pragma unroll
@@ -99,8 +93,7 @@ __device__ __forceinline__ void expand_block(
           pending |= lanes[w];
         }
         if (!pending) continue;
-        const auto edge =
-            gate.edge(slot, cell_base + (uint32_t)(i * T + j), p);
+        const auto edge = gate.edge(slot, p);
 #pragma unroll
         for (int w = 0; w < W; ++w) {
           uint32_t l = lanes[w];
@@ -116,23 +109,6 @@ __device__ __forceinline__ void expand_block(
   }
 #pragma unroll
   for (int w = 0; w < W; ++w) out[row * W + w] = acc[w] & ~vis[w];
-}
-
-// Calls launch(std::integral_constant<int, W>{}) for the runtime word count
-// W in [1, kMaxWords] (checked by valid_shape), so each kernel is compiled
-// once per W with its output words in registers.
-template <class Launch>
-cudaError_t dispatch_words(int W, Launch&& launch) {
-  switch (W) {
-    case 1: return launch(std::integral_constant<int, 1>{});
-    case 2: return launch(std::integral_constant<int, 2>{});
-    case 3: return launch(std::integral_constant<int, 3>{});
-    case 4: return launch(std::integral_constant<int, 4>{});
-    case 5: return launch(std::integral_constant<int, 5>{});
-    case 6: return launch(std::integral_constant<int, 6>{});
-    case 7: return launch(std::integral_constant<int, 7>{});
-    default: return launch(std::integral_constant<int, 8>{});
-  }
 }
 
 }  // namespace tile_expand

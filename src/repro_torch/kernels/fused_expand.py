@@ -1,16 +1,18 @@
 """CUDA wrapper of ``csrc/fused_expand.cu`` — one fused-BPT IC level over
-the dst-sorted adjacency tiles.
+the slot list of the dst-sorted adjacency tiles.
 
 Replaces the Pallas kernel ``repro/kernels/fused_expand.py::fused_expand``.
-One CTA per destination block walks that block's run of the tile list
-(``run_ptr``), so there is no cross-CTA accumulation and no
-``first_of_dst``/coverage post-mask; threads hash only live
-(row, slot, colour) triples.  The list is every tile (``tile_ids`` None,
-``run_ptr`` the layout's ``dst_run_ptr``) or a compacted list of ascending
-tile ids read where they lie (the sparse frontier).  Its roofline bound is
-set by bytes (see the source's header).  Its plain version is
-`kernels.ref.fused_expand_ref`; `kernels.ops.fused_expand` picks between
-the two by device.
+The kernel walks the layout's slot list (`core.tiles.ic_slot_list`: per
+tile, the slots with ``prob > 0``, each with its source and destination
+rows, probability and edge id), one thread per entry over many CTAs, and
+merges the entries into the output with a warp reduction and ``atomicOr``
+after zeroing it on the stream; threads hash only pending colours.  The
+list is every entry (``tile_ids`` None) or the entries of a compacted list
+of ascending tile ids, read in place (the sparse frontier).  Its roofline
+bound is set by bytes (see the source's header).  Its plain version is
+`kernels.ref.fused_expand_slots_ref`, which the tile-form
+`kernels.ref.fused_expand_ref` defines; `kernels.ops.fused_expand` picks
+between the kernel and the plain version by device.
 """
 from __future__ import annotations
 
@@ -20,64 +22,74 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ARGTYPES = ([ctypes.c_void_p] * 8
-             + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
+                                      ctypes.c_int]
+             + [ctypes.c_void_p] * 3
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+                ctypes.c_void_p])
 
 
-def check_tile_list(kernel: str, prob, tile_src, run_ptr, frontier, visited,
-                    tile_ids, dev, stack_dtype=torch.float32
-                    ) -> tuple[int, int, int]:
-    """The checks the tile kernels' wrappers share (``prob`` is the stack
-    the walk reads, of ``stack_dtype``); returns ``(n_blocks, T, W)``."""
-    _build.check_arg(kernel, "tile stack", prob, stack_dtype, 3, dev)
-    _build.check_arg(kernel, "tile_src", tile_src, torch.int32, 1, dev)
-    _build.check_arg(kernel, "run_ptr", run_ptr, torch.int32, 1, dev)
+def check_slot_list(kernel: str, slots, frontier, visited, tile_ids, dev,
+                    value_dtype) -> int:
+    """The checks the two slot-list kernels' wrappers share (``slots`` a
+    `core.tiles.SlotList` whose values are ``value_dtype``); returns the
+    word count W."""
+    for name in ("slot_ptr", "src_row", "dst_row", "key"):
+        _build.check_arg(kernel, name, getattr(slots, name), torch.int32, 1,
+                         dev)
+    _build.check_arg(kernel, "slot values", slots.value, value_dtype, 1, dev)
     _build.check_arg(kernel, "frontier", frontier, torch.int32, 2, dev)
     _build.check_arg(kernel, "visited", visited, torch.int32, 2, dev)
     if tile_ids is not None:
         _build.check_arg(kernel, "tile_ids", tile_ids, torch.int32, 1, dev)
-    nt, T, T2 = prob.shape
-    w = frontier.shape[1]
-    n_blocks = visited.shape[0] // T
-    if T != T2 or tile_src.shape[0] != nt:
-        raise ValueError(f"{kernel}: tile stacks and tile_src disagree")
-    if frontier.shape != visited.shape or visited.shape[0] % T \
-            or run_ptr.shape[0] != n_blocks + 1:
+    n = slots.num_entries
+    if any(t.shape[0] != n for t in (slots.dst_row, slots.value, slots.key)):
+        raise ValueError(f"{kernel}: the slot list's arrays disagree")
+    if frontier.shape != visited.shape \
+            or visited.shape[0] < slots.num_rows:
         raise ValueError(f"{kernel}: frontier and visited must have one "
-                         "shape, rows padded to the tile size, and "
-                         "run_ptr n_blocks + 1 entries")
-    if T % 32 or not 32 <= T <= 1024 or not 1 <= w <= 8:
-        raise ValueError(f"{kernel}: tile size {T} must be a multiple of "
-                         f"32 in [32, 1024] and words {w} in [1, 8]")
-    return n_blocks, T, w
+                         f"shape, with the {slots.num_rows} rows the slot "
+                         f"list indexes; got {tuple(frontier.shape)} and "
+                         f"{tuple(visited.shape)}")
+    w = frontier.shape[1]
+    if not 1 <= w <= 8:
+        raise ValueError(f"{kernel}: words {w} must be in [1, 8]")
+    return w
 
 
-def fused_expand_cuda(prob: torch.Tensor, edge_id: torch.Tensor,
-                      tile_src: torch.Tensor, run_ptr: torch.Tensor,
-                      frontier: torch.Tensor, visited: torch.Tensor,
-                      seed: int, level: int,
-                      tile_ids: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the kernel on ``frontier``'s stream; returns the (Vo, W) int32
-    next frontier.  ``visited`` must already include ``frontier`` and have
-    its shape; every ``tile_src`` entry must be below ``Vo / T`` (as
-    `core.tiles.from_graph` builds them), so the frontier holds every row
-    the kernel reads.  ``tile_ids``: ascending int32 ids of the listed
-    tiles (None: every tile), with ``run_ptr`` over that list."""
+def launch_slot_kernel(kernel: str, value_dtype, slots,
+                       frontier: torch.Tensor, visited: torch.Tensor,
+                       seed: int, level: int, tile_ids) -> torch.Tensor:
+    """Check, then launch ``csrc/<kernel>.cu`` (both slot-list kernels have
+    one C interface) on ``frontier``'s stream; returns the output mask."""
     dev = frontier.device
-    n_blocks, T, w = check_tile_list("fused_expand", prob, tile_src, run_ptr,
-                                     frontier, visited, tile_ids, dev)
-    _build.check_arg("fused_expand", "edge_id", edge_id, torch.int32, 3, dev)
-    if edge_id.shape != prob.shape:
-        raise ValueError("fused_expand: edge_id and prob stacks disagree")
-    fn = _build.load("fused_expand").fused_expand_launch
+    w = check_slot_list(kernel, slots, frontier, visited, tile_ids, dev,
+                        value_dtype)
+    fn = getattr(_build.load(kernel), f"{kernel}_launch")
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     out = torch.empty_like(visited)
-    err = fn(prob.data_ptr(), edge_id.data_ptr(), _build.data_ptr(tile_ids),
-             tile_src.data_ptr(), run_ptr.data_ptr(), frontier.data_ptr(),
-             visited.data_ptr(), out.data_ptr(), n_blocks, T, w,
-             int(seed) & 0xFFFFFFFF, int(level) & 0xFFFFFFFF,
+    err = fn(slots.slot_ptr.data_ptr(), slots.src_row.data_ptr(),
+             slots.dst_row.data_ptr(), slots.value.data_ptr(),
+             slots.key.data_ptr(), slots.num_entries,
+             _build.data_ptr(tile_ids),
+             -1 if tile_ids is None else tile_ids.shape[0],
+             frontier.data_ptr(), visited.data_ptr(), out.data_ptr(),
+             visited.shape[0], w, int(seed) & 0xFFFFFFFF,
+             int(level) & 0xFFFFFFFF,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"fused_expand launch failed: cudaError {err}")
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
     return out
+
+
+def fused_expand_cuda(slots, frontier: torch.Tensor,
+                      visited: torch.Tensor, seed: int, level: int,
+                      tile_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the kernel on ``frontier``'s stream; returns the (Vo, W) int32
+    next frontier.  ``slots`` is the layout's `core.tiles.ic_slot_list`;
+    ``visited`` must already include ``frontier`` and have its shape, with
+    at least the rows the list indexes.  ``tile_ids``: ascending int32 ids
+    of the listed tiles (None: every tile), each below the layout's tile
+    count."""
+    return launch_slot_kernel("fused_expand", torch.float32, slots, frontier,
+                              visited, seed, level, tile_ids)

@@ -11,25 +11,22 @@ edge id), the RNG counter is the slot's position ``tile·T² + row·T + col``
     colour c crosses the edge in slot s  ⇔  byte (c % 4) of
         hash_u32(seed, level, cell(s), c // 4)  ≤  q[s]  ∧  q[s] > 0,
 
-so p̂ = (q + 1)/256, exact at p = 0 and p = 1.  The kernel keeps
-``fused_expand``'s walk (one CTA per destination block over run pointers,
-live source rows only, the tile list every tile or a list of original ids
-read in place), so the list mode needs no null tile and no gathered copy.
-Its plain version is `kernels.ref.fused_expand_q_ref`;
-`kernels.ops.fused_expand_q` picks between the two by device.
+so p̂ = (q + 1)/256, exact at p = 0 and p = 1.  The kernel shares
+``fused_expand``'s walk (``csrc/slot_expand.cuh``) over the quantised slot
+list (`core.tiles.q_slot_list`: the slots with ``q > 0``, each with its
+rows, ``q`` and the cell of its original tile id), every entry or those of
+a list of original tile ids read in place, so the list mode needs no null
+tile and no gathered copy; one hash serves the four colours of a pending
+nibble.  Its plain version is `kernels.ref.fused_expand_q_slots_ref`,
+which the tile-form `kernels.ref.fused_expand_q_ref` defines;
+`kernels.ops.fused_expand_q` picks between the kernel and the plain
+version by device.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.fused_expand import check_tile_list
-
-_ARGTYPES = ([ctypes.c_void_p] * 7
-             + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p])
+from repro_torch.kernels.fused_expand import launch_slot_kernel
 
 
 def quantize_probs(prob: torch.Tensor) -> torch.Tensor:
@@ -42,27 +39,13 @@ def quantize_probs(prob: torch.Tensor) -> torch.Tensor:
     return torch.where(prob > 0, q, 0).to(torch.uint8)
 
 
-def fused_expand_q_cuda(q8: torch.Tensor, tile_src: torch.Tensor,
-                        run_ptr: torch.Tensor, frontier: torch.Tensor,
+def fused_expand_q_cuda(slots, frontier: torch.Tensor,
                         visited: torch.Tensor, seed: int, level: int,
                         tile_ids: torch.Tensor | None = None
                         ) -> torch.Tensor:
     """Launch the kernel on ``frontier``'s stream; returns the (Vo, W) int32
-    next frontier.  Arguments as `fused_expand_cuda`, with ``q8`` the
-    (nt, T, T) uint8 threshold stack in place of ``prob`` and ``edge_id``;
+    next frontier.  Arguments as `fused_expand_cuda`, with ``slots`` the
+    quantised stack's `core.tiles.q_slot_list` (uint8 values, cell keys);
     a listed tile draws with its own id."""
-    dev = frontier.device
-    n_blocks, T, w = check_tile_list("fused_expand_q", q8, tile_src, run_ptr,
-                                     frontier, visited, tile_ids, dev,
-                                     stack_dtype=torch.uint8)
-    fn = _build.load("fused_expand_q").fused_expand_q_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    out = torch.empty_like(visited)
-    err = fn(q8.data_ptr(), _build.data_ptr(tile_ids), tile_src.data_ptr(),
-             run_ptr.data_ptr(), frontier.data_ptr(), visited.data_ptr(),
-             out.data_ptr(), n_blocks, T, w, int(seed) & 0xFFFFFFFF,
-             int(level) & 0xFFFFFFFF,
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"fused_expand_q launch failed: cudaError {err}")
-    return out
+    return launch_slot_kernel("fused_expand_q", torch.uint8, slots,
+                              frontier, visited, seed, level, tile_ids)

@@ -17,9 +17,35 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_expand import check_tile_list
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def check_tile_list(kernel: str, prob, tile_src, run_ptr, frontier, visited,
+                    tile_ids, dev) -> tuple[int, int, int]:
+    """The checks of a tile-walk wrapper (``prob`` the float32 stack the
+    walk reads); returns ``(n_blocks, T, W)``."""
+    _build.check_arg(kernel, "tile stack", prob, torch.float32, 3, dev)
+    _build.check_arg(kernel, "tile_src", tile_src, torch.int32, 1, dev)
+    _build.check_arg(kernel, "run_ptr", run_ptr, torch.int32, 1, dev)
+    _build.check_arg(kernel, "frontier", frontier, torch.int32, 2, dev)
+    _build.check_arg(kernel, "visited", visited, torch.int32, 2, dev)
+    if tile_ids is not None:
+        _build.check_arg(kernel, "tile_ids", tile_ids, torch.int32, 1, dev)
+    nt, T, T2 = prob.shape
+    w = frontier.shape[1]
+    n_blocks = visited.shape[0] // T
+    if T != T2 or tile_src.shape[0] != nt:
+        raise ValueError(f"{kernel}: tile stacks and tile_src disagree")
+    if frontier.shape != visited.shape or visited.shape[0] % T \
+            or run_ptr.shape[0] != n_blocks + 1:
+        raise ValueError(f"{kernel}: frontier and visited must have one "
+                         "shape, rows padded to the tile size, and "
+                         "run_ptr n_blocks + 1 entries")
+    if T % 32 or not 32 <= T <= 1024 or not 1 <= w <= 8:
+        raise ValueError(f"{kernel}: tile size {T} must be a multiple of "
+                         f"32 in [32, 1024] and words {w} in [1, 8]")
+    return n_blocks, T, w
 
 
 def lt_select_expand_cuda(prob: torch.Tensor, cb: torch.Tensor,

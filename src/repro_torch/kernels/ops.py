@@ -7,10 +7,12 @@ is no fallback from one to the other.  ``LAUNCHES`` counts kernel launches
 show that its path went through the kernels.
 
 The tile kernels take an optional ``tile_ids``: ascending int32 ids of the
-tiles to walk (the sparse frontier's compacted list).  The CUDA kernels
-read those tiles where they lie, through run pointers built here on the
-device; the plain versions take the same list.
-``fused_expand_q`` reads the quantised layout's uint8 stack
+tiles to walk (the sparse frontier's compacted list).  ``fused_expand`` and
+``fused_expand_q`` walk the layout's slot list (`core.tiles.ic_slot_list`,
+`core.tiles.q_slot_list`, built once per stack), on the card and in their
+plain versions alike, so the CPU runs exercise the list too;
+``lt_select_expand`` walks the tiles through run pointers built here on the
+device.  ``fused_expand_q`` reads the quantised layout's uint8 stack
 (`core.tiles.quantized`).  ``flash_attention`` serves the LM substrate's
 prefill and decode through three kernels chosen by shape
 (`kernels.flash_attention.route`); ``LAUNCHES["flash_attention"]`` counts
@@ -57,19 +59,15 @@ def fused_expand(tg: TiledGraph, frontier: torch.Tensor,
                  tile_ids: torch.Tensor | None = None) -> torch.Tensor:
     """One fused-BPT IC expansion level on a TiledGraph (rows padded to T),
     over every tile or the listed ones."""
-    if tg.edge_id is None:
-        raise ValueError("fused_expand draws by edge id: build the layout "
-                         "with tiles.from_graph(..., edge_ids=True)")
+    slots = tiles.ic_slot_list(tg)
     if _on_cuda(tg.prob, frontier, visited):
         from repro_torch.kernels.fused_expand import fused_expand_cuda
-        out = fused_expand_cuda(tg.prob, tg.edge_id, tg.tile_src,
-                                _run_ptr(tg, tile_ids), frontier, visited,
-                                seed, level, tile_ids=tile_ids)
+        out = fused_expand_cuda(slots, frontier, visited, seed, level,
+                                tile_ids=tile_ids)
         LAUNCHES["fused_expand"] += 1
         return out
-    return ref.fused_expand_ref(tg.prob, tg.edge_id, tg.tile_src,
-                                tg.tile_dst, frontier, visited, seed, level,
-                                tile_ids=tile_ids)
+    return ref.fused_expand_slots_ref(slots, frontier, visited, seed, level,
+                                      tile_ids=tile_ids)
 
 
 def lt_select_expand(tg: TiledGraph, cb: torch.Tensor, frontier: torch.Tensor,
@@ -99,15 +97,15 @@ def fused_expand_q(tg: TiledGraph, q8: torch.Tensor, frontier: torch.Tensor,
     thresholds in ``tg``'s layout (`core.tiles.quantized`), over every
     tile or the listed ones (the counterpart of the reference's
     ``fused_expand_q_gathered``: each listed tile draws with its own id)."""
+    slots = tiles.q_slot_list(tg, q8)
     if _on_cuda(q8, tg.tile_src, frontier, visited):
         from repro_torch.kernels.fused_expand_q import fused_expand_q_cuda
-        out = fused_expand_q_cuda(q8, tg.tile_src, _run_ptr(tg, tile_ids),
-                                  frontier, visited, seed, level,
+        out = fused_expand_q_cuda(slots, frontier, visited, seed, level,
                                   tile_ids=tile_ids)
         LAUNCHES["fused_expand_q"] += 1
         return out
-    return ref.fused_expand_q_ref(q8, tg.tile_src, tg.tile_dst, frontier,
-                                  visited, seed, level, tile_ids=tile_ids)
+    return ref.fused_expand_q_slots_ref(slots, frontier, visited, seed, level,
+                                        tile_ids=tile_ids)
 
 
 def cover_counts(visited: torch.Tensor, active: torch.Tensor) -> torch.Tensor:

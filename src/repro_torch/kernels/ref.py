@@ -52,13 +52,65 @@ def _tile_expand(gate, prob, tile_src, tile_dst, frontier, visited,
         dst_row = tile_dst[tid[t]].to(torch.int64) * T + j
         lanes = gate(tid[t], i, j, p[t, i, j], dst_row)
         contrib = frontier[src_row] & bitmask.pack_bits(lanes)   # (M, W)
-        flat = (dst_row[:, None] * w + torch.arange(w, device=dev)[None, :])
-        out_lanes.scatter_reduce_(
-            0, flat.reshape(-1, 1).expand(-1, 32),
-            bitmask.unpack_bits(contrib).to(torch.uint8).reshape(-1, 32),
-            "amax")
-    out = bitmask.pack_bits(out_lanes.view(visited.shape[0], w, 32).bool())
-    return out & ~visited
+        _or_rows(out_lanes, dst_row, contrib)
+    return _packed(out_lanes, visited) & ~visited
+
+
+def _or_rows(out_lanes, dst_row, contrib):
+    """OR the ``(M, W)`` words ``contrib`` into rows ``dst_row`` of
+    ``out_lanes`` (one uint8 per output bit, ``(rows·W, 32)``)."""
+    w = contrib.shape[1]
+    flat = (dst_row[:, None] * w
+            + torch.arange(w, device=contrib.device)[None, :])
+    out_lanes.scatter_reduce_(
+        0, flat.reshape(-1, 1).expand(-1, 32),
+        bitmask.unpack_bits(contrib).to(torch.uint8).reshape(-1, 32), "amax")
+
+
+def _packed(out_lanes, visited):
+    return bitmask.pack_bits(out_lanes.view(visited.shape[0],
+                                            visited.shape[1], 32).bool())
+
+
+def _slot_entries(slots, tile_ids):
+    """int64 indices of the entries of the listed tiles (ascending, tile by
+    tile), or None for every entry: the entries a list-mode launch walks."""
+    if tile_ids is None:
+        return None
+    t = tile_ids.to(torch.int64)
+    start = slots.slot_ptr[t].to(torch.int64)
+    count = slots.slot_ptr[t + 1].to(torch.int64) - start
+    first = torch.cumsum(count, 0) - count            # offset in the walk
+    return (torch.repeat_interleave(start - first, count)
+            + torch.arange(int(count.sum()), device=t.device))
+
+
+def _slot_expand(gate, slots, frontier, visited, tile_ids, chunk: int):
+    """Shared scaffolding of the slot-list plain versions, the kernels'
+    arithmetic entry by entry: ``pending = frontier[src_row] &
+    ~visited[dst_row]``, the draws of the pending colours (``gate(e)`` →
+    ``(M, W)`` words of the colours that cross entries ``e``, pending or
+    not), and their OR into ``out[dst_row]``.  The entries are every entry
+    or those of the listed tiles (`_slot_entries`), in chunks of
+    ``chunk``."""
+    w = frontier.shape[1]
+    dev = frontier.device
+    entries = _slot_entries(slots, tile_ids)
+    n = slots.num_entries if entries is None else entries.numel()
+    out_lanes = torch.zeros(visited.shape[0] * w, 32, dtype=torch.uint8,
+                            device=dev)
+    for c0 in range(0, n, chunk):
+        e = (torch.arange(c0, min(c0 + chunk, n), device=dev)
+             if entries is None else entries[c0:c0 + chunk])
+        dst = slots.dst_row[e].to(torch.int64)
+        pending = (frontier[slots.src_row[e].to(torch.int64)]
+                   & ~visited[dst])
+        live = (pending != 0).any(1)
+        if not bool(live.any()):
+            continue
+        e, dst, pending = e[live], dst[live], pending[live]
+        _or_rows(out_lanes, dst, pending & gate(e))
+    return _packed(out_lanes, visited)
 
 
 def fused_expand_ref(prob, edge_id, tile_src, tile_dst, frontier, visited,
@@ -96,6 +148,29 @@ def fused_expand_ref(prob, edge_id, tile_src, tile_dst, frontier, visited,
 
     return _tile_expand(gate, prob, tile_src, tile_dst, frontier, visited,
                         chunk_tiles)
+
+
+def fused_expand_slots_ref(slots, frontier, visited, seed, level, *,
+                           tile_ids=None, chunk: int = 1 << 16):
+    """`fused_expand_ref`'s function over the IC slot list
+    (`core.tiles.ic_slot_list`), as ``csrc/fused_expand.cu`` computes it:
+    per entry, the pending colours of its source row not visited at its
+    destination, one fold of the edge id, one draw per colour
+    (``uniform(fold(h_edge, c)) < prob``).  ``tile_ids`` lists tiles of
+    the layout (ascending original ids; None: every tile); ``frontier`` and
+    ``visited`` as `fused_expand_ref`."""
+    w = frontier.shape[1]
+    h_level = rng.level_prefix(seed, level)
+    lanes = (torch.arange(w, device=frontier.device)[:, None] * 32
+             + torch.arange(32, device=frontier.device)[None, :])
+
+    def gate(e):
+        h_edge = rng._fold(h_level, bitmask.u32(slots.key[e]))
+        bits = rng._fold(h_edge[:, None, None], lanes[None])
+        return bitmask.pack_bits(rng.uniform_from_u32(bits)
+                                 < slots.value[e][:, None, None])
+
+    return _slot_expand(gate, slots, frontier, visited, tile_ids, chunk)
 
 
 def q_cell_ids(tile, i, j, tile_size: int):
@@ -161,6 +236,30 @@ def fused_expand_q_ref(q8, tile_src, tile_dst, frontier, visited, seed,
 
     return _tile_expand(gate, q8, tile_src, tile_dst, frontier, visited,
                         chunk_tiles, tile_ids)
+
+
+def fused_expand_q_slots_ref(slots, frontier, visited, seed, level, *,
+                             tile_ids=None, chunk: int = 1 << 16):
+    """`fused_expand_q_ref`'s function over the quantised slot list
+    (`core.tiles.q_slot_list`), as ``csrc/fused_expand_q.cu`` computes it:
+    per entry one fold of its cell, then per pending nibble (four colours
+    ``4k..4k+3`` of word ``w``) one hash ``fold(h_cell, 8w + k)`` whose
+    byte ``b`` decides colour ``4k + b``: it crosses when the byte is at
+    most ``q``.  Arguments as `fused_expand_slots_ref`."""
+    w = frontier.shape[1]
+    dev = frontier.device
+    h_level = rng.level_prefix(seed, level)
+    nibble = torch.arange(8 * w, device=dev)                  # 8w + k
+    byte = torch.arange(4, device=dev)
+
+    def gate(e):
+        h_cell = rng._fold(h_level, bitmask.u32(slots.key[e]))
+        q = slots.value[e].to(torch.int64)
+        hashes = rng._fold(h_cell[:, None], nibble[None])       # (M, 8W)
+        cross = ((hashes[..., None] >> (8 * byte)) & 0xFF) <= q[:, None, None]
+        return bitmask.pack_bits(cross.view(-1, w, 32))
+
+    return _slot_expand(gate, slots, frontier, visited, tile_ids, chunk)
 
 
 def lt_selection_uniforms(seed, num_rows: int, num_colors: int,

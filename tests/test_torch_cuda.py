@@ -414,3 +414,92 @@ def test_q_traversal_at_p1_equals_csr_sweep(cuda):
             tg, q8, starts, 64, rrr.batch_seed(0, 0), frontier=frontier)
         dense = rrr.sample_batch(g_rev, 64, 0, 0)
         assert levels > 0 and torch.equal(vis, dense.visited)
+
+
+# ------------------------------------------------------------- slot lists
+@pytest.mark.parametrize("colors", [32, 96, 160, 256])
+def test_slot_list_kernels_equal_plain_at_every_word_count(cuda, colors):
+    """Both slot-list kernels ≡ their tile-form plain versions, W 1/3/5/8,
+    on the dense grid and on compacted lists (empty, one source block,
+    full), padding tiles and destination blocks no tile reaches."""
+    tg = _tiled(3000, 20000, seed=colors, tile_size=128, dst_limit=2200,
+                pad=3)
+    q8 = quantize_probs(tg.prob)
+    fr, vis = _masks(tg.padded_vertices, colors, colors, 0.3, cuda)
+    act = torch.zeros(tg.num_blocks, dtype=torch.bool, device=cuda)
+    lists = [None, tiles.active_tile_ids(tg.tile_src, act)]
+    act[int(tg.tile_src[0])] = True
+    lists.append(tiles.active_tile_ids(tg.tile_src, act))
+    act[:] = True
+    lists.append(tiles.active_tile_ids(tg.tile_src, act))
+    for ids in lists:
+        sel = slice(None) if ids is None else ids.long()
+        got = ops.fused_expand(tg, fr, vis, 0xC0FFEE, 7, tile_ids=ids)
+        want = ref.fused_expand_ref(tg.prob[sel], tg.edge_id[sel],
+                                    tg.tile_src[sel], tg.tile_dst[sel], fr,
+                                    vis, 0xC0FFEE, 7)
+        assert torch.equal(got, want)
+        got = ops.fused_expand_q(tg, q8, fr, vis, 0xC0FFEE, 7, tile_ids=ids)
+        want = ref.fused_expand_q_ref(q8, tg.tile_src, tg.tile_dst, fr, vis,
+                                      0xC0FFEE, 7, tile_ids=ids)
+        assert torch.equal(got, want)
+
+
+def test_slot_list_kernels_merge_a_hub_destination(cuda):
+    """Destination rows with 300 in-edges each: row 5's from three source
+    blocks (runs of up to 128 neighbouring entries of one tile), rows 700
+    and 4095's from anywhere (entries spread over many tiles).  The warp
+    merge and the atomics lose no colour."""
+    n = 4096
+    rs = np.random.default_rng(1)
+    hubs = np.repeat([5, 700, 4095], 300)
+    src = np.concatenate([np.arange(1000, 1300), rs.integers(0, n, 600),
+                          rs.integers(0, n, 5000)])
+    dst = np.concatenate([hubs, rs.integers(0, n, 5000)])
+    keep = src != dst
+    g = csr.from_edges(src[keep], dst[keep],
+                       rs.uniform(0.05, 0.5, keep.sum()).astype(np.float32),
+                       n, dedupe=True, device="cuda")
+    tg = tiles.from_graph(g)
+    assert int((tiles.ic_slot_list(tg).dst_row == 700).sum()) >= 250
+    q8 = quantize_probs(tg.prob)
+    for colors, density in ((32, 0.5), (256, 0.05)):
+        fr, vis = _masks(tg.padded_vertices, colors, colors, density, cuda)
+        vis[[5, 700, 4095]] = fr[[5, 700, 4095]]
+        got = ops.fused_expand(tg, fr, vis, 3, 1)
+        want = ref.fused_expand_ref(tg.prob, tg.edge_id, tg.tile_src,
+                                    tg.tile_dst, fr, vis, 3, 1)
+        assert torch.equal(got, want) and bool(got[700].any())
+        got = ops.fused_expand_q(tg, q8, fr, vis, 3, 1)
+        want = ref.fused_expand_q_ref(q8, tg.tile_src, tg.tile_dst, fr, vis,
+                                      3, 1)
+        assert torch.equal(got, want) and bool(got[700].any())
+
+
+def test_slot_list_kernels_replay_from_a_cuda_graph(cuda):
+    """The output's memset and the kernel replay from a CUDA graph: new
+    frontier words written into the captured buffers give the plain
+    version's result for them."""
+    tg = _tiled(3000, 20000, seed=4, tile_size=128, dst_limit=2200)
+    q8 = quantize_probs(tg.prob)
+    fr, vis = _masks(tg.padded_vertices, 64, 1, 0.3, cuda)
+    ids = tiles.active_tile_ids(
+        tg.tile_src, torch.ones(tg.num_blocks, dtype=torch.bool,
+                                device=cuda))
+    ops.fused_expand(tg, fr, vis, 9, 2, tile_ids=ids)
+    ops.fused_expand_q(tg, q8, fr, vis, 9, 2)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_ic = ops.fused_expand(tg, fr, vis, 9, 2, tile_ids=ids)
+        out_q = ops.fused_expand_q(tg, q8, fr, vis, 9, 2)
+    for seed in (2, 3):
+        new_fr, new_vis = _masks(tg.padded_vertices, 64, seed, 0.3, cuda)
+        fr.copy_(new_fr)
+        vis.copy_(new_vis)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out_ic, ref.fused_expand_ref(
+            tg.prob, tg.edge_id, tg.tile_src, tg.tile_dst, fr, vis, 9, 2))
+        assert torch.equal(out_q, ref.fused_expand_q_ref(
+            q8, tg.tile_src, tg.tile_dst, fr, vis, 9, 2))

@@ -170,12 +170,12 @@ def test_wrappers_count_only_kernel_launches_and_refuse_mixed_devices():
 
 def test_fused_expand_wrapper_rejects_a_frontier_shorter_than_visited():
     """The CUDA wrapper checks its shapes before it builds or launches: a
-    frontier without every row the tiles read is refused, not read out of
-    bounds (the check runs on any device, so on CPU tensors here)."""
+    frontier without every row the slot list reads is refused, not read
+    out of bounds (the check runs on any device, so on CPU tensors
+    here)."""
     _, tt, _ = _pair(256, 800, 0.5, seed=4, tile_size=64)
     fr, vis = _masks(tt.padded_vertices, 64, seed=5, density=0.3)
     fr_t = convert.masks_from_numpy(fr[:64], "cpu")
     vis_t = convert.masks_from_numpy(vis, "cpu")
     with pytest.raises(ValueError, match="one shape"):
-        tfe.fused_expand_cuda(tt.prob, tt.edge_id, tt.tile_src,
-                              tt.dst_run_ptr, fr_t, vis_t, 1, 0)
+        tfe.fused_expand_cuda(ttiles.ic_slot_list(tt), fr_t, vis_t, 1, 0)

@@ -8,6 +8,7 @@ and against their oracle ``fused_expand_q_ref``.  Tolerances: exact
 (integer words, uint8 thresholds, level counts) unless a test says
 otherwise.  The CUDA kernel is held against the same plain version on the
 GPU (`tests/test_torch_cuda.py`, ``chip_smoke.py``)."""
+import dataclasses
 import functools
 import hashlib
 import json
@@ -195,8 +196,12 @@ def test_float32_kernels_refuse_the_quantised_layout():
     with pytest.raises(ValueError, match="quantised layout"):
         ops.lt_select_expand(tg, q8, fr, fr, u)
     with pytest.raises(ValueError, match="uint8"):
-        tfq.fused_expand_q_cuda(q8.float(), tg.tile_src, tg.dst_run_ptr, fr,
-                                fr, 0, 0)
+        ops.fused_expand_q(tg, q8.float(), fr, fr, 0, 0)
+    slots = tiles.q_slot_list(tg, q8)
+    with pytest.raises(ValueError, match="uint8"):
+        tfq.fused_expand_q_cuda(
+            dataclasses.replace(slots, value=slots.value.float()), fr, fr,
+            0, 0)
 
 
 # ------------------------------------------------------------- one level
