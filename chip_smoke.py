@@ -8,18 +8,20 @@ else.  Phases, each of which raises on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: the seven kernel sources of ``src/repro_torch/csrc``, compiled
-   in parallel, with each source's registers and spills from ``ptxas``;
+   in parallel, with each source's registers and spills from ``ptxas``
+   (and each ``cover_counts`` instantiation's registers);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    exact equality — ``fused_expand`` and ``lt_select_expand`` on a reduced
    graph (empty frontier, destination blocks no tile reaches,
-   ``pad_tiles_to`` padding tiles, 32/64/96 colours) over every tile and
-   over compacted tile lists (empty, one source block, full),
+   ``pad_tiles_to`` padding tiles, 32/64/96/256 colours) over every tile
+   and over compacted tile lists (empty, one source block, full),
    ``fused_expand_q`` on the same graph's quantised stack (32/64/128/256
-   colours, the same lists); the two slot-list kernels also at 256 colours
-   and on a graph whose hub rows take 300 in-edges each, against their
-   tile-form plain versions; each slot list holding exactly the slots that
-   pass its value test and equal to the list read back from its stack;
-   ``cover_counts`` at the full pool shape;
+   colours, the same lists); the three slot-list kernels also on a graph
+   whose hub rows take 300 in-edges each, against their tile-form plain
+   versions; each slot list (IC, quantised, LT) holding exactly the slots
+   that pass its value test and equal to the list read back from its
+   stack; ``cover_counts`` and ``cover_counts_multi`` (8 masks) at the
+   full pool shape and at W 1, 3, 5 and 8;
 4. IC main path at full size: the serving launcher's ``run_single`` on the
    kernel backend — powerlaw_cluster(65,536, 6.0, p=0.25, seed 7), 64
    colours, a 64-batch pool (4,096 RRR sets), one mixed micro-batched flush
@@ -27,7 +29,8 @@ else.  Phases, each of which raises on failure:
    refresh, and offline ``run_imm`` (ε 0.5, θ ≤ 4,096) through a fresh pool
    and without one, both equal to the host-loop greedy.  The launch counters
    are zeroed just before and read just after; ``fused_expand`` and
-   ``cover_counts`` must have run;
+   ``cover_counts`` must have run, and ``cover_counts_multi`` once for each
+   marginal dispatch (one for all its query slots);
 5. IC golden: batches 0-3 on the kernel backend (dense grid and compacted
    grid), 0-1 on the dense CSR backend, bit for bit against
    ``tests/data/torch_port_golden.json`` (made by
@@ -38,15 +41,20 @@ else.  Phases, each of which raises on failure:
    through the kernel's CUDA wrapper on the dense grid and on the
    compacted grid (device time per launch, launches replayed from a CUDA
    graph), the compaction, and the plain version (equal at every level);
-   ``cover_counts`` at the pool's shape (CUDA events); each beside its
-   bound on this card;
+   ``cover_counts`` at the pool's shape as device time, cold (a CUDA graph
+   of 10 L2 flushes and launches less one of the 10 flushes) and warm,
+   beside the events-around-one-eager-call figure of earlier runs, the
+   8-mask form against 8 one-mask launches; each beside its bound on this
+   card;
 7. LT main path at full size, after the IC tile stacks are released: the
    same launcher run with ``--diffusion lt --frontier sparse`` (the
-   ``lt_select_expand`` kernel on the compacted tile list); counters as in
-   4, ``lt_select_expand`` and ``cover_counts`` must have run;
+   ``lt_select_expand`` kernel on the compacted tile list's slot list);
+   counters as in 4, ``lt_select_expand`` and ``cover_counts`` must have
+   run, ``cover_counts_multi`` as in 4;
 8. LT golden: batches 0-3 on the kernel backend, dense and compacted grid,
    0-1 on the dense CSR backend, and the top-16 seeds, against the file;
-9. LT timing: as 6, with the plain version on the compacted list;
+9. LT timing: as 6 (the LT slot list, both grids), with the plain version
+   on the compacted list;
 10. quantised golden, after the LT tile stacks are released: the port's
     whole quantised path at the golden file's ``"q"`` size (4,096
     vertices: generator, ``cluster`` reordering, q8 layout,
@@ -251,16 +259,18 @@ def _reduced_graph(dev, lt: bool):
     ptr = tg.dst_run_ptr
     _check(bool((ptr[1:] == ptr[:-1]).any()), "reduced graph lacks empty "
            "destination blocks")
-    cb = (tiles.edge_values_to_tiles(tg, g, lt_lib.selection_cum_before(g))
+    cb = (tiles.lt_cb_tiles(tg, g, lt_lib.selection_cum_before(g))
           if lt else None)
     return g, tg, cb
 
 
-def _hub_graph(dev):
+def _hub_graph(dev, lt: bool = False):
     """4,096 vertices whose rows 5, 700 and 4,095 take 300 in-edges each
     (row 5's from three source blocks, the others' from anywhere), plus
     5,000 random edges: a warp's 32 entries often share a destination row,
-    and one row's entries spread over many tiles."""
+    and one row's entries spread over many tiles.  Returns the tiles, and
+    for LT (normalised weights) the cb stack, else None."""
+    from repro_torch.core import lt as lt_lib
     from repro_torch.core import tiles
     from repro_torch.graph import csr
 
@@ -274,7 +284,11 @@ def _hub_graph(dev):
     g = csr.from_edges(src[keep], dst[keep],
                        rs.uniform(0.05, 0.5, keep.sum()).astype(np.float32),
                        n, dedupe=True, device=dev)
-    return tiles.from_graph(g)
+    if not lt:
+        return tiles.from_graph(g), None
+    g = lt_lib.normalize_lt_weights(g)
+    tg = tiles.from_graph(g, edge_ids=False)
+    return tg, tiles.lt_cb_tiles(tg, g, lt_lib.selection_cum_before(g))
 
 
 def _same_lists(a, b) -> bool:
@@ -285,31 +299,61 @@ def _same_lists(a, b) -> bool:
 
 
 def check_slot_lists(dev, gen, err: dict) -> None:
-    """The slot lists and the two kernels that walk them, beyond the tile
-    cases of `check_kernels`: each list holds exactly the slots that pass
-    its value test and equals the list read back from the stack; a hub
-    destination (300 in-edges a row) and W = 8 on both kernels, against
-    the tile-form plain versions, on the dense grid and the full list."""
+    """The slot lists and the kernels that walk them, beyond the tile
+    cases of `check_kernels`: each list (IC, quantised, LT) holds exactly
+    the slots that pass its value test and equals the list read back from
+    the stack; a hub destination (300 in-edges a row) and W = 8 on the
+    three kernels, against the tile-form plain versions, on the dense grid
+    and the full list."""
     from repro_torch.core import tiles
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fused_expand_q import quantize_probs
 
     g, tg, _ = _reduced_graph(dev, False)
+    _, tl, cb = _reduced_graph(dev, True)
     tq, q8 = tiles.quantized(g)
     ic, q = tiles.ic_slot_list(tg), tiles.q_slot_list(tq, q8)
+    lt = tiles.lt_slot_list(tl, cb)
     _check(ic.num_entries == int((tg.prob > 0).sum())
-           and q.num_entries == int((q8 > 0).sum()),
+           and q.num_entries == int((q8 > 0).sum())
+           and lt.num_entries == int((tl.prob > 0).sum()),
            "a slot list does not hold exactly the slots that pass its test")
     _check(_same_lists(ic, tiles.ic_slot_list_from_stack(tg))
-           and _same_lists(q, tiles.q_slot_list_from_stack(tq, q8)),
+           and _same_lists(q, tiles.q_slot_list_from_stack(tq, q8))
+           and _same_lists(lt, tiles.lt_slot_list_from_stack(tl, cb)),
            "the list built from the host arrays differs from the one read "
            "from the stack")
     print(f"[kernels] slot lists of the reduced graph: IC {ic.num_entries} "
           f"entries (= slots with prob > 0), quantised {q.num_entries} (= "
-          f"slots with q > 0, of {int((tg.prob > 0).sum())} with prob > 0); "
-          "each equals the list read back from its stack")
+          f"slots with q > 0, of {int((tg.prob > 0).sum())} with prob > 0), "
+          f"LT {lt.num_entries} (= slots with prob > 0 of the normalised "
+          "graph); each built from the host arrays and equal to the list "
+          "read back from its stack")
     cases = 0
-    for name, tg in (("reduced", tg), ("hub", _hub_graph(dev))):
+    for name, (tl, cb) in (("reduced", (tl, cb)),
+                           ("hub", _hub_graph(dev, lt=True))):
+        full = tiles.active_tile_ids(
+            tl.tile_src, torch.ones(tl.num_blocks, dtype=torch.bool,
+                                    device=dev))
+        for colors, density in ((256, 0.05), (256, 0.9), (32, 0.9)):
+            u = ref.lt_selection_uniforms(0xDEADBEEF, tl.padded_vertices,
+                                          colors, device=dev)
+            fr, vis = _random_masks(tl.padded_vertices, colors, density, gen,
+                                    dev)
+            want = ref.lt_select_expand_ref(tl.prob, cb, tl.tile_src,
+                                            tl.tile_dst, fr, vis, u)
+            for ids in (None, full):
+                got = ops.lt_select_expand(tl, cb, fr, vis, u, tile_ids=ids)
+                torch.cuda.synchronize()
+                err["lt_select_expand"] = max(err["lt_select_expand"],
+                                              _max_abs_err(got, want))
+        if name == "hub":
+            lt_hub = int((tiles.lt_slot_list(tl, cb).dst_row == 700).sum())
+            _check(lt_hub >= 250, f"LT hub row 700 has {lt_hub} entries")
+    print(f"[kernels] lt_select_expand on its slot list at W 8 and 1 (dense "
+          f"grid and full list) on the reduced graph and the hub graph (row "
+          f"700: {lt_hub} entries): max word diff {err['lt_select_expand']}")
+    for name, (tg, _) in (("reduced", (tg, None)), ("hub", _hub_graph(dev))):
         q8 = quantize_probs(tg.prob)
         full = tiles.active_tile_ids(
             tg.tile_src, torch.ones(tg.num_blocks, dtype=torch.bool,
@@ -373,7 +417,7 @@ def check_kernels(dev) -> dict:
         name = "lt_select_expand" if lt else "fused_expand"
         _, tg, cb = _reduced_graph(dev, lt)
         cases = 0
-        for colors in (32, 64, 96):
+        for colors in (32, 64, 96, 256):
             u = ref.lt_selection_uniforms(0xDEADBEEF, tg.padded_vertices,
                                           colors, device=dev)
             for density in (0.0, 0.02, 0.3):
@@ -399,9 +443,9 @@ def check_kernels(dev) -> dict:
                            f"{name}: an empty frontier expanded")
                     cases += 1
         print(f"[kernels] {name}: {cases} cases on a 4096-vertex graph "
-              f"({tg.num_tiles} tiles, 5 padding; every tile and compacted "
-              f"lists: empty, one source block, full), max word diff "
-              f"{err[name]}")
+              f"({tg.num_tiles} tiles, 5 padding; W 1, 2, 3, 8; every tile "
+              f"and compacted lists: empty, one source block, full), max "
+              f"word diff {err[name]}")
         if lt:
             continue
         # The quantised kernel on the same tiles: q8 is the reference's
@@ -428,17 +472,22 @@ def check_kernels(dev) -> dict:
               f"(W 1, 2, 4, 8; every tile and the three compacted lists), "
               f"max word diff {err['fused_expand_q']}")
     check_slot_lists(dev, gen, err)
-    for b, v, w in ((64, 65536, 2), (16, 65536, 3), (1, 300, 1)):
+    shapes = ((64, 65536, 2), (64, 65536, 1), (64, 65536, 8),
+              (16, 65536, 3), (1, 300, 1), (5, 257, 5))
+    for b, v, w in shapes:
         vis = torch.randint(-2 ** 31, 2 ** 31, (b, v, w), dtype=torch.int32,
                             device=dev, generator=gen)
-        act = torch.randint(-2 ** 31, 2 ** 31, (b, w), dtype=torch.int32,
+        act = torch.randint(-2 ** 31, 2 ** 31, (b, 8, w), dtype=torch.int32,
                             device=dev, generator=gen)
-        got = ops.cover_counts(vis, act)
-        want = ref.cover_counts_ref(vis, act)
+        got = ops.cover_counts(vis, act[:, 0])
+        want = ref.cover_counts_ref(vis, act[:, 0])
+        got_q = ops.cover_counts_multi(vis, act)
+        want_q = ref.cover_counts_multi_ref(vis, act)
         err["cover_counts"] = max(err["cover_counts"],
-                                  _max_abs_err(got, want))
-    print(f"[kernels] cover_counts: (B, V, W) up to (64, 65536, 2), max diff "
-          f"{err['cover_counts']}")
+                                  _max_abs_err(got, want),
+                                  _max_abs_err(got_q, want_q))
+    print(f"[kernels] cover_counts and cover_counts_multi (Q 8): (B, V, W) "
+          f"{list(shapes)}, max diff {err['cover_counts']}")
     _check(not any(err.values()),
            f"kernel disagrees with its plain version: {err}")
     return err
@@ -472,6 +521,22 @@ def run_main_path(golden: dict, diffusion: str) -> tuple[dict, dict]:
     kernel = "lt_select_expand" if diffusion == "lt" else "fused_expand"
     _check(launches[kernel] > 0 and launches["cover_counts"] > 0,
            f"a kernel of the {diffusion} path never launched: {launches}")
+    # The run's flushes that compute marginal gains: the first and the one
+    # after the refresh (the re-serve between them is all cache hits), each
+    # one dispatch per query_slots queries, each dispatch one launch for all
+    # its slots (one per slot before: query_slots launches a dispatch).
+    slots = out["engine"].query_slots
+    dispatches = 2 * -(-args.queries // slots)
+    _check(launches["cover_counts_multi"] == dispatches,
+           f"the {diffusion} marginal flushes launched cover_counts_multi "
+           f"{launches['cover_counts_multi']} times, not once for each of "
+           f"their {dispatches} dispatches")
+    print(f"[main {diffusion}] marginal gains: {dispatches} dispatches of "
+          f"{args.queries} queries in {slots} slots, "
+          f"{launches['cover_counts_multi']} cover_counts_multi launches "
+          f"(one a dispatch, not {slots}); the other "
+          f"{launches['cover_counts'] - launches['cover_counts_multi']} "
+          f"cover_counts launches are greedy picks")
     return out, launches
 
 
@@ -561,12 +626,12 @@ def _kernel_ms(fn, launches: int = 10) -> float:
 def time_tile_kernel(store, diffusion: str) -> dict:
     """Every level of batch 0 through the tile kernel's CUDA wrapper on the
     dense grid and on the level's compacted tile list (built outside the
-    timed window; `_kernel_ms`), the compaction itself (the tile list, and
-    for LT its run pointers; CUDA events), and the plain version (IC: the
-    tile form over the whole stacks, as the dense grid; LT: the gathered
-    list, as the compacted grid its main path runs); all equal at every
-    level.  IC also reads its slot list back from the stacks (timed) and
-    holds it equal to the one the layout built.  The
+    timed window; `_kernel_ms`), the compaction itself (the tile list; CUDA
+    events), and the plain version (IC: the tile form over the whole
+    stacks, as the dense grid; LT: the tile form on the gathered list, as
+    the compacted grid its main path runs); all equal at every level.  Each
+    reads its slot list back from the stacks (timed) and holds it equal to
+    the one the layout built.  The
     eager timings run in a first pass over the levels, the CUDA graphs in a
     second, so graph memory does not disturb the allocator under them.
     Each level's bound counts what its data needs: prob and edge id (IC)
@@ -600,12 +665,11 @@ def time_tile_kernel(store, diffusion: str) -> dict:
         u = ref.lt_selection_uniforms(seed, tg.padded_vertices, 64,
                                       device=dev)
 
-    slots = None if lt else tiles.ic_slot_list(tg)
+    slots = tiles.lt_slot_list(tg, cb) if lt else tiles.ic_slot_list(tg)
 
-    def kernel(level, fr, vis, ids, ptr):
+    def kernel(level, fr, vis, ids):
         if lt:
-            return lt_select_expand_cuda(tg.prob, cb, tg.tile_src, ptr, fr,
-                                         vis, u, tile_ids=ids)
+            return lt_select_expand_cuda(slots, fr, vis, u, tile_ids=ids)
         return fused_expand_cuda(slots, fr, vis, seed, level, tile_ids=ids)
 
     def plain(level, fr, vis, ids):
@@ -618,25 +682,22 @@ def time_tile_kernel(store, diffusion: str) -> dict:
                                     tg.tile_dst, fr, vis, seed, level)
 
     def compact(fr):
-        ids = tiles.active_tile_ids(
+        return tiles.active_tile_ids(
             tg.tile_src, sparse.row_block_activity(fr, tg.tile_size))
-        return ids, (tiles.run_pointers(tg.tile_dst[ids.long()],
-                                        tg.num_blocks) if lt else None)
 
-    per = {}
-    if not lt:
-        t0 = time.perf_counter()
-        again = tiles.ic_slot_list_from_stack(tg)
-        torch.cuda.synchronize()
-        per.update(slot_entries=slots.num_entries, slot_bytes=slots.nbytes,
-                   slot_build_ms=1e3 * (time.perf_counter() - t0))
-        _check(_same_lists(again, slots), "fused_expand: the slot list read "
-               "from the stacks differs from the layout's")
-        del again
-        print(f"[timing] fused_expand slot list: {slots.num_entries} entries "
-              f"({slots.nbytes / 2 ** 20:.2f} MiB) built with the layout "
-              f"from its host arrays; read back from the stacks in "
-              f"{per['slot_build_ms']:.1f} ms, equal")
+    t0 = time.perf_counter()
+    again = (tiles.lt_slot_list_from_stack(tg, cb) if lt
+             else tiles.ic_slot_list_from_stack(tg))
+    torch.cuda.synchronize()
+    per = dict(slot_entries=slots.num_entries, slot_bytes=slots.nbytes,
+               slot_build_ms=1e3 * (time.perf_counter() - t0))
+    _check(_same_lists(again, slots), f"{name}: the slot list read from the "
+           "stacks differs from the layout's")
+    del again
+    print(f"[timing] {name} slot list: {slots.num_entries} entries "
+          f"({slots.nbytes / 2 ** 20:.2f} MiB) built with the layout "
+          f"from its host arrays; read back from the stacks in "
+          f"{per['slot_build_ms']:.1f} ms, equal")
 
     src = g_rev.src[:g_rev.num_edges].long()
     dst = g_rev.dst[:g_rev.num_edges].long()
@@ -650,10 +711,10 @@ def time_tile_kernel(store, diffusion: str) -> dict:
     while len(levels) < 64 and bitmask.any_set(fr):
         level = len(levels)
         vis = vis | fr
-        ids, ptr = compact(fr)
+        ids = compact(fr)
         t["compaction"].append(_time_ms(lambda: compact(fr), 3))
-        nf = kernel(level, fr, vis, None, tg.dst_run_ptr)
-        nf_c = kernel(level, fr, vis, ids, ptr)
+        nf = kernel(level, fr, vis, None)
+        nf_c = kernel(level, fr, vis, ids)
         want = [None]
 
         def run_plain():
@@ -677,14 +738,12 @@ def time_tile_kernel(store, diffusion: str) -> dict:
         t["ops"].append(n_live + 3 * pairs if lt else
                         n_live * OPS_PER_EDGE_FOLD + pairs * OPS_PER_DRAW)
         t["tiles"].append(int(ids.numel()))
-        levels.append((fr, vis, ids, ptr))
+        levels.append((fr, vis, ids))
         fr = nf
     # Pass 2: each level's kernel on both grids, device time per launch.
-    for level, (fr, vis, ids, ptr) in enumerate(levels):
-        t["dense"].append(_kernel_ms(
-            lambda: kernel(level, fr, vis, None, tg.dst_run_ptr)))
-        t["compact"].append(_kernel_ms(
-            lambda: kernel(level, fr, vis, ids, ptr)))
+    for level, (fr, vis, ids) in enumerate(levels):
+        t["dense"].append(_kernel_ms(lambda: kernel(level, fr, vis, None)))
+        t["compact"].append(_kernel_ms(lambda: kernel(level, fr, vis, ids)))
     level = len(levels)
     del levels
     _check(err == 0, f"{name} differs from its plain version or between its "
@@ -707,9 +766,8 @@ def time_tile_kernel(store, diffusion: str) -> dict:
           f"compacted list mean {per['compact_ms']:.4f} ms (max "
           f"{np.max(t['compact']):.4f}, bound {per['compact_bound_ms']:.6f} "
           f"by {per['compact_bound_by']}; {per['tiles']:.0f} of "
-          f"{tg.num_tiles} tiles on average); compaction (tile list"
-          f"{' + run pointers' if lt else ''}) {per['compaction_ms']:.4f} ms;"
-          f" plain {per['plain_ms']:.4f} ms")
+          f"{tg.num_tiles} tiles on average); compaction (tile list) "
+          f"{per['compaction_ms']:.4f} ms; plain {per['plain_ms']:.4f} ms")
     for k in ("dense", "compact", "compaction", "tiles"):
         print(f"[timing] {name} {k} per level: "
               f"{[round(x, 4) for x in t[k]]}")
@@ -783,34 +841,89 @@ def check_outputs_lt(out: dict, golden: dict) -> None:
 
 
 def time_cover_counts(store) -> dict:
-    """cover_counts at the pool's shape, L2 flushed before each launch (the
-    greedy loop's first pick; later picks find the stack in L2 — printed as
-    ``warm``)."""
-    from repro_torch.core import imm
+    """cover_counts at the pool's shape as device time: cold (the greedy
+    loop's first pick, L2 flushed) from a CUDA graph of 10 (flush memset,
+    kernel) pairs minus a graph of the 10 flushes alone, and warm (later
+    picks find the 33.5 MB stack in the 50 MB L2) from a graph of 10
+    launches; beside them the events-around-one-eager-call figure of
+    earlier runs, and the cold time after a flush that reads 256 MB (L2
+    left clean, no write-backs of the memset's dirty lines).  The Q = 8
+    form on a marginal flush's eight active masks
+    (8 exclusion sets of 2 vertices), cold and warm, against 8 launches of
+    the Q = 1 form on the same masks.  Each beside its bound."""
+    from repro_torch.core import bitmask, imm
     from repro_torch.kernels import ops, ref
+    from repro_torch.serve.influence import engine
 
     vis = store.visited_stack()
     b, v, w = vis.shape
-    act = imm.initial_active(b, store.num_colors, vis.device)
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=vis.device)
-    ops.cover_counts(vis, act)
-    cold = _time_ms(lambda: ops.cover_counts(vis, act), 50, flush.zero_)
-    warm = _time_ms(lambda: ops.cover_counts(vis, act), 200)
-    plain = _time_ms(lambda: ref.cover_counts_ref(vis, act), 10,
-                     flush.zero_)
-    err = _max_abs_err(ops.cover_counts(vis, act),
-                       ref.cover_counts_ref(vis, act))
-    # Each visited word read once, the active words once, the counts
-    # written once; and, popcount and add per word.
-    bytes_ms = 1e3 * (b * v * w + b * w + v) * 4 / HBM_BYTES_PER_S
-    ops_ms = 1e3 * 3 * b * v * w / SCALAR_OPS_PER_S
+    dev, q = vis.device, 8
+    act = imm.initial_active(b, store.num_colors, dev)
+    seeds = torch.from_numpy(np.random.default_rng(0).integers(
+        0, v, (q, 2))).to(dev)
+    act_q = (bitmask.tail_mask_tensor(store.num_colors, dev) & ~engine
+             ._union_rows(vis, seeds, torch.ones_like(seeds, dtype=bool)))
+    act_q = act_q.contiguous()
+    slots = [act_q[:, k].contiguous() for k in range(q)]
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    flush_ms = _kernel_ms(flush.zero_)
+    # A flush that reads instead leaves L2 clean: the kernel then finds no
+    # dirty lines of the memset to write back as it reads.
+    flush32 = flush.view(torch.int32)
+    read_ms = _kernel_ms(flush32.sum)
+
+    def cold(fn):
+        return _kernel_ms(lambda: (flush.zero_(), fn())) - flush_ms
+
+    def one():
+        return ops.cover_counts(vis, act)
+
+    def multi():
+        return ops.cover_counts_multi(vis, act_q)
+
+    def eight():
+        return [ops.cover_counts(vis, a) for a in slots]
+
+    err = max(_max_abs_err(one(), ref.cover_counts_ref(vis, act)),
+              _max_abs_err(multi(), ref.cover_counts_multi_ref(vis, act_q)),
+              _max_abs_err(torch.stack(eight()), multi()))
     _check(err == 0, f"cover_counts differs from its plain version: {err}")
-    per = dict(ms=cold, warm_ms=warm, plain_ms=plain,
-               bound_ms=max(bytes_ms, ops_ms), max_abs_err=err,
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
-    print(f"[timing] cover_counts (B, V, W)=({b}, {v}, {w}): kernel cold "
-          f"{cold:.4f} ms, warm {warm:.4f} ms, plain {plain:.4f} ms, bound "
-          f"{per['bound_ms']:.4f} ms ({per['bound_by']})")
+    per = dict(ms=cold(one), warm_ms=_kernel_ms(one),
+               eager_cold_ms=_time_ms(one, 50, flush.zero_),
+               plain_ms=_time_ms(lambda: ref.cover_counts_ref(vis, act), 10,
+                                 flush.zero_),
+               flush_ms=flush_ms, max_abs_err=err,
+               clean_cold_ms=_kernel_ms(lambda: (flush32.sum(), one()))
+               - read_ms)
+    multi_per = dict(q=q, ms=cold(multi), warm_ms=_kernel_ms(multi),
+                     eight_launches_ms=cold(eight),
+                     eight_launches_warm_ms=_kernel_ms(eight),
+                     plain_ms=_time_ms(lambda: ref.cover_counts_multi_ref(
+                         vis, act_q), 3, flush.zero_))
+    # Each visited word read once, the active words once, the counts
+    # written once; and, popcount and add per (word, mask).
+    for d, masks in ((per, 1), (multi_per, q)):
+        bytes_ms = 1e3 * (b * v * w + b * masks * w + masks * v) * 4 \
+            / HBM_BYTES_PER_S
+        ops_ms = 1e3 * 3 * b * v * w * masks / SCALAR_OPS_PER_S
+        d.update(bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    per["multi"] = multi_per
+    print(f"[timing] cover_counts (B, V, W)=({b}, {v}, {w}), device time: "
+          f"cold {per['ms']:.4f} ms (graph of 10 flush + kernel pairs less "
+          f"10 flushes of {flush_ms:.4f} ms each; events around one eager "
+          f"call {per['eager_cold_ms']:.4f}; after a flush that reads, "
+          f"leaving L2 clean, {per['clean_cold_ms']:.4f}), warm "
+          f"{per['warm_ms']:.4f} ms, "
+          f"plain {per['plain_ms']:.4f} ms, bound {per['bound_ms']:.4f} ms "
+          f"({per['bound_by']})")
+    m = multi_per
+    print(f"[timing] cover_counts_multi Q {q} (a marginal flush's masks): "
+          f"cold {m['ms']:.4f} ms, warm {m['warm_ms']:.4f} ms, against 8 "
+          f"Q = 1 launches cold {m['eight_launches_ms']:.4f} ms, warm "
+          f"{m['eight_launches_warm_ms']:.4f} ms; Q 8 / Q 1 cold "
+          f"{m['ms'] / per['ms']:.2f}; plain {m['plain_ms']:.4f} ms; bound "
+          f"{m['bound_ms']:.4f} ms ({m['bound_by']})")
     return per
 
 
@@ -999,12 +1112,12 @@ def time_q_kernel(tg, q8, g_rev) -> dict:
           f"its host arrays; read back from the {q8.numel() / 2 ** 30:.2f} "
           f"GiB stack in {build_ms:.1f} ms, equal")
 
-    def kernel(level, fr, vis, ids, ptr):
+    def kernel(level, fr, vis, ids):
         return fused_expand_q_cuda(slots, fr, vis, seed, level, tile_ids=ids)
 
     def compact(fr):
         return tiles.active_tile_ids(
-            tg.tile_src, sparse.row_block_activity(fr, tg.tile_size)), None
+            tg.tile_src, sparse.row_block_activity(fr, tg.tile_size))
 
     src = g_rev.src[:g_rev.num_edges].long()
     dst = g_rev.dst[:g_rev.num_edges].long()
@@ -1017,10 +1130,10 @@ def time_q_kernel(tg, q8, g_rev) -> dict:
     while len(levels) < 64 and bitmask.any_set(fr):
         level = len(levels)
         vis = vis | fr
-        ids, ptr = compact(fr)
+        ids = compact(fr)
         t["compaction"].append(_time_ms(lambda: compact(fr), 3))
-        nf = kernel(level, fr, vis, None, tg.dst_run_ptr)
-        err = max(err, _max_abs_err(kernel(level, fr, vis, ids, ptr), nf))
+        nf = kernel(level, fr, vis, None)
+        err = max(err, _max_abs_err(kernel(level, fr, vis, ids), nf))
         fr_src = fr[src]
         live = (fr_src != 0).any(1)
         pend = bitmask.u32(fr_src[live] & ~vis[dst[live]])
@@ -1042,13 +1155,11 @@ def time_q_kernel(tg, q8, g_rev) -> dict:
         rows = (fr != 0).any(1).view(-1, tg.tile_size).sum(1)
         t["bytes_rows"].append(int(rows[tg.tile_src.long()].sum())
                                * tg.tile_size)
-        levels.append((fr, vis, ids, ptr))
+        levels.append((fr, vis, ids))
         fr = nf
-    for level, (fr, vis, ids, ptr) in enumerate(levels):
-        t["dense"].append(_kernel_ms(
-            lambda: kernel(level, fr, vis, None, tg.dst_run_ptr)))
-        t["compact"].append(_kernel_ms(
-            lambda: kernel(level, fr, vis, ids, ptr)))
+    for level, (fr, vis, ids) in enumerate(levels):
+        t["dense"].append(_kernel_ms(lambda: kernel(level, fr, vis, None)))
+        t["compact"].append(_kernel_ms(lambda: kernel(level, fr, vis, ids)))
     n_levels = len(levels)
     del levels
     _check(err == 0, f"fused_expand_q: compacted list differs from the dense "
@@ -1619,6 +1730,12 @@ def main() -> int:
               f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
               f"(stores + loads) {sum(spills)}" if regs
               else f"[build] {name}: no ptxas report")
+    # cover_counts_kernel<W, Q, 16-byte loads>: registers per instantiation.
+    cover = re.findall(r"cover_counts_kernelILi(\d)ELi(\d)ELb(\d)E.*?Used "
+                       r"(\d+) registers", _build.build_log("coverage"),
+                       re.S)
+    print("[build] coverage registers (W, Q, 16-byte loads): "
+          + ", ".join(f"({w}, {q}, {v == '1'}) {r}" for w, q, v, r in cover))
 
     torch.cuda.reset_peak_memory_stats()
     err = check_kernels(dev)
@@ -1696,7 +1813,8 @@ def main() -> int:
           f"dense grid); batch 0 end to end IC {fe['batch_dense_ms']:.2f} / "
           f"{fe['batch_compact_ms']:.2f} ms, LT {lse['batch_dense_ms']:.2f} / "
           f"{lse['batch_compact_ms']:.2f} ms (dense / compacted grid); "
-          f"cover_counts {cc['ms']:.4f} ms; fused_expand_q at n {Q_N} "
+          f"cover_counts {cc['ms']:.4f} ms cold, {cc['warm_ms']:.4f} warm, "
+          f"Q 8 {cc['multi']['ms']:.4f} cold; fused_expand_q at n {Q_N} "
           f"({q['num_tiles']} tiles, {q['q8_gib']:.2f} GiB) {q['dense_ms']:.4f} "
           f"ms dense / {q['compact_ms']:.4f} ms compacted per level, batch "
           f"{q['batch_dense_ms']:.2f} / {q['batch_compact_ms']:.2f} ms end to "
@@ -1722,7 +1840,11 @@ def main() -> int:
              launches=launches["cover_counts"],
              max_abs_err=max(err["cover_counts"], cc["max_abs_err"]),
              ms=cc["ms"], plain_ms=cc["plain_ms"], bound_ms=cc["bound_ms"],
-             bound_by=cc["bound_by"], library_ms=None),
+             bound_by=cc["bound_by"], library_ms=None,
+             **{k: cc[k] for k in ("warm_ms", "eager_cold_ms",
+                                   "clean_cold_ms")},
+             multi=dict(cc["multi"], launches=launches["cover_counts_multi"],
+                        launches_lt=launches_lt["cover_counts_multi"])),
         dict(name="lt_select_expand", route="cuda",
              source="src/repro_torch/csrc/lt_select_expand.cu",
              replaces="src/repro/kernels/lt_select_expand.py:101",
@@ -1731,7 +1853,13 @@ def main() -> int:
              ms=lse["compact_ms"], plain_ms=lse["plain_ms"],
              bound_ms=lse["compact_bound_ms"],
              bound_by=lse["compact_bound_by"],
-             library_ms=None),
+             library_ms=None,
+             dense={"ms": lse["dense_ms"], "bound_ms": lse["dense_bound_ms"],
+                    "bound_by": lse["dense_bound_by"]},
+             compaction_ms=lse["compaction_ms"],
+             slot_list=True,
+             slot_list_stats={k: lse[f"slot_{k}"] for k in (
+                 "entries", "bytes", "build_ms")}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_prefill_wgmma.cu",
              replaces="src/repro/kernels/flash_attention.py:83",

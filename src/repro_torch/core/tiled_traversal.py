@@ -87,7 +87,8 @@ def run_fused_lt_tiled(tg: tiles.TiledGraph, cb_tiles: torch.Tensor, starts,
                        ladder: tuple[int, ...] | None = None,
                        work: dict | None = None):
     """LT on the tile layout of the LT-normalised graph: ``cb_tiles`` is
-    ``tiles.edge_values_to_tiles(tg, g, lt.selection_cum_before(g))``.
+    ``tiles.lt_cb_tiles(tg, g, lt.selection_cum_before(g))``; a cb stack
+    built another way has its slot list read from the stacks.
     The uniform table is computed once per traversal.  Returns as
     `run_fused_tiled`."""
     u = kref.lt_selection_uniforms(seed, tg.padded_vertices, num_colors,

@@ -24,12 +24,13 @@ uint8 threshold per slot beside it (1 B where ``prob`` and ``edge_id``
 take 8) and no other stack: the kernel that reads it
 (`kernels.ops.fused_expand_q`) draws by slot position, not edge id.
 
-The two IC kernels walk a `SlotList` instead of the stacks: per tile, the
-slots whose value passes the kernel's own test (``prob > 0``, ``q > 0``),
-each with its source and destination rows and what its draw needs.  At
-65,536 vertices it is 382,080 entries (6 MB) beside 24 GiB of stacks.
-`ic_slot_list` and `q_slot_list` build it once per stack and memoise it
-(`from_graph` and `quantized` build it from their host arrays; any other
+The three tile kernels walk a `SlotList` instead of the stacks: per tile,
+the slots whose value passes the kernel's own test (``prob > 0``,
+``q > 0``), each with its source and destination rows and what its draw
+or its live-edge test needs.  At 65,536 vertices it is 382,080 entries
+(6 MB) beside 24 GiB of stacks.  `ic_slot_list`, `q_slot_list` and
+`lt_slot_list` build it once per stack and memoise it (`from_graph`,
+`quantized` and `lt_cb_tiles` build it from their host arrays; any other
 stack is read in chunks of tiles).
 """
 from __future__ import annotations
@@ -91,12 +92,13 @@ class SlotList:
 
       * ``src_row[e] = tile_src[t]·T + i``, ``dst_row[e] = tile_dst[t]·T + j``
         (int32 rows of the frontier and visited masks);
-      * ``value[e]``: the float32 probability (IC) or the uint8 threshold
-        ``q`` (quantised) — only slots with ``value > 0`` are listed, the
-        kernels' own test (``q = 0`` for ``0 < p < 1.5/256`` never crosses);
-      * ``key[e]``: the RNG counter as int32 bits — the CSR edge id (IC) or
+      * ``value[e]``: the float32 probability (IC, LT) or the uint8
+        threshold ``q`` (quantised) — only slots with ``value > 0`` are
+        listed, the kernels' own test (``q = 0`` for ``0 < p < 1.5/256``
+        never crosses);
+      * ``key[e]``: int32 bits — the RNG counter: the CSR edge id (IC) or
         the cell ``(t·T² + i·T + j) mod 2³²`` of the original tile id
-        (quantised).
+        (quantised); LT: the selection-CDF prefix, as float32 bits.
 
     ``num_rows`` is the number of mask rows the entries may index."""
     slot_ptr: torch.Tensor      # (nt + 1,) int32
@@ -219,7 +221,8 @@ def from_graph(g: Graph, tile_size: int = TILE,
     """Extract the non-empty tile list of ``g`` onto ``g``'s device.
     ``edge_ids=False`` leaves out the ``edge_id`` stack, which only the IC
     draw reads (an LT layout would carry 12.1 GiB of it unread at
-    n = 65,536); only an IC layout gets a slot list (`ic_slot_list`)."""
+    n = 65,536); only an IC layout gets a slot list here (`ic_slot_list`;
+    an LT layout's comes with its cb stack, `lt_cb_tiles`)."""
     dev = g.device
     order, slots, prob, t_src, t_dst, total = _layout(g, tile_size,
                                                       pad_tiles_to)
@@ -274,16 +277,17 @@ def quantized(g: Graph,
 # ------------------------------------------------------------- slot lists
 # Memo of the slot lists by the identity of the tensors they were built
 # from (torch tensors compare elementwise, so never by ==): key the ids,
-# value (weak references to check them, the list).  An entry goes when its
-# stack is collected.  A stack edited in place after its list was built is
-# not supported: the list would keep the old slots.
+# value (weak references to check them, the list).  An entry goes when any
+# of its tensors is collected.  A stack edited in place after its list was
+# built is not supported: the list would keep the old slots.
 _SLOT_LISTS: dict[tuple[int, ...], tuple[tuple, SlotList]] = {}
 
 
 def _remember(tensors: tuple, slots: SlotList) -> SlotList:
     key = tuple(id(t) for t in tensors)
     _SLOT_LISTS[key] = (tuple(weakref.ref(t) for t in tensors), slots)
-    weakref.finalize(tensors[0], _SLOT_LISTS.pop, key, None)
+    for t in tensors:
+        weakref.finalize(t, _SLOT_LISTS.pop, key, None)
     return slots
 
 
@@ -379,6 +383,32 @@ def q_slot_list(tg: TiledGraph, q8: torch.Tensor) -> SlotList:
         tensors, q_slot_list_from_stack(tg, q8))
 
 
+def lt_slot_list_from_stack(tg: TiledGraph, cb: torch.Tensor) -> SlotList:
+    """The LT slot list of ``tg``'s prob stack and the cb stack beside it
+    (``prob > 0``; values the probabilities, keys the float32 bits of
+    ``cb``), not memoised: `lt_slot_list` is the memo."""
+    if tg.prob is None:
+        raise ValueError("lt_select_expand reads the float32 prob stack, "
+                         "which a quantised layout (tiles.quantized) lacks")
+    if cb.dtype != torch.float32 or cb.shape != tg.prob.shape \
+            or tg.prob.shape[0] != tg.num_tiles:
+        raise ValueError(f"lt_select_expand: the cb stack "
+                         f"{tuple(cb.shape)} {cb.dtype} must be float32 of "
+                         f"prob's shape {tuple(tg.prob.shape)}")
+    return _slots_from_stack(
+        tg.prob, tg, lambda flat: cb.reshape(-1)[flat].view(torch.int32))
+
+
+def lt_slot_list(tg: TiledGraph, cb: torch.Tensor) -> SlotList:
+    """The slot list of an LT layout and its cb stack, built once per
+    ``(prob, cb, tile_src, tile_dst)`` tensors (by `lt_cb_tiles`, or here
+    from the stacks)."""
+    tensors = (tg.prob, cb, tg.tile_src, tg.tile_dst)
+    slots = _recall(tensors)
+    return slots if slots is not None else _remember(
+        tensors, lt_slot_list_from_stack(tg, cb))
+
+
 def cached(g: Graph, tile_size: int = TILE,
            edge_ids: bool = True) -> TiledGraph:
     """``from_graph(g, tile_size, edge_ids=edge_ids)`` built once per graph
@@ -391,22 +421,33 @@ def cached(g: Graph, tile_size: int = TILE,
     return tg
 
 
-def edge_values_to_tiles(tg: TiledGraph, g: Graph, values) -> torch.Tensor:
-    """Per-CSR-edge float32 ``values`` of ``g`` in the ``(nt, T, T)`` layout
-    ``tg = from_graph(g, ...)``, on ``tg``'s device (the LT selection-CDF
-    prefixes ride beside the tile stacks this way).  Scattered through
-    `edge_slot_map`, as ``from_graph`` scatters ``prob``; slots whose
-    ``prob`` is not > 0 hold 0, as in the reference (its default ``fill``),
-    which gathers by ``edge_id`` and masks on ``prob``."""
+def lt_cb_tiles(tg: TiledGraph, g: Graph, cum_before) -> torch.Tensor:
+    """Per-CSR-edge float32 ``cum_before`` of ``g`` (the selection-CDF
+    prefixes of `core.lt.selection_cum_before`) in the ``(nt, T, T)``
+    layout ``tg = from_graph(g, ...)``, on ``tg``'s device: the LT cb
+    stack, with its slot list (`lt_slot_list`) built from the same arrays.
+    Scattered through `edge_slot_map`, as ``from_graph`` scatters ``prob``;
+    slots whose ``prob`` is not > 0 hold 0, as in the reference's
+    ``edge_values_to_tiles`` (its default ``fill``), which gathers by
+    ``edge_id`` and masks on ``prob``."""
+    if tg.prob is None:
+        raise ValueError("an LT layout needs the float32 prob stack, which "
+                         "a quantised layout (tiles.quantized) lacks")
     dev = tg.device
-    out = torch.zeros(tg.num_tiles * tg.tile_size ** 2, dtype=torch.float32,
-                      device=dev)
-    if g.num_edges:
-        slot = torch.from_numpy(edge_slot_map(g, tg.tile_size)[0]).to(dev)
-        vals = torch.as_tensor(np.asarray(values, np.float32)[:g.num_edges],
-                               device=dev)
-        out[slot] = torch.where(tg.prob.view(-1)[slot] > 0, vals, 0.0)
-    return out.view(tg.prob.shape)
+    prob = tg.prob.view(-1)
+    cb = torch.zeros(prob.numel(), dtype=torch.float32, device=dev)
+    slot = torch.from_numpy(edge_slot_map(g, tg.tile_size)[0]).to(dev)
+    vals = torch.as_tensor(np.asarray(cum_before, np.float32)[:g.num_edges],
+                           device=dev)
+    keep = prob[slot] > 0
+    flat = slot[keep]
+    cb[flat] = vals[keep]
+    cb = cb.view(tg.prob.shape)
+    _remember((tg.prob, cb, tg.tile_src, tg.tile_dst),
+              _slots_from_flat(flat, prob[flat],
+                               vals[keep].view(torch.int32), tg,
+                               tg.num_tiles))
+    return cb
 
 
 def active_tile_ids(tile_src: torch.Tensor,

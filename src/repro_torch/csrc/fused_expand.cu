@@ -54,7 +54,7 @@ struct IcGate {
   const int32_t* edge_id;
   uint32_t h_level;
 
-  __device__ __forceinline__ Edge edge(int e) const {
+  __device__ __forceinline__ Edge edge(int e, int) const {
     return {fold(h_level, (uint32_t)edge_id[e]), prob[e]};
   }
   __device__ __forceinline__ uint32_t draw(const Edge& x, int w,

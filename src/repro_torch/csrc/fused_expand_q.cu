@@ -66,7 +66,7 @@ struct QGate {
   const uint32_t* cell;
   uint32_t h_level;
 
-  __device__ __forceinline__ Edge edge(int e) const {
+  __device__ __forceinline__ Edge edge(int e, int) const {
     return {fold(h_level, cell[e]), (uint32_t)q8[e]};
   }
   // One hash per pending nibble k of word w (colours 32w + 4k + b, b in

@@ -1,5 +1,6 @@
-// The slot-list walk the two IC kernels share (csrc/fused_expand.cu, IC;
-// csrc/fused_expand_q.cu, quantised IC); each supplies only its edge gate.
+// The slot-list walk the three tile kernels share (csrc/fused_expand.cu,
+// IC; csrc/fused_expand_q.cu, quantised IC; csrc/lt_select_expand.cu, LT);
+// each supplies only its edge gate.
 //
 // The list (core/tiles.py, SlotList) holds, per tile in tile order, the
 // slots whose value passes the kernel's test, each as its source row, its
@@ -13,7 +14,8 @@
 // the words into out with atomicOr. OR is commutative and idempotent, so
 // the result does not depend on the order in which CTAs arrive: it is
 // bit-identical to the tile walk. The launcher zeroes out on the call's
-// stream first (a memset node, which a CUDA graph captures).
+// stream first (a memset node, which a CUDA graph captures). An entry with
+// no pending colour reads neither its value nor its key.
 //
 // Two grids:
 //   dense — every entry of the list, one thread each;
@@ -27,7 +29,8 @@
 //           would walk 32 at a time, in turn, while the card waits for it.
 //
 // A Gate holds one launch's view of the diffusion's edge test:
-//   Gate::Edge edge(int e) const — per live entry, once;
+//   Gate::Edge edge(int e, int d) const — per live entry e (one with a
+//     pending colour), once; d is the entry's destination row;
 //   uint32_t draw(const Gate::Edge&, int w, uint32_t pending) const
 //     — the colours of word w among `pending` that cross the edge.
 #pragma once
@@ -58,7 +61,6 @@ __device__ __forceinline__ void expand_entry(
   if (valid) {
     const size_t s = (size_t)src_row[e];
     d = dst_row[e];
-    const auto edge = gate.edge(e);
     uint32_t pending[W];
     uint32_t live = 0u;
 #pragma unroll
@@ -67,6 +69,7 @@ __device__ __forceinline__ void expand_entry(
       live |= pending[w];
     }
     if (live) {
+      const auto edge = gate.edge(e, d);
 #pragma unroll
       for (int w = 0; w < W; ++w) {
         if (pending[w]) bits[w] = gate.draw(edge, w, pending[w]);

@@ -1,7 +1,7 @@
-// The colour-word count of the tile kernels (csrc/slot_expand.cuh,
-// csrc/tile_expand.cuh): W 32-bit words of colour bits per mask row, at
-// most kMax (256 colours), fixed at compile time so a thread keeps its
-// words in registers.
+// The colour-word count of the mask kernels (csrc/slot_expand.cuh,
+// csrc/coverage.cu): W 32-bit words of colour bits per mask row, at most
+// kMax (256 colours), fixed at compile time so a thread keeps its words in
+// registers.
 #pragma once
 
 #include <cuda_runtime.h>

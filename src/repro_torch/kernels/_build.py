@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_launchers: dict[str, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -114,3 +115,15 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, *_start(name))
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def launcher(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """``symbol`` of `load`'s library of ``csrc/<name>.cu``, returning an
+    int (a cudaError_t); its argument types are set on first use, not on
+    every launch."""
+    fn = _launchers.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        _launchers[symbol] = fn
+    return fn

@@ -131,8 +131,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_offset < 0:
         raise ValueError(f"flash_attention: kv_offset {kv_offset} < 0")
     out = torch.empty_like(q)
-    fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _build.launcher("flash_attention", "flash_attention_launch",
+                         _ARGTYPES)
     _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  _DTYPES[q.dtype], b, lq, lk, h, kvh, d, scale, int(causal),
                  kv_offset, torch.cuda.current_stream(q.device).cuda_stream),
@@ -152,8 +152,8 @@ def flash_prefill_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"{WGMMA_HEAD_DIMS} (got {d}) and kv_offset >= 0 "
                          f"(got {kv_offset})")
     out = torch.empty_like(q)
-    fn = _build.load("flash_prefill_wgmma").flash_prefill_wgmma_launch
-    fn.argtypes, fn.restype = _WGMMA_ARGTYPES, ctypes.c_int
+    fn = _build.launcher("flash_prefill_wgmma", "flash_prefill_wgmma_launch",
+                         _WGMMA_ARGTYPES)
     _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, lq, lk, h, kvh, d, scale, int(causal), kv_offset,
                  torch.cuda.current_stream(q.device).cuda_stream),
@@ -185,8 +185,8 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # The partials (m, l, acc) of every split, then one counter per group.
     part = torch.empty(groups * (n_chunks * HEADS_PER_CTA * (d + 2) + 1),
                        dtype=torch.float32, device=q.device)
-    fn = _build.load("flash_decode").flash_decode_launch
-    fn.argtypes, fn.restype = _DECODE_ARGTYPES, ctypes.c_int
+    fn = _build.launcher("flash_decode", "flash_decode_launch",
+                         _DECODE_ARGTYPES)
     _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  part.data_ptr(), _DTYPES[q.dtype], b, lk, h, kvh, d, scale,
                  n_vis, chunk, n_chunks,

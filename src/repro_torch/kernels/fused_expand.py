@@ -22,16 +22,16 @@ import torch
 
 from repro_torch.kernels import _build
 
+# The C interface the slot-list kernels share, up to their gate's own
+# arguments (then the stream).
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
                                       ctypes.c_int]
-             + [ctypes.c_void_p] * 3
-             + [ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
-                ctypes.c_void_p])
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int])
 
 
 def check_slot_list(kernel: str, slots, frontier, visited, tile_ids, dev,
                     value_dtype) -> int:
-    """The checks the two slot-list kernels' wrappers share (``slots`` a
+    """The checks the three slot-list kernels' wrappers share (``slots`` a
     `core.tiles.SlotList` whose values are ``value_dtype``); returns the
     word count W."""
     for name in ("slot_ptr", "src_row", "dst_row", "key"):
@@ -59,14 +59,18 @@ def check_slot_list(kernel: str, slots, frontier, visited, tile_ids, dev,
 
 def launch_slot_kernel(kernel: str, value_dtype, slots,
                        frontier: torch.Tensor, visited: torch.Tensor,
-                       seed: int, level: int, tile_ids) -> torch.Tensor:
-    """Check, then launch ``csrc/<kernel>.cu`` (both slot-list kernels have
-    one C interface) on ``frontier``'s stream; returns the output mask."""
+                       tile_ids, gate_args=()) -> torch.Tensor:
+    """Check, then launch ``csrc/<kernel>.cu`` on ``frontier``'s stream;
+    returns the output mask.  The slot-list kernels share one C interface
+    up to ``gate_args``, their gate's own arguments as ctypes values (the
+    seed and level of a draw, the uniform table of LT); a wrapper checks
+    those before it calls this."""
     dev = frontier.device
     w = check_slot_list(kernel, slots, frontier, visited, tile_ids, dev,
                         value_dtype)
-    fn = getattr(_build.load(kernel), f"{kernel}_launch")
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = _build.launcher(kernel, f"{kernel}_launch",
+                         _ARGTYPES + [type(a) for a in gate_args]
+                         + [ctypes.c_void_p])
     out = torch.empty_like(visited)
     err = fn(slots.slot_ptr.data_ptr(), slots.src_row.data_ptr(),
              slots.dst_row.data_ptr(), slots.value.data_ptr(),
@@ -74,12 +78,17 @@ def launch_slot_kernel(kernel: str, value_dtype, slots,
              _build.data_ptr(tile_ids),
              -1 if tile_ids is None else tile_ids.shape[0],
              frontier.data_ptr(), visited.data_ptr(), out.data_ptr(),
-             visited.shape[0], w, int(seed) & 0xFFFFFFFF,
-             int(level) & 0xFFFFFFFF,
+             visited.shape[0], w, *gate_args,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
     return out
+
+
+def draw_args(seed: int, level: int) -> tuple:
+    """The IC gates' arguments: the traversal seed and the level, uint32."""
+    return (ctypes.c_uint32(int(seed) & 0xFFFFFFFF),
+            ctypes.c_uint32(int(level) & 0xFFFFFFFF))
 
 
 def fused_expand_cuda(slots, frontier: torch.Tensor,
@@ -92,4 +101,4 @@ def fused_expand_cuda(slots, frontier: torch.Tensor,
     of the listed tiles (None: every tile), each below the layout's tile
     count."""
     return launch_slot_kernel("fused_expand", torch.float32, slots, frontier,
-                              visited, seed, level, tile_ids)
+                              visited, tile_ids, draw_args(seed, level))

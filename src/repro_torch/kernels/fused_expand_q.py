@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.fused_expand import launch_slot_kernel
+from repro_torch.kernels.fused_expand import draw_args, launch_slot_kernel
 
 
 def quantize_probs(prob: torch.Tensor) -> torch.Tensor:
@@ -48,4 +48,5 @@ def fused_expand_q_cuda(slots, frontier: torch.Tensor,
     quantised stack's `core.tiles.q_slot_list` (uint8 values, cell keys);
     a listed tile draws with its own id."""
     return launch_slot_kernel("fused_expand_q", torch.uint8, slots,
-                              frontier, visited, seed, level, tile_ids)
+                              frontier, visited, tile_ids,
+                              draw_args(seed, level))

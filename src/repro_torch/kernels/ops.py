@@ -7,13 +7,15 @@ is no fallback from one to the other.  ``LAUNCHES`` counts kernel launches
 show that its path went through the kernels.
 
 The tile kernels take an optional ``tile_ids``: ascending int32 ids of the
-tiles to walk (the sparse frontier's compacted list).  ``fused_expand`` and
-``fused_expand_q`` walk the layout's slot list (`core.tiles.ic_slot_list`,
-`core.tiles.q_slot_list`, built once per stack), on the card and in their
-plain versions alike, so the CPU runs exercise the list too;
-``lt_select_expand`` walks the tiles through run pointers built here on the
-device.  ``fused_expand_q`` reads the quantised layout's uint8 stack
-(`core.tiles.quantized`).  ``flash_attention`` serves the LM substrate's
+tiles to walk (the sparse frontier's compacted list).  Each walks the
+layout's slot list (`core.tiles.ic_slot_list`, `q_slot_list`,
+`lt_slot_list`, built once per stack), on the card and in its plain
+version alike, so the CPU runs exercise the list too.  ``fused_expand_q``
+reads the quantised layout's uint8 stack (`core.tiles.quantized`).
+``cover_counts`` and ``cover_counts_multi`` launch one kernel
+(``csrc/coverage.cu``) for one or Q active masks per batch;
+``LAUNCHES["cover_counts"]`` counts both, ``cover_counts_multi`` the
+second alone.  ``flash_attention`` serves the LM substrate's
 prefill and decode through three kernels chosen by shape
 (`kernels.flash_attention.route`); ``LAUNCHES["flash_attention"]`` counts
 them all, ``flash_wgmma``, ``flash_decode`` and ``flash_simt`` each route.
@@ -28,7 +30,8 @@ from repro_torch.kernels import ref
 
 LAUNCHES = {"fused_expand": 0, "cover_counts": 0, "lt_select_expand": 0,
             "flash_attention": 0, "fused_expand_q": 0,
-            "flash_wgmma": 0, "flash_decode": 0, "flash_simt": 0}
+            "flash_wgmma": 0, "flash_decode": 0, "flash_simt": 0,
+            "cover_counts_multi": 0}
 
 
 def reset_launches() -> None:
@@ -43,15 +46,6 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
-
-
-def _run_ptr(tg: TiledGraph, tile_ids):
-    """Run pointers of the walked list: the layout's own, or those of the
-    compacted list (``tile_dst[ids]`` stays sorted)."""
-    if tile_ids is None:
-        return tg.dst_run_ptr
-    return tiles.run_pointers(tg.tile_dst[tile_ids.to(torch.int64)],
-                              tg.num_blocks)
 
 
 def fused_expand(tg: TiledGraph, frontier: torch.Tensor,
@@ -74,20 +68,18 @@ def lt_select_expand(tg: TiledGraph, cb: torch.Tensor, frontier: torch.Tensor,
                      visited: torch.Tensor, u: torch.Tensor,
                      tile_ids: torch.Tensor | None = None) -> torch.Tensor:
     """One fused-BPT LT expansion level: ``cb`` the selection-CDF prefixes
-    in ``tg``'s layout, ``u`` the traversal's uniform table."""
-    if tg.prob is None:
-        raise ValueError("lt_select_expand reads the float32 prob stack, "
-                         "which a quantised layout (tiles.quantized) lacks")
+    in ``tg``'s layout, ``u`` the traversal's uniform table; over every
+    tile or the listed ones."""
+    slots = tiles.lt_slot_list(tg, cb)
     if _on_cuda(tg.prob, cb, frontier, visited, u):
         from repro_torch.kernels.lt_select_expand import \
             lt_select_expand_cuda
-        out = lt_select_expand_cuda(tg.prob, cb, tg.tile_src,
-                                    _run_ptr(tg, tile_ids), frontier,
-                                    visited, u, tile_ids=tile_ids)
+        out = lt_select_expand_cuda(slots, frontier, visited, u,
+                                    tile_ids=tile_ids)
         LAUNCHES["lt_select_expand"] += 1
         return out
-    return ref.lt_select_expand_ref(tg.prob, cb, tg.tile_src, tg.tile_dst,
-                                    frontier, visited, u, tile_ids=tile_ids)
+    return ref.lt_select_expand_slots_ref(slots, frontier, visited, u,
+                                          tile_ids=tile_ids)
 
 
 def fused_expand_q(tg: TiledGraph, q8: torch.Tensor, frontier: torch.Tensor,
@@ -109,13 +101,28 @@ def fused_expand_q(tg: TiledGraph, q8: torch.Tensor, frontier: torch.Tensor,
 
 
 def cover_counts(visited: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
-    """Marginal-gain counts summed over batches: (B, V, W) × (B, W) → (V,)."""
+    """Marginal-gain counts summed over batches: (B, V, W) × (B, W) → (V,)
+    (`cover_counts_multi` with one active mask per batch)."""
     if _on_cuda(visited, active):
         from repro_torch.kernels.coverage import cover_counts_cuda
-        out = cover_counts_cuda(visited.contiguous(), active.contiguous())
+        out = cover_counts_cuda(visited.contiguous(),
+                                active.contiguous()[:, None])
         LAUNCHES["cover_counts"] += 1
-        return out
+        return out[0]
     return ref.cover_counts_ref(visited, active)
+
+
+def cover_counts_multi(visited: torch.Tensor,
+                       active_q: torch.Tensor) -> torch.Tensor:
+    """Marginal-gain counts for Q active masks per batch, summed over
+    batches, in one pass over ``visited``: (B, V, W) × (B, Q, W) → (Q, V)."""
+    if _on_cuda(visited, active_q):
+        from repro_torch.kernels.coverage import cover_counts_cuda
+        out = cover_counts_cuda(visited.contiguous(), active_q.contiguous())
+        LAUNCHES["cover_counts"] += 1
+        LAUNCHES["cover_counts_multi"] += 1
+        return out
+    return ref.cover_counts_multi_ref(visited, active_q)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

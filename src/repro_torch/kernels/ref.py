@@ -288,7 +288,7 @@ def lt_select_expand_ref(prob, cb, tile_src, tile_dst, frontier, visited, u,
     Args:
       prob:     (nt, T, T) f32 LT-normalised in-weights (0 ⇒ no edge).
       cb:       (nt, T, T) f32 selection-CDF prefix per slot
-                (`core.tiles.edge_values_to_tiles` of
+                (`core.tiles.lt_cb_tiles` of
                 `core.lt.selection_cum_before`).
       tile_src, tile_dst, frontier, visited: as `fused_expand_ref`.
       u:        (Vo, W·32) f32 from `lt_selection_uniforms`, rows aligned
@@ -307,6 +307,27 @@ def lt_select_expand_ref(prob, cb, tile_src, tile_dst, frontier, visited, u,
                         chunk_tiles, tile_ids)
 
 
+def lt_select_expand_slots_ref(slots, frontier, visited, u, *,
+                               tile_ids=None, chunk: int = 1 << 16):
+    """`lt_select_expand_ref`'s function over the LT slot list
+    (`core.tiles.lt_slot_list`), as ``csrc/lt_select_expand.cu`` computes
+    it: per entry ``lo = key`` read as float32 (the cb prefix) and ``hi =
+    lo + value`` (one float32 add), and a pending colour ``c`` crosses when
+    ``lo ≤ u[dst_row, c] < hi``.  ``tile_ids``, ``frontier`` and
+    ``visited`` as `fused_expand_slots_ref`; ``u`` as
+    `lt_select_expand_ref`."""
+    w = frontier.shape[1]
+
+    def gate(e):
+        lo = slots.key[e].view(torch.float32)
+        hi = lo + slots.value[e]
+        U = u[slots.dst_row[e].to(torch.int64)].view(-1, w, 32)
+        return bitmask.pack_bits((U >= lo[:, None, None])
+                                 & (U < hi[:, None, None]))
+
+    return _slot_expand(gate, slots, frontier, visited, tile_ids, chunk)
+
+
 def cover_counts_ref(visited, active):
     """Marginal-gain counts for max-k-cover, summed over the pool's batches
     (replaces ``kernels/ref.py::cover_counts_ref`` composed with the batch
@@ -321,6 +342,20 @@ def cover_counts_ref(visited, active):
         visited, active = visited[None], active[None]
     return bitmask.popcount(visited & active[:, None, :]).sum(
         (0, 2), dtype=torch.int32)
+
+
+def cover_counts_multi_ref(visited, active_q):
+    """`cover_counts_ref` for Q active masks per batch at once (the
+    reference's ``lax.map`` over query slots at ``engine.py:109-113``):
+
+        counts[q, v] = Σ_b Σ_w popcount(visited[b, v, w] & active_q[b, q, w])
+
+    visited (B, V, W) int32 × active_q (B, Q, W) → (Q, V) int32."""
+    counts = torch.zeros((active_q.shape[1], visited.shape[1]),
+                         dtype=torch.int32, device=visited.device)
+    for q in range(active_q.shape[1]):
+        counts[q] = cover_counts_ref(visited, active_q[:, q])
+    return counts
 
 
 def flash_attention_ref(q, k, v, *, causal=True, scale=None, kv_offset=0):

@@ -165,10 +165,9 @@ class TiledSampler(Sampler):
             key = ("lt_cb_tiles", spec.tile_size)
             self._cb_tiles = self.g_rev.cache.get(key)
             if self._cb_tiles is None:
-                self._cb_tiles = self.g_rev.cache[key] = \
-                    tiles.edge_values_to_tiles(
-                        self.tg_rev, self.g_rev,
-                        lt.selection_cum_before(self.g_rev))
+                self._cb_tiles = self.g_rev.cache[key] = tiles.lt_cb_tiles(
+                    self.tg_rev, self.g_rev,
+                    lt.selection_cum_before(self.g_rev))
         self._ladder = (sparse.bucket_ladder(self.tg_rev.num_tiles,
                                              spec.frontier_capacity)
                         if spec.frontier == "sparse" else None)

@@ -8,8 +8,9 @@ Three query types, answered from the pool's columnar ``(B, V, W)`` stack:
 * **σ(S)** — the covered colours are the OR of the seeds' mask rows,
   σ(S) ≈ n · covered/θ;
 * **marginal gain with exclusions** — per-vertex gain Δσ(v | X) against an
-  active mask with X's colours stripped: one ``cover_counts`` launch per
-  query slot, the batch sum fused into the kernel.
+  active mask with X's colours stripped: one
+  `kernels.ops.cover_counts_multi` launch per flush for every query slot,
+  the batch sum fused into the kernel and the pool read once.
 
 σ(S)/marginal queries are slotted: the batcher pads every flush into a
 fixed ``(query_slots, max_seeds)`` shape, so concurrent callers share one
@@ -71,11 +72,11 @@ def sigma_counts(visited, seeds, mask, num_colors: int) -> torch.Tensor:
 
 def marginal_counts(visited, excl_seeds, excl_mask,
                     num_colors: int) -> torch.Tensor:
-    """Per-vertex marginal-gain counts per exclusion slot: (Q, V) int32."""
+    """Per-vertex marginal-gain counts per exclusion slot: (Q, V) int32, the
+    reference's ``lax.map`` over the slots in one pass over the pool."""
     tail = bitmask.tail_mask_tensor(num_colors, visited.device)
     active = tail & ~_union_rows(visited, excl_seeds, excl_mask)  # (B, Q, W)
-    return torch.stack([ops.cover_counts(visited, active[:, q].contiguous())
-                        for q in range(active.shape[1])])
+    return ops.cover_counts_multi(visited, active)
 
 
 class QueryEngine:

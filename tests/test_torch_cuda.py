@@ -106,7 +106,7 @@ def _lt_tiled(n, e, *, seed, tile_size, dst_limit=None, pad=0):
         n, dedupe=True, device="cuda"))
     nt = tiles.from_graph(g, tile_size).num_tiles
     tg = tiles.from_graph(g, tile_size, pad_tiles_to=nt + pad)
-    return tg, tiles.edge_values_to_tiles(tg, g, lt.selection_cum_before(g))
+    return tg, tiles.lt_cb_tiles(tg, g, lt.selection_cum_before(g))
 
 
 @pytest.mark.parametrize("tile_size", [32, 64, 128])
@@ -503,3 +503,182 @@ def test_slot_list_kernels_replay_from_a_cuda_graph(cuda):
             tg.prob, tg.edge_id, tg.tile_src, tg.tile_dst, fr, vis, 9, 2))
         assert torch.equal(out_q, ref.fused_expand_q_ref(
             q8, tg.tile_src, tg.tile_dst, fr, vis, 9, 2))
+
+
+# ------------------------------------------------------ LT on its slot list
+@pytest.mark.parametrize("colors", [32, 96, 160, 256])
+def test_lt_slot_list_kernel_equals_plain_at_every_word_count(cuda, colors):
+    """The LT kernel ≡ its tile-form plain version, W 1/3/5/8, on the dense
+    grid and on compacted lists (empty, one source block, full), padding
+    tiles and destination blocks no tile reaches; the list that
+    `tiles.lt_cb_tiles` makes equals the one read from the stacks."""
+    tg, cb = _lt_tiled(3000, 20000, seed=colors, tile_size=128,
+                       dst_limit=2200, pad=3)
+    slots = tiles.lt_slot_list(tg, cb)
+    again = tiles.lt_slot_list_from_stack(tg, cb)
+    for f in ("slot_ptr", "src_row", "dst_row", "value", "key"):
+        assert torch.equal(getattr(slots, f), getattr(again, f))
+    u = ref.lt_selection_uniforms(0xC0FFEE, tg.padded_vertices, colors,
+                                  device=cuda)
+    fr, vis = _masks(tg.padded_vertices, colors, colors, 0.3, cuda)
+    act = torch.zeros(tg.num_blocks, dtype=torch.bool, device=cuda)
+    lists = [None, tiles.active_tile_ids(tg.tile_src, act)]
+    act[int(tg.tile_src[0])] = True
+    lists.append(tiles.active_tile_ids(tg.tile_src, act))
+    act[:] = True
+    lists.append(tiles.active_tile_ids(tg.tile_src, act))
+    for ids in lists:
+        sel = slice(None) if ids is None else ids.long()
+        before = ops.LAUNCHES["lt_select_expand"]
+        got = ops.lt_select_expand(tg, cb, fr, vis, u, tile_ids=ids)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["lt_select_expand"] == before + 1
+        want = ref.lt_select_expand_ref(tg.prob[sel], cb[sel],
+                                        tg.tile_src[sel], tg.tile_dst[sel],
+                                        fr, vis, u)
+        assert torch.equal(got, want)
+        assert torch.equal(got, ref.lt_select_expand_slots_ref(
+            slots, fr, vis, u, tile_ids=ids))
+
+
+def test_lt_slot_list_kernel_merges_a_hub_destination(cuda):
+    """Destination rows with 300 in-edges each (LT-normalised, so each
+    in-weight ~1/300 and one in-edge live per colour): the warp merge and
+    the atomics lose no colour."""
+    n = 4096
+    rs = np.random.default_rng(2)
+    src = np.concatenate([np.arange(1000, 1300), rs.integers(0, n, 600),
+                          rs.integers(0, n, 5000)])
+    dst = np.concatenate([np.repeat([5, 700, 4095], 300),
+                          rs.integers(0, n, 5000)])
+    keep = src != dst
+    g = lt.normalize_lt_weights(csr.from_edges(
+        src[keep], dst[keep],
+        rs.uniform(0.05, 0.5, keep.sum()).astype(np.float32), n,
+        dedupe=True, device="cuda"))
+    tg = tiles.from_graph(g, edge_ids=False)
+    cb = tiles.lt_cb_tiles(tg, g, lt.selection_cum_before(g))
+    assert int((tiles.lt_slot_list(tg, cb).dst_row == 700).sum()) >= 250
+    for colors in (32, 256):
+        u = ref.lt_selection_uniforms(5, tg.padded_vertices, colors,
+                                      device=cuda)
+        fr, vis = _masks(tg.padded_vertices, colors, colors, 0.9, cuda)
+        vis[[5, 700, 4095]] = fr[[5, 700, 4095]]
+        for ids in (None, tiles.active_tile_ids(
+                tg.tile_src, torch.ones(tg.num_blocks, dtype=torch.bool,
+                                        device=cuda))):
+            got = ops.lt_select_expand(tg, cb, fr, vis, u, tile_ids=ids)
+            want = ref.lt_select_expand_ref(tg.prob, cb, tg.tile_src,
+                                            tg.tile_dst, fr, vis, u)
+            assert torch.equal(got, want) and bool(got[700].any())
+
+
+def test_lt_slot_list_kernel_replays_from_a_cuda_graph(cuda):
+    """The output's memset and the LT kernel replay from a CUDA graph on
+    both grids: new frontier words written into the captured buffers give
+    the plain version's result for them."""
+    tg, cb = _lt_tiled(3000, 20000, seed=5, tile_size=128, dst_limit=2200)
+    u = ref.lt_selection_uniforms(3, tg.padded_vertices, 64, device=cuda)
+    fr, vis = _masks(tg.padded_vertices, 64, 1, 0.3, cuda)
+    ids = tiles.active_tile_ids(
+        tg.tile_src, torch.ones(tg.num_blocks, dtype=torch.bool,
+                                device=cuda))
+    ops.lt_select_expand(tg, cb, fr, vis, u)
+    ops.lt_select_expand(tg, cb, fr, vis, u, tile_ids=ids)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dense = ops.lt_select_expand(tg, cb, fr, vis, u)
+        listed = ops.lt_select_expand(tg, cb, fr, vis, u, tile_ids=ids)
+    for seed in (2, 3):
+        new_fr, new_vis = _masks(tg.padded_vertices, 64, seed, 0.3, cuda)
+        fr.copy_(new_fr)
+        vis.copy_(new_vis)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ref.lt_select_expand_ref(tg.prob, cb, tg.tile_src,
+                                        tg.tile_dst, fr, vis, u)
+        assert torch.equal(dense, want) and torch.equal(listed, want)
+
+
+# ------------------------------------------------------------ cover counts
+def _cover_inputs(b, v, w, q, seed, offset=0):
+    """Random (B, V, W) and (B, Q, W) int32 words on the GPU; ``offset``
+    words shift the visited tensor's base off its allocation's start."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    flat = torch.randint(-2 ** 31, 2 ** 31, (offset + b * v * w,),
+                         dtype=torch.int32, device="cuda", generator=g)
+    act = torch.randint(-2 ** 31, 2 ** 31, (b, q, w), dtype=torch.int32,
+                        device="cuda", generator=g)
+    return flat[offset:].view(b, v, w), act
+
+
+@pytest.mark.parametrize("w", range(1, 9))
+@pytest.mark.parametrize("b,v", [(1, 0), (64, 0), (1, 1), (64, 1),
+                                 (1, 257), (64, 257), (1, 65536),
+                                 (64, 65536)])
+def test_cover_counts_both_forms_equal_plain(cuda, b, v, w):
+    """One active mask (``cover_counts``) and eight (``cover_counts_multi``)
+    against the plain versions, exactly; 16-byte loads where each slab is
+    aligned and word loads where it is not (V = 1, 257 at odd W)."""
+    vis, act = _cover_inputs(b, v, w, 8, seed=b * 100 + w)
+    before = dict(ops.LAUNCHES)
+    one = ops.cover_counts(vis, act[:, 0])
+    many = ops.cover_counts_multi(vis, act)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["cover_counts"] == before["cover_counts"] + 2
+    assert ops.LAUNCHES["cover_counts_multi"] == \
+        before["cover_counts_multi"] + 1
+    assert one.shape == (v,) and many.shape == (8, v)
+    assert torch.equal(one, ref.cover_counts_ref(vis, act[:, 0]))
+    assert torch.equal(many, ref.cover_counts_multi_ref(vis, act))
+
+
+@pytest.mark.parametrize("q", [1, 3, 8, 11])
+@pytest.mark.parametrize("b,v", [(1, 4100), (64, 4100), (60, 65536)])
+def test_cover_counts_batch_ranges_offset_base_and_mask_count(cuda, q, b, v):
+    """The launcher's split of B over the grid, reached by B: one batch
+    (one range: stores, nothing zeroed), 64 batches of a narrow V (a range
+    per batch: atomics into zeroed counts), 60 batches of the pool's V
+    (ranges of several batches, the last one short); a base 4 bytes off
+    16-byte alignment, Q below, at and above one launch's eight masks;
+    and W = 9 (rows past the tile kernels' 8 words)."""
+    from repro_torch.kernels.coverage import cover_counts_cuda
+    for w, offset in ((2, 0), (2, 1), (9, 0)):
+        vis, act = _cover_inputs(b, v, w, q, seed=q + b, offset=offset)
+        got = cover_counts_cuda(vis, act)
+        assert torch.equal(got, ref.cover_counts_multi_ref(vis, act))
+
+
+def test_cover_counts_replays_from_a_cuda_graph_and_on_two_streams(cuda):
+    """The zeroing and the kernel replay from a CUDA graph (new words in
+    the captured buffers give their counts); launches queued on two
+    streams at once, on inputs of their own, each give the plain
+    version's counts."""
+    vis, act = _cover_inputs(64, 65536, 2, 8, seed=1)
+    ops.cover_counts_multi(vis, act)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        one = ops.cover_counts(vis, act[:, 0])
+        many = ops.cover_counts_multi(vis, act)
+    for seed in (2, 3):
+        new_vis, new_act = _cover_inputs(64, 65536, 2, 8, seed=seed)
+        vis.copy_(new_vis)
+        act.copy_(new_act)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(one, ref.cover_counts_ref(vis, act[:, 0]))
+        assert torch.equal(many, ref.cover_counts_multi_ref(vis, act))
+    ins = [_cover_inputs(64, 65536, 2, 8, seed=s) for s in (11, 12)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(10):
+        for (v, a), stream, got in zip(ins, streams, outs):
+            with torch.cuda.stream(stream):
+                got.append(ops.cover_counts_multi(v, a))
+    torch.cuda.synchronize()
+    for (v, a), got in zip(ins, outs):
+        want = ref.cover_counts_multi_ref(v, a)
+        assert all(torch.equal(o, want) for o in got)

@@ -154,7 +154,7 @@ def _lt_tiles(gj, gt, tile_size, pad=0):
     tj = jtiles.from_graph(gj, tile_size, pad_tiles_to=pad_to)
     tt = ttiles.from_graph(gt, tile_size, pad_tiles_to=pad_to)
     cbj = jtiles.edge_values_to_tiles(tj, jlt.selection_cum_before(gj))
-    cbt = ttiles.edge_values_to_tiles(tt, gt, tlt.selection_cum_before(gt))
+    cbt = ttiles.lt_cb_tiles(tt, gt, tlt.selection_cum_before(gt))
     return tj, tt, cbj, cbt
 
 
@@ -175,8 +175,8 @@ def test_edge_values_to_tiles_matches_reference(tile_size, pad):
     tj, tt, cbj, cbt = _lt_tiles(gj, gt, tile_size, pad)
     assert (cbj[np.asarray(tj.prob) == 0] == 0).all() and cbj.any()
     np.testing.assert_array_equal(_bits(cbt), _bits(cbj))
-    ids = ttiles.edge_values_to_tiles(
-        tt, gt, np.arange(gt.num_edges, dtype=np.float32))
+    ids = ttiles.lt_cb_tiles(tt, gt,
+                             np.arange(gt.num_edges, dtype=np.float32))
     np.testing.assert_array_equal(
         _bits(ids), _bits(jtiles.edge_values_to_tiles(
             tj, np.arange(gj.num_edges, dtype=np.float32))))
@@ -277,19 +277,19 @@ def test_run_fused_lt_tiled_matches_reference(tile_size, frontier):
 
 
 def test_lt_wrapper_checks_shapes_before_it_builds():
-    """The CUDA wrapper refuses a uniform table of the wrong shape and a
-    cb stack unlike prob's (checked on any device, so on CPU here)."""
+    """The CUDA wrapper refuses a uniform table of the wrong shape, and the
+    LT slot list a cb stack unlike prob's (checked on any device, so on CPU
+    here)."""
     gj, gt = _pair(256, 0.5, seed=4)
     _, tt, _, cbt = _lt_tiles(gj, gt, 64)
     fr, vis = (convert.masks_from_numpy(m, "cpu")
                for m in _lt_masks(tt.padded_vertices, 64, 5, 0.3))
     u = tref.lt_selection_uniforms(1, tt.padded_vertices, 64)
     with pytest.raises(ValueError, match="u "):
-        tlse.lt_select_expand_cuda(tt.prob, cbt, tt.tile_src, tt.dst_run_ptr,
-                                   fr, vis, u[:, :32].contiguous())
+        tlse.lt_select_expand_cuda(ttiles.lt_slot_list(tt, cbt), fr, vis,
+                                   u[:, :32].contiguous())
     with pytest.raises(ValueError, match="cb"):
-        tlse.lt_select_expand_cuda(tt.prob, cbt[:1].contiguous(), tt.tile_src,
-                                   tt.dst_run_ptr, fr, vis, u)
+        ttiles.lt_slot_list(tt, cbt[:1].contiguous())
 
 
 def test_lt_tile_layout_has_no_edge_id_stack():

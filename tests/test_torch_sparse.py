@@ -260,7 +260,7 @@ def test_tile_list_expansion_matches_reference_gather(active):
     tj, tt = _tiles_pair(gj, gt, 32, pad=3)
     cbj = jnp.asarray(jtiles.edge_values_to_tiles(
         tj, jlt.selection_cum_before(gj)))
-    cbt = ttiles.edge_values_to_tiles(tt, gt, tlt.selection_cum_before(gt))
+    cbt = ttiles.lt_cb_tiles(tt, gt, tlt.selection_cum_before(gt))
     fr, vis = _expand_masks(tt.padded_vertices, 3, 0.3)
     act = np.zeros(tt.num_blocks, bool)
     act[{"none": [], "one": [2], "all": slice(None)}[active]] = True
