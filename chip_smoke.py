@@ -26,8 +26,10 @@ else.  Phases, each of which raises on failure:
    kernel backend — powerlaw_cluster(65,536, 6.0, p=0.25, seed 7), 64
    colours, a 64-batch pool (4,096 RRR sets), one mixed micro-batched flush
    (top-16, 6 σ, 6 marginal), the same flush as 100% cache hits, a 25%
-   refresh, and offline ``run_imm`` (ε 0.5, θ ≤ 4,096) through a fresh pool
-   and without one, both equal to the host-loop greedy.  The launch counters
+   refresh, the pool saved and restored (identical stack, counters and
+   top-16; the snapshot's MiB and the save and restore seconds), and
+   offline ``run_imm`` (ε 0.5, θ ≤ 4,096) through a fresh pool and without
+   one, both equal to the host-loop greedy.  The launch counters
    are zeroed just before and read just after; ``fused_expand`` and
    ``cover_counts`` must have run, and ``cover_counts_multi`` once for each
    marginal dispatch (one for all its query slots);
@@ -46,15 +48,41 @@ else.  Phases, each of which raises on failure:
    beside the events-around-one-eager-call figure of earlier runs, the
    8-mask form against 8 one-mask launches; each beside its bound on this
    card;
+6a. the serving tier, after the IC phase's release: the launcher's
+   ``run_tier --smoke --autoscale`` (3 tenants, tenant0 starved, over 2
+   replicas of a 64-batch pool on the kernel backend): sheds carry a
+   retry-after, every in-quota answer equals a direct ``QueryEngine`` on a
+   clone, a refresh of one replica never yields a mixed-epoch gather, the
+   replicas re-converge bit for bit, and an autoscale step keeps them
+   consistent; p50 and p99 query latency from the tier's histogram;
+   counters as in 4, ``cover_counts`` must have run;
+6b. an IC streaming delta: the launcher's ``run_stream`` (``--queries 64``:
+   64 deletions and 64 insertions) through the tier on the kernel backend —
+   the incremental pool equals ``cold_rebuild_batches`` word for word, the
+   replicas agree, a pre/post-delta gather is refused, a starved tenant's
+   second delta is shed — and the delta, the mutated reversed graph, the
+   touched row blocks and slots 0-3 (words, levels, the dense CSR
+   sampler's edge visits) against the golden file's ``"stream"`` entry;
+   it prints the touched row blocks, the dirty slots of 64, ``apply_plan``
+   split into the rebind (layout and slot-list rebuild) and the
+   resampling, and a cold rebuild of all 64 slots; ``fused_expand`` must
+   have run.  Then ``SamplingDriver`` on the mutated pair (4 workers, 20%
+   injected failures, 16 batches) equal to the store's slots 0-15, with
+   ``fused_expand`` launched by its workers;
 7. LT main path at full size, after the IC tile stacks are released: the
    same launcher run with ``--diffusion lt --frontier sparse`` (the
    ``lt_select_expand`` kernel on the compacted tile list's slot list);
    counters as in 4, ``lt_select_expand`` and ``cover_counts`` must have
-   run, ``cover_counts_multi`` as in 4;
+   run, ``cover_counts_multi`` as in 4, and the pool saved and restored as
+   in 4;
 8. LT golden: batches 0-3 on the kernel backend, dense and compacted grid,
    0-1 on the dense CSR backend, and the top-16 seeds, against the file;
 9. LT timing: as 6 (the LT slot list, both grids), with the plain version
    on the compacted list;
+9a. an LT streaming delta, after the LT phase's release: as 6b with
+   ``--diffusion lt --frontier sparse`` (``lt_select_expand`` must have
+   run; the renormalised in-edges count among the touched rows), without
+   the driver;
 10. quantised golden, after the LT tile stacks are released: the port's
     whole quantised path at the golden file's ``"q"`` size (4,096
     vertices: generator, ``cluster`` reordering, q8 layout,
@@ -114,7 +142,9 @@ else.  Phases, each of which raises on failure:
     the port never calls it) from a CUDA graph of 10 launches and with
     events around one eager call, each beside the function's bound.
 
-Each phase prints its peak device memory.  The line before the last is the
+Each phase prints its peak device memory.  Phases 6a, 6b and 9a each build
+their own graph and 24.2 GiB tile layout, after the phase before is
+released; a delta's rebind holds the old and new layouts for a moment.  The line before the last is the
 card's name and power limit as ``nvidia-smi`` reports them; the last line
 is the result object.
 """
@@ -838,6 +868,188 @@ def check_outputs_lt(out: dict, golden: dict) -> None:
     print("[golden] LT kernel batches 0-3 (compacted grid and dense grid), "
           "dense CSR batches 0-1 and the top-16 seeds equal the reference "
           f"bit for bit; peak device memory {_peak_gib():.2f} GiB")
+
+
+# ------------------------------------------------- serving lifecycle phases
+def _release(what: str) -> None:
+    """Free what the phase before held, so that each phase's peak device
+    memory is its own (and two 24.2 GiB layouts never outlive a phase)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"[release] {what} freed: {held:.2f} GiB still allocated")
+
+
+def _launcher_args(golden: dict, *flags: str):
+    from repro_torch.launch import serve_influence
+    return serve_influence.parse_args([
+        "--device", "cuda", "--sampler-backend", "kernel",
+        "--n", str(golden["graph"]["n"]), "--colors", "64",
+        "--batches", "64", "--max-batches", "64", "--k", "16", *flags])
+
+
+def run_tier_phase(golden: dict) -> dict:
+    """The serving tier at full size: ``run_tier --smoke --autoscale``, 3
+    tenants over 2 replicas of the 64-batch IC pool on the kernel backend.
+    The launcher checks the tier's contract; here ``cover_counts`` must
+    have launched, and the latency quantiles come from the tier's own
+    histogram (bucket upper bounds)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_influence
+
+    args = _launcher_args(golden, "--tier", "--smoke", "--autoscale",
+                          "--tenants", "3", "--replicas", "2")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = serve_influence.run_tier(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    _check(launches["cover_counts"] > 0,
+           f"the tier served without cover_counts: {launches}")
+    lat = out["snapshot"]["latency"]["all"]
+    d = out["decision"]
+    res = dict(launches=launches, p50_ms=lat["p50"] * 1e3,
+               p99_ms=lat["p99"] * 1e3, queries=lat["count"],
+               mean_ms=lat["mean"] * 1e3, max_ms=lat["max"] * 1e3,
+               shed_rate=out["snapshot"]["totals"]["shed_rate"],
+               decision=f"{d.action} {d.batches_before}->{d.batches_after}",
+               seconds=seconds, peak_gib=_peak_gib())
+    print(f"[tier] launches {launches}; latency over {lat['count']} "
+          f"queries: p50 {res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms "
+          f"(histogram bucket bounds), mean {res['mean_ms']:.3f} ms, max "
+          f"{res['max_ms']:.3f} ms; autoscale {res['decision']}; "
+          f"{seconds:.2f}s; peak device memory {res['peak_gib']:.2f} GiB")
+    return res
+
+
+def _digest(g) -> dict:
+    """Edge counts and the sha256 of the padded edge arrays, as the golden
+    file records them."""
+    out = {"num_edges": g.num_edges, "padded_edges": g.padded_edges}
+    for name, dtype in (("src", "<i4"), ("dst", "<i4"), ("prob", "<f4")):
+        arr = getattr(g, name).cpu().numpy().astype(dtype)
+        out[f"{name}_sha256"] = hashlib.sha256(arr.tobytes()).hexdigest()
+    return out
+
+
+def run_stream_phase(golden: dict, diffusion: str) -> dict:
+    """A streaming delta at full size through the tier on the kernel
+    backend: ``run_stream`` with 64 deletions and 64 insertions (IC on the
+    dense grid, LT on the compacted list).  The launcher checks the pool
+    against a cold rebuild, the replicas, the refused pre/post gather and
+    the shed delta; here the delta, the mutated reversed graph, the touched
+    row blocks and slots 0-3 (words, levels and, for IC, the dense CSR
+    sampler's edge visits) are held against the golden ``"stream"``
+    entry, and the path's tile kernel must have launched."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_influence
+    from repro_torch.sampling import SamplerSpec, make_sampler
+
+    gold = golden["stream"]
+    extra = ("--diffusion", "lt", "--frontier", "sparse") \
+        if diffusion == "lt" else ()
+    args = _launcher_args(golden, "--stream-smoke", "--queries",
+                          str(gold["ops"]), *extra)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out = serve_influence.run_stream(args)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    kernel = "lt_select_expand" if diffusion == "lt" else "fused_expand"
+    _check(launches[kernel] > 0,
+           f"the {diffusion} stream path never launched {kernel}: {launches}")
+    peak = _peak_gib()
+    report, store = out["report"], out["store"]
+    d = out["delta"]
+    delta_sha = hashlib.sha256(b"".join(
+        np.ascontiguousarray(a).tobytes()
+        for a in (d.src, d.dst, d.weight, d.insert))).hexdigest()
+    _check(delta_sha == gold["delta_sha256"],
+           "the delta differs from the reference's draw")
+    g = gold[diffusion]
+    _check(_digest(store.g_rev) == g["g_rev"],
+           f"{diffusion} mutated reversed graph differs from the reference's")
+    _check(report.touched_row_blocks == len(g["touched_row_blocks"]),
+           f"{report.touched_row_blocks} touched row blocks, reference "
+           f"{len(g['touched_row_blocks'])}")
+    levels = []
+    for b, gb in zip(range(4), g["batches"]):
+        slot = store.batches[b]
+        again = store.sampler.sample(b)
+        levels.append(store.sampler.last_levels)
+        _check(slot.batch_index == b
+               and _sha(slot.visited) == gb["visited_sha256"]
+               and torch.equal(again.visited, slot.visited)
+               and store.sampler.last_levels == gb["levels"],
+               f"{diffusion} slot {b} after the delta differs from the "
+               f"reference (levels {store.sampler.last_levels} vs "
+               f"{gb['levels']})")
+    if diffusion == "ic":
+        dense = make_sampler(store.graph, SamplerSpec(backend="dense"),
+                             g_rev=store.g_rev).sample_many(range(4))
+        for dn, gb in zip(dense, g["batches"]):
+            _check(_sha(dn.visited) == gb["visited_sha256"]
+                   and dn.fused_edge_visits == gb["fused_edge_visits"]
+                   and dn.unfused_edge_visits == gb["unfused_edge_visits"],
+                   f"dense CSR batch {dn.batch_index} on the mutated pair "
+                   "differs from the reference")
+        del dense
+    res = dict(launches=launches, peak_gib=peak,
+               touched_row_blocks=report.touched_row_blocks,
+               dirty_slots=report.dirty_slots, total_slots=report.total_slots,
+               refresh_s=report.refresh_s, rebind_s=report.rebind_s,
+               resample_s=report.resample_s, cold_s=out["cold_s"],
+               levels=levels, renormalised_edges=g["renormalised_edges"])
+    print(f"[stream {diffusion}] delta +{report.inserted}/-{report.deleted}: "
+          f"{report.touched_row_blocks} touched row blocks of "
+          f"{-(-store.graph.num_vertices // 128)}, {report.dirty_slots}/"
+          f"{report.total_slots} slots dirty; apply_plan over 2 replicas "
+          f"{report.refresh_s:.3f}s = rebind {report.rebind_s:.3f}s "
+          f"(layout and slot-list rebuild) + resample "
+          f"{report.resample_s:.3f}s; cold rebuild of all "
+          f"{report.total_slots} slots {out['cold_s']:.3f}s; slots 0-3 "
+          f"(levels {levels}) equal the reference's"
+          + (" (dense CSR edge visits too)" if diffusion == "ic" else
+             f" (the reference's sampler renormalises "
+             f"{g['renormalised_edges']} weights once more; the port "
+             "samples the mutated graph as it is)")
+          + f"; launches {launches}; peak device memory {peak:.2f} GiB")
+    if diffusion == "ic":
+        res["driver"] = run_driver_check(store)
+    return res
+
+
+def run_driver_check(store) -> dict:
+    """`SamplingDriver` on the kernel backend over the mutated pair: 4
+    worker threads, 20% injected failures, 16 batches, which must equal the
+    store's slots 0-15 word for word."""
+    from repro_torch.core.driver import SamplingDriver
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    drv = SamplingDriver(store.g_rev, store.num_colors, store.master_seed,
+                         num_workers=4, failure_rate=0.2, max_attempts=20,
+                         spec=store.spec)
+    t0 = time.perf_counter()
+    batches = drv.run(16)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    _check(launches["fused_expand"] > 0,
+           f"the driver's workers never launched fused_expand: {launches}")
+    for i, b in enumerate(batches):
+        _check(store.batches[i].batch_index == i
+               and torch.equal(b.visited, store.batches[i].visited),
+               f"driver batch {i} differs from the store's slot {i}")
+    st = drv.stats
+    print(f"[driver] 16 batches on 4 workers at failure rate 0.2 in "
+          f"{seconds:.3f}s: {st.failures} failures, {st.reissues} "
+          f"reissues, {st.speculative} speculative; equal to the store's "
+          f"slots 0-15 word for word; launches {launches}")
+    return dict(launches=launches, seconds=seconds, failures=st.failures,
+                reissues=st.reissues, speculative=st.speculative)
 
 
 def time_cover_counts(store) -> dict:
@@ -1748,35 +1960,36 @@ def main() -> int:
     cc = time_cover_counts(out["store"])
     print(f"[timing ic] peak device memory {_peak_gib():.2f} GiB")
     ic = dict(build_s=out["build_s"], flush_s=out["flush_s"],
-              reflush_s=out["reflush_s"])
+              reflush_s=out["reflush_s"],
+              **{k: out[k] for k in ("snapshot_mib", "save_s", "restore_s")})
     # The LT stacks (prob, cb) take another 24.2 GiB at this size: release
     # the IC graph, its 24.2 GiB of tiles and the pools first, so that each
     # phase's peak device memory is its own.
     del out
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated() / 2 ** 30
-    print(f"[release] IC phase freed: {held:.2f} GiB still allocated")
+    _release("IC phase")
+
+    tier = run_tier_phase(golden)
+    _release("tier phase")
+    stream_ic = run_stream_phase(golden, "ic")
+    _release("IC stream phase")
 
     out_lt, launches_lt = run_main_path(golden, "lt")
     check_outputs_lt(out_lt, golden)
     torch.cuda.reset_peak_memory_stats()
     lse = time_tile_kernel(out_lt["store"], "lt")
     print(f"[timing lt] peak device memory {_peak_gib():.2f} GiB")
-    lt = dict(build_s=out_lt["build_s"], reflush_s=out_lt["reflush_s"])
+    lt = dict(build_s=out_lt["build_s"], reflush_s=out_lt["reflush_s"],
+              **{k: out_lt[k] for k in ("snapshot_mib", "save_s",
+                                        "restore_s")})
     # The LM phases hold up to ~10 GiB: release the LT graph, its 24.2 GiB
     # of tiles and the pools first, as the IC phase's are above.
     del out_lt
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated() / 2 ** 30
-    print(f"[release] LT phase freed: {held:.2f} GiB still allocated")
+    _release("LT phase")
+    stream_lt = run_stream_phase(golden, "lt")
+    _release("LT stream phase")
 
     q = run_q_phases(golden, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated() / 2 ** 30
-    print(f"[release] quantised phases freed: {held:.2f} GiB still allocated")
+    _release("quantised phases")
 
     torch.cuda.reset_peak_memory_stats()
     flash_err = check_flash(dev)
@@ -1819,11 +2032,30 @@ def main() -> int:
           f"ms dense / {q['compact_ms']:.4f} ms compacted per level, batch "
           f"{q['batch_dense_ms']:.2f} / {q['batch_compact_ms']:.2f} ms end to "
           f"end; total {time.time() - t_all:.1f}s")
+    drv = stream_ic["driver"]
+    print(f"[result lifecycle] snapshot of the 64-batch pool: IC "
+          f"{ic['snapshot_mib']:.2f} MiB saved {ic['save_s']:.3f}s / "
+          f"restored {ic['restore_s']:.3f}s, LT {lt['snapshot_mib']:.2f} MiB "
+          f"{lt['save_s']:.3f}s / {lt['restore_s']:.3f}s; tier p50 "
+          f"{tier['p50_ms']:.3f} ms, p99 {tier['p99_ms']:.3f} ms over "
+          f"{tier['queries']} queries (peak {tier['peak_gib']:.2f} GiB); "
+          + "; ".join(
+              f"{name} stream: {r['dirty_slots']}/{r['total_slots']} dirty, "
+              f"{r['touched_row_blocks']} row blocks, rebind "
+              f"{r['rebind_s']:.3f}s + resample {r['resample_s']:.3f}s "
+              f"(apply_plan {r['refresh_s']:.3f}s), cold {r['cold_s']:.3f}s, "
+              f"peak {r['peak_gib']:.2f} GiB"
+              for name, r in (("IC", stream_ic), ("LT", stream_lt)))
+          + f"; driver 16 batches {drv['seconds']:.3f}s")
     kernels = [
         dict(name="fused_expand", route="cuda",
              source="src/repro_torch/csrc/fused_expand.cu",
              replaces="src/repro/kernels/fused_expand.py:99",
              launches=launches["fused_expand"],
+             launches_by_path={
+                 "ic_main": launches["fused_expand"],
+                 "stream_ic": stream_ic["launches"]["fused_expand"],
+                 "driver": drv["launches"]["fused_expand"]},
              max_abs_err=max(err["fused_expand"], fe["max_abs_err"]),
              ms=fe["dense_ms"], plain_ms=fe["plain_ms"],
              bound_ms=fe["dense_bound_ms"], bound_by=fe["dense_bound_by"],
@@ -1838,6 +2070,12 @@ def main() -> int:
              source="src/repro_torch/csrc/coverage.cu",
              replaces="src/repro/kernels/coverage.py:41",
              launches=launches["cover_counts"],
+             launches_by_path={
+                 "ic_main": launches["cover_counts"],
+                 "lt_main": launches_lt["cover_counts"],
+                 "tier": tier["launches"]["cover_counts"],
+                 "stream_ic": stream_ic["launches"]["cover_counts"],
+                 "stream_lt": stream_lt["launches"]["cover_counts"]},
              max_abs_err=max(err["cover_counts"], cc["max_abs_err"]),
              ms=cc["ms"], plain_ms=cc["plain_ms"], bound_ms=cc["bound_ms"],
              bound_by=cc["bound_by"], library_ms=None,
@@ -1849,6 +2087,9 @@ def main() -> int:
              source="src/repro_torch/csrc/lt_select_expand.cu",
              replaces="src/repro/kernels/lt_select_expand.py:101",
              launches=launches_lt["lt_select_expand"],
+             launches_by_path={
+                 "lt_main": launches_lt["lt_select_expand"],
+                 "stream_lt": stream_lt["launches"]["lt_select_expand"]},
              max_abs_err=max(err["lt_select_expand"], lse["max_abs_err"]),
              ms=lse["compact_ms"], plain_ms=lse["plain_ms"],
              bound_ms=lse["compact_bound_ms"],

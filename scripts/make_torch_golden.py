@@ -3,6 +3,7 @@
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --lm-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --q-only
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --stream-only
 
 Builds the launcher's graph at the size the port's chip smoke serves
 (``powerlaw_cluster(65536, 6.0, prob=0.25, seed=7)``, deduped, reversed),
@@ -35,6 +36,20 @@ level loop of ``launch/dryrun.py``'s ``graph_q`` cell at one shard,
 composed from ``fused_expand_q_ref`` as that cell composes it.  Per batch
 it records the level count, the visited popcount and the sha256 of the
 visited words.  ``--q-only`` recomputes that entry alone.
+
+The ``"stream"`` entry replays the launcher's ``--stream-smoke`` draws on
+the main graph: from ``default_rng(seed + 1)`` the 4 query triples, then
+``stream.random_delta(g, rng, 64, 64)``.  For IC and for LT it applies the
+delta to the pool's reversed graph as ``stream.plan_refresh`` does (the
+reversed delta, LT renormalisation confined to the mutated destinations),
+rebinds the dense CSR sampler to the mutated pair as a store does, and
+records the mutated reversed graph (edge counts, sha256 of ``src``,
+``dst``, ``prob``), the touched rows and row blocks (128 rows), and for
+batches 0-3 the sha256, popcount, level count and edge visits.  Under LT
+the reference's sampler normalises the mutated graph once more, which is
+not a no-op in float32: ``renormalised_edges`` counts the weights it
+moves (the port samples the mutated graph as it is, `lt.normalized`).
+``--stream-only`` recomputes that entry alone.
 """
 from __future__ import annotations
 
@@ -49,8 +64,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from repro import stream
 from repro.configs import registry
-from repro.core import bitmask, imm, rrr, tiles, traversal
+from repro.core import bitmask, imm, lt, rrr, tiles, traversal
 from repro.graph import csr, generators, reorder
 from repro.kernels import fused_expand_q as feq
 from repro.models import decode
@@ -64,6 +80,7 @@ COLORS, MASTER_SEED, BATCHES, K = 64, 0, 4, 16
 LM_ARCH, LM_LAYERS, LM_PARAM_SEED, LM_PROMPT_SEED = "llama3.2-3b", 2, 0, 1
 LM_BATCH, LM_PROMPT_LEN, LM_STEPS, LM_IDS = 2, 64, 8, 32
 Q_N, Q_ORDER, Q_BATCHES, Q_MAX_LEVELS = 4096, "cluster", 2, 64
+STREAM_OPS, STREAM_QUERIES, STREAM_TILE_ROWS = 64, 4, 128
 OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests", "data",
                    "torch_port_golden.json")
 
@@ -164,6 +181,92 @@ def q_golden() -> dict:
             "max_levels": Q_MAX_LEVELS, "batches": batches}
 
 
+def _graph_digest(g) -> dict:
+    """Edge counts and the sha256 of the padded edge arrays."""
+    out = {"num_edges": int(g.num_edges), "padded_edges": int(g.padded_edges)}
+    for name, dtype in (("src", "<i4"), ("dst", "<i4"), ("prob", "<f4")):
+        out[f"{name}_sha256"] = hashlib.sha256(np.ascontiguousarray(
+            np.asarray(getattr(g, name)), dtype).tobytes()).hexdigest()
+    return out
+
+
+@jax.jit
+def _lt_levels(g_rev, cb, starts, seed):
+    """Levels of ``lt.lt_traversal_program``'s loop (the same loop, with
+    the level count returned)."""
+    sel = lt.selection_mask_from_cb(g_rev, cb, COLORS, seed)
+    fr0 = traversal.init_frontier(g_rev.num_vertices, COLORS, starts)
+
+    def cond(c):
+        fr, _, lvl = c
+        return jnp.logical_and(bitmask.any_set(fr), lvl < 64)
+
+    def body(c):
+        fr, vis, lvl = c
+        vis = vis | fr
+        contrib = fr[g_rev.src] & sel & ~vis[g_rev.dst]
+        nf = traversal._scatter_or(jnp.zeros_like(vis), g_rev.dst,
+                                   contrib) & ~vis
+        return nf, vis, lvl + 1
+
+    return jax.lax.while_loop(cond, body,
+                              (fr0, jnp.zeros_like(fr0), jnp.int32(0)))[2]
+
+
+def stream_golden() -> dict:
+    """The ``"stream"`` entry (module docstring)."""
+    g = csr.dedupe(generators.powerlaw_cluster(N, DEGREE, prob=PROB,
+                                               seed=GRAPH_SEED))
+    rng = np.random.default_rng(GRAPH_SEED + 1)
+    queries = [rng.integers(0, N, 3).tolist() for _ in range(STREAM_QUERIES)]
+    delta = stream.random_delta(g, rng, num_deletes=STREAM_OPS,
+                                num_inserts=STREAM_OPS)
+    g2, _ = stream.apply_delta(g, delta)
+    out = {"ops": STREAM_OPS, "queries": queries,
+           "delta_sha256": hashlib.sha256(b"".join(
+               np.ascontiguousarray(a).tobytes() for a in
+               (delta.src, delta.dst, delta.weight, delta.insert))
+           ).hexdigest(),
+           "num_inserts": delta.num_inserts,
+           "num_deletes": delta.num_deletes,
+           "tile_rows": STREAM_TILE_ROWS}
+    for diffusion in ("ic", "lt"):
+        spec = SamplerSpec(diffusion=diffusion, backend="dense",
+                           num_colors=COLORS, master_seed=MASTER_SEED,
+                           tile_size=STREAM_TILE_ROWS)
+        sampler = make_sampler(g, spec)
+        g_rev2, applied = stream.apply_delta(
+            sampler.g_rev, delta.reversed(), lt_normalized=diffusion == "lt")
+        blocks = stream.touched_row_blocks(applied.touched_rows,
+                                           STREAM_TILE_ROWS)
+        rebound = sampler.rebind(g2, g_rev2, blocks)
+        cb = jnp.asarray(lt.selection_cum_before(rebound.g_rev))
+        batches = []
+        for b in rebound.sample_many(range(BATCHES)):
+            starts = jnp.asarray(b.roots)
+            seed = jnp.uint32(rrr.batch_seed(MASTER_SEED, b.batch_index))
+            levels = (_lt_levels(rebound.g_rev, cb, starts, seed)
+                      if diffusion == "lt" else traversal.run_fused(
+                          rebound.g_rev, starts, COLORS,
+                          seed).stats.levels_run)
+            batches.append({
+                "batch_index": b.batch_index,
+                "visited_sha256": mask_sha256(b.visited),
+                "visited_bits": int(np.unpackbits(
+                    np.asarray(b.visited).view(np.uint8)).sum()),
+                "levels": int(levels),
+                "fused_edge_visits": b.fused_edge_visits,
+                "unfused_edge_visits": b.unfused_edge_visits})
+        out[diffusion] = {
+            "g_rev": _graph_digest(g_rev2),
+            "renormalised_edges": int(np.count_nonzero(
+                np.asarray(rebound.g_rev.prob) != np.asarray(g_rev2.prob))),
+            "touched_rows": int(len(applied.touched_rows)),
+            "touched_row_blocks": blocks.tolist(),
+            "batches": batches}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     only = ap.add_mutually_exclusive_group()
@@ -171,13 +274,16 @@ def main() -> None:
                       help="recompute the \"lm\" entry alone")
     only.add_argument("--q-only", action="store_true",
                       help="recompute the \"q\" entry alone")
+    only.add_argument("--stream-only", action="store_true",
+                      help="recompute the \"stream\" entry alone")
     args = ap.parse_args()
     t0 = time.time()
-    if args.lm_only or args.q_only:
+    entries = {"lm": lm_golden, "q": q_golden, "stream": stream_golden}
+    key = next((k for k in entries if getattr(args, f"{k}_only")), None)
+    if key is not None:
         with open(OUT) as f:
             golden = json.load(f)
-        key = "lm" if args.lm_only else "q"
-        golden[key] = lm_golden() if args.lm_only else q_golden()
+        golden[key] = entries[key]()
         _write(golden)
         print(f"wrote the {key} entry of {os.path.normpath(OUT)} in "
               f"{time.time() - t0:.1f}s")
@@ -229,6 +335,7 @@ def main() -> None:
     }
     golden["lm"] = lm_golden()
     golden["q"] = q_golden()
+    golden["stream"] = stream_golden()
     _write(golden)
     print(f"wrote {os.path.normpath(OUT)} in {time.time() - t0:.1f}s")
 

@@ -1,0 +1,148 @@
+"""Manifest-described, atomic checkpointing (PyTorch port of
+``repro.checkpoint.manager``, single-device form).
+
+Layout per step:  ``<dir>/step_<N>/{manifest.json, leaf_<i>.npy …}``
+written into ``step_<N>.tmp`` then ``os.replace``d — a crashed writer can
+never produce a half checkpoint that restore would accept.
+
+A tree is nested dicts (keys visited in sorted order, as jax flattens a
+dict), lists and tuples, with numpy arrays or tensors as leaves; each
+leaf's path is its keys and indices joined by ``/``.  Leaf order, file
+names and path strings are the reference's, so either package reads the
+other's checkpoints.  Resharding on restore comes with the multi-GPU
+slice; a leaf here is one host array.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix: tuple = ()):
+    """(paths, leaves) of ``tree`` in jax's flattening order."""
+    if isinstance(tree, dict):
+        items = [(k, tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return ["/".join(str(p) for p in prefix)], [tree]
+    paths, leaves = [], []
+    for key, sub in items:
+        p, lv = _flatten(sub, prefix + (key,))
+        paths += p
+        leaves += lv
+    return paths, leaves
+
+
+def _unflatten(tree, leaves):
+    """``tree``'s structure with its leaves replaced, in `_flatten` order."""
+    if isinstance(tree, dict):
+        return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unflatten(t, leaves) for t in tree)
+    return leaves.pop(0)
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save(directory: str, step: int, tree: Any, *, keep: int = 3,
+         blocking: bool = True,
+         extra: Optional[dict] = None) -> threading.Thread | None:
+    """Write checkpoint for ``step``.  ``blocking=False`` returns the writer
+    thread; the leaves are copied to the host before this returns either
+    way.  ``extra``: JSON-serialisable metadata embedded in the manifest,
+    readable without loading any leaf (`read_manifest`)."""
+    paths, leaves = _flatten(tree)
+    host_leaves = [_host(x) for x in leaves]
+
+    def _write():
+        final = os.path.join(directory, f"step_{step:08d}")
+        tmp = final + ".tmp"
+        os.makedirs(tmp, exist_ok=True)
+        manifest = {"step": step, "extra": extra or {}, "leaves": []}
+        for i, (p, a) in enumerate(zip(paths, host_leaves)):
+            fname = f"leaf_{i:05d}.npy"
+            np.save(os.path.join(tmp, fname), a)
+            manifest["leaves"].append(
+                {"path": p, "file": fname, "shape": list(a.shape),
+                 "dtype": str(a.dtype)})
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)                          # atomic publish
+        _cleanup(directory, keep)
+
+    if blocking:
+        _write()
+        return None
+    t = threading.Thread(target=_write, daemon=True)
+    t.start()
+    return t
+
+
+def _cleanup(directory: str, keep: int):
+    steps = sorted(d for d in os.listdir(directory)
+                   if d.startswith("step_") and not d.endswith(".tmp"))
+    for d in steps[:-keep]:
+        shutil.rmtree(os.path.join(directory, d), ignore_errors=True)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    if not os.path.isdir(directory):
+        return None
+    steps = [int(d.split("_")[1]) for d in os.listdir(directory)
+             if d.startswith("step_") and not d.endswith(".tmp")
+             and os.path.exists(os.path.join(directory, d, "manifest.json"))]
+    return max(steps) if steps else None
+
+
+def read_manifest(directory: str, step: Optional[int] = None) -> dict:
+    """Manifest dict (step, extra, per-leaf path/shape/dtype) without
+    touching any leaf file."""
+    step = step if step is not None else latest_step(directory)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {directory}")
+    d = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        return json.load(f)
+
+
+def restore(directory: str, target_tree: Any, step: Optional[int] = None,
+            as_numpy: bool = False) -> tuple[Any, int]:
+    """Restore into the structure of ``target_tree`` (values ignored, shapes
+    checked).  Leaves come back as CPU tensors, or as numpy arrays with
+    ``as_numpy=True`` — for callers that place them themselves, as the
+    sketch store does with its uint32 masks."""
+    step = step if step is not None else latest_step(directory)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {directory}")
+    d = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    by_path = {e["path"]: e for e in manifest["leaves"]}
+
+    paths, leaves = _flatten(target_tree)
+    out = []
+    for p, ref in zip(paths, leaves):
+        entry = by_path.get(p)
+        if entry is None:
+            raise KeyError(f"checkpoint missing leaf {p!r}")
+        arr = np.load(os.path.join(d, entry["file"]))
+        want = np.dtype(entry["dtype"])
+        if arr.dtype != want:                       # np.save stored raw bits
+            arr = arr.view(want)
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"{p}: shape {arr.shape} != {tuple(ref.shape)}")
+        out.append(arr if as_numpy else torch.from_numpy(arr))
+    return _unflatten(target_tree, out), step

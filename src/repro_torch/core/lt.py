@@ -29,9 +29,10 @@ _SELECT_LEVEL = 0x17      # the selection hash's fixed "level" counter
 
 def normalize_lt_weights(g: csr.Graph) -> csr.Graph:
     """Scale each vertex's IN-edge weights to sum ≤ 1: w(v, u) =
-    prob(v, u) / max(1, Σ_in prob(·, u)), summed in float64.  Idempotent,
-    and order-preserving: only ``prob`` changes, so CSR edge ids (the RNG
-    counters) are kept.  The result is a new graph with its own cache."""
+    prob(v, u) / max(1, Σ_in prob(·, u)), summed in float64.
+    Order-preserving: only ``prob`` changes, so CSR edge ids (the RNG
+    counters) are kept.  The result is a new graph, marked as carrying the
+    invariant (`declare_normalized`)."""
     e = g.num_edges
     dst = g.dst[:e].cpu().numpy()
     prob = g.prob[:e].cpu().numpy().astype(np.float64)
@@ -41,17 +42,38 @@ def normalize_lt_weights(g: csr.Graph) -> csr.Graph:
     new_prob = g.prob.clone()
     new_prob[:e] = torch.from_numpy((prob * scale).astype(np.float32)).to(
         g.device)
-    return dataclasses.replace(g, prob=new_prob, cache={})
+    return declare_normalized(dataclasses.replace(g, prob=new_prob, cache={}))
+
+
+def declare_normalized(g: csr.Graph) -> csr.Graph:
+    """Mark ``g`` as carrying the LT invariant (per-destination in-weights
+    summing to ≤ 1), so `normalized` uses it as it is; returns ``g``.
+    `normalize_lt_weights` and `stream.apply_delta(..., lt_normalized=
+    True)` mark what they return."""
+    # A marker, not the graph: a graph in its own cache is a reference
+    # cycle, which would hold its stacks until the cyclic collector ran.
+    g.cache["lt_normalized"] = "self"
+    return g
 
 
 def normalized(g_rev: csr.Graph) -> csr.Graph:
-    """``normalize_lt_weights(g_rev)`` built once per graph object, so every
-    LT sampler over one graph shares the normalised graph and, through its
-    cache, its tile stacks."""
+    """The LT-normalised form of ``g_rev``: ``g_rev`` itself when it
+    carries the invariant (`declare_normalized`), else
+    ``normalize_lt_weights(g_rev)`` built once per graph object.  Every LT
+    sampler over one graph shares the normalised graph and, through its
+    cache, its tile stacks.
+
+    The reference normalises again whatever it is handed, and a second
+    pass is not a no-op in float32: at n = 65,536, p = 0.25 it moves 278
+    of 382,080 weights by one ulp.  So the reference's store clones, its
+    restores onto a normalised ``g_rev`` and its streamed pairs each sample
+    a graph of their own, while the port's share one (and so one set of
+    stacks) and a streamed pool equals its cold rebuild by construction.
+    ``tests/test_torch_stream.py`` pins the difference."""
     g_lt = g_rev.cache.get("lt_normalized")
     if g_lt is None:
         g_lt = g_rev.cache["lt_normalized"] = normalize_lt_weights(g_rev)
-    return g_lt
+    return g_rev if isinstance(g_lt, str) else g_lt
 
 
 def selection_cum_before(g: csr.Graph) -> np.ndarray:

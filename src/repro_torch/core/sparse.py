@@ -110,6 +110,40 @@ def build_frontier_index(g_rev: Graph, tile_rows: int = 128,
         edge_block=edge_block, tile_rows=tile_rows)
 
 
+def patch_frontier_index(fidx: FrontierIndex, g_rev: Graph,
+                         touched_row_blocks,
+                         cb: np.ndarray | None = None) -> FrontierIndex:
+    """Re-derive only the edge blocks of ``touched_row_blocks`` from a
+    values-mutated graph, IN PLACE, and return ``fidx`` — the
+    churn-priced alternative to a full rebuild after a streaming delta.
+
+    Precondition (the caller's to check — `Sampler.rebind` compares the
+    edge arrays): ``g_rev`` has the ``(src, dst)`` layout and padded length
+    of the graph ``fidx`` was built from, so block membership, edge ids
+    and validity are unchanged and the patch is a gather: for every
+    selected block ``prob = where(valid, g_rev.prob[eid], 0)``, as
+    `build_frontier_index` writes it, and the same for the LT prefixes
+    ``cb`` when the index carries them.  Only the sampler that owns
+    ``fidx`` may call this (each sampler builds its own index)."""
+    if (fidx.blk_cb is None) != (cb is None):
+        raise ValueError("cb must be given iff the index carries blk_cb")
+    dev = fidx.blk_prob.device
+    rb = torch.as_tensor(np.asarray(touched_row_blocks, np.int64),
+                         device=dev)
+    ids = torch.nonzero(torch.isin(fidx.blk_rowblock.to(torch.int64), rb)) \
+        .squeeze(1)
+    if not ids.numel():
+        return fidx
+    eid = fidx.blk_eid[ids].to(torch.int64)
+    valid = fidx.blk_valid[ids]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    fidx.blk_prob[ids] = torch.where(valid, g_rev.prob.to(dev)[eid], zero)
+    if cb is not None:
+        cbt = torch.as_tensor(np.asarray(cb, np.float32), device=dev)
+        fidx.blk_cb[ids] = torch.where(valid, cbt[eid], zero)
+    return fidx
+
+
 def bucket_ladder(num_blocks: int, capacity: int = 0) -> tuple[int, ...]:
     """The reference's capacity buckets: the top rung is ``num_blocks``;
     ``capacity = 0`` gives the geometric ladder 8, 64, 512, …, an explicit

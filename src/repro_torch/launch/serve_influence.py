@@ -6,6 +6,9 @@
     python -m repro_torch.launch.serve_influence --device cpu --smoke
     python -m repro_torch.launch.serve_influence --smoke --diffusion lt \
         --frontier sparse --sampler-backend kernel
+    python -m repro_torch.launch.serve_influence --tier --smoke --autoscale
+    python -m repro_torch.launch.serve_influence --stream-smoke
+    python -m repro_torch.launch.serve_influence --smoke --async
 
 Samples a sketch pool on a synthetic graph, serves one micro-batched mix of
 top-k, σ(S) and marginal-gain queries, and with ``--smoke`` also checks the
@@ -13,25 +16,36 @@ pool lifecycle: the pool's first batches equal a reference pool built on
 the dense CSR backend with the dense frontier (`dense_variant`, so with
 ``--frontier sparse`` it is also a sparse ≡ dense check), the identical mix
 re-served as 100% cache hits, an epoch refresh that invalidates the cache,
-and offline ``run_imm`` through a fresh pool equal to the pool-less run
-and to the host-loop greedy reference.  ``--device`` defaults to ``cuda``;
+a persist → restore round trip (``--ckpt-dir``, default a temporary
+directory it removes) that must give the identical pool, counters and
+top-k, and offline ``run_imm`` through a fresh pool equal to the pool-less
+run and to the host-loop greedy reference.  ``--device`` defaults to ``cuda``;
 ``--sampler-backend kernel`` runs every traversal level through the
 hand-written CUDA kernels (``fused_expand`` for ``--diffusion ic``,
 ``lt_select_expand`` for ``lt``), over every tile or, with ``--frontier
 sparse``, the level's compacted tile list.
-Pool persistence, the async front end and the mesh paths of the reference
-launcher come with later slices of the port.
+``--tier`` serves through `repro_torch.serve.tier.ServingTier` (per-tenant
+admission, replicas, ``--autoscale``) and ``--stream-smoke`` mutates the
+graph mid-serve through the tier and checks the incremental pool against a
+cold rebuild; ``--async`` fronts the batcher with the deadline-batched
+`AsyncFrontEnd`.  ``--mesh`` (the sharded paths) comes with the multi-GPU
+slice of the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import shutil
+import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.checkpoint import manager
 from repro_torch.core import imm
 from repro_torch.graph import csr, generators
 from repro_torch.sampling import SamplerSpec
@@ -59,6 +73,12 @@ def build_config(args) -> PoolConfig:
                        frontier_capacity=args.frontier_capacity)
     return PoolConfig(max_batches=args.max_batches,
                       memory_budget_mb=args.memory_budget_mb, spec=spec)
+
+
+def build_store(args) -> SketchStore:
+    store = SketchStore(build_graph(args), build_config(args))
+    store.ensure(args.batches)
+    return store
 
 
 def dense_variant(cfg: PoolConfig) -> PoolConfig:
@@ -127,6 +147,8 @@ def run_single(args) -> dict:
     out = dict(store=store, engine=engine, batcher=batcher, tickets=tickets,
                results=results, build_s=build_s, flush_s=flush_s)
     if not args.smoke:
+        if args.async_frontend:
+            out["async"] = _async_demo(args, engine)
         return out
 
     # ---- the pool's first batches ≡ the dense-CSR, dense-frontier pool
@@ -163,6 +185,7 @@ def run_single(args) -> dict:
     print(f"[smoke] refresh: epoch {store.epoch}, {len(slots)} slots "
           f"resampled in {refresh_s:.3f}s, cache invalidated; the mix "
           f"recomputed in {reflush_s:.3f}s")
+    out.update(persist_restore(args, store, engine))
 
     # ---- offline IMM through the shared greedy + a fresh pool
     t_imm = time.perf_counter()
@@ -186,6 +209,10 @@ def run_single(args) -> dict:
     print(f"[smoke] offline run_imm (θ={res_plain.theta}, {imm_s:.3f}s): "
           f"pool-routed seeds == pool-less seeds == host-loop reference "
           f"({res_plain.seeds.tolist()})")
+    # Async demo last: its background refresh mutates the store, which
+    # would invalidate the bit-identity checks above.
+    if args.async_frontend:
+        out["async"] = _async_demo(args, engine)
     print(f"[smoke] PASS in {time.time() - t0:.1f}s")
     out.update(refresh_slots=slots, refresh_s=refresh_s,
                reflush_s=reflush_s, imm=res_plain,
@@ -193,10 +220,379 @@ def run_single(args) -> dict:
     return out
 
 
+def persist_restore(args, store: SketchStore, engine: QueryEngine) -> dict:
+    """Save the pool, restore it onto the same graph, and require the
+    identical stack, counters and top-k; returns the snapshot's size and
+    the save and restore seconds.  Without ``--ckpt-dir`` the snapshot
+    goes to a temporary directory that is removed afterwards."""
+    dev = store.graph.device
+    ckpt = args.ckpt_dir or tempfile.mkdtemp(prefix="sketch_pool_")
+    try:
+        t0 = time.perf_counter()
+        store.save(ckpt)
+        save_s = time.perf_counter() - t0
+        step_dir = os.path.join(ckpt, f"step_{store.epoch:08d}")
+        mib = sum(os.path.getsize(os.path.join(step_dir, f))
+                  for f in os.listdir(step_dir)) / 2 ** 20
+        t0 = time.perf_counter()
+        restored = SketchStore.restore(ckpt, store.graph, build_config(args))
+        stack = restored.visited_stack()
+        device_lib.synchronize(dev)
+        restore_s = time.perf_counter() - t0
+        counters = manager.restore(ckpt, {"counters": np.zeros(5)},
+                                   as_numpy=True)[0]["counters"]
+    finally:
+        if not args.ckpt_dir:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    if not torch.equal(stack, store.visited_stack()):
+        raise AssertionError("restored pool differs from the saved one")
+    mine = [store.epoch, store.next_batch_index, store.master_seed,
+            store.num_colors, store.graph_epoch]
+    if (counters.tolist() != mine
+            or [restored.epoch, restored.next_batch_index,
+                restored.master_seed, restored.num_colors,
+                restored.graph_epoch] != mine
+            or restored.batch_epochs != store.batch_epochs
+            or [b.batch_index for b in restored.batches]
+            != [b.batch_index for b in store.batches]):
+        raise AssertionError(f"restored counters {counters.tolist()} or "
+                             f"batch indices differ from the store's {mine}")
+    r_seeds, r_sigma = QueryEngine(restored).top_k(args.k)
+    s_seeds, s_sigma = engine.top_k(args.k)
+    if not (np.array_equal(r_seeds, s_seeds) and r_sigma == s_sigma):
+        raise AssertionError(f"restored top-{args.k} {r_seeds} != "
+                             f"{s_seeds}")
+    print(f"[smoke] persist/restore: {len(store.batches)}-batch snapshot of "
+          f"{mib:.2f} MiB saved in {save_s:.3f}s, restored in "
+          f"{restore_s:.3f}s: identical stack, counters {mine} and "
+          f"top-{args.k}")
+    return dict(snapshot_mib=mib, save_s=save_s, restore_s=restore_s)
+
+
+# --------------------------------------------------------------------- tier
+def run_tier(args) -> dict:
+    """The serving tier: admission → replicas → autoscale → metrics.
+
+    Builds a warm pool, fronts it with `ServingTier` (``--tenants`` tenants,
+    tenant0 starved to 0.5 qps, over ``--replicas`` replicas) and drives a
+    burst of σ queries.  With ``--smoke`` it checks the tier's contract:
+    sheds carry a retry-after, every in-quota answer equals a direct
+    `QueryEngine` on a clone, a refresh of one replica never yields a
+    mixed-epoch gather, the replicas re-converge bit for bit, and (with
+    ``--autoscale``) a scale step keeps the group consistent.  Returns the
+    tier's snapshot and what ran."""
+    from repro_torch.serve.tier import EpochMixError, ServingTier, ShedError
+
+    t0 = time.time()
+    device_lib.resolve(args.device)
+    store = build_store(args)
+    reference = QueryEngine(store.clone())      # same epoch, direct engine
+    autoscale = None
+    if args.autoscale:
+        autoscale = {"k": args.k, "target_eps": args.target_eps,
+                     "target_p99_ms": args.target_p99_ms}
+    tier = ServingTier.build(store, replicas=args.replicas,
+                             quota_qps=args.quota_qps, autoscale=autoscale,
+                             default_deadline=args.deadline)
+    out = dict(store=store, tier=tier)
+    try:
+        tenants = [f"tenant{i}" for i in range(args.tenants)]
+        # Tenant 0 is starved so the shed path runs under any load.
+        tier.set_quota(tenants[0], rate=0.5, burst=1)
+        print(f"[tier] {args.replicas} replicas × {len(store.batches)} "
+              f"batches, {args.tenants} tenants (quota {args.quota_qps} qps, "
+              f"{tenants[0]} pinned to 0.5 qps)"
+              + (", autoscale armed" if autoscale else ""))
+        n = store.graph.num_vertices
+        rng = np.random.default_rng(2)
+        queries = [rng.integers(0, n, 3).tolist() for _ in range(8)]
+        sheds, futs = [], []            # futs: (query, future) per admitted
+        for q in queries:
+            for t in tenants:
+                try:
+                    futs.append((q, tier.submit_sigma(t, q)))
+                except ShedError as e:
+                    sheds.append(e)
+        values = tier.gather([f for _, f in futs])
+        print(f"[tier] {len(futs)} admitted / {len(sheds)} shed; pending "
+              f"per replica {tier.group.pending()}")
+        if not args.smoke:
+            print(tier.to_json(indent=1))
+            out["snapshot"] = tier.snapshot()
+            return out
+
+        # ---- sheds carry retry-after; in-quota tenants unaffected
+        if not sheds or not all(e.retry_after > 0 and e.tenant == tenants[0]
+                                for e in sheds):
+            raise AssertionError("the starved tenant must shed, with a "
+                                 "retry-after, and no other tenant may")
+        # ---- in-quota answers ≡ the direct engine on a clone, same epoch
+        for (q, _), val in zip(futs, values):
+            if val != reference.sigma([q])[0]:
+                raise AssertionError("tier answers must equal the direct "
+                                     "engine's bit for bit")
+        print(f"[smoke] {len(values)} in-quota answers equal the direct "
+              f"QueryEngine's; {len(sheds)} sheds with retry-after "
+              f"{sheds[0].retry_after:.2f}s")
+
+        # ---- a refresh of one replica: the epoch guard refuses mixes
+        before = tier.submit_sigma(tenants[-1], queries[0])
+        before.result()
+        tier.group.replicas[0].frontend.refresh_now(0.5)    # half a sweep
+        after = tier.submit_sigma(tenants[-1], queries[1], deadline=0.0)
+        after.result()
+        mixed = False
+        try:
+            tier.gather([before, after])
+        except EpochMixError as e:
+            mixed = True
+            if len(e.versions) != 2:
+                raise AssertionError(f"EpochMixError names {e.versions}")
+        if not (mixed or before.pool_version == after.pool_version):
+            raise AssertionError("mixed-epoch replies must be refused")
+        for r in tier.group.replicas[1:]:             # finish the sweep
+            r.frontend.refresh_now(0.5)
+        stacks = [r.store.visited_stack() for r in tier.group.replicas]
+        if not (tier.group.consistent()
+                and all(torch.equal(stacks[0], x) for x in stacks[1:])):
+            raise AssertionError("replicas must re-converge bit for bit")
+        print(f"[smoke] mid-stream refresh: mixed-epoch gather "
+              f"{'refused (EpochMixError)' if mixed else 'not provoked'}; "
+              f"replicas re-converged bit for bit at "
+              f"{tier.group.versions()[0]}")
+
+        # ---- autoscale: scale events swap epochs, never cold-rebuild
+        if tier.autoscaler is not None:
+            b0 = tier.group.num_batches
+            decision = tier.autoscaler.step()
+            stacks = [r.store.visited_stack() for r in tier.group.replicas]
+            if not (tier.group.consistent()
+                    and all(torch.equal(stacks[0], x) for x in stacks[1:])):
+                raise AssertionError("the autoscale step left the replicas "
+                                     "inconsistent")
+            out["decision"] = decision
+            print(f"[smoke] autoscale: {decision.action} {b0} → "
+                  f"{tier.group.num_batches} batches (ε̂="
+                  f"{decision.eps_bound}, θ={decision.theta}) — "
+                  f"{decision.reason}")
+
+        snap = tier.snapshot()
+        lat = snap["latency"]["all"]
+        if snap["totals"]["shed"] != len(sheds) or lat["count"] < len(futs):
+            raise AssertionError(f"tier metrics disagree: {snap['totals']}, "
+                                 f"{lat['count']} latencies")
+        print(f"[smoke] metrics: shed_rate={snap['totals']['shed_rate']:.2f}, "
+              f"p50={lat['p50'] * 1e3:.2f}ms p99={lat['p99'] * 1e3:.2f}ms "
+              f"over {lat['count']} queries (histogram bucket bounds)")
+        out["snapshot"] = snap
+    finally:
+        tier.close()
+    print(f"[smoke] PASS in {time.time() - t0:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------- streaming
+def run_stream(args) -> dict:
+    """``--stream-smoke``: mutate the graph mid-serve through the tier
+    (2 replicas by default), refresh incrementally, and check the pool
+    against a cold rebuild.
+
+    The delta is ``random_delta`` with ``--queries`` deletions and
+    ``--queries`` insertions, drawn after the 4 query triples from
+    ``default_rng(graph_seed + 1)``, as the reference draws them.  Checks:
+    the graph epoch bumps and the replicas agree bit for bit, the pool
+    equals `cold_rebuild_batches` word for word (edge visits included),
+    a pre/post-delta gather is refused, and a starved tenant's second
+    delta is shed.  Returns the report, the cold rebuild's seconds and
+    what ran."""
+    from repro_torch import stream
+    from repro_torch.serve.tier import EpochMixError, ServingTier, ShedError
+
+    t0 = time.time()
+    dev = device_lib.resolve(args.device)
+    rng = np.random.default_rng(args.graph_seed + 1)
+    store = build_store(args)
+    tier = ServingTier.build(store, replicas=args.replicas,
+                             quota_qps=args.quota_qps,
+                             default_deadline=args.deadline)
+    out = dict(tier=tier)
+    try:
+        n = store.graph.num_vertices
+        queries = [rng.integers(0, n, 3).tolist() for _ in range(4)]
+        pre = [tier.submit_sigma("ops", q) for q in queries]
+        pre_vals = tier.gather(pre)
+        v0 = tier.group.versions()[0]
+
+        delta = stream.random_delta(store.graph, rng,
+                                    num_deletes=args.queries,
+                                    num_inserts=args.queries)
+        out["delta"] = delta
+        if store.spec.diffusion == "lt":
+            # The renormalised in-edges of every mutated destination count
+            # among the touched rows, beyond the delta's own sources.
+            rows = [stream.apply_delta(store.g_rev, delta.reversed(),
+                                       lt_normalized=lt_norm)[1].touched_rows
+                    for lt_norm in (False, True)]
+            if not (set(rows[0]) < set(rows[1])):
+                raise AssertionError("LT renormalisation touched no row "
+                                     "beyond the delta's own")
+            out["lt_touched_rows"] = (len(rows[0]), len(rows[1]))
+            print(f"[stream] LT: {len(rows[1])} touched rows on the "
+                  f"reversed graph, {len(rows[1]) - len(rows[0])} of them "
+                  f"the renormalised in-edges' sources")
+        report = tier.apply_delta("ops", delta)
+        out["report"] = report
+        print(f"[stream] tier delta: +{report.inserted}/-{report.deleted} "
+              f"edges, {report.touched_row_blocks} row-blocks → "
+              f"{report.dirty_slots}/{report.total_slots} dirty slots "
+              f"({report.dirty_fraction:.0%}) in {report.refresh_s:.3f}s "
+              f"over {len(tier.group.replicas)} replicas: rebind "
+              f"{report.rebind_s:.3f}s, resample {report.resample_s:.3f}s")
+
+        v1 = tier.group.versions()[0]
+        stacks = [r.store.visited_stack() for r in tier.group.replicas]
+        if not (v1[0] == v0[0] + 1 and tier.group.consistent()
+                and all(torch.equal(stacks[0], x) for x in stacks[1:])):
+            raise AssertionError(f"replicas disagree after the delta: "
+                                 f"{tier.group.versions()}")
+        r0 = tier.group.replicas[0].store
+        t_cold = time.perf_counter()
+        cold = stream.cold_rebuild_batches(r0)
+        device_lib.synchronize(dev)
+        out["cold_s"] = time.perf_counter() - t_cold
+        for bi, bc in zip(r0.batches, cold):
+            if not (torch.equal(bi.visited, bc.visited)
+                    and bi.fused_edge_visits == bc.fused_edge_visits
+                    and bi.unfused_edge_visits == bc.unfused_edge_visits):
+                raise AssertionError(f"slot of batch {bi.batch_index} "
+                                     "differs from the cold rebuild")
+        del cold
+        print(f"[stream] replicas converged at graph epoch {v1[0]}; pool ≡ "
+              f"cold rebuild on the mutated pair ({len(r0.batches)} slots "
+              f"rebuilt cold in {out['cold_s']:.3f}s)")
+
+        post = [tier.submit_sigma("ops", q) for q in queries]
+        post_vals = tier.gather(post)
+        try:
+            tier.gather([pre[0], post[0]])
+        except EpochMixError as e:
+            if len(e.versions) != 2:
+                raise AssertionError(f"EpochMixError names {e.versions}")
+        else:
+            raise AssertionError("pre/post-delta replies must be refused "
+                                 "as a mix")
+        print(f"[stream] pre/post-delta gather refused (EpochMixError); "
+              f"σ̂ samples {pre_vals[0]:.1f} → {post_vals[0]:.1f}")
+
+        tier.set_quota("vandal", rate=0.01, burst=1)
+        tier.apply_delta("vandal", stream.EdgeDelta.deletes([], []))
+        try:
+            tier.apply_delta("vandal", stream.EdgeDelta.deletes([], []))
+        except ShedError as e:
+            if not e.retry_after > 0:
+                raise AssertionError("a shed delta needs a retry-after")
+        else:
+            raise AssertionError("the starved tenant's second delta must "
+                                 "be shed")
+        snap = tier.snapshot()
+        s = snap["stream"]
+        if not (s["deltas_applied"] == 2
+                and s["tracker"]["slots"] == len(r0.batches)):
+            raise AssertionError(f"stream metrics disagree: {s}")
+        print(f"[stream] admission gates deltas (1 shed); snapshot: "
+              f"{s['deltas_applied']} deltas, dirty-fraction p50 "
+              f"{s['dirty_fraction']['p50']:.2f}, tracker "
+              f"{s['tracker']['tracker_bytes']} B")
+        out.update(store=r0, snapshot=snap)
+    finally:
+        tier.close()
+    print(f"[stream] PASS in {time.time() - t0:.1f}s")
+    return out
+
+
+# -------------------------------------------------------------------- async
+def _async_demo(args, engine) -> dict:
+    """The deadline-batched front end under a burst of threaded clients."""
+    from repro_torch.serve.distributed import AsyncFrontEnd
+
+    n = engine.store.graph.num_vertices
+    fe = AsyncFrontEnd(MicroBatcher(engine, cache=ResultCache()),
+                       default_deadline=args.deadline,
+                       refresh_every=args.refresh_every)
+    try:
+        lone = fe.submit_sigma([1, 2, 3])
+        lone.result(timeout=300)
+        if fe.stats.deadline_flushes < 1:
+            raise AssertionError(f"a lone request must flush on its "
+                                 f"deadline: {fe.stats}")
+        futs: list = []
+        lock = threading.Lock()
+        rng = np.random.default_rng(1)
+        queries = [rng.integers(0, n, 3).tolist() for _ in range(4 * 8)]
+
+        def client(q):
+            f = fe.submit_sigma(q)
+            with lock:
+                futs.append(f)
+
+        threads = [threading.Thread(target=client, args=(q,))
+                   for q in queries]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for f in futs:
+            f.result(timeout=300)
+        dt = time.perf_counter() - t0
+    finally:
+        fe.close()
+    st = fe.stats
+    print(f"[async] {len(queries)} threaded clients + 1 lone request in "
+          f"{dt:.2f}s: {st.flushes} flushes ({st.slot_flushes} slot / "
+          f"{st.deadline_flushes} deadline / {st.drain_flushes} drain), "
+          f"worst queue wait {st.max_queue_wait * 1e3:.0f} ms (deadline "
+          f"{args.deadline * 1e3:.0f} ms)")
+    return dict(stats=st, seconds=dt)
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true",
                     help="full lifecycle check on a synthetic graph")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve from a sharded pool (comes with the "
+                         "multi-GPU slice; raises here)")
+    ap.add_argument("--async", dest="async_frontend", action="store_true",
+                    help="front the batcher with the deadline-batched "
+                         "AsyncFrontEnd and drive it from client threads")
+    ap.add_argument("--tier", action="store_true",
+                    help="serve through the tier: per-tenant admission "
+                         "control + replica routing (+ --autoscale)")
+    ap.add_argument("--stream-smoke", action="store_true",
+                    help="mutate the graph mid-serve through the tier, "
+                         "refresh the pool incrementally and check it "
+                         "against a cold rebuild")
+    ap.add_argument("--tenants", type=int, default=3,
+                    help="tier tenant count (tenant0 is quota-starved)")
+    ap.add_argument("--replicas", type=int, default=2,
+                    help="tier engine replicas over one epoch-tagged pool")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="arm the pool autoscaler (coverage-error bound + "
+                         "query p99)")
+    ap.add_argument("--quota-qps", type=float, default=50.0,
+                    help="default per-tenant admission rate (tokens/s)")
+    ap.add_argument("--target-eps", type=float, default=0.35,
+                    help="autoscale coverage-error target (IMM ε)")
+    ap.add_argument("--target-p99-ms", type=float, default=250.0,
+                    help="autoscale query-latency target")
+    ap.add_argument("--deadline", type=float, default=0.05,
+                    help="async flush deadline in seconds")
+    ap.add_argument("--refresh-every", type=float, default=None,
+                    help="async background refresh period in seconds")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="pool snapshot directory (default: a temporary "
+                         "directory, removed after the check)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs every "
                          "kernel's plain PyTorch version)")
@@ -226,14 +622,30 @@ def parse_args(argv=None):
     ap.add_argument("--memory-budget-mb", type=float, default=None)
     ap.add_argument("--master-seed", type=int, default=0)
     ap.add_argument("--k", type=int, default=4)
-    ap.add_argument("--queries", type=int, default=6)
+    ap.add_argument("--queries", type=int, default=6,
+                    help="σ and marginal queries of the mixed flush; with "
+                         "--stream-smoke, the delta's deletions and "
+                         "insertions each")
     ap.add_argument("--theta-cap", type=int, default=1024,
                     help="θ cap of the smoke's offline run_imm check")
     return ap.parse_args(argv)
 
 
 def main(argv=None):
-    run_single(parse_args(argv))
+    args = parse_args(argv)
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh (sharded pools and the sharded stream path) is not "
+            "ported yet: it comes with the multi-GPU slice "
+            "(torch.distributed)")
+    if args.stream_smoke:
+        return run_stream(args)
+    if args.tier:
+        if args.tenants < 2:
+            raise SystemExit("--tier wants --tenants >= 2 (tenant0 is the "
+                             "quota-starved one)")
+        return run_tier(args)
+    return run_single(args)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,9 @@ both frontier modes:
                names are the same backend.
 
 LT: the facade normalises the live-edge weights of the reversed graph
-(`lt.normalize_lt_weights`, idempotent), once per graph object.  Samplers
+once per graph object, and uses a graph that already carries the invariant
+as it is (`lt.normalized`).  ``rebind`` moves a sampler to a streamed
+graph pair (`repro_torch.stream`).  Samplers
 run on their graph's device.  The mesh backends come with the multi-GPU
 slice of the port.
 """
@@ -74,6 +76,49 @@ class Sampler:
 
     def sample_many(self, batch_indices) -> list[rrr.RRRBatch]:
         return [self.sample(int(b)) for b in batch_indices]
+
+    # ------------------------------------------------------- rebinding
+    def rebind(self, g: csr.Graph, g_rev: csr.Graph,
+               touched_row_blocks=None) -> "Sampler":
+        """Sampler for the delta-mutated ``(g, g_rev)`` pair under the same
+        spec — the `repro_torch.stream` hook.  The default is a full
+        rebuild (the tile backends rebuild their layouts, which every
+        sampler over the new ``g_rev`` then shares through its cache); the
+        dense sampler overrides it with a values-only fast path.  Either
+        way the result equals a fresh `make_sampler` on the new graphs."""
+        return make_sampler(g, self.spec, g_rev=g_rev)
+
+    def _try_patch_fidx(self, g, g_rev, touched_row_blocks) -> bool:
+        """Sparse-frontier fast path: when the delta kept the edge arrays'
+        layout (tombstone, resurrection, LT renormalisation) and names its
+        touched row blocks, patch this sampler's own frontier index (and
+        the LT prefixes) in place.  True on success."""
+        spec = self.spec
+        if (spec.frontier != "sparse" or touched_row_blocks is None
+                or getattr(self, "_fidx", None) is None):
+            return False
+        if spec.diffusion == "lt":
+            g_rev = lt.normalized(g_rev)
+        if not _same_edge_layout(self.g_rev, g_rev):
+            return False
+        self.graph = g
+        self.g_rev = g_rev
+        cb = None
+        if spec.diffusion == "lt":
+            cb = lt.selection_cum_before(g_rev)
+            self._cb = torch.from_numpy(cb).to(g_rev.device)
+        self._fidx = sparse.patch_frontier_index(
+            self._fidx, g_rev, touched_row_blocks, cb=cb)
+        return True
+
+
+def _same_edge_layout(a: csr.Graph, b: csr.Graph) -> bool:
+    """True when ``b`` kept ``a``'s edge-array layout (same lengths, same
+    ``(src, dst)`` at every slot): the mutation changed probabilities only,
+    so per-position structures (edge blocks, RNG edge ids) carry over."""
+    return (a.num_edges == b.num_edges
+            and a.padded_edges == b.padded_edges
+            and torch.equal(a.src, b.src) and torch.equal(a.dst, b.dst))
 
 
 class DenseSampler(Sampler):
@@ -137,6 +182,11 @@ class DenseSampler(Sampler):
         return [rrr.RRRBatch(vis[i], starts[i], b, int(fused[i]),
                              int(unfused[i]))
                 for i, b in enumerate(idx)]
+
+    def rebind(self, g, g_rev, touched_row_blocks=None):
+        if self._try_patch_fidx(g, g_rev, touched_row_blocks):
+            return self
+        return make_sampler(g, self.spec, g_rev=g_rev)
 
 
 class TiledSampler(Sampler):

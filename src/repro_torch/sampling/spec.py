@@ -62,6 +62,21 @@ class SamplerSpec:
                 "graph_parallel needs DISTINCT axes: mesh_axis (batches) "
                 f"and model_axis (graph rows) are both {self.mesh_axis!r}")
 
+    def replace(self, **kw) -> "SamplerSpec":
+        return dataclasses.replace(self, **kw)
+
+    # ------------------------------------------------- manifest round-trip
+    def to_manifest(self) -> dict:
+        """JSON-serialisable form for a checkpoint manifest's ``extra``
+        (the reference's dict, so snapshots cross between the packages)."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_manifest(cls, d: dict) -> "SamplerSpec":
+        """Inverse of ``to_manifest`` (unknown keys ignored)."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
 
 def resolve_spec(spec: SamplerSpec | None = None, *,
                  num_colors: int | None = None,

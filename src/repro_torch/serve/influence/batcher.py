@@ -17,13 +17,17 @@ The ``ResultCache`` carries its own lock and an atomic ``stats()``
 snapshot, so observers (e.g. the serving tier's metrics exporter) may read
 it concurrently; *writes* still route through the owning batcher.
 
-The reference's per-request deadlines serve its async front end, which
-comes to the port with a later slice.
+**Deadlines.**  ``submit_*(..., deadline=s)`` tags the request "dispatch
+within ``s`` seconds"; the batcher never flushes by itself, but exposes
+``oldest_deadline()`` / ``pending_count`` so a driver
+(`repro_torch.serve.distributed.frontend.AsyncFrontEnd`) can flush on
+*full slot or oldest deadline, whichever first*.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Any
 
 from repro_torch.serve.influence import cache as cache_lib
@@ -37,6 +41,7 @@ class _Pending:
     kind: str
     key: tuple          # canonical cache key
     seeds: tuple        # seed / exclusion set as submitted (deduped, sorted)
+    deadline: float | None = None   # absolute time.monotonic() dispatch-by
 
 
 class FlushError(RuntimeError):
@@ -68,15 +73,17 @@ class MicroBatcher:
         self.dispatches = 0         # device dispatches issued (observability)
 
     # ------------------------------------------------------------- submit
-    def _submit(self, kind: str, key: tuple, seeds: tuple) -> int:
+    def _submit(self, kind: str, key: tuple, seeds: tuple,
+                deadline: float | None) -> int:
+        dl = None if deadline is None else time.monotonic() + deadline
         with self._lock:
             t = self._next_ticket
             self._next_ticket += 1
-            self._pending.append(_Pending(t, kind, key, seeds))
+            self._pending.append(_Pending(t, kind, key, seeds, dl))
         return t
 
-    def submit_top_k(self, k: int) -> int:
-        return self._submit(TOP_K, (int(k),), (int(k),))
+    def submit_top_k(self, k: int, *, deadline: float | None = None) -> int:
+        return self._submit(TOP_K, (int(k),), (int(k),), deadline)
 
     def _checked_key(self, seeds) -> tuple:
         """Canonicalize + validate at submit time: an oversized seed set
@@ -87,13 +94,27 @@ class MicroBatcher:
                              f"max_seeds={self.engine.max_seeds}")
         return key
 
-    def submit_sigma(self, seed_set) -> int:
+    def submit_sigma(self, seed_set, *, deadline: float | None = None) -> int:
         key = self._checked_key(seed_set)
-        return self._submit(SIGMA, key, key)
+        return self._submit(SIGMA, key, key, deadline)
 
-    def submit_marginal(self, exclude) -> int:
+    def submit_marginal(self, exclude, *,
+                        deadline: float | None = None) -> int:
         key = self._checked_key(exclude)
-        return self._submit(MARGINAL, key, key)
+        return self._submit(MARGINAL, key, key, deadline)
+
+    # -------------------------------------------------------- observation
+    @property
+    def pending_count(self) -> int:
+        with self._lock:
+            return len(self._pending)
+
+    def oldest_deadline(self) -> float | None:
+        """Earliest absolute dispatch-by time among pending queries (None
+        when nothing pending carries a deadline)."""
+        with self._lock:
+            dls = [p.deadline for p in self._pending if p.deadline is not None]
+        return min(dls) if dls else None
 
     # -------------------------------------------------------------- flush
     def _lookup(self, p: _Pending, version):

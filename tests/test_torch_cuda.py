@@ -682,3 +682,89 @@ def test_cover_counts_replays_from_a_cuda_graph_and_on_two_streams(cuda):
     for (v, a), got in zip(ins, outs):
         want = ref.cover_counts_multi_ref(v, a)
         assert all(torch.equal(o, want) for o in got)
+
+
+# ------------------------------------------------ the serving lifecycle
+def _lifecycle_graph(device):
+    return csr.dedupe(generators.powerlaw_cluster(
+        600, 6.0, prob=(0.05, 0.3), seed=17, device=device))
+
+
+def _lifecycle_store(device, diffusion, frontier, batches=6):
+    from repro_torch.serve.influence import PoolConfig, SketchStore
+    spec = SamplerSpec(diffusion=diffusion, backend="kernel", num_colors=64,
+                       master_seed=9, tile_size=64, frontier=frontier)
+    store = SketchStore(_lifecycle_graph(device),
+                        PoolConfig(max_batches=16, spec=spec))
+    store.ensure(batches)
+    store.visited_stack()
+    return store
+
+
+@pytest.mark.parametrize("diffusion,frontier", [("ic", "dense"),
+                                                ("lt", "sparse")])
+def test_stream_delta_on_the_kernel_backend(cuda, diffusion, frontier):
+    """An IC / LT delta on the kernel backend: the card's incremental pool
+    equals its cold rebuild and the CPU's plain-version pool after the same
+    delta, word for word, and the tile kernel ran on the new pair."""
+    from repro_torch import stream
+    pools = {}
+    for device in ("cuda", "cpu"):
+        store = _lifecycle_store(device, diffusion, frontier)
+        tracker = stream.DirtySlotTracker.for_store(store)
+        delta = stream.random_delta(store.graph, np.random.default_rng(21),
+                                    num_deletes=6, num_inserts=6)
+        ops.reset_launches()
+        report = stream.incremental_refresh(store, tracker, delta)
+        assert report.dirty_slots > 0
+        if device == "cuda":
+            kernel = "lt_select_expand" if diffusion == "lt" \
+                else "fused_expand"
+            assert ops.LAUNCHES[kernel] > 0
+            cold = stream.cold_rebuild_batches(store)
+            for got, want in zip(store.batches, cold):
+                assert torch.equal(got.visited, want.visited)
+        pools[device] = convert.masks_to_numpy(store.visited_stack())
+    np.testing.assert_array_equal(pools["cuda"], pools["cpu"])
+
+
+def test_dirty_tracker_bits_from_cuda_masks_equal_host_bits(cuda):
+    """The tracker reduces a CUDA mask on the card; its packed bytes equal
+    ``np.packbits`` of the host mask's row-block flags."""
+    from repro_torch.stream import DirtySlotTracker
+    rs = np.random.default_rng(5)
+    for v, tile_rows, density in ((1000, 64, 0.01), (4096, 128, 0.001),
+                                  (777, 7, 0.05), (300, 128, 0.0)):
+        words = (rs.random((v, 3)) < density) * rs.integers(
+            1, 2 ** 32, (v, 3), dtype=np.uint64)
+        host = words.astype(np.uint32)
+        tracker = DirtySlotTracker(v, tile_rows)
+        got = tracker._record_bits(convert.masks_from_numpy(host, "cuda"))
+        rows = np.concatenate([(host != 0).any(1),
+                               np.zeros((-v) % tile_rows, bool)])
+        want = np.packbits(rows.reshape(-1, tile_rows).any(1))
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("saved_on,restored_on", [("cuda", "cpu"),
+                                                  ("cpu", "cuda")])
+def test_snapshot_crosses_between_card_and_host(cuda, tmp_path, saved_on,
+                                                restored_on):
+    """A pool saved from CUDA tensors restores bit for bit on the CPU, and
+    the reverse, with every counter."""
+    from repro_torch.serve.influence import SketchStore
+    store = _lifecycle_store(saved_on, "ic", "dense", batches=4)
+    store.refresh(0.5)
+    store.graph_epoch = 3
+    store.save(str(tmp_path))
+    back = SketchStore.restore(str(tmp_path),
+                               _lifecycle_graph(restored_on), store.config)
+    assert back.visited_stack().device.type == restored_on
+    np.testing.assert_array_equal(
+        convert.masks_to_numpy(back.visited_stack()),
+        convert.masks_to_numpy(store.visited_stack()))
+    assert back.version == store.version
+    assert back.next_batch_index == store.next_batch_index
+    assert back.batch_epochs == store.batch_epochs
+    assert [b.batch_index for b in back.batches] == \
+        [b.batch_index for b in store.batches]
