@@ -83,6 +83,31 @@ else.  Phases, each of which raises on failure:
    ``--diffusion lt --frontier sparse`` (``lt_select_expand`` must have
    run; the renormalised in-edges count among the touched rows), without
    the driver;
+9b. the unfused baseline and forward σ(S), after the LT stream phase's
+    release, at the main configuration (65,536 vertices, reversed, 64
+    colours, batch 0's roots and seed): (a) ``run_unfused`` (64
+    single-colour CSR runs) equals ``run_fused``'s mask and the golden
+    batch 0 word for word, its total edge visits the golden
+    ``unfused_edge_visits``, and each colour's levels, popcount and visits
+    the golden ``"unfused"`` entry (``make_torch_golden.py
+    --unfused-only``); these paths and (b) launch no kernel; (b)
+    ``simulate_influence`` of the first 8 golden top-16 seeds, 512 trials,
+    equals the golden σ exactly; (c) that forward σ lies within 4 standard
+    errors (from the samples) of n × ``coverage_of`` on a fresh
+    ``sample_collection`` of 4,096 RRR sets (kernel backend, master_seed
+    4,242), and exceeds the forward σ of 8 random vertices; (d) batch 0 on
+    the host clock, 3 runs in turns: ``run_fused`` (CSR), ``run_unfused``
+    (CSR) and the kernel backend, with the unfused/fused ratio, the edge
+    visits and their savings, the levels and the mean occupancy;
+9c. the paper's Fig. 7/8 grid at a Table-1 size: ``powerlaw_cluster`` at
+    web-Google's vertices and average degree (875,713, 11.66, seed 2),
+    reversed, re-weighted to a constant p ∈ {0.05, 0.1, 0.2}, colours ∈
+    {8, 32, 64} from ``random_starts(0, ...)``; at every point
+    ``run_unfused`` ≡ ``run_fused`` word for word and in total visits
+    (Theorem 1's coupling, exact), the fused time as the median of 3 runs,
+    the unfused one of as many runs as fit in 4 s (at most 3), the
+    speedup, the visit ratio, levels, occupancy and peak memory.  CSR
+    against CSR, as in the reference: no tile layout at this size;
 10. quantised golden, after the LT tile stacks are released: the port's
     whole quantised path at the golden file's ``"q"`` size (4,096
     vertices: generator, ``cluster`` reordering, q8 layout,
@@ -142,9 +167,9 @@ else.  Phases, each of which raises on failure:
     the port never calls it) from a CUDA graph of 10 launches and with
     events around one eager call, each beside the function's bound.
 
-Each phase prints its peak device memory.  Phases 6a, 6b and 9a each build
-their own graph and 24.2 GiB tile layout, after the phase before is
-released; a delta's rebind holds the old and new layouts for a moment.  The line before the last is the
+Each phase prints its peak device memory (9b and 9c their seconds too).
+Phases 6a, 6b, 9a and 9b each build their own graph and 24.2 GiB tile
+layout, after the phase before is released; a delta's rebind holds the old and new layouts for a moment.  The line before the last is the
 card's name and power limit as ``nvidia-smi`` reports them; the last line
 is the result object.
 """
@@ -207,6 +232,14 @@ OPS_PER_Q_HASH = 20
 # statistics limit in standard errors of the difference of two means.
 Q_N, Q_DEGREE, Q_PROB, Q_GRAPH_SEED = 262_144, 6.0, 0.25, 7
 Q_BATCHES, Q_CHECK_TILES, Q_STAT_SE = 8, 4096, 4.0
+# The fused-versus-unfused phases (9b, 9c): forward σ's trials and counter
+# seed, the fresh reverse collection and the limit in standard errors;
+# the Table-1 grid's graph, edge probabilities, colours, counter seed and
+# the host seconds of unfused runs a point may take (at most 3 runs).
+SIGMA_TRIALS, SIGMA_MASTER_SEED, SIGMA_SE = 512, 77, 4.0
+FRESH_THETA, FRESH_SEED = 4096, 4242
+T1_NAME, T1_GRAPH_SEED, T1_SEED = "web-Google", 2, 1
+T1_PROBS, T1_COLORS, UNFUSED_BUDGET_S = (0.05, 0.1, 0.2), (8, 32, 64), 4.0
 
 
 def _gpu_line() -> str:
@@ -1139,6 +1172,235 @@ def time_cover_counts(store) -> dict:
     return per
 
 
+# ------------------------------------------- fused-versus-unfused phases
+def _host_s(fn):
+    """(result, seconds) of ``fn()`` on the host clock between two
+    synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _spread(times) -> str:
+    return (f"{np.median(times) * 1e3:.1f} ms (range "
+            f"{min(times) * 1e3:.1f}-{max(times) * 1e3:.1f}, "
+            f"{len(times)} run{'s' if len(times) > 1 else ''})")
+
+
+def _forward_sizes(g, seeds, trials: int, master_seed: int) -> np.ndarray:
+    """(trials,) forward IC cascade sizes from the seed set, the rounds of
+    ``imm.simulate_influence`` (its mean is that function's value)."""
+    from repro_torch.core import bitmask, imm
+
+    seeds = np.asarray(seeds, np.int64)
+    sizes, done = [], 0
+    while done < trials:
+        c = min(256, trials - done)
+        fr = bitmask.set_color(
+            bitmask.make_mask(g.num_vertices, c, g.device),
+            torch.from_numpy(np.repeat(seeds, c)),
+            torch.arange(c).repeat(len(seeds)))
+        vis = imm._run_from_frontier(g, fr, c, master_seed + done)
+        sizes.append(_colour_sizes(vis, c).cpu().numpy())
+        done += c
+    return np.concatenate(sizes)
+
+
+def run_unfused_phase(golden: dict) -> dict:
+    """9b: the unfused baseline and forward σ(S) at the main configuration
+    (module docstring)."""
+    from repro_torch.core import bitmask, imm, rrr, traversal
+    from repro_torch.graph import csr, generators
+    from repro_torch.kernels import ops
+    from repro_torch.sampling import SamplerSpec, make_sampler
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gg, gold, b0 = golden["graph"], golden["unfused"], golden["batches"][0]
+    g = csr.dedupe(generators.powerlaw_cluster(
+        gg["n"], gg["avg_deg"], prob=gg["prob"], seed=gg["seed"]))
+    g_rev = csr.transpose(g)
+    _check(g.num_edges == gg["num_edges"], "main graph differs")
+    n, colors, ms = g.num_vertices, golden["num_colors"], golden["master_seed"]
+    starts = rrr.batch_starts(n, colors, ms, 0)
+    seed = rrr.batch_seed(ms, 0)
+
+    # (a) the unfused baseline against the fused run and the reference.
+    ops.reset_launches()
+    vis_u, total = traversal.run_unfused(g_rev, starts, colors, seed)
+    fused = traversal.run_fused(g_rev, starts, colors, seed)
+    fused_visits = int(fused.stats.fused_edge_visits.astype(np.int64).sum())
+    unfused_visits = int(fused.stats.unfused_edge_visits.astype(np.int64)
+                         .sum())
+    _check(_sha(vis_u) == gold["visited_sha256"] == b0["visited_sha256"]
+           and torch.equal(vis_u, fused.visited),
+           "run_unfused's mask differs from run_fused's or the reference's")
+    _check(total == gold["total_edge_visits"] == b0["unfused_edge_visits"]
+           == unfused_visits,
+           f"run_unfused visited {total} edges; fused unfused count "
+           f"{unfused_visits}, reference {b0['unfused_edge_visits']}")
+    levels = []
+    for c, gc in enumerate(gold["colors"]):
+        r = traversal.run_single_color(g_rev, int(starts[c]), c, seed)
+        got = (r.stats.levels_run, int(bitmask.popcount(r.visited).sum()),
+               int(r.stats.fused_edge_visits.astype(np.int64).sum()))
+        _check(got == (gc["levels_run"], gc["popcount"], gc["edge_visits"]),
+               f"colour {c}: (levels, popcount, visits) {got} != reference "
+               f"{gc}")
+        levels.append(r.stats.levels_run)
+    _check(max(levels) == fused.stats.levels_run,
+           "the fused run's levels are not the slowest colour's")
+
+    # (b) forward σ(S) of the golden seeds, exactly the reference's.
+    sig = gold["sigma"]
+    sigma = imm.simulate_influence(g, sig["seeds"], sig["num_trials"],
+                                   sig["master_seed"])
+    _check(sigma == sig["value"],
+           f"simulate_influence {sigma!r} != reference {sig['value']!r}")
+    launches = dict(ops.LAUNCHES)
+    _check(not any(launches.values()),
+           f"the CSR and forward paths launched a kernel: {launches}")
+
+    # (c) forward σ against the reverse estimate on fresh RRR sets (kernel
+    # backend), and the greedy seeds against random ones.
+    sizes = _forward_sizes(g, sig["seeds"], SIGMA_TRIALS, SIGMA_MASTER_SEED)
+    _check(sizes.sum() / SIGMA_TRIALS == sigma,
+           "per-trial cascade sizes do not sum to simulate_influence's σ")
+    rand = np.random.default_rng(0).integers(0, n, len(sig["seeds"]))
+    sizes_r = _forward_sizes(g, rand, SIGMA_TRIALS, SIGMA_MASTER_SEED)
+    ops.reset_launches()
+    fresh = rrr.sample_collection(
+        g, FRESH_THETA, colors, FRESH_SEED, spec=SamplerSpec(
+            backend="kernel", num_colors=colors, master_seed=FRESH_SEED))
+    _check(ops.LAUNCHES["fused_expand"] > 0,
+           "sample_collection on the kernel backend never launched "
+           "fused_expand")
+    cov = imm.coverage_of(torch.stack([b.visited for b in fresh]),
+                          sig["seeds"], colors)
+    del fresh
+    rev = n * cov
+    se_rev = n * np.sqrt(cov * (1 - cov) / FRESH_THETA)
+    se_fwd = float(sizes.std(ddof=1)) / np.sqrt(SIGMA_TRIALS)
+    se = float(np.hypot(se_rev, se_fwd))
+    _check(abs(rev - sigma) <= SIGMA_SE * se,
+           f"forward σ {sigma} and reverse n·coverage {rev:.1f} differ by "
+           f"more than {SIGMA_SE} × {se:.1f}")
+    sigma_r = float(sizes_r.mean())
+    _check(sigma > sigma_r, f"greedy σ {sigma} ≤ random σ {sigma_r}")
+
+    # (d) host clock, in turns: fused CSR, unfused CSR, the kernel backend.
+    kern = make_sampler(g, SamplerSpec(backend="kernel"), g_rev=g_rev)
+    runs = {"fused": lambda: traversal.run_fused(g_rev, starts, colors, seed),
+            "unfused": lambda: traversal.run_unfused(g_rev, starts, colors,
+                                                     seed),
+            "kernel": lambda: kern.sample(0)}
+    times = {k: [] for k in runs}
+    for _ in range(3):
+        for k, fn in runs.items():
+            out, sec = _host_s(fn)
+            times[k].append(sec)
+    _check(_sha(out.visited) == b0["visited_sha256"],
+           "kernel batch 0 differs from the reference")
+    lv = fused.stats.levels_run
+    occ = float(fused.stats.occupancy_num[:lv].mean())
+    ratio = float(np.median(times["unfused"]) / np.median(times["fused"]))
+    res = dict(
+        fused_ms=float(np.median(times["fused"])) * 1e3,
+        unfused_ms=float(np.median(times["unfused"])) * 1e3,
+        kernel_ms=float(np.median(times["kernel"])) * 1e3,
+        unfused_over_fused=ratio, fused_visits=fused_visits,
+        unfused_visits=unfused_visits,
+        savings=1 - fused_visits / unfused_visits, levels=lv,
+        colour_levels=(min(levels), float(np.mean(levels)), max(levels)),
+        occupancy=occ, sigma=sigma, sigma_random=sigma_r, reverse=rev,
+        se=se, peak_gib=_peak_gib(), seconds=time.perf_counter() - t_phase)
+    print(f"[unfused a] run_unfused (64 single-colour runs) on batch 0: mask "
+          f"equals run_fused's and the reference's word for word; "
+          f"{total} edge visits = the reference's; each colour's levels "
+          f"and popcount equal the reference's (levels min/mean/max "
+          f"{min(levels)}/{np.mean(levels):.2f}/{max(levels)}; fused "
+          f"{lv}); no kernel launched")
+    print(f"[unfused b] simulate_influence(top-16 seeds[:8], "
+          f"{SIGMA_TRIALS}) = {sigma!r}, the reference's exactly")
+    print(f"[unfused c] forward σ {sigma:.3f} ± {se_fwd:.3f} against "
+          f"n·coverage {rev:.3f} ± {se_rev:.3f} on {FRESH_THETA} fresh RRR "
+          f"sets (kernel backend, master_seed {FRESH_SEED}): |difference| "
+          f"{abs(rev - sigma):.3f} ≤ {SIGMA_SE} × {se:.3f}; random 8 "
+          f"vertices σ {sigma_r:.3f}, greedy/random {sigma / sigma_r:.2f}×")
+    print(f"[unfused d] batch 0, host clock after synchronise: run_fused "
+          f"(CSR) {_spread(times['fused'])}, run_unfused (CSR) "
+          f"{_spread(times['unfused'])}, kernel backend "
+          f"{_spread(times['kernel'])}; unfused/fused {ratio:.2f}×; edge "
+          f"visits fused {fused_visits}, unfused {unfused_visits}, savings "
+          f"{100 * res['savings']:.2f}%; {lv} levels, mean occupancy "
+          f"{occ:.4f}; peak device memory {res['peak_gib']:.2f} GiB; "
+          f"{res['seconds']:.1f}s")
+    return res
+
+
+def run_table1_grid() -> dict:
+    """9c: the paper's Fig. 7/8 grid at web-Google's size (module
+    docstring); every point's Theorem 1 coupling is checked exactly."""
+    from repro_torch.core import traversal
+    from repro_torch.graph import csr, datasets, generators
+
+    t_phase = time.perf_counter()
+    v, _, deg = datasets.TABLE1[T1_NAME]
+    t0 = time.perf_counter()
+    base = csr.transpose(generators.powerlaw_cluster(v, deg,
+                                                     seed=T1_GRAPH_SEED))
+    src, dst, _ = base.edges_numpy()
+    e = base.num_edges
+    del base
+    print(f"[table1] {T1_NAME}'s size: powerlaw_cluster({v}, {deg}, seed "
+          f"{T1_GRAPH_SEED}), reversed: {e} edges, built in "
+          f"{time.perf_counter() - t0:.1f}s")
+    points = []
+    for p in T1_PROBS:
+        g = csr.from_edges(src, dst, np.full(e, p, np.float32), v)
+        for c in T1_COLORS:
+            starts = traversal.random_starts(0, v, c)
+            torch.cuda.reset_peak_memory_stats()
+            t_f = []
+            for _ in range(3):
+                fused, sec = _host_s(lambda: traversal.run_fused(
+                    g, starts, c, T1_SEED))
+                t_f.append(sec)
+            t_u = []
+            while len(t_u) < 3 and sum(t_u) < UNFUSED_BUDGET_S:
+                (vis, total), sec = _host_s(lambda: traversal.run_unfused(
+                    g, starts, c, T1_SEED))
+                t_u.append(sec)
+            fv = int(fused.stats.fused_edge_visits.astype(np.int64).sum())
+            uv = int(fused.stats.unfused_edge_visits.astype(np.int64).sum())
+            _check(torch.equal(vis, fused.visited) and total == uv,
+                   f"p {p}, {c} colours: run_unfused differs from run_fused "
+                   f"(visits {total} vs {uv})")
+            _check(fv <= uv, f"Theorem 1 fails at p {p}, {c} colours")
+            lv = fused.stats.levels_run
+            pt = dict(p=p, colors=c, fused_ms=float(np.median(t_f)) * 1e3,
+                      unfused_ms=float(np.median(t_u)) * 1e3,
+                      unfused_runs=len(t_u), fused_visits=fv,
+                      unfused_visits=uv, levels=lv,
+                      occupancy=float(fused.stats.occupancy_num[:lv].mean())
+                      if lv else 0.0, peak_gib=_peak_gib())
+            pt["speedup"] = pt["unfused_ms"] / pt["fused_ms"]
+            points.append(pt)
+            print(f"[table1] p {p} colours {c}: fused {_spread(t_f)}, "
+                  f"unfused {_spread(t_u)}; speedup {pt['speedup']:.2f}×; "
+                  f"visits fused/unfused {fv}/{uv} = "
+                  f"{fv / max(uv, 1):.4f}; {lv} levels, occupancy "
+                  f"{pt['occupancy']:.4f}; masks and totals equal; peak "
+                  f"device memory {pt['peak_gib']:.2f} GiB")
+        del g
+    seconds = time.perf_counter() - t_phase
+    print(f"[table1] 3 × 3 grid: run_unfused ≡ run_fused word for word and "
+          f"in total visits at every point; {seconds:.1f}s")
+    return dict(points=points, seconds=seconds)
+
+
 # ----------------------------------------------------------- quantised phases
 def _q_graph(n: int, dev):
     """The quantised path's graph: powerlaw_cluster(n, 6.0, p = 0.25, seed
@@ -1987,6 +2249,10 @@ def main() -> int:
     _release("LT phase")
     stream_lt = run_stream_phase(golden, "lt")
     _release("LT stream phase")
+    unfused = run_unfused_phase(golden)
+    _release("unfused phase")
+    grid = run_table1_grid()
+    _release("Table-1 grid")
 
     q = run_q_phases(golden, dev)
     _release("quantised phases")

@@ -4,6 +4,7 @@
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --lm-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --q-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --stream-only
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --unfused-only
 
 Builds the launcher's graph at the size the port's chip smoke serves
 (``powerlaw_cluster(65536, 6.0, prob=0.25, seed=7)``, deduped, reversed),
@@ -50,6 +51,16 @@ the reference's sampler normalises the mutated graph once more, which is
 not a no-op in float32: ``renormalised_edges`` counts the weights it
 moves (the port samples the mutated graph as it is, `lt.normalized`).
 ``--stream-only`` recomputes that entry alone.
+
+The ``"unfused"`` entry is the unfused baseline on the main graph's
+batch 0: for each of its 64 colours, ``traversal.run_single_color`` on the
+reversed graph from the batch's root with the batch's counter seed, and
+its ``levels_run``, the popcount of its mask and its edge visits summed;
+the assembled ``(V, W)`` mask's sha256 and the total visits (which must
+equal batch 0's fused mask and ``unfused_edge_visits``).  Under
+``"sigma"``: ``imm.simulate_influence`` of the first 8 top-16 seeds on the
+forward graph, 512 trials, master_seed 77.  ``--unfused-only`` recomputes
+that entry alone (reading the seeds from the file).
 """
 from __future__ import annotations
 
@@ -81,6 +92,7 @@ LM_ARCH, LM_LAYERS, LM_PARAM_SEED, LM_PROMPT_SEED = "llama3.2-3b", 2, 0, 1
 LM_BATCH, LM_PROMPT_LEN, LM_STEPS, LM_IDS = 2, 64, 8, 32
 Q_N, Q_ORDER, Q_BATCHES, Q_MAX_LEVELS = 4096, "cluster", 2, 64
 STREAM_OPS, STREAM_QUERIES, STREAM_TILE_ROWS = 64, 4, 128
+SIGMA_SEEDS, SIGMA_TRIALS, SIGMA_MASTER_SEED = 8, 512, 77
 OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests", "data",
                    "torch_port_golden.json")
 
@@ -267,6 +279,35 @@ def stream_golden() -> dict:
     return out
 
 
+def unfused_golden(top_seeds) -> dict:
+    """The ``"unfused"`` entry (module docstring)."""
+    g = csr.dedupe(generators.powerlaw_cluster(N, DEGREE, prob=PROB,
+                                               seed=GRAPH_SEED))
+    g_rev = csr.transpose(g)
+    starts = np.asarray(rrr.batch_starts(N, COLORS, MASTER_SEED, 0))
+    seed = rrr.batch_seed(MASTER_SEED, 0)
+    visited = np.zeros((N, bitmask.num_words(COLORS)), np.uint32)
+    colors = []
+    for c in range(COLORS):
+        res = traversal.run_single_color(g_rev, int(starts[c]), c, seed)
+        words = np.asarray(res.visited[:, 0])
+        visited[:, c // 32] |= words
+        colors.append({
+            "color": c, "levels_run": int(res.stats.levels_run),
+            "popcount": int(np.unpackbits(words.view(np.uint8)).sum()),
+            "edge_visits": int(np.asarray(res.stats.fused_edge_visits,
+                                          np.int64).sum())})
+    seeds = [int(s) for s in top_seeds[:SIGMA_SEEDS]]
+    sigma = imm.simulate_influence(g, np.asarray(seeds),
+                                   num_trials=SIGMA_TRIALS,
+                                   master_seed=SIGMA_MASTER_SEED)
+    return {"batch_index": 0, "visited_sha256": mask_sha256(visited),
+            "total_edge_visits": sum(c["edge_visits"] for c in colors),
+            "colors": colors,
+            "sigma": {"seeds": seeds, "num_trials": SIGMA_TRIALS,
+                      "master_seed": SIGMA_MASTER_SEED, "value": sigma}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     only = ap.add_mutually_exclusive_group()
@@ -276,9 +317,12 @@ def main() -> None:
                       help="recompute the \"q\" entry alone")
     only.add_argument("--stream-only", action="store_true",
                       help="recompute the \"stream\" entry alone")
+    only.add_argument("--unfused-only", action="store_true",
+                      help="recompute the \"unfused\" entry alone")
     args = ap.parse_args()
     t0 = time.time()
-    entries = {"lm": lm_golden, "q": q_golden, "stream": stream_golden}
+    entries = {"lm": lm_golden, "q": q_golden, "stream": stream_golden,
+               "unfused": lambda: unfused_golden(golden["top_k"]["seeds"])}
     key = next((k for k in entries if getattr(args, f"{k}_only")), None)
     if key is not None:
         with open(OUT) as f:
@@ -336,6 +380,7 @@ def main() -> None:
     golden["lm"] = lm_golden()
     golden["q"] = q_golden()
     golden["stream"] = stream_golden()
+    golden["unfused"] = unfused_golden(seeds.tolist())
     _write(golden)
     print(f"wrote {os.path.normpath(OUT)} in {time.time() - t0:.1f}s")
 

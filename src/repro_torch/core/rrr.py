@@ -74,6 +74,28 @@ def sample_batch(g_rev: csr.Graph, num_colors: int, master_seed: int,
                     int(res.stats.unfused_edge_visits.sum()))
 
 
+def sample_collection(g: csr.Graph, theta: int,
+                      num_colors: int | None = None,
+                      master_seed: int | None = None, *, spec=None,
+                      mesh=None) -> list[RRRBatch]:
+    """θ RRR sets as ⌈θ/num_colors⌉ fused batches on transpose(g), through
+    the `repro_torch.sampling` facade (``sampling.resolve_spec``: explicit
+    num_colors/master_seed that disagree with ``spec`` raise).  The
+    reference's ``mesh`` (its ``data_parallel`` backend) comes with the
+    multi-GPU slice; its legacy ``sample_batch`` keywords are not carried
+    over."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sample_collection(mesh=...) is not ported yet: it comes with "
+            "the multi-GPU slice (slice G, torch.distributed samplers)")
+    from repro_torch import sampling
+
+    spec = sampling.resolve_spec(spec, num_colors=num_colors,
+                                 master_seed=master_seed)
+    sampler = sampling.make_sampler(g, spec)
+    return sampler.sample_many(range(-(-theta // spec.num_colors)))
+
+
 def stack_visited(batches: list[RRRBatch]) -> torch.Tensor:
     """(B, V, W) stacked visited masks for seed selection."""
     return torch.stack([b.visited for b in batches])

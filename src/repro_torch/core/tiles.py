@@ -82,6 +82,11 @@ class TiledGraph:
     def num_blocks(self) -> int:
         return self.padded_vertices // self.tile_size
 
+    @property
+    def occupancy(self) -> float:
+        """Edges per stored tile slot — the reordering cost model."""
+        return self.num_edges / (max(self.num_tiles, 1) * self.tile_size ** 2)
+
 
 @dataclasses.dataclass(frozen=True)
 class SlotList:
@@ -458,6 +463,17 @@ def active_tile_ids(tile_src: torch.Tensor,
     target).  A dst-sorted layout stays dst-sorted along the list."""
     return torch.nonzero(active_blocks[tile_src.to(torch.int64)]) \
         .squeeze(1).to(torch.int32)
+
+
+def tile_stats(tg: TiledGraph) -> dict:
+    """Reordering benchmark metrics (the paper's Fig. 5 analogue)."""
+    nblocks = tg.num_blocks
+    return dict(
+        num_tiles=tg.num_tiles,
+        possible_tiles=nblocks * nblocks,
+        tile_fill_fraction=tg.num_tiles / max(nblocks * nblocks, 1),
+        occupancy=tg.occupancy,
+    )
 
 
 def pad_mask_rows(mask: torch.Tensor, padded_vertices: int) -> torch.Tensor:

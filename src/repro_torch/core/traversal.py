@@ -11,7 +11,9 @@ This is the ``dense`` sampler backend and the independent cross-check of
 the tile path: it never touches the tile layout or the CUDA kernels, only
 the shared counter RNG.  Only edges whose source carries a colour are
 hashed — the others contribute 0 — and the loop is a Python ``while`` with
-one host sync per level for the frontier test.
+one host sync per level for the frontier test.  ``run_single_color`` and
+``run_unfused`` are the unfused baseline on the same counters, so colour
+``c`` of a fused run equals the single-colour run of ``c`` bit for bit.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.core import bitmask, rng, threefry
 from repro_torch.graph.csr import Graph
 
 _TILE_ROWS = 128       # row-tile height of the active_tile_frac statistic
+_HASH_CHUNK = 2 ** 28  # (edge, word, lane) counters hashed at once
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +84,21 @@ def _word_lanes(num_words: int, device) -> torch.Tensor:
             + torch.arange(32, device=device)[None, :])
 
 
+def _draw_words(g: Graph, live: torch.Tensor, num_words: int, level: int,
+                seed: int) -> torch.Tensor:
+    """(E_live, W) packed Bernoulli words of the ``live`` edges, hashed
+    ``_HASH_CHUNK`` (edge, word, lane) counters at a time: each counter is
+    an int64 temporary, so one pass over 10M live edges at W = 2 would
+    hold several 5.1 GB arrays at once."""
+    lanes = _word_lanes(num_words, live.device)[None]
+    words = []
+    for e in live.split(max(1, _HASH_CHUNK // (num_words * 32))):
+        bits = rng.hash_u32(seed, level, e[:, None, None], lanes)
+        draws = rng.uniform_from_u32(bits) < g.prob[e][:, None, None]
+        words.append(bitmask.pack_bits(draws))
+    return torch.cat(words)
+
+
 def fused_step(g: Graph, frontier: torch.Tensor, visited: torch.Tensor,
                level: int, seed: int):
     """One level of the fused traversal.  Returns (frontier', visited', info)
@@ -89,11 +107,9 @@ def fused_step(g: Graph, frontier: torch.Tensor, visited: torch.Tensor,
     visited = visited | frontier                            # Listing 1 line 8
     fr_src = frontier[g.src.to(torch.int64)]                # (E, W) gather
     live = torch.nonzero((fr_src != 0).any(1)).squeeze(1)   # edges to hash
-    bits = rng.hash_u32(seed, level, live[:, None, None],
-                        _word_lanes(w, frontier.device)[None])
-    draws = rng.uniform_from_u32(bits) < g.prob[live][:, None, None]
     dst = g.dst[live].to(torch.int64)
-    contrib = fr_src[live] & bitmask.pack_bits(draws) & ~visited[dst]
+    contrib = (fr_src[live] & _draw_words(g, live, w, level, seed)
+               & ~visited[dst])
     next_frontier = _scatter_or(torch.zeros_like(visited), dst, contrib)
     next_frontier = next_frontier & ~visited                # line 11 re-check
 
@@ -172,3 +188,63 @@ def run_fused_block(g: Graph, starts: np.ndarray, seeds: np.ndarray,
     return (torch.stack([r.visited for r in results]),
             np.asarray([r.stats.fused_edge_visits.sum() for r in results]),
             np.asarray([r.stats.unfused_edge_visits.sum() for r in results]))
+
+
+def run_single_color(g: Graph, start: int, color_id: int, seed: int,
+                     max_levels: int = 64) -> TraversalResult:
+    """Unfused baseline: one BPT on the *global* colour id's RNG stream.
+
+    Each level hashes ``(seed, level, edge id, word*32 + lane)`` for this
+    colour only — the fused run's counter — so this run's ``(V, 1)`` mask
+    equals bit ``color_id`` of ``run_fused``'s.  Its stats are the
+    reference's: ``fused_edge_visits`` = ``unfused_edge_visits`` = edges
+    whose source carries the colour (over every padded row: a pad row has
+    source 0), ``frontier_vertices``; the other fields stay 0.  Each level
+    costs one host sync for the frontier test and one for ``nonzero``.
+    """
+    dev = g.device
+    lane_bit = bitmask.i32(torch.tensor(1 << (color_id % 32), device=dev))
+    frontier = torch.zeros((g.num_vertices, 1), dtype=torch.int32,
+                           device=dev)
+    frontier[int(start), 0] = lane_bit
+    visited = torch.zeros_like(frontier)
+    src, dst = g.src.to(torch.int64), g.dst.to(torch.int64)
+    visits, vertices = [], []
+    level = 0
+    while level < max_levels and bitmask.any_set(frontier):
+        visited = visited | frontier
+        live = torch.nonzero(frontier[src, 0]).squeeze(1)   # colour at src
+        bits = rng.hash_u32(seed, level, live, color_id)
+        drawn = rng.uniform_from_u32(bits) < g.prob[live]
+        hit = dst[live][drawn]
+        nf = torch.zeros_like(visited)
+        nf[hit, 0] = lane_bit                               # scatter-OR
+        visits.append(live.numel())
+        vertices.append((frontier != 0).sum(dtype=torch.int32))
+        frontier = nf & ~visited
+        level += 1
+    visited = visited | frontier
+    per_level = np.zeros((2, max_levels), np.int32)
+    per_level[0, :level] = visits
+    if vertices:
+        per_level[1, :level] = torch.stack(vertices).cpu().numpy()
+    zeros_i = np.zeros(max_levels, np.int32)
+    zeros_f = np.zeros(max_levels, np.float32)
+    stats = TraversalStats(level, per_level[0], per_level[0].copy(),
+                           per_level[1], zeros_i, zeros_f, zeros_f.copy(),
+                           zeros_i.copy())
+    return TraversalResult(visited=visited, stats=stats)
+
+
+def run_unfused(g: Graph, starts, num_colors: int, seed: int,
+                max_levels: int = 64):
+    """``num_colors`` separate single-colour BPTs (the unfused baseline of
+    the paper's Figs. 7/8).  Returns (the assembled ``(V, W)`` mask, the
+    total edge visits as a Python int)."""
+    visited = bitmask.make_mask(g.num_vertices, num_colors, g.device)
+    total = 0
+    for c in range(num_colors):
+        res = run_single_color(g, int(starts[c]), c, seed, max_levels)
+        visited[:, c // 32] |= res.visited[:, 0]
+        total += int(res.stats.fused_edge_visits.astype(np.int64).sum())
+    return visited, total

@@ -123,3 +123,9 @@ def relabel(g: Graph, perm: np.ndarray) -> Graph:
     src, dst, prob = g.edges_numpy()
     return from_edges(perm[src], perm[dst], prob, g.num_vertices,
                       pad_to=g.padded_edges, device=g.device)
+
+
+def uniform_probs(rng: np.random.Generator, num_edges: int,
+                  low: float = 0.0, high: float = 1.0) -> np.ndarray:
+    """Paper §6: edge weights drawn uniformly, generated once and reused."""
+    return rng.uniform(low, high, size=num_edges).astype(np.float32)

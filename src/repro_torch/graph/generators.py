@@ -57,6 +57,42 @@ def powerlaw_cluster(n: int, avg_deg: float, *, mixing: float = 0.2,
     return csr.from_edges(src, dst, p, n, device=device)
 
 
+def erdos_renyi(n: int, avg_deg: float, *, prob=0.1, seed: int = 0,
+                device="cuda") -> csr.Graph:
+    """G(n, m) with m = n·avg_deg directed edges, self-loops dropped."""
+    rng = np.random.default_rng(seed)
+    e = int(n * avg_deg)
+    src = rng.integers(0, n, e)
+    dst = rng.integers(0, n, e)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    return csr.from_edges(src, dst, _edge_probs(rng, len(src), prob), n,
+                          device=device)
+
+
+def rmat(scale: int, avg_deg: float, *, a=0.57, b=0.19, c=0.19,
+         prob=(0.0, 1.0), seed: int = 0, device="cuda") -> csr.Graph:
+    """Graph500-style R-MAT: recursive quadrant sampling → heavy skew."""
+    rng = np.random.default_rng(seed)
+    n = 1 << scale
+    e = int(n * avg_deg)
+    src = np.zeros(e, np.int64)
+    dst = np.zeros(e, np.int64)
+    for bit in range(scale):
+        r = rng.random((e, 2))
+        src_bit = r[:, 0] > (a + b)
+        # quadrant probabilities conditioned on the row half
+        thresh = np.where(src_bit, c / max(c + (1 - a - b - c), 1e-9),
+                          a / max(a + b, 1e-9))
+        dst_bit = r[:, 1] > thresh
+        src |= src_bit.astype(np.int64) << bit
+        dst |= dst_bit.astype(np.int64) << bit
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    return csr.from_edges(src, dst, _edge_probs(rng, len(src), prob), n,
+                          device=device)
+
+
 def _edge_probs(rng: np.random.Generator, e: int, prob) -> np.ndarray:
     if isinstance(prob, tuple):
         return rng.uniform(prob[0], prob[1], e).astype(np.float32)
