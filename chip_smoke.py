@@ -108,6 +108,30 @@ else.  Phases, each of which raises on failure:
     the unfused one of as many runs as fit in 4 s (at most 3), the
     speedup, the visit ratio, levels, occupancy and peak memory.  CSR
     against CSR, as in the reference: no tile layout at this size;
+9d. the mesh paths on ranks that share the card (`launch.accel.spawn`;
+    each rank's program in ``repro_torch/launch/mesh_smoke.py``), at the
+    main configuration: (a) ``graph_parallel`` IC on a 2×2 (data × model)
+    mesh over gloo — batches 0-3 against the golden sha256s, the top-16
+    of their pool through ``DistributedQueryEngine``, a 64-batch pool
+    timed on the dense exchange leg and on the sparse one (auto capacity)
+    with equal masks and the per-level ``gather_words`` of each, every
+    level of batch 0 on each rank's slot list through ``fused_expand``
+    against its plain version, each rank's launches of ``fused_expand``
+    and ``cover_counts`` (counters zeroed just before, read just after,
+    both > 0), and on each rank's block of the 64-batch pool
+    ``cover_counts`` / ``cover_counts_multi`` against their plain versions
+    on the engine's masks (pad slots zero); (b) the same under LT
+    (``lt_select_expand``); (c) ``data_parallel`` IC on the same four
+    ranks as 4×1: batches 0-3 and top-16, (a)'s 64-batch snapshot
+    restored onto 4×1, ``refresh(0.5)`` equal to a one-device pool's, the
+    coverage check per rank; (d) a 1×1 mesh over NCCL: batches 0-3 and
+    top-16 through the same code, (a)'s snapshot restored onto it, the
+    coverage check;
+    (e) the golden ``"mesh"`` entry (4,096 vertices, batches 0-7, IC and
+    LT, dense and sparse leg) on 2×2 and on a 1×3 world: every sha256 and
+    every level's words.  It prints each sub-phase's seconds, each rank's
+    peak device memory, the transport, the bytes staged through the host,
+    and one level's exchange timed alone (all-gather, butterfly, pmax);
 10. quantised golden, after the LT tile stacks are released: the port's
     whole quantised path at the golden file's ``"q"`` size (4,096
     vertices: generator, ``cluster`` reordering, q8 layout,
@@ -167,7 +191,8 @@ else.  Phases, each of which raises on failure:
     the port never calls it) from a CUDA graph of 10 launches and with
     events around one eager call, each beside the function's bound.
 
-Each phase prints its peak device memory (9b and 9c their seconds too).
+Each phase prints its peak device memory (9b, 9c and 9d their seconds
+too).
 Phases 6a, 6b, 9a and 9b each build their own graph and 24.2 GiB tile
 layout, after the phase before is released; a delta's rebind holds the old and new layouts for a moment.  The line before the last is the
 card's name and power limit as ``nvidia-smi`` reports them; the last line
@@ -358,7 +383,8 @@ def _same_lists(a, b) -> bool:
     """Two slot lists equal field for field."""
     return all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
         "slot_ptr", "src_row", "dst_row", "value", "key")) \
-        and a.value.dtype == b.value.dtype and a.num_rows == b.num_rows
+        and a.value.dtype == b.value.dtype \
+        and (a.src_rows, a.dst_rows) == (b.src_rows, b.dst_rows)
 
 
 def check_slot_lists(dev, gen, err: dict) -> None:
@@ -1402,6 +1428,190 @@ def run_table1_grid() -> dict:
 
 
 # ----------------------------------------------------------- quantised phases
+def _ranks(results, key):
+    return [r[key] for r in results]
+
+
+def check_mesh_results(a4: list, b3: list, d1: list,
+                       single_build_s: dict) -> dict:
+    """Phase 9d's checks and lines, from the ranks' results
+    (`repro_torch.launch.mesh_smoke`); returns the numbers the result
+    lines and the ``kernels`` line carry."""
+    out = {}
+    for tag, sub, kernel in (("a", "IC", "fused_expand"),
+                             ("b", "LT", "lt_select_expand")):
+        rs = _ranks(a4, tag)
+        _check(all(r["shas_equal"] for r in rs),
+               f"[mesh {tag}] batches 0-3 differ from the golden file")
+        _check(all(r["top_equal"] for r in rs),
+               f"[mesh {tag}] top-16 differs from the golden file")
+        _check(all(r["sparse_equals_dense"] for r in rs),
+               f"[mesh {tag}] sparse-leg pool differs from the dense leg's")
+        _check(all(r["launches"][kernel] > 0
+                   and r["launches"]["cover_counts"] > 0 for r in rs),
+               f"[mesh {tag}] a rank never launched {kernel} or "
+               f"cover_counts: {[r['launches'] for r in rs]}")
+        _check(all(r["check"]["max_abs_err"] == 0 for r in rs),
+               f"[mesh {tag}] {kernel} differs from its plain version")
+        _check(all(r["cover_check"]["max_abs_err"] == 0 for r in rs),
+               f"[mesh {tag}] cover_counts or cover_counts_multi differs "
+               f"from its plain version on a rank's block: "
+               f"{[r['cover_check'] for r in rs]}")
+        _check(all(r["words_dense"] == rs[0]["words_dense"]
+                   and r["words_sparse"] == rs[0]["words_sparse"]
+                   for r in rs), f"[mesh {tag}] ranks disagree on words")
+        r0 = rs[0]
+        print(f"[mesh {tag}] graph_parallel {sub} on 2x2 ({a4[0]['backend']} "
+              f"transport, every rank on {a4[0]['device']}): batches 0-3 "
+              f"equal the golden sha256s and top-16 {r0['seeds'][:4]}... "
+              f"(σ̂ {r0['sigma']:.1f}) on every rank; 64-batch pool "
+              f"{max(r['build_dense_s'] for r in rs):.3f}s on the dense "
+              f"leg, {max(r['build_sparse_s'] for r in rs):.3f}s on the "
+              f"sparse leg (auto capacity), masks equal, beside "
+              f"{single_build_s[tag]:.3f}s on one device (phase "
+              f"{'4' if tag == 'a' else '7'}); {sub} levels per batch "
+              f"{sorted(set(r0['levels_dense']))}")
+        print(f"[mesh {tag}] gather_words per level, dense leg "
+              f"{r0['words_dense'][:8]}... ({sum(r0['words_dense'])} in "
+              f"all), sparse leg {r0['words_sparse'][:8]}... "
+              f"({sum(r0['words_sparse'])})")
+        print(f"[mesh {tag}] every level of batch 0 on each rank's slot "
+              f"list ({[r['check']['entries'] for r in rs]} entries, rows "
+              f"{[r['check']['row_base'] for r in rs]} + "
+              f"{r0['check']['rows']}, {r0['check']['levels']} levels): "
+              f"{kernel} equals its plain version bit for bit; launches by "
+              f"rank {kernel} {[r['launches'][kernel] for r in rs]}, "
+              f"cover_counts {[r['launches']['cover_counts'] for r in rs]}")
+        print(f"[mesh {tag}] cover_counts and cover_counts_multi "
+              f"({r0['cover_check']['queries']} queries) on each rank's "
+              f"{r0['cover_check']['shape']} block of the 64-batch pool "
+              f"equal their plain versions")
+        print(f"[mesh {tag}] {max(r['seconds'] for r in rs):.2f}s, peak "
+              f"{[round(r['peak_gib'], 3) for r in rs]} GiB per rank, "
+              f"staged {[r['staged_bytes'] for r in rs]} bytes per rank, "
+              f"collectives by axis {r0['collectives']}")
+        out[tag] = dict(
+            launches={k: sum(r["launches"][k] for r in rs)
+                      for k in (kernel, "cover_counts")},
+            max_abs_err=max(r["check"]["max_abs_err"] for r in rs),
+            cover_max_abs_err=max(r["cover_check"]["max_abs_err"]
+                                  for r in rs),
+            build_dense_s=max(r["build_dense_s"] for r in rs),
+            build_sparse_s=max(r["build_sparse_s"] for r in rs),
+            seconds=max(r["seconds"] for r in rs),
+            peak_gib=max(r["peak_gib"] for r in rs),
+            staged_bytes=max(r["staged_bytes"] for r in rs),
+            words_dense=sum(r0["words_dense"]),
+            words_sparse=sum(r0["words_sparse"]))
+    ex = _ranks(a4, "exchange")
+    out["exchange"] = {k: max(e[k] for e in ex)
+                       for k in ("dense_ms", "butterfly_ms", "pmax_ms")}
+    print(f"[mesh exchange] one level's exchange alone on 2x2, host clock "
+          f"after synchronise (worst rank): all-gather of a "
+          f"({a4[0]['a']['check']['rows']}, 2) frontier "
+          f"({ex[0]['dense_bytes']} bytes a rank) "
+          f"{out['exchange']['dense_ms']:.3f} ms, butterfly of "
+          f"{ex[0]['tail_words']} live words "
+          f"{out['exchange']['butterfly_ms']:.3f} ms, the control pmax "
+          f"{out['exchange']['pmax_ms']:.3f} ms")
+    cs = _ranks(a4, "c")
+    _check(all(c["shas_equal"] and c["top_equal"] for c in cs),
+           "[mesh c] data_parallel batches or top-16 differ from golden")
+    _check(all(c["restore_equal"] for c in cs),
+           "[mesh c] (a)'s snapshot restored onto 4x1 answers differently")
+    _check(all(c["refresh_equal"] for c in cs),
+           "[mesh c] refresh differs from the one-device pool's")
+    _check(all(c["launches"]["cover_counts"] > 0 for c in cs),
+           "[mesh c] a rank never launched cover_counts")
+    _check(all(c["cover_check"]["max_abs_err"] == 0 for c in cs),
+           "[mesh c] cover_counts or cover_counts_multi differs from its "
+           "plain version on a rank's block: "
+           f"{[c['cover_check'] for c in cs]}")
+    print(f"[mesh c] data_parallel IC on 4x1 ({a4[0]['backend']} "
+          f"transport): batches 0-3 and top-16 equal "
+          f"the golden file; (a)'s 64-batch snapshot restored onto 4x1 "
+          f"answers top-16 the same; refresh(0.5) slots "
+          f"{cs[0]['refresh_slots']} and answers equal a one-device pool's; "
+          f"cover_counts and cover_counts_multi on each rank's "
+          f"{cs[0]['cover_check']['shape']} block equal their plain "
+          f"versions; "
+          f"{max(c['seconds'] for c in cs):.2f}s, peak "
+          f"{[round(c['peak_gib'], 3) for c in cs]} GiB, staged "
+          f"{[c['staged_bytes'] for c in cs]} bytes per rank")
+    out["c"] = dict(launches={"cover_counts": sum(
+        c["launches"]["cover_counts"] for c in cs)},
+        seconds=max(c["seconds"] for c in cs),
+        cover_max_abs_err=max(c["cover_check"]["max_abs_err"] for c in cs))
+    d = d1[0]
+    _check(d["backend"] == "nccl" and d["shas_equal"] and d["top_equal"],
+           "[mesh d] the 1x1 NCCL mesh differs from the golden file")
+    _check(d["restore_equal"], "[mesh d] (a)'s snapshot restored onto 1x1 "
+           "answers differently")
+    _check(d["launches"]["fused_expand"] > 0, "[mesh d] no fused_expand")
+    _check(d["cover_check"]["max_abs_err"] == 0,
+           "[mesh d] cover_counts or cover_counts_multi differs from its "
+           f"plain version: {d['cover_check']}")
+    print(f"[mesh d] 1x1 mesh, {d['backend']} transport: batches 0-3 and "
+          f"top-16 equal the golden file; (a)'s snapshot restored onto 1x1 "
+          f"answers the same; launches {d['launches']['fused_expand']} "
+          f"fused_expand, {d['launches']['cover_counts']} cover_counts; "
+          f"{d['seconds']:.2f}s, peak {d['peak_gib']:.3f} GiB, staged "
+          f"{d['staged_bytes']} bytes")
+    out["d"] = dict(launches={k: d["launches"][k]
+                              for k in ("fused_expand", "cover_counts")},
+                    seconds=d["seconds"],
+                    cover_max_abs_err=d["cover_check"]["max_abs_err"])
+    es = _ranks(a4, "e") + _ranks(b3, "e")
+    cases = [c for e in es for c in e["cases"]]
+    _check(len(cases) == 4 * 4 + 4 * 3 and all(
+        c["shas_equal"] and c["words_equal"] for c in cases),
+        "[mesh e] a case differs from the golden \"mesh\" entry: "
+        + str([c for c in cases if not (c["shas_equal"]
+                                        and c["words_equal"])]))
+    print(f"[mesh e] reduced golden (4,096 vertices, batches 0-7): IC and "
+          f"LT, dense and sparse leg, on 2x2 and 1x3: every sha256 and "
+          f"every level's gather_words equal the reference on every rank "
+          f"({sum(c['words'] for c in cases[:4])} words on 2x2 rank 0); "
+          f"{', '.join(e['backend'] for e in es[:1])} transport; "
+          f"{max(e['seconds'] for e in es):.2f}s, peak "
+          f"{[round(e['peak_gib'], 3) for e in es]} GiB, staged "
+          f"{[e['staged_bytes'] for e in es]} bytes per rank (2x2, then 1x3)")
+    return out
+
+
+def run_mesh_phase(golden: dict, single_build_s: dict) -> dict:
+    """Phase 9d: the mesh paths at the main configuration on one card —
+    a 2x2 gloo world of 4 ranks ((a), (b), (c) on its 4x1 mesh, (e)), a
+    1x3 world ((e)), and a 1x1 NCCL world ((d)).  A rank that fails fails
+    the phase."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import accel, mesh_smoke
+
+    ckpt = tempfile.mkdtemp(prefix="mesh_pool_")
+    t0 = time.perf_counter()
+    try:
+        a4 = accel.spawn(mesh_smoke.rank_main_2x2, 4, args=(golden, ckpt),
+                         backend="gloo", device="cuda", timeout_s=420)
+        t_a = time.perf_counter() - t0
+        b3 = accel.spawn(mesh_smoke.rank_main_1x3, 3, args=(golden,),
+                         backend="gloo", device="cuda", timeout_s=240)
+        t_b = time.perf_counter() - t0 - t_a
+        d1 = accel.spawn(mesh_smoke.rank_main_1x1, 1,
+                         args=(golden, ckpt, a4[0]["a"]["snapshot_top"]),
+                         backend="nccl", device="cuda", timeout_s=240)
+        t_d = time.perf_counter() - t0 - t_a - t_b
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"[mesh] worlds on {torch.cuda.get_device_name(0)}: 2x2 gloo (4 "
+          f"ranks) {t_a:.1f}s, 1x3 gloo {t_b:.1f}s, 1x1 nccl {t_d:.1f}s "
+          f"of host clock, each with its ranks' start")
+    out = check_mesh_results(a4, b3, d1, single_build_s)
+    out["seconds"] = dict(world_2x2=t_a, world_1x3=t_b, world_1x1=t_d)
+    return out
+
+
 def _q_graph(n: int, dev):
     """The quantised path's graph: powerlaw_cluster(n, 6.0, p = 0.25, seed
     7), deduped, ``cluster`` order, reversed; its quantised layout.  Returns
@@ -2253,6 +2463,8 @@ def main() -> int:
     _release("unfused phase")
     grid = run_table1_grid()
     _release("Table-1 grid")
+    mesh = run_mesh_phase(golden, {"a": ic["build_s"], "b": lt["build_s"]})
+    _release("mesh phase")
 
     q = run_q_phases(golden, dev)
     _release("quantised phases")
@@ -2313,6 +2525,20 @@ def main() -> int:
               f"peak {r['peak_gib']:.2f} GiB"
               for name, r in (("IC", stream_ic), ("LT", stream_lt)))
           + f"; driver 16 batches {drv['seconds']:.3f}s")
+    print(f"[result mesh] 9d on one card: 64-batch pool IC 2x2 "
+          f"{mesh['a']['build_dense_s']:.3f}s dense leg / "
+          f"{mesh['a']['build_sparse_s']:.3f}s sparse leg (one device "
+          f"{ic['build_s']:.3f}s), LT 2x2 {mesh['b']['build_dense_s']:.3f}s "
+          f"/ {mesh['b']['build_sparse_s']:.3f}s (one device "
+          f"{lt['build_s']:.3f}s); one level's exchange on 2x2: all-gather "
+          f"{mesh['exchange']['dense_ms']:.3f} ms, butterfly "
+          f"{mesh['exchange']['butterfly_ms']:.3f} ms, pmax "
+          f"{mesh['exchange']['pmax_ms']:.3f} ms; words IC "
+          f"{mesh['a']['words_dense']} dense / {mesh['a']['words_sparse']} "
+          f"sparse; peak {mesh['a']['peak_gib']:.3f} GiB a rank (a); worlds "
+          f"{mesh['seconds']['world_2x2']:.1f}s, "
+          f"{mesh['seconds']['world_1x3']:.1f}s, "
+          f"{mesh['seconds']['world_1x1']:.1f}s")
     kernels = [
         dict(name="fused_expand", route="cuda",
              source="src/repro_torch/csrc/fused_expand.cu",
@@ -2321,8 +2547,12 @@ def main() -> int:
              launches_by_path={
                  "ic_main": launches["fused_expand"],
                  "stream_ic": stream_ic["launches"]["fused_expand"],
-                 "driver": drv["launches"]["fused_expand"]},
-             max_abs_err=max(err["fused_expand"], fe["max_abs_err"]),
+                 "driver": drv["launches"]["fused_expand"],
+                 "mesh_gp_ic_2x2": mesh["a"]["launches"]["fused_expand"],
+                 "mesh_gp_ic_1x1_nccl": mesh["d"]["launches"][
+                     "fused_expand"]},
+             max_abs_err=max(err["fused_expand"], fe["max_abs_err"],
+                             mesh["a"]["max_abs_err"]),
              ms=fe["dense_ms"], plain_ms=fe["plain_ms"],
              bound_ms=fe["dense_bound_ms"], bound_by=fe["dense_bound_by"],
              library_ms=None,
@@ -2341,8 +2571,15 @@ def main() -> int:
                  "lt_main": launches_lt["cover_counts"],
                  "tier": tier["launches"]["cover_counts"],
                  "stream_ic": stream_ic["launches"]["cover_counts"],
-                 "stream_lt": stream_lt["launches"]["cover_counts"]},
-             max_abs_err=max(err["cover_counts"], cc["max_abs_err"]),
+                 "stream_lt": stream_lt["launches"]["cover_counts"],
+                 "mesh_gp_ic_2x2": mesh["a"]["launches"]["cover_counts"],
+                 "mesh_gp_lt_2x2": mesh["b"]["launches"]["cover_counts"],
+                 "mesh_dp_4x1": mesh["c"]["launches"]["cover_counts"],
+                 "mesh_gp_ic_1x1_nccl": mesh["d"]["launches"][
+                     "cover_counts"]},
+             max_abs_err=max(err["cover_counts"], cc["max_abs_err"],
+                             *(mesh[t]["cover_max_abs_err"]
+                               for t in "abcd")),
              ms=cc["ms"], plain_ms=cc["plain_ms"], bound_ms=cc["bound_ms"],
              bound_by=cc["bound_by"], library_ms=None,
              **{k: cc[k] for k in ("warm_ms", "eager_cold_ms",
@@ -2355,8 +2592,11 @@ def main() -> int:
              launches=launches_lt["lt_select_expand"],
              launches_by_path={
                  "lt_main": launches_lt["lt_select_expand"],
-                 "stream_lt": stream_lt["launches"]["lt_select_expand"]},
-             max_abs_err=max(err["lt_select_expand"], lse["max_abs_err"]),
+                 "stream_lt": stream_lt["launches"]["lt_select_expand"],
+                 "mesh_gp_lt_2x2": mesh["b"]["launches"][
+                     "lt_select_expand"]},
+             max_abs_err=max(err["lt_select_expand"], lse["max_abs_err"],
+                             mesh["b"]["max_abs_err"]),
              ms=lse["compact_ms"], plain_ms=lse["plain_ms"],
              bound_ms=lse["compact_bound_ms"],
              bound_by=lse["compact_bound_by"],

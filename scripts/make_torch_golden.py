@@ -5,6 +5,7 @@
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --q-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --stream-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --unfused-only
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --mesh-only
 
 Builds the launcher's graph at the size the port's chip smoke serves
 (``powerlaw_cluster(65536, 6.0, prob=0.25, seed=7)``, deduped, reversed),
@@ -61,6 +62,19 @@ equal batch 0's fused mask and ``unfused_edge_visits``).  Under
 ``"sigma"``: ``imm.simulate_influence`` of the first 8 top-16 seeds on the
 forward graph, 512 trials, master_seed 77.  ``--unfused-only`` recomputes
 that entry alone (reading the seeds from the file).
+
+The ``"mesh"`` entry is the reference's ``graph_parallel`` sampler on a
+reduced graph, ``powerlaw_cluster(4096, 6.0, prob=0.25, seed=7)``
+deduped, 64 colours, master_seed 0, batches 0-7: IC and LT, meshes
+``(data, model)`` = (2, 2) and (1, 3), frontier dense and sparse (auto
+capacity).  Per batch it records the sha256 of the visited mask and the
+packed words each level moved over the model axis (``last_gather_words``,
+trailing zeros dropped).  The reference runs in a subprocess of this
+script (``--mesh-worker``) with 4 forced host devices, on meshes whose
+axes are ``AxisType.Auto`` (``repro.launch.mesh`` makes ``Explicit``
+ones, which its shard_map programs refuse).  ``--mesh-only`` recomputes
+that entry alone.  ``mesh_reference_subprocess`` is the same run at any
+size and case list (the port's CPU tests call it).
 """
 from __future__ import annotations
 
@@ -93,6 +107,10 @@ LM_BATCH, LM_PROMPT_LEN, LM_STEPS, LM_IDS = 2, 64, 8, 32
 Q_N, Q_ORDER, Q_BATCHES, Q_MAX_LEVELS = 4096, "cluster", 2, 64
 STREAM_OPS, STREAM_QUERIES, STREAM_TILE_ROWS = 64, 4, 128
 SIGMA_SEEDS, SIGMA_TRIALS, SIGMA_MASTER_SEED = 8, 512, 77
+MESH_N, MESH_BATCHES, MESH_DEVICES = 4096, 8, 4
+MESH_CASES = [dict(diffusion=d, frontier=f, shape=list(sh))
+              for sh in ((2, 2), (1, 3)) for d in ("ic", "lt")
+              for f in ("dense", "sparse")]
 OUT = os.path.join(os.path.dirname(__file__), os.pardir, "tests", "data",
                    "torch_port_golden.json")
 
@@ -308,6 +326,69 @@ def unfused_golden(top_seeds) -> dict:
                       "master_seed": SIGMA_MASTER_SEED, "value": sigma}}
 
 
+def mesh_reference(job: dict) -> list:
+    """The reference's ``graph_parallel`` batches of ``job`` (graph size
+    and knobs, ``cases`` of diffusion, frontier, mesh shape and capacity)
+    in a process with enough forced host devices: per case and batch, the
+    mask's sha256 and the per-level exchange words."""
+    from jax.sharding import AxisType
+
+    g = csr.dedupe(generators.powerlaw_cluster(
+        job["n"], job.get("degree", DEGREE), prob=job.get("prob", PROB),
+        seed=job.get("seed", GRAPH_SEED)))
+    out = []
+    for case in job["cases"]:
+        shape = tuple(case["shape"])
+        mesh = jax.make_mesh(shape, ("data", "model"),
+                             axis_types=(AxisType.Auto,) * 2)
+        spec = SamplerSpec(diffusion=case["diffusion"],
+                           backend="graph_parallel",
+                           num_colors=job.get("colors", COLORS),
+                           master_seed=job.get("master_seed", MASTER_SEED),
+                           frontier=case["frontier"],
+                           frontier_capacity=case.get("capacity", 0),
+                           tile_size=job.get("tile_size", tiles.TILE))
+        sampler = make_sampler(g, spec, mesh=mesh)
+        batches = sampler.sample_many(range(job["batches"]))
+        words = np.asarray(sampler.last_gather_words)
+        out.append(dict(case, batches=[
+            {"batch_index": b.batch_index,
+             "visited_sha256": mask_sha256(b.visited),
+             "gather_words": [int(x) for x in np.trim_zeros(words[i], "b")]}
+            for i, b in enumerate(batches)]))
+    return out
+
+
+def mesh_reference_subprocess(job: dict, devices: int = MESH_DEVICES,
+                              timeout: float = 900.0) -> list:
+    """`mesh_reference` of ``job`` in a fresh process with ``devices``
+    forced host devices (this process's device count cannot change)."""
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(root, "src"), os.environ.get("PYTHONPATH",
+                                                              "")]))
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--mesh-worker", json.dumps(job)], env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    if res.returncode != 0:
+        raise RuntimeError(f"reference mesh run failed:\n{res.stderr[-4000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def mesh_golden() -> dict:
+    job = dict(n=MESH_N, batches=MESH_BATCHES, cases=MESH_CASES)
+    return {"graph": {"generator": "powerlaw_cluster", "n": MESH_N,
+                      "avg_deg": DEGREE, "prob": PROB, "seed": GRAPH_SEED,
+                      "dedupe": True},
+            "num_colors": COLORS, "master_seed": MASTER_SEED,
+            "tile_size": tiles.TILE, "devices": MESH_DEVICES,
+            "cases": mesh_reference_subprocess(job)}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     only = ap.add_mutually_exclusive_group()
@@ -319,10 +400,19 @@ def main() -> None:
                       help="recompute the \"stream\" entry alone")
     only.add_argument("--unfused-only", action="store_true",
                       help="recompute the \"unfused\" entry alone")
+    only.add_argument("--mesh-only", action="store_true",
+                      help="recompute the \"mesh\" entry alone")
+    only.add_argument("--mesh-worker", metavar="JOB_JSON",
+                      help="print mesh_reference(JOB) as JSON (run by "
+                           "mesh_reference_subprocess)")
     args = ap.parse_args()
+    if args.mesh_worker:
+        print(json.dumps(mesh_reference(json.loads(args.mesh_worker))))
+        return
     t0 = time.time()
     entries = {"lm": lm_golden, "q": q_golden, "stream": stream_golden,
-               "unfused": lambda: unfused_golden(golden["top_k"]["seeds"])}
+               "unfused": lambda: unfused_golden(golden["top_k"]["seeds"]),
+               "mesh": mesh_golden}
     key = next((k for k in entries if getattr(args, f"{k}_only")), None)
     if key is not None:
         with open(OUT) as f:
@@ -381,6 +471,7 @@ def main() -> None:
     golden["q"] = q_golden()
     golden["stream"] = stream_golden()
     golden["unfused"] = unfused_golden(seeds.tolist())
+    golden["mesh"] = mesh_golden()
     _write(golden)
     print(f"wrote {os.path.normpath(OUT)} in {time.time() - t0:.1f}s")
 

@@ -9,8 +9,9 @@ A tree is nested dicts (keys visited in sorted order, as jax flattens a
 dict), lists and tuples, with numpy arrays or tensors as leaves; each
 leaf's path is its keys and indices joined by ``/``.  Leaf order, file
 names and path strings are the reference's, so either package reads the
-other's checkpoints.  Resharding on restore comes with the multi-GPU
-slice; a leaf here is one host array.
+other's checkpoints.  A leaf is saved as one global host array, whatever
+mesh wrote it: a sharded pool's ranks each place their own block of it
+(`serve.distributed.ShardedSketchStore.restore`).
 """
 from __future__ import annotations
 

@@ -68,16 +68,24 @@ def set_color(mask: torch.Tensor, item: torch.Tensor,
 
 
 def scatter_or_words(dst: torch.Tensor, rows: torch.Tensor,
-                     words: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+                     words: torch.Tensor, values: torch.Tensor,
+                     unique: bool = False) -> torch.Tensor:
     """``dst[rows, words] |= values`` with duplicate-index OR semantics.
 
     PyTorch has no OR-scatter and ``index_put_`` keeps one of several
     duplicate writes, so each contribution is unpacked to 32 uint8 lanes,
     combined with ``scatter_reduce_(..., "amax")`` (per-bit OR) and
-    repacked.
+    repacked.  ``unique=True`` is the packed path for callers whose
+    ``(rows[i], words[i])`` targets are all distinct (the distributed
+    sparse frontier's reconstruction): with no duplicate to combine, a
+    gather-OR-scatter of whole words is exact at 1× the index traffic.
     """
     rows = torch.as_tensor(rows, device=dst.device).to(torch.int64)
     words = torch.as_tensor(words, device=dst.device).to(torch.int64)
+    if unique:
+        out = dst.clone()
+        out[rows, words] = dst[rows, words] | values
+        return out
     w = dst.shape[-1]
     lanes = unpack_bits(values).to(torch.uint8).reshape(-1, WORD_BITS)
     flat = (rows * w + words).reshape(-1, 1).expand(-1, WORD_BITS)

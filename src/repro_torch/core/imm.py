@@ -63,12 +63,14 @@ def estimate_theta(g: csr.Graph, k: int, eps: float, ell: float = 1.0,
                    master_seed: int | None = None,
                    max_batches_per_phase: int = 64,
                    g_rev: csr.Graph | None = None,
-                   pool=None, spec=None, sampler=None) -> tuple[int, list]:
+                   pool=None, spec=None, mesh=None,
+                   sampler=None) -> tuple[int, list]:
     """IMM sampling phase: iterative-halving lower bound on OPT → θ.
 
     Returns (θ, batches generated so far), which the selection phase
     reuses.  ``pool``: optional sketch pool that owns sampling;
-    ``spec``: `repro_torch.sampling.SamplerSpec` for the pool-less path;
+    ``spec``/``mesh``: `repro_torch.sampling.SamplerSpec` and, for the
+    mesh backends, `distributed.comm.Mesh` of the pool-less path;
     ``sampler``: a prebuilt sampler (overrides ``spec``).
     """
     from repro_torch import sampling
@@ -84,7 +86,7 @@ def estimate_theta(g: csr.Graph, k: int, eps: float, ell: float = 1.0,
                     + math.log(math.log2(max(n, 4))))
                  * n / eps_prime ** 2)
     if pool is None and sampler is None:
-        sampler = sampling.make_sampler(g, spec, g_rev=g_rev)
+        sampler = sampling.make_sampler(g, spec, mesh, g_rev=g_rev)
     batches: list[rrr.RRRBatch] = []
 
     def grow(want: int) -> list[rrr.RRRBatch]:
@@ -198,14 +200,16 @@ class IMMResult:
 def run_imm(g: csr.Graph, k: int, eps: float = 0.3, *, ell: float = 1.0,
             num_colors: int | None = None, master_seed: int | None = None,
             theta_cap: int | None = 100_000, pool=None,
-            spec=None) -> IMMResult:
+            spec=None, mesh=None) -> IMMResult:
     """Full IMM: θ estimation → top-up sampling → greedy selection.
 
     ``pool``: optional sketch pool; batches come from and stay in it.  A
     fresh pool with the same ``master_seed``/``num_colors`` reproduces the
     pool-less result exactly (batch ``b`` is a pure function of
     ``(graph, master_seed, b)``); selection uses the first ``⌈θ/colors⌉``
-    slots either way.  ``spec`` chooses the backend of the pool-less path.
+    slots either way.  ``spec`` chooses the backend of the pool-less path
+    and ``mesh`` backs its mesh backends (every rank of the mesh calls
+    this; greedy selection runs on each rank over the whole collection).
     """
     from repro_torch import sampling
 
@@ -222,7 +226,7 @@ def run_imm(g: csr.Graph, k: int, eps: float = 0.3, *, ell: float = 1.0,
             raise ValueError(f"pool colors {pool.num_colors} != {num_colors}")
     sampler = None
     if pool is None:
-        sampler = sampling.make_sampler(g, spec)
+        sampler = sampling.make_sampler(g, spec, mesh)
     theta, batches = estimate_theta(g, k, eps, ell, spec=spec,
                                     pool=pool, sampler=sampler)
     if theta_cap:

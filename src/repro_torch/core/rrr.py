@@ -80,19 +80,15 @@ def sample_collection(g: csr.Graph, theta: int,
                       mesh=None) -> list[RRRBatch]:
     """θ RRR sets as ⌈θ/num_colors⌉ fused batches on transpose(g), through
     the `repro_torch.sampling` facade (``sampling.resolve_spec``: explicit
-    num_colors/master_seed that disagree with ``spec`` raise).  The
-    reference's ``mesh`` (its ``data_parallel`` backend) comes with the
-    multi-GPU slice; its legacy ``sample_batch`` keywords are not carried
-    over."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sample_collection(mesh=...) is not ported yet: it comes with "
-            "the multi-GPU slice (slice G, torch.distributed samplers)")
+    num_colors/master_seed that disagree with ``spec`` raise).  ``mesh``
+    (a `distributed.comm.Mesh`) backs the mesh backends; every rank then
+    calls this and gets every batch.  The reference's legacy
+    ``sample_batch`` keywords are not carried over."""
     from repro_torch import sampling
 
     spec = sampling.resolve_spec(spec, num_colors=num_colors,
                                  master_seed=master_seed)
-    sampler = sampling.make_sampler(g, spec)
+    sampler = sampling.make_sampler(g, spec, mesh)
     return sampler.sample_many(range(-(-theta // spec.num_colors)))
 
 

@@ -105,13 +105,17 @@ class SlotList:
         the cell ``(t·T² + i·T + j) mod 2³²`` of the original tile id
         (quantised); LT: the selection-CDF prefix, as float32 bits.
 
-    ``num_rows`` is the number of mask rows the entries may index."""
+    ``src_rows`` and ``dst_rows`` bound the rows the entries index in the
+    frontier and in the visited and output masks: equal on one device; a
+    row shard's list (`graph.partition.ShardLayout`) reads the global
+    frontier and writes its local rows."""
     slot_ptr: torch.Tensor      # (nt + 1,) int32
     src_row: torch.Tensor       # (n,) int32
     dst_row: torch.Tensor       # (n,) int32
     value: torch.Tensor         # (n,) float32 prob or uint8 q
     key: torch.Tensor           # (n,) int32 edge id or cell
-    num_rows: int
+    src_rows: int
+    dst_rows: int
 
     @property
     def num_entries(self) -> int:
@@ -325,7 +329,7 @@ def _slots_from_flat(flat: torch.Tensor, value: torch.Tensor,
         src_row=(tg.tile_src[tile].to(torch.int64) * T + i).to(torch.int32),
         dst_row=(tg.tile_dst[tile].to(torch.int64) * T + j).to(torch.int32),
         value=value[order], key=key[order],
-        num_rows=blocks * T)
+        src_rows=blocks * T, dst_rows=blocks * T)
 
 
 def _slots_from_stack(stack: torch.Tensor, tg: TiledGraph,

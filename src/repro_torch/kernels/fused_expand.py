@@ -45,11 +45,13 @@ def check_slot_list(kernel: str, slots, frontier, visited, tile_ids, dev,
     n = slots.num_entries
     if any(t.shape[0] != n for t in (slots.dst_row, slots.value, slots.key)):
         raise ValueError(f"{kernel}: the slot list's arrays disagree")
-    if frontier.shape != visited.shape \
-            or visited.shape[0] < slots.num_rows:
+    if frontier.shape[1] != visited.shape[1] \
+            or frontier.shape[0] < slots.src_rows \
+            or visited.shape[0] < slots.dst_rows:
         raise ValueError(f"{kernel}: frontier and visited must have one "
-                         f"shape, with the {slots.num_rows} rows the slot "
-                         f"list indexes; got {tuple(frontier.shape)} and "
+                         f"word count, with the {slots.src_rows} source and "
+                         f"{slots.dst_rows} destination rows the slot list "
+                         f"indexes; got {tuple(frontier.shape)} and "
                          f"{tuple(visited.shape)}")
     w = frontier.shape[1]
     if not 1 <= w <= 8:
@@ -95,9 +97,12 @@ def fused_expand_cuda(slots, frontier: torch.Tensor,
                       visited: torch.Tensor, seed: int, level: int,
                       tile_ids: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the kernel on ``frontier``'s stream; returns the (Vo, W) int32
-    next frontier.  ``slots`` is the layout's `core.tiles.ic_slot_list`;
-    ``visited`` must already include ``frontier`` and have its shape, with
-    at least the rows the list indexes.  ``tile_ids``: ascending int32 ids
+    next frontier.  ``slots`` is the layout's `core.tiles.ic_slot_list`
+    (or a row shard's list); ``visited`` must already include the
+    frontier's bits at its rows; ``frontier`` and ``visited`` hold at
+    least the list's source and destination rows (one shape on one
+    device; a shard reads the global frontier and writes its local
+    rows).  ``tile_ids``: ascending int32 ids
     of the listed tiles (None: every tile), each below the layout's tile
     count."""
     return launch_slot_kernel("fused_expand", torch.float32, slots, frontier,

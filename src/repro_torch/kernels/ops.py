@@ -10,7 +10,9 @@ The tile kernels take an optional ``tile_ids``: ascending int32 ids of the
 tiles to walk (the sparse frontier's compacted list).  Each walks the
 layout's slot list (`core.tiles.ic_slot_list`, `q_slot_list`,
 `lt_slot_list`, built once per stack), on the card and in its plain
-version alike, so the CPU runs exercise the list too.  ``fused_expand_q``
+version alike, so the CPU runs exercise the list too;
+``fused_expand_slots`` and ``lt_select_expand_slots`` take a list that has
+no stack (a row shard's, `graph.partition`).  ``fused_expand_q``
 reads the quantised layout's uint8 stack (`core.tiles.quantized`).
 ``cover_counts`` and ``cover_counts_multi`` launch one kernel
 (``csrc/coverage.cu``) for one or Q active masks per batch;
@@ -25,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import tiles
-from repro_torch.core.tiles import TiledGraph
+from repro_torch.core.tiles import SlotList, TiledGraph
 from repro_torch.kernels import ref
 
 LAUNCHES = {"fused_expand": 0, "cover_counts": 0, "lt_select_expand": 0,
@@ -53,8 +55,17 @@ def fused_expand(tg: TiledGraph, frontier: torch.Tensor,
                  tile_ids: torch.Tensor | None = None) -> torch.Tensor:
     """One fused-BPT IC expansion level on a TiledGraph (rows padded to T),
     over every tile or the listed ones."""
-    slots = tiles.ic_slot_list(tg)
-    if _on_cuda(tg.prob, frontier, visited):
+    return fused_expand_slots(tiles.ic_slot_list(tg), frontier, visited,
+                              seed, level, tile_ids)
+
+
+def fused_expand_slots(slots: SlotList, frontier: torch.Tensor,
+                       visited: torch.Tensor, seed: int, level: int,
+                       tile_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """`fused_expand` on an IC slot list itself — a layout's, or a row
+    shard's (`graph.partition.ShardLayout`: the global frontier in, the
+    shard's rows out), which has no stack to look it up by."""
+    if _on_cuda(slots.src_row, frontier, visited):
         from repro_torch.kernels.fused_expand import fused_expand_cuda
         out = fused_expand_cuda(slots, frontier, visited, seed, level,
                                 tile_ids=tile_ids)
@@ -70,8 +81,17 @@ def lt_select_expand(tg: TiledGraph, cb: torch.Tensor, frontier: torch.Tensor,
     """One fused-BPT LT expansion level: ``cb`` the selection-CDF prefixes
     in ``tg``'s layout, ``u`` the traversal's uniform table; over every
     tile or the listed ones."""
-    slots = tiles.lt_slot_list(tg, cb)
-    if _on_cuda(tg.prob, cb, frontier, visited, u):
+    return lt_select_expand_slots(tiles.lt_slot_list(tg, cb), frontier,
+                                  visited, u, tile_ids)
+
+
+def lt_select_expand_slots(slots: SlotList, frontier: torch.Tensor,
+                           visited: torch.Tensor, u: torch.Tensor,
+                           tile_ids: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """`lt_select_expand` on an LT slot list itself (as
+    `fused_expand_slots`); ``u``'s rows align with ``visited``'s."""
+    if _on_cuda(slots.src_row, frontier, visited, u):
         from repro_torch.kernels.lt_select_expand import \
             lt_select_expand_cuda
         out = lt_select_expand_cuda(slots, frontier, visited, u,

@@ -9,6 +9,9 @@
     python -m repro_torch.launch.serve_influence --tier --smoke --autoscale
     python -m repro_torch.launch.serve_influence --stream-smoke
     python -m repro_torch.launch.serve_influence --smoke --async
+    python -m repro_torch.launch.serve_influence --device cpu --smoke \
+        --mesh 2x2 --backend gloo
+    python -m repro_torch.launch.serve_influence --smoke --mesh 2x2
 
 Samples a sketch pool on a synthetic graph, serves one micro-batched mix of
 top-k, σ(S) and marginal-gain queries, and with ``--smoke`` also checks the
@@ -28,8 +31,19 @@ sparse``, the level's compacted tile list.
 admission, replicas, ``--autoscale``) and ``--stream-smoke`` mutates the
 graph mid-serve through the tier and checks the incremental pool against a
 cold rebuild; ``--async`` fronts the batcher with the deadline-batched
-`AsyncFrontEnd`.  ``--mesh`` (the sharded paths) comes with the multi-GPU
-slice of the port and raises ``NotImplementedError``.
+`AsyncFrontEnd`.
+
+``--mesh DxM`` serves from a sharded pool on a (data × model) mesh of D·M
+ranks, which the launcher starts itself (`launch.accel.spawn`,
+``--backend gloo|nccl`` — gloo for several ranks on one GPU or on the
+CPU — with every rank on ``--device``): ``data_parallel`` sampling for
+M = 1, ``graph_parallel`` (rows over ``model``) for M > 1.  Every rank runs
+`run_distributed`; rank 0 prints.  With ``--smoke`` it checks the sharded
+pool and `DistributedQueryEngine` against a one-device dense pool and
+`QueryEngine`, the row-split stack, the frontier exchange, a restore onto
+half the data axis and a refresh; with ``--stream-smoke --mesh Dx1`` a
+graph delta on the sharded pool against a cold rebuild and a one-device
+pool.  ``--async`` and ``--tier`` take no mesh.
 """
 from __future__ import annotations
 
@@ -55,6 +69,8 @@ from repro_torch.serve.influence import (MicroBatcher, PoolConfig, QueryEngine,
 
 # Pool batches the smoke holds against the dense-CSR, dense-frontier pool.
 REFERENCE_BATCHES = 2
+# Deadline of a --mesh run: every collective and the join of the ranks.
+MESH_TIMEOUT_S = 900.0
 
 
 def build_graph(args):
@@ -65,10 +81,12 @@ def build_graph(args):
     return csr.dedupe(g)
 
 
-def build_config(args) -> PoolConfig:
-    """The CLI knobs as a `PoolConfig` with its `SamplerSpec`."""
+def build_config(args, backend: str | None = None) -> PoolConfig:
+    """The CLI knobs as a `PoolConfig` with its `SamplerSpec` (``backend``
+    overrides ``--sampler-backend``, which defaults to ``dense``)."""
     spec = SamplerSpec(diffusion=args.diffusion,
-                       backend=args.sampler_backend, num_colors=args.colors,
+                       backend=backend or args.sampler_backend or "dense",
+                       num_colors=args.colors,
                        master_seed=args.master_seed, frontier=args.frontier,
                        frontier_capacity=args.frontier_capacity)
     return PoolConfig(max_batches=args.max_batches,
@@ -267,6 +285,243 @@ def persist_restore(args, store: SketchStore, engine: QueryEngine) -> dict:
           f"{restore_s:.3f}s: identical stack, counters {mine} and "
           f"top-{args.k}")
     return dict(snapshot_mib=mib, save_s=save_s, restore_s=restore_s)
+
+
+# -------------------------------------------------------------- distributed
+def _parse_mesh(text: str) -> tuple[int, int]:
+    """``"DxM"`` → (D, M); ``"D"`` → (D, 1)."""
+    parts = text.lower().split("x")
+    try:
+        d, m = (int(parts[0]), int(parts[1]) if len(parts) > 1 else 1)
+    except ValueError:
+        d = m = 0
+    if len(parts) > 2 or d < 1 or m < 1:
+        raise SystemExit(f"--mesh wants DxM with D, M >= 1, got {text!r}")
+    return d, m
+
+
+def _mesh_backend(args, m: int) -> str:
+    """The sampler backend of a mesh run: ``--sampler-backend`` if given
+    (`main` refuses a one-device backend with ``--mesh``), else
+    data_parallel for M = 1, graph_parallel for M > 1."""
+    backend = args.sampler_backend or (
+        "graph_parallel" if m > 1 else "data_parallel")
+    if backend == "graph_parallel" and m < 2:
+        raise SystemExit("--sampler-backend graph_parallel wants a model "
+                         "axis: use --mesh DxM with M > 1")
+    return backend
+
+
+def run_distributed(args, mesh) -> dict:
+    """The sharded lifecycle on ``mesh`` (every rank runs it, in step).
+
+    Builds a `ShardedSketchStore` of ``--batches`` batches, serves one
+    mixed flush through `DistributedQueryEngine`, and with ``--smoke``
+    checks: top-k and σ(S) (and marginal gains) equal a one-device dense
+    pool's `QueryEngine`; each rank holds V/M rows of its slot block; the
+    frontier exchange's words per level (graph_parallel); a snapshot
+    restored onto half the data axis (``(D/2, 2M)``) answers the same;
+    and ``refresh(0.5)`` resamples the same slots as the one-device pool,
+    with the same answers.  Returns what ran and its host-clock seconds."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.distributed import (DistributedQueryEngine,
+                                               ShardedSketchStore)
+
+    t0 = time.time()
+    dev = device_lib.resolve(args.device)
+    d, m = mesh.axis_size("data"), mesh.axis_size("model")
+    g = build_graph(args)
+    cfg = build_config(args, backend=_mesh_backend(args, m))
+    store = ShardedSketchStore(g, cfg, mesh)
+    t_build = time.perf_counter()
+    store.ensure(args.batches)
+    device_lib.synchronize(dev)
+    build_s = time.perf_counter() - t_build
+    per_dev = (store.bytes_per_batch * store.padded_batches
+               / store.num_shards / store.row_shards / 2 ** 20)
+    print(f"[serve_influence] sharded pool: {len(store.batches)} batches × "
+          f"{store.num_colors} colors over {store.num_shards} shards "
+          f"(data={d} × model={m} mesh, {mesh.backend} transport on {dev}; "
+          f"{per_dev:.2f} MiB/device"
+          + (f", visited rows V/{store.row_shards} per device"
+             if store.row_shards > 1 else "")
+          + f", capacity {store.capacity} batches; diffusion "
+          f"{store.spec.diffusion!r}, backend {store.spec.backend!r}, "
+          f"frontier {store.spec.frontier!r}) built in {build_s:.3f}s")
+    engine = DistributedQueryEngine(store)
+    batcher = MicroBatcher(engine, cache=ResultCache())
+    tickets, results, flush_s = serve_mixed_batch(store, engine, batcher,
+                                                  args.k, args.queries)
+    _print_mixed("distributed", args, tickets, results, batcher.dispatches,
+                 flush_s)
+    out = dict(store=store, engine=engine, build_s=build_s, flush_s=flush_s)
+    if not args.smoke:
+        return out
+
+    # ---- sharded ≡ single-device, bit for bit
+    single = SketchStore(g, dense_variant(cfg))
+    single.ensure(len(store.batches))
+    ref = QueryEngine(single)
+    s1, sig1 = ref.top_k(args.k)
+    s_n, sig_n = engine.top_k(args.k)
+    sets = [[1, 2], [5, 50, 99]]
+    if not (np.array_equal(s1, s_n) and sig1 == sig_n
+            and np.array_equal(ref.sigma(sets), engine.sigma(sets))
+            and np.array_equal(ref.marginal_gains([3]),
+                               engine.marginal_gains([3]))):
+        raise AssertionError(f"sharded answers differ from the one-device "
+                             f"engine's: top-{args.k} {s_n} vs {s1}")
+    print(f"[smoke] sharded == single-device: top-{args.k} seeds "
+          f"{s_n.tolist()}, σ̂={sig_n:.1f}, σ(S) and marginal gains "
+          f"bit-identical across {store.num_shards} × {store.row_shards} "
+          f"shards")
+    # ---- row-split pool (M > 1): each rank holds V/M rows
+    stack = store.visited_stack()
+    if tuple(stack.shape[:2]) != (store.slots_per_shard,
+                                  store.rows_per_shard):
+        raise AssertionError(f"rank block {tuple(stack.shape)}")
+    if store.row_shards > 1:
+        print(f"[smoke] row-split stack: each rank holds "
+              f"{tuple(stack.shape)} = (Bp/{store.num_shards}, "
+              f"Vp/{store.row_shards}, W) of ({store.padded_batches}, "
+              f"{store.padded_vertices}, W)")
+    gw = getattr(store.sampler, "last_gather_words", None)
+    if gw is not None:
+        per_level = gw.sum(0)
+        print(f"[smoke] frontier exchange ({store.spec.frontier}): "
+              f"{[int(x) for x in per_level[:6]]}... packed words/level "
+              f"over the model axis, {int(per_level.sum())} total")
+    out["gather_words"] = gw
+
+    # ---- elastic restore onto half the data axis
+    store.save(args.ckpt_dir)
+    d2 = max(d // 2, 1)
+    mesh2 = make_mesh((d2, (d * m) // d2), ("data", "model"),
+                      device=mesh.device)
+    restored = ShardedSketchStore.restore(args.ckpt_dir, g, cfg, mesh2)
+    r_seeds, r_sig = DistributedQueryEngine(restored).top_k(args.k)
+    if not (np.array_equal(s_n, r_seeds) and sig_n == r_sig):
+        raise AssertionError(f"restored top-{args.k} {r_seeds} != {s_n}")
+    layout = ShardedSketchStore.saved_layout(args.ckpt_dir)
+    print(f"[smoke] elastic restore: {d}x{m} → {d2}x{(d * m) // d2}, "
+          f"answers bit-identical (saved layout {layout['shard_layout']})")
+    del restored
+
+    # ---- epoch refresh ≡ the one-device pool's
+    t_r = time.perf_counter()
+    slots = store.refresh(0.5)
+    device_lib.synchronize(dev)
+    refresh_s = time.perf_counter() - t_r
+    slots_single = single.refresh(0.5)
+    rs, rsig = engine.top_k(args.k)
+    r1, rsig1 = ref.top_k(args.k)
+    if not (slots == slots_single and np.array_equal(rs, r1)
+            and rsig == rsig1):
+        raise AssertionError("refresh differs from the one-device pool's")
+    print(f"[smoke] refresh: {len(slots)} slots resampled via "
+          f"{store.spec.backend!r} in {refresh_s:.3f}s, still bit-identical "
+          f"to the dense single-device pool")
+    print(f"[smoke] PASS in {time.time() - t0:.1f}s")
+    out.update(refresh_s=refresh_s, passed=True)
+    return out
+
+
+def run_stream_sharded(args, mesh) -> dict:
+    """``--stream-smoke --mesh Dx1``: a graph delta on a data_parallel
+    `ShardedSketchStore` (every rank in step), checked against a cold
+    rebuild and a one-device dense pool on the mutated graph."""
+    from repro_torch import stream
+    from repro_torch.serve.distributed import (DistributedQueryEngine,
+                                               ShardedSketchStore)
+
+    t0 = time.time()
+    if mesh.axis_size("model") != 1:
+        raise SystemExit("--stream-smoke --mesh wants Dx1 (deltas on "
+                         "graph_parallel pools arrive later)")
+    rng = np.random.default_rng(args.graph_seed + 1)
+    g = build_graph(args)
+    cfg = build_config(args, backend="data_parallel")
+    store = ShardedSketchStore(g, cfg, mesh)
+    store.ensure(args.batches)
+    store.visited_stack()
+    engine = DistributedQueryEngine(store)
+    sig_pre = engine.sigma([[1, 2, 3]])[0]
+    tracker = stream.DirtySlotTracker.for_store(store)
+    delta = stream.random_delta(g, rng, num_deletes=args.queries,
+                                num_inserts=args.queries)
+    report = stream.incremental_refresh(store, tracker, delta)
+    print(f"[stream] sharded delta: +{report.inserted}/-{report.deleted} "
+          f"edges, {report.touched_row_blocks} row-blocks → "
+          f"{report.dirty_slots}/{report.total_slots} dirty slots resampled "
+          f"in {report.refresh_s:.3f}s (graph epoch {report.graph_epoch})")
+    cold = stream.cold_rebuild_batches(store)
+    single = SketchStore(store.graph, dense_variant(cfg), g_rev=store.g_rev)
+    single.ensure(len(store.batches))
+    for bi, bc, bs in zip(store.batches, cold, single.batches):
+        if not (torch.equal(bi.visited, bc.visited.cpu())
+                and torch.equal(bi.visited, bs.visited.cpu())
+                and bi.fused_edge_visits == bc.fused_edge_visits):
+            raise AssertionError(f"slot of batch {bi.batch_index} differs "
+                                 "from the cold rebuild or the one-device "
+                                 "pool")
+    sig_post = engine.sigma([[1, 2, 3]])[0]
+    print(f"[stream] sharded pool ≡ cold rebuild ≡ single-device dense on "
+          f"the mutated graph ({store.num_shards} shards); σ̂(1,2,3) "
+          f"{sig_pre:.1f} → {sig_post:.1f}")
+    print(f"[stream] PASS in {time.time() - t0:.1f}s")
+    return dict(store=store, report=report, passed=True)
+
+
+def rank_main(rank: int, dev, argv: list) -> dict:
+    """One rank of a ``--mesh`` run (the `launch.accel.spawn` target):
+    every rank runs the same path; only rank 0 prints.  Returns rank 0's
+    summary (the other ranks return their peak device memory only)."""
+    import sys
+    from repro_torch.launch.mesh import make_mesh
+
+    args = parse_args(argv)
+    args.device = str(dev)
+    d, m = _parse_mesh(args.mesh)
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        mesh = make_mesh((d, m), ("data", "model"), device=dev)
+        run = run_stream_sharded if args.stream_smoke else run_distributed
+        out = run(args, mesh)
+        summary = {"rank": rank, "passed": bool(out.get("passed")),
+                   "staged_bytes": mesh.staged_bytes,
+                   "collectives": mesh.stats}
+        if "gather_words" in out and out["gather_words"] is not None:
+            summary["gather_words"] = out["gather_words"].tolist()
+        if dev.type == "cuda":
+            summary["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        return summary
+    finally:
+        if rank != 0:
+            sys.stdout.close()
+            sys.stdout = sys.__stdout__
+
+
+def run_mesh(args, argv) -> list:
+    """Start the D·M ranks of ``--mesh`` and run `rank_main` on each;
+    returns their summaries by rank.  Without ``--ckpt-dir`` the smoke's
+    snapshot goes to a temporary directory, removed afterwards."""
+    # The ranks import the target by its module path, never as __main__.
+    from repro_torch.launch import accel, serve_influence
+
+    d, m = _parse_mesh(args.mesh)
+    device_lib.resolve(args.device)
+    ckpt = args.ckpt_dir or tempfile.mkdtemp(prefix="sharded_pool_")
+    print(f"[mesh] {d}x{m} mesh: {d * m} ranks, {args.backend} transport, "
+          f"device {args.device}")
+    try:
+        return accel.spawn(serve_influence.rank_main, d * m,
+                           args=(list(argv) + ["--ckpt-dir", ckpt],),
+                           backend=args.backend, device=args.device,
+                           timeout_s=MESH_TIMEOUT_S)
+    finally:
+        if not args.ckpt_dir:
+            shutil.rmtree(ckpt, ignore_errors=True)
 
 
 # --------------------------------------------------------------------- tier
@@ -561,8 +816,12 @@ def parse_args(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="full lifecycle check on a synthetic graph")
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="serve from a sharded pool (comes with the "
-                         "multi-GPU slice; raises here)")
+                    help="serve from a sharded pool on a (data × model) "
+                         "mesh of D·M ranks started by the launcher")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
+                    help="the mesh's transport: gloo (CPU ranks, or "
+                         "several ranks on one GPU, staged through the "
+                         "host) or nccl (one GPU per rank)")
     ap.add_argument("--async", dest="async_frontend", action="store_true",
                     help="front the batcher with the deadline-batched "
                          "AsyncFrontEnd and drive it from client threads")
@@ -598,11 +857,15 @@ def parse_args(argv=None):
                          "kernel's plain PyTorch version)")
     ap.add_argument("--diffusion", choices=("ic", "lt"), default="ic",
                     help="diffusion model the pool samples under")
-    ap.add_argument("--sampler-backend", default="dense",
-                    choices=("dense", "tiled", "kernel"),
+    ap.add_argument("--sampler-backend", default=None,
+                    choices=("dense", "tiled", "kernel", "data_parallel",
+                             "graph_parallel"),
                     help="traversal backend: CSR sweep, or the tile "
                          "expansion through the CUDA tile kernels "
-                         "(tiled and kernel are the same backend)")
+                         "(tiled and kernel are the same backend); on a "
+                         "mesh data_parallel (default for Dx1) or "
+                         "graph_parallel (default for M > 1).  Default "
+                         "dense")
     ap.add_argument("--frontier", choices=("dense", "sparse"),
                     default="dense",
                     help="sparse: compact each level to the active part of "
@@ -632,12 +895,26 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    import sys
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     if args.mesh:
-        raise NotImplementedError(
-            "--mesh (sharded pools and the sharded stream path) is not "
-            "ported yet: it comes with the multi-GPU slice "
-            "(torch.distributed)")
+        if args.async_frontend:
+            raise NotImplementedError(
+                "--async with --mesh is not ported yet: it comes with slice "
+                "G2, the mesh front end, whose flushes are broadcast from "
+                "rank 0 to the other ranks")
+        if args.tier:
+            raise SystemExit("--tier serves from one device; drop --mesh")
+        if args.sampler_backend not in (None, "data_parallel",
+                                        "graph_parallel"):
+            raise SystemExit(f"--sampler-backend {args.sampler_backend} "
+                             "samples on one device: with --mesh use "
+                             "data_parallel or graph_parallel")
+        return run_mesh(args, argv)
+    if args.sampler_backend in ("data_parallel", "graph_parallel"):
+        raise SystemExit(f"--sampler-backend {args.sampler_backend} wants "
+                         "--mesh")
     if args.stream_smoke:
         return run_stream(args)
     if args.tier:

@@ -19,12 +19,23 @@ both frontier modes:
                Pallas kernels; the port has one tile expansion, so the two
                names are the same backend.
 
+* ``data_parallel`` — batch blocks split over ``spec.mesh_axis`` of a
+               `distributed.comm.Mesh`: each rank traverses its contiguous
+               slice by the dense backend, the masks are all-gathered;
+* ``graph_parallel`` — the graph's destination rows split over
+               ``spec.model_axis`` too (`graph.partition.ShardLayout`, built
+               once per sampler from the CSR edges): each rank expands its
+               slice of the batches on its row shard through the tile
+               kernels (`distributed.traversal.graph_parallel_block`).
+
+The mesh backends are SPMD: every rank of the mesh builds the same sampler
+and calls it with the same batch indices; ``sample_many`` returns the whole
+block's masks on every rank.
+
 LT: the facade normalises the live-edge weights of the reversed graph
 once per graph object, and uses a graph that already carries the invariant
 as it is (`lt.normalized`).  ``rebind`` moves a sampler to a streamed
-graph pair (`repro_torch.stream`).  Samplers
-run on their graph's device.  The mesh backends come with the multi-GPU
-slice of the port.
+graph pair (`repro_torch.stream`).  Samplers run on their graph's device.
 """
 from __future__ import annotations
 
@@ -37,11 +48,6 @@ from repro_torch.graph import csr
 from repro_torch.sampling.spec import SamplerSpec
 
 __all__ = ["Sampler", "make_sampler"]
-
-_LATER = {
-    "data_parallel": "the multi-GPU slice (torch.distributed samplers)",
-    "graph_parallel": "the multi-GPU slice (torch.distributed samplers)",
-}
 
 
 class Sampler:
@@ -86,7 +92,8 @@ class Sampler:
         sampler over the new ``g_rev`` then shares through its cache); the
         dense sampler overrides it with a values-only fast path.  Either
         way the result equals a fresh `make_sampler` on the new graphs."""
-        return make_sampler(g, self.spec, g_rev=g_rev)
+        return make_sampler(g, self.spec, getattr(self, "mesh", None),
+                            g_rev=g_rev)
 
     def _try_patch_fidx(self, g, g_rev, touched_row_blocks) -> bool:
         """Sparse-frontier fast path: when the delta kept the edge arrays'
@@ -245,17 +252,164 @@ class TiledSampler(Sampler):
         return rrr.RRRBatch(visited, starts, int(batch_index), -1, -1)
 
 
-def make_sampler(g: csr.Graph | None, spec: SamplerSpec, *,
+class _BlockSampler(Sampler):
+    """The block protocol of the mesh backends: a subclass's
+    ``_block(full, starts, seeds, keep)`` traverses the padded index list
+    ``full`` (its roots and seeds beside it; the first ``keep`` are the
+    real block) and returns its ``(B, Vp ≥ V, W)`` masks on every rank."""
+
+    def __init__(self, g, spec, mesh, *, g_rev=None):
+        super().__init__(g, spec, g_rev=g_rev)
+        if mesh is None:
+            raise ValueError(f"the {spec.backend} backend needs a mesh")
+        for ax in self._axes(spec):
+            if ax not in mesh.axis_names:
+                raise ValueError(f"axis {ax!r} not in mesh "
+                                 f"{mesh.axis_names}")
+        self.mesh = mesh
+
+    @staticmethod
+    def _axes(spec: SamplerSpec) -> tuple:
+        return (spec.mesh_axis,)
+
+    @property
+    def data_shards(self) -> int:
+        return self.mesh.axis_size(self.spec.mesh_axis)
+
+    def _block_inputs(self, idx: list[int]):
+        """(full, starts (Bp, C), seeds (Bp,)) for the block padded to a
+        multiple of the data shards with repeats of the last index
+        (identical work, result dropped)."""
+        padded = -(-len(idx) // self.data_shards) * self.data_shards
+        full = idx + [idx[-1]] * (padded - len(idx))
+        starts = np.stack([self.batch_starts(b) for b in full])
+        return full, starts, rrr.batch_seeds(self.spec.master_seed, full)
+
+    def _block(self, full, starts, seeds, keep: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def sample_many(self, batch_indices) -> list[rrr.RRRBatch]:
+        """The block's batches on every rank; edge-visit stats carry the
+        -1 "not instrumented" sentinel, as the reference's mesh paths."""
+        idx = [int(b) for b in batch_indices]
+        if not idx:
+            return []
+        full, starts, seeds = self._block_inputs(idx)
+        vis = self._block(full, starts, seeds, len(idx))[
+            :, :self.g_rev.num_vertices]
+        return [rrr.RRRBatch(vis[i], starts[i], b, -1, -1)
+                for i, b in enumerate(idx)]
+
+    def sample(self, batch_index: int) -> rrr.RRRBatch:
+        return self.sample_many([int(batch_index)])[0]
+
+
+class DataParallelSampler(_BlockSampler):
+    """Batch blocks over ``spec.mesh_axis`` — IC and LT, either frontier.
+    Each rank samples its contiguous slice of the padded block by the
+    dense backend (no collective during a traversal), then one all-gather
+    over the axis gives every rank the block."""
+
+    def __init__(self, g, spec, mesh, *, g_rev=None):
+        super().__init__(g, spec, mesh, g_rev=g_rev)
+        self._local = DenseSampler(g, spec.replace(backend="dense"),
+                                   g_rev=self.g_rev)
+
+    def _block(self, full, starts, seeds, keep) -> torch.Tensor:
+        from repro_torch.distributed.traversal import _data_slice
+        mine = full[_data_slice(self.mesh, self.spec.mesh_axis, len(full))]
+        vis = torch.stack([b.visited for b in self._local.sample_many(mine)])
+        return self.mesh.all_gather(vis, self.spec.mesh_axis)
+
+    def rebind(self, g, g_rev, touched_row_blocks=None):
+        if self._local._try_patch_fidx(g, g_rev, touched_row_blocks):
+            self.graph, self.g_rev = g, self._local.g_rev
+            return self
+        return make_sampler(g, self.spec, self.mesh, g_rev=g_rev)
+
+
+class GraphParallelSampler(_BlockSampler):
+    """Graph rows over ``spec.model_axis``, batch blocks over
+    ``spec.mesh_axis``: the 2-D composition for graphs one device cannot
+    hold.  IC and LT.
+
+    The rank's row shard (`graph.partition.shard_layout` of the reversed
+    graph's tile layout, straight from its CSR edges) and its slot list
+    are built once; every block reuses them.  A rank holds only its
+    shard's slot list and, during a block, its (batch slice × row slice)
+    of the masks; an all-gather over each axis then gives every rank the
+    block.  ``last_gather_words`` is the ``(B, max_iters)`` per-level
+    exchange traffic of the last block (`distributed.traversal`)."""
+
+    def __init__(self, g, spec, mesh, *, g_rev=None):
+        super().__init__(g, spec, mesh, g_rev=g_rev)
+        from repro_torch.graph import partition
+        try:
+            self.layout = partition.shard_layout(
+                self.g_rev, spec.tile_size, mesh.axis_size(spec.model_axis),
+                mesh.axis_index(spec.model_axis))
+        except ValueError as e:
+            raise ValueError(
+                "the 'graph_parallel' backend needs a dedupe-clean graph "
+                f"(build it with csr.dedupe); tiling failed with: {e}") from e
+        self.slots = self._slot_list()
+        self.last_gather_words = None
+
+    @staticmethod
+    def _axes(spec: SamplerSpec) -> tuple:
+        return (spec.mesh_axis, spec.model_axis)
+
+    def _slot_list(self) -> tiles.SlotList:
+        """The shard's slot list of the current ``g_rev``: keys the edge
+        ids (IC) or the selection-CDF prefixes' float32 bits (LT)."""
+        prob = self.g_rev.edges_numpy()[2]
+        if self.spec.diffusion == "lt":
+            keys = np.asarray(lt.selection_cum_before(self.g_rev),
+                              np.float32).view(np.int32)
+        else:
+            keys = np.arange(self.g_rev.num_edges, dtype=np.int32)
+        return self.layout.slot_list(prob, keys, self.g_rev.device)
+
+    def _block(self, full, starts, seeds, keep) -> torch.Tensor:
+        from repro_torch.distributed.traversal import graph_parallel_block
+        spec = self.spec
+        vis, words = graph_parallel_block(
+            self.layout, self.slots, self.mesh, starts, seeds,
+            data_axis=spec.mesh_axis, model_axis=spec.model_axis,
+            num_colors=spec.num_colors, max_levels=spec.max_iters,
+            diffusion=spec.diffusion, frontier=spec.frontier,
+            gather_capacity=spec.frontier_capacity)
+        words = self.mesh.all_gather(torch.from_numpy(words), spec.mesh_axis)
+        self.last_gather_words = words[:keep].numpy()
+        rows = self.mesh.all_gather(vis.transpose(0, 1).contiguous(),
+                                    spec.model_axis).transpose(0, 1)
+        return self.mesh.all_gather(rows.contiguous(), spec.mesh_axis)
+
+    def rebind(self, g, g_rev, touched_row_blocks=None):
+        """A values-only delta keeps the shard layout and re-derives the
+        slot list from the new probabilities (and LT prefixes); a
+        structural one rebuilds the sampler."""
+        g_rev_n = lt.normalized(g_rev) if self.spec.diffusion == "lt" \
+            else g_rev
+        if not _same_edge_layout(self.g_rev, g_rev_n):
+            return make_sampler(g, self.spec, self.mesh, g_rev=g_rev)
+        self.graph, self.g_rev = g, g_rev_n
+        self.slots = self._slot_list()
+        return self
+
+
+def make_sampler(g: csr.Graph | None, spec: SamplerSpec, mesh=None, *,
                  g_rev: csr.Graph | None = None) -> Sampler:
     """Build the `Sampler` for ``spec`` on the graph's device.
 
-    ``g_rev``: prebuilt transpose(g) (skips one reversal).  Cells of the
-    reference's matrix that the port has not reached yet raise
-    ``NotImplementedError`` naming their slice.
+    ``g_rev``: prebuilt transpose(g) (skips one reversal).  ``mesh`` (a
+    `distributed.comm.Mesh`) is required by, and only used by, the
+    ``data_parallel`` and ``graph_parallel`` backends.
     """
-    if spec.backend in _LATER:
-        raise NotImplementedError(f"{spec.backend!r} is not ported yet: it "
-                                  f"comes with {_LATER[spec.backend]}")
+    if spec.backend == "graph_parallel":
+        return GraphParallelSampler(g, spec, mesh, g_rev=g_rev)
+    if spec.backend == "data_parallel":
+        return DataParallelSampler(g, spec, mesh, g_rev=g_rev)
     if spec.backend in ("tiled", "kernel"):
         return TiledSampler(g, spec, g_rev=g_rev)
     return DenseSampler(g, spec, g_rev=g_rev)

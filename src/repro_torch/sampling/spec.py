@@ -2,10 +2,8 @@
 
 ``SamplerSpec`` keeps the reference's fields and validation, so a spec
 round-trips between the two packages unchanged.  The port implements both
-diffusions and both frontier modes on the ``dense``, ``tiled`` and
-``kernel`` backends; `sampling.sampler.make_sampler` raises
-``NotImplementedError`` for the mesh backends, naming the slice that brings
-them.
+diffusions and both frontier modes on every backend; the mesh backends
+(``data_parallel``, ``graph_parallel``) take a `distributed.comm.Mesh`.
 
 The RNG contract every backend honors: batch ``b`` under ``master_seed`` is
 a pure function of ``(graph, master_seed, b)``, so supported backends are
@@ -28,9 +26,10 @@ class SamplerSpec:
     ``tile_size`` matters to the tile-layout backends (tiled/kernel) and
     sets the sparse frontier's row-block height.  ``frontier="sparse"``
     compacts each level to the active part of the graph;
-    ``frontier_capacity`` shapes its ladder (0 = auto).  ``mesh_axis`` and
-    ``model_axis`` are the reference's multi-device knobs, kept so a spec
-    means the same in both packages.
+    ``frontier_capacity`` shapes its ladder (0 = auto), and on the
+    ``graph_parallel`` backend the sparse exchange's capacity.  The mesh
+    backends split batches over ``mesh_axis`` and, for
+    ``graph_parallel``, the graph's rows over ``model_axis``.
     """
     diffusion: str = "ic"
     backend: str = "dense"

@@ -147,10 +147,18 @@ class SketchStore:
             for b in new:
                 self.batches.append(b)
                 self.batch_epochs.append(self.epoch)
-            if self._stack is not None:
-                self._stack = torch.cat(
-                    [self._stack, rrr.stack_visited(new)])
+            self._extend_stack(new)
         return self.batches
+
+    def _extend_stack(self, new_batches: list[rrr.RRRBatch]) -> None:
+        """Append grown slots to the stack (no-op while it is unbuilt)."""
+        if self._stack is not None:
+            self._stack = torch.cat([self._stack,
+                                     rrr.stack_visited(new_batches)])
+
+    def _truncate_stack(self, keep: int) -> None:
+        if self._stack is not None:
+            self._stack = self._stack[:keep]
 
     def shrink(self, num_batches: int) -> list[int]:
         """Drop the highest slots down to ``num_batches`` (floor 1); returns
@@ -163,21 +171,23 @@ class SketchStore:
         self.epoch += 1
         self.batches = self.batches[:keep]
         self.batch_epochs = self.batch_epochs[:keep]
-        if self._stack is not None:
-            self._stack = self._stack[:keep]
+        self._truncate_stack(keep)
         return dropped
 
     def clone(self) -> "SketchStore":
         """A replica pool sharing this store's (never mutated) batches, with
         its own stack and counters: applying the same mutation sequence to
         every clone keeps them bit-identical."""
-        c = type(self)(self.graph, self.config, g_rev=self.g_rev)
+        c = self._clone_empty()
         c.epoch = self.epoch
         c.graph_epoch = self.graph_epoch
         c.next_batch_index = self.next_batch_index
         c.batches = list(self.batches)
         c.batch_epochs = list(self.batch_epochs)
         return c
+
+    def _clone_empty(self) -> "SketchStore":
+        return type(self)(self.graph, self.config, g_rev=self.g_rev)
 
     def visited_stack(self) -> torch.Tensor:
         """(B, V, W) stacked masks for the query engine (built once, then

@@ -768,3 +768,72 @@ def test_snapshot_crosses_between_card_and_host(cuda, tmp_path, saved_on,
     assert back.batch_epochs == store.batch_epochs
     assert [b.batch_index for b in back.batches] == \
         [b.batch_index for b in store.batches]
+
+
+@pytest.mark.parametrize("diffusion", ["ic", "lt"])
+@pytest.mark.parametrize("shards", [2, 3, 4])
+def test_shard_local_tile_kernels_equal_plain(cuda, diffusion, shards):
+    """A row shard's slot list (`graph.partition.ShardLayout`) through the
+    kernels: the global (Vp, W) frontier in, the shard's (rows, W) visited
+    rows out, against the plain version on the same list, and the shards'
+    rows together against the one-device kernel on the whole layout."""
+    from repro_torch.graph import partition
+    g = csr.dedupe(generators.powerlaw_cluster(3000, 6.0, prob=0.3, seed=4,
+                                               device="cuda"))
+    if diffusion == "lt":
+        g = lt.normalized(g)
+        keys = np.asarray(lt.selection_cum_before(g), np.float32) \
+            .view(np.int32)
+    else:
+        keys = np.arange(g.num_edges, dtype=np.int32)
+    prob = g.edges_numpy()[2]
+    layout0 = partition.shard_layout(g, 128, shards, 0)
+    vp, rows = layout0.padded_vertices, layout0.rows
+    fr, vis = _masks(vp, 64, shards, 0.05, cuda)
+    parts = []
+    for s in range(shards):
+        layout = partition.shard_layout(g, 128, shards, s)
+        slots = layout.slot_list(prob, keys, cuda)
+        local = vis[s * rows:(s + 1) * rows].contiguous()
+        if diffusion == "lt":
+            u = ref.lt_selection_uniforms(7, rows, 64, row_base=s * rows,
+                                          device=cuda)
+            before = ops.LAUNCHES["lt_select_expand"]
+            got = ops.lt_select_expand_slots(slots, fr, local, u)
+            want = ref.lt_select_expand_slots_ref(slots, fr, local, u)
+            assert ops.LAUNCHES["lt_select_expand"] == before + 1
+        else:
+            before = ops.LAUNCHES["fused_expand"]
+            got = ops.fused_expand_slots(slots, fr, local, 0xC0FFEE, 3)
+            want = ref.fused_expand_slots_ref(slots, fr, local, 0xC0FFEE, 3)
+            assert ops.LAUNCHES["fused_expand"] == before + 1
+        torch.cuda.synchronize()
+        assert got.shape == (rows, 2) and torch.equal(got, want)
+        parts.append(got)
+    whole = partition.shard_layout(g, 128, 1, 0)
+    slots = whole.slot_list(prob, keys, cuda)
+    fr1 = fr[:whole.padded_vertices].contiguous()
+    vis1 = vis[:whole.padded_vertices].contiguous()
+    if diffusion == "lt":
+        one = ops.lt_select_expand_slots(
+            slots, fr1, vis1, ref.lt_selection_uniforms(
+                7, whole.rows, 64, device=cuda))
+    else:
+        one = ops.fused_expand_slots(slots, fr1, vis1, 0xC0FFEE, 3)
+    assert torch.equal(torch.cat(parts)[:whole.padded_vertices], one)
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_cover_counts_on_a_row_slice_equals_plain(cuda, shards):
+    """`cover_counts` and `cover_counts_multi` on one rank's (B/D, V/M, W)
+    block of a pool, against the plain versions."""
+    g = torch.Generator(device="cuda").manual_seed(shards)
+    vis = torch.randint(-2 ** 31, 2 ** 31, (16, 65536 // shards, 2),
+                        dtype=torch.int32, device=cuda, generator=g)
+    act = torch.randint(-2 ** 31, 2 ** 31, (16, 8, 2), dtype=torch.int32,
+                        device=cuda, generator=g)
+    got = ops.cover_counts(vis, act[:, 0])
+    multi = ops.cover_counts_multi(vis, act)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.cover_counts_ref(vis, act[:, 0]))
+    assert torch.equal(multi, ref.cover_counts_multi_ref(vis, act))

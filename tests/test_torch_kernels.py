@@ -177,5 +177,5 @@ def test_fused_expand_wrapper_rejects_a_frontier_shorter_than_visited():
     fr, vis = _masks(tt.padded_vertices, 64, seed=5, density=0.3)
     fr_t = convert.masks_from_numpy(fr[:64], "cpu")
     vis_t = convert.masks_from_numpy(vis, "cpu")
-    with pytest.raises(ValueError, match="one shape"):
+    with pytest.raises(ValueError, match="256 source and 256 destination"):
         tfe.fused_expand_cuda(ttiles.ic_slot_list(tt), fr_t, vis_t, 1, 0)

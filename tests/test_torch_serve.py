@@ -171,10 +171,10 @@ def test_port_launcher_smoke_on_cpu(backend, capsys):
                                   dict(backend="graph_parallel",
                                        model_axis="model")])
 def test_unported_cells_name_their_slice(knob):
-    """The mesh backends raise naming their slice, whatever the diffusion
-    and frontier (LT and the sparse frontier are ported)."""
+    """The mesh backends are ported: without a mesh they raise naming the
+    mesh they need, whatever the diffusion and frontier."""
     _, _, st = _stores("dense", batches=1)
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         tsampling.make_sampler(st.graph, tsampling.SamplerSpec(**knob))
 
 

@@ -148,8 +148,9 @@ def test_ic_list_holds_the_positive_slots_sorted_by_destination_lane():
     T = tt.tile_size
     assert slots.num_entries == int((tt.prob > 0).sum())
     assert slots.num_entries <= gt.num_edges
-    assert slots.num_tiles == tt.num_tiles and slots.num_rows <= \
-        tt.padded_vertices
+    assert slots.num_tiles == tt.num_tiles
+    assert slots.src_rows <= tt.padded_vertices
+    assert slots.dst_rows <= tt.padded_vertices
     counts = (tt.prob > 0).sum((1, 2))
     np.testing.assert_array_equal(np.diff(slots.slot_ptr.numpy()),
                                   counts.numpy())
