@@ -120,7 +120,21 @@ else.  Phases, each of which raises on failure:
     and ``cover_counts`` (counters zeroed just before, read just after,
     both > 0), and on each rank's block of the 64-batch pool
     ``cover_counts`` / ``cover_counts_multi`` against their plain versions
-    on the engine's masks (pad slots zero); (b) the same under LT
+    on the engine's masks (pad slots zero); (f) on the same 2×2 mesh, the
+    async front end over (a)'s 64-batch pool: rank 0 runs
+    ``AsyncFrontEnd`` over a ``MeshLeader`` (deadline 0.05 s, 8 flush
+    slots, a background refresh every 1.5 s) and serves a lone σ, 24
+    threaded σ clients, a top-16 and a marginal query, then closes, while
+    the other ranks ``follow``; every answer equals the engine's own,
+    asked directly after ``STOP`` on every rank at the answer's pool
+    version, and the one-device engine's on the final pool; a lone
+    request flushes on its deadline, no request waits past it by more
+    than 0.25 s, the refresh bumps the epoch on every rank and the
+    version holds after ``close()``; every rank launched
+    ``fused_expand``, ``cover_counts`` and ``cover_counts_multi`` in the
+    session (counters zeroed before it, read after); the flush times per
+    op (worst rank) beside one device's, and the whole-mesh broadcast of
+    one message alone; (b) the same as (a) under LT
     (``lt_select_expand``); (c) ``data_parallel`` IC on the same four
     ranks as 4×1: batches 0-3 and top-16, (a)'s 64-batch snapshot
     restored onto 4×1, ``refresh(0.5)`` equal to a one-device pool's, the
@@ -1432,12 +1446,97 @@ def _ranks(results, key):
     return [r[key] for r in results]
 
 
+def check_mesh_front_end(a4: list) -> dict:
+    """(f)'s checks and its ``[mesh async]`` lines, from the 2x2 ranks'
+    results: every served answer equals the engine's own, asked directly
+    after ``STOP`` on every rank at the answer's pool version, and the
+    one-device engine's on the final pool; the deadline and refresh
+    contract; the kernels launched on every rank; the followers made the
+    leader's calls in its order.  Returns the numbers the result lines and
+    the ``kernels`` line carry."""
+    from repro_torch.launch import mesh_smoke
+
+    fs = _ranks(a4, "f")
+    lead = fs[0]
+    st = lead["stats"]
+    answers = lead["answers"]
+    served = [("lone", None) + answers["lone"]] + [
+        ("clients", i) + a for i, a in enumerate(answers["clients"])] + [
+        ("top_k", None) + answers["top_k"],
+        ("marginal", None) + answers["marginal"]]
+    for kind, i, value, version in served:
+        for f in fs:
+            direct = f["direct"].get(version)
+            _check(direct is not None and (
+                direct[kind] if i is None else direct[kind][i]) == value,
+                f"[mesh async] the {kind} answer {value} (pool version "
+                f"{version}) differs from rank {fs.index(f)}'s direct one")
+    final = lead["direct"][lead["version"]]
+    one = lead["one_device"]["answers"]
+    _check(one == final, "[mesh async] the one-device engine on the final "
+           f"pool answers differently: {one['top_k']} vs {final['top_k']}")
+    _check(lead["lone_deadline_flushes"] >= 1,
+           f"[mesh async] the lone request did not flush on its deadline: "
+           f"{st}")
+    _check(st["max_queue_wait"] <= mesh_smoke.FE_DEADLINE_S + 0.25,
+           f"[mesh async] a request waited past its deadline: {st}")
+    _check(st["refreshes"] >= 1 and all(
+        f["version"] == lead["version"] and f["version"][1] >= 1
+        for f in fs), f"[mesh async] no refresh, or the ranks' pool "
+        f"versions differ: {[f['version'] for f in fs]}")
+    _check(lead["version_later"] == lead["version_closed"],
+           "[mesh async] the pool version moved after close()")
+    _check(all(f["launches"][k] > 0 for f in fs for k in (
+        "cover_counts", "cover_counts_multi", "fused_expand")),
+        f"[mesh async] a rank never launched cover_counts, "
+        f"cover_counts_multi or fused_expand: {[f['launches'] for f in fs]}")
+    ops_of = [[op for op, _ in f["dispatches"]] for f in fs]
+    _check(all(o == ops_of[0] for o in ops_of) and all(
+        f["messages"] == lead["messages"] for f in fs),
+        "[mesh async] the followers' calls differ from the leader's")
+    worst = [max(f["dispatches"][j][1] for f in fs)
+             for j in range(len(ops_of[0]))]
+    mesh_ms = {op: 1e3 * float(np.median(
+        [t for o, t in zip(ops_of[0], worst) if o == op]))
+        for op in sorted(set(ops_of[0]))}
+    one_ms = lead["one_device"]["ms"]
+    out = dict(launches={k: sum(f["launches"][k] for f in fs) for k in (
+        "fused_expand", "cover_counts", "cover_counts_multi")},
+        mesh_ms=mesh_ms, one_ms=one_ms,
+        broadcast_ms=max(f["broadcast_ms"] for f in fs),
+        seconds=max(f["seconds"] for f in fs), messages=lead["messages"])
+    print(f"[mesh async] graph_parallel IC on 2x2 over (a)'s 64-batch pool: "
+          f"rank 0 leads ({st['flushes']} flushes: {st['slot_flushes']} "
+          f"slot / {st['deadline_flushes']} deadline / "
+          f"{st['drain_flushes']} drain; {st['served']} served; "
+          f"{st['refreshes']} background refresh(es), epoch "
+          f"{lead['version'][1]}), 3 ranks follow; messages "
+          f"{lead['messages']} of {lead['message_bytes']} bytes; every "
+          f"answer equals the engine's direct one on every rank and the "
+          f"one-device engine's; worst queue wait "
+          f"{st['max_queue_wait'] * 1e3:.1f} ms (deadline "
+          f"{mesh_smoke.FE_DEADLINE_S * 1e3:.0f} ms); launches by rank "
+          + ", ".join(f"{k} {[f['launches'][k] for f in fs]}" for k in (
+              "fused_expand", "cover_counts", "cover_counts_multi")))
+    print(f"[mesh async] flush ms, host clock from dispatch start to "
+          f"results (worst rank, median over the session's dispatches) "
+          f"against one device on the final pool (mean of 3): "
+          + ", ".join(f"{op} {mesh_ms[op]:.3f}"
+                      + (f" vs {one_ms[op]:.3f}" if op in one_ms else "")
+                      for op in mesh_ms)
+          + f"; the whole-mesh broadcast of one message alone "
+          f"{out['broadcast_ms']:.3f} ms (worst rank, mean of 20); "
+          f"{out['seconds']:.2f}s of session, collectives by axis "
+          f"{lead['collectives']}")
+    return out
+
+
 def check_mesh_results(a4: list, b3: list, d1: list,
                        single_build_s: dict) -> dict:
     """Phase 9d's checks and lines, from the ranks' results
     (`repro_torch.launch.mesh_smoke`); returns the numbers the result
     lines and the ``kernels`` line carry."""
-    out = {}
+    out = {"f": check_mesh_front_end(a4)}
     for tag, sub, kernel in (("a", "IC", "fused_expand"),
                              ("b", "LT", "lt_select_expand")):
         rs = _ranks(a4, tag)
@@ -2535,7 +2634,13 @@ def main() -> int:
           f"{mesh['exchange']['butterfly_ms']:.3f} ms, pmax "
           f"{mesh['exchange']['pmax_ms']:.3f} ms; words IC "
           f"{mesh['a']['words_dense']} dense / {mesh['a']['words_sparse']} "
-          f"sparse; peak {mesh['a']['peak_gib']:.3f} GiB a rank (a); worlds "
+          f"sparse; peak {mesh['a']['peak_gib']:.3f} GiB a rank (a); async "
+          f"front end on 2x2, flush ms (mesh / one device) "
+          + ", ".join(f"{op} {mesh['f']['mesh_ms'][op]:.3f} / "
+                      f"{mesh['f']['one_ms'][op]:.3f}"
+                      for op in ("sigma", "marginal", "top_k"))
+          + f", whole-mesh broadcast {mesh['f']['broadcast_ms']:.3f} ms; "
+          f"worlds "
           f"{mesh['seconds']['world_2x2']:.1f}s, "
           f"{mesh['seconds']['world_1x3']:.1f}s, "
           f"{mesh['seconds']['world_1x1']:.1f}s")
@@ -2549,6 +2654,7 @@ def main() -> int:
                  "stream_ic": stream_ic["launches"]["fused_expand"],
                  "driver": drv["launches"]["fused_expand"],
                  "mesh_gp_ic_2x2": mesh["a"]["launches"]["fused_expand"],
+                 "mesh_async_2x2": mesh["f"]["launches"]["fused_expand"],
                  "mesh_gp_ic_1x1_nccl": mesh["d"]["launches"][
                      "fused_expand"]},
              max_abs_err=max(err["fused_expand"], fe["max_abs_err"],
@@ -2575,6 +2681,7 @@ def main() -> int:
                  "mesh_gp_ic_2x2": mesh["a"]["launches"]["cover_counts"],
                  "mesh_gp_lt_2x2": mesh["b"]["launches"]["cover_counts"],
                  "mesh_dp_4x1": mesh["c"]["launches"]["cover_counts"],
+                 "mesh_async_2x2": mesh["f"]["launches"]["cover_counts"],
                  "mesh_gp_ic_1x1_nccl": mesh["d"]["launches"][
                      "cover_counts"]},
              max_abs_err=max(err["cover_counts"], cc["max_abs_err"],
@@ -2585,7 +2692,9 @@ def main() -> int:
              **{k: cc[k] for k in ("warm_ms", "eager_cold_ms",
                                    "clean_cold_ms")},
              multi=dict(cc["multi"], launches=launches["cover_counts_multi"],
-                        launches_lt=launches_lt["cover_counts_multi"])),
+                        launches_lt=launches_lt["cover_counts_multi"],
+                        launches_mesh_async_2x2=mesh["f"]["launches"][
+                            "cover_counts_multi"])),
         dict(name="lt_select_expand", route="cuda",
              source="src/repro_torch/csrc/lt_select_expand.cu",
              replaces="src/repro/kernels/lt_select_expand.py:101",

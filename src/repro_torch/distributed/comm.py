@@ -22,10 +22,12 @@ collective returns its input: a 1×1 mesh works in any process.  In a
 group, an axis of size 1 has its one-rank groups too, so a 1×1 mesh of
 one NCCL rank runs every collective of the code through NCCL.
 ``stats[axis]`` counts each collective over an axis (``calls``) and the
-bytes this rank hands to it (``bytes``).
+bytes this rank hands to it (``bytes``).  ``timeout_s`` bounds each
+collective of the axis groups (default: the default group's timeout).
 """
 from __future__ import annotations
 
+import datetime
 import itertools
 import numpy as np
 import torch
@@ -38,7 +40,7 @@ class Mesh:
     """A ``shape``-shaped mesh of ranks with named ``axes``, over the
     initialised default process group (see module docstring)."""
 
-    def __init__(self, shape, axes, *, device="cuda"):
+    def __init__(self, shape, axes, *, device="cuda", timeout_s=None):
         shape = tuple(int(s) for s in shape)
         axes = tuple(str(a) for a in axes)
         if len(shape) != len(axes) or len(set(axes)) != len(axes):
@@ -57,6 +59,8 @@ class Mesh:
         self._coords = dict(zip(axes, (int(c) for c in np.unravel_index(
             self.rank, shape))))
         self._groups: dict[str, tuple] = {}
+        timeout = None if timeout_s is None \
+            else datetime.timedelta(seconds=timeout_s)
         for i, ax in enumerate(axes):
             if not dist.is_initialized():
                 break
@@ -67,7 +71,7 @@ class Mesh:
                     coord = list(fixed)
                     coord.insert(i, c)
                     ranks.append(int(np.ravel_multi_index(coord, shape)))
-                group = dist.new_group(ranks)
+                group = dist.new_group(ranks, timeout=timeout)
                 if self.rank in ranks:
                     self._groups[ax] = (group, ranks)
         self.stats = {ax: {"calls": 0, "bytes": 0} for ax in axes}
@@ -170,16 +174,32 @@ class Mesh:
     def pmax(self, t: torch.Tensor, axes) -> torch.Tensor:
         return self._reduce(t, axes, dist.ReduceOp.MAX)
 
-    def broadcast(self, t: torch.Tensor, axis: str, src: int = 0
-                  ) -> torch.Tensor:
-        """Axis position ``src``'s ``t`` on every rank of the line."""
-        if axis not in self._groups:
+    def broadcast(self, t: torch.Tensor, axis: str | None = None,
+                  src: int = 0, *, axes=None) -> torch.Tensor:
+        """Axis position ``src``'s ``t`` on every rank of the line; with
+        ``axes`` instead, global rank 0's ``t`` on every rank of those
+        axes: one broadcast from position 0 per axis, in the mesh's axis
+        order (after the broadcast over an axis, every rank whose later
+        coordinates are 0 holds rank 0's value, so the next axis's
+        position 0 sends it on)."""
+        if axes is None:
+            axes = (axis,)
+        elif axis is not None or src != 0:
+            raise ValueError("broadcast takes axis (and src) or axes, "
+                             "which sends from rank 0")
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if not set(axes) <= set(self.axis_names):
+            raise ValueError(f"axes {axes} not all in {self.axis_names}")
+        live = [ax for ax in self.axis_names
+                if ax in axes and ax in self._groups]
+        if not live:
             return t
         wire = self._wire(t)
         if wire is t:
             wire = t.clone()
-        group, ranks = self._group(axis, wire)
-        dist.broadcast(wire, src=ranks[src], group=group)
+        for ax in live:
+            group, ranks = self._group(ax, wire)
+            dist.broadcast(wire, src=ranks[src], group=group)
         return self._back(wire, t)
 
     def barrier(self) -> None:

@@ -9,8 +9,10 @@ from __future__ import annotations
 from repro_torch.distributed.comm import Mesh
 
 
-def make_mesh(shape: tuple, axes: tuple, *, device="cuda") -> Mesh:
+def make_mesh(shape: tuple, axes: tuple, *, device="cuda",
+              timeout_s=None) -> Mesh:
     """The ``shape`` mesh with named ``axes`` over the default group, its
     collectives staged for ``device`` (the rank's compute device; the card
-    unless the caller asks for ``"cpu"``)."""
-    return Mesh(shape, axes, device=device)
+    unless the caller asks for ``"cpu"``) and bounded by ``timeout_s``
+    (default: the default group's timeout)."""
+    return Mesh(shape, axes, device=device, timeout_s=timeout_s)

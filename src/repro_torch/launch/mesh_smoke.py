@@ -10,7 +10,11 @@ holds them against ``tests/data/torch_port_golden.json``.
   exchange leg with its per-level words, every level of batch 0 through
   the kernel against the plain version on the rank's slot list, the
   kernels' launches, and the coverage kernels against their plain
-  versions on the rank's block of the pool), (b) the same under LT, (c)
+  versions on the rank's block of the pool), (f) the async front end
+  over (a)'s 64-batch pool (rank 0 leads, the others follow: answers
+  against the engine's own after ``STOP``, launches, dispatch times, the
+  whole-mesh broadcast alone and the one-device engine's times), (b) the
+  same as (a) under LT, (c)
   ``data_parallel`` on 4×1 (batches 0-3, top-16, a restore of (a)'s
   snapshot, ``refresh(0.5)`` against a one-device pool, the coverage
   check), (e) the reduced ``"mesh"`` golden's (2, 2)
@@ -24,7 +28,10 @@ read, so its own launches are not counted.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
+import os
+import threading
 import time
 
 import numpy as np
@@ -37,11 +44,16 @@ from repro_torch.graph import csr, generators
 from repro_torch.kernels import ops, ref
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.sampling import SamplerSpec
-from repro_torch.serve.distributed import (DistributedQueryEngine,
-                                           ShardedSketchStore)
-from repro_torch.serve.influence import PoolConfig, QueryEngine, SketchStore
+from repro_torch.serve.distributed import (AsyncFrontEnd,
+                                           DistributedQueryEngine, MeshLeader,
+                                           ShardedSketchStore, follow)
+from repro_torch.serve.distributed.mesh_frontend import message_size
+from repro_torch.serve.influence import (MicroBatcher, PoolConfig, QueryEngine,
+                                         ResultCache, SketchStore)
 
 K = 16
+# (f): the front end's deadline, flush slots, refresh period, clients.
+FE_DEADLINE_S, FE_SLOTS, FE_REFRESH_EVERY_S, FE_CLIENTS = 0.05, 8, 1.5, 24
 
 
 def sha(mask: torch.Tensor) -> str:
@@ -183,8 +195,9 @@ def _exchange_ms(mesh, rows: int, colors: int, reps: int = 20) -> dict:
         dense_bytes=n * 4, tail_words=int(torch.count_nonzero(tail)))
 
 
-def _graph_parallel(g, mesh, golden: dict, diffusion: str, ckpt) -> dict:
-    """(a) / (b): a graph_parallel pool on ``mesh``, counted launches."""
+def _graph_parallel(g, mesh, golden: dict, diffusion: str, ckpt):
+    """(a) / (b): a graph_parallel pool on ``mesh``, counted launches;
+    returns the results and the 64-batch pool of the dense leg."""
     dev = mesh.device
     gold = golden if diffusion == "ic" else golden["lt"]
     out = {}
@@ -228,6 +241,148 @@ def _graph_parallel(g, mesh, golden: dict, diffusion: str, ckpt) -> dict:
     out["cover_check"] = _cover_against_plain(dense_pool,
                                               gold["top_k"]["seeds"])
     out["peak_gib"] = _peak(dev)
+    return out, dense_pool
+
+
+def _fe_queries(n: int):
+    """(f)'s queries: a lone σ, the clients' σ and a marginal's
+    exclusions."""
+    rng = np.random.default_rng(1)
+    lone = rng.integers(0, n, 3).tolist()
+    clients = [rng.integers(0, n, 3).tolist() for _ in range(FE_CLIENTS)]
+    return lone, clients, rng.integers(0, n, 2).tolist()
+
+
+def _digest(values) -> str:
+    return hashlib.sha256(np.asarray(values, np.float64).tobytes()
+                          ).hexdigest()
+
+
+def _fe_direct(engine, queries) -> dict:
+    """Every query of (f) asked of ``engine`` directly (lockstep)."""
+    lone, clients, exclude = queries
+    sets, q = [lone] + clients, engine.query_slots
+    sig = [float(x) for i in range(0, len(sets), q)
+           for x in engine.sigma(sets[i:i + q])]
+    seeds, sigma = engine.top_k(K)
+    return dict(lone=sig[0], clients=sig[1:], top_k=[seeds.tolist(), sigma],
+                marginal=_digest(engine.marginal_gains(exclude)))
+
+
+def _fe_lead(engine, queries) -> dict:
+    """Rank 0's side of (f): the front end over a `MeshLeader` serves a
+    lone σ, the threaded clients' σ, a top-16 and a marginal query, runs
+    at least one background refresh, and closes; the version must then
+    hold for a refresh period."""
+    lone_q, clients_q, exclude = queries
+    with MeshLeader(engine) as leader:
+        fe = AsyncFrontEnd(MicroBatcher(leader, cache=ResultCache()),
+                           default_deadline=FE_DEADLINE_S,
+                           flush_slots=FE_SLOTS,
+                           refresh_every=FE_REFRESH_EVERY_S)
+        try:
+            lone = fe.submit_sigma(lone_q)
+            lone.result(timeout=120)
+            lone_deadline_flushes = fe.stats.deadline_flushes
+            futs = [None] * len(clients_q)
+
+            def client(i):
+                futs[i] = fe.submit_sigma(clients_q[i])
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(clients_q))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            top, marg = fe.submit_top_k(K), fe.submit_marginal(exclude)
+            answers = dict(
+                lone=(lone.result(), lone.pool_version),
+                clients=[(f.result(timeout=120), f.pool_version)
+                         for f in futs],
+                top_k=([top.result(timeout=120)[0].tolist(),
+                        top.result()[1]], top.pool_version),
+                marginal=(_digest(marg.result(timeout=120)),
+                          marg.pool_version))
+            end = time.monotonic() + 120
+            while fe.stats.refreshes == 0 and time.monotonic() < end:
+                time.sleep(0.05)
+        finally:
+            fe.close()
+    closed = engine.store.version
+    time.sleep(FE_REFRESH_EVERY_S + 0.1)
+    return dict(answers=answers, lone_deadline_flushes=lone_deadline_flushes,
+                stats=dataclasses.asdict(fe.stats), version_closed=closed,
+                version_later=engine.store.version,
+                messages=leader.stats.messages,
+                dispatches=leader.stats.dispatches)
+
+
+def _fe_one_device(directory: str, g, queries, reps: int = 3) -> dict:
+    """The pool of ``directory`` restored onto one device: the same
+    queries' answers and each flush's host time (mean of ``reps`` after a
+    warm-up, each ending in the answer on the host)."""
+    lone, clients, exclude = queries
+    engine = QueryEngine(SketchStore.restore(directory, g,
+                                             _config("ic", "dense")))
+    flushes = dict(sigma=lambda: engine.sigma(clients[:FE_SLOTS]),
+                   marginal=lambda: engine.marginal_padded(
+                       *engine.pad([exclude])),
+                   top_k=lambda: engine.top_k(K))
+    ms = {}
+    for op, fn in flushes.items():
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ms[op] = (time.perf_counter() - t0) / reps * 1e3
+    return dict(ms=ms, answers=_fe_direct(engine, queries))
+
+
+def _front_end(store, mesh, ckpt: str) -> dict:
+    """(f): the async front end on ``mesh`` over ``store``: rank 0 leads
+    (`_fe_lead`), every other rank follows.  After ``STOP``, in lockstep:
+    every query asked directly of the engine on the pool as it was before
+    the session (a clone) and as it is after it; the whole-mesh broadcast
+    of one message alone (host clock, mean of 20); then rank 0 restores the
+    final pool onto one device and times the same flushes there."""
+    dev = mesh.device
+    engine = DistributedQueryEngine(store)
+    queries = _fe_queries(store.graph.num_vertices)
+    before = store.clone()
+    _sync(dev)
+    mesh.barrier()
+    mesh.reset_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        out = _fe_lead(engine, queries)
+    else:
+        st = follow(engine)
+        out = dict(messages=st.messages, dispatches=st.dispatches)
+    _sync(dev)
+    out["launches"] = dict(ops.LAUNCHES)
+    out["seconds"] = time.perf_counter() - t0
+    out["collectives"] = {ax: dict(v) for ax, v in mesh.stats.items()}
+    out["staged_bytes"] = mesh.staged_bytes
+    out["version"] = store.version
+    out["direct"] = {
+        before.version: _fe_direct(DistributedQueryEngine(before), queries),
+        store.version: _fe_direct(engine, queries)}
+    del before
+    msg = torch.zeros(message_size(engine), dtype=torch.int32)
+    mesh.broadcast(msg, axes=mesh.axis_names)
+    mesh.barrier()
+    t_b = time.perf_counter()
+    for _ in range(20):
+        mesh.broadcast(msg, axes=mesh.axis_names)
+    out["broadcast_ms"] = (time.perf_counter() - t_b) / 20 * 1e3
+    out["message_bytes"] = msg.numel() * msg.element_size()
+    directory = os.path.join(ckpt, "frontend")
+    store.save(directory)
+    if mesh.rank == 0:
+        out["one_device"] = _fe_one_device(directory, store.graph, queries)
+    mesh.barrier()
     return out
 
 
@@ -304,8 +459,10 @@ def rank_main_2x2(rank, dev, golden: dict, ckpt: str) -> dict:
     g = _graph(golden["graph"], dev)
     mesh = make_mesh((2, 2), ("data", "model"), device=dev)
     out = {"rank": rank, "backend": mesh.backend, "device": str(dev)}
-    out["a"] = _graph_parallel(g, mesh, golden, "ic", ckpt)
-    out["b"] = _graph_parallel(g, mesh, golden, "lt", None)
+    out["a"], pool = _graph_parallel(g, mesh, golden, "ic", ckpt)
+    out["f"] = _front_end(pool, mesh, ckpt)
+    del pool
+    out["b"] = _graph_parallel(g, mesh, golden, "lt", None)[0]
     out["exchange"] = _exchange_ms(mesh, out["a"]["check"]["rows"], 64)
     mesh4 = make_mesh((4, 1), ("data", "model"), device=dev)
     out["c"] = _data_parallel(g, mesh4, golden, ckpt, out["a"]["snapshot_top"])

@@ -12,6 +12,8 @@
     python -m repro_torch.launch.serve_influence --device cpu --smoke \
         --mesh 2x2 --backend gloo
     python -m repro_torch.launch.serve_influence --smoke --mesh 2x2
+    python -m repro_torch.launch.serve_influence --device cpu --smoke \
+        --async --mesh 2x2 --backend gloo
 
 Samples a sketch pool on a synthetic graph, serves one micro-batched mix of
 top-k, σ(S) and marginal-gain queries, and with ``--smoke`` also checks the
@@ -43,7 +45,10 @@ pool and `DistributedQueryEngine` against a one-device dense pool and
 `QueryEngine`, the row-split stack, the frontier exchange, a restore onto
 half the data axis and a refresh; with ``--stream-smoke --mesh Dx1`` a
 graph delta on the sharded pool against a cold rebuild and a one-device
-pool.  ``--async`` and ``--tier`` take no mesh.
+pool.  ``--async`` runs the front end on the mesh: rank 0 owns the
+request queue and the deadline clock and broadcasts each dispatch to the
+other ranks (`serve.distributed.MeshLeader` / ``follow``).  ``--tier``
+takes no mesh.
 """
 from __future__ import annotations
 
@@ -356,6 +361,8 @@ def run_distributed(args, mesh) -> dict:
                  flush_s)
     out = dict(store=store, engine=engine, build_s=build_s, flush_s=flush_s)
     if not args.smoke:
+        if args.async_frontend:
+            out["async"] = _mesh_async_demo(args, engine)
         return out
 
     # ---- sharded ≡ single-device, bit for bit
@@ -421,6 +428,10 @@ def run_distributed(args, mesh) -> dict:
     print(f"[smoke] refresh: {len(slots)} slots resampled via "
           f"{store.spec.backend!r} in {refresh_s:.3f}s, still bit-identical "
           f"to the dense single-device pool")
+    # Async demo last: its background refresh mutates the store, which
+    # would invalidate the bit-identity checks above.
+    if args.async_frontend:
+        out["async"] = _mesh_async_demo(args, engine)
     print(f"[smoke] PASS in {time.time() - t0:.1f}s")
     out.update(refresh_s=refresh_s, passed=True)
     return out
@@ -493,6 +504,8 @@ def rank_main(rank: int, dev, argv: list) -> dict:
                    "collectives": mesh.stats}
         if "gather_words" in out and out["gather_words"] is not None:
             summary["gather_words"] = out["gather_words"].tolist()
+        if out.get("async"):
+            summary["async"] = out["async"]
         if dev.type == "cuda":
             summary["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
         return summary
@@ -803,12 +816,29 @@ def _async_demo(args, engine) -> dict:
     finally:
         fe.close()
     st = fe.stats
+    if st.max_queue_wait > args.deadline + 2.0:
+        raise AssertionError(f"a request waited past its deadline: {st}")
     print(f"[async] {len(queries)} threaded clients + 1 lone request in "
           f"{dt:.2f}s: {st.flushes} flushes ({st.slot_flushes} slot / "
           f"{st.deadline_flushes} deadline / {st.drain_flushes} drain), "
           f"worst queue wait {st.max_queue_wait * 1e3:.0f} ms (deadline "
           f"{args.deadline * 1e3:.0f} ms)")
-    return dict(stats=st, seconds=dt)
+    return dict(stats=dataclasses.asdict(st), seconds=dt)
+
+
+def _mesh_async_demo(args, engine) -> dict:
+    """``--async`` on a mesh: rank 0 runs `_async_demo` over a
+    `MeshLeader`, every other rank follows its dispatches.  Returns rank
+    0's front-end stats and messages (an empty dict on the others)."""
+    from repro_torch.serve.distributed import MeshLeader, follow
+
+    if engine.mesh.rank != 0:
+        follow(engine)
+        return {}
+    with MeshLeader(engine, keepalive_s=MESH_TIMEOUT_S / 10) as leader:
+        out = _async_demo(args, leader)
+    out["messages"] = leader.stats.messages
+    return out
 
 
 def parse_args(argv=None):
@@ -899,11 +929,6 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     if args.mesh:
-        if args.async_frontend:
-            raise NotImplementedError(
-                "--async with --mesh is not ported yet: it comes with slice "
-                "G2, the mesh front end, whose flushes are broadcast from "
-                "rank 0 to the other ranks")
         if args.tier:
             raise SystemExit("--tier serves from one device; drop --mesh")
         if args.sampler_backend not in (None, "data_parallel",

@@ -24,7 +24,8 @@ from repro_torch.models.config import ModelConfig
 
 MLA_UNPORTED = ("MLA attention (models/attention.py mla_forward/mla_decode, "
                 "deepseek-v3) is not ported yet: it comes with a later slice "
-                "of the LM substrate (ROADMAP queue 1, item 15)")
+                "of the LM substrate (ROADMAP §1, 'Slice I, the rest of "
+                "the LM substrate')")
 
 
 # ------------------------------------------------------------------- init

@@ -11,7 +11,8 @@ from repro_torch.models.config import ModelConfig
 
 MOE_UNPORTED = ("Mixture-of-Experts (models/mlp.py moe_forward: deepseek-v3, "
                 "llama4-maverick) is not ported yet: it comes with a later "
-                "slice of the LM substrate (ROADMAP queue 1, item 15)")
+                "slice of the LM substrate (ROADMAP §1, 'Slice I, the "
+                "rest of the LM substrate')")
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig,

@@ -20,10 +20,12 @@ from repro_torch.models.config import ModelConfig
 
 SSD_UNPORTED = ("mamba / SSD blocks (models/ssm.py: mamba2, zamba2's hybrid "
                 "stack) are not ported yet: they come with a later slice of "
-                "the LM substrate (ROADMAP queue 1, item 15)")
+                "the LM substrate (ROADMAP §1, 'Slice I, the rest of the LM "
+                "substrate')")
 PATCHES_UNPORTED = ("patch embeddings (phi-3-vision's num_patches) are not "
-                    "ported yet: set num_patches=0, as both launchers do "
-                    "(ROADMAP queue 1, item 15)")
+                    "ported yet: set num_patches=0, as both launchers do; "
+                    "they come with a later slice (ROADMAP §1, 'Slice I, "
+                    "the rest of the LM substrate')")
 
 
 # ------------------------------------------------------------------ pattern

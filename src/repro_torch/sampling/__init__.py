@@ -8,7 +8,7 @@
 """
 from repro_torch.sampling.sampler import Sampler, make_sampler
 from repro_torch.sampling.spec import (BACKENDS, DIFFUSIONS, FRONTIERS,
-                                       SamplerSpec, resolve_spec)
+                                       SamplerSpec, resolve_spec, supported)
 
 __all__ = ["BACKENDS", "DIFFUSIONS", "FRONTIERS", "Sampler", "SamplerSpec",
-           "make_sampler", "resolve_spec"]
+           "make_sampler", "resolve_spec", "supported"]

@@ -42,8 +42,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import lt, rrr, sparse, tiled_traversal, tiles, \
-    traversal
+from repro_torch.core import bitmask, lt, rrr, sparse, tiled_traversal, \
+    tiles, traversal
 from repro_torch.graph import csr
 from repro_torch.sampling.spec import SamplerSpec
 
@@ -82,6 +82,10 @@ class Sampler:
 
     def sample_many(self, batch_indices) -> list[rrr.RRRBatch]:
         return [self.sample(int(b)) for b in batch_indices]
+
+    def sample_stacked(self, batch_indices) -> torch.Tensor:
+        """(B, V, W) stacked visited masks for the given batch indices."""
+        return rrr.stack_visited(self.sample_many(batch_indices))
 
     # ------------------------------------------------------- rebinding
     def rebind(self, g: csr.Graph, g_rev: csr.Graph,
@@ -294,14 +298,28 @@ class _BlockSampler(Sampler):
         idx = [int(b) for b in batch_indices]
         if not idx:
             return []
-        full, starts, seeds = self._block_inputs(idx)
-        vis = self._block(full, starts, seeds, len(idx))[
-            :, :self.g_rev.num_vertices]
+        vis, starts = self._trimmed_block(idx)
         return [rrr.RRRBatch(vis[i], starts[i], b, -1, -1)
                 for i, b in enumerate(idx)]
 
     def sample(self, batch_index: int) -> rrr.RRRBatch:
         return self.sample_many([int(batch_index)])[0]
+
+    def sample_stacked(self, batch_indices) -> torch.Tensor:
+        """The block's ``(B, V, W)`` masks on every rank, row padding
+        trimmed; an empty index list gives ``(0, V, W)``."""
+        idx = [int(b) for b in batch_indices]
+        if not idx:
+            w = bitmask.num_words(self.spec.num_colors)
+            return torch.zeros((0, self.g_rev.num_vertices, w),
+                               dtype=torch.int32, device=self.g_rev.device)
+        return self._trimmed_block(idx)[0]
+
+    def _trimmed_block(self, idx: list[int]):
+        """(the block's ``(B, V, W)`` masks, its roots ``(B, C)``)."""
+        full, starts, seeds = self._block_inputs(idx)
+        vis = self._block(full, starts, seeds, len(idx))
+        return vis[:len(idx), :self.g_rev.num_vertices], starts[:len(idx)]
 
 
 class DataParallelSampler(_BlockSampler):

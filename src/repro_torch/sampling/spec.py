@@ -17,6 +17,17 @@ DIFFUSIONS = ("ic", "lt")
 BACKENDS = ("dense", "tiled", "kernel", "data_parallel", "graph_parallel")
 FRONTIERS = ("dense", "sparse")
 
+# (diffusion, backend) pairs with an implementation behind them: every
+# cell, as in the reference.
+_SUPPORTED = frozenset(
+    (d, b) for d in DIFFUSIONS for b in BACKENDS)
+
+
+def supported(diffusion: str, backend: str) -> bool:
+    """True iff the (diffusion, backend) cell of the matrix is
+    implemented."""
+    return (diffusion, backend) in _SUPPORTED
+
 
 @dataclasses.dataclass(frozen=True)
 class SamplerSpec:

@@ -7,13 +7,16 @@
 * `DistributedQueryEngine` — each rank counts coverage over its block
   with the coverage kernel, one psum merges; drop-in for `QueryEngine`
   under `MicroBatcher`;
-* `AsyncFrontEnd` — the deadline-batched front end (one process; on a
-  mesh it would have to broadcast each flush to the other ranks, which no
-  slice has brought yet).
+* `AsyncFrontEnd` — the deadline-batched front end, over any engine;
+* `MeshLeader` / `follow` — the front end on a mesh: rank 0 runs it over a
+  `MeshLeader`, which broadcasts each engine call before making it, and
+  every other rank makes the same calls in `follow`.
 """
 from repro_torch.serve.distributed.engine import DistributedQueryEngine
 from repro_torch.serve.distributed.frontend import AsyncFrontEnd, FrontEndStats
+from repro_torch.serve.distributed.mesh_frontend import (MeshLeader,
+                                                         MeshStats, follow)
 from repro_torch.serve.distributed.sharded_store import ShardedSketchStore
 
 __all__ = ["AsyncFrontEnd", "DistributedQueryEngine", "FrontEndStats",
-           "ShardedSketchStore"]
+           "MeshLeader", "MeshStats", "ShardedSketchStore", "follow"]

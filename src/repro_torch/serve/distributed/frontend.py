@@ -17,8 +17,8 @@ the store version inside that critical section — so every flush sees a
 consistent (stack, version) pair and the epoch-keyed ``ResultCache`` can
 never serve a result computed under another epoch.
 
-The front-end only talks to the batcher, so it serves any engine
-(the sharded engine comes with the multi-GPU slice).
+The front-end only talks to the batcher, so it serves any engine: on a
+mesh, rank 0 serves a `mesh_frontend.MeshLeader`.
 
     engine  = QueryEngine(store)
     fe = AsyncFrontEnd(MicroBatcher(engine, cache=ResultCache()),

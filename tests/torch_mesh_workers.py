@@ -1,8 +1,9 @@
 """Rank programs of the port's CPU mesh tests (`test_torch_distributed.py`,
-`test_torch_sharded_serve.py`), run by `repro_torch.launch.accel.spawn` on
-gloo worlds of CPU processes.  A module of its own, importing torch and
-the port only, so that each rank imports it (by name, from the tests
-directory on the path the parent hands down) without the test files' jax.
+`test_torch_sharded_serve.py`, `test_torch_mesh_frontend.py`), run by
+`repro_torch.launch.accel.spawn` on gloo worlds of CPU processes.  A
+module of its own, importing torch and the port only, so that each rank
+imports it (by name, from the tests directory on the path the parent
+hands down) without the test files' jax.
 
 Each function runs several checks in one world and returns plain numpy
 and Python values; the tests compare them with the live reference."""
@@ -198,4 +199,86 @@ def sharded_serve_world(rank, dev, cases: list, ckpt_root: str,
         res["after_refresh"] = _answers(engine)
         res["staged_bytes"] = mesh.staged_bytes
         out.append(res)
+    return out
+
+
+# ------------------------------------------------- the mesh front end
+FRONT_GRAPH = dict(n=150, degree=5.0, prob=0.25, seed=17)
+FRONT_SEED, FRONT_BATCHES = 9, 4
+FRONT_TIMEOUT_S = 10.0      # the mesh's collective timeout
+KEEPALIVE_S = 1.0           # well under it
+IDLE_GAP_S = 12.0           # longer than it
+STACKED = [[0, 2, 5], [1], []]
+
+
+def front_graph(dev="cpu"):
+    return csr.dedupe(generators.powerlaw_cluster(
+        FRONT_GRAPH["n"], FRONT_GRAPH["degree"], prob=FRONT_GRAPH["prob"],
+        seed=FRONT_GRAPH["seed"], device=dev))
+
+
+def front_spec(backend: str) -> SamplerSpec:
+    return SamplerSpec(backend=backend, num_colors=COLORS,
+                       master_seed=FRONT_SEED, tile_size=T)
+
+
+def _idle(engine, lone: list) -> dict:
+    """Rank 0: a front end that refuses an oversized submit, is left idle
+    for longer than the mesh's timeout, then answers one query."""
+    import time
+
+    from repro_torch.serve.distributed import AsyncFrontEnd, MeshLeader
+    from repro_torch.serve.influence import MicroBatcher
+
+    with MeshLeader(engine, keepalive_s=KEEPALIVE_S) as leader:
+        with AsyncFrontEnd(MicroBatcher(leader), default_deadline=0.05) as fe:
+            try:
+                fe.submit_sigma(list(range(engine.max_seeds + 1)))
+                oversized = None
+            except ValueError as e:
+                oversized = str(e)
+            t0 = time.monotonic()
+            time.sleep(IDLE_GAP_S)
+            gap = time.monotonic() - t0
+            fut = fe.submit_sigma(lone)
+            value = fut.result(timeout=30)
+    return dict(gap_s=gap, value=value, version=fut.pool_version,
+                oversized=oversized, messages=leader.stats.messages)
+
+
+def mesh_frontend_world(rank, dev, ckpt: str) -> dict:
+    """One 2×2 world (collective timeout ``FRONT_TIMEOUT_S``) on a
+    graph_parallel pool: the GPU smoke's front-end session
+    (`launch.mesh_smoke._front_end`: rank 0 leads, the others follow, then
+    every query asked directly after ``STOP``); a second session that
+    refuses an oversized submit and idles for longer than the timeout;
+    and the mesh samplers' ``sample_stacked``."""
+    from repro_torch.launch import mesh_smoke
+    from repro_torch.serve.distributed import (DistributedQueryEngine,
+                                               ShardedSketchStore, follow)
+    from repro_torch.serve.influence import PoolConfig
+
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev,
+                     timeout_s=FRONT_TIMEOUT_S)
+    g = front_graph(dev)
+    store = ShardedSketchStore(g, PoolConfig(
+        max_batches=8, spec=front_spec("graph_parallel")), mesh)
+    mesh.reset_stats()
+    sent = mesh.broadcast(torch.full((3,), rank + 5, dtype=torch.int32),
+                          axes=mesh.axis_names)
+    out = {"rank": rank, "broadcast": (sent.tolist(), {
+        ax: dict(v) for ax, v in mesh.stats.items()})}
+    store.ensure(FRONT_BATCHES)
+    out["f"] = mesh_smoke._front_end(store, mesh, ckpt)
+    engine = DistributedQueryEngine(store)
+    if rank == 0:
+        out["idle"] = _idle(engine, mesh_smoke._fe_queries(g.num_vertices)[0])
+    else:
+        out["idle_follow"] = follow(engine).messages
+    out["stacked"] = {}
+    for backend in ("graph_parallel", "data_parallel"):
+        sampler = make_sampler(g, front_spec(backend), mesh)
+        out["stacked"][backend] = [
+            convert.masks_to_numpy(sampler.sample_stacked(idx))
+            for idx in STACKED]
     return out
