@@ -174,9 +174,10 @@ else.  Phases, each of which raises on failure:
     ``ops.flash_attention``, which picks one of three routes by shape
     (``wgmma``: bf16 prefill at D 64/128; ``decode``: one query row;
     ``simt``: the rest) — float32 and bfloat16, causal and not,
-    ``kv_offset`` 0 and > 0, H/KVH 1, 3, 8 and 12, head dims 16, 64, 96,
-    128 and 192, ragged Lq and Lk, and the LM main path's prefill and
-    decode shapes; each decode case also against the split-K plain
+    ``kv_offset`` 0 and > 0, H/KVH 1, 3, 5, 8 and 12, head dims 16, 64,
+    96, 128 and 192, ragged Lq and Lk, and the LM main path's and
+    maverick's (H 40, KVH 8, a group of 5) prefill and decode shapes; each
+    decode case also against the split-K plain
     version cut at the kernel's own split; float32 within 2e-5 max abs,
     bfloat16 within atol = rtol = 2e-2 (the reference's kernel test) and
     a relative RMS difference of 6e-3 (``BF16_RMS_TOL``), compared in
@@ -191,13 +192,38 @@ else.  Phases, each of which raises on failure:
     golden top-2 gap exceeds 1e-3; (bf16) the same model in bf16 with the
     port's seeded init, 2 × 2,048 tokens: prefill logits through the
     wgmma route against the same forward with attention through the plain
-    version, within the limits stated at ``LM_BF16_MAX_TOL``;
+    version, within the limits stated at ``LM_BF16_MAX_TOL``; (moe
+    golden) the file's two ``"moe"`` entries the same way as the
+    ``"lm"`` one (float32, TF32 off, ``numpy_params`` weights, the same
+    limits): deepseek-v3 (MLA + MoE) and llama4-maverick (GQA + MoE) at
+    full width and vocabulary, cut to 2 layers (one dense, one MoE) and 16
+    and 8 routed experts; every expert the port's router picks, call by
+    call, equal to the reference's (``routes``), its router margin
+    printed; deepseek launches no flash_attention, maverick 2 simt and
+    2 × 8 decode;
 16. LM main path at full width: llama3.2-3b, 28 layers, bf16, the port's
     seeded init, through ``launch.serve``'s ``run``: (a) the launcher's own
     mix, batch 4, prompt 32, 32 new tokens at temperature 0.7; (b) batch
     4, prompt 2,048, 32 new tokens, greedy.  Counters as in 4; each
     request batch must launch ``flash_attention`` 28 × (1 + 32) times: 28
     on the wgmma route and 28 × 32 on the decode route;
+16b. MoE main path at full width, bf16, the port's seeded init, through
+    ``launch.serve``'s ``serve_config`` with (a) and (b): deepseek-v3 cut
+    to its 3 dense and 2 MoE layers (256 routed experts, MLA), then
+    llama4-maverick cut to one dense and one MoE layer (128 routed
+    experts), one model on the card at a time; finite logits, tokens in
+    range, peak memory under the card's; maverick launches exactly 2
+    wgmma + 2 × 32 decode a request batch, deepseek none.  It prints
+    prefill tokens/s, decode ms a step beside the time to read every
+    expert once, each MoE layer's capacity at prefill and at decode, and
+    the MLA latent cache's bytes a token against K and V of 128 heads;
+16c. the expert-parallel MoE (`_moe_forward_a2a`) on a 2×2 gloo world of
+    4 ranks sharing the card (`mesh_smoke.rank_moe_a2a`), each holding
+    its 8 of 16 experts at deepseek-v3's widths, float32: every rank's
+    output against the golden ``"moe_a2a"`` entry within 1e-4 (256
+    values, aux, the magnitude sum) with every expert pick the
+    reference's; at capacity factor 64 equal to the one-device scatter
+    within 1e-4; the all-to-all's bytes and host-clock ms per rank;
 17. flash timing at (b)'s prefill and decode shapes: the route the main
     path takes and the simt route (the CUDA-core kernel) from CUDA graphs of
     10 launches, the plain version and, as the library's time,
@@ -259,6 +285,15 @@ LM_BF16_MAX_TOL, LM_BF16_MEAN_TOL = 0.1, 0.01
 # The LM main path: llama3.2-3b, request mixes (a) and (b) (module docstring).
 LM_ARCH, LM_BATCH, LM_NEW = "llama3.2-3b", 4, 32
 LM_MIXES = {"a": (32, 0.7), "b": (2048, 0.0)}
+# The MoE phases: every expert the port's router picks must be the
+# reference's (the golden entries' ``routes``), so a flipped expert cannot
+# hide behind LM_TOL; the golden's router margin (its nearest tie) is
+# printed beside the picks.  The main path's depth cuts at full width
+# (deepseek-v3: its 3 dense layers and 2 MoE layers; maverick: one dense
+# and one MoE layer) are served with LM_MIXES; MOE_A2A_TOL bounds the a2a
+# against the golden entry and the one-device scatter.
+MOE_A2A_TOL = 1e-4
+MOE_MAIN = {"deepseek-v3-671b": 5, "llama4-maverick-400b-a17b": 2}
 # Integer operations of the counter hash (core/rng.py): one fold is
 # 2 shifts + 3 adds + 1 xor, then mix32 is 3 shift-xor pairs + 2 multiplies;
 # a colour draw adds shift, convert, scale and compare.
@@ -2100,9 +2135,12 @@ def run_q_phases(golden: dict, dev) -> dict:
 # --------------------------------------------------------------- LM phases
 def _flash_cases():
     """(name, B, Lq, Lk, H, KVH, D, causal, kv_offset) of the kernel
-    checks: the main path's two shapes first."""
+    checks: the main path's two shapes first, then maverick's (a group of
+    5 query heads a KV head)."""
     cases = [("main prefill", 4, 2048, 2048, 24, 8, 128, True, 0),
-             ("main decode", 4, 1, 2080, 24, 8, 128, True, 2079)]
+             ("main decode", 4, 1, 2080, 24, 8, 128, True, 2079),
+             ("maverick prefill", 4, 2048, 2048, 40, 8, 128, True, 0),
+             ("maverick decode", 4, 1, 2080, 40, 8, 128, True, 2079)]
     for causal in (True, False):
         cases += [
             ("H/KVH 1, D 64", 2, 128, 128, 4, 4, 64, causal, 0),
@@ -2189,8 +2227,9 @@ def check_flash(dev) -> dict:
     missing = [r for r, c in per_route.items() if c == 0]
     _check(not missing, f"flash_attention: no case ran route(s) {missing}")
     print(f"[flash] {n} cases (f32 and bf16, causal and not, kv_offset 0 "
-          f"and > 0, H/KVH 1/3/8/12, D 16-192, ragged Lq and Lk, the main "
-          f"path's prefill and decode shapes; decode also against the "
+          f"and > 0, H/KVH 1/3/5/8/12, D 16-192, ragged Lq and Lk, the main "
+          f"path's and maverick's prefill and decode shapes; decode also "
+          f"against the "
           f"split-K plain version at its split) per route {per_route}: max "
           f"abs err f32 {err[torch.float32]:.3e} (limit {F32_TOL}), bf16 "
           f"{err[torch.bfloat16]:.3e} (atol = rtol = {BF16_TOL}); bf16 "
@@ -2224,23 +2263,21 @@ def _logit_errors(logits: torch.Tensor, gold: dict) -> tuple[float, int]:
     return worst, checked
 
 
-def check_lm_golden(golden: dict, dev) -> dict:
-    """llama3.2-3b at full width, 2 layers, float32, on the golden file's
-    weights (`numpy_params`), prompt and teacher-forced tokens."""
+def _check_golden_model(gold: dict, cfg, dev, tag: str, tree) -> dict:
+    """``cfg``'s model on the golden entry's weights (``tree``, drawn by
+    `numpy_params`), prompt and teacher-forced tokens, float32 with TF32
+    off, against the
+    entry within LM_TOL, and every MoE call's expert picks equal to the
+    entry's ``routes``; GQA layers launch flash_attention on the simt
+    route for the prefill and the decode route for each step, MLA layers
+    none."""
     from repro_torch import convert
-    from repro_torch.configs import registry
     from repro_torch.kernels import ops
-    from repro_torch.models import decode, init
-    from repro_torch.serve import engine
+    from repro_torch.models import mlp
 
-    gold = golden["lm"]
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 matmuls in full
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(registry.get(gold["arch"]),
-                              num_layers=gold["num_layers"],
-                              dtype=gold["dtype"])
     t0 = time.perf_counter()
-    tree = init.numpy_params(cfg, gold["param_seed"])
     params = convert.lm_params_from_jax(tree, cfg, dev)
     del tree
     load_s = time.perf_counter() - t0
@@ -2248,42 +2285,138 @@ def check_lm_golden(golden: dict, dev) -> dict:
     ops.reset_launches()
     prompt = torch.as_tensor(gold["prompt"], device=dev)
     steps = len(gold["decode"])
+    picked, route = [], mlp._route
+
+    def recording(router, xt, k):     # the port's picks, call by call
+        gate, idx, aux = route(router, xt, k)
+        picked.append(idx.cpu())
+        return gate, idx, aux
+
+    mlp._route = recording
+    try:
+        worst, checked = _run_golden_model(gold, cfg, params, prompt, steps)
+    finally:
+        mlp._route = route
+    torch.cuda.synchronize()
+    picks = _check_routes(picked, gold.get("routes", []), tag)
+    weights_gib = sum(t.numel() * t.element_size()
+                      for t in params.parameters()) / 2 ** 30
+    del params
+    launches = ops.LAUNCHES["flash_attention"]
+    routes = {r: ops.LAUNCHES[f"flash_{r}"] for r in ("simt", "decode")}
+    gqa = 0 if cfg.attention == "mla" else cfg.num_layers
+    _check(worst <= LM_TOL, f"{tag}: largest difference {worst} > {LM_TOL}")
+    _check(launches == gqa * (1 + steps),
+           f"{tag}: flash_attention launched {launches} times, not "
+           f"{gqa * (1 + steps)}")
+    # float32: the prefill on the simt route, every decode step on the
+    # decode route.
+    _check(routes == {"simt": gqa, "decode": gqa * steps},
+           f"{tag}: routes launched {routes}, not simt {gqa} and decode "
+           f"{gqa * steps}")
+    print(f"[{tag}] {cfg.name}, {cfg.num_layers} layers at full width "
+          f"(d {cfg.d_model}, vocab {cfg.vocab_size}), float32, weights "
+          f"{weights_gib:.2f} GiB loaded in {load_s:.1f}s: prefill "
+          f"{tuple(prompt.shape)} and {steps} teacher-forced steps within "
+          f"{worst:.3e} of the reference (limit {LM_TOL}); {checked} greedy "
+          f"tokens equal; "
+          + (f"{picks} expert picks equal; " if picks else "")
+          + f"flash launches {launches} ({routes}); peak device memory "
+          f"{_peak_gib():.2f} GiB")
+    return {"max_abs_err": worst, "launches": launches, "load_s": load_s,
+            "expert_picks": picks}
+
+
+def _run_golden_model(gold: dict, cfg, params, prompt, steps: int):
+    """The golden entry's prefill and teacher-forced steps; returns the
+    largest logit difference and the greedy tokens checked."""
+    from repro_torch.models import decode
+    from repro_torch.serve import engine
+
     with torch.inference_mode():
-        last, caches, plen = engine.prefill(params, cfg, {"tokens": prompt},
-                                            prompt.shape[1] + steps)
+        last, caches, _ = engine.prefill(params, cfg, {"tokens": prompt},
+                                         prompt.shape[1] + steps)
         worst, checked = _logit_errors(last[:, -1].float(),
                                        {"ids": gold["vocab_ids"],
                                         **gold["prefill"]})
         for st in gold["decode"]:
-            tok = torch.as_tensor(st["tokens"], device=dev)[:, None]
+            tok = torch.as_tensor(st["tokens"], device=prompt.device)[:, None]
             lg, caches = decode.decode_step(params, cfg, caches, tok,
                                             st["cur_len"])
             w, c = _logit_errors(lg[:, -1].float(),
                                  {"ids": gold["vocab_ids"], **st})
             worst, checked = max(worst, w), checked + c
-    torch.cuda.synchronize()
-    launches = ops.LAUNCHES["flash_attention"]
-    routes = {r: ops.LAUNCHES[f"flash_{r}"] for r in ("simt", "decode")}
-    _check(worst <= LM_TOL, f"LM golden: largest difference {worst} > "
-           f"{LM_TOL}")
-    _check(launches == cfg.num_layers * (1 + steps),
-           f"LM golden: flash_attention launched {launches} times, not "
-           f"{cfg.num_layers * (1 + steps)}")
-    # float32: the prefill on the simt route, every decode step on the
-    # decode route.
-    _check(routes == {"simt": cfg.num_layers,
-                      "decode": cfg.num_layers * steps},
-           f"LM golden: routes launched {routes}, not simt "
-           f"{cfg.num_layers} and decode {cfg.num_layers * steps}")
-    print(f"[lm golden] {cfg.name}, {cfg.num_layers} layers at full width "
-          f"(d {cfg.d_model}, vocab {cfg.vocab_size}), float32, weights "
-          f"{cfg.param_count() * 4 / 2 ** 30:.2f} GiB made and loaded in "
-          f"{load_s:.1f}s: prefill {tuple(prompt.shape)} and {steps} "
-          f"teacher-forced steps within {worst:.3e} of the reference (limit "
-          f"{LM_TOL}); {checked} greedy tokens equal; flash launches "
-          f"{launches} ({routes}); peak device memory {_peak_gib():.2f} "
-          f"GiB")
-    return {"max_abs_err": worst, "launches": launches}
+    return worst, checked
+
+
+def _check_routes(got: list, want: list, tag: str) -> int:
+    """The port's expert picks (one (tokens, k) tensor per MoE call) equal
+    the golden's, call for call; returns the picks compared."""
+    _check(len(got) == len(want), f"{tag}: {len(got)} MoE calls, the "
+           f"reference made {len(want)}")
+    for call, (g, w) in enumerate(zip(got, want)):
+        w = torch.as_tensor(w)
+        bad = (g != w).nonzero()
+        _check(g.shape == w.shape and not len(bad),
+               f"{tag}: MoE call {call} picks other experts than the "
+               f"reference, first at (token, slot) "
+               f"{bad[0].tolist() if len(bad) else None}")
+    return sum(len(w) * len(w[0]) for w in want)
+
+
+def check_lm_golden(golden: dict, dev) -> dict:
+    """llama3.2-3b at full width, 2 layers, float32, on the golden file's
+    weights (`numpy_params`), prompt and teacher-forced tokens."""
+    from repro_torch.configs import registry
+
+    from repro_torch.models import init
+
+    gold = golden["lm"]
+    cfg = dataclasses.replace(registry.get(gold["arch"]),
+                              num_layers=gold["num_layers"],
+                              dtype=gold["dtype"])
+    t0 = time.perf_counter()
+    tree = init.numpy_params(cfg, gold["param_seed"])
+    print(f"[lm golden] weights drawn in {time.perf_counter() - t0:.1f}s")
+    return _check_golden_model(gold, cfg, dev, "lm golden", tree)
+
+
+def check_moe_golden(golden: dict, dev) -> dict:
+    """The ``"moe"`` entries (deepseek-v3 and maverick at full width, cut
+    in depth and experts, float32): the model as `check_lm_golden` checks
+    llama, and every expert pick equal to the reference's.  numpy draws
+    the entries' weights (~13 GB each) in threads of their own, at once
+    (its draws release the interpreter lock), while the card checks the
+    first."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import registry
+    from repro_torch.models import init
+
+    cfgs = {}
+    for name, gold in golden["moe"].items():
+        cuts = {k: v for k, v in gold["cuts"].items() if k != "arch"}
+        cfgs[name] = dataclasses.replace(registry.get(gold["arch"]), **cuts)
+    t0 = time.perf_counter()
+    out = {}
+    with ThreadPoolExecutor(len(cfgs)) as pool:
+        trees = {name: pool.submit(init.numpy_params, cfg,
+                                   golden["moe"][name]["param_seed"])
+                 for name, cfg in cfgs.items()}
+        for name, cfg in cfgs.items():
+            gold = golden["moe"][name]
+            tree = trees.pop(name).result()
+            print(f"[moe golden {name}] cuts {gold['cuts']}; weights drawn "
+                  f"{time.perf_counter() - t0:.1f}s after the draws began; "
+                  f"the reference's router margin (nearest tie between the "
+                  f"k-th and (k+1)-th expert) {gold['router_margin']:.3e} "
+                  f"over {gold['moe_calls']} MoE calls")
+            out[name] = _check_golden_model(gold, cfg, dev,
+                                            f"moe golden {name}", tree)
+            del tree
+            out[name]["router_margin"] = gold["router_margin"]
+            _release(f"moe golden {name}")
+    return out
 
 
 def check_lm_bf16(dev) -> dict:
@@ -2402,6 +2535,148 @@ def run_lm_main_path() -> dict:
     out["launches"] = dict(ops.LAUNCHES)
     print(f"[lm main] launches over (a) and (b): {out['launches']}")
     return out
+
+
+def run_moe_main_path() -> dict:
+    """deepseek-v3 and llama4-maverick at full width with their depth cut
+    (MOE_MAIN), bf16, the port's seeded init, through the launcher's
+    `serve_config`, each with request mixes (a) and (b), one model on the
+    card at a time.  Counters as in 4 for each request batch: maverick's
+    two GQA layers launch 2 wgmma + 2 × 32 decode, deepseek's MLA none."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import mlp, model
+
+    card = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    out = {}
+    for arch, layers in MOE_MAIN.items():
+        cfg = dataclasses.replace(registry.get(arch), num_layers=layers,
+                                  num_patches=0)
+        kinds = model.layer_kinds(cfg)
+        gqa = 0 if cfg.attention == "mla" else cfg.num_layers
+        fe = cfg.moe_d_ff or cfg.d_ff
+        # Every expert's weights, bf16, in every MoE layer: a decode step's
+        # bmm reads them all whenever the capacity is at least 1.
+        expert_bytes = kinds.count("moe") * cfg.num_experts \
+            * (3 if cfg.gated_mlp else 2) * cfg.d_model * fe * 2
+        want = {"flash_attention": gqa * (1 + LM_NEW), "flash_wgmma": gqa,
+                "flash_decode": gqa * LM_NEW, "flash_simt": 0}
+        res = {}
+        for mix, (prompt_len, temp) in LM_MIXES.items():
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            r = serve.serve_config(cfg, serve.parse_args([
+                "--arch", arch, "--device", "cuda", "--batch",
+                str(LM_BATCH), "--prompt-len", str(prompt_len),
+                "--new-tokens", str(LM_NEW), "--temperature", str(temp)]))
+            torch.cuda.synchronize()
+            launches = {k: ops.LAUNCHES[k] for k in want}
+            tokens, peak = r["tokens"], _peak_gib()
+            _check(r["finite"], f"{arch} ({mix}): non-finite logits")
+            _check(tokens.shape == (LM_BATCH, LM_NEW)
+                   and int(tokens.min()) >= 0
+                   and int(tokens.max()) < cfg.vocab_size,
+                   f"{arch} ({mix}): tokens malformed")
+            _check(launches == want, f"{arch} ({mix}): launches {launches}, "
+                   f"not {want}")
+            _check(peak < card, f"{arch} ({mix}): peak {peak} GiB")
+            m = dict(prompt_len=prompt_len, temperature=temp,
+                     prefill_s=r["prefill_s"], decode_s=r["decode_s"],
+                     decode_ms=r["decode_ms_per_step"],
+                     prefill_tok_s=LM_BATCH * prompt_len / r["prefill_s"],
+                     expert_bound_ms=1e3 * expert_bytes / HBM_BYTES_PER_S,
+                     weights_bound_ms=1e3 * r["param_bytes"]
+                     / HBM_BYTES_PER_S,
+                     weights_gib=r["param_bytes"] / 2 ** 30,
+                     prefill_capacity=mlp.capacity(LM_BATCH * prompt_len,
+                                                   cfg),
+                     decode_capacity=mlp.capacity(LM_BATCH, cfg),
+                     launches=launches, peak_gib=peak)
+            res[mix] = m
+            print(f"[moe main {mix}] {cfg.name}: {cfg.num_layers} layers "
+                  f"({'/'.join(kinds)}) at full width, {cfg.dtype}, "
+                  f"{r['param_bytes'] / 2 ** 30:.2f} GiB of weights "
+                  f"(param_count {cfg.param_count() / 1e9:.3f} B); batch "
+                  f"{LM_BATCH}, prompt {prompt_len}, {LM_NEW} new tokens at "
+                  f"temperature {temp}: prefill {m['prefill_s']:.4f}s "
+                  f"({m['prefill_tok_s']:.0f} tokens/s), decode "
+                  f"{m['decode_ms']:.3f} ms/step against "
+                  f"{m['expert_bound_ms']:.3f} ms to read every expert "
+                  f"once ({expert_bytes / 1e9:.2f} GB at 3.35 TB/s; all "
+                  f"weights {m['weights_bound_ms']:.3f} ms); capacity per "
+                  f"MoE layer {m['prefill_capacity']} rows an expert at "
+                  f"prefill, {m['decode_capacity']} at decode "
+                  f"({cfg.num_experts} experts, top-{cfg.top_k}); flash "
+                  f"launches {launches}; peak device memory {peak:.2f} GiB "
+                  f"of {card:.2f}; tokens[0][:8] {tokens[0, :8].tolist()}")
+            del r, tokens
+            _release(f"{arch} ({mix})")
+        if cfg.attention == "mla":
+            latent = (cfg.kv_lora_rank + cfg.rope_head_dim) * 2
+            full = cfg.num_heads * (cfg.head_dim + cfg.rope_head_dim
+                                    + (cfg.v_head_dim or cfg.head_dim)) * 2
+            res["cache_bytes_per_token_layer"] = latent
+            res["gqa_bytes_per_token_layer"] = full
+            print(f"[moe main] {cfg.name}: the MLA latent cache holds "
+                  f"{latent} bytes a token a layer (c {cfg.kv_lora_rank} + "
+                  f"k_rope {cfg.rope_head_dim}, bf16), against {full} for "
+                  f"K ({cfg.head_dim + cfg.rope_head_dim}) and V "
+                  f"({cfg.v_head_dim or cfg.head_dim}) of {cfg.num_heads} "
+                  f"heads: {full / latent:.1f}x smaller")
+        out[arch] = res
+    return out
+
+
+def run_moe_a2a_phase(golden: dict) -> dict:
+    """The expert-parallel MoE on a 2x2 gloo world of 4 ranks sharing card
+    0 (`mesh_smoke.rank_moe_a2a`): every rank's gathered output against the
+    golden ``"moe_a2a"`` entry within MOE_A2A_TOL (values at 256 indices,
+    aux, the magnitude sum relative), and at capacity factor 64 against
+    the one-device scatter."""
+    from repro_torch.launch import accel, mesh_smoke
+
+    gold = golden["moe_a2a"]
+    t0 = time.perf_counter()
+    ranks = accel.spawn(mesh_smoke.rank_moe_a2a, 4, args=(gold,),
+                        backend="gloo", device="cuda", timeout_s=300)
+    seconds = time.perf_counter() - t0
+    want = np.asarray(gold["values"])
+    worst = 0.0
+    for r in ranks:
+        _check(r["routes_equal"], f"moe a2a: rank {r['rank']} picks other "
+               f"experts than the reference")
+        err = max(float(np.abs(r["values"] - want).max()),
+                  abs(r["aux"] - gold["aux"]),
+                  abs(r["abs_sum"] - gold["abs_sum"]) / gold["abs_sum"])
+        _check(err <= MOE_A2A_TOL, f"moe a2a: rank {r['rank']} differs from "
+               f"the reference by {err} (limit {MOE_A2A_TOL})")
+        worst = max(worst, err)
+    cf64 = ranks[0]["cf64_max_abs_diff"]
+    _check(cf64 <= MOE_A2A_TOL, f"moe a2a: at capacity factor 64 the a2a "
+           f"differs from the one-device scatter by {cf64}")
+    r0 = ranks[0]
+    print(f"[moe a2a] {gold['arch']} widths, {gold.get('overrides', {})}, "
+          f"float32, "
+          f"2 x {gold['seq']} tokens on a 2x2 {r0['backend']} world sharing "
+          f"the card ({seconds:.1f}s with the ranks' start): every rank "
+          f"within {worst:.3e} of the reference's a2a (limit "
+          f"{MOE_A2A_TOL}; aux {r0['aux']:.6f}, golden {gold['aux']:.6f}), "
+          f"every expert pick the reference's (router margin "
+          f"{gold['router_margin']:.3e}); "
+          f"capacity {r0['capacity']} rows an expert for {r0['tokens']} "
+          f"tokens a rank; at capacity factor 64 within {cf64:.3e} of the "
+          f"one-device scatter; per rank: one all-to-all of "
+          f"{r0['a2a_bytes']} bytes takes "
+          + ", ".join(f"{r['a2a_ms']:.3f}" for r in ranks)
+          + f" ms (host clock, staged through the host), the layer made "
+          f"{r0['model_stats']['model']['calls']} calls over model "
+          f"({r0['model_stats']['model']['bytes']} bytes), "
+          f"{r0['staged_bytes']} bytes staged; peak "
+          + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks) + " GiB")
+    return {"max_abs_err": worst, "cf64_max_abs_diff": cf64,
+            "a2a_ms": [r["a2a_ms"] for r in ranks],
+            "a2a_bytes": r0["a2a_bytes"], "seconds": seconds}
 
 
 def time_flash(dev) -> dict:
@@ -2574,12 +2849,16 @@ def main() -> int:
     lm_gold = check_lm_golden(golden, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    moe_gold = check_moe_golden(golden, dev)
     lm_bf16 = check_lm_bf16(dev)
     gc.collect()
     torch.cuda.empty_cache()
     lm = run_lm_main_path()
     gc.collect()
     torch.cuda.empty_cache()
+    moe = run_moe_main_path()
+    a2a = run_moe_a2a_phase(golden)
+    _release("MoE phases")
     torch.cuda.reset_peak_memory_stats()
     fl = time_flash(dev)
     print(f"[timing flash] peak device memory {_peak_gib():.2f} GiB")
@@ -2592,7 +2871,13 @@ def main() -> int:
           f"batches/s), mixed flush {lt['reflush_s'] * 1e3:.2f} ms after "
           f"the refresh; LM llama3.2-3b (b) prefill "
           f"{lm['b']['prefill_tok_s']:.0f} tokens/s, decode "
-          f"{lm['b']['decode_ms']:.3f} ms/step; flash_attention prefill "
+          f"{lm['b']['decode_ms']:.3f} ms/step; "
+          + "; ".join(f"{arch} (b) prefill {r['b']['prefill_tok_s']:.0f} "
+                      f"tokens/s, decode {r['b']['decode_ms']:.3f} ms/step "
+                      f"(experts' bound {r['b']['expert_bound_ms']:.3f})"
+                      for arch, r in moe.items())
+          + f"; MoE a2a within {a2a['max_abs_err']:.3e} of the reference; "
+          f"flash_attention prefill "
           f"{fl['prefill']['ms']:.4f} ms (wgmma; simt "
           f"{fl['prefill']['simt_ms']:.4f}), decode "
           f"{fl['decode']['ms']:.4f} ms (split-K; simt "
@@ -2726,7 +3011,16 @@ def main() -> int:
              max_abs_err_f32=flash_err["f32"],
              max_abs_err_bf16=flash_err["bf16"],
              lm_golden_max_abs_err=lm_gold["max_abs_err"],
+             moe_golden_max_abs_err={k: v["max_abs_err"]
+                                     for k, v in moe_gold.items()},
              lm_bf16_max_abs_err=lm_bf16["max_abs_err"],
+             launches_by_path={
+                 "lm_llama3.2-3b": lm["launches"]["flash_attention"],
+                 **{f"moe_maverick_{mix}": moe[
+                     "llama4-maverick-400b-a17b"][mix]["launches"][
+                     "flash_attention"] for mix in LM_MIXES},
+                 **{f"moe_deepseek_{mix}": moe["deepseek-v3-671b"][mix][
+                     "launches"]["flash_attention"] for mix in LM_MIXES}},
              ms=fl["prefill"]["ms"], plain_ms=fl["prefill"]["plain_ms"],
              bound_ms=fl["prefill"]["bound_ms"],
              bound_by=fl["prefill"]["bound_by"],

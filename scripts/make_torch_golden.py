@@ -6,6 +6,7 @@
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --stream-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --unfused-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --mesh-only
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --moe-only
 
 Builds the launcher's graph at the size the port's chip smoke serves
 (``powerlaw_cluster(65536, 6.0, prob=0.25, seed=7)``, deduped, reversed),
@@ -75,11 +76,44 @@ axes are ``AxisType.Auto`` (``repro.launch.mesh`` makes ``Explicit``
 ones, which its shard_map programs refuse).  ``--mesh-only`` recomputes
 that entry alone.  ``mesh_reference_subprocess`` is the same run at any
 size and case list (the port's CPU tests call it).
+
+The ``"moe"`` entry holds two Mixture-of-Experts models, each run as the
+``"lm"`` entry is (float32, weights of ``numpy_params(cfg, seed=0)``, a
+prefill of 2 × 64 tokens and 8 greedy decode steps), at full width and
+full vocabulary with these cuts (``MOE_CUTS``), so that the float32 model
+fits this host twice over (the reference's tree and its working set):
+
+- ``"deepseek"``: deepseek-v3-671b (d 7,168, 128 heads, MLA ranks
+  1,536 / 512, rope 64, d_ff 18,432, moe_d_ff 2,048, top-8, 1 shared
+  expert, vocabulary 129,280), depth cut from 61 layers to 2 with
+  ``first_dense_layers`` cut from 3 to 1 (one dense layer, one MoE
+  layer), routed experts cut from 256 to 16 (256 float32 experts take
+  45 GB a layer); about 13.5 GB.
+- ``"maverick"``: llama4-maverick-400b-a17b (d 5,120, 40 heads over 8 KV
+  heads, d_ff and moe_d_ff 8,192, top-1, 1 shared expert, vocabulary
+  202,048), depth cut from 48 layers to 2 (one dense, one MoE), routed
+  experts cut from 128 to 8; about 13.8 GB.
+
+Each also records, for every MoE layer call in order (``moe_calls``:
+the prefill's, then each decode step's), the experts the reference's
+router picked for each token (``routes``: ``lax.top_k`` indices), and
+``router_margin``, the smallest gap between the k-th and the (k+1)-th
+router probability over all of them, so a check can hold the port's expert
+choices to the reference's and say how near a tie came.  The ``"moe_a2a"`` entry is the reference's
+``_moe_forward_a2a`` on a 2×2 (data, model) mesh of 4 forced host devices
+(``moe_reference`` in a subprocess, ``--moe-worker``), at deepseek-v3's
+widths with 16 experts (the same cut), on ``numpy_moe(cfg, seed=11)`` and
+2 × 64 tokens of ``numpy_moe_input``: aux, the router margin, every
+token's experts (``routes``, tokens in (batch, position) order), 256
+output values at seeded flat indices and the sum of the output's
+magnitudes.
+``--moe-only`` recomputes both entries and keeps the others byte for byte.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -108,6 +142,16 @@ Q_N, Q_ORDER, Q_BATCHES, Q_MAX_LEVELS = 4096, "cluster", 2, 64
 STREAM_OPS, STREAM_QUERIES, STREAM_TILE_ROWS = 64, 4, 128
 SIGMA_SEEDS, SIGMA_TRIALS, SIGMA_MASTER_SEED = 8, 512, 77
 MESH_N, MESH_BATCHES, MESH_DEVICES = 4096, 8, 4
+# The "moe" entry's configurations: full width and vocabulary, cut in depth
+# and experts (module docstring).
+MOE_CUTS = {
+    "deepseek": dict(arch="deepseek-v3-671b", num_layers=2,
+                     first_dense_layers=1, num_experts=16),
+    "maverick": dict(arch="llama4-maverick-400b-a17b", num_layers=2,
+                     num_experts=8),
+}
+MOE_A2A_JOB = dict(arch="deepseek-v3-671b", overrides={"num_experts": 16},
+                   seed=11, batch=2, seq=64, shape=[2, 2], n_idx=256)
 MESH_CASES = [dict(diffusion=d, frontier=f, shape=list(sh))
               for sh in ((2, 2), (1, 3)) for d in ("ic", "lt")
               for f in ("dense", "sparse")]
@@ -131,36 +175,165 @@ def _logit_summary(logits: np.ndarray, ids: np.ndarray) -> dict:
             "top2_gap": (top2[:, 1] - top2[:, 0]).tolist()}
 
 
+def _tree_to_jax(tree):
+    """The numpy tree as jax arrays, each numpy leaf dropped as soon as it
+    is converted (a full-width float32 tree is held once, not twice)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for key, leaf in list(items):
+        tree[key] = (_tree_to_jax(leaf) if isinstance(leaf, (dict, list))
+                     else jnp.asarray(leaf))
+    return tree
+
+
+def _router_margin(probs, k: int) -> float:
+    """Smallest gap between the k-th and (k+1)-th router probability over
+    the rows of ``probs``."""
+    top = -np.sort(-np.asarray(probs, np.float64), axis=-1)
+    return float((top[:, k - 1] - top[:, k]).min())
+
+
+def _lm_entry(cfg, port_cfg) -> dict:
+    """Prefill and teacher-forced greedy decode of ``cfg`` on
+    `numpy_params(port_cfg, LM_PARAM_SEED)` (module docstring), with the
+    smallest router margin over every MoE layer call when it has MoE."""
+    from repro.models import mlp as ref_mlp
+
+    params = _tree_to_jax(port_init.numpy_params(port_cfg, LM_PARAM_SEED))
+    rng = np.random.default_rng(LM_PROMPT_SEED)
+    prompt = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT_LEN))
+    ids = np.sort(rng.choice(cfg.vocab_size, LM_IDS, replace=False))
+    margins, routes = [], []
+    moe_forward = ref_mlp.moe_forward
+
+    def record(probs, idx, k):
+        margins.append(_router_margin(probs, k))
+        routes.append(np.asarray(idx).tolist())
+
+    def recording(p, x, c):
+        probs = jax.nn.softmax(
+            x.reshape(-1, x.shape[-1]).astype(jnp.float32) @ p["router"], -1)
+        jax.debug.callback(functools.partial(record, k=c.top_k), probs,
+                           jax.lax.top_k(probs, c.top_k)[1])
+        return moe_forward(p, x, c)
+
+    ref_mlp.moe_forward = recording
+    try:
+        last, caches, _ = engine.prefill(params, cfg,
+                                         {"tokens": jnp.asarray(prompt)},
+                                         LM_PROMPT_LEN + LM_STEPS)
+        logits = np.asarray(last[:, -1], np.float32)
+        out = {"arch": cfg.name, "num_layers": cfg.num_layers,
+               "dtype": "float32", "param_seed": LM_PARAM_SEED,
+               "prompt_seed": LM_PROMPT_SEED, "prompt": prompt.tolist(),
+               "vocab_ids": ids.tolist(),
+               "prefill": _logit_summary(logits, ids), "decode": []}
+        step = jax.jit(lambda p, c, t, n: decode.decode_step(p, cfg, c, t,
+                                                             n))
+        for i in range(LM_STEPS):
+            tok = logits.argmax(-1)[:, None]
+            lg, caches = step(params, caches, jnp.asarray(tok),
+                              jnp.int32(LM_PROMPT_LEN + i))
+            logits = np.asarray(lg[:, -1], np.float32)
+            out["decode"].append({"cur_len": LM_PROMPT_LEN + i,
+                                  "tokens": tok[:, 0].tolist(),
+                                  **_logit_summary(logits, ids)})
+        jax.effects_barrier()
+    finally:
+        ref_mlp.moe_forward = moe_forward
+    if margins:
+        out["router_margin"] = min(margins)
+        out["moe_calls"] = len(margins)
+        out["routes"] = routes
+    return out
+
+
 def lm_golden() -> dict:
     """The ``"lm"`` entry (module docstring)."""
     cfg = dataclasses.replace(registry.get(LM_ARCH), num_layers=LM_LAYERS,
                               dtype="float32")
     port_cfg = dataclasses.replace(port_registry.get(LM_ARCH),
                                    num_layers=LM_LAYERS, dtype="float32")
-    tree = port_init.numpy_params(port_cfg, LM_PARAM_SEED)
-    params = jax.tree.map(jnp.asarray, tree)
-    del tree
-    rng = np.random.default_rng(LM_PROMPT_SEED)
-    prompt = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT_LEN))
-    ids = np.sort(rng.choice(cfg.vocab_size, LM_IDS, replace=False))
-    last, caches, _ = engine.prefill(params, cfg,
-                                     {"tokens": jnp.asarray(prompt)},
-                                     LM_PROMPT_LEN + LM_STEPS)
-    logits = np.asarray(last[:, -1], np.float32)
-    out = {"arch": LM_ARCH, "num_layers": LM_LAYERS, "dtype": "float32",
-           "param_seed": LM_PARAM_SEED, "prompt_seed": LM_PROMPT_SEED,
-           "prompt": prompt.tolist(), "vocab_ids": ids.tolist(),
-           "prefill": _logit_summary(logits, ids), "decode": []}
-    step = jax.jit(lambda p, c, t, n: decode.decode_step(p, cfg, c, t, n))
-    for i in range(LM_STEPS):
-        tok = logits.argmax(-1)[:, None]
-        lg, caches = step(params, caches, jnp.asarray(tok),
-                          jnp.int32(LM_PROMPT_LEN + i))
-        logits = np.asarray(lg[:, -1], np.float32)
-        out["decode"].append({"cur_len": LM_PROMPT_LEN + i,
-                              "tokens": tok[:, 0].tolist(),
-                              **_logit_summary(logits, ids)})
+    out = _lm_entry(cfg, port_cfg)
+    out["arch"] = LM_ARCH
     return out
+
+
+def moe_golden() -> dict:
+    """The ``"moe"`` entry: one `_lm_entry` per `MOE_CUTS` configuration,
+    with its cuts."""
+    out = {}
+    for name, cut in MOE_CUTS.items():
+        cut = dict(cut, dtype="float32")
+        cfg = dataclasses.replace(registry.get(cut["arch"]),
+                                  **{k: v for k, v in cut.items()
+                                     if k != "arch"})
+        port_cfg = dataclasses.replace(port_registry.get(cut["arch"]),
+                                       **{k: v for k, v in cut.items()
+                                          if k != "arch"})
+        out[name] = dict(_lm_entry(cfg, port_cfg), arch=cut["arch"],
+                         cuts=cut)
+    return out
+
+
+def _moe_cfgs(job: dict):
+    """(reference, port) configs of a `moe_reference` job, float32."""
+    over = dict(job.get("overrides", {}), dtype="float32")
+    get = "smoke" if job.get("smoke") else "get"
+    return (dataclasses.replace(getattr(registry, get)(job["arch"]), **over),
+            dataclasses.replace(getattr(port_registry, get)(job["arch"]),
+                                **over))
+
+
+def moe_reference(jobs: list) -> list:
+    """`_moe_reference` of each job."""
+    return [_moe_reference(job) for job in jobs]
+
+
+def _moe_reference(job: dict) -> dict:
+    """The reference's ``_moe_forward_a2a`` on `numpy_moe(cfg, seed)` and
+    `numpy_moe_input(cfg, seed, batch, seq)` over a ``shape`` (data,
+    model) mesh of ``Auto`` axes, in a process with enough forced host
+    devices: aux, the router margin and the output (all of it with
+    ``full``, else ``n_idx`` values at seeded flat indices and the sum of
+    its magnitudes)."""
+    from jax.sharding import AxisType
+    from repro.models import mlp as ref_mlp
+
+    cfg, port_cfg = _moe_cfgs(job)
+    p = _tree_to_jax(port_init.numpy_moe(port_cfg, job["seed"]))
+    x = port_init.numpy_moe_input(port_cfg, job["seed"], job["batch"],
+                                  job["seq"])
+    mesh = jax.make_mesh(tuple(job["shape"]), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    out, aux = ref_mlp._moe_forward_a2a(p, jnp.asarray(x), cfg, mesh)
+    out = np.asarray(out, np.float32)
+    probs = jax.nn.softmax(jnp.asarray(x.reshape(-1, cfg.d_model))
+                           @ p["router"], -1)
+    res = {"aux": float(aux),
+           "router_margin": _router_margin(probs, cfg.top_k),
+           "routes": np.asarray(jax.lax.top_k(probs, cfg.top_k)[1]).tolist()}
+    if job.get("full"):
+        res["out"] = out.tolist()
+    else:
+        flat = np.sort(np.random.default_rng((job["seed"], 2)).choice(
+            out.size, job["n_idx"], replace=False))
+        res.update(flat_ids=flat.tolist(),
+                   values=out.reshape(-1)[flat].astype(np.float64).tolist(),
+                   abs_sum=float(np.abs(out.astype(np.float64)).sum()))
+    return res
+
+
+def moe_reference_subprocess(jobs: list, devices: int = MESH_DEVICES,
+                             timeout: float = 900.0) -> list:
+    """`moe_reference` of ``jobs`` in a fresh process with ``devices``
+    forced host devices."""
+    return _worker_subprocess("--moe-worker", jobs, devices, timeout)
+
+
+def moe_a2a_golden() -> dict:
+    """The ``"moe_a2a"`` entry (module docstring)."""
+    (res,) = moe_reference_subprocess([MOE_A2A_JOB])
+    return dict(MOE_A2A_JOB, **res)
 
 
 def q_golden() -> dict:
@@ -359,10 +532,11 @@ def mesh_reference(job: dict) -> list:
     return out
 
 
-def mesh_reference_subprocess(job: dict, devices: int = MESH_DEVICES,
-                              timeout: float = 900.0) -> list:
-    """`mesh_reference` of ``job`` in a fresh process with ``devices``
-    forced host devices (this process's device count cannot change)."""
+def _worker_subprocess(flag: str, job: dict, devices: int,
+                       timeout: float):
+    """This script with ``flag JOB_JSON`` in a fresh process with
+    ``devices`` forced host devices (this process's device count cannot
+    change); returns the JSON of its last line."""
     import subprocess
     import sys
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -371,12 +545,20 @@ def mesh_reference_subprocess(job: dict, devices: int = MESH_DEVICES,
                PYTHONPATH=os.pathsep.join(
                    [os.path.join(root, "src"), os.environ.get("PYTHONPATH",
                                                               "")]))
-    res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--mesh-worker", json.dumps(job)], env=env,
-                         capture_output=True, text=True, timeout=timeout)
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), flag,
+                          json.dumps(job)], env=env, capture_output=True,
+                         text=True, timeout=timeout)
     if res.returncode != 0:
-        raise RuntimeError(f"reference mesh run failed:\n{res.stderr[-4000:]}")
+        raise RuntimeError(f"reference run {flag} failed:\n"
+                           f"{res.stderr[-4000:]}")
     return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def mesh_reference_subprocess(job: dict, devices: int = MESH_DEVICES,
+                              timeout: float = 900.0) -> list:
+    """`mesh_reference` of ``job`` in a fresh process with ``devices``
+    forced host devices."""
+    return _worker_subprocess("--mesh-worker", job, devices, timeout)
 
 
 def mesh_golden() -> dict:
@@ -402,25 +584,38 @@ def main() -> None:
                       help="recompute the \"unfused\" entry alone")
     only.add_argument("--mesh-only", action="store_true",
                       help="recompute the \"mesh\" entry alone")
+    only.add_argument("--moe-only", action="store_true",
+                      help="recompute the \"moe\" and \"moe_a2a\" "
+                           "entries alone")
     only.add_argument("--mesh-worker", metavar="JOB_JSON",
                       help="print mesh_reference(JOB) as JSON (run by "
                            "mesh_reference_subprocess)")
+    only.add_argument("--moe-worker", metavar="JOBS_JSON",
+                      help="print moe_reference(JOBS) as JSON (run by "
+                           "moe_reference_subprocess)")
     args = ap.parse_args()
     if args.mesh_worker:
         print(json.dumps(mesh_reference(json.loads(args.mesh_worker))))
         return
+    if args.moe_worker:
+        print(json.dumps(moe_reference(json.loads(args.moe_worker))))
+        return
     t0 = time.time()
     entries = {"lm": lm_golden, "q": q_golden, "stream": stream_golden,
                "unfused": lambda: unfused_golden(golden["top_k"]["seeds"]),
-               "mesh": mesh_golden}
-    key = next((k for k in entries if getattr(args, f"{k}_only")), None)
-    if key is not None:
+               "mesh": mesh_golden, "moe": moe_golden,
+               "moe_a2a": moe_a2a_golden}
+    flags = {"lm": "lm", "q": "q", "stream": "stream", "unfused": "unfused",
+             "mesh": "mesh", "moe": "moe", "moe_a2a": "moe"}
+    keys = [k for k in entries if getattr(args, f"{flags[k]}_only")]
+    if keys:
         with open(OUT) as f:
             golden = json.load(f)
-        golden[key] = entries[key]()
+        for key in keys:
+            golden[key] = entries[key]()
         _write(golden)
-        print(f"wrote the {key} entry of {os.path.normpath(OUT)} in "
-              f"{time.time() - t0:.1f}s")
+        print(f"wrote the {', '.join(keys)} entries of "
+              f"{os.path.normpath(OUT)} in {time.time() - t0:.1f}s")
         return
     g = csr.dedupe(generators.powerlaw_cluster(N, DEGREE, prob=PROB,
                                                seed=GRAPH_SEED))
@@ -472,6 +667,8 @@ def main() -> None:
     golden["stream"] = stream_golden()
     golden["unfused"] = unfused_golden(seeds.tolist())
     golden["mesh"] = mesh_golden()
+    golden["moe"] = moe_golden()
+    golden["moe_a2a"] = moe_a2a_golden()
     _write(golden)
     print(f"wrote {os.path.normpath(OUT)} in {time.time() - t0:.1f}s")
 

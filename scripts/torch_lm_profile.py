@@ -1,10 +1,12 @@
 """Where the time of the port's LM serving path goes on one GPU.
 
     PYTHONPATH=src python scripts/torch_lm_profile.py [--batch 4]
-        [--prompt-len 2048] [--steps 8]
+        [--prompt-len 2048] [--steps 8] [--arch llama3.2-3b] [--layers N]
 
-Builds llama3.2-3b at full width (28 layers, bf16, the launcher's seeded
-init) on the card, warms one prefill and a few decode steps, then traces
+Builds ``--arch`` at full width (its own depth, or ``--layers`` of it:
+deepseek-v3-671b 5 and llama4-maverick-400b-a17b 2 are the depths the
+chip smoke serves; bf16, the launcher's seeded init) on the card, warms
+one prefill and a few decode steps, then traces
 one prefill and ``--steps`` decode steps with ``torch.profiler``.  For each
 of the two it prints the host-clock time (device synchronised), the summed
 device time of its kernels, their ratio (the device's busy share; the rest
@@ -54,12 +56,17 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--arch", default="llama3.2-3b", choices=registry.ARCHS)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: as is)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_lm_profile: needs a CUDA GPU", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(registry.get("llama3.2-3b"), num_patches=0)
+    cfg = dataclasses.replace(registry.get(args.arch), num_patches=0)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     b, lp, n = args.batch, args.prompt_len, args.steps
     print(f"[profile] {torch.cuda.get_device_name(0)}; {cfg.name}, "
           f"{cfg.num_layers} layers, {cfg.dtype}; batch {b}, prompt {lp}, "
@@ -99,6 +106,8 @@ def main() -> int:
             for key, ms, calls in top:
                 print(f"[profile]   {name} {ms:9.3f} ms  {calls:6d}×  "
                       f"{key[:90]}")
+    print(f"[profile] peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return 0
 
 

@@ -86,26 +86,34 @@ def lm_params_from_jax(tree: dict, cfg: ModelConfig,
     """The port's `model.LM` holding the weights of a reference parameter
     tree (``repro.models.model.init_params``'s layout, leaves as numpy
     arrays or anything ``np.asarray`` takes): ``embedding``, ``unembed``,
-    ``final_norm`` and one stack of ``block0`` leaves leading with the
-    layer axis (``wq (G, d, h, hd)``, ``wo (G, h, hd, d)``, …), layer
-    ``i`` going to ``layers[i]``.  Leaves are cast to the config's dtype
-    on ``device`` one at a time."""
+    ``final_norm`` and one stack per `model.stacks_of` entry, of
+    ``block{i}`` leaves leading with the group axis; group ``g``'s block
+    ``i`` goes to the next layer, in the reference's order.  Leaves are
+    cast to the config's dtype on ``device`` one at a time, MoE routers to
+    float32 (the reference keeps them so in every dtype)."""
     model.check_supported(cfg)
     dev = device_lib.resolve(device)
     dt = common.dtype_of(cfg.dtype)
 
-    def put(a):                    # a host copy of our own, then the device
-        return torch.from_numpy(np.array(a, np.float32)).to(dev, dt)
+    def put(a, dtype=dt):          # a host copy of our own, then the device
+        return torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)
 
-    (stack,) = tree["stacks"]
-    block = stack["block0"]
+    def tensors(leaves: dict, g: int) -> dict:
+        return {k: tensors(a, g) if isinstance(a, dict)
+                else put(a[g], torch.float32 if k == "router" else dt)
+                for k, a in leaves.items()}
+
     layers = []
-    for i in range(cfg.num_layers):
-        attn = common.param_dict({k: put(a[i])
-                                  for k, a in block["attn"].items()})
-        mlp = common.param_dict({k: put(a[i])
-                                 for k, a in block["mlp"].items()})
-        layers.append(model.Block(put(block["norm1"][i]), attn,
-                                  put(block["norm2"][i]), mlp))
+    for (pattern, groups), stack in zip(model.stacks_of(cfg),
+                                        tree["stacks"], strict=True):
+        for g in range(groups):
+            for i, kind in enumerate(pattern):
+                block = stack[f"block{i}"]
+                ffn = block["moe" if kind == "moe" else "mlp"]
+                layers.append(model.Block(
+                    kind, put(block["norm1"][g]),
+                    common.param_dict(tensors(block["attn"], g)),
+                    put(block["norm2"][g]),
+                    common.param_dict(tensors(ffn, g))))
     return model.LM(put(tree["embedding"]), put(tree["unembed"]),
                     put(tree["final_norm"]), layers)

@@ -128,6 +128,23 @@ class Mesh:
         dist.all_gather(parts, wire, group=group)
         return self._back(torch.cat(parts), t)
 
+    def all_to_all(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """Block ``i`` of ``t``'s dim 0 (size S, the axis's) goes to axis
+        position ``i``; block ``j`` of the result is what position ``j``
+        sent (``lax.all_to_all(t, axis, 0, 0, tiled=False)``), in one
+        ``all_to_all_single``."""
+        s = self.shape[axis]
+        if t.shape[0] != s:
+            raise ValueError(f"all_to_all over {axis!r} (size {s}) needs "
+                             f"dim 0 of size {s}, got {tuple(t.shape)}")
+        if axis not in self._groups:
+            return t
+        wire = self._wire(t)
+        group, _ = self._group(axis, wire)
+        out = torch.empty_like(wire)
+        dist.all_to_all_single(out, wire, group=group)
+        return self._back(out, t)
+
     def ppermute(self, t: torch.Tensor, axis: str, shift: int,
                  recv_shape=None) -> torch.Tensor:
         """Send ``t`` to axis position ``(i − shift) mod S`` and return what

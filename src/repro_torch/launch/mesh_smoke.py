@@ -21,7 +21,11 @@ holds them against ``tests/data/torch_port_golden.json``.
   cases, and the frontier exchange alone, timed;
 * `rank_main_1x3` — (e)'s (1, 3) cases on three ranks;
 * `rank_main_1x1` — (d) batches 0-3 through the same code on a 1×1 mesh
-  (NCCL), (a)'s snapshot restored onto it, and the coverage check.
+  (NCCL), (a)'s snapshot restored onto it, and the coverage check;
+* `rank_moe_a2a` — the expert-parallel MoE (`mlp._moe_forward_a2a`) on a
+  2×2 mesh, each rank holding only its experts, against the golden
+  ``"moe_a2a"`` entry; again at capacity factor 64 against the one-device
+  scatter; and its all-to-all alone, timed.
 
 Every check against a plain version runs after the launch counts are
 read, so its own launches are not counted.
@@ -42,7 +46,10 @@ from repro_torch.core import bitmask
 from repro_torch.distributed import traversal as dtrav
 from repro_torch.graph import csr, generators
 from repro_torch.kernels import ops, ref
+from repro_torch.configs import registry
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import init as model_init
+from repro_torch.models import mlp
 from repro_torch.sampling import SamplerSpec
 from repro_torch.serve.distributed import (AsyncFrontEnd,
                                            DistributedQueryEngine, MeshLeader,
@@ -499,3 +506,76 @@ def rank_main_1x1(rank, dev, golden: dict, ckpt: str,
                                               golden["top_k"]["seeds"])
     out["peak_gib"] = _peak(dev)
     return out
+
+
+def _moe_layer(cfg, seed: int, dev, experts=None) -> dict:
+    tree = model_init.numpy_moe(cfg, seed, experts)
+
+    def put(t):
+        return {k: put(v) if isinstance(v, dict)
+                else torch.from_numpy(v).to(dev) for k, v in t.items()}
+    return put(tree)
+
+
+def rank_moe_a2a(rank, dev, gold: dict, reps: int = 20) -> dict:
+    """The golden ``"moe_a2a"`` job (deepseek-v3 widths, its expert count
+    and seed, float32, TF32 off) on a 2×2 mesh: this rank's experts only,
+    `_moe_forward_a2a` on its token block, the blocks gathered; the values
+    at the golden's flat indices, aux, the output's magnitude sum, and
+    whether its tokens' expert picks are the golden's ``routes``.  Then
+    the same at capacity factor 64, and rank 0 holds it against
+    `mlp.moe_forward` of the whole layer on one device (the scatter).  The
+    all-to-all over ``model`` of one dispatch buffer, timed alone (host
+    clock around ``reps`` calls, each synchronised)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    get = registry.smoke if gold.get("smoke") else registry.get
+    cfg = dataclasses.replace(get(gold["arch"]),
+                              **dict(gold.get("overrides", {}),
+                                     dtype="float32"))
+    mesh = make_mesh(tuple(gold["shape"]), ("data", "model"), device=dev)
+    el = cfg.num_experts // mesh.shape["model"]
+    lo = mesh.axis_index("model") * el
+    local = _moe_layer(cfg, gold["seed"], dev, range(lo, lo + el))
+    x = torch.from_numpy(model_init.numpy_moe_input(
+        cfg, gold["seed"], gold["batch"], gold["seq"])).to(dev)
+    xb = mlp.token_block(x, mesh)
+    picks = mlp._route(local["router"], xb.reshape(-1, cfg.d_model),
+                       cfg.top_k)[1]
+    want = torch.as_tensor(gold["routes"]).view(
+        gold["batch"], gold["seq"], cfg.top_k)
+    want = mlp.token_block(want, mesh).reshape(-1, cfg.top_k)
+    _reset_peak(dev)
+    mesh.reset_stats()
+    block, aux = mlp._moe_forward_a2a(local, xb, cfg, mesh)
+    _sync(dev)
+    stats = {ax: dict(v) for ax, v in mesh.stats.items()}
+    staged = mesh.staged_bytes
+    out = mlp.gather_tokens(block, mesh).reshape(-1).double()
+    flat = torch.as_tensor(gold["flat_ids"], device=dev)
+    res = {"rank": rank, "aux": float(aux), "model_stats": stats,
+           "routes_equal": bool(torch.equal(picks.cpu(), want)),
+           "staged_bytes": staged,
+           "values": out[flat].cpu().numpy(),
+           "abs_sum": float(out.abs().sum())}
+    cfg64 = dataclasses.replace(cfg, capacity_factor=64.0)
+    wide = mlp.gather_tokens(mlp._moe_forward_a2a(local, xb, cfg64, mesh)[0],
+                             mesh)
+    if rank == 0:
+        whole = _moe_layer(cfg, gold["seed"], dev)
+        one, _ = mlp.moe_forward(whole, x, cfg64)
+        res["cf64_max_abs_diff"] = float((wide - one).abs().max())
+        del whole, one
+    t = xb.shape[0] * xb.shape[1]
+    cap = mlp.capacity(t, cfg)
+    buf = torch.zeros((mesh.shape["model"], el, cap, cfg.d_model),
+                      device=dev)
+    mesh.all_to_all(buf, "model")
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        mesh.all_to_all(buf, "model")
+        _sync(dev)
+    res.update(a2a_ms=1e3 * (time.perf_counter() - t0) / reps,
+               a2a_bytes=buf.numel() * buf.element_size(), capacity=cap,
+               tokens=t, peak_gib=_peak(dev), backend=mesh.backend)
+    return res

@@ -1,14 +1,17 @@
-"""Serving launcher: batched prefill + decode for the dense-attention
-family (the reference's ``launch/serve.py``).
+"""Serving launcher: batched prefill + decode (the reference's
+``launch/serve.py``).
 
     python -m repro_torch.launch.serve --arch llama3.2-3b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-v3-671b --smoke --device cpu
     python -m repro_torch.launch.serve --arch llama3.2-3b      # one GPU
 
 Weights are random, from a seeded generator on the device (no checkpoint is
-read); prompts come from ``numpy.random.default_rng(0)``.  Attention runs
-the hand-written CUDA kernel on a GPU and its plain version with
-``--device cpu``.  An arch outside the family (MoE, MLA, SSD) raises
-`NotImplementedError` before anything is allocated.
+read); prompts come from ``numpy.random.default_rng(0)``.  GQA attention
+runs the hand-written CUDA kernel on a GPU and its plain version with
+``--device cpu``; MLA and MoE run plain PyTorch on either.  An arch with
+SSD blocks raises `NotImplementedError` before anything is allocated.
+`serve_config` serves a `ModelConfig` of the caller's (a depth-cut one,
+say) through the same code as `run`.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.configs import registry
 from repro_torch.models import model
+from repro_torch.models.config import ModelConfig
 from repro_torch.serve import engine
 
 PARAM_SEED, PROMPT_SEED, SAMPLE_SEED = 0, 0, 3
@@ -40,12 +44,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-@torch.inference_mode()
 def run(args: argparse.Namespace) -> dict:
-    """Initialise the model, serve one batch of requests, print the
-    ``[launch.serve]`` line; returns the tokens and the run's numbers."""
+    """Serve the arch ``args`` name (its smoke config with ``--smoke``)."""
     cfg = registry.smoke(args.arch) if args.smoke else registry.get(args.arch)
-    cfg = dataclasses.replace(cfg, num_patches=0)
+    return serve_config(dataclasses.replace(cfg, num_patches=0), args)
+
+
+@torch.inference_mode()
+def serve_config(cfg: ModelConfig, args: argparse.Namespace) -> dict:
+    """Initialise ``cfg``'s model, serve one batch of requests of ``args``
+    (batch, prompt length, new tokens, temperature, device), print the
+    ``[launch.serve]`` line; returns the tokens and the run's numbers (the
+    model's bytes among them; the model itself is freed on return)."""
     model.check_supported(cfg)
     dev = device_lib.resolve(args.device)
     params = model.init_params(cfg, seed=PARAM_SEED, device=dev)
@@ -65,8 +75,11 @@ def run(args: argparse.Namespace) -> dict:
           f"{args.new_tokens} tokens in {dt:.2f}s (prefill of "
           f"{args.prompt_len} tokens {stats['prefill_s']:.3f}s, decode "
           f"{decode_ms:.2f} ms/step) on {dev}")
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in params.parameters())
     return dict(cfg=cfg, prompt=prompt, tokens=tokens, seconds=dt,
-                decode_ms_per_step=decode_ms, **stats)
+                decode_ms_per_step=decode_ms, param_bytes=param_bytes,
+                **stats)
 
 
 def main(argv=None) -> None:

@@ -75,9 +75,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 # ------------------------------------------------------------------- inits
 def param_dict(tensors: dict) -> nn.ParameterDict:
     """One layer's weights as frozen parameters (serving takes no
-    gradients)."""
-    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
-                             for k, t in tensors.items()})
+    gradients); a nested dict (MoE's ``shared`` expert) nests."""
+    return nn.ParameterDict({
+        k: param_dict(t) if isinstance(t, dict)
+        else nn.Parameter(t, requires_grad=False)
+        for k, t in tensors.items()})
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dims, dtype,

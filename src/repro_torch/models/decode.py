@@ -1,36 +1,40 @@
 """Single-token decode with static-shape caches (the reference's
-``models/decode.py``, dense blocks).
+``models/decode.py``, dense and MoE blocks).
 
-Caches are one ``{"k", "v"}`` dict per layer, each (B, Lmax, KVH, hd) in
-the working dtype (the reference stacks them over its scanned layers).
-`decode_step` writes each layer's new key and value into its cache in
+Caches are one dict per layer, in the working dtype: GQA ``{k, v}`` each
+(B, Lmax, KVH, hd); MLA the latent ``{c (B, Lmax, kv_lora_rank), k_rope
+(B, Lmax, rope_head_dim)}`` (the reference stacks them over its scanned
+layers).  `decode_step` writes each layer's new entries into its cache in
 place and returns the same list.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (LM, Block, _logits, check_supported,
-                                      embed_tokens)
+                                      embed_tokens, ffn_forward)
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device) -> list[dict]:
     check_supported(cfg)
     dt = common.dtype_of(cfg.dtype)
-    return [attention.init_gqa_cache(cfg, batch, max_len, dt, device)
+    init = (attention.init_mla_cache if cfg.attention == "mla"
+            else attention.init_gqa_cache)
+    return [init(cfg, batch, max_len, dt, device)
             for _ in range(cfg.num_layers)]
 
 
 def _decode_one(p: Block, cache: dict, h, cur_len: int, cfg: ModelConfig):
-    a_out, cache = attention.gqa_decode(
-        p.attn, common.rms_norm(h, p.norm1, cfg.norm_eps), cache, cur_len,
-        cfg)
+    dec = (attention.mla_decode if cfg.attention == "mla"
+           else attention.gqa_decode)
+    a_out, cache = dec(p.attn, common.rms_norm(h, p.norm1, cfg.norm_eps),
+                       cache, cur_len, cfg)
     h = h + a_out
-    x2 = common.rms_norm(h, p.norm2, cfg.norm_eps)
-    return h + mlp.mlp_forward(p.mlp, x2, cfg), cache
+    out, _ = ffn_forward(p, common.rms_norm(h, p.norm2, cfg.norm_eps), cfg)
+    return h + out, cache
 
 
 def decode_step(params: LM, cfg: ModelConfig, caches: list[dict],

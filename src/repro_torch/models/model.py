@@ -1,14 +1,18 @@
 """Decoder-only LM of the substrate (the reference's ``models/model.py``),
-for configurations whose layers are all ``dense`` GQA blocks: llama3.2-3b,
-qwen1.5-110b, command-r-35b, nemotron-4-340b, phi-3-vision-4.2b (patches
-off) and musicgen-medium.
+for configurations built of ``dense`` and ``moe`` blocks with GQA or MLA
+attention: llama3.2-3b, qwen1.5-110b, command-r-35b, nemotron-4-340b,
+phi-3-vision-4.2b (patches off), musicgen-medium, deepseek-v3-671b and
+llama4-maverick-400b-a17b.
 
-The reference scans one stacked parameter tree over its layers; here each
-layer's weights are one `Block` module and the stack is a ``ModuleList``
-(``remat``, ``scan_layers`` and ``fsdp_per_layer_gather`` tune that scan
-and have no counterpart).  Audio sums its codebooks' embeddings and emits
-``num_codebooks`` heads of logits.  MoE, MLA, the mamba blocks and patch
-embeddings raise `NotImplementedError` (`check_supported`).
+The reference scans one stacked parameter tree per stack of its layers;
+here each layer's weights are one `Block` module and the layers are one
+``ModuleList`` in the reference's order: stack by stack (`stacks_of`),
+group by group, pattern position within a group (deepseek-v3: its dense
+layers, then MoE; llama4: dense and MoE alternating).  ``remat``,
+``scan_layers`` and ``fsdp_per_layer_gather`` tune that scan and have no
+counterpart.  Audio sums its codebooks' embeddings and emits
+``num_codebooks`` heads of logits.  The mamba blocks and patch embeddings
+raise `NotImplementedError` (`check_supported`).
 """
 from __future__ import annotations
 
@@ -49,17 +53,20 @@ def stacks_of(cfg: ModelConfig) -> list[tuple[list[str], int]]:
     return [(["dense"], cfg.num_layers)]
 
 
+def layer_kinds(cfg: ModelConfig) -> list[str]:
+    """Each layer's block kind, in the reference's order (module
+    docstring)."""
+    return [kind for pattern, groups in stacks_of(cfg)
+            for _ in range(groups) for kind in pattern]
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise `NotImplementedError` unless every layer of ``cfg`` is a
-    ``dense`` GQA block without patch embeddings — before anything is
-    allocated."""
+    ``dense`` or ``moe`` block and it has no patch embeddings — before
+    anything is allocated."""
     kinds = {kind for pattern, _ in stacks_of(cfg) for kind in pattern}
     if kinds & {"mamba", "mamba_attn"}:
         raise NotImplementedError(SSD_UNPORTED)
-    if "moe" in kinds:
-        raise NotImplementedError(mlp.MOE_UNPORTED)
-    if cfg.attention == "mla":
-        raise NotImplementedError(attention.MLA_UNPORTED)
     if cfg.num_patches:
         raise NotImplementedError(PATCHES_UNPORTED)
 
@@ -70,16 +77,18 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One dense layer's weights: ``norm1``, ``attn`` (GQA), ``norm2``,
-    ``mlp``."""
+    """One layer's weights: ``norm1``, ``attn`` (GQA or MLA), ``norm2`` and
+    ``ffn`` as ``mlp`` (a ``dense`` block) or ``moe`` (``kind`` "moe"), the
+    reference's names."""
 
-    def __init__(self, norm1, attn: nn.ParameterDict, norm2,
-                 mlp_p: nn.ParameterDict):
+    def __init__(self, kind: str, norm1, attn: nn.ParameterDict, norm2,
+                 ffn: nn.ParameterDict):
         super().__init__()
+        self.kind = kind
         self.norm1 = _param(norm1)
         self.attn = attn
         self.norm2 = _param(norm2)
-        self.mlp = mlp_p
+        setattr(self, "moe" if kind == "moe" else "mlp", ffn)
 
 
 class LM(nn.Module):
@@ -98,8 +107,9 @@ class LM(nn.Module):
 # --------------------------------------------------------------------- init
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``,
-    drawn on the device in float32 one tensor at a time and cast to the
-    config's dtype (a full-width model never has a float32 copy)."""
+    drawn on the device in float32 one tensor (one expert) at a time and
+    cast to the config's dtype (a full-width model never has a float32
+    copy); MoE routers stay float32."""
     check_supported(cfg)
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -116,8 +126,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     def ones():
         return torch.ones(d, dtype=dt, device=dev)
 
-    layers = [Block(ones(), attention.init_gqa(gen, cfg), ones(),
-                    mlp.init_mlp(gen, cfg)) for _ in range(cfg.num_layers)]
+    attn_init = (attention.init_mla if cfg.attention == "mla"
+                 else attention.init_gqa)
+    layers = [Block(kind, ones(), attn_init(gen, cfg), ones(),
+                    mlp.init_moe(gen, cfg) if kind == "moe"
+                    else mlp.init_mlp(gen, cfg))
+              for kind in layer_kinds(cfg)]
     return LM(embedding, unembed, ones(), layers)
 
 
@@ -152,27 +166,42 @@ def _logits(params: LM, cfg: ModelConfig, h):
 
 
 # ------------------------------------------------------------------ blocks
+def ffn_forward(p: Block, x, cfg: ModelConfig):
+    """The block's MLP or MoE: (out, aux loss; None for an MLP)."""
+    if p.kind == "moe":
+        return mlp.moe_forward(p.moe, x, cfg)
+    return mlp.mlp_forward(p.mlp, x, cfg), None
+
+
 def _apply_block(p: Block, h, positions, cfg: ModelConfig):
-    """One dense block; returns (h, (k, v)) for the prefill cache."""
-    a_out, kv = attention.gqa_forward(
-        p.attn, common.rms_norm(h, p.norm1, cfg.norm_eps), positions, cfg)
+    """One block; returns (h, aux or None, cache pair): (k, v) for GQA,
+    (c, k_rope) for MLA."""
+    attn_fwd = (attention.mla_forward if cfg.attention == "mla"
+                else attention.gqa_forward)
+    a_out, kv = attn_fwd(p.attn, common.rms_norm(h, p.norm1, cfg.norm_eps),
+                         positions, cfg)
     h = h + a_out
-    x2 = common.rms_norm(h, p.norm2, cfg.norm_eps)
-    return h + mlp.mlp_forward(p.mlp, x2, cfg), kv
+    out, aux = ffn_forward(p, common.rms_norm(h, p.norm2, cfg.norm_eps), cfg)
+    return h + out, aux, kv
 
 
 # ----------------------------------------------------------------- forward
 def forward(params: LM, cfg: ModelConfig, batch: dict, *,
             collect_cache: bool = False):
     """Prefill forward.  Returns (logits (B, L, V[, K]) in the working
-    dtype, aux loss (0 for dense blocks), caches): with ``collect_cache``
-    one (k, v) pair per layer, each (B, L, KVH, hd); else None."""
+    dtype, the MoE layers' aux losses summed in float32 (0 without MoE),
+    caches): with ``collect_cache`` one pair per layer, (k, v) each (B, L,
+    KVH, hd) for GQA, (c (B, L, kr), k_rope (B, L, rd)) for MLA; else
+    None."""
     check_supported(cfg)
     h, positions = embed_inputs(params, cfg, batch)
     caches = []
+    total_aux = torch.zeros((), device=h.device)
     for layer in params.layers:
-        h, kv = _apply_block(layer, h, positions, cfg)
+        h, aux, kv = _apply_block(layer, h, positions, cfg)
+        if aux is not None:
+            total_aux = total_aux + aux
         if collect_cache:
             caches.append(kv)
-    return (_logits(params, cfg, h), torch.zeros((), device=h.device),
+    return (_logits(params, cfg, h), total_aux,
             caches if collect_cache else None)

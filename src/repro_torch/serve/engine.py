@@ -1,10 +1,10 @@
 """Batched LM serving: prefill once, decode many, static-shape caches (the
-reference's ``serve/engine.py``, dense GQA family).
+reference's ``serve/engine.py``, dense and MoE blocks, GQA and MLA).
 
-``caches_from_prefill`` pads the (k, v) pairs that
+``caches_from_prefill`` pads the pairs that
 ``model.forward(collect_cache=True)`` emits (prompt length) to the decode
-layout (``{"k", "v"}`` dicts of ``max_len``) — one prefill pass replaces
-prompt_len decode steps.
+layout of ``max_len``: ``{"k", "v"}`` dicts for GQA, the latent ``{"c",
+"k_rope"}`` for MLA — one prefill pass replaces prompt_len decode steps.
 """
 from __future__ import annotations
 
@@ -20,16 +20,18 @@ from repro_torch.models.config import ModelConfig
 
 
 def _pad_seq(x: torch.Tensor, max_len: int) -> torch.Tensor:
-    """(B, L, KVH, hd) → (B, max_len, KVH, hd), zeros after L."""
+    """(B, L, ...) → (B, max_len, ...), zeros after L."""
     pad = max_len - x.shape[1]
-    return F.pad(x, (0, 0, 0, 0, 0, pad)) if pad > 0 else x.contiguous()
+    return (F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad)) if pad > 0
+            else x.contiguous())
 
 
 def caches_from_prefill(cfg: ModelConfig, prefill_caches, max_len: int):
-    """Prefill cache ((k, v) per layer, length L) → decode cache (dicts,
+    """Prefill cache (a pair per layer, length L) → decode cache (dicts,
     max_len)."""
-    return [{"k": _pad_seq(k, max_len), "v": _pad_seq(v, max_len)}
-            for k, v in prefill_caches]
+    names = ("c", "k_rope") if cfg.attention == "mla" else ("k", "v")
+    return [{name: _pad_seq(t, max_len) for name, t in zip(names, pair)}
+            for pair in prefill_caches]
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, max_len: int):

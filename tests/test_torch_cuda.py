@@ -837,3 +837,54 @@ def test_cover_counts_on_a_row_slice_equals_plain(cuda, shards):
     torch.cuda.synchronize()
     assert torch.equal(got, ref.cover_counts_ref(vis, act[:, 0]))
     assert torch.equal(multi, ref.cover_counts_multi_ref(vis, act))
+
+
+# ------------------------------------------------------- MoE and MLA (LM)
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_mla_model_on_the_card_equals_the_host(cuda, arch):
+    """The smoke model's float32 prefill logits and aux, and 4 decode steps
+    (MLA's absorbed decode; maverick's GQA on the flash kernels), on the
+    card within 1e-4 of the same weights on the host; the router, a float32
+    tensor, picks the same experts (capacity 1.25 drops tokens in both)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import decode, model
+
+    cfg = dataclasses.replace(registry.smoke(arch), num_patches=0)
+    host = model.init_params(cfg, seed=3, device="cpu")
+    card = copy.deepcopy(host).to(cuda)   # Module.to moves in place
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 16)))
+    outs = {}
+    for name, params, dev in (("host", host, torch.device("cpu")),
+                              ("card", card, cuda)):
+        t = tokens.to(dev)
+        logits, aux, _ = model.forward(params, cfg, {"tokens": t})
+        caches = decode.init_caches(cfg, 2, 20, dev)
+        for i in range(16):
+            decode.decode_step(params, cfg, caches, t[:, i:i + 1], i)
+        steps = [decode.decode_step(params, cfg, caches, t[:, i:i + 1],
+                                    16 + i)[0] for i in range(4)]
+        outs[name] = [logits.cpu(), aux.cpu(), torch.cat(steps, 1).cpu()]
+    for got, want in zip(outs["card"], outs["host"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_moe_scatter_on_the_card_repeats_bit_for_bit(cuda):
+    """bf16 dispatch and combine use no atomics: two runs on the card give
+    the same bits, at a prefill's capacity (tokens dropped) and decode's."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import mlp
+
+    cfg = dataclasses.replace(registry.smoke("deepseek-v3-671b"),
+                              dtype="bfloat16", num_experts=16)
+    p = mlp.init_moe(torch.Generator(device=cuda).manual_seed(0), cfg)
+    for shape in ((4, 512, cfg.d_model), (4, 1, cfg.d_model)):
+        x = torch.randn(shape, generator=torch.Generator(device=cuda)
+                        .manual_seed(1), device=cuda).bfloat16()
+        a, aux_a = mlp.moe_forward(p, x, cfg)
+        b, aux_b = mlp.moe_forward(p, x, cfg)
+        assert torch.equal(a, b) and torch.equal(aux_a, aux_b)

@@ -85,7 +85,7 @@ def test_single_query_decode_masks_keys_after_offset(kv_offset):
            1e-5)
 
 
-@pytest.mark.parametrize("H,KVH", [(4, 2), (6, 2), (8, 1)])
+@pytest.mark.parametrize("H,KVH", [(4, 2), (6, 2), (8, 1), (10, 2)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_gqa_reads_kv_head_h_over_group(H, KVH, causal):
     """Query head h reads KV head h // (H // KVH): equal to the Pallas

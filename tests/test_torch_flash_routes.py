@@ -45,7 +45,7 @@ def _smoke_module():
 # (B, Lq, Lk, H, KVH, D, causal, dtype) -> route: the LM main path's
 # prefill and decode (bf16, llama3.2-3b at batch 4, prompt 2,048), the LM
 # golden check's (float32, batch 2, prompt 64, 8 decode steps over a
-# 72-slot cache), and the smoke's kernel cases.
+# 72-slot cache), the smoke's kernel cases, and maverick's.
 BF16, F32 = torch.bfloat16, torch.float32
 ROUTE_CASES = [
     ((4, 2048, 2048, 24, 8, 128, True, BF16), "wgmma"),
@@ -63,6 +63,11 @@ ROUTE_CASES = [
     ((2, 1, 77, 8, 1, 64, True, F32), "decode"),
     ((2, 200, 457, 6, 2, 64, True, BF16), "wgmma"),
     ((2, 200, 457, 6, 2, 64, True, F32), "simt"),
+    # maverick (H 40 over KVH 8, a group of 5): its main path and golden
+    ((4, 2048, 2048, 40, 8, 128, True, BF16), "wgmma"),
+    ((4, 1, 2080, 40, 8, 128, True, BF16), "decode"),
+    ((2, 64, 64, 40, 8, 128, True, F32), "simt"),
+    ((2, 1, 72, 40, 8, 128, True, F32), "decode"),
 ]
 
 

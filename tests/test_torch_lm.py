@@ -1,4 +1,5 @@
-"""Port ≡ reference for the LM serving path of the dense-attention family.
+"""Port ≡ reference for the LM serving path: the dense-attention family,
+deepseek-v3 (MLA + MoE) and llama4-maverick (GQA + MoE).
 
 Each module of ``repro_torch.models`` and ``repro_torch.serve.engine`` is
 held against its counterpart in ``repro`` on the same inputs (numpy from a
@@ -6,8 +7,9 @@ seed) and, for whole models, the same weights: the reference's
 ``init_params`` tree carried across by `convert.lm_params_from_jax`.  All
 in float32 on the CPU, where attention runs the flash kernel's plain
 version.  Tolerances: 1e-5 per module, 1e-4 for whole-model logits and
-caches (two layers of float32 matmuls summed in another order), greedy
-tokens exactly equal."""
+caches (two to four layers of float32 matmuls summed in another order),
+greedy tokens exactly equal.  MoE smoke configs decode at capacity
+factor 8 (no token dropped at decode's batch)."""
 import dataclasses
 
 import jax
@@ -35,8 +37,9 @@ torch.set_num_threads(1)
 
 DENSE_ARCHS = ["llama3.2-3b", "qwen1.5-110b", "command-r-35b",
                "nemotron-4-340b", "phi-3-vision-4.2b", "musicgen-medium"]
-UNPORTED_ARCHS = ["deepseek-v3-671b", "llama4-maverick-400b-a17b",
-                  "zamba2-2.7b", "mamba2-1.3b"]
+MOE_ARCHS = ["deepseek-v3-671b", "llama4-maverick-400b-a17b"]
+PORTED_ARCHS = DENSE_ARCHS + MOE_ARCHS
+UNPORTED_ARCHS = ["zamba2-2.7b", "mamba2-1.3b"]
 
 
 def _t(a) -> torch.Tensor:
@@ -53,10 +56,12 @@ def _normal(rng, shape, scale=1.0):
     return (rng.standard_normal(shape) * scale).astype(np.float32)
 
 
-def _cfgs(arch):
-    """(reference config, port config): the smoke config, patches off."""
-    return (dataclasses.replace(jregistry.smoke(arch), num_patches=0),
-            dataclasses.replace(registry.smoke(arch), num_patches=0))
+def _cfgs(arch, **kw):
+    """(reference config, port config): the smoke config, patches off,
+    ``kw`` replaced."""
+    kw = dict(kw, num_patches=0)
+    return (dataclasses.replace(jregistry.smoke(arch), **kw),
+            dataclasses.replace(registry.smoke(arch), **kw))
 
 
 def _gqa_cfgs(**kw):
@@ -191,16 +196,25 @@ def _prompt(cfg, B, L, seed):
     return rng.integers(0, cfg.vocab_size, shape)
 
 
+def _layer_caches(cfg, stacks) -> list:
+    """The reference's decode caches (one dict per stack and block, leaves
+    leading with the group axis) as one dict per layer, in layer order."""
+    return [{name: leaf[g] for name, leaf in stack[f"block{i}"].items()}
+            for (pattern, groups), stack in zip(jmodel.stacks_of(cfg), stacks)
+            for g in range(groups) for i in range(len(pattern))]
+
+
 _RUNS = {}
 
 
-def _run(arch):
-    """The reference's and the port's results for one arch, computed once:
-    prefill (B 2, L 16) logits and caches, 4 teacher-forced decode steps,
-    and 4 greedy tokens."""
-    if arch in _RUNS:
-        return _RUNS[arch]
-    jc, tc = _cfgs(arch)
+def _run(arch, **kw):
+    """The reference's and the port's results for one arch (``kw`` replaced
+    in its smoke config), computed once: prefill (B 2, L 16) logits, aux
+    and caches, 4 teacher-forced decode steps, and 4 greedy tokens."""
+    key = (arch, tuple(sorted(kw.items())))
+    if key in _RUNS:
+        return _RUNS[key]
+    jc, tc = _cfgs(arch, **kw)
     jparams = jmodel.init_params(jax.random.key(7), jc)
     tparams = convert.lm_params_from_jax(
         jax.tree.map(np.asarray, jparams), tc, device="cpu")
@@ -214,39 +228,47 @@ def _run(arch):
     out = {}
     wl, wc, _ = jengine.prefill(jparams, jc, {"tokens": jnp.asarray(prompt)},
                                 max_len)
-    full, _, _ = jmodel.forward(jparams, jc, {"tokens": jnp.asarray(prompt)})
+    full, waux, _ = jmodel.forward(jparams, jc,
+                                   {"tokens": jnp.asarray(prompt)})
     step = jax.jit(lambda p, c, t, n: jdecode.decode_step(p, jc, c, t, n))
     wsteps = []
     for i in range(T):
         lg, wc = step(jparams, wc, jnp.asarray(tok(i)), jnp.int32(L + i))
         wsteps.append(np.asarray(lg))
-    out["want"] = dict(full=np.asarray(full), last=np.asarray(wl),
-                       steps=wsteps, tokens=np.asarray(jengine.generate(
+    out["want"] = dict(full=np.asarray(full), aux=float(waux),
+                       last=np.asarray(wl), steps=wsteps,
+                       tokens=np.asarray(jengine.generate(
                            jparams, jc, jnp.asarray(prompt), T,
                            temperature=0.0)))
     wcache = jengine.caches_from_prefill(
         jc, jmodel.forward(jparams, jc, {"tokens": jnp.asarray(prompt)},
                            collect_cache=True)[2], max_len)
-    out["want"]["cache"] = wcache[0]["block0"]
+    out["want"]["cache"] = _layer_caches(jc, wcache)
 
     tprompt = torch.from_numpy(prompt)
     gl, gc, plen = engine.prefill(tparams, tc, {"tokens": tprompt}, max_len)
     assert plen == L
-    gfull, _, _ = model.forward(tparams, tc, {"tokens": tprompt})
+    gfull, gaux, _ = model.forward(tparams, tc, {"tokens": tprompt})
     gcache = [{k: c[k].clone() for k in c} for c in gc]
     gsteps = []
     for i in range(T):
         lg, gc = decode.decode_step(tparams, tc, gc, torch.from_numpy(tok(i)),
                                     L + i)
         gsteps.append(lg)
-    out["got"] = dict(full=gfull, last=gl, steps=gsteps, cache=gcache,
-                      tokens=engine.generate(tparams, tc, tprompt, T,
-                                             temperature=0.0))
-    _RUNS[arch] = out
+    out["got"] = dict(full=gfull, aux=float(gaux), last=gl, steps=gsteps,
+                      cache=gcache, tokens=engine.generate(
+                          tparams, tc, tprompt, T, temperature=0.0))
+    _RUNS[key] = out
     return out
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def _decode_run(arch):
+    """`_run` at capacity factor 8 for MoE archs."""
+    return _run(arch, capacity_factor=8.0) if arch in MOE_ARCHS \
+        else _run(arch)
+
+
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_forward_logits_and_prefill_caches(arch):
     r = _run(arch)
     tc = _cfgs(arch)[1]
@@ -254,23 +276,36 @@ def test_forward_logits_and_prefill_caches(arch):
     assert got["full"].shape == want["full"].shape
     _close(got["full"], want["full"], 1e-4)
     _close(got["last"], want["last"], 1e-4)
-    for layer, cache in enumerate(got["cache"]):
-        assert cache["k"].shape == (2, 24, tc.num_kv_heads, tc.head_dim)
-        for name in ("k", "v"):
-            _close(cache[name], want["cache"][name][layer], 1e-4)
+    assert len(got["cache"]) == len(want["cache"]) == tc.num_layers
+    shapes = ({"c": (2, 24, tc.kv_lora_rank),
+               "k_rope": (2, 24, tc.rope_head_dim)}
+              if tc.attention == "mla" else
+              dict.fromkeys(("k", "v"),
+                            (2, 24, tc.num_kv_heads, tc.head_dim)))
+    for cache, wcache in zip(got["cache"], want["cache"]):
+        assert {k: tuple(v.shape) for k, v in cache.items()} == shapes
+        for name in shapes:
+            _close(cache[name], wcache[name], 1e-4)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
-def test_teacher_forced_decode_logits(arch):
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_forward_aux_is_the_sum_over_moe_layers(arch):
     r = _run(arch)
+    assert r["want"]["aux"] > 0
+    _close(torch.tensor(r["got"]["aux"]), r["want"]["aux"], 1e-5)
+
+
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
+def test_teacher_forced_decode_logits(arch):
+    r = _decode_run(arch)
     for got, want in zip(r["got"]["steps"], r["want"]["steps"]):
         assert got.shape == want.shape
         _close(got, want, 1e-4)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_greedy_generate_tokens_equal(arch):
-    r = _run(arch)
+    r = _decode_run(arch)
     got = r["got"]["tokens"].numpy()
     assert got.shape == r["want"]["tokens"].shape
     np.testing.assert_array_equal(got, r["want"]["tokens"])
@@ -292,10 +327,27 @@ def test_teacher_forced_decode_equals_forward():
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_teacher_forced_decode_equals_forward(arch):
+    """The same gold check for deepseek-v3 (MLA's absorbed decode against
+    its blocked prefill) and maverick, at capacity factor 64, where no
+    token is dropped in either (a decode step's capacity is its own)."""
+    _, tc = _cfgs(arch, capacity_factor=64.0)
+    params = model.init_params(tc, seed=2, device="cpu")
+    tokens = torch.from_numpy(_prompt(tc, 2, 16, 6))
+    full, _, _ = model.forward(params, tc, {"tokens": tokens})
+    caches = decode.init_caches(tc, 2, 16, "cpu")
+    steps = [decode.decode_step(params, tc, caches, tokens[:, t:t + 1], t)[0]
+             for t in range(16)]
+    torch.testing.assert_close(torch.cat(steps, 1), full, atol=1e-5,
+                               rtol=1e-5)
+
+
 def test_numpy_params_has_the_reference_tree_layout():
-    """`numpy_params` gives the reference's tree, leaf for leaf in shape,
-    so the golden script can hand it to the reference."""
-    for arch in DENSE_ARCHS:
+    """`numpy_params` gives the reference's tree, leaf for leaf in shape
+    (one stack per `stacks_of` entry, MoE and MLA leaves included), so the
+    golden script can hand it to the reference."""
+    for arch in PORTED_ARCHS:
         jc, tc = _cfgs(arch)
         want = jax.eval_shape(lambda: jmodel.init_params(jax.random.key(0),
                                                          jc))
@@ -306,10 +358,34 @@ def test_numpy_params_has_the_reference_tree_layout():
     a, b = init.numpy_params(tc, 5), init.numpy_params(tc, 5)
     assert all(np.array_equal(x, y) for x, y in
                zip(jax.tree.leaves(a), jax.tree.leaves(b)))
+    deepseek = init.numpy_params(_cfgs("deepseek-v3-671b")[1], 0)["stacks"]
+    assert [list(st) for st in deepseek] == [["block0"], ["block0"]]
+    assert "mlp" in deepseek[0]["block0"] and "moe" in deepseek[1]["block0"]
+    (maverick,) = init.numpy_params(_cfgs("llama4-maverick-400b-a17b")[1],
+                                    0)["stacks"]
+    assert "mlp" in maverick["block0"] and "moe" in maverick["block1"]
+
+
+def test_lm_params_from_jax_keeps_the_router_float32():
+    """A bf16 model's layers are bf16 but for MoE routers, in the
+    reference's layer order (maverick: dense, MoE, dense, MoE)."""
+    _, tc = _cfgs("llama4-maverick-400b-a17b", dtype="bfloat16")
+    params = convert.lm_params_from_jax(init.numpy_params(tc, 0), tc,
+                                        device="cpu")
+    assert [layer.kind for layer in params.layers] == \
+        model.layer_kinds(tc) == ["dense", "moe", "dense", "moe"]
+    for layer in params.layers:
+        assert layer.attn["wq"].dtype == torch.bfloat16
+        if layer.kind == "moe":
+            assert layer.moe["router"].dtype == torch.float32
+            assert layer.moe["experts_w1"].dtype == torch.bfloat16
+            assert layer.moe["shared"]["w1"].dtype == torch.bfloat16
+        else:
+            assert layer.mlp["w1"].dtype == torch.bfloat16
 
 
 # ------------------------------------------------------------- launcher
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_launcher_smoke_on_cpu(arch, capsys):
     out = tserve.run(tserve.parse_args(
         ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",

@@ -6,17 +6,21 @@ imports it (by name, from the tests directory on the path the parent
 hands down) without the test files' jax.
 
 Each function runs several checks in one world and returns plain numpy
-and Python values; the tests compare them with the live reference."""
+and Python values; the tests compare them with the live reference
+(`moe_world` backs `test_torch_moe.py`)."""
 import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch import convert
+from repro_torch.configs import registry
 from repro_torch.core import rrr, traversal
 from repro_torch.distributed import traversal as dtrav
 from repro_torch.graph import csr, generators, partition
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import init as model_init
+from repro_torch.models import mlp
 from repro_torch.sampling import SamplerSpec, make_sampler
 
 GRAPH = dict(n=500, degree=6.0, prob=0.3, seed=2)
@@ -281,4 +285,52 @@ def mesh_frontend_world(rank, dev, ckpt: str) -> dict:
         out["stacked"][backend] = [
             convert.masks_to_numpy(sampler.sample_stacked(idx))
             for idx in STACKED]
+    return out
+
+
+def moe_cfg(job: dict):
+    """The port's float32 config of a ``make_torch_golden.moe_reference``
+    job."""
+    get = registry.smoke if job.get("smoke") else registry.get
+    return dataclasses.replace(get(job["arch"]),
+                               **dict(job.get("overrides", {}),
+                                      dtype="float32"))
+
+
+def _torch_tree(tree: dict, dev) -> dict:
+    return {k: _torch_tree(v, dev) if isinstance(v, dict)
+            else torch.from_numpy(v).to(dev) for k, v in tree.items()}
+
+
+def moe_world(rank, dev, jobs: list) -> dict:
+    """On one world: `Mesh.all_to_all` over ``model`` (block ``j`` sent to
+    position ``j`` tagged with its sender), then per job the expert-parallel
+    MoE — `mlp._moe_forward_a2a` on this rank's token block and only its
+    experts (drawn alone by `numpy_moe`), the blocks gathered back, and
+    `mlp.moe_forward` with the mesh on the whole layer — with the calls
+    and bytes the ``model`` axis counted."""
+    out: dict = {"rank": rank, "jobs": []}
+    for job in jobs:
+        cfg = moe_cfg(job)
+        mesh = make_mesh(job["shape"], ("data", "model"), device=dev)
+        s, m = mesh.shape["model"], mesh.axis_index("model")
+        sent = torch.stack([torch.tensor([rank, j, 7 * rank + j])
+                            for j in range(s)]).to(dev)
+        got = mesh.all_to_all(sent, "model")
+        el = cfg.num_experts // s
+        local = _torch_tree(model_init.numpy_moe(
+            cfg, job["seed"], experts=range(m * el, (m + 1) * el)), dev)
+        x = torch.from_numpy(model_init.numpy_moe_input(
+            cfg, job["seed"], job["batch"], job["seq"])).to(dev)
+        mesh.reset_stats()
+        block, aux = mlp._moe_forward_a2a(local, mlp.token_block(x, mesh),
+                                          cfg, mesh)
+        stats = dict(mesh.stats["model"])
+        whole = mlp.gather_tokens(block, mesh)
+        full = _torch_tree(model_init.numpy_moe(cfg, job["seed"]), dev)
+        via, via_aux = mlp.moe_forward(full, x, cfg, mesh)
+        out["jobs"].append(dict(
+            job, sent=sent.cpu().numpy(), got=got.cpu().numpy(),
+            out=whole.cpu().numpy(), aux=float(aux), via=via.cpu().numpy(),
+            via_aux=float(via_aux), model_stats=stats))
     return out
