@@ -175,8 +175,10 @@ else.  Phases, each of which raises on failure:
     (``wgmma``: bf16 prefill at D 64/128; ``decode``: one query row;
     ``simt``: the rest) — float32 and bfloat16, causal and not,
     ``kv_offset`` 0 and > 0, H/KVH 1, 3, 5, 8 and 12, head dims 16, 64,
-    96, 128 and 192, ragged Lq and Lk, and the LM main path's and
-    maverick's (H 40, KVH 8, a group of 5) prefill and decode shapes; each
+    80, 96, 128 and 192, ragged Lq and Lk, and the LM main path's,
+    maverick's (H 40, KVH 8, a group of 5) and zamba2's (H = KVH 32, D
+    80: its prefill on the simt route, its decode on the decode route's
+    E = 5 instantiation) prefill and decode shapes; each
     decode case also against the split-K plain
     version cut at the kernel's own split; float32 within 2e-5 max abs,
     bfloat16 within atol = rtol = 2e-2 (the reference's kernel test) and
@@ -200,7 +202,14 @@ else.  Phases, each of which raises on failure:
     and 8 routed experts; every expert the port's router picks, call by
     call, equal to the reference's (``routes``), its router margin
     printed; deepseek launches no flash_attention, maverick 2 simt and
-    2 × 8 decode;
+    2 × 8 decode; (ssm golden) the file's two ``"ssm"`` entries the same
+    way (``numpy_params`` weights with ``numpy_ssm_heads``' per-head
+    draws, a prefill of 2 × 512 tokens, two SSD chunks): mamba2-1.3b cut
+    to 2 layers (no flash launch) and zamba2-2.7b cut to 12 (two groups:
+    its shared block 2 simt and 2 × 8 decode, each invocation on a KV
+    cache of its own); (ssm bf16) zamba2 at that depth in bf16 as (bf16)
+    checks llama, its prefill's attention on the simt route at head dim
+    80 — the first bf16 simt run at model scale;
 16. LM main path at full width: llama3.2-3b, 28 layers, bf16, the port's
     seeded init, through ``launch.serve``'s ``run``: (a) the launcher's own
     mix, batch 4, prompt 32, 32 new tokens at temperature 0.7; (b) batch
@@ -224,7 +233,19 @@ else.  Phases, each of which raises on failure:
     values, aux, the magnitude sum) with every expert pick the
     reference's; at capacity factor 64 equal to the one-device scatter
     within 1e-4; the all-to-all's bytes and host-clock ms per rank;
-17. flash timing at (b)'s prefill and decode shapes: the route the main
+16d. the SSD main path at full width and full depth, bf16, the port's
+    seeded init, through ``launch.serve``'s ``run`` with (a) and (b), one
+    model on the card at a time: mamba2-1.3b (48 ``mamba`` layers), then
+    zamba2-2.7b (54 layers, a ``mamba_attn`` every 6th applying the one
+    shared attention + MLP block); finite logits, tokens in range; per
+    request batch mamba2 launches no flash_attention and zamba2 exactly
+    9 simt + 9 × 32 decode (0 wgmma: head dim 80).  It prints prefill
+    tokens/s, decode ms a step beside the time to move the step's bytes
+    once at 3.35 TB/s (every weight but the embedding, the shared block
+    once per invocation, the SSD state and conv tail read and written,
+    the shared block's KV cache read) and peak device memory;
+17. flash timing at (b)'s prefill and decode shapes and at zamba2's (H =
+    KVH 32, D 80): the route the main
     path takes and the simt route (the CUDA-core kernel) from CUDA graphs of
     10 launches, the plain version and, as the library's time,
     ``scaled_dot_product_attention(..., enable_gqa=True)`` (timed only;
@@ -294,6 +315,8 @@ LM_MIXES = {"a": (32, 0.7), "b": (2048, 0.0)}
 # against the golden entry and the one-device scatter.
 MOE_A2A_TOL = 1e-4
 MOE_MAIN = {"deepseek-v3-671b": 5, "llama4-maverick-400b-a17b": 2}
+# The SSD main path (phase 16d): both archs at full width and full depth.
+SSM_MAIN = ("mamba2-1.3b", "zamba2-2.7b")
 # Integer operations of the counter hash (core/rng.py): one fold is
 # 2 shifts + 3 adds + 1 xor, then mix32 is 3 shift-xor pairs + 2 multiplies;
 # a colour draw adds shift, convert, scale and compare.
@@ -2136,11 +2159,13 @@ def run_q_phases(golden: dict, dev) -> dict:
 def _flash_cases():
     """(name, B, Lq, Lk, H, KVH, D, causal, kv_offset) of the kernel
     checks: the main path's two shapes first, then maverick's (a group of
-    5 query heads a KV head)."""
+    5 query heads a KV head) and zamba2's (head dim 80)."""
     cases = [("main prefill", 4, 2048, 2048, 24, 8, 128, True, 0),
              ("main decode", 4, 1, 2080, 24, 8, 128, True, 2079),
              ("maverick prefill", 4, 2048, 2048, 40, 8, 128, True, 0),
-             ("maverick decode", 4, 1, 2080, 40, 8, 128, True, 2079)]
+             ("maverick decode", 4, 1, 2080, 40, 8, 128, True, 2079),
+             ("zamba2 prefill", 4, 2048, 2048, 32, 32, 80, True, 0),
+             ("zamba2 decode", 4, 1, 2080, 32, 32, 80, True, 2079)]
     for causal in (True, False):
         cases += [
             ("H/KVH 1, D 64", 2, 128, 128, 4, 4, 64, causal, 0),
@@ -2153,6 +2178,7 @@ def _flash_cases():
             ("H/KVH 3, D 64, ragged, 4 key blocks", 2, 200, 457, 6, 2, 64,
              causal, 257),
             ("decode, H/KVH 12, D 96", 1, 1, 300, 12, 1, 96, causal, 150),
+            ("H/KVH 1, D 80, ragged", 2, 100, 140, 4, 4, 80, causal, 40),
         ]
     return cases
 
@@ -2228,7 +2254,8 @@ def check_flash(dev) -> dict:
     _check(not missing, f"flash_attention: no case ran route(s) {missing}")
     print(f"[flash] {n} cases (f32 and bf16, causal and not, kv_offset 0 "
           f"and > 0, H/KVH 1/3/5/8/12, D 16-192, ragged Lq and Lk, the main "
-          f"path's and maverick's prefill and decode shapes; decode also "
+          f"path's, maverick's and zamba2's (D 80) prefill and decode "
+          f"shapes; decode also "
           f"against the "
           f"split-K plain version at its split) per route {per_route}: max "
           f"abs err f32 {err[torch.float32]:.3e} (limit {F32_TOL}), bf16 "
@@ -2263,14 +2290,26 @@ def _logit_errors(logits: torch.Tensor, gold: dict) -> tuple[float, int]:
     return worst, checked
 
 
+def _flash_layers(cfg) -> int:
+    """Layers that launch flash_attention once a forward and once a decode
+    step: GQA blocks and ``mamba_attn`` layers (the shared block); MLA and
+    ``mamba`` layers launch none."""
+    from repro_torch.models import model
+
+    if cfg.attention == "mla":
+        return 0
+    return sum(kind in ("dense", "moe", "mamba_attn")
+               for kind in model.layer_kinds(cfg))
+
+
 def _check_golden_model(gold: dict, cfg, dev, tag: str, tree) -> dict:
     """``cfg``'s model on the golden entry's weights (``tree``, drawn by
     `numpy_params`), prompt and teacher-forced tokens, float32 with TF32
     off, against the
     entry within LM_TOL, and every MoE call's expert picks equal to the
-    entry's ``routes``; GQA layers launch flash_attention on the simt
-    route for the prefill and the decode route for each step, MLA layers
-    none."""
+    entry's ``routes``; GQA layers (and ``mamba_attn`` layers' shared
+    block) launch flash_attention on the simt route for the prefill and
+    the decode route for each step, MLA and ``mamba`` layers none."""
     from repro_torch import convert
     from repro_torch.kernels import ops
     from repro_torch.models import mlp
@@ -2304,7 +2343,7 @@ def _check_golden_model(gold: dict, cfg, dev, tag: str, tree) -> dict:
     del params
     launches = ops.LAUNCHES["flash_attention"]
     routes = {r: ops.LAUNCHES[f"flash_{r}"] for r in ("simt", "decode")}
-    gqa = 0 if cfg.attention == "mla" else cfg.num_layers
+    gqa = _flash_layers(cfg)
     _check(worst <= LM_TOL, f"{tag}: largest difference {worst} > {LM_TOL}")
     _check(launches == gqa * (1 + steps),
            f"{tag}: flash_attention launched {launches} times, not "
@@ -2381,59 +2420,74 @@ def check_lm_golden(golden: dict, dev) -> dict:
     return _check_golden_model(gold, cfg, dev, "lm golden", tree)
 
 
-def check_moe_golden(golden: dict, dev) -> dict:
-    """The ``"moe"`` entries (deepseek-v3 and maverick at full width, cut
-    in depth and experts, float32): the model as `check_lm_golden` checks
-    llama, and every expert pick equal to the reference's.  numpy draws
-    the entries' weights (~13 GB each) in threads of their own, at once
-    (its draws release the interpreter lock), while the card checks the
-    first."""
+def check_golden_entries(entries: dict, dev, tag: str) -> dict:
+    """Golden entries of models at full width, cut in depth (and experts),
+    float32 (the ``"moe"`` and ``"ssm"`` entries): each model as
+    `check_lm_golden` checks llama, every expert pick equal to the
+    reference's.  numpy draws the entries' weights (up to ~13 GB each;
+    an SSD entry's per-head parameters redrawn by `numpy_ssm_heads`) in
+    threads of their own, at once (its draws release the interpreter
+    lock), while the card checks the first."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.configs import registry
     from repro_torch.models import init
 
     cfgs = {}
-    for name, gold in golden["moe"].items():
+    for name, gold in entries.items():
         cuts = {k: v for k, v in gold["cuts"].items() if k != "arch"}
         cfgs[name] = dataclasses.replace(registry.get(gold["arch"]), **cuts)
+
+    def draw(name):
+        tree = init.numpy_params(cfgs[name], entries[name]["param_seed"])
+        if "ssm_heads_seed" in entries[name]:
+            init.numpy_ssm_heads(tree, cfgs[name],
+                                 entries[name]["ssm_heads_seed"])
+        return tree
+
     t0 = time.perf_counter()
     out = {}
     with ThreadPoolExecutor(len(cfgs)) as pool:
-        trees = {name: pool.submit(init.numpy_params, cfg,
-                                   golden["moe"][name]["param_seed"])
-                 for name, cfg in cfgs.items()}
+        trees = {name: pool.submit(draw, name) for name in cfgs}
         for name, cfg in cfgs.items():
-            gold = golden["moe"][name]
+            gold = entries[name]
             tree = trees.pop(name).result()
-            print(f"[moe golden {name}] cuts {gold['cuts']}; weights drawn "
-                  f"{time.perf_counter() - t0:.1f}s after the draws began; "
-                  f"the reference's router margin (nearest tie between the "
-                  f"k-th and (k+1)-th expert) {gold['router_margin']:.3e} "
-                  f"over {gold['moe_calls']} MoE calls")
+            print(f"[{tag} {name}] cuts {gold['cuts']}; weights drawn "
+                  f"{time.perf_counter() - t0:.1f}s after the draws began"
+                  + (f"; the reference's router margin (nearest tie "
+                     f"between the k-th and (k+1)-th expert) "
+                     f"{gold['router_margin']:.3e} over "
+                     f"{gold['moe_calls']} MoE calls"
+                     if "router_margin" in gold else ""))
             out[name] = _check_golden_model(gold, cfg, dev,
-                                            f"moe golden {name}", tree)
+                                            f"{tag} {name}", tree)
             del tree
-            out[name]["router_margin"] = gold["router_margin"]
-            _release(f"moe golden {name}")
+            if "router_margin" in gold:
+                out[name]["router_margin"] = gold["router_margin"]
+            _release(f"{tag} {name}")
     return out
 
 
-def check_lm_bf16(dev) -> dict:
-    """llama3.2-3b at full width, LM_BF16_LAYERS layers, bf16, the port's
-    seeded init: the prefill logits of LM_BF16_BATCH prompts of
-    LM_BF16_PROMPT tokens through the kernels (the wgmma route) against
-    the same forward with ``ops.flash_attention`` patched, for that one
-    forward, to the plain version; limits LM_BF16_MAX_TOL (max abs) and
-    LM_BF16_MEAN_TOL (mean abs), greedy tokens equal where the plain run's
-    top-2 gap exceeds 2 x LM_BF16_MAX_TOL."""
+def check_lm_bf16(dev, arch: str = LM_ARCH, layers: int = LM_BF16_LAYERS,
+                  tag: str = "lm bf16") -> dict:
+    """``arch`` at full width, ``layers`` layers, bf16, the port's seeded
+    init: the prefill logits of LM_BF16_BATCH prompts of LM_BF16_PROMPT
+    tokens through the kernels (llama: the wgmma route; zamba2's head dim
+    80: the simt route) against the same forward with
+    ``ops.flash_attention`` patched, for that one forward, to the plain
+    version; limits LM_BF16_MAX_TOL (max abs) and LM_BF16_MEAN_TOL (mean
+    abs), greedy tokens equal where the plain run's top-2 gap exceeds 2 x
+    LM_BF16_MAX_TOL."""
     from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     from repro_torch.models import model
 
-    cfg = dataclasses.replace(registry.get(LM_ARCH),
-                              num_layers=LM_BF16_LAYERS, dtype="bfloat16",
-                              num_patches=0)
+    cfg = dataclasses.replace(registry.get(arch), num_layers=layers,
+                              dtype="bfloat16", num_patches=0)
+    route = fa.route(torch.bfloat16, LM_BF16_BATCH, LM_BF16_PROMPT,
+                     LM_BF16_PROMPT, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.head_dim, True)
     params = model.init_params(cfg, seed=0, device=dev)
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(rng.integers(
@@ -2443,7 +2497,7 @@ def check_lm_bf16(dev) -> dict:
     with torch.inference_mode():
         got = model.forward(params, cfg, {"tokens": prompt})[0]
         torch.cuda.synchronize()
-        wgmma = ops.LAUNCHES["flash_wgmma"]
+        launches = ops.LAUNCHES[f"flash_{route}"]
         kernel = ops.flash_attention
         ops.flash_attention = ref.flash_attention_ref
         try:
@@ -2459,25 +2513,28 @@ def check_lm_bf16(dev) -> dict:
             top2 = w.topk(2, dim=-1).values
             sure = (top2[:, 0] - top2[:, 1]) > 2 * LM_BF16_MAX_TOL
             _check(bool((g.argmax(-1) == w.argmax(-1))[sure].all()),
-                   f"LM bf16: a greedy token differs in row {row} where "
+                   f"{tag}: a greedy token differs in row {row} where "
                    f"the top-2 gap exceeds {2 * LM_BF16_MAX_TOL}")
             checked += int(sure.sum())
         mean = total / got.numel()
         spread = float(want.float().std())
     torch.cuda.synchronize()
-    _check(wgmma == cfg.num_layers, f"LM bf16: wgmma route launched "
-           f"{wgmma} times, not {cfg.num_layers}")
+    del params
+    _check(launches == _flash_layers(cfg), f"{tag}: {route} route launched "
+           f"{launches} times, not {_flash_layers(cfg)}")
     _check(worst <= LM_BF16_MAX_TOL and mean <= LM_BF16_MEAN_TOL,
-           f"LM bf16: logits differ by max {worst}, mean {mean} (limits "
+           f"{tag}: logits differ by max {worst}, mean {mean} (limits "
            f"{LM_BF16_MAX_TOL}, {LM_BF16_MEAN_TOL})")
-    print(f"[lm bf16] {cfg.name}, {cfg.num_layers} layers at full width, "
+    print(f"[{tag}] {cfg.name}, {cfg.num_layers} layers at full width, "
           f"bf16, batch {LM_BF16_BATCH} x prompt {LM_BF16_PROMPT}: prefill "
-          f"logits through the wgmma route ({wgmma} launches) against "
+          f"logits through the {route} route ({launches} launches, head "
+          f"dim {cfg.head_dim}) against "
           f"plain attention: max abs diff {worst:.4e} (limit "
           f"{LM_BF16_MAX_TOL}), mean {mean:.4e} (limit {LM_BF16_MEAN_TOL}),"
           f" logit spread {spread:.3f}; {checked} greedy tokens checked "
           f"equal; peak device memory {_peak_gib():.2f} GiB")
-    return {"max_abs_err": worst, "mean_abs_err": mean}
+    return {"max_abs_err": worst, "mean_abs_err": mean, "route": route,
+            "launches": launches}
 
 
 def run_lm_main_path() -> dict:
@@ -2537,6 +2594,38 @@ def run_lm_main_path() -> dict:
     return out
 
 
+def _serve_mix(arch: str, mix: str, want: dict, cfg=None):
+    """Serve one request batch of mix ``mix`` (LM_MIXES, batch LM_BATCH,
+    LM_NEW new tokens) through the launcher: ``arch``'s own config by
+    `run`, or ``cfg`` (a depth cut) by `serve_config`; counters as in 4.
+    Fails unless the logits are finite, the tokens in range, the flash
+    launches ``want`` and the peak under the card's memory; returns (the
+    run's numbers, the launches, peak device GiB)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    prompt_len, temp = LM_MIXES[mix]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    args = serve.parse_args([
+        "--arch", arch, "--device", "cuda", "--batch", str(LM_BATCH),
+        "--prompt-len", str(prompt_len), "--new-tokens", str(LM_NEW),
+        "--temperature", str(temp)])
+    r = serve.run(args) if cfg is None else serve.serve_config(cfg, args)
+    torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in want}
+    tokens, peak = r["tokens"], _peak_gib()
+    card = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    _check(r["finite"], f"{arch} ({mix}): non-finite logits")
+    _check(tokens.shape == (LM_BATCH, LM_NEW) and int(tokens.min()) >= 0
+           and int(tokens.max()) < r["cfg"].vocab_size,
+           f"{arch} ({mix}): tokens malformed")
+    _check(launches == want, f"{arch} ({mix}): launches {launches}, not "
+           f"{want}")
+    _check(peak < card, f"{arch} ({mix}): peak {peak} GiB")
+    return r, launches, peak
+
+
 def run_moe_main_path() -> dict:
     """deepseek-v3 and llama4-maverick at full width with their depth cut
     (MOE_MAIN), bf16, the port's seeded init, through the launcher's
@@ -2544,8 +2633,6 @@ def run_moe_main_path() -> dict:
     card at a time.  Counters as in 4 for each request batch: maverick's
     two GQA layers launch 2 wgmma + 2 × 32 decode, deepseek's MLA none."""
     from repro_torch.configs import registry
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve
     from repro_torch.models import mlp, model
 
     card = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
@@ -2554,7 +2641,7 @@ def run_moe_main_path() -> dict:
         cfg = dataclasses.replace(registry.get(arch), num_layers=layers,
                                   num_patches=0)
         kinds = model.layer_kinds(cfg)
-        gqa = 0 if cfg.attention == "mla" else cfg.num_layers
+        gqa = _flash_layers(cfg)
         fe = cfg.moe_d_ff or cfg.d_ff
         # Every expert's weights, bf16, in every MoE layer: a decode step's
         # bmm reads them all whenever the capacity is at least 1.
@@ -2564,23 +2651,8 @@ def run_moe_main_path() -> dict:
                 "flash_decode": gqa * LM_NEW, "flash_simt": 0}
         res = {}
         for mix, (prompt_len, temp) in LM_MIXES.items():
-            torch.cuda.reset_peak_memory_stats()
-            ops.reset_launches()
-            r = serve.serve_config(cfg, serve.parse_args([
-                "--arch", arch, "--device", "cuda", "--batch",
-                str(LM_BATCH), "--prompt-len", str(prompt_len),
-                "--new-tokens", str(LM_NEW), "--temperature", str(temp)]))
-            torch.cuda.synchronize()
-            launches = {k: ops.LAUNCHES[k] for k in want}
-            tokens, peak = r["tokens"], _peak_gib()
-            _check(r["finite"], f"{arch} ({mix}): non-finite logits")
-            _check(tokens.shape == (LM_BATCH, LM_NEW)
-                   and int(tokens.min()) >= 0
-                   and int(tokens.max()) < cfg.vocab_size,
-                   f"{arch} ({mix}): tokens malformed")
-            _check(launches == want, f"{arch} ({mix}): launches {launches}, "
-                   f"not {want}")
-            _check(peak < card, f"{arch} ({mix}): peak {peak} GiB")
+            r, launches, peak = _serve_mix(arch, mix, want, cfg)
+            tokens = r["tokens"]
             m = dict(prompt_len=prompt_len, temperature=temp,
                      prefill_s=r["prefill_s"], decode_s=r["decode_s"],
                      decode_ms=r["decode_ms_per_step"],
@@ -2624,6 +2696,90 @@ def run_moe_main_path() -> dict:
                   f"K ({cfg.head_dim + cfg.rope_head_dim}) and V "
                   f"({cfg.v_head_dim or cfg.head_dim}) of {cfg.num_heads} "
                   f"heads: {full / latent:.1f}x smaller")
+        out[arch] = res
+    return out
+
+
+def _ssm_step_bytes(cfg, param_bytes: int, batch: int,
+                    kv_len: float) -> dict:
+    """The bytes a bf16 decode step of ``cfg`` must move, by part: every
+    weight but the embedding (one row a token is read), the shared block
+    again for each ``mamba_attn`` invocation after the first, each mamba
+    layer's state (float32) and conv tail read and written, and the shared
+    block's K and V read over ``kv_len`` positions in each invocation."""
+    from repro_torch.models import model
+
+    kinds = model.layer_kinds(cfg)
+    d, di, S, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    invocations = kinds.count("mamba_attn")
+    shared = 2 * (2 * d + cfg.head_dim * d * (cfg.num_heads
+                                              + 2 * cfg.num_kv_heads)
+                  + cfg.num_heads * cfg.head_dim * d
+                  + (3 if cfg.gated_mlp else 2) * d * cfg.d_ff) \
+        if invocations else 0
+    state = 2 * batch * (H * S * (di // H) * 4
+                         + (cfg.conv_width - 1) * (di + 2 * S) * 2)
+    parts = {"weights": param_bytes - cfg.vocab_size * d * 2,
+             "shared_again": max(invocations - 1, 0) * shared,
+             "ssm_state": len(kinds) * state,
+             "kv_read": int(invocations * batch * kv_len * 2
+                            * cfg.num_kv_heads * cfg.head_dim * 2)}
+    return dict(parts, total=sum(parts.values()))
+
+
+def run_ssm_main_path() -> dict:
+    """mamba2-1.3b and zamba2-2.7b at full width and full depth, bf16, the
+    port's seeded init, through the launcher's `run`, each with request
+    mixes (a) and (b), one model on the card at a time.  Counters as in 4
+    for each request batch: mamba2 launches no flash_attention, zamba2's 9
+    shared-block invocations 9 simt (bf16 at head dim 80) + 9 × 32
+    decode."""
+    from repro_torch.configs import registry
+
+    card = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    out = {}
+    for arch in SSM_MAIN:
+        cfg = registry.get(arch)
+        n_attn = _flash_layers(cfg)
+        want = {"flash_attention": n_attn * (1 + LM_NEW),
+                "flash_simt": n_attn, "flash_decode": n_attn * LM_NEW,
+                "flash_wgmma": 0}
+        res = {}
+        for mix, (prompt_len, temp) in LM_MIXES.items():
+            r, launches, peak = _serve_mix(arch, mix, want)
+            tokens = r["tokens"]
+            _check(r["cfg"].num_layers == cfg.num_layers,
+                   f"{arch} ({mix}): depth {r['cfg'].num_layers}")
+            step = _ssm_step_bytes(cfg, r["param_bytes"], LM_BATCH,
+                                   prompt_len + (LM_NEW + 1) / 2)
+            m = dict(prompt_len=prompt_len, temperature=temp,
+                     prefill_s=r["prefill_s"], decode_s=r["decode_s"],
+                     decode_ms=r["decode_ms_per_step"],
+                     prefill_tok_s=LM_BATCH * prompt_len / r["prefill_s"],
+                     step_bytes=step,
+                     bound_ms=1e3 * step["total"] / HBM_BYTES_PER_S,
+                     weights_gib=r["param_bytes"] / 2 ** 30,
+                     launches=launches, peak_gib=peak)
+            res[mix] = m
+            print(f"[ssm main {mix}] {cfg.name}: {cfg.num_layers} layers "
+                  f"({n_attn} mamba_attn) at full width, {cfg.dtype}, "
+                  f"{r['param_bytes'] / 2 ** 30:.2f} GiB of weights "
+                  f"(param_count {cfg.param_count() / 1e9:.3f} B); batch "
+                  f"{LM_BATCH}, prompt {prompt_len}, {LM_NEW} new tokens at "
+                  f"temperature {temp}: prefill {m['prefill_s']:.4f}s "
+                  f"({m['prefill_tok_s']:.0f} tokens/s), decode "
+                  f"{m['decode_ms']:.3f} ms/step against "
+                  f"{m['bound_ms']:.3f} ms to move the step's "
+                  f"{step['total'] / 1e9:.3f} GB once at 3.35 TB/s "
+                  f"(weights but the embedding "
+                  f"{step['weights'] / 1e9:.3f}, the shared block again "
+                  f"{step['shared_again'] / 1e9:.3f}, SSD state and tail "
+                  f"read and written {step['ssm_state'] / 1e9:.3f}, KV read "
+                  f"{step['kv_read'] / 1e9:.3f}); flash launches "
+                  f"{launches}; peak device memory {peak:.2f} GiB of "
+                  f"{card:.2f}; tokens[0][:8] {tokens[0, :8].tolist()}")
+            del r, tokens
+            _release(f"{arch} ({mix})")
         out[arch] = res
     return out
 
@@ -2680,7 +2836,8 @@ def run_moe_a2a_phase(golden: dict) -> dict:
 
 
 def time_flash(dev) -> dict:
-    """At (b)'s prefill and decode shapes (bf16): the route the main path
+    """At (b)'s prefill and decode shapes (bf16), llama3.2-3b's (H 24, KVH
+    8, D 128) and zamba2's (H = KVH 32, D 80): the route the main path
     takes there and the simt route (the CUDA-core design) from CUDA graphs
     of 10 launches, the plain version (CUDA events), and SDPA both from a
     CUDA graph of 10 launches like the kernels and with events around one
@@ -2691,12 +2848,14 @@ def time_flash(dev) -> dict:
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    b, h, kvh, d = LM_BATCH, 24, 8, 128
+    b, causal = LM_BATCH, True
     lp = LM_MIXES["b"][0]
     per = {}
-    for shape, lq, lk, off, causal in (
-            ("prefill", lp, lp, 0, True),
-            ("decode", 1, lp + LM_NEW, lp + LM_NEW - 1, True)):
+    for shape, h, kvh, d, lq, lk, off in (
+            ("prefill", 24, 8, 128, lp, lp, 0),
+            ("decode", 24, 8, 128, 1, lp + LM_NEW, lp + LM_NEW - 1),
+            ("zamba2_prefill", 32, 32, 80, lp, lp, 0),
+            ("zamba2_decode", 32, 32, 80, 1, lp + LM_NEW, lp + LM_NEW - 1)):
         q = torch.randn((b, lq, h, d), generator=gen, device=dev).bfloat16()
         k = torch.randn((b, lk, kvh, d), generator=gen, device=dev).bfloat16()
         v = torch.randn((b, lk, kvh, d), generator=gen, device=dev).bfloat16()
@@ -2721,12 +2880,12 @@ def time_flash(dev) -> dict:
 
         want = plain()
         errs = {r: float((kernel(r)().float() - want.float()).abs().max())
-                for r in (main_route, "simt")}
+                for r in dict.fromkeys((main_route, "simt"))}
         lib_err = float((library().transpose(1, 2).float()
                          - want.float()).abs().max())
         del want
-        ms = {main_route: _kernel_ms(kernel(main_route)),
-              "simt": _kernel_ms(kernel("simt"))}
+        ms = {r: _kernel_ms(kernel(r))
+              for r in dict.fromkeys((main_route, "simt"))}
         plain_ms = _time_ms(plain, 3)
         lib_graph_ms = _kernel_ms(library)
         lib_eager_ms = _time_ms(library, 20)
@@ -2745,15 +2904,16 @@ def time_flash(dev) -> dict:
         t = per[shape]
         print(f"[timing flash] {shape} (B {b}, Lq {lq}, Lk {lk}, H {h}, KVH "
               f"{kvh}, D {d}, bf16, kv_offset {off}): {main_route} route "
-              f"{t['ms']:.4f} ms, simt route {t['simt_ms']:.4f} ms "
-              f"(CUDA graphs of 10), plain {plain_ms:.4f} ms, SDPA "
+              f"{t['ms']:.4f} ms"
+              + (f", simt route {t['simt_ms']:.4f} ms"
+                 if main_route != "simt" else "")
+              + f" (CUDA graphs of 10), plain {plain_ms:.4f} ms, SDPA "
               f"{lib_graph_ms:.4f} ms from a CUDA graph of 10 and "
               f"{lib_eager_ms:.4f} ms with events around one eager call "
               f"(its max abs diff from plain {lib_err:.3e}); bound "
               f"{t['bound_ms']:.6f} ms by {t['bound_by']} ({ops_ms:.6f} "
               f"operations, {bytes_ms:.6f} bytes); max abs err from plain "
-              f"{main_route} {errs[main_route]:.3e}, simt "
-              f"{errs['simt']:.3e}")
+              + ", ".join(f"{r} {e:.3e}" for r, e in errs.items()))
     return per
 
 
@@ -2849,8 +3009,12 @@ def main() -> int:
     lm_gold = check_lm_golden(golden, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    moe_gold = check_moe_golden(golden, dev)
+    moe_gold = check_golden_entries(golden["moe"], dev, "moe golden")
+    ssm_gold = check_golden_entries(golden["ssm"], dev, "ssm golden")
     lm_bf16 = check_lm_bf16(dev)
+    ssm_bf16 = check_lm_bf16(dev, "zamba2-2.7b",
+                             golden["ssm"]["zamba2"]["num_layers"],
+                             "ssm bf16")
     gc.collect()
     torch.cuda.empty_cache()
     lm = run_lm_main_path()
@@ -2859,9 +3023,15 @@ def main() -> int:
     moe = run_moe_main_path()
     a2a = run_moe_a2a_phase(golden)
     _release("MoE phases")
+    ssm = run_ssm_main_path()
+    _release("SSD phases")
     torch.cuda.reset_peak_memory_stats()
     fl = time_flash(dev)
     print(f"[timing flash] peak device memory {_peak_gib():.2f} GiB")
+    zamba2 = ssm["zamba2-2.7b"]["b"]
+    zamba2_simt_share = (zamba2["launches"]["flash_simt"]
+                         * fl["zamba2_prefill"]["ms"]
+                         / (1e3 * zamba2["prefill_s"]))
 
     print(f"[result] build {build_s:.2f}s; IC pool build {ic['build_s']:.3f}s "
           f"for 64 batches ({64 / ic['build_s']:.2f} batches/s), mixed flush "
@@ -2876,6 +3046,12 @@ def main() -> int:
                       f"tokens/s, decode {r['b']['decode_ms']:.3f} ms/step "
                       f"(experts' bound {r['b']['expert_bound_ms']:.3f})"
                       for arch, r in moe.items())
+          + "; " + "; ".join(
+              f"{arch} (b) prefill {r['b']['prefill_tok_s']:.0f} tokens/s, "
+              f"decode {r['b']['decode_ms']:.3f} ms/step (bytes' bound "
+              f"{r['b']['bound_ms']:.3f})" for arch, r in ssm.items())
+          + f" (zamba2's 9 simt launches at {fl['zamba2_prefill']['ms']:.4f}"
+          f" ms each: {zamba2_simt_share:.1%} of its (b) prefill)"
           + f"; MoE a2a within {a2a['max_abs_err']:.3e} of the reference; "
           f"flash_attention prefill "
           f"{fl['prefill']['ms']:.4f} ms (wgmma; simt "
@@ -3014,8 +3190,14 @@ def main() -> int:
              moe_golden_max_abs_err={k: v["max_abs_err"]
                                      for k, v in moe_gold.items()},
              lm_bf16_max_abs_err=lm_bf16["max_abs_err"],
+             ssm_golden_max_abs_err={k: v["max_abs_err"]
+                                     for k, v in ssm_gold.items()},
+             ssm_bf16_max_abs_err=ssm_bf16["max_abs_err"],
              launches_by_path={
                  "lm_llama3.2-3b": lm["launches"]["flash_attention"],
+                 **{f"ssm_{arch.split('-')[0]}_{mix}": ssm[arch][mix][
+                     "launches"]["flash_attention"]
+                    for arch in SSM_MAIN for mix in LM_MIXES},
                  **{f"moe_maverick_{mix}": moe[
                      "llama4-maverick-400b-a17b"][mix]["launches"][
                      "flash_attention"] for mix in LM_MIXES},
@@ -3047,12 +3229,30 @@ def main() -> int:
                  "simt": dict(
                      source="src/repro_torch/csrc/flash_attention.cu",
                      launches=lm["launches"]["flash_simt"],
+                     launches_zamba2={mix: ssm["zamba2-2.7b"][mix][
+                         "launches"]["flash_simt"] for mix in LM_MIXES},
                      cases=flash_err["cases"]["simt"],
                      bf16_rrms=flash_err["bf16_rrms"]["simt"],
                      ms={"prefill": fl["prefill"]["simt_ms"],
-                         "decode": fl["decode"]["simt_ms"]},
+                         "decode": fl["decode"]["simt_ms"],
+                         "zamba2_prefill": fl["zamba2_prefill"]["ms"]},
                      bound_ms={"prefill": fl["prefill"]["bound_ms"],
-                               "decode": fl["decode"]["bound_ms"]})}),
+                               "decode": fl["decode"]["bound_ms"],
+                               "zamba2_prefill": fl["zamba2_prefill"][
+                                   "bound_ms"]},
+                     zamba2_prefill={k: fl["zamba2_prefill"][k] for k in (
+                         "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "library_eager_ms", "max_abs_err")},
+                     zamba2_prefill_share=zamba2_simt_share),
+                 "decode_d80": dict(
+                     source="src/repro_torch/csrc/flash_decode.cu",
+                     shape="zamba2 decode",
+                     launches_zamba2={mix: ssm["zamba2-2.7b"][mix][
+                         "launches"]["flash_decode"] for mix in LM_MIXES},
+                     **{k: fl["zamba2_decode"][k] for k in (
+                         "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "library_eager_ms",
+                         "max_abs_err")})}),
         dict(name="fused_expand_q", route="cuda",
              source="src/repro_torch/csrc/fused_expand_q.cu",
              replaces="src/repro/kernels/fused_expand_q.py:110",

@@ -7,6 +7,7 @@
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --unfused-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --mesh-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --moe-only
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --ssm-only
 
 Builds the launcher's graph at the size the port's chip smoke serves
 (``powerlaw_cluster(65536, 6.0, prob=0.25, seed=7)``, deduped, reversed),
@@ -108,6 +109,29 @@ token's experts (``routes``, tokens in (batch, position) order), 256
 output values at seeded flat indices and the sum of the output's
 magnitudes.
 ``--moe-only`` recomputes both entries and keeps the others byte for byte.
+
+The ``"ssm"`` entry holds the two SSD models, each run as the ``"lm"``
+entry is (float32, 32 seeded vocabulary ids, 8 teacher-forced greedy
+steps) but with a prefill of 2 × 512 tokens, two of the configs' 256-token
+chunks, so that the inter-chunk scan and the state it carries are held at
+full width; full width and full vocabulary, depth cut (``SSM_CUTS``):
+
+- ``"mamba2"``: mamba2-1.3b (d 2,048, 64 SSD heads of 64, state 128,
+  vocabulary 50,280), 48 layers cut to 2;
+- ``"zamba2"``: zamba2-2.7b (d 2,560, 80 SSD heads of 64, state 64; the
+  shared block's 32 heads of 80, d_ff 10,240; vocabulary 32,000), 54
+  layers cut to 12, two groups of five ``mamba`` layers and a
+  ``mamba_attn``, so that the tied block runs twice with two KV caches.
+
+Weights: ``numpy_params(cfg, seed=0)``, then ``numpy_ssm_heads(tree, cfg,
+seed=0)`` (``models/init.py``), which redraws every mamba block's
+``a_log`` (log A, A uniform in [1, 16]), ``dt_bias`` (softplus⁻¹ of a
+log-uniform dt in [1e-3, 1e-1]) and ``d_skip`` (uniform in [0.5, 1.5])
+per head and its ``norm`` per channel — the reference's init gives every
+head the same value, which would hide a head-order mistake.  With A up to
+16 the masked upper triangle of a chunk's decay overflows float32 (the
+reference's ``jnp.where`` hides it).  ``--ssm-only`` recomputes this entry
+alone and keeps the others byte for byte.
 """
 from __future__ import annotations
 
@@ -150,6 +174,11 @@ MOE_CUTS = {
     "maverick": dict(arch="llama4-maverick-400b-a17b", num_layers=2,
                      num_experts=8),
 }
+# The "ssm" entry's configurations (module docstring): full width and
+# vocabulary, cut in depth; the per-head draws' seed and the prompt length.
+SSM_CUTS = {"mamba2": dict(arch="mamba2-1.3b", num_layers=2),
+            "zamba2": dict(arch="zamba2-2.7b", num_layers=12)}
+SSM_HEADS_SEED, SSM_PROMPT_LEN = 0, 512
 MOE_A2A_JOB = dict(arch="deepseek-v3-671b", overrides={"num_experts": 16},
                    seed=11, batch=2, seq=64, shape=[2, 2], n_idx=256)
 MESH_CASES = [dict(diffusion=d, frontier=f, shape=list(sh))
@@ -192,15 +221,21 @@ def _router_margin(probs, k: int) -> float:
     return float((top[:, k - 1] - top[:, k]).min())
 
 
-def _lm_entry(cfg, port_cfg) -> dict:
-    """Prefill and teacher-forced greedy decode of ``cfg`` on
-    `numpy_params(port_cfg, LM_PARAM_SEED)` (module docstring), with the
-    smallest router margin over every MoE layer call when it has MoE."""
+def _lm_entry(cfg, port_cfg, prompt_len: int = LM_PROMPT_LEN,
+              ssm_heads_seed: int | None = None) -> dict:
+    """Prefill of ``prompt_len`` tokens and teacher-forced greedy decode of
+    ``cfg`` on `numpy_params(port_cfg, LM_PARAM_SEED)` (module docstring;
+    the mixers' per-head parameters redrawn by `numpy_ssm_heads` when
+    ``ssm_heads_seed`` is given), with the smallest router margin over
+    every MoE layer call when it has MoE."""
     from repro.models import mlp as ref_mlp
 
-    params = _tree_to_jax(port_init.numpy_params(port_cfg, LM_PARAM_SEED))
+    tree = port_init.numpy_params(port_cfg, LM_PARAM_SEED)
+    if ssm_heads_seed is not None:
+        port_init.numpy_ssm_heads(tree, port_cfg, ssm_heads_seed)
+    params = _tree_to_jax(tree)
     rng = np.random.default_rng(LM_PROMPT_SEED)
-    prompt = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT_LEN))
+    prompt = rng.integers(0, cfg.vocab_size, (LM_BATCH, prompt_len))
     ids = np.sort(rng.choice(cfg.vocab_size, LM_IDS, replace=False))
     margins, routes = [], []
     moe_forward = ref_mlp.moe_forward
@@ -220,7 +255,7 @@ def _lm_entry(cfg, port_cfg) -> dict:
     try:
         last, caches, _ = engine.prefill(params, cfg,
                                          {"tokens": jnp.asarray(prompt)},
-                                         LM_PROMPT_LEN + LM_STEPS)
+                                         prompt_len + LM_STEPS)
         logits = np.asarray(last[:, -1], np.float32)
         out = {"arch": cfg.name, "num_layers": cfg.num_layers,
                "dtype": "float32", "param_seed": LM_PARAM_SEED,
@@ -232,9 +267,9 @@ def _lm_entry(cfg, port_cfg) -> dict:
         for i in range(LM_STEPS):
             tok = logits.argmax(-1)[:, None]
             lg, caches = step(params, caches, jnp.asarray(tok),
-                              jnp.int32(LM_PROMPT_LEN + i))
+                              jnp.int32(prompt_len + i))
             logits = np.asarray(lg[:, -1], np.float32)
-            out["decode"].append({"cur_len": LM_PROMPT_LEN + i,
+            out["decode"].append({"cur_len": prompt_len + i,
                                   "tokens": tok[:, 0].tolist(),
                                   **_logit_summary(logits, ids)})
         jax.effects_barrier()
@@ -272,6 +307,23 @@ def moe_golden() -> dict:
                                           if k != "arch"})
         out[name] = dict(_lm_entry(cfg, port_cfg), arch=cut["arch"],
                          cuts=cut)
+    return out
+
+
+def ssm_golden() -> dict:
+    """The ``"ssm"`` entry: one `_lm_entry` per `SSM_CUTS` configuration,
+    with its cuts, one model in memory at a time."""
+    out = {}
+    for name, cut in SSM_CUTS.items():
+        cut = dict(cut, dtype="float32")
+        over = {k: v for k, v in cut.items() if k != "arch"}
+        cfg = dataclasses.replace(registry.get(cut["arch"]), **over)
+        port_cfg = dataclasses.replace(port_registry.get(cut["arch"]),
+                                       **over)
+        out[name] = dict(_lm_entry(cfg, port_cfg, SSM_PROMPT_LEN,
+                                   SSM_HEADS_SEED),
+                         arch=cut["arch"], cuts=cut,
+                         ssm_heads_seed=SSM_HEADS_SEED)
     return out
 
 
@@ -587,6 +639,8 @@ def main() -> None:
     only.add_argument("--moe-only", action="store_true",
                       help="recompute the \"moe\" and \"moe_a2a\" "
                            "entries alone")
+    only.add_argument("--ssm-only", action="store_true",
+                      help="recompute the \"ssm\" entry alone")
     only.add_argument("--mesh-worker", metavar="JOB_JSON",
                       help="print mesh_reference(JOB) as JSON (run by "
                            "mesh_reference_subprocess)")
@@ -604,9 +658,9 @@ def main() -> None:
     entries = {"lm": lm_golden, "q": q_golden, "stream": stream_golden,
                "unfused": lambda: unfused_golden(golden["top_k"]["seeds"]),
                "mesh": mesh_golden, "moe": moe_golden,
-               "moe_a2a": moe_a2a_golden}
+               "moe_a2a": moe_a2a_golden, "ssm": ssm_golden}
     flags = {"lm": "lm", "q": "q", "stream": "stream", "unfused": "unfused",
-             "mesh": "mesh", "moe": "moe", "moe_a2a": "moe"}
+             "mesh": "mesh", "moe": "moe", "moe_a2a": "moe", "ssm": "ssm"}
     keys = [k for k in entries if getattr(args, f"{flags[k]}_only")]
     if keys:
         with open(OUT) as f:
@@ -669,6 +723,7 @@ def main() -> None:
     golden["mesh"] = mesh_golden()
     golden["moe"] = moe_golden()
     golden["moe_a2a"] = moe_a2a_golden()
+    golden["ssm"] = ssm_golden()
     _write(golden)
     print(f"wrote {os.path.normpath(OUT)} in {time.time() - t0:.1f}s")
 

@@ -81,16 +81,22 @@ def quantized_tiles_from_numpy(tile_src, tile_dst, q8, num_vertices: int,
     return tg, q
 
 
+# Leaves the reference keeps float32 in every dtype: MoE routers and the
+# SSD mixer's per-head decay, skip and dt bias.
+FLOAT32_LEAVES = frozenset({"router", "a_log", "d_skip", "dt_bias"})
+
+
 def lm_params_from_jax(tree: dict, cfg: ModelConfig,
                        device="cuda") -> model.LM:
     """The port's `model.LM` holding the weights of a reference parameter
     tree (``repro.models.model.init_params``'s layout, leaves as numpy
     arrays or anything ``np.asarray`` takes): ``embedding``, ``unembed``,
-    ``final_norm`` and one stack per `model.stacks_of` entry, of
-    ``block{i}`` leaves leading with the group axis; group ``g``'s block
-    ``i`` goes to the next layer, in the reference's order.  Leaves are
-    cast to the config's dtype on ``device`` one at a time, MoE routers to
-    float32 (the reference keeps them so in every dtype)."""
+    ``final_norm``, a hybrid config's ``shared_attn`` and one stack per
+    `model.stacks_of` entry, of ``block{i}`` leaves leading with the group
+    axis; group ``g``'s block ``i`` goes to the next layer, in the
+    reference's order.  Leaves are cast to the config's dtype on
+    ``device`` one at a time, those of `FLOAT32_LEAVES` to float32 (the
+    reference keeps them so in every dtype)."""
     model.check_supported(cfg)
     dev = device_lib.resolve(device)
     dt = common.dtype_of(cfg.dtype)
@@ -98,22 +104,31 @@ def lm_params_from_jax(tree: dict, cfg: ModelConfig,
     def put(a, dtype=dt):          # a host copy of our own, then the device
         return torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)
 
-    def tensors(leaves: dict, g: int) -> dict:
+    def tensors(leaves: dict, g=None) -> dict:
+        """A (nested) dict of leaves, group ``g`` of each (all of it when
+        ``g`` is None), as tensors."""
         return {k: tensors(a, g) if isinstance(a, dict)
-                else put(a[g], torch.float32 if k == "router" else dt)
+                else put(a if g is None else a[g],
+                         torch.float32 if k in FLOAT32_LEAVES else dt)
                 for k, a in leaves.items()}
 
-    layers = []
-    for (pattern, groups), stack in zip(model.stacks_of(cfg),
-                                        tree["stacks"], strict=True):
-        for g in range(groups):
-            for i, kind in enumerate(pattern):
-                block = stack[f"block{i}"]
-                ffn = block["moe" if kind == "moe" else "mlp"]
-                layers.append(model.Block(
-                    kind, put(block["norm1"][g]),
-                    common.param_dict(tensors(block["attn"], g)),
-                    put(block["norm2"][g]),
-                    common.param_dict(tensors(ffn, g))))
+    def block(kind, p: dict, g=None):
+        sel = (lambda a: a) if g is None else (lambda a: a[g])
+        if kind in model.MAMBA_KINDS:
+            return model.MambaBlock(kind, put(sel(p["norm1"])),
+                                    common.param_dict(tensors(p["mamba"],
+                                                              g)))
+        return model.Block(
+            kind, put(sel(p["norm1"])),
+            common.param_dict(tensors(p["attn"], g)), put(sel(p["norm2"])),
+            common.param_dict(tensors(p["moe" if kind == "moe" else "mlp"],
+                                      g)))
+
+    shared = (block("dense", tree["shared_attn"])
+              if cfg.family == "hybrid" else None)
+    layers = [block(kind, stack[f"block{i}"], g)
+              for (pattern, groups), stack in zip(model.stacks_of(cfg),
+                                                  tree["stacks"], strict=True)
+              for g in range(groups) for i, kind in enumerate(pattern)]
     return model.LM(put(tree["embedding"]), put(tree["unembed"]),
-                    put(tree["final_norm"]), layers)
+                    put(tree["final_norm"]), layers, shared)

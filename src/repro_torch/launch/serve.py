@@ -3,14 +3,16 @@
 
     python -m repro_torch.launch.serve --arch llama3.2-3b --smoke --device cpu
     python -m repro_torch.launch.serve --arch deepseek-v3-671b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke --device cpu
     python -m repro_torch.launch.serve --arch llama3.2-3b      # one GPU
 
 Weights are random, from a seeded generator on the device (no checkpoint is
 read); prompts come from ``numpy.random.default_rng(0)``.  GQA attention
-runs the hand-written CUDA kernel on a GPU and its plain version with
-``--device cpu``; MLA and MoE run plain PyTorch on either.  An arch with
-SSD blocks raises `NotImplementedError` before anything is allocated.
-`serve_config` serves a `ModelConfig` of the caller's (a depth-cut one,
+(zamba2's shared block too) runs the hand-written CUDA kernels on a GPU
+and their plain version with ``--device cpu``; MLA, MoE and the SSD mixer
+run plain PyTorch on either.  An SSD arch's prompt length must be a
+multiple of ``min(ssm_chunk, prompt length)`` (the smoke configs' chunk is
+16), as the reference's chunked SSD requires.  `serve_config` serves a `ModelConfig` of the caller's (a depth-cut one,
 say) through the same code as `run`.
 """
 from __future__ import annotations

@@ -1,2 +1,3 @@
-"""LM substrate of the port (the reference's ``models/``): the dense GQA
-family so far."""
+"""LM substrate of the port (the reference's ``models/``): GQA, MLA, MoE
+and the SSD mixer, for every architecture of the registry (patch
+embeddings aside)."""

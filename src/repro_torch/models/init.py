@@ -2,12 +2,17 @@
 
 `numpy_params` draws the tree that the reference's
 ``models/model.py::init_params`` returns — ``embedding``, ``unembed``,
-``final_norm`` and one stack per `model.stacks_of` entry, holding
-``block{i}`` per pattern position, whose leaves lead with the stack's
-group axis (``wq (G, d, h, hd)``, ``experts_w1 (G, E, d, fe)``, …) — with
-``numpy.random.default_rng(seed)`` in float32 (MoE routers too, as the
-reference keeps them), at the reference's scales (fan-in-scaled normals,
-unit-normal embeddings, unit norms, zero biases).  Neither JAX nor a card
+``final_norm``, a hybrid config's ``shared_attn`` (``norm1``, ``attn``,
+``norm2``, ``mlp``, no group axis) and one stack per `model.stacks_of`
+entry, holding ``block{i}`` per pattern position, whose leaves lead with
+the stack's group axis (``wq (G, d, h, hd)``, ``experts_w1 (G, E, d,
+fe)``, a mamba block's ``mamba.in_proj (G, d, 2·d_inner + 2S + H)``, …)
+— with ``numpy.random.default_rng(seed)`` in float32 (MoE routers too, as
+the reference keeps them), at the reference's scales and values
+(fan-in-scaled normals, unit-normal embeddings, the conv's normals × 0.1,
+unit norms, zero biases; a mixer's ``a_log`` 0, ``d_skip`` 1, ``dt_bias``
+0).  `numpy_ssm_heads` redraws a tree's per-head mixer parameters, whose
+init values are the same for every head.  Neither JAX nor a card
 is needed, so a golden script can hand the tree to the reference and a GPU
 run can load the same weights into the port
 (`repro_torch.convert.lm_params_from_jax`).
@@ -21,7 +26,7 @@ import numpy as np
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import shared_d_ff
-from repro_torch.models.model import check_supported, stacks_of
+from repro_torch.models.model import MAMBA_KINDS, check_supported, stacks_of
 
 
 def _normal(rng, shape, scale):
@@ -73,6 +78,32 @@ def _moe(rng, cfg: ModelConfig, g: int) -> dict:
     return p
 
 
+def _mamba(rng, cfg: ModelConfig, g: int) -> dict:
+    d, di, s, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    return {"in_proj": _normal(rng, (g, d, 2 * di + 2 * s + h), d ** -0.5),
+            "conv": _normal(rng, (g, cfg.conv_width, di + 2 * s), 0.1),
+            "a_log": np.zeros((g, h), np.float32),
+            "d_skip": np.ones((g, h), np.float32),
+            "dt_bias": np.zeros((g, h), np.float32),
+            "norm": np.ones((g, di), np.float32),
+            "out_proj": _normal(rng, (g, di, d), di ** -0.5)}
+
+
+def _block(rng, cfg: ModelConfig, kind: str, g: int) -> dict:
+    d = cfg.d_model
+    if kind in MAMBA_KINDS:
+        return {"norm1": np.ones((g, d), np.float32),
+                "mamba": _mamba(rng, cfg, g)}
+    block = {"norm1": np.ones((g, d), np.float32),
+             "attn": _attn(rng, cfg, g),
+             "norm2": np.ones((g, d), np.float32)}
+    if kind == "moe":
+        block["moe"] = _moe(rng, cfg, g)
+    else:
+        block["mlp"] = _mlp(rng, cfg, (g,), cfg.d_ff)
+    return block
+
+
 def numpy_params(cfg: ModelConfig, seed: int) -> dict:
     check_supported(cfg)
     rng = np.random.default_rng(seed)
@@ -85,21 +116,43 @@ def numpy_params(cfg: ModelConfig, seed: int) -> dict:
     else:
         tree["embedding"] = _normal(rng, (v, d), 1.0)
         tree["unembed"] = _normal(rng, (d, v), d ** -0.5)
-    stacks = []
-    for pattern, g in stacks_of(cfg):
-        blocks = {}
-        for i, kind in enumerate(pattern):
-            block = {"norm1": np.ones((g, d), np.float32),
-                     "attn": _attn(rng, cfg, g),
-                     "norm2": np.ones((g, d), np.float32)}
-            if kind == "moe":
-                block["moe"] = _moe(rng, cfg, g)
-            else:
-                block["mlp"] = _mlp(rng, cfg, (g,), cfg.d_ff)
-            blocks[f"block{i}"] = block
-        stacks.append(blocks)
-    tree["stacks"] = stacks
+    if cfg.family == "hybrid":        # the shared block, without a G axis
+        shared = _block(rng, cfg, "dense", 1)
+        tree["shared_attn"] = {k: (v[0] if isinstance(v, np.ndarray) else
+                                   {n: a[0] for n, a in v.items()})
+                               for k, v in shared.items()}
+    tree["stacks"] = [{f"block{i}": _block(rng, cfg, kind, g)
+                       for i, kind in enumerate(pattern)}
+                      for pattern, g in stacks_of(cfg)]
     tree["final_norm"] = np.ones((d,), np.float32)
+    return tree
+
+
+def numpy_ssm_heads(tree: dict, cfg: ModelConfig, seed: int) -> dict:
+    """Redraw, in place, every mamba block's per-head ``a_log`` (log A, A
+    uniform in [1, 16]), ``dt_bias`` (softplus⁻¹ of dt, dt log-uniform in
+    [1e-3, 1e-1]) and ``d_skip`` (uniform in [0.5, 1.5]), and its
+    per-channel ``norm`` (uniform in [0.5, 1.5]), from
+    ``numpy.random.default_rng((seed, 1))`` in stack, block and that
+    order — Mamba2's own init ranges, where the reference's init gives
+    every head the same value, so that a head-order mistake shows.
+    Returns ``tree``."""
+    rng = np.random.default_rng((seed, 1))
+    for pattern, stack in zip((p for p, _ in stacks_of(cfg)),
+                              tree["stacks"], strict=True):
+        for i, kind in enumerate(pattern):
+            if kind not in MAMBA_KINDS:
+                continue
+            m = stack[f"block{i}"]["mamba"]
+            m["a_log"] = np.log(rng.uniform(1, 16, m["a_log"].shape)
+                                ).astype(np.float32)
+            dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1),
+                                    m["dt_bias"].shape))
+            m["dt_bias"] = np.log(np.expm1(dt)).astype(np.float32)
+            m["d_skip"] = rng.uniform(0.5, 1.5, m["d_skip"].shape
+                                      ).astype(np.float32)
+            m["norm"] = rng.uniform(0.5, 1.5, m["norm"].shape
+                                    ).astype(np.float32)
     return tree
 
 

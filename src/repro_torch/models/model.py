@@ -1,31 +1,37 @@
 """Decoder-only LM of the substrate (the reference's ``models/model.py``),
-for configurations built of ``dense`` and ``moe`` blocks with GQA or MLA
-attention: llama3.2-3b, qwen1.5-110b, command-r-35b, nemotron-4-340b,
-phi-3-vision-4.2b (patches off), musicgen-medium, deepseek-v3-671b and
-llama4-maverick-400b-a17b.
+for every configuration of the registry: ``dense`` and ``moe`` blocks with
+GQA or MLA attention (llama3.2-3b, qwen1.5-110b, command-r-35b,
+nemotron-4-340b, phi-3-vision-4.2b with its patches off, musicgen-medium,
+deepseek-v3-671b, llama4-maverick-400b-a17b) and ``mamba`` /
+``mamba_attn`` blocks of the SSD mixer (mamba2-1.3b; zamba2-2.7b's hybrid
+stack).
 
 The reference scans one stacked parameter tree per stack of its layers;
-here each layer's weights are one `Block` module and the layers are one
-``ModuleList`` in the reference's order: stack by stack (`stacks_of`),
-group by group, pattern position within a group (deepseek-v3: its dense
-layers, then MoE; llama4: dense and MoE alternating).  ``remat``,
-``scan_layers`` and ``fsdp_per_layer_gather`` tune that scan and have no
-counterpart.  Audio sums its codebooks' embeddings and emits
-``num_codebooks`` heads of logits.  The mamba blocks and patch embeddings
-raise `NotImplementedError` (`check_supported`).
+here each layer's weights are one module (`Block` for an attention block,
+`MambaBlock` for a mamba one) and the layers are one ``ModuleList`` in the
+reference's order: stack by stack (`stacks_of`), group by group, pattern
+position within a group (deepseek-v3: its dense layers, then MoE; llama4:
+dense and MoE alternating; zamba2: five ``mamba`` layers, then a
+``mamba_attn``).  ``remat``, ``scan_layers`` and ``fsdp_per_layer_gather``
+tune that scan and have no counterpart.
+
+A ``mamba_attn`` layer applies, after its mixer, the *shared* transformer
+block (zamba2's weight-tied attention + MLP): one dense `Block` held once
+by the `LM` as ``shared_attn``, as the reference holds it at the top of
+its tree, and handed to every such layer; each invocation keeps a KV
+cache of its own.  Audio sums its codebooks' embeddings and emits
+``num_codebooks`` heads of logits.  Patch embeddings raise
+`NotImplementedError` (`check_supported`).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.models import attention, common, mlp
+from repro_torch.models import attention, common, mlp, ssm
 from repro_torch.models.config import ModelConfig
 
-SSD_UNPORTED = ("mamba / SSD blocks (models/ssm.py: mamba2, zamba2's hybrid "
-                "stack) are not ported yet: they come with a later slice of "
-                "the LM substrate (ROADMAP §1, 'Slice I, the rest of the LM "
-                "substrate')")
+MAMBA_KINDS = ("mamba", "mamba_attn")
 PATCHES_UNPORTED = ("patch embeddings (phi-3-vision's num_patches) are not "
                     "ported yet: set num_patches=0, as both launchers do; "
                     "they come with a later slice (ROADMAP §1, 'Slice I, "
@@ -61,12 +67,8 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` unless every layer of ``cfg`` is a
-    ``dense`` or ``moe`` block and it has no patch embeddings — before
+    """Raise `NotImplementedError` if ``cfg`` has patch embeddings — before
     anything is allocated."""
-    kinds = {kind for pattern, _ in stacks_of(cfg) for kind in pattern}
-    if kinds & {"mamba", "mamba_attn"}:
-        raise NotImplementedError(SSD_UNPORTED)
     if cfg.num_patches:
         raise NotImplementedError(PATCHES_UNPORTED)
 
@@ -91,17 +93,33 @@ class Block(nn.Module):
         setattr(self, "moe" if kind == "moe" else "mlp", ffn)
 
 
+class MambaBlock(nn.Module):
+    """One ``mamba`` or ``mamba_attn`` layer's weights: ``norm1`` and the
+    mixer's ``mamba`` (`ssm.init_mamba`'s names), nothing else — a
+    ``mamba_attn`` layer's attention is the `LM`'s ``shared_attn``."""
+
+    def __init__(self, kind: str, norm1, mamba: nn.ParameterDict):
+        super().__init__()
+        self.kind = kind
+        self.norm1 = _param(norm1)
+        self.mamba = mamba
+
+
 class LM(nn.Module):
     """The model's weights: ``embedding`` (V, d) (audio: (K, V, d)),
-    ``unembed`` (d, V) (audio: (d, K·V)), ``final_norm`` and one `Block`
-    per layer in ``layers``."""
+    ``unembed`` (d, V) (audio: (d, K·V)), ``final_norm``, one `Block` or
+    `MambaBlock` per layer in ``layers`` and, for a hybrid config, the one
+    ``shared_attn`` dense `Block` its ``mamba_attn`` layers apply (else
+    None)."""
 
-    def __init__(self, embedding, unembed, final_norm, layers: list[Block]):
+    def __init__(self, embedding, unembed, final_norm,
+                 layers: list[nn.Module], shared_attn: Block | None = None):
         super().__init__()
         self.embedding = _param(embedding)
         self.unembed = _param(unembed)
         self.final_norm = _param(final_norm)
         self.layers = nn.ModuleList(layers)
+        self.shared_attn = shared_attn
 
 
 # --------------------------------------------------------------------- init
@@ -109,7 +127,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``,
     drawn on the device in float32 one tensor (one expert) at a time and
     cast to the config's dtype (a full-width model never has a float32
-    copy); MoE routers stay float32."""
+    copy); MoE routers and the mixers' ``a_log``, ``d_skip`` and
+    ``dt_bias`` stay float32.  Drawn in the reference's order: embedding,
+    unembedding, the shared block, then the layers."""
     check_supported(cfg)
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -126,13 +146,21 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     def ones():
         return torch.ones(d, dtype=dt, device=dev)
 
+    shared = (Block("dense", ones(), attention.init_gqa(gen, cfg), ones(),
+                    mlp.init_mlp(gen, cfg))
+              if cfg.family == "hybrid" else None)
     attn_init = (attention.init_mla if cfg.attention == "mla"
                  else attention.init_gqa)
-    layers = [Block(kind, ones(), attn_init(gen, cfg), ones(),
-                    mlp.init_moe(gen, cfg) if kind == "moe"
-                    else mlp.init_mlp(gen, cfg))
-              for kind in layer_kinds(cfg)]
-    return LM(embedding, unembed, ones(), layers)
+
+    def layer(kind):
+        if kind in MAMBA_KINDS:
+            return MambaBlock(kind, ones(), ssm.init_mamba(gen, cfg))
+        return Block(kind, ones(), attn_init(gen, cfg), ones(),
+                     mlp.init_moe(gen, cfg) if kind == "moe"
+                     else mlp.init_mlp(gen, cfg))
+
+    layers = [layer(kind) for kind in layer_kinds(cfg)]
+    return LM(embedding, unembed, ones(), layers, shared)
 
 
 # ------------------------------------------------------------------- embed
@@ -173,9 +201,20 @@ def ffn_forward(p: Block, x, cfg: ModelConfig):
     return mlp.mlp_forward(p.mlp, x, cfg), None
 
 
-def _apply_block(p: Block, h, positions, cfg: ModelConfig):
-    """One block; returns (h, aux or None, cache pair): (k, v) for GQA,
-    (c, k_rope) for MLA."""
+def _apply_block(p: nn.Module, h, positions, cfg: ModelConfig,
+                 shared: Block | None = None):
+    """One block; returns (h, aux or None, cache): (k, v) for GQA, (c,
+    k_rope) for MLA, (state, conv tail) for ``mamba`` and ((state, conv
+    tail), (k, v)) for ``mamba_attn``, whose attention and MLP are those of
+    ``shared``."""
+    if p.kind in MAMBA_KINDS:
+        out, cache = ssm.mamba_forward(
+            p.mamba, common.rms_norm(h, p.norm1, cfg.norm_eps), cfg)
+        h = h + out
+        if p.kind == "mamba_attn":
+            h, _, kv = _apply_block(shared, h, positions, cfg)
+            cache = (cache, kv)
+        return h, None, cache
     attn_fwd = (attention.mla_forward if cfg.attention == "mla"
                 else attention.gqa_forward)
     a_out, kv = attn_fwd(p.attn, common.rms_norm(h, p.norm1, cfg.norm_eps),
@@ -190,15 +229,17 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, *,
             collect_cache: bool = False):
     """Prefill forward.  Returns (logits (B, L, V[, K]) in the working
     dtype, the MoE layers' aux losses summed in float32 (0 without MoE),
-    caches): with ``collect_cache`` one pair per layer, (k, v) each (B, L,
-    KVH, hd) for GQA, (c (B, L, kr), k_rope (B, L, rd)) for MLA; else
-    None."""
+    caches): with ``collect_cache`` one entry per layer, (k, v) each (B, L,
+    KVH, hd) for GQA, (c (B, L, kr), k_rope (B, L, rd)) for MLA, (state
+    (B, H, S, P) float32, conv tail (B, w-1, d_inner + 2S)) for ``mamba``
+    and ((state, tail), (k, v)) for ``mamba_attn``; else None."""
     check_supported(cfg)
     h, positions = embed_inputs(params, cfg, batch)
     caches = []
     total_aux = torch.zeros((), device=h.device)
     for layer in params.layers:
-        h, aux, kv = _apply_block(layer, h, positions, cfg)
+        h, aux, kv = _apply_block(layer, h, positions, cfg,
+                                  params.shared_attn)
         if aux is not None:
             total_aux = total_aux + aux
         if collect_cache:

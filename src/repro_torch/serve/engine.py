@@ -1,10 +1,12 @@
 """Batched LM serving: prefill once, decode many, static-shape caches (the
-reference's ``serve/engine.py``, dense and MoE blocks, GQA and MLA).
+reference's ``serve/engine.py``, every block kind).
 
-``caches_from_prefill`` pads the pairs that
-``model.forward(collect_cache=True)`` emits (prompt length) to the decode
-layout of ``max_len``: ``{"k", "v"}`` dicts for GQA, the latent ``{"c",
-"k_rope"}`` for MLA — one prefill pass replaces prompt_len decode steps.
+``caches_from_prefill`` turns what ``model.forward(collect_cache=True)``
+emits (prompt length) into the decode layout of ``max_len``, by layer
+kind: ``{"k", "v"}`` dicts for GQA and the latent ``{"c", "k_rope"}`` for
+MLA, padded to ``max_len``; a ``mamba`` layer's ``{"state", "conv"}`` as
+they are; for ``mamba_attn`` both — one prefill pass replaces prompt_len
+decode steps.
 """
 from __future__ import annotations
 
@@ -27,11 +29,22 @@ def _pad_seq(x: torch.Tensor, max_len: int) -> torch.Tensor:
 
 
 def caches_from_prefill(cfg: ModelConfig, prefill_caches, max_len: int):
-    """Prefill cache (a pair per layer, length L) → decode cache (dicts,
-    max_len)."""
-    names = ("c", "k_rope") if cfg.attention == "mla" else ("k", "v")
-    return [{name: _pad_seq(t, max_len) for name, t in zip(names, pair)}
-            for pair in prefill_caches]
+    """Prefill cache (one entry per layer, length L) → decode cache (dicts,
+    sequences padded to max_len), by layer kind."""
+    kv_names = ("c", "k_rope") if cfg.attention == "mla" else ("k", "v")
+
+    def padded(pair, names=("k", "v")):
+        return {name: _pad_seq(t, max_len) for name, t in zip(names, pair)}
+
+    out = []
+    for kind, c in zip(model.layer_kinds(cfg), prefill_caches, strict=True):
+        if kind == "mamba":
+            out.append(dict(zip(("state", "conv"), c)))
+        elif kind == "mamba_attn":
+            out.append((dict(zip(("state", "conv"), c[0])), padded(c[1])))
+        else:
+            out.append(padded(c, kv_names))
+    return out
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, max_len: int):

@@ -219,7 +219,9 @@ def test_flash_attention_kernel_equals_plain(cuda, dtype, causal, b, lq, lk,
     ("decode", torch.bfloat16, 1, 1, 77, 8, 8, 16, True, 0),
     ("decode", torch.float32, 1, 1, 64, 4, 2, 256, False, 0),
     ("simt", torch.float32, 1, 130, 190, 8, 1, 128, True, 60),
-    ("simt", torch.bfloat16, 2, 100, 100, 6, 2, 96, True, 0)])
+    ("simt", torch.bfloat16, 2, 100, 100, 6, 2, 96, True, 0),
+    ("simt", torch.bfloat16, 2, 130, 130, 8, 8, 80, True, 0),
+    ("decode", torch.bfloat16, 2, 1, 300, 8, 8, 80, True, 299)])
 def test_flash_route_kernel_equals_plain(cuda, route, dtype, b, lq, lk, h,
                                          kvh, d, causal, kv_offset):
     """Each route on shapes it takes (ragged Lq and Lk, Lq below one query
@@ -839,14 +841,16 @@ def test_cover_counts_on_a_row_slice_equals_plain(cuda, shards):
     assert torch.equal(multi, ref.cover_counts_multi_ref(vis, act))
 
 
-# ------------------------------------------------------- MoE and MLA (LM)
+# ------------------------------------------- MoE, MLA and SSD (LM)
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b",
-                                  "llama4-maverick-400b-a17b"])
+                                  "llama4-maverick-400b-a17b",
+                                  "mamba2-1.3b", "zamba2-2.7b"])
 def test_moe_mla_model_on_the_card_equals_the_host(cuda, arch):
     """The smoke model's float32 prefill logits and aux, and 4 decode steps
-    (MLA's absorbed decode; maverick's GQA on the flash kernels), on the
-    card within 1e-4 of the same weights on the host; the router, a float32
-    tensor, picks the same experts (capacity 1.25 drops tokens in both)."""
+    (MLA's absorbed decode; maverick's and zamba2's GQA on the flash
+    kernels; the SSD recurrence on its cached state), on the card within
+    1e-4 of the same weights on the host; the router, a float32 tensor,
+    picks the same experts (capacity 1.25 drops tokens in both)."""
     import copy
     import dataclasses
     from repro_torch.configs import registry

@@ -1,5 +1,6 @@
 """Port ≡ reference for the LM serving path: the dense-attention family,
-deepseek-v3 (MLA + MoE) and llama4-maverick (GQA + MoE).
+deepseek-v3 (MLA + MoE), llama4-maverick (GQA + MoE), mamba2 (SSD) and
+zamba2 (SSD + a shared attention block).
 
 Each module of ``repro_torch.models`` and ``repro_torch.serve.engine`` is
 held against its counterpart in ``repro`` on the same inputs (numpy from a
@@ -9,7 +10,8 @@ in float32 on the CPU, where attention runs the flash kernel's plain
 version.  Tolerances: 1e-5 per module, 1e-4 for whole-model logits and
 caches (two to four layers of float32 matmuls summed in another order),
 greedy tokens exactly equal.  MoE smoke configs decode at capacity
-factor 8 (no token dropped at decode's batch)."""
+factor 8 (no token dropped at decode's batch).  SSD archs prefill 32
+tokens (two chunks of the smoke configs' 16)."""
 import dataclasses
 
 import jax
@@ -38,8 +40,8 @@ torch.set_num_threads(1)
 DENSE_ARCHS = ["llama3.2-3b", "qwen1.5-110b", "command-r-35b",
                "nemotron-4-340b", "phi-3-vision-4.2b", "musicgen-medium"]
 MOE_ARCHS = ["deepseek-v3-671b", "llama4-maverick-400b-a17b"]
-PORTED_ARCHS = DENSE_ARCHS + MOE_ARCHS
-UNPORTED_ARCHS = ["zamba2-2.7b", "mamba2-1.3b"]
+SSM_ARCHS = ["mamba2-1.3b", "zamba2-2.7b"]
+PORTED_ARCHS = DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS
 
 
 def _t(a) -> torch.Tensor:
@@ -197,11 +199,23 @@ def _prompt(cfg, B, L, seed):
 
 
 def _layer_caches(cfg, stacks) -> list:
-    """The reference's decode caches (one dict per stack and block, leaves
-    leading with the group axis) as one dict per layer, in layer order."""
-    return [{name: leaf[g] for name, leaf in stack[f"block{i}"].items()}
+    """The reference's decode caches (one entry per stack and block, leaves
+    leading with the group axis) as one entry per layer, in layer order."""
+    return [jax.tree.map(lambda leaf, g=g: leaf[g], stack[f"block{i}"])
             for (pattern, groups), stack in zip(jmodel.stacks_of(cfg), stacks)
             for g in range(groups) for i in range(len(pattern))]
+
+
+def _flat(cache) -> dict:
+    """One layer's decode cache as {name: tensor}: a ``mamba_attn`` pair's
+    two dicts merged (their names differ)."""
+    return (cache if isinstance(cache, dict)
+            else {k: t for part in cache for k, t in part.items()})
+
+
+def _prompt_len(arch) -> int:
+    """Two of the smoke SSD configs' 16-token chunks; 16 elsewhere."""
+    return 32 if arch in SSM_ARCHS else 16
 
 
 _RUNS = {}
@@ -209,8 +223,9 @@ _RUNS = {}
 
 def _run(arch, **kw):
     """The reference's and the port's results for one arch (``kw`` replaced
-    in its smoke config), computed once: prefill (B 2, L 16) logits, aux
-    and caches, 4 teacher-forced decode steps, and 4 greedy tokens."""
+    in its smoke config), computed once: prefill (B 2, L `_prompt_len`)
+    logits, aux and caches (padded to L + 8), 4 teacher-forced decode
+    steps, and 4 greedy tokens."""
     key = (arch, tuple(sorted(kw.items())))
     if key in _RUNS:
         return _RUNS[key]
@@ -218,7 +233,8 @@ def _run(arch, **kw):
     jparams = jmodel.init_params(jax.random.key(7), jc)
     tparams = convert.lm_params_from_jax(
         jax.tree.map(np.asarray, jparams), tc, device="cpu")
-    B, L, T, max_len = 2, 16, 4, 24
+    B, L, T = 2, _prompt_len(arch), 4
+    max_len = L + 8
     prompt = _prompt(tc, B, L, 3)
     forced = _prompt(tc, B, T, 4)
 
@@ -243,13 +259,13 @@ def _run(arch, **kw):
     wcache = jengine.caches_from_prefill(
         jc, jmodel.forward(jparams, jc, {"tokens": jnp.asarray(prompt)},
                            collect_cache=True)[2], max_len)
-    out["want"]["cache"] = _layer_caches(jc, wcache)
+    out["want"]["cache"] = [_flat(c) for c in _layer_caches(jc, wcache)]
 
     tprompt = torch.from_numpy(prompt)
     gl, gc, plen = engine.prefill(tparams, tc, {"tokens": tprompt}, max_len)
     assert plen == L
     gfull, gaux, _ = model.forward(tparams, tc, {"tokens": tprompt})
-    gcache = [{k: c[k].clone() for k in c} for c in gc]
+    gcache = [{k: t.clone() for k, t in _flat(c).items()} for c in gc]
     gsteps = []
     for i in range(T):
         lg, gc = decode.decode_step(tparams, tc, gc, torch.from_numpy(tok(i)),
@@ -277,14 +293,21 @@ def test_forward_logits_and_prefill_caches(arch):
     _close(got["full"], want["full"], 1e-4)
     _close(got["last"], want["last"], 1e-4)
     assert len(got["cache"]) == len(want["cache"]) == tc.num_layers
-    shapes = ({"c": (2, 24, tc.kv_lora_rank),
-               "k_rope": (2, 24, tc.rope_head_dim)}
-              if tc.attention == "mla" else
-              dict.fromkeys(("k", "v"),
-                            (2, 24, tc.num_kv_heads, tc.head_dim)))
-    for cache, wcache in zip(got["cache"], want["cache"]):
-        assert {k: tuple(v.shape) for k, v in cache.items()} == shapes
-        for name in shapes:
+    max_len = _prompt_len(arch) + 8
+    kv = ({"c": (2, max_len, tc.kv_lora_rank),
+           "k_rope": (2, max_len, tc.rope_head_dim)}
+          if tc.attention == "mla" else
+          dict.fromkeys(("k", "v"), (2, max_len, tc.num_kv_heads,
+                                     tc.head_dim)))
+    mamba = {"state": (2, tc.ssm_heads, tc.ssm_state,
+                       tc.d_inner // max(tc.ssm_heads, 1)),
+             "conv": (2, tc.conv_width - 1, tc.d_inner + 2 * tc.ssm_state)}
+    shapes = {"mamba": mamba, "mamba_attn": {**mamba, **kv}}
+    for kind, cache, wcache in zip(model.layer_kinds(tc), got["cache"],
+                                   want["cache"], strict=True):
+        want_shapes = shapes.get(kind, kv)
+        assert {k: tuple(v.shape) for k, v in cache.items()} == want_shapes
+        for name in want_shapes:
             _close(cache[name], wcache[name], 1e-4)
 
 
@@ -343,6 +366,76 @@ def test_moe_teacher_forced_decode_equals_forward(arch):
                                rtol=1e-5)
 
 
+def test_zamba2_teacher_forced_decode_equals_forward():
+    """The gold check for the hybrid stack: zamba2's mamba layers decode
+    their recurrence and its shared block attends its own KV caches, token
+    by token from empty caches, to the full forward's logits (32 tokens,
+    two SSD chunks)."""
+    _, tc = _cfgs("zamba2-2.7b")
+    params = model.init_params(tc, seed=4, device="cpu")
+    tokens = torch.from_numpy(_prompt(tc, 2, 32, 7))
+    full, _, _ = model.forward(params, tc, {"tokens": tokens})
+    caches = decode.init_caches(tc, 2, 32, "cpu")
+    steps = [decode.decode_step(params, tc, caches, tokens[:, t:t + 1], t)[0]
+             for t in range(32)]
+    torch.testing.assert_close(torch.cat(steps, 1), full, atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_zamba2_mamba_attn_layers_share_one_block_with_own_caches(
+        monkeypatch):
+    """At zamba2's own depth (54 layers, a shared block every 6) and smoke
+    widths: the 9 ``mamba_attn`` layers apply the one ``shared_attn``
+    module — every call gets its parameter objects, which the model holds
+    once — and hold 9 KV caches of their own, each written only by its
+    layer."""
+    _, tc = _cfgs("zamba2-2.7b", num_layers=54, hybrid_attn_every=6)
+    params = model.init_params(tc, seed=5, device="cpu")
+    kinds = model.layer_kinds(tc)
+    assert kinds.count("mamba_attn") == 9 and len(params.layers) == 54
+    shared = params.shared_attn
+    assert isinstance(shared, model.Block)
+    for layer in params.layers:
+        assert isinstance(layer, model.MambaBlock)
+        assert set(dict(layer.named_children())) == {"mamba"}
+    names = [n for n, _ in params.named_parameters()]
+    n_shared = sum(n.startswith("shared_attn.") for n in names)
+    assert n_shared == len(list(shared.parameters()))
+    assert not any(".attn." in n or ".mlp." in n for n in names
+                   if n.startswith("layers."))
+    seen = []
+    gqa_forward, gqa_decode = attention.gqa_forward, attention.gqa_decode
+
+    def spy_forward(p, *a):
+        seen.append(p)
+        return gqa_forward(p, *a)
+
+    def spy_decode(p, x, cache, *a):
+        seen.append(p)
+        return gqa_decode(p, x, cache, *a)
+
+    monkeypatch.setattr(attention, "gqa_forward", spy_forward)
+    monkeypatch.setattr(attention, "gqa_decode", spy_decode)
+    tokens = torch.from_numpy(_prompt(tc, 2, 16, 8))
+    caches = engine.prefill(params, tc, {"tokens": tokens}, 20)[1]
+    assert len(seen) == 9 and all(p is shared.attn for p in seen)
+    kv = [c[1] for c, kind in zip(caches, kinds) if kind == "mamba_attn"]
+    assert len(kv) == 9
+    assert len({t.data_ptr() for c in kv for t in c.values()}) == 18
+    before = [{k: t.clone() for k, t in c.items()} for c in kv]
+    seen.clear()
+    decode.decode_step(params, tc, caches, tokens[:, :1], 16)
+    assert len(seen) == 9 and all(p is shared.attn for p in seen)
+    for c, old in zip(kv, before):
+        for name, t in c.items():
+            assert not torch.equal(t[:, 16], old[name][:, 16])
+            torch.testing.assert_close(t[:, :16], old[name][:, :16],
+                                       atol=0, rtol=0)
+    fresh = decode.init_caches(tc, 2, 20, "cpu")
+    fresh_kv = [c[1] for c, kind in zip(fresh, kinds) if kind == "mamba_attn"]
+    assert len({t.data_ptr() for c in fresh_kv for t in c.values()}) == 18
+
+
 def test_numpy_params_has_the_reference_tree_layout():
     """`numpy_params` gives the reference's tree, leaf for leaf in shape
     (one stack per `stacks_of` entry, MoE and MLA leaves included), so the
@@ -364,6 +457,11 @@ def test_numpy_params_has_the_reference_tree_layout():
     (maverick,) = init.numpy_params(_cfgs("llama4-maverick-400b-a17b")[1],
                                     0)["stacks"]
     assert "mlp" in maverick["block0"] and "moe" in maverick["block1"]
+    zamba = init.numpy_params(_cfgs("zamba2-2.7b")[1], 0)
+    assert set(zamba["shared_attn"]) == {"norm1", "attn", "norm2", "mlp"}
+    m = zamba["stacks"][0]["block1"]["mamba"]
+    assert (m["a_log"] == 0).all() and (m["d_skip"] == 1).all()
+    assert (m["dt_bias"] == 0).all() and (m["norm"] == 1).all()
 
 
 def test_lm_params_from_jax_keeps_the_router_float32():
@@ -384,6 +482,29 @@ def test_lm_params_from_jax_keeps_the_router_float32():
             assert layer.mlp["w1"].dtype == torch.bfloat16
 
 
+def test_lm_params_from_jax_keeps_the_mixers_per_head_leaves_float32():
+    """A bf16 zamba2's mamba layers are bf16 but for ``a_log``,
+    ``d_skip`` and ``dt_bias``, which keep the tree's per-head values
+    (`numpy_ssm_heads`) exactly; the shared block is bf16 and held
+    once."""
+    _, tc = _cfgs("zamba2-2.7b", dtype="bfloat16")
+    tree = init.numpy_ssm_heads(init.numpy_params(tc, 0), tc, 0)
+    params = convert.lm_params_from_jax(tree, tc, device="cpu")
+    assert [layer.kind for layer in params.layers] == model.layer_kinds(tc)
+    for g, (layer, i) in enumerate(zip(params.layers, (0, 1, 0, 1))):
+        m, src = layer.mamba, tree["stacks"][0][f"block{i}"]["mamba"]
+        for name in ("a_log", "d_skip", "dt_bias"):
+            assert m[name].dtype == torch.float32
+            np.testing.assert_array_equal(m[name].numpy(), src[name][g // 2])
+        for name in ("in_proj", "conv", "norm", "out_proj"):
+            assert m[name].dtype == torch.bfloat16
+        assert layer.norm1.dtype == torch.bfloat16
+    assert len(np.unique(tree["stacks"][0]["block0"]["mamba"]["a_log"])) \
+        == 2 * tc.ssm_heads
+    assert params.shared_attn.attn["wq"].dtype == torch.bfloat16
+    assert params.shared_attn.mlp["w1"].dtype == torch.bfloat16
+
+
 # ------------------------------------------------------------- launcher
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_launcher_smoke_on_cpu(arch, capsys):
@@ -398,14 +519,18 @@ def test_launcher_smoke_on_cpu(arch, capsys):
     assert "[launch.serve]" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", UNPORTED_ARCHS)
-def test_unported_arch_raises_before_allocating(arch, monkeypatch):
+def test_unported_arch_raises_before_allocating(monkeypatch):
+    """Patch embeddings are all that is left unported: phi-3-vision with
+    its ``num_patches`` (the launcher's `run` turns them off) raises
+    before anything is allocated."""
     def refuse(*args, **kwargs):
         raise AssertionError("allocated before refusing the arch")
     monkeypatch.setattr(model, "init_params", refuse)
+    cfg = registry.smoke("phi-3-vision-4.2b")
+    assert cfg.num_patches
     with pytest.raises(NotImplementedError, match="later slice"):
-        tserve.run(tserve.parse_args(["--arch", arch, "--smoke", "--device",
-                                      "cpu"]))
+        tserve.serve_config(cfg, tserve.parse_args(
+            ["--arch", "phi-3-vision-4.2b", "--smoke", "--device", "cpu"]))
 
 
 def test_launcher_cuda_without_gpu_raises(monkeypatch):
