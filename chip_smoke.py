@@ -172,13 +172,14 @@ else.  Phases, each of which raises on failure:
 14. flash attention, after the quantised stacks are released: the
     kernels against their plain version on the card through
     ``ops.flash_attention``, which picks one of three routes by shape
-    (``wgmma``: bf16 prefill at D 64/128; ``decode``: one query row;
-    ``simt``: the rest) — float32 and bfloat16, causal and not,
+    (``wgmma``: bf16 prefill at D 64/80/96/128; ``decode``: one query
+    row; ``simt``: the rest) — float32 and bfloat16, causal and not,
     ``kv_offset`` 0 and > 0, H/KVH 1, 3, 5, 8 and 12, head dims 16, 64,
-    80, 96, 128 and 192, ragged Lq and Lk, and the LM main path's,
-    maverick's (H 40, KVH 8, a group of 5) and zamba2's (H = KVH 32, D
-    80: its prefill on the simt route, its decode on the decode route's
-    E = 5 instantiation) prefill and decode shapes; each
+    80, 96, 128 and 192, ragged Lq and Lk (130 over 190 and 257 over 457
+    at D 80 and 96), and the LM main path's, maverick's (H 40, KVH 8, a
+    group of 5), zamba2's (H = KVH 32, D 80) and phi-3-vision's (H = KVH
+    32, D 96) prefill and decode shapes (their bf16 prefill on the wgmma
+    route, float32 on simt); each
     decode case also against the split-K plain
     version cut at the kernel's own split; float32 within 2e-5 max abs,
     bfloat16 within atol = rtol = 2e-2 (the reference's kernel test) and
@@ -207,9 +208,14 @@ else.  Phases, each of which raises on failure:
     draws, a prefill of 2 × 512 tokens, two SSD chunks): mamba2-1.3b cut
     to 2 layers (no flash launch) and zamba2-2.7b cut to 12 (two groups:
     its shared block 2 simt and 2 × 8 decode, each invocation on a KV
-    cache of its own); (ssm bf16) zamba2 at that depth in bf16 as (bf16)
-    checks llama, its prefill's attention on the simt route at head dim
-    80 — the first bf16 simt run at model scale;
+    cache of its own); (vlm golden) the file's ``"vlm"`` entry the same
+    way: phi-3-vision-4.2b cut to 2 layers, each prompt of 64 tokens
+    after 64 seeded patch embeddings (``numpy_patch_embeds``), 2 simt and
+    2 × 8 decode at head dim 96; (ssm bf16) zamba2 at that depth in bf16
+    as (bf16) checks llama, its prefill's attention on the wgmma route at
+    head dim 80; (vlm bf16) phi-3-vision at 2 layers the same way, 64
+    patch embeddings then 1,984 tokens, on the wgmma route at head dim
+    96;
 16. LM main path at full width: llama3.2-3b, 28 layers, bf16, the port's
     seeded init, through ``launch.serve``'s ``run``: (a) the launcher's own
     mix, batch 4, prompt 32, 32 new tokens at temperature 0.7; (b) batch
@@ -239,14 +245,26 @@ else.  Phases, each of which raises on failure:
     zamba2-2.7b (54 layers, a ``mamba_attn`` every 6th applying the one
     shared attention + MLP block); finite logits, tokens in range; per
     request batch mamba2 launches no flash_attention and zamba2 exactly
-    9 simt + 9 × 32 decode (0 wgmma: head dim 80).  It prints prefill
+    9 wgmma (head dim 80) + 9 × 32 decode, 0 simt.  It prints prefill
     tokens/s, decode ms a step beside the time to move the step's bytes
     once at 3.35 TB/s (every weight but the embedding, the shared block
     once per invocation, the SSD state and conv tail read and written,
     the shared block's KV cache read) and peak device memory;
-17. flash timing at (b)'s prefill and decode shapes and at zamba2's (H =
-    KVH 32, D 80): the route the main
-    path takes and the simt route (the CUDA-core kernel) from CUDA graphs of
+16e. the VLM main path at full width and full depth, bf16, the port's
+    seeded init: phi-3-vision-4.2b (32 layers, 32 heads of 96) through
+    ``launch.serve``'s ``run`` with (a) and (b) (patches off, as the
+    launcher has them), 32 wgmma + 32 × 32 decode a request batch, 0
+    simt; then (c) a prefill of 64 seeded patch embeddings and 1,984
+    tokens (2,048 positions) through ``engine.prefill`` and 8 greedy
+    decode steps from position 2,048: 32 wgmma, then 8 × 32 decode,
+    finite logits, tokens in the vocabulary.  It prints prefill tokens/s,
+    decode ms a step beside the time to move the step's bytes once
+    (every weight but the embedding, every layer's KV read) and peak
+    device memory;
+17. flash timing at (b)'s prefill and decode shapes, at zamba2's (H =
+    KVH 32, D 80) and at phi-3-vision's (H = KVH 32, D 96): the route the
+    main path takes and the simt route (the CUDA-core kernel, the earlier
+    design at D 80 and 96) from CUDA graphs of
     10 launches, the plain version and, as the library's time,
     ``scaled_dot_product_attention(..., enable_gqa=True)`` (timed only;
     the port never calls it) from a CUDA graph of 10 launches and with
@@ -317,6 +335,9 @@ MOE_A2A_TOL = 1e-4
 MOE_MAIN = {"deepseek-v3-671b": 5, "llama4-maverick-400b-a17b": 2}
 # The SSD main path (phase 16d): both archs at full width and full depth.
 SSM_MAIN = ("mamba2-1.3b", "zamba2-2.7b")
+# The VLM phases (15, 16e): phi-3-vision at full width and full depth; the
+# patched prefill's patch seed and greedy decode steps.
+VLM_ARCH, VLM_PATCH_SEED, VLM_STEPS = "phi-3-vision-4.2b", 0, 8
 # Integer operations of the counter hash (core/rng.py): one fold is
 # 2 shifts + 3 adds + 1 xor, then mix32 is 3 shift-xor pairs + 2 multiplies;
 # a colour draw adds shift, convert, scale and compare.
@@ -2159,13 +2180,16 @@ def run_q_phases(golden: dict, dev) -> dict:
 def _flash_cases():
     """(name, B, Lq, Lk, H, KVH, D, causal, kv_offset) of the kernel
     checks: the main path's two shapes first, then maverick's (a group of
-    5 query heads a KV head) and zamba2's (head dim 80)."""
+    5 query heads a KV head), zamba2's (head dim 80) and phi-3-vision's
+    (96)."""
     cases = [("main prefill", 4, 2048, 2048, 24, 8, 128, True, 0),
              ("main decode", 4, 1, 2080, 24, 8, 128, True, 2079),
              ("maverick prefill", 4, 2048, 2048, 40, 8, 128, True, 0),
              ("maverick decode", 4, 1, 2080, 40, 8, 128, True, 2079),
              ("zamba2 prefill", 4, 2048, 2048, 32, 32, 80, True, 0),
-             ("zamba2 decode", 4, 1, 2080, 32, 32, 80, True, 2079)]
+             ("zamba2 decode", 4, 1, 2080, 32, 32, 80, True, 2079),
+             ("phi prefill", 4, 2048, 2048, 32, 32, 96, True, 0),
+             ("phi decode", 4, 1, 2080, 32, 32, 96, True, 2079)]
     for causal in (True, False):
         cases += [
             ("H/KVH 1, D 64", 2, 128, 128, 4, 4, 64, causal, 0),
@@ -2179,6 +2203,12 @@ def _flash_cases():
              causal, 257),
             ("decode, H/KVH 12, D 96", 1, 1, 300, 12, 1, 96, causal, 150),
             ("H/KVH 1, D 80, ragged", 2, 100, 140, 4, 4, 80, causal, 40),
+            ("H/KVH 8, D 80, ragged Lk", 1, 130, 190, 8, 1, 80, causal, 60),
+            ("H/KVH 8, D 96, ragged Lk", 1, 130, 190, 8, 1, 96, causal, 60),
+            ("H/KVH 3, D 80, 4 key blocks", 2, 257, 457, 6, 2, 80, causal,
+             17),
+            ("H/KVH 5, D 96, 4 key blocks", 2, 257, 457, 10, 2, 96, causal,
+             17),
         ]
     return cases
 
@@ -2254,8 +2284,8 @@ def check_flash(dev) -> dict:
     _check(not missing, f"flash_attention: no case ran route(s) {missing}")
     print(f"[flash] {n} cases (f32 and bf16, causal and not, kv_offset 0 "
           f"and > 0, H/KVH 1/3/5/8/12, D 16-192, ragged Lq and Lk, the main "
-          f"path's, maverick's and zamba2's (D 80) prefill and decode "
-          f"shapes; decode also "
+          f"path's, maverick's, zamba2's (D 80) and phi-3-vision's (D 96) "
+          f"prefill and decode shapes; decode also "
           f"against the "
           f"split-K plain version at its split) per route {per_route}: max "
           f"abs err f32 {err[torch.float32]:.3e} (limit {F32_TOL}), bf16 "
@@ -2356,7 +2386,10 @@ def _check_golden_model(gold: dict, cfg, dev, tag: str, tree) -> dict:
     print(f"[{tag}] {cfg.name}, {cfg.num_layers} layers at full width "
           f"(d {cfg.d_model}, vocab {cfg.vocab_size}), float32, weights "
           f"{weights_gib:.2f} GiB loaded in {load_s:.1f}s: prefill "
-          f"{tuple(prompt.shape)} and {steps} teacher-forced steps within "
+          f"{tuple(prompt.shape)}"
+          + (f" after {cfg.num_patches} patch embeddings"
+             if "patch_seed" in gold else "")
+          + f" and {steps} teacher-forced steps within "
           f"{worst:.3e} of the reference (limit {LM_TOL}); {checked} greedy "
           f"tokens equal; "
           + (f"{picks} expert picks equal; " if picks else "")
@@ -2367,14 +2400,20 @@ def _check_golden_model(gold: dict, cfg, dev, tag: str, tree) -> dict:
 
 
 def _run_golden_model(gold: dict, cfg, params, prompt, steps: int):
-    """The golden entry's prefill and teacher-forced steps; returns the
-    largest logit difference and the greedy tokens checked."""
-    from repro_torch.models import decode
+    """The golden entry's prefill (a VLM entry's seeded patch embeddings
+    before its prompt) and teacher-forced steps; returns the largest logit
+    difference and the greedy tokens checked."""
+    from repro_torch.models import decode, init
     from repro_torch.serve import engine
 
+    batch, positions = {"tokens": prompt}, prompt.shape[1]
+    if "patch_seed" in gold:
+        batch["patch_embeds"] = torch.from_numpy(init.numpy_patch_embeds(
+            cfg, gold["patch_seed"], prompt.shape[0])).to(prompt.device)
+        positions += cfg.num_patches
     with torch.inference_mode():
-        last, caches, _ = engine.prefill(params, cfg, {"tokens": prompt},
-                                         prompt.shape[1] + steps)
+        last, caches, _ = engine.prefill(params, cfg, batch,
+                                         positions + steps)
         worst, checked = _logit_errors(last[:, -1].float(),
                                        {"ids": gold["vocab_ids"],
                                         **gold["prefill"]})
@@ -2469,39 +2508,46 @@ def check_golden_entries(entries: dict, dev, tag: str) -> dict:
 
 
 def check_lm_bf16(dev, arch: str = LM_ARCH, layers: int = LM_BF16_LAYERS,
-                  tag: str = "lm bf16") -> dict:
+                  tag: str = "lm bf16", patches: bool = False) -> dict:
     """``arch`` at full width, ``layers`` layers, bf16, the port's seeded
     init: the prefill logits of LM_BF16_BATCH prompts of LM_BF16_PROMPT
-    tokens through the kernels (llama: the wgmma route; zamba2's head dim
-    80: the simt route) against the same forward with
+    positions (with ``patches``, the config's seeded patch embeddings,
+    then tokens) through the kernels (the wgmma route: llama at head dim
+    128, zamba2 at 80, phi-3-vision at 96) against the same forward with
     ``ops.flash_attention`` patched, for that one forward, to the plain
-    version; limits LM_BF16_MAX_TOL (max abs) and LM_BF16_MEAN_TOL (mean
-    abs), greedy tokens equal where the plain run's top-2 gap exceeds 2 x
-    LM_BF16_MAX_TOL."""
+    version (float32 inside, bf16 out); limits LM_BF16_MAX_TOL (max abs)
+    and LM_BF16_MEAN_TOL (mean abs), greedy tokens equal where the plain
+    run's top-2 gap exceeds 2 x LM_BF16_MAX_TOL."""
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import model
+    from repro_torch.models import init, model
 
     cfg = dataclasses.replace(registry.get(arch), num_layers=layers,
-                              dtype="bfloat16", num_patches=0)
+                              dtype="bfloat16")
+    if not patches:
+        cfg = dataclasses.replace(cfg, num_patches=0)
     route = fa.route(torch.bfloat16, LM_BF16_BATCH, LM_BF16_PROMPT,
                      LM_BF16_PROMPT, cfg.num_heads, cfg.num_kv_heads,
                      cfg.head_dim, True)
     params = model.init_params(cfg, seed=0, device=dev)
     rng = np.random.default_rng(0)
-    prompt = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (LM_BF16_BATCH, LM_BF16_PROMPT))).to(dev)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size,
+        (LM_BF16_BATCH, LM_BF16_PROMPT - cfg.num_patches))).to(dev)}
+    if cfg.num_patches:
+        batch["patch_embeds"] = torch.from_numpy(init.numpy_patch_embeds(
+            cfg, 0, LM_BF16_BATCH)).to(dev)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     with torch.inference_mode():
-        got = model.forward(params, cfg, {"tokens": prompt})[0]
+        got = model.forward(params, cfg, batch)[0]
         torch.cuda.synchronize()
         launches = ops.LAUNCHES[f"flash_{route}"]
         kernel = ops.flash_attention
         ops.flash_attention = ref.flash_attention_ref
         try:
-            want = model.forward(params, cfg, {"tokens": prompt})[0]
+            want = model.forward(params, cfg, batch)[0]
         finally:
             ops.flash_attention = kernel
         worst, total, checked = 0.0, 0.0, 0
@@ -2526,7 +2572,9 @@ def check_lm_bf16(dev, arch: str = LM_ARCH, layers: int = LM_BF16_LAYERS,
            f"{tag}: logits differ by max {worst}, mean {mean} (limits "
            f"{LM_BF16_MAX_TOL}, {LM_BF16_MEAN_TOL})")
     print(f"[{tag}] {cfg.name}, {cfg.num_layers} layers at full width, "
-          f"bf16, batch {LM_BF16_BATCH} x prompt {LM_BF16_PROMPT}: prefill "
+          f"bf16, batch {LM_BF16_BATCH} x prompt {LM_BF16_PROMPT}"
+          + (f" ({cfg.num_patches} patch embeddings, then tokens)"
+             if cfg.num_patches else "") + ": prefill "
           f"logits through the {route} route ({launches} launches, head "
           f"dim {cfg.head_dim}) against "
           f"plain attention: max abs diff {worst:.4e} (limit "
@@ -2700,87 +2748,175 @@ def run_moe_main_path() -> dict:
     return out
 
 
-def _ssm_step_bytes(cfg, param_bytes: int, batch: int,
-                    kv_len: float) -> dict:
+def _step_bytes(cfg, param_bytes: int, batch: int, kv_len: float) -> dict:
     """The bytes a bf16 decode step of ``cfg`` must move, by part: every
     weight but the embedding (one row a token is read), the shared block
     again for each ``mamba_attn`` invocation after the first, each mamba
-    layer's state (float32) and conv tail read and written, and the shared
-    block's K and V read over ``kv_len`` positions in each invocation."""
+    layer's state (float32) and conv tail read and written, and each
+    attention layer's (each ``mamba_attn`` invocation's) K and V read over
+    ``kv_len`` positions."""
     from repro_torch.models import model
 
     kinds = model.layer_kinds(cfg)
-    d, di, S, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    d = cfg.d_model
     invocations = kinds.count("mamba_attn")
     shared = 2 * (2 * d + cfg.head_dim * d * (cfg.num_heads
                                               + 2 * cfg.num_kv_heads)
                   + cfg.num_heads * cfg.head_dim * d
                   + (3 if cfg.gated_mlp else 2) * d * cfg.d_ff) \
         if invocations else 0
-    state = 2 * batch * (H * S * (di // H) * 4
-                         + (cfg.conv_width - 1) * (di + 2 * S) * 2)
+    mamba = sum(kind in model.MAMBA_KINDS for kind in kinds)
+    state = 0
+    if mamba:
+        di, S, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        state = 2 * batch * (H * S * (di // H) * 4
+                             + (cfg.conv_width - 1) * (di + 2 * S) * 2)
     parts = {"weights": param_bytes - cfg.vocab_size * d * 2,
              "shared_again": max(invocations - 1, 0) * shared,
-             "ssm_state": len(kinds) * state,
-             "kv_read": int(invocations * batch * kv_len * 2
+             "ssm_state": mamba * state,
+             "kv_read": int(_flash_layers(cfg) * batch * kv_len * 2
                             * cfg.num_kv_heads * cfg.head_dim * 2)}
     return dict(parts, total=sum(parts.values()))
 
 
-def run_ssm_main_path() -> dict:
-    """mamba2-1.3b and zamba2-2.7b at full width and full depth, bf16, the
-    port's seeded init, through the launcher's `run`, each with request
-    mixes (a) and (b), one model on the card at a time.  Counters as in 4
-    for each request batch: mamba2 launches no flash_attention, zamba2's 9
-    shared-block invocations 9 simt (bf16 at head dim 80) + 9 × 32
-    decode."""
+def _serve_full_depth(arch: str, tag: str) -> dict:
+    """``arch`` at full width and full depth, bf16, the port's seeded
+    init, through the launcher's `run` with request mixes (a) and (b).
+    Counters as in 4 for each request batch: each attention layer (each
+    ``mamba_attn`` invocation) launches 1 wgmma + LM_NEW decode, 0 simt.
+    Prints the ``[tag a|b]`` lines: prefill tokens/s, decode ms a step
+    beside the time to move the step's bytes once (`_step_bytes`), peak
+    device memory."""
     from repro_torch.configs import registry
 
+    cfg = registry.get(arch)
     card = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
-    out = {}
-    for arch in SSM_MAIN:
-        cfg = registry.get(arch)
-        n_attn = _flash_layers(cfg)
-        want = {"flash_attention": n_attn * (1 + LM_NEW),
-                "flash_simt": n_attn, "flash_decode": n_attn * LM_NEW,
-                "flash_wgmma": 0}
-        res = {}
-        for mix, (prompt_len, temp) in LM_MIXES.items():
-            r, launches, peak = _serve_mix(arch, mix, want)
-            tokens = r["tokens"]
-            _check(r["cfg"].num_layers == cfg.num_layers,
-                   f"{arch} ({mix}): depth {r['cfg'].num_layers}")
-            step = _ssm_step_bytes(cfg, r["param_bytes"], LM_BATCH,
-                                   prompt_len + (LM_NEW + 1) / 2)
-            m = dict(prompt_len=prompt_len, temperature=temp,
-                     prefill_s=r["prefill_s"], decode_s=r["decode_s"],
-                     decode_ms=r["decode_ms_per_step"],
-                     prefill_tok_s=LM_BATCH * prompt_len / r["prefill_s"],
-                     step_bytes=step,
-                     bound_ms=1e3 * step["total"] / HBM_BYTES_PER_S,
-                     weights_gib=r["param_bytes"] / 2 ** 30,
-                     launches=launches, peak_gib=peak)
-            res[mix] = m
-            print(f"[ssm main {mix}] {cfg.name}: {cfg.num_layers} layers "
-                  f"({n_attn} mamba_attn) at full width, {cfg.dtype}, "
-                  f"{r['param_bytes'] / 2 ** 30:.2f} GiB of weights "
-                  f"(param_count {cfg.param_count() / 1e9:.3f} B); batch "
-                  f"{LM_BATCH}, prompt {prompt_len}, {LM_NEW} new tokens at "
-                  f"temperature {temp}: prefill {m['prefill_s']:.4f}s "
-                  f"({m['prefill_tok_s']:.0f} tokens/s), decode "
-                  f"{m['decode_ms']:.3f} ms/step against "
-                  f"{m['bound_ms']:.3f} ms to move the step's "
-                  f"{step['total'] / 1e9:.3f} GB once at 3.35 TB/s "
-                  f"(weights but the embedding "
-                  f"{step['weights'] / 1e9:.3f}, the shared block again "
-                  f"{step['shared_again'] / 1e9:.3f}, SSD state and tail "
-                  f"read and written {step['ssm_state'] / 1e9:.3f}, KV read "
-                  f"{step['kv_read'] / 1e9:.3f}); flash launches "
-                  f"{launches}; peak device memory {peak:.2f} GiB of "
-                  f"{card:.2f}; tokens[0][:8] {tokens[0, :8].tolist()}")
-            del r, tokens
-            _release(f"{arch} ({mix})")
-        out[arch] = res
+    n_attn = _flash_layers(cfg)
+    want = {"flash_attention": n_attn * (1 + LM_NEW), "flash_wgmma": n_attn,
+            "flash_decode": n_attn * LM_NEW, "flash_simt": 0}
+    res = {}
+    for mix, (prompt_len, temp) in LM_MIXES.items():
+        r, launches, peak = _serve_mix(arch, mix, want)
+        tokens = r["tokens"]
+        _check(r["cfg"].num_layers == cfg.num_layers,
+               f"{arch} ({mix}): depth {r['cfg'].num_layers}")
+        step = _step_bytes(r["cfg"], r["param_bytes"], LM_BATCH,
+                           prompt_len + (LM_NEW + 1) / 2)
+        m = dict(prompt_len=prompt_len, temperature=temp,
+                 prefill_s=r["prefill_s"], decode_s=r["decode_s"],
+                 decode_ms=r["decode_ms_per_step"],
+                 prefill_tok_s=LM_BATCH * prompt_len / r["prefill_s"],
+                 step_bytes=step,
+                 bound_ms=1e3 * step["total"] / HBM_BYTES_PER_S,
+                 weights_gib=r["param_bytes"] / 2 ** 30,
+                 launches=launches, peak_gib=peak)
+        res[mix] = m
+        print(f"[{tag} {mix}] {cfg.name}: {cfg.num_layers} layers "
+              f"({n_attn} attention) at full width, {cfg.dtype}, {m['weights_gib']:.2f} GiB of weights "
+              f"(param_count {cfg.param_count() / 1e9:.3f} B); batch "
+              f"{LM_BATCH}, prompt {prompt_len}, {LM_NEW} new tokens at "
+              f"temperature {temp}: prefill {m['prefill_s']:.4f}s "
+              f"({m['prefill_tok_s']:.0f} tokens/s), decode "
+              f"{m['decode_ms']:.3f} ms/step against "
+              f"{m['bound_ms']:.3f} ms to move the step's "
+              f"{step['total'] / 1e9:.3f} GB once at 3.35 TB/s "
+              f"(weights but the embedding "
+              f"{step['weights'] / 1e9:.3f}, the shared block again "
+              f"{step['shared_again'] / 1e9:.3f}, SSD state and tail "
+              f"read and written {step['ssm_state'] / 1e9:.3f}, KV read "
+              f"{step['kv_read'] / 1e9:.3f}); flash launches "
+              f"{launches}; peak device memory {peak:.2f} GiB of "
+              f"{card:.2f}; tokens[0][:8] {tokens[0, :8].tolist()}")
+        del r, tokens
+        _release(f"{arch} ({mix})")
+    return res
+
+
+def run_ssm_main_path() -> dict:
+    """mamba2-1.3b and zamba2-2.7b through `_serve_full_depth`, one model
+    on the card at a time: mamba2 launches no flash_attention, zamba2's 9
+    shared-block invocations 9 wgmma (bf16 at head dim 80) + 9 × 32
+    decode a request batch."""
+    return {arch: _serve_full_depth(arch, "ssm main") for arch in SSM_MAIN}
+
+
+def run_vlm_main_path(dev) -> dict:
+    """phi-3-vision-4.2b through `_serve_full_depth` (the launcher turns
+    its patches off, as the reference's does): 32 wgmma + 32 × 32 decode a
+    request batch; then (c), a prefill of VLM_ARCH's seeded patch
+    embeddings and tokens, (b)'s prompt length of positions in all,
+    through ``engine.prefill`` and VLM_STEPS greedy decode steps: 32 wgmma,
+    then 32 decode a step, finite logits, tokens in the vocabulary
+    (counters as in 4)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import decode, init, model
+    from repro_torch.serve import engine
+
+    out = _serve_full_depth(VLM_ARCH, "vlm main")
+    cfg = registry.get(VLM_ARCH)
+    n_attn = _flash_layers(cfg)
+    keys = ("flash_attention", "flash_wgmma", "flash_decode", "flash_simt")
+    positions = LM_MIXES["b"][0]
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(cfg, seed=serve.PARAM_SEED, device=dev)
+    rng = np.random.default_rng(serve.PROMPT_SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, positions - cfg.num_patches))).to(dev)
+    patches = torch.from_numpy(init.numpy_patch_embeds(
+        cfg, VLM_PATCH_SEED, LM_BATCH)).to(dev)
+    ops.reset_launches()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches, plen = engine.prefill(
+            params, cfg, {"tokens": tokens, "patch_embeds": patches},
+            positions + VLM_STEPS)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        at_prefill = {k: ops.LAUNCHES[k] for k in keys}
+        finite = torch.isfinite(logits).all()
+        picked = []
+        for i in range(VLM_STEPS):
+            tok = logits[:, -1].argmax(-1)[:, None]
+            picked.append(tok)
+            logits, caches = decode.decode_step(params, cfg, caches, tok,
+                                                plen + i)
+            finite &= torch.isfinite(logits).all()
+        picked = torch.cat(picked, 1)
+        torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in keys}
+    peak = _peak_gib()
+    del params, caches, logits
+    want_prefill = {"flash_attention": n_attn, "flash_wgmma": n_attn,
+                    "flash_decode": 0, "flash_simt": 0}
+    want_all = {"flash_attention": n_attn * (1 + VLM_STEPS),
+                "flash_wgmma": n_attn, "flash_decode": n_attn * VLM_STEPS,
+                "flash_simt": 0}
+    _check(plen == positions, f"vlm (c): prefill of {plen} positions, not "
+           f"{positions}")
+    _check(at_prefill == want_prefill and launches == want_all,
+           f"vlm (c): launches {at_prefill} at the prefill and {launches} "
+           f"after it, not {want_prefill} and {want_all}")
+    _check(bool(finite), "vlm (c): non-finite logits")
+    _check(int(picked.min()) >= 0 and int(picked.max()) < cfg.vocab_size,
+           "vlm (c): tokens outside the vocabulary")
+    out["c"] = dict(positions=positions, patches=cfg.num_patches,
+                    prefill_s=prefill_s,
+                    prefill_pos_s=LM_BATCH * positions / prefill_s,
+                    steps=VLM_STEPS, launches=launches, peak_gib=peak)
+    print(f"[vlm main c] {cfg.name}: batch {LM_BATCH}, {cfg.num_patches} "
+          f"seeded patch embeddings of {model.PATCH_EMBED_DIM} (float32, "
+          f"projected in float32, cast to {cfg.dtype}) then "
+          f"{positions - cfg.num_patches} tokens, {positions} positions, "
+          f"through engine.prefill in {prefill_s:.4f}s "
+          f"({out['c']['prefill_pos_s']:.0f} positions/s), then "
+          f"{VLM_STEPS} greedy decode steps at cur_len {plen}..."
+          f"{plen + VLM_STEPS - 1}: logits finite, tokens in the vocabulary "
+          f"(tokens[0] {picked[0].tolist()}); flash launches {at_prefill} "
+          f"at the prefill, {launches} in all; peak device memory "
+          f"{peak:.2f} GiB")
     return out
 
 
@@ -2837,9 +2973,10 @@ def run_moe_a2a_phase(golden: dict) -> dict:
 
 def time_flash(dev) -> dict:
     """At (b)'s prefill and decode shapes (bf16), llama3.2-3b's (H 24, KVH
-    8, D 128) and zamba2's (H = KVH 32, D 80): the route the main path
-    takes there and the simt route (the CUDA-core design) from CUDA graphs
-    of 10 launches, the plain version (CUDA events), and SDPA both from a
+    8, D 128), zamba2's (H = KVH 32, D 80) and phi-3-vision's (H = KVH 32,
+    D 96): the route the main path takes there and the simt route (the
+    CUDA-core design, the earlier one at D 80 and 96) from CUDA graphs of
+    10 launches, the plain version (CUDA events), and SDPA both from a
     CUDA graph of 10 launches like the kernels and with events around one
     eager call; each beside the function's bound on this card."""
     import torch.nn.functional as F
@@ -2855,7 +2992,9 @@ def time_flash(dev) -> dict:
             ("prefill", 24, 8, 128, lp, lp, 0),
             ("decode", 24, 8, 128, 1, lp + LM_NEW, lp + LM_NEW - 1),
             ("zamba2_prefill", 32, 32, 80, lp, lp, 0),
-            ("zamba2_decode", 32, 32, 80, 1, lp + LM_NEW, lp + LM_NEW - 1)):
+            ("zamba2_decode", 32, 32, 80, 1, lp + LM_NEW, lp + LM_NEW - 1),
+            ("phi_prefill", 32, 32, 96, lp, lp, 0),
+            ("phi_decode", 32, 32, 96, 1, lp + LM_NEW, lp + LM_NEW - 1)):
         q = torch.randn((b, lq, h, d), generator=gen, device=dev).bfloat16()
         k = torch.randn((b, lk, kvh, d), generator=gen, device=dev).bfloat16()
         v = torch.randn((b, lk, kvh, d), generator=gen, device=dev).bfloat16()
@@ -2954,6 +3093,14 @@ def main() -> int:
                        re.S)
     print("[build] coverage registers (W, Q, 16-byte loads): "
           + ", ".join(f"({w}, {q}, {v == '1'}) {r}" for w, q, v, r in cover))
+    # flash_prefill_kernel<D>: registers and spill bytes per head dim.
+    wgmma = re.findall(r"flash_prefill_kernelILi(\d+)E.*?(\d+) bytes spill "
+                       r"stores, (\d+) bytes spill loads.*?Used (\d+) "
+                       r"registers", _build.build_log("flash_prefill_wgmma"),
+                       re.S)
+    print("[build] flash_prefill_wgmma registers (spill bytes) per head dim: "
+          + ", ".join(f"D {d} {r} ({int(a) + int(b)})"
+                      for d, a, b, r in wgmma))
 
     torch.cuda.reset_peak_memory_stats()
     err = check_kernels(dev)
@@ -3011,10 +3158,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_gold = check_golden_entries(golden["moe"], dev, "moe golden")
     ssm_gold = check_golden_entries(golden["ssm"], dev, "ssm golden")
+    vlm_gold = check_golden_entries(golden["vlm"], dev, "vlm golden")
     lm_bf16 = check_lm_bf16(dev)
     ssm_bf16 = check_lm_bf16(dev, "zamba2-2.7b",
                              golden["ssm"]["zamba2"]["num_layers"],
                              "ssm bf16")
+    vlm_bf16 = check_lm_bf16(dev, VLM_ARCH,
+                             golden["vlm"]["phi3v"]["num_layers"],
+                             "vlm bf16", patches=True)
     gc.collect()
     torch.cuda.empty_cache()
     lm = run_lm_main_path()
@@ -3025,13 +3176,17 @@ def main() -> int:
     _release("MoE phases")
     ssm = run_ssm_main_path()
     _release("SSD phases")
+    vlm = run_vlm_main_path(dev)
+    _release("VLM phases")
     torch.cuda.reset_peak_memory_stats()
     fl = time_flash(dev)
     print(f"[timing flash] peak device memory {_peak_gib():.2f} GiB")
-    zamba2 = ssm["zamba2-2.7b"]["b"]
-    zamba2_simt_share = (zamba2["launches"]["flash_simt"]
-                         * fl["zamba2_prefill"]["ms"]
-                         / (1e3 * zamba2["prefill_s"]))
+    # The share of each (b) prefill that its attention launches take.
+    share = {name: r["launches"]["flash_wgmma"] * fl[shape]["ms"]
+             / (1e3 * r["prefill_s"])
+             for name, r, shape in (("zamba2", ssm["zamba2-2.7b"]["b"],
+                                     "zamba2_prefill"),
+                                    ("phi", vlm["b"], "phi_prefill"))}
 
     print(f"[result] build {build_s:.2f}s; IC pool build {ic['build_s']:.3f}s "
           f"for 64 batches ({64 / ic['build_s']:.2f} batches/s), mixed flush "
@@ -3050,8 +3205,15 @@ def main() -> int:
               f"{arch} (b) prefill {r['b']['prefill_tok_s']:.0f} tokens/s, "
               f"decode {r['b']['decode_ms']:.3f} ms/step (bytes' bound "
               f"{r['b']['bound_ms']:.3f})" for arch, r in ssm.items())
-          + f" (zamba2's 9 simt launches at {fl['zamba2_prefill']['ms']:.4f}"
-          f" ms each: {zamba2_simt_share:.1%} of its (b) prefill)"
+          + f" (zamba2's 9 wgmma launches at {fl['zamba2_prefill']['ms']:.4f}"
+          f" ms each, simt {fl['zamba2_prefill']['simt_ms']:.4f}: "
+          f"{share['zamba2']:.1%} of its (b) prefill); {VLM_ARCH} (b) "
+          f"prefill {vlm['b']['prefill_tok_s']:.0f} tokens/s, decode "
+          f"{vlm['b']['decode_ms']:.3f} ms/step (bytes' bound "
+          f"{vlm['b']['bound_ms']:.3f}; 32 wgmma launches at "
+          f"{fl['phi_prefill']['ms']:.4f} ms each, simt "
+          f"{fl['phi_prefill']['simt_ms']:.4f}: {share['phi']:.1%} of the "
+          f"prefill), patched prefill {vlm['c']['prefill_s']:.4f}s"
           + f"; MoE a2a within {a2a['max_abs_err']:.3e} of the reference; "
           f"flash_attention prefill "
           f"{fl['prefill']['ms']:.4f} ms (wgmma; simt "
@@ -3193,11 +3355,16 @@ def main() -> int:
              ssm_golden_max_abs_err={k: v["max_abs_err"]
                                      for k, v in ssm_gold.items()},
              ssm_bf16_max_abs_err=ssm_bf16["max_abs_err"],
+             vlm_golden_max_abs_err={k: v["max_abs_err"]
+                                     for k, v in vlm_gold.items()},
+             vlm_bf16_max_abs_err=vlm_bf16["max_abs_err"],
              launches_by_path={
                  "lm_llama3.2-3b": lm["launches"]["flash_attention"],
                  **{f"ssm_{arch.split('-')[0]}_{mix}": ssm[arch][mix][
                      "launches"]["flash_attention"]
                     for arch in SSM_MAIN for mix in LM_MIXES},
+                 **{f"vlm_phi_{mix}": vlm[mix]["launches"]["flash_attention"]
+                    for mix in (*LM_MIXES, "c")},
                  **{f"moe_maverick_{mix}": moe[
                      "llama4-maverick-400b-a17b"][mix]["launches"][
                      "flash_attention"] for mix in LM_MIXES},
@@ -3212,11 +3379,26 @@ def main() -> int:
                      source="src/repro_torch/csrc/flash_prefill_wgmma.cu",
                      shape="prefill",
                      launches=lm["launches"]["flash_wgmma"],
+                     launches_zamba2={mix: ssm["zamba2-2.7b"][mix][
+                         "launches"]["flash_wgmma"] for mix in LM_MIXES},
+                     launches_phi={mix: vlm[mix]["launches"]["flash_wgmma"]
+                                   for mix in (*LM_MIXES, "c")},
                      cases=flash_err["cases"]["wgmma"],
                      bf16_rrms=flash_err["bf16_rrms"]["wgmma"],
                      **{k: fl["prefill"][k] for k in (
                          "ms", "plain_ms", "bound_ms", "bound_by",
-                         "library_ms", "library_eager_ms")}),
+                         "library_ms", "library_eager_ms")},
+                     # zamba2's (D 80) and phi-3-vision's (D 96) prefill,
+                     # beside the earlier design's (simt) time there.
+                     **{f"d{d}": dict(
+                         {k: fl[shape][k] for k in (
+                             "ms", "simt_ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms", "library_eager_ms",
+                             "max_abs_err", "simt_max_abs_err")},
+                         prefill_share=share[name])
+                        for d, shape, name in (
+                            (80, "zamba2_prefill", "zamba2"),
+                            (96, "phi_prefill", "phi"))}),
                  "decode": dict(
                      source="src/repro_torch/csrc/flash_decode.cu",
                      shape="decode",
@@ -3225,34 +3407,35 @@ def main() -> int:
                      bf16_rrms=flash_err["bf16_rrms"]["decode"],
                      **{k: fl["decode"][k] for k in (
                          "ms", "plain_ms", "bound_ms", "bound_by",
-                         "library_ms", "library_eager_ms")}),
+                         "library_ms", "library_eager_ms")},
+                     **{f"d{d}": dict(
+                         {k: fl[shape][k] for k in (
+                             "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "library_eager_ms",
+                             "max_abs_err")},
+                         launches=launches)
+                        for d, shape, launches in (
+                            (80, "zamba2_decode",
+                             {mix: ssm["zamba2-2.7b"][mix]["launches"][
+                                 "flash_decode"] for mix in LM_MIXES}),
+                            (96, "phi_decode",
+                             {mix: vlm[mix]["launches"]["flash_decode"]
+                              for mix in (*LM_MIXES, "c")}))}),
                  "simt": dict(
                      source="src/repro_torch/csrc/flash_attention.cu",
                      launches=lm["launches"]["flash_simt"],
                      launches_zamba2={mix: ssm["zamba2-2.7b"][mix][
                          "launches"]["flash_simt"] for mix in LM_MIXES},
+                     launches_phi={mix: vlm[mix]["launches"]["flash_simt"]
+                                   for mix in (*LM_MIXES, "c")},
                      cases=flash_err["cases"]["simt"],
                      bf16_rrms=flash_err["bf16_rrms"]["simt"],
-                     ms={"prefill": fl["prefill"]["simt_ms"],
-                         "decode": fl["decode"]["simt_ms"],
-                         "zamba2_prefill": fl["zamba2_prefill"]["ms"]},
-                     bound_ms={"prefill": fl["prefill"]["bound_ms"],
-                               "decode": fl["decode"]["bound_ms"],
-                               "zamba2_prefill": fl["zamba2_prefill"][
-                                   "bound_ms"]},
-                     zamba2_prefill={k: fl["zamba2_prefill"][k] for k in (
-                         "ms", "plain_ms", "bound_ms", "bound_by",
-                         "library_ms", "library_eager_ms", "max_abs_err")},
-                     zamba2_prefill_share=zamba2_simt_share),
-                 "decode_d80": dict(
-                     source="src/repro_torch/csrc/flash_decode.cu",
-                     shape="zamba2 decode",
-                     launches_zamba2={mix: ssm["zamba2-2.7b"][mix][
-                         "launches"]["flash_decode"] for mix in LM_MIXES},
-                     **{k: fl["zamba2_decode"][k] for k in (
-                         "ms", "plain_ms", "bound_ms", "bound_by",
-                         "library_ms", "library_eager_ms",
-                         "max_abs_err")})}),
+                     ms={shape: fl[shape]["simt_ms"] for shape in (
+                         "prefill", "decode", "zamba2_prefill",
+                         "phi_prefill")},
+                     bound_ms={shape: fl[shape]["bound_ms"] for shape in (
+                         "prefill", "decode", "zamba2_prefill",
+                         "phi_prefill")})}),
         dict(name="fused_expand_q", route="cuda",
              source="src/repro_torch/csrc/fused_expand_q.cu",
              replaces="src/repro/kernels/fused_expand_q.py:110",

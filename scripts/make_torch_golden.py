@@ -8,6 +8,7 @@
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --mesh-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --moe-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --ssm-only
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --vlm-only
 
 Builds the launcher's graph at the size the port's chip smoke serves
 (``powerlaw_cluster(65536, 6.0, prob=0.25, seed=7)``, deduped, reversed),
@@ -132,6 +133,19 @@ head the same value, which would hide a head-order mistake.  With A up to
 16 the masked upper triangle of a chunk's decay overflows float32 (the
 reference's ``jnp.where`` hides it).  ``--ssm-only`` recomputes this entry
 alone and keeps the others byte for byte.
+
+The ``"vlm"`` entry holds ``"phi3v"``, phi-3-vision-4.2b (d 3,072, 32
+heads of 96, d_ff 8,192, vocabulary 32,064, 64 patches of 1,024) at full
+width and vocabulary, its depth cut from 32 layers to 2 (``VLM_CUTS``),
+run as the ``"lm"`` entry is (float32, ``numpy_params(cfg, seed=0)``, 32
+seeded vocabulary ids, 8 teacher-forced greedy steps), but each of the 2
+prompts is 64 patch embeddings (``numpy_patch_embeds(cfg,
+VLM_PATCH_SEED, 2)``: normal, σ 0.3, as the reference's data pipeline
+draws them) before 64 tokens, prefilled through the reference's
+``serve/engine.prefill``: 128 positions, so the decode steps write at
+``cur_len`` 128 to 135.  About 1.7 GB of float32 weights.
+``--vlm-only`` recomputes this entry alone and keeps the others byte for
+byte.
 """
 from __future__ import annotations
 
@@ -179,6 +193,9 @@ MOE_CUTS = {
 SSM_CUTS = {"mamba2": dict(arch="mamba2-1.3b", num_layers=2),
             "zamba2": dict(arch="zamba2-2.7b", num_layers=12)}
 SSM_HEADS_SEED, SSM_PROMPT_LEN = 0, 512
+# The "vlm" entry's configuration (module docstring) and its patches' seed.
+VLM_CUTS = {"phi3v": dict(arch="phi-3-vision-4.2b", num_layers=2)}
+VLM_PATCH_SEED = 2
 MOE_A2A_JOB = dict(arch="deepseek-v3-671b", overrides={"num_experts": 16},
                    seed=11, batch=2, seq=64, shape=[2, 2], n_idx=256)
 MESH_CASES = [dict(diffusion=d, frontier=f, shape=list(sh))
@@ -222,12 +239,14 @@ def _router_margin(probs, k: int) -> float:
 
 
 def _lm_entry(cfg, port_cfg, prompt_len: int = LM_PROMPT_LEN,
-              ssm_heads_seed: int | None = None) -> dict:
+              ssm_heads_seed: int | None = None,
+              patch_seed: int | None = None) -> dict:
     """Prefill of ``prompt_len`` tokens and teacher-forced greedy decode of
     ``cfg`` on `numpy_params(port_cfg, LM_PARAM_SEED)` (module docstring;
     the mixers' per-head parameters redrawn by `numpy_ssm_heads` when
-    ``ssm_heads_seed`` is given), with the smallest router margin over
-    every MoE layer call when it has MoE."""
+    ``ssm_heads_seed`` is given; `numpy_patch_embeds` of ``patch_seed``
+    prepended to the prompts when it is given), with the smallest router
+    margin over every MoE layer call when it has MoE."""
     from repro.models import mlp as ref_mlp
 
     tree = port_init.numpy_params(port_cfg, LM_PARAM_SEED)
@@ -237,6 +256,12 @@ def _lm_entry(cfg, port_cfg, prompt_len: int = LM_PROMPT_LEN,
     rng = np.random.default_rng(LM_PROMPT_SEED)
     prompt = rng.integers(0, cfg.vocab_size, (LM_BATCH, prompt_len))
     ids = np.sort(rng.choice(cfg.vocab_size, LM_IDS, replace=False))
+    batch = {"tokens": jnp.asarray(prompt)}
+    start = prompt_len               # the first decode step's cur_len
+    if patch_seed is not None:
+        batch["patch_embeds"] = jnp.asarray(port_init.numpy_patch_embeds(
+            port_cfg, patch_seed, LM_BATCH))
+        start += cfg.num_patches
     margins, routes = [], []
     moe_forward = ref_mlp.moe_forward
 
@@ -253,9 +278,8 @@ def _lm_entry(cfg, port_cfg, prompt_len: int = LM_PROMPT_LEN,
 
     ref_mlp.moe_forward = recording
     try:
-        last, caches, _ = engine.prefill(params, cfg,
-                                         {"tokens": jnp.asarray(prompt)},
-                                         prompt_len + LM_STEPS)
+        last, caches, _ = engine.prefill(params, cfg, batch,
+                                         start + LM_STEPS)
         logits = np.asarray(last[:, -1], np.float32)
         out = {"arch": cfg.name, "num_layers": cfg.num_layers,
                "dtype": "float32", "param_seed": LM_PARAM_SEED,
@@ -267,14 +291,17 @@ def _lm_entry(cfg, port_cfg, prompt_len: int = LM_PROMPT_LEN,
         for i in range(LM_STEPS):
             tok = logits.argmax(-1)[:, None]
             lg, caches = step(params, caches, jnp.asarray(tok),
-                              jnp.int32(prompt_len + i))
+                              jnp.int32(start + i))
             logits = np.asarray(lg[:, -1], np.float32)
-            out["decode"].append({"cur_len": prompt_len + i,
+            out["decode"].append({"cur_len": start + i,
                                   "tokens": tok[:, 0].tolist(),
                                   **_logit_summary(logits, ids)})
         jax.effects_barrier()
     finally:
         ref_mlp.moe_forward = moe_forward
+    if patch_seed is not None:
+        out["patch_seed"] = patch_seed
+        out["num_patches"] = cfg.num_patches
     if margins:
         out["router_margin"] = min(margins)
         out["moe_calls"] = len(margins)
@@ -324,6 +351,23 @@ def ssm_golden() -> dict:
                                    SSM_HEADS_SEED),
                          arch=cut["arch"], cuts=cut,
                          ssm_heads_seed=SSM_HEADS_SEED)
+    return out
+
+
+def vlm_golden() -> dict:
+    """The ``"vlm"`` entry: one `_lm_entry` per `VLM_CUTS` configuration,
+    its prompts after `VLM_PATCH_SEED`'s patch embeddings, with its
+    cuts."""
+    out = {}
+    for name, cut in VLM_CUTS.items():
+        cut = dict(cut, dtype="float32")
+        over = {k: v for k, v in cut.items() if k != "arch"}
+        cfg = dataclasses.replace(registry.get(cut["arch"]), **over)
+        port_cfg = dataclasses.replace(port_registry.get(cut["arch"]),
+                                       **over)
+        out[name] = dict(_lm_entry(cfg, port_cfg,
+                                   patch_seed=VLM_PATCH_SEED),
+                         arch=cut["arch"], cuts=cut)
     return out
 
 
@@ -641,6 +685,8 @@ def main() -> None:
                            "entries alone")
     only.add_argument("--ssm-only", action="store_true",
                       help="recompute the \"ssm\" entry alone")
+    only.add_argument("--vlm-only", action="store_true",
+                      help="recompute the \"vlm\" entry alone")
     only.add_argument("--mesh-worker", metavar="JOB_JSON",
                       help="print mesh_reference(JOB) as JSON (run by "
                            "mesh_reference_subprocess)")
@@ -658,9 +704,11 @@ def main() -> None:
     entries = {"lm": lm_golden, "q": q_golden, "stream": stream_golden,
                "unfused": lambda: unfused_golden(golden["top_k"]["seeds"]),
                "mesh": mesh_golden, "moe": moe_golden,
-               "moe_a2a": moe_a2a_golden, "ssm": ssm_golden}
+               "moe_a2a": moe_a2a_golden, "ssm": ssm_golden,
+               "vlm": vlm_golden}
     flags = {"lm": "lm", "q": "q", "stream": "stream", "unfused": "unfused",
-             "mesh": "mesh", "moe": "moe", "moe_a2a": "moe", "ssm": "ssm"}
+             "mesh": "mesh", "moe": "moe", "moe_a2a": "moe", "ssm": "ssm",
+             "vlm": "vlm"}
     keys = [k for k in entries if getattr(args, f"{flags[k]}_only")]
     if keys:
         with open(OUT) as f:
@@ -724,6 +772,7 @@ def main() -> None:
     golden["moe"] = moe_golden()
     golden["moe_a2a"] = moe_a2a_golden()
     golden["ssm"] = ssm_golden()
+    golden["vlm"] = vlm_golden()
     _write(golden)
     print(f"wrote {os.path.normpath(OUT)} in {time.time() - t0:.1f}s")
 

@@ -6,8 +6,9 @@
 
 Builds each ``--arch`` in turn at full width (its own depth, or
 ``--layers`` of it: deepseek-v3-671b 5 and llama4-maverick-400b-a17b 2
-are the depths the chip smoke serves; mamba2-1.3b and zamba2-2.7b it
-serves whole; bf16, the launcher's seeded init) on the card, warms one
+are the depths the chip smoke serves; mamba2-1.3b, zamba2-2.7b and
+phi-3-vision-4.2b it serves whole; bf16, the launcher's seeded init,
+patches off as the launcher has them) on the card, warms one
 prefill and a few decode steps, then traces one prefill and ``--steps``
 decode steps with ``torch.profiler``.  For each of the two it prints the
 host-clock time (device synchronised), the summed device time of its

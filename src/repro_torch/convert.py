@@ -91,13 +91,12 @@ def lm_params_from_jax(tree: dict, cfg: ModelConfig,
     """The port's `model.LM` holding the weights of a reference parameter
     tree (``repro.models.model.init_params``'s layout, leaves as numpy
     arrays or anything ``np.asarray`` takes): ``embedding``, ``unembed``,
-    ``final_norm``, a hybrid config's ``shared_attn`` and one stack per
-    `model.stacks_of` entry, of ``block{i}`` leaves leading with the group
-    axis; group ``g``'s block ``i`` goes to the next layer, in the
-    reference's order.  Leaves are cast to the config's dtype on
+    ``final_norm``, a VLM config's ``patch_proj``, a hybrid config's
+    ``shared_attn`` and one stack per `model.stacks_of` entry, of
+    ``block{i}`` leaves leading with the group axis; group ``g``'s block
+    ``i`` goes to the next layer, in the reference's order.  Leaves are cast to the config's dtype on
     ``device`` one at a time, those of `FLOAT32_LEAVES` to float32 (the
     reference keeps them so in every dtype)."""
-    model.check_supported(cfg)
     dev = device_lib.resolve(device)
     dt = common.dtype_of(cfg.dtype)
 
@@ -131,4 +130,5 @@ def lm_params_from_jax(tree: dict, cfg: ModelConfig,
                                                   tree["stacks"], strict=True)
               for g in range(groups) for i, kind in enumerate(pattern)]
     return model.LM(put(tree["embedding"]), put(tree["unembed"]),
-                    put(tree["final_norm"]), layers, shared)
+                    put(tree["final_norm"]), layers, shared,
+                    put(tree["patch_proj"]) if cfg.num_patches else None)

@@ -1,10 +1,11 @@
-// Flash attention prefill for Hopper: bf16 q, k, v with head dim 64 or 128,
-// tensor-core products (wgmma) on tiles that TMA copies into shared memory.
+// Flash attention prefill for Hopper: bf16 q, k, v with head dim 64, 80, 96
+// or 128, tensor-core products (wgmma) on tiles that TMA copies into shared
+// memory.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py::
 // flash_attention (body _flash_kernel, pallas_call at :83) for the prefill
 // shapes of the LM path; `kernels/flash_attention.py::route` sends bf16
-// calls with Lq > 1 and D in {64, 128} here. The function is the
+// calls with Lq > 1 and D in {64, 80, 96, 128} here. The function is the
 // reference's, per head:
 //
 //   s   = (q . k^T) * scale              in float32 (the scale on s, in
@@ -19,7 +20,8 @@
 // KVH 8, D 128, causal) the work is 4*B*H*(L(L+1)/2)*D = 103 GFLOP, 0.104
 // ms at the 989 TFLOP/s bf16 tensor-core peak, against 134 MB of q, k, v
 // and out (0.040 ms at 3.35 TB/s): operations bound it, and only wgmma
-// reaches that rate.
+// reaches that rate. phi-3-vision's prefill (H = KVH 32, D 96) does the
+// same work; zamba2's shared block (H = KVH 32, D 80) 86 GFLOP, 0.087 ms.
 //
 // Design. A CTA owns 128 query rows of one (head, batch): two consumer
 // warpgroups of 64 rows each and one producer warp (288 threads).
@@ -28,14 +30,18 @@
 //   mbarrier): the query tile once, then K and V blocks of 128 keys into a
 //   ring of two stages, each stage with its own K-full, V-full and free
 //   barrier; so the next block's copies run while this one's products do.
-//   A row of D = 128 is two 64-column boxes (128 bytes each, the widest
-//   the 128-byte swizzle takes); each box lands as rows of 128 bytes,
-//   swizzled, at the 1024-byte alignment wgmma's swizzle atom needs. TMA
-//   fills reads past L (or past the batch) with zeros.
-// - S = Q . K^T: wgmma m64n128k16 per 16 columns of D, both operands
-//   K-major in shared memory (descriptor start advanced 32 bytes per k
-//   step inside a swizzled row, one box per 64 columns); the 64 x 128
-//   float32 tile stays in registers.
+//   A row is one (D 64) or two (D 80, 96, 128) 64-column boxes (128 bytes
+//   each, the widest the 128-byte swizzle takes); each box lands as rows
+//   of 128 bytes, swizzled, at the 1024-byte alignment wgmma's swizzle
+//   atom needs. TMA fills reads past L (or past the batch) with zeros, and
+//   past D: the second box of D 80 (96) reads 16 (32) real columns, so
+//   device memory moves only real bytes, while the barriers count whole
+//   boxes, zeros included, as TMA does.
+// - S = Q . K^T: wgmma m64n128k16 per 16 columns of D (D / 16 k steps:
+//   4, 5, 6 or 8, never into the zero fill), both operands K-major in
+//   shared memory (descriptor start advanced 32 bytes per k step inside a
+//   swizzled row, one box per 64 columns); the 64 x 128 float32 tile
+//   stays in registers.
 // - Softmax on those registers: s * (scale * log2 e), the mask (only on a
 //   block that holds a key past Lk or past the causal limit of the
 //   warpgroup's first row: the diagonal block), row max over the four
@@ -45,7 +51,9 @@
 // - O += P . V: P goes to bf16 in registers, and its accumulator layout is
 //   wgmma's register-A layout for k16 slices, so no shuffle; V is read in
 //   place as an MN-major B operand (the transpose bit that 16-bit types
-//   allow), no transposing copy.
+//   allow), no transposing copy, by one wgmma of N = D (80 and 96 are
+//   legal widths: the product reads the second box's first 16 or 32
+//   columns and the accumulator holds D / 2 floats a thread).
 // - Causal: a CTA loads only the blocks up to its last row's limit, and the
 //   grid is ordered heaviest query block first, so the short blocks of
 //   the causal triangle fill the last wave. Rows at or past Lq are not
@@ -56,7 +64,9 @@
 //   inside bf16's rounding).
 // Left for later: overlap of one block's softmax with the next block's
 // wgmma inside a warpgroup (it needs a second S and P in registers, past
-// the 168 that ptxas gives this kernel), a persistent grid, fp8.
+// the 168 that ptxas gives the D 128 kernel), a persistent grid, fp8; D
+// 192 (its 96 O registers a thread, with S's 64 and P's 32, pass the
+// budget of two consumer warpgroups).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -258,8 +268,61 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 80, float32) += a (64 x 16, bf16 pairs in registers) . b
+// (16 x 80, shared memory, MN-major: read through the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
-// D: the head dim, 64 or 128 (one or two 64-column boxes per row).
+// d (64 x 96, float32) += a (64 x 16, bf16 pairs in registers) . b
+// (16 x 96, shared memory, MN-major: read through the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 64-column boxes in a row of D columns (the last zero-filled past D).
+template <int D>
+__host__ __device__ constexpr int boxes() { return (D + 63) / 64; }
+
+// D: the head dim, 64, 80, 96 or 128 (one or two 64-column boxes a row).
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -268,9 +331,11 @@ __global__ void __launch_bounds__(THREADS, 1)
                          __nv_bfloat16* __restrict__ out, int Lq, int Lk,
                          int H, int KVH, int B, float scale, int causal,
                          int kv_offset) {
-  constexpr int BOXES = D / 64;
-  constexpr int Q_BYTES = BQ * D * 2;
-  constexpr int KV_BYTES = BK * D * 2;
+  constexpr int BOXES = boxes<D>();
+  // Whole boxes, the zero fill past D included: what lands in shared
+  // memory and what TMA counts on the barriers.
+  constexpr int Q_BYTES = BQ * BOXES * ROW;
+  constexpr int KV_BYTES = BK * BOXES * ROW;
   constexpr int NS = BK / 2;   // S registers per thread (64 x BK tile)
   constexpr int NO = D / 2;    // O registers per thread (64 x D tile)
   extern __shared__ uint8_t smem_raw[];
@@ -434,6 +499,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint64_t dv = sdesc(v_addr + kk * 16 * ROW, BK * ROW, 1024);
       if constexpr (D == 128)
         wgmma_rs_n128(o, pa[kk], dv);
+      else if constexpr (D == 96)
+        wgmma_rs_n96(o, pa[kk], dv);
+      else if constexpr (D == 80)
+        wgmma_rs_n80(o, pa[kk], dv);
       else
         wgmma_rs_n64(o, pa[kk], dv);
     }
@@ -518,8 +587,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (!err) err = encode(&tv, v, B, Lk, KVH, D, BK);
   if (err) return err;
   auto kernel = flash_prefill_kernel<D>;
-  const size_t smem = 1024 + (size_t)BQ * D * 2 +
-                      2 * STAGES * (size_t)BK * D * 2 +
+  const size_t smem = 1024 + (size_t)BQ * boxes<D>() * ROW +
+                      2 * STAGES * (size_t)BK * boxes<D>() * ROW +
                       (1 + 3 * STAGES) * sizeof(uint64_t);
   // The opt-in above 48 KB is made once per device (so that a launch
   // captured into a CUDA graph makes no such call).
@@ -546,7 +615,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // C interface (bound with ctypes): bf16 q (B, Lq, H, D), k and v (B, Lk,
-// KVH, D), out like q, contiguous and 16-byte aligned, D 64 or 128. Returns
+// KVH, D), out like q, contiguous and 16-byte aligned, D 64, 80, 96 or
+// 128. Returns
 // a cudaError_t (0 is success), or 10000 + a CUresult of the tensor-map
 // encoding.
 extern "C" int flash_prefill_wgmma_launch(const void* q, const void* k,
@@ -560,6 +630,12 @@ extern "C" int flash_prefill_wgmma_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
     return launch<64>(q, k, v, out, B, Lq, Lk, H, KVH, scale, causal,
+                      kv_offset, s);
+  if (D == 80)
+    return launch<80>(q, k, v, out, B, Lq, Lk, H, KVH, scale, causal,
+                      kv_offset, s);
+  if (D == 96)
+    return launch<96>(q, k, v, out, B, Lq, Lk, H, KVH, scale, causal,
                       kv_offset, s);
   if (D == 128)
     return launch<128>(q, k, v, out, B, Lq, Lk, H, KVH, scale, causal,

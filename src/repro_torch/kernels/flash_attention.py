@@ -7,17 +7,18 @@ flash_attention``.  Three routes compute the reference's function, and
 variable):
 
 - ``wgmma`` (``csrc/flash_prefill_wgmma.cu``): bf16, ``Lq > 1``, head dim
-  64 or 128 — the prefill of the dense family.  A CTA of two consumer
-  warpgroups and a producer warp; TMA copies K/V blocks into a two-stage
-  ring, ``wgmma`` computes both products on the tensor cores.
+  64, 80, 96 or 128 — the prefill of the dense family, zamba2's shared
+  block (80) and phi-3-vision (96).  A CTA of two consumer warpgroups and
+  a producer warp; TMA copies K/V blocks into a two-stage ring, ``wgmma``
+  computes both products on the tensor cores.
 - ``decode`` (``csrc/flash_decode.cu``): ``Lq == 1``, float32 or bf16 —
   every decode step.  A split-K grid over (key split, KV head, batch),
   one CTA per split for all query heads of a KV group, streaming its keys
   through a ``cp.async`` ring in shared memory; the partials are merged
   in the same launch by the last CTA of each group.
 - ``simt`` (``csrc/flash_attention.cu``): everything else (float32 with
-  ``Lq > 1``, bf16 at another head dim).  One CTA per (64-row query
-  block, head, batch), float32 FMA on the CUDA cores.
+  ``Lq > 1``, bf16 at another head dim, such as nemotron's 192).  One CTA
+  per (64-row query block, head, batch), float32 FMA on the CUDA cores.
 
 Tile sizes belong to the kernels: the reference's ``block_q``/``block_k``
 tiling knobs have no counterpart.  The plain version is
@@ -35,7 +36,7 @@ import torch
 from repro_torch.kernels import _build
 
 ROUTES = ("wgmma", "decode", "simt")
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 80, 96, 128)
 # The decode route's split: rows per sub-block (a split's length is a
 # multiple), query heads per CTA, the most splits one group merges
 # (csrc/flash_decode.cu's MAX_CHUNKS), and CTAs per SM the grid aims at.
@@ -55,8 +56,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def route(dtype: torch.dtype, b: int, lq: int, lk: int, h: int, kvh: int,
           d: int, causal: bool) -> str:
     """The kernel that serves a call of these shapes: ``"decode"`` for one
-    query row, ``"wgmma"`` for a bf16 prefill at head dim 64 or 128,
-    ``"simt"`` otherwise."""
+    query row, ``"wgmma"`` for a bf16 prefill at a head dim of
+    `WGMMA_HEAD_DIMS`, ``"simt"`` otherwise."""
     if lq == 1:
         return "decode"
     if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
@@ -144,7 +145,8 @@ def flash_prefill_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool, scale: float,
                              kv_offset: int) -> torch.Tensor:
     """The ``wgmma`` route on ``q``'s stream: bf16 q (B, Lq, H, D), k and v
-    (B, Lk, KVH, D), D 64 or 128, contiguous; returns the output in bf16."""
+    (B, Lk, KVH, D), D one of `WGMMA_HEAD_DIMS`, contiguous; returns the
+    output in bf16."""
     b, lq, lk, h, kvh, d = _check(q, k, v, "flash_prefill_wgmma",
                                   (torch.bfloat16,))
     if d not in WGMMA_HEAD_DIMS or kv_offset < 0:

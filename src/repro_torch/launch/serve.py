@@ -12,8 +12,12 @@ read); prompts come from ``numpy.random.default_rng(0)``.  GQA attention
 and their plain version with ``--device cpu``; MLA, MoE and the SSD mixer
 run plain PyTorch on either.  An SSD arch's prompt length must be a
 multiple of ``min(ssm_chunk, prompt length)`` (the smoke configs' chunk is
-16), as the reference's chunked SSD requires.  `serve_config` serves a `ModelConfig` of the caller's (a depth-cut one,
-say) through the same code as `run`.
+16), as the reference's chunked SSD requires.  `run` turns phi-3-vision's
+patch embeddings off (``num_patches=0``), as the reference's launcher
+does; its requests are tokens.  `serve_config` serves a `ModelConfig` of
+the caller's (a depth-cut one, say) through the same code as `run`; a
+patched config keeps its ``patch_proj``, and its token-only requests
+embed no patches.
 """
 from __future__ import annotations
 
@@ -58,7 +62,6 @@ def serve_config(cfg: ModelConfig, args: argparse.Namespace) -> dict:
     (batch, prompt length, new tokens, temperature, device), print the
     ``[launch.serve]`` line; returns the tokens and the run's numbers (the
     model's bytes among them; the model itself is freed on return)."""
-    model.check_supported(cfg)
     dev = device_lib.resolve(args.device)
     params = model.init_params(cfg, seed=PARAM_SEED, device=dev)
     rng = np.random.default_rng(PROMPT_SEED)

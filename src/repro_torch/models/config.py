@@ -4,10 +4,8 @@
 One dataclass covers every family (dense / MoE / SSM / hybrid / VLM / audio);
 family-specific fields default to inert values.  Configs are plain data — the
 model code (models/model.py) interprets them; launch code looks them up via
-``repro_torch.configs.registry``.  The port runs every block kind; patch
-embeddings (``num_patches``) are refused (``models.model.check_supported``)
-and their fields kept, so that both packages describe every architecture
-alike.  ``remat``,
+``repro_torch.configs.registry``.  The port runs every block kind and
+phi-3-vision's patch embeddings (``num_patches``).  ``remat``,
 ``scan_layers``, ``fsdp_per_layer_gather`` and the ``attn_block_*`` /
 ``attention_impl`` knobs tune the reference's XLA lowering and have no
 counterpart in the port.

@@ -17,8 +17,8 @@ import torch
 from repro_torch.models import attention, common, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (LM, MAMBA_KINDS, Block, _logits,
-                                      check_supported, embed_tokens,
-                                      ffn_forward, layer_kinds)
+                                      embed_tokens, ffn_forward,
+                                      layer_kinds)
 
 
 def _layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
@@ -38,7 +38,6 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device) -> list:
     """Zero caches, one per layer (module docstring): each ``mamba_attn``
     layer gets a KV cache of its own."""
-    check_supported(cfg)
     return [_layer_cache(kind, cfg, batch, max_len, device)
             for kind in layer_kinds(cfg)]
 

@@ -2,10 +2,10 @@
 
 `numpy_params` draws the tree that the reference's
 ``models/model.py::init_params`` returns — ``embedding``, ``unembed``,
-``final_norm``, a hybrid config's ``shared_attn`` (``norm1``, ``attn``,
-``norm2``, ``mlp``, no group axis) and one stack per `model.stacks_of`
-entry, holding ``block{i}`` per pattern position, whose leaves lead with
-the stack's group axis (``wq (G, d, h, hd)``, ``experts_w1 (G, E, d,
+``final_norm``, a VLM config's ``patch_proj``, a hybrid config's
+``shared_attn`` (``norm1``, ``attn``, ``norm2``, ``mlp``, no group axis)
+and one stack per `model.stacks_of` entry, holding ``block{i}`` per
+pattern position, whose leaves lead with the stack's group axis (``wq (G, d, h, hd)``, ``experts_w1 (G, E, d,
 fe)``, a mamba block's ``mamba.in_proj (G, d, 2·d_inner + 2S + H)``, …)
 — with ``numpy.random.default_rng(seed)`` in float32 (MoE routers too, as
 the reference keeps them), at the reference's scales and values
@@ -19,6 +19,8 @@ run can load the same weights into the port
 
 `numpy_moe` draws one MoE layer with a generator of its own per expert,
 so that a rank of an expert-parallel mesh draws only the experts it holds.
+`numpy_patch_embeds` draws a VLM batch's patch embeddings as the
+reference's data pipeline does.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import numpy as np
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import shared_d_ff
-from repro_torch.models.model import MAMBA_KINDS, check_supported, stacks_of
+from repro_torch.models.model import MAMBA_KINDS, PATCH_EMBED_DIM, stacks_of
 
 
 def _normal(rng, shape, scale):
@@ -105,7 +107,6 @@ def _block(rng, cfg: ModelConfig, kind: str, g: int) -> dict:
 
 
 def numpy_params(cfg: ModelConfig, seed: int) -> dict:
-    check_supported(cfg)
     rng = np.random.default_rng(seed)
     d, v = cfg.d_model, cfg.vocab_size
     tree = {}
@@ -116,6 +117,9 @@ def numpy_params(cfg: ModelConfig, seed: int) -> dict:
     else:
         tree["embedding"] = _normal(rng, (v, d), 1.0)
         tree["unembed"] = _normal(rng, (d, v), d ** -0.5)
+    if cfg.num_patches:
+        tree["patch_proj"] = _normal(rng, (PATCH_EMBED_DIM, d),
+                                     PATCH_EMBED_DIM ** -0.5)
     if cfg.family == "hybrid":        # the shared block, without a G axis
         shared = _block(rng, cfg, "dense", 1)
         tree["shared_attn"] = {k: (v[0] if isinstance(v, np.ndarray) else
@@ -180,3 +184,12 @@ def numpy_moe_input(cfg: ModelConfig, seed: int, batch: int,
     ``default_rng((seed, 65536))``."""
     return np.random.default_rng((seed, 65536)).standard_normal(
         (batch, seq, cfg.d_model), dtype=np.float32)
+
+
+def numpy_patch_embeds(cfg: ModelConfig, seed: int,
+                       batch: int) -> np.ndarray:
+    """(batch, num_patches, PATCH_EMBED_DIM) float32 patch embeddings,
+    normal with σ 0.3 from ``default_rng(seed)``, drawn in float64 and
+    cast, as the reference's ``data/pipeline.py`` draws them."""
+    return np.random.default_rng(seed).normal(
+        0, 0.3, (batch, cfg.num_patches, PATCH_EMBED_DIM)).astype(np.float32)

@@ -1,10 +1,10 @@
 """Decoder-only LM of the substrate (the reference's ``models/model.py``),
 for every configuration of the registry: ``dense`` and ``moe`` blocks with
 GQA or MLA attention (llama3.2-3b, qwen1.5-110b, command-r-35b,
-nemotron-4-340b, phi-3-vision-4.2b with its patches off, musicgen-medium,
-deepseek-v3-671b, llama4-maverick-400b-a17b) and ``mamba`` /
-``mamba_attn`` blocks of the SSD mixer (mamba2-1.3b; zamba2-2.7b's hybrid
-stack).
+nemotron-4-340b, phi-3-vision-4.2b with its patch embeddings,
+musicgen-medium, deepseek-v3-671b, llama4-maverick-400b-a17b) and
+``mamba`` / ``mamba_attn`` blocks of the SSD mixer (mamba2-1.3b;
+zamba2-2.7b's hybrid stack).
 
 The reference scans one stacked parameter tree per stack of its layers;
 here each layer's weights are one module (`Block` for an attention block,
@@ -20,8 +20,12 @@ block (zamba2's weight-tied attention + MLP): one dense `Block` held once
 by the `LM` as ``shared_attn``, as the reference holds it at the top of
 its tree, and handed to every such layer; each invocation keeps a KV
 cache of its own.  Audio sums its codebooks' embeddings and emits
-``num_codebooks`` heads of logits.  Patch embeddings raise
-`NotImplementedError` (`check_supported`).
+``num_codebooks`` heads of logits.  A VLM config (``num_patches``) holds
+a ``patch_proj`` (`PATCH_EMBED_DIM`, d): a batch that carries
+``patch_embeds`` (B, num_patches, `PATCH_EMBED_DIM`), the stub of a CLIP
+front end, gets their projection prepended to its token embeddings, and
+positions run over both; a batch without them embeds its tokens alone,
+as the reference's ``"patch_embeds" in batch`` gate does.
 """
 from __future__ import annotations
 
@@ -32,10 +36,7 @@ from repro_torch.models import attention, common, mlp, ssm
 from repro_torch.models.config import ModelConfig
 
 MAMBA_KINDS = ("mamba", "mamba_attn")
-PATCHES_UNPORTED = ("patch embeddings (phi-3-vision's num_patches) are not "
-                    "ported yet: set num_patches=0, as both launchers do; "
-                    "they come with a later slice (ROADMAP §1, 'Slice I, "
-                    "the rest of the LM substrate')")
+PATCH_EMBED_DIM = 1024          # the CLIP-style stub's feature width
 
 
 # ------------------------------------------------------------------ pattern
@@ -64,13 +65,6 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
     docstring)."""
     return [kind for pattern, groups in stacks_of(cfg)
             for _ in range(groups) for kind in pattern]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` if ``cfg`` has patch embeddings — before
-    anything is allocated."""
-    if cfg.num_patches:
-        raise NotImplementedError(PATCHES_UNPORTED)
 
 
 # ------------------------------------------------------------------ modules
@@ -108,18 +102,21 @@ class MambaBlock(nn.Module):
 class LM(nn.Module):
     """The model's weights: ``embedding`` (V, d) (audio: (K, V, d)),
     ``unembed`` (d, V) (audio: (d, K·V)), ``final_norm``, one `Block` or
-    `MambaBlock` per layer in ``layers`` and, for a hybrid config, the one
-    ``shared_attn`` dense `Block` its ``mamba_attn`` layers apply (else
+    `MambaBlock` per layer in ``layers``, for a hybrid config the one
+    ``shared_attn`` dense `Block` its ``mamba_attn`` layers apply and for
+    a VLM config ``patch_proj`` (`PATCH_EMBED_DIM`, d) (each else
     None)."""
 
     def __init__(self, embedding, unembed, final_norm,
-                 layers: list[nn.Module], shared_attn: Block | None = None):
+                 layers: list[nn.Module], shared_attn: Block | None = None,
+                 patch_proj: torch.Tensor | None = None):
         super().__init__()
         self.embedding = _param(embedding)
         self.unembed = _param(unembed)
         self.final_norm = _param(final_norm)
         self.layers = nn.ModuleList(layers)
         self.shared_attn = shared_attn
+        self.patch_proj = None if patch_proj is None else _param(patch_proj)
 
 
 # --------------------------------------------------------------------- init
@@ -129,8 +126,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     cast to the config's dtype (a full-width model never has a float32
     copy); MoE routers and the mixers' ``a_log``, ``d_skip`` and
     ``dt_bias`` stay float32.  Drawn in the reference's order: embedding,
-    unembedding, the shared block, then the layers."""
-    check_supported(cfg)
+    unembedding, the patch projection, the shared block, then the
+    layers."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = common.dtype_of(cfg.dtype)
@@ -142,6 +139,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     else:
         embedding = common.embed_init(gen, v, d, dt)
         unembed = common.dense_init(gen, d, (v,), dt)
+    patch_proj = (common.dense_init(gen, PATCH_EMBED_DIM, (d,), dt)
+                  if cfg.num_patches else None)
 
     def ones():
         return torch.ones(d, dtype=dt, device=dev)
@@ -160,7 +159,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
                      else mlp.init_mlp(gen, cfg))
 
     layers = [layer(kind) for kind in layer_kinds(cfg)]
-    return LM(embedding, unembed, ones(), layers, shared)
+    return LM(embedding, unembed, ones(), layers, shared, patch_proj)
 
 
 # ------------------------------------------------------------------- embed
@@ -174,10 +173,17 @@ def embed_tokens(params: LM, cfg: ModelConfig, tokens: torch.Tensor):
 
 
 def embed_inputs(params: LM, cfg: ModelConfig, batch: dict):
-    """batch → (h (B, L, D), positions (B, L))."""
-    if "patch_embeds" in batch:
-        raise NotImplementedError(PATCHES_UNPORTED)
+    """batch → (h (B, L, D), positions (B, L)).  With ``patch_embeds``
+    (B, P, `PATCH_EMBED_DIM`) and a patched config, h is their projection
+    through ``patch_proj``, cast to the tokens' dtype, then the tokens'
+    embeddings: L = P + tokens.  The product is taken in the two
+    operands' promoted dtype, as jnp's ``@`` takes it (float32 patches
+    with bf16 weights: float32), before the cast."""
     h = embed_tokens(params, cfg, batch["tokens"])
+    if cfg.num_patches and "patch_embeds" in batch:
+        pe, w = batch["patch_embeds"], params.patch_proj
+        dt = torch.promote_types(pe.dtype, w.dtype)
+        h = torch.cat([(pe.to(dt) @ w.to(dt)).to(h.dtype), h], dim=1)
     b, L = h.shape[:2]
     positions = torch.arange(L, device=h.device).expand(b, L)
     return h, positions
@@ -233,7 +239,6 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, *,
     KVH, hd) for GQA, (c (B, L, kr), k_rope (B, L, rd)) for MLA, (state
     (B, H, S, P) float32, conv tail (B, w-1, d_inner + 2S)) for ``mamba``
     and ((state, tail), (k, v)) for ``mamba_attn``; else None."""
-    check_supported(cfg)
     h, positions = embed_inputs(params, cfg, batch)
     caches = []
     total_aux = torch.zeros((), device=h.device)

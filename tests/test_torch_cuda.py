@@ -219,8 +219,13 @@ def test_flash_attention_kernel_equals_plain(cuda, dtype, causal, b, lq, lk,
     ("decode", torch.bfloat16, 1, 1, 77, 8, 8, 16, True, 0),
     ("decode", torch.float32, 1, 1, 64, 4, 2, 256, False, 0),
     ("simt", torch.float32, 1, 130, 190, 8, 1, 128, True, 60),
-    ("simt", torch.bfloat16, 2, 100, 100, 6, 2, 96, True, 0),
-    ("simt", torch.bfloat16, 2, 130, 130, 8, 8, 80, True, 0),
+    ("wgmma", torch.bfloat16, 2, 100, 100, 6, 2, 96, True, 0),
+    ("wgmma", torch.bfloat16, 2, 130, 130, 8, 8, 80, True, 0),
+    ("wgmma", torch.bfloat16, 1, 130, 190, 8, 1, 96, False, 60),
+    ("wgmma", torch.bfloat16, 2, 257, 457, 6, 2, 80, True, 17),
+    ("simt", torch.float32, 2, 100, 100, 6, 2, 96, True, 0),
+    ("simt", torch.float32, 2, 130, 130, 8, 8, 80, True, 0),
+    ("simt", torch.bfloat16, 1, 65, 129, 6, 2, 192, True, 64),
     ("decode", torch.bfloat16, 2, 1, 300, 8, 8, 80, True, 299)])
 def test_flash_route_kernel_equals_plain(cuda, route, dtype, b, lq, lk, h,
                                          kvh, d, causal, kv_offset):
@@ -892,3 +897,35 @@ def test_moe_scatter_on_the_card_repeats_bit_for_bit(cuda):
         a, aux_a = mlp.moe_forward(p, x, cfg)
         b, aux_b = mlp.moe_forward(p, x, cfg)
         assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+def test_vlm_patched_model_on_the_card_equals_the_host(cuda):
+    """phi-3-vision's smoke model (4 patches of 1,024, float32): a prefill
+    of the patches and 28 tokens and 4 decode steps on the card (its flash
+    calls on the simt and decode routes at head dim 16) within 1e-4 of the
+    same weights on the host."""
+    import copy
+    from repro_torch.configs import registry
+    from repro_torch.models import decode, init, model
+    from repro_torch.serve import engine
+
+    cfg = registry.smoke("phi-3-vision-4.2b")
+    host = model.init_params(cfg, seed=3, device="cpu")
+    card = copy.deepcopy(host).to(cuda)
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)))
+    patches = torch.from_numpy(init.numpy_patch_embeds(cfg, 4, 2))
+    L = cfg.num_patches + 28
+    outs = {}
+    for name, params, dev in (("host", host, torch.device("cpu")),
+                              ("card", card, cuda)):
+        last, caches, plen = engine.prefill(params, cfg, {
+            "tokens": tokens[:, :28].to(dev),
+            "patch_embeds": patches.to(dev)}, L + 4)
+        assert plen == L
+        steps = [decode.decode_step(params, cfg, caches,
+                                    tokens[:, 28 + i:29 + i].to(dev),
+                                    L + i)[0] for i in range(4)]
+        outs[name] = [last.cpu(), torch.cat(steps, 1).cpu()]
+    for got, want in zip(outs["card"], outs["host"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)

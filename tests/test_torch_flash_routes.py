@@ -2,7 +2,8 @@
 decode route's split-K function on the CPU.
 
 `repro_torch.kernels.flash_attention.route` picks ``wgmma`` (bf16 prefill
-at head dim 64 or 128), ``decode`` (one query row) or ``simt`` (the rest)
+at head dim 64, 80, 96 or 128), ``decode`` (one query row) or ``simt`` (the
+rest)
 from a call's shapes.  The decode kernel splits the keys into chunks and
 merges float32 partials; its plain version
 `kernels.ref.flash_decode_splitk_ref` does the same (for any chunk
@@ -45,7 +46,8 @@ def _smoke_module():
 # (B, Lq, Lk, H, KVH, D, causal, dtype) -> route: the LM main path's
 # prefill and decode (bf16, llama3.2-3b at batch 4, prompt 2,048), the LM
 # golden check's (float32, batch 2, prompt 64, 8 decode steps over a
-# 72-slot cache), the smoke's kernel cases, and maverick's.
+# 72-slot cache), the smoke's kernel cases, maverick's, zamba2's (D 80) and
+# phi-3-vision's (D 96).
 BF16, F32 = torch.bfloat16, torch.float32
 ROUTE_CASES = [
     ((4, 2048, 2048, 24, 8, 128, True, BF16), "wgmma"),
@@ -56,7 +58,7 @@ ROUTE_CASES = [
     ((2, 1, 72, 24, 8, 128, True, F32), "decode"),
     ((4, 2048, 2048, 24, 8, 128, True, F32), "simt"),
     ((2, 128, 128, 4, 4, 64, False, BF16), "wgmma"),
-    ((2, 100, 100, 6, 2, 96, True, BF16), "simt"),
+    ((2, 100, 100, 6, 2, 96, True, BF16), "wgmma"),
     ((1, 130, 190, 8, 1, 128, True, BF16), "wgmma"),
     ((1, 65, 129, 6, 2, 192, True, BF16), "simt"),
     ((3, 33, 33, 4, 4, 16, True, BF16), "simt"),
@@ -68,6 +70,24 @@ ROUTE_CASES = [
     ((4, 1, 2080, 40, 8, 128, True, BF16), "decode"),
     ((2, 64, 64, 40, 8, 128, True, F32), "simt"),
     ((2, 1, 72, 40, 8, 128, True, F32), "decode"),
+    # zamba2's shared block (H = KVH 32, D 80) and phi-3-vision (D 96): the
+    # bf16 main-path prefill on wgmma, the same in float32 (the goldens'
+    # prefill) on simt, and each decode
+    ((4, 2048, 2048, 32, 32, 80, True, BF16), "wgmma"),
+    ((4, 2048, 2048, 32, 32, 96, True, BF16), "wgmma"),
+    ((4, 2048, 2048, 32, 32, 80, True, F32), "simt"),
+    ((4, 2048, 2048, 32, 32, 96, True, F32), "simt"),
+    ((2, 512, 512, 32, 32, 80, True, F32), "simt"),
+    ((2, 128, 128, 32, 32, 96, True, F32), "simt"),
+    ((4, 1, 2080, 32, 32, 80, True, BF16), "decode"),
+    ((4, 1, 2080, 32, 32, 96, True, BF16), "decode"),
+    # the smoke's wgmma cases at D 80 and 96 (ragged, GQA groups 3 and 8)
+    ((1, 130, 190, 8, 1, 80, True, BF16), "wgmma"),
+    ((1, 130, 190, 8, 1, 96, False, BF16), "wgmma"),
+    ((2, 200, 457, 6, 2, 80, True, BF16), "wgmma"),
+    # head dims no wgmma instantiation takes: nemotron's 192, and 16
+    ((4, 2048, 2048, 96, 8, 192, True, BF16), "simt"),
+    ((3, 33, 33, 4, 4, 16, False, BF16), "simt"),
 ]
 
 
@@ -223,13 +243,13 @@ def test_cpu_decode_runs_the_plain_version_and_counts_nothing():
 
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "offset", "shape"])
 def test_wgmma_wrapper_refuses_what_the_kernel_does_not_take(bad):
-    """The wgmma route takes bf16 at D 64 or 128 only; the checks run
-    before any build or launch."""
+    """The wgmma route takes bf16 at D 64, 80, 96 or 128 only (not 192);
+    the checks run before any build or launch."""
     dt, d, off, kvh = torch.bfloat16, 128, 0, 2
     if bad == "dtype":
         dt = torch.float32
     elif bad == "head_dim":
-        d = 96
+        d = 192
     elif bad == "offset":
         off = -1
     else:

@@ -519,18 +519,24 @@ def test_launcher_smoke_on_cpu(arch, capsys):
     assert "[launch.serve]" in capsys.readouterr().out
 
 
-def test_unported_arch_raises_before_allocating(monkeypatch):
-    """Patch embeddings are all that is left unported: phi-3-vision with
-    its ``num_patches`` (the launcher's `run` turns them off) raises
-    before anything is allocated."""
-    def refuse(*args, **kwargs):
-        raise AssertionError("allocated before refusing the arch")
-    monkeypatch.setattr(model, "init_params", refuse)
+def test_phi3_vision_with_its_patches_serves_through_serve_config(capsys):
+    """phi-3-vision's smoke config keeps its ``num_patches`` through
+    `serve_config` (the launcher's `run` turns them off, as the
+    reference's does): the model holds ``patch_proj`` (1,024, d) beside
+    the weights ``param_count`` counts, and serves its token-only requests
+    with finite logits and tokens in the vocabulary."""
     cfg = registry.smoke("phi-3-vision-4.2b")
     assert cfg.num_patches
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tserve.serve_config(cfg, tserve.parse_args(
-            ["--arch", "phi-3-vision-4.2b", "--smoke", "--device", "cpu"]))
+    out = tserve.serve_config(cfg, tserve.parse_args(
+        ["--arch", "phi-3-vision-4.2b", "--smoke", "--device", "cpu",
+         "--batch", "2", "--prompt-len", "16", "--new-tokens", "3"]))
+    assert out["cfg"].num_patches == cfg.num_patches
+    assert out["param_bytes"] == 4 * (cfg.param_count()
+                                      + model.PATCH_EMBED_DIM * cfg.d_model)
+    assert out["tokens"].shape == (2, 3) and out["finite"]
+    assert 0 <= int(out["tokens"].min()) <= int(out["tokens"].max()) \
+        < cfg.vocab_size
+    assert "[launch.serve]" in capsys.readouterr().out
 
 
 def test_launcher_cuda_without_gpu_raises(monkeypatch):
