@@ -7,9 +7,10 @@ CUDA toolkit's ``nvcc``; it exits non-zero, printing no result, anywhere
 else.  Phases, each of which raises on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: the seven kernel sources of ``src/repro_torch/csrc``, compiled
+2. build: the eight kernel sources of ``src/repro_torch/csrc``, compiled
    in parallel, with each source's registers and spills from ``ptxas``
-   (and each ``cover_counts`` instantiation's registers);
+   (and each ``cover_counts`` instantiation's registers, each
+   ``flash_attention_bwd`` kernel's registers and spills);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    exact equality — ``fused_expand`` and ``lt_select_expand`` on a reduced
    graph (empty frontier, destination blocks no tile reaches,
@@ -261,6 +262,37 @@ else.  Phases, each of which raises on failure:
     decode ms a step beside the time to move the step's bytes once
     (every weight but the embedding, every layer's KV read) and peak
     device memory;
+16f. training, after the VLM phases are released: ([flash bwd]) the
+    flash-attention gradient (``csrc/flash_attention_bwd.cu``, two
+    launches) against its plain version ``ref.flash_attention_bwd_ref`` —
+    bf16 at D 64/80/96/128, float32 at D 16/32/128, GQA groups 1, 3, 5
+    and 8, L 130 and 257, causal and not, and the training shape (1,
+    4096, 24 over 8 heads, 128) bf16 causal, which must also give the
+    same bits twice; float32 within 1e-4 max abs (``BWD_F32_TOL``), bf16
+    as the forward's checks; ([train golden]) two steps of
+    ``make_train_step`` on llama3.2-3b cut to 2 layers at full width,
+    float32 (TF32 off), on the ``"lm"`` entry's ``numpy_params`` weights
+    and ``SyntheticLM(seed 1)``'s 2 × 256-token batches 0-1, against the
+    file's ``"train"`` entry within 1e-3 (``TRAIN_GOLD_TOL``, relative:
+    losses, grad norms, every leaf's L2 norm of step 0's gradient and of
+    the parameters after the steps, 64 values of three leaves of each),
+    the simt forward and the backward kernel at D 128, 4 simt and 4
+    ``flash_bwd`` launches a step; ([train bf16]) the same depth in bf16
+    (the port's seeded init), 2 × 1,024 tokens: each gradient leaf
+    through the kernels (wgmma forward) against the same gradient with
+    attention through the plain version, within ``TRAIN_BF16_RTOL``
+    relative L2; ([train main]) llama3.2-3b at full width and depth (28
+    layers, bf16) through ``launch.train.main`` (``TRAIN_MAIN_ARGV``:
+    train_4k's 4,096 tokens, the global batch cut from 256 to 8
+    sequences, 8 microbatches, 4 steps): finite losses and grad norms,
+    exactly 448 wgmma (forward and remat's recompute) and 448
+    ``flash_bwd`` launches a step, no simt or decode; it prints the step
+    seconds (median of steps 1-3), tokens/s, the share of the bf16 peak
+    that 6 · N · tokens a step gives, peak device memory and the
+    forward / backward / optimizer split; ([train restart]) the smoke
+    config on the card, float32: ``train_with_restarts`` with crashes
+    after steps 5 and 9 against a clean run, within 1e-5
+    (``TRAIN_RESTART_TOL``);
 17. flash timing at (b)'s prefill and decode shapes, at zamba2's (H =
     KVH 32, D 80) and at phi-3-vision's (H = KVH 32, D 96): the route the
     main path takes and the simt route (the CUDA-core kernel, the earlier
@@ -268,7 +300,12 @@ else.  Phases, each of which raises on failure:
     10 launches, the plain version and, as the library's time,
     ``scaled_dot_product_attention(..., enable_gqa=True)`` (timed only;
     the port never calls it) from a CUDA graph of 10 launches and with
-    events around one eager call, each beside the function's bound.
+    events around one eager call, each beside the function's bound; and
+    the flash-attention gradient at the training shape (1, 4096, 24 over
+    8, 128, bf16, causal): both launches from a CUDA graph of 10, the
+    plain version, and the autograd backward of
+    ``scaled_dot_product_attention(..., is_causal=True,
+    enable_gqa=True)`` (timed only), beside its bound.
 
 Each phase prints its peak device memory (9b, 9c and 9d their seconds
 too).
@@ -338,6 +375,26 @@ SSM_MAIN = ("mamba2-1.3b", "zamba2-2.7b")
 # The VLM phases (15, 16e): phi-3-vision at full width and full depth; the
 # patched prefill's patch seed and greedy decode steps.
 VLM_ARCH, VLM_PATCH_SEED, VLM_STEPS = "phi-3-vision-4.2b", 0, 8
+# The training phases (16f, 17).  The backward kernel's float32 limit: its
+# gradients sum up to L terms of magnitude ~1 (dv of an early key gathers
+# every later query), where float32 sums in another order differ by
+# ~1e-6 relative.  The golden steps' limit is the LM goldens' 1e-3, taken
+# relative (losses ~12, parameter norms up to ~2e4).  The bf16 gradient
+# check: the kernel path and the plain one differ in the attention
+# output's rounding (the wgmma route rounds P to bf16; rrms ≤ 6e-3), which
+# every gradient inherits, plus the bf16 rounding of each gradient
+# (2^-9 relative): about 1e-2 relative L2 is expected, 3e-2 passes a
+# sound kernel and fails a gradient that is off by a few percent.  The
+# restart check's limit: the embedding gradient's index_put accumulates
+# with atomics on the card, so two runs differ in the last bits.
+BWD_F32_TOL, TRAIN_GOLD_TOL, TRAIN_BF16_RTOL = 1e-4, 1e-3, 3e-2
+TRAIN_RESTART_TOL = 1e-5
+TRAIN_BF16_BATCH, TRAIN_BF16_SEQ = 2, 1024
+TRAIN_MAIN_STEPS, TRAIN_MAIN_MICRO = 4, 8
+TRAIN_MAIN_ARGV = ["--arch", "llama3.2-3b", "--shape", "train_4k",
+                   "--seq-len", "4096", "--batch", "8", "--microbatches",
+                   str(TRAIN_MAIN_MICRO), "--steps", str(TRAIN_MAIN_STEPS)]
+BWD_SHAPE = (1, 4096, 24, 8, 128)            # (B, L, H, KVH, D)
 # Integer operations of the counter hash (core/rng.py): one fold is
 # 2 shifts + 3 adds + 1 xor, then mix32 is 3 shift-xor pairs + 2 multiplies;
 # a colour draw adds shift, convert, scale and compare.
@@ -3056,6 +3113,409 @@ def time_flash(dev) -> dict:
     return per
 
 
+# ---------------------------------------------------------- training phases
+def _bwd_cases():
+    """(name, B, L, H, KVH, D, dtype, causal) of the backward kernel's
+    checks: the training shape first."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("training shape", *BWD_SHAPE, bf16, True)]
+    for causal in (True, False):
+        cases += [("bf16 D 64, H/KVH 1", 2, 130, 4, 4, 64, bf16, causal),
+                  ("bf16 D 80, H/KVH 3", 2, 257, 6, 2, 80, bf16, causal),
+                  ("bf16 D 96, H/KVH 5", 1, 130, 10, 2, 96, bf16, causal),
+                  ("bf16 D 128, H/KVH 8", 1, 257, 8, 1, 128, bf16, causal),
+                  ("f32 D 16, H/KVH 1", 2, 257, 4, 4, 16, f32, causal),
+                  ("f32 D 32, H/KVH 3", 2, 130, 6, 2, 32, f32, causal),
+                  ("f32 D 128, H/KVH 5", 1, 257, 10, 2, 128, f32, causal),
+                  ("f32 D 128, H/KVH 8", 1, 130, 8, 1, 128, f32, causal)]
+    return cases
+
+
+def _bwd_close(got, want, dtype, what: str) -> tuple[float, float]:
+    """A gradient against its plain version: float32 within BWD_F32_TOL
+    max abs, bf16 as `_flash_close` holds the forward."""
+    if dtype == torch.bfloat16:
+        return _flash_close(got, want, dtype, what)
+    worst = float((got - want).abs().max())
+    _check(worst <= BWD_F32_TOL, f"{what}: max abs err {worst} > "
+           f"{BWD_F32_TOL}")
+    return worst, 0.0
+
+
+def check_flash_bwd(dev) -> dict:
+    """The flash-attention gradient (two launches through
+    ``ops.flash_attention_bwd``) against ``ref.flash_attention_bwd_ref``
+    on the card, on the forward's own output; the training shape twice,
+    bit for bit.  Returns the largest differences per dtype."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    rrms = 0.0
+    for name, b, L, h, kvh, d, dtype, causal in _bwd_cases():
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((b, L, h, d), (b, L, kvh, d),
+                                     (b, L, kvh, d), (b, L, h, d)))
+        o = ops.flash_attention(q, k, v, causal=causal)
+        before = ops.LAUNCHES["flash_bwd"]
+        got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+        torch.cuda.synchronize()
+        _check(ops.LAUNCHES["flash_bwd"] == before + 2,
+               f"flash_bwd {name}: not launched twice")
+        if name == "training shape":
+            again = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+            _check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                   "flash_bwd training shape: two runs differ")
+            del again
+        want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal)
+        for grad, a, w in zip(("dq", "dk", "dv"), got, want):
+            worst, r = _bwd_close(a, w, dtype, f"flash_bwd {grad} {name} "
+                                  f"{'causal' if causal else 'full'}")
+            err[dtype] = max(err[dtype], worst)
+            rrms = max(rrms, r)
+        del q, k, v, do, o, got, want
+    n = len(_bwd_cases())
+    print(f"[flash bwd] {n} cases (bf16 at D 64/80/96/128, float32 at D "
+          f"16/32/128, H/KVH 1/3/5/8, L 130 and 257, causal and not, the "
+          f"training shape {BWD_SHAPE} bf16 causal, bit-identical twice): "
+          f"dq, dk and dv max abs err f32 {err[torch.float32]:.3e} (limit "
+          f"{BWD_F32_TOL}), bf16 {err[torch.bfloat16]:.3e} (atol = rtol = "
+          f"{BF16_TOL}), bf16 relative RMS diff {rrms:.3e} (limit "
+          f"{BF16_RMS_TOL}); peak device memory {_peak_gib():.2f} GiB")
+    return {"f32": err[torch.float32], "bf16": err[torch.bfloat16],
+            "bf16_rrms": rrms, "cases": n}
+
+
+def _train_batch(data, step: int, dev) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in data.batch_at(step).items()}
+
+
+def _leaf_errors(named: dict, gold: dict, what: str) -> float:
+    """The golden summary's leaf norms and values against ``named``'s
+    tensors, each relative (a value to the largest of its leaf's 64);
+    returns the worst, checked against TRAIN_GOLD_TOL."""
+    worst = 0.0
+    for name, want in gold["norms"].items():
+        got = float(named[name].detach().double().norm())
+        worst = max(worst, abs(got - want) / max(want, 1e-30))
+    for name, sel in gold["values"].items():
+        flat = named[name].detach().reshape(-1)
+        idx = torch.as_tensor(sel["index"], device=flat.device)
+        got = flat[idx].double().cpu()
+        want = torch.tensor(sel["value"], dtype=torch.float64)
+        scale = float(want.abs().max())
+        diff = float((got - want).abs().max())
+        worst = max(worst, diff / scale if scale else diff)
+    _check(worst <= TRAIN_GOLD_TOL, f"train golden {what}: relative "
+           f"difference {worst} > {TRAIN_GOLD_TOL}")
+    return worst
+
+
+def check_train_golden(golden: dict, dev, tree) -> dict:
+    """Two float32 steps of ``make_train_step`` on the ``"train"`` entry's
+    model, weights (``tree``, from `numpy_params`) and batches, against
+    the entry; step 0's gradient is taken once more on its own to compare
+    its leaves."""
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    gold = golden["train"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(registry.get(gold["arch"]),
+                              num_layers=gold["num_layers"],
+                              dtype=gold["dtype"])
+    torch.cuda.reset_peak_memory_stats()
+    params = model.trainable(convert.lm_params_from_jax(tree, cfg, dev))
+    del tree
+    data = SyntheticLM(cfg, gold["batch"], gold["seq_len"],
+                       seed=gold["data_seed"])
+    batches = [_train_batch(data, s, dev) for s in range(len(gold["steps"]))]
+    named = adamw.named(params)
+    loss = model.loss_fn(params, cfg, batches[0])[0]
+    grads = torch.autograd.grad(loss, list(named.values()))
+    g_err = _leaf_errors(dict(zip(named, grads)), gold["grad0"],
+                         "step 0's gradient")
+    del grads, loss
+    step = make_train_step(cfg, lambda s: gold["lr"], gold["microbatches"])
+    opt = adamw.init(params, torch.float32)
+    ops.reset_launches()
+    worst = 0.0
+    for b, want in zip(batches, gold["steps"]):
+        params, opt, m = step(params, opt, b)
+        for key in ("loss", "grad_norm"):
+            worst = max(worst, abs(float(m[key]) - want[key]) / want[key])
+    torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in ("flash_simt", "flash_wgmma",
+                                             "flash_bwd")}
+    _check(worst <= TRAIN_GOLD_TOL, f"train golden: loss or grad norm "
+           f"differs by {worst} relative (limit {TRAIN_GOLD_TOL})")
+    p_err = _leaf_errors(adamw.named(params), gold["params"],
+                         "parameters after the steps")
+    n = len(gold["steps"]) * cfg.num_layers
+    _check(launches == {"flash_simt": 2 * n, "flash_wgmma": 0,
+                        "flash_bwd": 2 * n},
+           f"train golden: launches {launches}, not {2 * n} simt (forward "
+           f"and remat's recompute) and {2 * n} flash_bwd")
+    peak = _peak_gib()
+    del params, opt, batches
+    print(f"[train golden] {cfg.name}, {cfg.num_layers} layers at full "
+          f"width, float32, {len(gold['steps'])} steps of {gold['batch']} x "
+          f"{gold['seq_len']} tokens at lr {gold['lr']}: losses "
+          f"{[s['loss'] for s in gold['steps']]} and grad norms within "
+          f"{worst:.3e}, step 0's gradient leaves within {g_err:.3e}, the "
+          f"parameters after the steps within {p_err:.3e} of the reference "
+          f"(relative; limit {TRAIN_GOLD_TOL}); launches {launches}; peak "
+          f"device memory {peak:.2f} GiB")
+    return {"max_rel_err": max(worst, g_err, p_err), "launches": launches}
+
+
+def check_train_bf16(dev) -> dict:
+    """llama3.2-3b at full width, 2 layers, bf16, the port's seeded init:
+    one step's gradient (2 x TRAIN_BF16_SEQ tokens) through the kernels
+    against the same gradient with ``ops.flash_attention`` patched to the
+    plain version (autograd through it); each leaf within TRAIN_BF16_RTOL
+    relative L2."""
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(registry.get(LM_ARCH), num_layers=2)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.trainable(model.init_params(cfg, 0, dev))
+    batch = _train_batch(SyntheticLM(cfg, TRAIN_BF16_BATCH, TRAIN_BF16_SEQ,
+                                     seed=3), 0, dev)
+    named = adamw.named(params)
+    ops.reset_launches()
+    got = torch.autograd.grad(model.loss_fn(params, cfg, batch)[0],
+                              list(named.values()))
+    torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in ("flash_wgmma", "flash_bwd")}
+    kernel = ops.flash_attention
+    ops.flash_attention = ref.flash_attention_ref
+    try:
+        want = torch.autograd.grad(model.loss_fn(params, cfg, batch)[0],
+                                   list(named.values()))
+    finally:
+        ops.flash_attention = kernel
+    rel = {}
+    for name, a, w in zip(named, got, want):
+        rel[name] = float((a.float() - w.float()).norm()
+                          / w.float().norm().clamp_min(1e-30))
+    worst = max(rel, key=rel.get)
+    n = 2 * cfg.num_layers
+    _check(launches == {"flash_wgmma": n, "flash_bwd": n},
+           f"train bf16: launches {launches}, not {n} wgmma and {n} "
+           f"flash_bwd")
+    _check(rel[worst] <= TRAIN_BF16_RTOL, f"train bf16: leaf {worst} "
+           f"differs by {rel[worst]} relative L2 (limit {TRAIN_BF16_RTOL})")
+    peak = _peak_gib()
+    del params, got, want
+    print(f"[train bf16] {cfg.name}, {cfg.num_layers} layers at full width, "
+          f"bf16, {TRAIN_BF16_BATCH} x {TRAIN_BF16_SEQ} tokens: every "
+          f"gradient leaf through the kernels (launches {launches}) "
+          f"against attention through the plain version within "
+          f"{rel[worst]:.3e} relative L2 (worst {worst}; limit "
+          f"{TRAIN_BF16_RTOL}; median "
+          f"{sorted(rel.values())[len(rel) // 2]:.3e}); peak device memory "
+          f"{peak:.2f} GiB")
+    return {"max_rel_err": rel[worst], "launches": launches}
+
+
+def run_train_main_path() -> dict:
+    """llama3.2-3b at full width and depth, bf16, through
+    ``launch.train.main`` with TRAIN_MAIN_ARGV; launch counters zeroed
+    just before and read just after."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tlaunch
+
+    ops.reset_launches()
+    out = tlaunch.main(TRAIN_MAIN_ARGV)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    cfg, steps = out["cfg"], len(out["losses"])
+    per_step = {k: launches[k] / steps for k in (
+        "flash_wgmma", "flash_bwd", "flash_simt", "flash_decode")}
+    want = TRAIN_MAIN_MICRO * cfg.num_layers * 2
+    _check(steps == TRAIN_MAIN_STEPS and all(
+        np.isfinite(out["losses"])) and all(np.isfinite(out["grad_norms"])),
+        f"train main: losses {out['losses']}, grad norms "
+        f"{out['grad_norms']}")
+    _check(per_step == {"flash_wgmma": want, "flash_bwd": want,
+                        "flash_simt": 0, "flash_decode": 0},
+           f"train main: launches a step {per_step}, not {want} wgmma and "
+           f"{want} flash_bwd")
+    total_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    _check(out["peak_gib"] < total_gib, "train main: peak memory")
+    tokens = out["batch"] * out["seq_len"]
+    flop = 6 * cfg.param_count() * tokens
+    share = flop / out["step_s"] / BF16_FLOPS_PER_S
+    split = {k: v / steps for k, v in out["clock"].items()}
+    print(f"[train main] {cfg.name}, {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.param_count() / 1e9:.3f} B parameters, bf16, "
+          f"AdamW with float32 moments: {steps} steps of {out['batch']} x "
+          f"{out['seq_len']} tokens in {TRAIN_MAIN_MICRO} microbatches "
+          f"(train_4k's global batch 256 cut to {out['batch']}); losses "
+          f"{[round(x, 4) for x in out['losses']]}, grad norms "
+          f"{[round(x, 4) for x in out['grad_norms']]}; step seconds "
+          f"{[round(x, 3) for x in out['step_seconds']]} (median of steps "
+          f"1-{steps - 1} {out['step_s']:.3f}s), {out['tokens_per_s']:.0f} "
+          f"tokens/s, 6·N·tokens {flop / 1e15:.3f} PFLOP a step = "
+          f"{share:.1%} of {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; per step "
+          f"(mean of {steps}, synchronised host clock) forward "
+          f"{split.get('forward', 0):.3f}s, backward "
+          f"{split.get('backward', 0):.3f}s, optimizer "
+          f"{split.get('optimizer', 0):.3f}s; launches a step {per_step}; "
+          f"peak device memory {out['peak_gib']:.2f} GiB of "
+          f"{total_gib:.2f}")
+    return dict(out, cfg=None, launches=launches, per_step=per_step,
+                mfu=share, split=split)
+
+
+def run_train_restart(dev) -> dict:
+    """The crash/restart contract on the card: the smoke config, float32,
+    12 steps with a checkpoint every 4, crashes injected after steps 5
+    and 9, against a clean run within TRAIN_RESTART_TOL."""
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.train import loop
+
+    cfg = registry.smoke(LM_ARCH)
+    kw = dict(batch=4, seq_len=32, steps=12, ckpt_every=4, lr=1e-3,
+              log_every=100, print_fn=lambda *a: None, async_ckpt=False,
+              device=dev)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train_restart_") as d:
+        clean = loop.train(cfg, checkpoint_dir=os.path.join(d, "clean"),
+                           **kw)
+        crashed = loop.train_with_restarts(
+            cfg, checkpoint_dir=os.path.join(d, "crashy"),
+            crash_schedule=(5, 9), **kw)
+    worst = max(float((a - b).detach().abs().max()) for a, b in zip(
+        clean.params.parameters(), crashed.params.parameters()))
+    loss_err = max(abs(a - b) for a, b in zip(
+        clean.losses[-crashed.steps_run:], crashed.losses))
+    _check(crashed.resumed_from == 8, f"train restart: resumed from "
+           f"{crashed.resumed_from}, not 8")
+    _check(max(worst, loss_err) <= TRAIN_RESTART_TOL,
+           f"train restart: parameters differ by {worst}, losses by "
+           f"{loss_err} (limit {TRAIN_RESTART_TOL})")
+    print(f"[train restart] {cfg.name}, float32 on the card: crashes after "
+          f"steps 5 and 9, resumed from step {crashed.resumed_from}; "
+          f"parameters within {worst:.3e}, the resumed losses within "
+          f"{loss_err:.3e} of a clean run (limit {TRAIN_RESTART_TOL}); "
+          f"{time.perf_counter() - t0:.1f}s")
+    return {"max_abs_err": max(worst, loss_err)}
+
+
+def time_flash_bwd(dev) -> dict:
+    """The flash-attention gradient at the training shape (BWD_SHAPE,
+    bf16, causal): both launches from a CUDA graph of 10 (through the
+    wrappers, uncounted), the plain version (events), and the autograd
+    backward of ``scaled_dot_product_attention(..., is_causal=True,
+    enable_gqa=True)`` (events around eager calls; timed only), beside
+    the bound: five products of the visible (query, key) pairs at the
+    bf16 peak, or the bytes of q, k, v, o, do, dq, dk and dv once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    b, L, h, kvh, d = BWD_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+                   for shape in ((b, L, h, d), (b, L, kvh, d),
+                                 (b, L, kvh, d), (b, L, h, d)))
+    scale = d ** -0.5
+    o = ops.flash_attention(q, k, v, causal=True)
+
+    def kernel():
+        dq, stats = fa.flash_bwd_dq_cuda(q, k, v, o, do, causal=True,
+                                         scale=scale)
+        return (dq, *fa.flash_bwd_dkdv_cuda(q, k, v, do, stats, causal=True,
+                                            scale=scale))
+
+    def plain():
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=True)
+
+    want = plain()
+    got = kernel()
+    err = max(float((a.float() - w.float()).abs().max())
+              for a, w in zip(got, want))
+    del got, want
+    ms = _kernel_ms(kernel)
+    plain_ms = _time_ms(plain, 2)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+
+    lib_err = max(float((a.transpose(1, 2).float() - w.float()).abs().max())
+                  for a, w in zip(library(), plain()))
+    library_ms = _time_ms(library, 10)
+    pairs = L * (L + 1) // 2
+    ops_ms = 1e3 * 5 * 2 * b * h * pairs * d / BF16_FLOPS_PER_S
+    bytes_ms = 1e3 * 2 * (4 * b * L * h * d + 4 * b * L * kvh * d) \
+        / HBM_BYTES_PER_S
+    out_d = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=max(ops_ms, bytes_ms),
+                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                 max_abs_err=err, library_max_abs_err=lib_err)
+    print(f"[timing flash bwd] {BWD_SHAPE} (B, L, H, KVH, D) bf16 causal: "
+          f"both launches {ms:.4f} ms (CUDA graph of 10), plain "
+          f"{plain_ms:.4f} ms, SDPA's autograd backward {library_ms:.4f} ms "
+          f"(events around eager calls; its max abs diff from plain "
+          f"{lib_err:.3e}); bound {out_d['bound_ms']:.6f} ms by "
+          f"{out_d['bound_by']} ({ops_ms:.6f} operations, {bytes_ms:.6f} "
+          f"bytes): {out_d['bound_ms'] / ms:.1%} of it; max abs err from "
+          f"plain {err:.3e}")
+    return out_d
+
+
+def run_train_phases(golden: dict, dev) -> dict:
+    """Phase 16f: the backward kernel's checks while numpy draws the
+    golden steps' weights in a thread (its draws release the interpreter
+    lock), then the golden steps, the bf16 gradient, the main path and the
+    restart contract, each phase's memory released before the next."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import registry
+    from repro_torch.models import init
+
+    gold = golden["train"]
+    cfg = dataclasses.replace(registry.get(gold["arch"]),
+                              num_layers=gold["num_layers"],
+                              dtype=gold["dtype"])
+    torch.cuda.reset_peak_memory_stats()
+    with ThreadPoolExecutor(1) as pool:
+        tree = pool.submit(init.numpy_params, cfg, gold["param_seed"])
+        out = {"bwd": check_flash_bwd(dev)}
+        _release("flash bwd checks")
+        out["golden"] = check_train_golden(golden, dev, tree.result())
+    _release("train golden")
+    out["bf16"] = check_train_bf16(dev)
+    _release("train bf16")
+    out["main"] = run_train_main_path()
+    _release("train main")
+    out["restart"] = run_train_restart(dev)
+    _release("train restart")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -3093,6 +3553,16 @@ def main() -> int:
                        re.S)
     print("[build] coverage registers (W, Q, 16-byte loads): "
           + ", ".join(f"({w}, {q}, {v == '1'}) {r}" for w, q, v, r in cover))
+    # flash_bwd_{dq,dkdv}_kernel<T, NT>: registers and spill bytes.
+    bwd = re.findall(r"(flash_bwd_\w+?_kernel)I(\w+?)Li(\d+)E.*?(\d+) "
+                     r"bytes spill stores, (\d+) bytes spill loads.*?Used "
+                     r"(\d+) registers", _build.build_log(
+                         "flash_attention_bwd"), re.S)
+    print("[build] flash_attention_bwd registers (spill bytes) per kernel, "
+          "dtype and D/16 bucket: "
+          + ", ".join(f"{k[10:-7]} {'bf16' if 'bfloat' in t else 'f32'} "
+                      f"{nt} {r} ({int(a) + int(b)})"
+                      for k, t, nt, a, b, r in bwd))
     # flash_prefill_kernel<D>: registers and spill bytes per head dim.
     wgmma = re.findall(r"flash_prefill_kernelILi(\d+)E.*?(\d+) bytes spill "
                        r"stores, (\d+) bytes spill loads.*?Used (\d+) "
@@ -3178,8 +3648,10 @@ def main() -> int:
     _release("SSD phases")
     vlm = run_vlm_main_path(dev)
     _release("VLM phases")
+    train = run_train_phases(golden, dev)
     torch.cuda.reset_peak_memory_stats()
     fl = time_flash(dev)
+    fb = time_flash_bwd(dev)
     print(f"[timing flash] peak device memory {_peak_gib():.2f} GiB")
     # The share of each (b) prefill that its attention launches take.
     share = {name: r["launches"]["flash_wgmma"] * fl[shape]["ms"]
@@ -3227,7 +3699,14 @@ def main() -> int:
           f"{fe['batch_compact_ms']:.2f} ms, LT {lse['batch_dense_ms']:.2f} / "
           f"{lse['batch_compact_ms']:.2f} ms (dense / compacted grid); "
           f"cover_counts {cc['ms']:.4f} ms cold, {cc['warm_ms']:.4f} warm, "
-          f"Q 8 {cc['multi']['ms']:.4f} cold; fused_expand_q at n {Q_N} "
+          f"Q 8 {cc['multi']['ms']:.4f} cold; training llama3.2-3b "
+          f"{train['main']['step_s']:.3f}s a step of "
+          f"{train['main']['batch'] * train['main']['seq_len']} tokens "
+          f"({train['main']['tokens_per_s']:.0f} tokens/s, "
+          f"{train['main']['mfu']:.1%} of the bf16 peak, peak memory "
+          f"{train['main']['peak_gib']:.2f} GiB); flash backward "
+          f"{fb['ms']:.4f} ms (bound {fb['bound_ms']:.4f}, SDPA's "
+          f"{fb['library_ms']:.4f}); fused_expand_q at n {Q_N} "
           f"({q['num_tiles']} tiles, {q['q8_gib']:.2f} GiB) {q['dense_ms']:.4f} "
           f"ms dense / {q['compact_ms']:.4f} ms compacted per level, batch "
           f"{q['batch_dense_ms']:.2f} / {q['batch_compact_ms']:.2f} ms end to "
@@ -3452,6 +3931,28 @@ def main() -> int:
              slot_list=dict({k: q[f"slot_{k}"] for k in (
                  "entries", "bytes", "build_ms")},
                  cell_collisions=q["cell_collisions"])),
+        dict(name="flash_bwd", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/models/attention.py:70",
+             replaces_note="no pallas_call: the reference differentiates "
+                           "its jnp blocked scan (attention.py:70-134); "
+                           "the gradient of row 6's kernel",
+             launches=train["main"]["launches"]["flash_bwd"],
+             launches_per_step=train["main"]["per_step"]["flash_bwd"],
+             launches_by_path={
+                 "train_main": train["main"]["launches"]["flash_bwd"],
+                 "train_golden": train["golden"]["launches"]["flash_bwd"],
+                 "train_bf16": train["bf16"]["launches"]["flash_bwd"]},
+             max_abs_err=max(train["bwd"]["f32"], train["bwd"]["bf16"],
+                             fb["max_abs_err"]),
+             max_abs_err_f32=train["bwd"]["f32"],
+             max_abs_err_bf16=train["bwd"]["bf16"],
+             bf16_rrms=train["bwd"]["bf16_rrms"],
+             train_golden_max_rel_err=train["golden"]["max_rel_err"],
+             train_bf16_max_rel_err=train["bf16"]["max_rel_err"],
+             train_restart_max_abs_err=train["restart"]["max_abs_err"],
+             **{k: fb[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())

@@ -9,6 +9,7 @@
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --moe-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --ssm-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --vlm-only
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --train-only
 
 Builds the launcher's graph at the size the port's chip smoke serves
 (``powerlaw_cluster(65536, 6.0, prob=0.25, seed=7)``, deduped, reversed),
@@ -146,6 +147,17 @@ draws them) before 64 tokens, prefilled through the reference's
 ``cur_len`` 128 to 135.  About 1.7 GB of float32 weights.
 ``--vlm-only`` recomputes this entry alone and keeps the others byte for
 byte.
+
+The ``"train"`` entry is two steps of the reference's ``make_train_step``
+(M 1, constant lr 1e-3, AdamW with float32 moments) on llama3.2-3b at
+full width and vocabulary, cut to 2 layers, float32, on the weights of
+``numpy_params(cfg, seed=0)`` (the ``"lm"`` entry's), with
+``SyntheticLM(cfg, 2, 256, seed=1)``'s batches 0 and 1.  It records each
+step's loss and grad norm, the L2 norm of every leaf of step 0's gradient
+and of the parameters after the two steps (under the port's parameter
+names, a stacked leaf's groups as its layers), and 64 seeded values of
+three leaves of each.  ``--train-only`` recomputes this entry alone
+(~1 min, ~20 GB of host memory).
 """
 from __future__ import annotations
 
@@ -196,6 +208,11 @@ SSM_HEADS_SEED, SSM_PROMPT_LEN = 0, 512
 # The "vlm" entry's configuration (module docstring) and its patches' seed.
 VLM_CUTS = {"phi3v": dict(arch="phi-3-vision-4.2b", num_layers=2)}
 VLM_PATCH_SEED = 2
+# The "train" entry (module docstring): depth, batches, steps, lr and the
+# leaves whose values it records (64 each, at indices drawn from the seed).
+TRAIN_LAYERS, TRAIN_DATA_SEED, TRAIN_BATCH, TRAIN_SEQ = 2, 1, 2, 256
+TRAIN_STEPS, TRAIN_LR, TRAIN_VALUE_SEED, TRAIN_VALUES = 2, 1e-3, 5, 64
+TRAIN_LEAVES = ("embedding", "layers.0.attn.wq", "layers.1.mlp.w2")
 MOE_A2A_JOB = dict(arch="deepseek-v3-671b", overrides={"num_experts": 16},
                    seed=11, batch=2, seq=64, shape=[2, 2], n_idx=256)
 MESH_CASES = [dict(diffusion=d, frontier=f, shape=list(sh))
@@ -368,6 +385,61 @@ def vlm_golden() -> dict:
         out[name] = dict(_lm_entry(cfg, port_cfg,
                                    patch_seed=VLM_PATCH_SEED),
                          arch=cut["arch"], cuts=cut)
+    return out
+
+
+def _leaf_summary(tree, cfg, rng_seed: int) -> dict:
+    """L2 norm (float64) of every leaf of ``tree`` under the port's names,
+    and TRAIN_VALUES seeded values of each of TRAIN_LEAVES."""
+    from repro_torch import convert
+
+    named = convert.lm_named_leaves(tree, cfg)
+    rng = np.random.default_rng(rng_seed)
+    values = {}
+    for name in TRAIN_LEAVES:
+        flat = np.asarray(named[name], np.float32).ravel()
+        idx = np.sort(rng.choice(flat.size, TRAIN_VALUES, replace=False))
+        values[name] = {"index": idx.tolist(),
+                        "value": flat[idx].astype(np.float64).tolist()}
+    norms = {name: float(np.sqrt(np.square(
+        np.asarray(a, np.float32), dtype=np.float64).sum()))
+        for name, a in named.items()}
+    return {"norms": norms, "values": values}
+
+
+def train_golden() -> dict:
+    """The ``"train"`` entry (module docstring)."""
+    from repro.data.pipeline import SyntheticLM
+    from repro.models import model
+    from repro.optim import adamw
+    from repro.train.step import make_train_step
+
+    cfg = dataclasses.replace(registry.get(LM_ARCH), num_layers=TRAIN_LAYERS,
+                              dtype="float32")
+    port_cfg = dataclasses.replace(port_registry.get(LM_ARCH),
+                                   num_layers=TRAIN_LAYERS, dtype="float32")
+    params = _tree_to_jax(port_init.numpy_params(port_cfg, LM_PARAM_SEED))
+    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=TRAIN_DATA_SEED)
+    batches = [{k: jnp.asarray(v) for k, v in data.batch_at(s).items()}
+               for s in range(TRAIN_STEPS)]
+    grads = jax.jit(jax.grad(lambda p, b: model.loss_fn(p, cfg, b)[0]))(
+        params, batches[0])
+    out = {"arch": LM_ARCH, "num_layers": TRAIN_LAYERS, "dtype": "float32",
+           "param_seed": LM_PARAM_SEED, "data_seed": TRAIN_DATA_SEED,
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "lr": TRAIN_LR,
+           "microbatches": 1, "optimizer_state_dtype": "float32",
+           "grad0": _leaf_summary(grads, port_cfg, TRAIN_VALUE_SEED)}
+    del grads
+    step = jax.jit(make_train_step(cfg, lambda s: TRAIN_LR),
+                   donate_argnums=(0, 1))
+    opt = adamw.init(params, jnp.float32)
+    out["steps"] = []
+    for b in batches:
+        params, opt, m = step(params, opt, b)
+        out["steps"].append({"loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"])})
+    del opt
+    out["params"] = _leaf_summary(params, port_cfg, TRAIN_VALUE_SEED)
     return out
 
 
@@ -650,6 +722,48 @@ def _worker_subprocess(flag: str, job: dict, devices: int,
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
+def dp_grads(job: dict, rank: int) -> dict:
+    """Rank ``rank``'s float32 gradient leaves of a ``--dp-worker`` job
+    (normal from ``(seed, rank)``, scaled by rank + 1 so the ranks' scales
+    differ); the port's test ranks draw the same."""
+    rng = np.random.default_rng((job["seed"], rank))
+    return {name: (rng.standard_normal(shape) * (rank + 1)).astype(
+        np.float32) for name, shape in job["shapes"].items()}
+
+
+def dp_reference(job: dict) -> dict:
+    """The reference's ``compressed_psum`` over a ``("data",)`` mesh of
+    ``job["devices"]`` forced host devices, each holding `dp_grads` of its
+    position: the mean (replicated) and each position's residual."""
+    from jax.sharding import AxisType, PartitionSpec as P
+
+    from repro.distributed.compat import shard_map
+    from repro.optim import compress
+
+    n = job["devices"]
+    mesh = jax.make_mesh((n,), ("data",), axis_types=(AxisType.Auto,))
+    per = [dp_grads(job, r) for r in range(n)]
+    stacked = {k: jnp.asarray(np.stack([g[k] for g in per]))
+               for k in job["shapes"]}
+
+    def body(g):
+        mean, res = compress.compressed_psum(
+            {k: v[0] for k, v in g.items()}, "data")
+        return mean, {k: v[None] for k, v in res.items()}
+
+    mean, res = jax.jit(shard_map(
+        body, mesh=mesh, in_specs=(P("data"),),
+        out_specs=(P(), P("data")), check=False))(stacked)
+    return {"mean": {k: np.asarray(v).tolist() for k, v in mean.items()},
+            "residual": {k: np.asarray(v).tolist() for k, v in res.items()}}
+
+
+def dp_reference_subprocess(job: dict, timeout: float = 300.0) -> dict:
+    """`dp_reference` of ``job`` in a fresh process with its forced host
+    devices."""
+    return _worker_subprocess("--dp-worker", job, job["devices"], timeout)
+
+
 def mesh_reference_subprocess(job: dict, devices: int = MESH_DEVICES,
                               timeout: float = 900.0) -> list:
     """`mesh_reference` of ``job`` in a fresh process with ``devices``
@@ -687,13 +801,21 @@ def main() -> None:
                       help="recompute the \"ssm\" entry alone")
     only.add_argument("--vlm-only", action="store_true",
                       help="recompute the \"vlm\" entry alone")
+    only.add_argument("--train-only", action="store_true",
+                      help="recompute the \"train\" entry alone")
     only.add_argument("--mesh-worker", metavar="JOB_JSON",
                       help="print mesh_reference(JOB) as JSON (run by "
                            "mesh_reference_subprocess)")
     only.add_argument("--moe-worker", metavar="JOBS_JSON",
                       help="print moe_reference(JOBS) as JSON (run by "
                            "moe_reference_subprocess)")
+    only.add_argument("--dp-worker", metavar="JOB_JSON",
+                      help="print dp_reference(JOB) as JSON (run by "
+                           "dp_reference_subprocess)")
     args = ap.parse_args()
+    if args.dp_worker:
+        print(json.dumps(dp_reference(json.loads(args.dp_worker))))
+        return
     if args.mesh_worker:
         print(json.dumps(mesh_reference(json.loads(args.mesh_worker))))
         return
@@ -705,10 +827,10 @@ def main() -> None:
                "unfused": lambda: unfused_golden(golden["top_k"]["seeds"]),
                "mesh": mesh_golden, "moe": moe_golden,
                "moe_a2a": moe_a2a_golden, "ssm": ssm_golden,
-               "vlm": vlm_golden}
+               "vlm": vlm_golden, "train": train_golden}
     flags = {"lm": "lm", "q": "q", "stream": "stream", "unfused": "unfused",
              "mesh": "mesh", "moe": "moe", "moe_a2a": "moe", "ssm": "ssm",
-             "vlm": "vlm"}
+             "vlm": "vlm", "train": "train"}
     keys = [k for k in entries if getattr(args, f"{flags[k]}_only")]
     if keys:
         with open(OUT) as f:
@@ -773,6 +895,7 @@ def main() -> None:
     golden["moe_a2a"] = moe_a2a_golden()
     golden["ssm"] = ssm_golden()
     golden["vlm"] = vlm_golden()
+    golden["train"] = train_golden()
     _write(golden)
     print(f"wrote {os.path.normpath(OUT)} in {time.time() - t0:.1f}s")
 

@@ -6,15 +6,19 @@ written into ``step_<N>.tmp`` then ``os.replace``d — a crashed writer can
 never produce a half checkpoint that restore would accept.
 
 A tree is nested dicts (keys visited in sorted order, as jax flattens a
-dict), lists and tuples, with numpy arrays or tensors as leaves; each
-leaf's path is its keys and indices joined by ``/``.  Leaf order, file
-names and path strings are the reference's, so either package reads the
-other's checkpoints.  A leaf is saved as one global host array, whatever
+dict), lists, tuples and dataclasses (fields in order, as jax flattens a
+registered dataclass: the training state ``(params, AdamWState)``), with
+numpy arrays or tensors as leaves; each leaf's path is its keys, indices
+and ``.field`` names joined by ``/``.  Leaf order, file names and path
+strings are the reference's, so either package reads the other's
+checkpoints.  A bf16 tensor is saved as its 16-bit patterns under the
+dtype name ``bfloat16`` (numpy has no bf16 of its own).  A leaf is saved as one global host array, whatever
 mesh wrote it: a sharded pool's ranks each place their own block of it
 (`serve.distributed.ShardedSketchStore.restore`).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -31,6 +35,9 @@ def _flatten(tree, prefix: tuple = ()):
         items = [(k, tree[k]) for k in sorted(tree)]
     elif isinstance(tree, (list, tuple)):
         items = list(enumerate(tree))
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        items = [(f".{f.name}", getattr(tree, f.name))
+                 for f in dataclasses.fields(tree)]
     else:
         return ["/".join(str(p) for p in prefix)], [tree]
     paths, leaves = [], []
@@ -47,13 +54,24 @@ def _unflatten(tree, leaves):
         return {k: _unflatten(tree[k], leaves) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_unflatten(t, leaves) for t in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _unflatten(getattr(tree, f.name), leaves)
+            for f in dataclasses.fields(tree)})
     return leaves.pop(0)
 
 
-def _host(leaf) -> np.ndarray:
+def _host(leaf) -> tuple[np.ndarray, str]:
+    """A host copy of ``leaf`` and the dtype name its manifest entry
+    records."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy(), "bfloat16"
+        a = t.numpy()
+    else:
+        a = np.asarray(leaf)
+    return a, str(a.dtype)
 
 
 def save(directory: str, step: int, tree: Any, *, keep: int = 3,
@@ -71,12 +89,12 @@ def save(directory: str, step: int, tree: Any, *, keep: int = 3,
         tmp = final + ".tmp"
         os.makedirs(tmp, exist_ok=True)
         manifest = {"step": step, "extra": extra or {}, "leaves": []}
-        for i, (p, a) in enumerate(zip(paths, host_leaves)):
+        for i, (p, (a, dtype)) in enumerate(zip(paths, host_leaves)):
             fname = f"leaf_{i:05d}.npy"
             np.save(os.path.join(tmp, fname), a)
             manifest["leaves"].append(
                 {"path": p, "file": fname, "shape": list(a.shape),
-                 "dtype": str(a.dtype)})
+                 "dtype": dtype})
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
         if os.path.exists(final):
@@ -124,7 +142,8 @@ def restore(directory: str, target_tree: Any, step: Optional[int] = None,
     """Restore into the structure of ``target_tree`` (values ignored, shapes
     checked).  Leaves come back as CPU tensors, or as numpy arrays with
     ``as_numpy=True`` — for callers that place them themselves, as the
-    sketch store does with its uint32 masks."""
+    sketch store does with its uint32 masks (a bf16 leaf comes back as a
+    tensor either way)."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
@@ -140,10 +159,14 @@ def restore(directory: str, target_tree: Any, step: Optional[int] = None,
         if entry is None:
             raise KeyError(f"checkpoint missing leaf {p!r}")
         arr = np.load(os.path.join(d, entry["file"]))
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"{p}: shape {arr.shape} != {tuple(ref.shape)}")
+        if entry["dtype"] == "bfloat16":            # 16-bit patterns
+            out.append(torch.from_numpy(arr.view(np.int16)).view(
+                torch.bfloat16))
+            continue
         want = np.dtype(entry["dtype"])
         if arr.dtype != want:                       # np.save stored raw bits
             arr = arr.view(want)
-        if tuple(arr.shape) != tuple(ref.shape):
-            raise ValueError(f"{p}: shape {arr.shape} != {tuple(ref.shape)}")
         out.append(arr if as_numpy else torch.from_numpy(arr))
     return _unflatten(target_tree, out), step

@@ -4,7 +4,10 @@ The reference keeps packed colour masks as uint32; the port keeps the same
 bit patterns in ``torch.int32`` tensors.  These helpers do the view at the
 boundary, so a graph or a sketch pool built by one package can be handed to
 the other and compared bit for bit.  `lm_params_from_jax` loads an LM
-parameter tree in the reference's layout into the port's modules.
+parameter tree in the reference's layout into the port's modules;
+`lm_named_leaves` names a tree of that layout (parameters, gradients or
+moments) by the port's parameter names, and `adamw_state_from_jax`
+carries an optimizer state across.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from repro_torch.core import rrr, tiles
 from repro_torch.graph import csr
 from repro_torch.models import common, model
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim import adamw
 
 
 def graph_from_numpy(indptr, src, dst, prob, num_vertices: int,
@@ -132,3 +136,52 @@ def lm_params_from_jax(tree: dict, cfg: ModelConfig,
     return model.LM(put(tree["embedding"]), put(tree["unembed"]),
                     put(tree["final_norm"]), layers, shared,
                     put(tree["patch_proj"]) if cfg.num_patches else None)
+
+
+def lm_named_leaves(tree: dict, cfg: ModelConfig) -> dict:
+    """The leaves of a tree in the reference's parameter layout under the
+    port's names (``model.LM.named_parameters()``'s): a stacked leaf's
+    group ``g`` goes to its layer, as in `lm_params_from_jax`.  Leaves are
+    returned as they are (sliced, not copied)."""
+    out = {"embedding": tree["embedding"], "unembed": tree["unembed"],
+           "final_norm": tree["final_norm"]}
+
+    def add(prefix: str, leaves: dict, g=None):
+        for k, a in leaves.items():
+            if isinstance(a, dict):
+                add(f"{prefix}.{k}", a, g)
+            else:
+                out[f"{prefix}.{k}"] = a if g is None else a[g]
+
+    i = 0
+    for (pattern, groups), stack in zip(model.stacks_of(cfg), tree["stacks"],
+                                        strict=True):
+        for g in range(groups):
+            for j in range(len(pattern)):
+                add(f"layers.{i}", stack[f"block{j}"], g)
+                i += 1
+    if cfg.family == "hybrid":
+        add("shared_attn", tree["shared_attn"])
+    if cfg.num_patches:
+        out["patch_proj"] = tree["patch_proj"]
+    return out
+
+
+def adamw_state_from_jax(state, cfg: ModelConfig,
+                         device="cuda") -> adamw.AdamWState:
+    """The port's `optim.adamw.AdamWState` holding a reference AdamW state
+    (``step``, and ``m`` / ``v`` in its parameter layout, as numpy or jax
+    arrays): each moment under its parameter's port name, in its own dtype
+    (float32 or bfloat16), on ``device``."""
+    dev = device_lib.resolve(device)
+
+    def put(a):
+        dt = (torch.bfloat16 if str(getattr(a, "dtype", "")) == "bfloat16"
+              else torch.float32)
+        return torch.from_numpy(np.array(a, np.float32)).to(dev, dt)
+
+    return adamw.AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev),
+        m={k: put(a) for k, a in lm_named_leaves(state.m, cfg).items()},
+        v={k: put(a) for k, a in lm_named_leaves(state.v, cfg).items()})

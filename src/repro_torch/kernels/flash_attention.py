@@ -25,6 +25,13 @@ tiling knobs have no counterpart.  The plain version is
 `kernels.ref.flash_attention_ref` (and `ref.flash_decode_splitk_ref`,
 the decode route's split and merge); `kernels.ops.flash_attention` picks
 between plain and kernel by device and counts each route's launches.
+
+The gradient (``csrc/flash_attention_bwd.cu``, which the reference does
+not have: it differentiates its jnp scan) is two launches,
+`flash_bwd_dq_cuda` then `flash_bwd_dkdv_cuda`, for float32 or bf16 at a
+head dim of `BWD_HEAD_DIMS` with Lq == Lk and ``kv_offset`` 0; its plain
+version is `ref.flash_attention_bwd_ref`, and `ops.flash_attention`'s
+autograd rule calls them.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from repro_torch.kernels import _build
 
 ROUTES = ("wgmma", "decode", "simt")
 WGMMA_HEAD_DIMS = (64, 80, 96, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 # The decode route's split: rows per sub-block (a split's length is a
 # multiple), query heads per CTA, the most splits one group merges
 # (csrc/flash_decode.cu's MAX_CHUNKS), and CTAs per SM the grid aims at.
@@ -50,6 +58,8 @@ _WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
 _DECODE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                     + [ctypes.c_float] + [ctypes.c_int] * 3
                     + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -199,3 +209,65 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 CUDA_ROUTES = {"wgmma": flash_prefill_wgmma_cuda,
                "decode": flash_decode_cuda, "simt": flash_attention_cuda}
+
+
+def _check_bwd(q, k, v, o, do, kernel: str) -> tuple[int, int, int, int,
+                                                     int]:
+    """Raise unless the backward takes these tensors: `_check`'s layouts
+    with Lq == Lk, D one of `BWD_HEAD_DIMS`, and o and do like q; returns
+    (B, L, H, KVH, D)."""
+    b, lq, lk, h, kvh, d = _check(q, k, v, kernel, _DTYPES)
+    if lq != lk or d not in BWD_HEAD_DIMS:
+        raise ValueError(f"{kernel}: needs Lq == Lk (got {lq}, {lk}) and D "
+                         f"in {BWD_HEAD_DIMS} (got {d})")
+    for name, t in (("o", o), ("do", do)):
+        _build.check_arg(kernel, name, t, q.dtype, 4, q.device)
+        if t.shape != q.shape or t.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must be q's shape "
+                             f"{tuple(q.shape)} and 16-byte aligned, got "
+                             f"{tuple(t.shape)}")
+    return b, lq, h, kvh, d
+
+
+def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, *, causal: bool,
+                      scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward's first launch on ``q``'s stream: q, o and do (B, L,
+    H, D), k and v (B, L, KVH, D), one dtype, contiguous.  Returns dq in
+    q's dtype and the float32 (2, B, H, L) scratch of each row's
+    log-sum-exp and Δ that `flash_bwd_dkdv_cuda` reads."""
+    b, L, h, kvh, d = _check_bwd(q, k, v, o, do, "flash_bwd_dq")
+    dq = torch.empty_like(q)
+    stats = torch.empty((2, b, h, L), dtype=torch.float32, device=q.device)
+    fn = _build.launcher("flash_attention_bwd", "flash_bwd_dq_launch",
+                         _BWD_ARGTYPES)
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), dq.data_ptr(), stats.data_ptr(),
+                 _DTYPES[q.dtype], b, L, h, kvh, d, scale, int(causal),
+                 torch.cuda.current_stream(q.device).cuda_stream),
+              "flash_bwd_dq")
+    return dq, stats
+
+
+def flash_bwd_dkdv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, stats: torch.Tensor, *,
+                        causal: bool, scale: float
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward's second launch, after `flash_bwd_dq_cuda` on the same
+    stream, reading its ``stats``: returns (dk, dv) (B, L, KVH, D) in k's
+    dtype, each summed over the KV head's query heads."""
+    b, L, h, kvh, d = _check_bwd(q, k, v, do, do, "flash_bwd_dkdv")
+    _build.check_arg("flash_bwd_dkdv", "stats", stats, torch.float32, 4,
+                     q.device)
+    if stats.shape != (2, b, h, L):
+        raise ValueError(f"flash_bwd_dkdv: stats must be (2, {b}, {h}, "
+                         f"{L}), got {tuple(stats.shape)}")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.launcher("flash_attention_bwd", "flash_bwd_dkdv_launch",
+                         _BWD_ARGTYPES)
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 stats.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 _DTYPES[q.dtype], b, L, h, kvh, d, scale, int(causal),
+                 torch.cuda.current_stream(q.device).cuda_stream),
+              "flash_bwd_dkdv")
+    return dk, dv

@@ -21,6 +21,10 @@ second alone.  ``flash_attention`` serves the LM substrate's
 prefill and decode through three kernels chosen by shape
 (`kernels.flash_attention.route`); ``LAUNCHES["flash_attention"]`` counts
 them all, ``flash_wgmma``, ``flash_decode`` and ``flash_simt`` each route.
+When one of its inputs requires a gradient, ``flash_attention`` runs the
+same forward inside an autograd rule whose backward is
+``flash_attention_bwd``: two kernel launches (``csrc/
+flash_attention_bwd.cu``), each counted in ``LAUNCHES["flash_bwd"]``.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from repro_torch.kernels import ref
 LAUNCHES = {"fused_expand": 0, "cover_counts": 0, "lt_select_expand": 0,
             "flash_attention": 0, "fused_expand_q": 0,
             "flash_wgmma": 0, "flash_decode": 0, "flash_simt": 0,
-            "cover_counts_multi": 0}
+            "cover_counts_multi": 0, "flash_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -145,21 +149,9 @@ def cover_counts_multi(visited: torch.Tensor,
     return ref.cover_counts_multi_ref(visited, active_q)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, scale: float | None = None,
-                    kv_offset: int = 0) -> torch.Tensor:
-    """Blocked online-softmax attention (the LM substrate's prefill and
-    decode): q (B, Lq, H, D), k and v (B, Lk, KVH, D), query head ``h``
-    reading KV head ``h // (H // KVH)``; the reference's unbatched
-    (Lq, H, D) layout is taken too.  Query ``i`` attends keys up to
-    ``i + kv_offset`` under ``causal``."""
-    unbatched = q.dim() == 3
-    if unbatched:
-        q, k, v = q[None], k[None], v[None]
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention: q, k and v must all be "
-                         "(Lq|Lk, H, D) or all (B, Lq|Lk, H, D)")
-    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+def _flash_forward(q, k, v, causal: bool, scale: float, kv_offset: int):
+    """The forward on batched (B, Lq, H, D) tensors: a route's kernel on
+    the card (counted), the plain version on the CPU."""
     if _on_cuda(q, k, v):
         from repro_torch.kernels import flash_attention as fa
         b, lq, h, d = q.shape
@@ -169,7 +161,77 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                 kv_offset=kv_offset)
         LAUNCHES[f"flash_{r}"] += 1
         LAUNCHES["flash_attention"] += 1
+        return out
+    return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                   kv_offset=kv_offset)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """`_flash_forward` with the backward kernel as its gradient; it saves
+    q, k, v and the output (under an activation checkpoint, autograd drops
+    them and recomputes the forward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out = _flash_forward(q, k, v, causal, scale, 0)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    kv_offset: int = 0) -> torch.Tensor:
+    """Blocked online-softmax attention (the LM substrate's prefill and
+    decode): q (B, Lq, H, D), k and v (B, Lk, KVH, D), query head ``h``
+    reading KV head ``h // (H // KVH)``; the reference's unbatched
+    (Lq, H, D) layout is taken too.  Query ``i`` attends keys up to
+    ``i + kv_offset`` under ``causal``.  Differentiable when Lq == Lk and
+    ``kv_offset`` is 0 (the training forward); a call that needs a
+    gradient anywhere else raises."""
+    unbatched = q.dim() == 3
+    if unbatched:
+        q, k, v = q[None], k[None], v[None]
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k and v must all be "
+                         "(Lq|Lk, H, D) or all (B, Lq|Lk, H, D)")
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if kv_offset or q.shape[1] != k.shape[1]:
+            raise ValueError("flash_attention: a gradient needs Lq == Lk "
+                             f"and kv_offset 0 (got {q.shape[1]}, "
+                             f"{k.shape[1]}, {kv_offset})")
+        out = _FlashAttention.apply(q, k, v, causal, scale)
     else:
-        out = ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
-                                      kv_offset=kv_offset)
+        out = _flash_forward(q, k, v, causal, scale, kv_offset)
     return out[0] if unbatched else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, scale: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention` (Lq == Lk, ``kv_offset`` 0) given
+    its output ``o`` and the output's gradient ``do``: two kernel launches
+    on the card, `ref.flash_attention_bwd_ref` on the CPU."""
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    if _on_cuda(q, k, v, o, do):
+        from repro_torch.kernels import flash_attention as fa
+        q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+        dq, stats = fa.flash_bwd_dq_cuda(q, k, v, o, do, causal=causal,
+                                         scale=scale)
+        LAUNCHES["flash_bwd"] += 1
+        dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, stats, causal=causal,
+                                        scale=scale)
+        LAUNCHES["flash_bwd"] += 1
+        return dq, dk, dv
+    return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                       scale=scale)

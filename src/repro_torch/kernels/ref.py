@@ -386,6 +386,42 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None, kv_offset=0):
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
 
+def flash_attention_bwd_ref(q, k, v, o, do, *, causal=True, scale=None):
+    """The gradient of `flash_attention_ref` (``kv_offset`` 0, Lq == Lk)
+    as the backward kernel computes it (``csrc/flash_attention_bwd.cu``),
+    in float32 with P materialised:
+
+        s = (q·scale)·kᵀ, masked under ``causal``;  P = softmax(s);
+        dv = Pᵀ·do;  dP = do·vᵀ;  Δ = rowsum(do ∘ o);  dS = P ∘ (dP - Δ);
+        dq = scale · dS·k;  dk = scale · dSᵀ·q
+
+    q, o and do (B, L, H, D); k and v (B, L, KVH, D), query head ``h``
+    reading KV head ``h // (H // KVH)``, so dk and dv sum over each KV
+    head's query heads.  Returns (dq, dk, dv) in the inputs' dtype."""
+    b, L, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    dof = do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    if causal:
+        pos = torch.arange(L, device=q.device)
+        s = s.masked_fill(pos[None, :] > pos[:, None], -1e30)
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)       # (B, H, L)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dk = dk.reshape(b, L, kvh, g, d).sum(3)
+    dv = dv.reshape(b, L, kvh, g, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_decode_splitk_ref(q, k, v, *, chunk, causal=True, scale=None,
                             kv_offset=0):
     """`flash_attention_ref`'s function computed as the decode kernel

@@ -72,10 +72,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+# ------------------------------------------------------------------- loss
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                       z_loss: float = 1e-4, ignore_id: int = -1):
+    """Token cross-entropy with a z-loss, the reference's: logits (..., V)
+    in float32, ``nll = logsumexp - logit[label] + z_loss · logsumexp²``,
+    averaged over the labels that are not ``ignore_id`` (at least 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    mask = labels != ignore_id
+    # An ignored label gathers column 0; its term is masked out below.
+    label_logit = logits.gather(
+        -1, torch.where(mask, labels, 0).long()[..., None])[..., 0]
+    nll = lse - label_logit
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    return (nll * mask).sum() / mask.sum().clamp_min(1)
+
+
 # ------------------------------------------------------------------- inits
+class ShapeOnly:
+    """Stands in for a generator on the meta device: `randn` there
+    allocates and draws nothing (`models.model.param_shapes`)."""
+    device = torch.device("meta")
+
+
+def randn(gen, shape) -> torch.Tensor:
+    """Unit normals in float32 on ``gen``'s device, drawn from ``gen``."""
+    return torch.randn(shape, device=gen.device, dtype=torch.float32,
+                       generator=None if isinstance(gen, ShapeOnly) else gen)
+
+
 def param_dict(tensors: dict) -> nn.ParameterDict:
     """One layer's weights as frozen parameters (serving takes no
-    gradients); a nested dict (MoE's ``shared`` expert) nests."""
+    gradients; `models.model.trainable` turns them on for training); a
+    nested dict (MoE's ``shared`` expert) nests."""
     return nn.ParameterDict({
         k: param_dict(t) if isinstance(t, dict)
         else nn.Parameter(t, requires_grad=False)
@@ -88,12 +119,9 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dims, dtype,
     to ``dtype``; out_dims may be a tuple for fused projections."""
     out_dims = (out_dims,) if isinstance(out_dims, int) else tuple(out_dims)
     scale = scale if scale is not None else in_dim ** -0.5
-    w = torch.randn((in_dim, *out_dims), generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return w.mul_(scale).to(dtype)
+    return randn(gen, (in_dim, *out_dims)).mul_(scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype):
     """Unit-normal embedding table on ``gen``'s device."""
-    return torch.randn((vocab, dim), generator=gen, device=gen.device,
-                       dtype=torch.float32).to(dtype)
+    return randn(gen, (vocab, dim)).to(dtype)

@@ -5,14 +5,16 @@ One dataclass covers every family (dense / MoE / SSM / hybrid / VLM / audio);
 family-specific fields default to inert values.  Configs are plain data — the
 model code (models/model.py) interprets them; launch code looks them up via
 ``repro_torch.configs.registry``.  The port runs every block kind and
-phi-3-vision's patch embeddings (``num_patches``).  ``remat``,
-``scan_layers``, ``fsdp_per_layer_gather`` and the ``attn_block_*`` /
-``attention_impl`` knobs tune the reference's XLA lowering and have no
-counterpart in the port.
+phi-3-vision's patch embeddings (``num_patches``).  ``remat`` checkpoints
+each layer of a training forward (`models.model.forward`); ``scan_layers``,
+``fsdp_per_layer_gather`` and the ``attn_block_*`` / ``attention_impl``
+knobs tune the reference's XLA lowering and have no counterpart in the
+port.  `ShapeConfig` and `SHAPES` are the reference's input-shape cells.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,3 +159,25 @@ class ModelConfig:
         else:
             n += (3 if self.gated_mlp else 2) * d * f
         return n
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell: what to run and at what size."""
+    name: str                        # train_4k | prefill_32k | ...
+    kind: str                        # train | prefill | decode
+    seq_len: int
+    global_batch: int
+    microbatch: Optional[int] = None  # grad-accum microbatch (train only)
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+# long_500k requires sub-quadratic sequence mixing: only the SSM/hybrid
+# archs run it; pure-attention archs record an explicit skip.
+LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")

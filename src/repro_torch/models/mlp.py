@@ -75,6 +75,8 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig):
 
     def stack(in_dim, out_dim):
         w = torch.empty((e, in_dim, out_dim), dtype=dt, device=gen.device)
+        if isinstance(gen, common.ShapeOnly):    # a skeleton: nothing drawn
+            return w
         for i in range(e):
             w[i] = common.dense_init(gen, in_dim, (out_dim,), dt)
         return w

@@ -12,8 +12,10 @@ here each layer's weights are one module (`Block` for an attention block,
 reference's order: stack by stack (`stacks_of`), group by group, pattern
 position within a group (deepseek-v3: its dense layers, then MoE; llama4:
 dense and MoE alternating; zamba2: five ``mamba`` layers, then a
-``mamba_attn``).  ``remat``, ``scan_layers`` and ``fsdp_per_layer_gather``
-tune that scan and have no counterpart.
+``mamba_attn``).  ``scan_layers`` and ``fsdp_per_layer_gather`` tune that
+scan and have no counterpart; ``remat`` checkpoints each layer of a
+training forward (`loss_fn`), as the reference's ``jax.checkpoint`` with
+``nothing_saveable`` does each layer group.
 
 A ``mamba_attn`` layer applies, after its mixer, the *shared* transformer
 block (zamba2's weight-tied attention + MLP): one dense `Block` held once
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, common, mlp, ssm
 from repro_torch.models.config import ModelConfig
@@ -129,7 +132,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
     unembedding, the patch projection, the shared block, then the
     layers."""
     dev = torch.device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (common.ShapeOnly() if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     dt = common.dtype_of(cfg.dtype)
     d, v = cfg.d_model, cfg.vocab_size
     if cfg.num_codebooks:
@@ -160,6 +164,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
 
     layers = [layer(kind) for kind in layer_kinds(cfg)]
     return LM(embedding, unembed, ones(), layers, shared, patch_proj)
+
+
+def param_shapes(cfg: ModelConfig) -> LM:
+    """The parameter skeleton (shapes and dtypes) on the meta device:
+    nothing is allocated or drawn."""
+    return init_params(cfg, device="meta")
+
+
+def trainable(params: LM) -> LM:
+    """Turn gradients on for every weight (serving keeps them off)."""
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return params
 
 
 # ------------------------------------------------------------------- embed
@@ -232,22 +249,48 @@ def _apply_block(p: nn.Module, h, positions, cfg: ModelConfig,
 
 # ----------------------------------------------------------------- forward
 def forward(params: LM, cfg: ModelConfig, batch: dict, *,
-            collect_cache: bool = False):
-    """Prefill forward.  Returns (logits (B, L, V[, K]) in the working
-    dtype, the MoE layers' aux losses summed in float32 (0 without MoE),
-    caches): with ``collect_cache`` one entry per layer, (k, v) each (B, L,
-    KVH, hd) for GQA, (c (B, L, kr), k_rope (B, L, rd)) for MLA, (state
-    (B, H, S, P) float32, conv tail (B, w-1, d_inner + 2S)) for ``mamba``
-    and ((state, tail), (k, v)) for ``mamba_attn``; else None."""
+            collect_cache: bool = False, remat: bool = False):
+    """Training or prefill forward.  Returns (logits (B, L, V[, K]) in the
+    working dtype, the MoE layers' aux losses summed in float32 (0 without
+    MoE), caches): with ``collect_cache`` one entry per layer, (k, v) each
+    (B, L, KVH, hd) for GQA, (c (B, L, kr), k_rope (B, L, rd)) for MLA,
+    (state (B, H, S, P) float32, conv tail (B, w-1, d_inner + 2S)) for
+    ``mamba`` and ((state, tail), (k, v)) for ``mamba_attn``; else None.
+    With ``remat`` and gradients on, each layer runs under a non-reentrant
+    activation checkpoint: its backward recomputes it from its input."""
     h, positions = embed_inputs(params, cfg, batch)
     caches = []
     total_aux = torch.zeros((), device=h.device)
+    remat = remat and torch.is_grad_enabled()
     for layer in params.layers:
-        h, aux, kv = _apply_block(layer, h, positions, cfg,
-                                  params.shared_attn)
+        if remat:
+            h, aux, kv = checkpoint(_apply_block, layer, h, positions, cfg,
+                                    params.shared_attn, use_reentrant=False)
+        else:
+            h, aux, kv = _apply_block(layer, h, positions, cfg,
+                                      params.shared_attn)
         if aux is not None:
             total_aux = total_aux + aux
         if collect_cache:
             caches.append(kv)
     return (_logits(params, cfg, h), total_aux,
             caches if collect_cache else None)
+
+
+def loss_fn(params: LM, cfg: ModelConfig, batch: dict,
+            aux_coef: float = 0.01):
+    """Training loss, the reference's: cross-entropy with z-loss of the
+    float32 logits against ``labels`` (audio (B, K, L), swapped to (B, L,
+    K); with ``patch_embeds`` the patch positions take label -1, which the
+    loss ignores), plus ``aux_coef`` times the MoE aux loss.  Returns
+    (loss, {"ce", "aux"}); the forward checkpoints its layers under
+    ``cfg.remat``."""
+    logits, aux, _ = forward(params, cfg, batch, remat=cfg.remat)
+    labels = batch["labels"]
+    if cfg.num_codebooks:
+        labels = labels.transpose(1, 2)
+    if cfg.num_patches and "patch_embeds" in batch:
+        pad = labels.new_full((*labels.shape[:-1], cfg.num_patches), -1)
+        labels = torch.cat([pad, labels], dim=-1)
+    loss = common.cross_entropy_loss(logits, labels)
+    return loss + aux_coef * aux, {"ce": loss, "aux": aux}

@@ -43,8 +43,7 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
     dt = common.dtype_of(cfg.dtype)
     dev = gen.device
     in_proj = common.dense_init(gen, d, (2 * di + 2 * s + h,), dt)
-    conv = torch.randn((cfg.conv_width, di + 2 * s), generator=gen,
-                       device=dev, dtype=torch.float32).mul_(0.1).to(dt)
+    conv = common.randn(gen, (cfg.conv_width, di + 2 * s)).mul_(0.1).to(dt)
     return common.param_dict({
         "in_proj": in_proj,
         "conv": conv,

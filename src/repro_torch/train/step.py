@@ -1,0 +1,109 @@
+"""Training step: microbatched gradient accumulation + AdamW (the
+reference's ``train/step.py``).
+
+With ``num_microbatches`` M > 1 the global batch is cut into M chunks
+along its first axis, so the live activations are one microbatch's;
+gradients then accumulate in float32 whatever the parameters' dtype, and
+gradients and loss are divided by M.  With M = 1 the gradients stay in the
+parameters' dtype.  Each layer's attention runs the flash kernel forward
+and its hand-written gradient (`kernels.ops.flash_attention`); under
+``cfg.remat`` each layer's forward runs again in the backward.  The
+reference's ``constrain_params`` is the identity on one device: sharded
+training is not ported (ROADMAP.md §1).
+
+The dense-attention families train (the six dense archs, phi-3-vision with
+its patches, musicgen with its codebooks).  MoE, SSM and hybrid configs
+are refused: their forwards update tensors in place that autograd saves.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.models import model
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import adamw
+
+TRAINED_FAMILIES = ("dense", "vlm", "audio")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a config this port cannot train."""
+    if cfg.family not in TRAINED_FAMILIES or cfg.num_experts \
+            or cfg.attention == "mla":
+        raise NotImplementedError(
+            f"training {cfg.name} ({cfg.family}) is not ported: its forward "
+            "updates tensors in place that autograd saves (MoE, MLA and the "
+            "SSD mixer); see ROADMAP.md §1")
+
+
+@contextlib.contextmanager
+def _phase(clock: Optional[dict], name: str, device: torch.device):
+    """Add the seconds of the block to ``clock[name]`` (device work
+    included: synchronised on both sides); nothing without a clock."""
+    if clock is None:
+        yield
+        return
+    device_lib.synchronize(device)
+    t0 = time.perf_counter()
+    yield
+    device_lib.synchronize(device)
+    clock[name] = clock.get(name, 0.0) + time.perf_counter() - t0
+
+
+def make_train_step(cfg: ModelConfig, lr_fn: Callable,
+                    num_microbatches: int = 1, weight_decay: float = 0.1,
+                    max_grad_norm: float = 1.0,
+                    clock: Optional[dict] = None):
+    """Returns train_step(params, opt_state, batch) → (params, opt_state,
+    {"loss", "grad_norm", "lr"}); ``params`` is a trainable `model.LM`
+    (`model.trainable`), updated in place, ``batch`` a dict of tensors on
+    its device.  With a ``clock`` dict, each step adds its forward,
+    backward and optimizer seconds to it."""
+    check_trainable(cfg)
+    M = num_microbatches
+
+    def value_and_grad(leaves, params, mb, dev):
+        with _phase(clock, "forward", dev):
+            loss = model.loss_fn(params, cfg, mb)[0]
+        with _phase(clock, "backward", dev):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                                for p, g in zip(leaves, grads)]
+
+    def train_step(params: model.LM, opt_state: adamw.AdamWState,
+                   batch: dict):
+        named = adamw.named(params)
+        names, leaves = list(named), list(named.values())
+        dev = leaves[0].device
+        if M == 1:
+            loss, g = value_and_grad(leaves, params, batch, dev)
+            grads = dict(zip(names, g))
+        else:
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                     for n, p in named.items()}
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(M):
+                mb = {k: x.reshape(M, x.shape[0] // M, *x.shape[1:])[i]
+                      for k, x in batch.items()}
+                l, g = value_and_grad(leaves, params, mb, dev)
+                for n, gi in zip(names, g):
+                    grads[n].add_(gi)
+                loss = loss + l
+                del g
+            for g in grads.values():
+                g.div_(M)
+            loss = loss / M
+        lr = lr_fn(opt_state.step)
+        with _phase(clock, "optimizer", dev):
+            params, opt_state, gnorm = adamw.update(
+                params, grads, opt_state, lr=lr, weight_decay=weight_decay,
+                max_grad_norm=max_grad_norm)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
+                                   "lr": lr}
+
+    return train_step

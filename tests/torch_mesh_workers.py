@@ -7,7 +7,8 @@ hands down) without the test files' jax.
 
 Each function runs several checks in one world and returns plain numpy
 and Python values; the tests compare them with the live reference
-(`moe_world` backs `test_torch_moe.py`)."""
+(`moe_world` backs `test_torch_moe.py`, `dp_world`
+`test_torch_dp_train.py`)."""
 import dataclasses
 
 import numpy as np
@@ -16,11 +17,13 @@ import torch
 from repro_torch import convert
 from repro_torch.configs import registry
 from repro_torch.core import rrr, traversal
+from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.distributed import traversal as dtrav
 from repro_torch.graph import csr, generators, partition
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import init as model_init
-from repro_torch.models import mlp
+from repro_torch.models import mlp, model
+from repro_torch.optim import adamw, compress
 from repro_torch.sampling import SamplerSpec, make_sampler
 
 GRAPH = dict(n=500, degree=6.0, prob=0.3, seed=2)
@@ -333,4 +336,45 @@ def moe_world(rank, dev, jobs: list) -> dict:
             job, sent=sent.cpu().numpy(), got=got.cpu().numpy(),
             out=whole.cpu().numpy(), aux=float(aux), via=via.cpu().numpy(),
             via_aux=float(via_aux), model_stats=stats))
+    return out
+
+
+def dp_grads(job: dict, rank: int) -> dict:
+    """``make_torch_golden.dp_grads``: this rank's gradient leaves."""
+    rng = np.random.default_rng((job["seed"], rank))
+    return {name: (rng.standard_normal(shape) * (rank + 1)).astype(
+        np.float32) for name, shape in job["shapes"].items()}
+
+
+def dp_world(rank, dev, job: dict) -> dict:
+    """On a ``("data",)`` world: `compress.compressed_psum` of this rank's
+    `dp_grads`, then, with ``job["steps"]``, the reference's convergence
+    run — the smoke llama's data-parallel step (`train.dp_step`) exact and
+    compressed from the same weights, ``job["batch"]`` sequences a step
+    shared over the ranks — returning each run's losses."""
+    from repro_torch.train.dp_step import make_dp_train_step
+
+    n = job["devices"]
+    mesh = make_mesh((n,), ("data",), device=dev)
+    grads = {k: torch.from_numpy(v).to(dev)
+             for k, v in dp_grads(job, rank).items()}
+    mean, res = compress.compressed_psum(grads, mesh, "data")
+    out = {"rank": rank, "mean": {k: v.cpu().numpy() for k, v in mean.items()},
+           "residual": {k: v.cpu().numpy() for k, v in res.items()}}
+    if job.get("steps"):
+        cfg = registry.smoke("llama3.2-3b")
+        data = SyntheticLM(cfg, job["batch"], 32, seed=4)
+        for compressed in (False, True):
+            params = model.trainable(model.init_params(cfg, 0, dev))
+            opt = adamw.init(params)
+            step, init_res = make_dp_train_step(
+                cfg, lambda s: 1e-3, mesh, compressed=compressed)
+            err = init_res(params)
+            losses = []
+            for s in range(job["steps"]):
+                b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                     for k, v in data.batch_at(s).items()}
+                params, opt, err, m = step(params, opt, err, b)
+                losses.append(float(m["loss"]))
+            out["compressed" if compressed else "exact"] = losses
     return out
