@@ -263,31 +263,37 @@ else.  Phases, each of which raises on failure:
     (every weight but the embedding, every layer's KV read) and peak
     device memory;
 16f. training, after the VLM phases are released: ([flash bwd]) the
-    flash-attention gradient (``csrc/flash_attention_bwd.cu``, two
-    launches) against its plain version ``ref.flash_attention_bwd_ref`` —
-    bf16 at D 64/80/96/128, float32 at D 16/32/128, GQA groups 1, 3, 5
-    and 8, L 130 and 257, causal and not, and the training shape (1,
-    4096, 24 over 8 heads, 128) bf16 causal, which must also give the
-    same bits twice; float32 within 1e-4 max abs (``BWD_F32_TOL``), bf16
-    as the forward's checks; ([train golden]) two steps of
+    flash-attention gradient (two launches of the route ``route_bwd``
+    picks: bf16 on ``wgmma``, ``csrc/flash_bwd_wgmma.cu``, reading the
+    log-sum-exp the forward kernel writes; float32 on ``simt``,
+    ``csrc/flash_attention_bwd.cu``) against its plain version
+    ``ref.flash_attention_bwd_ref`` of that route — bf16 at D
+    64/80/96/128, float32 at D 16/32/128, GQA groups 1, 3, 5 and 8, L 130
+    and 257, causal and not, and the training shape (1, 4096, 24 over 8
+    heads, 128) bf16 causal, which must also give the same bits twice;
+    float32 within 1e-4 max abs (``BWD_F32_TOL``), bf16 as the forward's
+    checks, the forward's log-sum-exp within 1e-4 (``LSE_TOL``) of
+    ``ref.flash_attention_lse_ref``; ([train golden]) two steps of
     ``make_train_step`` on llama3.2-3b cut to 2 layers at full width,
     float32 (TF32 off), on the ``"lm"`` entry's ``numpy_params`` weights
     and ``SyntheticLM(seed 1)``'s 2 × 256-token batches 0-1, against the
     file's ``"train"`` entry within 1e-3 (``TRAIN_GOLD_TOL``, relative:
     losses, grad norms, every leaf's L2 norm of step 0's gradient and of
     the parameters after the steps, 64 values of three leaves of each),
-    the simt forward and the backward kernel at D 128, 4 simt and 4
-    ``flash_bwd`` launches a step; ([train bf16]) the same depth in bf16
-    (the port's seeded init), 2 × 1,024 tokens: each gradient leaf
-    through the kernels (wgmma forward) against the same gradient with
-    attention through the plain version, within ``TRAIN_BF16_RTOL``
-    relative L2; ([train main]) llama3.2-3b at full width and depth (28
-    layers, bf16) through ``launch.train.main`` (``TRAIN_MAIN_ARGV``:
-    train_4k's 4,096 tokens, the global batch cut from 256 to 8
-    sequences, 8 microbatches, 4 steps): finite losses and grad norms,
-    exactly 448 wgmma (forward and remat's recompute) and 448
-    ``flash_bwd`` launches a step, no simt or decode; it prints the step
-    seconds (median of steps 1-3), tokens/s, the share of the bf16 peak
+    the simt forward and the simt backward at D 128, 4 simt and 4
+    ``flash_bwd`` launches a step, all on simt; ([train bf16]) the same
+    depth in bf16 (the port's seeded init), 2 × 1,024 tokens: each
+    gradient leaf through the kernels (the wgmma forward and backward)
+    against the same gradient with attention through the plain version,
+    within ``TRAIN_BF16_RTOL`` relative L2; ([train main]) llama3.2-3b
+    at full width and depth (28 layers, bf16) through
+    ``launch.train.main`` (``TRAIN_MAIN_ARGV``: train_4k's 4,096
+    tokens, the global batch cut from 256 to 8 sequences, 8
+    microbatches, 4 steps): finite losses and grad norms, exactly 448
+    wgmma (forward and remat's recompute) and 448 ``flash_bwd`` launches
+    a step, all 448 on the backward's ``wgmma`` route, no simt or decode;
+    it prints the step seconds (median of steps 1-3), tokens/s, the
+    share of the bf16 peak
     that 6 · N · tokens a step gives, peak device memory and the
     forward / backward / optimizer split; ([train restart]) the smoke
     config on the card, float32: ``train_with_restarts`` with crashes
@@ -302,10 +308,12 @@ else.  Phases, each of which raises on failure:
     the port never calls it) from a CUDA graph of 10 launches and with
     events around one eager call, each beside the function's bound; and
     the flash-attention gradient at the training shape (1, 4096, 24 over
-    8, 128, bf16, causal): both launches from a CUDA graph of 10, the
+    8, 128, bf16, causal): the ``wgmma`` route's two launches (together
+    and each alone) and the ``simt`` kernel from CUDA graphs of 10, the
     plain version, and the autograd backward of
     ``scaled_dot_product_attention(..., is_causal=True,
-    enable_gqa=True)`` (timed only), beside its bound.
+    enable_gqa=True)`` (timed only) from a CUDA graph of 10 and eager,
+    beside its bound.
 
 Each phase prints its peak device memory (9b, 9c and 9d their seconds
 too).
@@ -388,6 +396,10 @@ VLM_ARCH, VLM_PATCH_SEED, VLM_STEPS = "phi-3-vision-4.2b", 0, 8
 # restart check's limit: the embedding gradient's index_put accumulates
 # with atomics on the card, so two runs differ in the last bits.
 BWD_F32_TOL, TRAIN_GOLD_TOL, TRAIN_BF16_RTOL = 1e-4, 1e-3, 3e-2
+# The wgmma forward's log-sum-exp against its plain version: float32 sums
+# of bf16 products in another order and ex2.approx move it by ~2e-6 at
+# the training shape; 1e-4 passes that and fails a wrong row max or sum.
+LSE_TOL = 1e-4
 TRAIN_RESTART_TOL = 1e-5
 TRAIN_BF16_BATCH, TRAIN_BF16_SEQ = 2, 1024
 TRAIN_MAIN_STEPS, TRAIN_MAIN_MICRO = 4, 8
@@ -842,14 +854,15 @@ def check_outputs(out: dict, golden: dict) -> None:
           f"batch {steps}; peak device memory {_peak_gib():.2f} GiB")
 
 
-def _kernel_ms(fn, launches: int = 10) -> float:
+def _kernel_ms(fn, launches: int = 10, stream=None) -> float:
     """Device time of one launch of ``fn``: ``launches`` launches captured
-    in one CUDA graph and replayed between two events, so no host dispatch
-    lies between them (L2 warm after the first)."""
+    in one CUDA graph (on ``stream``, or a stream of the graph's own) and
+    replayed between two events, so no host dispatch lies between them
+    (L2 warm after the first)."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(launches):
             fn()
     graph.replay()
@@ -3144,46 +3157,71 @@ def _bwd_close(got, want, dtype, what: str) -> tuple[float, float]:
 
 def check_flash_bwd(dev) -> dict:
     """The flash-attention gradient (two launches through
-    ``ops.flash_attention_bwd``) against ``ref.flash_attention_bwd_ref``
-    on the card, on the forward's own output; the training shape twice,
-    bit for bit.  Returns the largest differences per dtype."""
+    ``ops.flash_attention_bwd``, on the route ``route_bwd`` picks: bf16
+    on ``wgmma``, float32 on ``simt``) against
+    ``ref.flash_attention_bwd_ref`` of that route on the card, on the
+    forward's own output and (``wgmma``) its log-sum-exp, which is held
+    against ``ref.flash_attention_lse_ref`` within LSE_TOL; the training
+    shape twice, bit for bit.  Returns the largest differences per dtype
+    and the cases per route."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(4)
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    rrms = 0.0
+    rrms, lse_err = 0.0, 0.0
+    cases = {r: 0 for r in fa.BWD_ROUTES}
     for name, b, L, h, kvh, d, dtype, causal in _bwd_cases():
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                        for shape in ((b, L, h, d), (b, L, kvh, d),
                                      (b, L, kvh, d), (b, L, h, d)))
-        o = ops.flash_attention(q, k, v, causal=causal)
-        before = ops.LAUNCHES["flash_bwd"]
-        got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+        route = fa.route_bwd(dtype, L, d)
+        _check(route == ("wgmma" if dtype == torch.bfloat16 else "simt"),
+               f"flash_bwd {name}: route {route}")
+        cases[route] += 1
+        o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
+        if route == "wgmma":
+            worst = float((lse - ref.flash_attention_lse_ref(
+                q, k, causal=causal)).abs().max())
+            _check(worst <= LSE_TOL, f"flash forward lse {name}: max abs "
+                   f"err {worst} > {LSE_TOL}")
+            lse_err = max(lse_err, worst)
+        before = dict(ops.LAUNCHES)
+        got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                      lse=lse)
         torch.cuda.synchronize()
-        _check(ops.LAUNCHES["flash_bwd"] == before + 2,
-               f"flash_bwd {name}: not launched twice")
+        _check(ops.LAUNCHES["flash_bwd"] == before["flash_bwd"] + 2
+               and ops.LAUNCHES[f"flash_bwd_{route}"]
+               == before[f"flash_bwd_{route}"] + 2,
+               f"flash_bwd {name}: not launched twice on {route}")
         if name == "training shape":
-            again = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+            again = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                            lse=lse)
             _check(all(torch.equal(a, c) for a, c in zip(got, again)),
                    "flash_bwd training shape: two runs differ")
             del again
-        want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                           lse=lse)
         for grad, a, w in zip(("dq", "dk", "dv"), got, want):
             worst, r = _bwd_close(a, w, dtype, f"flash_bwd {grad} {name} "
                                   f"{'causal' if causal else 'full'}")
             err[dtype] = max(err[dtype], worst)
             rrms = max(rrms, r)
-        del q, k, v, do, o, got, want
+        del q, k, v, do, o, lse, got, want
     n = len(_bwd_cases())
-    print(f"[flash bwd] {n} cases (bf16 at D 64/80/96/128, float32 at D "
-          f"16/32/128, H/KVH 1/3/5/8, L 130 and 257, causal and not, the "
-          f"training shape {BWD_SHAPE} bf16 causal, bit-identical twice): "
-          f"dq, dk and dv max abs err f32 {err[torch.float32]:.3e} (limit "
-          f"{BWD_F32_TOL}), bf16 {err[torch.bfloat16]:.3e} (atol = rtol = "
-          f"{BF16_TOL}), bf16 relative RMS diff {rrms:.3e} (limit "
-          f"{BF16_RMS_TOL}); peak device memory {_peak_gib():.2f} GiB")
+    _check(all(cases.values()), f"flash_bwd: a route ran no case {cases}")
+    print(f"[flash bwd] {n} cases (bf16 at D 64/80/96/128 on wgmma, float32 "
+          f"at D 16/32/128 on simt: {cases}; H/KVH 1/3/5/8, L 130 and 257, "
+          f"causal and not, the training shape {BWD_SHAPE} bf16 causal, "
+          f"bit-identical twice): dq, dk and dv max abs err f32 "
+          f"{err[torch.float32]:.3e} (limit {BWD_F32_TOL}), bf16 "
+          f"{err[torch.bfloat16]:.3e} (atol = rtol = {BF16_TOL}), bf16 "
+          f"relative RMS diff {rrms:.3e} (limit {BF16_RMS_TOL}); the "
+          f"forward's lse within {lse_err:.3e} (limit {LSE_TOL}); peak "
+          f"device memory {_peak_gib():.2f} GiB")
     return {"f32": err[torch.float32], "bf16": err[torch.bfloat16],
-            "bf16_rrms": rrms, "cases": n}
+            "bf16_rrms": rrms, "lse": lse_err, "cases": n,
+            "cases_by_route": cases}
 
 
 def _train_batch(data, step: int, dev) -> dict:
@@ -3252,17 +3290,19 @@ def check_train_golden(golden: dict, dev, tree) -> dict:
         for key in ("loss", "grad_norm"):
             worst = max(worst, abs(float(m[key]) - want[key]) / want[key])
     torch.cuda.synchronize()
-    launches = {k: ops.LAUNCHES[k] for k in ("flash_simt", "flash_wgmma",
-                                             "flash_bwd")}
+    launches = {k: ops.LAUNCHES[k] for k in (
+        "flash_simt", "flash_wgmma", "flash_bwd", "flash_bwd_simt",
+        "flash_bwd_wgmma")}
     _check(worst <= TRAIN_GOLD_TOL, f"train golden: loss or grad norm "
            f"differs by {worst} relative (limit {TRAIN_GOLD_TOL})")
     p_err = _leaf_errors(adamw.named(params), gold["params"],
                          "parameters after the steps")
     n = len(gold["steps"]) * cfg.num_layers
     _check(launches == {"flash_simt": 2 * n, "flash_wgmma": 0,
-                        "flash_bwd": 2 * n},
+                        "flash_bwd": 2 * n, "flash_bwd_simt": 2 * n,
+                        "flash_bwd_wgmma": 0},
            f"train golden: launches {launches}, not {2 * n} simt (forward "
-           f"and remat's recompute) and {2 * n} flash_bwd")
+           f"and remat's recompute) and {2 * n} flash_bwd on simt")
     peak = _peak_gib()
     del params, opt, batches
     print(f"[train golden] {cfg.name}, {cfg.num_layers} layers at full "
@@ -3298,7 +3338,8 @@ def check_train_bf16(dev) -> dict:
     got = torch.autograd.grad(model.loss_fn(params, cfg, batch)[0],
                               list(named.values()))
     torch.cuda.synchronize()
-    launches = {k: ops.LAUNCHES[k] for k in ("flash_wgmma", "flash_bwd")}
+    launches = {k: ops.LAUNCHES[k] for k in (
+        "flash_wgmma", "flash_bwd", "flash_bwd_wgmma", "flash_bwd_simt")}
     kernel = ops.flash_attention
     ops.flash_attention = ref.flash_attention_ref
     try:
@@ -3312,9 +3353,10 @@ def check_train_bf16(dev) -> dict:
                           / w.float().norm().clamp_min(1e-30))
     worst = max(rel, key=rel.get)
     n = 2 * cfg.num_layers
-    _check(launches == {"flash_wgmma": n, "flash_bwd": n},
+    _check(launches == {"flash_wgmma": n, "flash_bwd": n,
+                        "flash_bwd_wgmma": n, "flash_bwd_simt": 0},
            f"train bf16: launches {launches}, not {n} wgmma and {n} "
-           f"flash_bwd")
+           f"flash_bwd on wgmma")
     _check(rel[worst] <= TRAIN_BF16_RTOL, f"train bf16: leaf {worst} "
            f"differs by {rel[worst]} relative L2 (limit {TRAIN_BF16_RTOL})")
     peak = _peak_gib()
@@ -3343,16 +3385,18 @@ def run_train_main_path() -> dict:
     launches = dict(ops.LAUNCHES)
     cfg, steps = out["cfg"], len(out["losses"])
     per_step = {k: launches[k] / steps for k in (
-        "flash_wgmma", "flash_bwd", "flash_simt", "flash_decode")}
+        "flash_wgmma", "flash_bwd", "flash_bwd_wgmma", "flash_bwd_simt",
+        "flash_simt", "flash_decode")}
     want = TRAIN_MAIN_MICRO * cfg.num_layers * 2
     _check(steps == TRAIN_MAIN_STEPS and all(
         np.isfinite(out["losses"])) and all(np.isfinite(out["grad_norms"])),
         f"train main: losses {out['losses']}, grad norms "
         f"{out['grad_norms']}")
     _check(per_step == {"flash_wgmma": want, "flash_bwd": want,
+                        "flash_bwd_wgmma": want, "flash_bwd_simt": 0,
                         "flash_simt": 0, "flash_decode": 0},
            f"train main: launches a step {per_step}, not {want} wgmma and "
-           f"{want} flash_bwd")
+           f"{want} flash_bwd on wgmma")
     total_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
     _check(out["peak_gib"] < total_gib, "train main: peak memory")
     tokens = out["batch"] * out["seq_len"]
@@ -3419,12 +3463,16 @@ def run_train_restart(dev) -> dict:
 
 def time_flash_bwd(dev) -> dict:
     """The flash-attention gradient at the training shape (BWD_SHAPE,
-    bf16, causal): both launches from a CUDA graph of 10 (through the
-    wrappers, uncounted), the plain version (events), and the autograd
-    backward of ``scaled_dot_product_attention(..., is_causal=True,
-    enable_gqa=True)`` (events around eager calls; timed only), beside
-    the bound: five products of the visible (query, key) pairs at the
-    bf16 peak, or the bytes of q, k, v, o, do, dq, dk and dv once."""
+    bf16, causal): the ``wgmma`` route (both launches, and each alone)
+    and the ``simt`` kernel at the same shape, each from a CUDA graph of
+    10 (through the wrappers, uncounted); the ``wgmma`` route's plain
+    version (events); and the autograd backward of
+    ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
+    (timed only) from a CUDA graph of 10 like the kernels — its forward
+    runs on a side stream, which its backward's kernels follow and the
+    graph captures — and with events around eager calls; beside the
+    bound: five products of the visible (query, key) pairs at the bf16
+    peak, or the bytes of q, k, v, o, do, dq, dk and dv once."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -3436,53 +3484,80 @@ def time_flash_bwd(dev) -> dict:
                    for shape in ((b, L, h, d), (b, L, kvh, d),
                                  (b, L, kvh, d), (b, L, h, d)))
     scale = d ** -0.5
-    o = ops.flash_attention(q, k, v, causal=True)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=True)
+    kw = dict(causal=True, scale=scale)
+    delta = fa.flash_bwd_wgmma_dq_cuda(q, k, v, o, do, lse, **kw)[1]
 
-    def kernel():
-        dq, stats = fa.flash_bwd_dq_cuda(q, k, v, o, do, causal=True,
-                                         scale=scale)
-        return (dq, *fa.flash_bwd_dkdv_cuda(q, k, v, do, stats, causal=True,
-                                            scale=scale))
+    def wgmma():
+        dq, dl = fa.flash_bwd_wgmma_dq_cuda(q, k, v, o, do, lse, **kw)
+        return (dq, *fa.flash_bwd_wgmma_dkdv_cuda(q, k, v, do, lse, dl,
+                                                  **kw))
+
+    def simt():
+        dq, stats = fa.flash_bwd_dq_cuda(q, k, v, o, do, **kw)
+        return (dq, *fa.flash_bwd_dkdv_cuda(q, k, v, do, stats, **kw))
 
     def plain():
-        return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=True)
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
 
-    want = plain()
-    got = kernel()
-    err = max(float((a.float() - w.float()).abs().max())
-              for a, w in zip(got, want))
-    del got, want
-    ms = _kernel_ms(kernel)
+    def max_err(got, want):
+        return max(float((a.float() - w.float()).abs().max())
+                   for a, w in zip(got, want))
+
+    err = max_err(wgmma(), plain())
+    simt_err = max_err(simt(), ref.flash_attention_bwd_ref(q, k, v, o, do,
+                                                           **kw))
+    ms = _kernel_ms(wgmma)
+    dq_ms = _kernel_ms(lambda: fa.flash_bwd_wgmma_dq_cuda(q, k, v, o, do,
+                                                          lse, **kw))
+    dkdv_ms = _kernel_ms(lambda: fa.flash_bwd_wgmma_dkdv_cuda(
+        q, k, v, do, lse, delta, **kw))
+    simt_ms = _kernel_ms(simt)
     plain_ms = _time_ms(plain, 2)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True)
+    simt_plain_ms = _time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, do, **kw), 2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    torch.cuda.current_stream().wait_stream(side)
     dot = do.transpose(1, 2)
 
     def library():
         return torch.autograd.grad(out, (qt, kt, vt), dot,
                                    retain_graph=True)
 
-    lib_err = max(float((a.transpose(1, 2).float() - w.float()).abs().max())
-                  for a, w in zip(library(), plain()))
-    library_ms = _time_ms(library, 10)
+    lib_err = max_err([a.transpose(1, 2) for a in library()],
+                      ref.flash_attention_bwd_ref(q, k, v, o, do, **kw))
+    library_eager_ms = _time_ms(library, 10)
+    library_ms = _kernel_ms(library, stream=side)
     pairs = L * (L + 1) // 2
     ops_ms = 1e3 * 5 * 2 * b * h * pairs * d / BF16_FLOPS_PER_S
     bytes_ms = 1e3 * 2 * (4 * b * L * h * d + 4 * b * L * kvh * d) \
         / HBM_BYTES_PER_S
-    out_d = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                 bound_ms=max(ops_ms, bytes_ms),
+    bound = max(ops_ms, bytes_ms)
+    out_d = dict(ms=ms, dq_ms=dq_ms, dkdv_ms=dkdv_ms, simt_ms=simt_ms,
+                 plain_ms=plain_ms, simt_plain_ms=simt_plain_ms,
+                 library_ms=library_ms,
+                 library_eager_ms=library_eager_ms, bound_ms=bound,
                  bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                 max_abs_err=err, library_max_abs_err=lib_err)
+                 max_abs_err=err, simt_max_abs_err=simt_err,
+                 library_max_abs_err=lib_err)
     print(f"[timing flash bwd] {BWD_SHAPE} (B, L, H, KVH, D) bf16 causal: "
-          f"both launches {ms:.4f} ms (CUDA graph of 10), plain "
-          f"{plain_ms:.4f} ms, SDPA's autograd backward {library_ms:.4f} ms "
-          f"(events around eager calls; its max abs diff from plain "
-          f"{lib_err:.3e}); bound {out_d['bound_ms']:.6f} ms by "
-          f"{out_d['bound_by']} ({ops_ms:.6f} operations, {bytes_ms:.6f} "
-          f"bytes): {out_d['bound_ms'] / ms:.1%} of it; max abs err from "
-          f"plain {err:.3e}")
+          f"wgmma route {ms:.4f} ms (dq {dq_ms:.4f}, dk/dv {dkdv_ms:.4f}), "
+          f"simt route {simt_ms:.4f} ms (CUDA graphs of 10), plain "
+          f"{plain_ms:.4f} ms (the wgmma route's) and {simt_plain_ms:.4f} "
+          f"ms (the simt route's), SDPA's autograd backward "
+          f"{library_ms:.4f} ms from a CUDA graph of 10 and "
+          f"{library_eager_ms:.4f} ms with events around eager "
+          f"calls (its max abs diff from plain {lib_err:.3e}); bound "
+          f"{bound:.6f} ms by {out_d['bound_by']} ({ops_ms:.6f} operations, "
+          f"{bytes_ms:.6f} bytes): wgmma {bound / ms:.1%} of it, simt "
+          f"{bound / simt_ms:.1%}; max abs err from plain wgmma {err:.3e}, "
+          f"simt {simt_err:.3e}")
     return out_d
 
 
@@ -3563,6 +3638,20 @@ def main() -> int:
           + ", ".join(f"{k[10:-7]} {'bf16' if 'bfloat' in t else 'f32'} "
                       f"{nt} {r} ({int(a) + int(b)})"
                       for k, t, nt, a, b, r in bwd))
+    # flash_bwd_{dq,dkdv}_kernel<D> (the wgmma route): registers at launch
+    # (ptxas's figure for 384 threads; setmaxnreg then moves the producer
+    # warpgroup to 24 and the consumers to 240) and spill bytes.
+    bwd_wgmma = {f"{k} D {d}": {"registers": int(r),
+                                "spill_bytes": int(a) + int(b)}
+                 for k, d, a, b, r in re.findall(
+                     r"flash_bwd_(dq|dkdv)_kernelILi(\d+)E.*?(\d+) bytes "
+                     r"spill stores, (\d+) bytes spill loads.*?Used (\d+) "
+                     r"registers", _build.build_log("flash_bwd_wgmma"),
+                     re.S)}
+    print("[build] flash_bwd_wgmma registers (spill bytes) per launch and "
+          "head dim: " + ", ".join(f"{n} {v['registers']} "
+                                  f"({v['spill_bytes']})"
+                                  for n, v in sorted(bwd_wgmma.items())))
     # flash_prefill_kernel<D>: registers and spill bytes per head dim.
     wgmma = re.findall(r"flash_prefill_kernelILi(\d+)E.*?(\d+) bytes spill "
                        r"stores, (\d+) bytes spill loads.*?Used (\d+) "
@@ -3705,8 +3794,9 @@ def main() -> int:
           f"({train['main']['tokens_per_s']:.0f} tokens/s, "
           f"{train['main']['mfu']:.1%} of the bf16 peak, peak memory "
           f"{train['main']['peak_gib']:.2f} GiB); flash backward "
-          f"{fb['ms']:.4f} ms (bound {fb['bound_ms']:.4f}, SDPA's "
-          f"{fb['library_ms']:.4f}); fused_expand_q at n {Q_N} "
+          f"{fb['ms']:.4f} ms on wgmma, {fb['simt_ms']:.4f} on simt (bound "
+          f"{fb['bound_ms']:.4f}, SDPA's {fb['library_ms']:.4f} from a graph, "
+          f"{fb['library_eager_ms']:.4f} eager); fused_expand_q at n {Q_N} "
           f"({q['num_tiles']} tiles, {q['q8_gib']:.2f} GiB) {q['dense_ms']:.4f} "
           f"ms dense / {q['compact_ms']:.4f} ms compacted per level, batch "
           f"{q['batch_dense_ms']:.2f} / {q['batch_compact_ms']:.2f} ms end to "
@@ -3932,27 +4022,42 @@ def main() -> int:
                  "entries", "bytes", "build_ms")},
                  cell_collisions=q["cell_collisions"])),
         dict(name="flash_bwd", route="cuda",
-             source="src/repro_torch/csrc/flash_attention_bwd.cu",
+             source="src/repro_torch/csrc/flash_bwd_wgmma.cu",
              replaces="src/repro/models/attention.py:70",
              replaces_note="no pallas_call: the reference differentiates "
                            "its jnp blocked scan (attention.py:70-134); "
                            "the gradient of row 6's kernel",
-             launches=train["main"]["launches"]["flash_bwd"],
-             launches_per_step=train["main"]["per_step"]["flash_bwd"],
-             launches_by_path={
-                 "train_main": train["main"]["launches"]["flash_bwd"],
-                 "train_golden": train["golden"]["launches"]["flash_bwd"],
-                 "train_bf16": train["bf16"]["launches"]["flash_bwd"]},
-             max_abs_err=max(train["bwd"]["f32"], train["bwd"]["bf16"],
-                             fb["max_abs_err"]),
-             max_abs_err_f32=train["bwd"]["f32"],
-             max_abs_err_bf16=train["bwd"]["bf16"],
+             launches=train["main"]["launches"]["flash_bwd_wgmma"],
+             launches_per_step=train["main"]["per_step"]["flash_bwd_wgmma"],
+             max_abs_err=max(train["bwd"]["bf16"], fb["max_abs_err"]),
              bf16_rrms=train["bwd"]["bf16_rrms"],
+             lse_max_abs_err=train["bwd"]["lse"],
+             cases=train["bwd"]["cases_by_route"],
              train_golden_max_rel_err=train["golden"]["max_rel_err"],
              train_bf16_max_rel_err=train["bf16"]["max_rel_err"],
              train_restart_max_abs_err=train["restart"]["max_abs_err"],
              **{k: fb[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")}),
+                                   "library_ms", "library_eager_ms")},
+             routes={
+                 "wgmma": dict(
+                     source="src/repro_torch/csrc/flash_bwd_wgmma.cu",
+                     build=bwd_wgmma,
+                     launches_by_path={
+                         p: train[p]["launches"]["flash_bwd_wgmma"]
+                         for p in ("main", "golden", "bf16")},
+                     **{k: fb[k] for k in (
+                         "ms", "dq_ms", "dkdv_ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "max_abs_err")}),
+                 "simt": dict(
+                     source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                     launches_by_path={
+                         p: train[p]["launches"]["flash_bwd_simt"]
+                         for p in ("main", "golden", "bf16")},
+                     max_abs_err_f32=train["bwd"]["f32"],
+                     ms=fb["simt_ms"], plain_ms=fb["simt_plain_ms"],
+                     bound_ms=fb["bound_ms"], bound_by=fb["bound_by"],
+                     library_ms=fb["library_ms"],
+                     max_abs_err=fb["simt_max_abs_err"])}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())

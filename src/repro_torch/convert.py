@@ -6,8 +6,9 @@ boundary, so a graph or a sketch pool built by one package can be handed to
 the other and compared bit for bit.  `lm_params_from_jax` loads an LM
 parameter tree in the reference's layout into the port's modules;
 `lm_named_leaves` names a tree of that layout (parameters, gradients or
-moments) by the port's parameter names, and `adamw_state_from_jax`
-carries an optimizer state across.
+moments) by the port's parameter names, `lm_stacked_tree` builds that
+layout from the port's names (the training checkpoint's), and
+`adamw_state_from_jax` carries an optimizer state across.
 """
 from __future__ import annotations
 
@@ -164,6 +165,54 @@ def lm_named_leaves(tree: dict, cfg: ModelConfig) -> dict:
         add("shared_attn", tree["shared_attn"])
     if cfg.num_patches:
         out["patch_proj"] = tree["patch_proj"]
+    return out
+
+
+def _nest(named: dict, prefix: str) -> dict:
+    """The leaves named ``prefix.a.b…``, as a nested dict
+    ``{a: {b: …}}``."""
+    out: dict = {}
+    for name, t in named.items():
+        if not name.startswith(prefix + "."):
+            continue
+        *path, leaf = name[len(prefix) + 1:].split(".")
+        d = out
+        for key in path:
+            d = d.setdefault(key, {})
+        d[leaf] = t
+    return out
+
+
+def _zip_map(fn, trees: list):
+    """``fn`` over the leaves of equally shaped nested dicts, leaf-wise."""
+    if isinstance(trees[0], dict):
+        return {k: _zip_map(fn, [t[k] for t in trees]) for k in trees[0]}
+    return fn(trees)
+
+
+def lm_stacked_tree(named: dict, cfg: ModelConfig, stack=torch.stack
+                    ) -> dict:
+    """The reverse of `lm_named_leaves`: leaves under the port's names
+    (``model.LM.named_parameters()``'s, or gradients or moments keyed so)
+    in the reference's parameter layout — ``stacks/<i>/block<j>/…`` with
+    the group axis leading, and ``shared_attn`` and ``patch_proj`` where
+    the config has them.  ``stack`` combines one leaf's per-group tensors
+    (``torch.stack`` by default; a caller may stack on the host or build
+    shape-only leaves)."""
+    out = {k: named[k] for k in ("embedding", "unembed", "final_norm")}
+    stacks, i = [], 0
+    for pattern, groups in model.stacks_of(cfg):
+        stacks.append({
+            f"block{j}": _zip_map(stack, [
+                _nest(named, f"layers.{i + g * len(pattern) + j}")
+                for g in range(groups)])
+            for j in range(len(pattern))})
+        i += groups * len(pattern)
+    out["stacks"] = stacks
+    if cfg.family == "hybrid":
+        out["shared_attn"] = _nest(named, "shared_attn")
+    if cfg.num_patches:
+        out["patch_proj"] = named["patch_proj"]
     return out
 
 

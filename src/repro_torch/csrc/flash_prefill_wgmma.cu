@@ -58,6 +58,10 @@
 //   grid is ordered heaviest query block first, so the short blocks of
 //   the causal triangle fill the last wave. Rows at or past Lq are not
 //   stored; keys at or past Lk are masked (TMA gave them zeros).
+// - Log-sum-exp: given an `lse` output (the training forward, whose
+//   backward is flash_bwd_wgmma.cu), each row's natural log-sum-exp
+//   (m + log2 l) . ln 2 is written beside the output, one float a row;
+//   with a null pointer (serving) nothing more is written.
 // - Arithmetic: products in float32 on the tensor cores from bf16 inputs
 //   (P rounded to bf16 as the A operand), softmax in float32 with the
 //   special-function unit's ex2.approx in place of exp2f (both well
@@ -67,10 +71,7 @@
 // the 168 that ptxas gives the D 128 kernel), a persistent grid, fp8; D
 // 192 (its 96 O registers a thread, with S's 64 and P's 32, pass the
 // budget of two consumer warpgroups).
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -79,248 +80,6 @@ constexpr int BK = 128;               // keys per block
 constexpr int STAGES = 2;             // K/V ring depth
 constexpr int CONSUMERS = 256;        // two warpgroups
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
-constexpr int ROW = 128;              // bytes of one swizzled box row
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-D tensor map, coordinates innermost first, into shared
-// memory; its bytes complete on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across the fence or the wait.
-template <int N>
-__device__ __forceinline__ void hold(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// Shared-memory matrix descriptor of wgmma, 128-byte swizzle: start
-// address, leading and stride byte offsets (all in 16-byte units).
-__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
-                                          uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
-}
-
-// 2^x on the special-function unit (ex2.approx: about 2 ulp, flushes
-// denormals; 2^-inf = 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d (64 x 128, float32) = a (64 x 16) . b (16 x 128), from shared memory,
-// K-major; d is overwritten when `accumulate` is 0, added to otherwise.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 128, float32) += a (64 x 16, bf16 pairs in registers) . b
-// (16 x 128, shared memory, MN-major: read through the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 64, float32) += a (64 x 16, bf16 pairs in registers) . b
-// (16 x 64, shared memory, MN-major: read through the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 80, float32) += a (64 x 16, bf16 pairs in registers) . b
-// (16 x 80, shared memory, MN-major: read through the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39"
-      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 96, float32) += a (64 x 16, bf16 pairs in registers) . b
-// (16 x 96, shared memory, MN-major: read through the transpose bit).
-__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// 64-column boxes in a row of D columns (the last zero-filled past D).
-template <int D>
-__host__ __device__ constexpr int boxes() { return (D + 63) / 64; }
 
 // D: the head dim, 64, 80, 96 or 128 (one or two 64-column boxes a row).
 template <int D>
@@ -328,8 +87,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
-                         __nv_bfloat16* __restrict__ out, int Lq, int Lk,
-                         int H, int KVH, int B, float scale, int causal,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ lse, int Lq, int Lk, int H,
+                         int KVH, int B, float scale, int causal,
                          int kv_offset) {
   constexpr int BOXES = boxes<D>();
   // Whole boxes, the zero fill past D included: what lands in shared
@@ -496,15 +256,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dv = sdesc(v_addr + kk * 16 * ROW, BK * ROW, 1024);
-      if constexpr (D == 128)
-        wgmma_rs_n128(o, pa[kk], dv);
-      else if constexpr (D == 96)
-        wgmma_rs_n96(o, pa[kk], dv);
-      else if constexpr (D == 80)
-        wgmma_rs_n80(o, pa[kk], dv);
-      else
-        wgmma_rs_n64(o, pa[kk], dv);
+      wgmma_rs_nd<D>(o, pa[kk],
+                     sdesc(v_addr + kk * 16 * ROW, BK * ROW, 1024));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -521,6 +274,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float denom = fmaxf(sum, 1e-30f);
     const int row = row0 + 8 * i;
     if (row >= Lq) continue;
+    // The row's natural log-sum-exp, (m + log2 l) . ln 2 (m in log2 units;
+    // -inf for a row with no visible key), for the backward.
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((long long)b * H + h) * Lq + row] = (m[i] + log2f(sum)) * kLn2;
     __nv_bfloat16* orow = out + (((long long)b * Lq + row) * H + h) * D;
 #pragma unroll
     for (int jj = 0; jj < NO / 4; ++jj)
@@ -529,58 +286,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The map of a (B, L, heads, D) bf16 tensor as 4-D (D, heads, L, B), boxes
-// of 64 columns x `rows` rows of one head, 128-byte swizzle, zero fill.
-int encode(CUtensorMap* map, const void* ptr, int B, int L, int heads,
-           int D, int rows) {
-  EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)L * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult res = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  // A driver error is reported past the runtime's codes, as 10000 + code.
-  return res == CUDA_SUCCESS ? 0 : 10000 + (int)res;
-}
-
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Lq, int Lk, int H, int KVH, float scale, int causal,
-           int kv_offset, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Lq, int Lk, int H, int KVH, float scale,
+           int causal, int kv_offset, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = encode(&tq, q, B, Lq, H, D, BQ);
   if (!err) err = encode(&tk, k, B, Lk, KVH, D, BK);
@@ -590,24 +299,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const size_t smem = 1024 + (size_t)BQ * boxes<D>() * ROW +
                       2 * STAGES * (size_t)BK * boxes<D>() * ROW +
                       (1 + 3 * STAGES) * sizeof(uint64_t);
-  // The opt-in above 48 KB is made once per device (so that a launch
-  // captured into a CUDA graph makes no such call).
   static bool allowed[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!allowed[dev]) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    allowed[dev] = true;
-  }
+  err = allow_smem(kernel, smem, allowed);
+  if (err) return err;
   const long long ctas = (long long)((Lq + BQ - 1) / BQ) * H * B;
   if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   kernel<<<(unsigned)ctas, THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Lq, Lk, H, KVH, B,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, Lq, Lk, H, KVH, B,
       scale, causal, kv_offset);
   return (int)cudaGetLastError();
 }
@@ -616,29 +314,31 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // C interface (bound with ctypes): bf16 q (B, Lq, H, D), k and v (B, Lk,
 // KVH, D), out like q, contiguous and 16-byte aligned, D 64, 80, 96 or
-// 128. Returns
-// a cudaError_t (0 is success), or 10000 + a CUresult of the tensor-map
-// encoding.
+// 128; lse a float32 (B, H, Lq) output of each row's natural log-sum-exp,
+// or null (nothing written: the serving prefill). Returns a cudaError_t
+// (0 is success), or 10000 + a CUresult of the tensor-map encoding.
 extern "C" int flash_prefill_wgmma_launch(const void* q, const void* k,
-                                          const void* v, void* out, int B,
-                                          int Lq, int Lk, int H, int KVH,
-                                          int D, float scale, int causal,
-                                          int kv_offset, void* stream) {
+                                          const void* v, void* out,
+                                          void* lse, int B, int Lq, int Lk,
+                                          int H, int KVH, int D, float scale,
+                                          int causal, int kv_offset,
+                                          void* stream) {
   if (B < 1 || Lq < 1 || Lk < 1 || KVH < 1 || H < 1 || H % KVH ||
       kv_offset < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (D == 64)
-    return launch<64>(q, k, v, out, B, Lq, Lk, H, KVH, scale, causal,
+    return launch<64>(q, k, v, out, l, B, Lq, Lk, H, KVH, scale, causal,
                       kv_offset, s);
   if (D == 80)
-    return launch<80>(q, k, v, out, B, Lq, Lk, H, KVH, scale, causal,
+    return launch<80>(q, k, v, out, l, B, Lq, Lk, H, KVH, scale, causal,
                       kv_offset, s);
   if (D == 96)
-    return launch<96>(q, k, v, out, B, Lq, Lk, H, KVH, scale, causal,
+    return launch<96>(q, k, v, out, l, B, Lq, Lk, H, KVH, scale, causal,
                       kv_offset, s);
   if (D == 128)
-    return launch<128>(q, k, v, out, B, Lq, Lk, H, KVH, scale, causal,
+    return launch<128>(q, k, v, out, l, B, Lq, Lk, H, KVH, scale, causal,
                        kv_offset, s);
   return (int)cudaErrorInvalidValue;
 }

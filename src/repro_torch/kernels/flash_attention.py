@@ -26,12 +26,23 @@ tiling knobs have no counterpart.  The plain version is
 the decode route's split and merge); `kernels.ops.flash_attention` picks
 between plain and kernel by device and counts each route's launches.
 
-The gradient (``csrc/flash_attention_bwd.cu``, which the reference does
-not have: it differentiates its jnp scan) is two launches,
-`flash_bwd_dq_cuda` then `flash_bwd_dkdv_cuda`, for float32 or bf16 at a
-head dim of `BWD_HEAD_DIMS` with Lq == Lk and ``kv_offset`` 0; its plain
-version is `ref.flash_attention_bwd_ref`, and `ops.flash_attention`'s
-autograd rule calls them.
+The gradient (which the reference does not have: it differentiates its
+jnp scan) takes Lq == Lk and ``kv_offset`` 0, and has two routes, which
+`route_bwd` picks from the shapes alone:
+
+- ``wgmma`` (``csrc/flash_bwd_wgmma.cu``): bf16 at a head dim of
+  `WGMMA_HEAD_DIMS` with L > 1, the calls whose forward took the
+  ``wgmma`` route, which writes each row's log-sum-exp (``lse``) for it.
+  `flash_bwd_wgmma_dq_cuda` then `flash_bwd_wgmma_dkdv_cuda`, tensor-core
+  tiles fed by TMA.
+- ``simt`` (``csrc/flash_attention_bwd.cu``): the rest of
+  `BWD_HEAD_DIMS` (float32, bf16 at D 16 and 32).  `flash_bwd_dq_cuda`
+  then `flash_bwd_dkdv_cuda`, float32 FMA on the CUDA cores, the
+  log-sum-exp recomputed.
+
+Their plain version is `ref.flash_attention_bwd_ref` (with ``lse`` for
+the ``wgmma`` route), and `ops.flash_attention`'s autograd rule calls
+them.
 """
 from __future__ import annotations
 
@@ -43,6 +54,7 @@ import torch
 from repro_torch.kernels import _build
 
 ROUTES = ("wgmma", "decode", "simt")
+BWD_ROUTES = ("wgmma", "simt")
 WGMMA_HEAD_DIMS = (64, 80, 96, 128)
 BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 # The decode route's split: rows per sub-block (a split's length is a
@@ -52,7 +64,7 @@ SUB_BLOCK, HEADS_PER_CTA, MAX_CHUNKS, CTAS_PER_SM = 32, 4, 2048, 4
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
 _DECODE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
@@ -60,6 +72,8 @@ _DECODE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                     + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_BWD_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -71,6 +85,15 @@ def route(dtype: torch.dtype, b: int, lq: int, lk: int, h: int, kvh: int,
     if lq == 1:
         return "decode"
     if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+def route_bwd(dtype: torch.dtype, L: int, d: int) -> str:
+    """The gradient's kernel for a call of these shapes: ``"wgmma"`` where
+    the forward took its ``wgmma`` route (bf16, L > 1, a head dim of
+    `WGMMA_HEAD_DIMS`), ``"simt"`` otherwise."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS and L > 1:
         return "wgmma"
     return "simt"
 
@@ -151,23 +174,40 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _check_lse(t, kernel: str, b: int, h: int, lq: int, dev,
+               name: str = "lse") -> None:
+    """Raise unless ``t`` is a contiguous float32 (B, H, Lq) tensor, one
+    value a query row (the log-sum-exp, or the backward's Δ)."""
+    _build.check_arg(kernel, name, t, torch.float32, 3, dev)
+    if t.shape != (b, h, lq):
+        raise ValueError(f"{kernel}: {name} must be ({b}, {h}, {lq}), got "
+                         f"{tuple(t.shape)}")
+
+
 def flash_prefill_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool, scale: float,
-                             kv_offset: int) -> torch.Tensor:
+                             kv_offset: int,
+                             lse: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """The ``wgmma`` route on ``q``'s stream: bf16 q (B, Lq, H, D), k and v
     (B, Lk, KVH, D), D one of `WGMMA_HEAD_DIMS`, contiguous; returns the
-    output in bf16."""
+    output in bf16.  Given a float32 (B, H, Lq) ``lse``, the kernel also
+    writes each row's natural log-sum-exp there (the backward's input);
+    without one it writes nothing more."""
     b, lq, lk, h, kvh, d = _check(q, k, v, "flash_prefill_wgmma",
                                   (torch.bfloat16,))
     if d not in WGMMA_HEAD_DIMS or kv_offset < 0:
         raise ValueError(f"flash_prefill_wgmma: needs D in "
                          f"{WGMMA_HEAD_DIMS} (got {d}) and kv_offset >= 0 "
                          f"(got {kv_offset})")
+    if lse is not None:
+        _check_lse(lse, "flash_prefill_wgmma", b, h, lq, q.device)
     out = torch.empty_like(q)
     fn = _build.launcher("flash_prefill_wgmma", "flash_prefill_wgmma_launch",
                          _WGMMA_ARGTYPES)
     _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, lq, lk, h, kvh, d, scale, int(causal), kv_offset,
+                 _build.data_ptr(lse), b, lq, lk, h, kvh, d, scale,
+                 int(causal), kv_offset,
                  torch.cuda.current_stream(q.device).cuda_stream),
               "flash_prefill_wgmma")
     return out
@@ -232,10 +272,10 @@ def _check_bwd(q, k, v, o, do, kernel: str) -> tuple[int, int, int, int,
 def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, do: torch.Tensor, *, causal: bool,
                       scale: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """The backward's first launch on ``q``'s stream: q, o and do (B, L,
-    H, D), k and v (B, L, KVH, D), one dtype, contiguous.  Returns dq in
-    q's dtype and the float32 (2, B, H, L) scratch of each row's
-    log-sum-exp and Δ that `flash_bwd_dkdv_cuda` reads."""
+    """The ``simt`` backward's first launch on ``q``'s stream: q, o and
+    do (B, L, H, D), k and v (B, L, KVH, D), one dtype, contiguous.
+    Returns dq in q's dtype and the float32 (2, B, H, L) scratch of each
+    row's log-sum-exp and Δ that `flash_bwd_dkdv_cuda` reads."""
     b, L, h, kvh, d = _check_bwd(q, k, v, o, do, "flash_bwd_dq")
     dq = torch.empty_like(q)
     stats = torch.empty((2, b, h, L), dtype=torch.float32, device=q.device)
@@ -253,9 +293,9 @@ def flash_bwd_dkdv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, stats: torch.Tensor, *,
                         causal: bool, scale: float
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The backward's second launch, after `flash_bwd_dq_cuda` on the same
-    stream, reading its ``stats``: returns (dk, dv) (B, L, KVH, D) in k's
-    dtype, each summed over the KV head's query heads."""
+    """The ``simt`` backward's second launch, after `flash_bwd_dq_cuda`
+    on the same stream, reading its ``stats``: returns (dk, dv) (B, L,
+    KVH, D) in k's dtype, each summed over the KV head's query heads."""
     b, L, h, kvh, d = _check_bwd(q, k, v, do, do, "flash_bwd_dkdv")
     _build.check_arg("flash_bwd_dkdv", "stats", stats, torch.float32, 4,
                      q.device)
@@ -270,4 +310,62 @@ def flash_bwd_dkdv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  _DTYPES[q.dtype], b, L, h, kvh, d, scale, int(causal),
                  torch.cuda.current_stream(q.device).cuda_stream),
               "flash_bwd_dkdv")
+    return dk, dv
+
+
+def _check_bwd_wgmma(q, k, v, o, do, lse, kernel: str
+                     ) -> tuple[int, int, int, int, int]:
+    """`_check_bwd` for the ``wgmma`` route: bf16, D one of
+    `WGMMA_HEAD_DIMS`, and the forward's (B, H, L) float32 ``lse``."""
+    b, L, h, kvh, d = _check_bwd(q, k, v, o, do, kernel)
+    if q.dtype != torch.bfloat16 or d not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"{kernel}: needs bf16 and D in {WGMMA_HEAD_DIMS} "
+                         f"(got {q.dtype}, {d})")
+    _check_lse(lse, kernel, b, h, L, q.device)
+    return b, L, h, kvh, d
+
+
+def flash_bwd_wgmma_dq_cuda(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor, *,
+                            causal: bool, scale: float
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``wgmma`` backward's first launch on ``q``'s stream: bf16 q, o
+    and do (B, L, H, D), k and v (B, L, KVH, D), contiguous, and the
+    forward's float32 (B, H, L) ``lse``.  Returns dq (bf16) and the float32
+    (B, H, L) Δ = rowsum(do ∘ o) that `flash_bwd_wgmma_dkdv_cuda` reads."""
+    b, L, h, kvh, d = _check_bwd_wgmma(q, k, v, o, do, lse,
+                                       "flash_bwd_wgmma_dq")
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, h, L), dtype=torch.float32, device=q.device)
+    fn = _build.launcher("flash_bwd_wgmma", "flash_bwd_wgmma_dq_launch",
+                         _BWD_WGMMA_ARGTYPES)
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                 delta.data_ptr(), b, L, h, kvh, d, scale, int(causal),
+                 torch.cuda.current_stream(q.device).cuda_stream),
+              "flash_bwd_wgmma_dq")
+    return dq, delta
+
+
+def flash_bwd_wgmma_dkdv_cuda(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, do: torch.Tensor,
+                              lse: torch.Tensor, delta: torch.Tensor, *,
+                              causal: bool, scale: float
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``wgmma`` backward's second launch, after
+    `flash_bwd_wgmma_dq_cuda` on the same stream, reading its ``delta``:
+    returns (dk, dv) (B, L, KVH, D) in bf16, each summed over the KV head's
+    query heads."""
+    b, L, h, kvh, d = _check_bwd_wgmma(q, k, v, do, do, lse,
+                                       "flash_bwd_wgmma_dkdv")
+    _check_lse(delta, "flash_bwd_wgmma_dkdv", b, h, L, q.device, "delta")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.launcher("flash_bwd_wgmma", "flash_bwd_wgmma_dkdv_launch",
+                         _BWD_WGMMA_ARGTYPES)
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, L, h, kvh, d, scale, int(causal),
+                 torch.cuda.current_stream(q.device).cuda_stream),
+              "flash_bwd_wgmma_dkdv")
     return dk, dv

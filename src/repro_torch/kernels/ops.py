@@ -23,8 +23,10 @@ prefill and decode through three kernels chosen by shape
 them all, ``flash_wgmma``, ``flash_decode`` and ``flash_simt`` each route.
 When one of its inputs requires a gradient, ``flash_attention`` runs the
 same forward inside an autograd rule whose backward is
-``flash_attention_bwd``: two kernel launches (``csrc/
-flash_attention_bwd.cu``), each counted in ``LAUNCHES["flash_bwd"]``.
+``flash_attention_bwd``: two kernel launches of the route
+`kernels.flash_attention.route_bwd` picks (``wgmma``, which reads the
+log-sum-exp its forward wrote, or ``simt``), each counted in
+``LAUNCHES["flash_bwd"]`` and in ``flash_bwd_wgmma`` or ``flash_bwd_simt``.
 """
 from __future__ import annotations
 
@@ -32,12 +34,14 @@ import torch
 
 from repro_torch.core import tiles
 from repro_torch.core.tiles import SlotList, TiledGraph
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 
 LAUNCHES = {"fused_expand": 0, "cover_counts": 0, "lt_select_expand": 0,
             "flash_attention": 0, "fused_expand_q": 0,
             "flash_wgmma": 0, "flash_decode": 0, "flash_simt": 0,
-            "cover_counts_multi": 0, "flash_bwd": 0}
+            "cover_counts_multi": 0, "flash_bwd": 0, "flash_bwd_wgmma": 0,
+            "flash_bwd_simt": 0}
 
 
 def reset_launches() -> None:
@@ -149,41 +153,69 @@ def cover_counts_multi(visited: torch.Tensor,
     return ref.cover_counts_multi_ref(visited, active_q)
 
 
-def _flash_forward(q, k, v, causal: bool, scale: float, kv_offset: int):
+def _flash_forward(q, k, v, causal: bool, scale: float, kv_offset: int,
+                   want_lse: bool = False):
     """The forward on batched (B, Lq, H, D) tensors: a route's kernel on
-    the card (counted), the plain version on the CPU."""
+    the card (counted), the plain version on the CPU.  Returns the output
+    and, with ``want_lse`` (asked only where the route is ``wgmma``), each
+    row's float32 (B, H, Lq) log-sum-exp, else None."""
+    b, lq, h, d = q.shape
+    lse = None
     if _on_cuda(q, k, v):
-        from repro_torch.kernels import flash_attention as fa
-        b, lq, h, d = q.shape
         r = fa.route(q.dtype, b, lq, k.shape[1], h, k.shape[2], d, causal)
-        out = fa.CUDA_ROUTES[r](q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal=causal, scale=scale,
-                                kv_offset=kv_offset)
+        if want_lse:
+            lse = torch.empty((b, h, lq), dtype=torch.float32,
+                              device=q.device)
+            out = fa.flash_prefill_wgmma_cuda(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                causal=causal, scale=scale, kv_offset=kv_offset, lse=lse)
+        else:
+            out = fa.CUDA_ROUTES[r](q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=causal,
+                                    scale=scale, kv_offset=kv_offset)
         LAUNCHES[f"flash_{r}"] += 1
         LAUNCHES["flash_attention"] += 1
-        return out
+        return out, lse
+    if want_lse:
+        lse = ref.flash_attention_lse_ref(q, k, causal=causal, scale=scale,
+                                          kv_offset=kv_offset)
     return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
-                                   kv_offset=kv_offset)
+                                   kv_offset=kv_offset), lse
 
 
 class _FlashAttention(torch.autograd.Function):
-    """`_flash_forward` with the backward kernel as its gradient; it saves
-    q, k, v and the output (under an activation checkpoint, autograd drops
-    them and recomputes the forward)."""
+    """`_flash_forward` with the backward kernels as its gradient; it saves
+    q, k, v, the output and, where the backward's route is ``wgmma``, the
+    log-sum-exp the forward wrote (under an activation checkpoint,
+    autograd drops them and recomputes the forward, which writes it
+    again)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
-        out = _flash_forward(q, k, v, causal, scale, 0)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, do,
-                                         causal=ctx.causal, scale=ctx.scale)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=ctx.causal,
+                                         scale=ctx.scale, lse=lse)
         return dq, dk, dv, None, None
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, scale: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The training forward of batched tensors (Lq == Lk, ``kv_offset``
+    0), outside autograd: the output, and what `flash_attention_bwd`
+    reads besides it — the float32 (B, H, L) log-sum-exp where
+    `flash_attention.route_bwd` picks ``wgmma`` (the forward kernel writes
+    it), None where it picks ``simt``."""
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    want = fa.route_bwd(q.dtype, q.shape[1], q.shape[-1]) == "wgmma"
+    return _flash_forward(q, k, v, causal, scale, 0, want_lse=want)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -195,7 +227,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (Lq, H, D) layout is taken too.  Query ``i`` attends keys up to
     ``i + kv_offset`` under ``causal``.  Differentiable when Lq == Lk and
     ``kv_offset`` is 0 (the training forward); a call that needs a
-    gradient anywhere else raises."""
+    gradient anywhere else raises.  A call without a gradient writes no
+    log-sum-exp."""
     unbatched = q.dim() == 3
     if unbatched:
         q, k, v = q[None], k[None], v[None]
@@ -211,27 +244,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"{k.shape[1]}, {kv_offset})")
         out = _FlashAttention.apply(q, k, v, causal, scale)
     else:
-        out = _flash_forward(q, k, v, causal, scale, kv_offset)
+        out = _flash_forward(q, k, v, causal, scale, kv_offset)[0]
     return out[0] if unbatched else out
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = True, scale: float | None = None
+                        causal: bool = True, scale: float | None = None,
+                        lse: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of `flash_attention` (Lq == Lk, ``kv_offset`` 0) given
-    its output ``o`` and the output's gradient ``do``: two kernel launches
-    on the card, `ref.flash_attention_bwd_ref` on the CPU."""
+    its output ``o``, the output's gradient ``do`` and what
+    `flash_attention_fwd` returns beside ``o``: on the card two launches of
+    the route `flash_attention.route_bwd` picks, the ``wgmma`` one reading
+    the forward's (B, H, L) log-sum-exp ``lse`` (required there; the
+    ``simt`` route recomputes it and ignores one given); on the CPU
+    `ref.flash_attention_bwd_ref` of the same route."""
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    r = fa.route_bwd(q.dtype, q.shape[1], q.shape[-1])
+    if r == "wgmma" and lse is None:
+        raise ValueError("flash_attention_bwd: the wgmma route reads the "
+                         "forward's log-sum-exp; pass lse "
+                         "(flash_attention_fwd returns it)")
     if _on_cuda(q, k, v, o, do):
-        from repro_torch.kernels import flash_attention as fa
         q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
-        dq, stats = fa.flash_bwd_dq_cuda(q, k, v, o, do, causal=causal,
-                                         scale=scale)
-        LAUNCHES["flash_bwd"] += 1
-        dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, stats, causal=causal,
-                                        scale=scale)
-        LAUNCHES["flash_bwd"] += 1
+        if r == "wgmma":
+            lse = lse.contiguous()
+            dq, delta = fa.flash_bwd_wgmma_dq_cuda(q, k, v, o, do, lse,
+                                                   causal=causal,
+                                                   scale=scale)
+            _count_bwd(r)
+            dk, dv = fa.flash_bwd_wgmma_dkdv_cuda(q, k, v, do, lse, delta,
+                                                  causal=causal, scale=scale)
+        else:
+            dq, stats = fa.flash_bwd_dq_cuda(q, k, v, o, do, causal=causal,
+                                             scale=scale)
+            _count_bwd(r)
+            dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, stats,
+                                            causal=causal, scale=scale)
+        _count_bwd(r)
         return dq, dk, dv
     return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                       scale=scale)
+                                       scale=scale,
+                                       lse=lse if r == "wgmma" else None)
+
+
+def _count_bwd(r: str) -> None:
+    LAUNCHES["flash_bwd"] += 1
+    LAUNCHES[f"flash_bwd_{r}"] += 1

@@ -358,6 +358,22 @@ def cover_counts_multi_ref(visited, active_q):
     return counts
 
 
+def _scores(q, k, causal, scale, kv_offset):
+    """The (B, H, Lq, Lk) float32 scores s = (q·scale)·kᵀ of
+    `flash_attention_ref`, a key at ``kp > qp + kv_offset`` at -1e30 under
+    ``causal``; query head ``h`` reads KV head ``h // (H // KVH)``."""
+    lq, h = q.shape[1], q.shape[2]
+    kvh = k.shape[2]
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(h // kvh, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    if causal:
+        qp = torch.arange(lq, device=q.device)[:, None] + kv_offset
+        kp = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = s.masked_fill(kp > qp, -1e30)
+    return s
+
+
 def flash_attention_ref(q, k, v, *, causal=True, scale=None, kv_offset=0):
     """Attention with the function of the reference's Pallas kernel
     (``kernels/flash_attention.py::_flash_kernel``), as one plain softmax:
@@ -371,29 +387,36 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None, kv_offset=0):
     attention in place, the head order of ``q.reshape(b, L, kvh, g, hd)``).
     Rows attend every key up to ``qp + kv_offset`` (decode: one query at
     ``kv_offset = cur_len`` over a padded cache)."""
-    b, lq, h, d = q.shape
-    kvh = k.shape[2]
+    h, d = q.shape[2], q.shape[3]
     scale = scale if scale is not None else d ** -0.5
-    qf = q.float() * scale
-    kf = k.float().repeat_interleave(h // kvh, dim=2)
-    vf = v.float().repeat_interleave(h // kvh, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
-    if causal:
-        qp = torch.arange(lq, device=q.device)[:, None] + kv_offset
-        kp = torch.arange(k.shape[1], device=q.device)[None, :]
-        s = s.masked_fill(kp > qp, -1e30)
-    p = torch.softmax(s, dim=-1)
+    vf = v.float().repeat_interleave(h // v.shape[2], dim=2)
+    p = torch.softmax(_scores(q, k, causal, scale, kv_offset), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
 
-def flash_attention_bwd_ref(q, k, v, o, do, *, causal=True, scale=None):
+def flash_attention_lse_ref(q, k, *, causal=True, scale=None, kv_offset=0):
+    """What the ``wgmma`` forward writes to its ``lse`` output
+    (``csrc/flash_prefill_wgmma.cu``): each query row's natural
+    log-sum-exp of `flash_attention_ref`'s scores, float32 (B, H, Lq)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return torch.logsumexp(_scores(q, k, causal, scale, kv_offset), dim=-1)
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, *, causal=True, scale=None,
+                            lse=None):
     """The gradient of `flash_attention_ref` (``kv_offset`` 0, Lq == Lk)
-    as the backward kernel computes it (``csrc/flash_attention_bwd.cu``),
-    in float32 with P materialised:
+    as the backward kernels compute it, in float32 with P materialised:
 
         s = (q·scale)·kᵀ, masked under ``causal``;  P = softmax(s);
         dv = Pᵀ·do;  dP = do·vᵀ;  Δ = rowsum(do ∘ o);  dS = P ∘ (dP - Δ);
         dq = scale · dS·k;  dk = scale · dSᵀ·q
+
+    Without ``lse`` this is the ``simt`` route's function
+    (``csrc/flash_attention_bwd.cu``).  With the forward's (B, H, L)
+    ``lse`` (`flash_attention_lse_ref`) it is the ``wgmma`` route's
+    (``csrc/flash_bwd_wgmma.cu``): P = exp(s - lse), and P and dS are
+    rounded to the inputs' dtype before the products they feed, as that
+    kernel rounds its register-A operands (the identity for float32).
 
     q, o and do (B, L, H, D); k and v (B, L, KVH, D), query head ``h``
     reading KV head ``h // (H // KVH)``, so dk and dv sum over each KV
@@ -406,15 +429,19 @@ def flash_attention_bwd_ref(q, k, v, o, do, *, causal=True, scale=None):
     kf = k.float().repeat_interleave(g, dim=2)
     vf = v.float().repeat_interleave(g, dim=2)
     dof = do.float()
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
-    if causal:
-        pos = torch.arange(L, device=q.device)
-        s = s.masked_fill(pos[None, :] > pos[:, None], -1e30)
-    p = torch.softmax(s, dim=-1)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    s = _scores(q, k, causal, scale, 0)
+    if lse is None:
+        p = torch.softmax(s, dim=-1)
+        p_op = p
+    else:
+        p = torch.exp(s - lse.float()[..., None])
+        p_op = p.to(q.dtype).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_op, dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     delta = (dof * o.float()).sum(-1).transpose(1, 2)       # (B, H, L)
     ds = p * (dp - delta[..., None])
+    if lse is not None:
+        ds = ds.to(q.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     dk = dk.reshape(b, L, kvh, g, d).sum(3)

@@ -176,16 +176,23 @@ def _blocked_mla(p, q, c, k_rope, cfg: ModelConfig, bq: int, bk: int):
     order, nk = L // bk.  The key blocks are the outer loop, so each is
     projected once; a (query block, key block) pair whose keys all lie
     after its queries is skipped, which is exact: the reference's update
-    for it has p = 0 and alpha = 1."""
+    for it has p = 0 and alpha = 1.  Each query block's running max, sum
+    and output are replaced, never written in place; the scores are
+    exponentiated in place only when no gradient is needed (serving)."""
     b, L, h, _ = q.shape
     nq, nk = L // bq, L // bk
     scale = (cfg.head_dim + cfg.rope_head_dim) ** -0.5
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, c, k_rope, p["w_uk"], p["w_uv"]))
     qf = (q.float() * scale).transpose(1, 2)              # (B, H, L, hd+rd)
     q_pos = torch.arange(L, device=q.device)
-    m = torch.full((b, h, L), _NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, h, L), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, h, L, cfg.v_head_dim or cfg.head_dim),
-                      dtype=torch.float32, device=q.device)
+    m = [torch.full((b, h, bq), _NEG, dtype=torch.float32, device=q.device)
+         for _ in range(nq)]
+    l = [torch.zeros((b, h, bq), dtype=torch.float32, device=q.device)
+         for _ in range(nq)]
+    acc = [torch.zeros((b, h, bq, cfg.v_head_dim or cfg.head_dim),
+                       dtype=torch.float32, device=q.device)
+           for _ in range(nq)]
     for j in range(nk):
         keys = slice(j * bk, (j + 1) * bk)
         k_blk, v_blk = _mla_kv_block(p, c[:, keys], k_rope[:, keys], cfg)
@@ -198,18 +205,23 @@ def _blocked_mla(p, q, c, k_rope, cfg: ModelConfig, bq: int, bk: int):
                 continue
             rows = slice(i * bq, (i + 1) * bq)
             s = torch.matmul(qf[:, :, rows], kf)          # (B, H, bq, bk)
-            s.masked_fill_(k_pos[None, :] > q_pos[rows, None], _NEG)
-            m_i = m[:, :, rows]
-            m_new = torch.maximum(m_i, s.amax(-1))
-            s.sub_(m_new[..., None]).exp_()                # p, in place
-            alpha = torch.exp(m_i - m_new)
-            l[:, :, rows] = l[:, :, rows] * alpha + s.sum(-1)
-            acc[:, :, rows] = (acc[:, :, rows] * alpha[..., None]
-                               + torch.matmul(s, vf))
-            m[:, :, rows] = m_new
+            masked = k_pos[None, :] > q_pos[rows, None]
+            if grad:
+                s = s.masked_fill(masked, _NEG)
+            else:
+                s.masked_fill_(masked, _NEG)
+            m_new = torch.maximum(m[i], s.amax(-1))
+            if grad:
+                s = torch.exp(s - m_new[..., None])      # p
+            else:
+                s.sub_(m_new[..., None]).exp_()            # p, in place
+            alpha = torch.exp(m[i] - m_new)
+            l[i] = l[i] * alpha + s.sum(-1)
+            acc[i] = acc[i] * alpha[..., None] + torch.matmul(s, vf)
+            m[i] = m_new
             del s
-    out = acc / l.clamp_min(1e-30)[..., None]             # (B, H, L, vd)
-    return out.transpose(1, 2)
+    out = torch.cat(acc, 2) / torch.cat(l, 2).clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2)                            # (B, L, H, vd)
 
 
 def mla_forward(p, x, positions, cfg: ModelConfig):

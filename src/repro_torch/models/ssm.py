@@ -129,8 +129,15 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, conv_tail=None,
     scores = cum_t[..., :, None] - cum_t[..., None, :]         # cum_i - cum_j
     upper = torch.ones((cs, cs), dtype=torch.bool,
                        device=x.device).triu_(1)
-    scores.masked_fill_(upper, float("-inf")).exp_()           # decay; 0 above
-    scores.mul_(cb[:, :, None]).mul_(dtc.transpose(2, 3)[..., None, :])
+    scores.masked_fill_(upper, float("-inf"))
+    if torch.is_grad_enabled() and (scores.requires_grad or cb.requires_grad
+                                    or dtc.requires_grad):
+        # Out of place: exp's backward reads its result.
+        scores = scores.exp() * cb[:, :, None] \
+            * dtc.transpose(2, 3)[..., None, :]
+    else:                                                      # serving
+        scores.exp_().mul_(cb[:, :, None]).mul_(
+            dtc.transpose(2, 3)[..., None, :])                 # decay; 0 above
     y = scores @ xh_t                                          # (B,nc,H,i,P)
     del scores, cb
 

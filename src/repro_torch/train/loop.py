@@ -6,6 +6,11 @@ latest checkpoint ends with the same parameters as an uninterrupted run,
 because the data cursor is the step (`data.pipeline.SyntheticLM`), the
 weights are a function of the seed, and the step is deterministic (on
 the card up to the embedding gradient's atomics).
+
+A checkpoint holds ``(params, AdamWState)`` in the reference's layout
+(`convert.lm_stacked_tree`: ``0/stacks/<i>/block<j>/…`` with the group
+axis leading, moments the same way under ``1/.m`` and ``1/.v``), so
+either package resumes from the other's checkpoints.
 """
 from __future__ import annotations
 
@@ -16,13 +21,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch import device as device_lib
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import check_trainable, make_train_step
 
 
 class SimulatedCrash(RuntimeError):
@@ -40,19 +46,43 @@ class TrainResult:
     grad_norms: list
 
 
-def _restore(directory: str, params: model.LM, opt: adamw.AdamWState):
-    """Load the latest checkpoint into ``params`` and a new optimizer
-    state on their device; returns (state, step)."""
+def _host_stack(ts: list) -> torch.Tensor:
+    return torch.stack([t.detach().cpu() for t in ts])
+
+
+def _shape_of(ts: list) -> torch.Tensor:
+    return torch.empty((len(ts), *ts[0].shape), dtype=ts[0].dtype,
+                       device="meta")
+
+
+def _state_tree(params: model.LM, opt: adamw.AdamWState, cfg: ModelConfig,
+                stack=_host_stack):
+    """``(params, opt)`` in the reference's layout, stacked by ``stack``
+    (on the host by default: the checkpoint copies there anyway)."""
+    def tree(named):
+        return convert.lm_stacked_tree(named, cfg, stack)
+
+    return (tree(adamw.named(params)),
+            adamw.AdamWState(step=opt.step, m=tree(opt.m), v=tree(opt.v)))
+
+
+def _restore(directory: str, params: model.LM, opt: adamw.AdamWState,
+             cfg: ModelConfig):
+    """Load the latest checkpoint (the reference's layout) into ``params``
+    and a new optimizer state on their device; returns (state, step)."""
     named = adamw.named(params)
-    (p_host, o_host), start = ckpt.restore(directory, (named, opt))
+    (p_tree, o_tree), start = ckpt.restore(
+        directory, _state_tree(params, opt, cfg, _shape_of))
     dev = opt.step.device
     with torch.no_grad():
-        for name, t in p_host.items():
+        for name, t in convert.lm_named_leaves(p_tree, cfg).items():
             named[name].copy_(t)
     opt = adamw.AdamWState(
-        step=o_host.step.to(dev),
-        m={k: t.to(dev) for k, t in o_host.m.items()},
-        v={k: t.to(dev) for k, t in o_host.v.items()})
+        step=o_tree.step.to(dev),
+        m={k: t.to(dev) for k, t in
+           convert.lm_named_leaves(o_tree.m, cfg).items()},
+        v={k: t.to(dev) for k, t in
+           convert.lm_named_leaves(o_tree.v, cfg).items()})
     return opt, start
 
 
@@ -73,12 +103,13 @@ def train(cfg: ModelConfig, *, batch: int, seq_len: int, steps: int,
     AFTER that step's update but BEFORE its checkpoint — the worst case.
     ``clock``: as `make_train_step`'s."""
     dev = device_lib.resolve(device)
+    check_trainable(cfg, dev)
     params = model.trainable(model.init_params(cfg, seed, dev))
     opt = adamw.init(params, torch.float32)
     start = 0
     resumed = None
     if checkpoint_dir and ckpt.latest_step(checkpoint_dir) is not None:
-        opt, start = _restore(checkpoint_dir, params, opt)
+        opt, start = _restore(checkpoint_dir, params, opt, cfg)
         resumed = start
         print_fn(f"[train] resumed from step {start}")
 
@@ -106,7 +137,7 @@ def train(cfg: ModelConfig, *, batch: int, seq_len: int, steps: int,
                 if writer is not None:
                     writer.join()                 # previous async write
                 writer = ckpt.save(checkpoint_dir, step + 1,
-                                   (adamw.named(params), opt),
+                                   _state_tree(params, opt, cfg),
                                    blocking=not async_ckpt)
             if crash_at_step is not None and step == crash_at_step:
                 raise SimulatedCrash(f"injected crash after step {step}")

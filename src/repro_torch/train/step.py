@@ -13,7 +13,9 @@ training is not ported (ROADMAP.md §1).
 
 The dense-attention families train (the six dense archs, phi-3-vision with
 its patches, musicgen with its codebooks).  MoE, SSM and hybrid configs
-are refused: their forwards update tensors in place that autograd saves.
+are refused until their training is ported and checked on the card; on a
+CUDA device, so is a head dim that no backward kernel takes (nemotron's
+192).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
@@ -31,14 +34,23 @@ from repro_torch.optim import adamw
 TRAINED_FAMILIES = ("dense", "vlm", "audio")
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config this port cannot train."""
+def check_trainable(cfg: ModelConfig, device=None) -> None:
+    """Raise NotImplementedError for a config this port cannot train: the
+    MoE, MLA, SSM and hybrid families, and on a CUDA ``device`` an
+    attention head dim outside `flash_attention.BWD_HEAD_DIMS` (which the
+    backward would refuse only at its first call; an SSM has none)."""
     if cfg.family not in TRAINED_FAMILIES or cfg.num_experts \
             or cfg.attention == "mla":
         raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}) is not ported: its forward "
-            "updates tensors in place that autograd saves (MoE, MLA and the "
-            "SSD mixer); see ROADMAP.md §1")
+            f"training {cfg.name} ({cfg.family}) is not ported: MoE, MLA, "
+            "the SSD mixer and the hybrid stack are not yet trained on the "
+            "card; see ROADMAP.md §1")
+    if device is not None and torch.device(device).type == "cuda" \
+            and cfg.head_dim and cfg.head_dim not in fa.BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"training {cfg.name} on the card: no backward kernel takes its "
+            f"head dim {cfg.head_dim} (BWD_HEAD_DIMS {fa.BWD_HEAD_DIMS}); "
+            "see ROADMAP.md §1")
 
 
 @contextlib.contextmanager

@@ -10,8 +10,11 @@ over head dims 16/32/64, GQA groups 1/2/4, lengths 32/40/48 (40 is not a
 multiple of the kernel's 64-row tiles, nor of 16) and causal or not.  The
 port's `attention.gqa_forward` is differentiated against ``jax.vjp`` of
 the reference's (its jnp blocked scan) at the smoke config, on the same
-weights and inputs from numpy, at 1e-5.  The CUDA kernel itself is held
-against the plain version on the card (the ``cuda``-marked tests here,
+weights and inputs from numpy, at 1e-5, with the backward's plain version
+in both forms: the softmax one (the ``simt`` route's) and the one reading
+the forward's log-sum-exp (the ``wgmma`` route's, at atol 2e-5).  The
+CUDA kernels themselves are held against the plain version on the card
+(the ``cuda``-marked tests here and in ``test_torch_flash_bwd_wgmma.py``,
 and ``chip_smoke.py``)."""
 import dataclasses
 
@@ -24,6 +27,7 @@ import torch
 from repro.configs import registry as jregistry
 from repro.models import attention as jattn
 from repro_torch.configs import registry
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention
 
@@ -109,12 +113,21 @@ def test_gradient_needs_a_square_call_at_offset_zero():
         ops.flash_attention(q[:, :16], k, v, causal=True, kv_offset=16)
 
 
+@pytest.mark.parametrize("route", ["simt", "wgmma"])
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("L", [16, 48])
-def test_gqa_forward_gradient_matches_jax_vjp(bias, L):
+def test_gqa_forward_gradient_matches_jax_vjp(bias, L, route, monkeypatch):
     """The attention layer's gradient in every weight and its input, the
     reference differentiating its blocked scan (three 16-row query blocks
-    at L 48), the port through the flash autograd rule."""
+    at L 48), the port through the flash autograd rule; with ``route``
+    "wgmma" the rule takes that route's plain version (the forward's
+    log-sum-exp saved and read; float32, so no rounding of P or dS).  That
+    form's P = exp(s - lse) inherits the float32 rounding of lse (half an
+    ulp, ~2e-6 at |lse| ~ 30), which the softmax form does not have; its
+    gradients sit ~4e-6 from the softmax form's, so its atol is 2e-5
+    where the softmax form keeps 1e-5."""
+    monkeypatch.setattr(fa, "route_bwd", lambda *shape: route)
+    atol = 1e-5 if route == "simt" else 2e-5
     kw = dict(num_patches=0, num_kv_heads=2, qkv_bias=bias)
     jc = dataclasses.replace(jregistry.smoke("llama3.2-3b"), **kw)
     tc = dataclasses.replace(registry.smoke("llama3.2-3b"), **kw)
@@ -149,12 +162,12 @@ def test_gqa_forward_gradient_matches_jax_vjp(bias, L):
     grads = torch.autograd.grad(out, [tp[n] for n in names] + [tx],
                                 torch.from_numpy(cot))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
-                               atol=1e-5, rtol=1e-5)
+                               atol=atol, rtol=1e-5)
     for n, g in zip(names, grads):
         np.testing.assert_allclose(g.numpy(), np.asarray(want_p[n]),
-                                   atol=1e-5, rtol=1e-5, err_msg=n)
+                                   atol=atol, rtol=1e-5, err_msg=n)
     np.testing.assert_allclose(grads[-1].numpy(), np.asarray(want_x),
-                               atol=1e-5, rtol=1e-5)
+                               atol=atol, rtol=1e-5)
 
 
 # ------------------------------------------------------------ on the card
@@ -171,16 +184,19 @@ def cuda():
                                      (torch.bfloat16, 96)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_backward_kernel_equals_plain(cuda, dtype, d, causal):
-    """Both launches against the plain version at a ragged length (130),
-    GQA group 3: float32 at 1e-4, bf16 at 2e-2 (both sides round their
+    """Both launches of the route `route_bwd` picks (float32: ``simt``;
+    bf16 at D 64 and 96: ``wgmma``, reading the forward's log-sum-exp)
+    against the plain version of that route at a ragged length (130), GQA
+    group 3: float32 at 1e-4, bf16 at 2e-2 (both sides round their
     float32 results to bf16)."""
     q, k, v, do = (t.to(cuda) for t in _qkv(d, 130, 3, d, dtype))
-    o = ops.flash_attention(q, k, v, causal=causal)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
     before = ops.LAUNCHES["flash_bwd"]
-    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_bwd"] == before + 2
-    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                       lse=lse)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
