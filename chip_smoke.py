@@ -7,7 +7,7 @@ CUDA toolkit's ``nvcc``; it exits non-zero, printing no result, anywhere
 else.  Phases, each of which raises on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: the eight kernel sources of ``src/repro_torch/csrc``, compiled
+2. build: the nine kernel sources of ``src/repro_torch/csrc``, compiled
    in parallel, with each source's registers and spills from ``ptxas``
    (and each ``cover_counts`` instantiation's registers, each
    ``flash_attention_bwd`` kernel's registers and spills);
@@ -261,16 +261,21 @@ else.  Phases, each of which raises on failure:
     finite logits, tokens in the vocabulary.  It prints prefill tokens/s,
     decode ms a step beside the time to move the step's bytes once
     (every weight but the embedding, every layer's KV read) and peak
-    device memory;
+    device memory; then ([nemotron main b]) nemotron-4-340b cut as
+    ``TRAIN_FAMILY_CUTS`` (its published attention: 96 heads over 8 of
+    192) served with mix (b) through ``serve_config``: 4 wgmma (D 192) +
+    4 × 32 decode launches, 0 simt;
 16f. training, after the VLM phases are released: ([flash bwd]) the
     flash-attention gradient (two launches of the route ``route_bwd``
     picks: bf16 on ``wgmma``, ``csrc/flash_bwd_wgmma.cu``, reading the
     log-sum-exp the forward kernel writes; float32 on ``simt``,
     ``csrc/flash_attention_bwd.cu``) against its plain version
     ``ref.flash_attention_bwd_ref`` of that route — bf16 at D
-    64/80/96/128, float32 at D 16/32/128, GQA groups 1, 3, 5 and 8, L 130
-    and 257, causal and not, and the training shape (1, 4096, 24 over 8
-    heads, 128) bf16 causal, which must also give the same bits twice;
+    64/80/96/128/192 (three launches at 192: dq, dv, dk), float32 at D
+    16/32/128, GQA groups 1, 3, 5, 8 and 12, L 130 and 257, causal and
+    not, and the training shape (1, 4096, 24 over 8 heads, 128) and
+    nemotron's (1, 4096, 96 over 8, 192) bf16 causal, each of which must
+    also give the same bits twice;
     float32 within 1e-4 max abs (``BWD_F32_TOL``), bf16 as the forward's
     checks, the forward's log-sum-exp within 1e-4 (``LSE_TOL``) of
     ``ref.flash_attention_lse_ref``; ([train golden]) two steps of
@@ -281,11 +286,20 @@ else.  Phases, each of which raises on failure:
     losses, grad norms, every leaf's L2 norm of step 0's gradient and of
     the parameters after the steps, 64 values of three leaves of each),
     the simt forward and the simt backward at D 128, 4 simt and 4
-    ``flash_bwd`` launches a step, all on simt; ([train bf16]) the same
+    ``flash_bwd`` launches a step, all on simt; ([train families golden])
+    the same two float32 steps of mamba2, zamba2 (the simt backward at D
+    80), deepseek-v3 (MLA and MoE) and maverick (the simt backward at D
+    128) at the ``"train_families"`` entry's cuts against it within
+    ``TRAIN_GOLD_TOL``, weights drawn by numpy in threads while the
+    backward checks run; ([train bf16]) the same
     depth in bf16 (the port's seeded init), 2 × 1,024 tokens: each
     gradient leaf through the kernels (the wgmma forward and backward)
     against the same gradient with attention through the plain version,
-    within ``TRAIN_BF16_RTOL`` relative L2; ([train main]) llama3.2-3b
+    within ``TRAIN_BF16_RTOL`` relative L2, and ([train families bf16])
+    the same for zamba2 (12 layers: the shared block on wgmma at D 80),
+    maverick (2 layers, 8 experts) and the nemotron cut
+    (``TRAIN_FAMILY_CUTS``: D 192, three backward launches a call);
+    ([train main]) llama3.2-3b
     at full width and depth (28 layers, bf16) through
     ``launch.train.main`` (``TRAIN_MAIN_ARGV``: train_4k's 4,096
     tokens, the global batch cut from 256 to 8 sequences, 8
@@ -295,7 +309,19 @@ else.  Phases, each of which raises on failure:
     it prints the step seconds (median of steps 1-3), tokens/s, the
     share of the bf16 peak
     that 6 · N · tokens a step gives, peak device memory and the
-    forward / backward / optimizer split; ([train restart]) the smoke
+    forward / backward / optimizer split; ([train families]) each family
+    at train_4k's 4,096-token sequences, 8 in 8 microbatches, 3 steps:
+    mamba2-1.3b and zamba2-2.7b at full width and depth through
+    ``launch.train.main``, deepseek-v3, maverick and nemotron at full
+    width (nemotron: its published attention shape) cut as
+    ``TRAIN_FAMILY_CUTS`` through ``train.loop.train`` with their
+    configs' bf16 moments: finite losses and grad norms, the exact flash
+    launches a step its config gives (zamba2 144 wgmma forwards and 144
+    backward launches, maverick 32 and 32, nemotron 64 and 96, 0
+    elsewhere; 0 simt), a peak under the card's memory, the step
+    seconds, tokens/s, the bf16 peak's share (active parameters for the
+    MoE cuts), the split, and deepseek's MLA live memory at 4,096 tokens;
+    ([train restart]) the smoke
     config on the card, float32: ``train_with_restarts`` with crashes
     after steps 5 and 9 against a clean run, within 1e-5
     (``TRAIN_RESTART_TOL``);
@@ -307,9 +333,12 @@ else.  Phases, each of which raises on failure:
     ``scaled_dot_product_attention(..., enable_gqa=True)`` (timed only;
     the port never calls it) from a CUDA graph of 10 launches and with
     events around one eager call, each beside the function's bound; and
-    the flash-attention gradient at the training shape (1, 4096, 24 over
-    8, 128, bf16, causal): the ``wgmma`` route's two launches (together
-    and each alone) and the ``simt`` kernel from CUDA graphs of 10, the
+    nemotron's prefill (1, 4096, 96 over 8, 192: the wgmma route at D
+    192); and the flash-attention gradient at the training shape (1,
+    4096, 24 over 8, 128, bf16, causal), nemotron's (96 over 8, 192),
+    zamba2's (32 over 32, 80) and phi-3-vision's (32 over 32, 96): the
+    ``wgmma`` route's launches (together and each alone) and, at the
+    training shape, the ``simt`` kernel from CUDA graphs of 10, the
     plain version, and the autograd backward of
     ``scaled_dot_product_attention(..., is_causal=True,
     enable_gqa=True)`` (timed only) from a CUDA graph of 10 and eager,
@@ -407,6 +436,39 @@ TRAIN_MAIN_ARGV = ["--arch", "llama3.2-3b", "--shape", "train_4k",
                    "--seq-len", "4096", "--batch", "8", "--microbatches",
                    str(TRAIN_MAIN_MICRO), "--steps", str(TRAIN_MAIN_STEPS)]
 BWD_SHAPE = (1, 4096, 24, 8, 128)            # (B, L, H, KVH, D)
+# nemotron-4-340b's attention at train_4k (96 query heads over 8 KV heads
+# of 192), and zamba2's and phi-3-vision's, where the backward is timed too.
+BWD_TIMED_SHAPES = {"training": BWD_SHAPE,
+                    "nemotron": (1, 4096, 96, 8, 192),
+                    "zamba2": (1, 4096, 32, 32, 80),
+                    "phi": (1, 4096, 32, 32, 96)}
+# The families' training (phase 16f).  mamba2 and zamba2 go through the
+# launcher at full width and depth; the others do not fit one card whole
+# and go through train.loop.train at full width, cut as below, with their
+# configs' optimizer_state_dtype (bf16 moments).  deepseek-v3: 3 layers (1
+# dense, 2 MoE) of 16 experts; 5 layers would hold 6.2 B parameters, ~74 GB
+# of bf16 weights, moments, a microbatch's bf16 gradient and the float32
+# sum before MLA's ~11 GB of blocked scores a layer.  maverick: its dense
+# and MoE layer, 8 experts.  nemotron: the published attention (96 heads
+# over 8 of 192), relu2 MLP and vocabulary 256,000, d_model 18,432 -> 4,608,
+# d_ff 73,728 -> 18,432, 96 layers -> 4 (its embedding and unembedding
+# alone are 9.4 B parameters at full width).  Each arch: 3 steps of 8
+# sequences of 4,096 tokens in 8 microbatches.
+TRAIN_FAMILY_ARCHS = ("mamba2-1.3b", "zamba2-2.7b")
+TRAIN_FAMILY_CUTS = {
+    "deepseek-v3-671b": dict(num_layers=3, first_dense_layers=1,
+                             num_experts=16),
+    "llama4-maverick-400b-a17b": dict(num_layers=2, num_experts=8),
+    "nemotron-4-340b": dict(d_model=4608, d_ff=18432, num_layers=4),
+}
+TRAIN_FAMILY_STEPS, TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 3, 8, 4096
+# [train families bf16]: the kernels' gradient against plain attention.
+TRAIN_FAMILY_BF16 = {
+    "zamba2-2.7b": dict(num_layers=12),
+    "llama4-maverick-400b-a17b": TRAIN_FAMILY_CUTS[
+        "llama4-maverick-400b-a17b"],
+    "nemotron-4-340b": TRAIN_FAMILY_CUTS["nemotron-4-340b"],
+}
 # Integer operations of the counter hash (core/rng.py): one fold is
 # 2 shifts + 3 adds + 1 xor, then mix32 is 3 shift-xor pairs + 2 multiplies;
 # a colour draw adds shift, convert, scale and compare.
@@ -2279,6 +2341,10 @@ def _flash_cases():
              17),
             ("H/KVH 5, D 96, 4 key blocks", 2, 257, 457, 10, 2, 96, causal,
              17),
+            ("H/KVH 12, D 192", 1, 130, 130, 12, 1, 192, causal, 0),
+            ("decode, H/KVH 12, D 192", 2, 1, 300, 96, 8, 192, causal, 150),
+            ("H/KVH 12, D 192, 5 key blocks", 2, 257, 257, 24, 2, 192,
+             causal, 0),
         ]
     return cases
 
@@ -2353,7 +2419,8 @@ def check_flash(dev) -> dict:
     missing = [r for r, c in per_route.items() if c == 0]
     _check(not missing, f"flash_attention: no case ran route(s) {missing}")
     print(f"[flash] {n} cases (f32 and bf16, causal and not, kv_offset 0 "
-          f"and > 0, H/KVH 1/3/5/8/12, D 16-192, ragged Lq and Lk, the main "
+          f"and > 0, H/KVH 1/3/5/8/12, D 16-192 (bf16 at 192 on wgmma), "
+          f"ragged Lq and Lk, the main "
           f"path's, maverick's, zamba2's (D 80) and phi-3-vision's (D 96) "
           f"prefill and decode shapes; decode also "
           f"against the "
@@ -2744,6 +2811,34 @@ def _serve_mix(arch: str, mix: str, want: dict, cfg=None):
     return r, launches, peak
 
 
+def run_nemotron_serving() -> dict:
+    """The nemotron cut (TRAIN_FAMILY_CUTS: its published attention, 96
+    heads over 8 of 192) served with request mix (b) through the
+    launcher's `serve_config`, bf16, the port's seeded init: each layer's
+    prefill on the wgmma route at D 192, its decode steps on ``decode``,
+    none on simt."""
+    from repro_torch.configs import registry
+
+    arch = "nemotron-4-340b"
+    cfg = dataclasses.replace(registry.get(arch), **TRAIN_FAMILY_CUTS[arch])
+    n = _flash_layers(cfg)
+    want = {"flash_attention": n * (1 + LM_NEW), "flash_wgmma": n,
+            "flash_decode": n * LM_NEW, "flash_simt": 0}
+    prompt_len = LM_MIXES["b"][0]
+    r, launches, peak = _serve_mix(arch, "b", want, cfg)
+    out = dict(prefill_s=r["prefill_s"], decode_ms=r["decode_ms_per_step"],
+               prefill_tok_s=LM_BATCH * prompt_len / r["prefill_s"],
+               launches=launches, peak_gib=peak)
+    print(f"[nemotron main b] {cfg.name} cut to d {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, {cfg.num_layers} layers ({cfg.num_heads} heads over "
+          f"{cfg.num_kv_heads} of {cfg.head_dim}), bf16: batch {LM_BATCH}, "
+          f"prompt {prompt_len}, {LM_NEW} new tokens greedy: prefill "
+          f"{r['prefill_s']:.4f}s ({out['prefill_tok_s']:.0f} tokens/s), "
+          f"decode {out['decode_ms']:.3f} ms/step; flash launches "
+          f"{launches}; peak device memory {peak:.2f} GiB")
+    return out
+
+
 def run_moe_main_path() -> dict:
     """deepseek-v3 and llama4-maverick at full width with their depth cut
     (MOE_MAIN), bf16, the port's seeded init, through the launcher's
@@ -3044,7 +3139,8 @@ def run_moe_a2a_phase(golden: dict) -> dict:
 def time_flash(dev) -> dict:
     """At (b)'s prefill and decode shapes (bf16), llama3.2-3b's (H 24, KVH
     8, D 128), zamba2's (H = KVH 32, D 80) and phi-3-vision's (H = KVH 32,
-    D 96): the route the main path takes there and the simt route (the
+    D 96), and at nemotron's train_4k prefill (B 1, L 4096, H 96, KVH 8,
+    D 192): the route the main path takes there and the simt route (the
     CUDA-core design, the earlier one at D 80 and 96) from CUDA graphs of
     10 launches, the plain version (CUDA events), and SDPA both from a
     CUDA graph of 10 launches like the kernels and with events around one
@@ -3055,16 +3151,21 @@ def time_flash(dev) -> dict:
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    b, causal = LM_BATCH, True
+    causal = True
     lp = LM_MIXES["b"][0]
+    nb, nl, nh, nkvh, nd = BWD_TIMED_SHAPES["nemotron"]
     per = {}
-    for shape, h, kvh, d, lq, lk, off in (
-            ("prefill", 24, 8, 128, lp, lp, 0),
-            ("decode", 24, 8, 128, 1, lp + LM_NEW, lp + LM_NEW - 1),
-            ("zamba2_prefill", 32, 32, 80, lp, lp, 0),
-            ("zamba2_decode", 32, 32, 80, 1, lp + LM_NEW, lp + LM_NEW - 1),
-            ("phi_prefill", 32, 32, 96, lp, lp, 0),
-            ("phi_decode", 32, 32, 96, 1, lp + LM_NEW, lp + LM_NEW - 1)):
+    for shape, b, h, kvh, d, lq, lk, off in (
+            ("prefill", LM_BATCH, 24, 8, 128, lp, lp, 0),
+            ("decode", LM_BATCH, 24, 8, 128, 1, lp + LM_NEW,
+             lp + LM_NEW - 1),
+            ("zamba2_prefill", LM_BATCH, 32, 32, 80, lp, lp, 0),
+            ("zamba2_decode", LM_BATCH, 32, 32, 80, 1, lp + LM_NEW,
+             lp + LM_NEW - 1),
+            ("phi_prefill", LM_BATCH, 32, 32, 96, lp, lp, 0),
+            ("phi_decode", LM_BATCH, 32, 32, 96, 1, lp + LM_NEW,
+             lp + LM_NEW - 1),
+            ("nemotron_prefill", nb, nh, nkvh, nd, nl, nl, 0)):
         q = torch.randn((b, lq, h, d), generator=gen, device=dev).bfloat16()
         k = torch.randn((b, lk, kvh, d), generator=gen, device=dev).bfloat16()
         v = torch.randn((b, lk, kvh, d), generator=gen, device=dev).bfloat16()
@@ -3131,9 +3232,13 @@ def _bwd_cases():
     """(name, B, L, H, KVH, D, dtype, causal) of the backward kernel's
     checks: the training shape first."""
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [("training shape", *BWD_SHAPE, bf16, True)]
+    cases = [("training shape", *BWD_SHAPE, bf16, True),
+             ("nemotron shape", *BWD_TIMED_SHAPES["nemotron"], bf16, True)]
     for causal in (True, False):
         cases += [("bf16 D 64, H/KVH 1", 2, 130, 4, 4, 64, bf16, causal),
+                  ("bf16 D 192, H/KVH 12", 1, 130, 12, 1, 192, bf16, causal),
+                  ("bf16 D 192, H/KVH 12, L 257", 2, 257, 24, 2, 192, bf16,
+                   causal),
                   ("bf16 D 80, H/KVH 3", 2, 257, 6, 2, 80, bf16, causal),
                   ("bf16 D 96, H/KVH 5", 1, 130, 10, 2, 96, bf16, causal),
                   ("bf16 D 128, H/KVH 8", 1, 257, 8, 1, 128, bf16, causal),
@@ -3156,13 +3261,13 @@ def _bwd_close(got, want, dtype, what: str) -> tuple[float, float]:
 
 
 def check_flash_bwd(dev) -> dict:
-    """The flash-attention gradient (two launches through
+    """The flash-attention gradient (two or three launches through
     ``ops.flash_attention_bwd``, on the route ``route_bwd`` picks: bf16
     on ``wgmma``, float32 on ``simt``) against
     ``ref.flash_attention_bwd_ref`` of that route on the card, on the
     forward's own output and (``wgmma``) its log-sum-exp, which is held
     against ``ref.flash_attention_lse_ref`` within LSE_TOL; the training
-    shape twice, bit for bit.  Returns the largest differences per dtype
+    shape and nemotron's twice, bit for bit.  Returns the largest differences per dtype
     and the cases per route."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
@@ -3190,15 +3295,16 @@ def check_flash_bwd(dev) -> dict:
         got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                       lse=lse)
         torch.cuda.synchronize()
-        _check(ops.LAUNCHES["flash_bwd"] == before["flash_bwd"] + 2
+        n_l = fa.bwd_launches(dtype, L, d)
+        _check(ops.LAUNCHES["flash_bwd"] == before["flash_bwd"] + n_l
                and ops.LAUNCHES[f"flash_bwd_{route}"]
-               == before[f"flash_bwd_{route}"] + 2,
-               f"flash_bwd {name}: not launched twice on {route}")
-        if name == "training shape":
+               == before[f"flash_bwd_{route}"] + n_l,
+               f"flash_bwd {name}: not launched {n_l} times on {route}")
+        if name.endswith("shape"):
             again = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                             lse=lse)
             _check(all(torch.equal(a, c) for a, c in zip(got, again)),
-                   "flash_bwd training shape: two runs differ")
+                   f"flash_bwd {name}: two runs differ")
             del again
         want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                            lse=lse)
@@ -3210,10 +3316,11 @@ def check_flash_bwd(dev) -> dict:
         del q, k, v, do, o, lse, got, want
     n = len(_bwd_cases())
     _check(all(cases.values()), f"flash_bwd: a route ran no case {cases}")
-    print(f"[flash bwd] {n} cases (bf16 at D 64/80/96/128 on wgmma, float32 "
-          f"at D 16/32/128 on simt: {cases}; H/KVH 1/3/5/8, L 130 and 257, "
-          f"causal and not, the training shape {BWD_SHAPE} bf16 causal, "
-          f"bit-identical twice): dq, dk and dv max abs err f32 "
+    print(f"[flash bwd] {n} cases (bf16 at D 64/80/96/128/192 on wgmma, three "
+          f"launches at 192, float32 at D 16/32/128 on simt: {cases}; H/KVH "
+          f"1/3/5/8/12, L 130 and 257, causal and not, the training shape "
+          f"{BWD_SHAPE} and nemotron's {BWD_TIMED_SHAPES['nemotron']} bf16 "
+          f"causal, each bit-identical twice): dq, dk and dv max abs err f32 "
           f"{err[torch.float32]:.3e} (limit {BWD_F32_TOL}), bf16 "
           f"{err[torch.bfloat16]:.3e} (atol = rtol = {BF16_TOL}), bf16 "
           f"relative RMS diff {rrms:.3e} (limit {BF16_RMS_TOL}); the "
@@ -3250,25 +3357,47 @@ def _leaf_errors(named: dict, gold: dict, what: str) -> float:
     return worst
 
 
-def check_train_golden(golden: dict, dev, tree) -> dict:
-    """Two float32 steps of ``make_train_step`` on the ``"train"`` entry's
-    model, weights (``tree``, from `numpy_params`) and batches, against
-    the entry; step 0's gradient is taken once more on its own to compare
-    its leaves."""
-    from repro_torch import convert
+def _golden_cfg(gold: dict):
+    """The config of a ``"train"`` or ``"train_families"`` golden model."""
     from repro_torch.configs import registry
+
+    if "cuts" in gold:
+        cuts = {k: v for k, v in gold["cuts"].items() if k != "arch"}
+    else:
+        cuts = dict(num_layers=gold["num_layers"], dtype=gold["dtype"])
+    return dataclasses.replace(registry.get(gold["arch"]), **cuts)
+
+
+def _draw_golden_tree(gold: dict):
+    """`numpy_params` of a golden model (an SSD one's per-head mixer
+    parameters redrawn, as the golden script draws them)."""
+    from repro_torch.models import init
+
+    cfg = _golden_cfg(gold)
+    tree = init.numpy_params(cfg, gold["param_seed"])
+    if "ssm_heads_seed" in gold:
+        init.numpy_ssm_heads(tree, cfg, gold["ssm_heads_seed"])
+    return tree
+
+
+def check_train_golden(gold: dict, dev, tree,
+                       tag: str = "train golden") -> dict:
+    """Two float32 steps of ``make_train_step`` on a golden entry's model
+    (the ``"train"`` entry, or one of ``"train_families"``), weights
+    (``tree``, from `numpy_params`) and batches, against the entry; step
+    0's gradient is taken once more on its own to compare its leaves.
+    Each GQA attention runs the simt forward (and remat's recompute) and
+    the simt backward."""
+    from repro_torch import convert
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import ops
     from repro_torch.models import model
     from repro_torch.optim import adamw
     from repro_torch.train.step import make_train_step
 
-    gold = golden["train"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(registry.get(gold["arch"]),
-                              num_layers=gold["num_layers"],
-                              dtype=gold["dtype"])
+    cfg = _golden_cfg(gold)
     torch.cuda.reset_peak_memory_stats()
     params = model.trainable(convert.lm_params_from_jax(tree, cfg, dev))
     del tree
@@ -3279,7 +3408,7 @@ def check_train_golden(golden: dict, dev, tree) -> dict:
     loss = model.loss_fn(params, cfg, batches[0])[0]
     grads = torch.autograd.grad(loss, list(named.values()))
     g_err = _leaf_errors(dict(zip(named, grads)), gold["grad0"],
-                         "step 0's gradient")
+                         f"{tag}: step 0's gradient")
     del grads, loss
     step = make_train_step(cfg, lambda s: gold["lr"], gold["microbatches"])
     opt = adamw.init(params, torch.float32)
@@ -3293,20 +3422,21 @@ def check_train_golden(golden: dict, dev, tree) -> dict:
     launches = {k: ops.LAUNCHES[k] for k in (
         "flash_simt", "flash_wgmma", "flash_bwd", "flash_bwd_simt",
         "flash_bwd_wgmma")}
-    _check(worst <= TRAIN_GOLD_TOL, f"train golden: loss or grad norm "
-           f"differs by {worst} relative (limit {TRAIN_GOLD_TOL})")
+    _check(worst <= TRAIN_GOLD_TOL, f"{tag}: loss or grad norm differs by "
+           f"{worst} relative (limit {TRAIN_GOLD_TOL})")
     p_err = _leaf_errors(adamw.named(params), gold["params"],
-                         "parameters after the steps")
-    n = len(gold["steps"]) * cfg.num_layers
+                         f"{tag}: parameters after the steps")
+    n = len(gold["steps"]) * _flash_layers(cfg)
     _check(launches == {"flash_simt": 2 * n, "flash_wgmma": 0,
                         "flash_bwd": 2 * n, "flash_bwd_simt": 2 * n,
                         "flash_bwd_wgmma": 0},
-           f"train golden: launches {launches}, not {2 * n} simt (forward "
-           f"and remat's recompute) and {2 * n} flash_bwd on simt")
+           f"{tag}: launches {launches}, not {2 * n} simt (forward and "
+           f"remat's recompute) and {2 * n} flash_bwd on simt")
     peak = _peak_gib()
     del params, opt, batches
-    print(f"[train golden] {cfg.name}, {cfg.num_layers} layers at full "
-          f"width, float32, {len(gold['steps'])} steps of {gold['batch']} x "
+    print(f"[{tag}] {cfg.name}, {cfg.num_layers} layers at full width, "
+          f"cuts {gold.get('cuts', {'num_layers': cfg.num_layers})}, "
+          f"float32, {len(gold['steps'])} steps of {gold['batch']} x "
           f"{gold['seq_len']} tokens at lr {gold['lr']}: losses "
           f"{[s['loss'] for s in gold['steps']]} and grad norms within "
           f"{worst:.3e}, step 0's gradient leaves within {g_err:.3e}, the "
@@ -3316,60 +3446,115 @@ def check_train_golden(golden: dict, dev, tree) -> dict:
     return {"max_rel_err": max(worst, g_err, p_err), "launches": launches}
 
 
-def check_train_bf16(dev) -> dict:
-    """llama3.2-3b at full width, 2 layers, bf16, the port's seeded init:
-    one step's gradient (2 x TRAIN_BF16_SEQ tokens) through the kernels
-    against the same gradient with ``ops.flash_attention`` patched to the
-    plain version (autograd through it); each leaf within TRAIN_BF16_RTOL
-    relative L2."""
+class _PinnedRoutes:
+    """Wraps ``models.mlp._route`` for two runs of one gradient: the first
+    records each call's expert picks, the second takes them again (its
+    gates the softmax's probabilities at those picks, renormalised, and
+    the aux loss as ``_route`` has them) and counts the tokens whose own
+    picks would differ.  Attention through the plain version rounds
+    differently from the kernels, and a token near a router tie may then
+    pick another expert, which moves a whole token's share of an expert's
+    gradient: not what the bf16 check measures."""
+
+    def __init__(self, mlp):
+        self.mlp, self.orig, self.picks, self.flips = mlp, mlp._route, [], 0
+        self.tokens, self.calls = 0, 0
+
+    def record(self, router, xt, k):
+        gate, idx, aux = self.orig(router, xt, k)
+        self.picks.append(idx.detach())
+        return gate, idx, aux
+
+    def replay(self, router, xt, k):
+        idx = self.picks[self.calls]
+        self.calls += 1
+        probs = torch.softmax(xt.float() @ router, -1)
+        own = torch.sort(probs, dim=-1, descending=True, stable=True)[1]
+        self.flips += int((own[:, :k] != idx).any(-1).sum())
+        self.tokens += idx.shape[0]
+        gate = probs.gather(1, idx)
+        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+        e = probs.shape[-1]
+        frac = torch.bincount(idx.reshape(-1), minlength=e).float() \
+            / xt.shape[0]
+        return gate, idx, e * (frac * probs.mean(0)).sum()
+
+
+def check_train_bf16(dev, cfg=None, tag: str = "train bf16") -> dict:
+    """A bf16 config at full width (llama3.2-3b at 2 layers by default),
+    the port's seeded init: one step's gradient (TRAIN_BF16_BATCH x
+    TRAIN_BF16_SEQ tokens) through the kernels against the same gradient
+    with ``ops.flash_attention`` patched to the plain version (autograd
+    through it); each leaf within TRAIN_BF16_RTOL relative L2.  Each GQA
+    attention runs the wgmma forward twice (remat) and the wgmma backward
+    (`flash_attention.bwd_launches` launches a call).  A MoE config's
+    second run takes the first run's expert picks (`_PinnedRoutes`)."""
     from repro_torch.configs import registry
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import model
+    from repro_torch.models import mlp, model
     from repro_torch.optim import adamw
 
-    cfg = dataclasses.replace(registry.get(LM_ARCH), num_layers=2)
+    cfg = cfg or dataclasses.replace(registry.get(LM_ARCH), num_layers=2)
     torch.cuda.reset_peak_memory_stats()
     params = model.trainable(model.init_params(cfg, 0, dev))
     batch = _train_batch(SyntheticLM(cfg, TRAIN_BF16_BATCH, TRAIN_BF16_SEQ,
                                      seed=3), 0, dev)
     named = adamw.named(params)
+    pinned = _PinnedRoutes(mlp)
     ops.reset_launches()
-    got = torch.autograd.grad(model.loss_fn(params, cfg, batch)[0],
-                              list(named.values()))
+    mlp._route = pinned.record
+    try:
+        got = torch.autograd.grad(model.loss_fn(params, cfg, batch)[0],
+                                  list(named.values()))
+    finally:
+        mlp._route = pinned.orig
     torch.cuda.synchronize()
     launches = {k: ops.LAUNCHES[k] for k in (
         "flash_wgmma", "flash_bwd", "flash_bwd_wgmma", "flash_bwd_simt")}
     kernel = ops.flash_attention
     ops.flash_attention = ref.flash_attention_ref
+    mlp._route = pinned.replay
     try:
         want = torch.autograd.grad(model.loss_fn(params, cfg, batch)[0],
                                    list(named.values()))
     finally:
         ops.flash_attention = kernel
+        mlp._route = pinned.orig
+    _check(pinned.calls == len(pinned.picks), f"{tag}: {pinned.calls} "
+           f"router calls replayed of {len(pinned.picks)}")
     rel = {}
     for name, a, w in zip(named, got, want):
         rel[name] = float((a.float() - w.float()).norm()
                           / w.float().norm().clamp_min(1e-30))
     worst = max(rel, key=rel.get)
-    n = 2 * cfg.num_layers
-    _check(launches == {"flash_wgmma": n, "flash_bwd": n,
-                        "flash_bwd_wgmma": n, "flash_bwd_simt": 0},
-           f"train bf16: launches {launches}, not {n} wgmma and {n} "
+    calls = _flash_layers(cfg)
+    n_b = calls * fa.bwd_launches(torch.bfloat16, TRAIN_BF16_SEQ,
+                                  cfg.head_dim)
+    _check(launches == {"flash_wgmma": 2 * calls, "flash_bwd": n_b,
+                        "flash_bwd_wgmma": n_b, "flash_bwd_simt": 0},
+           f"{tag}: launches {launches}, not {2 * calls} wgmma and {n_b} "
            f"flash_bwd on wgmma")
-    _check(rel[worst] <= TRAIN_BF16_RTOL, f"train bf16: leaf {worst} "
-           f"differs by {rel[worst]} relative L2 (limit {TRAIN_BF16_RTOL})")
+    _check(rel[worst] <= TRAIN_BF16_RTOL, f"{tag}: leaf {worst} differs by "
+           f"{rel[worst]} relative L2 (limit {TRAIN_BF16_RTOL})")
     peak = _peak_gib()
     del params, got, want
-    print(f"[train bf16] {cfg.name}, {cfg.num_layers} layers at full width, "
-          f"bf16, {TRAIN_BF16_BATCH} x {TRAIN_BF16_SEQ} tokens: every "
-          f"gradient leaf through the kernels (launches {launches}) "
-          f"against attention through the plain version within "
+    print(f"[{tag}] {cfg.name}, {cfg.num_layers} layers at full width "
+          f"(head dim {cfg.head_dim}, {cfg.num_heads} heads over "
+          f"{cfg.num_kv_heads}), bf16, {TRAIN_BF16_BATCH} x {TRAIN_BF16_SEQ} "
+          f"tokens: every gradient leaf through the kernels (launches "
+          f"{launches}) against attention through the plain version within "
           f"{rel[worst]:.3e} relative L2 (worst {worst}; limit "
           f"{TRAIN_BF16_RTOL}; median "
-          f"{sorted(rel.values())[len(rel) // 2]:.3e}); peak device memory "
-          f"{peak:.2f} GiB")
-    return {"max_rel_err": rel[worst], "launches": launches}
+          f"{sorted(rel.values())[len(rel) // 2]:.3e})"
+          + (f"; expert picks of the plain run pinned to the kernels' "
+             f"({pinned.calls} router calls; {pinned.flips} of "
+             f"{pinned.tokens} tokens would have picked otherwise)"
+             if pinned.picks else "")
+          + f"; peak device memory {peak:.2f} GiB")
+    return {"max_rel_err": rel[worst], "launches": launches,
+            "route_flips": pinned.flips}
 
 
 def run_train_main_path() -> dict:
@@ -3424,6 +3609,141 @@ def run_train_main_path() -> dict:
                 mfu=share, split=split)
 
 
+def _mla_live_gib(params, cfg, dev) -> dict:
+    """deepseek's MLA (layer 0's weights, `attention.mla_forward`: float32
+    blocked scores, autograd) on one 4,096-token sequence: the memory its
+    forward leaves for the backward (what remat recomputes and holds while
+    a layer's backward runs) and the peak over forward and backward, each
+    above what was allocated before."""
+    from repro_torch.models import attention, common
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = (torch.randn((1, TRAIN_FAMILY_SEQ, cfg.d_model), generator=gen,
+                     device=dev) * 0.5).to(common.dtype_of(cfg.dtype))
+    x.requires_grad_()
+    pos = torch.arange(TRAIN_FAMILY_SEQ, device=dev)[None]
+    p = params.layers[0].attn
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = attention.mla_forward(p, x, pos, cfg)[0]
+    torch.cuda.synchronize()
+    saved = torch.cuda.memory_allocated() - base
+    grads = torch.autograd.grad(out, [x, *p.values()], torch.ones_like(out))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, grads, x
+    return {"saved_gib": saved / 2 ** 30, "peak_gib": peak / 2 ** 30}
+
+
+def run_train_families(dev) -> dict:
+    """[train families]: each arch of TRAIN_FAMILY_ARCHS through
+    ``launch.train.main`` and each of TRAIN_FAMILY_CUTS through
+    ``train.loop.train`` (bf16 moments, its config's
+    ``optimizer_state_dtype``), TRAIN_FAMILY_STEPS steps of
+    TRAIN_FAMILY_BATCH x TRAIN_FAMILY_SEQ tokens in TRAIN_FAMILY_BATCH
+    microbatches, one model on the card at a time; launch counters zeroed
+    just before and read just after each."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.train import loop
+
+    total_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    b, seq, m = TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_BATCH
+    out = {}
+    for arch in (*TRAIN_FAMILY_ARCHS, *TRAIN_FAMILY_CUTS):
+        t0 = time.perf_counter()
+        extra = {}
+        if arch in TRAIN_FAMILY_CUTS:
+            cfg = dataclasses.replace(registry.get(arch),
+                                      **TRAIN_FAMILY_CUTS[arch])
+            torch.cuda.reset_peak_memory_stats()
+            clock: dict = {}
+            ops.reset_launches()
+            res = loop.train(cfg, batch=b, seq_len=seq,
+                             steps=TRAIN_FAMILY_STEPS, num_microbatches=m,
+                             device=dev, clock=clock, log_every=100,
+                             print_fn=lambda *a: None)
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            r = dict(losses=res.losses, grad_norms=res.grad_norms,
+                     step_seconds=res.step_seconds, clock=clock,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            if cfg.attention == "mla":
+                extra["mla"] = _mla_live_gib(res.params, cfg, dev)
+            del res
+        else:
+            ops.reset_launches()
+            r = tlaunch.main(["--arch", arch, "--shape", "train_4k",
+                              "--seq-len", str(seq), "--batch", str(b),
+                              "--microbatches", str(m), "--steps",
+                              str(TRAIN_FAMILY_STEPS)])
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            cfg = r["cfg"]
+        steps = len(r["losses"])
+        step_s = float(np.median(r["step_seconds"][1:]))
+        per_step = {k: launches[k] / steps for k in (
+            "flash_wgmma", "flash_bwd", "flash_bwd_wgmma", "flash_bwd_simt",
+            "flash_simt", "flash_decode")}
+        calls = _flash_layers(cfg) * m
+        n_b = calls * (fa.bwd_launches(torch.bfloat16, seq, cfg.head_dim)
+                       if calls else 0)
+        want = {"flash_wgmma": 2 * calls, "flash_bwd": n_b,
+                "flash_bwd_wgmma": n_b, "flash_bwd_simt": 0,
+                "flash_simt": 0, "flash_decode": 0}
+        _check(steps == TRAIN_FAMILY_STEPS and all(np.isfinite(r["losses"]))
+               and all(np.isfinite(r["grad_norms"])),
+               f"train families {arch}: losses {r['losses']}, grad norms "
+               f"{r['grad_norms']}")
+        _check(per_step == want, f"train families {arch}: launches a step "
+               f"{per_step}, not {want}")
+        _check(r["peak_gib"] < total_gib, f"train families {arch}: peak "
+               f"memory {r['peak_gib']} GiB")
+        tokens = b * seq
+        n_active = (cfg.active_param_count() if cfg.num_experts
+                    else cfg.param_count())
+        flop = 6 * n_active * tokens
+        share = flop / step_s / BF16_FLOPS_PER_S
+        split = {k: v / steps for k, v in r["clock"].items()}
+        cuts = TRAIN_FAMILY_CUTS.get(arch, {})
+        out[arch] = dict(losses=r["losses"], grad_norms=r["grad_norms"],
+                         step_seconds=r["step_seconds"], step_s=step_s,
+                         tokens_per_s=tokens / step_s, mfu=share,
+                         split=split, peak_gib=r["peak_gib"],
+                         per_step=per_step, launches=launches, cuts=cuts,
+                         param_count=cfg.param_count(),
+                         active_param_count=n_active,
+                         seconds=time.perf_counter() - t0, **extra)
+        print(f"[train families] {cfg.name}: {cfg.num_layers} layers"
+              + (f" (cuts {cuts})" if cuts else " (full depth)")
+              + f", d {cfg.d_model}, {cfg.param_count() / 1e9:.3f} B "
+              f"parameters ({n_active / 1e9:.3f} B active), {cfg.dtype}, "
+              f"{cfg.optimizer_state_dtype} moments: {steps} steps of {b} x "
+              f"{seq} tokens in {m} microbatches; losses "
+              f"{[round(x, 4) for x in r['losses']]}, grad norms "
+              f"{[round(x, 4) for x in r['grad_norms']]}; step seconds "
+              f"{[round(x, 3) for x in r['step_seconds']]} (median of steps "
+              f"1-{steps - 1} {step_s:.3f}s), {tokens / step_s:.0f} tokens/s, "
+              f"6·N_active·tokens {flop / 1e15:.3f} PFLOP a step = "
+              f"{share:.1%} of {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; per "
+              f"step forward {split.get('forward', 0):.3f}s, backward "
+              f"{split.get('backward', 0):.3f}s, optimizer "
+              f"{split.get('optimizer', 0):.3f}s; launches a step "
+              f"{per_step}; peak device memory {r['peak_gib']:.2f} GiB of "
+              f"{total_gib:.2f}"
+              + (f"; MLA at {seq} tokens (layer 0, float32 blocked scores) "
+                 f"leaves {extra['mla']['saved_gib']:.2f} GiB for its "
+                 f"backward, peak {extra['mla']['peak_gib']:.2f} GiB over "
+                 f"forward and backward" if "mla" in extra else "")
+              + f"; {out[arch]['seconds']:.1f}s with set-up")
+        del r
+        _release(f"train families {arch}")
+    return out
+
+
 def run_train_restart(dev) -> dict:
     """The crash/restart contract on the card: the smoke config, float32,
     12 steps with a checkpoint every 4, crashes injected after steps 5
@@ -3461,12 +3781,12 @@ def run_train_restart(dev) -> dict:
     return {"max_abs_err": max(worst, loss_err)}
 
 
-def time_flash_bwd(dev) -> dict:
-    """The flash-attention gradient at the training shape (BWD_SHAPE,
-    bf16, causal): the ``wgmma`` route (both launches, and each alone)
-    and the ``simt`` kernel at the same shape, each from a CUDA graph of
-    10 (through the wrappers, uncounted); the ``wgmma`` route's plain
-    version (events); and the autograd backward of
+def _time_bwd_shape(name: str, shape, dev, with_simt: bool) -> dict:
+    """The flash-attention gradient at ``shape`` (B, L, H, KVH, D), bf16,
+    causal: the ``wgmma`` route (all its launches, and each alone) and,
+    ``with_simt``, the ``simt`` kernel at the same shape, each from a
+    CUDA graph of 10 (through the wrappers, uncounted); the ``wgmma``
+    route's plain version (events); and the autograd backward of
     ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
     (timed only) from a CUDA graph of 10 like the kernels — its forward
     runs on a side stream, which its backward's kernels follow and the
@@ -3478,18 +3798,31 @@ def time_flash_bwd(dev) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
-    b, L, h, kvh, d = BWD_SHAPE
+    b, L, h, kvh, d = shape
     gen = torch.Generator(device=dev).manual_seed(5)
-    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).bfloat16()
-                   for shape in ((b, L, h, d), (b, L, kvh, d),
-                                 (b, L, kvh, d), (b, L, h, d)))
+    q, k, v, do = (torch.randn(sh, generator=gen, device=dev).bfloat16()
+                   for sh in ((b, L, h, d), (b, L, kvh, d), (b, L, kvh, d),
+                              (b, L, h, d)))
     scale = d ** -0.5
     o, lse = ops.flash_attention_fwd(q, k, v, causal=True)
     kw = dict(causal=True, scale=scale)
     delta = fa.flash_bwd_wgmma_dq_cuda(q, k, v, o, do, lse, **kw)[1]
+    split = d in fa.SPLIT_DKDV_HEAD_DIMS
+    # The launches after dq, each alone (reading the delta above).
+    rest = ({"dv": lambda: fa.flash_bwd_wgmma_dv_cuda(q, k, v, do, lse,
+                                                      delta, **kw),
+             "dk": lambda: fa.flash_bwd_wgmma_dk_cuda(q, k, v, do, lse,
+                                                      delta, **kw)}
+            if split else
+            {"dkdv": lambda: fa.flash_bwd_wgmma_dkdv_cuda(q, k, v, do, lse,
+                                                          delta, **kw)})
 
     def wgmma():
         dq, dl = fa.flash_bwd_wgmma_dq_cuda(q, k, v, o, do, lse, **kw)
+        if split:
+            dv = fa.flash_bwd_wgmma_dv_cuda(q, k, v, do, lse, dl, **kw)
+            return dq, fa.flash_bwd_wgmma_dk_cuda(q, k, v, do, lse, dl,
+                                                  **kw), dv
         return (dq, *fa.flash_bwd_wgmma_dkdv_cuda(q, k, v, do, lse, dl,
                                                   **kw))
 
@@ -3504,18 +3837,13 @@ def time_flash_bwd(dev) -> dict:
         return max(float((a.float() - w.float()).abs().max())
                    for a, w in zip(got, want))
 
-    err = max_err(wgmma(), plain())
-    simt_err = max_err(simt(), ref.flash_attention_bwd_ref(q, k, v, o, do,
-                                                           **kw))
+    want = plain()
+    err = max_err(wgmma(), want)
     ms = _kernel_ms(wgmma)
-    dq_ms = _kernel_ms(lambda: fa.flash_bwd_wgmma_dq_cuda(q, k, v, o, do,
-                                                          lse, **kw))
-    dkdv_ms = _kernel_ms(lambda: fa.flash_bwd_wgmma_dkdv_cuda(
-        q, k, v, do, lse, delta, **kw))
-    simt_ms = _kernel_ms(simt)
+    part_ms = {"dq": _kernel_ms(lambda: fa.flash_bwd_wgmma_dq_cuda(
+        q, k, v, o, do, lse, **kw))}
+    part_ms.update({p: _kernel_ms(fn) for p, fn in rest.items()})
     plain_ms = _time_ms(plain, 2)
-    simt_plain_ms = _time_ms(lambda: ref.flash_attention_bwd_ref(
-        q, k, v, o, do, **kw), 2)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -3530,8 +3858,8 @@ def time_flash_bwd(dev) -> dict:
         return torch.autograd.grad(out, (qt, kt, vt), dot,
                                    retain_graph=True)
 
-    lib_err = max_err([a.transpose(1, 2) for a in library()],
-                      ref.flash_attention_bwd_ref(q, k, v, o, do, **kw))
+    lib_err = max_err([a.transpose(1, 2) for a in library()], want)
+    del want
     library_eager_ms = _time_ms(library, 10)
     library_ms = _kernel_ms(library, stream=side)
     pairs = L * (L + 1) // 2
@@ -3539,53 +3867,87 @@ def time_flash_bwd(dev) -> dict:
     bytes_ms = 1e3 * 2 * (4 * b * L * h * d + 4 * b * L * kvh * d) \
         / HBM_BYTES_PER_S
     bound = max(ops_ms, bytes_ms)
-    out_d = dict(ms=ms, dq_ms=dq_ms, dkdv_ms=dkdv_ms, simt_ms=simt_ms,
-                 plain_ms=plain_ms, simt_plain_ms=simt_plain_ms,
-                 library_ms=library_ms,
-                 library_eager_ms=library_eager_ms, bound_ms=bound,
-                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                 max_abs_err=err, simt_max_abs_err=simt_err,
-                 library_max_abs_err=lib_err)
-    print(f"[timing flash bwd] {BWD_SHAPE} (B, L, H, KVH, D) bf16 causal: "
-          f"wgmma route {ms:.4f} ms (dq {dq_ms:.4f}, dk/dv {dkdv_ms:.4f}), "
-          f"simt route {simt_ms:.4f} ms (CUDA graphs of 10), plain "
-          f"{plain_ms:.4f} ms (the wgmma route's) and {simt_plain_ms:.4f} "
-          f"ms (the simt route's), SDPA's autograd backward "
-          f"{library_ms:.4f} ms from a CUDA graph of 10 and "
-          f"{library_eager_ms:.4f} ms with events around eager "
-          f"calls (its max abs diff from plain {lib_err:.3e}); bound "
-          f"{bound:.6f} ms by {out_d['bound_by']} ({ops_ms:.6f} operations, "
-          f"{bytes_ms:.6f} bytes): wgmma {bound / ms:.1%} of it, simt "
-          f"{bound / simt_ms:.1%}; max abs err from plain wgmma {err:.3e}, "
-          f"simt {simt_err:.3e}")
-    return out_d
+    res = dict(ms=ms, part_ms=part_ms, plain_ms=plain_ms,
+               library_ms=library_ms, library_eager_ms=library_eager_ms,
+               bound_ms=bound,
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               max_abs_err=err, library_max_abs_err=lib_err,
+               launches=fa.bwd_launches(torch.bfloat16, L, d))
+    simt_txt = ""
+    if with_simt:
+        res["simt_max_abs_err"] = max_err(
+            simt(), ref.flash_attention_bwd_ref(q, k, v, o, do, **kw))
+        res["simt_ms"] = _kernel_ms(simt)
+        res["simt_plain_ms"] = _time_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o, do, **kw), 2)
+        simt_txt = (f", simt route {res['simt_ms']:.4f} ms (plain "
+                    f"{res['simt_plain_ms']:.4f} ms; max abs err "
+                    f"{res['simt_max_abs_err']:.3e})")
+    print(f"[timing flash bwd] {name} {shape} (B, L, H, KVH, D) bf16 "
+          f"causal: wgmma route {ms:.4f} ms in {res['launches']} launches ("
+          + ", ".join(f"{p} {t:.4f}" for p, t in part_ms.items())
+          + f"){simt_txt} (CUDA graphs of 10), plain {plain_ms:.4f} ms (the "
+          f"wgmma route's), SDPA's autograd backward {library_ms:.4f} ms "
+          f"from a CUDA graph of 10 and {library_eager_ms:.4f} ms with "
+          f"events around eager calls (its max abs diff from plain "
+          f"{lib_err:.3e}); bound {bound:.6f} ms by {res['bound_by']} "
+          f"({ops_ms:.6f} operations, {bytes_ms:.6f} bytes): wgmma "
+          f"{bound / ms:.1%} of it; max abs err from plain wgmma {err:.3e}")
+    return res
+
+
+def time_flash_bwd(dev) -> dict:
+    """`_time_bwd_shape` at each of BWD_TIMED_SHAPES (the simt kernel at
+    the training shape only: it does not take D 192); returns the
+    training shape's figures (the earlier keys, ``dq_ms`` and ``dkdv_ms``
+    among them) with every shape's under ``shapes``."""
+    per = {name: _time_bwd_shape(name, shape, dev, name == "training")
+           for name, shape in BWD_TIMED_SHAPES.items()}
+    t = per["training"]
+    return dict(t, dq_ms=t["part_ms"]["dq"], dkdv_ms=t["part_ms"]["dkdv"],
+                shapes=per)
 
 
 def run_train_phases(golden: dict, dev) -> dict:
     """Phase 16f: the backward kernel's checks while numpy draws the
-    golden steps' weights in a thread (its draws release the interpreter
-    lock), then the golden steps, the bf16 gradient, the main path and the
-    restart contract, each phase's memory released before the next."""
+    golden steps' weights (the ``"train"`` entry's and the
+    ``"train_families"`` models') in threads (its draws release the
+    interpreter lock), then the golden steps, the bf16 gradients, the main
+    path, the families and the restart contract, each phase's memory
+    released before the next."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.configs import registry
-    from repro_torch.models import init
 
-    gold = golden["train"]
-    cfg = dataclasses.replace(registry.get(gold["arch"]),
-                              num_layers=gold["num_layers"],
-                              dtype=gold["dtype"])
+    fams = golden["train_families"]
     torch.cuda.reset_peak_memory_stats()
-    with ThreadPoolExecutor(1) as pool:
-        tree = pool.submit(init.numpy_params, cfg, gold["param_seed"])
+    with ThreadPoolExecutor(1 + len(fams)) as pool:
+        tree = pool.submit(_draw_golden_tree, golden["train"])
+        trees = {name: pool.submit(_draw_golden_tree, gold)
+                 for name, gold in fams.items()}
         out = {"bwd": check_flash_bwd(dev)}
         _release("flash bwd checks")
-        out["golden"] = check_train_golden(golden, dev, tree.result())
-    _release("train golden")
+        out["golden"] = check_train_golden(golden["train"], dev,
+                                           tree.result())
+        del tree
+        _release("train golden")
+        out["families_golden"] = {}
+        for name, gold in fams.items():
+            out["families_golden"][name] = check_train_golden(
+                gold, dev, trees.pop(name).result(),
+                f"train families golden {name}")
+            _release(f"train families golden {name}")
     out["bf16"] = check_train_bf16(dev)
     _release("train bf16")
+    out["families_bf16"] = {}
+    for arch, cuts in TRAIN_FAMILY_BF16.items():
+        cfg = dataclasses.replace(registry.get(arch), **cuts)
+        out["families_bf16"][arch] = check_train_bf16(
+            dev, cfg, f"train families bf16 {arch.split('-')[0]}")
+        _release(f"train families bf16 {arch}")
     out["main"] = run_train_main_path()
     _release("train main")
+    out["families"] = run_train_families(dev)
     out["restart"] = run_train_restart(dev)
     _release("train restart")
     return out
@@ -3638,16 +4000,16 @@ def main() -> int:
           + ", ".join(f"{k[10:-7]} {'bf16' if 'bfloat' in t else 'f32'} "
                       f"{nt} {r} ({int(a) + int(b)})"
                       for k, t, nt, a, b, r in bwd))
-    # flash_bwd_{dq,dkdv}_kernel<D> (the wgmma route): registers at launch
+    # flash_bwd_dq_kernel<D> and flash_bwd_dkdv_kernel<D, part> (the wgmma
+    # route; part 1 dv alone, 2 dk alone at D 192): registers at launch
     # (ptxas's figure for 384 threads; setmaxnreg then moves the producer
     # warpgroup to 24 and the consumers to 240) and spill bytes.
-    bwd_wgmma = {f"{k} D {d}": {"registers": int(r),
-                                "spill_bytes": int(a) + int(b)}
-                 for k, d, a, b, r in re.findall(
-                     r"flash_bwd_(dq|dkdv)_kernelILi(\d+)E.*?(\d+) bytes "
-                     r"spill stores, (\d+) bytes spill loads.*?Used (\d+) "
-                     r"registers", _build.build_log("flash_bwd_wgmma"),
-                     re.S)}
+    bwd_wgmma = {f"{({'1': 'dv', '2': 'dk'}.get(part, k))} D {d}": {
+        "registers": int(r), "spill_bytes": int(a) + int(b)}
+        for k, d, part, a, b, r in re.findall(
+            r"flash_bwd_(dq|dkdv)_kernelILi(\d+)E(?:Li(\d)E)?.*?(\d+) "
+            r"bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) "
+            r"registers", _build.build_log("flash_bwd_wgmma"), re.S)}
     print("[build] flash_bwd_wgmma registers (spill bytes) per launch and "
           "head dim: " + ", ".join(f"{n} {v['registers']} "
                                   f"({v['spill_bytes']})"
@@ -3737,7 +4099,10 @@ def main() -> int:
     _release("SSD phases")
     vlm = run_vlm_main_path(dev)
     _release("VLM phases")
+    nemo = run_nemotron_serving()
+    _release("nemotron serving")
     train = run_train_phases(golden, dev)
+    fam = train["families"]
     torch.cuda.reset_peak_memory_stats()
     fl = time_flash(dev)
     fb = time_flash_bwd(dev)
@@ -3793,10 +4158,21 @@ def main() -> int:
           f"{train['main']['batch'] * train['main']['seq_len']} tokens "
           f"({train['main']['tokens_per_s']:.0f} tokens/s, "
           f"{train['main']['mfu']:.1%} of the bf16 peak, peak memory "
-          f"{train['main']['peak_gib']:.2f} GiB); flash backward "
+          f"{train['main']['peak_gib']:.2f} GiB); "
+          + "; ".join(f"training {arch} {r['step_s']:.3f}s a step "
+                      f"({r['tokens_per_s']:.0f} tokens/s, {r['mfu']:.1%} of "
+                      f"the bf16 peak, peak {r['peak_gib']:.2f} GiB)"
+                      for arch, r in fam.items())
+          + f"; flash backward "
           f"{fb['ms']:.4f} ms on wgmma, {fb['simt_ms']:.4f} on simt (bound "
           f"{fb['bound_ms']:.4f}, SDPA's {fb['library_ms']:.4f} from a graph, "
-          f"{fb['library_eager_ms']:.4f} eager); fused_expand_q at n {Q_N} "
+          f"{fb['library_eager_ms']:.4f} eager), at D 192 "
+          f"{fb['shapes']['nemotron']['ms']:.4f} ms (bound "
+          f"{fb['shapes']['nemotron']['bound_ms']:.4f}, SDPA's "
+          f"{fb['shapes']['nemotron']['library_ms']:.4f}); flash forward at D "
+          f"192 {fl['nemotron_prefill']['ms']:.4f} ms (bound "
+          f"{fl['nemotron_prefill']['bound_ms']:.4f}, SDPA's "
+          f"{fl['nemotron_prefill']['library_ms']:.4f}); fused_expand_q at n {Q_N} "
           f"({q['num_tiles']} tiles, {q['q8_gib']:.2f} GiB) {q['dense_ms']:.4f} "
           f"ms dense / {q['compact_ms']:.4f} ms compacted per level, batch "
           f"{q['batch_dense_ms']:.2f} / {q['batch_compact_ms']:.2f} ms end to "
@@ -3934,6 +4310,7 @@ def main() -> int:
                     for arch in SSM_MAIN for mix in LM_MIXES},
                  **{f"vlm_phi_{mix}": vlm[mix]["launches"]["flash_attention"]
                     for mix in (*LM_MIXES, "c")},
+                 "nemotron_cut_b": nemo["launches"]["flash_attention"],
                  **{f"moe_maverick_{mix}": moe[
                      "llama4-maverick-400b-a17b"][mix]["launches"][
                      "flash_attention"] for mix in LM_MIXES},
@@ -3952,6 +4329,7 @@ def main() -> int:
                          "launches"]["flash_wgmma"] for mix in LM_MIXES},
                      launches_phi={mix: vlm[mix]["launches"]["flash_wgmma"]
                                    for mix in (*LM_MIXES, "c")},
+                     launches_nemotron_cut_b=nemo["launches"]["flash_wgmma"],
                      cases=flash_err["cases"]["wgmma"],
                      bf16_rrms=flash_err["bf16_rrms"]["wgmma"],
                      **{k: fl["prefill"][k] for k in (
@@ -3967,7 +4345,17 @@ def main() -> int:
                          prefill_share=share[name])
                         for d, shape, name in (
                             (80, "zamba2_prefill", "zamba2"),
-                            (96, "phi_prefill", "phi"))}),
+                            (96, "phi_prefill", "phi"))},
+                     # nemotron's (D 192, B 1, L 4096, 96 over 8 heads).
+                     d192=dict({k: fl["nemotron_prefill"][k] for k in (
+                         "ms", "simt_ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "library_eager_ms", "max_abs_err",
+                         "simt_max_abs_err")},
+                         launches_training_per_step=fam["nemotron-4-340b"][
+                             "per_step"]["flash_wgmma"]),
+                     launches_training_per_step={
+                         arch: r["per_step"]["flash_wgmma"]
+                         for arch, r in fam.items()}),
                  "decode": dict(
                      source="src/repro_torch/csrc/flash_decode.cu",
                      shape="decode",
@@ -4035,6 +4423,12 @@ def main() -> int:
              cases=train["bwd"]["cases_by_route"],
              train_golden_max_rel_err=train["golden"]["max_rel_err"],
              train_bf16_max_rel_err=train["bf16"]["max_rel_err"],
+             train_families_golden_max_rel_err={
+                 k: v["max_rel_err"]
+                 for k, v in train["families_golden"].items()},
+             train_families_bf16_max_rel_err={
+                 k: v["max_rel_err"]
+                 for k, v in train["families_bf16"].items()},
              train_restart_max_abs_err=train["restart"]["max_abs_err"],
              **{k: fb[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "library_eager_ms")},
@@ -4042,17 +4436,36 @@ def main() -> int:
                  "wgmma": dict(
                      source="src/repro_torch/csrc/flash_bwd_wgmma.cu",
                      build=bwd_wgmma,
-                     launches_by_path={
-                         p: train[p]["launches"]["flash_bwd_wgmma"]
-                         for p in ("main", "golden", "bf16")},
+                     launches_by_path=dict(
+                         {p: train[p]["launches"]["flash_bwd_wgmma"]
+                          for p in ("main", "golden", "bf16")},
+                         **{f"families_{arch}": r["launches"][
+                             "flash_bwd_wgmma"] for arch, r in fam.items()},
+                         **{f"families_bf16_{arch}": r["launches"][
+                             "flash_bwd_wgmma"]
+                            for arch, r in train["families_bf16"].items()}),
+                     launches_per_step_families={
+                         arch: r["per_step"]["flash_bwd_wgmma"]
+                         for arch, r in fam.items()},
                      **{k: fb[k] for k in (
                          "ms", "dq_ms", "dkdv_ms", "plain_ms", "bound_ms",
-                         "bound_by", "library_ms", "max_abs_err")}),
+                         "bound_by", "library_ms", "max_abs_err")},
+                     # nemotron's D 192 (dq, dv, dk), zamba2's D 80 and
+                     # phi-3-vision's D 96, each at train_4k's 4,096 tokens.
+                     **{f"d{BWD_TIMED_SHAPES[n][4]}": {k: fb["shapes"][n][k]
+                                                      for k in (
+                         "ms", "part_ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "library_eager_ms", "max_abs_err",
+                         "launches")}
+                        for n in ("nemotron", "zamba2", "phi")}),
                  "simt": dict(
                      source="src/repro_torch/csrc/flash_attention_bwd.cu",
                      launches_by_path={
                          p: train[p]["launches"]["flash_bwd_simt"]
-                         for p in ("main", "golden", "bf16")},
+                         for p in ("main", "golden", "bf16")} | {
+                         f"families_golden_{n}": r["launches"][
+                             "flash_bwd_simt"]
+                         for n, r in train["families_golden"].items()},
                      max_abs_err_f32=train["bwd"]["f32"],
                      ms=fb["simt_ms"], plain_ms=fb["simt_plain_ms"],
                      bound_ms=fb["bound_ms"], bound_by=fb["bound_by"],

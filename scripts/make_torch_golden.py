@@ -10,6 +10,7 @@
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --ssm-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --vlm-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --train-only
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --train-families-only
 
 Builds the launcher's graph at the size the port's chip smoke serves
 (``powerlaw_cluster(65536, 6.0, prob=0.25, seed=7)``, deduped, reversed),
@@ -158,6 +159,39 @@ and of the parameters after the two steps (under the port's parameter
 names, a stacked leaf's groups as its layers), and 64 seeded values of
 three leaves of each.  ``--train-only`` recomputes this entry alone
 (~1 min, ~20 GB of host memory).
+
+The ``"train_families"`` entry holds the same two steps (float32, M 1,
+lr 1e-3, float32 moments, ``SyntheticLM(cfg, 2, 256, seed=1)``) and the
+same summary (three leaves of each family's own) for one model of each
+family that `make_train_step` newly trains, each cut as
+``TRAIN_FAMILY_CUTS`` records:
+
+- ``"mamba2"``: mamba2-1.3b, the ``"ssm"`` entry's cut (2 layers), its
+  per-head mixer parameters redrawn by ``numpy_ssm_heads`` as there;
+- ``"zamba2"``: zamba2-2.7b, the ``"ssm"`` entry's cut (12 layers: the
+  shared block twice, its gradient summed over both), heads redrawn.
+
+Both SSD models run chunks of 16 tokens, not 256 (the chunked SSD is
+exact at any chunk length; 256 tokens are then 16 chunks and the
+inter-chunk scan carries the state 15 times).  At 256 the reference's
+gradient is NaN: its intra-chunk decay exponentiates the upper triangle
+(cumulative A · dt of up to 255 steps, past float32's 88 at these
+weights) to inf before ``jnp.where`` zeroes it, and the where's gradient
+multiplies that inf by 0.  The port masks before ``exp`` and has no NaN;
+the reference's forward (the ``"ssm"`` entry) is finite either way.
+- ``"deepseek"``: deepseek-v3-671b at full width with MLA, one MoE layer
+  of 16 experts (the ``"moe"`` cut's count, without its dense layer);
+- ``"maverick"``: llama4-maverick-400b-a17b at full width, its dense
+  layer and one MoE layer of 4 experts.
+
+Both MoE models also cut the vocabulary to 32,768: at full vocabulary
+their embedding and unembedding alone are 1.85 B (deepseek) and 2.07 B
+(maverick) parameters, whose float32 weights, gradient and two moments
+(16 bytes a parameter) would take 30-33 GB before the layers, past what
+this script may hold beside the reference's activations.  Each model runs
+in a process of its own (``--train-families-worker``), so the host holds
+one at a time (~25 GB at most).  ``--train-families-only`` recomputes this
+entry alone (~10 min).
 """
 from __future__ import annotations
 
@@ -213,6 +247,27 @@ VLM_PATCH_SEED = 2
 TRAIN_LAYERS, TRAIN_DATA_SEED, TRAIN_BATCH, TRAIN_SEQ = 2, 1, 2, 256
 TRAIN_STEPS, TRAIN_LR, TRAIN_VALUE_SEED, TRAIN_VALUES = 2, 1e-3, 5, 64
 TRAIN_LEAVES = ("embedding", "layers.0.attn.wq", "layers.1.mlp.w2")
+# The "train_families" entry (module docstring): each model's cuts and the
+# three leaves whose values it records.
+TRAIN_FAMILY_CUTS = {
+    "mamba2": dict(arch="mamba2-1.3b", num_layers=2, ssm_chunk=16),
+    "zamba2": dict(arch="zamba2-2.7b", num_layers=12, ssm_chunk=16),
+    "deepseek": dict(arch="deepseek-v3-671b", num_layers=1,
+                     first_dense_layers=0, num_experts=16,
+                     vocab_size=32768),
+    "maverick": dict(arch="llama4-maverick-400b-a17b", num_layers=2,
+                     num_experts=4, vocab_size=32768),
+}
+TRAIN_FAMILY_LEAVES = {
+    "mamba2": ("embedding", "layers.0.mamba.in_proj",
+               "layers.1.mamba.a_log"),
+    "zamba2": ("layers.5.mamba.out_proj", "shared_attn.attn.wq",
+               "shared_attn.mlp.w2"),
+    "deepseek": ("layers.0.attn.w_uq", "layers.0.moe.router",
+                 "layers.0.moe.experts_w2"),
+    "maverick": ("layers.0.attn.wq", "layers.1.moe.router",
+                 "layers.1.moe.experts_w1"),
+}
 MOE_A2A_JOB = dict(arch="deepseek-v3-671b", overrides={"num_experts": 16},
                    seed=11, batch=2, seq=64, shape=[2, 2], n_idx=256)
 MESH_CASES = [dict(diffusion=d, frontier=f, shape=list(sh))
@@ -388,15 +443,15 @@ def vlm_golden() -> dict:
     return out
 
 
-def _leaf_summary(tree, cfg, rng_seed: int) -> dict:
+def _leaf_summary(tree, cfg, rng_seed: int, leaves=TRAIN_LEAVES) -> dict:
     """L2 norm (float64) of every leaf of ``tree`` under the port's names,
-    and TRAIN_VALUES seeded values of each of TRAIN_LEAVES."""
+    and TRAIN_VALUES seeded values of each of ``leaves``."""
     from repro_torch import convert
 
     named = convert.lm_named_leaves(tree, cfg)
     rng = np.random.default_rng(rng_seed)
     values = {}
-    for name in TRAIN_LEAVES:
+    for name in leaves:
         flat = np.asarray(named[name], np.float32).ravel()
         idx = np.sort(rng.choice(flat.size, TRAIN_VALUES, replace=False))
         values[name] = {"index": idx.tolist(),
@@ -409,26 +464,60 @@ def _leaf_summary(tree, cfg, rng_seed: int) -> dict:
 
 def train_golden() -> dict:
     """The ``"train"`` entry (module docstring)."""
+    cfg = dataclasses.replace(registry.get(LM_ARCH), num_layers=TRAIN_LAYERS,
+                              dtype="float32")
+    port_cfg = dataclasses.replace(port_registry.get(LM_ARCH),
+                                   num_layers=TRAIN_LAYERS, dtype="float32")
+    tree = port_init.numpy_params(port_cfg, LM_PARAM_SEED)
+    out = {"arch": LM_ARCH, "num_layers": TRAIN_LAYERS}
+    out.update(_train_steps(cfg, port_cfg, tree, TRAIN_LEAVES))
+    return out
+
+
+def train_family_golden(name: str) -> dict:
+    """One model of the ``"train_families"`` entry (module docstring)."""
+    cut = dict(TRAIN_FAMILY_CUTS[name], dtype="float32")
+    over = {k: v for k, v in cut.items() if k != "arch"}
+    cfg = dataclasses.replace(registry.get(cut["arch"]), **over)
+    port_cfg = dataclasses.replace(port_registry.get(cut["arch"]), **over)
+    tree = port_init.numpy_params(port_cfg, LM_PARAM_SEED)
+    out = {"arch": cut["arch"], "cuts": cut}
+    if port_cfg.family in ("ssm", "hybrid"):
+        port_init.numpy_ssm_heads(tree, port_cfg, SSM_HEADS_SEED)
+        out["ssm_heads_seed"] = SSM_HEADS_SEED
+    out.update(_train_steps(cfg, port_cfg, tree, TRAIN_FAMILY_LEAVES[name]))
+    return out
+
+
+def train_families_golden() -> dict:
+    """The ``"train_families"`` entry: `train_family_golden` of each model
+    in a process of its own, one at a time."""
+    return {name: _worker_subprocess("--train-families-worker",
+                                     {"name": name}, 1, 3600.0)
+            for name in TRAIN_FAMILY_CUTS}
+
+
+def _train_steps(cfg, port_cfg, tree, leaves) -> dict:
+    """Step 0's gradient and TRAIN_STEPS steps of the reference's jitted
+    ``make_train_step`` from the numpy ``tree`` (consumed), summarised by
+    `_leaf_summary` over ``leaves``."""
     from repro.data.pipeline import SyntheticLM
     from repro.models import model
     from repro.optim import adamw
     from repro.train.step import make_train_step
 
-    cfg = dataclasses.replace(registry.get(LM_ARCH), num_layers=TRAIN_LAYERS,
-                              dtype="float32")
-    port_cfg = dataclasses.replace(port_registry.get(LM_ARCH),
-                                   num_layers=TRAIN_LAYERS, dtype="float32")
-    params = _tree_to_jax(port_init.numpy_params(port_cfg, LM_PARAM_SEED))
+    params = _tree_to_jax(tree)
     data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=TRAIN_DATA_SEED)
     batches = [{k: jnp.asarray(v) for k, v in data.batch_at(s).items()}
                for s in range(TRAIN_STEPS)]
     grads = jax.jit(jax.grad(lambda p, b: model.loss_fn(p, cfg, b)[0]))(
         params, batches[0])
-    out = {"arch": LM_ARCH, "num_layers": TRAIN_LAYERS, "dtype": "float32",
+    out = {"dtype": "float32",
            "param_seed": LM_PARAM_SEED, "data_seed": TRAIN_DATA_SEED,
            "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "lr": TRAIN_LR,
            "microbatches": 1, "optimizer_state_dtype": "float32",
-           "grad0": _leaf_summary(grads, port_cfg, TRAIN_VALUE_SEED)}
+           "grad0": _leaf_summary(grads, port_cfg, TRAIN_VALUE_SEED,
+                                  leaves)}
     del grads
     step = jax.jit(make_train_step(cfg, lambda s: TRAIN_LR),
                    donate_argnums=(0, 1))
@@ -439,7 +528,11 @@ def train_golden() -> dict:
         out["steps"].append({"loss": float(m["loss"]),
                              "grad_norm": float(m["grad_norm"])})
     del opt
-    out["params"] = _leaf_summary(params, port_cfg, TRAIN_VALUE_SEED)
+    out["params"] = _leaf_summary(params, port_cfg, TRAIN_VALUE_SEED,
+                                  leaves)
+    if not all(np.isfinite([v for s in out["steps"] for v in s.values()])):
+        raise RuntimeError(f"{cfg.name}: the reference's steps are not "
+                           f"finite: {out['steps']}")
     return out
 
 
@@ -803,6 +896,11 @@ def main() -> None:
                       help="recompute the \"vlm\" entry alone")
     only.add_argument("--train-only", action="store_true",
                       help="recompute the \"train\" entry alone")
+    only.add_argument("--train-families-only", action="store_true",
+                      help="recompute the \"train_families\" entry alone")
+    only.add_argument("--train-families-worker", metavar="JOB_JSON",
+                      help="print train_family_golden(JOB['name']) as JSON "
+                           "(run by train_families_golden)")
     only.add_argument("--mesh-worker", metavar="JOB_JSON",
                       help="print mesh_reference(JOB) as JSON (run by "
                            "mesh_reference_subprocess)")
@@ -822,15 +920,21 @@ def main() -> None:
     if args.moe_worker:
         print(json.dumps(moe_reference(json.loads(args.moe_worker))))
         return
+    if args.train_families_worker:
+        job = json.loads(args.train_families_worker)
+        print(json.dumps(train_family_golden(job["name"])))
+        return
     t0 = time.time()
     entries = {"lm": lm_golden, "q": q_golden, "stream": stream_golden,
                "unfused": lambda: unfused_golden(golden["top_k"]["seeds"]),
                "mesh": mesh_golden, "moe": moe_golden,
                "moe_a2a": moe_a2a_golden, "ssm": ssm_golden,
-               "vlm": vlm_golden, "train": train_golden}
+               "vlm": vlm_golden, "train": train_golden,
+               "train_families": train_families_golden}
     flags = {"lm": "lm", "q": "q", "stream": "stream", "unfused": "unfused",
              "mesh": "mesh", "moe": "moe", "moe_a2a": "moe", "ssm": "ssm",
-             "vlm": "vlm", "train": "train"}
+             "vlm": "vlm", "train": "train",
+             "train_families": "train_families"}
     keys = [k for k in entries if getattr(args, f"{flags[k]}_only")]
     if keys:
         with open(OUT) as f:
@@ -896,6 +1000,7 @@ def main() -> None:
     golden["ssm"] = ssm_golden()
     golden["vlm"] = vlm_golden()
     golden["train"] = train_golden()
+    golden["train_families"] = train_families_golden()
     _write(golden)
     print(f"wrote {os.path.normpath(OUT)} in {time.time() - t0:.1f}s")
 

@@ -1,5 +1,5 @@
 // Gradient of flash attention for Hopper: bf16 q, k, v, o and do with head
-// dim 64, 80, 96 or 128, tensor-core products (wgmma) on tiles that TMA
+// dim 64, 80, 96, 128 or 192, tensor-core products (wgmma) on tiles that TMA
 // copies into shared memory, reading the log-sum-exp that the forward
 // (flash_prefill_wgmma.cu) wrote.
 //
@@ -7,7 +7,7 @@
 // scan (repro/models/attention.py, _run_q_blocks), and its Pallas kernel
 // repro/kernels/flash_attention.py::flash_attention has no VJP. It is the
 // `wgmma` route of the backward (`kernels/flash_attention.py::route_bwd`:
-// bf16, L > 1, D in {64, 80, 96, 128}); csrc/flash_attention_bwd.cu (the
+// bf16, L > 1, D in {64, 80, 96, 128, 192}); csrc/flash_attention_bwd.cu (the
 // `simt` route) takes float32 and the other head dims. Per head, with
 // lse the forward's natural log-sum-exp of each query row:
 //
@@ -32,7 +32,9 @@
 // TFLOP/s bf16 tensor-core peak, against 134 MB of q, k, v, o, do, dq, dk
 // and dv (0.040 ms at 3.35 TB/s): operations bound it, and only wgmma
 // reaches that rate. This design does seven products (s and dP in both
-// launches), 0.365 ms at the peak.
+// launches), 0.365 ms at the peak. nemotron-4-340b's attention (B 1, L
+// 4096, H 96, KVH 8, D 192, causal) is 1.546 TFLOP, 1.563 ms at the peak;
+// its three launches do eight products, 2.50 ms at the peak.
 //
 // Design. Two launches on one stream, no atomics, so every run gives the
 // same bits. Each CTA is two consumer warpgroups and one producer
@@ -67,6 +69,16 @@
 //     operands against MN-major Q and dO. dK and dV stay in float32
 //     registers (D / 2 floats each a thread) for the whole loop: the GQA
 //     sum stays inside the CTA. Key blocks run longest first.
+//   At D 192 dK and dV are 96 floats each a thread; with S^T and dP^T
+//     (32 each) and the bf16 P^T and dS^T they pass the 240 registers a
+//     consumer can take. So D 192 splits the second launch in two of the
+//     same kernel, each keeping one accumulator: a dv launch (S^T, P^T,
+//     dV += P^T . dO; V is not loaded) and then a dk launch (S^T, dP^T,
+//     dS^T, dK += dS^T . Q). Eight products where the fused launch does
+//     seven, and Q and dO are streamed twice, but still no atomics and the
+//     same bits every run; the alternative, dK in shared memory, would
+//     take 48 KiB of the 227 beside the 192 that the tiles of 128 keys and
+//     the ring already hold, and a read-modify-write of it per block.
 // Causal: a block wholly after a warpgroup's rows is skipped; only the
 // diagonal blocks (and a ragged last block) are masked. Rows past L are
 // not stored; queries and keys past L read zeros from TMA and are masked.
@@ -86,6 +98,9 @@ constexpr int KV_ROWS = 128;               // dk/dv: keys a CTA
 constexpr int KV_QUERIES = 64;             // dk/dv: query rows a block
 constexpr int VEC_BYTES = KV_QUERIES * 4;  // a block's float32 lse or Delta
 constexpr int NS = 32;                     // registers of a 64 x 64 tile
+// What a dk/dv launch computes: both (D up to 128), or at D 192 one of
+// them (design above).
+constexpr int DKDV = 0, DV_ONLY = 1, DK_ONLY = 2;
 
 __device__ __forceinline__ void producer_registers() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
@@ -321,7 +336,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                 col0, L, acc, scale);
 }
 
-template <int D>
+template <int D, int PART>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_do,
@@ -335,6 +350,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   constexpr int BOXES = boxes<D>();
   constexpr int KV_BYTES = KV_ROWS * BOXES * ROW;
   constexpr int QB_BYTES = KV_QUERIES * BOXES * ROW;
+  constexpr bool WANT_DV = PART != DK_ONLY, WANT_DK = PART != DV_ONLY;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sk = align1024(smem_raw);
   uint8_t* sv = sk + KV_BYTES;
@@ -375,10 +391,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (threadIdx.x >= CONSUMERS) {
     producer_registers();
     if (threadIdx.x == CONSUMERS) {
-      mbar_expect_tx(bar_kv, 2 * KV_BYTES);
+      // V only where dP^T is taken (not in a dv launch).
+      mbar_expect_tx(bar_kv, (WANT_DK ? 2 : 1) * KV_BYTES);
       for (int x = 0; x < BOXES; ++x) {
         tma_load(sk + x * KV_ROWS * ROW, &tm_k, bar_kv, 64 * x, kvh, k0, b);
-        tma_load(sv + x * KV_ROWS * ROW, &tm_v, bar_kv, 64 * x, kvh, k0, b);
+        if (WANT_DK)
+          tma_load(sv + x * KV_ROWS * ROW, &tm_v, bar_kv, 64 * x, kvh, k0,
+                   b);
       }
       for (int it = 0; it < n_iter; ++it) {
         const int h = kvh * G + it / per_head;
@@ -427,9 +446,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int col0 = 2 * (lane % 4);
   const float c2 = scale * kLog2e;
 
-  float dka[D / 2], dva[D / 2];
+  // One accumulator of a split launch is a single unused register.
+  float dka[WANT_DK ? D / 2 : 1], dva[WANT_DV ? D / 2 : 1];
 #pragma unroll
-  for (int x = 0; x < D / 2; ++x) dka[x] = dva[x] = 0.f;
+  for (int x = 0; x < (WANT_DK ? D / 2 : 1); ++x) dka[x] = 0.f;
+#pragma unroll
+  for (int x = 0; x < (WANT_DV ? D / 2 : 1); ++x) dva[x] = 0.f;
   const uint32_t k_addr = smem_u32(sk) + wg * 64 * ROW;
   const uint32_t v_addr = smem_u32(sv) + wg * 64 * ROW;
   mbar_wait(bar_kv, 0);
@@ -459,19 +481,21 @@ __global__ void __launch_bounds__(THREADS, 1)
                      kk > 0);
       }
       wgmma_commit();
+      if constexpr (WANT_DK) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk % 4) * 32;
-        wgmma_ss_n64(dpt, sdesc(v_addr + (kk / 4) * KV_ROWS * ROW + off, 16,
-                                1024),
-                     sdesc(do_addr + (kk / 4) * KV_QUERIES * ROW + off, 16,
-                           1024),
-                     kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          wgmma_ss_n64(dpt, sdesc(v_addr + (kk / 4) * KV_ROWS * ROW + off,
+                                  16, 1024),
+                       sdesc(do_addr + (kk / 4) * KV_QUERIES * ROW + off, 16,
+                             1024),
+                       kk > 0);
+        }
+        wgmma_commit();
       }
-      wgmma_commit();
       wgmma_wait<0>();
       hold(st);
-      hold(dpt);
+      if constexpr (WANT_DK) hold(dpt);
       // Register x holds query q0 + col0 + 8 (x / 4) + x % 2 of key row
       // r % 2: kept when below L and, under `causal`, at or after the key,
       // i.e. lo[r % 2] <= 8 (x / 4) + x % 2 < hi (all kept off the
@@ -501,38 +525,53 @@ __global__ void __launch_bounds__(THREADS, 1)
           const float p1 = off + 1 >= lo[r % 2] && off + 1 < hi
                                ? exp2_approx(st[x + 1] * c2 - lv.y * kLog2e)
                                : 0.f;
-          pa[kk][r] = pack_bf16(p0, p1);
-          sa[kk][r] = pack_bf16(p0 * (dpt[x] - dlv.x),
-                                p1 * (dpt[x + 1] - dlv.y));
+          if constexpr (WANT_DV) pa[kk][r] = pack_bf16(p0, p1);
+          if constexpr (WANT_DK)
+            sa[kk][r] = pack_bf16(p0 * (dpt[x] - dlv.x),
+                                  p1 * (dpt[x + 1] - dlv.y));
         }
       // dV += P^T . dO and dK += dS^T . Q, dO and Q (queries x D) read as
       // MN-major B operands.
-      hold(dka);
-      hold(dva);
-      hold(pa);
-      hold(sa);
+      if constexpr (WANT_DK) {
+        hold(dka);
+        hold(sa);
+      }
+      if constexpr (WANT_DV) {
+        hold(dva);
+        hold(pa);
+      }
       __syncwarp();
       wgmma_fence();
+      if constexpr (WANT_DV) {
 #pragma unroll
-      for (int kk = 0; kk < KV_QUERIES / 16; ++kk)
-        wgmma_rs_nd<D>(dva, pa[kk], sdesc(do_addr + kk * 16 * ROW,
-                                          KV_QUERIES * ROW, 1024));
+        for (int kk = 0; kk < KV_QUERIES / 16; ++kk)
+          wgmma_rs_nd<D>(dva, pa[kk], sdesc(do_addr + kk * 16 * ROW,
+                                            KV_QUERIES * ROW, 1024));
+      }
+      if constexpr (WANT_DK) {
 #pragma unroll
-      for (int kk = 0; kk < KV_QUERIES / 16; ++kk)
-        wgmma_rs_nd<D>(dka, sa[kk], sdesc(q_addr + kk * 16 * ROW,
-                                          KV_QUERIES * ROW, 1024));
+        for (int kk = 0; kk < KV_QUERIES / 16; ++kk)
+          wgmma_rs_nd<D>(dka, sa[kk], sdesc(q_addr + kk * 16 * ROW,
+                                            KV_QUERIES * ROW, 1024));
+      }
       wgmma_commit();
       wgmma_wait<0>();
-      hold(dka);
-      hold(dva);
-      hold(pa);
-      hold(sa);
+      if constexpr (WANT_DK) {
+        hold(dka);
+        hold(sa);
+      }
+      if constexpr (WANT_DV) {
+        hold(dva);
+        hold(pa);
+      }
     }
     mbar_arrive(&bar_free[s]);
   }
   const long long base = ((long long)b * L * KVH + kvh) * D;
-  store_rows<D>(dk + base, (long long)KVH * D, krow0, col0, L, dka, scale);
-  store_rows<D>(dv + base, (long long)KVH * D, krow0, col0, L, dva, 1.f);
+  if constexpr (WANT_DK)
+    store_rows<D>(dk + base, (long long)KVH * D, krow0, col0, L, dka, scale);
+  if constexpr (WANT_DV)
+    store_rows<D>(dv + base, (long long)KVH * D, krow0, col0, L, dva, 1.f);
 }
 
 template <int D>
@@ -562,7 +601,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int PART>
 int launch_dkdv(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 void* dk, void* dv, int B, int L, int H, int KVH,
@@ -573,7 +612,7 @@ int launch_dkdv(const void* q, const void* k, const void* v,
   if (!err) err = encode(&tk, k, B, L, KVH, D, KV_ROWS);
   if (!err) err = encode(&tv, v, B, L, KVH, D, KV_ROWS);
   if (err) return err;
-  auto kernel = flash_bwd_dkdv_kernel<D>;
+  auto kernel = flash_bwd_dkdv_kernel<D, PART>;
   const size_t smem = 1024 + 2 * (size_t)KV_ROWS * boxes<D>() * ROW +
                       2 * STAGES * (size_t)KV_QUERIES * boxes<D>() * ROW +
                       2 * STAGES * VEC_BYTES +
@@ -591,18 +630,19 @@ int launch_dkdv(const void* q, const void* k, const void* v,
 
 bool valid(int B, int L, int H, int KVH, int D) {
   return B >= 1 && L >= 1 && KVH >= 1 && H >= KVH && H % KVH == 0 &&
-         (D == 64 || D == 80 || D == 96 || D == 128);
+         (D == 64 || D == 80 || D == 96 || D == 128 || D == 192);
 }
 
 }  // namespace
 
 // C interface (bound with ctypes), bf16 q, o and do (B, L, H, D), k and v
-// (B, L, KVH, D), contiguous and 16-byte aligned, D 64, 80, 96 or 128;
-// lse the forward's float32 (B, H, L) natural log-sum-exp. The first
+// (B, L, KVH, D), contiguous and 16-byte aligned, D 64, 80, 96, 128 or
+// 192; lse the forward's float32 (B, H, L) natural log-sum-exp. The first
 // launch writes dq (like q) and Delta (float32 (B, H, L)); the second,
-// after it on the same stream, reads Delta and writes dk and dv (like k).
-// Each returns a cudaError_t (0 is success), or 10000 + a CUresult of the
-// tensor-map encoding.
+// after it on the same stream, reads Delta and writes dk and dv (like k):
+// `part` 0 both (D up to 128), or at D 192 part 1 dv alone, then part 2 dk
+// alone (the other pointer is not touched). Each returns a cudaError_t (0
+// is success), or 10000 + a CUresult of the tensor-map encoding.
 extern "C" int flash_bwd_wgmma_dq_launch(const void* q, const void* k,
                                          const void* v, const void* o,
                                          const void* dout, const void* lse,
@@ -621,8 +661,11 @@ extern "C" int flash_bwd_wgmma_dq_launch(const void* q, const void* k,
     case 96:
       return launch_dq<96>(q, k, v, o, dout, lse, dq, delta, B, L, H, KVH,
                            scale, causal, s);
-    default:
+    case 128:
       return launch_dq<128>(q, k, v, o, dout, lse, dq, delta, B, L, H, KVH,
+                            scale, causal, s);
+    default:
+      return launch_dq<192>(q, k, v, o, dout, lse, dq, delta, B, L, H, KVH,
                             scale, causal, s);
   }
 }
@@ -633,21 +676,32 @@ extern "C" int flash_bwd_wgmma_dkdv_launch(const void* q, const void* k,
                                            const void* delta, void* dk,
                                            void* dv, int B, int L, int H,
                                            int KVH, int D, float scale,
-                                           int causal, void* stream) {
-  if (!valid(B, L, H, KVH, D)) return (int)cudaErrorInvalidValue;
+                                           int causal, int part,
+                                           void* stream) {
+  if (!valid(B, L, H, KVH, D) ||
+      (D == 192 ? part != DV_ONLY && part != DK_ONLY : part != DKDV))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, B, L, H,
-                             KVH, scale, causal, s);
+      return launch_dkdv<64, DKDV>(q, k, v, dout, lse, delta, dk, dv, B, L,
+                                   H, KVH, scale, causal, s);
     case 80:
-      return launch_dkdv<80>(q, k, v, dout, lse, delta, dk, dv, B, L, H,
-                             KVH, scale, causal, s);
+      return launch_dkdv<80, DKDV>(q, k, v, dout, lse, delta, dk, dv, B, L,
+                                   H, KVH, scale, causal, s);
     case 96:
-      return launch_dkdv<96>(q, k, v, dout, lse, delta, dk, dv, B, L, H,
-                             KVH, scale, causal, s);
+      return launch_dkdv<96, DKDV>(q, k, v, dout, lse, delta, dk, dv, B, L,
+                                   H, KVH, scale, causal, s);
+    case 128:
+      return launch_dkdv<128, DKDV>(q, k, v, dout, lse, delta, dk, dv, B,
+                                    L, H, KVH, scale, causal, s);
     default:
-      return launch_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, B, L, H,
-                              KVH, scale, causal, s);
+      return part == DV_ONLY
+                 ? launch_dkdv<192, DV_ONLY>(q, k, v, dout, lse, delta, dk,
+                                             dv, B, L, H, KVH, scale,
+                                             causal, s)
+                 : launch_dkdv<192, DK_ONLY>(q, k, v, dout, lse, delta, dk,
+                                             dv, B, L, H, KVH, scale,
+                                             causal, s);
   }
 }

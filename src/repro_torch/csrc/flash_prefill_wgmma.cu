@@ -1,11 +1,11 @@
-// Flash attention prefill for Hopper: bf16 q, k, v with head dim 64, 80, 96
-// or 128, tensor-core products (wgmma) on tiles that TMA copies into shared
-// memory.
+// Flash attention prefill for Hopper: bf16 q, k, v with head dim 64, 80,
+// 96, 128 or 192, tensor-core products (wgmma) on tiles that TMA copies
+// into shared memory.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py::
 // flash_attention (body _flash_kernel, pallas_call at :83) for the prefill
 // shapes of the LM path; `kernels/flash_attention.py::route` sends bf16
-// calls with Lq > 1 and D in {64, 80, 96, 128} here. The function is the
+// calls with Lq > 1 and D in {64, 80, 96, 128, 192} here. The function is the
 // reference's, per head:
 //
 //   s   = (q . k^T) * scale              in float32 (the scale on s, in
@@ -22,25 +22,28 @@
 // and out (0.040 ms at 3.35 TB/s): operations bound it, and only wgmma
 // reaches that rate. phi-3-vision's prefill (H = KVH 32, D 96) does the
 // same work; zamba2's shared block (H = KVH 32, D 80) 86 GFLOP, 0.087 ms.
+// nemotron-4-340b's attention (B 1, L 4096, H 96, KVH 8, D 192, causal)
+// is 619 GFLOP, 0.626 ms.
 //
 // Design. A CTA owns 128 query rows of one (head, batch): two consumer
 // warpgroups of 64 rows each and one producer warp (288 threads).
 // - Copies. One producer thread issues TMA loads (cp.async.bulk.tensor,
 //   4-D maps over (D, heads, L, B), completion counted in bytes on an
-//   mbarrier): the query tile once, then K and V blocks of 128 keys into a
-//   ring of two stages, each stage with its own K-full, V-full and free
+//   mbarrier): the query tile once, then K and V blocks of BK keys (128;
+//   64 at D 192) into a ring of two stages, each stage with its own K-full, V-full and free
 //   barrier; so the next block's copies run while this one's products do.
-//   A row is one (D 64) or two (D 80, 96, 128) 64-column boxes (128 bytes
+//   A row is one (D 64), two (D 80, 96, 128) or three (D 192) 64-column
+//   boxes (128 bytes
 //   each, the widest the 128-byte swizzle takes); each box lands as rows
 //   of 128 bytes, swizzled, at the 1024-byte alignment wgmma's swizzle
 //   atom needs. TMA fills reads past L (or past the batch) with zeros, and
 //   past D: the second box of D 80 (96) reads 16 (32) real columns, so
 //   device memory moves only real bytes, while the barriers count whole
 //   boxes, zeros included, as TMA does.
-// - S = Q . K^T: wgmma m64n128k16 per 16 columns of D (D / 16 k steps:
-//   4, 5, 6 or 8, never into the zero fill), both operands K-major in
+// - S = Q . K^T: wgmma m64n{BK}k16 per 16 columns of D (D / 16 k steps:
+//   4, 5, 6, 8 or 12, never into the zero fill), both operands K-major in
 //   shared memory (descriptor start advanced 32 bytes per k step inside a
-//   swizzled row, one box per 64 columns); the 64 x 128 float32 tile
+//   swizzled row, one box per 64 columns); the 64 x BK float32 tile
 //   stays in registers.
 // - Softmax on those registers: s * (scale * log2 e), the mask (only on a
 //   block that holds a key past Lk or past the causal limit of the
@@ -54,6 +57,15 @@
 //   allow), no transposing copy, by one wgmma of N = D (80 and 96 are
 //   legal widths: the product reads the second box's first 16 or 32
 //   columns and the accumulator holds D / 2 floats a thread).
+// - D 192: O takes 96 registers a thread; with S (BK / 2) and P (BK / 4)
+//   at BK 128 a consumer would need 192 for those alone, past the 224
+//   that 288 threads a CTA leave it with the addresses and the softmax's
+//   state. A block of 64 keys halves S and P (32 and 16), so the same two
+//   consumer warpgroups and producer warp fit without giving registers
+//   back (no setmaxnreg); the price is twice as many softmax rounds and
+//   barrier waits per key, each on half the work. Shared memory holds
+//   the 128 x 192 query tile and two stages of 64-key K and V blocks,
+//   144 KiB.
 // - Causal: a CTA loads only the blocks up to its last row's limit, and the
 //   grid is ordered heaviest query block first, so the short blocks of
 //   the causal triangle fill the last wave. Rows at or past Lq are not
@@ -69,19 +81,23 @@
 // Left for later: overlap of one block's softmax with the next block's
 // wgmma inside a warpgroup (it needs a second S and P in registers, past
 // the 168 that ptxas gives the D 128 kernel), a persistent grid, fp8; D
-// 192 (its 96 O registers a thread, with S's 64 and P's 32, pass the
-// budget of two consumer warpgroups).
+// a producer warpgroup whose registers the consumers take (setmaxnreg),
+// which would let D 192 keep blocks of 128 keys.
 #include "hopper.cuh"
 
 namespace {
 
 constexpr int BQ = 128;               // query rows per CTA
-constexpr int BK = 128;               // keys per block
 constexpr int STAGES = 2;             // K/V ring depth
 constexpr int CONSUMERS = 256;        // two warpgroups
 constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 
-// D: the head dim, 64, 80, 96 or 128 (one or two 64-column boxes a row).
+// Keys per block: 128, or 64 at D 192 (its registers; design above).
+template <int D>
+__host__ __device__ constexpr int block_keys() { return D > 128 ? 64 : 128; }
+
+// D: the head dim, 64, 80, 96, 128 or 192 (one to three 64-column boxes a
+// row).
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -92,6 +108,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                          int KVH, int B, float scale, int causal,
                          int kv_offset) {
   constexpr int BOXES = boxes<D>();
+  constexpr int BK = block_keys<D>();
   // Whole boxes, the zero fill past D included: what lands in shared
   // memory and what TMA counts on the barriers.
   constexpr int Q_BYTES = BQ * BOXES * ROW;
@@ -184,17 +201,17 @@ __global__ void __launch_bounds__(THREADS, 1)
     const uint32_t v_addr = smem_u32(sv + s * KV_BYTES);
     const int k0 = j * BK;
 
-    // S = Q . K^T, 64 x 128, float32 in registers.
+    // S = Q . K^T, 64 x BK, float32 in registers.
     float sc[NS];
     mbar_wait(&bar_k[s], parity);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;  // inside the swizzled row
-      wgmma_ss_n128(sc,
-                    sdesc(q_addr + (kk / 4) * BQ * ROW + off, 16, 1024),
-                    sdesc(k_addr + (kk / 4) * BK * ROW + off, 16, 1024),
-                    kk > 0);
+      wgmma_ss_nk<BK>(sc,
+                      sdesc(q_addr + (kk / 4) * BQ * ROW + off, 16, 1024),
+                      sdesc(k_addr + (kk / 4) * BK * ROW + off, 16, 1024),
+                      kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -290,6 +307,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int Lq, int Lk, int H, int KVH, float scale,
            int causal, int kv_offset, cudaStream_t stream) {
+  constexpr int BK = block_keys<D>();
   CUtensorMap tq, tk, tv;
   int err = encode(&tq, q, B, Lq, H, D, BQ);
   if (!err) err = encode(&tk, k, B, Lk, KVH, D, BK);
@@ -313,8 +331,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // C interface (bound with ctypes): bf16 q (B, Lq, H, D), k and v (B, Lk,
-// KVH, D), out like q, contiguous and 16-byte aligned, D 64, 80, 96 or
-// 128; lse a float32 (B, H, Lq) output of each row's natural log-sum-exp,
+// KVH, D), out like q, contiguous and 16-byte aligned, D 64, 80, 96, 128
+// or 192; lse a float32 (B, H, Lq) output of each row's natural log-sum-exp,
 // or null (nothing written: the serving prefill). Returns a cudaError_t
 // (0 is success), or 10000 + a CUresult of the tensor-map encoding.
 extern "C" int flash_prefill_wgmma_launch(const void* q, const void* k,
@@ -339,6 +357,9 @@ extern "C" int flash_prefill_wgmma_launch(const void* q, const void* k,
                       kv_offset, s);
   if (D == 128)
     return launch<128>(q, k, v, out, l, B, Lq, Lk, H, KVH, scale, causal,
+                       kv_offset, s);
+  if (D == 192)
+    return launch<192>(q, k, v, out, l, B, Lq, Lk, H, KVH, scale, causal,
                        kv_offset, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,18 +7,19 @@ flash_attention``.  Three routes compute the reference's function, and
 variable):
 
 - ``wgmma`` (``csrc/flash_prefill_wgmma.cu``): bf16, ``Lq > 1``, head dim
-  64, 80, 96 or 128 — the prefill of the dense family, zamba2's shared
-  block (80) and phi-3-vision (96).  A CTA of two consumer warpgroups and
-  a producer warp; TMA copies K/V blocks into a two-stage ring, ``wgmma``
-  computes both products on the tensor cores.
+  64, 80, 96, 128 or 192 — the prefill of the dense family, zamba2's
+  shared block (80), phi-3-vision (96) and nemotron (192).  A CTA of two
+  consumer warpgroups and a producer warp; TMA copies K/V blocks (of 64
+  keys at D 192, else 128) into a two-stage ring, ``wgmma`` computes both
+  products on the tensor cores.
 - ``decode`` (``csrc/flash_decode.cu``): ``Lq == 1``, float32 or bf16 —
   every decode step.  A split-K grid over (key split, KV head, batch),
   one CTA per split for all query heads of a KV group, streaming its keys
   through a ``cp.async`` ring in shared memory; the partials are merged
   in the same launch by the last CTA of each group.
 - ``simt`` (``csrc/flash_attention.cu``): everything else (float32 with
-  ``Lq > 1``, bf16 at another head dim, such as nemotron's 192).  One CTA
-  per (64-row query block, head, batch), float32 FMA on the CUDA cores.
+  ``Lq > 1``, bf16 at another head dim, such as 16).  One CTA per (64-row
+  query block, head, batch), float32 FMA on the CUDA cores.
 
 Tile sizes belong to the kernels: the reference's ``block_q``/``block_k``
 tiling knobs have no counterpart.  The plain version is
@@ -34,11 +35,14 @@ jnp scan) takes Lq == Lk and ``kv_offset`` 0, and has two routes, which
   `WGMMA_HEAD_DIMS` with L > 1, the calls whose forward took the
   ``wgmma`` route, which writes each row's log-sum-exp (``lse``) for it.
   `flash_bwd_wgmma_dq_cuda` then `flash_bwd_wgmma_dkdv_cuda`, tensor-core
-  tiles fed by TMA.
-- ``simt`` (``csrc/flash_attention_bwd.cu``): the rest of
-  `BWD_HEAD_DIMS` (float32, bf16 at D 16 and 32).  `flash_bwd_dq_cuda`
-  then `flash_bwd_dkdv_cuda`, float32 FMA on the CUDA cores, the
-  log-sum-exp recomputed.
+  tiles fed by TMA; at a head dim of `SPLIT_DKDV_HEAD_DIMS` (192) the
+  second launch is two, `flash_bwd_wgmma_dv_cuda` then
+  `flash_bwd_wgmma_dk_cuda`, each holding one gradient in registers.
+- ``simt`` (``csrc/flash_attention_bwd.cu``): float32, and bf16 at D 16
+  and 32, at a head dim of `SIMT_BWD_HEAD_DIMS` (up to 128: float32 at D
+  192 has no backward kernel).  `flash_bwd_dq_cuda` then
+  `flash_bwd_dkdv_cuda`, float32 FMA on the CUDA cores, the log-sum-exp
+  recomputed.
 
 Their plain version is `ref.flash_attention_bwd_ref` (with ``lse`` for
 the ``wgmma`` route), and `ops.flash_attention`'s autograd rule calls
@@ -55,8 +59,12 @@ from repro_torch.kernels import _build
 
 ROUTES = ("wgmma", "decode", "simt")
 BWD_ROUTES = ("wgmma", "simt")
-WGMMA_HEAD_DIMS = (64, 80, 96, 128)
-BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+WGMMA_HEAD_DIMS = (64, 80, 96, 128, 192)
+SIMT_BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+# Every head dim some backward route takes (float32 only up to 128).
+BWD_HEAD_DIMS = tuple(sorted(set(WGMMA_HEAD_DIMS + SIMT_BWD_HEAD_DIMS)))
+# Head dims whose wgmma backward takes dk and dv in two launches.
+SPLIT_DKDV_HEAD_DIMS = (192,)
 # The decode route's split: rows per sub-block (a split's length is a
 # multiple), query heads per CTA, the most splits one group merges
 # (csrc/flash_decode.cu's MAX_CHUNKS), and CTAs per SM the grid aims at.
@@ -74,6 +82,11 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _BWD_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_BWD_WGMMA_DKDV_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                            + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_void_p])
+# The dk/dv launch's ``part``: both gradients, or dv or dk alone.
+_DKDV, _DV, _DK = 0, 1, 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -96,6 +109,19 @@ def route_bwd(dtype: torch.dtype, L: int, d: int) -> str:
     if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS and L > 1:
         return "wgmma"
     return "simt"
+
+
+def bwd_head_dims(route_name: str) -> tuple:
+    """The head dims the backward of ``route_name`` (of `BWD_ROUTES`)
+    takes."""
+    return WGMMA_HEAD_DIMS if route_name == "wgmma" else SIMT_BWD_HEAD_DIMS
+
+
+def bwd_launches(dtype: torch.dtype, L: int, d: int) -> int:
+    """Kernel launches of one backward call of these shapes on the card:
+    two, or three on the ``wgmma`` route at `SPLIT_DKDV_HEAD_DIMS`."""
+    split = route_bwd(dtype, L, d) == "wgmma" and d in SPLIT_DKDV_HEAD_DIMS
+    return 3 if split else 2
 
 
 def visible_keys(lk: int, causal: bool, kv_offset: int) -> int:
@@ -251,15 +277,16 @@ CUDA_ROUTES = {"wgmma": flash_prefill_wgmma_cuda,
                "decode": flash_decode_cuda, "simt": flash_attention_cuda}
 
 
-def _check_bwd(q, k, v, o, do, kernel: str) -> tuple[int, int, int, int,
-                                                     int]:
+def _check_bwd(q, k, v, o, do, kernel: str,
+               dims: tuple = SIMT_BWD_HEAD_DIMS) -> tuple[int, int, int,
+                                                          int, int]:
     """Raise unless the backward takes these tensors: `_check`'s layouts
-    with Lq == Lk, D one of `BWD_HEAD_DIMS`, and o and do like q; returns
-    (B, L, H, KVH, D)."""
+    with Lq == Lk, D one of ``dims`` (the route's), and o and do like q;
+    returns (B, L, H, KVH, D)."""
     b, lq, lk, h, kvh, d = _check(q, k, v, kernel, _DTYPES)
-    if lq != lk or d not in BWD_HEAD_DIMS:
+    if lq != lk or d not in dims:
         raise ValueError(f"{kernel}: needs Lq == Lk (got {lq}, {lk}) and D "
-                         f"in {BWD_HEAD_DIMS} (got {d})")
+                         f"in {dims} (got {d})")
     for name, t in (("o", o), ("do", do)):
         _build.check_arg(kernel, name, t, q.dtype, 4, q.device)
         if t.shape != q.shape or t.data_ptr() % 16:
@@ -317,8 +344,8 @@ def _check_bwd_wgmma(q, k, v, o, do, lse, kernel: str
                      ) -> tuple[int, int, int, int, int]:
     """`_check_bwd` for the ``wgmma`` route: bf16, D one of
     `WGMMA_HEAD_DIMS`, and the forward's (B, H, L) float32 ``lse``."""
-    b, L, h, kvh, d = _check_bwd(q, k, v, o, do, kernel)
-    if q.dtype != torch.bfloat16 or d not in WGMMA_HEAD_DIMS:
+    b, L, h, kvh, d = _check_bwd(q, k, v, o, do, kernel, WGMMA_HEAD_DIMS)
+    if q.dtype != torch.bfloat16:
         raise ValueError(f"{kernel}: needs bf16 and D in {WGMMA_HEAD_DIMS} "
                          f"(got {q.dtype}, {d})")
     _check_lse(lse, kernel, b, h, L, q.device)
@@ -348,6 +375,30 @@ def flash_bwd_wgmma_dq_cuda(q: torch.Tensor, k: torch.Tensor,
     return dq, delta
 
 
+def _bwd_wgmma_dkdv(part: int, q, k, v, do, lse, delta, causal: bool,
+                    scale: float, kernel: str):
+    """One dk/dv launch of the ``wgmma`` backward (``part`` `_DKDV`, `_DV`
+    or `_DK`), after `flash_bwd_wgmma_dq_cuda` on the same stream, reading
+    its ``delta``; returns (dk, dv), the one not computed None."""
+    b, L, h, kvh, d = _check_bwd_wgmma(q, k, v, do, do, lse, kernel)
+    split = d in SPLIT_DKDV_HEAD_DIMS
+    if split != (part != _DKDV):
+        raise ValueError(f"{kernel}: D {d} takes "
+                         + ("dv and dk in two launches" if split
+                            else "dk and dv in one launch"))
+    _check_lse(delta, kernel, b, h, L, q.device, "delta")
+    dk = torch.empty_like(k) if part != _DV else None
+    dv = torch.empty_like(v) if part != _DK else None
+    fn = _build.launcher("flash_bwd_wgmma", "flash_bwd_wgmma_dkdv_launch",
+                         _BWD_WGMMA_DKDV_ARGTYPES)
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), _build.data_ptr(dk),
+                 _build.data_ptr(dv), b, L, h, kvh, d, scale, int(causal),
+                 part, torch.cuda.current_stream(q.device).cuda_stream),
+              kernel)
+    return dk, dv
+
+
 def flash_bwd_wgmma_dkdv_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, do: torch.Tensor,
                               lse: torch.Tensor, delta: torch.Tensor, *,
@@ -356,16 +407,31 @@ def flash_bwd_wgmma_dkdv_cuda(q: torch.Tensor, k: torch.Tensor,
     """The ``wgmma`` backward's second launch, after
     `flash_bwd_wgmma_dq_cuda` on the same stream, reading its ``delta``:
     returns (dk, dv) (B, L, KVH, D) in bf16, each summed over the KV head's
-    query heads."""
-    b, L, h, kvh, d = _check_bwd_wgmma(q, k, v, do, do, lse,
-                                       "flash_bwd_wgmma_dkdv")
-    _check_lse(delta, "flash_bwd_wgmma_dkdv", b, h, L, q.device, "delta")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.launcher("flash_bwd_wgmma", "flash_bwd_wgmma_dkdv_launch",
-                         _BWD_WGMMA_ARGTYPES)
-    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, L, h, kvh, d, scale, int(causal),
-                 torch.cuda.current_stream(q.device).cuda_stream),
-              "flash_bwd_wgmma_dkdv")
-    return dk, dv
+    query heads.  Not at a head dim of `SPLIT_DKDV_HEAD_DIMS` (its dk and
+    dv are `flash_bwd_wgmma_dk_cuda` and `flash_bwd_wgmma_dv_cuda`)."""
+    return _bwd_wgmma_dkdv(_DKDV, q, k, v, do, lse, delta, causal, scale,
+                           "flash_bwd_wgmma_dkdv")
+
+
+def flash_bwd_wgmma_dv_cuda(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor, *,
+                            causal: bool, scale: float) -> torch.Tensor:
+    """At a head dim of `SPLIT_DKDV_HEAD_DIMS`, the ``wgmma`` backward's
+    second launch (after `flash_bwd_wgmma_dq_cuda`): dv alone (B, L, KVH,
+    D) in bf16, summed over the KV head's query heads (``v`` and ``delta``
+    are checked, not read)."""
+    return _bwd_wgmma_dkdv(_DV, q, k, v, do, lse, delta, causal, scale,
+                           "flash_bwd_wgmma_dv")[1]
+
+
+def flash_bwd_wgmma_dk_cuda(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor, *,
+                            causal: bool, scale: float) -> torch.Tensor:
+    """At a head dim of `SPLIT_DKDV_HEAD_DIMS`, the ``wgmma`` backward's
+    third launch (after `flash_bwd_wgmma_dq_cuda`, reading its ``delta``):
+    dk alone (B, L, KVH, D) in bf16, summed over the KV head's query
+    heads."""
+    return _bwd_wgmma_dkdv(_DK, q, k, v, do, lse, delta, causal, scale,
+                           "flash_bwd_wgmma_dk")[0]

@@ -23,7 +23,8 @@ prefill and decode through three kernels chosen by shape
 them all, ``flash_wgmma``, ``flash_decode`` and ``flash_simt`` each route.
 When one of its inputs requires a gradient, ``flash_attention`` runs the
 same forward inside an autograd rule whose backward is
-``flash_attention_bwd``: two kernel launches of the route
+``flash_attention_bwd``: two kernel launches (three on ``wgmma`` at head
+dim 192, `kernels.flash_attention.bwd_launches`) of the route
 `kernels.flash_attention.route_bwd` picks (``wgmma``, which reads the
 log-sum-exp its forward wrote, or ``simt``), each counted in
 ``LAUNCHES["flash_bwd"]`` and in ``flash_bwd_wgmma`` or ``flash_bwd_simt``.
@@ -256,7 +257,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of `flash_attention` (Lq == Lk, ``kv_offset`` 0) given
     its output ``o``, the output's gradient ``do`` and what
     `flash_attention_fwd` returns beside ``o``: on the card two launches of
-    the route `flash_attention.route_bwd` picks, the ``wgmma`` one reading
+    the route `flash_attention.route_bwd` picks (three on ``wgmma`` at a
+    head dim of `flash_attention.SPLIT_DKDV_HEAD_DIMS`: dq, dv, dk), the
+    ``wgmma`` one reading
     the forward's (B, H, L) log-sum-exp ``lse`` (required there; the
     ``simt`` route recomputes it and ignores one given); on the CPU
     `ref.flash_attention_bwd_ref` of the same route."""
@@ -274,8 +277,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                    causal=causal,
                                                    scale=scale)
             _count_bwd(r)
-            dk, dv = fa.flash_bwd_wgmma_dkdv_cuda(q, k, v, do, lse, delta,
-                                                  causal=causal, scale=scale)
+            kw = dict(causal=causal, scale=scale)
+            if q.shape[-1] in fa.SPLIT_DKDV_HEAD_DIMS:
+                dv = fa.flash_bwd_wgmma_dv_cuda(q, k, v, do, lse, delta, **kw)
+                _count_bwd(r)
+                dk = fa.flash_bwd_wgmma_dk_cuda(q, k, v, do, lse, delta, **kw)
+            else:
+                dk, dv = fa.flash_bwd_wgmma_dkdv_cuda(q, k, v, do, lse,
+                                                      delta, **kw)
         else:
             dq, stats = fa.flash_bwd_dq_cuda(q, k, v, o, do, causal=causal,
                                              scale=scale)

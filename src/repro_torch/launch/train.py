@@ -5,14 +5,21 @@ selects a config of the registry, ``--smoke`` its reduced form.
     python -m repro_torch.launch.train --arch llama3.2-3b --shape train_4k \
         --seq-len 4096 --batch 8 --microbatches 8 --steps 4      # one GPU
 
+    python -m repro_torch.launch.train --arch mamba2-1.3b --smoke --device cpu
+    python -m repro_torch.launch.train --arch zamba2-2.7b --shape train_4k \
+        --seq-len 4096 --batch 8 --microbatches 8 --steps 3      # one GPU
+
 Weights are random, from a seeded generator on the device; batches come
-from `data.pipeline.SyntheticLM`.  The dense-attention families train (the
-six dense archs, phi-3-vision, musicgen); a MoE, SSM or hybrid arch
-raises NotImplementedError, as does a ``--mesh`` of more than one device
-(sharded training is not ported: ROADMAP.md §1).  `main` returns the
-run's numbers: losses, grad norms, per-step seconds (host clock,
-synchronised each step), tokens/s over the steps after the first, peak
-device memory and the forward / backward / optimizer split.
+from `data.pipeline.SyntheticLM`.  Every arch of the registry trains: the
+dense archs, phi-3-vision, musicgen, the MoE archs (deepseek-v3 with MLA,
+maverick), mamba2 and zamba2.  On the card float32 at nemotron's head dim
+192 raises NotImplementedError (no backward kernel takes it,
+`train.step.check_trainable`), as does a ``--mesh`` of more than one
+device anywhere (sharded training is not ported: ROADMAP.md §1).  A full
+MoE config does not fit one card; `train.loop.train` trains a cut one.
+`main` returns the run's numbers: losses, grad norms, per-step seconds
+(host clock, synchronised each step), tokens/s over the steps after the
+first, peak device memory and the forward / backward / optimizer split.
 """
 from __future__ import annotations
 

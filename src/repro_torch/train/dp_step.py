@@ -7,7 +7,9 @@ shard of the global batch (rows ``r · B/n`` to ``(r + 1) · B/n`` on
 position ``r``, the reference's ``P(axis)``).  The gradient is reduced
 either exactly (a float32 mean) or compressed (`optim.compress`: int8
 values summed as int32, error feedback), and every rank applies the same
-AdamW update.  The residual of error feedback stays on its rank.
+AdamW update.  The residual of error feedback stays on its rank.  Every
+family of the registry trains here as in `train.step` (the MoE aux loss is
+in each rank's loss).
 """
 from __future__ import annotations
 
@@ -25,8 +27,10 @@ def make_dp_train_step(cfg: ModelConfig, lr_fn, mesh, axis: str = "data",
     batch)`` → (params, opt, err, {"loss", "grad_norm"}) on each rank of
     ``axis``: ``batch`` is the global batch (the rank takes its shard),
     ``err`` the rank's float32 residual (`init_residual(params)`: zeros
-    like each parameter); ``loss`` is the mean over the axis."""
-    check_trainable(cfg)
+    like each parameter); ``loss`` is the mean over the axis.  Every family
+    trains (`train.step`); on CUDA ranks `check_trainable` refuses what no
+    backward kernel takes."""
+    check_trainable(cfg, mesh.device)
     n, r = mesh.axis_size(axis), mesh.axis_index(axis)
 
     def step_fn(params, opt_state: adamw.AdamWState, err: dict,

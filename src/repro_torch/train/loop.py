@@ -25,7 +25,7 @@ from repro_torch import convert
 from repro_torch import device as device_lib
 from repro_torch.checkpoint import manager as ckpt
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
-from repro_torch.models import model
+from repro_torch.models import common, model
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.train.step import check_trainable, make_train_step
@@ -99,13 +99,18 @@ def train(cfg: ModelConfig, *, batch: int, seq_len: int, steps: int,
           log_every: int = 10, print_fn: Callable = print,
           device="cuda", clock: Optional[dict] = None) -> TrainResult:
     """Run (or resume) training from `model.init_params(cfg, seed,
-    device)` with float32 moments.  ``crash_at_step`` raises SimulatedCrash
-    AFTER that step's update but BEFORE its checkpoint — the worst case.
-    ``clock``: as `make_train_step`'s."""
+    device)` with moments of the config's ``optimizer_state_dtype``:
+    float32, as the reference's loop has them, but bf16 for the configs
+    of 100 B parameters and more (qwen1.5-110b, nemotron-4-340b,
+    deepseek-v3, maverick), whose moments the reference's loop keeps in
+    float32 too; a cut of one fits one card only with bf16 moments.
+    ``crash_at_step`` raises SimulatedCrash AFTER that step's update but
+    BEFORE its checkpoint — the worst case.  ``clock``: as
+    `make_train_step`'s."""
     dev = device_lib.resolve(device)
     check_trainable(cfg, dev)
     params = model.trainable(model.init_params(cfg, seed, dev))
-    opt = adamw.init(params, torch.float32)
+    opt = adamw.init(params, common.dtype_of(cfg.optimizer_state_dtype))
     start = 0
     resumed = None
     if checkpoint_dir and ckpt.latest_step(checkpoint_dir) is not None:

@@ -5,17 +5,19 @@ With ``num_microbatches`` M > 1 the global batch is cut into M chunks
 along its first axis, so the live activations are one microbatch's;
 gradients then accumulate in float32 whatever the parameters' dtype, and
 gradients and loss are divided by M.  With M = 1 the gradients stay in the
-parameters' dtype.  Each layer's attention runs the flash kernel forward
-and its hand-written gradient (`kernels.ops.flash_attention`); under
-``cfg.remat`` each layer's forward runs again in the backward.  The
-reference's ``constrain_params`` is the identity on one device: sharded
-training is not ported (ROADMAP.md §1).
+parameters' dtype.  Each GQA attention runs the flash kernel forward and
+its hand-written gradient (`kernels.ops.flash_attention`); MLA, the SSD
+mixer and the MoE router, dispatch and experts run plain PyTorch
+differentiated by autograd; under ``cfg.remat`` each layer's forward runs
+again in the backward.  The reference's ``constrain_params`` is the
+identity on one device: sharded training is not ported (ROADMAP.md §1).
 
-The dense-attention families train (the six dense archs, phi-3-vision with
-its patches, musicgen with its codebooks).  MoE, SSM and hybrid configs
-are refused until their training is ported and checked on the card; on a
-CUDA device, so is a head dim that no backward kernel takes (nemotron's
-192).
+Every family trains: the dense archs, phi-3-vision with its patches,
+musicgen with its codebooks, the MoE archs (the loss adds 0.01 times the
+Switch aux loss), MLA, mamba2's SSD stack and zamba2's hybrid stack.  On a
+CUDA device a config whose attention no backward kernel takes is refused
+up front (`check_trainable`): float32 at nemotron's head dim 192, which the
+``simt`` backward does not take and the ``wgmma`` one (bf16 only) cannot.
 """
 from __future__ import annotations
 
@@ -27,30 +29,30 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models import model
+from repro_torch.models import common, model
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 
-TRAINED_FAMILIES = ("dense", "vlm", "audio")
-
 
 def check_trainable(cfg: ModelConfig, device=None) -> None:
-    """Raise NotImplementedError for a config this port cannot train: the
-    MoE, MLA, SSM and hybrid families, and on a CUDA ``device`` an
-    attention head dim outside `flash_attention.BWD_HEAD_DIMS` (which the
-    backward would refuse only at its first call; an SSM has none)."""
-    if cfg.family not in TRAINED_FAMILIES or cfg.num_experts \
-            or cfg.attention == "mla":
+    """Raise NotImplementedError for a config this port cannot train on
+    ``device``: on a CUDA device, flash attention (GQA: the dense and MoE
+    archs but MLA, zamba2's shared block) at a head dim that the backward
+    route of its dtype (`flash_attention.route_bwd`) does not take — the
+    backward would refuse it only at its first call.  Every config passes
+    on the CPU, where the backward is its plain version."""
+    if device is None or torch.device(device).type != "cuda":
+        return
+    if cfg.family == "ssm" or cfg.attention == "mla" or not cfg.head_dim:
+        return
+    dtype = common.dtype_of(cfg.dtype)
+    r = fa.route_bwd(dtype, 2, cfg.head_dim)     # any training length > 1
+    if cfg.head_dim not in fa.bwd_head_dims(r):
         raise NotImplementedError(
-            f"training {cfg.name} ({cfg.family}) is not ported: MoE, MLA, "
-            "the SSD mixer and the hybrid stack are not yet trained on the "
-            "card; see ROADMAP.md §1")
-    if device is not None and torch.device(device).type == "cuda" \
-            and cfg.head_dim and cfg.head_dim not in fa.BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"training {cfg.name} on the card: no backward kernel takes its "
-            f"head dim {cfg.head_dim} (BWD_HEAD_DIMS {fa.BWD_HEAD_DIMS}); "
-            "see ROADMAP.md §1")
+            f"training {cfg.name} ({cfg.dtype}) on the card: no backward "
+            f"kernel takes its head dim {cfg.head_dim} (the {r} route takes "
+            f"{fa.bwd_head_dims(r)}; the wgmma route takes bf16 only); see "
+            "ROADMAP.md §1")
 
 
 @contextlib.contextmanager
@@ -75,8 +77,9 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable,
     {"loss", "grad_norm", "lr"}); ``params`` is a trainable `model.LM`
     (`model.trainable`), updated in place, ``batch`` a dict of tensors on
     its device.  With a ``clock`` dict, each step adds its forward,
-    backward and optimizer seconds to it."""
-    check_trainable(cfg)
+    backward and optimizer seconds to it.  Every config of the registry
+    trains; on a CUDA device `check_trainable` says which cannot, and
+    `loop.train` asks it before it builds the model."""
     M = num_microbatches
 
     def value_and_grad(leaves, params, mb, dev):

@@ -225,7 +225,8 @@ def test_flash_attention_kernel_equals_plain(cuda, dtype, causal, b, lq, lk,
     ("wgmma", torch.bfloat16, 2, 257, 457, 6, 2, 80, True, 17),
     ("simt", torch.float32, 2, 100, 100, 6, 2, 96, True, 0),
     ("simt", torch.float32, 2, 130, 130, 8, 8, 80, True, 0),
-    ("simt", torch.bfloat16, 1, 65, 129, 6, 2, 192, True, 64),
+    ("wgmma", torch.bfloat16, 1, 65, 129, 6, 2, 192, True, 64),
+    ("simt", torch.float32, 1, 65, 129, 6, 2, 192, True, 64),
     ("decode", torch.bfloat16, 2, 1, 300, 8, 8, 80, True, 299)])
 def test_flash_route_kernel_equals_plain(cuda, route, dtype, b, lq, lk, h,
                                          kvh, d, causal, kv_offset):

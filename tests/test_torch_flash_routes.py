@@ -60,7 +60,8 @@ ROUTE_CASES = [
     ((2, 128, 128, 4, 4, 64, False, BF16), "wgmma"),
     ((2, 100, 100, 6, 2, 96, True, BF16), "wgmma"),
     ((1, 130, 190, 8, 1, 128, True, BF16), "wgmma"),
-    ((1, 65, 129, 6, 2, 192, True, BF16), "simt"),
+    ((1, 65, 129, 6, 2, 192, True, BF16), "wgmma"),
+    ((1, 65, 129, 6, 2, 192, True, F32), "simt"),
     ((3, 33, 33, 4, 4, 16, True, BF16), "simt"),
     ((2, 1, 77, 8, 1, 64, True, F32), "decode"),
     ((2, 200, 457, 6, 2, 64, True, BF16), "wgmma"),
@@ -85,8 +86,11 @@ ROUTE_CASES = [
     ((1, 130, 190, 8, 1, 80, True, BF16), "wgmma"),
     ((1, 130, 190, 8, 1, 96, False, BF16), "wgmma"),
     ((2, 200, 457, 6, 2, 80, True, BF16), "wgmma"),
-    # head dims no wgmma instantiation takes: nemotron's 192, and 16
-    ((4, 2048, 2048, 96, 8, 192, True, BF16), "simt"),
+    # nemotron's head dim 192 (H 96 over KVH 8): the bf16 prefill on
+    # wgmma, float32 on simt; a head dim no wgmma instantiation takes: 16
+    ((4, 2048, 2048, 96, 8, 192, True, BF16), "wgmma"),
+    ((1, 4096, 4096, 96, 8, 192, True, BF16), "wgmma"),
+    ((1, 4096, 4096, 96, 8, 192, True, F32), "simt"),
     ((3, 33, 33, 4, 4, 16, False, BF16), "simt"),
 ]
 
@@ -243,13 +247,13 @@ def test_cpu_decode_runs_the_plain_version_and_counts_nothing():
 
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "offset", "shape"])
 def test_wgmma_wrapper_refuses_what_the_kernel_does_not_take(bad):
-    """The wgmma route takes bf16 at D 64, 80, 96 or 128 only (not 192);
-    the checks run before any build or launch."""
+    """The wgmma route takes bf16 at D 64, 80, 96, 128 or 192 only (not
+    48); the checks run before any build or launch."""
     dt, d, off, kvh = torch.bfloat16, 128, 0, 2
     if bad == "dtype":
         dt = torch.float32
     elif bad == "head_dim":
-        d = 192
+        d = 48
     elif bad == "offset":
         off = -1
     else:

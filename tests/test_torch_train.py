@@ -49,8 +49,6 @@ from repro_torch.train.step import make_train_step
 torch.set_num_threads(1)
 
 TRAIN_ARCHS = ["llama3.2-3b", "phi-3-vision-4.2b", "musicgen-medium"]
-REFUSED_ARCHS = ["deepseek-v3-671b", "llama4-maverick-400b-a17b",
-                 "mamba2-1.3b", "zamba2-2.7b"]
 
 
 def _np(tree):
@@ -299,15 +297,6 @@ def test_train_steps_match_the_reference(microbatches):
         assert float(tm["lr"]) == pytest.approx(float(jm["lr"]), rel=1e-6)
     _leaves_close(dict(tp.named_parameters()), jp, tc, atol=2e-5)
     _leaves_close(to.m, jo.m, tc, atol=1e-6)
-
-
-@pytest.mark.parametrize("arch", REFUSED_ARCHS)
-def test_moe_ssm_and_hybrid_training_is_refused(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(registry.smoke(arch), lambda s: 1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu",
-                      "--steps", "1"])
 
 
 # -------------------------------------------------------------------- data

@@ -1,16 +1,18 @@
 """Training of every family against the reference, on the CPU: the
 forward and gradient of each arch's smoke config, the gradient leaves of
 the MoE, MLA, SSD and hybrid families against ``jax.value_and_grad`` with
-remat on and off, training checkpoints that each package restores from
-the other's, and the refusal of a head dim that no backward kernel takes.
+remat on and off, two train steps of each of those families against the
+reference's jitted step at 1 and 2 microbatches, the launcher on each,
+training checkpoints that each package restores from the other's, the
+head-dim-192 backward's plain version against ``jax.grad`` of the
+reference's blocked attention, and which head dims the card refuses.
 
-The families that `train.step.check_trainable` still refuses are driven
-through `model.loss_fn` directly (as the reference's own smoke test drives
-its ``loss_fn``): what is checked is that their gradients are right, not
-that the launcher trains them.  Gradient leaves are held at the
-tolerances of ``tests/test_torch_train.py``'s leaf test (atol 1e-6 +
-rtol 1e-5) on the same weights (`convert.lm_params_from_jax`) and
-batches."""
+Gradient leaves are held at the tolerances of ``tests/
+test_torch_train.py``'s leaf test (atol 1e-6 + rtol 1e-5) on the same
+weights (`convert.lm_params_from_jax`) and batches; train steps at that
+file's step test's (loss and grad norm rel 1e-5, parameters atol 2e-5,
+moments atol 1e-6); the D 192 gradient at the log-sum-exp form's atol
+2e-5 (``tests/test_torch_flash_bwd.py``)."""
 import dataclasses
 
 import jax
@@ -21,13 +23,20 @@ import torch
 
 from repro.configs import registry as jregistry
 from repro.data import pipeline as jpipeline
+from repro.models import attention as jattn
 from repro.models import model as jmodel
+from repro.optim import adamw as jadamw
 from repro.train import loop as jloop
+from repro.train import step as jstep
 from repro_torch import convert
 from repro_torch.configs import registry
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
+from repro_torch.launch import train as tlaunch
 from repro_torch.models import model
+from repro_torch.optim import adamw
 from repro_torch.train import loop
-from repro_torch.train.step import check_trainable
+from repro_torch.train.step import check_trainable, make_train_step
 
 # pytest-xdist runs several workers on the machine's cores; one intra-op
 # thread each keeps torch's many small CPU ops from oversubscribing them.
@@ -189,16 +198,162 @@ def test_port_resumes_from_the_references_training_checkpoint(tmp_path):
 
 
 def test_training_refuses_a_head_dim_without_a_backward_kernel():
-    """nemotron-4-340b's head dim 192 has no backward kernel: refused up
-    front on a CUDA device, not at the first backward; the CPU (the plain
-    version) and the other dense archs pass."""
+    """On a CUDA device float32 at nemotron-4-340b's head dim 192 is
+    refused up front (the simt backward stops at 128, the wgmma one takes
+    bf16 only), not at the first backward; bf16 at 192 (its config) is
+    admitted, as is every bf16 arch of the registry; the CPU (the plain
+    version) admits every arch in either dtype."""
     nemotron = registry.get("nemotron-4-340b")
+    f32 = dataclasses.replace(nemotron, dtype="float32")
     with pytest.raises(NotImplementedError, match="head dim 192"):
-        check_trainable(nemotron, torch.device("cuda"))
+        check_trainable(f32, torch.device("cuda"))
     with pytest.raises(NotImplementedError, match="head dim 192"):
-        check_trainable(nemotron, "cuda:0")
-    check_trainable(nemotron, "cpu")
-    check_trainable(nemotron)
-    for arch in ("llama3.2-3b", "qwen1.5-110b", "phi-3-vision-4.2b",
-                 "musicgen-medium"):
-        check_trainable(registry.get(arch), "cuda")
+        check_trainable(f32, "cuda:0")
+    for arch in registry.ARCHS:
+        cfg = registry.get(arch)
+        assert cfg.dtype == "bfloat16", arch
+        check_trainable(cfg, "cuda")
+        for c in (cfg, dataclasses.replace(cfg, dtype="float32")):
+            check_trainable(c, "cpu")
+            check_trainable(c)
+
+
+def _steps(jc, tc, microbatches):
+    """Two steps of the reference's jitted ``make_train_step`` and the
+    port's (cosine lr, no warmup) from the same weights on the same
+    ``SyntheticLM`` batches; returns both final states, the metrics and
+    the reference's first moments after step 0 (0.1 times its first
+    gradient, clipped)."""
+    jp = jmodel.init_params(jax.random.key(0), jc)
+    tp = model.trainable(convert.lm_params_from_jax(_np(jp), tc,
+                                                    device="cpu"))
+    lr = (jadamw.cosine_schedule(1e-3, 0, 10),
+          adamw.cosine_schedule(1e-3, 0, 10))
+    jfn = jax.jit(jstep.make_train_step(jc, lr[0], microbatches))
+    tfn = make_train_step(tc, lr[1], microbatches)
+    jo, to = jadamw.init(jp), adamw.init(tp)
+    data = jpipeline.SyntheticLM(jc, 4, 32, seed=2)
+    metrics = []
+    for step in range(2):
+        b = data.batch_at(step)
+        jp, jo, jm = jfn(jp, jo, {k: jnp.asarray(v) for k, v in b.items()})
+        tp, to, tm = tfn(tp, to, {k: torch.from_numpy(np.ascontiguousarray(
+            v)) for k, v in b.items()})
+        metrics.append((jm, tm))
+        if step == 0:
+            m0 = jo.m
+    return jp, jo, tp, to, metrics, m0
+
+
+def _close(got: dict, want_tree, cfg, atol):
+    want = convert.lm_named_leaves(_np(want_tree), cfg)
+    assert set(got) == set(want)
+    for name, t in got.items():
+        np.testing.assert_allclose(t.detach().float().numpy(),
+                                   np.asarray(want[name], np.float32),
+                                   atol=atol, rtol=0, err_msg=name)
+
+
+# AdamW's first update of an element is lr · g / (|g| + eps) with eps 1e-8:
+# where the first gradient |g| is below G_WELL_POSED its float32 rounding
+# (sums of terms ~1e-4 that cancel, in another order on each side) moves
+# the update by up to ~0.2 lr (a port/reference difference of 2e-9 at
+# |g| ~ 1e-9 moves it 1.4e-4).  Such elements are held to the two steps'
+# largest move, 2 lr; every other element to atol 2e-5.
+G_WELL_POSED = 1e-7
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_train_steps_match_the_reference(arch, microbatches):
+    """Two steps of ``make_train_step`` on the MoE (with MLA), SSD and
+    hybrid smoke configs against the reference's: loss (the MoE aux loss
+    in it), grad norm and lr each step, then every first moment (atol
+    1e-6) and every parameter (atol 2e-5 where the first gradient is
+    above G_WELL_POSED, within 2 lr elsewhere)."""
+    jc, tc = jregistry.smoke(arch), registry.smoke(arch)
+    jp, jo, tp, to, metrics, m0 = _steps(jc, tc, microbatches)
+    for jm, tm in metrics:
+        assert float(tm["loss"]) == pytest.approx(float(jm["loss"]),
+                                                  rel=1e-5)
+        assert float(tm["grad_norm"]) == pytest.approx(
+            float(jm["grad_norm"]), rel=1e-5)
+        assert float(tm["lr"]) == pytest.approx(float(jm["lr"]), rel=1e-6)
+    _close(to.m, jo.m, tc, atol=1e-6)
+    want = convert.lm_named_leaves(_np(jp), tc)
+    g0 = convert.lm_named_leaves(_np(m0), tc)
+    named = dict(tp.named_parameters())
+    assert set(named) == set(want)
+    for name, t in named.items():
+        diff = np.abs(t.detach().numpy() - np.asarray(want[name]))
+        well = np.abs(np.asarray(g0[name])) / 0.1 >= G_WELL_POSED
+        assert diff[well].max(initial=0) <= 2e-5, (name, diff[well].max())
+        assert diff.max(initial=0) <= 2e-3, (name, diff.max())
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_launcher_trains_every_family_on_cpu(arch, capsys):
+    """``launch.train.main`` on each family's smoke config on the CPU, two
+    microbatches: finite losses and grad norms, every step timed."""
+    out = tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--steps", "2", "--microbatches", "2", "--batch",
+                        "4", "--seq-len", "32"])
+    assert out["steps_run"] == 2 and len(out["step_seconds"]) == 2
+    assert np.isfinite(out["losses"]).all()
+    assert np.isfinite(out["grad_norms"]).all()
+    assert f"[launch.train] {arch}-smoke" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_head_dim_192_backward_matches_the_references_attention(causal):
+    """The plain version of the D 192 backward (the wgmma route's form,
+    reading the forward's log-sum-exp) against ``jax.grad`` of the
+    reference's blocked online softmax (``_blocked_attn``) at nemotron's
+    head dim, GQA 12 (12 query heads on one KV head), L 40; non-causal as
+    the reference's scan with a key offset past every key."""
+    b, L, h, kvh, d = 2, 40, 12, 1, 192
+    rng = np.random.default_rng(192 + causal)
+    q, do = (rng.standard_normal((b, L, h, d), dtype=np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((b, L, kvh, d), dtype=np.float32)
+            for _ in range(2))
+    scale = d ** -0.5
+
+    def jattention(jq, jk, jv):
+        out = jattn._blocked_attn(jq.reshape(b, L, kvh, h // kvh, d),
+                                  lambda j: (jk, jv), 1, L, 0, scale,
+                                  0 if causal else L)
+        return out.reshape(b, L, h, d)
+
+    want = jax.grad(lambda *a: jnp.sum(jattention(*a) * do),
+                    argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o = ref.flash_attention_ref(tq, tk, tv, causal=causal, scale=scale)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jattention(q, k, v)),
+                               atol=1e-5, rtol=1e-5)
+    lse = ref.flash_attention_lse_ref(tq, tk, causal=causal, scale=scale)
+    got = ref.flash_attention_bwd_ref(tq, tk, tv, o, tdo, causal=causal,
+                                      scale=scale, lse=lse)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=2e-5,
+                                   rtol=1e-5, err_msg=name)
+
+
+def test_head_dim_192_takes_the_wgmma_routes():
+    """bf16 at D 192 takes the wgmma forward (nemotron's serving prefill
+    and training forward, which writes the log-sum-exp) and the wgmma
+    backward, in three launches (dq, dv, dk); float32 there takes simt
+    forward and has no backward kernel."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for lq in (2, 130, 4096):
+        assert fa.route(bf16, 1, lq, lq, 96, 8, 192, True) == "wgmma"
+        assert fa.route(bf16, 1, lq, lq, 96, 8, 192, False) == "wgmma"
+        assert fa.route_bwd(bf16, lq, 192) == "wgmma"
+        assert fa.bwd_launches(bf16, lq, 192) == 3
+        assert fa.route(f32, 1, lq, lq, 96, 8, 192, True) == "simt"
+        assert fa.route_bwd(f32, lq, 192) == "simt"
+    assert fa.route(bf16, 1, 1, 4096, 96, 8, 192, True) == "decode"
+    assert 192 in fa.bwd_head_dims("wgmma")
+    assert 192 not in fa.bwd_head_dims("simt")
+    assert fa.BWD_HEAD_DIMS == (16, 32, 64, 80, 96, 128, 192)
+    assert fa.bwd_launches(bf16, 4096, 128) == 2
