@@ -325,6 +325,43 @@ else.  Phases, each of which raises on failure:
     config on the card, float32: ``train_with_restarts`` with crashes
     after steps 5 and 9 against a clean run, within 1e-5
     (``TRAIN_RESTART_TOL``);
+16g. sharded training (ZeRO-3 over the whole mesh, `distributed.fsdp`)
+    on 4 ranks sharing card 0 over gloo (NCCL refuses two ranks on one
+    card), after the training phases are released:
+    ([train mesh golden]) the ``"train_mesh"`` entry's models (smoke
+    configs, float32: llama3.2-3b, deepseek-v3 with MLA and the a2a MoE,
+    zamba2 on 2x2, maverick on a data-only mesh of 4; 2 steps of 8 x 256
+    tokens in 2 microbatches) through `mesh_smoke.rank_train_mesh`
+    against the reference's sharded step within ``TRAIN_GOLD_TOL``, every
+    expert pick equal, the simt forward and backward on every rank;
+    ([train mesh shards]) every rank's shards of the two main configs
+    drawn sharded against the one-device draw's slices, bit for bit;
+    ([train mesh grads]) on llama's draws, step 0's gradient of the
+    sharded step on 4 x 1,024 tokens, every leaf gathered, against the
+    one-device gradient on rank 0 within ``TRAIN_MESH_GRAD_RTOL``
+    (relative L2, each leaf), beside the control: the same with the
+    one-device gradient's blocks rolled by one (a block on another
+    rank's slice);
+    ([train mesh main]) llama3.2-3b at full width cut to 2 layers, bf16,
+    float32 moments, 3 steps of 4 x 4,096 tokens (one row a rank)
+    through ``launch.train.main(... --mesh 2x2 --backend gloo)``, and
+    ([train mesh moe]) maverick at full width, 2 layers of 4 experts (2
+    a rank on the a2a route; at 8 four ranks' peaks passed the card),
+    bf16 moments, 1 step of 4 x 2,048 tokens:
+    every step's loss and grad norm within ``TRAIN_MESH_LOSS_RTOL`` and
+    ``TRAIN_MESH_GN_RTOL`` of a one-device run of the same cut (at least
+    2 steps, for the control: its step 1 against its step 0, another
+    batch on the same weights), 2 wgmma
+    forwards (the forward and remat's recompute) and 2 wgmma backward
+    launches (dq, dk/dv) a layer, step and rank, no simt; it prints the
+    step seconds, tokens/s, each rank's peak, the forward / backward /
+    optimizer split, the collectives and bytes by axis and the bytes
+    staged through the host a step; ([train
+    mesh nccl]) the smoke llama on a 1x1 NCCL mesh equal to one device
+    bit for bit (deterministic algorithms in both,
+    `mesh_smoke.rank_train_deterministic`).  ``--train-mesh-only``
+    builds the kernels and runs this phase alone; the result lines end
+    with this phase's numbers;
 17. flash timing at (b)'s prefill and decode shapes, at zamba2's (H =
     KVH 32, D 80) and at phi-3-vision's (H = KVH 32, D 96): the route the
     main path takes and the simt route (the CUDA-core kernel, the earlier
@@ -462,6 +499,37 @@ TRAIN_FAMILY_CUTS = {
     "nemotron-4-340b": dict(d_model=4608, d_ff=18432, num_layers=4),
 }
 TRAIN_FAMILY_STEPS, TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 3, 8, 4096
+# Phase 16g, sharded training on 4 ranks sharing the card over gloo: the
+# launcher's arguments of the main path (llama3.2-3b at full width, 2
+# layers, 4 x 4,096 tokens, one row a rank), the MoE path (maverick, 2
+# layers of 4 experts: at 8, four ranks' peaks passed the card's memory;
+# 4 x 2,048 tokens, 1 step: the phase's 300 s allow no second) and the
+# 1x1 NCCL mesh (the smoke llama), the mesh's arguments; the limits on
+# every step's loss and grad norm against a one-device run of the same
+# cut, and on each gradient leaf of step 0 gathered from the shards
+# against the one-device gradient (relative L2, [train mesh grads]),
+# each about 10x the largest reading of a sound run on the card and well
+# under its control's smallest (PERF.md §6: loss 1.555e-06 / control
+# 1.346e-04, grad norm 1.564e-05 / 1.599e-03, gradient leaf 5.534e-03 /
+# 1.397); the configs whose sharded draw is checked, with the rows x
+# tokens of the gradient check (llama's alone, to keep the phase's time:
+# maverick's cut takes the specs of its smoke config on 2x2, whose
+# gradient tests/test_torch_train_mesh.py checks the same way, and the
+# a2a route's per-block capacity and aux are the reference's own, so its
+# router gradient differs from one device's by design).
+TRAIN_MESH_MAIN_ARGV = ["--arch", "llama3.2-3b", "--num-layers", "2",
+                        "--batch", "4", "--seq-len", "4096", "--steps", "3"]
+TRAIN_MESH_MOE_ARGV = ["--arch", "llama4-maverick-400b-a17b",
+                       "--num-layers", "2", "--num-experts", "4",
+                       "--batch", "4", "--seq-len", "2048", "--steps", "1"]
+TRAIN_MESH_NCCL_ARGV = ["--arch", "llama3.2-3b", "--smoke", "--steps", "3"]
+TRAIN_MESH_ARGS = ["--mesh", "2x2", "--backend", "gloo", "--timeout-s",
+                   "600"]
+TRAIN_MESH_LOSS_RTOL, TRAIN_MESH_GN_RTOL = 2e-5, 2e-4
+TRAIN_MESH_GRAD_RTOL = 5e-2
+TRAIN_MESH_SHARD_CHECKS = [("llama3.2-3b", {"num_layers": 2}, (4, 1024)),
+                           ("llama4-maverick-400b-a17b",
+                            {"num_layers": 2, "num_experts": 4}, None)]
 # [train families bf16]: the kernels' gradient against plain attention.
 TRAIN_FAMILY_BF16 = {
     "zamba2-2.7b": dict(num_layers=12),
@@ -2493,8 +2561,8 @@ def _check_golden_model(gold: dict, cfg, dev, tag: str, tree) -> dict:
     steps = len(gold["decode"])
     picked, route = [], mlp._route
 
-    def recording(router, xt, k):     # the port's picks, call by call
-        gate, idx, aux = route(router, xt, k)
+    def recording(router, xt, k, mesh=None):   # the port's picks, by call
+        gate, idx, aux = route(router, xt, k, mesh)
         picked.append(idx.cpu())
         return gate, idx, aux
 
@@ -3460,12 +3528,12 @@ class _PinnedRoutes:
         self.mlp, self.orig, self.picks, self.flips = mlp, mlp._route, [], 0
         self.tokens, self.calls = 0, 0
 
-    def record(self, router, xt, k):
-        gate, idx, aux = self.orig(router, xt, k)
+    def record(self, router, xt, k, mesh=None):
+        gate, idx, aux = self.orig(router, xt, k, mesh)
         self.picks.append(idx.detach())
         return gate, idx, aux
 
-    def replay(self, router, xt, k):
+    def replay(self, router, xt, k, mesh=None):    # one device: no mesh
         idx = self.picks[self.calls]
         self.calls += 1
         probs = torch.softmax(xt.float() @ router, -1)
@@ -3474,10 +3542,9 @@ class _PinnedRoutes:
         self.tokens += idx.shape[0]
         gate = probs.gather(1, idx)
         gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-        e = probs.shape[-1]
-        frac = torch.bincount(idx.reshape(-1), minlength=e).float() \
-            / xt.shape[0]
-        return gate, idx, e * (frac * probs.mean(0)).sum()
+        e, n = probs.shape[-1], xt.shape[0]
+        counts = torch.bincount(idx.reshape(-1), minlength=e)
+        return gate, idx, e * (counts.float() / n * (probs.sum(0) / n)).sum()
 
 
 def check_train_bf16(dev, cfg=None, tag: str = "train bf16") -> dict:
@@ -3781,6 +3848,286 @@ def run_train_restart(dev) -> dict:
     return {"max_abs_err": max(worst, loss_err)}
 
 
+def _train_mesh_jobs(entry: dict) -> list:
+    """The ``"train_mesh"`` golden's jobs (each model's job fields, not its
+    results), for `mesh_smoke.rank_train_mesh`."""
+    keep = ("arch", "shape", "batch", "seq", "microbatches", "num_steps", "lr",
+            "param_seed", "data_seed", "ssm_heads_seed", "leaves")
+    return [dict({k: gold[k] for k in keep}, name=name, full=False)
+            for name, gold in entry.items()]
+
+
+def run_train_mesh_golden(golden: dict, device: str = "cuda") -> dict:
+    """``[train mesh golden]`` and ``[train mesh shards]``: the
+    ``"train_mesh"`` entry's models (smoke configs, float32, TF32 off;
+    llama3.2-3b, deepseek-v3 and zamba2 on a 2x2 mesh, maverick on a
+    data-only mesh of 4) through `mesh_smoke.rank_train_mesh` on 4 gloo
+    ranks sharing card 0, then `mesh_smoke.rank_shard_init` of
+    ``TRAIN_MESH_SHARD_CHECKS`` in the same world: each
+    step's loss and grad norm on every rank, and rank 0's parameters
+    after the steps (`_leaf_errors`), within TRAIN_GOLD_TOL of the
+    reference's sharded step; every expert pick equal; the simt forward
+    and backward launched on every rank of a model with GQA attention
+    (``device="cpu"`` rehearses it with the plain versions, and then
+    fails only on those launch counts)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import accel, mesh_smoke
+    from repro_torch.launch import train as tlaunch
+
+    entry = golden["train_mesh"]
+    jobs = _train_mesh_jobs(entry)
+    t0 = time.perf_counter()
+    cuts = [c for _, c, _ in TRAIN_MESH_SHARD_CHECKS]
+    checks = [(dataclasses.replace(registry.get(arch), **c), rows)
+              for arch, c, rows in TRAIN_MESH_SHARD_CHECKS]
+    world = accel.spawn(mesh_smoke.rank_train_mesh_phase, 4,
+                        args=(jobs, checks, (2, 2), ("data", "model")),
+                        backend="gloo", device=device, timeout_s=900,
+                        kernels=tlaunch.TRAIN_KERNELS)
+    seconds = time.perf_counter() - t0
+    ranks = [r["jobs"] for r in world]
+    worst, out = 0.0, {}
+    for i, job in enumerate(jobs):
+        gold = entry[job["name"]]
+        for r in ranks:
+            got = r[i]
+            for s, want in zip(got["steps"], gold["steps"]):
+                for key in ("loss", "grad_norm"):
+                    worst = max(worst, abs(s[key] - want[key]) / want[key])
+            digest = hashlib.sha256()
+            for call in got["routes"]:
+                digest.update(np.ascontiguousarray(call, "<i4").tobytes())
+            _check(len(got["routes"]) == gold["route_calls"]
+                   and digest.hexdigest() == gold["routes_sha256"],
+                   f"train mesh golden {job['name']}: rank {got['rank']} "
+                   "picks other experts than the reference")
+            if registry.smoke(job["arch"]).attention != "mla":   # flash
+                _check(got["launches"]["flash_simt"] > 0
+                       and got["launches"]["flash_bwd_simt"] > 0,
+                       f"train mesh golden {job['name']}: rank "
+                       f"{got['rank']} launched {got['launches']}")
+        leaves = {k: torch.from_numpy(v) for k, v in
+                  ranks[0][i]["leaves"].items()}
+        p_err = _leaf_errors(leaves, gold["params"],
+                             f"train mesh {job['name']}")
+        worst = max(worst, p_err)
+        out[job["name"]] = dict(
+            launches=[r[i]["launches"] for r in ranks],
+            routes=gold["route_calls"], router_margin=gold["router_margin"])
+    _check(worst <= TRAIN_GOLD_TOL, f"train mesh golden: relative "
+           f"difference {worst} (limit {TRAIN_GOLD_TOL})")
+    print(f"[train mesh golden] {', '.join(j['name'] for j in jobs)} "
+          f"(smoke configs, float32, 2 steps of {jobs[0]['batch']} x "
+          f"{jobs[0]['seq']} tokens in {jobs[0]['microbatches']} "
+          f"microbatches) on 4 gloo ranks sharing the card, meshes "
+          f"{[tuple(j['shape']) for j in jobs]}: losses, grad norms and "
+          f"the parameters after the steps within {worst:.3e} of the "
+          f"reference's sharded step (limit {TRAIN_GOLD_TOL}); every expert "
+          f"pick of "
+          + ", ".join(f"{n} ({v['routes']} calls, router margin "
+                      f"{v['router_margin']:.2e})"
+                      for n, v in out.items() if v["routes"])
+          + " the reference's; simt launches on rank 0 "
+          + ", ".join(f"{n} {v['launches'][0]['flash_simt']} forward / "
+                      f"{v['launches'][0]['flash_bwd_simt']} backward"
+                      for n, v in out.items())
+          + f"; the world (with the shards' and gradients' checks below) "
+          f"{seconds:.1f}s")
+    shards = [r["shards"] for r in world]
+    for r in shards:
+        _check(not any(c["differ"] for c in r["checks"]),
+               f"train mesh shards: rank {r['rank']}'s slices differ from "
+               f"the one-device draw: {r['checks']}")
+    print(f"[train mesh shards] "
+          + "; ".join(f"{c['name']} {cut}: {c['leaves']} leaves"
+                      for c, cut in zip(shards[0]["checks"], cuts))
+          + ": every rank's shards (" + ", ".join(
+              f"{sum(c['bytes'] for c in r['checks']) / 2 ** 30:.3f}"
+              for r in shards)
+          + " GiB) equal the slices of the one-device draw bit for bit")
+    grads = {}
+    for c, (_, cut, rows) in zip(shards[0]["checks"],
+                                 TRAIN_MESH_SHARD_CHECKS):
+        if rows is None:
+            continue
+        g = grads[c["name"]] = c["grads"]
+        _check(np.isfinite(g["err"]) and g["err"] <= TRAIN_MESH_GRAD_RTOL,
+               f"train mesh grads {c['name']}: leaf {g.get('worst_leaf')} "
+               f"of the sharded gradient differs from one device's by "
+               f"{g['err']} (limit {TRAIN_MESH_GRAD_RTOL})")
+        print(f"[train mesh grads] {c['name']} {cut}: step 0 of the sharded "
+              f"step on {rows[0]} x {rows[1]} tokens (2x2, bf16), each of "
+              f"its {g['leaves']} gradient leaves gathered from the shards "
+              f"against one device's gradient: worst {g['err']:.3e} "
+              f"({g['worst_leaf']}; limit {TRAIN_MESH_GRAD_RTOL} relative "
+              f"L2), control (a block rolled onto its neighbour's slice) at "
+              f"least {g['control']:.3e} ({g['control_leaf']}); loss "
+              f"{g['loss']:.6f} against {g['one_device_loss']:.6f}")
+    return {"max_rel_err": worst, "models": out, "seconds": seconds,
+            "grads": grads}
+
+
+def _mesh_step_line(tag: str, out: dict, one: dict, cfg) -> dict:
+    """Check a launcher run on the mesh against the one-device run of the
+    same cut and steps (the same weights and batches) and print its
+    numbers; returns them."""
+    steps = len(out["losses"])
+
+    def rel(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+    loss_err = rel(out["losses"], one["losses"])
+    gn_err = rel(out["grad_norms"], one["grad_norms"])
+    # The control: what another batch on the same weights gives.
+    control = dict(loss=rel(one["losses"][1:2], one["losses"][:1])[0],
+                   grad_norm=rel(one["grad_norms"][1:2],
+                                 one["grad_norms"][:1])[0])
+    _check(all(np.isfinite(out["losses"])) and all(
+        np.isfinite(out["grad_norms"])), f"{tag}: losses {out['losses']}, "
+        f"grad norms {out['grad_norms']}")
+    _check(len(loss_err) == steps
+           and max(loss_err) <= TRAIN_MESH_LOSS_RTOL
+           and max(gn_err) <= TRAIN_MESH_GN_RTOL,
+           f"{tag}: the steps differ from one device's: loss {loss_err} "
+           f"(limit {TRAIN_MESH_LOSS_RTOL}), grad norm {gn_err} (limit "
+           f"{TRAIN_MESH_GN_RTOL})")
+    from repro_torch.models import model
+
+    attn = sum(k != "mamba" for k in model.layer_kinds(cfg))
+    micro = out.get("microbatches", 1)
+    per_rank = [{k: r[k] / steps for k in (
+        "flash_wgmma", "flash_bwd_wgmma", "flash_simt", "flash_bwd_simt")}
+        for r in out["rank_launches"]]
+    want = {"flash_wgmma": 2 * attn * micro,
+            "flash_bwd_wgmma": 2 * attn * micro,
+            "flash_simt": 0, "flash_bwd_simt": 0}
+    _check(all(p == want for p in per_rank), f"{tag}: launches a step and "
+           f"rank {per_rank}, not {want}")
+    total_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    _check(sum(out["rank_peak_gib"]) < total_gib, f"{tag}: peaks "
+           f"{out['rank_peak_gib']} GiB together pass the card's")
+    stats = {a: {k: v / steps for k, v in st.items()}
+             for a, st in out["mesh_stats"].items()}
+    staged = out["staged_bytes"] / steps
+    split = {k: v / steps for k, v in out["clock"].items()}
+    tokens = out["batch"] * out["seq_len"]
+    print(f"[{tag}] {cfg.name}, {cfg.num_layers} layers at full width (d "
+          f"{cfg.d_model}, vocabulary {cfg.vocab_size}"
+          + (f", {cfg.num_experts} experts" if cfg.num_experts else "")
+          + f"), {cfg.param_count() / 1e9:.3f} B parameters, bf16, "
+          f"{cfg.optimizer_state_dtype} moments, through launch.train.main "
+          f"on a 2x2 gloo mesh of 4 ranks sharing the card: {steps} steps of "
+          f"{out['batch']} x {out['seq_len']} tokens ({micro} microbatch, "
+          f"one row a rank); losses {[round(x, 4) for x in out['losses']]}, "
+          f"grad norms {[round(x, 4) for x in out['grad_norms']]}; steps "
+          f"0-{steps - 1} within "
+          + ", ".join(f"{x:.3e}" for x in loss_err) + " (loss) and "
+          + ", ".join(f"{x:.3e}" for x in gn_err) + " (grad norm) of one "
+          f"device's (limits {TRAIN_MESH_LOSS_RTOL}, {TRAIN_MESH_GN_RTOL}; "
+          f"control, one device's step 1 against its step 0: "
+          f"{control['loss']:.3e}, {control['grad_norm']:.3e}); "
+          f"{out['step_s']:.3f}s a step ("
+          + (f"median of steps 1-{steps - 1}; " if steps > 1 else "")
+          + f"step 0 {out['step_seconds'][0]:.3f}s; one device, median of "
+          f"its steps after the first, {one['step_s']:.3f}s), "
+          f"{tokens / out['step_s']:.0f} "
+          f"tokens/s; forward / backward / optimizer "
+          + " / ".join(f"{split.get(k, 0.0):.3f}" for k in (
+              "forward", "backward", "optimizer"))
+          + f" s a step (rank 0); peak per rank "
+          + ", ".join(f"{g:.2f}" for g in out["rank_peak_gib"])
+          + f" GiB (one device {one['peak_gib']:.2f}); collectives a step "
+          f"(rank 0) "
+          + ", ".join(f"{a} {v['calls']:.0f} calls / "
+                      f"{v['bytes'] / 2 ** 30:.3f} GiB"
+                      for a, v in stats.items())
+          + f", {staged / 2 ** 30:.3f} GiB staged through the host a step; "
+          f"flash launches a step and rank {per_rank[0]}")
+    return dict(step_s=out["step_s"], tokens_per_s=tokens / out["step_s"],
+                peak_gib=out["rank_peak_gib"], split=split,
+                stats_per_step=stats, staged_per_step=staged,
+                per_rank=per_rank, loss_err=loss_err, grad_norm_err=gn_err,
+                control=control, rank_launches=out["rank_launches"],
+                one_device_step_s=one["step_s"],
+                one_device_peak_gib=one["peak_gib"])
+
+
+def _train_mesh_result(tm: dict) -> None:
+    """Print phase 16g's numbers on one result line (the end of the
+    output, where a log that keeps only the tail still holds them)."""
+    def run(tag):
+        r = tm[tag]
+        return (f"{tag} {r['step_s']:.3f}s a step ({r['tokens_per_s']:.0f} "
+                f"tokens/s; one device {r['one_device_step_s']:.3f}s), "
+                "forward / backward / optimizer " + " / ".join(
+                    f"{r['split'].get(k, 0.0):.3f}"
+                    for k in ("forward", "backward", "optimizer"))
+                + "s, peak " + ", ".join(f"{g:.2f}" for g in r["peak_gib"])
+                + f" GiB a rank (one device {r['one_device_peak_gib']:.2f}), "
+                f"{r['staged_per_step'] / 2 ** 30:.3f} GiB staged a rank "
+                "and step, loss / grad norm within "
+                f"{max(r['loss_err']):.3e} / {max(r['grad_norm_err']):.3e} "
+                f"of one device (control {r['control']['loss']:.3e} / "
+                f"{r['control']['grad_norm']:.3e})")
+
+    g = tm["golden"]
+    print(f"[result train mesh] golden within {g['max_rel_err']:.3e}; "
+          "grads " + ", ".join(
+              f"{arch} {r['err']:.3e} (control {r['control']:.3e})"
+              for arch, r in g["grads"].items())
+          + f"; {run('main')}; {run('moe')}; 1x1 NCCL equal "
+          f"{tm['nccl']['equal']}; the phases {tm['seconds']:.1f}s")
+
+
+def run_train_mesh_phases(golden: dict) -> dict:
+    """Phase 16g: sharded training on 4 ranks sharing card 0 over gloo
+    (module docstring): the golden, the shards' draw, the main path, the
+    MoE path and the 1x1 NCCL mesh."""
+    from repro_torch.launch import train as tlaunch
+
+    t_all = time.perf_counter()
+    out = {"golden": run_train_mesh_golden(golden)}
+    _release("train mesh golden")
+    for tag, argv in (("main", TRAIN_MESH_MAIN_ARGV),
+                      ("moe", TRAIN_MESH_MOE_ARGV)):
+        from repro_torch.kernels import ops
+
+        ops.reset_launches()
+        mesh = tlaunch.main(argv + TRAIN_MESH_ARGS)
+        _release(f"train mesh {tag}")
+        steps = int(argv[argv.index("--steps") + 1])
+        one = tlaunch.main(argv + ["--steps", str(max(steps, 2))])
+        _release(f"train mesh {tag}: one device")
+        out[tag] = _mesh_step_line(f"train mesh {tag}", mesh, one,
+                                   mesh["cfg"])
+    from repro_torch.launch import accel, mesh_smoke
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        one = tlaunch.main(TRAIN_MESH_NCCL_ARGV)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nccl = accel.spawn(mesh_smoke.rank_train_deterministic, 1, args=(
+        TRAIN_MESH_NCCL_ARGV + ["--mesh", "1x1"],), backend="nccl",
+        timeout_s=600, kernels=tlaunch.TRAIN_KERNELS, env=tlaunch.RANK_ENV)[0]
+    same = (nccl["losses"] == one["losses"]
+            and nccl["grad_norms"] == one["grad_norms"])
+    _check(same, f"train mesh nccl: the 1x1 mesh's losses {nccl['losses']} "
+           f"and grad norms {nccl['grad_norms']} are not the one-device "
+           f"step's {one['losses']}, {one['grad_norms']}")
+    print(f"[train mesh nccl] {nccl['cfg'].name}, float32, "
+          f"{len(one['losses'])} steps on a 1x1 NCCL mesh (every collective "
+          f"over one rank: "
+          + ", ".join(f"{a} {v['calls']} calls"
+                      for a, v in nccl["mesh_stats"].items())
+          + f"): losses {one['losses']} and grad norms {one['grad_norms']} "
+          f"equal to one device's bit for bit")
+    out["nccl"] = {"equal": same}
+    out["seconds"] = time.perf_counter() - t_all
+    print(f"[train mesh] the phases took {out['seconds']:.1f}s")
+    return out
+
+
 def _time_bwd_shape(name: str, shape, dev, with_simt: bool) -> dict:
     """The flash-attention gradient at ``shape`` (B, L, H, KVH, D), bf16,
     causal: the ``wgmma`` route (all its launches, and each alone) and,
@@ -3953,7 +4300,14 @@ def run_train_phases(golden: dict, dev) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--train-mesh-only", action="store_true",
+                    help="build, then run phase 16g (sharded training) "
+                         "alone; no kernels line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -4022,6 +4376,15 @@ def main() -> int:
     print("[build] flash_prefill_wgmma registers (spill bytes) per head dim: "
           + ", ".join(f"D {d} {r} ({int(a) + int(b)})"
                       for d, a, b, r in wgmma))
+    if args.train_mesh_only:
+        _train_mesh_result(run_train_mesh_phases(golden))
+        print(f"[result] the train mesh phases alone, "
+              f"{time.time() - t_all:.1f}s with the build")
+        print(_gpu_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     torch.cuda.reset_peak_memory_stats()
     err = check_kernels(dev)
@@ -4102,6 +4465,9 @@ def main() -> int:
     nemo = run_nemotron_serving()
     _release("nemotron serving")
     train = run_train_phases(golden, dev)
+    _release("training phases")
+    train_mesh = run_train_mesh_phases(golden)
+    _release("train mesh phases")
     fam = train["families"]
     torch.cuda.reset_peak_memory_stats()
     fl = time_flash(dev)
@@ -4212,6 +4578,7 @@ def main() -> int:
           f"{mesh['seconds']['world_2x2']:.1f}s, "
           f"{mesh['seconds']['world_1x3']:.1f}s, "
           f"{mesh['seconds']['world_1x1']:.1f}s")
+    _train_mesh_result(train_mesh)
     kernels = [
         dict(name="fused_expand", route="cuda",
              source="src/repro_torch/csrc/fused_expand.cu",
@@ -4355,7 +4722,11 @@ def main() -> int:
                              "per_step"]["flash_wgmma"]),
                      launches_training_per_step={
                          arch: r["per_step"]["flash_wgmma"]
-                         for arch, r in fam.items()}),
+                         for arch, r in fam.items()},
+                     # sharded training: each rank's launches a step.
+                     launches_train_mesh_per_step_and_rank={
+                         p: [x["flash_wgmma"] for x in train_mesh[p][
+                             "per_rank"]] for p in ("main", "moe")}),
                  "decode": dict(
                      source="src/repro_torch/csrc/flash_decode.cu",
                      shape="decode",
@@ -4381,6 +4752,9 @@ def main() -> int:
                  "simt": dict(
                      source="src/repro_torch/csrc/flash_attention.cu",
                      launches=lm["launches"]["flash_simt"],
+                     launches_train_mesh_golden={
+                         n: [x["flash_simt"] for x in v["launches"]]
+                         for n, v in train_mesh["golden"]["models"].items()},
                      launches_zamba2={mix: ssm["zamba2-2.7b"][mix][
                          "launches"]["flash_simt"] for mix in LM_MIXES},
                      launches_phi={mix: vlm[mix]["launches"]["flash_simt"]
@@ -4447,6 +4821,11 @@ def main() -> int:
                      launches_per_step_families={
                          arch: r["per_step"]["flash_bwd_wgmma"]
                          for arch, r in fam.items()},
+                     launches_train_mesh_per_step_and_rank={
+                         p: [x["flash_bwd_wgmma"] for x in train_mesh[p][
+                             "per_rank"]] for p in ("main", "moe")},
+                     train_mesh_golden_max_rel_err=train_mesh["golden"][
+                         "max_rel_err"],
                      **{k: fb[k] for k in (
                          "ms", "dq_ms", "dkdv_ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms", "max_abs_err")},
@@ -4465,7 +4844,10 @@ def main() -> int:
                          for p in ("main", "golden", "bf16")} | {
                          f"families_golden_{n}": r["launches"][
                              "flash_bwd_simt"]
-                         for n, r in train["families_golden"].items()},
+                         for n, r in train["families_golden"].items()} | {
+                         f"train_mesh_golden_{n}": [
+                             x["flash_bwd_simt"] for x in v["launches"]]
+                         for n, v in train_mesh["golden"]["models"].items()},
                      max_abs_err_f32=train["bwd"]["f32"],
                      ms=fb["simt_ms"], plain_ms=fb["simt_plain_ms"],
                      bound_ms=fb["bound_ms"], bound_by=fb["bound_by"],

@@ -11,6 +11,7 @@
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --vlm-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --train-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --train-families-only
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --train-mesh
 
 Builds the launcher's graph at the size the port's chip smoke serves
 (``powerlaw_cluster(65536, 6.0, prob=0.25, seed=7)``, deduped, reversed),
@@ -192,6 +193,29 @@ this script may hold beside the reference's activations.  Each model runs
 in a process of its own (``--train-families-worker``), so the host holds
 one at a time (~25 GB at most).  ``--train-families-only`` recomputes this
 entry alone (~10 min).
+
+The ``"train_mesh"`` entry is the reference's sharded training step
+(``make_train_step`` jitted on parameters placed by
+``sharding_rules.param_shardings`` under ``set_mesh``, so GSPMD gathers,
+reduce-scatters and, with a ``model`` axis, runs the MoE's a2a form) on
+4 forced host devices (``--train-mesh-worker``), on meshes of ``Auto``
+axes (``repro.launch.mesh`` makes ``Explicit`` ones, which jax 0.9's
+GSPMD step and shard_map refuse), for the models of ``TRAIN_MESH_CASES``:
+llama3.2-3b, deepseek-v3 (MLA and the a2a MoE) and zamba2 on a 2×2
+(data, model) mesh, maverick on a data-only mesh of 4 (the scatter's
+global dispatch).  Each is the registry's smoke config in float32 (the
+full widths of the card's phases need more host memory than four
+reference devices may hold), weights ``numpy_params(cfg, 0)`` (SSD
+heads redrawn by ``numpy_ssm_heads``), ``SyntheticLM(cfg, 8, 256,
+seed=1)``'s batches 0 and 1 in 2 microbatches, constant lr 1e-3, AdamW
+with float32 moments.  It records each step's loss and grad norm, the
+parameters after the steps (`_leaf_summary` of ``TRAIN_MESH_LEAVES``),
+and every MoE call's expert picks: the reference's forward replayed
+layer by layer, eagerly, under the same mesh, on the parameters before
+each step (the picks of the jitted step cannot leave its scan), with the
+smallest gap between a token's k-th and (k+1)-th router probability; the
+entry keeps the picks as their count and sha256 (`routes_digest`).
+``--train-mesh`` recomputes this entry alone (~2 min).
 """
 from __future__ import annotations
 
@@ -265,6 +289,24 @@ TRAIN_FAMILY_LEAVES = {
                "shared_attn.mlp.w2"),
     "deepseek": ("layers.0.attn.w_uq", "layers.0.moe.router",
                  "layers.0.moe.experts_w2"),
+    "maverick": ("layers.0.attn.wq", "layers.1.moe.router",
+                 "layers.1.moe.experts_w1"),
+}
+# The "train_mesh" entry (module docstring): each model's mesh, the
+# batch, steps and microbatches, and the three leaves it summarises.
+TRAIN_MESH_CASES = {
+    "llama": dict(arch="llama3.2-3b", shape=[2, 2]),
+    "deepseek": dict(arch="deepseek-v3-671b", shape=[2, 2]),
+    "zamba2": dict(arch="zamba2-2.7b", shape=[2, 2]),
+    "maverick": dict(arch="llama4-maverick-400b-a17b", shape=[4]),
+}
+TRAIN_MESH_BATCH, TRAIN_MESH_SEQ, TRAIN_MESH_MICRO = 8, 256, 2
+TRAIN_MESH_LEAVES = {
+    "llama": TRAIN_LEAVES,
+    "deepseek": ("layers.0.attn.w_uq", "layers.1.moe.router",
+                 "layers.2.moe.experts_w2"),
+    "zamba2": ("layers.0.mamba.in_proj", "shared_attn.attn.wq",
+               "shared_attn.mlp.w2"),
     "maverick": ("layers.0.attn.wq", "layers.1.moe.router",
                  "layers.1.moe.experts_w1"),
 }
@@ -533,6 +575,171 @@ def _train_steps(cfg, port_cfg, tree, leaves) -> dict:
     if not all(np.isfinite([v for s in out["steps"] for v in s.values()])):
         raise RuntimeError(f"{cfg.name}: the reference's steps are not "
                            f"finite: {out['steps']}")
+    return out
+
+
+def train_mesh_job(name: str, full: bool = False, **over) -> dict:
+    """A `train_mesh_reference` job of ``TRAIN_MESH_CASES[name]`` (or of
+    ``over``'s arch and shape), with the golden's batch, steps and
+    microbatches unless ``over`` says otherwise; ``full`` asks for every
+    leaf after the steps."""
+    return dict(dict(TRAIN_MESH_CASES.get(name, {}), name=name,
+                     batch=TRAIN_MESH_BATCH, seq=TRAIN_MESH_SEQ,
+                     microbatches=TRAIN_MESH_MICRO, num_steps=TRAIN_STEPS,
+                     lr=TRAIN_LR, param_seed=LM_PARAM_SEED,
+                     data_seed=TRAIN_DATA_SEED, ssm_heads_seed=SSM_HEADS_SEED,
+                     leaves=list(TRAIN_MESH_LEAVES.get(name, TRAIN_LEAVES)),
+                     full=full), **over)
+
+
+def train_mesh_tree(job: dict):
+    """(the port's smoke config of a job, its numpy weights in the
+    reference's layout): `numpy_params` of the seed, SSD heads redrawn."""
+    cfg = dataclasses.replace(port_registry.smoke(job["arch"]),
+                              dtype="float32")
+    tree = port_init.numpy_params(cfg, job["param_seed"])
+    if cfg.family in ("ssm", "hybrid"):
+        port_init.numpy_ssm_heads(tree, cfg, job["ssm_heads_seed"])
+    return cfg, tree
+
+
+def train_mesh_reference(jobs: list) -> list:
+    """`_train_mesh_reference` of each job."""
+    return [_train_mesh_reference(job) for job in jobs]
+
+
+def _replay_routes(params, cfg, batch) -> tuple[list, float]:
+    """The expert picks of every MoE call of the reference's forward on
+    ``batch`` under the installed mesh, the forward replayed layer by
+    layer (each layer jitted alone, its picks an output of its own;
+    module docstring), and the smallest router margin among them."""
+    from repro.distributed import sharding_rules as rules
+    from repro.models import mlp as ref_mlp
+    from repro.models import model
+
+    traced: list = []
+    orig = ref_mlp.moe_forward
+
+    def recording(p, x, c):
+        probs = jax.nn.softmax(x.reshape(-1, x.shape[-1]).astype(
+            jnp.float32) @ p["router"], -1)
+        top = jax.lax.top_k(probs, c.top_k + 1)[0]
+        traced.append((jax.lax.top_k(probs, c.top_k)[1],
+                       jnp.min(top[:, -2] - top[:, -1])))
+        return orig(p, x, c)
+
+    @functools.partial(jax.jit, static_argnums=(0,))
+    def layer(kind, p, h, positions, shared):
+        traced.clear()
+        h = rules.shard(h, rules.batch_axes(), "model", None)
+        h, _, _ = model._apply_block(kind, p, h, positions, cfg, shared)
+        return h, list(traced)
+
+    picks, margins = [], []
+    ref_mlp.moe_forward = recording
+    try:
+        h, positions = model.embed_inputs(params, cfg, batch)
+        shared = params.get("shared_attn")
+        for (pattern, groups), stack in zip(model.stacks_of(cfg),
+                                            params["stacks"]):
+            for g in range(groups):
+                gp = jax.tree.map(lambda a: a[g], stack)
+                for i, kind in enumerate(pattern):
+                    h, rec = layer(kind, gp[f"block{i}"], h, positions,
+                                   shared)
+                    for idx, margin in rec:
+                        picks.append(np.asarray(idx).tolist())
+                        margins.append(float(margin))
+    finally:
+        ref_mlp.moe_forward = orig
+    return picks, min(margins, default=float("inf"))
+
+
+def _train_mesh_reference(job: dict) -> dict:
+    """The reference's sharded step (module docstring) for one job, in a
+    process with enough forced host devices."""
+    from jax.sharding import AxisType
+
+    from repro.data.pipeline import SyntheticLM
+    from repro.distributed import sharding_rules as rules
+    from repro.optim import adamw
+    from repro.train.step import make_train_step
+
+    port_cfg, tree = train_mesh_tree(job)
+    cfg = dataclasses.replace(registry.smoke(job["arch"]), dtype="float32")
+    shape = tuple(job["shape"])
+    axes = {1: ("data",), 2: ("data", "model"),
+            3: ("pod", "data", "model")}[len(shape)]
+    mesh = jax.make_mesh(shape, axes, axis_types=(AxisType.Auto,) * len(shape))
+    rules.set_mesh(mesh)
+    try:
+        params = _tree_to_jax(tree)
+        params = jax.device_put(params, rules.param_shardings(mesh, params))
+        opt = adamw.init(params, jnp.float32)
+        m = job["microbatches"]
+        step = jax.jit(make_train_step(cfg, lambda s: job["lr"], m))
+        data = SyntheticLM(cfg, job["batch"], job["seq"],
+                           seed=job["data_seed"])
+        out = {"steps": [], "routes": [], "router_margin": float("inf")}
+        for s in range(job["num_steps"]):
+            b = {k: jnp.asarray(v) for k, v in data.batch_at(s).items()}
+            if cfg.family == "moe":
+                rows = job["batch"] // m
+                for i in range(m):
+                    picks, margin = _replay_routes(
+                        params, cfg, {k: v[i * rows:(i + 1) * rows]
+                                      for k, v in b.items()})
+                    out["routes"].append(picks)
+                    out["router_margin"] = min(out["router_margin"], margin)
+            params, opt, met = step(params, opt, b)
+            out["steps"].append({"loss": float(met["loss"]),
+                                 "grad_norm": float(met["grad_norm"])})
+        params = jax.tree.map(np.asarray, params)
+    finally:
+        rules.set_mesh(None)
+    out["params"] = _leaf_summary(params, port_cfg, TRAIN_VALUE_SEED,
+                                  job["leaves"])
+    if job.get("full"):
+        from repro_torch import convert
+        out["leaves"] = {k: np.asarray(a, np.float32).tolist() for k, a in
+                         convert.lm_named_leaves(params, port_cfg).items()}
+    if not out["routes"]:
+        out["router_margin"] = None
+    if not all(np.isfinite([v for s in out["steps"] for v in s.values()])):
+        raise RuntimeError(f"{job['arch']}: the reference's sharded steps "
+                           f"are not finite: {out['steps']}")
+    return out
+
+
+def train_mesh_reference_subprocess(jobs: list, timeout: float = 900.0
+                                    ) -> list:
+    """`train_mesh_reference` of ``jobs`` in a fresh process with 4
+    forced host devices."""
+    return _worker_subprocess("--train-mesh-worker", jobs, MESH_DEVICES,
+                              timeout)
+
+
+def routes_digest(routes: list) -> str:
+    """sha256 of a job's expert picks (calls in order, each (tokens, k)
+    as little-endian int32)."""
+    h = hashlib.sha256()
+    for mb in routes:
+        for call in mb:
+            h.update(np.ascontiguousarray(call, "<i4").tobytes())
+    return h.hexdigest()
+
+
+def train_mesh_golden() -> dict:
+    """The ``"train_mesh"`` entry (module docstring); the expert picks are
+    kept as their count and `routes_digest`."""
+    jobs = [train_mesh_job(name) for name in TRAIN_MESH_CASES]
+    out = {}
+    for job, res in zip(jobs, train_mesh_reference_subprocess(jobs)):
+        routes = res.pop("routes")
+        res.update(route_calls=sum(len(mb) for mb in routes),
+                   routes_sha256=routes_digest(routes))
+        out[job["name"]] = dict({k: v for k, v in job.items()
+                                 if k not in ("full", "name")}, **res)
     return out
 
 
@@ -898,6 +1105,11 @@ def main() -> None:
                       help="recompute the \"train\" entry alone")
     only.add_argument("--train-families-only", action="store_true",
                       help="recompute the \"train_families\" entry alone")
+    only.add_argument("--train-mesh", action="store_true",
+                      help="recompute the \"train_mesh\" entry alone")
+    only.add_argument("--train-mesh-worker", metavar="JOBS_JSON",
+                      help="print train_mesh_reference(JOBS) as JSON (run "
+                           "by train_mesh_reference_subprocess)")
     only.add_argument("--train-families-worker", metavar="JOB_JSON",
                       help="print train_family_golden(JOB['name']) as JSON "
                            "(run by train_families_golden)")
@@ -920,6 +1132,10 @@ def main() -> None:
     if args.moe_worker:
         print(json.dumps(moe_reference(json.loads(args.moe_worker))))
         return
+    if args.train_mesh_worker:
+        print(json.dumps(train_mesh_reference(
+            json.loads(args.train_mesh_worker))))
+        return
     if args.train_families_worker:
         job = json.loads(args.train_families_worker)
         print(json.dumps(train_family_golden(job["name"])))
@@ -930,12 +1146,14 @@ def main() -> None:
                "mesh": mesh_golden, "moe": moe_golden,
                "moe_a2a": moe_a2a_golden, "ssm": ssm_golden,
                "vlm": vlm_golden, "train": train_golden,
-               "train_families": train_families_golden}
+               "train_families": train_families_golden,
+               "train_mesh": train_mesh_golden}
     flags = {"lm": "lm", "q": "q", "stream": "stream", "unfused": "unfused",
              "mesh": "mesh", "moe": "moe", "moe_a2a": "moe", "ssm": "ssm",
              "vlm": "vlm", "train": "train",
-             "train_families": "train_families"}
-    keys = [k for k in entries if getattr(args, f"{flags[k]}_only")]
+             "train_families": "train_families", "train_mesh": "train_mesh"}
+    keys = [k for k in entries if getattr(args, f"{flags[k]}_only", False)
+            or (k == "train_mesh" and args.train_mesh)]
     if keys:
         with open(OUT) as f:
             golden = json.load(f)
@@ -1001,6 +1219,7 @@ def main() -> None:
     golden["vlm"] = vlm_golden()
     golden["train"] = train_golden()
     golden["train_families"] = train_families_golden()
+    golden["train_mesh"] = train_mesh_golden()
     _write(golden)
     print(f"wrote {os.path.normpath(OUT)} in {time.time() - t0:.1f}s")
 

@@ -18,9 +18,11 @@ both copies); under NCCL a host tensor goes to the rank's device.  The
 caller picks the backend; nothing falls back from one to the other.
 
 Without a default group every axis must have size 1, and every
-collective returns its input: a 1×1 mesh works in any process.  In a
-group, an axis of size 1 has its one-rank groups too, so a 1×1 mesh of
-one NCCL rank runs every collective of the code through NCCL.
+collective returns its input: a 1×1 mesh works in any process, and
+``alone=True`` makes such a mesh of this process alone even inside a
+group (one-device training, `distributed.fsdp.one_rank`).  In a group,
+an axis of size 1 has its one-rank groups too, so a 1×1 mesh of one NCCL
+rank runs every collective of the code through NCCL.
 ``stats[axis]`` counts each collective over an axis (``calls``) and the
 bytes this rank hands to it (``bytes``).  ``timeout_s`` bounds each
 collective of the axis groups (default: the default group's timeout).
@@ -40,21 +42,23 @@ class Mesh:
     """A ``shape``-shaped mesh of ranks with named ``axes``, over the
     initialised default process group (see module docstring)."""
 
-    def __init__(self, shape, axes, *, device="cuda", timeout_s=None):
+    def __init__(self, shape, axes, *, device="cuda", timeout_s=None,
+                 alone=False):
         shape = tuple(int(s) for s in shape)
         axes = tuple(str(a) for a in axes)
         if len(shape) != len(axes) or len(set(axes)) != len(axes):
             raise ValueError(f"mesh shape {shape} and axes {axes} must pair "
                              "up, with distinct axis names")
         size = int(np.prod(shape))
-        world = dist.get_world_size() if dist.is_initialized() else 1
+        grouped = dist.is_initialized() and not alone
+        world = dist.get_world_size() if grouped else 1
         if world != size:
             raise ValueError(f"mesh {shape} holds {size} ranks but the "
                              f"process group has {world}")
         self.axis_names = axes
         self.shape = dict(zip(axes, shape))
-        self.rank = dist.get_rank() if dist.is_initialized() else 0
-        self.backend = dist.get_backend() if dist.is_initialized() else None
+        self.rank = dist.get_rank() if grouped else 0
+        self.backend = dist.get_backend() if grouped else None
         self.device = resolve(device)
         self._coords = dict(zip(axes, (int(c) for c in np.unravel_index(
             self.rank, shape))))
@@ -62,7 +66,7 @@ class Mesh:
         timeout = None if timeout_s is None \
             else datetime.timedelta(seconds=timeout_s)
         for i, ax in enumerate(axes):
-            if not dist.is_initialized():
+            if not grouped:
                 break
             others = [range(s) for j, s in enumerate(shape) if j != i]
             for fixed in itertools.product(*others):
@@ -145,6 +149,31 @@ class Mesh:
         dist.all_to_all_single(out, wire, group=group)
         return self._back(out, t)
 
+    def reduce_scatter(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum over ``axis`` of every rank's ``t``, cut into S blocks
+        along dim 0 (S the axis's size, which must divide it): this rank
+        keeps block ``axis_index(axis)`` (``lax.psum_scatter(...,
+        tiled=True)``).  NCCL's ``reduce_scatter_tensor``; gloo has none,
+        so there one ``all_to_all_single`` and a local sum."""
+        s = self.shape[axis]
+        if t.shape[0] % s:
+            raise ValueError(f"reduce_scatter over {axis!r} (size {s}) "
+                             f"needs dim 0 divisible by {s}, got "
+                             f"{tuple(t.shape)}")
+        if axis not in self._groups:
+            return t
+        wire = self._wire(t)
+        group, _ = self._group(axis, wire)
+        if self.backend == "nccl":
+            out = torch.empty((t.shape[0] // s, *t.shape[1:]),
+                              dtype=wire.dtype, device=wire.device)
+            dist.reduce_scatter_tensor(out, wire, group=group)
+        else:
+            parts = torch.empty_like(wire)
+            dist.all_to_all_single(parts, wire, group=group)
+            out = parts.view(s, -1, *t.shape[1:]).sum(0)
+        return self._back(out, t)
+
     def ppermute(self, t: torch.Tensor, axis: str, shift: int,
                  recv_shape=None) -> torch.Tensor:
         """Send ``t`` to axis position ``(i − shift) mod S`` and return what
@@ -220,5 +249,5 @@ class Mesh:
         return self._back(wire, t)
 
     def barrier(self) -> None:
-        if dist.is_initialized():
+        if self.backend is not None:
             dist.barrier()

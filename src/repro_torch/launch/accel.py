@@ -16,7 +16,7 @@ The run sits under ``timeout_s``: the default group's timeout bounds every
 collective, and the parent joins under the same deadline, kills every
 rank still running when it passes, and re-raises the first failure with
 the rank's traceback.  Before a CUDA world starts, the parent builds the
-kernels the mesh paths launch, so the ranks never build them at once, and
+kernels the ranks launch, so the ranks never build them at once, and
 returns its cached device memory to the card.
 """
 from __future__ import annotations
@@ -49,7 +49,8 @@ def rank_device(device: str, rank: int) -> torch.device:
 
 
 def _rank_main(fn, rank, world, backend, device, init_file, timeout_s,
-               args, results):
+               args, results, env):
+    os.environ.update(env)           # before the rank's first CUDA call
     torch.set_num_threads(1)
     dev = rank_device(device, rank)
     if dev.type == "cuda":
@@ -70,13 +71,18 @@ def _rank_main(fn, rank, world, backend, device, init_file, timeout_s,
 
 
 def spawn(fn, world: int, *, args=(), backend: str = "gloo",
-          device: str = "cuda", timeout_s: float = 600.0) -> list:
+          device: str = "cuda", timeout_s: float = 600.0,
+          kernels=MESH_KERNELS, env=None) -> list:
     """Run ``fn(rank, device, *args)`` on ``world`` ranks in one process
     group; returns the results by rank (see module docstring).  The ranks
-    run on the card unless the caller asks for ``device="cpu"``."""
+    run on the card unless the caller asks for ``device="cpu"``; on the
+    card the parent first builds ``kernels`` (by default the mesh paths'
+    ones; training's are `launch.train.TRAIN_KERNELS`).  ``env``: variables
+    each rank sets before anything else (the parent's own are left as
+    they are)."""
     if resolve(device).type == "cuda":
         from repro_torch.kernels import _build
-        _build.build_all(MESH_KERNELS)
+        _build.build_all(kernels)
         gc.collect()
         torch.cuda.empty_cache()
     ctx = mp.get_context("spawn")
@@ -85,7 +91,7 @@ def spawn(fn, world: int, *, args=(), backend: str = "gloo",
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, r, world, backend, device,
                                os.path.join(tmp, "rendezvous"), timeout_s,
-                               tuple(args), results))
+                               tuple(args), results, dict(env or {})))
              for r in range(world)]
     deadline = time.monotonic() + timeout_s
     out: dict[int, object] = {}

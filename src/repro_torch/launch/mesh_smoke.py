@@ -25,7 +25,18 @@ holds them against ``tests/data/torch_port_golden.json``.
 * `rank_moe_a2a` — the expert-parallel MoE (`mlp._moe_forward_a2a`) on a
   2×2 mesh, each rank holding only its experts, against the golden
   ``"moe_a2a"`` entry; again at capacity factor 64 against the one-device
-  scatter; and its all-to-all alone, timed.
+  scatter; and its all-to-all alone, timed;
+* `rank_train_mesh` — sharded training steps (`train.step.make_train_step`
+  on a mesh) of the ``"train_mesh"`` golden's models: losses, grad norms,
+  every MoE call's expert picks in the reference's token order, each
+  rank's shard bytes and, on rank 0, every leaf after the steps (the CPU
+  tests run it too);
+* `rank_shard_init` — a sharded draw of the weights against the slices of
+  the one-device draw, bit for bit, and step 0's gradient of the sharded
+  step gathered against the one-device gradient (`_grad_slices`);
+  `rank_train_mesh_phase` runs it and `rank_train_mesh` in one world;
+* `rank_train_deterministic` — the training launcher's rank with
+  deterministic algorithms (the 1x1 NCCL mesh against one device).
 
 Every check against a plain version runs after the launch counts are
 read, so its own launches are not counted.
@@ -34,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 import os
 import threading
 import time
@@ -43,13 +55,15 @@ import torch
 
 from repro_torch import convert
 from repro_torch.core import bitmask
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.distributed import sharding_rules as rules
 from repro_torch.distributed import traversal as dtrav
 from repro_torch.graph import csr, generators
 from repro_torch.kernels import ops, ref
 from repro_torch.configs import registry
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import init as model_init
-from repro_torch.models import mlp
+from repro_torch.models import mlp, model
 from repro_torch.sampling import SamplerSpec
 from repro_torch.serve.distributed import (AsyncFrontEnd,
                                            DistributedQueryEngine, MeshLeader,
@@ -579,3 +593,259 @@ def rank_moe_a2a(rank, dev, gold: dict, reps: int = 20) -> dict:
                a2a_bytes=buf.numel() * buf.element_size(), capacity=cap,
                tokens=t, peak_gib=_peak(dev), backend=mesh.backend)
     return res
+
+
+# ------------------------------------------------------- sharded training
+class _Routes:
+    """Wraps ``models.mlp._route`` and ``_experts``: records the expert
+    picks of every routing call made by a forward (not remat's recompute
+    in the backward) and the number of experts each expert call holds."""
+
+    def __init__(self):
+        self.orig, self.orig_experts = mlp._route, mlp._experts
+        self.picks, self.experts_held = [], set()
+
+    def __call__(self, router, xt, k, mesh=None):
+        gate, idx, aux = self.orig(router, xt, k, mesh)
+        if torch._C._current_graph_task_id() == -1:
+            self.picks.append(idx.detach())
+        return gate, idx, aux
+
+    def experts(self, p, buf, cfg):
+        self.experts_held.add(int(p["experts_w1"].shape[0]))
+        return self.orig_experts(p, buf, cfg)
+
+    def __enter__(self):
+        mlp._route, mlp._experts = self, self.experts
+        return self
+
+    def __exit__(self, *exc):
+        mlp._route, mlp._experts = self.orig, self.orig_experts
+
+
+def _global_routes(picks: list, cfg, mesh, rows: int, length: int) -> list:
+    """Each recorded call's picks, every rank's gathered, as the
+    microbatch's (rows · length, k) in token order (on every rank): a2a
+    route picks are rank (d, m)'s block (data rank d's rows, sequence
+    block m), scatter ones rank q's q-th run of rows."""
+    from repro_torch.distributed import fsdp
+
+    out = []
+    k = cfg.top_k
+    a2a = mlp.a2a_route(cfg, mesh, length)
+    r = fsdp.mesh_size(mesh)
+    for idx in picks:
+        every = fsdp.all_gather_ranks(idx, mesh).cpu()
+        full = torch.empty((rows, length, k), dtype=idx.dtype)
+        for q in range(r):
+            if a2a:
+                s = mesh.shape["model"]
+                d, m = divmod(q, s)
+                blk = rows * s // r
+                full[d * blk:(d + 1) * blk,
+                     m * (length // s):(m + 1) * (length // s)] = \
+                    every[q].view(blk, length // s, k)
+            else:
+                bl = rows // r
+                full[q * bl:(q + 1) * bl] = every[q].view(bl, length, k)
+        out.append(full.reshape(-1, k).numpy())
+    return out
+
+
+def train_mesh_cfg(job: dict):
+    """The float32 smoke config of a ``make_torch_golden.train_mesh_job``
+    and its numpy weights in the reference's layout."""
+    cfg = dataclasses.replace(registry.smoke(job["arch"]), dtype="float32")
+    tree = model_init.numpy_params(cfg, job["param_seed"])
+    if cfg.family in ("ssm", "hybrid"):
+        model_init.numpy_ssm_heads(tree, cfg, job["ssm_heads_seed"])
+    return cfg, tree
+
+
+def _train_mesh_job(rank, dev, job: dict) -> dict:
+    """The port's sharded step on one job (weights `train_mesh_cfg`'s, the
+    shards cut from them): per step loss and grad norm; the expert picks
+    of every MoE call in the reference's order; this rank's parameter,
+    moment and accumulator bytes beside the bytes its shards should take
+    (and the whole model's); the flash launches; rank 0 every leaf after
+    the steps at full size."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    cfg, tree = train_mesh_cfg(job)
+    shape = tuple(job["shape"])
+    axes = {1: ("data",), 2: ("data", "model"),
+            3: ("pod", "data", "model")}[len(shape)]
+    mesh = make_mesh(shape, axes, device=dev, timeout_s=job.get(
+        "timeout_s", 120))
+    layout = model.layout_on(mesh, cfg)
+    params = model.trainable(layout.shard(convert.lm_params_from_jax(
+        tree, cfg, dev)))
+    del tree
+    named = adamw.named(params)
+    data = SyntheticLM(cfg, job["batch"], job["seq"], seed=job["data_seed"])
+    step = make_train_step(cfg, lambda s: job["lr"], job["microbatches"],
+                           mesh=mesh)
+    opt = adamw.init(params, torch.float32)
+    out = {"rank": rank, "steps": []}
+    with _Routes() as routes:
+        ops.reset_launches()
+        mesh.reset_stats()
+        for s in range(job["num_steps"]):
+            b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in data.batch_at(s).items()}
+            params, opt, m = step(params, opt, b)
+            out["steps"].append({"loss": float(m["loss"]),
+                                 "grad_norm": float(m["grad_norm"])})
+        grads = layout.sink
+        _sync(dev)
+        out["launches"] = dict(ops.LAUNCHES)
+        out["mesh_stats"] = {a: dict(v) for a, v in mesh.stats.items()}
+    out["experts_held"] = sorted(routes.experts_held)
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree.values())
+
+    out["bytes"] = dict(
+        params=nbytes(named), m=nbytes(opt.m), v=nbytes(opt.v),
+        accumulators=nbytes(grads), shards=layout.local_bytes(named),
+        accumulators_want=layout.local_bytes(grads),
+        whole=sum(math.prod(layout.shapes[k]) * t.element_size()
+                  for k, t in named.items()))
+    rows = job["batch"] // job["microbatches"]
+    out["routes"] = [r.tolist() for r in _global_routes(
+        routes.picks, cfg, mesh, rows, job["seq"])]
+    leaves = {k: layout.full(k, t.detach()).cpu().numpy()
+              for k, t in named.items()}
+    if rank == 0:
+        out["leaves"] = leaves
+    return out
+
+
+def rank_train_mesh(rank, dev, jobs: list) -> list:
+    """`_train_mesh_job` of each ``make_torch_golden.train_mesh_job`` on
+    this rank (CPU tests and the card's ``[train mesh golden]`` phase);
+    float32 products exactly so (no TF32)."""
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return [_train_mesh_job(rank, dev, job) for job in jobs]
+
+
+def rank_shard_init(rank, dev, checks: list, shape, axes,
+                    seed: int = 0) -> dict:
+    """For each ``(cfg, grad_batch)`` of ``checks``, every leaf drawn
+    sharded (`model.init_params` keeping this rank's slices) against the
+    same slices of the one-device draw on this rank's device, bit for
+    bit: per config, the leaves that differ and the bytes compared.  With
+    a ``grad_batch`` (rows, length), then `_grad_slices` of the two
+    draws."""
+    mesh = make_mesh(tuple(shape), tuple(axes), device=dev)
+    out = {"rank": rank, "checks": []}
+    for cfg, grad_batch in checks:
+        layout = model.layout_on(mesh, cfg)
+        sharded = model.init_params(cfg, seed, dev, keep=layout.local)
+        whole = model.init_params(cfg, seed, dev)
+        shards = dict(sharded.named_parameters())
+        differ = [name for name, t in whole.named_parameters()
+                  if not torch.equal(layout.local(name, t.data),
+                                     shards[name].data)]
+        check = dict(name=cfg.name, differ=differ, leaves=len(shards),
+                     bytes=sum(t.numel() * t.element_size()
+                               for t in shards.values()))
+        del shards
+        if grad_batch is not None:
+            if rank != 0:
+                whole = None
+            check["grads"] = _grad_slices(sharded, whole, cfg, layout,
+                                          *grad_batch, seed)
+        out["checks"].append(check)
+        del sharded, whole
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _grad_slices(sharded, whole, cfg, layout, rows: int, length: int,
+                 seed: int) -> dict:
+    """Step 0's gradient of the sharded step (`train.step.make_train_step`
+    on ``sharded``, this rank's shards, lr 0) on ``SyntheticLM(seed +
+    1)``'s first batch of ``rows`` x ``length`` tokens, every leaf
+    gathered to full size, against the one-device gradient (``whole``,
+    the whole model on rank 0: autograd through `model.loss_fn` without a
+    mesh): the largest relative L2 difference over the leaves, and as the
+    control the smallest over the leaves that a mesh axis splits of the
+    same difference with the one-device gradient's blocks rolled by one
+    along the leaf's first split dimension (a block on its neighbour's
+    rank).  Every rank returns the sharded step's loss and grad norm;
+    rank 0 the rest."""
+    from repro_torch.models import common
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    mesh, dev = layout.mesh, layout.mesh.device
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in SyntheticLM(cfg, rows, length, seed=seed + 1)
+             .batch_at(0).items()}
+    params = layout.attach(model.trainable(sharded))
+    opt = adamw.init(params, common.dtype_of(cfg.optimizer_state_dtype))
+    _, _, m = make_train_step(cfg, lambda s: 0.0, mesh=mesh)(
+        params, opt, batch)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    del opt, params
+    got = {}
+    for k, g in layout.sink.items():
+        g = layout.full(k, g)
+        if whole is not None:
+            got[k] = g
+    layout.sink = None
+    if whole is None:
+        return out
+    whole = model.trainable(whole)
+    named = dict(whole.named_parameters())
+    loss = model.loss_fn(whole, cfg, batch)[0]
+    want = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    out.update(one_device_loss=float(loss.detach()), leaves=len(got), err=0.0,
+               control=math.inf)
+    for (k, p), w in zip(named.items(), want):
+        w = torch.zeros_like(p) if w is None else w.float()
+        g, norm = got.pop(k).float(), float(w.norm())
+        if norm == 0.0:
+            continue
+        err = float((g - w).norm()) / norm
+        if err > out["err"]:
+            out.update(err=err, worst_leaf=k)
+        split = [d for d, e in enumerate(layout.specs[k]) if e is not None
+                 and math.prod(mesh.shape[a] for a in
+                               rules.entry_axes(e)) > 1]
+        if split:
+            d = split[0]
+            ways = math.prod(mesh.shape[a] for a in
+                             rules.entry_axes(layout.specs[k][d]))
+            rolled = torch.roll(w, p.shape[d] // ways, dims=d)
+            control = float((g - rolled).norm()) / norm
+            if control < out["control"]:
+                out.update(control=control, control_leaf=k)
+    return out
+
+
+def rank_train_mesh_phase(rank, dev, jobs: list, checks: list, shape,
+                          axes) -> dict:
+    """`rank_train_mesh` of ``jobs``, then `rank_shard_init` of
+    ``checks``, in one world (the card's ``[train mesh golden]``,
+    ``[train mesh shards]`` and ``[train mesh grads]``)."""
+    return {"jobs": rank_train_mesh(rank, dev, jobs),
+            "shards": rank_shard_init(rank, dev, checks, shape, axes)}
+
+
+def rank_train_deterministic(rank, dev, argv: list) -> dict:
+    """`launch.train`'s rank program on ``argv`` (its ``--mesh``) with
+    deterministic algorithms (ops without one warn): the card's ``[train
+    mesh nccl]``, whose 1x1 NCCL mesh must equal one device bit for bit,
+    and the embedding gradient's atomics would not."""
+    from repro_torch.launch import train as tlaunch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    return tlaunch._rank_main(rank, dev, tlaunch.parse_args(argv))
+

@@ -78,6 +78,15 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     """Token cross-entropy with a z-loss, the reference's: logits (..., V)
     in float32, ``nll = logsumexp - logit[label] + z_loss · logsumexp²``,
     averaged over the labels that are not ``ignore_id`` (at least 1)."""
+    nll, count = token_nll_sum(logits, labels, z_loss=z_loss,
+                               ignore_id=ignore_id)
+    return nll / count.clamp_min(1)
+
+
+def token_nll_sum(logits: torch.Tensor, labels: torch.Tensor, *,
+                  z_loss: float = 1e-4, ignore_id: int = -1):
+    """(the sum of `cross_entropy_loss`'s per-token terms over the labels
+    that are not ``ignore_id``, their count as an int64 tensor)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     mask = labels != ignore_id
@@ -87,7 +96,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     nll = lse - label_logit
     if z_loss:
         nll = nll + z_loss * lse.square()
-    return (nll * mask).sum() / mask.sum().clamp_min(1)
+    return (nll * mask).sum(), mask.sum()
 
 
 # ------------------------------------------------------------------- inits

@@ -28,6 +28,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import fsdp
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
 
@@ -97,19 +98,25 @@ def capacity(tokens: int, cfg: ModelConfig) -> int:
                    * cfg.capacity_factor), 1)
 
 
-def _route(router, xt, k: int):
+def _route(router, xt, k: int, mesh=None):
     """Float32 router: (gate (T, k) renormalised, idx (T, k), aux), slots in
-    descending probability, the lower expert first on ties."""
+    descending probability, the lower expert first on ties.  With a
+    training ``mesh`` (every rank holding rows of its own) the aux loss is
+    the global one: the token counts and probability sums are summed over
+    the ranks before their product."""
     probs = torch.softmax(xt.float() @ router, -1)
     gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = gate[:, :k], idx[:, :k]
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
     e = probs.shape[-1]
     # Switch aux loss: e · Σ_e f_e · P_e
-    token_frac = torch.bincount(idx.reshape(-1), minlength=e).float() \
-        / xt.shape[0]
-    aux = e * (token_frac * probs.mean(0)).sum()
-    return gate, idx, aux
+    counts = torch.bincount(idx.reshape(-1), minlength=e)
+    prob_sum, n = probs.sum(0), xt.shape[0]
+    if mesh is not None:
+        counts = mesh.psum(counts, mesh.axis_names)
+        prob_sum = fsdp.psum(prob_sum, mesh)
+        n *= fsdp.mesh_size(mesh)
+    return gate, idx, e * (counts.float() / n * (prob_sum / n)).sum()
 
 
 def _ranks(flat_e: torch.Tensor, e: int) -> torch.Tensor:
@@ -125,20 +132,25 @@ def _ranks(flat_e: torch.Tensor, e: int) -> torch.Tensor:
     return pos
 
 
-def _local_dispatch(xt, gate, idx, e: int, cap: int):
+def _local_dispatch(xt, gate, idx, e: int, cap: int, before=None):
     """Capacity-bounded dispatch.  xt: (T, D); gate/idx: (T, k).  Returns
-    (buf (E, cap, D), flat_e, pos, keep, tok)."""
+    (buf (E, rows, D), flat_e, pos, keep, tok), rows = cap.  ``before``
+    (E,): the pairs other ranks routed to each expert ahead of these,
+    which count toward the capacity (a pair is kept while ``pos +
+    before`` is below it); the buffer then holds min(cap, T·k) rows an
+    expert, which a kept pair's ``pos`` stays below."""
     t, d = xt.shape
     k = idx.shape[1]
     flat_e = idx.reshape(-1)
     pos = _ranks(flat_e, e)
-    keep = pos < cap
+    keep = pos < cap if before is None else pos + before[flat_e] < cap
+    rows = cap if before is None else min(cap, t * k)
     tok = torch.arange(t, device=xt.device).repeat_interleave(k)
     # Kept pairs own distinct rows; dropped ones all go to one spare row.
-    row = torch.where(keep, flat_e * cap + pos, e * cap)
-    buf = xt.new_zeros((e * cap + 1, d))
+    row = torch.where(keep, flat_e * rows + pos, e * rows)
+    buf = xt.new_zeros((e * rows + 1, d))
     buf[row] = xt[tok]
-    return buf[: e * cap].view(e, cap, d), flat_e, pos, keep, tok
+    return buf[: e * rows].view(e, rows, d), flat_e, pos, keep, tok
 
 
 def _experts(p, buf, cfg: ModelConfig):
@@ -160,35 +172,79 @@ def _combine(out_buf, flat_e, pos, keep, gate, k: int):
     return (g * w[:, None]).view(-1, k, d).sum(1)
 
 
+def a2a_route(cfg: ModelConfig, mesh, length: int) -> bool:
+    """Whether the reference's dispatcher takes the a2a form for tokens of
+    ``length`` on ``mesh``: ``moe_impl == "a2a"`` and a ``"model"`` axis of
+    size > 1 that divides the length and E."""
+    if cfg.moe_impl != "a2a" or mesh is None \
+            or "model" not in mesh.axis_names:
+        return False
+    s = mesh.shape["model"]
+    return s > 1 and length % s == 0 and cfg.num_experts % s == 0
+
+
 def moe_forward(p, x, cfg: ModelConfig, mesh=None):
     """MoE dispatcher: x (B, L, D) → ((B, L, D), aux load-balance loss).
 
-    With a `comm.Mesh` whose ``"model"`` axis (size > 1) divides L and E,
-    and ``moe_impl == "a2a"``, the expert-parallel form: every rank holds
-    the whole ``x`` and ``p`` (as the reference's caller does), works on its
-    token block and its experts (`token_block`, `expert_shard`), and the
-    output blocks are gathered back.  Otherwise the one-device scatter."""
-    if (cfg.moe_impl == "a2a" and mesh is not None
-            and "model" in mesh.axis_names):
-        s = mesh.shape["model"]
-        if x.shape[1] % s == 0 and cfg.num_experts % s == 0 and s > 1:
-            out, aux = _moe_forward_a2a(expert_shard(p, cfg, mesh),
-                                        token_block(x, mesh), cfg, mesh)
-            return gather_tokens(out, mesh), aux
+    With a `comm.Mesh` on which `a2a_route` holds, the expert-parallel
+    form: every rank holds the whole ``x`` and ``p`` (as the reference's
+    caller does), works on its token block and its experts
+    (`token_block`, `expert_shard`), and the output blocks are gathered
+    back.  Otherwise the one-device scatter."""
+    if a2a_route(cfg, mesh, x.shape[1]):
+        out, aux = _moe_forward_a2a(expert_shard(p, cfg, mesh),
+                                    token_block(x, mesh), cfg, mesh)
+        return gather_tokens(out, mesh), aux
     return _moe_forward_scatter(p, x, cfg)
 
 
-def _moe_forward_scatter(p, x, cfg: ModelConfig):
+def moe_forward_sharded(p, x, cfg: ModelConfig, mesh):
+    """The MoE of sharded training: x (B/R, L, D) holds this rank's rows
+    (rank q of the R = mesh size ranks the q-th run of the microbatch's
+    rows, `distributed.fsdp.local_rows`); returns ((B/R, L, D), the
+    global aux loss), what the reference's dispatcher computes on the
+    whole microbatch under its mesh.
+
+    On the a2a route (`a2a_route`) ``p`` holds this rank's E/S whole
+    experts (`distributed.fsdp.gather_module`): one all-to-all over
+    ``model`` turns the rows of ranks (d, ·) into the reference's block
+    (d, m) (data rank d's rows, sequence block m), `_moe_forward_a2a`
+    runs on it, and the transposed all-to-all brings the rows back.
+    Otherwise the whole layer, and the scatter of the global dispatch
+    (`_moe_forward_scatter` with the mesh)."""
+    if not a2a_route(cfg, mesh, x.shape[1]):
+        return _moe_forward_scatter(p, x, cfg, mesh)
+    s = mesh.shape["model"]
+    bl, L, d = x.shape
+    blk = x.reshape(bl, s, L // s, d).transpose(0, 1).contiguous()
+    blk = fsdp.all_to_all(blk, mesh, "model").reshape(s * bl, L // s, d)
+    out, aux = _moe_forward_a2a(p, blk, cfg, mesh)
+    out = fsdp.all_to_all(out.reshape(s, bl, L // s, d).contiguous(), mesh,
+                          "model")
+    return out.transpose(0, 1).reshape(bl, L, d), aux
+
+
+def _moe_forward_scatter(p, x, cfg: ModelConfig, mesh=None):
     """x: (B, L, D) → (B, L, D), aux load-balance loss (module
-    docstring)."""
+    docstring).  With a training ``mesh`` (``x`` this rank's rows), the
+    scatter of the whole microbatch: the capacity is the global token
+    count's; a (token, slot) pair's rank in its expert is its rank among
+    this rank's pairs plus the pairs every earlier rank routed there (one
+    all-gather of E counts), so that exactly the reference's pairs are
+    kept; the kept rows run through the experts here (an expert's rows do
+    not meet) and the aux loss is the global one (`_route`)."""
     b, L, d = x.shape
-    n = b * L
-    xt = x.reshape(n, d)
-    gate, idx, aux = _route(p["router"], xt, cfg.top_k)
+    t, e, k = b * L, cfg.num_experts, cfg.top_k
+    xt = x.reshape(t, d)
+    gate, idx, aux = _route(p["router"], xt, k, mesh)
+    before = None
+    if mesh is not None:
+        counts = torch.bincount(idx.reshape(-1), minlength=e)
+        before = fsdp.all_gather_ranks(counts, mesh)[:mesh.rank].sum(0)
+        t *= fsdp.mesh_size(mesh)
     buf, flat_e, pos, keep, _ = _local_dispatch(
-        xt, gate, idx, cfg.num_experts, capacity(n, cfg))
-    out = _combine(_experts(p, buf, cfg), flat_e, pos, keep, gate,
-                   cfg.top_k)
+        xt, gate, idx, e, capacity(t, cfg), before)
+    out = _combine(_experts(p, buf, cfg), flat_e, pos, keep, gate, k)
     if cfg.num_shared_experts:
         out = out + mlp_forward(p["shared"], xt, cfg)
     return out.view(b, L, d).to(x.dtype), aux
@@ -265,17 +321,18 @@ def _moe_forward_a2a(p, x, cfg: ModelConfig, mesh):
     cap = capacity(t, cfg)
     xt = x.reshape(t, d)
     gate, idx, aux = _route(p["router"], xt, k)
-    aux = mesh.psum(aux, axes) / math.prod(mesh.shape[a] for a in axes)
+    aux = fsdp.psum(aux, mesh, axes) / math.prod(mesh.shape[a] for a in axes)
 
     buf, flat_e, pos, keep, _ = _local_dispatch(xt, gate, idx, e, cap)
     # (E, cap, D) → (S, E/S, cap, D) → a2a → recv[j] = rank j's rows for
     # my experts → (E/S, S·cap, D)
-    recv = mesh.all_to_all(buf.view(s, el, cap, d), "model")
+    recv = fsdp.all_to_all(buf.view(s, el, cap, d), mesh, "model")
     recv = recv.transpose(0, 1).reshape(el, s * cap, d)
     out_buf = _experts(p, recv, cfg)
     # combine: the transposed route back to the source ranks
-    back = mesh.all_to_all(
-        out_buf.view(el, s, cap, d).transpose(0, 1).contiguous(), "model")
+    back = fsdp.all_to_all(
+        out_buf.view(el, s, cap, d).transpose(0, 1).contiguous(), mesh,
+        "model")
     out = _combine(back.view(e, cap, d), flat_e, pos, keep, gate, k)
     if cfg.num_shared_experts:
         out = out + mlp_forward(p["shared"], xt, cfg)

@@ -35,6 +35,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import fsdp
+from repro_torch.distributed import sharding_rules as rules
 from repro_torch.models import attention, common, mlp, ssm
 from repro_torch.models.config import ModelConfig
 
@@ -123,53 +125,81 @@ class LM(nn.Module):
 
 
 # --------------------------------------------------------------------- init
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> LM:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                keep=None) -> LM:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``,
     drawn on the device in float32 one tensor (one expert) at a time and
     cast to the config's dtype (a full-width model never has a float32
     copy); MoE routers and the mixers' ``a_log``, ``d_skip`` and
     ``dt_bias`` stay float32.  Drawn in the reference's order: embedding,
     unembedding, the patch projection, the shared block, then the
-    layers."""
+    layers.  ``keep(name, tensor)``, when given, replaces each leaf by
+    what it returns (a rank's shard, `distributed.fsdp.Layout.local`) as
+    soon as the leaf, or the layer that holds it, is drawn: the draws are
+    the one-device draws, and a rank never holds more than one layer at
+    full size beyond its shards."""
     dev = torch.device(device)
     gen = (common.ShapeOnly() if dev.type == "meta"
            else torch.Generator(device=dev).manual_seed(seed))
     dt = common.dtype_of(cfg.dtype)
     d, v = cfg.d_model, cfg.vocab_size
+    take = keep or (lambda name, t: t)
+
+    def kept(module: nn.Module, prefix: str) -> nn.Module:
+        with torch.no_grad():
+            for name, p in module.named_parameters(prefix=prefix):
+                p.data = take(name, p.data)
+        return module
+
     if cfg.num_codebooks:
-        embedding = torch.stack([common.embed_init(gen, v, d, dt)
-                                 for _ in range(cfg.num_codebooks)])
-        unembed = common.dense_init(gen, d, (cfg.num_codebooks * v,), dt)
+        embedding = take("embedding", torch.stack([
+            common.embed_init(gen, v, d, dt)
+            for _ in range(cfg.num_codebooks)]))
+        unembed = take("unembed", common.dense_init(
+            gen, d, (cfg.num_codebooks * v,), dt))
     else:
-        embedding = common.embed_init(gen, v, d, dt)
-        unembed = common.dense_init(gen, d, (v,), dt)
-    patch_proj = (common.dense_init(gen, PATCH_EMBED_DIM, (d,), dt)
-                  if cfg.num_patches else None)
+        embedding = take("embedding", common.embed_init(gen, v, d, dt))
+        unembed = take("unembed", common.dense_init(gen, d, (v,), dt))
+    patch_proj = (take("patch_proj", common.dense_init(
+        gen, PATCH_EMBED_DIM, (d,), dt)) if cfg.num_patches else None)
 
     def ones():
         return torch.ones(d, dtype=dt, device=dev)
 
-    shared = (Block("dense", ones(), attention.init_gqa(gen, cfg), ones(),
-                    mlp.init_mlp(gen, cfg))
+    shared = (kept(Block("dense", ones(), attention.init_gqa(gen, cfg),
+                         ones(), mlp.init_mlp(gen, cfg)), "shared_attn")
               if cfg.family == "hybrid" else None)
     attn_init = (attention.init_mla if cfg.attention == "mla"
                  else attention.init_gqa)
 
-    def layer(kind):
+    def layer(i, kind):
         if kind in MAMBA_KINDS:
-            return MambaBlock(kind, ones(), ssm.init_mamba(gen, cfg))
-        return Block(kind, ones(), attn_init(gen, cfg), ones(),
-                     mlp.init_moe(gen, cfg) if kind == "moe"
-                     else mlp.init_mlp(gen, cfg))
+            block = MambaBlock(kind, ones(), ssm.init_mamba(gen, cfg))
+        else:
+            block = Block(kind, ones(), attn_init(gen, cfg), ones(),
+                          mlp.init_moe(gen, cfg) if kind == "moe"
+                          else mlp.init_mlp(gen, cfg))
+        return kept(block, f"layers.{i}")
 
-    layers = [layer(kind) for kind in layer_kinds(cfg)]
-    return LM(embedding, unembed, ones(), layers, shared, patch_proj)
+    layers = [layer(i, kind) for i, kind in enumerate(layer_kinds(cfg))]
+    return LM(embedding, unembed, take("final_norm", ones()), layers, shared,
+              patch_proj)
 
 
 def param_shapes(cfg: ModelConfig) -> LM:
     """The parameter skeleton (shapes and dtypes) on the meta device:
     nothing is allocated or drawn."""
     return init_params(cfg, device="meta")
+
+
+def layout_on(mesh, cfg: ModelConfig) -> fsdp.Layout:
+    """Where ``cfg``'s parameters live on a training ``mesh``
+    (`distributed.fsdp.Layout`): each leaf's spec is the reference's for
+    its path (`distributed.sharding_rules.param_shardings`)."""
+    shapes = {k: tuple(t.shape) for k, t in
+              param_shapes(cfg).named_parameters()}
+    return fsdp.Layout(mesh, rules.param_shardings(
+        mesh, shapes, stacks_of(cfg)), shapes)
 
 
 def trainable(params: LM) -> LM:
@@ -217,25 +247,46 @@ def _logits(params: LM, cfg: ModelConfig, h):
 
 
 # ------------------------------------------------------------------ blocks
-def ffn_forward(p: Block, x, cfg: ModelConfig):
-    """The block's MLP or MoE: (out, aux loss; None for an MLP)."""
+def ffn_forward(p: Block, x, cfg: ModelConfig, mesh=None):
+    """The block's MLP or MoE: (out, aux loss; None for an MLP).  On a
+    training ``mesh`` the MoE takes this rank's rows
+    (`mlp.moe_forward_sharded`)."""
     if p.kind == "moe":
+        if mesh is not None:
+            return mlp.moe_forward_sharded(p.moe, x, cfg, mesh)
         return mlp.moe_forward(p.moe, x, cfg)
     return mlp.mlp_forward(p.mlp, x, cfg), None
 
 
+def _gathered(p: nn.Module, layout, cfg: ModelConfig, length: int):
+    """``p``'s leaves at full size on a training mesh
+    (`fsdp.gather_module`); a MoE block on the a2a route keeps E/S whole
+    experts."""
+    mesh = layout.mesh
+    el = (cfg.num_experts // mesh.shape["model"]
+          if p.kind == "moe" and mlp.a2a_route(cfg, mesh, length) else 0)
+    return fsdp.gather_module(p, layout, el)
+
+
 def _apply_block(p: nn.Module, h, positions, cfg: ModelConfig,
-                 shared: Block | None = None):
+                 shared: Block | None = None, layout=None):
     """One block; returns (h, aux or None, cache): (k, v) for GQA, (c,
     k_rope) for MLA, (state, conv tail) for ``mamba`` and ((state, conv
     tail), (k, v)) for ``mamba_attn``, whose attention and MLP are those of
-    ``shared``."""
+    ``shared``.  With the ``layout`` of a training mesh (`fsdp.Layout`)
+    the block's shards are gathered here, inside what remat recomputes, so
+    the backward gathers them again and one layer at a time is held at
+    full size (the hybrid's ``shared`` at each of its uses)."""
+    mesh = None
+    if layout is not None:
+        p, mesh = _gathered(p, layout, cfg, h.shape[1]), layout.mesh
     if p.kind in MAMBA_KINDS:
         out, cache = ssm.mamba_forward(
             p.mamba, common.rms_norm(h, p.norm1, cfg.norm_eps), cfg)
         h = h + out
         if p.kind == "mamba_attn":
-            h, _, kv = _apply_block(shared, h, positions, cfg)
+            h, _, kv = _apply_block(shared, h, positions, cfg,
+                                    layout=layout)
             cache = (cache, kv)
         return h, None, cache
     attn_fwd = (attention.mla_forward if cfg.attention == "mla"
@@ -243,13 +294,24 @@ def _apply_block(p: nn.Module, h, positions, cfg: ModelConfig,
     a_out, kv = attn_fwd(p.attn, common.rms_norm(h, p.norm1, cfg.norm_eps),
                          positions, cfg)
     h = h + a_out
-    out, aux = ffn_forward(p, common.rms_norm(h, p.norm2, cfg.norm_eps), cfg)
+    out, aux = ffn_forward(p, common.rms_norm(h, p.norm2, cfg.norm_eps), cfg,
+                           mesh)
     return h + out, aux, kv
 
 
 # ----------------------------------------------------------------- forward
+def _top(params: LM, layout, *names: str):
+    """``params`` itself, or on a training mesh a view of the named
+    top-level leaves gathered to full size (None where absent)."""
+    if layout is None:
+        return params
+    return fsdp.View(None, {
+        n: None if getattr(params, n) is None
+        else fsdp.gather(getattr(params, n), layout) for n in names})
+
+
 def forward(params: LM, cfg: ModelConfig, batch: dict, *,
-            collect_cache: bool = False, remat: bool = False):
+            collect_cache: bool = False, remat: bool = False, mesh=None):
     """Training or prefill forward.  Returns (logits (B, L, V[, K]) in the
     working dtype, the MoE layers' aux losses summed in float32 (0 without
     MoE), caches): with ``collect_cache`` one entry per layer, (k, v) each
@@ -257,40 +319,64 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, *,
     (state (B, H, S, P) float32, conv tail (B, w-1, d_inner + 2S)) for
     ``mamba`` and ((state, tail), (k, v)) for ``mamba_attn``; else None.
     With ``remat`` and gradients on, each layer runs under a non-reentrant
-    activation checkpoint: its backward recomputes it from its input."""
-    h, positions = embed_inputs(params, cfg, batch)
+    activation checkpoint: its backward recomputes it from its input.
+
+    On a training ``mesh`` (`distributed.comm.Mesh`) ``params`` holds this
+    rank's shards (`distributed.fsdp.Layout.shard`) and ``batch`` this
+    rank's rows: each leaf is gathered where it is used (a layer's inside
+    its checkpoint; the embedding first, the final norm and unembedding
+    last) and the MoE layers take the sharded dispatch; the aux losses
+    are then the global ones.  A mesh without a group (one process
+    alone, `distributed.fsdp.one_rank`) holds every leaf whole: nothing
+    is gathered."""
+    layout = (None if mesh is None or mesh.backend is None
+              else fsdp.layout_of(params, mesh))
+    h, positions = embed_inputs(_top(params, layout, "embedding",
+                                     "patch_proj"), cfg, batch)
     caches = []
     total_aux = torch.zeros((), device=h.device)
     remat = remat and torch.is_grad_enabled()
     for layer in params.layers:
         if remat:
             h, aux, kv = checkpoint(_apply_block, layer, h, positions, cfg,
-                                    params.shared_attn, use_reentrant=False)
+                                    params.shared_attn, layout,
+                                    use_reentrant=False)
         else:
             h, aux, kv = _apply_block(layer, h, positions, cfg,
-                                      params.shared_attn)
+                                      params.shared_attn, layout)
         if aux is not None:
             total_aux = total_aux + aux
         if collect_cache:
             caches.append(kv)
-    return (_logits(params, cfg, h), total_aux,
-            caches if collect_cache else None)
+    return (_logits(_top(params, layout, "final_norm", "unembed"), cfg, h),
+            total_aux, caches if collect_cache else None)
 
 
 def loss_fn(params: LM, cfg: ModelConfig, batch: dict,
-            aux_coef: float = 0.01):
+            aux_coef: float = 0.01, mesh=None):
     """Training loss, the reference's: cross-entropy with z-loss of the
     float32 logits against ``labels`` (audio (B, K, L), swapped to (B, L,
     K); with ``patch_embeds`` the patch positions take label -1, which the
     loss ignores), plus ``aux_coef`` times the MoE aux loss.  Returns
     (loss, {"ce", "aux"}); the forward checkpoints its layers under
-    ``cfg.remat``."""
-    logits, aux, _ = forward(params, cfg, batch, remat=cfg.remat)
+    ``cfg.remat``.
+
+    On a training ``mesh`` (see `forward`) the loss is this rank's share
+    of the global loss, so that the shares sum to it: its rows' token
+    losses summed, over the global count of labels that are not ignored
+    (one all-reduce of the ranks' counts), plus ``aux_coef`` times the
+    global aux over the number of ranks."""
+    logits, aux, _ = forward(params, cfg, batch, remat=cfg.remat, mesh=mesh)
     labels = batch["labels"]
     if cfg.num_codebooks:
         labels = labels.transpose(1, 2)
     if cfg.num_patches and "patch_embeds" in batch:
         pad = labels.new_full((*labels.shape[:-1], cfg.num_patches), -1)
         labels = torch.cat([pad, labels], dim=-1)
-    loss = common.cross_entropy_loss(logits, labels)
+    nll, count = common.token_nll_sum(logits, labels)
+    ranks = 1
+    if mesh is not None:
+        count, ranks = mesh.psum(count, mesh.axis_names), fsdp.mesh_size(mesh)
+    loss = nll / count.clamp_min(1)
+    aux = aux / ranks
     return loss + aux_coef * aux, {"ce": loss, "aux": aux}

@@ -44,10 +44,26 @@ def init(params, state_dtype=torch.float32) -> AdamWState:
                       m=zeros(), v=zeros())
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of their float32 sums of squares."""
-    return torch.sqrt(sum(x.float().square().sum()
-                          for x in named(tree).values()))
+def global_norm(tree, layout=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of their float32 sums of squares.  With
+    a `distributed.fsdp.Layout` the leaves are this rank's shards: each
+    leaf's sum is summed over the axes that leaf is split over (one
+    all-reduce per axis for all the leaves split alike), so that every
+    element counts once and a replicated leaf is not summed at all; the
+    leaves' sums are then added in the tree's order, as on one device."""
+    leaves = named(tree)
+    sums = {k: x.float().square().sum() for k, x in leaves.items()}
+    if layout is not None:
+        groups: dict[tuple, list] = {}
+        for k in leaves:
+            groups.setdefault(layout.sharded_axes(k), []).append(k)
+        for axes, names in groups.items():
+            if not axes:
+                continue
+            total = layout.mesh.psum(torch.stack([sums[k] for k in names]),
+                                     axes)
+            sums.update(zip(names, total.unbind(0)))
+    return torch.sqrt(sum(sums.values()))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -64,12 +80,14 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def update(params, grads, state: AdamWState, *, lr, b1=0.9, b2=0.95,
-           eps=1e-8, weight_decay=0.1, max_grad_norm=1.0):
+           eps=1e-8, weight_decay=0.1, max_grad_norm=1.0, layout=None):
     """One AdamW step on clipped gradients, the parameters and moments
     updated in place.  Returns (params, state, grad_norm before
-    clipping)."""
+    clipping).  With a `distributed.fsdp.Layout`, every tree holds this
+    rank's shards: the arithmetic is elementwise, and the norm is the
+    whole model's (`global_norm`)."""
     p_named, g_named = named(params), named(grads)
-    gnorm = global_norm(g_named)
+    gnorm = global_norm(g_named, layout)
     scale = _clip_scale(gnorm, max_grad_norm)
     step = state.step + 1
     c1 = 1.0 - b1 ** step.float()

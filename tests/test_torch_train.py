@@ -521,9 +521,18 @@ def test_launcher_trains_the_smoke_config_on_cpu(capsys):
 
 
 def test_launcher_refuses_a_mesh_and_needs_a_gpu_by_default(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A batch whose rows do not split over the mesh's ranks is refused
+    before any rank starts (8 rows over the 6 ranks of 2x3), naming the
+    rows and the mesh; without a GPU the default device raises."""
+    from repro_torch.launch import accel
+
+    def no_spawn(*a, **k):
+        raise AssertionError("a rank started")
+
+    monkeypatch.setattr(accel, "spawn", no_spawn)
+    with pytest.raises(ValueError, match=r"batch of 8 rows.*mesh 2x3"):
         tlaunch.main(["--arch", "llama3.2-3b", "--smoke", "--device", "cpu",
-                      "--mesh", "2x2"])
+                      "--mesh", "2x3", "--backend", "gloo"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         tlaunch.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1"])

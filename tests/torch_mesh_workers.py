@@ -8,7 +8,8 @@ hands down) without the test files' jax.
 Each function runs several checks in one world and returns plain numpy
 and Python values; the tests compare them with the live reference
 (`moe_world` backs `test_torch_moe.py`, `dp_world`
-`test_torch_dp_train.py`)."""
+`test_torch_dp_train.py`, `train_mesh_world` and `train_restart_world`
+the ``test_torch_train_mesh*.py`` files)."""
 import dataclasses
 
 import numpy as np
@@ -377,4 +378,73 @@ def dp_world(rank, dev, job: dict) -> dict:
                 params, opt, err, m = step(params, opt, err, b)
                 losses.append(float(m["loss"]))
             out["compressed" if compressed else "exact"] = losses
+    return out
+
+
+def train_mesh_world(rank, dev, jobs: list, shard_checks: list = ()) -> list:
+    """`launch.mesh_smoke.rank_train_mesh` (the card's golden phase's rank
+    program) on a CPU world, `rank_shard_init` of ``shard_checks`` on a
+    2×2 mesh (the card's shards and gradients check), plus
+    `Mesh.reduce_scatter` over each axis of a 2-axis mesh against an
+    all-reduce and this rank's slice."""
+    from repro_torch.launch import mesh_smoke
+
+    out = mesh_smoke.rank_train_mesh(rank, dev, jobs)
+    shards = mesh_smoke.rank_shard_init(rank, dev, list(shard_checks),
+                                        (2, 2), ("data", "model"))
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev)
+    checks = {}
+    for axis in mesh.axis_names:
+        x = torch.from_numpy(np.random.default_rng((rank, 3)).standard_normal(
+            (6, 5)).astype(np.float32))
+        got = mesh.reduce_scatter(x, axis)
+        i = mesh.axis_index(axis)
+        want = mesh.psum(x, axis)[i * 3:(i + 1) * 3]
+        checks[axis] = (got.numpy(), want.numpy(), mesh.stats[axis]["calls"])
+    return {"jobs": out, "reduce_scatter": checks, "shards": shards}
+
+
+RESTART_KW = dict(batch=8, seq_len=32, steps=4, ckpt_every=1, lr=1e-3,
+                  log_every=100, print_fn=lambda *a: None)
+
+
+def _full_state(res) -> dict:
+    """A `loop.TrainResult`'s parameters and moments gathered to full
+    size (every rank takes part), as numpy."""
+    lay = res.params.fsdp
+    named = dict(res.params.named_parameters())
+    return {f"{what}/{k}": lay.full(k, t.detach()).cpu().numpy()
+            for what, tree in (("params", named), ("m", res.opt_state.m),
+                               ("v", res.opt_state.v))
+            for k, t in tree.items()}
+
+
+def train_restart_world(rank, dev, root: str) -> dict:
+    """The smoke llama on a 2×2 mesh through `train.loop`: 4 steps
+    checkpointed every step (``clean``); the same crashed after its
+    second step (index 1, whose checkpoint is written first) and
+    restarted from step 2 (``crashed``); and 4 steps resumed from the
+    one-device checkpoint the test wrote at step 2 under ``root/one``
+    (``from_one``).  Returns each run's losses, where it resumed, and on
+    rank 0 its parameters and moments at full size."""
+    import os
+
+    from repro_torch.train import loop
+
+    cfg = registry.smoke("llama3.2-3b")
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev, timeout_s=120)
+    runs = {
+        "clean": loop.train(cfg, checkpoint_dir=os.path.join(root, "clean"),
+                            device=dev, mesh=mesh, **RESTART_KW),
+        "crashed": loop.train_with_restarts(
+            cfg, checkpoint_dir=os.path.join(root, "crashed"),
+            crash_schedule=(1,), device=dev, mesh=mesh, **RESTART_KW),
+        "from_one": loop.train(cfg, checkpoint_dir=os.path.join(root, "one"),
+                               device=dev, mesh=mesh, **RESTART_KW)}
+    out = {"rank": rank}
+    for name, res in runs.items():
+        state = _full_state(res)
+        out[name] = dict(losses=res.losses, resumed_from=res.resumed_from,
+                         step=int(res.opt_state.step),
+                         state=state if rank == 0 else None)
     return out
