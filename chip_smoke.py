@@ -310,7 +310,7 @@ else.  Phases, each of which raises on failure:
     share of the bf16 peak
     that 6 · N · tokens a step gives, peak device memory and the
     forward / backward / optimizer split; ([train families]) each family
-    at train_4k's 4,096-token sequences, 8 in 8 microbatches, 3 steps:
+    at train_4k's 4,096-token sequences, 8 in 8 microbatches, 2 steps:
     mamba2-1.3b and zamba2-2.7b at full width and depth through
     ``launch.train.main``, deepseek-v3, maverick and nemotron at full
     width (nemotron: its published attention shape) cut as
@@ -343,11 +343,11 @@ else.  Phases, each of which raises on failure:
     one-device gradient's blocks rolled by one (a block on another
     rank's slice);
     ([train mesh main]) llama3.2-3b at full width cut to 2 layers, bf16,
-    float32 moments, 3 steps of 4 x 4,096 tokens (one row a rank)
+    float32 moments, 2 steps of 4 x 4,096 tokens (one row a rank)
     through ``launch.train.main(... --mesh 2x2 --backend gloo)``, and
     ([train mesh moe]) maverick at full width, 2 layers of 4 experts (2
     a rank on the a2a route; at 8 four ranks' peaks passed the card),
-    bf16 moments, 1 step of 4 x 2,048 tokens:
+    bf16 moments, 1 step of 4 x 1,024 tokens:
     every step's loss and grad norm within ``TRAIN_MESH_LOSS_RTOL`` and
     ``TRAIN_MESH_GN_RTOL`` of a one-device run of the same cut (at least
     2 steps, for the control: its step 1 against its step 0, another
@@ -379,7 +379,52 @@ else.  Phases, each of which raises on failure:
     plain version, and the autograd backward of
     ``scaled_dot_product_attention(..., is_causal=True,
     enable_gqa=True)`` (timed only) from a CUDA graph of 10 and eager,
-    beside its bound.
+    beside its bound;
+18. serving on a mesh and the dry-run (`run_serve_mesh_phases`):
+    ([flash decode lse]) the ``decode`` route's output and log-sum-exp
+    (``ops.flash_attention(..., return_lse=True)``) against their plain
+    versions at llama3.2-3b's, zamba2's and phi-3-vision's decode shapes
+    on one rank's part of [serve mesh]'s cache (its 2 of the batch's 4
+    rows over ``data``, its 2,052 of the 2 x 2,052 positions over
+    ``model``; the grid's splits are those the ranks launch): every key
+    visible, one split exactly, one key past the first split, the 4 keys
+    a ``model`` rank 1 sees at the last step, and no key (output 0,
+    log-sum-exp -inf, no launch); output within the decode
+    tolerances, log-sum-exp within ``LSE_TOL``; the kernel timed with and
+    without the lse output from a CUDA graph of 10, beside its bound;
+    ([serve mesh]) llama3.2-3b at full width cut to 2 layers and
+    zamba2-2.7b at full width cut to 6 (five ``mamba``, one
+    ``mamba_attn`` running the shared block), bf16, seeded weights:
+    batch 4, prompt 2,048, 8 greedy decode steps on a 2x2 gloo mesh of 4
+    ranks sharing card 0 (`mesh_smoke.rank_serve_mesh`: the prefill's
+    rows over ``data``, the caches of 2 x 2,052 positions in the
+    reference's layout, the sequence-parallel decode; the write moves
+    from ``model`` rank 0 to rank 1 at step 4) against one device's run
+    of the same cut on card 0, fed the same tokens: every step's logits
+    within ``SERVE_MESH_RRMS`` (bf16 relative RMS), the greedy tokens
+    equal wherever one device's top-2 gap exceeds twice the largest
+    logit difference, the exact ``wgmma`` and ``decode`` launches of
+    each rank (a ``model`` rank 1 launches none before step 4); per rank
+    the prefill seconds, decode ms a step, ``Mesh.stats`` by axis, staged
+    bytes and peak GiB; for llama, planted faults (a lost ``model`` rank
+    1, a merge that ignores the lse: steps 4-7 decoded again on the run's
+    caches), the lse fault's logits past the limit, and the split check
+    (one decode step's attention alone, rank 1 seeing 4 and 2,052 keys)
+    within ``SERVE_MESH_SPLIT_RRMS`` of one device's while both faults
+    are not; ([dryrun check]) `launch.dryrun.lower_cell` on a
+    2x2 `comm.ShapeMesh` of the exact cells that [train mesh main] and
+    [serve mesh] (llama) ran: the dry collective counts by axis equal
+    the measured ``Mesh.stats`` of rank 0, calls and bytes, and the dry
+    peak is within ``DRYRUN_PEAK_RTOL`` of the measured
+    ``max_memory_allocated`` of rank 0 (the serving run's, after the
+    weights' draw; training's over its whole run), with FLOPs, bytes and
+    the roofline terms; ([dryrun sweep]) `launch.dryrun` on the 16x16
+    `ShapeMesh`: ``DRYRUN_SWEEP_CELLS`` (see there) and the three BPT
+    cells, one line each (status, dominant term,
+    per-device GiB, ``fits``), none ``error``, within
+    ``DRYRUN_SWEEP_BUDGET_S``, traced after [serve mesh].
+    ``--serve-mesh-only`` builds the kernels and runs [train mesh main]
+    (one step) and this phase alone.
 
 Each phase prints its peak device memory (9b, 9c and 9d their seconds
 too).
@@ -489,8 +534,9 @@ BWD_TIMED_SHAPES = {"training": BWD_SHAPE,
 # and MoE layer, 8 experts.  nemotron: the published attention (96 heads
 # over 8 of 192), relu2 MLP and vocabulary 256,000, d_model 18,432 -> 4,608,
 # d_ff 73,728 -> 18,432, 96 layers -> 4 (its embedding and unembedding
-# alone are 9.4 B parameters at full width).  Each arch: 3 steps of 8
-# sequences of 4,096 tokens in 8 microbatches.
+# alone are 9.4 B parameters at full width).  Each arch: 2 steps of 8
+# sequences of 4,096 tokens in 8 microbatches (3 until the whole smoke
+# took 1,202.7 s of its 1,200 on one H100; PERF.md §6).
 TRAIN_FAMILY_ARCHS = ("mamba2-1.3b", "zamba2-2.7b")
 TRAIN_FAMILY_CUTS = {
     "deepseek-v3-671b": dict(num_layers=3, first_dense_layers=1,
@@ -498,12 +544,14 @@ TRAIN_FAMILY_CUTS = {
     "llama4-maverick-400b-a17b": dict(num_layers=2, num_experts=8),
     "nemotron-4-340b": dict(d_model=4608, d_ff=18432, num_layers=4),
 }
-TRAIN_FAMILY_STEPS, TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 3, 8, 4096
+TRAIN_FAMILY_STEPS, TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 2, 8, 4096
 # Phase 16g, sharded training on 4 ranks sharing the card over gloo: the
 # launcher's arguments of the main path (llama3.2-3b at full width, 2
 # layers, 4 x 4,096 tokens, one row a rank), the MoE path (maverick, 2
 # layers of 4 experts: at 8, four ranks' peaks passed the card's memory;
-# 4 x 2,048 tokens, 1 step: the phase's 300 s allow no second) and the
+# 4 x 2,048 tokens, 1 step: its layer gathers through the host set the
+# step, 55-60 s at 2,048 and 50 s at 1,024 tokens on an H100, PERF.md §6)
+# and the
 # 1x1 NCCL mesh (the smoke llama), the mesh's arguments; the limits on
 # every step's loss and grad norm against a one-device run of the same
 # cut, and on each gradient leaf of step 0 gathered from the shards
@@ -518,7 +566,7 @@ TRAIN_FAMILY_STEPS, TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 3, 8, 4096
 # a2a route's per-block capacity and aux are the reference's own, so its
 # router gradient differs from one device's by design).
 TRAIN_MESH_MAIN_ARGV = ["--arch", "llama3.2-3b", "--num-layers", "2",
-                        "--batch", "4", "--seq-len", "4096", "--steps", "3"]
+                        "--batch", "4", "--seq-len", "4096", "--steps", "2"]
 TRAIN_MESH_MOE_ARGV = ["--arch", "llama4-maverick-400b-a17b",
                        "--num-layers", "2", "--num-experts", "4",
                        "--batch", "4", "--seq-len", "2048", "--steps", "1"]
@@ -537,14 +585,54 @@ TRAIN_FAMILY_BF16 = {
         "llama4-maverick-400b-a17b"],
     "nemotron-4-340b": TRAIN_FAMILY_CUTS["nemotron-4-340b"],
 }
-# Integer operations of the counter hash (core/rng.py): one fold is
-# 2 shifts + 3 adds + 1 xor, then mix32 is 3 shift-xor pairs + 2 multiplies;
-# a colour draw adds shift, convert, scale and compare.
-OPS_PER_EDGE_FOLD = 14
-OPS_PER_DRAW = 18
-# A quantised draw: one fold (14) serves four colours, each of which adds a
-# shift, a mask and a compare; counted as 20 per hash.
-OPS_PER_Q_HASH = 20
+# Phase 18, serving on a mesh: the jobs' cuts, batch, prompt, steps and
+# cache length (2 x (2,048 + 4): each ``model`` rank holds 2,052
+# positions, so the write crosses to rank 1 at step 4).  The logits'
+# limit: the mesh merges each rank's bf16 attention output in float32 and
+# rounds it again, and its row blocks take other GEMM tilings, so its
+# bf16 logits differ from one device's by a few bf16 steps (2^-8
+# relative) on some of them; 2e-2 relative RMS passes that (5.87e-3)
+# and fails a misplaced cache block (control: the logits of the next
+# step, which differ by ~1.4) and a merge that ignores the log-sum-exp
+# (a planted fault, `mesh_smoke._faulty_merge`: 0.47-0.66 at steps
+# 4-7).  A lost ``model`` rank 1 holds 1-4 of ~2,052 visible keys and
+# moves the logits to only 6.5e-3-7.1e-3, which no limit tells from a
+# sound run; the split check (`mesh_smoke._split_check`: the attention
+# of a decode step alone, seeded, against one device's over the whole
+# cache) sees it: 1e-2 passes the sound merge's one bf16 rounding
+# (2.9e-3) and fails a lost rank 1 (4.3e-2 at 4 keys, 1.0 at 2,052) and
+# an ignored lse (8.9, 2.1e-2) on an H100, PERF.md §6.  The job whose
+# faults are planted (attention layers alone, module docstring of
+# `mesh_smoke._fault_steps`).
+# The dry-run's peak against the measured one: the allocator rounds
+# blocks and keeps cuBLAS workspaces the meta trace does not see.
+SERVE_MESH_JOBS = [("llama3.2-3b", {"num_layers": 2}),
+                   ("zamba2-2.7b", {"num_layers": 6})]
+SERVE_MESH_BATCH, SERVE_MESH_PROMPT, SERVE_MESH_STEPS = 4, 2048, 8
+SERVE_MESH_MAX_LEN = 2 * (SERVE_MESH_PROMPT + SERVE_MESH_STEPS // 2)
+SERVE_MESH_RRMS = 2e-2
+SERVE_MESH_SPLIT_RRMS = 1e-2
+SERVE_MESH_FAULT_ARCH = "llama3.2-3b"
+DRYRUN_PEAK_RTOL = 0.15
+# The smoke's dry-run sweep on 16x16: a cell of every family and kind
+# (dense training and prefill by llama3.2-3b, MoE by maverick, MLA by
+# deepseek-v3's decode, SSD and the hybrid by mamba2's and zamba2's
+# decode and long_500k, the VLM's and the codebooks' prefill and decode,
+# a skipped long_500k), ~22 s; every cell took 68.9-101.8 s (PERF.md §6)
+# and the whole smoke 1,130.6 s of its 1,200 on one card, so `python -m
+# repro_torch.launch.dryrun --all` traces the rest.
+DRYRUN_SWEEP_CELLS = [
+    ("llama3.2-3b", "train_4k"), ("llama3.2-3b", "prefill_32k"),
+    ("llama3.2-3b", "decode_32k"), ("llama3.2-3b", "long_500k"),
+    ("llama4-maverick-400b-a17b", "train_4k"),
+    ("llama4-maverick-400b-a17b", "prefill_32k"),
+    ("llama4-maverick-400b-a17b", "decode_32k"),
+    ("deepseek-v3-671b", "decode_32k"),
+    ("mamba2-1.3b", "decode_32k"), ("mamba2-1.3b", "long_500k"),
+    ("zamba2-2.7b", "decode_32k"), ("zamba2-2.7b", "long_500k"),
+    ("phi-3-vision-4.2b", "prefill_32k"), ("phi-3-vision-4.2b", "decode_32k"),
+    ("musicgen-medium", "prefill_32k"), ("musicgen-medium", "decode_32k")]
+DRYRUN_SWEEP_BUDGET_S = 240.0
 # The quantised path (phases 10-13): its graph, batches, check list and the
 # statistics limit in standard errors of the difference of two means.
 Q_N, Q_DEGREE, Q_PROB, Q_GRAPH_SEED = 262_144, 6.0, 0.25, 7
@@ -1026,7 +1114,7 @@ def time_tile_kernel(store, diffusion: str) -> dict:
     one edge fold and one draw per tested pair (IC), one add and two
     compares (LT)."""
     from repro_torch.core import bitmask, sparse, tiles, traversal
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ref, work
     from repro_torch.kernels.fused_expand import fused_expand_cuda
     from repro_torch.kernels.lt_select_expand import lt_select_expand_cuda
     from repro_torch.sampling import make_sampler
@@ -1118,7 +1206,8 @@ def time_tile_kernel(store, diffusion: str) -> dict:
                                   + (n_src + n_dst) * row_bytes
                                   + ids.numel() * 8 + ptr_bytes)
         t["ops"].append(n_live + 3 * pairs if lt else
-                        n_live * OPS_PER_EDGE_FOLD + pairs * OPS_PER_DRAW)
+                        n_live * work.OPS_PER_EDGE_FOLD
+                        + pairs * work.OPS_PER_DRAW)
         t["tiles"].append(int(ids.numel()))
         levels.append((fr, vis, ids))
         fr = nf
@@ -1223,13 +1312,20 @@ def check_outputs_lt(out: dict, golden: dict) -> None:
 
 
 # ------------------------------------------------- serving lifecycle phases
+_LAST_RELEASE = [time.perf_counter()]
+
+
 def _release(what: str) -> None:
     """Free what the phase before held, so that each phase's peak device
-    memory is its own (and two 24.2 GiB layouts never outlive a phase)."""
+    memory is its own (and two 24.2 GiB layouts never outlive a phase);
+    with the seconds since the last release, the smoke's time by phase."""
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 2 ** 30
-    print(f"[release] {what} freed: {held:.2f} GiB still allocated")
+    now = time.perf_counter()
+    print(f"[release] {what} freed: {held:.2f} GiB still allocated; "
+          f"{now - _LAST_RELEASE[0]:.1f}s since the last release")
+    _LAST_RELEASE[0] = now
 
 
 def _launcher_args(golden: dict, *flags: str):
@@ -2149,10 +2245,11 @@ def time_q_kernel(tg, q8, g_rev) -> dict:
     source block, on the list the frontier rows of the listed tiles' source
     blocks, the visited rows of their destination blocks and each entry's
     id and source block.  Operations: one cell fold per live edge
-    (OPS_PER_EDGE_FOLD) and one hash and byte compare per live nibble
-    (OPS_PER_Q_HASH): four colours of the source row not all visited at
-    the destination."""
+    (``work.OPS_PER_EDGE_FOLD``) and one hash and byte compare per live
+    nibble (``work.OPS_PER_Q_HASH``): four colours of the source row not
+    all visited at the destination."""
     from repro_torch.core import bitmask, rrr, sparse, tiles, traversal
+    from repro_torch.kernels import work
     from repro_torch.kernels.fused_expand_q import fused_expand_q_cuda
 
     n, dev = g_rev.num_vertices, tg.device
@@ -2210,7 +2307,8 @@ def time_q_kernel(tg, q8, g_rev) -> dict:
         t["bytes_compact"].append(n_live + out_bytes
                                   + (n_src + n_dst) * row_bytes
                                   + ids.numel() * 8 + ptr_bytes)
-        t["ops"].append(n_live * OPS_PER_EDGE_FOLD + nibbles * OPS_PER_Q_HASH)
+        t["ops"].append(n_live * work.OPS_PER_EDGE_FOLD
+                        + nibbles * work.OPS_PER_Q_HASH)
         t["tiles"].append(int(ids.numel()))
         # Not the bound: the q rows the walk reads, T bytes per live source
         # row of every walked tile (the layout has no index of its edges).
@@ -4300,6 +4398,406 @@ def run_train_phases(golden: dict, dev) -> dict:
     return out
 
 
+def check_flash_decode_lse(dev) -> dict:
+    """[flash decode lse] (phase 18, module docstring): the decode route's
+    output and log-sum-exp against their plain versions, and the kernel
+    timed with and without the lse output."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref, work
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    b, lk = SERVE_MESH_BATCH // 2, SERVE_MESH_MAX_LEN // 2
+    out = {"cases": 0, "max_abs_err": 0.0, "rrms": 0.0, "lse_err": 0.0,
+           "shapes": {}}
+    for arch in ("llama3.2-3b", "zamba2-2.7b", "phi-3-vision-4.2b"):
+        cfg = registry.get(arch)
+        h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = torch.randn((b, 1, h, d), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        k = torch.randn((b, lk, kvh, d), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        v = torch.randn((b, lk, kvh, d), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        chunk, n_chunks = fa.decode_split(b, kvh, h, lk, sms)
+        for off in (lk - 1, chunk - 1, chunk, SERVE_MESH_STEPS // 2 - 1,
+                    -1):
+            before = ops.LAUNCHES["flash_decode"]
+            got, lse = ops.flash_attention(q, k, v, causal=True,
+                                           kv_offset=off, return_lse=True)
+            torch.cuda.synchronize()
+            what = f"flash decode lse {arch} kv_offset {off}"
+            if off < 0:
+                _check(ops.LAUNCHES["flash_decode"] == before
+                       and bool((got == 0).all())
+                       and bool((lse == float("-inf")).all()),
+                       f"{what}: not (out 0, lse -inf, no launch)")
+                continue
+            _check(ops.LAUNCHES["flash_decode"] == before + 1,
+                   f"{what}: the decode kernel did not launch")
+            worst, rrms = _flash_close(got, ref.flash_attention_ref(
+                q, k, v, causal=True, kv_offset=off), torch.bfloat16, what)
+            lse_err = float((lse - ref.flash_attention_lse_ref(
+                q, k, causal=True, kv_offset=off)).abs().max())
+            _check(lse_err <= LSE_TOL, f"{what}: lse max abs err "
+                   f"{lse_err} > {LSE_TOL}")
+            out["cases"] += 1
+            out["max_abs_err"] = max(out["max_abs_err"], worst)
+            out["rrms"] = max(out["rrms"], rrms)
+            out["lse_err"] = max(out["lse_err"], lse_err)
+        scale = d ** -0.5
+        buf = torch.empty((b, h, 1), dtype=torch.float32, device=dev)
+
+        def plain():
+            return (ref.flash_attention_ref(q, k, v, kv_offset=lk - 1),
+                    ref.flash_attention_lse_ref(q, k, kv_offset=lk - 1))
+
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ops_n, nbytes = work.flash_forward(q, k, True, lk - 1, True)
+        ops_ms = 1e3 * ops_n / BF16_FLOPS_PER_S
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        out["shapes"][arch] = dict(
+            shape=(b, lk, h, kvh, d), chunk=chunk, splits=n_chunks,
+            ms=_kernel_ms(lambda: fa.flash_decode_cuda(
+                q, k, v, causal=True, scale=scale, kv_offset=lk - 1)),
+            lse_ms=_kernel_ms(lambda: fa.flash_decode_cuda(
+                q, k, v, causal=True, scale=scale, kv_offset=lk - 1,
+                lse=buf)),
+            plain_ms=_time_ms(plain, 3),
+            library_ms=_kernel_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True)),
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    _check(out["cases"] == 12, f"flash decode lse: {out['cases']} cases")
+    print(f"[flash decode lse] {out['cases']} cases (every key, one split, "
+          f"a key past it, rank 1's 4 keys; B {b}, 2 x {lk} positions) and "
+          f"3 with no key visible (no launch): output "
+          f"max abs err {out['max_abs_err']:.3e}, bf16 relative RMS "
+          f"{out['rrms']:.3e} (limits atol = rtol = {BF16_TOL}, "
+          f"{BF16_RMS_TOL}); lse max abs err {out['lse_err']:.3e} (limit "
+          f"{LSE_TOL}); kernel ms without / with lse (CUDA graph of 10), "
+          f"plain, SDPA (output alone), bound: "
+          + "; ".join(f"{a} {r['shape']} {r['ms']:.4f} / {r['lse_ms']:.4f}"
+                      f", {r['plain_ms']:.4f}, {r['library_ms']:.4f}, "
+                      f"{r['bound_ms']:.6f} ({r['bound_by']})"
+                      for a, r in out["shapes"].items()))
+    return out
+
+
+def _serve_mesh_jobs() -> list:
+    return [dict(arch=arch, smoke=False, cut=cut, seed=0,
+                 batch=SERVE_MESH_BATCH, prompt=SERVE_MESH_PROMPT,
+                 steps=SERVE_MESH_STEPS, max_len=SERVE_MESH_MAX_LEN,
+                 shape=(2, 2), axes=("data", "model"), timeout_s=900,
+                 fault_from=(SERVE_MESH_STEPS // 2
+                             if arch == SERVE_MESH_FAULT_ARCH else None))
+            for arch, cut in SERVE_MESH_JOBS]
+
+
+def _rrms(got, want) -> float:
+    return float(np.sqrt(((got - want) ** 2).mean())
+                 / np.sqrt((want ** 2).mean()))
+
+
+def run_serve_mesh(dev) -> dict:
+    """[serve mesh] (phase 18, module docstring): each job on one device,
+    then on the 2x2 mesh fed one device's tokens; returns per arch the
+    one-device and per-rank results and the checks' numbers, and for
+    ``SERVE_MESH_FAULT_ARCH`` the planted faults' and the split check's
+    (checked by `check_serve_mesh_faults`)."""
+    from repro_torch.launch import accel, mesh_smoke
+    from repro_torch.models import model
+
+    t0 = time.perf_counter()
+    jobs = _serve_mesh_jobs()
+    one = []
+    for job in jobs:
+        one.append(mesh_smoke.serve_one(job, dev))
+        job["feed"] = one[-1]["tokens"]
+        _release(f"serve mesh one device {job['arch']}")
+    ranks = accel.spawn(mesh_smoke.rank_serve_mesh, 4, args=(jobs,),
+                        backend="gloo", device="cuda", timeout_s=1200,
+                        kernels=("flash_attention", "flash_prefill_wgmma",
+                                 "flash_decode"),
+                        env={"PYTORCH_CUDA_ALLOC_CONF":
+                             "expandable_segments:True"})
+    out = {}
+    for j, job in enumerate(jobs):
+        cfg = mesh_smoke.serve_cfg(job)
+        want, got = one[j], ranks[0][j]
+        rrms, gaps = [], []
+        for step, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+            diff = g - w
+            rrms.append(_rrms(g, w))
+            top2 = np.sort(w[:, -1].reshape(w.shape[0], -1), -1)[:, -2:]
+            gaps.append(top2[:, 1] - top2[:, 0])
+            if step < len(got["tokens"]):
+                sure = gaps[-1] > 2 * float(np.abs(diff).max())
+                rows = np.concatenate([r[j]["tokens"][step] for r in
+                                       ranks[::2]])[:, 0]
+                mine = np.asarray(want["tokens"][step])[:, 0]
+                _check(bool((rows[sure] == mine[sure]).all()),
+                       f"serve mesh {job['arch']}: step {step}'s greedy "
+                       f"tokens {rows} differ from one device's {mine} "
+                       f"where its top-2 gap {gaps[-1]} is sure")
+        control = float(np.sqrt(((want["logits"][1] - want["logits"][0])
+                                 ** 2).mean())
+                        / np.sqrt((want["logits"][0] ** 2).mean()))
+        _check(max(rrms) <= SERVE_MESH_RRMS, f"serve mesh {job['arch']}: "
+               f"logits' relative RMS per step {rrms} > {SERVE_MESH_RRMS}")
+        attn = sum(k != "mamba" for k in model.layer_kinds(cfg))
+        lc = SERVE_MESH_MAX_LEN // 2
+        for r in ranks:
+            m = r[j]["rank"] % 2
+            steps_seen = sum(SERVE_MESH_PROMPT + i >= m * lc
+                             for i in range(SERVE_MESH_STEPS))
+            want_l = {"flash_wgmma": attn, "flash_decode": attn * steps_seen,
+                      "flash_simt": 0}
+            have = {k: r[j]["launches"][k] for k in want_l}
+            _check(have == want_l, f"serve mesh {job['arch']} rank "
+                   f"{r[j]['rank']}: launches {have}, not {want_l}")
+        print(f"[serve mesh] {cfg.name}, {cfg.num_layers} layers at full "
+              f"width (d {cfg.d_model}), {cfg.dtype}, batch "
+              f"{SERVE_MESH_BATCH}, "
+              f"prompt {SERVE_MESH_PROMPT}, {SERVE_MESH_STEPS} greedy steps "
+              f"on a 2x2 gloo mesh of 4 ranks sharing the card, caches of "
+              f"2 x {lc} positions: logits' bf16 relative RMS per step "
+              + ", ".join(f"{x:.2e}" for x in rrms)
+              + f" (limit {SERVE_MESH_RRMS}; control, one device's step 1 "
+              f"against its step 0: {control:.3f}); one device prefill "
+              f"{want['prefill_s']:.3f}s, decode {want['decode_ms']:.2f} ms "
+              f"a step, peak {want['peak_gib']:.2f} GiB; per rank: "
+              + "; ".join(
+                  f"rank {r[j]['rank']} prefill {r[j]['prefill_s']:.3f}s, "
+                  f"decode {r[j]['decode_ms']:.2f} ms a step, launches "
+                  f"wgmma {r[j]['launches']['flash_wgmma']} / decode "
+                  f"{r[j]['launches']['flash_decode']}, "
+                  + ", ".join(f"{a} {v['calls']} calls / "
+                              f"{v['bytes'] / 2 ** 20:.1f} MiB"
+                              for a, v in r[j]["mesh_stats"].items())
+                  + f", staged {r[j]['staged_bytes'] / 2 ** 30:.3f} GiB, "
+                  f"peak {r[j]['peak_gib']:.2f} GiB" for r in ranks))
+        out[job["arch"]] = dict(one=want, ranks=[r[j] for r in ranks],
+                                rrms=rrms, control=control)
+        if job["fault_from"] is not None:
+            out[job["arch"]]["faults"] = _serve_mesh_faults(job, want, got,
+                                                            rrms)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _serve_mesh_faults(job: dict, want: dict, got: dict, rrms: list
+                       ) -> dict:
+    """The planted faults' logits against one device's, and the split
+    check's readings (`mesh_smoke._fault_steps`, `_split_check`), one
+    line."""
+    first = job["fault_from"]
+    steps = range(first, job["steps"])
+    fault = {f: [_rrms(g, want["logits"][1 + i]) for i, g in zip(steps, xs)]
+             for f, xs in got["fault_logits"].items()}
+    sound = rrms[1 + first:]
+    print(f"[serve mesh] {job['arch']} planted faults, steps {first}-"
+          f"{job['steps'] - 1} decoded again on the run's caches: logits' "
+          f"relative RMS per step, sound "
+          + ", ".join(f"{x:.2e}" for x in sound)
+          + "; model rank 1 lost " + ", ".join(f"{x:.2e}" for x in
+                                                fault["lost"])
+          + "; lse ignored " + ", ".join(f"{x:.2e}" for x in fault["lse"])
+          + f" (limit {SERVE_MESH_RRMS}); split check (a decode step's "
+          f"attention alone, seeded, against one device's), relative RMS "
+          f"sound / lost / lse ignored: "
+          + "; ".join(f"model rank 1 seeing {keys} keys "
+                      + " / ".join(f"{r[m]:.3e}" for m in ("sound", "lost",
+                                                           "lse"))
+                      for keys, r in got["split"].items())
+          + f" (limit {SERVE_MESH_SPLIT_RRMS})")
+    return dict(sound=sound, logits=fault, split=got["split"])
+
+
+def check_serve_mesh_faults(serve: dict) -> None:
+    """The planted faults must fail the checks a sound run passes: a merge
+    that ignores the lse fails the logits' limit; the split check's limit
+    passes the sound merge and fails both faults."""
+    f = serve[SERVE_MESH_FAULT_ARCH]["faults"]
+    _check(min(f["logits"]["lse"]) > SERVE_MESH_RRMS, f"serve mesh: a "
+           f"merge ignoring the lse gives logits within {SERVE_MESH_RRMS} "
+           f"({f['logits']['lse']}): the check cannot see it")
+    for keys, r in f["split"].items():
+        _check(r["sound"] <= SERVE_MESH_SPLIT_RRMS, f"serve mesh split "
+               f"check, rank 1 seeing {keys} keys: sound merge {r['sound']}"
+               f" > {SERVE_MESH_SPLIT_RRMS}")
+        _check(min(r["lost"], r["lse"]) > SERVE_MESH_SPLIT_RRMS, f"serve "
+               f"mesh split check, rank 1 seeing {keys} keys: a planted "
+               f"fault within the limit ({r})")
+
+
+def run_dryrun_check(train_main: dict, serve: dict) -> dict:
+    """[dryrun check] (phase 18, module docstring): the dry-run's traces
+    of [train mesh main]'s step and [serve mesh]'s llama run against
+    their measured collectives and peaks on rank 0."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed.comm import ShapeMesh
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+
+    def mesh():
+        return ShapeMesh((2, 2), ("data", "model"))
+
+    def line(tag, rec, measured_peak):
+        r = rec["roofline"]
+        rel = abs(rec["peak_bytes"] - measured_peak) / measured_peak
+        print(f"[dryrun check] {tag}: FLOPs {rec['flops_per_device']:.4e}, "
+              f"bytes {rec['bytes_per_device']:.4e}, collective "
+              f"{rec['collective']['per_device_bytes']:.4e} a device; "
+              f"roofline compute {r['compute_s']:.4e} s, memory "
+              f"{r['memory_s']:.4e} s, collective {r['collective_s']:.4e} "
+              f"s ({r['dominant']}); traced in {rec['trace_s']:.2f}s")
+        return rel
+
+    out = {}
+    argv = TRAIN_MESH_MAIN_ARGV
+    cut = int(argv[argv.index("--num-layers") + 1])
+    batch = int(argv[argv.index("--batch") + 1])
+    seq = int(argv[argv.index("--seq-len") + 1])
+    cfg = dataclasses.replace(registry.get("llama3.2-3b"), num_layers=cut)
+    rec = dryrun.lower_cell("llama3.2-3b", "train_mesh", multi_pod=False,
+                            cfg=cfg, mesh=mesh(),
+                            shape=ShapeConfig("train_mesh", "train", seq,
+                                              batch))
+    _check(rec["status"] == "ok", f"dryrun check train: {rec}")
+    want = train_main["stats_per_step"]
+    got = rec["collective"]["by_axis"]
+    _check(got == want, f"dryrun check train: dry stats {got}, measured "
+           f"{want} a step")
+    peak = train_main["peak_gib"][0] * 2 ** 30
+    rel = line("train mesh main", rec, peak)
+    _check(rel <= DRYRUN_PEAK_RTOL, f"dryrun check train: dry peak "
+           f"{rec['peak_bytes'] / 2 ** 30:.3f} GiB against the measured "
+           f"{peak / 2 ** 30:.3f} GiB ({rel:.1%})")
+    print(f"[dryrun check] train mesh main: collectives by axis {got} equal "
+          f"the measured ones a step; peak {rec['peak_bytes'] / 2 ** 30:.3f}"
+          f" GiB against the measured {peak / 2 ** 30:.3f} on rank 0 "
+          f"({rel:.1%}, limit {DRYRUN_PEAK_RTOL:.0%})")
+    out["train"] = dict(rec=rec, peak_rel=rel)
+    arch, cut = SERVE_MESH_JOBS[0]
+    cfg = dataclasses.replace(registry.get(arch), num_patches=0, **cut)
+    pre = dryrun.lower_cell(arch, "serve_prefill", multi_pod=False, cfg=cfg,
+                            mesh=mesh(), shape=ShapeConfig(
+                                "serve_prefill", "prefill",
+                                SERVE_MESH_PROMPT, SERVE_MESH_BATCH))
+    dec = dryrun.lower_cell(arch, "serve_decode", multi_pod=False, cfg=cfg,
+                            mesh=mesh(), shape=ShapeConfig(
+                                "serve_decode", "decode", SERVE_MESH_MAX_LEN,
+                                SERVE_MESH_BATCH))
+    _check(pre["status"] == dec["status"] == "ok",
+           f"dryrun check serve: {pre.get('error')} {dec.get('error')}")
+    got = {a: {k: pre["collective"]["by_axis"][a][k] + SERVE_MESH_STEPS
+               * dec["collective"]["by_axis"][a][k] for k in ("calls",
+                                                              "bytes")}
+           for a in pre["collective"]["by_axis"]}
+    rank0 = serve[arch]["ranks"][0]
+    _check(got == rank0["mesh_stats"], f"dryrun check serve: dry stats "
+           f"{got} (prefill + {SERVE_MESH_STEPS} decode steps), measured "
+           f"{rank0['mesh_stats']}")
+    peak = rank0["peak_gib"] * 2 ** 30
+    dry_peak = max(pre["peak_bytes"], dec["peak_bytes"])
+    line("serve mesh prefill", pre, peak)
+    line("serve mesh decode", dec, peak)
+    rel = abs(dry_peak - peak) / peak
+    _check(rel <= DRYRUN_PEAK_RTOL, f"dryrun check serve: dry peak "
+           f"{dry_peak / 2 ** 30:.3f} GiB against the measured "
+           f"{peak / 2 ** 30:.3f} GiB ({rel:.1%})")
+    print(f"[dryrun check] serve mesh {arch}: collectives by axis {got} "
+          f"equal the measured ones (prefill + {SERVE_MESH_STEPS} decode "
+          f"steps); peak {dry_peak / 2 ** 30:.3f} GiB (prefill "
+          f"{pre['peak_bytes'] / 2 ** 30:.3f}, a decode step "
+          f"{dec['peak_bytes'] / 2 ** 30:.3f}) against the measured "
+          f"{peak / 2 ** 30:.3f} on rank 0 ({rel:.1%}, limit "
+          f"{DRYRUN_PEAK_RTOL:.0%})")
+    out["serve"] = dict(prefill=pre, decode=dec, peak_rel=rel)
+    return out
+
+
+def _dryrun_sweep_cells() -> dict:
+    """[dryrun sweep]'s traces (host work alone, module docstring): the
+    three BPT cells and ``DRYRUN_SWEEP_CELLS`` on 16x16, and their
+    seconds."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    recs = [dryrun.lower_bpt_cell(w, multi_pod=False)
+            for w in ("sample", "graph", "graph_q")]
+    recs += [dryrun.lower_cell(arch, shape, multi_pod=False)
+             for arch, shape in DRYRUN_SWEEP_CELLS]
+    return dict(recs=recs, seconds=time.perf_counter() - t0)
+
+
+def check_dryrun_sweep(sweep: dict) -> dict:
+    """[dryrun sweep] (phase 18, module docstring): one line a cell of
+    `_dryrun_sweep_cells`'s, none in error, within the budget."""
+    from repro_torch.launch import dryrun
+
+    recs, secs = sweep["recs"], sweep["seconds"]
+    for rec in recs:
+        print(f"[dryrun sweep] {rec['arch']:28s} {rec['shape']:12s} "
+              f"{rec['mesh']} {dryrun.summary(rec)}")
+    count = {s: sum(r["status"] == s for r in recs)
+             for s in ("ok", "skipped", "unsupported", "error")}
+    _check(count["error"] == 0, "dryrun sweep: cells in error: " + ", ".join(
+        f"{r['arch']} {r['shape']}: {r.get('error')}" for r in recs
+        if r["status"] == "error"))
+    _check(secs <= DRYRUN_SWEEP_BUDGET_S, f"dryrun sweep: {secs:.1f}s > "
+           f"{DRYRUN_SWEEP_BUDGET_S}s")
+    print(f"[dryrun sweep] 16x16: " + ", ".join(
+        f"{n} {s}" for s, n in count.items()) + f" of {len(recs)} cells "
+        f"in {secs:.1f}s "
+        f"(budget {DRYRUN_SWEEP_BUDGET_S:.0f}s)")
+    return dict(count=count, seconds=secs,
+                fits=sum(bool(r.get("fits")) for r in recs))
+
+
+def _serve_mesh_result(sm: dict) -> None:
+    """Phase 18's numbers on one result line (the end of the output)."""
+    lse = sm["lse"]["shapes"]
+    print("[result serve mesh] decode kernel without / with lse "
+          + ", ".join(f"{a} {r['ms']:.4f} / {r['lse_ms']:.4f} ms"
+                      for a, r in lse.items())
+          + "; " + "; ".join(
+              f"{a} on 2x2: prefill {r['ranks'][0]['prefill_s']:.3f}s, "
+              f"decode {r['ranks'][0]['decode_ms']:.1f} ms a step (one "
+              f"device {r['one']['prefill_s']:.3f}s, "
+              f"{r['one']['decode_ms']:.2f} ms), logits within "
+              f"{max(r['rrms']):.2e}" for a, r in sm["serve"].items()
+              if a != "seconds")
+          + f"; dry-run peaks within {sm['check']['train']['peak_rel']:.1%}"
+          f" (train) and {sm['check']['serve']['peak_rel']:.1%} (serve); "
+          f"sweep {sm['sweep']['count']} in {sm['sweep']['seconds']:.1f}s; "
+          f"the phases {sm['seconds']:.1f}s")
+
+
+def run_serve_mesh_phases(dev, train_main: dict) -> dict:
+    """Phase 18 (module docstring); ``train_main`` is [train mesh
+    main]'s line (`_mesh_step_line`)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    lse = check_flash_decode_lse(dev)
+    print(f"[flash decode lse] peak device memory {_peak_gib():.2f} GiB")
+    _release("flash decode lse")
+    serve = run_serve_mesh(dev)
+    _release("serve mesh")
+    sweep = check_dryrun_sweep(_dryrun_sweep_cells())
+    check = run_dryrun_check(train_main, serve)
+    check_serve_mesh_faults(serve)
+    secs = time.perf_counter() - t0
+    print(f"[serve mesh] the phases took {secs:.1f}s (the sweep "
+          f"{sweep['seconds']:.1f}s, serving {serve['seconds']:.1f}s)")
+    return dict(lse=lse, serve=serve, check=check, sweep=sweep,
+                seconds=secs)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4307,6 +4805,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-mesh-only", action="store_true",
                     help="build, then run phase 16g (sharded training) "
                          "alone; no kernels line")
+    ap.add_argument("--serve-mesh-only", action="store_true",
+                    help="build, then run [train mesh main] (one step) "
+                         "and phase 18 alone; no kernels line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -4376,6 +4877,22 @@ def main(argv=None) -> int:
     print("[build] flash_prefill_wgmma registers (spill bytes) per head dim: "
           + ", ".join(f"D {d} {r} ({int(a) + int(b)})"
                       for d, a, b, r in wgmma))
+    if args.serve_mesh_only:
+        from repro_torch.launch import train as tlaunch
+
+        argv = TRAIN_MESH_MAIN_ARGV[:-1] + ["1"] + TRAIN_MESH_ARGS
+        res = tlaunch.main(argv)
+        _release("train mesh main")
+        main_line = dict(stats_per_step=res["mesh_stats"],
+                         peak_gib=res["rank_peak_gib"])
+        _serve_mesh_result(run_serve_mesh_phases(dev, main_line))
+        print(f"[result] [train mesh main] and phase 18 alone, "
+              f"{time.time() - t_all:.1f}s with the build")
+        print(_gpu_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.train_mesh_only:
         _train_mesh_result(run_train_mesh_phases(golden))
         print(f"[result] the train mesh phases alone, "
@@ -4468,6 +4985,8 @@ def main(argv=None) -> int:
     _release("training phases")
     train_mesh = run_train_mesh_phases(golden)
     _release("train mesh phases")
+    served = run_serve_mesh_phases(dev, train_mesh["main"])
+    _release("serve mesh phases")
     fam = train["families"]
     torch.cuda.reset_peak_memory_stats()
     fl = time_flash(dev)
@@ -4579,6 +5098,7 @@ def main(argv=None) -> int:
           f"{mesh['seconds']['world_1x3']:.1f}s, "
           f"{mesh['seconds']['world_1x1']:.1f}s")
     _train_mesh_result(train_mesh)
+    _serve_mesh_result(served)
     kernels = [
         dict(name="fused_expand", route="cuda",
              source="src/repro_torch/csrc/fused_expand.cu",
@@ -4682,7 +5202,12 @@ def main(argv=None) -> int:
                      "llama4-maverick-400b-a17b"][mix]["launches"][
                      "flash_attention"] for mix in LM_MIXES},
                  **{f"moe_deepseek_{mix}": moe["deepseek-v3-671b"][mix][
-                     "launches"]["flash_attention"] for mix in LM_MIXES}},
+                     "launches"]["flash_attention"] for mix in LM_MIXES},
+                 # Phase 18: summed over the 2x2 mesh's four ranks.
+                 **{f"serve_mesh_{arch.split('-')[0]}": sum(
+                     r["launches"]["flash_attention"]
+                     for r in served["serve"][arch]["ranks"])
+                    for arch, _ in SERVE_MESH_JOBS}},
              ms=fl["prefill"]["ms"], plain_ms=fl["prefill"]["plain_ms"],
              bound_ms=fl["prefill"]["bound_ms"],
              bound_by=fl["prefill"]["bound_by"],
@@ -4731,6 +5256,18 @@ def main(argv=None) -> int:
                      source="src/repro_torch/csrc/flash_decode.cu",
                      shape="decode",
                      launches=lm["launches"]["flash_decode"],
+                     # The log-sum-exp output (phase 18): its checks, the
+                     # kernel with and without it, and the
+                     # sequence-parallel decode's launches per rank.
+                     lse=dict(
+                         cases=served["lse"]["cases"],
+                         max_abs_err=served["lse"]["max_abs_err"],
+                         lse_max_abs_err=served["lse"]["lse_err"],
+                         shapes=served["lse"]["shapes"],
+                         launches_serve_mesh_per_rank={
+                             arch: [r["launches"]["flash_decode"]
+                                    for r in served["serve"][arch]["ranks"]]
+                             for arch, _ in SERVE_MESH_JOBS}),
                      cases=flash_err["cases"]["decode"],
                      bf16_rrms=flash_err["bf16_rrms"]["decode"],
                      **{k: fl["decode"][k] for k in (

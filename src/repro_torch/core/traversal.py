@@ -103,15 +103,10 @@ def fused_step(g: Graph, frontier: torch.Tensor, visited: torch.Tensor,
                level: int, seed: int):
     """One level of the fused traversal.  Returns (frontier', visited', info)
     with ``info`` holding device int32 scalars."""
-    w = frontier.shape[-1]
     visited = visited | frontier                            # Listing 1 line 8
     fr_src = frontier[g.src.to(torch.int64)]                # (E, W) gather
     live = torch.nonzero((fr_src != 0).any(1)).squeeze(1)   # edges to hash
-    dst = g.dst[live].to(torch.int64)
-    contrib = (fr_src[live] & _draw_words(g, live, w, level, seed)
-               & ~visited[dst])
-    next_frontier = _scatter_or(torch.zeros_like(visited), dst, contrib)
-    next_frontier = next_frontier & ~visited                # line 11 re-check
+    next_frontier = expand_live(g, fr_src, visited, live, level, seed)
 
     active_src = bitmask.count_colors(fr_src)               # (E,) per-edge
     per_vertex = bitmask.count_colors(frontier)
@@ -122,6 +117,20 @@ def fused_step(g: Graph, frontier: torch.Tensor, visited: torch.Tensor,
         frontier_colors=per_vertex.sum(dtype=torch.int32),
     )
     return next_frontier, visited, info
+
+
+def expand_live(g: Graph, fr_src: torch.Tensor, visited: torch.Tensor,
+                live: torch.Tensor, level: int, seed: int) -> torch.Tensor:
+    """`fused_step`'s expansion over the ``live`` edges (indices into the
+    CSR edge list): draw each one's colours, OR its source's frontier
+    words ``fr_src`` (E, W) into its destination, keep what ``visited``
+    lacks.  Returns the next frontier."""
+    dst = g.dst[live].to(torch.int64)
+    contrib = (fr_src[live] & _draw_words(g, live, fr_src.shape[1], level,
+                                          seed)
+               & ~visited[dst])
+    next_frontier = _scatter_or(torch.zeros_like(visited), dst, contrib)
+    return next_frontier & ~visited                         # line 11 re-check
 
 
 def _active_tiles(frontier: torch.Tensor,

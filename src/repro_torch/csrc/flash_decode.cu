@@ -46,10 +46,13 @@
 // call's own scratch and are zeroed on the stream just before the kernel,
 // so launches on other streams, or replays of other CUDA graphs, share
 // none, and a launch that stops part-way leaves nothing behind for the
-// next. The wrapper sizes the splits (multiples of 32 keys) so the
-// grid is about four CTAs per SM, one wave (17 splits of 128 keys, 544
-// CTAs at the main path's shape; 33 KB of shared memory lets six share an
-// SM), and leaves keys past the visible ones out.
+// next. Given an lse buffer, the merging CTA also writes each head's
+// natural log-sum-exp M + log(sum of the weighted l), the figure a
+// sequence-parallel decode combines across ranks (each rank holding a
+// slice of the cache). The wrapper sizes the splits (multiples of 32
+// keys) so the grid is about four CTAs per SM, one wave (17 splits of 128
+// keys, 544 CTAs at the main path's shape; 33 KB of shared memory lets six
+// share an SM), and leaves keys past the visible ones out.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -189,7 +192,7 @@ template <typename T, int E>
 __global__ void __launch_bounds__(THREADS)
     flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ out,
-                        float* __restrict__ part,
+                        float* __restrict__ lse, float* __restrict__ part,
                         unsigned* __restrict__ counters, int Lk, int H,
                         int KVH, int HG, float scale, int n_vis,
                         int chunk_len, int n_chunks) {
@@ -418,9 +421,18 @@ __global__ void __launch_bounds__(THREADS)
       sum += wt * l[cc * GB + i];
     }
     sum = warp_sum(sum);
-    if (lane == 0) s_l[i] = sum;
+    if (lane == 0) {
+      s_l[i] = sum;
+      s_m[i] = mx;
+    }
   }
   __syncthreads();
+  if (lse != nullptr && threadIdx.x < GB) {
+    const int g = hg * GB + threadIdx.x;
+    if (g < G)
+      lse[(long long)b * H + kvh * G + g] =
+          s_m[threadIdx.x] + logf(s_l[threadIdx.x]);
+  }
   for (int x = threadIdx.x; x < GB * D; x += THREADS) {
     const int i = x / D, d = x % D;
     const int g = hg * GB + i;
@@ -437,8 +449,9 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T, int E>
 int launch(const void* q, const void* k, const void* v, void* out,
-           float* part, int B, int Lk, int H, int KVH, float scale,
-           int n_vis, int chunk_len, int n_chunks, cudaStream_t stream) {
+           float* lse, float* part, int B, int Lk, int H, int KVH,
+           float scale, int n_vis, int chunk_len, int n_chunks,
+           cudaStream_t stream) {
   // The ring and scores; after them the merge's (m, l) reuse the space.
   const size_t tiles = Shape<T, E>::TILES;
   const size_t merge = (size_t)n_chunks * GB * 2 * 4;
@@ -468,19 +481,20 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(n_chunks, KVH * HG, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), part, counters, Lk, H,
-      KVH, HG, scale, n_vis, chunk_len, n_chunks);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, part, counters,
+      Lk, H, KVH, HG, scale, n_vis, chunk_len, n_chunks);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int E, const void* q, const void* k, const void* v, void* out,
-             float* part, int B, int Lk, int H, int KVH, float scale,
-             int n_vis, int chunk_len, int n_chunks, cudaStream_t s) {
+             float* lse, float* part, int B, int Lk, int H, int KVH,
+             float scale, int n_vis, int chunk_len, int n_chunks,
+             cudaStream_t s) {
 #define FLASH_DECODE_CASE(N)                                                \
   case N:                                                                   \
-    return launch<T, N>(q, k, v, out, part, B, Lk, H, KVH, scale, n_vis,    \
-                        chunk_len, n_chunks, s);
+    return launch<T, N>(q, k, v, out, lse, part, B, Lk, H, KVH, scale,      \
+                        n_vis, chunk_len, n_chunks, s);
   switch (E) {
     FLASH_DECODE_CASE(1)
     FLASH_DECODE_CASE(2)
@@ -507,14 +521,16 @@ int dispatch(int E, const void* q, const void* k, const void* v, void* out,
 
 // C interface (bound with ctypes). dtype 0 is float32, 1 bfloat16; q (B, 1,
 // H, D), k and v (B, Lk, KVH, D), out like q, contiguous and 16-byte
-// aligned, D a multiple of 16 in [16, 256]. Keys [0, n_vis) are visible;
+// aligned, D a multiple of 16 in [16, 256]; lse null or float32 (B, H),
+// each head's log-sum-exp of the visible keys. Keys [0, n_vis) are visible;
 // split c covers keys [c chunk_len, (c + 1) chunk_len), n_chunks of them
 // (at most 2048). part: float32 scratch of G4 * (n_chunks * 4 * (D + 2) +
 // 1) words, G4 = B * KVH * ceil(H / KVH / 4) head groups: the partials, then
 // one arrival counter per head group, which the launch zeroes on `stream`.
 // Returns a cudaError_t; 0 is success.
 extern "C" int flash_decode_launch(const void* q, const void* k,
-                                   const void* v, void* out, void* part,
+                                   const void* v, void* out, void* lse,
+                                   void* part,
                                    int dtype, int B, int Lk, int H, int KVH,
                                    int D, float scale, int n_vis,
                                    int chunk_len, int n_chunks,
@@ -525,12 +541,14 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
       (long long)KVH * ((H / KVH + GB - 1) / GB) > 65535)
     return (int)cudaErrorInvalidValue;
   float* p = static_cast<float*>(part);
+  float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(D / 16, q, k, v, out, p, B, Lk, H, KVH, scale,
+    return dispatch<float>(D / 16, q, k, v, out, l, p, B, Lk, H, KVH, scale,
                            n_vis, chunk_len, n_chunks, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D / 16, q, k, v, out, p, B, Lk, H, KVH,
-                                   scale, n_vis, chunk_len, n_chunks, s);
+    return dispatch<__nv_bfloat16>(D / 16, q, k, v, out, l, p, B, Lk, H,
+                                   KVH, scale, n_vis, chunk_len, n_chunks,
+                                   s);
   return (int)cudaErrorInvalidValue;
 }

@@ -24,8 +24,17 @@ group (one-device training, `distributed.fsdp.one_rank`).  In a group,
 an axis of size 1 has its one-rank groups too, so a 1×1 mesh of one NCCL
 rank runs every collective of the code through NCCL.
 ``stats[axis]`` counts each collective over an axis (``calls``) and the
-bytes this rank hands to it (``bytes``).  ``timeout_s`` bounds each
+bytes this rank hands to it (``bytes``); ``collective_log[kind][axis]``
+counts the same calls by kind (``all_gather``, ``all_to_all``,
+``reduce_scatter``, ``ppermute``, ``all_reduce`` for `psum` and `pmax`,
+``broadcast``) with the bytes of their results, what a cost model of the
+wire reads (`launch.cost_analysis`).  ``timeout_s`` bounds each
 collective of the axis groups (default: the default group's timeout).
+
+`ShapeMesh` is a mesh of shapes alone: the same positions, counts and
+log for one rank of a mesh of any size, with no process group, whose
+collectives return meta tensors of the shapes a real mesh's would.  The
+dry-run (`launch.dryrun`) traces a rank's program on it.
 """
 from __future__ import annotations
 
@@ -79,6 +88,7 @@ class Mesh:
                 if self.rank in ranks:
                     self._groups[ax] = (group, ranks)
         self.stats = {ax: {"calls": 0, "bytes": 0} for ax in axes}
+        self.collective_log: dict = {}
         self.staged_bytes = 0
 
     def __repr__(self) -> str:
@@ -95,7 +105,18 @@ class Mesh:
     def reset_stats(self) -> None:
         for s in self.stats.values():
             s["calls"] = s["bytes"] = 0
+        self.collective_log = {}
         self.staged_bytes = 0
+
+    def _count(self, kind: str, axis: str, sent: int, result: int) -> None:
+        """One collective over ``axis``: ``sent`` bytes handed to it,
+        ``result`` bytes of what it returns (module docstring)."""
+        self.stats[axis]["calls"] += 1
+        self.stats[axis]["bytes"] += sent
+        log = self.collective_log.setdefault(kind, {}).setdefault(
+            axis, {"calls": 0, "bytes": 0})
+        log["calls"] += 1
+        log["bytes"] += result
 
     # ------------------------------------------------------------ wiring
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
@@ -114,11 +135,13 @@ class Mesh:
         self.staged_bytes += wire.numel() * wire.element_size()
         return wire.to(like.device)
 
-    def _group(self, axis: str, wire: torch.Tensor):
-        group, ranks = self._groups[axis]
-        self.stats[axis]["calls"] += 1
-        self.stats[axis]["bytes"] += wire.numel() * wire.element_size()
-        return group, ranks
+    def _group(self, axis: str, wire: torch.Tensor, kind: str,
+               result: int | None = None):
+        """The axis's group and ranks, the call counted (`_count`;
+        ``result`` defaults to the bytes sent)."""
+        sent = wire.numel() * wire.element_size()
+        self._count(kind, axis, sent, sent if result is None else result)
+        return self._groups[axis]
 
     # ------------------------------------------------------- collectives
     def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
@@ -127,7 +150,8 @@ class Mesh:
         if axis not in self._groups:
             return t
         wire = self._wire(t)
-        group, _ = self._group(axis, wire)
+        group, _ = self._group(axis, wire, "all_gather",
+                               _nbytes(wire) * self.shape[axis])
         parts = [torch.empty_like(wire) for _ in range(self.shape[axis])]
         dist.all_gather(parts, wire, group=group)
         return self._back(torch.cat(parts), t)
@@ -144,7 +168,7 @@ class Mesh:
         if axis not in self._groups:
             return t
         wire = self._wire(t)
-        group, _ = self._group(axis, wire)
+        group, _ = self._group(axis, wire, "all_to_all")
         out = torch.empty_like(wire)
         dist.all_to_all_single(out, wire, group=group)
         return self._back(out, t)
@@ -163,7 +187,8 @@ class Mesh:
         if axis not in self._groups:
             return t
         wire = self._wire(t)
-        group, _ = self._group(axis, wire)
+        group, _ = self._group(axis, wire, "reduce_scatter",
+                               _nbytes(wire) // s)
         if self.backend == "nccl":
             out = torch.empty((t.shape[0] // s, *t.shape[1:]),
                               dtype=wire.dtype, device=wire.device)
@@ -184,10 +209,10 @@ class Mesh:
         if s == 1 or shift % s == 0:
             return t
         wire = self._wire(t)
-        group, ranks = self._group(axis, wire)
-        i = self._coords[axis]
         shape = tuple(t.shape) if recv_shape is None else tuple(recv_shape)
         buf = torch.empty(shape, dtype=wire.dtype, device=wire.device)
+        group, ranks = self._group(axis, wire, "ppermute", _nbytes(buf))
+        i = self._coords[axis]
         ops = []
         if wire.numel():
             ops.append(dist.P2POp(dist.isend, wire, ranks[(i - shift) % s],
@@ -209,7 +234,7 @@ class Mesh:
         if wire is t:
             wire = t.clone()
         for ax in live:
-            group, _ = self._group(ax, wire)
+            group, _ = self._group(ax, wire, "all_reduce")
             dist.all_reduce(wire, op=op, group=group)
         return self._back(wire, t)
 
@@ -244,10 +269,153 @@ class Mesh:
         if wire is t:
             wire = t.clone()
         for ax in live:
-            group, ranks = self._group(ax, wire)
+            group, ranks = self._group(ax, wire, "broadcast")
             dist.broadcast(wire, src=ranks[src], group=group)
         return self._back(wire, t)
 
     def barrier(self) -> None:
         if self.backend is not None:
             dist.barrier()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class ShapeMesh(Mesh):
+    """Rank ``rank`` of a ``shape`` mesh with named ``axes``, with no
+    process group (module docstring): `Mesh`'s positions, ``stats``,
+    ``collective_log`` and ``staged_bytes`` (always 0), and collectives
+    that count as a grouped mesh's do (every axis has its groups, those
+    of size 1 too) and return empty meta tensors of the shapes a grouped
+    mesh would return.  Its ``backend`` is ``"nccl"``, so that code on it
+    takes its grouped branches and stages nothing through the host."""
+
+    def __init__(self, shape, axes, rank: int = 0):
+        shape = tuple(int(s) for s in shape)
+        axes = tuple(str(a) for a in axes)
+        if len(shape) != len(axes) or len(set(axes)) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes} must pair "
+                             "up, with distinct axis names")
+        if not 0 <= rank < int(np.prod(shape)):
+            raise ValueError(f"rank {rank} is not on mesh {shape}")
+        self.axis_names = axes
+        self.shape = dict(zip(axes, shape))
+        self.rank = int(rank)
+        self.backend = "nccl"
+        self.device = torch.device("meta")
+        self._coords = dict(zip(axes, (int(c) for c in np.unravel_index(
+            self.rank, shape))))
+        self._groups = {}
+        self.stats = {ax: {"calls": 0, "bytes": 0} for ax in axes}
+        self.collective_log = {}
+        self.staged_bytes = 0
+
+    def __repr__(self) -> str:
+        return f"ShapeMesh({self.shape}, rank {self.rank})"
+
+    @staticmethod
+    def _meta(shape, like: torch.Tensor) -> torch.Tensor:
+        return torch.empty(tuple(shape), dtype=like.dtype, device="meta")
+
+    def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        s = self.shape[axis]
+        self._count("all_gather", axis, _nbytes(t), _nbytes(t) * s)
+        return self._meta((t.shape[0] * s, *t.shape[1:]), t)
+
+    def all_to_all(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        s = self.shape[axis]
+        if t.shape[0] != s:
+            raise ValueError(f"all_to_all over {axis!r} (size {s}) needs "
+                             f"dim 0 of size {s}, got {tuple(t.shape)}")
+        self._count("all_to_all", axis, _nbytes(t), _nbytes(t))
+        return self._meta(t.shape, t)
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        s = self.shape[axis]
+        if t.shape[0] % s:
+            raise ValueError(f"reduce_scatter over {axis!r} (size {s}) "
+                             f"needs dim 0 divisible by {s}, got "
+                             f"{tuple(t.shape)}")
+        self._count("reduce_scatter", axis, _nbytes(t), _nbytes(t) // s)
+        return self._meta((t.shape[0] // s, *t.shape[1:]), t)
+
+    def ppermute(self, t: torch.Tensor, axis: str, shift: int,
+                 recv_shape=None) -> torch.Tensor:
+        s = self.shape[axis]
+        if s == 1 or shift % s == 0:
+            return t
+        out = self._meta(t.shape if recv_shape is None else recv_shape, t)
+        self._count("ppermute", axis, _nbytes(t), _nbytes(out))
+        return out
+
+    def _reduce(self, t: torch.Tensor, axes, op) -> torch.Tensor:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        for ax in axes:
+            self._count("all_reduce", ax, _nbytes(t), _nbytes(t))
+        return self._meta(t.shape, t) if axes else t
+
+    def broadcast(self, t: torch.Tensor, axis: str | None = None,
+                  src: int = 0, *, axes=None) -> torch.Tensor:
+        if axes is None:
+            axes = (axis,)
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if not set(axes) <= set(self.axis_names):
+            raise ValueError(f"axes {axes} not all in {self.axis_names}")
+        live = [ax for ax in self.axis_names if ax in axes]
+        for ax in live:
+            self._count("broadcast", ax, _nbytes(t), _nbytes(t))
+        return self._meta(t.shape, t) if live else t
+
+    def barrier(self) -> None:
+        pass
+
+
+class AxesView:
+    """``mesh`` seen along ``axes`` alone: the line of ranks that share
+    this rank's coordinates on every other axis, as a mesh of its own
+    (``axis_names``, ``shape``, ``rank`` its row-major position on the
+    line), whose collectives are ``mesh``'s over those axes (and counted
+    there).  Serving on a mesh holds its rows over the data axes and the
+    same rows on every ``model`` rank; code that must see each row once
+    (the MoE's global capacity) runs on the data axes' view."""
+
+    def __init__(self, mesh, axes):
+        self.mesh = mesh
+        self.axis_names = tuple(a for a in mesh.axis_names if a in axes)
+        self.shape = {a: mesh.shape[a] for a in self.axis_names}
+        self.rank = int(np.ravel_multi_index(
+            [mesh.axis_index(a) for a in self.axis_names],
+            [self.shape[a] for a in self.axis_names])) \
+            if self.axis_names else 0
+        self.backend, self.device = mesh.backend, mesh.device
+
+    def __repr__(self) -> str:
+        return f"AxesView({self.shape} of {self.mesh!r})"
+
+    def axis_index(self, axis: str) -> int:
+        return self.mesh.axis_index(axis)
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def _own(self, axes) -> tuple:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if not set(axes) <= set(self.axis_names):
+            raise ValueError(f"axes {axes} not all in {self.axis_names}")
+        return axes
+
+    def all_gather(self, t, axis: str):
+        return self.mesh.all_gather(t, self._own(axis)[0])
+
+    def all_to_all(self, t, axis: str):
+        return self.mesh.all_to_all(t, self._own(axis)[0])
+
+    def reduce_scatter(self, t, axis: str):
+        return self.mesh.reduce_scatter(t, self._own(axis)[0])
+
+    def psum(self, t, axes):
+        return self.mesh.psum(t, self._own(axes))
+
+    def pmax(self, t, axes):
+        return self.mesh.pmax(t, self._own(axes))

@@ -142,7 +142,7 @@ class Layout:
         """The full-size leaf from every rank's slice ``t`` (no
         autograd)."""
         for dim, entry in enumerate(self.specs[name]):
-            t = _gather_dim(t, dim, entry, self.mesh)
+            t = gather_dim(t, dim, entry, self.mesh)
         return t
 
 
@@ -177,7 +177,7 @@ def one_rank(params: nn.Module) -> Layout:
 
 
 # ------------------------------------------------------------- collectives
-def _gather_dim(t, dim: int, entry, mesh, keep=()) -> torch.Tensor:
+def gather_dim(t, dim: int, entry, mesh, keep=()) -> torch.Tensor:
     """All-gather dimension ``dim`` of ``t`` over the axes of spec
     ``entry`` (the last axis first, so the first ends up major)."""
     axes = [a for a in rules.entry_axes(entry) if a not in keep]
@@ -191,7 +191,7 @@ def _gather_dim(t, dim: int, entry, mesh, keep=()) -> torch.Tensor:
 
 def _scatter_dim(g, dim: int, entry, mesh, keep=()) -> torch.Tensor:
     """Sum ``g`` over the axes of ``entry`` and keep this rank's block of
-    dimension ``dim`` (the inverse of `_gather_dim`: the first axis
+    dimension ``dim`` (the inverse of `gather_dim`: the first axis
     first)."""
     axes = [a for a in rules.entry_axes(entry) if a not in keep]
     if not axes:
@@ -211,7 +211,7 @@ class _Gather(torch.autograd.Function):
         ctx.layout, ctx.name, ctx.keep = layout, name, keep
         t = shard
         for dim, entry in enumerate(layout.specs[name]):
-            t = _gather_dim(t, dim, entry, layout.mesh, keep)
+            t = gather_dim(t, dim, entry, layout.mesh, keep)
         return t.view_as(t) if t is shard else t
 
     @staticmethod

@@ -15,6 +15,12 @@ product, the first axis major), as the reference's ``PartitionSpec``
 entries are.  A mesh is anything with ``axis_names`` and a ``shape`` dict
 (`distributed.comm.Mesh`).
 
+`cache_spec` is the reference's ``launch/specs._CACHE_RULES`` for one
+decode-cache leaf of the port's per-layer caches (`models.decode`):
+each attention cache's sequence over ``model`` and its batch over the
+data axes, the SSM state's heads and the conv tail's channels over
+``model``, the reference's stacked group dimension dropped.
+
 `param_shardings` gives every leaf of the port's model (by name, with
 its full shape) its spec: the reference's `concretize` for the leaf's
 path and shape in the reference's stacked layout (`reference_path`, from
@@ -102,6 +108,45 @@ def _rules():
     ]
 
 
+# Decode caches, the reference's ``_CACHE_RULES`` in its order (leaf key
+# → spec over the port's per-layer shape; "__dp__" the data axes).
+_DP = "__dp__"
+CACHE_RULES = [
+    ("k_rope", (_DP, "model", None)),
+    ("conv", (_DP, None, "model")),
+    ("state", (_DP, "model", None, None)),
+    ("k", (_DP, "model", None, None)),
+    ("v", (_DP, "model", None, None)),
+    ("c", (_DP, "model", None)),
+]
+
+
+def _dp_entry(mesh):
+    """The data axes as one spec entry (a tuple of several, one axis
+    alone, or None)."""
+    dp = fsdp_axes(mesh)
+    return dp if len(dp) > 1 else (dp[0] if dp else None)
+
+
+def batch_spec(mesh, shape) -> tuple:
+    """A batch leaf's spec (the reference's ``batch_shardings``): rows
+    over the data axes, the rest replicated, sanitized."""
+    return sanitize(mesh, (_dp_entry(mesh),) + (None,) * (len(shape) - 1),
+                    shape)
+
+
+def cache_spec(mesh, key: str, shape) -> tuple:
+    """The spec of a decode-cache leaf named ``key`` (its dict key) of
+    per-layer ``shape``: the first `CACHE_RULES` entry of that name,
+    sanitized; replicated if none names it."""
+    for name, spec in CACHE_RULES:
+        if key == name:
+            dp = _dp_entry(mesh)
+            return sanitize(mesh, tuple(dp if a == _DP else a for a in spec),
+                            shape)
+    return (None,) * len(shape)
+
+
 def spec_candidates(path: str, shape) -> list[tuple]:
     """Candidate specs for one leaf (mesh-independent), leading dims
     padded with None."""
@@ -117,8 +162,7 @@ def spec_for(path: str, shape) -> tuple:
 
 
 def _concretize_one(mesh, spec: tuple, shape) -> tuple:
-    fs = fsdp_axes(mesh)
-    fs = fs if len(fs) > 1 else (fs[0] if fs else None)
+    fs = _dp_entry(mesh)
     return sanitize(mesh, tuple(fs if a == _F else a for a in spec), shape)
 
 

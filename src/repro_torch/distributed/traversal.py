@@ -141,32 +141,47 @@ def _frontier_gather_loop(expand, frontier_local: torch.Tensor,
     all-gather.  One pmax over ``sync_axes`` per level carries both the
     termination test and that count, so every rank takes the same branch.
     Either leg rebuilds the exact global frontier."""
-    rows, num_words = frontier_local.shape
-    n = rows * num_words
-    s = num_shards
     sync = sync_axes or (axis,)
     gather_words = np.zeros(max_levels, np.int64)
     fr = frontier_local
     vis = torch.zeros_like(fr)
     lvl = 0
     while lvl < max_levels:
-        nz = torch.count_nonzero(fr).to(torch.int64).reshape(1)
-        most = int(mesh.pmax(nz, sync))
+        most = int(level_control(fr, mesh, sync))
         if most == 0:
             break
-        vis = vis | fr
-        if sparse_words and sparse_words < n and most <= sparse_words:
-            buf_i, buf_w, sent = _butterfly_exchange(fr, mesh, axis, s, n)
-            fr_global = _scatter_pairs(buf_i, buf_w, rows, num_words, s)
-            words = int(mesh.psum(torch.tensor([sent], dtype=torch.int64),
-                                  axis))
-        else:
-            fr_global = mesh.all_gather(fr, axis)
-            words = s * (s - 1) * n
-        gather_words[lvl] = words
-        fr = expand(fr_global, vis, lvl)
+        fr, vis, gather_words[lvl] = gather_level(
+            expand, fr, vis, lvl, mesh, axis, num_shards, sparse_words, most)
         lvl += 1
     return vis | fr, lvl, gather_words
+
+
+def level_control(fr: torch.Tensor, mesh: Mesh, sync) -> torch.Tensor:
+    """A level's control: the most nonzero frontier words of any rank over
+    ``sync`` (one pmax); 0 ends the loop."""
+    nz = torch.count_nonzero(fr).to(torch.int64).reshape(1)
+    return mesh.pmax(nz, sync)
+
+
+def gather_level(expand, fr: torch.Tensor, vis: torch.Tensor, lvl: int,
+                 mesh: Mesh, axis: str, num_shards: int,
+                 sparse_words: int = 0, most: int = 0):
+    """One level of `_frontier_gather_loop` past its control (``most``,
+    `level_control`'s count): the frontier's exchange over ``axis`` and
+    the shard's expansion.  Returns (new local frontier, visited, words
+    moved)."""
+    rows, num_words = fr.shape
+    n, s = rows * num_words, num_shards
+    vis = vis | fr
+    if sparse_words and sparse_words < n and most <= sparse_words:
+        buf_i, buf_w, sent = _butterfly_exchange(fr, mesh, axis, s, n)
+        fr_global = _scatter_pairs(buf_i, buf_w, rows, num_words, s)
+        words = int(mesh.psum(torch.tensor([sent], dtype=torch.int64),
+                              axis))
+    else:
+        fr_global = mesh.all_gather(fr, axis)
+        words = s * (s - 1) * n
+    return expand(fr_global, vis, lvl), vis, words
 
 
 def _scatter_pairs(buf_i: torch.Tensor, buf_w: torch.Tensor, rows: int,

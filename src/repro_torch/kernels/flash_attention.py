@@ -16,7 +16,8 @@ variable):
   every decode step.  A split-K grid over (key split, KV head, batch),
   one CTA per split for all query heads of a KV group, streaming its keys
   through a ``cp.async`` ring in shared memory; the partials are merged
-  in the same launch by the last CTA of each group.
+  in the same launch by the last CTA of each group, which can also write
+  each head's log-sum-exp (the sequence-parallel decode's merge input).
 - ``simt`` (``csrc/flash_attention.cu``): everything else (float32 with
   ``Lq > 1``, bf16 at another head dim, such as 16).  One CTA per (64-row
   query block, head, batch), float32 FMA on the CUDA cores.
@@ -75,7 +76,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
 _WGMMA_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
-_DECODE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+_DECODE_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                     + [ctypes.c_float] + [ctypes.c_int] * 3
                     + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
@@ -240,16 +241,22 @@ def flash_prefill_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool, scale: float,
-                      kv_offset: int) -> torch.Tensor:
+                      causal: bool, scale: float, kv_offset: int,
+                      lse: torch.Tensor | None = None) -> torch.Tensor:
     """The ``decode`` route on ``q``'s stream: q (B, 1, H, D), k and v
     (B, Lk, KVH, D), float32 or bfloat16, contiguous.  The visible keys
     are split as `decode_split` picks; the partials and the arrival
-    counters live in scratch of this call's own."""
+    counters live in scratch of this call's own.  Given a float32 (B, H,
+    1) ``lse``, the CTA that merges a head group's splits also writes each
+    head's natural log-sum-exp there (``m + log l`` of the merged
+    partials); without one it writes nothing more.  A call that sees no
+    key is refused (`ops.flash_attention` answers it without a launch)."""
     b, lq, lk, h, kvh, d = _check(q, k, v, "flash_decode", _DTYPES)
     if lq != 1 or kv_offset < 0:
         raise ValueError(f"flash_decode: needs Lq 1 (got {lq}) and "
                          f"kv_offset >= 0 (got {kv_offset})")
+    if lse is not None:
+        _check_lse(lse, "flash_decode", b, h, 1, q.device)
     n_vis = visible_keys(lk, causal, kv_offset)
     index = q.device.index if q.device.index is not None \
         else torch.cuda.current_device()
@@ -266,7 +273,8 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = _build.launcher("flash_decode", "flash_decode_launch",
                          _DECODE_ARGTYPES)
     _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 part.data_ptr(), _DTYPES[q.dtype], b, lk, h, kvh, d, scale,
+                 _build.data_ptr(lse), part.data_ptr(), _DTYPES[q.dtype], b,
+                 lk, h, kvh, d, scale,
                  n_vis, chunk, n_chunks,
                  torch.cuda.current_stream(q.device).cuda_stream),
               "flash_decode")

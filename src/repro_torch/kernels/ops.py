@@ -28,6 +28,14 @@ dim 192, `kernels.flash_attention.bwd_launches`) of the route
 `kernels.flash_attention.route_bwd` picks (``wgmma``, which reads the
 log-sum-exp its forward wrote, or ``simt``), each counted in
 ``LAUNCHES["flash_bwd"]`` and in ``flash_bwd_wgmma`` or ``flash_bwd_simt``.
+
+Meta tensors (the dry-run, `launch.cost_analysis`) take a third branch
+of every wrapper: it launches nothing, leaves ``LAUNCHES`` as it is,
+returns empty meta tensors of the kernel's output shapes and hands the
+kernel's work — operations and HBM bytes, by the formulas of the bound
+column of PERF.md §6 (`kernels.work`) — to every counter in
+``COST_SINKS``.  It is no fallback: a meta tensor computes nothing, and a
+CPU or CUDA tensor never reaches it.  Tensors on mixed devices raise.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ import torch
 from repro_torch.core import tiles
 from repro_torch.core.tiles import SlotList, TiledGraph
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 
 LAUNCHES = {"fused_expand": 0, "cover_counts": 0, "lt_select_expand": 0,
             "flash_attention": 0, "fused_expand_q": 0,
@@ -45,18 +53,33 @@ LAUNCHES = {"fused_expand": 0, "cover_counts": 0, "lt_select_expand": 0,
             "flash_bwd_simt": 0}
 
 
+# Callables (kernel name, operations, bytes) that a meta call reports to.
+COST_SINKS: list = []
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
-def _on_cuda(*tensors: torch.Tensor) -> bool:
+def _where(*tensors: torch.Tensor) -> str:
+    """``"cuda"``, ``"cpu"`` or ``"meta"``: the one device type of
+    ``tensors``; raises for mixed or other devices."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
-        return True
-    if kinds == {"cpu"}:
-        return False
+    if len(kinds) == 1 and kinds <= {"cuda", "cpu", "meta"}:
+        return kinds.pop()
     raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
+
+
+def _report(name: str, ops: float, nbytes: float) -> None:
+    """A meta call's work, handed to every counter of ``COST_SINKS``."""
+    for sink in COST_SINKS:
+        sink(name, float(ops), float(nbytes))
+
+
+def _meta_like(t: torch.Tensor, shape=None, dtype=None) -> torch.Tensor:
+    return torch.empty(tuple(t.shape) if shape is None else tuple(shape),
+                       dtype=dtype or t.dtype, device="meta")
 
 
 def fused_expand(tg: TiledGraph, frontier: torch.Tensor,
@@ -74,7 +97,12 @@ def fused_expand_slots(slots: SlotList, frontier: torch.Tensor,
     """`fused_expand` on an IC slot list itself — a layout's, or a row
     shard's (`graph.partition.ShardLayout`: the global frontier in, the
     shard's rows out), which has no stack to look it up by."""
-    if _on_cuda(slots.src_row, frontier, visited):
+    where = _where(slots.src_row, frontier, visited)
+    if where == "meta":
+        _report("fused_expand", *work.slot_expand(slots, frontier, visited,
+                                                  "ic"))
+        return _meta_like(visited)
+    if where == "cuda":
         from repro_torch.kernels.fused_expand import fused_expand_cuda
         out = fused_expand_cuda(slots, frontier, visited, seed, level,
                                 tile_ids=tile_ids)
@@ -100,7 +128,12 @@ def lt_select_expand_slots(slots: SlotList, frontier: torch.Tensor,
                            ) -> torch.Tensor:
     """`lt_select_expand` on an LT slot list itself (as
     `fused_expand_slots`); ``u``'s rows align with ``visited``'s."""
-    if _on_cuda(slots.src_row, frontier, visited, u):
+    where = _where(slots.src_row, frontier, visited, u)
+    if where == "meta":
+        _report("lt_select_expand", *work.slot_expand(
+            slots, frontier, visited, "lt", u))
+        return _meta_like(visited)
+    if where == "cuda":
         from repro_torch.kernels.lt_select_expand import \
             lt_select_expand_cuda
         out = lt_select_expand_cuda(slots, frontier, visited, u,
@@ -118,8 +151,23 @@ def fused_expand_q(tg: TiledGraph, q8: torch.Tensor, frontier: torch.Tensor,
     thresholds in ``tg``'s layout (`core.tiles.quantized`), over every
     tile or the listed ones (the counterpart of the reference's
     ``fused_expand_q_gathered``: each listed tile draws with its own id)."""
-    slots = tiles.q_slot_list(tg, q8)
-    if _on_cuda(q8, tg.tile_src, frontier, visited):
+    _where(q8, tg.tile_src, frontier, visited)
+    return fused_expand_q_slots(tiles.q_slot_list(tg, q8), frontier, visited,
+                                seed, level, tile_ids)
+
+
+def fused_expand_q_slots(slots: SlotList, frontier: torch.Tensor,
+                         visited: torch.Tensor, seed: int, level: int,
+                         tile_ids: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """`fused_expand_q` on a quantised slot list itself (as
+    `fused_expand_slots`)."""
+    where = _where(slots.src_row, frontier, visited)
+    if where == "meta":
+        _report("fused_expand_q", *work.slot_expand(slots, frontier, visited,
+                                                    "q"))
+        return _meta_like(visited)
+    if where == "cuda":
         from repro_torch.kernels.fused_expand_q import fused_expand_q_cuda
         out = fused_expand_q_cuda(slots, frontier, visited, seed, level,
                                   tile_ids=tile_ids)
@@ -132,7 +180,11 @@ def fused_expand_q(tg: TiledGraph, q8: torch.Tensor, frontier: torch.Tensor,
 def cover_counts(visited: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     """Marginal-gain counts summed over batches: (B, V, W) × (B, W) → (V,)
     (`cover_counts_multi` with one active mask per batch)."""
-    if _on_cuda(visited, active):
+    where = _where(visited, active)
+    if where == "meta":
+        _report("cover_counts", *work.cover_counts(visited, 1))
+        return _meta_like(visited, visited.shape[1:2], torch.int32)
+    if where == "cuda":
         from repro_torch.kernels.coverage import cover_counts_cuda
         out = cover_counts_cuda(visited.contiguous(),
                                 active.contiguous()[:, None])
@@ -145,7 +197,12 @@ def cover_counts_multi(visited: torch.Tensor,
                        active_q: torch.Tensor) -> torch.Tensor:
     """Marginal-gain counts for Q active masks per batch, summed over
     batches, in one pass over ``visited``: (B, V, W) × (B, Q, W) → (Q, V)."""
-    if _on_cuda(visited, active_q):
+    where = _where(visited, active_q)
+    if where == "meta":
+        q = active_q.shape[1]
+        _report("cover_counts", *work.cover_counts(visited, q))
+        return _meta_like(visited, (q, visited.shape[1]), torch.int32)
+    if where == "cuda":
         from repro_torch.kernels.coverage import cover_counts_cuda
         out = cover_counts_cuda(visited.contiguous(), active_q.contiguous())
         LAUNCHES["cover_counts"] += 1
@@ -157,19 +214,36 @@ def cover_counts_multi(visited: torch.Tensor,
 def _flash_forward(q, k, v, causal: bool, scale: float, kv_offset: int,
                    want_lse: bool = False):
     """The forward on batched (B, Lq, H, D) tensors: a route's kernel on
-    the card (counted), the plain version on the CPU.  Returns the output
-    and, with ``want_lse`` (asked only where the route is ``wgmma``), each
-    row's float32 (B, H, Lq) log-sum-exp, else None."""
+    the card (counted), the plain version on the CPU, the work reported on
+    meta.  Returns the output and, with ``want_lse`` (asked where the
+    route is ``wgmma`` or ``decode``), each row's float32 (B, H, Lq)
+    log-sum-exp, else None.  A decode row that sees no key (a
+    sequence-parallel rank whose keys all lie past ``kv_offset``) has
+    output 0 and log-sum-exp -inf, and launches nothing."""
     b, lq, h, d = q.shape
+    where = _where(q, k, v)
+    r = fa.route(q.dtype, b, lq, k.shape[1], h, k.shape[2], d, causal)
     lse = None
-    if _on_cuda(q, k, v):
-        r = fa.route(q.dtype, b, lq, k.shape[1], h, k.shape[2], d, causal)
+    if r == "decode" and fa.visible_keys(k.shape[1], causal, kv_offset) < 1:
+        if want_lse:
+            lse = torch.full((b, h, lq), float("-inf"), dtype=torch.float32,
+                             device=q.device)
+        return torch.zeros_like(q), lse
+    if where == "meta":
+        _report(f"flash_{r}", *work.flash_forward(q, k, causal, kv_offset,
+                                                  want_lse))
+        if want_lse:
+            lse = _meta_like(q, (b, h, lq), torch.float32)
+        return _meta_like(q), lse
+    if where == "cuda":
         if want_lse:
             lse = torch.empty((b, h, lq), dtype=torch.float32,
                               device=q.device)
-            out = fa.flash_prefill_wgmma_cuda(
-                q.contiguous(), k.contiguous(), v.contiguous(),
-                causal=causal, scale=scale, kv_offset=kv_offset, lse=lse)
+            wrapper = (fa.flash_decode_cuda if r == "decode"
+                       else fa.flash_prefill_wgmma_cuda)
+            out = wrapper(q.contiguous(), k.contiguous(), v.contiguous(),
+                          causal=causal, scale=scale, kv_offset=kv_offset,
+                          lse=lse)
         else:
             out = fa.CUDA_ROUTES[r](q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=causal,
@@ -221,7 +295,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
-                    kv_offset: int = 0) -> torch.Tensor:
+                    kv_offset: int = 0, return_lse: bool = False):
     """Blocked online-softmax attention (the LM substrate's prefill and
     decode): q (B, Lq, H, D), k and v (B, Lk, KVH, D), query head ``h``
     reading KV head ``h // (H // KVH)``; the reference's unbatched
@@ -229,7 +303,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``i + kv_offset`` under ``causal``.  Differentiable when Lq == Lk and
     ``kv_offset`` is 0 (the training forward); a call that needs a
     gradient anywhere else raises.  A call without a gradient writes no
-    log-sum-exp."""
+    log-sum-exp, unless ``return_lse`` asks for it on the ``decode`` route
+    (Lq == 1, no gradient): then it returns (out, each row's float32
+    (B, H, 1) natural log-sum-exp, -inf where no key is visible), what a
+    sequence-parallel decode merges across ranks."""
     unbatched = q.dim() == 3
     if unbatched:
         q, k, v = q[None], k[None], v[None]
@@ -237,6 +314,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: q, k and v must all be "
                          "(Lq|Lk, H, D) or all (B, Lq|Lk, H, D)")
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    if return_lse:
+        if q.shape[1] != 1 or (torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v))):
+            raise ValueError("flash_attention: return_lse takes the decode "
+                             "route (Lq 1) without a gradient")
+        out, lse = _flash_forward(q, k, v, causal, scale, kv_offset, True)
+        return (out[0], lse[0]) if unbatched else (out, lse)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         if kv_offset or q.shape[1] != k.shape[1]:
@@ -269,7 +353,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_bwd: the wgmma route reads the "
                          "forward's log-sum-exp; pass lse "
                          "(flash_attention_fwd returns it)")
-    if _on_cuda(q, k, v, o, do):
+    where = _where(q, k, v, o, do)
+    if where == "meta":
+        _report(f"flash_bwd_{r}", *work.flash_backward(q, k, causal))
+        return _meta_like(q), _meta_like(k), _meta_like(v)
+    if where == "cuda":
         q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
         if r == "wgmma":
             lse = lse.contiguous()

@@ -395,9 +395,11 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None, kv_offset=0):
 
 
 def flash_attention_lse_ref(q, k, *, causal=True, scale=None, kv_offset=0):
-    """What the ``wgmma`` forward writes to its ``lse`` output
-    (``csrc/flash_prefill_wgmma.cu``): each query row's natural
-    log-sum-exp of `flash_attention_ref`'s scores, float32 (B, H, Lq)."""
+    """What the ``wgmma`` forward and the ``decode`` route write to their
+    ``lse`` output (``csrc/flash_prefill_wgmma.cu``,
+    ``csrc/flash_decode.cu``): each query row's natural log-sum-exp of
+    `flash_attention_ref`'s scores, float32 (B, H, Lq) (masked keys at
+    -1e30 add nothing to it while a row sees one key or more)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     return torch.logsumexp(_scores(q, k, causal, scale, kv_offset), dim=-1)
 

@@ -1,12 +1,29 @@
 """Mesh construction (PyTorch port of ``repro.launch.mesh``).
 
-A function, not a module constant: importing this module touches no
+Functions, not module constants: importing this module touches no
 process group.  The caller's process must already be in the default group
 (`launch.accel.spawn` puts it there), unless every axis has size 1.
 """
 from __future__ import annotations
 
 from repro_torch.distributed.comm import Mesh
+
+
+def production_shape(multi_pod: bool = False) -> tuple[tuple, tuple]:
+    """(shape, axes) of the production mesh, the reference's: 16×16 = 256
+    ranks over ``("data", "model")``, and 2×16×16 over ``("pod", "data",
+    "model")`` across two pods."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="cuda") -> Mesh:
+    """The production mesh (`production_shape`) over the default group;
+    raises, as `Mesh` does, unless the group holds 256 (512 with
+    ``multi_pod``) ranks."""
+    return Mesh(*production_shape(multi_pod), device=device)
 
 
 def make_mesh(shape: tuple, axes: tuple, *, device="cuda",

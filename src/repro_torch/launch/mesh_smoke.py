@@ -36,7 +36,12 @@ holds them against ``tests/data/torch_port_golden.json``.
   step gathered against the one-device gradient (`_grad_slices`);
   `rank_train_mesh_phase` runs it and `rank_train_mesh` in one world;
 * `rank_train_deterministic` — the training launcher's rank with
-  deterministic algorithms (the 1x1 NCCL mesh against one device).
+  deterministic algorithms (the 1x1 NCCL mesh against one device);
+* `rank_serve_mesh` — LM serving on a mesh (`serve.engine.prefill`, then
+  greedy `models.decode.decode_step`s, sequence-parallel): every step's
+  logits of every row, the greedy tokens, times, ``Mesh.stats``, the
+  launches and the peak memory; `serve_one` is the same job on one
+  device (the CPU tests run both too).
 
 Every check against a plain version runs after the launch counts are
 read, so its own launches are not counted.
@@ -849,3 +854,220 @@ def rank_train_deterministic(rank, dev, argv: list) -> dict:
     torch.use_deterministic_algorithms(True, warn_only=True)
     return tlaunch._rank_main(rank, dev, tlaunch.parse_args(argv))
 
+
+
+# --------------------------------------------------------- serving on a mesh
+def serve_cfg(job: dict):
+    """A serving job's config: the arch's (``"smoke"`` its smoke config)
+    with the job's ``cut`` (a dict of field overrides)."""
+    cfg = (registry.smoke(job["arch"]) if job.get("smoke")
+           else registry.get(job["arch"]))
+    return dataclasses.replace(cfg, num_patches=0, **job.get("cut", {}))
+
+
+def _serve_prompt(cfg, job: dict, dev) -> torch.Tensor:
+    rng = np.random.default_rng(job.get("prompt_seed", 0))
+    shape = ((job["batch"], cfg.num_codebooks, job["prompt"])
+             if cfg.num_codebooks else (job["batch"], job["prompt"]))
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+
+
+def _serve_loop(params, cfg, job: dict, dev, mesh=None) -> dict:
+    """``job``'s prefill and greedy decode steps: every step's logits of
+    this rank's rows (float32, on the host), the tokens, the prefill
+    seconds and the decode seconds a step (host clock, synchronised).
+    With ``job["feed"]`` (the global batch's tokens of each step) those
+    are fed instead of this run's own greedy picks, which are still
+    returned: two runs then decode the same inputs."""
+    from repro_torch.models import decode as dec
+    from repro_torch.serve import engine
+
+    prompt = _serve_prompt(cfg, job, dev)
+    lp = prompt.shape[-1]
+    max_len = job.get("max_len") or lp + job["steps"]
+    batch = {"tokens": prompt}
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches, _ = engine.prefill(params, cfg, batch, max_len, mesh)
+    _sync(dev)
+    t1 = time.perf_counter()
+    steps, tokens, step_s, fed = [logits.float().cpu().numpy()], [], [], []
+    feed = job.get("feed")
+    rows = None
+    if feed is not None and mesh is not None:
+        rows = dec.CacheLayout(mesh, cfg, job["batch"], 1).rows
+    for i in range(job["steps"]):
+        tok = torch.argmax(logits[:, -1], -1)[..., None]
+        tokens.append(tok.cpu().numpy())
+        if feed is not None:
+            tok = torch.from_numpy(np.asarray(feed[i])).to(dev)
+            tok = tok if rows is None else rows(tok)
+        fed.append(tok)
+        t2 = time.perf_counter()
+        logits, caches = dec.decode_step(params, cfg, caches, tok, lp + i,
+                                         mesh)
+        _sync(dev)
+        step_s.append(time.perf_counter() - t2)
+        steps.append(logits.float().cpu().numpy())
+    return dict(logits=steps, tokens=tokens, prefill_s=t1 - t0,
+                decode_ms=1e3 * float(np.median(step_s)) if step_s else 0.0,
+                caches=caches, fed=fed, prefill_len=lp)
+
+
+def _faulty_merge(fault: str):
+    """`attention.merge_partials` with a planted fault: ``"lost"`` leaves
+    every ``model`` rank but 0 out (as if lost), ``"lse"`` weighs every
+    rank that sees a key alike (its log-sum-exp taken as 0)."""
+    from repro_torch.models import attention
+
+    sound = attention.merge_partials
+
+    def merge(mesh, out, lse):
+        if fault == "lost" and mesh.axis_index("model") != 0:
+            lse = torch.full_like(lse, float("-inf"))
+        elif fault == "lse":
+            lse = torch.where(torch.isinf(lse), lse, torch.zeros_like(lse))
+        return sound(mesh, out, lse)
+    return merge
+
+
+def _fault_steps(params, cfg, job: dict, res: dict, mesh, dev) -> dict:
+    """Planted faults that [serve mesh]'s check must see (`_faulty_merge`):
+    after the run, on its caches, steps ``fault_from`` .. ``steps - 1``
+    decoded again under each fault, fed the same tokens.  Before
+    ``fault_from`` no ``model`` rank but 0 holds a visible key and either
+    fault changes nothing, so the steps are those of a run faulty from the
+    start (attention layers alone: a state space layer would take its
+    steps twice).  Returns per fault each step's logits of this rank's
+    rows."""
+    from repro_torch.models import attention
+    from repro_torch.models import decode as dec
+
+    sound, out = attention.merge_partials, {}
+    lp, caches = res["prefill_len"], res["caches"]
+    for fault in ("lost", "lse"):
+        attention.merge_partials = _faulty_merge(fault)
+        try:
+            out[fault] = []
+            for i in range(job["fault_from"], job["steps"]):
+                logits, caches = dec.decode_step(params, cfg, caches,
+                                                 res["fed"][i], lp + i, mesh)
+                out[fault].append(logits.float().cpu().numpy())
+        finally:
+            attention.merge_partials = sound
+    _sync(dev)
+    return out
+
+
+def _split_check(cfg, job: dict, mesh, dev) -> dict:
+    """The sequence split of one GQA decode step on its own, at the job's
+    shapes: a seeded cache of ``max_len`` positions and this rank's rows
+    (the same on every rank), ``model`` rank r holding positions ``[r·Lc,
+    (r+1)·Lc)``; each rank's ``decode`` output and log-sum-exp on its
+    keys, merged by `attention.merge_partials` and by each
+    `_faulty_merge`, against `kernels.ref.flash_attention_ref` over the
+    whole cache.  At the run's last step and at the cache's last position
+    (on 2 ``model`` ranks, rank 1 sees ``fault_from`` keys at the one and
+    Lc at the other).  Returns per case (the visible keys past ``model``
+    rank 0's) the relative RMS of each merge."""
+    from repro_torch.models import attention
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    dtype = getattr(torch, cfg.dtype)
+    b = job["batch"] // math.prod(mesh.shape[a] for a in mesh.axis_names
+                                  if a != "model")
+    n, s = job["max_len"], mesh.shape["model"]
+    lc = n // s
+    base = mesh.axis_index("model") * lc
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    q, k, v = draw((b, 1, h, d)), draw((b, n, kvh, d)), draw((b, n, kvh, d))
+    own = (k[:, base:base + lc].contiguous(),
+           v[:, base:base + lc].contiguous())
+    merges = {"sound": attention.merge_partials,
+              "lost": _faulty_merge("lost"), "lse": _faulty_merge("lse")}
+    out = {}
+    for cur in (job["prompt"] + job["steps"] - 1, n - 1):
+        want = ref.flash_attention_ref(q, k, v, causal=True,
+                                       kv_offset=cur).float()
+        o, lse = ops.flash_attention(q, *own, causal=True,
+                                     kv_offset=cur - base, return_lse=True)
+        row = {}
+        for name, merge in merges.items():
+            got = merge(mesh, o[:, 0], lse[..., 0])[:, None].to(dtype)
+            row[name] = float(torch.linalg.vector_norm(got.float() - want)
+                              / torch.linalg.vector_norm(want))
+        out[cur + 1 - lc] = row
+    return out
+
+
+@torch.inference_mode()
+def serve_one(job: dict, dev) -> dict:
+    """`rank_serve_mesh`'s job on one device: the same weights (the seeded
+    one-device draw), prompt and steps; with the peak device memory."""
+    cfg = serve_cfg(job)
+    params = model.init_params(cfg, job.get("seed", 0), dev)
+    _reset_peak(dev)
+    ops.reset_launches()
+    out = _serve_loop(params, cfg, job, dev)
+    for key in ("caches", "fed", "prefill_len"):
+        del out[key]
+    out.update(launches=dict(ops.LAUNCHES), peak_gib=_peak(dev))
+    return out
+
+
+@torch.inference_mode()
+def rank_serve_mesh(rank, dev, jobs: list) -> list:
+    """Each job (``arch``, ``smoke``, ``cut``, ``seed``, ``batch``,
+    ``prompt``, ``steps``, ``max_len``, ``shape``, ``axes``) on this rank:
+    the weights drawn sharded (each leaf's slice of the one-device draw,
+    `model.init_params` with the layout's ``local``), the prompt from
+    ``prompt_seed``, `engine.prefill` and ``steps`` greedy decode steps on
+    the mesh (``feed``: as `_serve_loop`'s).  Returns per job the logits
+    of every row at every step (on rank 0; gathered over the data axes),
+    the tokens, the times, the rank's ``Mesh.stats`` and staged bytes of
+    the serving run, its launches and its peak memory (GiB), each of the
+    serving run alone (the weights' draw excluded)."""
+    from repro_torch.models import decode as dec
+
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for job in jobs:
+        cfg = serve_cfg(job)
+        mesh = make_mesh(tuple(job["shape"]), tuple(job["axes"]),
+                         device=dev, timeout_s=job.get("timeout_s", 300))
+        layout = model.layout_on(mesh, cfg)
+        params = layout.attach(model.init_params(
+            cfg, job.get("seed", 0), dev, keep=layout.local))
+        _reset_peak(dev)
+        mesh.reset_stats()
+        ops.reset_launches()
+        res = _serve_loop(params, cfg, job, dev, mesh)
+        launches = dict(ops.LAUNCHES)
+        stats = {a: dict(v) for a, v in mesh.stats.items()}
+        staged, peak = mesh.staged_bytes, _peak(dev)
+        faults, split = {}, None
+        if job.get("fault_from") is not None:
+            faults = _fault_steps(params, cfg, job, res, mesh, dev)
+            split = _split_check(cfg, job, mesh, dev)
+        for key in ("caches", "fed", "prefill_len"):
+            del res[key]
+        rows = dec.CacheLayout(mesh, cfg, job["batch"], 1)
+
+        def gather(xs):                 # a collective: every rank calls it
+            xs = [rows.gather_rows(torch.from_numpy(x).to(dev)).cpu()
+                  .numpy() for x in xs]
+            return xs if rank == 0 else None
+        out.append(dict(res, logits=gather(res["logits"]),
+                        fault_logits={f: gather(x) for f, x in
+                                      faults.items()},
+                        split=split if rank == 0 else None,
+                        rank=rank, mesh_stats=stats, staged_bytes=staged,
+                        launches=launches, peak_gib=peak))
+        del params, faults
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out

@@ -23,6 +23,10 @@ scores of one (query block, key block) pair at a time, and keys from
 ``(L // bk) · bk`` on are cut as the reference cuts them.  Decode is the
 absorbed form over the latent cache ``{c (B, Lmax, kv_lora_rank), k_rope
 (B, Lmax, rope_head_dim)}``.
+
+On a mesh, decode takes a cache whose sequence is split over ``model``
+(`models.decode`): each rank attends its own positions and
+`merge_partials` combines the ranks' outputs by their log-sum-exps.
 """
 from __future__ import annotations
 
@@ -91,29 +95,72 @@ def gqa_forward(p, x, positions, cfg: ModelConfig):
     return _out_proj(p, out, cfg), (k, v)
 
 
-def gqa_decode(p, x, cache, cur_len: int, cfg: ModelConfig):
+def merge_partials(mesh, out: torch.Tensor, lse: torch.Tensor
+                   ) -> torch.Tensor:
+    """The softmax over every rank's keys from each rank's own: ``out``
+    (B, H, X) its output over its keys (normalised by its own sum), ``lse``
+    (B, H) their log-sum-exp (-inf for none).  One all-gather over
+    ``model`` of both, then in float32 ``Σ_r e^(lse_r - M)·out_r /
+    Σ_r e^(lse_r - M)``, M the largest lse (rank 0 always sees key 0)."""
+    s = mesh.shape["model"]
+    b, h, x = out.shape
+    packed = torch.cat([out.float(), lse.float()[..., None]], -1)
+    allp = mesh.all_gather(packed.contiguous(), "model").view(s, b, h, x + 1)
+    lses = allp[..., x]
+    w = torch.exp(lses - lses.amax(0))                  # exp(-inf) = 0
+    return (w[..., None] * allp[..., :x]).sum(0) / w.sum(0)[..., None]
+
+
+def _write(cache: dict, names, new, cur_len: int, base: int) -> None:
+    """Write the new entries at ``cur_len`` into a cache holding positions
+    ``[base, base + Lc)``, if it holds that one."""
+    off = cur_len - base
+    if 0 <= off < cache[names[0]].shape[1]:
+        for name, t in zip(names, new):
+            cache[name][:, off:off + 1].copy_(t)
+
+
+def gqa_decode(p, x, cache, cur_len: int, cfg: ModelConfig, seq=None):
     """One-token decode.  x: (B, 1, D); cache = {k, v}: (B, Lc, KVH, hd).
 
     The new key and value are written into the cache in place at
     ``cur_len`` (the reference returns an updated copy through
-    ``dynamic_update_slice``); the same dict is returned."""
+    ``dynamic_update_slice``); the same dict is returned.  With ``seq``
+    (mesh, base), the cache holds positions ``[base, base + Lc)`` of a
+    sequence split over ``model`` (`models.decode`): the owner of
+    ``cur_len`` writes, every rank attends its visible keys through the
+    ``decode`` kernel's output and log-sum-exp, and `merge_partials`
+    gives one device's result."""
     b = x.shape[0]
     pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project(p, x, cfg)
     q = common.apply_rope(q, pos, cfg.rope_theta)
     k_new = common.apply_rope(k_new, pos, cfg.rope_theta)
-    cache["k"][:, cur_len:cur_len + 1].copy_(k_new)
-    cache["v"][:, cur_len:cur_len + 1].copy_(v_new)
-    out = ops.flash_attention(q, cache["k"], cache["v"], causal=True,
-                              kv_offset=cur_len)
+    base = 0 if seq is None else seq[1]
+    _write(cache, ("k", "v"), (k_new, v_new), cur_len, base)
+    if seq is None:
+        out = ops.flash_attention(q, cache["k"], cache["v"], causal=True,
+                                  kv_offset=cur_len)
+    else:
+        out, lse = ops.flash_attention(q, cache["k"], cache["v"],
+                                       causal=True, kv_offset=cur_len - base,
+                                       return_lse=True)
+        out = merge_partials(seq[0], out[:, 0], lse[..., 0])[:, None] \
+            .to(x.dtype)
     return _out_proj(p, out, cfg), cache
+
+
+def gqa_cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                     dtype) -> dict:
+    """The decode cache's leaves as ``{name: (shape, dtype)}``."""
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": (shape, dtype), "v": (shape, dtype)}
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    device) -> dict:
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {k: torch.zeros(s, dtype=dt, device=device) for k, (s, dt)
+            in gqa_cache_shapes(cfg, batch, max_len, dtype).items()}
 
 
 # ----------------------------------------------------------------- MLA
@@ -242,16 +289,19 @@ def mla_forward(p, x, positions, cfg: ModelConfig):
     return _out_proj(p, out, cfg), (c, k_rope)
 
 
-def mla_decode(p, x, cache, cur_len: int, cfg: ModelConfig):
+def mla_decode(p, x, cache, cur_len: int, cfg: ModelConfig, seq=None):
     """Absorbed-MLA decode: x (B, 1, D); cache = {c (B, Lc, kr), k_rope
     (B, Lc, rd)}, written in place at ``cur_len`` and returned.  W_uk is
     absorbed into the query (scores against the latent itself) and W_uv
-    applied after the weighted sum, in float32 as the reference."""
+    applied after the weighted sum, in float32 as the reference.  With
+    ``seq`` (mesh, base) the cache holds positions ``[base, base + Lc)``
+    of a sequence split over ``model``: each rank's softmax over its
+    visible positions is merged as `gqa_decode`'s (`merge_partials`)."""
     b = x.shape[0]
     pos = torch.full((b, 1), cur_len, dtype=torch.int32, device=x.device)
     q_nope, q_rope, c_new, kr_new = _mla_qkv(p, x, pos, cfg)
-    cache["c"][:, cur_len:cur_len + 1].copy_(c_new)
-    cache["k_rope"][:, cur_len:cur_len + 1].copy_(kr_new)
+    base = 0 if seq is None else seq[1]
+    _write(cache, ("c", "k_rope"), (c_new, kr_new), cur_len, base)
     cc = cache["c"].float()                               # (B, Lc, kr)
     ckr = cache["k_rope"].float()
     # q_lat[b, h, r] = Σ_k q_nope[b, h, k] · w_uk[r, h, k]
@@ -260,17 +310,29 @@ def mla_decode(p, x, cache, cur_len: int, cfg: ModelConfig):
     scale = (cfg.head_dim + cfg.rope_head_dim) ** -0.5
     s = (torch.matmul(q_lat.float(), cc.transpose(1, 2))
          + torch.matmul(q_rope[:, 0].float(), ckr.transpose(1, 2))) * scale
-    valid = torch.arange(cc.shape[1], device=x.device) <= cur_len
-    att = torch.softmax(s.masked_fill(~valid, _NEG), -1)  # (B, H, Lc)
-    o_lat = torch.matmul(att, cc)                         # (B, H, kr)
+    valid = torch.arange(cc.shape[1], device=x.device) + base <= cur_len
+    if seq is None:
+        att = torch.softmax(s.masked_fill(~valid, _NEG), -1)  # (B, H, Lc)
+        o_lat = torch.matmul(att, cc)                     # (B, H, kr)
+    else:
+        s = s.masked_fill(~valid, float("-inf"))
+        lse = torch.logsumexp(s, -1)                      # -inf: no key
+        att = torch.exp(s - torch.where(torch.isfinite(lse), lse,
+                                        0.0)[..., None])
+        o_lat = merge_partials(seq[0], torch.matmul(att, cc), lse)
     out = torch.matmul(o_lat.transpose(0, 1),
                        p["w_uv"].float().transpose(0, 1)).transpose(0, 1)
     return _out_proj(p, out[:, None].to(x.dtype), cfg), cache
 
 
+def mla_cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                     dtype) -> dict:
+    """The latent decode cache's leaves as ``{name: (shape, dtype)}``."""
+    return {"c": ((batch, max_len, cfg.kv_lora_rank), dtype),
+            "k_rope": ((batch, max_len, cfg.rope_head_dim), dtype)}
+
+
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    device) -> dict:
-    return {"c": torch.zeros((batch, max_len, cfg.kv_lora_rank),
-                             dtype=dtype, device=device),
-            "k_rope": torch.zeros((batch, max_len, cfg.rope_head_dim),
-                                  dtype=dtype, device=device)}
+    return {k: torch.zeros(s, dtype=dt, device=device) for k, (s, dt)
+            in mla_cache_shapes(cfg, batch, max_len, dtype).items()}

@@ -98,6 +98,14 @@ def capacity(tokens: int, cfg: ModelConfig) -> int:
                    * cfg.capacity_factor), 1)
 
 
+def _counts(ids: torch.Tensor, e: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=e)`` (int64, ids < e) as a
+    scatter-add, whose output shape does not depend on the data, so that
+    it runs on meta tensors too (the dry-run)."""
+    return torch.zeros(e, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids, dtype=torch.int64))
+
+
 def _route(router, xt, k: int, mesh=None):
     """Float32 router: (gate (T, k) renormalised, idx (T, k), aux), slots in
     descending probability, the lower expert first on ties.  With a
@@ -110,7 +118,7 @@ def _route(router, xt, k: int, mesh=None):
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
     e = probs.shape[-1]
     # Switch aux loss: e · Σ_e f_e · P_e
-    counts = torch.bincount(idx.reshape(-1), minlength=e)
+    counts = _counts(idx.reshape(-1), e)
     prob_sum, n = probs.sum(0), xt.shape[0]
     if mesh is not None:
         counts = mesh.psum(counts, mesh.axis_names)
@@ -124,7 +132,7 @@ def _ranks(flat_e: torch.Tensor, e: int) -> torch.Tensor:
     order (the reference's cumsum of one-hots, without the (N·k, E)
     tensor)."""
     order = torch.argsort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=e)
+    counts = _counts(flat_e, e)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.empty_like(flat_e)
     pos[order] = torch.arange(flat_e.numel(), device=flat_e.device) \
@@ -224,6 +232,30 @@ def moe_forward_sharded(p, x, cfg: ModelConfig, mesh):
     return out.transpose(0, 1).reshape(bl, L, d), aux
 
 
+def moe_forward_serve(p, x, cfg: ModelConfig, mesh, rows=None):
+    """The MoE of serving on a ``mesh`` (`models.decode`): x (B_r, L, D)
+    holds the rows of this rank's data position, the same on every
+    ``model`` rank; ``rows`` is the mesh along the data axes
+    (`comm.AxesView`), None when the rows are not split.  The reference's
+    dispatcher under its mesh: where `a2a_route` holds (a prefill) and
+    the rows split, each ``model`` rank takes its sequence block, the
+    reference's ``token_block``, and ``p`` holds its E/S whole experts
+    (`fsdp.gather_module`): `_moe_forward_a2a`, then the blocks gathered
+    over ``model``; otherwise (a decode step) the global scatter over the
+    data axes (`moe_forward_sharded` on ``rows``: one device's capacity
+    and picks), or with unsplit rows the one-device scatter."""
+    if rows is not None and a2a_route(cfg, mesh, x.shape[1]):
+        s, m = mesh.shape["model"], mesh.axis_index("model")
+        bl, L, d = x.shape
+        blk = x[:, m * (L // s):(m + 1) * (L // s)].contiguous()
+        out, aux = _moe_forward_a2a(p, blk, cfg, mesh)
+        out = mesh.all_gather(out.transpose(0, 1).contiguous(), "model")
+        return out.transpose(0, 1), aux
+    if rows is not None:
+        return moe_forward_sharded(p, x, cfg, rows)
+    return _moe_forward_scatter(p, x, cfg)
+
+
 def _moe_forward_scatter(p, x, cfg: ModelConfig, mesh=None):
     """x: (B, L, D) → (B, L, D), aux load-balance loss (module
     docstring).  With a training ``mesh`` (``x`` this rank's rows), the
@@ -239,7 +271,7 @@ def _moe_forward_scatter(p, x, cfg: ModelConfig, mesh=None):
     gate, idx, aux = _route(p["router"], xt, k, mesh)
     before = None
     if mesh is not None:
-        counts = torch.bincount(idx.reshape(-1), minlength=e)
+        counts = _counts(idx.reshape(-1), e)
         before = fsdp.all_gather_ranks(counts, mesh)[:mesh.rank].sum(0)
         t *= fsdp.mesh_size(mesh)
     buf, flat_e, pos, keep, _ = _local_dispatch(

@@ -258,35 +258,40 @@ def ffn_forward(p: Block, x, cfg: ModelConfig, mesh=None):
     return mlp.mlp_forward(p.mlp, x, cfg), None
 
 
-def _gathered(p: nn.Module, layout, cfg: ModelConfig, length: int):
-    """``p``'s leaves at full size on a training mesh
+def _gathered(p: nn.Module, layout, cfg: ModelConfig, length: int,
+              serve=None):
+    """``p``'s leaves at full size on a training or serving mesh
     (`fsdp.gather_module`); a MoE block on the a2a route keeps E/S whole
-    experts."""
+    experts (serving takes that route only where its rows split,
+    `mlp.moe_forward_serve`)."""
     mesh = layout.mesh
-    el = (cfg.num_experts // mesh.shape["model"]
-          if p.kind == "moe" and mlp.a2a_route(cfg, mesh, length) else 0)
+    a2a = p.kind == "moe" and mlp.a2a_route(cfg, mesh, length) and (
+        serve is None or bool(serve.row_axes))
+    el = cfg.num_experts // mesh.shape["model"] if a2a else 0
     return fsdp.gather_module(p, layout, el)
 
 
 def _apply_block(p: nn.Module, h, positions, cfg: ModelConfig,
-                 shared: Block | None = None, layout=None):
+                 shared: Block | None = None, layout=None, serve=None):
     """One block; returns (h, aux or None, cache): (k, v) for GQA, (c,
     k_rope) for MLA, (state, conv tail) for ``mamba`` and ((state, conv
     tail), (k, v)) for ``mamba_attn``, whose attention and MLP are those of
     ``shared``.  With the ``layout`` of a training mesh (`fsdp.Layout`)
     the block's shards are gathered here, inside what remat recomputes, so
     the backward gathers them again and one layer at a time is held at
-    full size (the hybrid's ``shared`` at each of its uses)."""
+    full size (the hybrid's ``shared`` at each of its uses).  With the
+    ``serve`` `decode.CacheLayout` of a serving mesh the MoE takes
+    serving's dispatch (`mlp.moe_forward_serve`)."""
     mesh = None
     if layout is not None:
-        p, mesh = _gathered(p, layout, cfg, h.shape[1]), layout.mesh
+        p, mesh = _gathered(p, layout, cfg, h.shape[1], serve), layout.mesh
     if p.kind in MAMBA_KINDS:
         out, cache = ssm.mamba_forward(
             p.mamba, common.rms_norm(h, p.norm1, cfg.norm_eps), cfg)
         h = h + out
         if p.kind == "mamba_attn":
             h, _, kv = _apply_block(shared, h, positions, cfg,
-                                    layout=layout)
+                                    layout=layout, serve=serve)
             cache = (cache, kv)
         return h, None, cache
     attn_fwd = (attention.mla_forward if cfg.attention == "mla"
@@ -294,8 +299,12 @@ def _apply_block(p: nn.Module, h, positions, cfg: ModelConfig,
     a_out, kv = attn_fwd(p.attn, common.rms_norm(h, p.norm1, cfg.norm_eps),
                          positions, cfg)
     h = h + a_out
-    out, aux = ffn_forward(p, common.rms_norm(h, p.norm2, cfg.norm_eps), cfg,
-                           mesh)
+    x = common.rms_norm(h, p.norm2, cfg.norm_eps)
+    if serve is not None and p.kind == "moe":
+        out, aux = mlp.moe_forward_serve(p.moe, x, cfg, serve.mesh,
+                                         serve.rows_view())
+    else:
+        out, aux = ffn_forward(p, x, cfg, mesh)
     return h + out, aux, kv
 
 
@@ -311,7 +320,8 @@ def _top(params: LM, layout, *names: str):
 
 
 def forward(params: LM, cfg: ModelConfig, batch: dict, *,
-            collect_cache: bool = False, remat: bool = False, mesh=None):
+            collect_cache: bool = False, remat: bool = False, mesh=None,
+            serve=None):
     """Training or prefill forward.  Returns (logits (B, L, V[, K]) in the
     working dtype, the MoE layers' aux losses summed in float32 (0 without
     MoE), caches): with ``collect_cache`` one entry per layer, (k, v) each
@@ -328,7 +338,18 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, *,
     last) and the MoE layers take the sharded dispatch; the aux losses
     are then the global ones.  A mesh without a group (one process
     alone, `distributed.fsdp.one_rank`) holds every leaf whole: nothing
-    is gathered."""
+    is gathered.
+
+    A prefill on a serving mesh passes its `decode.CacheLayout` as
+    ``serve`` (``mesh`` is then its mesh) and ``batch`` holds this rank's
+    rows (`decode.CacheLayout.rows`), the same on every ``model`` rank:
+    the weights are gathered as in training, the MoE takes serving's
+    dispatch, and each layer's cache is cut at once to this rank's slice
+    of the decode layout (`decode.CacheLayout.local`, padded to its
+    length), so ``caches`` holds the decode caches
+    (`decode.ShardedCaches`)."""
+    if serve is not None:
+        mesh, collect_cache = serve.mesh, True
     layout = (None if mesh is None or mesh.backend is None
               else fsdp.layout_of(params, mesh))
     h, positions = embed_inputs(_top(params, layout, "embedding",
@@ -336,20 +357,41 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, *,
     caches = []
     total_aux = torch.zeros((), device=h.device)
     remat = remat and torch.is_grad_enabled()
-    for layer in params.layers:
+    for i, layer in enumerate(params.layers):
         if remat:
             h, aux, kv = checkpoint(_apply_block, layer, h, positions, cfg,
                                     params.shared_attn, layout,
                                     use_reentrant=False)
         else:
             h, aux, kv = _apply_block(layer, h, positions, cfg,
-                                      params.shared_attn, layout)
+                                      params.shared_attn, layout, serve)
         if aux is not None:
             total_aux = total_aux + aux
+        if serve is not None:
+            kv = _local_cache(serve, cfg, i, layer.kind, kv)
         if collect_cache:
             caches.append(kv)
+    if serve is not None:
+        from repro_torch.models.decode import ShardedCaches
+        caches = ShardedCaches(caches, serve)
     return (_logits(_top(params, layout, "final_norm", "unembed"), cfg, h),
             total_aux, caches if collect_cache else None)
+
+
+def _local_cache(serve, cfg: ModelConfig, i: int, kind: str, kv):
+    """Layer ``i``'s prefill cache as this rank's decode-layout dicts
+    (`forward`'s ``serve``)."""
+    names = ("c", "k_rope") if cfg.attention == "mla" else ("k", "v")
+
+    def cut(keys, parts):
+        return {key: serve.local(f"layers.{i}.{key}", t)
+                for key, t in zip(keys, parts)}
+
+    if kind == "mamba":
+        return cut(("state", "conv"), kv)
+    if kind == "mamba_attn":
+        return cut(("state", "conv"), kv[0]), cut(("k", "v"), kv[1])
+    return cut(names, kv)
 
 
 def loss_fn(params: LM, cfg: ModelConfig, batch: dict,

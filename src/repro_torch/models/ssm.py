@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import fsdp
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
 
@@ -164,36 +165,65 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, conv_tail=None,
     return _gate_norm_out(p, y.reshape(b, L, di), z, x, cfg), (s, tail)
 
 
-def mamba_decode(p, x: torch.Tensor, cache: dict, cfg: ModelConfig):
+def mamba_decode(p, x: torch.Tensor, cache: dict, cfg: ModelConfig,
+                 split=None):
     """One-token decode.  x: (B, 1, D); cache {state (B, H, S, P) float32,
     conv (B, w-1, d_inner + 2S)}, both updated in place; returns (out
-    (B, 1, D), the same cache)."""
+    (B, 1, D), the same cache).
+
+    With ``split`` (mesh, state split, conv split) the cache is this
+    rank's slice on a mesh (`models.decode`): a split conv tail holds the
+    rank's block of channels, which it convolves before the conv output
+    is all-gathered over ``model``; a split state holds the rank's block
+    of heads, which it updates before their outputs are all-gathered."""
     b = x.shape[0]
     di, S, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     P = di // H
+    mesh, split_state, split_conv = split or (None, False, False)
     z, xbc, dt = _split(_in_proj(p, x), cfg)
-    xbc, tail = _causal_conv(xbc, p["conv"], cfg, cache["conv"])
+    if split_conv:
+        n = cache["conv"].shape[-1]
+        lo = mesh.axis_index("model") * n
+        xbc, tail = _causal_conv(xbc[..., lo:lo + n], p["conv"][:, lo:lo + n],
+                                 cfg, cache["conv"])
+        cache["conv"].copy_(tail)
+        xbc = fsdp.gather_dim(xbc, -1, "model", mesh)
+    else:
+        xbc, tail = _causal_conv(xbc, p["conv"], cfg, cache["conv"])
+        cache["conv"].copy_(tail)
     xbc = xbc[:, 0]
     xs, Bc, Cc = xbc[:, :di], xbc[:, di:di + S], xbc[:, di + S:]
-    dt = F.softplus(dt[:, 0].float() + p["dt_bias"])           # (B, H)
-    A = -torch.exp(p["a_log"])
-    dA = torch.exp(dt * A)                                     # (B, H)
-    xh = xs.reshape(b, H, P).float()
+    heads = slice(0, H)
+    if split_state:
+        hl = cache["state"].shape[1]
+        heads = slice(mesh.axis_index("model") * hl,
+                      (mesh.axis_index("model") + 1) * hl)
+    dt = F.softplus(dt[:, 0, heads].float() + p["dt_bias"][heads])  # (B, h)
+    A = -torch.exp(p["a_log"][heads])
+    dA = torch.exp(dt * A)                                     # (B, h)
+    xh = xs.reshape(b, H, P)[:, heads].float()
     upd = Bc.float()[:, None, :, None] * (dt[..., None] * xh)[:, :, None]
     state = cache["state"]
-    state.mul_(dA[..., None, None]).add_(upd)                  # (B,H,S,P)
-    cache["conv"].copy_(tail)
-    y = (Cc.float()[:, None, None, :] @ state)[:, :, 0]        # (B, H, P)
-    y = y + p["d_skip"][None, :, None] * xh
+    state.mul_(dA[..., None, None]).add_(upd)                  # (B,h,S,P)
+    y = (Cc.float()[:, None, None, :] @ state)[:, :, 0]        # (B, h, P)
+    y = y + p["d_skip"][heads][None, :, None] * xh
+    if split_state:
+        y = mesh.all_gather(y.transpose(0, 1).contiguous(), "model") \
+            .transpose(0, 1)                                   # (B, H, P)
     return _gate_norm_out(p, y.reshape(b, 1, di), z, x, cfg), cache
 
 
-def init_mamba_cache(cfg: ModelConfig, batch: int, device) -> dict:
-    """Zero decode cache: ``state`` (B, H, S, P) float32, ``conv`` (B,
-    w-1, d_inner + 2S) in the working dtype."""
+def mamba_cache_shapes(cfg: ModelConfig, batch: int) -> dict:
+    """The decode cache's leaves as ``{name: (shape, dtype)}``: ``state``
+    (B, H, S, P) float32, ``conv`` (B, w-1, d_inner + 2S) in the working
+    dtype."""
     di, S, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    return {"state": torch.zeros((batch, H, S, di // H),
-                                 dtype=torch.float32, device=device),
-            "conv": torch.zeros((batch, cfg.conv_width - 1, di + 2 * S),
-                                dtype=common.dtype_of(cfg.dtype),
-                                device=device)}
+    return {"state": ((batch, H, S, di // H), torch.float32),
+            "conv": ((batch, cfg.conv_width - 1, di + 2 * S),
+                     common.dtype_of(cfg.dtype))}
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, device) -> dict:
+    """Zero decode cache (`mamba_cache_shapes`)."""
+    return {k: torch.zeros(s, dtype=dt, device=device)
+            for k, (s, dt) in mamba_cache_shapes(cfg, batch).items()}

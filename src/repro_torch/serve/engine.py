@@ -7,6 +7,13 @@ kind: ``{"k", "v"}`` dicts for GQA and the latent ``{"c", "k_rope"}`` for
 MLA, padded to ``max_len``; a ``mamba`` layer's ``{"state", "conv"}`` as
 they are; for ``mamba_attn`` both — one prefill pass replaces prompt_len
 decode steps.
+
+On a serving mesh (``mesh=``) `prefill` holds the batch's rows over the
+data axes and the decode caches in the reference's layout
+(`models.decode`): the prefill runs each rank's rows through
+`model.forward` with the layout, which keeps each layer's decode-layout
+slice, and every decode step is the sequence-parallel
+`decode.decode_step`.
 """
 from __future__ import annotations
 
@@ -47,12 +54,25 @@ def caches_from_prefill(cfg: ModelConfig, prefill_caches, max_len: int):
     return out
 
 
-def prefill(params, cfg: ModelConfig, batch: dict, max_len: int):
-    """Returns (last-position logits, decode-ready caches, prompt_len)."""
-    logits, _, caches = model.forward(params, cfg, batch, collect_cache=True)
-    prompt_len = logits.shape[1]
-    return logits[:, -1:], caches_from_prefill(cfg, caches, max_len), \
-        prompt_len
+def prefill(params, cfg: ModelConfig, batch: dict, max_len: int,
+            mesh=None):
+    """Returns (last-position logits, decode-ready caches, prompt_len);
+    the last position's logits are a copy of their own, so the prompt's
+    (B, L, V) logits are freed on return.  With a ``mesh``, ``batch`` is
+    the global batch (the same on every rank), ``params`` this rank's
+    shards, and the logits and caches are this rank's rows
+    (`decode.ShardedCaches`)."""
+    if mesh is None:
+        logits, _, caches = model.forward(params, cfg, batch,
+                                          collect_cache=True)
+        return logits[:, -1:].clone(), caches_from_prefill(
+            cfg, caches, max_len), logits.shape[1]
+    rows = next(iter(batch.values())).shape[0]
+    layout = dec.CacheLayout(mesh, cfg, rows, max_len)
+    logits, _, caches = model.forward(
+        params, cfg, {k: layout.rows(x) for k, x in batch.items()},
+        serve=layout)
+    return logits[:, -1:].clone(), caches, logits.shape[1]
 
 
 def _sample(logits: torch.Tensor, temperature: float,

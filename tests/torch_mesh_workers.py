@@ -448,3 +448,47 @@ def train_restart_world(rank, dev, root: str) -> dict:
                          step=int(res.opt_state.step),
                          state=state if rank == 0 else None)
     return out
+
+
+def dryrun_stats_world(rank, dev, cfgs: list, train: tuple,
+                       serve: tuple) -> list:
+    """For each of ``cfgs``, the collectives that one train step and one
+    prefill plus one decode step send on a 2×2 mesh, by axis
+    (``Mesh.stats`` of each, reset before it): ``train`` (batch, length)
+    of seeded tokens through `train.step.make_train_step` on the config's
+    shards; ``serve`` (batch, prompt, cache length) through
+    `serve.engine.prefill` and one `models.decode.decode_step`
+    (`test_torch_dryrun.py` holds them against the dry-run's counts)."""
+    from repro_torch.models import decode as dec
+    from repro_torch.serve import engine
+    from repro_torch.train.step import make_train_step
+
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev)
+    out = []
+    for cfg in cfgs:
+        layout = model.layout_on(mesh, cfg)
+        params = layout.attach(model.trainable(model.init_params(
+            cfg, 0, dev, keep=layout.local)))
+        gen = torch.Generator().manual_seed(1)
+        b, L = train
+        tokens = torch.randint(0, cfg.vocab_size, (b, L), generator=gen)
+        opt = adamw.init(params, torch.float32)
+        step = make_train_step(cfg, lambda s: 1e-3, mesh=mesh)
+        mesh.reset_stats()
+        step(params, opt, {"tokens": tokens, "labels": tokens})
+        res = {"train": {a: dict(v) for a, v in mesh.stats.items()}}
+        for p in params.parameters():
+            p.requires_grad_(False)
+        b, prompt, max_len = serve
+        tokens = torch.randint(0, cfg.vocab_size, (b, prompt), generator=gen)
+        with torch.no_grad():
+            mesh.reset_stats()
+            logits, caches, _ = engine.prefill(
+                params, cfg, {"tokens": tokens}, max_len, mesh)
+            res["prefill"] = {a: dict(v) for a, v in mesh.stats.items()}
+            mesh.reset_stats()
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            dec.decode_step(params, cfg, caches, tok, prompt, mesh)
+            res["decode"] = {a: dict(v) for a, v in mesh.stats.items()}
+        out.append(res)
+    return out
