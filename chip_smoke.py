@@ -109,12 +109,24 @@ else.  Phases, each of which raises on failure:
     the unfused one of as many runs as fit in 4 s (at most 3), the
     speedup, the visit ratio, levels, occupancy and peak memory.  CSR
     against CSR, as in the reference: no tile layout at this size;
-9d. the mesh paths on ranks that share the card (`launch.accel.spawn`;
-    each rank's program in ``repro_torch/launch/mesh_smoke.py``), at the
-    main configuration: (a) ``graph_parallel`` IC on a 2×2 (data × model)
+9d. the mesh paths on ranks that share the card, at the main
+    configuration, and every other mesh job of the smoke, in one world
+    of 4 gloo ranks started once (`run_worlds`: `launch.accel.start` of
+    `mesh_smoke.rank_jobs`, each rank's programs in
+    ``repro_torch/launch/mesh_smoke.py``; 16c's, 16g's and 18's jobs
+    checked and printed in their own places), then a one-rank NCCL world
+    ((d) and 16g's [train mesh nccl]).  Before the world, on the card, the
+    one-device runs its jobs are held against (18's serving, whose tokens
+    the mesh is fed; [train mesh nccl]'s); while it runs, the host draws
+    the golden models' weights of phases 15 and 16f, builds phase 11's
+    graph and traces 18's dry-run sweep (the ranks hold the card; the
+    parent only waits).  It prints the world's start (interpreters,
+    CUDA contexts, the group) and each job's seconds.  (a)
+    ``graph_parallel`` IC on a 2×2 (data × model)
     mesh over gloo — batches 0-3 against the golden sha256s, the top-16
     of their pool through ``DistributedQueryEngine``, a 64-batch pool
-    timed on the dense exchange leg and on the sparse one (auto capacity)
+    timed on the dense exchange leg and its first 16 batches
+    (``MESH_SPARSE_BATCHES``) on the sparse one (auto capacity)
     with equal masks and the per-level ``gather_words`` of each, every
     level of batch 0 on each rank's slot list through ``fused_expand``
     against its plain version, each rank's launches of ``fused_expand``
@@ -143,10 +155,12 @@ else.  Phases, each of which raises on failure:
     top-16 through the same code, (a)'s snapshot restored onto it, the
     coverage check;
     (e) the golden ``"mesh"`` entry (4,096 vertices, batches 0-7, IC and
-    LT, dense and sparse leg) on 2×2 and on a 1×3 world: every sha256 and
-    every level's words.  It prints each sub-phase's seconds, each rank's
-    peak device memory, the transport, the bytes staged through the host,
-    and one level's exchange timed alone (all-gather, butterfly, pmax);
+    LT, dense and sparse leg) on 2×2 and on a 1×3 mesh of ranks 0-2 of
+    the world (`comm.Mesh(members=...)`; rank 3 stands by): every sha256
+    and every level's words.  It prints each sub-phase's seconds, each
+    rank's peak device memory, the transport, the bytes staged through
+    the host, and one level's exchange timed alone (all-gather,
+    butterfly, pmax);
 10. quantised golden, after the LT tile stacks are released: the port's
     whole quantised path at the golden file's ``"q"`` size (4,096
     vertices: generator, ``cluster`` reordering, q8 layout,
@@ -233,8 +247,9 @@ else.  Phases, each of which raises on failure:
     prefill tokens/s, decode ms a step beside the time to read every
     expert once, each MoE layer's capacity at prefill and at decode, and
     the MLA latent cache's bytes a token against K and V of 128 heads;
-16c. the expert-parallel MoE (`_moe_forward_a2a`) on a 2×2 gloo world of
-    4 ranks sharing the card (`mesh_smoke.rank_moe_a2a`), each holding
+16c. the expert-parallel MoE (`_moe_forward_a2a`) on the 2×2 gloo world
+    of 4 ranks sharing the card (`mesh_smoke.rank_moe_a2a`, a job of 9d's
+    world), each holding
     its 8 of 16 experts at deepseek-v3's widths, float32: every rank's
     output against the golden ``"moe_a2a"`` entry within 1e-4 (256
     values, aux, the magnitude sum) with every expert pick the
@@ -327,7 +342,7 @@ else.  Phases, each of which raises on failure:
     (``TRAIN_RESTART_TOL``);
 16g. sharded training (ZeRO-3 over the whole mesh, `distributed.fsdp`)
     on 4 ranks sharing card 0 over gloo (NCCL refuses two ranks on one
-    card), after the training phases are released:
+    card), jobs of 9d's world, each against a one-device run made here:
     ([train mesh golden]) the ``"train_mesh"`` entry's models (smoke
     configs, float32: llama3.2-3b, deepseek-v3 with MLA and the a2a MoE,
     zamba2 on 2x2, maverick on a data-only mesh of 4; 2 steps of 8 x 256
@@ -344,10 +359,11 @@ else.  Phases, each of which raises on failure:
     rank's slice);
     ([train mesh main]) llama3.2-3b at full width cut to 2 layers, bf16,
     float32 moments, 2 steps of 4 x 4,096 tokens (one row a rank)
-    through ``launch.train.main(... --mesh 2x2 --backend gloo)``, and
+    through ``launch.train.main(... --mesh 2x2 --backend gloo)``, called
+    on every rank of the world (torchrun's way), and
     ([train mesh moe]) maverick at full width, 2 layers of 4 experts (2
     a rank on the a2a route; at 8 four ranks' peaks passed the card),
-    bf16 moments, 1 step of 4 x 1,024 tokens:
+    bf16 moments, 1 step of 4 x 1,024 tokens, the same way:
     every step's loss and grad norm within ``TRAIN_MESH_LOSS_RTOL`` and
     ``TRAIN_MESH_GN_RTOL`` of a one-device run of the same cut (at least
     2 steps, for the control: its step 1 against its step 0, another
@@ -383,35 +399,46 @@ else.  Phases, each of which raises on failure:
 18. serving on a mesh and the dry-run (`run_serve_mesh_phases`):
     ([flash decode lse]) the ``decode`` route's output and log-sum-exp
     (``ops.flash_attention(..., return_lse=True)``) against their plain
-    versions at llama3.2-3b's, zamba2's and phi-3-vision's decode shapes
-    on one rank's part of [serve mesh]'s cache (its 2 of the batch's 4
-    rows over ``data``, its 2,052 of the 2 x 2,052 positions over
-    ``model``; the grid's splits are those the ranks launch): every key
-    visible, one split exactly, one key past the first split, the 4 keys
-    a ``model`` rank 1 sees at the last step, and no key (output 0,
-    log-sum-exp -inf, no launch); output within the decode
-    tolerances, log-sum-exp within ``LSE_TOL``; the kernel timed with and
-    without the lse output from a CUDA graph of 10, beside its bound;
-    ([serve mesh]) llama3.2-3b at full width cut to 2 layers and
-    zamba2-2.7b at full width cut to 6 (five ``mamba``, one
-    ``mamba_attn`` running the shared block), bf16, seeded weights:
-    batch 4, prompt 2,048, 8 greedy decode steps on a 2x2 gloo mesh of 4
-    ranks sharing card 0 (`mesh_smoke.rank_serve_mesh`: the prefill's
-    rows over ``data``, the caches of 2 x 2,052 positions in the
-    reference's layout, the sequence-parallel decode; the write moves
-    from ``model`` rank 0 to rank 1 at step 4) against one device's run
-    of the same cut on card 0, fed the same tokens: every step's logits
-    within ``SERVE_MESH_RRMS`` (bf16 relative RMS), the greedy tokens
-    equal wherever one device's top-2 gap exceeds twice the largest
-    logit difference, the exact ``wgmma`` and ``decode`` launches of
-    each rank (a ``model`` rank 1 launches none before step 4); per rank
-    the prefill seconds, decode ms a step, ``Mesh.stats`` by axis, staged
-    bytes and peak GiB; for llama, planted faults (a lost ``model`` rank
-    1, a merge that ignores the lse: steps 4-7 decoded again on the run's
-    caches), the lse fault's logits past the limit, and the split check
-    (one decode step's attention alone, rank 1 seeing 4 and 2,052 keys)
-    within ``SERVE_MESH_SPLIT_RRMS`` of one device's while both faults
-    are not; ([dryrun check]) `launch.dryrun.lower_cell` on a
+    versions at llama3.2-3b's, zamba2's, phi-3-vision's (at llama's
+    positions) and maverick's (40 over 8 heads of 128) decode shapes on
+    one rank's part of [serve mesh]'s cache (its 2 of the batch's 4 rows
+    over ``data``, its half of the job's positions over ``model``; the
+    grid's splits are those the ranks launch): every key visible, one
+    split exactly, one key past the first split, the keys a ``model``
+    rank 1 sees at the job's last step, and no key (output 0,
+    log-sum-exp -inf, no launch); output within the decode tolerances,
+    log-sum-exp within ``LSE_TOL``; the kernel timed with and without the
+    lse output from a CUDA graph of 10, beside its bound and SDPA's time;
+    ([serve mesh]) each of ``SERVE_MESH_JOBS`` at full width, bf16,
+    seeded weights, batch 4 (see there: llama3.2-3b cut to 2 layers and
+    zamba2-2.7b cut to 6, five ``mamba`` and one ``mamba_attn`` running
+    the shared block, at prompt 2,048; deepseek-v3 cut to 2 layers, one
+    dense and one MoE of 16 experts, and maverick cut to its dense and
+    MoE layer of 8 experts, at prompt 512 and capacity factor E / top_k)
+    with greedy decode steps on a 2x2 gloo mesh of 4 ranks sharing card
+    0 (9d's world; `mesh_smoke.rank_serve_mesh`: the prefill's rows over
+    ``data``, the MoE prefill on the reference's a2a route, each
+    ``model`` rank its sequence block and E/2 experts, the caches in the
+    reference's layout, the sequence-parallel decode (GQA through the
+    ``decode`` kernel's lse, MLA through its plain softmax's), each
+    decode step's MoE as the global scatter over ``data``) against one
+    device's run of the same cut on card 0, fed the same tokens: every
+    step's logits within ``SERVE_MESH_RRMS`` (bf16 relative RMS), the
+    greedy tokens equal wherever one device's top-2 gap exceeds twice the
+    row's largest logit difference, every MoE call's expert picks equal
+    to one device's wherever the router's margin exceeds twice the two
+    runs' router-logit difference (the picks that differ, the smallest
+    margin and the rows left out of a step's logits printed), the exact
+    ``wgmma`` and ``decode`` launches of each rank (a ``model`` rank 1
+    launches none before the job's crossing step; MLA none at all); per
+    rank the prefill seconds, decode ms a step, ``Mesh.stats`` by axis,
+    staged bytes and peak GiB; for llama and deepseek, planted faults (a
+    lost ``model`` rank 1, a merge that ignores the lse: the steps from
+    the crossing decoded again on the run's caches), the lse fault's
+    logits past the limit, and the split check (one decode step's
+    attention alone, rank 1 seeing the last step's keys and its whole
+    half) within ``SERVE_MESH_SPLIT_RRMS`` of one device's while both
+    faults are not; ([dryrun check]) `launch.dryrun.lower_cell` on a
     2x2 `comm.ShapeMesh` of the exact cells that [train mesh main] and
     [serve mesh] (llama) ran: the dry collective counts by axis equal
     the measured ``Mesh.stats`` of rank 0, calls and bytes, and the dry
@@ -422,12 +449,15 @@ else.  Phases, each of which raises on failure:
     `ShapeMesh`: ``DRYRUN_SWEEP_CELLS`` (see there) and the three BPT
     cells, one line each (status, dominant term,
     per-device GiB, ``fits``), none ``error``, within
-    ``DRYRUN_SWEEP_BUDGET_S``, traced after [serve mesh].
+    ``DRYRUN_SWEEP_BUDGET_S``, traced on the host beside 9d's world.
     ``--serve-mesh-only`` builds the kernels and runs [train mesh main]
-    (one step) and this phase alone.
+    (one step) and this phase alone; ``--worlds-only`` the world of 9d
+    with every job and the checks of 9d, 16c, 16g and 18.
 
 Each phase prints its peak device memory (9b, 9c and 9d their seconds
-too).
+too).  Before the kernels line, ``[time]`` gives each phase's seconds
+(release to release; the mesh world's jobs apart), the whole run's and
+``TIME_LIMIT_S``.
 Phases 6a, 6b, 9a and 9b each build their own graph and 24.2 GiB tile
 layout, after the phase before is released; a delta's rebind holds the old and new layouts for a moment.  The line before the last is the
 card's name and power limit as ``nvidia-smi`` reports them; the last line
@@ -439,6 +469,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -545,13 +576,16 @@ TRAIN_FAMILY_CUTS = {
     "nemotron-4-340b": dict(d_model=4608, d_ff=18432, num_layers=4),
 }
 TRAIN_FAMILY_STEPS, TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 2, 8, 4096
-# Phase 16g, sharded training on 4 ranks sharing the card over gloo: the
-# launcher's arguments of the main path (llama3.2-3b at full width, 2
-# layers, 4 x 4,096 tokens, one row a rank), the MoE path (maverick, 2
-# layers of 4 experts: at 8, four ranks' peaks passed the card's memory;
-# 4 x 2,048 tokens, 1 step: its layer gathers through the host set the
-# step, 55-60 s at 2,048 and 50 s at 1,024 tokens on an H100, PERF.md §6)
-# and the
+# Phase 16g, sharded training on 4 ranks sharing the card over gloo (in
+# the one world of 9d, `run_worlds`, through ``launch.train.main`` on
+# every rank): the launcher's arguments of the main path (llama3.2-3b at
+# full width, 2 layers, 4 x 4,096 tokens, one row a rank), the MoE path
+# (maverick, 2 layers of 4 experts: at 8, four ranks' peaks passed the
+# card's memory; 4 x 1,024 tokens, 1 step: its layer gathers through the
+# host set the step, 55-60 s at 2,048 and 50 s at 1,024 tokens on an
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6; 2,048 until the whole
+# smoke had to fit 800 s with
+# phase 18's MoE jobs, PERF.md §4) and the
 # 1x1 NCCL mesh (the smoke llama), the mesh's arguments; the limits on
 # every step's loss and grad norm against a one-device run of the same
 # cut, and on each gradient leaf of step 0 gathered from the shards
@@ -569,7 +603,7 @@ TRAIN_MESH_MAIN_ARGV = ["--arch", "llama3.2-3b", "--num-layers", "2",
                         "--batch", "4", "--seq-len", "4096", "--steps", "2"]
 TRAIN_MESH_MOE_ARGV = ["--arch", "llama4-maverick-400b-a17b",
                        "--num-layers", "2", "--num-experts", "4",
-                       "--batch", "4", "--seq-len", "2048", "--steps", "1"]
+                       "--batch", "4", "--seq-len", "1024", "--steps", "1"]
 TRAIN_MESH_NCCL_ARGV = ["--arch", "llama3.2-3b", "--smoke", "--steps", "3"]
 TRAIN_MESH_ARGS = ["--mesh", "2x2", "--backend", "gloo", "--timeout-s",
                    "600"]
@@ -585,35 +619,76 @@ TRAIN_FAMILY_BF16 = {
         "llama4-maverick-400b-a17b"],
     "nemotron-4-340b": TRAIN_FAMILY_CUTS["nemotron-4-340b"],
 }
-# Phase 18, serving on a mesh: the jobs' cuts, batch, prompt, steps and
-# cache length (2 x (2,048 + 4): each ``model`` rank holds 2,052
-# positions, so the write crosses to rank 1 at step 4).  The logits'
-# limit: the mesh merges each rank's bf16 attention output in float32 and
-# rounds it again, and its row blocks take other GEMM tilings, so its
-# bf16 logits differ from one device's by a few bf16 steps (2^-8
-# relative) on some of them; 2e-2 relative RMS passes that (5.87e-3)
-# and fails a misplaced cache block (control: the logits of the next
-# step, which differ by ~1.4) and a merge that ignores the log-sum-exp
-# (a planted fault, `mesh_smoke._faulty_merge`: 0.47-0.66 at steps
-# 4-7).  A lost ``model`` rank 1 holds 1-4 of ~2,052 visible keys and
-# moves the logits to only 6.5e-3-7.1e-3, which no limit tells from a
-# sound run; the split check (`mesh_smoke._split_check`: the attention
-# of a decode step alone, seeded, against one device's over the whole
-# cache) sees it: 1e-2 passes the sound merge's one bf16 rounding
-# (2.9e-3) and fails a lost rank 1 (4.3e-2 at 4 keys, 1.0 at 2,052) and
-# an ignored lse (8.9, 2.1e-2) on an H100, PERF.md §6.  The job whose
-# faults are planted (attention layers alone, module docstring of
-# `mesh_smoke._fault_steps`).
-# The dry-run's peak against the measured one: the allocator rounds
-# blocks and keeps cuBLAS workspaces the meta trace does not see.
-SERVE_MESH_JOBS = [("llama3.2-3b", {"num_layers": 2}),
-                   ("zamba2-2.7b", {"num_layers": 6})]
-SERVE_MESH_BATCH, SERVE_MESH_PROMPT, SERVE_MESH_STEPS = 4, 2048, 8
-SERVE_MESH_MAX_LEN = 2 * (SERVE_MESH_PROMPT + SERVE_MESH_STEPS // 2)
+# Phase 18, serving on a mesh: the batch, and per job the cut, prompt,
+# greedy steps and the step whose cache write crosses to ``model`` rank 1
+# (the caches hold 2 x (prompt + cross) positions, each ``model`` rank its
+# half).  llama3.2-3b (2 layers) and zamba2-2.7b (6) at prompt 2,048: 4
+# steps crossing at step 2 (8 crossing at 4 until the whole smoke had to
+# fit 800 s with the MoE jobs, PERF.md §4).  deepseek-v3 (2 layers: one
+# dense, one MoE of 16 experts; MLA) and maverick (2 layers: dense, then
+# MoE of 8 experts, top-1) at full width, prompt 512 (their decode step
+# is set by the ~3 GB of layers each rank gathers through the host, not
+# by the prompt: 4.9-10.5 s a step on an NVIDIA H100 80GB HBM3 at 700
+# W, PERF.md §6), 3 steps crossing
+# at step 2 (the last: a model rank 1 then holds one key); each at
+# capacity factor E /
+# top_k (2.0 and 8.0), where the capacity equals the token count and no
+# pair drops on either route: the reference's a2a capacity is per token
+# block and one device's per batch, so only there do the two agree (the
+# dropping capacity is held on CPU ranks, tests/test_torch_serve_mesh.py).
+# The logits' limit: the mesh merges each rank's bf16 attention output in
+# float32 and rounds it again, and its row blocks take other GEMM
+# tilings, so its bf16 logits differ from one device's by a few bf16
+# steps (2^-8 relative) on some of them; 2e-2 relative RMS passes that
+# (5.87e-3) and fails a misplaced cache block (control: the logits of the
+# next step, which differ by ~1.4) and a merge that ignores the
+# log-sum-exp (a planted fault, `mesh_smoke._faulty_merge`: 0.47-0.66 at
+# steps 4-7).  A lost ``model`` rank 1 holds 1-4 of ~2,052 visible keys
+# and moves the logits to only 6.5e-3-7.1e-3, which no limit tells from a
+# sound run; the split check (`mesh_smoke._split_check`: the attention of
+# a decode step alone, seeded, against one device's over the whole cache)
+# sees it: 1e-2 passes the sound merge's one bf16 rounding (2.9e-3) and
+# fails a lost rank 1 (4.3e-2 at 4 keys, 1.0 at 2,052) and an ignored
+# lse (8.9, 2.1e-2) on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6.
+# The jobs whose faults are
+# planted (``faults``; steps from the crossing on decoded again,
+# `mesh_smoke._fault_steps`) are llama's (GQA: the ``decode`` kernel's
+# lse) and deepseek's (MLA: the plain softmax's).  A MoE job's expert
+# picks must equal one device's wherever the router's margin (the
+# smallest gap among the top k + 1 logits of the token) exceeds twice the
+# two runs' largest router-logit difference for it; a row whose own
+# token's pick differs inside that margin leaves that step's logits'
+# limit, counted and printed.
+SERVE_MESH_BATCH = 4
+SERVE_MESH_JOBS = [
+    dict(arch="llama3.2-3b", cut={"num_layers": 2}, prompt=2048, steps=4,
+         cross=2, faults=True),
+    dict(arch="zamba2-2.7b", cut={"num_layers": 6}, prompt=2048, steps=4,
+         cross=2, faults=False),
+    dict(arch="deepseek-v3-671b",
+         cut=dict(num_layers=2, first_dense_layers=1, num_experts=16,
+                  capacity_factor=16 / 8), prompt=512, steps=3, cross=2,
+         faults=True),
+    dict(arch="llama4-maverick-400b-a17b",
+         cut=dict(num_layers=2, num_experts=8, capacity_factor=8 / 1),
+         prompt=512, steps=3, cross=2, faults=False),
+]
 SERVE_MESH_RRMS = 2e-2
 SERVE_MESH_SPLIT_RRMS = 1e-2
-SERVE_MESH_FAULT_ARCH = "llama3.2-3b"
+# The dry-run's peak against the measured one: the allocator rounds
+# blocks and keeps cuBLAS workspaces the meta trace does not see.
 DRYRUN_PEAK_RTOL = 0.15
+# The whole smoke's limit, the card's run included (build to last line).
+TIME_LIMIT_S = 1200.0
+# 9d's world of 4 gloo ranks (`run_worlds`): its default group's timeout
+# (every job's barrier and the launcher's gathers), under the limit.
+WORLD_TIMEOUT_S = 1100.0
+# [mesh a] / [mesh b]: the batches of the sparse exchange leg, held
+# against the dense leg's 64-batch pool's first ones (64 until the whole
+# smoke had to fit 800 s with phase 18's MoE jobs, PERF.md §4: 18.9 s of
+# the 2x2 job on the IC sparse leg alone on an NVIDIA H100 80GB HBM3 at
+# 700 W).
+MESH_SPARSE_BATCHES = 16
 # The smoke's dry-run sweep on 16x16: a cell of every family and kind
 # (dense training and prefill by llama3.2-3b, MoE by maverick, MLA by
 # deepseek-v3's decode, SSD and the hybrid by mamba2's and zamba2's
@@ -1313,6 +1388,7 @@ def check_outputs_lt(out: dict, golden: dict) -> None:
 
 # ------------------------------------------------- serving lifecycle phases
 _LAST_RELEASE = [time.perf_counter()]
+_PHASE_S: list = []          # (what, seconds) of each release, for [time]
 
 
 def _release(what: str) -> None:
@@ -1325,7 +1401,42 @@ def _release(what: str) -> None:
     now = time.perf_counter()
     print(f"[release] {what} freed: {held:.2f} GiB still allocated; "
           f"{now - _LAST_RELEASE[0]:.1f}s since the last release")
+    _PHASE_S.append((what, now - _LAST_RELEASE[0]))
     _LAST_RELEASE[0] = now
+
+
+# Host work done while the mesh world holds the card (`run_worlds`): the
+# golden models' numpy weights by (config, seed, SSD heads' seed), and the
+# quantised path's graph by vertex count, each a future.
+_TREES: dict = {}
+_Q_HOST: dict = {}
+_WORLD_JOBS_S: dict = {}     # the mesh world's seconds by job, for [time]
+
+
+def _numpy_tree(cfg, seed: int, heads_seed=None) -> dict:
+    """`numpy_params` of ``cfg`` (an SSD config's per-head mixer
+    parameters redrawn by `numpy_ssm_heads` from ``heads_seed``)."""
+    from repro_torch.models import init
+
+    tree = init.numpy_params(cfg, seed)
+    if heads_seed is not None:
+        init.numpy_ssm_heads(tree, cfg, heads_seed)
+    return tree
+
+
+def _predraw(pool, cfg, seed: int, heads_seed=None) -> None:
+    _TREES[(repr(cfg), seed, heads_seed)] = pool.submit(
+        _niced, _numpy_tree, cfg, seed, heads_seed)
+
+
+def _tree(cfg, seed: int, heads_seed=None, keep: bool = False) -> dict:
+    """`_numpy_tree`, the one drawn beside the mesh world where there is
+    one (handed out once unless ``keep``: the caller must not change its
+    arrays), else drawn now."""
+    key = (repr(cfg), seed, heads_seed)
+    fut = _TREES.get(key) if keep else _TREES.pop(key, None)
+    return fut.result() if fut is not None \
+        else _numpy_tree(cfg, seed, heads_seed)
 
 
 def _launcher_args(golden: dict, *flags: str):
@@ -1940,15 +2051,16 @@ def check_mesh_results(a4: list, b3: list, d1: list,
               f"equal the golden sha256s and top-16 {r0['seeds'][:4]}... "
               f"(σ̂ {r0['sigma']:.1f}) on every rank; 64-batch pool "
               f"{max(r['build_dense_s'] for r in rs):.3f}s on the dense "
-              f"leg, {max(r['build_sparse_s'] for r in rs):.3f}s on the "
-              f"sparse leg (auto capacity), masks equal, beside "
+              f"leg, {max(r['build_sparse_s'] for r in rs):.3f}s for its "
+              f"first {a4[0]['sparse_batches']} batches on the sparse leg "
+              f"(auto capacity), masks equal, beside "
               f"{single_build_s[tag]:.3f}s on one device (phase "
               f"{'4' if tag == 'a' else '7'}); {sub} levels per batch "
               f"{sorted(set(r0['levels_dense']))}")
         print(f"[mesh {tag}] gather_words per level, dense leg "
               f"{r0['words_dense'][:8]}... ({sum(r0['words_dense'])} in "
-              f"all), sparse leg {r0['words_sparse'][:8]}... "
-              f"({sum(r0['words_sparse'])})")
+              f"all, 64 batches), sparse leg {r0['words_sparse'][:8]}... "
+              f"({sum(r0['words_sparse'])}, {a4[0]['sparse_batches']})")
         print(f"[mesh {tag}] every level of batch 0 on each rank's slot "
               f"list ({[r['check']['entries'] for r in rs]} entries, rows "
               f"{[r['check']['row_base'] for r in rs]} + "
@@ -2053,52 +2165,208 @@ def check_mesh_results(a4: list, b3: list, d1: list,
     return out
 
 
-def run_mesh_phase(golden: dict, single_build_s: dict) -> dict:
-    """Phase 9d: the mesh paths at the main configuration on one card —
-    a 2x2 gloo world of 4 ranks ((a), (b), (c) on its 4x1 mesh, (e)), a
-    1x3 world ((e)), and a 1x1 NCCL world ((d)).  A rank that fails fails
-    the phase."""
+def _world_seconds(ranks: list, name: str) -> float:
+    """A job's seconds in the world: from its first rank's start to its
+    last rank's end (`mesh_smoke.rank_jobs`)."""
+    times = [r["times"][name] for r in ranks]
+    return max(t[1] for t in times) - min(t[0] for t in times)
+
+
+def _niced(fn, *args):
+    """``fn(*args)`` on this thread at nice 10 (Linux gives each thread a
+    nice value of its own): host work beside the mesh world takes what
+    its ranks, whose collectives run on the host, leave."""
+    import threading
+
+    os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 10)
+    return fn(*args)
+
+
+def _host_beside_world(golden: dict, pool) -> None:
+    """Host work started while the mesh world runs (its ranks hold the
+    card; the parent waits), each task niced (`_niced`): numpy draws of
+    the golden models' weights that phases 15 and 16f load (`_predraw`:
+    the ``"lm"`` model, which [train golden] shares, and the ``"moe"``,
+    ``"ssm"`` and ``"vlm"`` entries'), and the quantised path's graph on
+    the host (`_q_graph_host`); the caller traces the dry-run sweep
+    meanwhile."""
+    from repro_torch.configs import registry
+
+    gold = golden["lm"]
+    _predraw(pool, dataclasses.replace(registry.get(gold["arch"]),
+                                       num_layers=gold["num_layers"],
+                                       dtype=gold["dtype"]),
+             gold["param_seed"])
+    for name in ("moe", "ssm", "vlm"):
+        for entry in golden[name].values():
+            cuts = {k: v for k, v in entry["cuts"].items() if k != "arch"}
+            _predraw(pool, dataclasses.replace(registry.get(entry["arch"]),
+                                               **cuts), entry["param_seed"],
+                     entry.get("ssm_heads_seed"))
+    _Q_HOST[Q_N] = pool.submit(_niced, _q_graph_host, Q_N)
+
+
+def run_worlds(golden: dict, *, mesh: bool = True, a2a: bool = True,
+               train: bool = True, serve: bool = True,
+               train_main_argv=None, beside: bool = True) -> dict:
+    """Phase 9d's worlds (module docstring): every mesh job of phases 9d,
+    16c, 16g and 18 in one world of 4 gloo ranks sharing the card
+    (`mesh_smoke.rank_jobs`), started once; then the one-rank NCCL world
+    ((d) and [train mesh nccl]).  Before it, on the card, the one-device
+    runs the world's jobs are held against (serving's, whose tokens the
+    mesh is fed, and [train mesh nccl]'s); while it runs, the host work of
+    `_host_beside_world` and the dry-run sweep (``beside``).  Returns the
+    ranks' results by job, each job's seconds and the worlds' start
+    timing; the phases check and print them in their places."""
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _build
     from repro_torch.launch import accel, mesh_smoke
+    from repro_torch.launch import train as tlaunch
 
+    out = {"serve_jobs": _serve_mesh_jobs() if serve else []}
+    out["one"] = []
+    for job in out["serve_jobs"]:
+        out["one"].append(mesh_smoke.serve_one(job, torch.device("cuda")))
+        job["feed"] = out["one"][-1]["tokens"]
+        _release(f"serve mesh one device {job['arch']}")
+    if train:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            out["nccl_one"] = tlaunch.main(TRAIN_MESH_NCCL_ARGV)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        _release("train mesh nccl: one device")
     ckpt = tempfile.mkdtemp(prefix="mesh_pool_")
-    t0 = time.perf_counter()
+    # The two jobs whose peaks [dryrun check] reads first, on fresh ranks.
+    jobs = []
+    if train or train_main_argv:
+        jobs.append(("train_main", mesh_smoke.rank_train_launcher,
+                     ((train_main_argv or TRAIN_MESH_MAIN_ARGV)
+                      + TRAIN_MESH_ARGS,)))
+    if serve:
+        jobs.append(("serve", mesh_smoke.rank_serve_mesh,
+                     (out["serve_jobs"],)))
+    if mesh:
+        jobs += [("mesh", mesh_smoke.rank_main_2x2,
+                  (golden, ckpt, MESH_SPARSE_BATCHES)),
+                 ("mesh_1x3", mesh_smoke.rank_main_1x3,
+                  (golden, (0, 1, 2)))]
+    if a2a:
+        jobs.append(("moe_a2a", mesh_smoke.rank_moe_a2a,
+                     (golden["moe_a2a"],)))
+    if train:
+        checks = [(dataclasses.replace(registry.get(arch), **c), rows)
+                  for arch, c, rows in TRAIN_MESH_SHARD_CHECKS]
+        jobs += [("train_golden", mesh_smoke.rank_train_mesh_phase,
+                  (_train_mesh_jobs(golden["train_mesh"]), checks, (2, 2),
+                   ("data", "model"))),
+                 ("train_moe", mesh_smoke.rank_train_launcher,
+                  (TRAIN_MESH_MOE_ARGV + TRAIN_MESH_ARGS,))]
+    pool = ThreadPoolExecutor(4) if beside else None
     try:
-        a4 = accel.spawn(mesh_smoke.rank_main_2x2, 4, args=(golden, ckpt),
-                         backend="gloo", device="cuda", timeout_s=420)
-        t_a = time.perf_counter() - t0
-        b3 = accel.spawn(mesh_smoke.rank_main_1x3, 3, args=(golden,),
-                         backend="gloo", device="cuda", timeout_s=240)
-        t_b = time.perf_counter() - t0 - t_a
-        d1 = accel.spawn(mesh_smoke.rank_main_1x1, 1,
-                         args=(golden, ckpt, a4[0]["a"]["snapshot_top"]),
-                         backend="nccl", device="cuda", timeout_s=240)
-        t_d = time.perf_counter() - t0 - t_a - t_b
+        t0 = time.perf_counter()
+        world = accel.start(mesh_smoke.rank_jobs, 4, args=(jobs,),
+                            backend="gloo", device="cuda",
+                            timeout_s=WORLD_TIMEOUT_S,
+                            kernels=_build.SOURCES, env=tlaunch.RANK_ENV)
+        if beside:
+            _host_beside_world(golden, pool)
+            out["sweep"] = _dryrun_sweep_cells()
+        ranks = world.join()
+        out["world_s"] = time.perf_counter() - t0
+        out["timing"] = world.timing
+        out["jobs_s"] = {name: _world_seconds(ranks, name)
+                         for name, _, _ in jobs}
+        out["ranks"] = {name: [r["results"][name] for r in ranks]
+                        for name, _, _ in jobs}
+        _WORLD_JOBS_S.update(out["jobs_s"])
+        _release("the mesh world")
+        if mesh or train:
+            t1 = time.perf_counter()
+            one = accel.start(
+                mesh_smoke.rank_nccl_1x1, 1, args=(
+                    golden if mesh else None, ckpt,
+                    out["ranks"]["mesh"][0]["a"]["snapshot_top"]
+                    if mesh else None,
+                    TRAIN_MESH_NCCL_ARGV + ["--mesh", "1x1"]
+                    if train else None),
+                backend="nccl", device="cuda", timeout_s=600,
+                kernels=_build.SOURCES, env=tlaunch.RANK_ENV)
+            out["nccl"] = one.join()[0]
+            out["nccl_s"] = time.perf_counter() - t1
+            out["nccl_timing"] = one.timing
+            _release("the one-rank nccl world")
     finally:
+        if pool is not None:
+            pool.shutdown(wait=False)
         shutil.rmtree(ckpt, ignore_errors=True)
-    print(f"[mesh] worlds on {torch.cuda.get_device_name(0)}: 2x2 gloo (4 "
-          f"ranks) {t_a:.1f}s, 1x3 gloo {t_b:.1f}s, 1x1 nccl {t_d:.1f}s "
-          f"of host clock, each with its ranks' start")
-    out = check_mesh_results(a4, b3, d1, single_build_s)
-    out["seconds"] = dict(world_2x2=t_a, world_1x3=t_b, world_1x1=t_d)
+    t = out["timing"]
+    print(f"[worlds] one world of 4 gloo ranks sharing "
+          f"{torch.cuda.get_device_name(0)}: started in {t['group_s']:.1f}s "
+          f"(interpreters and imports {t['enter_s']:.1f}s, CUDA contexts "
+          f"by {t['device_s']:.1f}s, the group by {t['group_s']:.1f}s), "
+          f"{out['world_s']:.1f}s in all; its jobs "
+          + ", ".join(f"{n} {v:.1f}s" for n, v in out["jobs_s"].items())
+          + (f"; beside it on the host: the dry-run sweep "
+             f"{out['sweep']['seconds']:.1f}s, the golden draws and the "
+             f"quantised graph" if beside else "")
+          + (f"; the one-rank nccl world {out['nccl_s']:.1f}s (started in "
+             f"{out['nccl_timing']['group_s']:.1f}s)" if "nccl" in out
+             else ""))
     return out
 
 
-def _q_graph(n: int, dev):
-    """The quantised path's graph: powerlaw_cluster(n, 6.0, p = 0.25, seed
-    7), deduped, ``cluster`` order, reversed; its quantised layout.  Returns
-    (reversed graph, tg, q8, host seconds of the reordering)."""
-    from repro_torch.core import tiles
+def check_mesh_phase(worlds: dict, single_build_s: dict) -> dict:
+    """Phase 9d's checks and lines from the worlds' results (`run_worlds`):
+    the 2x2 job's (a), (b), (c), (e), (f), the 1x3 job's (e) on ranks
+    0-2, the nccl world's (d)."""
+    a4 = worlds["ranks"]["mesh"]
+    b3 = [r for r in worlds["ranks"]["mesh_1x3"] if r["member"]]
+    d1 = [worlds["nccl"]["d"]]
+    t_a = worlds["jobs_s"]["mesh"]
+    t_b = worlds["jobs_s"]["mesh_1x3"]
+    print(f"[mesh] on {torch.cuda.get_device_name(0)}, in the 4-rank gloo "
+          f"world of `run_worlds`: the 2x2 job {t_a:.1f}s, the 1x3 job "
+          f"(ranks 0-2; rank 3 stands by) {t_b:.1f}s of host clock; the "
+          f"1x1 nccl world {worlds['nccl_s']:.1f}s with its rank's start "
+          f"and [train mesh nccl]")
+    out = check_mesh_results(a4, b3, d1, single_build_s)
+    out["seconds"] = dict(world_2x2=t_a, world_1x3=t_b,
+                          world_1x1=worlds["nccl_s"])
+    return out
+
+
+def _q_graph_host(n: int):
+    """The quantised path's graph on the host: powerlaw_cluster(n, 6.0, p =
+    0.25, seed 7), deduped, ``cluster`` order, reversed; with the host
+    seconds of the reordering."""
     from repro_torch.graph import csr, generators, reorder
 
     g = csr.dedupe(generators.powerlaw_cluster(n, Q_DEGREE, prob=Q_PROB,
-                                               seed=Q_GRAPH_SEED, device=dev))
+                                               seed=Q_GRAPH_SEED,
+                                               device="cpu"))
     t0 = time.perf_counter()
     g_ord, _ = reorder.apply(g, "cluster")
     reorder_s = time.perf_counter() - t0
-    g_rev = csr.transpose(g_ord)
+    return csr.transpose(g_ord), reorder_s
+
+
+def _q_graph(n: int, dev):
+    """`_q_graph_host`'s graph (the one built beside the mesh world where
+    there is one) on ``dev``, and its quantised layout.  Returns (reversed
+    graph, tg, q8, host seconds of the reordering)."""
+    from repro_torch.core import tiles
+
+    fut = _Q_HOST.pop(n, None)
+    g_rev, reorder_s = fut.result() if fut is not None \
+        else _q_graph_host(n)
+    g_rev = dataclasses.replace(
+        g_rev, indptr=g_rev.indptr.to(dev), src=g_rev.src.to(dev),
+        dst=g_rev.dst.to(dev), prob=g_rev.prob.to(dev), cache={})
     tg, q8 = tiles.quantized(g_rev)
     return g_rev, tg, q8, reorder_s
 
@@ -2433,7 +2701,9 @@ def run_q_phases(golden: dict, dev) -> dict:
           f"{tg.num_tiles - 1}, past the wrap at {2 ** 32 // T2}); q8 stack "
           f"{q8_gib:.2f} GiB; the float32 prob and int32 edge-id stacks "
           f"would take {tg.num_tiles * T2 * 8 / 2 ** 30:.2f} GiB (by "
-          f"reckoning, not allocated); graph and layout built in "
+          f"reckoning, not allocated); the graph (built on the host "
+          f"beside the mesh world, where there is one) and the layout "
+          f"ready in "
           f"{build_s:.2f}s; peak device memory {_peak_gib():.2f} GiB")
     slots = tiles.q_slot_list(tg, q8)
     _, counts = torch.unique(slots.key, return_counts=True)
@@ -2757,8 +3027,9 @@ def check_lm_golden(golden: dict, dev) -> dict:
                               num_layers=gold["num_layers"],
                               dtype=gold["dtype"])
     t0 = time.perf_counter()
-    tree = init.numpy_params(cfg, gold["param_seed"])
-    print(f"[lm golden] weights drawn in {time.perf_counter() - t0:.1f}s")
+    tree = _tree(cfg, gold["param_seed"], keep=True)
+    print(f"[lm golden] weights drawn, or waited for, in "
+          f"{time.perf_counter() - t0:.1f}s")
     return _check_golden_model(gold, cfg, dev, "lm golden", tree)
 
 
@@ -2781,11 +3052,8 @@ def check_golden_entries(entries: dict, dev, tag: str) -> dict:
         cfgs[name] = dataclasses.replace(registry.get(gold["arch"]), **cuts)
 
     def draw(name):
-        tree = init.numpy_params(cfgs[name], entries[name]["param_seed"])
-        if "ssm_heads_seed" in entries[name]:
-            init.numpy_ssm_heads(tree, cfgs[name],
-                                 entries[name]["ssm_heads_seed"])
-        return tree
+        return _tree(cfgs[name], entries[name]["param_seed"],
+                     entries[name].get("ssm_heads_seed"))
 
     t0 = time.perf_counter()
     out = {}
@@ -3251,19 +3519,15 @@ def run_vlm_main_path(dev) -> dict:
     return out
 
 
-def run_moe_a2a_phase(golden: dict) -> dict:
-    """The expert-parallel MoE on a 2x2 gloo world of 4 ranks sharing card
-    0 (`mesh_smoke.rank_moe_a2a`): every rank's gathered output against the
-    golden ``"moe_a2a"`` entry within MOE_A2A_TOL (values at 256 indices,
-    aux, the magnitude sum relative), and at capacity factor 64 against
-    the one-device scatter."""
-    from repro_torch.launch import accel, mesh_smoke
-
+def run_moe_a2a_phase(golden: dict, worlds: dict) -> dict:
+    """The expert-parallel MoE on the 2x2 gloo world of 4 ranks sharing
+    card 0 (`mesh_smoke.rank_moe_a2a`, a job of `run_worlds`): every
+    rank's gathered output against the golden ``"moe_a2a"`` entry within
+    MOE_A2A_TOL (values at 256 indices, aux, the magnitude sum relative),
+    and at capacity factor 64 against the one-device scatter."""
     gold = golden["moe_a2a"]
-    t0 = time.perf_counter()
-    ranks = accel.spawn(mesh_smoke.rank_moe_a2a, 4, args=(gold,),
-                        backend="gloo", device="cuda", timeout_s=300)
-    seconds = time.perf_counter() - t0
+    ranks = worlds["ranks"]["moe_a2a"]
+    seconds = worlds["jobs_s"]["moe_a2a"]
     want = np.asarray(gold["values"])
     worst = 0.0
     for r in ranks:
@@ -3282,7 +3546,7 @@ def run_moe_a2a_phase(golden: dict) -> dict:
     print(f"[moe a2a] {gold['arch']} widths, {gold.get('overrides', {})}, "
           f"float32, "
           f"2 x {gold['seq']} tokens on a 2x2 {r0['backend']} world sharing "
-          f"the card ({seconds:.1f}s with the ranks' start): every rank "
+          f"the card ({seconds:.1f}s, a job of the mesh world): every rank "
           f"within {worst:.3e} of the reference's a2a (limit "
           f"{MOE_A2A_TOL}; aux {r0['aux']:.6f}, golden {gold['aux']:.6f}), "
           f"every expert pick the reference's (router margin "
@@ -3537,13 +3801,8 @@ def _golden_cfg(gold: dict):
 def _draw_golden_tree(gold: dict):
     """`numpy_params` of a golden model (an SSD one's per-head mixer
     parameters redrawn, as the golden script draws them)."""
-    from repro_torch.models import init
-
-    cfg = _golden_cfg(gold)
-    tree = init.numpy_params(cfg, gold["param_seed"])
-    if "ssm_heads_seed" in gold:
-        init.numpy_ssm_heads(tree, cfg, gold["ssm_heads_seed"])
-    return tree
+    return _tree(_golden_cfg(gold), gold["param_seed"],
+                 gold.get("ssm_heads_seed"))
 
 
 def check_train_golden(gold: dict, dev, tree,
@@ -3955,34 +4214,27 @@ def _train_mesh_jobs(entry: dict) -> list:
             for name, gold in entry.items()]
 
 
-def run_train_mesh_golden(golden: dict, device: str = "cuda") -> dict:
+def run_train_mesh_golden(golden: dict, world: list,
+                          seconds: float) -> dict:
     """``[train mesh golden]`` and ``[train mesh shards]``: the
     ``"train_mesh"`` entry's models (smoke configs, float32, TF32 off;
     llama3.2-3b, deepseek-v3 and zamba2 on a 2x2 mesh, maverick on a
     data-only mesh of 4) through `mesh_smoke.rank_train_mesh` on 4 gloo
     ranks sharing card 0, then `mesh_smoke.rank_shard_init` of
-    ``TRAIN_MESH_SHARD_CHECKS`` in the same world: each
-    step's loss and grad norm on every rank, and rank 0's parameters
-    after the steps (`_leaf_errors`), within TRAIN_GOLD_TOL of the
-    reference's sharded step; every expert pick equal; the simt forward
-    and backward launched on every rank of a model with GQA attention
-    (``device="cpu"`` rehearses it with the plain versions, and then
-    fails only on those launch counts)."""
+    ``TRAIN_MESH_SHARD_CHECKS`` in the same world (``world``: the ranks'
+    results of `mesh_smoke.rank_train_mesh_phase`, a job of `run_worlds`
+    that took ``seconds``): each step's loss and grad norm on every rank,
+    and rank 0's parameters after the steps (`_leaf_errors`), within
+    TRAIN_GOLD_TOL of the reference's sharded step; every expert pick
+    equal; the simt forward and backward launched on every rank of a
+    model with GQA attention (ranks run with ``device="cpu"`` rehearse it
+    with the plain versions, and then fail only on those launch
+    counts)."""
     from repro_torch.configs import registry
-    from repro_torch.launch import accel, mesh_smoke
-    from repro_torch.launch import train as tlaunch
 
     entry = golden["train_mesh"]
     jobs = _train_mesh_jobs(entry)
-    t0 = time.perf_counter()
     cuts = [c for _, c, _ in TRAIN_MESH_SHARD_CHECKS]
-    checks = [(dataclasses.replace(registry.get(arch), **c), rows)
-              for arch, c, rows in TRAIN_MESH_SHARD_CHECKS]
-    world = accel.spawn(mesh_smoke.rank_train_mesh_phase, 4,
-                        args=(jobs, checks, (2, 2), ("data", "model")),
-                        backend="gloo", device=device, timeout_s=900,
-                        kernels=tlaunch.TRAIN_KERNELS)
-    seconds = time.perf_counter() - t0
     ranks = [r["jobs"] for r in world]
     worst, out = 0.0, {}
     for i, job in enumerate(jobs):
@@ -4029,8 +4281,8 @@ def run_train_mesh_golden(golden: dict, device: str = "cuda") -> dict:
           + ", ".join(f"{n} {v['launches'][0]['flash_simt']} forward / "
                       f"{v['launches'][0]['flash_bwd_simt']} backward"
                       for n, v in out.items())
-          + f"; the world (with the shards' and gradients' checks below) "
-          f"{seconds:.1f}s")
+          + f"; the job (with the shards' and gradients' checks below) "
+          f"{seconds:.1f}s in the mesh world")
     shards = [r["shards"] for r in world]
     for r in shards:
         _check(not any(c["differ"] for c in r["checks"]),
@@ -4177,37 +4429,26 @@ def _train_mesh_result(tm: dict) -> None:
           f"{tm['nccl']['equal']}; the phases {tm['seconds']:.1f}s")
 
 
-def run_train_mesh_phases(golden: dict) -> dict:
-    """Phase 16g: sharded training on 4 ranks sharing card 0 over gloo
-    (module docstring): the golden, the shards' draw, the main path, the
-    MoE path and the 1x1 NCCL mesh."""
+def run_train_mesh_phases(golden: dict, worlds: dict) -> dict:
+    """Phase 16g (module docstring) from `run_worlds`' results: the golden,
+    the shards' draw, the main path and the MoE path (jobs of the mesh
+    world) each against a one-device run made here, and the 1x1 NCCL
+    mesh (the nccl world) against its one-device run."""
     from repro_torch.launch import train as tlaunch
 
     t_all = time.perf_counter()
-    out = {"golden": run_train_mesh_golden(golden)}
-    _release("train mesh golden")
+    out = {"golden": run_train_mesh_golden(
+        golden, worlds["ranks"]["train_golden"],
+        worlds["jobs_s"]["train_golden"])}
     for tag, argv in (("main", TRAIN_MESH_MAIN_ARGV),
                       ("moe", TRAIN_MESH_MOE_ARGV)):
-        from repro_torch.kernels import ops
-
-        ops.reset_launches()
-        mesh = tlaunch.main(argv + TRAIN_MESH_ARGS)
-        _release(f"train mesh {tag}")
+        mesh = worlds["ranks"][f"train_{tag}"][0]
         steps = int(argv[argv.index("--steps") + 1])
         one = tlaunch.main(argv + ["--steps", str(max(steps, 2))])
         _release(f"train mesh {tag}: one device")
         out[tag] = _mesh_step_line(f"train mesh {tag}", mesh, one,
                                    mesh["cfg"])
-    from repro_torch.launch import accel, mesh_smoke
-
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        one = tlaunch.main(TRAIN_MESH_NCCL_ARGV)
-    finally:
-        torch.use_deterministic_algorithms(False)
-    nccl = accel.spawn(mesh_smoke.rank_train_deterministic, 1, args=(
-        TRAIN_MESH_NCCL_ARGV + ["--mesh", "1x1"],), backend="nccl",
-        timeout_s=600, kernels=tlaunch.TRAIN_KERNELS, env=tlaunch.RANK_ENV)[0]
+    nccl, one = worlds["nccl"]["train"], worlds["nccl_one"]
     same = (nccl["losses"] == one["losses"]
             and nccl["grad_norms"] == one["grad_norms"])
     _check(same, f"train mesh nccl: the 1x1 mesh's losses {nccl['losses']} "
@@ -4221,8 +4462,12 @@ def run_train_mesh_phases(golden: dict) -> dict:
           + f"): losses {one['losses']} and grad norms {one['grad_norms']} "
           f"equal to one device's bit for bit")
     out["nccl"] = {"equal": same}
-    out["seconds"] = time.perf_counter() - t_all
-    print(f"[train mesh] the phases took {out['seconds']:.1f}s")
+    in_world = sum(worlds["jobs_s"][n] for n in (
+        "train_golden", "train_main", "train_moe"))
+    out["seconds"] = time.perf_counter() - t_all + in_world
+    print(f"[train mesh] the phases took {out['seconds']:.1f}s "
+          f"({in_world:.1f}s of it as jobs of the mesh world; the nccl "
+          f"world, shared with 9d's (d), not counted)")
     return out
 
 
@@ -4398,6 +4643,21 @@ def run_train_phases(golden: dict, dev) -> dict:
     return out
 
 
+def _lse_shapes() -> list:
+    """[flash decode lse]'s shapes, a rank's part of a [serve mesh] job's
+    cache: (arch, the rank's positions, the keys a ``model`` rank 1 sees
+    at the job's last step); phi-3-vision's at llama's positions."""
+    out = []
+    for job in SERVE_MESH_JOBS:
+        lc = job["prompt"] + job["cross"]
+        keys = job["prompt"] + job["steps"] - lc
+        if job["arch"] == "llama3.2-3b":
+            out.append(("phi-3-vision-4.2b", lc, keys))
+        if job["arch"] != "deepseek-v3-671b":          # MLA: no kernel
+            out.append((job["arch"], lc, keys))
+    return out
+
+
 def check_flash_decode_lse(dev) -> dict:
     """[flash decode lse] (phase 18, module docstring): the decode route's
     output and log-sum-exp against their plain versions, and the kernel
@@ -4410,10 +4670,11 @@ def check_flash_decode_lse(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(3)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    b, lk = SERVE_MESH_BATCH // 2, SERVE_MESH_MAX_LEN // 2
+    b = SERVE_MESH_BATCH // 2
+    shapes = _lse_shapes()
     out = {"cases": 0, "max_abs_err": 0.0, "rrms": 0.0, "lse_err": 0.0,
            "shapes": {}}
-    for arch in ("llama3.2-3b", "zamba2-2.7b", "phi-3-vision-4.2b"):
+    for arch, lk, keys in shapes:
         cfg = registry.get(arch)
         h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         q = torch.randn((b, 1, h, d), generator=gen, device=dev) \
@@ -4423,8 +4684,7 @@ def check_flash_decode_lse(dev) -> dict:
         v = torch.randn((b, lk, kvh, d), generator=gen, device=dev) \
             .to(torch.bfloat16)
         chunk, n_chunks = fa.decode_split(b, kvh, h, lk, sms)
-        for off in (lk - 1, chunk - 1, chunk, SERVE_MESH_STEPS // 2 - 1,
-                    -1):
+        for off in (lk - 1, chunk - 1, chunk, keys - 1, -1):
             before = ops.LAUNCHES["flash_decode"]
             got, lse = ops.flash_attention(q, k, v, causal=True,
                                            kv_offset=off, return_lse=True)
@@ -4471,10 +4731,14 @@ def check_flash_decode_lse(dev) -> dict:
                 qt, kt, vt, enable_gqa=True)),
             bound_ms=max(ops_ms, bytes_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-    _check(out["cases"] == 12, f"flash decode lse: {out['cases']} cases")
+    _check(out["cases"] == 4 * len(shapes),
+           f"flash decode lse: {out['cases']} cases")
     print(f"[flash decode lse] {out['cases']} cases (every key, one split, "
-          f"a key past it, rank 1's 4 keys; B {b}, 2 x {lk} positions) and "
-          f"3 with no key visible (no launch): output "
+          f"a key past it, the keys a model rank 1 sees at the job's last "
+          f"step; B {b}, each job's positions a rank: "
+          + ", ".join(f"{a.split('-')[0]} {lk} ({keys} on rank 1)"
+                      for a, lk, keys in shapes)
+          + f") and {len(shapes)} with no key visible (no launch): output "
           f"max abs err {out['max_abs_err']:.3e}, bf16 relative RMS "
           f"{out['rrms']:.3e} (limits atol = rtol = {BF16_TOL}, "
           f"{BF16_RMS_TOL}); lse max abs err {out['lse_err']:.3e} (limit "
@@ -4488,13 +4752,14 @@ def check_flash_decode_lse(dev) -> dict:
 
 
 def _serve_mesh_jobs() -> list:
-    return [dict(arch=arch, smoke=False, cut=cut, seed=0,
-                 batch=SERVE_MESH_BATCH, prompt=SERVE_MESH_PROMPT,
-                 steps=SERVE_MESH_STEPS, max_len=SERVE_MESH_MAX_LEN,
+    """`mesh_smoke.rank_serve_mesh`'s jobs of SERVE_MESH_JOBS on the 2x2
+    mesh (full configs, the seeded weights)."""
+    return [dict(arch=j["arch"], smoke=False, cut=j["cut"], seed=0,
+                 batch=SERVE_MESH_BATCH, prompt=j["prompt"],
+                 steps=j["steps"], max_len=2 * (j["prompt"] + j["cross"]),
                  shape=(2, 2), axes=("data", "model"), timeout_s=900,
-                 fault_from=(SERVE_MESH_STEPS // 2
-                             if arch == SERVE_MESH_FAULT_ARCH else None))
-            for arch, cut in SERVE_MESH_JOBS]
+                 fault_from=j["cross"] if j["faults"] else None)
+            for j in SERVE_MESH_JOBS]
 
 
 def _rrms(got, want) -> float:
@@ -4502,40 +4767,73 @@ def _rrms(got, want) -> float:
                  / np.sqrt((want ** 2).mean()))
 
 
-def run_serve_mesh(dev) -> dict:
-    """[serve mesh] (phase 18, module docstring): each job on one device,
-    then on the 2x2 mesh fed one device's tokens; returns per arch the
-    one-device and per-rank results and the checks' numbers, and for
-    ``SERVE_MESH_FAULT_ARCH`` the planted faults' and the split check's
-    (checked by `check_serve_mesh_faults`)."""
-    from repro_torch.launch import accel, mesh_smoke
+def _serve_routes(job: dict, cfg, got: list, want: list) -> dict:
+    """A MoE job's expert picks on the mesh (rank 0's routes, one device's
+    token order) against one device's, call by call (module docstring at
+    SERVE_MESH_JOBS): equal wherever the router's margin exceeds twice the
+    router-logit difference; per step, the rows whose own token's pick
+    differs (step 0: the prompt's last position)."""
     from repro_torch.models import model
 
-    t0 = time.perf_counter()
-    jobs = _serve_mesh_jobs()
-    one = []
-    for job in jobs:
-        one.append(mesh_smoke.serve_one(job, dev))
-        job["feed"] = one[-1]["tokens"]
-        _release(f"serve mesh one device {job['arch']}")
-    ranks = accel.spawn(mesh_smoke.rank_serve_mesh, 4, args=(jobs,),
-                        backend="gloo", device="cuda", timeout_s=1200,
-                        kernels=("flash_attention", "flash_prefill_wgmma",
-                                 "flash_decode"),
-                        env={"PYTORCH_CUDA_ALLOC_CONF":
-                             "expandable_segments:True"})
+    k, b = cfg.top_k, job["batch"]
+    moe = sum(kind == "moe" for kind in model.layer_kinds(cfg))
+    _check(len(got) == len(want) == moe * (1 + job["steps"]),
+           f"serve mesh {job['arch']}: {len(got)} MoE calls on the mesh, "
+           f"{len(want)} on one device, not {moe * (1 + job['steps'])}")
+    out = dict(calls=len(got), picks=0, differ=0, margin=math.inf,
+               logit_diff=0.0, flipped=[0] * (1 + job["steps"]))
+    flipped = [np.zeros(b, bool) for _ in range(1 + job["steps"])]
+    for c, ((im, lm), (io, lo)) in enumerate(zip(got, want)):
+        s = -np.sort(-lo, -1)
+        gap = (s[:, :k] - s[:, 1:k + 1]).min(-1)
+        diff = np.abs(lm - lo).max(-1)
+        bad = (im != io).any(-1)
+        unsure = bad & (gap > 2 * diff)
+        _check(not unsure.any(), f"serve mesh {job['arch']}: MoE call {c} "
+               f"picks other experts than one device's at tokens "
+               f"{np.flatnonzero(unsure)[:8].tolist()}, where the router's "
+               f"margin exceeds twice the logits' difference")
+        out["picks"] += im.size
+        out["differ"] += int((im != io).sum())
+        out["margin"] = min(out["margin"], float((s[:, k - 1] - s[:, k])
+                                                 .min()))
+        out["logit_diff"] = max(out["logit_diff"], float(diff.max()))
+        flipped[c // moe] |= bad.reshape(b, -1)[:, -1]
+    out["flipped"] = [int(f.sum()) for f in flipped]
+    out["flipped_rows"] = flipped
+    return out
+
+
+def run_serve_mesh(dev, worlds: dict) -> dict:
+    """[serve mesh] (phase 18, module docstring): each job on the 2x2 mesh
+    (the mesh world's ``serve`` job, fed one device's tokens) against its
+    one-device run (`run_worlds`); returns per arch the one-device and
+    per-rank results and the checks' numbers, and for the jobs with
+    ``faults`` the planted faults' and the split check's (checked by
+    `check_serve_mesh_faults`)."""
+    from repro_torch.launch import mesh_smoke
+    from repro_torch.models import model
+
+    jobs, ones = worlds["serve_jobs"], worlds["one"]
+    ranks = worlds["ranks"]["serve"]
     out = {}
     for j, job in enumerate(jobs):
         cfg = mesh_smoke.serve_cfg(job)
-        want, got = one[j], ranks[0][j]
+        want, got = ones[j], ranks[0][j]
+        routes = _serve_routes(job, cfg, got["routes"], want["routes"]) \
+            if cfg.num_experts else None
         rrms, gaps = [], []
         for step, (g, w) in enumerate(zip(got["logits"], want["logits"])):
-            diff = g - w
-            rrms.append(_rrms(g, w))
+            keep = np.ones(job["batch"], bool) if routes is None \
+                else ~routes["flipped_rows"][step]
+            _check(keep.any(), f"serve mesh {job['arch']}: every row's pick "
+                   f"differs at step {step}")
+            rrms.append(_rrms(g[keep], w[keep]))
             top2 = np.sort(w[:, -1].reshape(w.shape[0], -1), -1)[:, -2:]
             gaps.append(top2[:, 1] - top2[:, 0])
             if step < len(got["tokens"]):
-                sure = gaps[-1] > 2 * float(np.abs(diff).max())
+                diff = np.abs(g - w).reshape(g.shape[0], -1).max(-1)
+                sure = (gaps[-1] > 2 * diff) & keep
                 rows = np.concatenate([r[j]["tokens"][step] for r in
                                        ranks[::2]])[:, 0]
                 mine = np.asarray(want["tokens"][step])[:, 0]
@@ -4548,28 +4846,41 @@ def run_serve_mesh(dev) -> dict:
                         / np.sqrt((want["logits"][0] ** 2).mean()))
         _check(max(rrms) <= SERVE_MESH_RRMS, f"serve mesh {job['arch']}: "
                f"logits' relative RMS per step {rrms} > {SERVE_MESH_RRMS}")
-        attn = sum(k != "mamba" for k in model.layer_kinds(cfg))
-        lc = SERVE_MESH_MAX_LEN // 2
+        attn = 0 if cfg.attention == "mla" else sum(
+            k != "mamba" for k in model.layer_kinds(cfg))
+        lc = job["max_len"] // 2
         for r in ranks:
             m = r[j]["rank"] % 2
-            steps_seen = sum(SERVE_MESH_PROMPT + i >= m * lc
-                             for i in range(SERVE_MESH_STEPS))
+            steps_seen = sum(job["prompt"] + i >= m * lc
+                             for i in range(job["steps"]))
             want_l = {"flash_wgmma": attn, "flash_decode": attn * steps_seen,
                       "flash_simt": 0}
             have = {k: r[j]["launches"][k] for k in want_l}
             _check(have == want_l, f"serve mesh {job['arch']} rank "
                    f"{r[j]['rank']}: launches {have}, not {want_l}")
         print(f"[serve mesh] {cfg.name}, {cfg.num_layers} layers at full "
-              f"width (d {cfg.d_model}), {cfg.dtype}, batch "
-              f"{SERVE_MESH_BATCH}, "
-              f"prompt {SERVE_MESH_PROMPT}, {SERVE_MESH_STEPS} greedy steps "
-              f"on a 2x2 gloo mesh of 4 ranks sharing the card, caches of "
-              f"2 x {lc} positions: logits' bf16 relative RMS per step "
+              f"width (d {cfg.d_model}"
+              + (f", {cfg.num_experts} experts, top-{cfg.top_k}, capacity "
+                 f"factor {cfg.capacity_factor:g}" if cfg.num_experts
+                 else "")
+              + f"), {cfg.dtype}, batch {job['batch']}, prompt "
+              f"{job['prompt']}, {job['steps']} greedy steps on a 2x2 gloo "
+              f"mesh of 4 ranks sharing the card, caches of 2 x {lc} "
+              f"positions: logits' bf16 relative RMS per step "
               + ", ".join(f"{x:.2e}" for x in rrms)
               + f" (limit {SERVE_MESH_RRMS}; control, one device's step 1 "
-              f"against its step 0: {control:.3f}); one device prefill "
-              f"{want['prefill_s']:.3f}s, decode {want['decode_ms']:.2f} ms "
-              f"a step, peak {want['peak_gib']:.2f} GiB; per rank: "
+              f"against its step 0: {control:.3f})"
+              + (f"; expert picks of {routes['calls']} MoE calls "
+                 f"({routes['picks']} picks): {routes['differ']} differ from "
+                 f"one device's, each where the router's margin is within "
+                 f"twice the two runs' router-logit difference (largest "
+                 f"{routes['logit_diff']:.3e}); the smallest k-th/(k+1)-th "
+                 f"margin {routes['margin']:.3e}; rows left out of each "
+                 f"step's logits for a differing pick of their own token "
+                 f"{routes['flipped']}" if routes else "")
+              + f"; one device prefill {want['prefill_s']:.3f}s, decode "
+              f"{want['decode_ms']:.2f} ms a step, peak "
+              f"{want['peak_gib']:.2f} GiB; per rank: "
               + "; ".join(
                   f"rank {r[j]['rank']} prefill {r[j]['prefill_s']:.3f}s, "
                   f"decode {r[j]['decode_ms']:.2f} ms a step, launches "
@@ -4581,11 +4892,14 @@ def run_serve_mesh(dev) -> dict:
                   + f", staged {r[j]['staged_bytes'] / 2 ** 30:.3f} GiB, "
                   f"peak {r[j]['peak_gib']:.2f} GiB" for r in ranks))
         out[job["arch"]] = dict(one=want, ranks=[r[j] for r in ranks],
-                                rrms=rrms, control=control)
+                                rrms=rrms, control=control, job=job)
+        if routes is not None:
+            del routes["flipped_rows"]
+            out[job["arch"]]["routes"] = routes
         if job["fault_from"] is not None:
             out[job["arch"]]["faults"] = _serve_mesh_faults(job, want, got,
                                                             rrms)
-    out["seconds"] = time.perf_counter() - t0
+    out["seconds"] = worlds["jobs_s"]["serve"]
     return out
 
 
@@ -4620,18 +4934,22 @@ def _serve_mesh_faults(job: dict, want: dict, got: dict, rrms: list
 def check_serve_mesh_faults(serve: dict) -> None:
     """The planted faults must fail the checks a sound run passes: a merge
     that ignores the lse fails the logits' limit; the split check's limit
-    passes the sound merge and fails both faults."""
-    f = serve[SERVE_MESH_FAULT_ARCH]["faults"]
-    _check(min(f["logits"]["lse"]) > SERVE_MESH_RRMS, f"serve mesh: a "
-           f"merge ignoring the lse gives logits within {SERVE_MESH_RRMS} "
-           f"({f['logits']['lse']}): the check cannot see it")
-    for keys, r in f["split"].items():
-        _check(r["sound"] <= SERVE_MESH_SPLIT_RRMS, f"serve mesh split "
-               f"check, rank 1 seeing {keys} keys: sound merge {r['sound']}"
-               f" > {SERVE_MESH_SPLIT_RRMS}")
-        _check(min(r["lost"], r["lse"]) > SERVE_MESH_SPLIT_RRMS, f"serve "
-               f"mesh split check, rank 1 seeing {keys} keys: a planted "
-               f"fault within the limit ({r})")
+    passes the sound merge and fails both faults (GQA's and MLA's)."""
+    for arch, res in serve.items():
+        if not isinstance(res, dict) or "faults" not in res:
+            continue
+        f = res["faults"]
+        _check(min(f["logits"]["lse"]) > SERVE_MESH_RRMS, f"serve mesh "
+               f"{arch}: a merge ignoring the lse gives logits within "
+               f"{SERVE_MESH_RRMS} ({f['logits']['lse']}): the check cannot "
+               f"see it")
+        for keys, r in f["split"].items():
+            _check(r["sound"] <= SERVE_MESH_SPLIT_RRMS, f"serve mesh {arch} "
+                   f"split check, rank 1 seeing {keys} keys: sound merge "
+                   f"{r['sound']} > {SERVE_MESH_SPLIT_RRMS}")
+            _check(min(r["lost"], r["lse"]) > SERVE_MESH_SPLIT_RRMS,
+                   f"serve mesh {arch} split check, rank 1 seeing {keys} "
+                   f"keys: a planted fault within the limit ({r})")
 
 
 def run_dryrun_check(train_main: dict, serve: dict) -> dict:
@@ -4682,25 +5000,28 @@ def run_dryrun_check(train_main: dict, serve: dict) -> dict:
           f" GiB against the measured {peak / 2 ** 30:.3f} on rank 0 "
           f"({rel:.1%}, limit {DRYRUN_PEAK_RTOL:.0%})")
     out["train"] = dict(rec=rec, peak_rel=rel)
-    arch, cut = SERVE_MESH_JOBS[0]
-    cfg = dataclasses.replace(registry.get(arch), num_patches=0, **cut)
+    job = SERVE_MESH_JOBS[0]
+    arch, steps = job["arch"], job["steps"]
+    cfg = dataclasses.replace(registry.get(arch), num_patches=0,
+                              **job["cut"])
     pre = dryrun.lower_cell(arch, "serve_prefill", multi_pod=False, cfg=cfg,
                             mesh=mesh(), shape=ShapeConfig(
                                 "serve_prefill", "prefill",
-                                SERVE_MESH_PROMPT, SERVE_MESH_BATCH))
+                                job["prompt"], SERVE_MESH_BATCH))
     dec = dryrun.lower_cell(arch, "serve_decode", multi_pod=False, cfg=cfg,
                             mesh=mesh(), shape=ShapeConfig(
-                                "serve_decode", "decode", SERVE_MESH_MAX_LEN,
+                                "serve_decode", "decode",
+                                2 * (job["prompt"] + job["cross"]),
                                 SERVE_MESH_BATCH))
     _check(pre["status"] == dec["status"] == "ok",
            f"dryrun check serve: {pre.get('error')} {dec.get('error')}")
-    got = {a: {k: pre["collective"]["by_axis"][a][k] + SERVE_MESH_STEPS
+    got = {a: {k: pre["collective"]["by_axis"][a][k] + steps
                * dec["collective"]["by_axis"][a][k] for k in ("calls",
                                                               "bytes")}
            for a in pre["collective"]["by_axis"]}
     rank0 = serve[arch]["ranks"][0]
     _check(got == rank0["mesh_stats"], f"dryrun check serve: dry stats "
-           f"{got} (prefill + {SERVE_MESH_STEPS} decode steps), measured "
+           f"{got} (prefill + {steps} decode steps), measured "
            f"{rank0['mesh_stats']}")
     peak = rank0["peak_gib"] * 2 ** 30
     dry_peak = max(pre["peak_bytes"], dec["peak_bytes"])
@@ -4711,7 +5032,7 @@ def run_dryrun_check(train_main: dict, serve: dict) -> dict:
            f"{dry_peak / 2 ** 30:.3f} GiB against the measured "
            f"{peak / 2 ** 30:.3f} GiB ({rel:.1%})")
     print(f"[dryrun check] serve mesh {arch}: collectives by axis {got} "
-          f"equal the measured ones (prefill + {SERVE_MESH_STEPS} decode "
+          f"equal the measured ones (prefill + {steps} decode "
           f"steps); peak {dry_peak / 2 ** 30:.3f} GiB (prefill "
           f"{pre['peak_bytes'] / 2 ** 30:.3f}, a decode step "
           f"{dec['peak_bytes'] / 2 ** 30:.3f}) against the measured "
@@ -4769,33 +5090,53 @@ def _serve_mesh_result(sm: dict) -> None:
               f"{a} on 2x2: prefill {r['ranks'][0]['prefill_s']:.3f}s, "
               f"decode {r['ranks'][0]['decode_ms']:.1f} ms a step (one "
               f"device {r['one']['prefill_s']:.3f}s, "
-              f"{r['one']['decode_ms']:.2f} ms), logits within "
-              f"{max(r['rrms']):.2e}" for a, r in sm["serve"].items()
-              if a != "seconds")
+              f"{r['one']['decode_ms']:.2f} ms), "
+              f"{r['ranks'][0]['staged_bytes'] / 2 ** 30:.3f} GiB staged a "
+              f"rank, logits within {max(r['rrms']):.2e}"
+              + (f", {r['routes']['differ']} of {r['routes']['picks']} "
+                 f"expert picks differ (margin {r['routes']['margin']:.2e})"
+                 if "routes" in r else "")
+              for a, r in sm["serve"].items() if a != "seconds")
           + f"; dry-run peaks within {sm['check']['train']['peak_rel']:.1%}"
           f" (train) and {sm['check']['serve']['peak_rel']:.1%} (serve); "
           f"sweep {sm['sweep']['count']} in {sm['sweep']['seconds']:.1f}s; "
           f"the phases {sm['seconds']:.1f}s")
 
 
-def run_serve_mesh_phases(dev, train_main: dict) -> dict:
+def run_serve_mesh_phases(dev, train_main: dict, worlds: dict) -> dict:
     """Phase 18 (module docstring); ``train_main`` is [train mesh
-    main]'s line (`_mesh_step_line`)."""
+    main]'s line (`_mesh_step_line`), ``worlds`` `run_worlds`' results
+    (the serving job, and the sweep traced beside the world, or traced
+    here when it was not)."""
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     lse = check_flash_decode_lse(dev)
     print(f"[flash decode lse] peak device memory {_peak_gib():.2f} GiB")
     _release("flash decode lse")
-    serve = run_serve_mesh(dev)
-    _release("serve mesh")
-    sweep = check_dryrun_sweep(_dryrun_sweep_cells())
+    serve = run_serve_mesh(dev, worlds)
+    sweep = check_dryrun_sweep(worlds.get("sweep") or _dryrun_sweep_cells())
     check = run_dryrun_check(train_main, serve)
     check_serve_mesh_faults(serve)
-    secs = time.perf_counter() - t0
-    print(f"[serve mesh] the phases took {secs:.1f}s (the sweep "
-          f"{sweep['seconds']:.1f}s, serving {serve['seconds']:.1f}s)")
+    secs = time.perf_counter() - t0 + serve["seconds"]
+    print(f"[serve mesh] the phases took {secs:.1f}s (serving "
+          f"{serve['seconds']:.1f}s of it, a job of the mesh world; the "
+          f"sweep {sweep['seconds']:.1f}s "
+          + ("beside the world, not counted)" if "sweep" in worlds
+             else "here)"))
     return dict(lse=lse, serve=serve, check=check, sweep=sweep,
                 seconds=secs)
+
+
+def _time_line(t_all: float) -> None:
+    """[time]: each phase's seconds (from one release to the next; the
+    mesh world's jobs apart), the whole run's, and the limit."""
+    total = time.time() - t_all
+    print("[time] seconds by phase: " + ", ".join(
+        f"{what} {sec:.1f}" for what, sec in _PHASE_S)
+          + "; the mesh world's jobs: " + ", ".join(
+              f"{what} {sec:.1f}" for what, sec in _WORLD_JOBS_S.items())
+          + f"; the whole run {total:.1f}s of the {TIME_LIMIT_S:.0f}s "
+          f"limit")
 
 
 def main(argv=None) -> int:
@@ -4808,6 +5149,10 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-mesh-only", action="store_true",
                     help="build, then run [train mesh main] (one step) "
                          "and phase 18 alone; no kernels line")
+    ap.add_argument("--worlds-only", action="store_true",
+                    help="build, then run the mesh world of 9d with every "
+                         "job and check phases 9d (without its one-device "
+                         "builds), 16c, 16g and 18 alone; no kernels line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -4877,26 +5222,35 @@ def main(argv=None) -> int:
     print("[build] flash_prefill_wgmma registers (spill bytes) per head dim: "
           + ", ".join(f"D {d} {r} ({int(a) + int(b)})"
                       for d, a, b, r in wgmma))
-    if args.serve_mesh_only:
-        from repro_torch.launch import train as tlaunch
-
-        argv = TRAIN_MESH_MAIN_ARGV[:-1] + ["1"] + TRAIN_MESH_ARGS
-        res = tlaunch.main(argv)
-        _release("train mesh main")
-        main_line = dict(stats_per_step=res["mesh_stats"],
-                         peak_gib=res["rank_peak_gib"])
-        _serve_mesh_result(run_serve_mesh_phases(dev, main_line))
-        print(f"[result] [train mesh main] and phase 18 alone, "
-              f"{time.time() - t_all:.1f}s with the build")
-        print(_gpu_line())
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return 0
-    if args.train_mesh_only:
-        _train_mesh_result(run_train_mesh_phases(golden))
-        print(f"[result] the train mesh phases alone, "
-              f"{time.time() - t_all:.1f}s with the build")
+    if args.serve_mesh_only or args.train_mesh_only or args.worlds_only:
+        if args.serve_mesh_only:
+            worlds = run_worlds(golden, mesh=False, a2a=False, train=False,
+                                train_main_argv=TRAIN_MESH_MAIN_ARGV[:-1]
+                                + ["1"], beside=False)
+            res = worlds["ranks"]["train_main"][0]
+            main_line = dict(stats_per_step={
+                a: {k: v / len(res["losses"]) for k, v in st.items()}
+                for a, st in res["mesh_stats"].items()},
+                peak_gib=res["rank_peak_gib"])
+            _serve_mesh_result(run_serve_mesh_phases(dev, main_line, worlds))
+            what = "[train mesh main] and phase 18"
+        elif args.train_mesh_only:
+            worlds = run_worlds(golden, mesh=False, a2a=False, serve=False,
+                                beside=False)
+            _train_mesh_result(run_train_mesh_phases(golden, worlds))
+            what = "the train mesh phases"
+        else:
+            worlds = run_worlds(golden, beside=False)
+            check_mesh_phase(worlds, {"a": math.nan, "b": math.nan})
+            run_moe_a2a_phase(golden, worlds)
+            train_mesh = run_train_mesh_phases(golden, worlds)
+            _serve_mesh_result(run_serve_mesh_phases(
+                dev, train_mesh["main"], worlds))
+            _train_mesh_result(train_mesh)
+            what = "the mesh world's phases"
+        _time_line(t_all)
+        print(f"[result] {what} alone, {time.time() - t_all:.1f}s with the "
+              f"build")
         print(_gpu_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4945,7 +5299,8 @@ def main(argv=None) -> int:
     _release("unfused phase")
     grid = run_table1_grid()
     _release("Table-1 grid")
-    mesh = run_mesh_phase(golden, {"a": ic["build_s"], "b": lt["build_s"]})
+    worlds = run_worlds(golden)
+    mesh = check_mesh_phase(worlds, {"a": ic["build_s"], "b": lt["build_s"]})
     _release("mesh phase")
 
     q = run_q_phases(golden, dev)
@@ -4973,7 +5328,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe = run_moe_main_path()
-    a2a = run_moe_a2a_phase(golden)
+    a2a = run_moe_a2a_phase(golden, worlds)
     _release("MoE phases")
     ssm = run_ssm_main_path()
     _release("SSD phases")
@@ -4983,10 +5338,11 @@ def main(argv=None) -> int:
     _release("nemotron serving")
     train = run_train_phases(golden, dev)
     _release("training phases")
-    train_mesh = run_train_mesh_phases(golden)
+    train_mesh = run_train_mesh_phases(golden, worlds)
     _release("train mesh phases")
-    served = run_serve_mesh_phases(dev, train_mesh["main"])
+    served = run_serve_mesh_phases(dev, train_mesh["main"], worlds)
     _release("serve mesh phases")
+    del worlds
     fam = train["families"]
     torch.cuda.reset_peak_memory_stats()
     fl = time_flash(dev)
@@ -5099,6 +5455,7 @@ def main(argv=None) -> int:
           f"{mesh['seconds']['world_1x1']:.1f}s")
     _train_mesh_result(train_mesh)
     _serve_mesh_result(served)
+    _time_line(t_all)
     kernels = [
         dict(name="fused_expand", route="cuda",
              source="src/repro_torch/csrc/fused_expand.cu",
@@ -5204,10 +5561,10 @@ def main(argv=None) -> int:
                  **{f"moe_deepseek_{mix}": moe["deepseek-v3-671b"][mix][
                      "launches"]["flash_attention"] for mix in LM_MIXES},
                  # Phase 18: summed over the 2x2 mesh's four ranks.
-                 **{f"serve_mesh_{arch.split('-')[0]}": sum(
+                 **{f"serve_mesh_{job['arch'].split('-')[0]}": sum(
                      r["launches"]["flash_attention"]
-                     for r in served["serve"][arch]["ranks"])
-                    for arch, _ in SERVE_MESH_JOBS}},
+                     for r in served["serve"][job["arch"]]["ranks"])
+                    for job in SERVE_MESH_JOBS}},
              ms=fl["prefill"]["ms"], plain_ms=fl["prefill"]["plain_ms"],
              bound_ms=fl["prefill"]["bound_ms"],
              bound_by=fl["prefill"]["bound_by"],
@@ -5265,9 +5622,10 @@ def main(argv=None) -> int:
                          lse_max_abs_err=served["lse"]["lse_err"],
                          shapes=served["lse"]["shapes"],
                          launches_serve_mesh_per_rank={
-                             arch: [r["launches"]["flash_decode"]
-                                    for r in served["serve"][arch]["ranks"]]
-                             for arch, _ in SERVE_MESH_JOBS}),
+                             job["arch"]: [
+                                 r["launches"]["flash_decode"] for r in
+                                 served["serve"][job["arch"]]["ranks"]]
+                             for job in SERVE_MESH_JOBS}),
                      cases=flash_err["cases"]["decode"],
                      bf16_rrms=flash_err["bf16_rrms"]["decode"],
                      **{k: fl["decode"][k] for k in (

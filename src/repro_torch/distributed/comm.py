@@ -14,8 +14,19 @@ Transport.  ``backend`` is the default group's: NCCL on GPUs with one
 device per rank, gloo over CPU processes and for several ranks sharing one
 GPU (NCCL refuses two ranks on one device).  Under gloo a device tensor is
 copied to the host for the collective and back (``staged_bytes`` counts
-both copies); under NCCL a host tensor goes to the rank's device.  The
-caller picks the backend; nothing falls back from one to the other.
+both copies), through page-locked buffers on a mesh whose device is a
+card (torch's caching host allocator keeps them for the next call), and
+a collective's result lands in one such buffer; under NCCL a host tensor
+goes to the rank's device.  The caller picks the backend; nothing falls
+back from one to the other.
+
+``members`` (global ranks, ascending: a group orders its ranks so, and
+the mesh's positions follow) builds the mesh over those ranks of the
+default group alone, so that one started world can hold
+meshes of several sizes: every rank of the group must still construct
+it (creating a group is collective over the whole default group), and
+on a rank outside ``members`` it is a bystander (``member`` False,
+``rank`` None) that takes part in nothing.
 
 Without a default group every axis must have size 1, and every
 collective returns its input: a 1×1 mesh works in any process, and
@@ -52,7 +63,7 @@ class Mesh:
     initialised default process group (see module docstring)."""
 
     def __init__(self, shape, axes, *, device="cuda", timeout_s=None,
-                 alone=False):
+                 alone=False, members=None):
         shape = tuple(int(s) for s in shape)
         axes = tuple(str(a) for a in axes)
         if len(shape) != len(axes) or len(set(axes)) != len(axes):
@@ -60,20 +71,34 @@ class Mesh:
                              "up, with distinct axis names")
         size = int(np.prod(shape))
         grouped = dist.is_initialized() and not alone
-        world = dist.get_world_size() if grouped else 1
+        if members is not None:
+            members = tuple(int(r) for r in members)
+            if not grouped or list(members) != sorted(set(members)) \
+                    or not all(0 <= r < dist.get_world_size()
+                               for r in members):
+                raise ValueError(f"members {members} must be ascending "
+                                 "ranks of an initialised default group")
+        world = (len(members) if members is not None
+                 else dist.get_world_size()) if grouped else 1
         if world != size:
             raise ValueError(f"mesh {shape} holds {size} ranks but the "
                              f"process group has {world}")
+        me = dist.get_rank() if grouped else 0
+        glob = members or tuple(range(size))       # mesh position → rank
+        self.member = me in glob
         self.axis_names = axes
         self.shape = dict(zip(axes, shape))
-        self.rank = dist.get_rank() if grouped else 0
+        self.rank = glob.index(me) if self.member else None
         self.backend = dist.get_backend() if grouped else None
         self.device = resolve(device)
         self._coords = dict(zip(axes, (int(c) for c in np.unravel_index(
-            self.rank, shape))))
+            self.rank, shape)))) if self.member else {}
         self._groups: dict[str, tuple] = {}
         timeout = None if timeout_s is None \
             else datetime.timedelta(seconds=timeout_s)
+        self._whole = None
+        if grouped and members is not None:
+            self._whole = dist.new_group(list(glob), timeout=timeout)
         for i, ax in enumerate(axes):
             if not grouped:
                 break
@@ -83,9 +108,10 @@ class Mesh:
                 for c in range(shape[i]):
                     coord = list(fixed)
                     coord.insert(i, c)
-                    ranks.append(int(np.ravel_multi_index(coord, shape)))
+                    ranks.append(glob[int(np.ravel_multi_index(coord,
+                                                               shape))])
                 group = dist.new_group(ranks, timeout=timeout)
-                if self.rank in ranks:
+                if me in ranks:
                     self._groups[ax] = (group, ranks)
         self.stats = {ax: {"calls": 0, "bytes": 0} for ax in axes}
         self.collective_log: dict = {}
@@ -120,14 +146,27 @@ class Mesh:
 
     # ------------------------------------------------------------ wiring
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` where the backend takes it: the host under gloo, the
-        rank's device under NCCL."""
+        """``t`` where the backend takes it: the host under gloo (a
+        page-locked copy of a card's tensor), the rank's device under
+        NCCL."""
         want = torch.device("cpu") if self.backend != "nccl" \
             else self.device
         if t.device == want:
             return t.contiguous()
         self.staged_bytes += t.numel() * t.element_size()
+        if want.type == "cpu":
+            host = self._empty_like_wire(t.shape, t.dtype, want)
+            host.copy_(t)
+            return host
         return t.to(want).contiguous()
+
+    def _empty_like_wire(self, shape, dtype, device) -> torch.Tensor:
+        """An uninitialised buffer on the wire's ``device``; a host one is
+        page-locked when this mesh's device is a card."""
+        if device.type == "cpu":
+            return torch.empty(tuple(shape), dtype=dtype,
+                               pin_memory=self.device.type == "cuda")
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
 
     def _back(self, wire: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         if wire.device == like.device:
@@ -150,11 +189,12 @@ class Mesh:
         if axis not in self._groups:
             return t
         wire = self._wire(t)
-        group, _ = self._group(axis, wire, "all_gather",
-                               _nbytes(wire) * self.shape[axis])
-        parts = [torch.empty_like(wire) for _ in range(self.shape[axis])]
-        dist.all_gather(parts, wire, group=group)
-        return self._back(torch.cat(parts), t)
+        s = self.shape[axis]
+        group, _ = self._group(axis, wire, "all_gather", _nbytes(wire) * s)
+        out = self._empty_like_wire((s, *wire.shape), wire.dtype,
+                                    wire.device)
+        dist.all_gather(list(out.unbind(0)), wire, group=group)
+        return self._back(out.view(s * wire.shape[0], *wire.shape[1:]), t)
 
     def all_to_all(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """Block ``i`` of ``t``'s dim 0 (size S, the axis's) goes to axis
@@ -169,7 +209,7 @@ class Mesh:
             return t
         wire = self._wire(t)
         group, _ = self._group(axis, wire, "all_to_all")
-        out = torch.empty_like(wire)
+        out = self._empty_like_wire(wire.shape, wire.dtype, wire.device)
         dist.all_to_all_single(out, wire, group=group)
         return self._back(out, t)
 
@@ -194,7 +234,8 @@ class Mesh:
                               dtype=wire.dtype, device=wire.device)
             dist.reduce_scatter_tensor(out, wire, group=group)
         else:
-            parts = torch.empty_like(wire)
+            parts = self._empty_like_wire(wire.shape, wire.dtype,
+                                          wire.device)
             dist.all_to_all_single(parts, wire, group=group)
             out = parts.view(s, -1, *t.shape[1:]).sum(0)
         return self._back(out, t)
@@ -210,7 +251,7 @@ class Mesh:
             return t
         wire = self._wire(t)
         shape = tuple(t.shape) if recv_shape is None else tuple(recv_shape)
-        buf = torch.empty(shape, dtype=wire.dtype, device=wire.device)
+        buf = self._empty_like_wire(shape, wire.dtype, wire.device)
         group, ranks = self._group(axis, wire, "ppermute", _nbytes(buf))
         i = self._coords[axis]
         ops = []
@@ -275,7 +316,7 @@ class Mesh:
 
     def barrier(self) -> None:
         if self.backend is not None:
-            dist.barrier()
+            dist.barrier(group=self._whole)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -301,7 +342,7 @@ class ShapeMesh(Mesh):
             raise ValueError(f"rank {rank} is not on mesh {shape}")
         self.axis_names = axes
         self.shape = dict(zip(axes, shape))
-        self.rank = int(rank)
+        self.rank, self.member = int(rank), True
         self.backend = "nccl"
         self.device = torch.device("meta")
         self._coords = dict(zip(axes, (int(c) for c in np.unravel_index(

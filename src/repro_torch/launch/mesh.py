@@ -27,9 +27,11 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 
 def make_mesh(shape: tuple, axes: tuple, *, device="cuda",
-              timeout_s=None) -> Mesh:
-    """The ``shape`` mesh with named ``axes`` over the default group, its
+              timeout_s=None, members=None) -> Mesh:
+    """The ``shape`` mesh with named ``axes`` over the default group (or
+    over its ranks ``members``, ascending: `comm.Mesh`), its
     collectives staged for ``device`` (the rank's compute device; the card
     unless the caller asks for ``"cpu"``) and bounded by ``timeout_s``
     (default: the default group's timeout)."""
-    return Mesh(shape, axes, device=device, timeout_s=timeout_s)
+    return Mesh(shape, axes, device=device, timeout_s=timeout_s,
+                members=members)

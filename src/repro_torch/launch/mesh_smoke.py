@@ -2,7 +2,9 @@
 the mesh paths at the main configuration, each rank on the card, started
 by `launch.accel.spawn` (a program of the package, so that every rank can
 import it by name).  Each returns plain values; the smoke prints them and
-holds them against ``tests/data/torch_port_golden.json``.
+holds them against ``tests/data/torch_port_golden.json``.  The smoke runs
+them all as jobs of one started world (`rank_jobs`), and the one-rank
+NCCL ones in a second (`rank_nccl_1x1`).
 
 * `rank_main_2x2` — on a 2×2 (data × model) mesh, or the 4×1 one of the
   same four ranks: (a) ``graph_parallel`` IC (batches 0-3 and the top-16
@@ -19,7 +21,8 @@ holds them against ``tests/data/torch_port_golden.json``.
   snapshot, ``refresh(0.5)`` against a one-device pool, the coverage
   check), (e) the reduced ``"mesh"`` golden's (2, 2)
   cases, and the frontier exchange alone, timed;
-* `rank_main_1x3` — (e)'s (1, 3) cases on three ranks;
+* `rank_main_1x3` — (e)'s (1, 3) cases on three ranks (or on ranks 0-2 of
+  a larger world, the others standing by: `comm.Mesh(members=...)`);
 * `rank_main_1x1` — (d) batches 0-3 through the same code on a 1×1 mesh
   (NCCL), (a)'s snapshot restored onto it, and the coverage check;
 * `rank_moe_a2a` — the expert-parallel MoE (`mlp._moe_forward_a2a`) on a
@@ -37,11 +40,20 @@ holds them against ``tests/data/torch_port_golden.json``.
   `rank_train_mesh_phase` runs it and `rank_train_mesh` in one world;
 * `rank_train_deterministic` — the training launcher's rank with
   deterministic algorithms (the 1x1 NCCL mesh against one device);
+  `rank_nccl_1x1` runs (d) and it in one world;
+* `rank_train_launcher` — `launch.train.main` on a rank of a started
+  world (the launcher runs its ``--mesh`` there);
 * `rank_serve_mesh` — LM serving on a mesh (`serve.engine.prefill`, then
   greedy `models.decode.decode_step`s, sequence-parallel): every step's
-  logits of every row, the greedy tokens, times, ``Mesh.stats``, the
-  launches and the peak memory; `serve_one` is the same job on one
-  device (the CPU tests run both too).
+  logits of every row, the greedy tokens, every MoE call's expert picks
+  and router logits in one device's token order, times, ``Mesh.stats``,
+  the launches and the peak memory, and for a job with planted faults
+  the faults' logits and the split check (GQA or MLA); `serve_one` is the
+  same job on one device (the CPU tests run both too);
+* `rank_jobs` — several of these, each ``(name, fn, args)``, in turn on
+  one started world (`launch.accel.start`);
+* `rank_transport_probe` — a gloo collective's and the host staging's
+  cost on this host (``scripts/torch_spawn_probe.py``).
 
 Every check against a plain version runs after the launch counts are
 read, so its own launches are not counted.
@@ -221,9 +233,12 @@ def _exchange_ms(mesh, rows: int, colors: int, reps: int = 20) -> dict:
         dense_bytes=n * 4, tail_words=int(torch.count_nonzero(tail)))
 
 
-def _graph_parallel(g, mesh, golden: dict, diffusion: str, ckpt):
+def _graph_parallel(g, mesh, golden: dict, diffusion: str, ckpt,
+                    sparse_batches: int = 64):
     """(a) / (b): a graph_parallel pool on ``mesh``, counted launches;
-    returns the results and the 64-batch pool of the dense leg."""
+    returns the results and the 64-batch pool of the dense leg (the
+    sparse leg builds ``sparse_batches`` of them, held against the dense
+    leg's first ones)."""
     dev = mesh.device
     gold = golden if diffusion == "ic" else golden["lt"]
     out = {}
@@ -240,7 +255,7 @@ def _graph_parallel(g, mesh, golden: dict, diffusion: str, ckpt):
         _sync(dev)
         mesh.barrier()
         t_b = time.perf_counter()
-        pool.ensure(64)
+        pool.ensure(64 if leg == "dense" else sparse_batches)
         _sync(dev)
         out[f"build_{leg}_s"] = time.perf_counter() - t_b
         words = pool.sampler.last_gather_words
@@ -481,14 +496,18 @@ def _mesh_golden(mesh, mesh_gold: dict) -> dict:
                 backend=mesh.backend)
 
 
-def rank_main_2x2(rank, dev, golden: dict, ckpt: str) -> dict:
+def rank_main_2x2(rank, dev, golden: dict, ckpt: str,
+                  sparse_batches: int = 64) -> dict:
     g = _graph(golden["graph"], dev)
     mesh = make_mesh((2, 2), ("data", "model"), device=dev)
-    out = {"rank": rank, "backend": mesh.backend, "device": str(dev)}
-    out["a"], pool = _graph_parallel(g, mesh, golden, "ic", ckpt)
+    out = {"rank": rank, "backend": mesh.backend, "device": str(dev),
+           "sparse_batches": sparse_batches}
+    out["a"], pool = _graph_parallel(g, mesh, golden, "ic", ckpt,
+                                     sparse_batches)
     out["f"] = _front_end(pool, mesh, ckpt)
     del pool
-    out["b"] = _graph_parallel(g, mesh, golden, "lt", None)[0]
+    out["b"] = _graph_parallel(g, mesh, golden, "lt", None,
+                               sparse_batches)[0]
     out["exchange"] = _exchange_ms(mesh, out["a"]["check"]["rows"], 64)
     mesh4 = make_mesh((4, 1), ("data", "model"), device=dev)
     out["c"] = _data_parallel(g, mesh4, golden, ckpt, out["a"]["snapshot_top"])
@@ -496,10 +515,14 @@ def rank_main_2x2(rank, dev, golden: dict, ckpt: str) -> dict:
     return out
 
 
-def rank_main_1x3(rank, dev, golden: dict) -> dict:
-    mesh = make_mesh((1, 3), ("data", "model"), device=dev)
-    return {"rank": rank, "backend": mesh.backend,
-            "e": _mesh_golden(mesh, golden["mesh"])}
+def rank_main_1x3(rank, dev, golden: dict, members=None) -> dict:
+    """(e)'s (1, 3) cases: on a world of three ranks, or with ``members``
+    on those three ranks of a larger one (the others stand by)."""
+    mesh = make_mesh((1, 3), ("data", "model"), device=dev, members=members)
+    out = {"rank": rank, "backend": mesh.backend, "member": mesh.member}
+    if mesh.member:
+        out["e"] = _mesh_golden(mesh, golden["mesh"])
+    return out
 
 
 def rank_main_1x1(rank, dev, golden: dict, ckpt: str,
@@ -543,9 +566,11 @@ def rank_moe_a2a(rank, dev, gold: dict, reps: int = 20) -> dict:
     at the golden's flat indices, aux, the output's magnitude sum, and
     whether its tokens' expert picks are the golden's ``routes``.  Then
     the same at capacity factor 64, and rank 0 holds it against
-    `mlp.moe_forward` of the whole layer on one device (the scatter).  The
-    all-to-all over ``model`` of one dispatch buffer, timed alone (host
-    clock around ``reps`` calls, each synchronised)."""
+    `mlp.moe_forward` of the whole layer on one device (the scatter; the
+    layer assembled from the ranks' experts over ``model``, each drawn
+    from its own generator as a whole draw draws it).  The all-to-all over
+    ``model`` of one dispatch buffer, timed alone (host clock around
+    ``reps`` calls, each synchronised)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     get = registry.smoke if gold.get("smoke") else registry.get
     cfg = dataclasses.replace(get(gold["arch"]),
@@ -579,11 +604,13 @@ def rank_moe_a2a(rank, dev, gold: dict, reps: int = 20) -> dict:
     cfg64 = dataclasses.replace(cfg, capacity_factor=64.0)
     wide = mlp.gather_tokens(mlp._moe_forward_a2a(local, xb, cfg64, mesh)[0],
                              mesh)
+    whole = {k: mesh.all_gather(v.contiguous(), "model")
+             if k.startswith("experts_") else v for k, v in local.items()}
     if rank == 0:
-        whole = _moe_layer(cfg, gold["seed"], dev)
         one, _ = mlp.moe_forward(whole, x, cfg64)
         res["cf64_max_abs_diff"] = float((wide - one).abs().max())
-        del whole, one
+        del one
+    del whole
     t = xb.shape[0] * xb.shape[1]
     cap = mlp.capacity(t, cfg)
     buf = torch.zeros((mesh.shape["model"], el, cap, cfg.d_model),
@@ -855,6 +882,102 @@ def rank_train_deterministic(rank, dev, argv: list) -> dict:
     return tlaunch._rank_main(rank, dev, tlaunch.parse_args(argv))
 
 
+def rank_nccl_1x1(rank, dev, golden, ckpt: str, snapshot_top,
+                  argv) -> dict:
+    """The card's one-rank NCCL world: (d) (`rank_main_1x1`; skipped
+    without ``golden``), then ``[train mesh nccl]``
+    (`rank_train_deterministic` on ``argv``; skipped without it)."""
+    out = {}
+    if golden is not None:
+        out["d"] = rank_main_1x1(rank, dev, golden, ckpt, snapshot_top)
+    if argv is not None:
+        out["train"] = rank_train_deterministic(rank, dev, argv)
+    return out
+
+
+def rank_train_launcher(rank, dev, argv: list) -> dict:
+    """`launch.train.main(argv)` on this rank of a started world (its
+    ``--mesh`` over the world's group: the launcher runs this rank)."""
+    from repro_torch.launch import train as tlaunch
+
+    return tlaunch.main(argv)
+
+
+def rank_transport_probe(rank, dev, sizes: list, reps: int = 5) -> dict:
+    """What a rank's collective costs on this host: for each size in
+    bytes, host clock (mean of ``reps`` after one warm-up) of an
+    all-gather and an all-to-all over the whole default group, each rank
+    handing that many bytes (host tensors under gloo, device ones under
+    NCCL), and of the copies that stage a device tensor of that size
+    through the host (to a pageable and a pinned host buffer, and
+    back)."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    wire = dev if dist.get_backend() == "nccl" else torch.device("cpu")
+
+    def timed(fn):
+        fn()
+        _sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        _sync(dev)
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    out = {"rank": rank, "world": world, "sizes": []}
+    for size in sizes:
+        n = size // 4
+        host = torch.arange(n, dtype=torch.int32) + rank
+        sent = host.to(wire)
+        parts = [torch.empty_like(sent) for _ in range(world)]
+        a2a = torch.empty(n - n % world, dtype=torch.int32, device=wire)
+        row = dict(bytes=n * 4,
+                   all_gather_ms=timed(lambda: dist.all_gather(parts, sent)),
+                   all_to_all_ms=timed(lambda: dist.all_to_all_single(
+                       torch.empty_like(a2a), a2a)))
+        if dev.type == "cuda":
+            on_dev = host.to(dev)
+            pinned = torch.empty_like(host).pin_memory()
+            row.update(
+                d2h_pageable_ms=timed(lambda: on_dev.to("cpu")),
+                d2h_pinned_ms=timed(lambda: pinned.copy_(on_dev)),
+                h2d_pageable_ms=timed(lambda: host.to(dev)),
+                h2d_pinned_ms=timed(lambda: on_dev.copy_(pinned)))
+        out["sizes"].append(row)
+    return out
+
+
+def rank_jobs(rank, dev, jobs: list) -> dict:
+    """Several worlds' rank programs in one started world: each ``(name,
+    fn, args)`` of ``jobs`` in turn, ``fn(rank, dev, *args)``, with a
+    barrier and this rank's cached device memory returned to the card
+    between them, and the TF32 switches put back as they were.  Returns
+    ``{"results": {name: result}, "times": {name: (start, end)}}``, the
+    host's wall clock around each job on this rank."""
+    import gc
+
+    import torch.distributed as dist
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    out = {"results": {}, "times": {}}
+    for name, fn, args in jobs:
+        dist.barrier()
+        t0 = time.time()
+        out["results"][name] = fn(rank, dev, *args)
+        out["times"][name] = (t0, time.time())
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            # the page-locked staging buffers the job's collectives left
+            getattr(torch._C, "_host_emptyCache", lambda: None)()
+    return out
+
+
 
 # --------------------------------------------------------- serving on a mesh
 def serve_cfg(job: dict):
@@ -914,6 +1037,78 @@ def _serve_loop(params, cfg, job: dict, dev, mesh=None) -> dict:
                 caches=caches, fed=fed, prefill_len=lp)
 
 
+class _RouterLog:
+    """Wraps ``models.mlp._route`` for a serving run: each routing call's
+    expert picks (T, k) and router logits (T, E) (float32, the scores
+    whose order the picks are), in call order."""
+
+    def __init__(self):
+        self.orig, self.calls = mlp._route, []
+
+    def __call__(self, router, xt, k, mesh=None):
+        gate, idx, aux = self.orig(router, xt, k, mesh)
+        self.calls.append((idx, xt.float() @ router))
+        return gate, idx, aux
+
+    def __enter__(self):
+        mlp._route = self
+        return self
+
+    def __exit__(self, *exc):
+        mlp._route = self.orig
+
+
+def _host_routes(calls) -> list:
+    return [(idx.cpu().numpy(), logits.cpu().numpy())
+            for idx, logits in calls]
+
+
+def _mesh_routes(calls, cfg, job: dict, mesh) -> list | None:
+    """A mesh run's routing calls (`_RouterLog`) in one device's token
+    order, (picks (B·L, k), logits (B·L, E)) a call, on rank 0 (None
+    elsewhere; a collective).  A prefill call on the a2a route holds rank
+    (d, m)'s block (data position d's rows, sequence block m); any other
+    call the rows of the rank's data position, the same on every
+    ``model`` rank (every row on every rank when the rows do not
+    split)."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.models import decode as dec
+
+    layout = dec.CacheLayout(mesh, cfg, job["batch"], 1)
+    moe_layers = sum(k == "moe" for k in model.layer_kinds(cfg))
+    names, dims = mesh.axis_names, [mesh.shape[a] for a in mesh.axis_names]
+    ways = math.prod(mesh.shape[a] for a in layout.row_axes)
+    b, s = job["batch"], mesh.shape.get("model", 1)
+    out = []
+    for c, call in enumerate(calls):
+        length = job["prompt"] if c < moe_layers else 1
+        a2a = bool(layout.row_axes) and mlp.a2a_route(cfg, mesh, length)
+        every = [fsdp.all_gather_ranks(t.contiguous(), mesh).cpu().numpy()
+                 for t in call]
+        if mesh.rank != 0:
+            continue
+        parts = []
+        for t in every:
+            full = np.zeros((b, length, t.shape[-1]), t.dtype)
+            for q in range(len(t)):
+                coord = dict(zip(names, np.unravel_index(q, dims)))
+                d = int(np.ravel_multi_index(
+                    [coord[a] for a in layout.row_axes],
+                    [mesh.shape[a] for a in layout.row_axes])) \
+                    if layout.row_axes else 0
+                rows = slice(d * b // ways, (d + 1) * b // ways)
+                if a2a:
+                    m = int(coord["model"])
+                    full[rows, m * length // s:(m + 1) * length // s] = \
+                        t[q].reshape(b // ways, length // s, -1)
+                elif all(int(coord[a]) == 0 for a in names
+                         if a not in layout.row_axes):
+                    full[rows] = t[q].reshape(b // ways, length, -1)
+            parts.append(full.reshape(b * length, -1))
+        out.append(tuple(parts))
+    return out if mesh.rank == 0 else None
+
+
 def _faulty_merge(fault: str):
     """`attention.merge_partials` with a planted fault: ``"lost"`` leaves
     every ``model`` rank but 0 out (as if lost), ``"lse"`` weighs every
@@ -960,16 +1155,20 @@ def _fault_steps(params, cfg, job: dict, res: dict, mesh, dev) -> dict:
 
 
 def _split_check(cfg, job: dict, mesh, dev) -> dict:
-    """The sequence split of one GQA decode step on its own, at the job's
-    shapes: a seeded cache of ``max_len`` positions and this rank's rows
-    (the same on every rank), ``model`` rank r holding positions ``[r·Lc,
-    (r+1)·Lc)``; each rank's ``decode`` output and log-sum-exp on its
-    keys, merged by `attention.merge_partials` and by each
-    `_faulty_merge`, against `kernels.ref.flash_attention_ref` over the
-    whole cache.  At the run's last step and at the cache's last position
-    (on 2 ``model`` ranks, rank 1 sees ``fault_from`` keys at the one and
-    Lc at the other).  Returns per case (the visible keys past ``model``
-    rank 0's) the relative RMS of each merge."""
+    """The sequence split of one decode step's attention on its own, at
+    the job's shapes: a seeded cache of ``max_len`` positions and this
+    rank's rows (the same on every rank), ``model`` rank r holding
+    positions ``[r·Lc, (r+1)·Lc)``; each rank's output and log-sum-exp on
+    its keys, merged by `attention.merge_partials` and by each
+    `_faulty_merge`, against one device's attention over the whole cache.
+    GQA: the ``decode`` kernel on the rank's keys against
+    `kernels.ref.flash_attention_ref`; MLA: `attention.mla_partial` of the
+    absorbed scores (`attention.mla_scores`) on the rank's latent
+    positions against the softmax over all of them, as `mla_decode` takes
+    it on one device.  At the run's last step and at the cache's last
+    position (on 2 ``model`` ranks, rank 1 sees ``fault_from`` keys at
+    the one and Lc at the other).  Returns per case (the visible keys past
+    ``model`` rank 0's) the relative RMS of each merge."""
     from repro_torch.models import attention
 
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -983,21 +1182,40 @@ def _split_check(cfg, job: dict, mesh, dev) -> dict:
 
     def draw(shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
-    q, k, v = draw((b, 1, h, d)), draw((b, n, kvh, d)), draw((b, n, kvh, d))
-    own = (k[:, base:base + lc].contiguous(),
-           v[:, base:base + lc].contiguous())
     merges = {"sound": attention.merge_partials,
               "lost": _faulty_merge("lost"), "lse": _faulty_merge("lse")}
+    if cfg.attention == "mla":
+        kr, rd = cfg.kv_lora_rank, cfg.rope_head_dim
+        q_lat, q_rope = draw((b, h, kr)).float(), draw((b, h, rd)).float()
+        c, k_rope = draw((b, n, kr)).float(), draw((b, n, rd)).float()
+        scores = attention.mla_scores(q_lat, q_rope, c, k_rope, cfg)
+        pos = torch.arange(n, device=dev)
+    else:
+        q, k, v = (draw((b, 1, h, d)), draw((b, n, kvh, d)),
+                   draw((b, n, kvh, d)))
+        own = (k[:, base:base + lc].contiguous(),
+               v[:, base:base + lc].contiguous())
     out = {}
     for cur in (job["prompt"] + job["steps"] - 1, n - 1):
-        want = ref.flash_attention_ref(q, k, v, causal=True,
-                                       kv_offset=cur).float()
-        o, lse = ops.flash_attention(q, *own, causal=True,
-                                     kv_offset=cur - base, return_lse=True)
+        if cfg.attention == "mla":
+            want = torch.matmul(torch.softmax(scores.masked_fill(
+                pos > cur, float("-inf")), -1), c)
+            o, lse = attention.mla_partial(
+                scores[..., base:base + lc], pos[base:base + lc] <= cur,
+                c[:, base:base + lc])
+        else:
+            want = ref.flash_attention_ref(q, k, v, causal=True,
+                                           kv_offset=cur).float()
+            o, lse = ops.flash_attention(q, *own, causal=True,
+                                         kv_offset=cur - base,
+                                         return_lse=True)
+            o, lse = o[:, 0], lse[..., 0]
         row = {}
         for name, merge in merges.items():
-            got = merge(mesh, o[:, 0], lse[..., 0])[:, None].to(dtype)
-            row[name] = float(torch.linalg.vector_norm(got.float() - want)
+            got = merge(mesh, o, lse)
+            if cfg.attention != "mla":
+                got = got[:, None].to(dtype).float()
+            row[name] = float(torch.linalg.vector_norm(got - want)
                               / torch.linalg.vector_norm(want))
         out[cur + 1 - lc] = row
     return out
@@ -1006,15 +1224,18 @@ def _split_check(cfg, job: dict, mesh, dev) -> dict:
 @torch.inference_mode()
 def serve_one(job: dict, dev) -> dict:
     """`rank_serve_mesh`'s job on one device: the same weights (the seeded
-    one-device draw), prompt and steps; with the peak device memory."""
+    one-device draw), prompt and steps; with every MoE call's picks and
+    router logits and the peak device memory."""
     cfg = serve_cfg(job)
     params = model.init_params(cfg, job.get("seed", 0), dev)
     _reset_peak(dev)
     ops.reset_launches()
-    out = _serve_loop(params, cfg, job, dev)
+    with _RouterLog() as log:
+        out = _serve_loop(params, cfg, job, dev)
     for key in ("caches", "fed", "prefill_len"):
         del out[key]
-    out.update(launches=dict(ops.LAUNCHES), peak_gib=_peak(dev))
+    out.update(launches=dict(ops.LAUNCHES), peak_gib=_peak(dev),
+               routes=_host_routes(log.calls))
     return out
 
 
@@ -1027,9 +1248,11 @@ def rank_serve_mesh(rank, dev, jobs: list) -> list:
     ``prompt_seed``, `engine.prefill` and ``steps`` greedy decode steps on
     the mesh (``feed``: as `_serve_loop`'s).  Returns per job the logits
     of every row at every step (on rank 0; gathered over the data axes),
+    each MoE call's picks and router logits (on rank 0, `_mesh_routes`),
     the tokens, the times, the rank's ``Mesh.stats`` and staged bytes of
     the serving run, its launches and its peak memory (GiB), each of the
-    serving run alone (the weights' draw excluded)."""
+    serving run alone (the weights' draw excluded); with ``fault_from``,
+    `_fault_steps`' logits and `_split_check`'s readings."""
     from repro_torch.models import decode as dec
 
     if dev.type == "cuda":
@@ -1045,10 +1268,13 @@ def rank_serve_mesh(rank, dev, jobs: list) -> list:
         _reset_peak(dev)
         mesh.reset_stats()
         ops.reset_launches()
-        res = _serve_loop(params, cfg, job, dev, mesh)
+        with _RouterLog() as log:
+            res = _serve_loop(params, cfg, job, dev, mesh)
         launches = dict(ops.LAUNCHES)
         stats = {a: dict(v) for a, v in mesh.stats.items()}
         staged, peak = mesh.staged_bytes, _peak(dev)
+        routes = _mesh_routes(log.calls, cfg, job, mesh)
+        del log
         faults, split = {}, None
         if job.get("fault_from") is not None:
             faults = _fault_steps(params, cfg, job, res, mesh, dev)
@@ -1065,8 +1291,9 @@ def rank_serve_mesh(rank, dev, jobs: list) -> list:
                         fault_logits={f: gather(x) for f, x in
                                       faults.items()},
                         split=split if rank == 0 else None,
-                        rank=rank, mesh_stats=stats, staged_bytes=staged,
-                        launches=launches, peak_gib=peak))
+                        routes=routes, rank=rank, mesh_stats=stats,
+                        staged_bytes=staged, launches=launches,
+                        peak_gib=peak))
         del params, faults
         if dev.type == "cuda":
             torch.cuda.empty_cache()

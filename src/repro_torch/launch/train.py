@@ -32,7 +32,11 @@ share a card must ask for ``gloo``, since NCCL refuses two ranks on one
 device; nothing falls back from one to the other).  Each microbatch's
 rows must split evenly over the ranks: a batch that does not raises
 ValueError before any rank starts.  A ``--mesh`` of one rank runs every
-collective over one-rank groups.
+collective over one-rank groups.  Called in a process whose default
+group is already up (torchrun's way: every rank of a started world calls
+`main` with the same arguments, as a `launch.accel` rank program does),
+``--mesh`` runs this process's rank in that group instead of starting
+ranks; the group must hold the mesh's ranks over ``--backend``.
 
 `main` returns the run's numbers: losses, grad norms, per-step seconds
 (host clock, synchronised each step), tokens/s over the steps after the
@@ -171,14 +175,33 @@ def main(argv=None) -> dict:
 
         shape, _ = parse_mesh(args.mesh)
         fsdp.check_rows(batch, args.microbatches, shape)
-        ranks = accel.spawn(_rank_main, math.prod(shape),
-                            args=(args,), backend=args.backend,
-                            device=args.device, timeout_s=args.timeout_s,
-                            kernels=TRAIN_KERNELS, env=RANK_ENV)
-        out = dict(ranks[0],
+        if dist.is_initialized():
+            size = math.prod(shape)
+            if dist.get_world_size() != size \
+                    or dist.get_backend() != args.backend:
+                raise ValueError(
+                    f"--mesh {args.mesh} over {args.backend} in a started "
+                    f"group of {dist.get_world_size()} "
+                    f"{dist.get_backend()} ranks")
+            rank = dist.get_rank()
+            mine = _rank_main(rank, accel.rank_device(args.device, rank),
+                              args)
+            ranks = [None] * size
+            dist.all_gather_object(ranks, {k: mine[k] for k in (
+                "peak_gib", "launches", "losses")})
+            ranks[rank] = mine
+        else:
+            ranks = accel.spawn(_rank_main, math.prod(shape),
+                                args=(args,), backend=args.backend,
+                                device=args.device, timeout_s=args.timeout_s,
+                                kernels=TRAIN_KERNELS, env=RANK_ENV)
+            rank = 0
+        out = dict(ranks[rank],
                    rank_peak_gib=[r["peak_gib"] for r in ranks],
                    rank_launches=[r["launches"] for r in ranks],
                    rank_losses=[r["losses"] for r in ranks])
+        if rank != 0:
+            return out
         where = (f"a {args.mesh} mesh of {args.backend} ranks on "
                  f"{args.device}")
     print(f"[launch.train] {cfg.name}: loss {out['losses'][0]:.3f} → "

@@ -289,6 +289,28 @@ def mla_forward(p, x, positions, cfg: ModelConfig):
     return _out_proj(p, out, cfg), (c, k_rope)
 
 
+def mla_scores(q_lat, q_rope, c, k_rope, cfg: ModelConfig) -> torch.Tensor:
+    """The absorbed decode's scores, float32: q_lat (B, H, kr) against the
+    latent c (B, Lc, kr) plus q_rope (B, H, rd) against k_rope (B, Lc, rd),
+    scaled → (B, H, Lc)."""
+    scale = (cfg.head_dim + cfg.rope_head_dim) ** -0.5
+    return (torch.matmul(q_lat, c.transpose(1, 2))
+            + torch.matmul(q_rope, k_rope.transpose(1, 2))) * scale
+
+
+def mla_partial(s, valid, c) -> tuple[torch.Tensor, torch.Tensor]:
+    """One rank's part of a sequence-split MLA decode: the softmax of the
+    scores ``s`` (B, H, Lc) over its ``valid`` positions applied to its
+    latent c (B, Lc, kr), normalised by its own sum, and the scores'
+    log-sum-exp (B, H), -inf where no position is visible (the output is
+    then 0): `merge_partials`' inputs."""
+    s = s.masked_fill(~valid, float("-inf"))
+    lse = torch.logsumexp(s, -1)
+    att = torch.exp(s - torch.where(torch.isfinite(lse), lse,
+                                    0.0)[..., None])
+    return torch.matmul(att, c), lse
+
+
 def mla_decode(p, x, cache, cur_len: int, cfg: ModelConfig, seq=None):
     """Absorbed-MLA decode: x (B, 1, D); cache = {c (B, Lc, kr), k_rope
     (B, Lc, rd)}, written in place at ``cur_len`` and returned.  W_uk is
@@ -303,23 +325,17 @@ def mla_decode(p, x, cache, cur_len: int, cfg: ModelConfig, seq=None):
     base = 0 if seq is None else seq[1]
     _write(cache, ("c", "k_rope"), (c_new, kr_new), cur_len, base)
     cc = cache["c"].float()                               # (B, Lc, kr)
-    ckr = cache["k_rope"].float()
     # q_lat[b, h, r] = Σ_k q_nope[b, h, k] · w_uk[r, h, k]
     q_lat = torch.matmul(q_nope[:, 0].transpose(0, 1),
                          p["w_uk"].permute(1, 2, 0)).transpose(0, 1)
-    scale = (cfg.head_dim + cfg.rope_head_dim) ** -0.5
-    s = (torch.matmul(q_lat.float(), cc.transpose(1, 2))
-         + torch.matmul(q_rope[:, 0].float(), ckr.transpose(1, 2))) * scale
+    s = mla_scores(q_lat.float(), q_rope[:, 0].float(), cc,
+                   cache["k_rope"].float(), cfg)
     valid = torch.arange(cc.shape[1], device=x.device) + base <= cur_len
     if seq is None:
         att = torch.softmax(s.masked_fill(~valid, _NEG), -1)  # (B, H, Lc)
         o_lat = torch.matmul(att, cc)                     # (B, H, kr)
     else:
-        s = s.masked_fill(~valid, float("-inf"))
-        lse = torch.logsumexp(s, -1)                      # -inf: no key
-        att = torch.exp(s - torch.where(torch.isfinite(lse), lse,
-                                        0.0)[..., None])
-        o_lat = merge_partials(seq[0], torch.matmul(att, cc), lse)
+        o_lat = merge_partials(seq[0], *mla_partial(s, valid, cc))
     out = torch.matmul(o_lat.transpose(0, 1),
                        p["w_uv"].float().transpose(0, 1)).transpose(0, 1)
     return _out_proj(p, out[:, None].to(x.dtype), cfg), cache

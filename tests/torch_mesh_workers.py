@@ -492,3 +492,38 @@ def dryrun_stats_world(rank, dev, cfgs: list, train: tuple,
             res["decode"] = {a: dict(v) for a, v in mesh.stats.items()}
         out.append(res)
     return out
+
+
+def members_world(rank, dev) -> dict:
+    """Sub-meshes of one world of 4 (`comm.Mesh(members=...)`): a (1, 2)
+    mesh on ranks 1 and 3 and a (1, 3) one on ranks 0-2,
+    their collectives among the members alone while the others stand by;
+    then the whole world's (2, 2) mesh still works."""
+    out = {"rank": rank}
+    pair = make_mesh((1, 2), ("data", "model"), device=dev, members=(1, 3))
+    out["pair"] = dict(member=pair.member, rank=pair.rank)
+    if pair.member:
+        x = torch.tensor([float(rank)])
+        out["pair"].update(
+            gathered=pair.all_gather(x, "model").tolist(),
+            total=float(pair.psum(x, ("data", "model"))),
+            sent=pair.ppermute(x, "model", 1).tolist(),
+            index=pair.axis_index("model"))
+        pair.barrier()
+    trio = make_mesh((1, 3), ("data", "model"), device=dev,
+                     members=(0, 1, 2))
+    out["trio"] = dict(member=trio.member, rank=trio.rank)
+    if trio.member:
+        out["trio"]["gathered"] = trio.all_gather(
+            torch.tensor([rank]), "model").tolist()
+        out["trio"]["broadcast"] = trio.broadcast(
+            torch.tensor([rank + 10]), axes=("data", "model")).tolist()
+    whole = make_mesh((2, 2), ("data", "model"), device=dev)
+    out["whole"] = float(whole.psum(torch.tensor([1.0]), ("data", "model")))
+    out["refused"] = []
+    for members in ((2, 1), (0, 0), (0, 4)):
+        try:
+            make_mesh((1, 2), ("data", "model"), device=dev, members=members)
+        except ValueError:
+            out["refused"].append(members)
+    return out
