@@ -230,7 +230,15 @@ else.  Phases, each of which raises on failure:
     as (bf16) checks llama, its prefill's attention on the wgmma route at
     head dim 80; (vlm bf16) phi-3-vision at 2 layers the same way, 64
     patch embeddings then 1,984 tokens, on the wgmma route at head dim
-    96;
+    96; (dense golden) the file's three ``"dense"`` entries the same way
+    as the ``"lm"`` one: qwen1.5-110b (QKV bias) and command-r-35b at full
+    width, nemotron-4-340b at ``TRAIN_FAMILY_CUTS``' width (its 96 heads
+    over 8 of 192: the simt forward and the decode route at D 192), each
+    2 layers with the vocabulary cut to 32,768, 2 simt and 2 × 8 decode;
+    (audio golden) the ``"audio"`` entry: musicgen-medium at full width,
+    2 layers, prompts of (2, 4, 64) tokens (4 codebooks summed in, a head
+    a codebook out: the logits' rows are (batch, codebook) pairs), every
+    codebook's greedy token equal where its top-2 gap exceeds 1e-3;
 16. LM main path at full width: llama3.2-3b, 28 layers, bf16, the port's
     seeded init, through ``launch.serve``'s ``run``: (a) the launcher's own
     mix, batch 4, prompt 32, 32 new tokens at temperature 0.7; (b) batch
@@ -279,19 +287,26 @@ else.  Phases, each of which raises on failure:
     device memory; then ([nemotron main b]) nemotron-4-340b cut as
     ``TRAIN_FAMILY_CUTS`` (its published attention: 96 heads over 8 of
     192) served with mix (b) through ``serve_config``: 4 wgmma (D 192) +
-    4 × 32 decode launches, 0 simt;
+    4 × 32 decode launches, 0 simt; ([dense main]) qwen1.5-110b and
+    command-r-35b at full width cut to 2 layers (``DENSE_MAIN``), bf16,
+    through ``serve_config`` with (a) and (b): 2 wgmma + 2 × 32 decode a
+    request batch, 0 simt; ([audio main]) musicgen-medium whole (48
+    layers, 4 codebooks) through ``run`` with (a) and (b): 48 wgmma (D
+    64) + 48 × 32 decode a request batch, 0 simt, every codebook's tokens
+    in the vocabulary;
 16f. training, after the VLM phases are released: ([flash bwd]) the
     flash-attention gradient (two launches of the route ``route_bwd``
     picks: bf16 on ``wgmma``, ``csrc/flash_bwd_wgmma.cu``, reading the
     log-sum-exp the forward kernel writes; float32 on ``simt``,
     ``csrc/flash_attention_bwd.cu``) against its plain version
     ``ref.flash_attention_bwd_ref`` of that route — bf16 at D
-    64/80/96/128/192 (three launches at 192: dq, dv, dk), float32 at D
-    16/32/128, GQA groups 1, 3, 5, 8 and 12, L 130 and 257, causal and
-    not, and the training shape (1, 4096, 24 over 8 heads, 128) and
-    nemotron's (1, 4096, 96 over 8, 192) bf16 causal, each of which must
-    also give the same bits twice;
-    float32 within 1e-4 max abs (``BWD_F32_TOL``), bf16 as the forward's
+    64/80/96/128/192, float32 at D 16/32/128/192 (three launches at 192
+    on either route: dq, dv, dk), GQA groups 1, 3, 5, 8 and 12, L 130, 200
+    and 257, causal and not, and the training shape (1, 4096, 24 over 8
+    heads, 128) bf16 and nemotron's (1, 4096, 96 over 8, 192) in bf16 and
+    in float32, causal, each of which must also give the same bits twice;
+    float32 within 1e-4 max abs (``BWD_F32_TOL``; at D 192 within 1e-4 of
+    the gradient's largest magnitude), bf16 as the forward's
     checks, the forward's log-sum-exp within 1e-4 (``LSE_TOL``) of
     ``ref.flash_attention_lse_ref``; ([train golden]) two steps of
     ``make_train_step`` on llama3.2-3b cut to 2 layers at full width,
@@ -303,8 +318,10 @@ else.  Phases, each of which raises on failure:
     the simt forward and the simt backward at D 128, 4 simt and 4
     ``flash_bwd`` launches a step, all on simt; ([train families golden])
     the same two float32 steps of mamba2, zamba2 (the simt backward at D
-    80), deepseek-v3 (MLA and MoE) and maverick (the simt backward at D
-    128) at the ``"train_families"`` entry's cuts against it within
+    80), deepseek-v3 (MLA and MoE), maverick (the simt backward at D
+    128), nemotron (the simt backward at D 192, three launches a call)
+    and musicgen (codebooks, D 64) at the ``"train_families"`` entry's
+    cuts against it within
     ``TRAIN_GOLD_TOL``, weights drawn by numpy in threads while the
     backward checks run; ([train bf16]) the same
     depth in bf16 (the port's seeded init), 2 × 1,024 tokens: each
@@ -312,8 +329,10 @@ else.  Phases, each of which raises on failure:
     against the same gradient with attention through the plain version,
     within ``TRAIN_BF16_RTOL`` relative L2, and ([train families bf16])
     the same for zamba2 (12 layers: the shared block on wgmma at D 80),
-    maverick (2 layers, 8 experts) and the nemotron cut
-    (``TRAIN_FAMILY_CUTS``: D 192, three backward launches a call);
+    maverick (2 layers, 8 experts), the nemotron cut
+    (``TRAIN_FAMILY_CUTS``: D 192, three backward launches a call),
+    phi-3-vision (its 64 patches) and musicgen (its codebooks) as
+    ``TRAIN_FAMILY_BF16`` cuts them;
     ([train main]) llama3.2-3b
     at full width and depth (28 layers, bf16) through
     ``launch.train.main`` (``TRAIN_MAIN_ARGV``: train_4k's 4,096
@@ -326,16 +345,24 @@ else.  Phases, each of which raises on failure:
     that 6 · N · tokens a step gives, peak device memory and the
     forward / backward / optimizer split; ([train families]) each family
     at train_4k's 4,096-token sequences, 8 in 8 microbatches, 2 steps:
-    mamba2-1.3b and zamba2-2.7b at full width and depth through
-    ``launch.train.main``, deepseek-v3, maverick and nemotron at full
+    mamba2-1.3b, zamba2-2.7b, phi-3-vision-4.2b (64 patches a sequence,
+    labels -1 on them) and musicgen-medium (4 codebooks) at full width
+    and depth through ``launch.train.main``, deepseek-v3, maverick and
+    nemotron at full
     width (nemotron: its published attention shape) cut as
     ``TRAIN_FAMILY_CUTS`` through ``train.loop.train`` with their
     configs' bf16 moments: finite losses and grad norms, the exact flash
     launches a step its config gives (zamba2 144 wgmma forwards and 144
-    backward launches, maverick 32 and 32, nemotron 64 and 96, 0
-    elsewhere; 0 simt), a peak under the card's memory, the step
+    backward launches, maverick 32 and 32, nemotron 64 and 96,
+    phi-3-vision 512 and 512, musicgen 768 and 768, 0 elsewhere; 0 simt),
+    a peak under the card's memory, the step
     seconds, tokens/s, the bf16 peak's share (active parameters for the
     MoE cuts), the split, and deepseek's MLA live memory at 4,096 tokens;
+    ([train f32 d192]) the nemotron cut in float32 (TF32 off, bf16
+    moments) through ``train.loop.train``, one step of 2 × 4,096 tokens
+    in 2 microbatches: finite loss and grad norm, per layer and
+    microbatch 2 simt forwards and 3 simt backward launches (dq, dv, dk),
+    nothing on wgmma, a peak under the card's memory;
     ([train restart]) the smoke
     config on the card, float32: ``train_with_restarts`` with crashes
     after steps 5 and 9 against a clean run, within 1e-5
@@ -390,12 +417,15 @@ else.  Phases, each of which raises on failure:
     192); and the flash-attention gradient at the training shape (1,
     4096, 24 over 8, 128, bf16, causal), nemotron's (96 over 8, 192),
     zamba2's (32 over 32, 80) and phi-3-vision's (32 over 32, 96): the
-    ``wgmma`` route's launches (together and each alone) and, at the
-    training shape, the ``simt`` kernel from CUDA graphs of 10, the
-    plain version, and the autograd backward of
+    ``wgmma`` route's launches (together and each alone) from CUDA
+    graphs of 10, the plain version, and the autograd backward of
     ``scaled_dot_product_attention(..., is_causal=True,
     enable_gqa=True)`` (timed only) from a CUDA graph of 10 and eager,
-    beside its bound;
+    beside its bound; then ([timing flash bwd f32]) the ``simt`` backward
+    in float32 at the training shape and at nemotron's (D 192: dq, dv and
+    dk, each alone too) from CUDA graphs of 10, its plain version and
+    SDPA's float32 autograd backward (the backend PyTorch picks named),
+    beside the bound at the 67 TFLOP/s float32 peak;
 18. serving on a mesh and the dry-run (`run_serve_mesh_phases`):
     ([flash decode lse]) the ``decode`` route's output and log-sum-exp
     (``ops.flash_attention(..., return_lse=True)``) against their plain
@@ -452,7 +482,11 @@ else.  Phases, each of which raises on failure:
     ``DRYRUN_SWEEP_BUDGET_S``, traced on the host beside 9d's world.
     ``--serve-mesh-only`` builds the kernels and runs [train mesh main]
     (one step) and this phase alone; ``--worlds-only`` the world of 9d
-    with every job and the checks of 9d, 16c, 16g and 18.
+    with every job and the checks of 9d, 16c, 16g and 18;
+    ``--archs-only`` [flash bwd], the dense and audio goldens and main
+    paths, the nemotron and musicgen train-family goldens, phi-3-vision's
+    and musicgen's bf16 gradients and steps, [train f32 d192] and the
+    float32 backward's timing (`run_archs_phases`).
 
 Each phase prints its peak device memory (9b, 9c and 9d their seconds
 too).  Before the kernels line, ``[time]`` gives each phase's seconds
@@ -555,7 +589,8 @@ BWD_TIMED_SHAPES = {"training": BWD_SHAPE,
                     "nemotron": (1, 4096, 96, 8, 192),
                     "zamba2": (1, 4096, 32, 32, 80),
                     "phi": (1, 4096, 32, 32, 96)}
-# The families' training (phase 16f).  mamba2 and zamba2 go through the
+# The families' training (phase 16f).  mamba2, zamba2, phi-3-vision (its
+# 64 patches, labels -1 on them) and musicgen (4 codebooks) go through the
 # launcher at full width and depth; the others do not fit one card whole
 # and go through train.loop.train at full width, cut as below, with their
 # configs' optimizer_state_dtype (bf16 moments).  deepseek-v3: 3 layers (1
@@ -568,7 +603,8 @@ BWD_TIMED_SHAPES = {"training": BWD_SHAPE,
 # alone are 9.4 B parameters at full width).  Each arch: 2 steps of 8
 # sequences of 4,096 tokens in 8 microbatches (3 until the whole smoke
 # took 1,202.7 s of its 1,200 on one H100; PERF.md §6).
-TRAIN_FAMILY_ARCHS = ("mamba2-1.3b", "zamba2-2.7b")
+TRAIN_FAMILY_ARCHS = ("mamba2-1.3b", "zamba2-2.7b", "phi-3-vision-4.2b",
+                      "musicgen-medium")
 TRAIN_FAMILY_CUTS = {
     "deepseek-v3-671b": dict(num_layers=3, first_dense_layers=1,
                              num_experts=16),
@@ -612,13 +648,38 @@ TRAIN_MESH_GRAD_RTOL = 5e-2
 TRAIN_MESH_SHARD_CHECKS = [("llama3.2-3b", {"num_layers": 2}, (4, 1024)),
                            ("llama4-maverick-400b-a17b",
                             {"num_layers": 2, "num_experts": 4}, None)]
-# [train families bf16]: the kernels' gradient against plain attention.
+# [train families bf16]: the kernels' gradient against plain attention,
+# phi-3-vision with its patches and musicgen with its codebooks cut in
+# depth: the bf16 difference grows with depth whatever the kernels do.
+# Plain attention with only P rounded to bf16 (the wgmma forward's one
+# extra rounding) lies from plain attention by 1.20e-02 / 2.55e-02 /
+# 3.23e-02 / 3.84e-02 (worst leaf, relative L2) at phi's 2 / 8 / 16 / 32
+# layers and 8.17e-03 / 1.81e-02 / 2.90e-02 / 3.53e-02 at musicgen's 2 /
+# 8 / 24 / 48, the kernels within 7% of that control at each (NVIDIA H100
+# 80GB HBM3 at 700 W, scripts/torch_bf16_depth.py, PERF.md §6): past
+# TRAIN_BF16_RTOL at full depth, where the check could not tell a sound
+# kernel.  Each keeps the deepest measured depth whose control stays
+# under 2/3 of the limit.
 TRAIN_FAMILY_BF16 = {
     "zamba2-2.7b": dict(num_layers=12),
     "llama4-maverick-400b-a17b": TRAIN_FAMILY_CUTS[
         "llama4-maverick-400b-a17b"],
     "nemotron-4-340b": TRAIN_FAMILY_CUTS["nemotron-4-340b"],
+    "phi-3-vision-4.2b": dict(num_layers=2),
+    "musicgen-medium": dict(num_layers=8),
 }
+# [train f32 d192]: the nemotron cut (TRAIN_FAMILY_CUTS) in float32 through
+# train.loop.train, its bf16 moments (optimizer_state_dtype): sequences,
+# tokens a sequence, microbatches and steps; every attention on the simt
+# forward and the simt backward at D 192 (dq, dv, dk).
+TRAIN_F32_BATCH, TRAIN_F32_SEQ, TRAIN_F32_MICRO, TRAIN_F32_STEPS = (
+    2, 4096, 2, 1)
+# The dense and audio serving phases: qwen1.5-110b (QKV bias) and
+# command-r-35b at full width cut to 2 layers, bf16, through the launcher's
+# serve_config with mixes (a) and (b); musicgen-medium whole through run.
+DENSE_MAIN = {"qwen1.5-110b": dict(num_layers=2),
+              "command-r-35b": dict(num_layers=2)}
+AUDIO_ARCH = "musicgen-medium"
 # Phase 18, serving on a mesh: the batch, and per job the cut, prompt,
 # greedy steps and the step whose cache write crosses to ``model`` rank 1
 # (the caches hold 2 x (prompt + cross) positions, each ``model`` rank its
@@ -2187,7 +2248,9 @@ def _host_beside_world(golden: dict, pool) -> None:
     card; the parent waits), each task niced (`_niced`): numpy draws of
     the golden models' weights that phases 15 and 16f load (`_predraw`:
     the ``"lm"`` model, which [train golden] shares, and the ``"moe"``,
-    ``"ssm"`` and ``"vlm"`` entries'), and the quantised path's graph on
+    ``"ssm"`` and ``"vlm"`` entries'; the ``"dense"`` and ``"audio"``
+    ones, ~25 GB more, are drawn after the world, whose ranks leave the
+    host no room for them), and the quantised path's graph on
     the host (`_q_graph_host`); the caller traces the dry-run sweep
     meanwhile."""
     from repro_torch.configs import registry
@@ -2197,13 +2260,20 @@ def _host_beside_world(golden: dict, pool) -> None:
                                        num_layers=gold["num_layers"],
                                        dtype=gold["dtype"]),
              gold["param_seed"])
-    for name in ("moe", "ssm", "vlm"):
+    _predraw_entries(pool, golden, ("moe", "ssm", "vlm"))
+    _Q_HOST[Q_N] = pool.submit(_niced, _q_graph_host, Q_N)
+
+
+def _predraw_entries(pool, golden: dict, names) -> None:
+    """`_predraw` of every model of the golden entries ``names``."""
+    from repro_torch.configs import registry
+
+    for name in names:
         for entry in golden[name].values():
             cuts = {k: v for k, v in entry["cuts"].items() if k != "arch"}
             _predraw(pool, dataclasses.replace(registry.get(entry["arch"]),
                                                **cuts), entry["param_seed"],
                      entry.get("ssm_heads_seed"))
-    _Q_HOST[Q_N] = pool.submit(_niced, _q_graph_host, Q_N)
 
 
 def run_worlds(golden: dict, *, mesh: bool = True, a2a: bool = True,
@@ -2872,8 +2942,9 @@ def check_flash(dev) -> dict:
 
 def _logit_errors(logits: torch.Tensor, gold: dict) -> tuple[float, int]:
     """Largest difference from the golden summary of (B, V) float32
-    logits, and the number of rows whose greedy token was checked."""
-    lg = logits.double()
+    logits (audio's (B, K, V): a row a codebook), and the number of rows
+    whose greedy token was checked."""
+    lg = logits.double().reshape(-1, logits.shape[-1])
     ids = torch.as_tensor(gold["ids"], device=lg.device)
     got = {"logits_at_ids": lg[:, ids], "max": lg.max(-1).values,
            "lse": torch.logsumexp(lg, -1)}
@@ -2974,12 +3045,13 @@ def _check_golden_model(gold: dict, cfg, dev, tag: str, tree) -> dict:
 
 def _run_golden_model(gold: dict, cfg, params, prompt, steps: int):
     """The golden entry's prefill (a VLM entry's seeded patch embeddings
-    before its prompt) and teacher-forced steps; returns the largest logit
-    difference and the greedy tokens checked."""
+    before its prompt; an audio entry's (B, K, Lp) prompt) and
+    teacher-forced steps; returns the largest logit difference and the
+    greedy tokens checked."""
     from repro_torch.models import decode, init
     from repro_torch.serve import engine
 
-    batch, positions = {"tokens": prompt}, prompt.shape[1]
+    batch, positions = {"tokens": prompt}, prompt.shape[-1]
     if "patch_seed" in gold:
         batch["patch_embeds"] = torch.from_numpy(init.numpy_patch_embeds(
             cfg, gold["patch_seed"], prompt.shape[0])).to(prompt.device)
@@ -2991,7 +3063,9 @@ def _run_golden_model(gold: dict, cfg, params, prompt, steps: int):
                                        {"ids": gold["vocab_ids"],
                                         **gold["prefill"]})
         for st in gold["decode"]:
-            tok = torch.as_tensor(st["tokens"], device=prompt.device)[:, None]
+            # (B, 1), or audio's (B, K, 1): every codebook's token.
+            tok = torch.as_tensor(st["tokens"],
+                                  device=prompt.device)[..., None]
             lg, caches = decode.decode_step(params, cfg, caches, tok,
                                             st["cur_len"])
             w, c = _logit_errors(lg[:, -1].float(),
@@ -3215,8 +3289,9 @@ def run_lm_main_path() -> dict:
 
 def _serve_mix(arch: str, mix: str, want: dict, cfg=None):
     """Serve one request batch of mix ``mix`` (LM_MIXES, batch LM_BATCH,
-    LM_NEW new tokens) through the launcher: ``arch``'s own config by
-    `run`, or ``cfg`` (a depth cut) by `serve_config`; counters as in 4.
+    LM_NEW new tokens; audio: every codebook's) through the launcher:
+    ``arch``'s own config by `run`, or ``cfg`` (a depth cut) by
+    `serve_config`; counters as in 4.
     Fails unless the logits are finite, the tokens in range, the flash
     launches ``want`` and the peak under the card's memory; returns (the
     run's numbers, the launches, peak device GiB)."""
@@ -3235,8 +3310,11 @@ def _serve_mix(arch: str, mix: str, want: dict, cfg=None):
     launches = {k: ops.LAUNCHES[k] for k in want}
     tokens, peak = r["tokens"], _peak_gib()
     card = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    books = r["cfg"].num_codebooks
     _check(r["finite"], f"{arch} ({mix}): non-finite logits")
-    _check(tokens.shape == (LM_BATCH, LM_NEW) and int(tokens.min()) >= 0
+    _check(tokens.shape == ((LM_BATCH, books, LM_NEW) if books
+                            else (LM_BATCH, LM_NEW))
+           and int(tokens.min()) >= 0
            and int(tokens.max()) < r["cfg"].vocab_size,
            f"{arch} ({mix}): tokens malformed")
     _check(launches == want, f"{arch} ({mix}): launches {launches}, not "
@@ -3245,32 +3323,58 @@ def _serve_mix(arch: str, mix: str, want: dict, cfg=None):
     return r, launches, peak
 
 
-def run_nemotron_serving() -> dict:
-    """The nemotron cut (TRAIN_FAMILY_CUTS: its published attention, 96
-    heads over 8 of 192) served with request mix (b) through the
-    launcher's `serve_config`, bf16, the port's seeded init: each layer's
-    prefill on the wgmma route at D 192, its decode steps on ``decode``,
-    none on simt."""
+def _serve_cut(arch: str, cuts: dict, mixes, tag: str) -> dict:
+    """``arch`` at full width cut by ``cuts``, bf16, the port's seeded
+    init, through the launcher's `serve_config` with each request mix of
+    ``mixes`` (LM_MIXES): each attention layer's prefill on the wgmma
+    route, its decode steps on ``decode``, none on simt (counters as in
+    4); prints the ``[tag mix]`` lines."""
     from repro_torch.configs import registry
 
-    arch = "nemotron-4-340b"
-    cfg = dataclasses.replace(registry.get(arch), **TRAIN_FAMILY_CUTS[arch])
+    cfg = dataclasses.replace(registry.get(arch), **cuts)
     n = _flash_layers(cfg)
     want = {"flash_attention": n * (1 + LM_NEW), "flash_wgmma": n,
             "flash_decode": n * LM_NEW, "flash_simt": 0}
-    prompt_len = LM_MIXES["b"][0]
-    r, launches, peak = _serve_mix(arch, "b", want, cfg)
-    out = dict(prefill_s=r["prefill_s"], decode_ms=r["decode_ms_per_step"],
-               prefill_tok_s=LM_BATCH * prompt_len / r["prefill_s"],
-               launches=launches, peak_gib=peak)
-    print(f"[nemotron main b] {cfg.name} cut to d {cfg.d_model}, d_ff "
-          f"{cfg.d_ff}, {cfg.num_layers} layers ({cfg.num_heads} heads over "
-          f"{cfg.num_kv_heads} of {cfg.head_dim}), bf16: batch {LM_BATCH}, "
-          f"prompt {prompt_len}, {LM_NEW} new tokens greedy: prefill "
-          f"{r['prefill_s']:.4f}s ({out['prefill_tok_s']:.0f} tokens/s), "
-          f"decode {out['decode_ms']:.3f} ms/step; flash launches "
-          f"{launches}; peak device memory {peak:.2f} GiB")
+    out = {}
+    for mix in mixes:
+        prompt_len, temp = LM_MIXES[mix]
+        r, launches, peak = _serve_mix(arch, mix, want, cfg)
+        out[mix] = m = dict(
+            prefill_s=r["prefill_s"], decode_ms=r["decode_ms_per_step"],
+            prefill_tok_s=LM_BATCH * prompt_len / r["prefill_s"],
+            weights_gib=r["param_bytes"] / 2 ** 30, launches=launches,
+            peak_gib=peak)
+        print(f"[{tag} {mix}] {cfg.name} cut to {cuts} (d {cfg.d_model}, "
+              f"d_ff {cfg.d_ff}, {cfg.num_heads} heads over "
+              f"{cfg.num_kv_heads} of {cfg.head_dim}"
+              + (", QKV bias" if cfg.qkv_bias else "")
+              + f"), bf16, {m['weights_gib']:.2f} GiB of weights: batch "
+              f"{LM_BATCH}, prompt {prompt_len}, {LM_NEW} new tokens at "
+              f"temperature {temp}: prefill {m['prefill_s']:.4f}s "
+              f"({m['prefill_tok_s']:.0f} tokens/s), decode "
+              f"{m['decode_ms']:.3f} ms/step; flash launches {launches}; "
+              f"peak device memory {peak:.2f} GiB")
+        del r
+        _release(f"{tag} {arch} ({mix})")
     return out
+
+
+def run_nemotron_serving() -> dict:
+    """The nemotron cut (TRAIN_FAMILY_CUTS: its published attention, 96
+    heads over 8 of 192) served with request mix (b) through `_serve_cut`:
+    each layer's prefill on the wgmma route at D 192."""
+    arch = "nemotron-4-340b"
+    return _serve_cut(arch, TRAIN_FAMILY_CUTS[arch], "b",
+                      "nemotron main")["b"]
+
+
+def run_dense_main_path() -> dict:
+    """[dense main]: each of DENSE_MAIN (qwen1.5-110b with its QKV bias,
+    command-r-35b) at full width cut to 2 layers through `_serve_cut` with
+    mixes (a) and (b), one model on the card at a time: 2 wgmma + 2 x 32
+    decode a request batch, 0 simt."""
+    return {arch: _serve_cut(arch, cuts, LM_MIXES, "dense main")
+            for arch, cuts in DENSE_MAIN.items()}
 
 
 def run_moe_main_path() -> dict:
@@ -3349,11 +3453,11 @@ def run_moe_main_path() -> dict:
 
 def _step_bytes(cfg, param_bytes: int, batch: int, kv_len: float) -> dict:
     """The bytes a bf16 decode step of ``cfg`` must move, by part: every
-    weight but the embedding (one row a token is read), the shared block
-    again for each ``mamba_attn`` invocation after the first, each mamba
-    layer's state (float32) and conv tail read and written, and each
-    attention layer's (each ``mamba_attn`` invocation's) K and V read over
-    ``kv_len`` positions."""
+    weight but the embedding (one row a token, a codebook, is read), the
+    shared block again for each ``mamba_attn`` invocation after the first,
+    each mamba layer's state (float32) and conv tail read and written, and
+    each attention layer's (each ``mamba_attn`` invocation's) K and V read
+    over ``kv_len`` positions."""
     from repro_torch.models import model
 
     kinds = model.layer_kinds(cfg)
@@ -3370,7 +3474,8 @@ def _step_bytes(cfg, param_bytes: int, batch: int, kv_len: float) -> dict:
         di, S, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
         state = 2 * batch * (H * S * (di // H) * 4
                              + (cfg.conv_width - 1) * (di + 2 * S) * 2)
-    parts = {"weights": param_bytes - cfg.vocab_size * d * 2,
+    parts = {"weights": param_bytes
+             - max(cfg.num_codebooks, 1) * cfg.vocab_size * d * 2,
              "shared_again": max(invocations - 1, 0) * shared,
              "ssm_state": mamba * state,
              "kv_read": int(_flash_layers(cfg) * batch * kv_len * 2
@@ -3425,7 +3530,8 @@ def _serve_full_depth(arch: str, tag: str) -> dict:
               f"read and written {step['ssm_state'] / 1e9:.3f}, KV read "
               f"{step['kv_read'] / 1e9:.3f}); flash launches "
               f"{launches}; peak device memory {peak:.2f} GiB of "
-              f"{card:.2f}; tokens[0][:8] {tokens[0, :8].tolist()}")
+              f"{card:.2f}; tokens[0][:8] "
+              f"{tokens[0].reshape(-1)[:8].tolist()}")
         del r, tokens
         _release(f"{arch} ({mix})")
     return res
@@ -3663,7 +3769,9 @@ def _bwd_cases():
     checks: the training shape first."""
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [("training shape", *BWD_SHAPE, bf16, True),
-             ("nemotron shape", *BWD_TIMED_SHAPES["nemotron"], bf16, True)]
+             ("nemotron shape", *BWD_TIMED_SHAPES["nemotron"], bf16, True),
+             ("nemotron f32 shape", *BWD_TIMED_SHAPES["nemotron"], f32,
+              True)]
     for causal in (True, False):
         cases += [("bf16 D 64, H/KVH 1", 2, 130, 4, 4, 64, bf16, causal),
                   ("bf16 D 192, H/KVH 12", 1, 130, 12, 1, 192, bf16, causal),
@@ -3675,19 +3783,30 @@ def _bwd_cases():
                   ("f32 D 16, H/KVH 1", 2, 257, 4, 4, 16, f32, causal),
                   ("f32 D 32, H/KVH 3", 2, 130, 6, 2, 32, f32, causal),
                   ("f32 D 128, H/KVH 5", 1, 257, 10, 2, 128, f32, causal),
-                  ("f32 D 128, H/KVH 8", 1, 130, 8, 1, 128, f32, causal)]
+                  ("f32 D 128, H/KVH 8", 1, 130, 8, 1, 128, f32, causal),
+                  ("f32 D 192, H/KVH 12", 1, 130, 12, 1, 192, f32, causal),
+                  ("f32 D 192, H/KVH 12, L 200", 2, 200, 24, 2, 192, f32,
+                   causal)]
     return cases
 
 
-def _bwd_close(got, want, dtype, what: str) -> tuple[float, float]:
+def _bwd_close(got, want, dtype, what: str, d: int) -> tuple[float, float]:
     """A gradient against its plain version: float32 within BWD_F32_TOL
-    max abs, bf16 as `_flash_close` holds the forward."""
+    max abs, at D 192 (up to 4,096 terms of ~1, in float32, in another
+    order, at nemotron's shape) within BWD_F32_TOL of the gradient's
+    largest magnitude; bf16 as `_flash_close` holds the forward.  Returns
+    (max abs err, bf16 relative RMS or the float32 relative error)."""
     if dtype == torch.bfloat16:
         return _flash_close(got, want, dtype, what)
     worst = float((got - want).abs().max())
-    _check(worst <= BWD_F32_TOL, f"{what}: max abs err {worst} > "
-           f"{BWD_F32_TOL}")
-    return worst, 0.0
+    rel = worst / max(float(want.abs().max()), 1e-30)
+    if d == 192:
+        _check(rel <= BWD_F32_TOL, f"{what}: max abs err {worst} is {rel} "
+               f"of the largest magnitude (limit {BWD_F32_TOL})")
+    else:
+        _check(worst <= BWD_F32_TOL, f"{what}: max abs err {worst} > "
+               f"{BWD_F32_TOL}")
+    return worst, rel
 
 
 def check_flash_bwd(dev) -> dict:
@@ -3697,14 +3816,15 @@ def check_flash_bwd(dev) -> dict:
     ``ref.flash_attention_bwd_ref`` of that route on the card, on the
     forward's own output and (``wgmma``) its log-sum-exp, which is held
     against ``ref.flash_attention_lse_ref`` within LSE_TOL; the training
-    shape and nemotron's twice, bit for bit.  Returns the largest differences per dtype
-    and the cases per route."""
+    shape and nemotron's (bf16, and float32 on simt at D 192) twice, bit
+    for bit.  Returns the largest differences per dtype (float32 at D 192
+    apart, absolute and relative) and the cases per route."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(4)
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    rrms, lse_err = 0.0, 0.0
+    rrms, lse_err, err192, rel192 = 0.0, 0.0, 0.0, 0.0
     cases = {r: 0 for r in fa.BWD_ROUTES}
     for name, b, L, h, kvh, d, dtype, causal in _bwd_cases():
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -3740,23 +3860,31 @@ def check_flash_bwd(dev) -> dict:
                                            lse=lse)
         for grad, a, w in zip(("dq", "dk", "dv"), got, want):
             worst, r = _bwd_close(a, w, dtype, f"flash_bwd {grad} {name} "
-                                  f"{'causal' if causal else 'full'}")
-            err[dtype] = max(err[dtype], worst)
-            rrms = max(rrms, r)
+                                  f"{'causal' if causal else 'full'}", d)
+            if dtype == torch.float32 and d == 192:
+                err192 = max(err192, worst)
+                rel192 = max(rel192, r)
+            else:
+                err[dtype] = max(err[dtype], worst)
+                rrms = max(rrms, r) if dtype == torch.bfloat16 else rrms
         del q, k, v, do, o, lse, got, want
     n = len(_bwd_cases())
     _check(all(cases.values()), f"flash_bwd: a route ran no case {cases}")
-    print(f"[flash bwd] {n} cases (bf16 at D 64/80/96/128/192 on wgmma, three "
-          f"launches at 192, float32 at D 16/32/128 on simt: {cases}; H/KVH "
-          f"1/3/5/8/12, L 130 and 257, causal and not, the training shape "
-          f"{BWD_SHAPE} and nemotron's {BWD_TIMED_SHAPES['nemotron']} bf16 "
-          f"causal, each bit-identical twice): dq, dk and dv max abs err f32 "
-          f"{err[torch.float32]:.3e} (limit {BWD_F32_TOL}), bf16 "
+    print(f"[flash bwd] {n} cases (bf16 at D 64/80/96/128/192 on wgmma, "
+          f"float32 at D 16/32/128/192 on simt, three launches at 192: "
+          f"{cases}; H/KVH 1/3/5/8/12, L 130, 200 and 257, causal and not, "
+          f"the training shape {BWD_SHAPE} and nemotron's "
+          f"{BWD_TIMED_SHAPES['nemotron']} bf16 causal and nemotron's "
+          f"float32 causal, each bit-identical twice): dq, dk and dv max "
+          f"abs err f32 {err[torch.float32]:.3e} (limit {BWD_F32_TOL}), "
+          f"f32 at D 192 {err192:.3e}, {rel192:.3e} of the largest "
+          f"magnitude (limit {BWD_F32_TOL}), bf16 "
           f"{err[torch.bfloat16]:.3e} (atol = rtol = {BF16_TOL}), bf16 "
           f"relative RMS diff {rrms:.3e} (limit {BF16_RMS_TOL}); the "
           f"forward's lse within {lse_err:.3e} (limit {LSE_TOL}); peak "
           f"device memory {_peak_gib():.2f} GiB")
     return {"f32": err[torch.float32], "bf16": err[torch.bfloat16],
+            "f32_d192": err192, "f32_d192_rel": rel192,
             "bf16_rrms": rrms, "lse": lse_err, "cases": n,
             "cases_by_route": cases}
 
@@ -3812,9 +3940,10 @@ def check_train_golden(gold: dict, dev, tree,
     (``tree``, from `numpy_params`) and batches, against the entry; step
     0's gradient is taken once more on its own to compare its leaves.
     Each GQA attention runs the simt forward (and remat's recompute) and
-    the simt backward."""
+    the simt backward (dq, dv and dk at D 192)."""
     from repro_torch import convert
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import model
     from repro_torch.optim import adamw
@@ -3852,11 +3981,13 @@ def check_train_golden(gold: dict, dev, tree,
     p_err = _leaf_errors(adamw.named(params), gold["params"],
                          f"{tag}: parameters after the steps")
     n = len(gold["steps"]) * _flash_layers(cfg)
+    n_b = n * fa.bwd_launches(torch.float32, gold["seq_len"], cfg.head_dim) \
+        if n else 0
     _check(launches == {"flash_simt": 2 * n, "flash_wgmma": 0,
-                        "flash_bwd": 2 * n, "flash_bwd_simt": 2 * n,
+                        "flash_bwd": n_b, "flash_bwd_simt": n_b,
                         "flash_bwd_wgmma": 0},
            f"{tag}: launches {launches}, not {2 * n} simt (forward and "
-           f"remat's recompute) and {2 * n} flash_bwd on simt")
+           f"remat's recompute) and {n_b} flash_bwd on simt")
     peak = _peak_gib()
     del params, opt, batches
     print(f"[{tag}] {cfg.name}, {cfg.num_layers} layers at full width, "
@@ -4060,14 +4191,15 @@ def _mla_live_gib(params, cfg, dev) -> dict:
     return {"saved_gib": saved / 2 ** 30, "peak_gib": peak / 2 ** 30}
 
 
-def run_train_families(dev) -> dict:
+def run_train_families(dev, archs=None) -> dict:
     """[train families]: each arch of TRAIN_FAMILY_ARCHS through
     ``launch.train.main`` and each of TRAIN_FAMILY_CUTS through
     ``train.loop.train`` (bf16 moments, its config's
     ``optimizer_state_dtype``), TRAIN_FAMILY_STEPS steps of
     TRAIN_FAMILY_BATCH x TRAIN_FAMILY_SEQ tokens in TRAIN_FAMILY_BATCH
-    microbatches, one model on the card at a time; launch counters zeroed
-    just before and read just after each."""
+    microbatches, one model on the card at a time (only those of
+    ``archs`` when given); launch counters zeroed just before and read
+    just after each."""
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -4078,6 +4210,8 @@ def run_train_families(dev) -> dict:
     b, seq, m = TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_BATCH
     out = {}
     for arch in (*TRAIN_FAMILY_ARCHS, *TRAIN_FAMILY_CUTS):
+        if archs is not None and arch not in archs:
+            continue
         t0 = time.perf_counter()
         extra = {}
         if arch in TRAIN_FAMILY_CUTS:
@@ -4165,6 +4299,74 @@ def run_train_families(dev) -> dict:
               + f"; {out[arch]['seconds']:.1f}s with set-up")
         del r
         _release(f"train families {arch}")
+    return out
+
+
+def run_train_f32_d192(dev) -> dict:
+    """[train f32 d192]: the nemotron cut (TRAIN_FAMILY_CUTS: 96 heads over
+    8 of 192, d 4,608, 4 layers, vocabulary 256,000) in float32 (TF32
+    off) through ``train.loop.train``, TRAIN_F32_STEPS step of
+    TRAIN_F32_BATCH x TRAIN_F32_SEQ tokens in TRAIN_F32_MICRO microbatches,
+    bf16 moments (its ``optimizer_state_dtype``); launch counters zeroed
+    just before and read just after: per step and microbatch each layer
+    launches the simt forward twice (remat) and the simt backward three
+    times (dq, dv, dk), nothing on wgmma.  Fails unless the loss and grad
+    norm are finite and the peak stays under the card's memory."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.train import loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch = "nemotron-4-340b"
+    cfg = dataclasses.replace(registry.get(arch), **TRAIN_FAMILY_CUTS[arch],
+                              dtype="float32")
+    b, seq, m = TRAIN_F32_BATCH, TRAIN_F32_SEQ, TRAIN_F32_MICRO
+    total_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    clock: dict = {}
+    ops.reset_launches()
+    res = loop.train(cfg, batch=b, seq_len=seq, steps=TRAIN_F32_STEPS,
+                     num_microbatches=m, device=dev, clock=clock,
+                     log_every=100, print_fn=lambda *a: None)
+    torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in (
+        "flash_simt", "flash_wgmma", "flash_decode", "flash_bwd",
+        "flash_bwd_simt", "flash_bwd_wgmma")}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses, gnorms, secs = res.losses, res.grad_norms, res.step_seconds
+    del res
+    calls = _flash_layers(cfg) * m * TRAIN_F32_STEPS
+    n_b = calls * fa.bwd_launches(torch.float32, seq, cfg.head_dim)
+    want = {"flash_simt": 2 * calls, "flash_wgmma": 0, "flash_decode": 0,
+            "flash_bwd": n_b, "flash_bwd_simt": n_b, "flash_bwd_wgmma": 0}
+    _check(len(losses) == TRAIN_F32_STEPS and all(np.isfinite(losses))
+           and all(np.isfinite(gnorms)),
+           f"train f32 d192: losses {losses}, grad norms {gnorms}")
+    _check(launches == want, f"train f32 d192: launches {launches}, not "
+           f"{want}")
+    _check(peak < total_gib, f"train f32 d192: peak memory {peak} GiB")
+    split = {k: v / TRAIN_F32_STEPS for k, v in clock.items()}
+    out = dict(losses=losses, grad_norms=gnorms, step_seconds=secs,
+               split=split, peak_gib=peak, launches=launches,
+               param_count=cfg.param_count(),
+               seconds=time.perf_counter() - t0)
+    print(f"[train f32 d192] {cfg.name} cut to d {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, {cfg.num_layers} layers ({cfg.num_heads} heads over "
+          f"{cfg.num_kv_heads} of {cfg.head_dim}), "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, float32 (TF32 off), "
+          f"{cfg.optimizer_state_dtype} moments: {TRAIN_F32_STEPS} step of "
+          f"{b} x {seq} tokens in {m} microbatches; losses "
+          f"{[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in gnorms]}; step seconds "
+          f"{[round(x, 3) for x in secs]} (forward "
+          f"{split.get('forward', 0):.3f}s, backward "
+          f"{split.get('backward', 0):.3f}s, optimizer "
+          f"{split.get('optimizer', 0):.3f}s); launches {launches}; peak "
+          f"device memory {peak:.2f} GiB of {total_gib:.2f}; "
+          f"{out['seconds']:.1f}s with set-up")
     return out
 
 
@@ -4471,10 +4673,9 @@ def run_train_mesh_phases(golden: dict, worlds: dict) -> dict:
     return out
 
 
-def _time_bwd_shape(name: str, shape, dev, with_simt: bool) -> dict:
+def _time_bwd_shape(name: str, shape, dev) -> dict:
     """The flash-attention gradient at ``shape`` (B, L, H, KVH, D), bf16,
-    causal: the ``wgmma`` route (all its launches, and each alone) and,
-    ``with_simt``, the ``simt`` kernel at the same shape, each from a
+    causal: the ``wgmma`` route (all its launches, and each alone) from a
     CUDA graph of 10 (through the wrappers, uncounted); the ``wgmma``
     route's plain version (events); and the autograd backward of
     ``scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
@@ -4483,8 +4684,6 @@ def _time_bwd_shape(name: str, shape, dev, with_simt: bool) -> dict:
     graph captures — and with events around eager calls; beside the
     bound: five products of the visible (query, key) pairs at the bf16
     peak, or the bytes of q, k, v, o, do, dq, dk and dv once."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
@@ -4516,10 +4715,6 @@ def _time_bwd_shape(name: str, shape, dev, with_simt: bool) -> dict:
         return (dq, *fa.flash_bwd_wgmma_dkdv_cuda(q, k, v, do, lse, dl,
                                                   **kw))
 
-    def simt():
-        dq, stats = fa.flash_bwd_dq_cuda(q, k, v, o, do, **kw)
-        return (dq, *fa.flash_bwd_dkdv_cuda(q, k, v, do, stats, **kw))
-
     def plain():
         return ref.flash_attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
 
@@ -4534,20 +4729,7 @@ def _time_bwd_shape(name: str, shape, dev, with_simt: bool) -> dict:
         q, k, v, o, do, lse, **kw))}
     part_ms.update({p: _kernel_ms(fn) for p, fn in rest.items()})
     plain_ms = _time_ms(plain, 2)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
-    torch.cuda.current_stream().wait_stream(side)
-    dot = do.transpose(1, 2)
-
-    def library():
-        return torch.autograd.grad(out, (qt, kt, vt), dot,
-                                   retain_graph=True)
-
+    library, side, backend = _sdpa_backward(q, k, v, do)
     lib_err = max_err([a.transpose(1, 2) for a in library()], want)
     del want
     library_eager_ms = _time_ms(library, 10)
@@ -4559,43 +4741,152 @@ def _time_bwd_shape(name: str, shape, dev, with_simt: bool) -> dict:
     bound = max(ops_ms, bytes_ms)
     res = dict(ms=ms, part_ms=part_ms, plain_ms=plain_ms,
                library_ms=library_ms, library_eager_ms=library_eager_ms,
-               bound_ms=bound,
+               library_backend=backend, bound_ms=bound,
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                max_abs_err=err, library_max_abs_err=lib_err,
                launches=fa.bwd_launches(torch.bfloat16, L, d))
-    simt_txt = ""
-    if with_simt:
-        res["simt_max_abs_err"] = max_err(
-            simt(), ref.flash_attention_bwd_ref(q, k, v, o, do, **kw))
-        res["simt_ms"] = _kernel_ms(simt)
-        res["simt_plain_ms"] = _time_ms(lambda: ref.flash_attention_bwd_ref(
-            q, k, v, o, do, **kw), 2)
-        simt_txt = (f", simt route {res['simt_ms']:.4f} ms (plain "
-                    f"{res['simt_plain_ms']:.4f} ms; max abs err "
-                    f"{res['simt_max_abs_err']:.3e})")
     print(f"[timing flash bwd] {name} {shape} (B, L, H, KVH, D) bf16 "
           f"causal: wgmma route {ms:.4f} ms in {res['launches']} launches ("
           + ", ".join(f"{p} {t:.4f}" for p, t in part_ms.items())
-          + f"){simt_txt} (CUDA graphs of 10), plain {plain_ms:.4f} ms (the "
-          f"wgmma route's), SDPA's autograd backward {library_ms:.4f} ms "
-          f"from a CUDA graph of 10 and {library_eager_ms:.4f} ms with "
-          f"events around eager calls (its max abs diff from plain "
-          f"{lib_err:.3e}); bound {bound:.6f} ms by {res['bound_by']} "
+          + f") (CUDA graphs of 10), plain {plain_ms:.4f} ms (the "
+          f"wgmma route's), SDPA's autograd backward ({backend}) "
+          f"{library_ms:.4f} ms from a CUDA graph of 10 and "
+          f"{library_eager_ms:.4f} ms with events around eager calls (its "
+          f"max abs diff from plain {lib_err:.3e}); bound {bound:.6f} ms by {res['bound_by']} "
           f"({ops_ms:.6f} operations, {bytes_ms:.6f} bytes): wgmma "
           f"{bound / ms:.1%} of it; max abs err from plain wgmma {err:.3e}")
     return res
 
 
+def _sdpa_backward(q, k, v, do):
+    """The autograd backward of ``scaled_dot_product_attention(...,
+    is_causal=True, enable_gqa=True)`` on (B, L, H, D) ``q`` and ``do``, k
+    and v (B, L, KVH, D), as a callable returning (dq, dk, dv) in the
+    (B, H, L, D) layout, its side stream and the backend PyTorch picks
+    for these inputs (timed only, as the library's yardstick; the port
+    never calls it).  Its forward runs on the side stream, which the
+    backward's kernels follow, so a CUDA graph captured there holds
+    them."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        backend = SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, is_causal=True, enable_gqa=True)).name
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    torch.cuda.current_stream().wait_stream(side)
+    dot = do.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+
+    return library, side, backend
+
+
+def _time_bwd_f32(name: str, shape, dev) -> dict:
+    """The flash-attention gradient at ``shape`` (B, L, H, KVH, D) in
+    float32, causal: the ``simt`` route (all its launches, and each alone:
+    dq, then dk/dv, or dv and dk at a head dim of
+    ``SPLIT_DKDV_HEAD_DIMS``) from CUDA graphs of 10 (through the
+    wrappers, uncounted), its plain version (events), and SDPA's float32
+    autograd backward (`_sdpa_backward`) from a CUDA graph of 10 and with
+    events around eager calls; beside the bound at the float32 peak: five
+    products of the visible pairs at SCALAR_OPS_PER_S (no tensor core
+    takes float32 inputs whole), or the float32 bytes of q, k, v, o, do,
+    dq, dk and dv once."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    b, L, h, kvh, d = shape
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, do = (torch.randn(sh, generator=gen, device=dev)
+                   for sh in ((b, L, h, d), (b, L, kvh, d), (b, L, kvh, d),
+                              (b, L, h, d)))
+    kw = dict(causal=True, scale=d ** -0.5)
+    o = ops.flash_attention_fwd(q, k, v, causal=True)[0]
+    stats = fa.flash_bwd_dq_cuda(q, k, v, o, do, **kw)[1]
+    split = d in fa.SPLIT_DKDV_HEAD_DIMS
+    parts = {"dq": lambda: fa.flash_bwd_dq_cuda(q, k, v, o, do, **kw)}
+    if split:
+        parts["dv"] = lambda: fa.flash_bwd_dv_cuda(q, k, v, do, stats, **kw)
+        parts["dk"] = lambda: fa.flash_bwd_dk_cuda(q, k, v, do, stats, **kw)
+    else:
+        parts["dkdv"] = lambda: fa.flash_bwd_dkdv_cuda(q, k, v, do, stats,
+                                                       **kw)
+
+    def simt():
+        dq, st = fa.flash_bwd_dq_cuda(q, k, v, o, do, **kw)
+        if split:
+            dv = fa.flash_bwd_dv_cuda(q, k, v, do, st, **kw)
+            return dq, fa.flash_bwd_dk_cuda(q, k, v, do, st, **kw), dv
+        return (dq, *fa.flash_bwd_dkdv_cuda(q, k, v, do, st, **kw))
+
+    def plain():
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+
+    want = plain()
+    got = simt()
+    err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    rel = max(float((a - w).abs().max() / w.abs().max())
+              for a, w in zip(got, want))
+    del got
+    ms = _kernel_ms(simt)
+    part_ms = {p: _kernel_ms(fn) for p, fn in parts.items()}
+    plain_ms = _time_ms(plain, 2)
+    library, side, backend = _sdpa_backward(q, k, v, do)
+    lib_err = max(float((a.transpose(1, 2) - w).abs().max())
+                  for a, w in zip(library(), want))
+    del want
+    library_eager_ms = _time_ms(library, 10)
+    library_ms = _kernel_ms(library, stream=side)
+    pairs = L * (L + 1) // 2
+    ops_ms = 1e3 * 5 * 2 * b * h * pairs * d / SCALAR_OPS_PER_S
+    bytes_ms = 1e3 * 4 * (4 * b * L * h * d + 4 * b * L * kvh * d) \
+        / HBM_BYTES_PER_S
+    bound = max(ops_ms, bytes_ms)
+    res = dict(ms=ms, part_ms=part_ms, plain_ms=plain_ms,
+               library_ms=library_ms, library_eager_ms=library_eager_ms,
+               library_backend=backend, bound_ms=bound,
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               max_abs_err=err, max_rel_err=rel, library_max_abs_err=lib_err,
+               launches=fa.bwd_launches(torch.float32, L, d))
+    print(f"[timing flash bwd f32] {name} {shape} (B, L, H, KVH, D) "
+          f"float32 causal: simt route {ms:.4f} ms in {res['launches']} "
+          f"launches (" + ", ".join(f"{p} {t:.4f}" for p, t in
+                                   part_ms.items())
+          + f"; CUDA graphs of 10), plain {plain_ms:.4f} ms, SDPA's float32 "
+          f"autograd backward ({backend}) {library_ms:.4f} ms from a CUDA "
+          f"graph of 10 and {library_eager_ms:.4f} ms with events around "
+          f"eager calls (its max abs diff from plain {lib_err:.3e}); bound "
+          f"{bound:.6f} ms by {res['bound_by']} ({ops_ms:.6f} operations at "
+          f"{SCALAR_OPS_PER_S / 1e12:.0f} TFLOP/s, {bytes_ms:.6f} bytes): "
+          f"simt {bound / ms:.1%} of it; max abs err from plain {err:.3e} "
+          f"({rel:.3e} of the largest magnitude)")
+    return res
+
+
 def time_flash_bwd(dev) -> dict:
-    """`_time_bwd_shape` at each of BWD_TIMED_SHAPES (the simt kernel at
-    the training shape only: it does not take D 192); returns the
-    training shape's figures (the earlier keys, ``dq_ms`` and ``dkdv_ms``
-    among them) with every shape's under ``shapes``."""
-    per = {name: _time_bwd_shape(name, shape, dev, name == "training")
+    """`_time_bwd_shape` (the wgmma route, bf16) at each of
+    BWD_TIMED_SHAPES, then `_time_bwd_f32` (the simt route, float32) at
+    the training shape and nemotron's; returns the training shape's
+    figures (the earlier keys, ``dq_ms`` and ``dkdv_ms`` among them) with
+    every shape's under ``shapes`` and the float32 ones under ``f32``."""
+    per = {name: _time_bwd_shape(name, shape, dev)
            for name, shape in BWD_TIMED_SHAPES.items()}
+    _release("flash bwd timing, bf16")
+    f32 = {}
+    for name in ("training", "nemotron"):
+        f32[name] = _time_bwd_f32(name, BWD_TIMED_SHAPES[name], dev)
+        _release(f"flash bwd timing, float32 {name}")
     t = per["training"]
     return dict(t, dq_ms=t["part_ms"]["dq"], dkdv_ms=t["part_ms"]["dkdv"],
-                shapes=per)
+                shapes=per, f32=f32)
 
 
 def run_train_phases(golden: dict, dev) -> dict:
@@ -4603,8 +4894,8 @@ def run_train_phases(golden: dict, dev) -> dict:
     golden steps' weights (the ``"train"`` entry's and the
     ``"train_families"`` models') in threads (its draws release the
     interpreter lock), then the golden steps, the bf16 gradients, the main
-    path, the families and the restart contract, each phase's memory
-    released before the next."""
+    path, the families, nemotron's float32 step and the restart contract,
+    each phase's memory released before the next."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.configs import registry
@@ -4638,8 +4929,53 @@ def run_train_phases(golden: dict, dev) -> dict:
     out["main"] = run_train_main_path()
     _release("train main")
     out["families"] = run_train_families(dev)
+    out["f32_d192"] = run_train_f32_d192(dev)
+    _release("train f32 d192")
     out["restart"] = run_train_restart(dev)
     _release("train restart")
+    return out
+
+
+def run_archs_phases(golden: dict, dev) -> dict:
+    """``--archs-only``: the checks of the archs that [lm main] does not
+    cover, alone — [flash bwd], the ``"dense"`` and ``"audio"`` goldens,
+    [dense main] and [audio main], the ``"train_families"`` goldens of
+    nemotron and musicgen, phi-3-vision's and musicgen's bf16 gradients
+    and training steps, [train f32 d192] and the float32 backward's
+    timing (`_time_bwd_f32`)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import registry
+
+    fams = {n: golden["train_families"][n] for n in ("nemotron", "musicgen")}
+    with ThreadPoolExecutor(len(fams)) as pool:
+        trees = {n: pool.submit(_draw_golden_tree, g) for n, g in fams.items()}
+        out = {"bwd": check_flash_bwd(dev)}
+        _release("flash bwd checks")
+        out["families_golden"] = {
+            n: check_train_golden(g, dev, trees.pop(n).result(),
+                                  f"train families golden {n}")
+            for n, g in fams.items()}
+    _release("train families golden")
+    for name in ("dense", "audio"):
+        out[f"{name}_golden"] = check_golden_entries(golden[name], dev,
+                                                     f"{name} golden")
+    out["dense"] = run_dense_main_path()
+    out["audio"] = _serve_full_depth(AUDIO_ARCH, "audio main")
+    _release("dense and audio serving")
+    archs = ("phi-3-vision-4.2b", AUDIO_ARCH)
+    out["families_bf16"] = {}
+    for arch in archs:
+        cfg = dataclasses.replace(registry.get(arch),
+                                  **TRAIN_FAMILY_BF16[arch])
+        out["families_bf16"][arch] = check_train_bf16(
+            dev, cfg, f"train families bf16 {arch.split('-')[0]}")
+        _release(f"train families bf16 {arch}")
+    out["families"] = run_train_families(dev, archs)
+    out["f32_d192"] = run_train_f32_d192(dev)
+    _release("train f32 d192")
+    out["timing"] = {n: _time_bwd_f32(n, BWD_TIMED_SHAPES[n], dev)
+                     for n in ("training", "nemotron")}
     return out
 
 
@@ -5141,6 +5477,7 @@ def _time_line(t_all: float) -> None:
 
 def main(argv=None) -> int:
     import argparse
+    from concurrent.futures import ThreadPoolExecutor
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train-mesh-only", action="store_true",
@@ -5149,6 +5486,13 @@ def main(argv=None) -> int:
     ap.add_argument("--serve-mesh-only", action="store_true",
                     help="build, then run [train mesh main] (one step) "
                          "and phase 18 alone; no kernels line")
+    ap.add_argument("--archs-only", action="store_true",
+                    help="build, then run [flash bwd], the dense and audio "
+                         "goldens and main paths, nemotron's and "
+                         "musicgen's train-family goldens, phi-3-vision's "
+                         "and musicgen's training, [train f32 d192] and "
+                         "the float32 backward's timing alone "
+                         "(`run_archs_phases`); no kernels line")
     ap.add_argument("--worlds-only", action="store_true",
                     help="build, then run the mesh world of 9d with every "
                          "job and check phases 9d (without its one-device "
@@ -5190,16 +5534,20 @@ def main(argv=None) -> int:
                        re.S)
     print("[build] coverage registers (W, Q, 16-byte loads): "
           + ", ".join(f"({w}, {q}, {v == '1'}) {r}" for w, q, v, r in cover))
-    # flash_bwd_{dq,dkdv}_kernel<T, NT>: registers and spill bytes.
-    bwd = re.findall(r"(flash_bwd_\w+?_kernel)I(\w+?)Li(\d+)E.*?(\d+) "
-                     r"bytes spill stores, (\d+) bytes spill loads.*?Used "
-                     r"(\d+) registers", _build.build_log(
+    # flash_bwd_dq_kernel<T, NT> and flash_bwd_dkdv_kernel<T, NT, part>
+    # (part 1 dv alone, 2 dk alone at D 192): registers and spill bytes.
+    bwd = re.findall(r"(flash_bwd_\w+?_kernel)I(\w+?)Li(\d+)E(?:Li(\d)E)?"
+                     r".*?(\d+) bytes spill stores, (\d+) bytes spill loads"
+                     r".*?Used (\d+) registers", _build.build_log(
                          "flash_attention_bwd"), re.S)
+    bwd_simt = {f"{({'1': 'dv', '2': 'dk'}.get(part, k[10:-7]))} "
+                f"{'bf16' if 'bfloat' in t else 'f32'} {nt}": {
+                    "registers": int(r), "spill_bytes": int(a) + int(b)}
+                for k, t, nt, part, a, b, r in bwd}
     print("[build] flash_attention_bwd registers (spill bytes) per kernel, "
           "dtype and D/16 bucket: "
-          + ", ".join(f"{k[10:-7]} {'bf16' if 'bfloat' in t else 'f32'} "
-                      f"{nt} {r} ({int(a) + int(b)})"
-                      for k, t, nt, a, b, r in bwd))
+          + ", ".join(f"{n} {v['registers']} ({v['spill_bytes']})"
+                      for n, v in bwd_simt.items()))
     # flash_bwd_dq_kernel<D> and flash_bwd_dkdv_kernel<D, part> (the wgmma
     # route; part 1 dv alone, 2 dk alone at D 192): registers at launch
     # (ptxas's figure for 384 threads; setmaxnreg then moves the producer
@@ -5222,6 +5570,16 @@ def main(argv=None) -> int:
     print("[build] flash_prefill_wgmma registers (spill bytes) per head dim: "
           + ", ".join(f"D {d} {r} ({int(a) + int(b)})"
                       for d, a, b, r in wgmma))
+    if args.archs_only:
+        run_archs_phases(golden, dev)
+        _time_line(t_all)
+        print(f"[result] the archs' phases alone, {time.time() - t_all:.1f}s "
+              f"with the build")
+        print(_gpu_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.serve_mesh_only or args.train_mesh_only or args.worlds_only:
         if args.serve_mesh_only:
             worlds = run_worlds(golden, mesh=False, a2a=False, train=False,
@@ -5300,6 +5658,12 @@ def main(argv=None) -> int:
     grid = run_table1_grid()
     _release("Table-1 grid")
     worlds = run_worlds(golden)
+    # The "dense" and "audio" golden weights, drawn on the host (niced)
+    # while phases 10-15 run on the card: beside the world's ranks they
+    # passed the machine's 96 GiB.
+    late = ThreadPoolExecutor(3)
+    _predraw_entries(late, golden, ("dense", "audio"))
+    late.shutdown(wait=False)
     mesh = check_mesh_phase(worlds, {"a": ic["build_s"], "b": lt["build_s"]})
     _release("mesh phase")
 
@@ -5315,6 +5679,8 @@ def main(argv=None) -> int:
     moe_gold = check_golden_entries(golden["moe"], dev, "moe golden")
     ssm_gold = check_golden_entries(golden["ssm"], dev, "ssm golden")
     vlm_gold = check_golden_entries(golden["vlm"], dev, "vlm golden")
+    dense_gold = check_golden_entries(golden["dense"], dev, "dense golden")
+    audio_gold = check_golden_entries(golden["audio"], dev, "audio golden")
     lm_bf16 = check_lm_bf16(dev)
     ssm_bf16 = check_lm_bf16(dev, "zamba2-2.7b",
                              golden["ssm"]["zamba2"]["num_layers"],
@@ -5336,6 +5702,9 @@ def main(argv=None) -> int:
     _release("VLM phases")
     nemo = run_nemotron_serving()
     _release("nemotron serving")
+    dense = run_dense_main_path()
+    audio = _serve_full_depth(AUDIO_ARCH, "audio main")
+    _release("dense and audio serving")
     train = run_train_phases(golden, dev)
     _release("training phases")
     train_mesh = run_train_mesh_phases(golden, worlds)
@@ -5405,12 +5774,19 @@ def main(argv=None) -> int:
                       f"the bf16 peak, peak {r['peak_gib']:.2f} GiB)"
                       for arch, r in fam.items())
           + f"; flash backward "
-          f"{fb['ms']:.4f} ms on wgmma, {fb['simt_ms']:.4f} on simt (bound "
+          f"{fb['ms']:.4f} ms on wgmma, float32 on simt "
+          f"{fb['f32']['training']['ms']:.4f} (bound "
           f"{fb['bound_ms']:.4f}, SDPA's {fb['library_ms']:.4f} from a graph, "
           f"{fb['library_eager_ms']:.4f} eager), at D 192 "
           f"{fb['shapes']['nemotron']['ms']:.4f} ms (bound "
           f"{fb['shapes']['nemotron']['bound_ms']:.4f}, SDPA's "
-          f"{fb['shapes']['nemotron']['library_ms']:.4f}); flash forward at D "
+          f"{fb['shapes']['nemotron']['library_ms']:.4f}), in float32 on "
+          f"simt {fb['f32']['nemotron']['ms']:.4f} ms (bound "
+          f"{fb['f32']['nemotron']['bound_ms']:.4f}, SDPA's "
+          f"{fb['f32']['nemotron']['library_ms']:.4f}); training the "
+          f"nemotron cut in float32 "
+          f"{train['f32_d192']['step_seconds'][0]:.3f}s a step (peak "
+          f"{train['f32_d192']['peak_gib']:.2f} GiB); flash forward at D "
           f"192 {fl['nemotron_prefill']['ms']:.4f} ms (bound "
           f"{fl['nemotron_prefill']['bound_ms']:.4f}, SDPA's "
           f"{fl['nemotron_prefill']['library_ms']:.4f}); fused_expand_q at n {Q_N} "
@@ -5547,6 +5923,10 @@ def main(argv=None) -> int:
              vlm_golden_max_abs_err={k: v["max_abs_err"]
                                      for k, v in vlm_gold.items()},
              vlm_bf16_max_abs_err=vlm_bf16["max_abs_err"],
+             dense_golden_max_abs_err={k: v["max_abs_err"]
+                                       for k, v in dense_gold.items()},
+             audio_golden_max_abs_err={k: v["max_abs_err"]
+                                       for k, v in audio_gold.items()},
              launches_by_path={
                  "lm_llama3.2-3b": lm["launches"]["flash_attention"],
                  **{f"ssm_{arch.split('-')[0]}_{mix}": ssm[arch][mix][
@@ -5555,6 +5935,11 @@ def main(argv=None) -> int:
                  **{f"vlm_phi_{mix}": vlm[mix]["launches"]["flash_attention"]
                     for mix in (*LM_MIXES, "c")},
                  "nemotron_cut_b": nemo["launches"]["flash_attention"],
+                 **{f"dense_{arch.split('-')[0]}_{mix}": dense[arch][mix][
+                     "launches"]["flash_attention"]
+                    for arch in DENSE_MAIN for mix in LM_MIXES},
+                 **{f"audio_musicgen_{mix}": audio[mix]["launches"][
+                     "flash_attention"] for mix in LM_MIXES},
                  **{f"moe_maverick_{mix}": moe[
                      "llama4-maverick-400b-a17b"][mix]["launches"][
                      "flash_attention"] for mix in LM_MIXES},
@@ -5579,6 +5964,12 @@ def main(argv=None) -> int:
                      launches_phi={mix: vlm[mix]["launches"]["flash_wgmma"]
                                    for mix in (*LM_MIXES, "c")},
                      launches_nemotron_cut_b=nemo["launches"]["flash_wgmma"],
+                     launches_dense_and_audio={
+                         **{f"{arch}_{mix}": dense[arch][mix]["launches"][
+                             "flash_wgmma"]
+                            for arch in DENSE_MAIN for mix in LM_MIXES},
+                         **{f"{AUDIO_ARCH}_{mix}": audio[mix]["launches"][
+                             "flash_wgmma"] for mix in LM_MIXES}},
                      cases=flash_err["cases"]["wgmma"],
                      bf16_rrms=flash_err["bf16_rrms"]["wgmma"],
                      **{k: fl["prefill"][k] for k in (
@@ -5734,6 +6125,7 @@ def main(argv=None) -> int:
                         for n in ("nemotron", "zamba2", "phi")}),
                  "simt": dict(
                      source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                     build=bwd_simt,
                      launches_by_path={
                          p: train[p]["launches"]["flash_bwd_simt"]
                          for p in ("main", "golden", "bf16")} | {
@@ -5742,12 +6134,23 @@ def main(argv=None) -> int:
                          for n, r in train["families_golden"].items()} | {
                          f"train_mesh_golden_{n}": [
                              x["flash_bwd_simt"] for x in v["launches"]]
-                         for n, v in train_mesh["golden"]["models"].items()},
+                         for n, v in train_mesh["golden"]["models"].items()}
+                     | {"train_f32_d192": train["f32_d192"]["launches"][
+                         "flash_bwd_simt"]},
                      max_abs_err_f32=train["bwd"]["f32"],
-                     ms=fb["simt_ms"], plain_ms=fb["simt_plain_ms"],
-                     bound_ms=fb["bound_ms"], bound_by=fb["bound_by"],
-                     library_ms=fb["library_ms"],
-                     max_abs_err=fb["simt_max_abs_err"])}),
+                     max_abs_err_f32_d192=train["bwd"]["f32_d192"],
+                     max_rel_err_f32_d192=train["bwd"]["f32_d192_rel"],
+                     # float32 at the training shape (the top-level keys)
+                     # and at nemotron's (D 192: dq, dv, dk), against
+                     # SDPA's float32 backward and the float32 peak.
+                     **{k: fb["f32"]["training"][k] for k in (
+                         "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "max_abs_err")},
+                     f32={n: {k: t[k] for k in (
+                         "ms", "part_ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "library_eager_ms", "library_backend",
+                         "max_abs_err", "max_rel_err", "launches")}
+                         for n, t in fb["f32"].items()})}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())

@@ -9,6 +9,8 @@
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --moe-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --ssm-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --vlm-only
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --dense-only
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --audio-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --train-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --train-families-only
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/make_torch_golden.py --train-mesh
@@ -150,6 +152,34 @@ draws them) before 64 tokens, prefilled through the reference's
 ``--vlm-only`` recomputes this entry alone and keeps the others byte for
 byte.
 
+The ``"dense"`` entry holds the registry's other dense archs, each run as
+the ``"lm"`` entry is (float32, ``numpy_params(cfg, seed=0)``, 2 × 64
+tokens, 8 teacher-forced greedy steps), at full width, 2 layers, the
+vocabulary cut to 32,768 as the MoE entries' (``DENSE_CUTS``):
+
+- ``"qwen"``: qwen1.5-110b (d 8,192, 64 heads over 8 of 128 with QKV
+  bias, gated d_ff 49,152; vocabulary 152,064), 80 layers cut to 2; about
+  13.0 GB;
+- ``"command_r"``: command-r-35b (d 8,192, 64 over 8 of 128, gated d_ff
+  22,528; vocabulary 256,000), 40 layers cut to 2; about 7.8 GB;
+- ``"nemotron"``: nemotron-4-340b's attention (96 heads over 8 of 192)
+  and squared-ReLU MLP at the width the card trains it (d 18,432 cut to
+  4,608, d_ff 73,728 to 18,432, ``chip_smoke.py``'s
+  ``TRAIN_FAMILY_CUTS``), 96 layers cut to 2; about 4.0 GB.  At full
+  width a layer alone is 3.45 B parameters (13.8 GB in float32): one
+  layer's tree, held by the reference and by the port's check, would
+  pass half of this host's memory, which other work shares.
+
+The ``"audio"`` entry holds ``"musicgen"``, musicgen-medium (d 1,536, 24
+heads of 64, gelu d_ff 6,144, 4 codebooks of 2,048) at full width and
+vocabulary, 48 layers cut to 2 (``AUDIO_CUTS``), run as the ``"lm"``
+entry is but with prompts of (2, 4, 64) tokens (one row a codebook) and
+steps fed the reference's greedy token of every codebook; the logit
+summaries' rows are (batch, codebook) pairs, 8 a step.  Each model of
+both entries runs in a process of its own (``--lm-worker``), one at a
+time.  ``--dense-only`` and ``--audio-only`` recompute that entry alone
+(~2 min and ~20 s).
+
 The ``"train"`` entry is two steps of the reference's ``make_train_step``
 (M 1, constant lr 1e-3, AdamW with float32 moments) on llama3.2-3b at
 full width and vocabulary, cut to 2 layers, float32, on the weights of
@@ -164,8 +194,9 @@ three leaves of each.  ``--train-only`` recomputes this entry alone
 The ``"train_families"`` entry holds the same two steps (float32, M 1,
 lr 1e-3, float32 moments, ``SyntheticLM(cfg, 2, 256, seed=1)``) and the
 same summary (three leaves of each family's own) for one model of each
-family that `make_train_step` newly trains, each cut as
-``TRAIN_FAMILY_CUTS`` records:
+family that `make_train_step` newly trains, and for the two archs whose
+training the card runs through paths of their own (nemotron's head dim
+192, musicgen's codebooks), each cut as ``TRAIN_FAMILY_CUTS`` records:
 
 - ``"mamba2"``: mamba2-1.3b, the ``"ssm"`` entry's cut (2 layers), its
   per-head mixer parameters redrawn by ``numpy_ssm_heads`` as there;
@@ -185,14 +216,22 @@ the reference's forward (the ``"ssm"`` entry) is finite either way.
 - ``"maverick"``: llama4-maverick-400b-a17b at full width, its dense
   layer and one MoE layer of 4 experts.
 
-Both MoE models also cut the vocabulary to 32,768: at full vocabulary
+- ``"nemotron"``: nemotron-4-340b's attention (96 heads over 8 of 192:
+  the ``simt`` backward's head dim 192 on the card) and squared-ReLU MLP
+  at d 4,608, d_ff 18,432 (the card's training cut, ``chip_smoke.py``'s
+  ``TRAIN_FAMILY_CUTS``), 2 layers, vocabulary 32,768;
+- ``"musicgen"``: musicgen-medium at full width and vocabulary (4
+  codebooks of 2,048, one loss a codebook), 2 layers; its batches are
+  (2, 4, 256) tokens.
+
+The MoE models and nemotron cut the vocabulary to 32,768: at full vocabulary
 their embedding and unembedding alone are 1.85 B (deepseek) and 2.07 B
 (maverick) parameters, whose float32 weights, gradient and two moments
 (16 bytes a parameter) would take 30-33 GB before the layers, past what
 this script may hold beside the reference's activations.  Each model runs
 in a process of its own (``--train-families-worker``), so the host holds
 one at a time (~25 GB at most).  ``--train-families-only`` recomputes this
-entry alone (~10 min).
+entry alone (~12 min).
 
 The ``"train_mesh"`` entry is the reference's sharded training step
 (``make_train_step`` jitted on parameters placed by
@@ -266,6 +305,15 @@ SSM_HEADS_SEED, SSM_PROMPT_LEN = 0, 512
 # The "vlm" entry's configuration (module docstring) and its patches' seed.
 VLM_CUTS = {"phi3v": dict(arch="phi-3-vision-4.2b", num_layers=2)}
 VLM_PATCH_SEED = 2
+# The "dense" and "audio" entries' configurations (module docstring).
+DENSE_CUTS = {
+    "qwen": dict(arch="qwen1.5-110b", num_layers=2, vocab_size=32768),
+    "command_r": dict(arch="command-r-35b", num_layers=2, vocab_size=32768),
+    "nemotron": dict(arch="nemotron-4-340b", d_model=4608, d_ff=18432,
+                     num_layers=2, vocab_size=32768),
+}
+AUDIO_CUTS = {"musicgen": dict(arch="musicgen-medium", num_layers=2)}
+LM_WORKER_CUTS = {"dense": DENSE_CUTS, "audio": AUDIO_CUTS}
 # The "train" entry (module docstring): depth, batches, steps, lr and the
 # leaves whose values it records (64 each, at indices drawn from the seed).
 TRAIN_LAYERS, TRAIN_DATA_SEED, TRAIN_BATCH, TRAIN_SEQ = 2, 1, 2, 256
@@ -281,6 +329,9 @@ TRAIN_FAMILY_CUTS = {
                      vocab_size=32768),
     "maverick": dict(arch="llama4-maverick-400b-a17b", num_layers=2,
                      num_experts=4, vocab_size=32768),
+    "nemotron": dict(arch="nemotron-4-340b", d_model=4608, d_ff=18432,
+                     num_layers=2, vocab_size=32768),
+    "musicgen": dict(arch="musicgen-medium", num_layers=2),
 }
 TRAIN_FAMILY_LEAVES = {
     "mamba2": ("embedding", "layers.0.mamba.in_proj",
@@ -291,6 +342,8 @@ TRAIN_FAMILY_LEAVES = {
                  "layers.0.moe.experts_w2"),
     "maverick": ("layers.0.attn.wq", "layers.1.moe.router",
                  "layers.1.moe.experts_w1"),
+    "nemotron": ("layers.0.attn.wq", "layers.1.attn.wk", "layers.1.mlp.w1"),
+    "musicgen": ("embedding", "layers.0.attn.wv", "unembed"),
 }
 # The "train_mesh" entry (module docstring): each model's mesh, the
 # batch, steps and microbatches, and the three leaves it summarises.
@@ -368,7 +421,9 @@ def _lm_entry(cfg, port_cfg, prompt_len: int = LM_PROMPT_LEN,
         port_init.numpy_ssm_heads(tree, port_cfg, ssm_heads_seed)
     params = _tree_to_jax(tree)
     rng = np.random.default_rng(LM_PROMPT_SEED)
-    prompt = rng.integers(0, cfg.vocab_size, (LM_BATCH, prompt_len))
+    codebooks = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    prompt = rng.integers(0, cfg.vocab_size,
+                          (LM_BATCH, *codebooks, prompt_len))
     ids = np.sort(rng.choice(cfg.vocab_size, LM_IDS, replace=False))
     batch = {"tokens": jnp.asarray(prompt)}
     start = prompt_len               # the first decode step's cur_len
@@ -394,7 +449,9 @@ def _lm_entry(cfg, port_cfg, prompt_len: int = LM_PROMPT_LEN,
     try:
         last, caches, _ = engine.prefill(params, cfg, batch,
                                          start + LM_STEPS)
-        logits = np.asarray(last[:, -1], np.float32)
+        # (B, V), or audio's (B, K, V) as (B·K, V): a row a codebook.
+        logits = np.asarray(last[:, -1], np.float32).reshape(
+            -1, cfg.vocab_size)
         out = {"arch": cfg.name, "num_layers": cfg.num_layers,
                "dtype": "float32", "param_seed": LM_PARAM_SEED,
                "prompt_seed": LM_PROMPT_SEED, "prompt": prompt.tolist(),
@@ -403,12 +460,13 @@ def _lm_entry(cfg, port_cfg, prompt_len: int = LM_PROMPT_LEN,
         step = jax.jit(lambda p, c, t, n: decode.decode_step(p, cfg, c, t,
                                                              n))
         for i in range(LM_STEPS):
-            tok = logits.argmax(-1)[:, None]
+            tok = logits.argmax(-1).reshape(LM_BATCH, *codebooks, 1)
             lg, caches = step(params, caches, jnp.asarray(tok),
                               jnp.int32(start + i))
-            logits = np.asarray(lg[:, -1], np.float32)
+            logits = np.asarray(lg[:, -1], np.float32).reshape(
+                -1, cfg.vocab_size)
             out["decode"].append({"cur_len": start + i,
-                                  "tokens": tok[:, 0].tolist(),
+                                  "tokens": tok[..., 0].tolist(),
                                   **_logit_summary(logits, ids)})
         jax.effects_barrier()
     finally:
@@ -483,6 +541,25 @@ def vlm_golden() -> dict:
                                    patch_seed=VLM_PATCH_SEED),
                          arch=cut["arch"], cuts=cut)
     return out
+
+
+def lm_worker_entry(entry: str, name: str) -> dict:
+    """One model of the ``"dense"`` or ``"audio"`` entry (``entry``):
+    `_lm_entry` of its cut, with its cuts."""
+    cut = dict(LM_WORKER_CUTS[entry][name], dtype="float32")
+    over = {k: v for k, v in cut.items() if k != "arch"}
+    cfg = dataclasses.replace(registry.get(cut["arch"]), **over)
+    port_cfg = dataclasses.replace(port_registry.get(cut["arch"]), **over)
+    return dict(_lm_entry(cfg, port_cfg), arch=cut["arch"], cuts=cut)
+
+
+def lm_worker_golden(entry: str) -> dict:
+    """The ``"dense"`` or ``"audio"`` entry: `lm_worker_entry` of each
+    model in a process of its own, one at a time."""
+    return {name: _worker_subprocess("--lm-worker",
+                                     {"entry": entry, "name": name}, 1,
+                                     3600.0)
+            for name in LM_WORKER_CUTS[entry]}
 
 
 def _leaf_summary(tree, cfg, rng_seed: int, leaves=TRAIN_LEAVES) -> dict:
@@ -1101,6 +1178,10 @@ def main() -> None:
                       help="recompute the \"ssm\" entry alone")
     only.add_argument("--vlm-only", action="store_true",
                       help="recompute the \"vlm\" entry alone")
+    only.add_argument("--dense-only", action="store_true",
+                      help="recompute the \"dense\" entry alone")
+    only.add_argument("--audio-only", action="store_true",
+                      help="recompute the \"audio\" entry alone")
     only.add_argument("--train-only", action="store_true",
                       help="recompute the \"train\" entry alone")
     only.add_argument("--train-families-only", action="store_true",
@@ -1113,6 +1194,9 @@ def main() -> None:
     only.add_argument("--train-families-worker", metavar="JOB_JSON",
                       help="print train_family_golden(JOB['name']) as JSON "
                            "(run by train_families_golden)")
+    only.add_argument("--lm-worker", metavar="JOB_JSON",
+                      help="print lm_worker_entry(JOB['entry'], "
+                           "JOB['name']) as JSON (run by lm_worker_golden)")
     only.add_argument("--mesh-worker", metavar="JOB_JSON",
                       help="print mesh_reference(JOB) as JSON (run by "
                            "mesh_reference_subprocess)")
@@ -1140,17 +1224,24 @@ def main() -> None:
         job = json.loads(args.train_families_worker)
         print(json.dumps(train_family_golden(job["name"])))
         return
+    if args.lm_worker:
+        job = json.loads(args.lm_worker)
+        print(json.dumps(lm_worker_entry(job["entry"], job["name"])))
+        return
     t0 = time.time()
     entries = {"lm": lm_golden, "q": q_golden, "stream": stream_golden,
                "unfused": lambda: unfused_golden(golden["top_k"]["seeds"]),
                "mesh": mesh_golden, "moe": moe_golden,
                "moe_a2a": moe_a2a_golden, "ssm": ssm_golden,
-               "vlm": vlm_golden, "train": train_golden,
+               "vlm": vlm_golden, "dense": lambda: lm_worker_golden("dense"),
+               "audio": lambda: lm_worker_golden("audio"),
+               "train": train_golden,
                "train_families": train_families_golden,
                "train_mesh": train_mesh_golden}
     flags = {"lm": "lm", "q": "q", "stream": "stream", "unfused": "unfused",
              "mesh": "mesh", "moe": "moe", "moe_a2a": "moe", "ssm": "ssm",
-             "vlm": "vlm", "train": "train",
+             "vlm": "vlm", "dense": "dense", "audio": "audio",
+             "train": "train",
              "train_families": "train_families", "train_mesh": "train_mesh"}
     keys = [k for k in entries if getattr(args, f"{flags[k]}_only", False)
             or (k == "train_mesh" and args.train_mesh)]
@@ -1217,6 +1308,8 @@ def main() -> None:
     golden["moe_a2a"] = moe_a2a_golden()
     golden["ssm"] = ssm_golden()
     golden["vlm"] = vlm_golden()
+    golden["dense"] = lm_worker_golden("dense")
+    golden["audio"] = lm_worker_golden("audio")
     golden["train"] = train_golden()
     golden["train_families"] = train_families_golden()
     golden["train_mesh"] = train_mesh_golden()

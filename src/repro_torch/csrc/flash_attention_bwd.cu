@@ -20,8 +20,8 @@
 // float32 FMA on the CUDA cores (expf, logf, no fast math), and dq, dk and
 // dv are stored in the inputs' dtype.
 //
-// Design. Two launches on one stream, no atomics, so every run gives the
-// same bits:
+// Design. Two launches on one stream (three at D 192, below), no atomics,
+// so every run gives the same bits:
 //   flash_bwd_dq_kernel, one CTA of 256 threads per (64-row query block,
 //     head, batch). The forward kernels do not keep the log-sum-exp, so a
 //     first pass over the visible key blocks recomputes each row's max and
@@ -40,7 +40,19 @@
 // and columns cg + 16j (j < 4), as in csrc/flash_attention.cu. Ragged L is
 // masked: keys and queries at or past L take no part (their staged rows
 // are zero, their P is 0), rows past L are not stored. D is one of 16, 32,
-// 64, 80, 96 and 128.
+// 64, 80, 96, 128 and 192.
+//
+// Head dim 192 (nemotron's, float32 training). The dq launch fits as it is
+// (4x12 accumulator a thread; (2 . 64 + 64) . 196 + 64 . 68 floats =
+// 167,936 B of shared memory). The fused dk/dv launch would not: (2 . 64 +
+// 2 . 64) . 196 + 2 . 64 . 68 floats = 235,520 B, over the 232,448 B a
+// block may opt into, and two 4x12 accumulators on top of the 254
+// registers it takes at D 128. So at 192 it is two launches of the same
+// kernel, as csrc/flash_bwd_wgmma.cu does (`part`): dv stages K, q * scale,
+// do and P^T (167,936 B) and accumulates P^T . do; dk stages K, V,
+// q * scale, do and dS^T (218,112 B) and accumulates dS^T . (q * scale).
+// Each recomputes s (and dk also dP) and holds one 4x12 accumulator. The
+// row stride of 196 floats keeps every float4 access 16-byte aligned.
 //
 // Bound on this card. At the training shape (B 1, L 4096, H 24, KVH 8,
 // D 128, bf16, causal) the gradient's five products of L^2/2 . D per head
@@ -49,7 +61,10 @@
 // operations bound it. This kernel does eight products (s twice in each
 // launch, dP in each) on the CUDA cores at float32 (67 TFLOP/s peak), so it
 // sits far above that bound; wgmma tiles fed by TMA, with the forward
-// writing the log-sum-exp, are a later step.
+// writing the log-sum-exp, are csrc/flash_bwd_wgmma.cu (bf16). In float32
+// at nemotron-4-340b's shape (B 1, L 4096, H 96, KVH 8, D 192, causal) the
+// five products are 1,547 GFLOP, 23.1 ms at the 67 TFLOP/s float32 FMA
+// peak, against 1.31 GB, 0.39 ms: operations bound it there too.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,6 +75,8 @@ constexpr int BQ = 64;          // query rows per tile
 constexpr int BK = 64;          // key rows per tile
 constexpr int THREADS = 256;    // 16 row groups x 16 lanes
 constexpr int PS = 64 + 4;      // row stride of a 64x64 float tile
+// The dk/dv launch's `part`: both gradients, or dv or dk alone (D 192).
+constexpr int PART_DKDV = 0, PART_DV = 1, PART_DK = 2;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -324,21 +341,25 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <typename T, int NT>
+// PART: PART_DKDV (both gradients), PART_DV or PART_DK (one of them; the
+// other's pointer is unused). Shared memory holds only what the part reads.
+template <typename T, int NT, int PART>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ stats, T* __restrict__ dk,
                           T* __restrict__ dv, int L, int H, int KVH, int D,
                           float scale, int causal) {
+  constexpr bool WANT_DK = PART != PART_DV;
+  constexpr bool WANT_DV = PART != PART_DK;
   extern __shared__ float4 smem4[];
   const int DS = D + 4;
-  float* Ks = reinterpret_cast<float*>(smem4);  // BK x DS
-  float* Vs = Ks + BK * DS;                     // BK x DS
-  float* Qs = Vs + BK * DS;                     // BQ x DS, q * scale
-  float* dOs = Qs + BQ * DS;                    // BQ x DS
-  float* Pt = dOs + BQ * DS;                    // BK x PS, P^T
-  float* dSt = Pt + BK * PS;                    // BK x PS, dS^T
+  float* Ks = reinterpret_cast<float*>(smem4);   // BK x DS
+  float* Vs = Ks + BK * DS;                      // BK x DS (dk only)
+  float* Qs = Vs + (WANT_DK ? BK * DS : 0);      // BQ x DS, q * scale
+  float* dOs = Qs + BQ * DS;                     // BQ x DS
+  float* Pt = dOs + BQ * DS;                     // BK x PS, P^T (dv only)
+  float* dSt = Pt + (WANT_DV ? BK * PS : 0);     // BK x PS, dS^T (dk only)
 
   const int k0 = blockIdx.x * BK;
   const int kvh = blockIdx.y;
@@ -354,14 +375,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   const long long n_rows = (long long)gridDim.z * H * L;
 
   stage(Ks, k + kv_off, kv_stride, k0, L, D, 1.f);
-  stage(Vs, v + kv_off, kv_stride, k0, L, D, 1.f);
+  if constexpr (WANT_DK) stage(Vs, v + kv_off, kv_stride, k0, L, D, 1.f);
 
   const bool live = k0 + r0 < L;
-  float dk_acc[4][NT], dv_acc[4][NT];
+  // The accumulator a part does not compute is one unused column.
+  float dk_acc[4][WANT_DK ? NT : 1], dv_acc[4][WANT_DV ? NT : 1];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int t = 0; t < NT; ++t) dk_acc[i][t] = dv_acc[i][t] = 0.f;
+    for (int t = 0; t < (WANT_DK ? NT : 1); ++t) dk_acc[i][t] = 0.f;
+#pragma unroll
+    for (int t = 0; t < (WANT_DV ? NT : 1); ++t) dv_acc[i][t] = 0.f;
+  }
 
   const int first = causal ? k0 / BQ : 0;
   const int n_qblocks = (L + BQ - 1) / BQ;
@@ -378,26 +403,30 @@ __global__ void __launch_bounds__(THREADS, 1)
       stage(dOs, dout + q_off, q_stride, q0, L, D, 1.f);
       __syncthreads();
       tile_dot(s, Ks, Qs, r0, cg, DS, D);
-      tile_dot(dp, Vs, dOs, r0, cg, DS, D);
+      if constexpr (WANT_DK) tile_dot(dp, Vs, dOs, r0, cg, DS, D);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int qp = q0 + cg + 16 * j;
         const float lse_j = qp < L ? lse_h[qp] : 0.f;
-        const float delta_j = qp < L ? delta_h[qp] : 0.f;
+        float delta_j = 0.f;
+        if constexpr (WANT_DK) delta_j = qp < L ? delta_h[qp] : 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int kp = k0 + r0 + i;
           const bool vis = live && qp < L && kp < L && !(causal && kp > qp);
           const float p = vis ? expf(s[i][j] - lse_j) : 0.f;
-          Pt[(r0 + i) * PS + cg + 16 * j] = p;
-          dSt[(r0 + i) * PS + cg + 16 * j] = p * (dp[i][j] - delta_j);
+          if constexpr (WANT_DV) Pt[(r0 + i) * PS + cg + 16 * j] = p;
+          if constexpr (WANT_DK)
+            dSt[(r0 + i) * PS + cg + 16 * j] = p * (dp[i][j] - delta_j);
         }
       }
       __syncthreads();
       if (live) {
         const int jn = (min(BQ, L - q0) + 3) & ~3;  // P, dS, q, do 0 past L
-        tile_acc<NT>(dv_acc, Pt, dOs, r0, cg, DS, nt, jn);
-        tile_acc<NT>(dk_acc, dSt, Qs, r0, cg, DS, nt, jn);
+        if constexpr (WANT_DV)
+          tile_acc<NT>(dv_acc, Pt, dOs, r0, cg, DS, nt, jn);
+        if constexpr (WANT_DK)
+          tile_acc<NT>(dk_acc, dSt, Qs, r0, cg, DS, nt, jn);
       }
     }
   }
@@ -410,8 +439,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int t = 0; t < NT; ++t)
       if (t < nt) {
-        store1(dk + off + 16 * t, dk_acc[i][t]);
-        store1(dv + off + 16 * t, dv_acc[i][t]);
+        if constexpr (WANT_DK) store1(dk + off + 16 * t, dk_acc[i][t]);
+        if constexpr (WANT_DV) store1(dv + off + 16 * t, dv_acc[i][t]);
       }
   }
 }
@@ -452,14 +481,18 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NT>
+template <typename T, int NT, int PART>
 int launch_dkdv(const void* q, const void* k, const void* v,
                 const void* dout, const float* stats, void* dk, void* dv,
                 int B, int L, int H, int KVH, int D, float scale, int causal,
                 cudaStream_t stream) {
-  auto kernel = flash_bwd_dkdv_kernel<T, NT>;
-  const size_t smem =
-      (size_t)((2 * BK + 2 * BQ) * (D + 4) + 2 * BK * PS) * sizeof(float);
+  auto kernel = flash_bwd_dkdv_kernel<T, NT, PART>;
+  const int kv_tiles = PART == PART_DKDV ? 2 : 1;  // K and V, or K alone
+  const int p_tiles = PART == PART_DKDV ? 2 : 1;   // P^T and dS^T, or one
+  const int extra = PART == PART_DK ? 1 : 0;       // dk reads V too
+  const size_t smem = (size_t)(((kv_tiles + extra) * BK + 2 * BQ) * (D + 4) +
+                               p_tiles * BK * PS) *
+                      sizeof(float);
   static size_t allowed[64] = {};
   const cudaError_t err = allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return (int)err;
@@ -471,10 +504,34 @@ int launch_dkdv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int dkdv_part(int part, const void* q, const void* k, const void* v,
+              const void* dout, const float* stats, void* dk, void* dv,
+              int B, int L, int H, int KVH, int D, float scale, int causal,
+              cudaStream_t s) {
+  if (D > 128) {
+    if (part == PART_DV)
+      return launch_dkdv<T, 12, PART_DV>(q, k, v, dout, stats, dk, dv, B, L,
+                                         H, KVH, D, scale, causal, s);
+    if (part == PART_DK)
+      return launch_dkdv<T, 12, PART_DK>(q, k, v, dout, stats, dk, dv, B, L,
+                                         H, KVH, D, scale, causal, s);
+    return (int)cudaErrorInvalidValue;  // D 192 takes dv and dk apart
+  }
+  if (part != PART_DKDV) return (int)cudaErrorInvalidValue;
+  return D <= 64 ? launch_dkdv<T, 4, PART_DKDV>(q, k, v, dout, stats, dk, dv,
+                                                B, L, H, KVH, D, scale,
+                                                causal, s)
+                 : launch_dkdv<T, 8, PART_DKDV>(q, k, v, dout, stats, dk, dv,
+                                                B, L, H, KVH, D, scale,
+                                                causal, s);
+}
+
 bool valid(int B, int L, int H, int KVH, int D) {
   return B >= 1 && L >= 1 && KVH >= 1 && H % KVH == 0 && B <= 65535 &&
          H <= 65535 &&
-         (D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 128);
+         (D == 16 || D == 32 || D == 64 || D == 80 || D == 96 || D == 128 ||
+          D == 192);
 }
 
 }  // namespace
@@ -483,8 +540,9 @@ bool valid(int B, int L, int H, int KVH, int D) {
 // dout and dq (B, L, H, D), k and v (B, L, KVH, D), all contiguous and
 // 16-byte aligned; stats a float32 (2, B, H, L) scratch. The dq launch
 // writes dq and stats (each row's lse, then Delta); the dk/dv launch, on
-// the same stream after it, reads them. Each returns a cudaError_t; 0 is
-// success.
+// the same stream after it, reads them: `part` 0 writes dk and dv (D up to
+// 128), 1 dv alone and 2 dk alone (D 192, two launches; the other pointer
+// is not read). Each returns a cudaError_t; 0 is success.
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, void* dq, void* stats,
@@ -495,16 +553,21 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
   if (dtype == 0)
-    return D <= 64 ? launch_dq<float, 4>(q, k, v, o, dout, dq, st, B, L, H,
-                                         KVH, D, scale, causal, s)
-                   : launch_dq<float, 8>(q, k, v, o, dout, dq, st, B, L, H,
-                                         KVH, D, scale, causal, s);
+    return D <= 64    ? launch_dq<float, 4>(q, k, v, o, dout, dq, st, B, L, H,
+                                            KVH, D, scale, causal, s)
+           : D <= 128 ? launch_dq<float, 8>(q, k, v, o, dout, dq, st, B, L, H,
+                                            KVH, D, scale, causal, s)
+                      : launch_dq<float, 12>(q, k, v, o, dout, dq, st, B, L,
+                                             H, KVH, D, scale, causal, s);
   if (dtype == 1)
     return D <= 64
                ? launch_dq<__nv_bfloat16, 4>(q, k, v, o, dout, dq, st, B, L,
                                              H, KVH, D, scale, causal, s)
-               : launch_dq<__nv_bfloat16, 8>(q, k, v, o, dout, dq, st, B, L,
-                                             H, KVH, D, scale, causal, s);
+           : D <= 128
+               ? launch_dq<__nv_bfloat16, 8>(q, k, v, o, dout, dq, st, B, L,
+                                             H, KVH, D, scale, causal, s)
+               : launch_dq<__nv_bfloat16, 12>(q, k, v, o, dout, dq, st, B, L,
+                                              H, KVH, D, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -512,22 +575,16 @@ extern "C" int flash_bwd_dkdv_launch(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* stats, void* dk, void* dv,
                                      int dtype, int B, int L, int H, int KVH,
-                                     int D, float scale, int causal,
+                                     int D, float scale, int causal, int part,
                                      void* stream) {
   if (!valid(B, L, H, KVH, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* st = static_cast<const float*>(stats);
   if (dtype == 0)
-    return D <= 64 ? launch_dkdv<float, 4>(q, k, v, dout, st, dk, dv, B, L,
-                                           H, KVH, D, scale, causal, s)
-                   : launch_dkdv<float, 8>(q, k, v, dout, st, dk, dv, B, L,
-                                           H, KVH, D, scale, causal, s);
+    return dkdv_part<float>(part, q, k, v, dout, st, dk, dv, B, L, H, KVH, D,
+                            scale, causal, s);
   if (dtype == 1)
-    return D <= 64 ? launch_dkdv<__nv_bfloat16, 4>(q, k, v, dout, st, dk, dv,
-                                                   B, L, H, KVH, D, scale,
-                                                   causal, s)
-                   : launch_dkdv<__nv_bfloat16, 8>(q, k, v, dout, st, dk, dv,
-                                                   B, L, H, KVH, D, scale,
-                                                   causal, s);
+    return dkdv_part<__nv_bfloat16>(part, q, k, v, dout, st, dk, dv, B, L, H,
+                                    KVH, D, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

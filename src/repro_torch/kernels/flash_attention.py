@@ -36,14 +36,16 @@ jnp scan) takes Lq == Lk and ``kv_offset`` 0, and has two routes, which
   `WGMMA_HEAD_DIMS` with L > 1, the calls whose forward took the
   ``wgmma`` route, which writes each row's log-sum-exp (``lse``) for it.
   `flash_bwd_wgmma_dq_cuda` then `flash_bwd_wgmma_dkdv_cuda`, tensor-core
-  tiles fed by TMA; at a head dim of `SPLIT_DKDV_HEAD_DIMS` (192) the
-  second launch is two, `flash_bwd_wgmma_dv_cuda` then
-  `flash_bwd_wgmma_dk_cuda`, each holding one gradient in registers.
+  tiles fed by TMA.
 - ``simt`` (``csrc/flash_attention_bwd.cu``): float32, and bf16 at D 16
-  and 32, at a head dim of `SIMT_BWD_HEAD_DIMS` (up to 128: float32 at D
-  192 has no backward kernel).  `flash_bwd_dq_cuda` then
-  `flash_bwd_dkdv_cuda`, float32 FMA on the CUDA cores, the log-sum-exp
-  recomputed.
+  and 32, at a head dim of `SIMT_BWD_HEAD_DIMS` (16 to 192).
+  `flash_bwd_dq_cuda` then `flash_bwd_dkdv_cuda`, float32 FMA on the CUDA
+  cores, the log-sum-exp recomputed.
+
+On both routes, at a head dim of `SPLIT_DKDV_HEAD_DIMS` (192) the second
+launch is two, dv then dk (`flash_bwd_wgmma_dv_cuda` and
+`flash_bwd_wgmma_dk_cuda`, `flash_bwd_dv_cuda` and `flash_bwd_dk_cuda`),
+each holding one gradient in registers.
 
 Their plain version is `ref.flash_attention_bwd_ref` (with ``lse`` for
 the ``wgmma`` route), and `ops.flash_attention`'s autograd rule calls
@@ -61,10 +63,10 @@ from repro_torch.kernels import _build
 ROUTES = ("wgmma", "decode", "simt")
 BWD_ROUTES = ("wgmma", "simt")
 WGMMA_HEAD_DIMS = (64, 80, 96, 128, 192)
-SIMT_BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
-# Every head dim some backward route takes (float32 only up to 128).
+SIMT_BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192)
+# Every head dim some backward route takes.
 BWD_HEAD_DIMS = tuple(sorted(set(WGMMA_HEAD_DIMS + SIMT_BWD_HEAD_DIMS)))
-# Head dims whose wgmma backward takes dk and dv in two launches.
+# Head dims whose backward (either route) takes dk and dv in two launches.
 SPLIT_DKDV_HEAD_DIMS = (192,)
 # The decode route's split: rows per sub-block (a split's length is a
 # multiple), query heads per CTA, the most splits one group merges
@@ -81,6 +83,9 @@ _DECODE_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                     + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_BWD_DKDV_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_void_p])
 _BWD_WGMMA_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _BWD_WGMMA_DKDV_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
@@ -120,9 +125,8 @@ def bwd_head_dims(route_name: str) -> tuple:
 
 def bwd_launches(dtype: torch.dtype, L: int, d: int) -> int:
     """Kernel launches of one backward call of these shapes on the card:
-    two, or three on the ``wgmma`` route at `SPLIT_DKDV_HEAD_DIMS`."""
-    split = route_bwd(dtype, L, d) == "wgmma" and d in SPLIT_DKDV_HEAD_DIMS
-    return 3 if split else 2
+    two, or three at `SPLIT_DKDV_HEAD_DIMS` (either route)."""
+    return 3 if d in SPLIT_DKDV_HEAD_DIMS else 2
 
 
 def visible_keys(lk: int, causal: bool, kv_offset: int) -> int:
@@ -324,28 +328,71 @@ def flash_bwd_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, stats
 
 
+def _check_part(part: int, d: int, kernel: str) -> None:
+    """Raise unless a dk/dv launch of ``part`` suits head dim ``d``: both
+    gradients in one launch, or (at `SPLIT_DKDV_HEAD_DIMS`) one of them."""
+    split = d in SPLIT_DKDV_HEAD_DIMS
+    if split != (part != _DKDV):
+        raise ValueError(f"{kernel}: D {d} takes "
+                         + ("dv and dk in two launches" if split
+                            else "dk and dv in one launch"))
+
+
+def _bwd_simt_dkdv(part: int, q, k, v, do, stats, causal: bool,
+                   scale: float, kernel: str):
+    """One dk/dv launch of the ``simt`` backward (``part`` `_DKDV`, `_DV`
+    or `_DK`), after `flash_bwd_dq_cuda` on the same stream, reading its
+    ``stats``; returns (dk, dv), the one not computed None."""
+    b, L, h, kvh, d = _check_bwd(q, k, v, do, do, kernel)
+    _check_part(part, d, kernel)
+    _build.check_arg(kernel, "stats", stats, torch.float32, 4, q.device)
+    if stats.shape != (2, b, h, L):
+        raise ValueError(f"{kernel}: stats must be (2, {b}, {h}, {L}), got "
+                         f"{tuple(stats.shape)}")
+    dk = torch.empty_like(k) if part != _DV else None
+    dv = torch.empty_like(v) if part != _DK else None
+    fn = _build.launcher("flash_attention_bwd", "flash_bwd_dkdv_launch",
+                         _BWD_DKDV_ARGTYPES)
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 stats.data_ptr(), _build.data_ptr(dk), _build.data_ptr(dv),
+                 _DTYPES[q.dtype], b, L, h, kvh, d, scale, int(causal), part,
+                 torch.cuda.current_stream(q.device).cuda_stream), kernel)
+    return dk, dv
+
+
 def flash_bwd_dkdv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, stats: torch.Tensor, *,
                         causal: bool, scale: float
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """The ``simt`` backward's second launch, after `flash_bwd_dq_cuda`
     on the same stream, reading its ``stats``: returns (dk, dv) (B, L,
-    KVH, D) in k's dtype, each summed over the KV head's query heads."""
-    b, L, h, kvh, d = _check_bwd(q, k, v, do, do, "flash_bwd_dkdv")
-    _build.check_arg("flash_bwd_dkdv", "stats", stats, torch.float32, 4,
-                     q.device)
-    if stats.shape != (2, b, h, L):
-        raise ValueError(f"flash_bwd_dkdv: stats must be (2, {b}, {h}, "
-                         f"{L}), got {tuple(stats.shape)}")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.launcher("flash_attention_bwd", "flash_bwd_dkdv_launch",
-                         _BWD_ARGTYPES)
-    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 stats.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 _DTYPES[q.dtype], b, L, h, kvh, d, scale, int(causal),
-                 torch.cuda.current_stream(q.device).cuda_stream),
-              "flash_bwd_dkdv")
-    return dk, dv
+    KVH, D) in k's dtype, each summed over the KV head's query heads.  Not
+    at a head dim of `SPLIT_DKDV_HEAD_DIMS` (its dk and dv are
+    `flash_bwd_dk_cuda` and `flash_bwd_dv_cuda`)."""
+    return _bwd_simt_dkdv(_DKDV, q, k, v, do, stats, causal, scale,
+                          "flash_bwd_dkdv")
+
+
+def flash_bwd_dv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, stats: torch.Tensor, *,
+                      causal: bool, scale: float) -> torch.Tensor:
+    """At a head dim of `SPLIT_DKDV_HEAD_DIMS`, the ``simt`` backward's
+    second launch (after `flash_bwd_dq_cuda`, reading its ``stats``): dv
+    alone (B, L, KVH, D) in k's dtype, summed over the KV head's query
+    heads (``v`` is checked, not read)."""
+    return _bwd_simt_dkdv(_DV, q, k, v, do, stats, causal, scale,
+                          "flash_bwd_dv")[1]
+
+
+def flash_bwd_dk_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, stats: torch.Tensor, *,
+                      causal: bool, scale: float) -> torch.Tensor:
+    """At a head dim of `SPLIT_DKDV_HEAD_DIMS`, the ``simt`` backward's
+    third launch (after `flash_bwd_dq_cuda`, reading its ``stats``): dk
+    alone (B, L, KVH, D) in k's dtype, summed over the KV head's query
+    heads."""
+    return _bwd_simt_dkdv(_DK, q, k, v, do, stats, causal, scale,
+                          "flash_bwd_dk")[0]
 
 
 def _check_bwd_wgmma(q, k, v, o, do, lse, kernel: str
@@ -389,11 +436,7 @@ def _bwd_wgmma_dkdv(part: int, q, k, v, do, lse, delta, causal: bool,
     or `_DK`), after `flash_bwd_wgmma_dq_cuda` on the same stream, reading
     its ``delta``; returns (dk, dv), the one not computed None."""
     b, L, h, kvh, d = _check_bwd_wgmma(q, k, v, do, do, lse, kernel)
-    split = d in SPLIT_DKDV_HEAD_DIMS
-    if split != (part != _DKDV):
-        raise ValueError(f"{kernel}: D {d} takes "
-                         + ("dv and dk in two launches" if split
-                            else "dk and dv in one launch"))
+    _check_part(part, d, kernel)
     _check_lse(delta, kernel, b, h, L, q.device, "delta")
     dk = torch.empty_like(k) if part != _DV else None
     dv = torch.empty_like(v) if part != _DK else None

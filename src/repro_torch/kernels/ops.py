@@ -23,8 +23,8 @@ prefill and decode through three kernels chosen by shape
 them all, ``flash_wgmma``, ``flash_decode`` and ``flash_simt`` each route.
 When one of its inputs requires a gradient, ``flash_attention`` runs the
 same forward inside an autograd rule whose backward is
-``flash_attention_bwd``: two kernel launches (three on ``wgmma`` at head
-dim 192, `kernels.flash_attention.bwd_launches`) of the route
+``flash_attention_bwd``: two kernel launches (three at head dim 192,
+`kernels.flash_attention.bwd_launches`) of the route
 `kernels.flash_attention.route_bwd` picks (``wgmma``, which reads the
 log-sum-exp its forward wrote, or ``simt``), each counted in
 ``LAUNCHES["flash_bwd"]`` and in ``flash_bwd_wgmma`` or ``flash_bwd_simt``.
@@ -341,12 +341,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of `flash_attention` (Lq == Lk, ``kv_offset`` 0) given
     its output ``o``, the output's gradient ``do`` and what
     `flash_attention_fwd` returns beside ``o``: on the card two launches of
-    the route `flash_attention.route_bwd` picks (three on ``wgmma`` at a
-    head dim of `flash_attention.SPLIT_DKDV_HEAD_DIMS`: dq, dv, dk), the
-    ``wgmma`` one reading
-    the forward's (B, H, L) log-sum-exp ``lse`` (required there; the
-    ``simt`` route recomputes it and ignores one given); on the CPU
-    `ref.flash_attention_bwd_ref` of the same route."""
+    the route `flash_attention.route_bwd` picks (three at a head dim of
+    `flash_attention.SPLIT_DKDV_HEAD_DIMS`: dq, dv, dk), the ``wgmma`` one
+    reading the forward's (B, H, L) log-sum-exp ``lse`` (required there;
+    the ``simt`` route recomputes it and ignores one given); on the CPU
+    `ref.flash_attention_bwd_ref` of the same route; on meta tensors each
+    launch's share of the work (`work.flash_backward_launches`)."""
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     r = fa.route_bwd(q.dtype, q.shape[1], q.shape[-1])
     if r == "wgmma" and lse is None:
@@ -355,30 +355,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "(flash_attention_fwd returns it)")
     where = _where(q, k, v, o, do)
     if where == "meta":
-        _report(f"flash_bwd_{r}", *work.flash_backward(q, k, causal))
+        for part in work.flash_backward_launches(q, k, causal):
+            _report(f"flash_bwd_{r}", *part)
         return _meta_like(q), _meta_like(k), _meta_like(v)
     if where == "cuda":
         q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+        kw = dict(causal=causal, scale=scale)
         if r == "wgmma":
             lse = lse.contiguous()
-            dq, delta = fa.flash_bwd_wgmma_dq_cuda(q, k, v, o, do, lse,
-                                                   causal=causal,
-                                                   scale=scale)
-            _count_bwd(r)
-            kw = dict(causal=causal, scale=scale)
-            if q.shape[-1] in fa.SPLIT_DKDV_HEAD_DIMS:
-                dv = fa.flash_bwd_wgmma_dv_cuda(q, k, v, do, lse, delta, **kw)
-                _count_bwd(r)
-                dk = fa.flash_bwd_wgmma_dk_cuda(q, k, v, do, lse, delta, **kw)
-            else:
-                dk, dv = fa.flash_bwd_wgmma_dkdv_cuda(q, k, v, do, lse,
-                                                      delta, **kw)
+            dq, delta = fa.flash_bwd_wgmma_dq_cuda(q, k, v, o, do, lse, **kw)
+            read = (lse, delta)         # what the dk and dv launches read
+            dkdv, dv_fn, dk_fn = (fa.flash_bwd_wgmma_dkdv_cuda,
+                                  fa.flash_bwd_wgmma_dv_cuda,
+                                  fa.flash_bwd_wgmma_dk_cuda)
         else:
-            dq, stats = fa.flash_bwd_dq_cuda(q, k, v, o, do, causal=causal,
-                                             scale=scale)
+            dq, stats = fa.flash_bwd_dq_cuda(q, k, v, o, do, **kw)
+            read = (stats,)
+            dkdv, dv_fn, dk_fn = (fa.flash_bwd_dkdv_cuda, fa.flash_bwd_dv_cuda,
+                                  fa.flash_bwd_dk_cuda)
+        _count_bwd(r)
+        if q.shape[-1] in fa.SPLIT_DKDV_HEAD_DIMS:
+            dv = dv_fn(q, k, v, do, *read, **kw)
             _count_bwd(r)
-            dk, dv = fa.flash_bwd_dkdv_cuda(q, k, v, do, stats,
-                                            causal=causal, scale=scale)
+            dk = dk_fn(q, k, v, do, *read, **kw)
+        else:
+            dk, dv = dkdv(q, k, v, do, *read, **kw)
         _count_bwd(r)
         return dq, dk, dv
     return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,

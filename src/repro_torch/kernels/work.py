@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import flash_attention as fa
+
 # Integer operations of the counter hash (core/rng.py): one fold is
 # 2 shifts + 3 adds + 1 xor, then mix32 is 3 shift-xor pairs + 2
 # multiplies; a colour draw adds shift, convert, scale and compare.  A
@@ -86,12 +88,30 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, causal: bool,
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, causal: bool
                    ) -> tuple[float, float]:
-    """The gradient's launches of q, o, do (B, L, H, D) and k, v (B, L,
-    KVH, D): 10·D operations a visible pair (five products); q, o, do and
-    dq, and k, v, dk and dv, each once."""
+    """The gradient of q, o, do (B, L, H, D) and k, v (B, L, KVH, D), all
+    its launches: 10·D operations a visible pair (five products); q, o, do
+    and dq, and k, v, dk and dv, each once."""
+    parts = flash_backward_launches(q, k, causal)
+    return (float(sum(p[0] for p in parts)),
+            float(sum(p[1] for p in parts)))
+
+
+def flash_backward_launches(q: torch.Tensor, k: torch.Tensor, causal: bool
+                            ) -> list[tuple[float, float]]:
+    """`flash_backward`'s work shared among its launches, one (operations,
+    bytes) a launch (`flash_attention.bwd_launches`): the dq launch s, dP
+    and dS·K (6·D a visible pair), reading q, k, v, o and do and writing
+    dq; then dk and dv together (4·D, writing both), or at a head dim of
+    `flash_attention.SPLIT_DKDV_HEAD_DIMS` dv (Pᵀ·do, 2·D) and dk (dSᵀ·q,
+    2·D), each writing its own.  Each input counts once, in the first
+    launch that reads it."""
     b, L, h, d = q.shape
     kvh = k.shape[2]
-    pairs = visible_pairs(L, L, causal, 0)
-    return (float(10 * b * h * pairs * d),
-            float(q.element_size() * (4 * b * L * h * d + 4 * b * L * kvh
-                                      * d)))
+    pairs = b * h * visible_pairs(L, L, causal, 0)
+    e = q.element_size()
+    q_bytes, kv_bytes = e * b * L * h * d, e * b * L * kvh * d
+    dq = (float(6 * pairs * d), float(4 * q_bytes + 2 * kv_bytes))
+    if d in fa.SPLIT_DKDV_HEAD_DIMS:
+        return [dq, (float(2 * pairs * d), float(kv_bytes)),
+                (float(2 * pairs * d), float(kv_bytes))]
+    return [dq, (float(4 * pairs * d), float(2 * kv_bytes))]

@@ -19,10 +19,11 @@ selects a config of the registry, ``--smoke`` its reduced form.
 Weights are random, from a seeded generator on the device; batches come
 from `data.pipeline.SyntheticLM`.  Every arch of the registry trains: the
 dense archs, phi-3-vision, musicgen, the MoE archs (deepseek-v3 with MLA,
-maverick), mamba2 and zamba2.  On the card float32 at nemotron's head dim
-192 raises NotImplementedError (no backward kernel takes it,
-`train.step.check_trainable`).  A full MoE config does not fit one card;
-`train.loop.train` trains a cut one.
+maverick), mamba2 and zamba2, on the card in either dtype
+(`train.step.check_trainable` refuses no arch of the registry; it raises
+NotImplementedError only for a head dim that no backward kernel takes).
+A full MoE config does not fit one card; `train.loop.train` trains a cut
+one.
 
 ``--mesh DxM`` (``(data, model)``; three dims ``(pod, data, model)``)
 trains sharded (ZeRO-3 over the whole mesh, `distributed.fsdp`): one

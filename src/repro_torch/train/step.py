@@ -24,10 +24,12 @@ differentiated by autograd; under ``cfg.remat`` each layer's forward
 
 Every family trains: the dense archs, phi-3-vision with its patches,
 musicgen with its codebooks, the MoE archs (the loss adds 0.01 times the
-Switch aux loss), MLA, mamba2's SSD stack and zamba2's hybrid stack.  On a
-CUDA device a config whose attention no backward kernel takes is refused
-up front (`check_trainable`): float32 at nemotron's head dim 192, which the
-``simt`` backward does not take and the ``wgmma`` one (bf16 only) cannot.
+Switch aux loss), MLA, mamba2's SSD stack and zamba2's hybrid stack, on
+the card in float32 or bf16 alike (nemotron's head dim 192 too: the
+``wgmma`` backward in bf16, the ``simt`` one in float32).  On a CUDA device
+a config whose attention no backward kernel takes (a head dim such as 48
+or 256, which no registry arch has) is refused up front
+(`check_trainable`).
 """
 from __future__ import annotations
 
@@ -50,8 +52,9 @@ def check_trainable(cfg: ModelConfig, device=None) -> None:
     ``device``: on a CUDA device, flash attention (GQA: the dense and MoE
     archs but MLA, zamba2's shared block) at a head dim that the backward
     route of its dtype (`flash_attention.route_bwd`) does not take — the
-    backward would refuse it only at its first call.  Every config passes
-    on the CPU, where the backward is its plain version."""
+    backward would refuse it only at its first call.  Every arch of the
+    registry passes in float32 and in bf16; every config passes on the
+    CPU, where the backward is its plain version."""
     if device is None or torch.device(device).type != "cuda":
         return
     if cfg.family == "ssm" or cfg.attention == "mla" or not cfg.head_dim:
@@ -62,8 +65,7 @@ def check_trainable(cfg: ModelConfig, device=None) -> None:
         raise NotImplementedError(
             f"training {cfg.name} ({cfg.dtype}) on the card: no backward "
             f"kernel takes its head dim {cfg.head_dim} (the {r} route takes "
-            f"{fa.bwd_head_dims(r)}; the wgmma route takes bf16 only); see "
-            "ROADMAP.md §1")
+            f"{fa.bwd_head_dims(r)}; the wgmma route takes bf16 only)")
 
 
 @contextlib.contextmanager

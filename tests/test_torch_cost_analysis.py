@@ -3,11 +3,12 @@ to the cases `tests/test_launch.py` holds the reference's HLO parser to:
 a matmul counts 2·m·k·n, a loop of 12 counts 12 times, nested loops of
 5 × 3 count 15 times, views add no bytes, an all-reduce counts twice its
 result bytes; and a kernel's meta branch reports its formula's work and
-launches nothing."""
+launches nothing (the gradient's, each launch's share)."""
 import pytest
 import torch
 
 from repro_torch.distributed.comm import AxesView, ShapeMesh
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, work
 from repro_torch.launch import cost_analysis as ca
 
@@ -119,3 +120,36 @@ def test_kernel_meta_branch_reports_its_work():
     with pytest.raises(ValueError, match="mixed"):
         ops.cover_counts(vis, torch.zeros((3, 2), dtype=torch.int32))
     assert sum(ops.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("d,dtype,launches", [
+    (128, torch.bfloat16, 2), (128, torch.float32, 2),
+    (192, torch.bfloat16, 3), (192, torch.float32, 3)])
+def test_backward_meta_branch_reports_each_launch(d, dtype, launches):
+    """The gradient's meta branch reports one call a launch of its route
+    (three at D 192 on either route: dq, dv, dk), whose work sums to the
+    whole gradient's (10·D a visible pair; q, o, do, dq, k, v, dk and dv
+    once), the dq launch's 6·D with every input, and at D 192 dv's and
+    dk's 2·D each with its own output."""
+    b, L, h, kvh = 2, 40, 12, 2
+    q, do = (_meta(b, L, h, d, dtype=dtype) for _ in range(2))
+    k, v = (_meta(b, L, kvh, d, dtype=dtype) for _ in range(2))
+    route = fa.route_bwd(dtype, L, d)
+    lse = _meta(b, h, L) if route == "wgmma" else None
+    ops.reset_launches()
+    cost = ca.full_cost(lambda *t: ops.flash_attention_bwd(
+        *t, causal=True, lse=lse), q, k, v, q, do)
+    assert sum(ops.LAUNCHES.values()) == 0
+    assert [t.shape for t in cost["result"]] == [q.shape, k.shape, v.shape]
+    pairs = b * h * L * (L + 1) // 2
+    e = q.element_size()
+    total = work.flash_backward(q, k, True)
+    assert total == (10 * pairs * d,
+                     e * (4 * b * L * h * d + 4 * b * L * kvh * d))
+    assert cost["kernels"] == {f"flash_bwd_{route}": {
+        "calls": launches, "flops": total[0], "bytes": total[1]}}
+    parts = work.flash_backward_launches(q, k, True)
+    assert len(parts) == launches == fa.bwd_launches(dtype, L, d)
+    assert parts[0][0] == 6 * pairs * d
+    if launches == 3:
+        assert parts[1] == parts[2] == (2 * pairs * d, e * b * L * kvh * d)

@@ -180,21 +180,23 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 16), (torch.float32, 128),
+                                     (torch.float32, 192),
                                      (torch.bfloat16, 64),
                                      (torch.bfloat16, 96)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_backward_kernel_equals_plain(cuda, dtype, d, causal):
-    """Both launches of the route `route_bwd` picks (float32: ``simt``;
-    bf16 at D 64 and 96: ``wgmma``, reading the forward's log-sum-exp)
-    against the plain version of that route at a ragged length (130), GQA
-    group 3: float32 at 1e-4, bf16 at 2e-2 (both sides round their
-    float32 results to bf16)."""
+    """Every launch of the route `route_bwd` picks (float32: ``simt``,
+    three at D 192: dq, dv, dk; bf16 at D 64 and 96: ``wgmma``, reading
+    the forward's log-sum-exp) against the plain version of that route at
+    a ragged length (130), GQA group 3: float32 at 1e-4, bf16 at 2e-2
+    (both sides round their float32 results to bf16)."""
     q, k, v, do = (t.to(cuda) for t in _qkv(d, 130, 3, d, dtype))
     o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
     before = ops.LAUNCHES["flash_bwd"]
     got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_bwd"] == before + 2
+    assert ops.LAUNCHES["flash_bwd"] == before + fa.bwd_launches(dtype, 130,
+                                                                 d)
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                        lse=lse)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
@@ -204,8 +206,16 @@ def test_backward_kernel_equals_plain(cuda, dtype, d, causal):
 
 @pytest.mark.cuda
 def test_backward_kernel_refuses_head_dim_192(cuda):
-    """float32 at D 192 takes the simt backward, which stops at 128 (bf16
-    there is the wgmma route's, three launches)."""
+    """At D 192 the simt backward's fused dk/dv launch is refused (its
+    shared memory would pass a block's 232,448 bytes: dv and dk take a
+    launch each, `flash_bwd_dv_cuda` and `flash_bwd_dk_cuda`), and a head
+    dim no backward route takes (48) is refused before any launch."""
     q, k, v, do = (t.to(cuda) for t in _qkv(0, 64, 1, 192, torch.float32))
+    stats = fa.flash_bwd_dq_cuda(q, k, v, q, do, causal=True, scale=0.1)[1]
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="two launches"):
+        fa.flash_bwd_dkdv_cuda(q, k, v, do, stats, causal=True, scale=0.1)
+    q, k, v, do = (t.to(cuda) for t in _qkv(0, 64, 1, 48, torch.float32))
     with pytest.raises(ValueError, match="D in"):
         ops.flash_attention_bwd(q, k, v, q, do, causal=True)
+    assert ops.LAUNCHES == before

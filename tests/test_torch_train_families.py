@@ -2,10 +2,12 @@
 forward and gradient of each arch's smoke config, the gradient leaves of
 the MoE, MLA, SSD and hybrid families against ``jax.value_and_grad`` with
 remat on and off, two train steps of each of those families against the
-reference's jitted step at 1 and 2 microbatches, the launcher on each,
-training checkpoints that each package restores from the other's, the
-head-dim-192 backward's plain version against ``jax.grad`` of the
-reference's blocked attention, and which head dims the card refuses.
+reference's jitted step at 1 and 2 microbatches (and those of a
+head-dim-192 cut, float32), the launcher on each, training checkpoints
+that each package restores from the other's, the head-dim-192
+backward's plain version in both routes' forms against ``jax.grad`` of
+the reference's blocked attention, which head dims the card refuses,
+and that the golden script's new cuts are the chip smoke's.
 
 Gradient leaves are held at the tolerances of ``tests/
 test_torch_train.py``'s leaf test (atol 1e-6 + rtol 1e-5) on the same
@@ -198,24 +200,46 @@ def test_port_resumes_from_the_references_training_checkpoint(tmp_path):
 
 
 def test_training_refuses_a_head_dim_without_a_backward_kernel():
-    """On a CUDA device float32 at nemotron-4-340b's head dim 192 is
-    refused up front (the simt backward stops at 128, the wgmma one takes
-    bf16 only), not at the first backward; bf16 at 192 (its config) is
-    admitted, as is every bf16 arch of the registry; the CPU (the plain
-    version) admits every arch in either dtype."""
+    """On a CUDA device every arch of the registry is admitted in float32
+    and in bf16 — float32 at nemotron-4-340b's head dim 192 too, which the
+    simt backward takes in three launches — while a head dim that no
+    backward route takes (48: neither the simt list nor the wgmma one; in
+    bf16 and in float32) is refused up front, not at the first backward;
+    the CPU (the plain version) admits every config in either dtype."""
     nemotron = registry.get("nemotron-4-340b")
     f32 = dataclasses.replace(nemotron, dtype="float32")
-    with pytest.raises(NotImplementedError, match="head dim 192"):
-        check_trainable(f32, torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="head dim 192"):
-        check_trainable(f32, "cuda:0")
+    check_trainable(f32, torch.device("cuda"))
+    check_trainable(f32, "cuda:0")
+    odd = dataclasses.replace(nemotron, head_dim=48)
+    for c in (odd, dataclasses.replace(odd, dtype="float32")):
+        with pytest.raises(NotImplementedError, match="head dim 48"):
+            check_trainable(c, torch.device("cuda"))
+        with pytest.raises(NotImplementedError, match="head dim 48"):
+            check_trainable(c, "cuda:0")
+        check_trainable(c, "cpu")
+        check_trainable(c)
     for arch in registry.ARCHS:
         cfg = registry.get(arch)
         assert cfg.dtype == "bfloat16", arch
-        check_trainable(cfg, "cuda")
         for c in (cfg, dataclasses.replace(cfg, dtype="float32")):
+            check_trainable(c, "cuda")
             check_trainable(c, "cpu")
             check_trainable(c)
+
+
+# Train-step cases beyond FAMILY_ARCHS: a smoke cut at nemotron's head dim
+# 192 (12 query heads on one KV head, 1 layer), whose backward on the card
+# is the simt route's three launches; on the CPU its plain version.
+STEP_CUTS = {"nemotron-4-340b-d192": ("nemotron-4-340b", dict(
+    num_heads=12, num_kv_heads=1, head_dim=192, num_layers=1))}
+
+
+def _smoke_pair(case):
+    """The reference's and the port's smoke config of a step case: an arch
+    of FAMILY_ARCHS, or a name of STEP_CUTS (its arch, cut)."""
+    arch, cuts = STEP_CUTS.get(case, (case, {}))
+    return (dataclasses.replace(jregistry.smoke(arch), **cuts),
+            dataclasses.replace(registry.smoke(arch), **cuts))
 
 
 def _steps(jc, tc, microbatches):
@@ -264,14 +288,16 @@ G_WELL_POSED = 1e-7
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
-@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+@pytest.mark.parametrize("arch", FAMILY_ARCHS + list(STEP_CUTS))
 def test_family_train_steps_match_the_reference(arch, microbatches):
     """Two steps of ``make_train_step`` on the MoE (with MLA), SSD and
-    hybrid smoke configs against the reference's: loss (the MoE aux loss
-    in it), grad norm and lr each step, then every first moment (atol
-    1e-6) and every parameter (atol 2e-5 where the first gradient is
-    above G_WELL_POSED, within 2 lr elsewhere)."""
-    jc, tc = jregistry.smoke(arch), registry.smoke(arch)
+    hybrid smoke configs, and on the head-dim-192 cut of STEP_CUTS
+    (float32: the simt backward's plain version at D 192), against the
+    reference's: loss (the MoE aux loss in it), grad norm and lr each
+    step, then every first moment (atol 1e-6) and every parameter (atol
+    2e-5 where the first gradient is above G_WELL_POSED, within 2 lr
+    elsewhere)."""
+    jc, tc = _smoke_pair(arch)
     jp, jo, tp, to, metrics, m0 = _steps(jc, tc, microbatches)
     for jm, tm in metrics:
         assert float(tm["loss"]) == pytest.approx(float(jm["loss"]),
@@ -304,13 +330,19 @@ def test_launcher_trains_every_family_on_cpu(arch, capsys):
     assert f"[launch.train] {arch}-smoke" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-def test_head_dim_192_backward_matches_the_references_attention(causal):
-    """The plain version of the D 192 backward (the wgmma route's form,
-    reading the forward's log-sum-exp) against ``jax.grad`` of the
-    reference's blocked online softmax (``_blocked_attn``) at nemotron's
-    head dim, GQA 12 (12 query heads on one KV head), L 40; non-causal as
-    the reference's scan with a key offset past every key."""
+@pytest.mark.parametrize("causal,form", [
+    pytest.param(True, "lse", id="causal"),
+    pytest.param(False, "lse", id="full"),
+    pytest.param(True, "simt", id="causal-simt"),
+    pytest.param(False, "simt", id="full-simt")])
+def test_head_dim_192_backward_matches_the_references_attention(causal, form):
+    """The plain version of the D 192 backward in both its forms — the
+    wgmma route's, reading the forward's log-sum-exp (bf16 on the card),
+    and the simt route's, recomputing it (float32 on the card) — against
+    ``jax.grad`` of the reference's blocked online softmax
+    (``_blocked_attn``) at nemotron's head dim, GQA 12 (12 query heads on
+    one KV head), L 40, at atol 2e-5, rtol 1e-5; non-causal as the
+    reference's scan with a key offset past every key."""
     b, L, h, kvh, d = 2, 40, 12, 1, 192
     rng = np.random.default_rng(192 + causal)
     q, do = (rng.standard_normal((b, L, h, d), dtype=np.float32)
@@ -331,7 +363,8 @@ def test_head_dim_192_backward_matches_the_references_attention(causal):
     o = ref.flash_attention_ref(tq, tk, tv, causal=causal, scale=scale)
     np.testing.assert_allclose(o.numpy(), np.asarray(jattention(q, k, v)),
                                atol=1e-5, rtol=1e-5)
-    lse = ref.flash_attention_lse_ref(tq, tk, causal=causal, scale=scale)
+    lse = (ref.flash_attention_lse_ref(tq, tk, causal=causal, scale=scale)
+           if form == "lse" else None)
     got = ref.flash_attention_bwd_ref(tq, tk, tv, o, tdo, causal=causal,
                                       scale=scale, lse=lse)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
@@ -342,8 +375,8 @@ def test_head_dim_192_backward_matches_the_references_attention(causal):
 def test_head_dim_192_takes_the_wgmma_routes():
     """bf16 at D 192 takes the wgmma forward (nemotron's serving prefill
     and training forward, which writes the log-sum-exp) and the wgmma
-    backward, in three launches (dq, dv, dk); float32 there takes simt
-    forward and has no backward kernel."""
+    backward, in three launches (dq, dv, dk); float32 there takes the
+    simt forward and the simt backward, in three launches too."""
     bf16, f32 = torch.bfloat16, torch.float32
     for lq in (2, 130, 4096):
         assert fa.route(bf16, 1, lq, lq, 96, 8, 192, True) == "wgmma"
@@ -354,6 +387,80 @@ def test_head_dim_192_takes_the_wgmma_routes():
         assert fa.route_bwd(f32, lq, 192) == "simt"
     assert fa.route(bf16, 1, 1, 4096, 96, 8, 192, True) == "decode"
     assert 192 in fa.bwd_head_dims("wgmma")
-    assert 192 not in fa.bwd_head_dims("simt")
+    assert 192 in fa.bwd_head_dims("simt")
     assert fa.BWD_HEAD_DIMS == (16, 32, 64, 80, 96, 128, 192)
     assert fa.bwd_launches(bf16, 4096, 128) == 2
+
+
+@pytest.mark.parametrize("lq", [2, 200, 4096])
+def test_float32_head_dim_192_takes_the_split_simt_backward(lq):
+    """float32 at D 192 takes the simt backward in three launches (dq,
+    then dv and dk apart: their fused launch would pass the shared memory
+    a block may hold), as bf16 there takes the wgmma one; the dk/dv
+    wrappers of both routes take one part at 192 and both below it, and
+    refuse the other form before any launch."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert fa.route_bwd(f32, lq, 192) == "simt"
+    assert fa.bwd_launches(f32, lq, 192) == 3
+    assert fa.bwd_launches(f32, lq, 128) == 2
+    assert fa.bwd_launches(bf16, lq, 192) == 3
+    assert fa.SPLIT_DKDV_HEAD_DIMS == (192,)
+    fa._check_part(fa._DV, 192, "k")
+    fa._check_part(fa._DK, 192, "k")
+    fa._check_part(fa._DKDV, 128, "k")
+    with pytest.raises(ValueError, match="two launches"):
+        fa._check_part(fa._DKDV, 192, "k")
+    with pytest.raises(ValueError, match="one launch"):
+        fa._check_part(fa._DK, 128, "k")
+
+
+def test_golden_cuts_are_the_smokes():
+    """The golden script's new entries are the models ``chip_smoke.py``
+    checks and trains: the ``"train_families"`` nemotron cut and the
+    ``"dense"`` one at the smoke's nemotron training width
+    (``TRAIN_FAMILY_CUTS``) in depth 2 with the MoE entries' vocabulary,
+    musicgen at full width; the golden file's entries carry exactly the
+    script's cuts (float32), and every arch of the registry has a golden
+    entry that the card checks."""
+    import importlib.util
+    import json
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, "scripts"))
+    import make_torch_golden as mg
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    card = smoke.TRAIN_FAMILY_CUTS["nemotron-4-340b"]
+    for cuts in (mg.TRAIN_FAMILY_CUTS, mg.DENSE_CUTS):
+        nem = cuts["nemotron"]
+        assert nem["arch"] == "nemotron-4-340b"
+        assert (nem["d_model"], nem["d_ff"]) == (card["d_model"],
+                                                card["d_ff"])
+        assert nem["num_layers"] == 2 and nem["vocab_size"] == 32768
+    assert mg.TRAIN_FAMILY_CUTS["musicgen"] == dict(
+        arch=smoke.AUDIO_ARCH, num_layers=2)
+    assert mg.AUDIO_CUTS == {"musicgen": dict(arch=smoke.AUDIO_ARCH,
+                                              num_layers=2)}
+    assert set(smoke.DENSE_MAIN) == {mg.DENSE_CUTS[n]["arch"]
+                                     for n in ("qwen", "command_r")}
+    with open(os.path.join(root, "tests", "data",
+                           "torch_port_golden.json")) as f:
+        golden = json.load(f)
+    checked = {golden["lm"]["arch"]}
+    for entry, cuts in (("dense", mg.DENSE_CUTS), ("audio", mg.AUDIO_CUTS),
+                        ("train_families", mg.TRAIN_FAMILY_CUTS)):
+        assert set(golden[entry]) == set(cuts), entry
+        for name, cut in cuts.items():
+            assert golden[entry][name]["cuts"] == dict(cut, dtype="float32")
+            checked.add(cut["arch"])
+    for entry in ("moe", "ssm", "vlm"):
+        checked |= {g["arch"] for g in golden[entry].values()}
+    assert checked == set(registry.ARCHS)
+    assert golden["audio"]["musicgen"]["num_layers"] == 2
+    assert np.asarray(golden["audio"]["musicgen"]["prompt"]).shape == (
+        2, 4, 64)
