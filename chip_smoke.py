@@ -186,15 +186,17 @@ else.  Phases, each of which raises on failure:
     equals the CSR sweep's BFS word for word (batches 0 and 1);
 14. flash attention, after the quantised stacks are released: the
     kernels against their plain version on the card through
-    ``ops.flash_attention``, which picks one of three routes by shape
-    (``wgmma``: bf16 prefill at D 64/80/96/128; ``decode``: one query
-    row; ``simt``: the rest) — float32 and bfloat16, causal and not,
+    ``ops.flash_attention``, which picks one of four routes by shape
+    (``wgmma``: bf16 prefill at D 64/80/96/128/192; ``tf32x3``: float32
+    prefill there, which every float32 case at those head dims must take;
+    ``decode``: one query row; ``simt``: the rest, D 16 and 32) — float32
+    and bfloat16, causal and not,
     ``kv_offset`` 0 and > 0, H/KVH 1, 3, 5, 8 and 12, head dims 16, 64,
     80, 96, 128 and 192, ragged Lq and Lk (130 over 190 and 257 over 457
     at D 80 and 96), and the LM main path's, maverick's (H 40, KVH 8, a
     group of 5), zamba2's (H = KVH 32, D 80) and phi-3-vision's (H = KVH
     32, D 96) prefill and decode shapes (their bf16 prefill on the wgmma
-    route, float32 on simt); each
+    route, float32 on tf32x3); each
     decode case also against the split-K plain
     version cut at the kernel's own split; float32 within 2e-5 max abs,
     bfloat16 within atol = rtol = 2e-2 (the reference's kernel test) and
@@ -204,7 +206,7 @@ else.  Phases, each of which raises on failure:
 15. LM checks: (golden) llama3.2-3b at full width and vocabulary, depth
     cut to 2 layers, float32 (TF32 off), weights from
     ``models/init.py::numpy_params(cfg, seed=0)``: prefill of 2 × 64
-    tokens (simt route) and 8 teacher-forced decode steps (decode route)
+    tokens (tf32x3 route) and 8 teacher-forced decode steps (decode route)
     against the file's ``"lm"`` entry — logits at 32 vocabulary ids, max
     logit and log-sum-exp within 1e-3, greedy argmax equal wherever the
     golden top-2 gap exceeds 1e-3; (bf16) the same model in bf16 with the
@@ -217,24 +219,25 @@ else.  Phases, each of which raises on failure:
     full width and vocabulary, cut to 2 layers (one dense, one MoE) and 16
     and 8 routed experts; every expert the port's router picks, call by
     call, equal to the reference's (``routes``), its router margin
-    printed; deepseek launches no flash_attention, maverick 2 simt and
+    printed; deepseek launches no flash_attention, maverick 2 tf32x3 and
     2 × 8 decode; (ssm golden) the file's two ``"ssm"`` entries the same
     way (``numpy_params`` weights with ``numpy_ssm_heads``' per-head
     draws, a prefill of 2 × 512 tokens, two SSD chunks): mamba2-1.3b cut
     to 2 layers (no flash launch) and zamba2-2.7b cut to 12 (two groups:
-    its shared block 2 simt and 2 × 8 decode, each invocation on a KV
+    its shared block 2 tf32x3 and 2 × 8 decode, each invocation on a KV
     cache of its own); (vlm golden) the file's ``"vlm"`` entry the same
     way: phi-3-vision-4.2b cut to 2 layers, each prompt of 64 tokens
-    after 64 seeded patch embeddings (``numpy_patch_embeds``), 2 simt and
-    2 × 8 decode at head dim 96; (ssm bf16) zamba2 at that depth in bf16
+    after 64 seeded patch embeddings (``numpy_patch_embeds``), 2 tf32x3
+    and 2 × 8 decode at head dim 96; (ssm bf16) zamba2 at that depth in bf16
     as (bf16) checks llama, its prefill's attention on the wgmma route at
     head dim 80; (vlm bf16) phi-3-vision at 2 layers the same way, 64
     patch embeddings then 1,984 tokens, on the wgmma route at head dim
     96; (dense golden) the file's three ``"dense"`` entries the same way
     as the ``"lm"`` one: qwen1.5-110b (QKV bias) and command-r-35b at full
     width, nemotron-4-340b at ``TRAIN_FAMILY_CUTS``' width (its 96 heads
-    over 8 of 192: the simt forward and the decode route at D 192), each
-    2 layers with the vocabulary cut to 32,768, 2 simt and 2 × 8 decode;
+    over 8 of 192: the tf32x3 forward and the decode route at D 192), each
+    2 layers with the vocabulary cut to 32,768, 2 tf32x3 and 2 × 8
+    decode;
     (audio golden) the ``"audio"`` entry: musicgen-medium at full width,
     2 layers, prompts of (2, 4, 64) tokens (4 codebooks summed in, a head
     a codebook out: the logits' rows are (batch, codebook) pairs), every
@@ -297,14 +300,16 @@ else.  Phases, each of which raises on failure:
 16f. training, after the VLM phases are released: ([flash bwd]) the
     flash-attention gradient (two launches of the route ``route_bwd``
     picks: bf16 on ``wgmma``, ``csrc/flash_bwd_wgmma.cu``, reading the
-    log-sum-exp the forward kernel writes; float32 on ``simt``,
-    ``csrc/flash_attention_bwd.cu``) against its plain version
-    ``ref.flash_attention_bwd_ref`` of that route — bf16 at D
-    64/80/96/128/192, float32 at D 16/32/128/192 (three launches at 192
-    on either route: dq, dv, dk), GQA groups 1, 3, 5, 8 and 12, L 130, 200
-    and 257, causal and not, and the training shape (1, 4096, 24 over 8
-    heads, 128) bf16 and nemotron's (1, 4096, 96 over 8, 192) in bf16 and
-    in float32, causal, each of which must also give the same bits twice;
+    log-sum-exp the forward kernel writes; float32 at D 64-192 on
+    ``tf32x3``, ``csrc/flash_bwd_tf32x3.cu``, reading it too; float32 at
+    D 16 and 32 on ``simt``, ``csrc/flash_attention_bwd.cu``) against its
+    plain version ``ref.flash_attention_bwd_ref`` of that route — bf16 at
+    D 64/80/96/128/192, float32 at D 16/32/64/80/96/128/192 (three
+    launches at 192 on every route: dq, dv, dk), GQA groups 1, 3, 5, 8
+    and 12, L 130, 200 and 257, causal and not, and the training shape
+    (1, 4096, 24 over 8 heads, 128) bf16 and nemotron's (1, 4096, 96 over
+    8, 192) in bf16 and in float32, causal, each of which, and every
+    float32 case, must also give the same bits twice;
     float32 within 1e-4 max abs (``BWD_F32_TOL``; at D 192 within 1e-4 of
     the gradient's largest magnitude), bf16 as the forward's
     checks, the forward's log-sum-exp within 1e-4 (``LSE_TOL``) of
@@ -315,11 +320,12 @@ else.  Phases, each of which raises on failure:
     file's ``"train"`` entry within 1e-3 (``TRAIN_GOLD_TOL``, relative:
     losses, grad norms, every leaf's L2 norm of step 0's gradient and of
     the parameters after the steps, 64 values of three leaves of each),
-    the simt forward and the simt backward at D 128, 4 simt and 4
-    ``flash_bwd`` launches a step, all on simt; ([train families golden])
-    the same two float32 steps of mamba2, zamba2 (the simt backward at D
-    80), deepseek-v3 (MLA and MoE), maverick (the simt backward at D
-    128), nemotron (the simt backward at D 192, three launches a call)
+    the tf32x3 forward and the tf32x3 backward at D 128, 4 tf32x3 and 4
+    ``flash_bwd`` launches a step, all on tf32x3; ([train families
+    golden]) the same two float32 steps of mamba2, zamba2 (the tf32x3
+    backward at D 80), deepseek-v3 (MLA and MoE), maverick (the tf32x3
+    backward at D 128), nemotron (the tf32x3 backward at D 192, three
+    launches a call)
     and musicgen (codebooks, D 64) at the ``"train_families"`` entry's
     cuts against it within
     ``TRAIN_GOLD_TOL``, weights drawn by numpy in threads while the
@@ -361,8 +367,8 @@ else.  Phases, each of which raises on failure:
     ([train f32 d192]) the nemotron cut in float32 (TF32 off, bf16
     moments) through ``train.loop.train``, one step of 2 × 4,096 tokens
     in 2 microbatches: finite loss and grad norm, per layer and
-    microbatch 2 simt forwards and 3 simt backward launches (dq, dv, dk),
-    nothing on wgmma, a peak under the card's memory;
+    microbatch 2 tf32x3 forwards and 3 tf32x3 backward launches (dq, dv,
+    dk), nothing on simt or wgmma, a peak under the card's memory;
     ([train restart]) the smoke
     config on the card, float32: ``train_with_restarts`` with crashes
     after steps 5 and 9 against a clean run, within 1e-5
@@ -421,11 +427,14 @@ else.  Phases, each of which raises on failure:
     graphs of 10, the plain version, and the autograd backward of
     ``scaled_dot_product_attention(..., is_causal=True,
     enable_gqa=True)`` (timed only) from a CUDA graph of 10 and eager,
-    beside its bound; then ([timing flash bwd f32]) the ``simt`` backward
-    in float32 at the training shape and at nemotron's (D 192: dq, dv and
-    dk, each alone too) from CUDA graphs of 10, its plain version and
-    SDPA's float32 autograd backward (the backend PyTorch picks named),
-    beside the bound at the 67 TFLOP/s float32 peak;
+    beside its bound; then ([timing flash bwd f32], [timing flash f32]) the
+    float32 backward and forward at the training shape and at nemotron's
+    (D 192: dq, dv and dk): the ``tf32x3`` route and the ``simt`` route
+    (the earlier design), each launch alone too, from CUDA graphs of 10,
+    the plain version and SDPA's float32 forward and autograd backward
+    (the backend PyTorch picks named, and the memory-efficient backend on
+    K and V repeated to H heads outside the graph), beside both bounds:
+    three TF32 passes at 495 TFLOP/s and the 67 TFLOP/s float32 peak;
 18. serving on a mesh and the dry-run (`run_serve_mesh_phases`):
     ([flash decode lse]) the ``decode`` route's output and log-sum-exp
     (``ops.flash_attention(..., return_lse=True)``) against their plain
@@ -486,7 +495,7 @@ else.  Phases, each of which raises on failure:
     ``--archs-only`` [flash bwd], the dense and audio goldens and main
     paths, the nemotron and musicgen train-family goldens, phi-3-vision's
     and musicgen's bf16 gradients and steps, [train f32 d192] and the
-    float32 backward's timing (`run_archs_phases`).
+    float32 backward's and forward's timing (`run_archs_phases`).
 
 Each phase prints its peak device memory (9b, 9c and 9d their seconds
 too).  Before the kernels line, ``[time]`` gives each phase's seconds
@@ -522,6 +531,7 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "torch_port_golden.json")
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12     # dense tensor-core peak (bf16 inputs)
+TF32_FLOPS_PER_S = 495e12     # dense tensor-core peak (TF32 inputs)
 F32_TOL, BF16_TOL, LM_TOL = 2e-5, 2e-2, 1e-3
 # bf16 kernel checks also bound the relative RMS difference, rms(got -
 # want) / rms(want): atol = rtol = 2e-2 alone is a third of a typical
@@ -670,8 +680,8 @@ TRAIN_FAMILY_BF16 = {
 }
 # [train f32 d192]: the nemotron cut (TRAIN_FAMILY_CUTS) in float32 through
 # train.loop.train, its bf16 moments (optimizer_state_dtype): sequences,
-# tokens a sequence, microbatches and steps; every attention on the simt
-# forward and the simt backward at D 192 (dq, dv, dk).
+# tokens a sequence, microbatches and steps; every attention on the tf32x3
+# forward and the tf32x3 backward at D 192 (dq, dv, dk).
 TRAIN_F32_BATCH, TRAIN_F32_SEQ, TRAIN_F32_MICRO, TRAIN_F32_STEPS = (
     2, 4096, 2, 1)
 # The dense and audio serving phases: qwen1.5-110b (QKV bias) and
@@ -2899,6 +2909,10 @@ def check_flash(dev) -> dict:
             v = torch.randn((b, lk, kvh, d), generator=gen, device=dev)
             q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
             r = fa.route(dtype, b, lq, lk, h, kvh, d, causal)
+            # Every float32 prefill at D 64-192 on the tensor cores.
+            _check(r == "tf32x3" or not (dtype == torch.float32 and lq > 1
+                                          and d >= 64),
+                   f"flash_attention {name}: float32 on route {r}")
             before = ops.LAUNCHES[f"flash_{r}"]
             got = ops.flash_attention(q, k, v, causal=causal, kv_offset=off)
             want = ref.flash_attention_ref(q, k, v, causal=causal,
@@ -2925,7 +2939,8 @@ def check_flash(dev) -> dict:
     missing = [r for r, c in per_route.items() if c == 0]
     _check(not missing, f"flash_attention: no case ran route(s) {missing}")
     print(f"[flash] {n} cases (f32 and bf16, causal and not, kv_offset 0 "
-          f"and > 0, H/KVH 1/3/5/8/12, D 16-192 (bf16 at 192 on wgmma), "
+          f"and > 0, H/KVH 1/3/5/8/12, D 16-192 (bf16 prefill at 64-192 on "
+          f"wgmma, float32 prefill there on tf32x3), "
           f"ragged Lq and Lk, the main "
           f"path's, maverick's, zamba2's (D 80) and phi-3-vision's (D 96) "
           f"prefill and decode shapes; decode also "
@@ -2982,8 +2997,9 @@ def _check_golden_model(gold: dict, cfg, dev, tag: str, tree) -> dict:
     off, against the
     entry within LM_TOL, and every MoE call's expert picks equal to the
     entry's ``routes``; GQA layers (and ``mamba_attn`` layers' shared
-    block) launch flash_attention on the simt route for the prefill and
-    the decode route for each step, MLA and ``mamba`` layers none."""
+    block) launch flash_attention on the tf32x3 route for the prefill
+    (simt at a head dim no tensor-core route takes) and the decode route
+    for each step, MLA and ``mamba`` layers none."""
     from repro_torch import convert
     from repro_torch.kernels import ops
     from repro_torch.models import mlp
@@ -3016,17 +3032,19 @@ def _check_golden_model(gold: dict, cfg, dev, tag: str, tree) -> dict:
                       for t in params.parameters()) / 2 ** 30
     del params
     launches = ops.LAUNCHES["flash_attention"]
-    routes = {r: ops.LAUNCHES[f"flash_{r}"] for r in ("simt", "decode")}
+    routes = {r: ops.LAUNCHES[f"flash_{r}"]
+              for r in ("tf32x3", "simt", "decode")}
     gqa = _flash_layers(cfg)
     _check(worst <= LM_TOL, f"{tag}: largest difference {worst} > {LM_TOL}")
     _check(launches == gqa * (1 + steps),
            f"{tag}: flash_attention launched {launches} times, not "
            f"{gqa * (1 + steps)}")
-    # float32: the prefill on the simt route, every decode step on the
-    # decode route.
-    _check(routes == {"simt": gqa, "decode": gqa * steps},
-           f"{tag}: routes launched {routes}, not simt {gqa} and decode "
-           f"{gqa * steps}")
+    # float32: the prefill on the tf32x3 route (simt below D 64), every
+    # decode step on the decode route.
+    pre = "tf32x3" if cfg.head_dim >= 64 else "simt"
+    want = {"tf32x3": 0, "simt": 0, "decode": gqa * steps}
+    want[pre] += gqa
+    _check(routes == want, f"{tag}: routes launched {routes}, not {want}")
     print(f"[{tag}] {cfg.name}, {cfg.num_layers} layers at full width "
           f"(d {cfg.d_model}, vocab {cfg.vocab_size}), float32, weights "
           f"{weights_gib:.2f} GiB loaded in {load_s:.1f}s: prefill "
@@ -3782,6 +3800,9 @@ def _bwd_cases():
                   ("bf16 D 128, H/KVH 8", 1, 257, 8, 1, 128, bf16, causal),
                   ("f32 D 16, H/KVH 1", 2, 257, 4, 4, 16, f32, causal),
                   ("f32 D 32, H/KVH 3", 2, 130, 6, 2, 32, f32, causal),
+                  ("f32 D 64, H/KVH 1", 2, 130, 4, 4, 64, f32, causal),
+                  ("f32 D 80, H/KVH 3", 2, 257, 6, 2, 80, f32, causal),
+                  ("f32 D 96, H/KVH 5", 1, 200, 10, 2, 96, f32, causal),
                   ("f32 D 128, H/KVH 5", 1, 257, 10, 2, 128, f32, causal),
                   ("f32 D 128, H/KVH 8", 1, 130, 8, 1, 128, f32, causal),
                   ("f32 D 192, H/KVH 12", 1, 130, 12, 1, 192, f32, causal),
@@ -3812,35 +3833,46 @@ def _bwd_close(got, want, dtype, what: str, d: int) -> tuple[float, float]:
 def check_flash_bwd(dev) -> dict:
     """The flash-attention gradient (two or three launches through
     ``ops.flash_attention_bwd``, on the route ``route_bwd`` picks: bf16
-    on ``wgmma``, float32 on ``simt``) against
-    ``ref.flash_attention_bwd_ref`` of that route on the card, on the
-    forward's own output and (``wgmma``) its log-sum-exp, which is held
-    against ``ref.flash_attention_lse_ref`` within LSE_TOL; the training
-    shape and nemotron's (bf16, and float32 on simt at D 192) twice, bit
-    for bit.  Returns the largest differences per dtype (float32 at D 192
-    apart, absolute and relative) and the cases per route."""
+    on ``wgmma``, float32 on ``tf32x3`` at D 64-192 and on ``simt`` at D
+    16 and 32) against ``ref.flash_attention_bwd_ref`` of that route on
+    the card, on the forward's own output and (``wgmma``, ``tf32x3``) its
+    log-sum-exp, which is held against ``ref.flash_attention_lse_ref``
+    within LSE_TOL (a float32 case's output against
+    ``ref.flash_attention_ref`` within F32_TOL); every float32 case, the training shape and nemotron's
+    (bf16, and float32 at D 192) twice, bit for bit.  Returns the largest
+    differences per dtype (float32 at D 192 apart, absolute and relative)
+    and the cases per route."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(4)
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    rrms, lse_err, err192, rel192 = 0.0, 0.0, 0.0, 0.0
+    rrms, lse_err, err192, rel192, fwd_err = 0.0, 0.0, 0.0, 0.0, 0.0
     cases = {r: 0 for r in fa.BWD_ROUTES}
     for name, b, L, h, kvh, d, dtype, causal in _bwd_cases():
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                        for shape in ((b, L, h, d), (b, L, kvh, d),
                                      (b, L, kvh, d), (b, L, h, d)))
         route = fa.route_bwd(dtype, L, d)
-        _check(route == ("wgmma" if dtype == torch.bfloat16 else "simt"),
+        _check(route == ("wgmma" if dtype == torch.bfloat16
+                         else "tf32x3" if d >= 64 else "simt"),
                f"flash_bwd {name}: route {route}")
         cases[route] += 1
         o, lse = ops.flash_attention_fwd(q, k, v, causal=causal)
-        if route == "wgmma":
+        if route in fa.LSE_BWD_ROUTES:
             worst = float((lse - ref.flash_attention_lse_ref(
                 q, k, causal=causal)).abs().max())
             _check(worst <= LSE_TOL, f"flash forward lse {name}: max abs "
                    f"err {worst} > {LSE_TOL}")
             lse_err = max(lse_err, worst)
+        if dtype == torch.float32:
+            # The output the gradient reads, at the case's own shape
+            # (nemotron's float32 is [train f32 d192]'s): the plain
+            # backward below takes this o, so an error in it would move
+            # both sides alike.
+            worst, _ = _flash_close(o, ref.flash_attention_ref(
+                q, k, v, causal=causal), dtype, f"flash forward {name}")
+            fwd_err = max(fwd_err, worst)
         before = dict(ops.LAUNCHES)
         got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                       lse=lse)
@@ -3850,7 +3882,7 @@ def check_flash_bwd(dev) -> dict:
                and ops.LAUNCHES[f"flash_bwd_{route}"]
                == before[f"flash_bwd_{route}"] + n_l,
                f"flash_bwd {name}: not launched {n_l} times on {route}")
-        if name.endswith("shape"):
+        if name.endswith("shape") or dtype == torch.float32:
             again = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                             lse=lse)
             _check(all(torch.equal(a, c) for a, c in zip(got, again)),
@@ -3871,20 +3903,22 @@ def check_flash_bwd(dev) -> dict:
     n = len(_bwd_cases())
     _check(all(cases.values()), f"flash_bwd: a route ran no case {cases}")
     print(f"[flash bwd] {n} cases (bf16 at D 64/80/96/128/192 on wgmma, "
-          f"float32 at D 16/32/128/192 on simt, three launches at 192: "
-          f"{cases}; H/KVH 1/3/5/8/12, L 130, 200 and 257, causal and not, "
-          f"the training shape {BWD_SHAPE} and nemotron's "
-          f"{BWD_TIMED_SHAPES['nemotron']} bf16 causal and nemotron's "
-          f"float32 causal, each bit-identical twice): dq, dk and dv max "
+          f"float32 at D 64/80/96/128/192 on tf32x3 and at D 16/32 on "
+          f"simt, three launches at 192: {cases}; H/KVH 1/3/5/8/12, L 130, "
+          f"200 and 257, causal and not, the training shape {BWD_SHAPE} "
+          f"and nemotron's {BWD_TIMED_SHAPES['nemotron']} bf16 causal and "
+          f"nemotron's float32 causal, these and every float32 case "
+          f"bit-identical twice): dq, dk and dv max "
           f"abs err f32 {err[torch.float32]:.3e} (limit {BWD_F32_TOL}), "
           f"f32 at D 192 {err192:.3e}, {rel192:.3e} of the largest "
           f"magnitude (limit {BWD_F32_TOL}), bf16 "
           f"{err[torch.bfloat16]:.3e} (atol = rtol = {BF16_TOL}), bf16 "
           f"relative RMS diff {rrms:.3e} (limit {BF16_RMS_TOL}); the "
-          f"forward's lse within {lse_err:.3e} (limit {LSE_TOL}); peak "
+          f"forward's lse within {lse_err:.3e} (limit {LSE_TOL}), its "
+          f"float32 output within {fwd_err:.3e} (limit {F32_TOL}); peak "
           f"device memory {_peak_gib():.2f} GiB")
     return {"f32": err[torch.float32], "bf16": err[torch.bfloat16],
-            "f32_d192": err192, "f32_d192_rel": rel192,
+            "f32_d192": err192, "f32_d192_rel": rel192, "f32_fwd": fwd_err,
             "bf16_rrms": rrms, "lse": lse_err, "cases": n,
             "cases_by_route": cases}
 
@@ -3933,14 +3967,28 @@ def _draw_golden_tree(gold: dict):
                  gold.get("ssm_heads_seed"))
 
 
+def _train_launches_want(route: str, n_fwd: int, n_bwd: int) -> dict:
+    """The flash counters of a training run whose ``n_fwd`` forwards
+    (remat's recompute among them) and ``n_bwd`` backward launches all
+    took ``route`` (a backward route; its forward has the same name):
+    every training route's forward and backward counter, the others 0."""
+    from repro_torch.kernels import flash_attention as fa
+
+    want = {f"flash_{r}": 0 for r in fa.BWD_ROUTES}
+    want.update({f"flash_bwd_{r}": 0 for r in fa.BWD_ROUTES})
+    want[f"flash_{route}"] = n_fwd
+    want[f"flash_bwd_{route}"] = want["flash_bwd"] = n_bwd
+    return want
+
+
 def check_train_golden(gold: dict, dev, tree,
                        tag: str = "train golden") -> dict:
     """Two float32 steps of ``make_train_step`` on a golden entry's model
     (the ``"train"`` entry, or one of ``"train_families"``), weights
     (``tree``, from `numpy_params`) and batches, against the entry; step
     0's gradient is taken once more on its own to compare its leaves.
-    Each GQA attention runs the simt forward (and remat's recompute) and
-    the simt backward (dq, dv and dk at D 192)."""
+    Each GQA attention runs the tf32x3 forward (and remat's recompute) and
+    the tf32x3 backward (dq, dv and dk at D 192)."""
     from repro_torch import convert
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import flash_attention as fa
@@ -3973,9 +4021,6 @@ def check_train_golden(gold: dict, dev, tree,
         for key in ("loss", "grad_norm"):
             worst = max(worst, abs(float(m[key]) - want[key]) / want[key])
     torch.cuda.synchronize()
-    launches = {k: ops.LAUNCHES[k] for k in (
-        "flash_simt", "flash_wgmma", "flash_bwd", "flash_bwd_simt",
-        "flash_bwd_wgmma")}
     _check(worst <= TRAIN_GOLD_TOL, f"{tag}: loss or grad norm differs by "
            f"{worst} relative (limit {TRAIN_GOLD_TOL})")
     p_err = _leaf_errors(adamw.named(params), gold["params"],
@@ -3983,11 +4028,12 @@ def check_train_golden(gold: dict, dev, tree,
     n = len(gold["steps"]) * _flash_layers(cfg)
     n_b = n * fa.bwd_launches(torch.float32, gold["seq_len"], cfg.head_dim) \
         if n else 0
-    _check(launches == {"flash_simt": 2 * n, "flash_wgmma": 0,
-                        "flash_bwd": n_b, "flash_bwd_simt": n_b,
-                        "flash_bwd_wgmma": 0},
-           f"{tag}: launches {launches}, not {2 * n} simt (forward and "
-           f"remat's recompute) and {n_b} flash_bwd on simt")
+    route = "tf32x3" if cfg.head_dim >= 64 else "simt"
+    want = _train_launches_want(route, 2 * n, n_b)
+    launches = {k: ops.LAUNCHES[k] for k in want}
+    _check(launches == want,
+           f"{tag}: launches {launches}, not {2 * n} {route} (forward and "
+           f"remat's recompute) and {n_b} flash_bwd on {route}")
     peak = _peak_gib()
     del params, opt, batches
     print(f"[{tag}] {cfg.name}, {cfg.num_layers} layers at full width, "
@@ -4309,9 +4355,10 @@ def run_train_f32_d192(dev) -> dict:
     TRAIN_F32_BATCH x TRAIN_F32_SEQ tokens in TRAIN_F32_MICRO microbatches,
     bf16 moments (its ``optimizer_state_dtype``); launch counters zeroed
     just before and read just after: per step and microbatch each layer
-    launches the simt forward twice (remat) and the simt backward three
-    times (dq, dv, dk), nothing on wgmma.  Fails unless the loss and grad
-    norm are finite and the peak stays under the card's memory."""
+    launches the tf32x3 forward twice (remat) and the tf32x3 backward three
+    times (dq, dv, dk), nothing on simt or wgmma.  Fails unless the loss
+    and grad norm are finite and the peak stays under the card's
+    memory."""
     from repro_torch.configs import registry
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -4332,16 +4379,14 @@ def run_train_f32_d192(dev) -> dict:
                      num_microbatches=m, device=dev, clock=clock,
                      log_every=100, print_fn=lambda *a: None)
     torch.cuda.synchronize()
-    launches = {k: ops.LAUNCHES[k] for k in (
-        "flash_simt", "flash_wgmma", "flash_decode", "flash_bwd",
-        "flash_bwd_simt", "flash_bwd_wgmma")}
+    calls = _flash_layers(cfg) * m * TRAIN_F32_STEPS
+    n_b = calls * fa.bwd_launches(torch.float32, seq, cfg.head_dim)
+    want = dict(_train_launches_want("tf32x3", 2 * calls, n_b),
+                flash_decode=0)
+    launches = {k: ops.LAUNCHES[k] for k in want}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses, gnorms, secs = res.losses, res.grad_norms, res.step_seconds
     del res
-    calls = _flash_layers(cfg) * m * TRAIN_F32_STEPS
-    n_b = calls * fa.bwd_launches(torch.float32, seq, cfg.head_dim)
-    want = {"flash_simt": 2 * calls, "flash_wgmma": 0, "flash_decode": 0,
-            "flash_bwd": n_b, "flash_bwd_simt": n_b, "flash_bwd_wgmma": 0}
     _check(len(losses) == TRAIN_F32_STEPS and all(np.isfinite(losses))
            and all(np.isfinite(gnorms)),
            f"train f32 d192: losses {losses}, grad norms {gnorms}")
@@ -4758,7 +4803,7 @@ def _time_bwd_shape(name: str, shape, dev) -> dict:
     return res
 
 
-def _sdpa_backward(q, k, v, do):
+def _sdpa_backward(q, k, v, do, efficient: bool = False):
     """The autograd backward of ``scaled_dot_product_attention(...,
     is_causal=True, enable_gqa=True)`` on (B, L, H, D) ``q`` and ``do``, k
     and v (B, L, KVH, D), as a callable returning (dq, dk, dv) in the
@@ -4766,19 +4811,30 @@ def _sdpa_backward(q, k, v, do):
     for these inputs (timed only, as the library's yardstick; the port
     never calls it).  Its forward runs on the side stream, which the
     backward's kernels follow, so a CUDA graph captured there holds
-    them."""
+    them.  With ``efficient`` the memory-efficient backend is forced, on K
+    and V repeated to H heads before it (dk and dv then per query head);
+    a RuntimeError where that backend refuses the inputs."""
     import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        backend = SDPBackend(torch._fused_sdp_choice(
-            qt, kt, vt, is_causal=True, enable_gqa=True)).name
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if efficient:
+            g = q.shape[2] // k.shape[2]
+            kt, vt = (t.repeat_interleave(g, dim=1) for t in (kt, vt))
+        qt, kt, vt = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        if efficient:
+            backend = SDPBackend.EFFICIENT_ATTENTION.name
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True)
+        else:
+            backend = SDPBackend(torch._fused_sdp_choice(
+                qt, kt, vt, is_causal=True, enable_gqa=True)).name
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
     torch.cuda.current_stream().wait_stream(side)
     dot = do.transpose(1, 2)
 
@@ -4789,17 +4845,114 @@ def _sdpa_backward(q, k, v, do):
     return library, side, backend
 
 
+def _f32_bounds(b: int, L: int, h: int, kvh: int, d: int,
+                products: int, tensors_h: int, tensors_kv: int) -> dict:
+    """The float32 attention's bounds at (B, L, H, KVH, D), causal:
+    ``products`` products of the visible pairs (2·D operations each) at
+    the 3xTF32 rate (three TF32 passes at TF32_FLOPS_PER_S) and at the
+    CUDA cores' SCALAR_OPS_PER_S, and the float32 bytes of ``tensors_h``
+    (B, L, H, D) and ``tensors_kv`` (B, L, KVH, D) tensors once; bound_ms
+    the larger of the 3xTF32 operations and the bytes."""
+    ops_n = products * 2 * b * h * (L * (L + 1) // 2) * d
+    tf32x3_ms = 1e3 * 3 * ops_n / TF32_FLOPS_PER_S
+    bytes_ms = 1e3 * 4 * (tensors_h * b * L * h * d
+                          + tensors_kv * b * L * kvh * d) / HBM_BYTES_PER_S
+    return dict(bound_ms=max(tf32x3_ms, bytes_ms),
+                bound_by="operations" if tf32x3_ms >= bytes_ms else "bytes",
+                bound_tf32x3_ms=tf32x3_ms,
+                bound_f32_ms=max(1e3 * ops_n / SCALAR_OPS_PER_S, bytes_ms),
+                bytes_ms=bytes_ms)
+
+
+def _time_fwd_f32(name: str, shape, dev) -> dict:
+    """The float32 forward at ``shape`` (B, L, H, KVH, D), causal: the
+    ``tf32x3`` route and the ``simt`` route (the CUDA-core kernel, the
+    earlier design) from CUDA graphs of 10 (through the wrappers,
+    uncounted), the plain version (events), and SDPA's float32 forward
+    (timed only) from a CUDA graph of 10: with the backend PyTorch picks
+    (``enable_gqa``) and the memory-efficient one on K and V repeated to H
+    heads outside the graph; beside `_f32_bounds` of two products."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    b, L, h, kvh, d = shape
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn(sh, generator=gen, device=dev)
+               for sh in ((b, L, h, d), (b, L, kvh, d), (b, L, kvh, d)))
+    kw = dict(causal=True, scale=d ** -0.5, kv_offset=0)
+    routes = {"tf32x3": lambda: fa.flash_prefill_tf32x3_cuda(q, k, v, **kw),
+              "simt": lambda: fa.flash_attention_cuda(q, k, v, **kw)}
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    errs = {r: float((fn() - want).abs().max()) for r, fn in routes.items()}
+    for r, e in errs.items():
+        _check(e <= F32_TOL, f"[timing flash f32] {name}: the {r} forward's "
+               f"max abs err {e} > {F32_TOL}")
+    ms = {r: _kernel_ms(fn) for r, fn in routes.items()}
+    plain_ms = _time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                        causal=True), 2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    backend = SDPBackend(torch._fused_sdp_choice(
+        qt, kt, vt, is_causal=True, enable_gqa=True)).name
+    g = h // kvh
+    kr, vr = (t.repeat_interleave(g, dim=1) for t in (kt, vt))
+
+    def picked():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    def efficient():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qt, kr, vr, is_causal=True)
+
+    lib_err = float((picked().transpose(1, 2) - want).abs().max())
+    library_ms = _kernel_ms(picked)
+    try:
+        eff_err = float((efficient().transpose(1, 2) - want).abs().max())
+        eff_ms = _kernel_ms(efficient)
+    except RuntimeError as e:       # the backend refuses these inputs
+        eff_err, eff_ms = None, None
+        print(f"[timing flash f32] {name}: SDPA's memory-efficient backend "
+              f"refuses float32 here ({str(e).splitlines()[0][:120]})")
+    del want
+    res = dict(ms=ms["tf32x3"], simt_ms=ms["simt"], plain_ms=plain_ms,
+               library_ms=library_ms, library_backend=backend,
+               library_efficient_ms=eff_ms, max_abs_err=errs["tf32x3"],
+               simt_max_abs_err=errs["simt"], library_max_abs_err=lib_err,
+               library_efficient_max_abs_err=eff_err,
+               **_f32_bounds(b, L, h, kvh, d, 2, 2, 2))
+    print(f"[timing flash f32] {name} {shape} (B, L, H, KVH, D) float32 "
+          f"causal forward: tf32x3 route {res['ms']:.4f} ms, simt route (the "
+          f"earlier design) {res['simt_ms']:.4f} ms (CUDA graphs of 10), "
+          f"plain {plain_ms:.4f} ms, SDPA float32 ({backend}) "
+          f"{library_ms:.4f} ms"
+          + (f", SDPA's memory-efficient backend (K/V repeated to {h} "
+             f"heads) {eff_ms:.4f} ms" if eff_ms is not None else "")
+          + f" (graphs of 10); bounds {res['bound_tf32x3_ms']:.6f} ms at "
+          f"3xTF32 ({TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, three passes), "
+          f"{res['bound_f32_ms']:.6f} ms at the {SCALAR_OPS_PER_S / 1e12:.0f}"
+          f" TFLOP/s float32 peak (bytes {res['bytes_ms']:.6f}): tf32x3 "
+          f"{res['bound_ms'] / res['ms']:.1%} of the first, simt "
+          f"{res['bound_f32_ms'] / res['simt_ms']:.1%} of the second; max "
+          f"abs err from plain tf32x3 {errs['tf32x3']:.3e}, simt "
+          f"{errs['simt']:.3e}, SDPA {lib_err:.3e}"
+          + (f", efficient {eff_err:.3e}" if eff_err is not None else ""))
+    return res
+
+
 def _time_bwd_f32(name: str, shape, dev) -> dict:
     """The flash-attention gradient at ``shape`` (B, L, H, KVH, D) in
-    float32, causal: the ``simt`` route (all its launches, and each alone:
-    dq, then dk/dv, or dv and dk at a head dim of
-    ``SPLIT_DKDV_HEAD_DIMS``) from CUDA graphs of 10 (through the
-    wrappers, uncounted), its plain version (events), and SDPA's float32
-    autograd backward (`_sdpa_backward`) from a CUDA graph of 10 and with
-    events around eager calls; beside the bound at the float32 peak: five
-    products of the visible pairs at SCALAR_OPS_PER_S (no tensor core
-    takes float32 inputs whole), or the float32 bytes of q, k, v, o, do,
-    dq, dk and dv once."""
+    float32, causal: the ``tf32x3`` route and the ``simt`` route (the
+    earlier design), all their launches and each alone (dq, then dk/dv,
+    or dv and dk at a head dim of ``SPLIT_DKDV_HEAD_DIMS``), from CUDA
+    graphs of 10 (through the wrappers, uncounted), the ``tf32x3``
+    route's plain version (events), and SDPA's float32 autograd backward
+    (`_sdpa_backward`: the backend PyTorch picks, and the memory-efficient
+    one on K and V repeated to H heads) from a CUDA graph of 10 and (the
+    picked one) with events around eager calls; beside `_f32_bounds` of
+    five products and eight tensors."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
@@ -4809,72 +4962,116 @@ def _time_bwd_f32(name: str, shape, dev) -> dict:
                    for sh in ((b, L, h, d), (b, L, kvh, d), (b, L, kvh, d),
                               (b, L, h, d)))
     kw = dict(causal=True, scale=d ** -0.5)
-    o = ops.flash_attention_fwd(q, k, v, causal=True)[0]
-    stats = fa.flash_bwd_dq_cuda(q, k, v, o, do, **kw)[1]
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=True)
     split = d in fa.SPLIT_DKDV_HEAD_DIMS
-    parts = {"dq": lambda: fa.flash_bwd_dq_cuda(q, k, v, o, do, **kw)}
-    if split:
-        parts["dv"] = lambda: fa.flash_bwd_dv_cuda(q, k, v, do, stats, **kw)
-        parts["dk"] = lambda: fa.flash_bwd_dk_cuda(q, k, v, do, stats, **kw)
-    else:
-        parts["dkdv"] = lambda: fa.flash_bwd_dkdv_cuda(q, k, v, do, stats,
-                                                       **kw)
+    delta = fa.flash_bwd_tf32x3_dq_cuda(q, k, v, o, do, lse, **kw)[1]
+    stats = fa.flash_bwd_dq_cuda(q, k, v, o, do, **kw)[1]
+    read = {"tf32x3": (lse, delta), "simt": (stats,)}
+    first = {"tf32x3": lambda: fa.flash_bwd_tf32x3_dq_cuda(q, k, v, o, do,
+                                                           lse, **kw),
+             "simt": lambda: fa.flash_bwd_dq_cuda(q, k, v, o, do, **kw)}
 
-    def simt():
-        dq, st = fa.flash_bwd_dq_cuda(q, k, v, o, do, **kw)
+    def parts(r):
+        """Each launch of route ``r`` alone (the ones after dq reading
+        the scratch made above)."""
+        _, dkdv, dv_fn, dk_fn = fa.BWD_CUDA[r]
+        out = {"dq": first[r]}
         if split:
-            dv = fa.flash_bwd_dv_cuda(q, k, v, do, st, **kw)
-            return dq, fa.flash_bwd_dk_cuda(q, k, v, do, st, **kw), dv
-        return (dq, *fa.flash_bwd_dkdv_cuda(q, k, v, do, st, **kw))
+            out["dv"] = lambda: dv_fn(q, k, v, do, *read[r], **kw)
+            out["dk"] = lambda: dk_fn(q, k, v, do, *read[r], **kw)
+        else:
+            out["dkdv"] = lambda: dkdv(q, k, v, do, *read[r], **kw)
+        return out
+
+    def whole(r):
+        _, dkdv, dv_fn, dk_fn = fa.BWD_CUDA[r]
+
+        def run():
+            dq, scratch = first[r]()
+            got = (lse, scratch) if r == "tf32x3" else (scratch,)
+            if split:
+                dv = dv_fn(q, k, v, do, *got, **kw)
+                return dq, dk_fn(q, k, v, do, *got, **kw), dv
+            return (dq, *dkdv(q, k, v, do, *got, **kw))
+        return run
 
     def plain():
-        return ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
 
     want = plain()
-    got = simt()
-    err = max(float((a - w).abs().max()) for a, w in zip(got, want))
-    rel = max(float((a - w).abs().max() / w.abs().max())
-              for a, w in zip(got, want))
-    del got
-    ms = _kernel_ms(simt)
-    part_ms = {p: _kernel_ms(fn) for p, fn in parts.items()}
+    err, rel = {}, {}
+    for r in ("tf32x3", "simt"):
+        got = whole(r)()
+        err[r] = max(float((a - w).abs().max()) for a, w in zip(got, want))
+        rel[r] = max(float((a - w).abs().max() / w.abs().max())
+                     for a, w in zip(got, want))
+        del got
+    ms = {r: _kernel_ms(whole(r)) for r in ("tf32x3", "simt")}
+    part_ms = {r: {p: _kernel_ms(fn) for p, fn in parts(r).items()}
+               for r in ("tf32x3", "simt")}
     plain_ms = _time_ms(plain, 2)
     library, side, backend = _sdpa_backward(q, k, v, do)
     lib_err = max(float((a.transpose(1, 2) - w).abs().max())
                   for a, w in zip(library(), want))
-    del want
     library_eager_ms = _time_ms(library, 10)
     library_ms = _kernel_ms(library, stream=side)
-    pairs = L * (L + 1) // 2
-    ops_ms = 1e3 * 5 * 2 * b * h * pairs * d / SCALAR_OPS_PER_S
-    bytes_ms = 1e3 * 4 * (4 * b * L * h * d + 4 * b * L * kvh * d) \
-        / HBM_BYTES_PER_S
-    bound = max(ops_ms, bytes_ms)
-    res = dict(ms=ms, part_ms=part_ms, plain_ms=plain_ms,
-               library_ms=library_ms, library_eager_ms=library_eager_ms,
-               library_backend=backend, bound_ms=bound,
-               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-               max_abs_err=err, max_rel_err=rel, library_max_abs_err=lib_err,
-               launches=fa.bwd_launches(torch.float32, L, d))
+    del library
+    try:
+        eff, eff_side, _ = _sdpa_backward(q, k, v, do, efficient=True)
+        g = h // kvh
+        got = [a.transpose(1, 2) for a in eff()]
+        got[1:] = [a.reshape(b, L, kvh, g, d).sum(3) for a in got[1:]]
+        eff_err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+        del got
+        eff_ms = _kernel_ms(eff, stream=eff_side)
+        del eff
+    except RuntimeError as e:       # the backend refuses these inputs
+        eff_err, eff_ms = None, None
+        print(f"[timing flash bwd f32] {name}: SDPA's memory-efficient "
+              f"backend refuses float32 here "
+              f"({str(e).splitlines()[0][:120]})")
+    del want
+    res = dict(ms=ms["tf32x3"], part_ms=part_ms["tf32x3"],
+               simt_ms=ms["simt"], simt_part_ms=part_ms["simt"],
+               plain_ms=plain_ms, library_ms=library_ms,
+               library_eager_ms=library_eager_ms, library_backend=backend,
+               library_efficient_ms=eff_ms,
+               max_abs_err=err["tf32x3"], max_rel_err=rel["tf32x3"],
+               simt_max_abs_err=err["simt"], simt_max_rel_err=rel["simt"],
+               library_max_abs_err=lib_err,
+               library_efficient_max_abs_err=eff_err,
+               launches=fa.bwd_launches(torch.float32, L, d),
+               **_f32_bounds(b, L, h, kvh, d, 5, 4, 4))
     print(f"[timing flash bwd f32] {name} {shape} (B, L, H, KVH, D) "
-          f"float32 causal: simt route {ms:.4f} ms in {res['launches']} "
-          f"launches (" + ", ".join(f"{p} {t:.4f}" for p, t in
-                                   part_ms.items())
+          f"float32 causal: tf32x3 route {ms['tf32x3']:.4f} ms in "
+          f"{res['launches']} launches ("
+          + ", ".join(f"{p} {t:.4f}" for p, t in part_ms["tf32x3"].items())
+          + f"), simt route (the earlier design) {ms['simt']:.4f} ms ("
+          + ", ".join(f"{p} {t:.4f}" for p, t in part_ms["simt"].items())
           + f"; CUDA graphs of 10), plain {plain_ms:.4f} ms, SDPA's float32 "
           f"autograd backward ({backend}) {library_ms:.4f} ms from a CUDA "
           f"graph of 10 and {library_eager_ms:.4f} ms with events around "
-          f"eager calls (its max abs diff from plain {lib_err:.3e}); bound "
-          f"{bound:.6f} ms by {res['bound_by']} ({ops_ms:.6f} operations at "
-          f"{SCALAR_OPS_PER_S / 1e12:.0f} TFLOP/s, {bytes_ms:.6f} bytes): "
-          f"simt {bound / ms:.1%} of it; max abs err from plain {err:.3e} "
-          f"({rel:.3e} of the largest magnitude)")
+          f"eager calls"
+          + (f", SDPA's memory-efficient backend (K/V repeated to {h} "
+             f"heads) {eff_ms:.4f} ms" if eff_ms is not None else "")
+          + f"; bounds {res['bound_tf32x3_ms']:.6f} ms at 3xTF32 "
+          f"({TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s, three passes), "
+          f"{res['bound_f32_ms']:.6f} ms at the "
+          f"{SCALAR_OPS_PER_S / 1e12:.0f} TFLOP/s float32 peak (bytes "
+          f"{res['bytes_ms']:.6f}): tf32x3 {res['bound_ms'] / ms['tf32x3']:.1%}"
+          f" of the first, simt {res['bound_f32_ms'] / ms['simt']:.1%} of "
+          f"the second; max abs err from plain tf32x3 {err['tf32x3']:.3e} "
+          f"({rel['tf32x3']:.3e} of the largest magnitude), simt "
+          f"{err['simt']:.3e} ({rel['simt']:.3e}), SDPA {lib_err:.3e}"
+          + (f", efficient {eff_err:.3e}" if eff_err is not None else ""))
     return res
 
 
 def time_flash_bwd(dev) -> dict:
     """`_time_bwd_shape` (the wgmma route, bf16) at each of
-    BWD_TIMED_SHAPES, then `_time_bwd_f32` (the simt route, float32) at
-    the training shape and nemotron's; returns the training shape's
+    BWD_TIMED_SHAPES, then `_time_bwd_f32` and `_time_fwd_f32` (the tf32x3
+    and simt routes, float32) at the training shape and nemotron's (the
+    forward under ``fwd``); returns the training shape's
     figures (the earlier keys, ``dq_ms`` and ``dkdv_ms`` among them) with
     every shape's under ``shapes`` and the float32 ones under ``f32``."""
     per = {name: _time_bwd_shape(name, shape, dev)
@@ -4883,6 +5080,7 @@ def time_flash_bwd(dev) -> dict:
     f32 = {}
     for name in ("training", "nemotron"):
         f32[name] = _time_bwd_f32(name, BWD_TIMED_SHAPES[name], dev)
+        f32[name]["fwd"] = _time_fwd_f32(name, BWD_TIMED_SHAPES[name], dev)
         _release(f"flash bwd timing, float32 {name}")
     t = per["training"]
     return dict(t, dq_ms=t["part_ms"]["dq"], dkdv_ms=t["part_ms"]["dkdv"],
@@ -4941,8 +5139,8 @@ def run_archs_phases(golden: dict, dev) -> dict:
     cover, alone — [flash bwd], the ``"dense"`` and ``"audio"`` goldens,
     [dense main] and [audio main], the ``"train_families"`` goldens of
     nemotron and musicgen, phi-3-vision's and musicgen's bf16 gradients
-    and training steps, [train f32 d192] and the float32 backward's
-    timing (`_time_bwd_f32`)."""
+    and training steps, [train f32 d192] and the float32 backward's and
+    forward's timing (`_time_bwd_f32`, `_time_fwd_f32`)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.configs import registry
@@ -4974,8 +5172,11 @@ def run_archs_phases(golden: dict, dev) -> dict:
     out["families"] = run_train_families(dev, archs)
     out["f32_d192"] = run_train_f32_d192(dev)
     _release("train f32 d192")
-    out["timing"] = {n: _time_bwd_f32(n, BWD_TIMED_SHAPES[n], dev)
-                     for n in ("training", "nemotron")}
+    out["timing"] = {}
+    for n in ("training", "nemotron"):
+        out["timing"][n] = _time_bwd_f32(n, BWD_TIMED_SHAPES[n], dev)
+        out["timing"][n]["fwd"] = _time_fwd_f32(n, BWD_TIMED_SHAPES[n], dev)
+        _release(f"flash timing, float32 {n}")
     return out
 
 
@@ -5491,7 +5692,7 @@ def main(argv=None) -> int:
                          "goldens and main paths, nemotron's and "
                          "musicgen's train-family goldens, phi-3-vision's "
                          "and musicgen's training, [train f32 d192] and "
-                         "the float32 backward's timing alone "
+                         "the float32 backward's and forward's timing alone "
                          "(`run_archs_phases`); no kernels line")
     ap.add_argument("--worlds-only", action="store_true",
                     help="build, then run the mesh world of 9d with every "
@@ -5570,6 +5771,21 @@ def main(argv=None) -> int:
     print("[build] flash_prefill_wgmma registers (spill bytes) per head dim: "
           + ", ".join(f"D {d} {r} ({int(a) + int(b)})"
                       for d, a, b, r in wgmma))
+    # flash_prefill_tf32x3_kernel<D>, flash_bwd_tf32x3_dq_kernel<D> and
+    # flash_bwd_tf32x3_dkdv_kernel<D, part> (part 1 dv alone, 2 dk alone at
+    # D 192): registers and spill bytes.
+    tf32x3 = {
+        f"{({'1': 'dv', '2': 'dk'}.get(part, k or 'prefill'))} D {d}": {
+        "registers": int(r), "spill_bytes": int(a) + int(b)}
+        for k, d, part, a, b, r in re.findall(
+            r"flash_(?:prefill|bwd)_tf32x3_(?:(dq|dkdv)_)?kernelILi(\d+)E"
+            r"(?:Li(\d)E)?.*?(\d+) bytes spill stores, (\d+) bytes spill "
+            r"loads.*?Used (\d+) registers",
+            _build.build_log("flash_prefill_tf32x3")
+            + _build.build_log("flash_bwd_tf32x3"), re.S)}
+    print("[build] tf32x3 registers (spill bytes) per launch and head dim: "
+          + ", ".join(f"{n} {v['registers']} ({v['spill_bytes']})"
+                      for n, v in sorted(tf32x3.items())))
     if args.archs_only:
         run_archs_phases(golden, dev)
         _time_line(t_all)
@@ -5774,16 +5990,20 @@ def main(argv=None) -> int:
                       f"the bf16 peak, peak {r['peak_gib']:.2f} GiB)"
                       for arch, r in fam.items())
           + f"; flash backward "
-          f"{fb['ms']:.4f} ms on wgmma, float32 on simt "
-          f"{fb['f32']['training']['ms']:.4f} (bound "
+          f"{fb['ms']:.4f} ms on wgmma, float32 on tf32x3 "
+          f"{fb['f32']['training']['ms']:.4f} (simt "
+          f"{fb['f32']['training']['simt_ms']:.4f}; bound "
           f"{fb['bound_ms']:.4f}, SDPA's {fb['library_ms']:.4f} from a graph, "
           f"{fb['library_eager_ms']:.4f} eager), at D 192 "
           f"{fb['shapes']['nemotron']['ms']:.4f} ms (bound "
           f"{fb['shapes']['nemotron']['bound_ms']:.4f}, SDPA's "
           f"{fb['shapes']['nemotron']['library_ms']:.4f}), in float32 on "
-          f"simt {fb['f32']['nemotron']['ms']:.4f} ms (bound "
+          f"tf32x3 {fb['f32']['nemotron']['ms']:.4f} ms (simt "
+          f"{fb['f32']['nemotron']['simt_ms']:.4f}; bound "
           f"{fb['f32']['nemotron']['bound_ms']:.4f}, SDPA's "
-          f"{fb['f32']['nemotron']['library_ms']:.4f}); training the "
+          f"{fb['f32']['nemotron']['library_ms']:.4f}), the float32 forward "
+          f"there {fb['f32']['nemotron']['fwd']['ms']:.4f} ms (simt "
+          f"{fb['f32']['nemotron']['fwd']['simt_ms']:.4f}); training the "
           f"nemotron cut in float32 "
           f"{train['f32_d192']['step_seconds'][0]:.3f}s a step (peak "
           f"{train['f32_d192']['peak_gib']:.2f} GiB); flash forward at D "
@@ -6137,20 +6357,81 @@ def main(argv=None) -> int:
                          for n, v in train_mesh["golden"]["models"].items()}
                      | {"train_f32_d192": train["f32_d192"]["launches"][
                          "flash_bwd_simt"]},
-                     max_abs_err_f32=train["bwd"]["f32"],
-                     max_abs_err_f32_d192=train["bwd"]["f32_d192"],
-                     max_rel_err_f32_d192=train["bwd"]["f32_d192_rel"],
-                     # float32 at the training shape (the top-level keys)
-                     # and at nemotron's (D 192: dq, dv, dk), against
-                     # SDPA's float32 backward and the float32 peak.
-                     **{k: fb["f32"]["training"][k] for k in (
-                         "ms", "plain_ms", "bound_ms", "bound_by",
-                         "library_ms", "max_abs_err")},
-                     f32={n: {k: t[k] for k in (
-                         "ms", "part_ms", "plain_ms", "bound_ms", "bound_by",
-                         "library_ms", "library_eager_ms", "library_backend",
-                         "max_abs_err", "max_rel_err", "launches")}
+                     # The earlier design in float32 at the training
+                     # shape (the top-level keys) and at nemotron's (D 192:
+                     # dq, dv, dk), timed beside the tf32x3 route, against
+                     # the float32 peak of the CUDA cores.
+                     ms=fb["f32"]["training"]["simt_ms"],
+                     max_abs_err=fb["f32"]["training"]["simt_max_abs_err"],
+                     bound_ms=fb["f32"]["training"]["bound_f32_ms"],
+                     f32={n: dict(
+                         ms=t["simt_ms"], part_ms=t["simt_part_ms"],
+                         bound_ms=t["bound_f32_ms"],
+                         max_abs_err=t["simt_max_abs_err"],
+                         max_rel_err=t["simt_max_rel_err"])
                          for n, t in fb["f32"].items()})}),
+        # The float32 routes on the tensor cores (3xTF32): their launches
+        # on [train f32 d192] (the float32 training path), the goldens'
+        # too; times at nemotron's shape (the top-level keys) and llama's.
+        dict(name="flash_attention_tf32x3", route="cuda",
+             source="src/repro_torch/csrc/flash_prefill_tf32x3.cu",
+             replaces="src/repro/kernels/flash_attention.py:83",
+             launches=train["f32_d192"]["launches"]["flash_tf32x3"],
+             launches_by_path=dict(
+                 train_f32_d192=train["f32_d192"]["launches"][
+                     "flash_tf32x3"],
+                 train_golden=train["golden"]["launches"]["flash_tf32x3"],
+                 **{f"train_families_golden_{n}": r["launches"][
+                     "flash_tf32x3"]
+                    for n, r in train["families_golden"].items()}),
+             cases=flash_err["cases"]["tf32x3"],
+             max_abs_err=max(flash_err["f32"], *(
+                 t["fwd"]["max_abs_err"] for t in fb["f32"].values())),
+             lse_max_abs_err=train["bwd"]["lse"],
+             build={n: v for n, v in tf32x3.items()
+                    if n.startswith("prefill")},
+             **{k: fb["f32"]["nemotron"]["fwd"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "library_backend", "library_efficient_ms", "simt_ms",
+                 "bound_tf32x3_ms", "bound_f32_ms")},
+             d128={k: fb["f32"]["training"]["fwd"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "library_backend", "library_efficient_ms", "simt_ms",
+                 "bound_f32_ms", "max_abs_err")}),
+        dict(name="flash_bwd_tf32x3", route="cuda",
+             source="src/repro_torch/csrc/flash_bwd_tf32x3.cu",
+             replaces="src/repro/models/attention.py:70",
+             replaces_note="no pallas_call: the reference differentiates "
+                           "its jnp blocked scan (attention.py:70-134); "
+                           "the gradient of row 6's kernel in float32",
+             launches=train["f32_d192"]["launches"]["flash_bwd_tf32x3"],
+             launches_by_path=dict(
+                 train_f32_d192=train["f32_d192"]["launches"][
+                     "flash_bwd_tf32x3"],
+                 train_golden=train["golden"]["launches"][
+                     "flash_bwd_tf32x3"],
+                 **{f"train_families_golden_{n}": r["launches"][
+                     "flash_bwd_tf32x3"]
+                    for n, r in train["families_golden"].items()}),
+             cases=train["bwd"]["cases_by_route"]["tf32x3"],
+             max_abs_err=max(train["bwd"]["f32"], *(
+                 t["max_abs_err"] for t in fb["f32"].values())),
+             max_rel_err_d192=max(train["bwd"]["f32_d192_rel"],
+                                  fb["f32"]["nemotron"]["max_rel_err"]),
+             build={n: v for n, v in tf32x3.items()
+                    if not n.startswith("prefill")},
+             **{k: fb["f32"]["nemotron"][k] for k in (
+                 "ms", "part_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "library_eager_ms", "library_backend",
+                 "library_efficient_ms", "simt_ms", "simt_part_ms",
+                 "bound_tf32x3_ms", "bound_f32_ms")},
+             d128={k: fb["f32"]["training"][k] for k in (
+                 "ms", "part_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "library_backend", "library_efficient_ms",
+                 "simt_ms", "simt_part_ms", "bound_f32_ms", "max_abs_err")},
+             train_f32_d192=dict(
+                 step_seconds=train["f32_d192"]["step_seconds"],
+                 split=train["f32_d192"]["split"])),
     ]
     print(json.dumps({"kernels": kernels}))
     print(_gpu_line())

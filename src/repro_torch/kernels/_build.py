@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("fused_expand", "coverage", "lt_select_expand",
            "flash_attention", "fused_expand_q", "flash_prefill_wgmma",
-           "flash_decode", "flash_attention_bwd", "flash_bwd_wgmma")
+           "flash_decode", "flash_attention_bwd", "flash_bwd_wgmma",
+           "flash_prefill_tf32x3", "flash_bwd_tf32x3")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

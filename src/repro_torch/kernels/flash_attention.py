@@ -2,7 +2,7 @@
 attention for the LM substrate's prefill and decode.
 
 Replace the Pallas kernel ``repro/kernels/flash_attention.py::
-flash_attention``.  Three routes compute the reference's function, and
+flash_attention``.  Four routes compute the reference's function, and
 `route` picks one from the call's shapes alone (no flag or environment
 variable):
 
@@ -18,9 +18,16 @@ variable):
   through a ``cp.async`` ring in shared memory; the partials are merged
   in the same launch by the last CTA of each group, which can also write
   each head's log-sum-exp (the sequence-parallel decode's merge input).
-- ``simt`` (``csrc/flash_attention.cu``): everything else (float32 with
-  ``Lq > 1``, bf16 at another head dim, such as 16).  One CTA per (64-row
-  query block, head, batch), float32 FMA on the CUDA cores.
+- ``tf32x3`` (``csrc/flash_prefill_tf32x3.cu``): float32, ``Lq > 1``, a
+  head dim of `WGMMA_HEAD_DIMS` — every float32 prefill and training
+  forward of the registry's archs.  A CTA of 8 warps per 128 query rows,
+  K/V blocks of 64 keys by ``cp.async``, every product on the tensor cores
+  as three TF32 passes (``mma.sync``; hi and lo of each operand split in
+  registers), which keeps float32's accuracy (`ref.tf32x3_matmul`
+  emulates it).
+- ``simt`` (``csrc/flash_attention.cu``): everything else (float32 or
+  bf16 with ``Lq > 1`` at another head dim, such as 16 or 32).  One CTA
+  per (64-row query block, head, batch), float32 FMA on the CUDA cores.
 
 Tile sizes belong to the kernels: the reference's ``block_q``/``block_k``
 tiling knobs have no counterpart.  The plain version is
@@ -29,7 +36,7 @@ the decode route's split and merge); `kernels.ops.flash_attention` picks
 between plain and kernel by device and counts each route's launches.
 
 The gradient (which the reference does not have: it differentiates its
-jnp scan) takes Lq == Lk and ``kv_offset`` 0, and has two routes, which
+jnp scan) takes Lq == Lk and ``kv_offset`` 0, and has three routes, which
 `route_bwd` picks from the shapes alone:
 
 - ``wgmma`` (``csrc/flash_bwd_wgmma.cu``): bf16 at a head dim of
@@ -37,19 +44,24 @@ jnp scan) takes Lq == Lk and ``kv_offset`` 0, and has two routes, which
   ``wgmma`` route, which writes each row's log-sum-exp (``lse``) for it.
   `flash_bwd_wgmma_dq_cuda` then `flash_bwd_wgmma_dkdv_cuda`, tensor-core
   tiles fed by TMA.
-- ``simt`` (``csrc/flash_attention_bwd.cu``): float32, and bf16 at D 16
-  and 32, at a head dim of `SIMT_BWD_HEAD_DIMS` (16 to 192).
-  `flash_bwd_dq_cuda` then `flash_bwd_dkdv_cuda`, float32 FMA on the CUDA
-  cores, the log-sum-exp recomputed.
+- ``tf32x3`` (``csrc/flash_bwd_tf32x3.cu``): float32 where the forward
+  took its ``tf32x3`` route, reading the log-sum-exp it wrote.
+  `flash_bwd_tf32x3_dq_cuda` then `flash_bwd_tf32x3_dkdv_cuda`, 3xTF32
+  ``mma.sync`` tiles fed by ``cp.async``.
+- ``simt`` (``csrc/flash_attention_bwd.cu``): float32 and bf16 at D 16
+  and 32 (the kernel takes every head dim of `SIMT_BWD_HEAD_DIMS`, 16 to
+  192).  `flash_bwd_dq_cuda` then `flash_bwd_dkdv_cuda`, float32 FMA on
+  the CUDA cores, the log-sum-exp recomputed.
 
-On both routes, at a head dim of `SPLIT_DKDV_HEAD_DIMS` (192) the second
-launch is two, dv then dk (`flash_bwd_wgmma_dv_cuda` and
-`flash_bwd_wgmma_dk_cuda`, `flash_bwd_dv_cuda` and `flash_bwd_dk_cuda`),
-each holding one gradient in registers.
+On every route, at a head dim of `SPLIT_DKDV_HEAD_DIMS` (192) the second
+launch is two, dv then dk (``flash_bwd_<route>_dv_cuda`` and
+``flash_bwd_<route>_dk_cuda``; ``flash_bwd_dv_cuda`` and
+``flash_bwd_dk_cuda`` on ``simt``), each holding one gradient in
+registers.
 
 Their plain version is `ref.flash_attention_bwd_ref` (with ``lse`` for
-the ``wgmma`` route), and `ops.flash_attention`'s autograd rule calls
-them.
+the routes of `LSE_BWD_ROUTES`), and `ops.flash_attention`'s autograd
+rule calls them.
 """
 from __future__ import annotations
 
@@ -60,8 +72,12 @@ import torch
 
 from repro_torch.kernels import _build
 
-ROUTES = ("wgmma", "decode", "simt")
-BWD_ROUTES = ("wgmma", "simt")
+ROUTES = ("wgmma", "decode", "tf32x3", "simt")
+BWD_ROUTES = ("wgmma", "tf32x3", "simt")
+# The backward routes that read the forward's log-sum-exp.
+LSE_BWD_ROUTES = ("wgmma", "tf32x3")
+# Head dims of the tensor-core routes: ``wgmma`` (bf16), ``tf32x3``
+# (float32), forward and backward.
 WGMMA_HEAD_DIMS = (64, 80, 96, 128, 192)
 SIMT_BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192)
 # Every head dim some backward route takes.
@@ -99,33 +115,36 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def route(dtype: torch.dtype, b: int, lq: int, lk: int, h: int, kvh: int,
           d: int, causal: bool) -> str:
     """The kernel that serves a call of these shapes: ``"decode"`` for one
-    query row, ``"wgmma"`` for a bf16 prefill at a head dim of
-    `WGMMA_HEAD_DIMS`, ``"simt"`` otherwise."""
+    query row; at a head dim of `WGMMA_HEAD_DIMS` ``"wgmma"`` for a bf16
+    prefill and ``"tf32x3"`` for a float32 one; ``"simt"`` otherwise."""
     if lq == 1:
         return "decode"
-    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
-        return "wgmma"
-    return "simt"
+    return _tensor_core_route(dtype, d) or "simt"
+
+
+def _tensor_core_route(dtype: torch.dtype, d: int) -> str | None:
+    if d not in WGMMA_HEAD_DIMS:
+        return None
+    return {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}.get(dtype)
 
 
 def route_bwd(dtype: torch.dtype, L: int, d: int) -> str:
-    """The gradient's kernel for a call of these shapes: ``"wgmma"`` where
-    the forward took its ``wgmma`` route (bf16, L > 1, a head dim of
-    `WGMMA_HEAD_DIMS`), ``"simt"`` otherwise."""
-    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS and L > 1:
-        return "wgmma"
-    return "simt"
+    """The gradient's kernel for a call of these shapes: the forward's
+    route where that was ``"wgmma"`` or ``"tf32x3"`` (L > 1, a head dim of
+    `WGMMA_HEAD_DIMS`, bf16 or float32), ``"simt"`` otherwise."""
+    return (_tensor_core_route(dtype, d) if L > 1 else None) or "simt"
 
 
 def bwd_head_dims(route_name: str) -> tuple:
     """The head dims the backward of ``route_name`` (of `BWD_ROUTES`)
     takes."""
-    return WGMMA_HEAD_DIMS if route_name == "wgmma" else SIMT_BWD_HEAD_DIMS
+    return (WGMMA_HEAD_DIMS if route_name in LSE_BWD_ROUTES
+            else SIMT_BWD_HEAD_DIMS)
 
 
 def bwd_launches(dtype: torch.dtype, L: int, d: int) -> int:
     """Kernel launches of one backward call of these shapes on the card:
-    two, or three at `SPLIT_DKDV_HEAD_DIMS` (either route)."""
+    two, or three at `SPLIT_DKDV_HEAD_DIMS` (every route)."""
     return 3 if d in SPLIT_DKDV_HEAD_DIMS else 2
 
 
@@ -215,6 +234,25 @@ def _check_lse(t, kernel: str, b: int, h: int, lq: int, dev,
                          f"{tuple(t.shape)}")
 
 
+def _prefill_tc(src: str, dtype: torch.dtype, q, k, v, causal: bool,
+                scale: float, kv_offset: int, lse) -> torch.Tensor:
+    """One launch of the tensor-core prefill ``csrc/<src>.cu`` (``wgmma``
+    in bf16, ``tf32x3`` in float32), after the checks both take."""
+    b, lq, lk, h, kvh, d = _check(q, k, v, src, (dtype,))
+    if d not in WGMMA_HEAD_DIMS or kv_offset < 0:
+        raise ValueError(f"{src}: needs D in {WGMMA_HEAD_DIMS} (got {d}) "
+                         f"and kv_offset >= 0 (got {kv_offset})")
+    if lse is not None:
+        _check_lse(lse, src, b, h, lq, q.device)
+    out = torch.empty_like(q)
+    fn = _build.launcher(src, f"{src}_launch", _WGMMA_ARGTYPES)
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 _build.data_ptr(lse), b, lq, lk, h, kvh, d, scale,
+                 int(causal), kv_offset,
+                 torch.cuda.current_stream(q.device).cuda_stream), src)
+    return out
+
+
 def flash_prefill_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool, scale: float,
                              kv_offset: int,
@@ -225,23 +263,23 @@ def flash_prefill_wgmma_cuda(q: torch.Tensor, k: torch.Tensor,
     output in bf16.  Given a float32 (B, H, Lq) ``lse``, the kernel also
     writes each row's natural log-sum-exp there (the backward's input);
     without one it writes nothing more."""
-    b, lq, lk, h, kvh, d = _check(q, k, v, "flash_prefill_wgmma",
-                                  (torch.bfloat16,))
-    if d not in WGMMA_HEAD_DIMS or kv_offset < 0:
-        raise ValueError(f"flash_prefill_wgmma: needs D in "
-                         f"{WGMMA_HEAD_DIMS} (got {d}) and kv_offset >= 0 "
-                         f"(got {kv_offset})")
-    if lse is not None:
-        _check_lse(lse, "flash_prefill_wgmma", b, h, lq, q.device)
-    out = torch.empty_like(q)
-    fn = _build.launcher("flash_prefill_wgmma", "flash_prefill_wgmma_launch",
-                         _WGMMA_ARGTYPES)
-    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _build.data_ptr(lse), b, lq, lk, h, kvh, d, scale,
-                 int(causal), kv_offset,
-                 torch.cuda.current_stream(q.device).cuda_stream),
-              "flash_prefill_wgmma")
-    return out
+    return _prefill_tc("flash_prefill_wgmma", torch.bfloat16, q, k, v,
+                       causal, scale, kv_offset, lse)
+
+
+def flash_prefill_tf32x3_cuda(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool, scale: float,
+                              kv_offset: int,
+                              lse: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """The ``tf32x3`` route on ``q``'s stream: float32 q (B, Lq, H, D), k
+    and v (B, Lk, KVH, D), D one of `WGMMA_HEAD_DIMS`, contiguous, 16-byte
+    aligned; returns the float32 output.  Given a float32 (B, H, Lq)
+    ``lse``, the kernel also writes each row's natural log-sum-exp there
+    (the ``tf32x3`` backward's input); without one it writes nothing
+    more."""
+    return _prefill_tc("flash_prefill_tf32x3", torch.float32, q, k, v,
+                       causal, scale, kv_offset, lse)
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -286,7 +324,9 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 CUDA_ROUTES = {"wgmma": flash_prefill_wgmma_cuda,
-               "decode": flash_decode_cuda, "simt": flash_attention_cuda}
+               "decode": flash_decode_cuda,
+               "tf32x3": flash_prefill_tf32x3_cuda,
+               "simt": flash_attention_cuda}
 
 
 def _check_bwd(q, k, v, o, do, kernel: str,
@@ -395,16 +435,53 @@ def flash_bwd_dk_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           "flash_bwd_dk")[0]
 
 
-def _check_bwd_wgmma(q, k, v, o, do, lse, kernel: str
-                     ) -> tuple[int, int, int, int, int]:
-    """`_check_bwd` for the ``wgmma`` route: bf16, D one of
-    `WGMMA_HEAD_DIMS`, and the forward's (B, H, L) float32 ``lse``."""
+def _check_bwd_tc(q, k, v, o, do, lse, kernel: str, dtype: torch.dtype
+                  ) -> tuple[int, int, int, int, int]:
+    """`_check_bwd` for a tensor-core route (``wgmma`` bf16, ``tf32x3``
+    float32): that dtype, D one of `WGMMA_HEAD_DIMS`, and the forward's
+    (B, H, L) float32 ``lse``."""
     b, L, h, kvh, d = _check_bwd(q, k, v, o, do, kernel, WGMMA_HEAD_DIMS)
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"{kernel}: needs bf16 and D in {WGMMA_HEAD_DIMS} "
-                         f"(got {q.dtype}, {d})")
+    if q.dtype != dtype:
+        raise ValueError(f"{kernel}: needs {dtype} and D in "
+                         f"{WGMMA_HEAD_DIMS} (got {q.dtype}, {d})")
     _check_lse(lse, kernel, b, h, L, q.device)
     return b, L, h, kvh, d
+
+
+def _bwd_tc_dq(src: str, dtype: torch.dtype, q, k, v, o, do, lse,
+               causal: bool, scale: float):
+    """The first launch of the tensor-core backward ``csrc/<src>.cu``:
+    returns dq and the float32 (B, H, L) Δ = rowsum(do ∘ o)."""
+    kernel = f"{src}_dq"
+    b, L, h, kvh, d = _check_bwd_tc(q, k, v, o, do, lse, kernel, dtype)
+    dq = torch.empty_like(q)
+    delta = torch.empty((b, h, L), dtype=torch.float32, device=q.device)
+    fn = _build.launcher(src, f"{src}_dq_launch", _BWD_WGMMA_ARGTYPES)
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                 delta.data_ptr(), b, L, h, kvh, d, scale, int(causal),
+                 torch.cuda.current_stream(q.device).cuda_stream), kernel)
+    return dq, delta
+
+
+def _bwd_tc_dkdv(src: str, dtype: torch.dtype, part: int, q, k, v, do,
+                 lse, delta, causal: bool, scale: float, kernel: str):
+    """One dk/dv launch (``part`` `_DKDV`, `_DV` or `_DK`) of the
+    tensor-core backward ``csrc/<src>.cu``, after its dq launch on the
+    same stream, reading that launch's ``delta``; returns (dk, dv), the one
+    not computed None."""
+    b, L, h, kvh, d = _check_bwd_tc(q, k, v, do, do, lse, kernel, dtype)
+    _check_part(part, d, kernel)
+    _check_lse(delta, kernel, b, h, L, q.device, "delta")
+    dk = torch.empty_like(k) if part != _DV else None
+    dv = torch.empty_like(v) if part != _DK else None
+    fn = _build.launcher(src, f"{src}_dkdv_launch", _BWD_WGMMA_DKDV_ARGTYPES)
+    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), _build.data_ptr(dk),
+                 _build.data_ptr(dv), b, L, h, kvh, d, scale, int(causal),
+                 part, torch.cuda.current_stream(q.device).cuda_stream),
+              kernel)
+    return dk, dv
 
 
 def flash_bwd_wgmma_dq_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -416,38 +493,8 @@ def flash_bwd_wgmma_dq_cuda(q: torch.Tensor, k: torch.Tensor,
     and do (B, L, H, D), k and v (B, L, KVH, D), contiguous, and the
     forward's float32 (B, H, L) ``lse``.  Returns dq (bf16) and the float32
     (B, H, L) Δ = rowsum(do ∘ o) that `flash_bwd_wgmma_dkdv_cuda` reads."""
-    b, L, h, kvh, d = _check_bwd_wgmma(q, k, v, o, do, lse,
-                                       "flash_bwd_wgmma_dq")
-    dq = torch.empty_like(q)
-    delta = torch.empty((b, h, L), dtype=torch.float32, device=q.device)
-    fn = _build.launcher("flash_bwd_wgmma", "flash_bwd_wgmma_dq_launch",
-                         _BWD_WGMMA_ARGTYPES)
-    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-                 delta.data_ptr(), b, L, h, kvh, d, scale, int(causal),
-                 torch.cuda.current_stream(q.device).cuda_stream),
-              "flash_bwd_wgmma_dq")
-    return dq, delta
-
-
-def _bwd_wgmma_dkdv(part: int, q, k, v, do, lse, delta, causal: bool,
-                    scale: float, kernel: str):
-    """One dk/dv launch of the ``wgmma`` backward (``part`` `_DKDV`, `_DV`
-    or `_DK`), after `flash_bwd_wgmma_dq_cuda` on the same stream, reading
-    its ``delta``; returns (dk, dv), the one not computed None."""
-    b, L, h, kvh, d = _check_bwd_wgmma(q, k, v, do, do, lse, kernel)
-    _check_part(part, d, kernel)
-    _check_lse(delta, kernel, b, h, L, q.device, "delta")
-    dk = torch.empty_like(k) if part != _DV else None
-    dv = torch.empty_like(v) if part != _DK else None
-    fn = _build.launcher("flash_bwd_wgmma", "flash_bwd_wgmma_dkdv_launch",
-                         _BWD_WGMMA_DKDV_ARGTYPES)
-    _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), _build.data_ptr(dk),
-                 _build.data_ptr(dv), b, L, h, kvh, d, scale, int(causal),
-                 part, torch.cuda.current_stream(q.device).cuda_stream),
-              kernel)
-    return dk, dv
+    return _bwd_tc_dq("flash_bwd_wgmma", torch.bfloat16, q, k, v, o, do, lse,
+                      causal, scale)
 
 
 def flash_bwd_wgmma_dkdv_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -460,8 +507,9 @@ def flash_bwd_wgmma_dkdv_cuda(q: torch.Tensor, k: torch.Tensor,
     returns (dk, dv) (B, L, KVH, D) in bf16, each summed over the KV head's
     query heads.  Not at a head dim of `SPLIT_DKDV_HEAD_DIMS` (its dk and
     dv are `flash_bwd_wgmma_dk_cuda` and `flash_bwd_wgmma_dv_cuda`)."""
-    return _bwd_wgmma_dkdv(_DKDV, q, k, v, do, lse, delta, causal, scale,
-                           "flash_bwd_wgmma_dkdv")
+    return _bwd_tc_dkdv("flash_bwd_wgmma", torch.bfloat16, _DKDV, q, k, v,
+                        do, lse, delta, causal, scale,
+                        "flash_bwd_wgmma_dkdv")
 
 
 def flash_bwd_wgmma_dv_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -472,8 +520,8 @@ def flash_bwd_wgmma_dv_cuda(q: torch.Tensor, k: torch.Tensor,
     second launch (after `flash_bwd_wgmma_dq_cuda`): dv alone (B, L, KVH,
     D) in bf16, summed over the KV head's query heads (``v`` and ``delta``
     are checked, not read)."""
-    return _bwd_wgmma_dkdv(_DV, q, k, v, do, lse, delta, causal, scale,
-                           "flash_bwd_wgmma_dv")[1]
+    return _bwd_tc_dkdv("flash_bwd_wgmma", torch.bfloat16, _DV, q, k, v, do,
+                        lse, delta, causal, scale, "flash_bwd_wgmma_dv")[1]
 
 
 def flash_bwd_wgmma_dk_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -484,5 +532,70 @@ def flash_bwd_wgmma_dk_cuda(q: torch.Tensor, k: torch.Tensor,
     third launch (after `flash_bwd_wgmma_dq_cuda`, reading its ``delta``):
     dk alone (B, L, KVH, D) in bf16, summed over the KV head's query
     heads."""
-    return _bwd_wgmma_dkdv(_DK, q, k, v, do, lse, delta, causal, scale,
-                           "flash_bwd_wgmma_dk")[0]
+    return _bwd_tc_dkdv("flash_bwd_wgmma", torch.bfloat16, _DK, q, k, v, do,
+                        lse, delta, causal, scale, "flash_bwd_wgmma_dk")[0]
+
+
+def flash_bwd_tf32x3_dq_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool, scale: float
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``tf32x3`` backward's first launch on ``q``'s stream: float32 q,
+    o and do (B, L, H, D), k and v (B, L, KVH, D), contiguous, 16-byte
+    aligned, D one of `WGMMA_HEAD_DIMS`, and the forward's float32 (B, H,
+    L) ``lse``.  Returns dq and the float32 (B, H, L) Δ = rowsum(do ∘ o)
+    that `flash_bwd_tf32x3_dkdv_cuda` reads."""
+    return _bwd_tc_dq("flash_bwd_tf32x3", torch.float32, q, k, v, o, do,
+                      lse, causal, scale)
+
+
+def flash_bwd_tf32x3_dkdv_cuda(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, do: torch.Tensor,
+                               lse: torch.Tensor, delta: torch.Tensor, *,
+                               causal: bool, scale: float
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``tf32x3`` backward's second launch, after
+    `flash_bwd_tf32x3_dq_cuda` on the same stream, reading its ``delta``:
+    returns float32 (dk, dv) (B, L, KVH, D), each summed over the KV head's
+    query heads.  Not at a head dim of `SPLIT_DKDV_HEAD_DIMS` (its dk and
+    dv are `flash_bwd_tf32x3_dk_cuda` and `flash_bwd_tf32x3_dv_cuda`)."""
+    return _bwd_tc_dkdv("flash_bwd_tf32x3", torch.float32, _DKDV, q, k, v,
+                        do, lse, delta, causal, scale,
+                        "flash_bwd_tf32x3_dkdv")
+
+
+def flash_bwd_tf32x3_dv_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor,
+                             lse: torch.Tensor, delta: torch.Tensor, *,
+                             causal: bool, scale: float) -> torch.Tensor:
+    """At a head dim of `SPLIT_DKDV_HEAD_DIMS`, the ``tf32x3`` backward's
+    second launch (after `flash_bwd_tf32x3_dq_cuda`): dv alone (B, L, KVH,
+    D), summed over the KV head's query heads (``v`` and ``delta`` are
+    checked, not read)."""
+    return _bwd_tc_dkdv("flash_bwd_tf32x3", torch.float32, _DV, q, k, v, do,
+                        lse, delta, causal, scale, "flash_bwd_tf32x3_dv")[1]
+
+
+def flash_bwd_tf32x3_dk_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor,
+                             lse: torch.Tensor, delta: torch.Tensor, *,
+                             causal: bool, scale: float) -> torch.Tensor:
+    """At a head dim of `SPLIT_DKDV_HEAD_DIMS`, the ``tf32x3`` backward's
+    third launch (after `flash_bwd_tf32x3_dq_cuda`, reading its
+    ``delta``): dk alone (B, L, KVH, D), summed over the KV head's query
+    heads."""
+    return _bwd_tc_dkdv("flash_bwd_tf32x3", torch.float32, _DK, q, k, v, do,
+                        lse, delta, causal, scale, "flash_bwd_tf32x3_dk")[0]
+
+
+# Each backward route's launches: dq, then dk and dv (or dv and dk apart
+# at `SPLIT_DKDV_HEAD_DIMS`); the routes of `LSE_BWD_ROUTES` take the
+# forward's lse after q, k, v, o and do.
+BWD_CUDA = {
+    "wgmma": (flash_bwd_wgmma_dq_cuda, flash_bwd_wgmma_dkdv_cuda,
+              flash_bwd_wgmma_dv_cuda, flash_bwd_wgmma_dk_cuda),
+    "tf32x3": (flash_bwd_tf32x3_dq_cuda, flash_bwd_tf32x3_dkdv_cuda,
+               flash_bwd_tf32x3_dv_cuda, flash_bwd_tf32x3_dk_cuda),
+    "simt": (flash_bwd_dq_cuda, flash_bwd_dkdv_cuda, flash_bwd_dv_cuda,
+             flash_bwd_dk_cuda)}

@@ -18,16 +18,16 @@ reads the quantised layout's uint8 stack (`core.tiles.quantized`).
 (``csrc/coverage.cu``) for one or Q active masks per batch;
 ``LAUNCHES["cover_counts"]`` counts both, ``cover_counts_multi`` the
 second alone.  ``flash_attention`` serves the LM substrate's
-prefill and decode through three kernels chosen by shape
+prefill and decode through four kernels chosen by shape
 (`kernels.flash_attention.route`); ``LAUNCHES["flash_attention"]`` counts
-them all, ``flash_wgmma``, ``flash_decode`` and ``flash_simt`` each route.
-When one of its inputs requires a gradient, ``flash_attention`` runs the
-same forward inside an autograd rule whose backward is
-``flash_attention_bwd``: two kernel launches (three at head dim 192,
-`kernels.flash_attention.bwd_launches`) of the route
-`kernels.flash_attention.route_bwd` picks (``wgmma``, which reads the
-log-sum-exp its forward wrote, or ``simt``), each counted in
-``LAUNCHES["flash_bwd"]`` and in ``flash_bwd_wgmma`` or ``flash_bwd_simt``.
+them all, ``flash_wgmma``, ``flash_decode``, ``flash_tf32x3`` and
+``flash_simt`` each route.  When one of its inputs requires a gradient,
+``flash_attention`` runs the same forward inside an autograd rule whose
+backward is ``flash_attention_bwd``: two kernel launches (three at head
+dim 192, `kernels.flash_attention.bwd_launches`) of the route
+`kernels.flash_attention.route_bwd` picks (``wgmma`` or ``tf32x3``, which
+read the log-sum-exp their forward wrote, or ``simt``), each counted in
+``LAUNCHES["flash_bwd"]`` and in ``flash_bwd_<route>``.
 
 Meta tensors (the dry-run, `launch.cost_analysis`) take a third branch
 of every wrapper: it launches nothing, leaves ``LAUNCHES`` as it is,
@@ -50,7 +50,7 @@ LAUNCHES = {"fused_expand": 0, "cover_counts": 0, "lt_select_expand": 0,
             "flash_attention": 0, "fused_expand_q": 0,
             "flash_wgmma": 0, "flash_decode": 0, "flash_simt": 0,
             "cover_counts_multi": 0, "flash_bwd": 0, "flash_bwd_wgmma": 0,
-            "flash_bwd_simt": 0}
+            "flash_bwd_simt": 0, "flash_tf32x3": 0, "flash_bwd_tf32x3": 0}
 
 
 # Callables (kernel name, operations, bytes) that a meta call reports to.
@@ -216,8 +216,8 @@ def _flash_forward(q, k, v, causal: bool, scale: float, kv_offset: int,
     """The forward on batched (B, Lq, H, D) tensors: a route's kernel on
     the card (counted), the plain version on the CPU, the work reported on
     meta.  Returns the output and, with ``want_lse`` (asked where the
-    route is ``wgmma`` or ``decode``), each row's float32 (B, H, Lq)
-    log-sum-exp, else None.  A decode row that sees no key (a
+    route is ``wgmma``, ``tf32x3`` or ``decode``), each row's float32 (B, H,
+    Lq) log-sum-exp, else None.  A decode row that sees no key (a
     sequence-parallel rank whose keys all lie past ``kv_offset``) has
     output 0 and log-sum-exp -inf, and launches nothing."""
     b, lq, h, d = q.shape
@@ -236,18 +236,13 @@ def _flash_forward(q, k, v, causal: bool, scale: float, kv_offset: int,
             lse = _meta_like(q, (b, h, lq), torch.float32)
         return _meta_like(q), lse
     if where == "cuda":
+        kw = {}
         if want_lse:
-            lse = torch.empty((b, h, lq), dtype=torch.float32,
-                              device=q.device)
-            wrapper = (fa.flash_decode_cuda if r == "decode"
-                       else fa.flash_prefill_wgmma_cuda)
-            out = wrapper(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=causal, scale=scale, kv_offset=kv_offset,
-                          lse=lse)
-        else:
-            out = fa.CUDA_ROUTES[r](q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=causal,
-                                    scale=scale, kv_offset=kv_offset)
+            lse = kw["lse"] = torch.empty((b, h, lq), dtype=torch.float32,
+                                          device=q.device)
+        out = fa.CUDA_ROUTES[r](q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=causal, scale=scale,
+                                kv_offset=kv_offset, **kw)
         LAUNCHES[f"flash_{r}"] += 1
         LAUNCHES["flash_attention"] += 1
         return out, lse
@@ -260,10 +255,10 @@ def _flash_forward(q, k, v, causal: bool, scale: float, kv_offset: int,
 
 class _FlashAttention(torch.autograd.Function):
     """`_flash_forward` with the backward kernels as its gradient; it saves
-    q, k, v, the output and, where the backward's route is ``wgmma``, the
-    log-sum-exp the forward wrote (under an activation checkpoint,
-    autograd drops them and recomputes the forward, which writes it
-    again)."""
+    q, k, v, the output and, where the backward's route is ``wgmma`` or
+    ``tf32x3``, the log-sum-exp the forward wrote (under an activation
+    checkpoint, autograd drops them and recomputes the forward, which writes
+    it again)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
@@ -286,10 +281,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The training forward of batched tensors (Lq == Lk, ``kv_offset``
     0), outside autograd: the output, and what `flash_attention_bwd`
     reads besides it — the float32 (B, H, L) log-sum-exp where
-    `flash_attention.route_bwd` picks ``wgmma`` (the forward kernel writes
-    it), None where it picks ``simt``."""
+    `flash_attention.route_bwd` picks ``wgmma`` or ``tf32x3`` (the forward
+    kernel writes it), None where it picks ``simt``."""
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
-    want = fa.route_bwd(q.dtype, q.shape[1], q.shape[-1]) == "wgmma"
+    want = fa.route_bwd(q.dtype, q.shape[1],
+                        q.shape[-1]) in fa.LSE_BWD_ROUTES
     return _flash_forward(q, k, v, causal, scale, 0, want_lse=want)
 
 
@@ -342,15 +338,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     its output ``o``, the output's gradient ``do`` and what
     `flash_attention_fwd` returns beside ``o``: on the card two launches of
     the route `flash_attention.route_bwd` picks (three at a head dim of
-    `flash_attention.SPLIT_DKDV_HEAD_DIMS`: dq, dv, dk), the ``wgmma`` one
-    reading the forward's (B, H, L) log-sum-exp ``lse`` (required there;
-    the ``simt`` route recomputes it and ignores one given); on the CPU
-    `ref.flash_attention_bwd_ref` of the same route; on meta tensors each
-    launch's share of the work (`work.flash_backward_launches`)."""
+    `flash_attention.SPLIT_DKDV_HEAD_DIMS`: dq, dv, dk), the ``wgmma`` and
+    ``tf32x3`` ones reading the forward's (B, H, L) log-sum-exp ``lse``
+    (required there; the ``simt`` route recomputes it and ignores one
+    given); on the CPU `ref.flash_attention_bwd_ref` of the same route; on
+    meta tensors each launch's share of the work
+    (`work.flash_backward_launches`)."""
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     r = fa.route_bwd(q.dtype, q.shape[1], q.shape[-1])
-    if r == "wgmma" and lse is None:
-        raise ValueError("flash_attention_bwd: the wgmma route reads the "
+    reads_lse = r in fa.LSE_BWD_ROUTES
+    if reads_lse and lse is None:
+        raise ValueError(f"flash_attention_bwd: the {r} route reads the "
                          "forward's log-sum-exp; pass lse "
                          "(flash_attention_fwd returns it)")
     where = _where(q, k, v, o, do)
@@ -361,18 +359,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if where == "cuda":
         q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
         kw = dict(causal=causal, scale=scale)
-        if r == "wgmma":
+        dq_fn, dkdv, dv_fn, dk_fn = fa.BWD_CUDA[r]
+        if reads_lse:
             lse = lse.contiguous()
-            dq, delta = fa.flash_bwd_wgmma_dq_cuda(q, k, v, o, do, lse, **kw)
+            dq, delta = dq_fn(q, k, v, o, do, lse, **kw)
             read = (lse, delta)         # what the dk and dv launches read
-            dkdv, dv_fn, dk_fn = (fa.flash_bwd_wgmma_dkdv_cuda,
-                                  fa.flash_bwd_wgmma_dv_cuda,
-                                  fa.flash_bwd_wgmma_dk_cuda)
         else:
-            dq, stats = fa.flash_bwd_dq_cuda(q, k, v, o, do, **kw)
+            dq, stats = dq_fn(q, k, v, o, do, **kw)
             read = (stats,)
-            dkdv, dv_fn, dk_fn = (fa.flash_bwd_dkdv_cuda, fa.flash_bwd_dv_cuda,
-                                  fa.flash_bwd_dk_cuda)
         _count_bwd(r)
         if q.shape[-1] in fa.SPLIT_DKDV_HEAD_DIMS:
             dv = dv_fn(q, k, v, do, *read, **kw)
@@ -384,7 +378,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv
     return ref.flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                        scale=scale,
-                                       lse=lse if r == "wgmma" else None)
+                                       lse=lse if reads_lse else None)
 
 
 def _count_bwd(r: str) -> None:

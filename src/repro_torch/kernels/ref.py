@@ -451,6 +451,106 @@ def flash_attention_bwd_ref(q, k, v, o, do, *, causal=True, scale=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 ``x`` as the ``tf32x3`` kernels split it
+    (``csrc/tf32x3.cuh``): hi is ``x`` rounded to TF32 as
+    ``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero, the low
+    13 mantissa bits cleared), lo is ``x - hi`` (exact in float32) rounded
+    the same way; hi + lo holds ``x`` to about 2^-21 of ``|x|``."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor,
+                  passes: int = 3) -> torch.Tensor:
+    """``a @ b`` (float32, batched) with every product taken as the
+    ``tf32x3`` kernels take it: both operands split (`tf32_split`), and for
+    each slice of 8 along the summed axis lo_a·hi_b, then hi_a·lo_b, then
+    hi_a·hi_b added into one float32 accumulator.  ``passes=1`` is
+    hi_a·hi_b alone: single-pass TF32, which errs by about 1e-3 on
+    attention's products where three passes keep float32's accuracy."""
+    ahi, alo = tf32_split(a)
+    bhi, blo = tf32_split(b)
+    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+                      + (a.shape[-2], b.shape[-1]), dtype=torch.float32,
+                      device=a.device)
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        if passes == 3:
+            acc = acc + alo[..., ks] @ bhi[..., ks, :]
+            acc = acc + ahi[..., ks] @ blo[..., ks, :]
+        acc = acc + ahi[..., ks] @ bhi[..., ks, :]
+    return acc
+
+
+def _heads_first(x, g: int = 1):
+    """(B, L, KVH, D) → (B, KVH·g, L, D) float32, each KV head repeated for
+    the ``g`` query heads that read it."""
+    return x.float().repeat_interleave(g, dim=2).transpose(1, 2)
+
+
+def _visible(lq: int, lk: int, causal: bool, device):
+    if not causal:
+        return torch.ones((lq, lk), dtype=torch.bool, device=device)
+    return (torch.arange(lk, device=device)[None, :]
+            <= torch.arange(lq, device=device)[:, None])
+
+
+def flash_attention_tf32x3_ref(q, k, v, *, causal=True, scale=None,
+                               passes: int = 3):
+    """The ``tf32x3`` forward's numerics (``csrc/flash_prefill_tf32x3.cu``,
+    ``kv_offset`` 0) in plain PyTorch: s = (q·scale)·kᵀ and exp(s - m)·v
+    taken by `tf32x3_matmul`, the softmax in float32, out = that product
+    over the row sum.  Returns (out (B, Lq, H, D), lse (B, H, Lq)) in
+    float32.  ``passes=1`` takes every product as single-pass TF32.  Not
+    on any path the port runs: the tests hold it against the reference to
+    show that three passes keep the float32 limits and one does not."""
+    b, lq, h, d = q.shape
+    g = h // k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    s = tf32x3_matmul(_heads_first(q) * scale,
+                      _heads_first(k, g).transpose(-1, -2), passes)
+    s = s.masked_fill(~_visible(lq, k.shape[1], causal, q.device), -1e30)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    out = tf32x3_matmul(e, _heads_first(v, g), passes) / l
+    return out.transpose(1, 2), (m + torch.log(l))[..., 0]
+
+
+def flash_attention_bwd_tf32x3_ref(q, k, v, o, do, lse, *, causal=True,
+                                   scale=None, passes: int = 3):
+    """The ``tf32x3`` backward's numerics (``csrc/flash_bwd_tf32x3.cu``)
+    in plain PyTorch: `flash_attention_bwd_ref` with ``lse`` (P = exp(s -
+    lse)), every product taken by `tf32x3_matmul` and dk formed as the
+    kernel forms it (dSᵀ·q, then times scale).  Float32 (dq, dk, dv);
+    not on any path the port runs."""
+    b, L, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    qh, kh, vh = _heads_first(q), _heads_first(k, g), _heads_first(v, g)
+    doh = _heads_first(do)
+    s = tf32x3_matmul(qh * scale, kh.transpose(-1, -2), passes)
+    vis = _visible(L, L, causal, q.device)
+    p = torch.where(vis, torch.exp(s - lse.float()[..., None]), 0.0)
+    dv = tf32x3_matmul(p.transpose(-1, -2), doh, passes)
+    dp = tf32x3_matmul(doh, vh.transpose(-1, -2), passes)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    ds = p * (dp - delta[..., None])
+    dq = tf32x3_matmul(ds, kh, passes) * scale
+    dk = tf32x3_matmul(ds.transpose(-1, -2), qh, passes) * scale
+
+    def per_kv(x):                # (B, H, L, D) → (B, L, KVH, D), GQA sum
+        return x.transpose(1, 2).reshape(b, L, kvh, g, d).sum(3)
+
+    return dq.transpose(1, 2), per_kv(dk), per_kv(dv)
+
+
 def flash_decode_splitk_ref(q, k, v, *, chunk, causal=True, scale=None,
                             kv_offset=0):
     """`flash_attention_ref`'s function computed as the decode kernel

@@ -62,7 +62,8 @@ from repro_torch.train import loop
 # The kernels a training rank launches, built in the parent before the
 # ranks start (so that they never build into one directory at once).
 TRAIN_KERNELS = ("flash_attention", "flash_prefill_wgmma",
-                 "flash_attention_bwd", "flash_bwd_wgmma")
+                 "flash_attention_bwd", "flash_bwd_wgmma",
+                 "flash_prefill_tf32x3", "flash_bwd_tf32x3")
 # Each rank's caching allocator grows its segments in place: ranks that
 # share a card otherwise each keep GiBs reserved but unused (fragments of
 # the vocabulary-sized logits and gradients), which four ranks cannot

@@ -26,7 +26,7 @@ Every family trains: the dense archs, phi-3-vision with its patches,
 musicgen with its codebooks, the MoE archs (the loss adds 0.01 times the
 Switch aux loss), MLA, mamba2's SSD stack and zamba2's hybrid stack, on
 the card in float32 or bf16 alike (nemotron's head dim 192 too: the
-``wgmma`` backward in bf16, the ``simt`` one in float32).  On a CUDA device
+``wgmma`` backward in bf16, the ``tf32x3`` one in float32).  On a CUDA device
 a config whose attention no backward kernel takes (a head dim such as 48
 or 256, which no registry arch has) is refused up front
 (`check_trainable`).
@@ -65,7 +65,8 @@ def check_trainable(cfg: ModelConfig, device=None) -> None:
         raise NotImplementedError(
             f"training {cfg.name} ({cfg.dtype}) on the card: no backward "
             f"kernel takes its head dim {cfg.head_dim} (the {r} route takes "
-            f"{fa.bwd_head_dims(r)}; the wgmma route takes bf16 only)")
+            f"{fa.bwd_head_dims(r)}; the wgmma and tf32x3 routes take "
+            f"bf16 and float32)")
 
 
 @contextlib.contextmanager

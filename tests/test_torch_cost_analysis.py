@@ -124,10 +124,12 @@ def test_kernel_meta_branch_reports_its_work():
 
 @pytest.mark.parametrize("d,dtype,launches", [
     (128, torch.bfloat16, 2), (128, torch.float32, 2),
-    (192, torch.bfloat16, 3), (192, torch.float32, 3)])
+    (192, torch.bfloat16, 3), (192, torch.float32, 3),
+    (32, torch.float32, 2)])
 def test_backward_meta_branch_reports_each_launch(d, dtype, launches):
     """The gradient's meta branch reports one call a launch of its route
-    (three at D 192 on either route: dq, dv, dk), whose work sums to the
+    (wgmma in bf16, tf32x3 in float32, simt at D 32; three at D 192 on
+    every route: dq, dv, dk), whose work sums to the
     whole gradient's (10·D a visible pair; q, o, do, dq, k, v, dk and dv
     once), the dq launch's 6·D with every input, and at D 192 dv's and
     dk's 2·D each with its own output."""
@@ -135,7 +137,7 @@ def test_backward_meta_branch_reports_each_launch(d, dtype, launches):
     q, do = (_meta(b, L, h, d, dtype=dtype) for _ in range(2))
     k, v = (_meta(b, L, kvh, d, dtype=dtype) for _ in range(2))
     route = fa.route_bwd(dtype, L, d)
-    lse = _meta(b, h, L) if route == "wgmma" else None
+    lse = _meta(b, h, L) if route in fa.LSE_BWD_ROUTES else None
     ops.reset_launches()
     cost = ca.full_cost(lambda *t: ops.flash_attention_bwd(
         *t, causal=True, lse=lse), q, k, v, q, do)
@@ -153,3 +155,31 @@ def test_backward_meta_branch_reports_each_launch(d, dtype, launches):
     assert parts[0][0] == 6 * pairs * d
     if launches == 3:
         assert parts[1] == parts[2] == (2 * pairs * d, e * b * L * kvh * d)
+
+
+@pytest.mark.parametrize("d", [128, 192])
+def test_float32_training_forward_meta_reports_the_tf32x3_route(d):
+    """A float32 training forward at D 128 and 192 reports one
+    ``flash_tf32x3`` call of 4·D operations a visible pair whose bytes
+    include the lse it writes, and returns that (B, H, L) lse for its
+    backward, which reports its launches as ``flash_bwd_tf32x3``."""
+    b, L, h, kvh = 1, 48, 12, 2
+    q, do = (_meta(b, L, h, d) for _ in range(2))
+    k, v = (_meta(b, L, kvh, d) for _ in range(2))
+    assert fa.route(torch.float32, b, L, L, h, kvh, d, True) == "tf32x3"
+    ops.reset_launches()
+    cost = ca.full_cost(lambda *t: ops.flash_attention_fwd(*t, causal=True),
+                        q, k, v)
+    out, lse = cost["result"]
+    assert out.shape == q.shape and lse.shape == (b, h, L)
+    want = work.flash_forward(q, k, True, 0, True)
+    assert want[1] == work.flash_forward(q, k, True, 0, False)[1] \
+        + 4 * b * h * L
+    assert cost["kernels"] == {"flash_tf32x3": {
+        "calls": 1, "flops": want[0], "bytes": want[1]}}
+    bwd = ca.full_cost(lambda *t: ops.flash_attention_bwd(
+        *t, causal=True, lse=lse), q, k, v, q, do)
+    assert set(bwd["kernels"]) == {"flash_bwd_tf32x3"}
+    assert bwd["kernels"]["flash_bwd_tf32x3"]["calls"] \
+        == fa.bwd_launches(torch.float32, L, d)
+    assert sum(ops.LAUNCHES.values()) == 0

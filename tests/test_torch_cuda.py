@@ -218,15 +218,16 @@ def test_flash_attention_kernel_equals_plain(cuda, dtype, causal, b, lq, lk,
     ("decode", torch.float32, 2, 1, 300, 12, 1, 96, True, 150),
     ("decode", torch.bfloat16, 1, 1, 77, 8, 8, 16, True, 0),
     ("decode", torch.float32, 1, 1, 64, 4, 2, 256, False, 0),
-    ("simt", torch.float32, 1, 130, 190, 8, 1, 128, True, 60),
+    ("tf32x3", torch.float32, 1, 130, 190, 8, 1, 128, True, 60),
     ("wgmma", torch.bfloat16, 2, 100, 100, 6, 2, 96, True, 0),
     ("wgmma", torch.bfloat16, 2, 130, 130, 8, 8, 80, True, 0),
     ("wgmma", torch.bfloat16, 1, 130, 190, 8, 1, 96, False, 60),
     ("wgmma", torch.bfloat16, 2, 257, 457, 6, 2, 80, True, 17),
-    ("simt", torch.float32, 2, 100, 100, 6, 2, 96, True, 0),
-    ("simt", torch.float32, 2, 130, 130, 8, 8, 80, True, 0),
+    ("tf32x3", torch.float32, 2, 100, 100, 6, 2, 96, True, 0),
+    ("tf32x3", torch.float32, 2, 130, 130, 8, 8, 80, True, 0),
     ("wgmma", torch.bfloat16, 1, 65, 129, 6, 2, 192, True, 64),
-    ("simt", torch.float32, 1, 65, 129, 6, 2, 192, True, 64),
+    ("tf32x3", torch.float32, 1, 65, 129, 6, 2, 192, True, 64),
+    ("simt", torch.float32, 2, 100, 140, 4, 4, 32, True, 40),
     ("decode", torch.bfloat16, 2, 1, 300, 8, 8, 80, True, 299)])
 def test_flash_route_kernel_equals_plain(cuda, route, dtype, b, lq, lk, h,
                                          kvh, d, causal, kv_offset):

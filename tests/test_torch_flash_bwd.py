@@ -12,7 +12,8 @@ port's `attention.gqa_forward` is differentiated against ``jax.vjp`` of
 the reference's (its jnp blocked scan) at the smoke config, on the same
 weights and inputs from numpy, at 1e-5, with the backward's plain version
 in both forms: the softmax one (the ``simt`` route's) and the one reading
-the forward's log-sum-exp (the ``wgmma`` route's, at atol 2e-5).  The
+the forward's log-sum-exp (the ``wgmma`` and ``tf32x3`` routes', at atol
+2e-5).  The
 CUDA kernels themselves are held against the plain version on the card
 (the ``cuda``-marked tests here and in ``test_torch_flash_bwd_wgmma.py``,
 and ``chip_smoke.py``)."""
@@ -113,15 +114,16 @@ def test_gradient_needs_a_square_call_at_offset_zero():
         ops.flash_attention(q[:, :16], k, v, causal=True, kv_offset=16)
 
 
-@pytest.mark.parametrize("route", ["simt", "wgmma"])
+@pytest.mark.parametrize("route", ["simt", "wgmma", "tf32x3"])
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("L", [16, 48])
 def test_gqa_forward_gradient_matches_jax_vjp(bias, L, route, monkeypatch):
     """The attention layer's gradient in every weight and its input, the
     reference differentiating its blocked scan (three 16-row query blocks
     at L 48), the port through the flash autograd rule; with ``route``
-    "wgmma" the rule takes that route's plain version (the forward's
-    log-sum-exp saved and read; float32, so no rounding of P or dS).  That
+    "wgmma" or "tf32x3" the rule takes that route's plain version (the
+    forward's log-sum-exp saved and read; float32, so no rounding of P or
+    dS).  That
     form's P = exp(s - lse) inherits the float32 rounding of lse (half an
     ulp, ~2e-6 at |lse| ~ 30), which the softmax form does not have; its
     gradients sit ~4e-6 from the softmax form's, so its atol is 2e-5
@@ -185,9 +187,10 @@ def cuda():
                                      (torch.bfloat16, 96)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_backward_kernel_equals_plain(cuda, dtype, d, causal):
-    """Every launch of the route `route_bwd` picks (float32: ``simt``,
-    three at D 192: dq, dv, dk; bf16 at D 64 and 96: ``wgmma``, reading
-    the forward's log-sum-exp) against the plain version of that route at
+    """Every launch of the route `route_bwd` picks (float32: ``simt`` at D
+    16, ``tf32x3`` at 128 and 192, three at D 192: dq, dv, dk, reading the
+    forward's log-sum-exp; bf16 at D 64 and 96: ``wgmma``, reading it too)
+    against the plain version of that route at
     a ragged length (130), GQA group 3: float32 at 1e-4, bf16 at 2e-2
     (both sides round their float32 results to bf16)."""
     q, k, v, do = (t.to(cuda) for t in _qkv(d, 130, 3, d, dtype))

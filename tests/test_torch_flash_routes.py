@@ -1,11 +1,12 @@
-"""The three flash-attention routes: which shapes take which, and the
-decode route's split-K function on the CPU.
+"""The four flash-attention routes: which shapes take which, the
+wrappers' refusals, and the decode route's split-K function on the CPU.
 
 `repro_torch.kernels.flash_attention.route` picks ``wgmma`` (bf16 prefill
-at head dim 64, 80, 96 or 128), ``decode`` (one query row) or ``simt`` (the
-rest)
-from a call's shapes.  The decode kernel splits the keys into chunks and
-merges float32 partials; its plain version
+at head dim 64, 80, 96, 128 or 192), ``tf32x3`` (float32 prefill at those
+head dims), ``decode`` (one query row) or ``simt`` (the rest) from a
+call's shapes, and `route_bwd` the gradient's route the same way.  The
+decode kernel splits the keys into chunks and merges float32 partials;
+its plain version
 `kernels.ref.flash_decode_splitk_ref` does the same (for any chunk
 length, the kernel's own from `decode_split` among them) and is held here
 against the reference's Pallas kernel in interpret mode and against
@@ -54,32 +55,32 @@ ROUTE_CASES = [
     ((4, 1, 2080, 24, 8, 128, True, BF16), "decode"),
     ((4, 32, 32, 24, 8, 128, True, BF16), "wgmma"),
     ((4, 1, 64, 24, 8, 128, True, BF16), "decode"),
-    ((2, 64, 64, 24, 8, 128, True, F32), "simt"),
+    ((2, 64, 64, 24, 8, 128, True, F32), "tf32x3"),
     ((2, 1, 72, 24, 8, 128, True, F32), "decode"),
-    ((4, 2048, 2048, 24, 8, 128, True, F32), "simt"),
+    ((4, 2048, 2048, 24, 8, 128, True, F32), "tf32x3"),
     ((2, 128, 128, 4, 4, 64, False, BF16), "wgmma"),
     ((2, 100, 100, 6, 2, 96, True, BF16), "wgmma"),
     ((1, 130, 190, 8, 1, 128, True, BF16), "wgmma"),
     ((1, 65, 129, 6, 2, 192, True, BF16), "wgmma"),
-    ((1, 65, 129, 6, 2, 192, True, F32), "simt"),
+    ((1, 65, 129, 6, 2, 192, True, F32), "tf32x3"),
     ((3, 33, 33, 4, 4, 16, True, BF16), "simt"),
     ((2, 1, 77, 8, 1, 64, True, F32), "decode"),
     ((2, 200, 457, 6, 2, 64, True, BF16), "wgmma"),
-    ((2, 200, 457, 6, 2, 64, True, F32), "simt"),
+    ((2, 200, 457, 6, 2, 64, True, F32), "tf32x3"),
     # maverick (H 40 over KVH 8, a group of 5): its main path and golden
     ((4, 2048, 2048, 40, 8, 128, True, BF16), "wgmma"),
     ((4, 1, 2080, 40, 8, 128, True, BF16), "decode"),
-    ((2, 64, 64, 40, 8, 128, True, F32), "simt"),
+    ((2, 64, 64, 40, 8, 128, True, F32), "tf32x3"),
     ((2, 1, 72, 40, 8, 128, True, F32), "decode"),
     # zamba2's shared block (H = KVH 32, D 80) and phi-3-vision (D 96): the
     # bf16 main-path prefill on wgmma, the same in float32 (the goldens'
-    # prefill) on simt, and each decode
+    # prefill) on tf32x3, and each decode
     ((4, 2048, 2048, 32, 32, 80, True, BF16), "wgmma"),
     ((4, 2048, 2048, 32, 32, 96, True, BF16), "wgmma"),
-    ((4, 2048, 2048, 32, 32, 80, True, F32), "simt"),
-    ((4, 2048, 2048, 32, 32, 96, True, F32), "simt"),
-    ((2, 512, 512, 32, 32, 80, True, F32), "simt"),
-    ((2, 128, 128, 32, 32, 96, True, F32), "simt"),
+    ((4, 2048, 2048, 32, 32, 80, True, F32), "tf32x3"),
+    ((4, 2048, 2048, 32, 32, 96, True, F32), "tf32x3"),
+    ((2, 512, 512, 32, 32, 80, True, F32), "tf32x3"),
+    ((2, 128, 128, 32, 32, 96, True, F32), "tf32x3"),
     ((4, 1, 2080, 32, 32, 80, True, BF16), "decode"),
     ((4, 1, 2080, 32, 32, 96, True, BF16), "decode"),
     # the smoke's wgmma cases at D 80 and 96 (ragged, GQA groups 3 and 8)
@@ -87,11 +88,18 @@ ROUTE_CASES = [
     ((1, 130, 190, 8, 1, 96, False, BF16), "wgmma"),
     ((2, 200, 457, 6, 2, 80, True, BF16), "wgmma"),
     # nemotron's head dim 192 (H 96 over KVH 8): the bf16 prefill on
-    # wgmma, float32 on simt; a head dim no wgmma instantiation takes: 16
+    # wgmma, float32 on tf32x3; head dims no tensor-core route takes (16
+    # and 32: the mesh goldens' smoke configs) stay on simt in either dtype
     ((4, 2048, 2048, 96, 8, 192, True, BF16), "wgmma"),
     ((1, 4096, 4096, 96, 8, 192, True, BF16), "wgmma"),
-    ((1, 4096, 4096, 96, 8, 192, True, F32), "simt"),
+    ((1, 4096, 4096, 96, 8, 192, True, F32), "tf32x3"),
     ((3, 33, 33, 4, 4, 16, False, BF16), "simt"),
+    ((3, 33, 33, 4, 4, 16, True, F32), "simt"),
+    ((2, 64, 64, 4, 2, 32, True, F32), "simt"),
+    ((2, 64, 64, 4, 2, 32, False, BF16), "simt"),
+    ((1, 130, 130, 12, 1, 192, False, F32), "tf32x3"),
+    ((2, 100, 140, 4, 4, 80, True, F32), "tf32x3"),
+    ((2, 1, 300, 96, 8, 192, True, F32), "decode"),
 ]
 
 
@@ -101,9 +109,32 @@ def test_route_by_shape(shape, want):
     assert fa.route(dtype, b, lq, lk, h, kvh, d, causal) == want
 
 
+# (dtype, L, D) -> the gradient's route: the forward's where that was a
+# tensor-core route (wgmma in bf16, tf32x3 in float32, at D 64-192 and
+# L > 1), simt otherwise (D 16 and 32, and L 1, whose forward is decode).
+ROUTE_BWD_CASES = [
+    ((BF16, 4096, 128), "wgmma"), ((BF16, 4096, 192), "wgmma"),
+    ((F32, 4096, 128), "tf32x3"), ((F32, 4096, 192), "tf32x3"),
+    ((F32, 2, 64), "tf32x3"), ((F32, 130, 80), "tf32x3"),
+    ((F32, 257, 96), "tf32x3"), ((F32, 64, 16), "simt"),
+    ((F32, 64, 32), "simt"), ((BF16, 64, 16), "simt"),
+    ((F32, 1, 128), "simt"), ((BF16, 1, 192), "simt"),
+]
+
+
+@pytest.mark.parametrize("shape,want", ROUTE_BWD_CASES)
+def test_route_bwd_by_shape(shape, want):
+    dtype, L, d = shape
+    assert fa.route_bwd(dtype, L, d) == want
+    assert d in fa.bwd_head_dims(want)
+    # A route that reads the forward's lse is the forward's own route.
+    if want in fa.LSE_BWD_ROUTES:
+        assert fa.route(dtype, 1, L, L, 8, 2, d, True) == want
+
+
 def test_smoke_cases_run_every_route():
     """Every case the smoke's flash phase runs has the route this file's
-    table gives it, and the cases cover all three routes."""
+    table gives it, and the cases cover all four routes."""
     cs = _smoke_module()
     table = {shape: want for shape, want in ROUTE_CASES}
     seen = set()
@@ -287,3 +318,77 @@ def test_decode_wrapper_refuses_what_the_kernel_does_not_take(bad):
     with pytest.raises(ValueError):
         fa.flash_decode_cuda(q, kv, kv, causal=True, scale=0.1,
                              kv_offset=off)
+
+
+def _tf32x3_call(bad: str):
+    """Tensors for the tf32x3 forward and backward wrappers, made wrong in
+    one way: ``dtype`` (bf16), ``head_dim`` (16), ``aligned`` (q starting
+    4 bytes into its storage), ``lse`` (a (B, H, L + 1) lse)."""
+    dt, d, L = torch.float32, 64, 40
+    if bad == "dtype":
+        dt = torch.bfloat16
+    elif bad == "head_dim":
+        d = 16
+    q = torch.zeros((1, L, 4, d), dtype=dt)
+    if bad == "aligned":
+        q = torch.zeros(q.numel() + 1, dtype=dt)[1:].view(q.shape)
+    kv = torch.zeros((1, L, 2, d), dtype=dt)
+    lse = torch.zeros((1, 4, L + (bad == "lse")), dtype=torch.float32)
+    return q, kv, lse
+
+
+@pytest.mark.parametrize("bad", ["dtype", "head_dim", "aligned", "lse"])
+def test_tf32x3_wrappers_refuse_what_the_kernels_do_not_take(bad):
+    """The tf32x3 forward and each of its backward launches take float32
+    at D 64, 80, 96, 128 or 192, 16-byte aligned, with a (B, H, L) lse;
+    anything else is refused before any build or launch, on any device."""
+    q, kv, lse = _tf32x3_call(bad)
+    kw = dict(causal=True, scale=0.1)
+    with pytest.raises(ValueError):
+        fa.flash_prefill_tf32x3_cuda(q, kv, kv, kv_offset=0, lse=lse, **kw)
+    with pytest.raises(ValueError):
+        fa.flash_bwd_tf32x3_dq_cuda(q, kv, kv, q, q, lse, **kw)
+    for fn in (fa.flash_bwd_tf32x3_dkdv_cuda, fa.flash_bwd_tf32x3_dv_cuda,
+               fa.flash_bwd_tf32x3_dk_cuda):
+        with pytest.raises(ValueError):
+            fn(q, kv, kv, q, lse, lse, **kw)
+
+
+def test_tf32x3_dkdv_wrappers_take_their_part_of_the_head_dims():
+    """Below D 192 the fused dk/dv launch; at 192 dv and dk apart: each
+    wrapper refuses the other form before any launch."""
+    kw = dict(causal=True, scale=0.1)
+    for d, refused in ((128, (fa.flash_bwd_tf32x3_dv_cuda,
+                              fa.flash_bwd_tf32x3_dk_cuda)),
+                       (192, (fa.flash_bwd_tf32x3_dkdv_cuda,))):
+        q = torch.zeros((1, 40, 4, d))
+        kv = torch.zeros((1, 40, 2, d))
+        lse = torch.zeros((1, 4, 40))
+        for fn in refused:
+            with pytest.raises(ValueError, match="launch"):
+                fn(q, kv, kv, q, lse, lse, **kw)
+
+
+@pytest.mark.parametrize("d", [64, 128, 192])
+def test_cpu_float32_prefill_and_gradient_run_the_plain_version(d):
+    """A float32 call at a tf32x3 head dim on CPU tensors runs the plain
+    version, forward (with its lse) and backward, and counts nothing."""
+    rng = np.random.default_rng(d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                   for s in ((2, 40, 6, d), (2, 40, 2, d), (2, 40, 2, d),
+                             (2, 40, 6, d)))
+    assert fa.route_bwd(q.dtype, 40, d) == "tf32x3"
+    before = dict(tops.LAUNCHES)
+    o, lse = tops.flash_attention_fwd(q, k, v, causal=True)
+    got = tops.flash_attention_bwd(q, k, v, o, do, causal=True, lse=lse)
+    assert tops.LAUNCHES == before
+    torch.testing.assert_close(o, tref.flash_attention_ref(q, k, v),
+                               atol=0, rtol=0)
+    torch.testing.assert_close(lse, tref.flash_attention_lse_ref(q, k),
+                               atol=0, rtol=0)
+    want = tref.flash_attention_bwd_ref(q, k, v, o, do, causal=True,
+                                        lse=lse)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        tops.flash_attention_bwd(q, k, v, o, do, causal=True)

@@ -202,9 +202,10 @@ def test_port_resumes_from_the_references_training_checkpoint(tmp_path):
 def test_training_refuses_a_head_dim_without_a_backward_kernel():
     """On a CUDA device every arch of the registry is admitted in float32
     and in bf16 — float32 at nemotron-4-340b's head dim 192 too, which the
-    simt backward takes in three launches — while a head dim that no
-    backward route takes (48: neither the simt list nor the wgmma one; in
-    bf16 and in float32) is refused up front, not at the first backward;
+    tf32x3 backward takes in three launches — while a head dim that no
+    backward route takes (48: neither the simt list nor the wgmma and
+    tf32x3 one; in bf16 and in float32) is refused up front, not at the
+    first backward;
     the CPU (the plain version) admits every config in either dtype."""
     nemotron = registry.get("nemotron-4-340b")
     f32 = dataclasses.replace(nemotron, dtype="float32")
@@ -229,7 +230,7 @@ def test_training_refuses_a_head_dim_without_a_backward_kernel():
 
 # Train-step cases beyond FAMILY_ARCHS: a smoke cut at nemotron's head dim
 # 192 (12 query heads on one KV head, 1 layer), whose backward on the card
-# is the simt route's three launches; on the CPU its plain version.
+# is the tf32x3 route's three launches; on the CPU its plain version.
 STEP_CUTS = {"nemotron-4-340b-d192": ("nemotron-4-340b", dict(
     num_heads=12, num_kv_heads=1, head_dim=192, num_layers=1))}
 
@@ -292,7 +293,7 @@ G_WELL_POSED = 1e-7
 def test_family_train_steps_match_the_reference(arch, microbatches):
     """Two steps of ``make_train_step`` on the MoE (with MLA), SSD and
     hybrid smoke configs, and on the head-dim-192 cut of STEP_CUTS
-    (float32: the simt backward's plain version at D 192), against the
+    (float32: the tf32x3 backward's plain version at D 192), against the
     reference's: loss (the MoE aux loss in it), grad norm and lr each
     step, then every first moment (atol 1e-6) and every parameter (atol
     2e-5 where the first gradient is above G_WELL_POSED, within 2 lr
@@ -337,8 +338,8 @@ def test_launcher_trains_every_family_on_cpu(arch, capsys):
     pytest.param(False, "simt", id="full-simt")])
 def test_head_dim_192_backward_matches_the_references_attention(causal, form):
     """The plain version of the D 192 backward in both its forms — the
-    wgmma route's, reading the forward's log-sum-exp (bf16 on the card),
-    and the simt route's, recomputing it (float32 on the card) — against
+    wgmma and tf32x3 routes', reading the forward's log-sum-exp (bf16 and
+    float32 on the card), and the simt route's, recomputing it — against
     ``jax.grad`` of the reference's blocked online softmax
     (``_blocked_attn``) at nemotron's head dim, GQA 12 (12 query heads on
     one KV head), L 40, at atol 2e-5, rtol 1e-5; non-causal as the
@@ -376,17 +377,18 @@ def test_head_dim_192_takes_the_wgmma_routes():
     """bf16 at D 192 takes the wgmma forward (nemotron's serving prefill
     and training forward, which writes the log-sum-exp) and the wgmma
     backward, in three launches (dq, dv, dk); float32 there takes the
-    simt forward and the simt backward, in three launches too."""
+    tf32x3 forward and the tf32x3 backward, in three launches too."""
     bf16, f32 = torch.bfloat16, torch.float32
     for lq in (2, 130, 4096):
         assert fa.route(bf16, 1, lq, lq, 96, 8, 192, True) == "wgmma"
         assert fa.route(bf16, 1, lq, lq, 96, 8, 192, False) == "wgmma"
         assert fa.route_bwd(bf16, lq, 192) == "wgmma"
         assert fa.bwd_launches(bf16, lq, 192) == 3
-        assert fa.route(f32, 1, lq, lq, 96, 8, 192, True) == "simt"
-        assert fa.route_bwd(f32, lq, 192) == "simt"
+        assert fa.route(f32, 1, lq, lq, 96, 8, 192, True) == "tf32x3"
+        assert fa.route_bwd(f32, lq, 192) == "tf32x3"
     assert fa.route(bf16, 1, 1, 4096, 96, 8, 192, True) == "decode"
     assert 192 in fa.bwd_head_dims("wgmma")
+    assert 192 in fa.bwd_head_dims("tf32x3")
     assert 192 in fa.bwd_head_dims("simt")
     assert fa.BWD_HEAD_DIMS == (16, 32, 64, 80, 96, 128, 192)
     assert fa.bwd_launches(bf16, 4096, 128) == 2
@@ -394,13 +396,13 @@ def test_head_dim_192_takes_the_wgmma_routes():
 
 @pytest.mark.parametrize("lq", [2, 200, 4096])
 def test_float32_head_dim_192_takes_the_split_simt_backward(lq):
-    """float32 at D 192 takes the simt backward in three launches (dq,
-    then dv and dk apart: their fused launch would pass the shared memory
-    a block may hold), as bf16 there takes the wgmma one; the dk/dv
-    wrappers of both routes take one part at 192 and both below it, and
-    refuse the other form before any launch."""
+    """float32 at D 192 takes the tf32x3 backward in three launches (dq,
+    then dv and dk apart: their fused launch would pass what a thread's
+    registers hold), as bf16 there takes the wgmma one; the dk/dv wrappers
+    of every route take one part at 192 and both below it, and refuse the
+    other form before any launch."""
     f32, bf16 = torch.float32, torch.bfloat16
-    assert fa.route_bwd(f32, lq, 192) == "simt"
+    assert fa.route_bwd(f32, lq, 192) == "tf32x3"
     assert fa.bwd_launches(f32, lq, 192) == 3
     assert fa.bwd_launches(f32, lq, 128) == 2
     assert fa.bwd_launches(bf16, lq, 192) == 3
