@@ -117,9 +117,15 @@ def popcount(mask: torch.Tensor) -> torch.Tensor:
     return (((x * 0x01010101) & MASK32) >> 24).to(torch.int32)
 
 
+def any_set_flag(mask: torch.Tensor) -> torch.Tensor:
+    """0-d bool tensor on the mask's device: any bit set (launched, not
+    read)."""
+    return torch.any(mask != 0)
+
+
 def any_set(mask: torch.Tensor) -> bool:
     """True if any bit is set anywhere in the mask (one host sync)."""
-    return bool(torch.any(mask != 0))
+    return bool(any_set_flag(mask))
 
 
 def count_colors(mask: torch.Tensor) -> torch.Tensor:

@@ -21,12 +21,14 @@ does: ``grid_steps`` is ``levels · num_tiles`` on the dense grid and the
 sum of the per-level ladder rungs (`sparse.ladder_rung`) on the compacted
 one, so `scripts/check_work_counters.py`'s comparison reads the same
 quantity.  A ``work`` dict, when given, receives the per-level
-``grid_steps`` and the exact ``active_tiles`` the kernels walked.
+``grid_steps``, the exact ``active_tiles`` the kernels walked and the
+traversal's blocking device reads (``syncs``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import bitmask, sparse, tiles
 from repro_torch.core.traversal import init_frontier
 from repro_torch.kernels import ops
@@ -37,33 +39,52 @@ def _run_levels(tg: tiles.TiledGraph, starts, num_colors: int,
                 max_levels: int, frontier: str, ladder, expand, work):
     """The level loop both runners share; ``expand(fr, vis, level,
     tile_ids)`` is one kernel level over every tile (``tile_ids`` None) or
-    the listed ones."""
+    the listed ones.  Each level is a `tracing` span ``level``; the test
+    of a frontier is launched with the level's kernel and read apart
+    (``level.sync``), so the blocking read stands alone."""
     if frontier not in ("dense", "sparse"):
         raise ValueError(f"frontier {frontier!r} not in ('dense', 'sparse')")
     if frontier == "sparse" and ladder is None:
         ladder = sparse.bucket_ladder(tg.num_tiles)
-    fr = tiles.pad_mask_rows(
-        init_frontier(tg.num_vertices, num_colors, starts, tg.device),
-        tg.padded_vertices)
-    visited = torch.zeros_like(fr)
+    with tracing.span("frontier.init"):
+        fr = tiles.pad_mask_rows(
+            init_frontier(tg.num_vertices, num_colors, starts, tg.device),
+            tg.padded_vertices)
+        visited = torch.zeros_like(fr)
     steps, active = [], []
-    level = 0
-    while level < max_levels and bitmask.any_set(fr):
-        visited |= fr                                    # Listing 1 line 8
-        if frontier == "sparse":
-            ids = tiles.active_tile_ids(
-                tg.tile_src, sparse.row_block_activity(fr, tg.tile_size))
-            active.append(int(ids.numel()))
-            steps.append(sparse.ladder_rung(active[-1], ladder))
-            fr = expand(fr, visited, level, ids)
-        else:
-            active.append(tg.num_tiles)
-            steps.append(tg.num_tiles)
-            fr = expand(fr, visited, level, None)
-        level += 1
+    level = syncs = 0                # syncs: blocking device reads
+    live = max_levels > 0
+    if live:
+        with tracing.span("level.sync"):
+            live = bitmask.any_set(fr)
+        syncs += 1
+    while live and level < max_levels:
+        with tracing.span("level"):
+            ids = None
+            if frontier == "sparse":
+                with tracing.span("level.compact"):
+                    ids = tiles.active_tile_ids(
+                        tg.tile_src,
+                        sparse.row_block_activity(fr, tg.tile_size))
+                    active.append(int(ids.numel()))      # nonzero's read
+                syncs += 1
+                steps.append(sparse.ladder_rung(active[-1], ladder))
+            else:
+                active.append(tg.num_tiles)
+                steps.append(tg.num_tiles)
+            with tracing.span("level.expand"):
+                visited |= fr                            # Listing 1 line 8
+                fr = expand(fr, visited, level, ids)
+                level += 1
+                if level < max_levels:
+                    test = bitmask.any_set_flag(fr)
+            if level < max_levels:
+                with tracing.span("level.sync"):
+                    live = bool(test)
+                syncs += 1
     visited |= fr                                        # cap-level colours
     if work is not None:
-        work.update(grid_steps=steps, active_tiles=active)
+        work.update(grid_steps=steps, active_tiles=active, syncs=syncs)
     return visited[: tg.num_vertices], level, sum(steps)
 
 

@@ -42,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import bitmask, lt, rrr, sparse, tiled_traversal, \
     tiles, traversal
 from repro_torch.graph import csr
@@ -208,7 +209,9 @@ class TiledSampler(Sampler):
     every sampler over it.  Requires a parallel-edge-free graph
     (``csr.dedupe``).  ``last_levels``, ``last_grid_steps`` (ladder rungs
     summed, the reference's counter) and ``last_active_tiles`` (the tiles
-    the kernels walked) describe the last `sample` call."""
+    the kernels walked) describe the last `sample` call; while `tracing`
+    records, a call is a span ``sampler.batch`` and adds to the counters
+    ``sampler.levels`` and ``sampler.syncs``."""
 
     def __init__(self, g, spec, *, g_rev=None):
         super().__init__(g, spec, g_rev=g_rev)
@@ -237,23 +240,27 @@ class TiledSampler(Sampler):
         self.last_active_tiles = 0
 
     def sample(self, batch_index: int) -> rrr.RRRBatch:
-        spec = self.spec
-        starts = self.batch_starts(batch_index)
-        seed = self.batch_seed(batch_index)
-        work: dict = {}
-        kw = dict(max_levels=spec.max_iters, frontier=spec.frontier,
-                  ladder=self._ladder, work=work)
-        if spec.diffusion == "lt":
-            visited, levels, gs = tiled_traversal.run_fused_lt_tiled(
-                self.tg_rev, self._cb_tiles, starts, spec.num_colors, seed,
-                **kw)
-        else:
-            visited, levels, gs = tiled_traversal.run_fused_tiled(
-                self.tg_rev, starts, spec.num_colors, seed, **kw)
-        self.last_levels = levels
-        self.last_grid_steps = gs
-        self.last_active_tiles = sum(work["active_tiles"])
-        return rrr.RRRBatch(visited, starts, int(batch_index), -1, -1)
+        with tracing.span("sampler.batch", int(batch_index)):
+            spec = self.spec
+            with tracing.span("sampler.setup"):
+                starts = self.batch_starts(batch_index)
+                seed = self.batch_seed(batch_index)
+            work: dict = {}
+            kw = dict(max_levels=spec.max_iters, frontier=spec.frontier,
+                      ladder=self._ladder, work=work)
+            if spec.diffusion == "lt":
+                visited, levels, gs = tiled_traversal.run_fused_lt_tiled(
+                    self.tg_rev, self._cb_tiles, starts, spec.num_colors,
+                    seed, **kw)
+            else:
+                visited, levels, gs = tiled_traversal.run_fused_tiled(
+                    self.tg_rev, starts, spec.num_colors, seed, **kw)
+            self.last_levels = levels
+            self.last_grid_steps = gs
+            self.last_active_tiles = sum(work["active_tiles"])
+            tracing.count("sampler.levels", levels)
+            tracing.count("sampler.syncs", work["syncs"])
+            return rrr.RRRBatch(visited, starts, int(batch_index), -1, -1)
 
 
 class _BlockSampler(Sampler):

@@ -22,14 +22,20 @@ within ``s`` seconds"; the batcher never flushes by itself, but exposes
 ``oldest_deadline()`` / ``pending_count`` so a driver
 (`repro_torch.serve.distributed.frontend.AsyncFrontEnd`) can flush on
 *full slot or oldest deadline, whichever first*.
+
+**Tracing.**  A flush is a `repro_torch.tracing` span ``batcher.flush``
+(rid: its sequence number) holding ``batcher.lookup``, the engine's spans
+and ``batcher.store``.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 import time
 from typing import Any
 
+from repro_torch import tracing
 from repro_torch.serve.influence import cache as cache_lib
 
 TOP_K, SIGMA, MARGINAL = "top_k", "sigma", "marginal"
@@ -70,6 +76,7 @@ class MicroBatcher:
         self._lock = threading.RLock()
         self._pending: list[_Pending] = []
         self._next_ticket = 0
+        self._flush_seq = itertools.count()     # a flush's `tracing` rid
         self.dispatches = 0         # device dispatches issued (observability)
 
     # ------------------------------------------------------------- submit
@@ -139,27 +146,28 @@ class MicroBatcher:
         tickets; later submits are untouched and stay pending.  A driver
         delivers the partials and fails precisely the named callers.
         """
-        with self._lock:
-            pending, self._pending = self._pending, []
-            # Snapshot the pool version with the batch: results are tagged
-            # with the version they were *requested* under, so a refresh
-            # landing mid-dispatch can only make these entries stale
-            # (miss + recompute later), never poison the cache with an
-            # old answer filed under the new version.
-            version = self.engine.store.version
-        results: dict[int, Any] = {}
-        try:
-            self._flush(pending, results, version)
-        except Exception as e:              # noqa: BLE001 — annotate + rethrow
-            unanswered = [p.ticket for p in pending
-                          if p.ticket not in results]
-            raise FlushError(unanswered, results, e) from e
-        return results
+        with tracing.span("batcher.flush", next(self._flush_seq)):
+            with self._lock:
+                pending, self._pending = self._pending, []
+                # Snapshot the pool version with the batch: results are
+                # tagged with the version they were *requested* under, so
+                # a refresh landing mid-dispatch can only make these
+                # entries stale (miss + recompute later), never poison the
+                # cache with an old answer filed under the new version.
+                version = self.engine.store.version
+            results: dict[int, Any] = {}
+            try:
+                self._flush(pending, results, version)
+            except Exception as e:      # noqa: BLE001 — annotate + rethrow
+                unanswered = [p.ticket for p in pending
+                              if p.ticket not in results]
+                raise FlushError(unanswered, results, e) from e
+            return results
 
     def _flush(self, pending: list[_Pending], results: dict[int, Any],
                version) -> None:
         todo: dict[str, dict[tuple, list[_Pending]]] = {}
-        with self._lock:
+        with tracing.span("batcher.lookup"), self._lock:
             for p in pending:
                 hit = self._lookup(p, version)
                 if hit is not None:
@@ -169,7 +177,7 @@ class MicroBatcher:
 
         for key, ps in todo.get(TOP_K, {}).items():
             value = self.engine.top_k(key[0])
-            with self._lock:
+            with tracing.span("batcher.store"), self._lock:
                 self.dispatches += 1
                 self._store(ps[0], value, version)
                 for p in ps:
@@ -182,7 +190,7 @@ class MicroBatcher:
             for i in range(0, len(groups), slots):
                 chunk = groups[i:i + slots]
                 values = run([ps[0].seeds for _, ps in chunk])
-                with self._lock:
+                with tracing.span("batcher.store"), self._lock:
                     self.dispatches += 1
                     for (key, ps), value in zip(chunk, values):
                         self._store(ps[0], value, version)

@@ -14,13 +14,16 @@ Three query types, answered from the pool's columnar ``(B, V, W)`` stack:
 
 σ(S)/marginal queries are slotted: the batcher pads every flush into a
 fixed ``(query_slots, max_seeds)`` shape, so concurrent callers share one
-pass over the pool.
+pass over the pool.  Each query program is a `repro_torch.tracing` span
+(``engine.pad``, ``engine.top_k``, ``engine.sigma``, ``engine.marginal``;
+the last two split into ``.count``, ``.read`` and ``.scale``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import bitmask, imm
 from repro_torch.kernels import ops
 from repro_torch.serve.influence import sketch_store
@@ -102,24 +105,38 @@ class QueryEngine:
 
     def pad(self, seed_sets):
         """``pad_queries`` at this engine's slot shape and device."""
-        return pad_queries(seed_sets, self.query_slots, self.max_seeds,
-                           self.device)
+        with tracing.span("engine.pad"):
+            return pad_queries(seed_sets, self.query_slots, self.max_seeds,
+                               self.device)
+
+    def _estimates(self, counts: torch.Tensor, read: str,
+                   scale: str) -> np.ndarray:
+        """The counts read to the host (span ``read``: one blocking copy)
+        and scaled to estimates (span ``scale``: float64, × n/θ)."""
+        with tracing.span(read):
+            counts = counts.cpu()
+        with tracing.span(scale):
+            return _frozen(counts.numpy().astype(np.float64)
+                           * self._n / self._theta)
 
     # -------------------------------------------------------------- top-k
     def top_k(self, k: int) -> tuple[np.ndarray, float]:
         """Greedy seed selection over the pool: (seeds (k,), σ estimate)."""
-        seeds, cov = imm.greedy_max_cover(
-            self.store.visited_stack(), k, self.store.num_colors)
-        return _frozen(seeds), cov * self._n
+        with tracing.span("engine.top_k"):
+            seeds, cov = imm.greedy_max_cover(
+                self.store.visited_stack(), k, self.store.num_colors)
+            return _frozen(seeds), cov * self._n
 
     # --------------------------------------------------------------- σ(S)
     def sigma_padded(self, seeds: torch.Tensor,
                      mask: torch.Tensor) -> np.ndarray:
         """σ estimates for pre-padded (Q, S) queries."""
-        counts = sigma_counts(self.store.visited_stack(), seeds, mask,
-                              self.store.num_colors)
-        return _frozen(counts.cpu().numpy().astype(np.float64)
-                       * self._n / self._theta)
+        with tracing.span("engine.sigma"):
+            with tracing.span("engine.sigma.count"):
+                counts = sigma_counts(self.store.visited_stack(), seeds,
+                                      mask, self.store.num_colors)
+            return self._estimates(counts, "engine.sigma.read",
+                                   "engine.sigma.scale")
 
     def sigma(self, seed_sets) -> np.ndarray:
         """σ(S) for ≤ ``query_slots`` ragged seed sets."""
@@ -129,10 +146,13 @@ class QueryEngine:
     def marginal_padded(self, excl_seeds: torch.Tensor,
                         excl_mask: torch.Tensor) -> np.ndarray:
         """(Q, V) per-vertex Δσ(v | X) for pre-padded exclusion sets."""
-        counts = marginal_counts(self.store.visited_stack(), excl_seeds,
-                                 excl_mask, self.store.num_colors)
-        return _frozen(counts.cpu().numpy().astype(np.float64)
-                       * self._n / self._theta)
+        with tracing.span("engine.marginal"):
+            with tracing.span("engine.marginal.count"):
+                counts = marginal_counts(self.store.visited_stack(),
+                                         excl_seeds, excl_mask,
+                                         self.store.num_colors)
+            return self._estimates(counts, "engine.marginal.read",
+                                   "engine.marginal.scale")
 
     def marginal_gains(self, exclude) -> np.ndarray:
         """(V,) per-vertex marginal influence gain given exclusions;

@@ -32,7 +32,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch import convert
+from repro_torch import convert, tracing
 from repro_torch.checkpoint import manager
 from repro_torch.core import bitmask, rrr
 from repro_torch.graph import csr
@@ -206,21 +206,23 @@ class SketchStore:
         (oldest epoch tag first, lowest slot on ties) with new samples drawn
         at never-before-used batch indices.  Returns the replaced slots.  The
         stack is rewritten in place: a stack returned earlier by
-        ``visited_stack()`` sees the new slots.
+        ``visited_stack()`` sees the new slots.  A `tracing` span
+        ``store.refresh``.
         """
         if not self.batches:
             return []
-        self.epoch += 1
-        count = min(len(self.batches),
-                    max(1, math.ceil(fraction * len(self.batches))))
-        order = sorted(range(len(self.batches)),
-                       key=lambda i: (self.batch_epochs[i], i))
-        slots = order[:count]
-        new = self._sample_block(self._take_indices(count))
-        for i, b in zip(slots, new):
-            self.batches[i] = b
-            self.batch_epochs[i] = self.epoch
-        self._update_stack(slots, new)
+        with tracing.span("store.refresh"):
+            self.epoch += 1
+            count = min(len(self.batches),
+                        max(1, math.ceil(fraction * len(self.batches))))
+            order = sorted(range(len(self.batches)),
+                           key=lambda i: (self.batch_epochs[i], i))
+            slots = order[:count]
+            new = self._sample_block(self._take_indices(count))
+            for i, b in zip(slots, new):
+                self.batches[i] = b
+                self.batch_epochs[i] = self.epoch
+            self._update_stack(slots, new)
         return slots
 
     def _update_stack(self, slots: list[int],
@@ -229,8 +231,10 @@ class SketchStore:
         unbuilt): a stack returned earlier by ``visited_stack()`` sees the
         new slots."""
         if self._stack is not None:
-            self._stack[torch.tensor(slots, device=self._stack.device)] = \
-                rrr.stack_visited(new_batches)
+            with tracing.span("store.update"):
+                self._stack[torch.tensor(slots,
+                                         device=self._stack.device)] = \
+                    rrr.stack_visited(new_batches)
 
     # ---------------------------------------------------- streaming deltas
     def apply_graph_update(self, g: csr.Graph, g_rev: csr.Graph,
